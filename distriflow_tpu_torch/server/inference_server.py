@@ -1,0 +1,1056 @@
+"""Port of ``distriflow_tpu/server/inference_server.py``: serve KV-cache
+decoding over the wire transport (beam search, scoring and speculative
+decoding are not ported yet).
+
+Events, byte-compatible with the JAX package's clients (arrays travel as
+``pack_bytes``/``SerializedArray`` buffers):
+
+- ``model_info``  {} -> {vocab_size, max_seq, d_model, n_layers, n_heads, name}
+- ``generate``    {prompt: <packed {tokens}>, n_tokens, temperature?,
+  top_k?, top_p?, eos_id?, seed?, request_id?, tier?} ->
+  {result: <packed {tokens}>, serving: {path, queue_ms?, ...}}
+- ``drain``, ``fleet_stats``, ``hedge_cancel`` — the fleet-router plane.
+- ``beam`` and ``score`` answer ``{"error": "... not ported yet"}``.
+
+``generate`` requests are served by the continuous-batching engine: one
+scheduler thread admits queued requests into free slots (gated on free KV
+pages under the default paged layout, with prefix sharing and
+copy-on-write), advances every live row ``decode_chunk`` tokens per
+iteration and retires finished rows at chunk boundaries. Requests the
+engine cannot take (more rows than slots, multi-row sampled prompts) run
+the solo :func:`~distriflow_tpu_torch.models.generate.generate` ("direct").
+Greedy rows are row-independent; sampled rows draw from their own
+``(seed, position)`` streams, so neither depends on batch composition.
+"""
+
+from __future__ import annotations
+
+import queue as queue_mod
+import threading
+import time as time_mod
+from collections import OrderedDict, deque
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from distriflow_tpu_torch.analysis.witness import PoolWitness
+from distriflow_tpu_torch.comm.transport import ServerTransport
+from distriflow_tpu_torch.fleet.prefix_hash import page_hashes
+from distriflow_tpu_torch.models.generate import (
+    _check_fits,
+    decode_chunk,
+    extend,
+    gather_rows,
+    generate,
+    paged_cache,
+    paged_insert,
+    pages_per_slot,
+    pick_rows,
+    prefill,
+    set_page_tables,
+    slot_cache,
+    slot_insert,
+)
+from distriflow_tpu_torch.models.transformer import TransformerLM
+from distriflow_tpu_torch.obs import FleetTable, get_telemetry
+from distriflow_tpu_torch.utils.config import ServingConfig
+from distriflow_tpu_torch.utils.logging import VerboseLogger
+from distriflow_tpu_torch.utils.serialization import (
+    deserialize_array,
+    pack_bytes,
+    serialize_array,
+    unpack_bytes,
+)
+
+MAX_PROMPT_BATCH = 64  # refuse absurd wire batches before touching the device
+BATCH_WINDOW_S = 0.004  # collection window after the first idle-state request
+
+
+class _Request:
+    """One queued ``generate`` request awaiting the engine."""
+
+    __slots__ = (
+        "prompt", "n_tokens", "temperature", "top_k", "top_p", "eos",
+        "seed", "client_id", "enq_t", "admit_t", "rows_out", "rows_left",
+        "cancelled", "done", "result", "error", "page_plan",
+        "trace_id", "parent_span", "request_id", "tier", "first_tok_t",
+        "ttft_ms", "tpot_ms",
+    )
+
+    def __init__(self, prompt: np.ndarray, n_tokens: int, temperature: float,
+                 top_k: int, top_p: float, eos: int, seed: int,
+                 client_id: str):
+        self.prompt = prompt
+        self.n_tokens = n_tokens
+        self.temperature = temperature
+        self.top_k = top_k          # 0 = off
+        self.top_p = top_p          # 1.0 = off
+        self.eos = eos              # -1 = no eos
+        self.seed = seed
+        self.client_id = client_id
+        self.enq_t = time_mod.monotonic()
+        self.admit_t: Optional[float] = None
+        self.rows_out: List[Optional[np.ndarray]] = [None] * prompt.shape[0]
+        self.rows_left = prompt.shape[0]
+        self.cancelled = False
+        self.done = threading.Event()
+        self.result: Optional[np.ndarray] = None
+        self.error: Optional[Exception] = None
+        # paged layout: per-row page reservation ({"shared", "owned",
+        # "hashes", "committed"}), released at slot retirement (committed)
+        # or by _release_plan (admission failure)
+        self.page_plan: Optional[List[Dict[str, Any]]] = None
+        self.trace_id = ""
+        self.parent_span = ""
+        self.request_id: Optional[str] = None
+        self.tier = 0
+        self.first_tok_t: Optional[float] = None
+        self.ttft_ms: Optional[float] = None
+        self.tpot_ms: Optional[float] = None
+
+
+class _PagePool:
+    """Host-side allocator for the paged KV cache's physical pages: free
+    list plus refcounts. Runs on the single scheduler thread."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = n_pages
+        self._free: List[int] = list(range(n_pages - 1, -1, -1))
+        self._refs = np.zeros((n_pages,), np.int32)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.n_pages - len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return int(self._refs[page])
+
+    def alloc(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise RuntimeError(
+                f"page pool exhausted: need {n}, have {len(self._free)}")
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._refs[p] = 1
+        return pages
+
+    def ref(self, pages: List[int]) -> None:
+        for p in pages:
+            if self._refs[p] <= 0:
+                raise RuntimeError(f"ref of free page {p}")
+            self._refs[p] += 1
+
+    def unref(self, pages: List[int]) -> int:
+        """Drop one reference per page; returns how many went free."""
+        freed = 0
+        for p in pages:
+            self._refs[p] -= 1
+            if self._refs[p] == 0:
+                self._free.append(p)
+                freed += 1
+            elif self._refs[p] < 0:
+                raise RuntimeError(f"unref of free page {p}")
+        return freed
+
+
+def _prompt_from(payload: Dict[str, Any], limit: Optional[int] = None) -> np.ndarray:
+    cap = MAX_PROMPT_BATCH if limit is None else limit
+    arr = np.asarray(deserialize_array(unpack_bytes(payload["prompt"])["tokens"]))
+    if arr.ndim != 2:
+        raise ValueError(f"prompt must be [B, P], got shape {arr.shape}")
+    if not 1 <= arr.shape[0] <= cap:
+        raise ValueError(f"prompt batch {arr.shape[0]} outside [1, {cap}]")
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError(f"prompt must be integer tokens, got {arr.dtype}")
+    return arr.astype(np.int32)
+
+
+class InferenceServer:
+    """Serve a :class:`TransformerLM`'s decoding over the native transport.
+    The model's device (``cuda`` unless it was built on the CPU) is where
+    every request runs."""
+
+    def __init__(
+        self,
+        model: TransformerLM,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        verbose: Optional[bool] = None,
+        serving: Optional[ServingConfig] = None,
+        telemetry: Any = None,
+    ):
+        self.model = model
+        self.config = config = model.config
+        self.serving = (serving or ServingConfig()).validate()
+        if self.serving.speculate_k > 0:
+            raise NotImplementedError("speculative decoding (speculate_k > 0) is not ported yet")
+        self.logger = VerboseLogger("InferenceServer", verbose)
+        self._device_lock = threading.Lock()  # one device program at a time
+        self.transport = ServerTransport(host, port)
+        self.transport.on("model_info", self._on_info)
+        self.transport.on("generate", self._on_generate)
+        self.transport.on("beam", self._on_beam)
+        self.transport.on("score", self._on_score)
+        self.transport.on("fleet_stats", self._on_fleet_stats)
+        self.transport.on("drain", self._on_drain)
+        self.transport.on("hedge_cancel", self._on_hedge_cancel)
+        self.transport.on_disconnect = self._on_client_disconnect
+        # fleet-router plane: draining refuses NEW generates; request-id
+        # dedup returns a cached ack for a replayed id and parks a
+        # duplicate of an in-flight id on the original's compute
+        self._draining = False
+        self._dedup_lock = threading.Lock()
+        self._req_results: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()  # guarded-by: _dedup_lock
+        self._req_live: Dict[str, threading.Event] = {}  # guarded-by: _dedup_lock
+        self._dedup_cap = 256
+        self._evicted_prefixes: Deque[bytes] = deque(maxlen=512)
+        self._prefix_hit_counts: Dict[bytes, int] = {}
+        self.prefix_hits = 0  # single-writer: scheduler thread
+        self._queue: "queue_mod.Queue[Optional[_Request]]" = queue_mod.Queue()
+        self._backlog: Deque[_Request] = deque()  # pulled, awaiting a slot
+        self._dispatcher: Optional[threading.Thread] = None
+        self._stopped = threading.Event()
+        # single-writer counters (scheduler thread), read by tests
+        self.decode_batches = 0
+        self.batched_requests = 0
+        self._inflight_lock = threading.Lock()
+        self._inflight: Dict[str, List[_Request]] = {}  # guarded-by: _inflight_lock
+        # slot state (host side; the device cache is allocated at the first
+        # admission). Free slots sit done=True so the decode loop leaves
+        # them frozen; their writes stay confined to their own row.
+        s = self.serving.max_slots
+        self._slot_cache: Any = None
+        self._tok = np.zeros((s,), np.int32)
+        self._done = np.ones((s,), bool)
+        self._temps = np.zeros((s,), np.float32)
+        self._top_ks = np.zeros((s,), np.int32)
+        self._top_ps = np.ones((s,), np.float32)
+        self._seeds = np.zeros((s,), np.int32)
+        self._eos = np.full((s,), -1, np.int32)
+        self._slot_req: List[Optional[_Request]] = [None] * s
+        self._slot_row = np.zeros((s,), np.int32)
+        self._slot_emitted = np.zeros((s,), np.int64)
+        # paged layout: the host owns the authoritative page table; every
+        # mutation marks it dirty and the next dispatch re-installs it, so
+        # a retired slot's frozen writes never land in a re-issued page
+        self._paged = self.serving.kv_layout == "paged"
+        self._pp = pages_per_slot(config.max_seq, self.serving.page_size)
+        self._n_pages = self.serving.pool_pages(config.max_seq)
+        self._pool = _PagePool(self._n_pages) if self._paged else None
+        self._pool_witness = PoolWitness(self._n_pages) if self._paged else None
+        self._tables = np.full((s, self._pp + 1), self._n_pages, np.int32)
+        self._tables_dirty = False
+        self._slot_pages: List[List[int]] = [[] for _ in range(s)]
+        # prefix-reuse map: chain hash of a prompt's j-th full page ->
+        # physical page; one pool reference per entry; insertion order is
+        # the LRU order
+        self._prefix_map: "OrderedDict[bytes, int]" = OrderedDict()
+        tel = telemetry if telemetry is not None else get_telemetry()
+        self._m_batches = tel.counter(
+            "serving_decode_batches_total",
+            help="decode batches dispatched by the engine loop")
+        self._m_admitted = tel.counter(
+            "serving_batched_requests_total",
+            help="requests admitted into a decode slot")
+        self._m_tokens = tel.counter(
+            "serving_tokens_generated_total",
+            help="output tokens committed across all slots")
+        self._m_slots = tel.gauge(
+            "serving_slots_active", help="decode slots currently occupied")
+        self._m_qwait = tel.histogram(
+            "serving_queue_wait_ms",
+            help="enqueue-to-admission wait per request (ms)")
+        self._m_ttft = {t: tel.histogram(
+            "serving_ttft_ms", tier=str(t),
+            help="enqueue-to-first-token wall per request (ms), by tier")
+            for t in (0, 1, 2)}
+        self._m_tpot = {t: tel.histogram(
+            "serving_time_per_output_token_ms", tier=str(t),
+            help="per-slot decode interval per emitted token (ms), by tier")
+            for t in (0, 1, 2)}
+        self._ttft_peak = {0: 0.0, 1: 0.0, 2: 0.0}
+        self._tpot_peak = {0: 0.0, 1: 0.0, 2: 0.0}
+        self._slot_emit_t = [0.0] * s
+        self._m_pages = tel.gauge(
+            "serving_page_occupancy",
+            help="fraction of KV-cache pages currently allocated")
+        self._m_prefix_hits = tel.counter(
+            "serving_prefix_hits_total",
+            help="admissions that reused a cached prefix")
+        self._m_dedup_hits = tel.counter(
+            "serving_dedup_hits_total",
+            help="duplicate request_ids suppressed by the dedup gate "
+                 "(cached-ack returns + in-flight parks)")
+        self._m_hedge_cancelled = tel.counter(
+            "serving_hedge_cancelled_total",
+            help="in-flight requests flagged cancelled by hedge_cancel")
+        self._m_prefix_tokens = tel.counter(
+            "serving_prefix_tokens_saved_total",
+            help="prompt tokens skipped via prefix-cache reuse")
+        self._m_pages_alloc = tel.counter(
+            "serving_pages_allocated_total", help="KV-cache pages allocated")
+        self._m_pages_freed = tel.counter(
+            "serving_pages_released_total", help="KV-cache pages released")
+        self._prof = tel.profiler("serving")
+        self.fleet = FleetTable()
+        self._tel = tel
+        tel.register_fleet(id(self), self.fleet.snapshot)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def setup(self) -> "InferenceServer":
+        self._stopped.clear()
+        self._drain_and_error()
+        self.transport.start()
+        self._dispatcher = threading.Thread(
+            target=self._engine_loop, daemon=True, name="inference-batcher")
+        self._dispatcher.start()
+        self.logger.log(f"serving on {self.address}")
+        return self
+
+    def stop(self) -> None:
+        self._stopped.set()  # before the drain: closes the enqueue race
+        self.transport.stop()
+        if self._dispatcher is not None:
+            self._queue.put(None)  # wake + exit sentinel
+            self._dispatcher.join(timeout=5.0)
+            self._dispatcher = None
+        self._drain_and_error()
+        self._tel.unregister_fleet(id(self))
+        self.verify_pool_conservation("stop")
+
+    @property
+    def address(self) -> str:
+        return self.transport.address
+
+    def set_params(self, state_dict: Dict[str, Any]) -> None:
+        """Swap serving weights; live requests continue on the new weights
+        from their next chunk (the KV cache is config-shaped only)."""
+        with self._device_lock:
+            self.model.load_state_dict(state_dict, strict=True)
+
+    def _window_s(self) -> float:
+        w = self.serving.batch_window_s
+        return BATCH_WINDOW_S if w is None else w
+
+    def _prompt_cap(self) -> int:
+        cap = self.serving.max_prompt_batch
+        return MAX_PROMPT_BATCH if cap is None else cap
+
+    # -- handlers (run in the transport's executor; return value = ack) ----
+
+    def _on_info(self, client_id: str, payload: Any) -> Dict[str, Any]:
+        cfg = self.config
+        return {
+            "name": "transformer_lm",
+            "vocab_size": cfg.vocab_size,
+            "max_seq": cfg.max_seq,
+            "d_model": cfg.d_model,
+            "n_layers": cfg.n_layers,
+            "n_heads": cfg.n_heads,
+        }
+
+    def _on_client_disconnect(self, client_id: str) -> None:
+        """Cancel the departed client's work: queued requests are skipped at
+        admission, live slots retire at the next chunk boundary."""
+        with self._inflight_lock:
+            for req in self._inflight.get(client_id, ()):
+                req.cancelled = True
+        self.fleet.disconnect(client_id)
+
+    def begin_drain(self) -> None:
+        """Refuse NEW generates with ``{"refused": "draining"}`` while
+        in-flight work completes."""
+        self._draining = True
+        self.logger.log("draining: refusing new generates")
+
+    def end_drain(self) -> None:
+        self._draining = False
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def _on_drain(self, client_id: str, payload: Any) -> Dict[str, Any]:
+        if bool((payload or {}).get("enable", True)):
+            self.begin_drain()
+        else:
+            self.end_drain()
+        return {"draining": self._draining}
+
+    def _on_fleet_stats(self, client_id: str, payload: Any) -> Dict[str, Any]:
+        """Routing signals for the fleet router (advisory snapshots).
+        ``evicted_prefixes`` is a drain: each evicted hash ships once."""
+        evicted: List[str] = []
+        while True:
+            try:
+                evicted.append(self._evicted_prefixes.popleft().hex())
+            except IndexError:
+                break
+        try:
+            counts = list(self._prefix_hit_counts.items())
+        except RuntimeError:  # resized mid-iteration by the scheduler
+            counts = []
+        counts.sort(key=lambda kv: -kv[1])
+        warm = [[h.hex(), int(n)] for h, n in counts[:256]]
+        paged = self._paged
+        return {
+            "queue_depth": self._queue.qsize() + len(self._backlog),
+            "slots_active": sum(1 for r in self._slot_req if r is not None),
+            "max_slots": self.serving.max_slots,
+            "draining": self._draining,
+            "page_size": self.serving.page_size,
+            "prefix_sharing": bool(paged and self.serving.prefix_sharing),
+            "page_occupancy": (self._pool.used_pages / self._n_pages) if paged else 0.0,
+            "free_pages": self._pool.free_pages if paged else -1,
+            "prefix_hits": self.prefix_hits,
+            "speculate_k": 0,
+            "spec_accept_per_step": 0.0,
+            "evicted_prefixes": evicted,
+            "warm_prefixes": warm,
+            "prefix_entries": len(self._prefix_map),
+        }
+
+    def _on_hedge_cancel(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """Cancel every in-flight admission carrying this request_id (the
+        losing attempt of a hedged request)."""
+        rid = str(payload.get("request_id"))
+        cancelled = 0
+        with self._inflight_lock:
+            for reqs in self._inflight.values():
+                for req in reqs:
+                    if req.request_id == rid and not req.cancelled:
+                        req.cancelled = True
+                        cancelled += 1
+        if cancelled:
+            self._m_hedge_cancelled.inc(cancelled)
+        return {"request_id": rid, "cancelled": cancelled}
+
+    def _on_generate(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """Drain refusal + request-id idempotency around :meth:`_generate_ack`."""
+        rid = payload.get("request_id")
+        if rid is None:
+            if self._draining:
+                return {"refused": "draining"}
+            return self._generate_ack(client_id, payload)
+        rid = str(rid)
+        with self._dedup_lock:
+            cached = self._req_results.get(rid)
+            if cached is not None:
+                self._req_results.move_to_end(rid)
+                self._m_dedup_hits.inc()
+                return cached
+            gate = self._req_live.get(rid)
+            if gate is None and not self._draining:
+                self._req_live[rid] = threading.Event()
+        if gate is not None:
+            # duplicate of an in-flight request: ride the original
+            self._m_dedup_hits.inc()
+            gate.wait(timeout=600.0)
+            with self._dedup_lock:
+                cached = self._req_results.get(rid)
+            if cached is not None:
+                return cached
+            # the original errored: compute fresh (deterministic decode)
+        if self._draining:
+            return {"refused": "draining"}
+        try:
+            ack = self._generate_ack(client_id, payload)
+            with self._dedup_lock:
+                self._req_results[rid] = ack
+                while len(self._req_results) > self._dedup_cap:
+                    self._req_results.popitem(last=False)
+            return ack
+        finally:
+            with self._dedup_lock:
+                evt = self._req_live.pop(rid, None)
+            if evt is not None:
+                evt.set()
+
+    def _generate_ack(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        prompt = _prompt_from(payload, self._prompt_cap())
+        n_tokens = int(payload["n_tokens"])
+        temperature = float(payload.get("temperature", 0.0))
+        top_k = payload.get("top_k")
+        top_p = payload.get("top_p")
+        eos_id = payload.get("eos_id")
+        seed = int(payload.get("seed", 0))
+        rows = prompt.shape[0]
+        use_engine = (
+            self._dispatcher is not None
+            and n_tokens >= 1
+            and rows <= self.serving.max_slots
+            and (temperature == 0.0 or rows == 1)
+        )
+        if use_engine:
+            # validate like generate() before enqueueing
+            _check_fits(prompt.shape[1], n_tokens, self.config)
+            if top_k is not None and int(top_k) < 1:
+                raise ValueError(f"top_k must be >= 1, got {top_k}")
+            if top_p is not None and not 0.0 < float(top_p) <= 1.0:
+                raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+            if eos_id is not None and not 0 <= int(eos_id) < self.config.vocab_size:
+                raise ValueError(
+                    f"eos_id {eos_id} outside vocab [0, {self.config.vocab_size})")
+            item = _Request(
+                prompt, n_tokens, temperature,
+                int(top_k) if top_k is not None else 0,
+                float(top_p) if top_p is not None else 1.0,
+                int(eos_id) if eos_id is not None else -1,
+                seed, client_id,
+            )
+            item.trace_id = str(payload.get("trace_id") or "")
+            item.parent_span = str(payload.get("span_id") or "")
+            rid = payload.get("request_id")
+            item.request_id = str(rid) if rid is not None else None
+            item.tier = min(max(int(payload.get("tier", 0) or 0), 0), 2)
+            with self._inflight_lock:
+                self._inflight.setdefault(client_id, []).append(item)
+            self._queue.put(item)
+            # re-check after enqueueing: stop() may have drained already
+            if self._stopped.is_set() and not item.done.is_set():
+                item.error = RuntimeError("inference server stopped")
+                item.done.set()
+            if not item.done.wait(timeout=600.0):
+                self._unregister(item)
+                raise RuntimeError("batched generate timed out awaiting the scheduler")
+            self._unregister(item)
+            if item.result is None and item.error is not None:
+                raise item.error
+            out = item.result
+            meta = {"path": "slots"}
+            if item.admit_t is not None:
+                meta["queue_ms"] = round((item.admit_t - item.enq_t) * 1000.0, 3)
+            if item.page_plan is not None:
+                saved = sum(len(p["shared"]) for p in item.page_plan)
+                if saved:
+                    meta["prefix_tokens"] = saved * self.serving.page_size
+            if item.ttft_ms is not None:
+                meta["ttft_ms"] = item.ttft_ms
+            if item.tpot_ms is not None:
+                meta["tpot_ms"] = item.tpot_ms
+        else:
+            with self._device_lock, self.logger.time(
+                f"generate[{prompt.shape[0]}x{prompt.shape[1]}+{n_tokens}]"
+            ):
+                out = generate(
+                    self.model, prompt, n_tokens, temperature=temperature, seed=seed,
+                    top_k=int(top_k) if top_k is not None else None,
+                    top_p=float(top_p) if top_p is not None else None,
+                    eos_id=int(eos_id) if eos_id is not None else None,
+                ).cpu().numpy()
+            meta = {"path": "direct"}
+        ack = {"result": pack_bytes({"tokens": serialize_array(out)}), "serving": meta}
+        tid = payload.get("trace_id")
+        if tid:
+            ack["trace_id"] = tid
+        return ack
+
+    def _on_beam(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        return {"error": "beam search is not ported yet (the JAX server has it)"}
+
+    def _on_score(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        return {"error": "sequence scoring is not ported yet (the JAX server has it)"}
+
+    # -- continuous-batching engine ----------------------------------------
+
+    def _engine_loop(self) -> None:
+        """Pull requests into the backlog, admit into free slots, advance
+        every live row one ``decode_chunk``, retire. On shutdown every
+        waiter is errored."""
+        while True:
+            try:
+                if self._gather():
+                    self._shutdown_engine()
+                    return
+                self._admit()
+                if any(r is not None for r in self._slot_req):
+                    self._decode_iteration()
+            except Exception as e:  # device failure: fail loud, stay up
+                self.logger.log(f"engine error: {e!r}")
+                self._abort_all(e)
+
+    def _gather(self) -> bool:
+        """Queue -> backlog. Returns True on the shutdown sentinel."""
+        idle = not self._backlog and all(r is None for r in self._slot_req)
+        if idle:
+            self.verify_pool_conservation("engine idle")
+            item = self._queue.get()
+            if item is None:
+                return True
+            self._backlog.append(item)
+            deadline = time_mod.monotonic() + self._window_s()
+            while True:
+                remaining = deadline - time_mod.monotonic()
+                if remaining <= 0:
+                    return False
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue_mod.Empty:
+                    return False
+                if nxt is None:
+                    return True
+                self._backlog.append(nxt)
+        while True:
+            try:
+                nxt = self._queue.get_nowait()
+            except queue_mod.Empty:
+                return False
+            if nxt is None:
+                return True
+            self._backlog.append(nxt)
+
+    # -- paged-layout bookkeeping (scheduler thread only) ------------------
+
+    def _pages_needed(self, plen: int, n_tokens: int) -> int:
+        """Pages one row holds over its full horizon, reserved up front:
+        prompt plus generated tokens rounded up to the chunk boundary (a
+        row frozen at eos keeps appending until retirement)."""
+        chunk = self.serving.decode_chunk
+        written = plen
+        if n_tokens > 1:
+            written += -(-(n_tokens - 1) // chunk) * chunk
+        ps = self.serving.page_size
+        return min(-(-written // ps), self._pp)
+
+    def _row_plan(self, tokens: np.ndarray) -> Tuple[List[int], List[bytes]]:
+        """(shared leading pages, per-page chain hashes) for one prompt row."""
+        shared: List[int] = []
+        if not self.serving.prefix_sharing:
+            return shared, []
+        hashes = page_hashes(tokens, self.serving.page_size)
+        for hj in hashes:
+            pg = self._prefix_map.get(hj)
+            if pg is None:
+                break
+            shared.append(pg)
+            self._prefix_map.move_to_end(hj)
+        return shared, hashes
+
+    def _evict_prefix(self, shortfall: int) -> None:
+        """Drop cold prefix-map entries until ``shortfall`` pages came free
+        or the map is empty."""
+        while shortfall > 0 and self._prefix_map:
+            _h, pg = self._prefix_map.popitem(last=False)
+            self._evicted_prefixes.append(_h)
+            self._prefix_hit_counts.pop(_h, None)
+            shortfall -= self._pool.unref([pg])
+
+    def _reserve(self, req: _Request) -> bool:
+        """The paged admission gate: plan every row's pages (prefix hits
+        first, owned pages for the rest of the horizon) and commit the
+        reservation. False = not enough free pages even after eviction."""
+        plen = req.prompt.shape[1]
+        need = self._pages_needed(plen, req.n_tokens)
+        plans: List[Dict[str, Any]] = []
+        for row in range(req.prompt.shape[0]):
+            shared, hashes = self._row_plan(req.prompt[row])
+            plans.append({"shared": shared, "hashes": hashes,
+                          "owned": None, "committed": False})
+        # ref shared pages FIRST so eviction below can never free them
+        for plan in plans:
+            self._pool.ref(plan["shared"])
+        total_owned = sum(need - len(p["shared"]) for p in plans)
+        if total_owned > self._pool.free_pages:
+            self._evict_prefix(total_owned - self._pool.free_pages)
+        if total_owned > self._pool.free_pages:
+            for plan in plans:
+                self._pool.unref(plan["shared"])
+            return False
+        for plan in plans:
+            plan["owned"] = self._pool.alloc(need - len(plan["shared"]))
+            if plan["shared"]:
+                self.prefix_hits += 1
+                self._m_prefix_hits.inc()
+                self._m_prefix_tokens.inc(len(plan["shared"]) * self.serving.page_size)
+                for hj in plan["hashes"][:len(plan["shared"])]:
+                    self._prefix_hit_counts[hj] = self._prefix_hit_counts.get(hj, 0) + 1
+            self._m_pages_alloc.inc(len(plan["shared"]) + len(plan["owned"]))
+        req.page_plan = plans
+        return True
+
+    def _release_plan(self, plan: Optional[Dict[str, Any]]) -> None:
+        """Return an uncommitted row reservation to the pool."""
+        if plan is None or plan["committed"]:
+            return
+        pages = plan["shared"] + (plan["owned"] or [])
+        self._pool.unref(pages)
+        self._m_pages_freed.inc(len(pages))
+        plan["committed"] = True  # never release twice
+
+    def _register_prefix(self, plan: Dict[str, Any]) -> None:
+        """Publish an admitted row's full prompt pages into the prefix map
+        (each new entry takes its own pool reference)."""
+        pages = plan["shared"] + plan["owned"]
+        for j, hj in enumerate(plan["hashes"]):
+            if hj not in self._prefix_map:
+                self._pool.ref([pages[j]])
+                self._prefix_map[hj] = pages[j]
+            else:
+                self._prefix_map.move_to_end(hj)
+
+    def _note_occupancy(self) -> None:
+        if self._pool is not None:
+            self._m_pages.set(self._pool.used_pages / self._n_pages)
+
+    def _note_client_pages(self, client_id: str) -> None:
+        held = sum(len(self._slot_pages[s]) for s, r in enumerate(self._slot_req)
+                   if r is not None and r.client_id == client_id)
+        self.fleet.note_pages(client_id, held)
+
+    def _req_span(self, req: _Request, name: str, mono0: float,
+                  dur_ms: float, **attrs: Any) -> None:
+        """One per-request engine span; a no-op for untraced requests."""
+        if not req.trace_id or not self._tel.tracer.enabled:
+            return
+        start = time_mod.time() - (time_mod.monotonic() - mono0)
+        self._tel.tracer.emit(
+            name, trace_id=req.trace_id, parent_id=req.parent_span,
+            dur_ms=dur_ms, start=start, mono=mono0,
+            request_id=req.request_id, tier=req.tier, **attrs)
+
+    def _ensure_cache(self) -> None:
+        if self._slot_cache is not None:
+            return
+        srv, dev = self.serving, self.model.device
+        with self._device_lock:
+            if self._paged:
+                self._slot_cache = paged_cache(
+                    self.config, srv.max_slots, srv.page_size, self._n_pages, dev)
+            else:
+                self._slot_cache = slot_cache(self.config, srv.max_slots, dev)
+
+    def _admit(self) -> None:
+        """Move backlog requests into free slots (strict FIFO), prefill
+        grouped by (prompt length, shared-prefix depth), insert, emit first
+        tokens, retire rows already finished. Under the paged layout a
+        request enters only when its full-horizon pages fit the pool."""
+        admit: List[_Request] = []
+        free = sum(1 for r in self._slot_req if r is None)
+        while self._backlog:
+            head = self._backlog[0]
+            if head.cancelled:
+                self._backlog.popleft()
+                self._finish_error(head, RuntimeError("client disconnected"))
+                continue
+            if head.prompt.shape[0] > free:
+                break
+            if self._paged and not self._reserve(head):
+                break
+            free -= head.prompt.shape[0]
+            admit.append(self._backlog.popleft())
+        if not admit:
+            return
+        with self._prof.phase("admission"):
+            self._ensure_cache()
+            now = time_mod.monotonic()
+            groups: Dict[Tuple[int, int], List[Tuple[_Request, int]]] = {}
+            ps = self.serving.page_size
+            for req in admit:
+                req.admit_t = now
+                self._m_qwait.observe((now - req.enq_t) * 1000.0)
+                self._req_span(req, "queue_wait", req.enq_t, (now - req.enq_t) * 1000.0)
+                for row in range(req.prompt.shape[0]):
+                    shared_len = 0
+                    if self._paged and req.page_plan is not None:
+                        shared_len = len(req.page_plan[row]["shared"]) * ps
+                    groups.setdefault((req.prompt.shape[1], shared_len), []).append((req, row))
+            for (plen, shared_len), members in sorted(groups.items()):
+                try:
+                    self._admit_group(plen, shared_len, members)
+                except Exception as e:
+                    # contain a failed prefill to its own group: claimed
+                    # slots stay unrecorded (free); uncommitted pages go back
+                    # and unclaimed table rows re-sentinel
+                    if self._paged:
+                        for req, row in members:
+                            if req.page_plan is not None:
+                                self._release_plan(req.page_plan[row])
+                        for s, r in enumerate(self._slot_req):
+                            if r is None:
+                                self._tables[s, :] = self._n_pages
+                        self._tables_dirty = True
+                    for req in {id(r): r for r, _ in members}.values():
+                        self._finish_error(req, e)
+            self.batched_requests += len(admit)
+            self._m_admitted.inc(len(admit))
+            self._m_slots.set(sum(1 for r in self._slot_req if r is not None))
+            self._note_occupancy()
+
+    def _admit_group(self, plen: int, shared_len: int,
+                     members: List[Tuple[_Request, int]]) -> None:
+        """Prefill + insert + first token for the rows of one prompt length
+        and shared-prefix depth. Rows with ``shared_len > 0`` skip the
+        shared prefix: their tables point at the shared pages, which are
+        gathered into dense row caches so ``extend`` runs just the suffix.
+
+        Groups run at their exact size: the JAX engine padded slab groups
+        to power-of-two buckets (dropped slot ids) only to bound XLA
+        recompiles, which eager PyTorch does not have."""
+        srv = self.serving
+        n = len(members)
+        stacked = np.stack([req.prompt[row] for req, row in members])
+        free_ids = [i for i, r in enumerate(self._slot_req) if r is None]
+        slots = np.array(free_ids[:n], np.int32)
+        temps = np.array([req.temperature for req, _ in members], np.float32)
+        top_ks = np.array([req.top_k for req, _ in members], np.int32)
+        top_ps = np.array([req.top_p for req, _ in members], np.float32)
+        seeds = np.array([req.seed & 0x7FFFFFFF for req, _ in members], np.int64)
+        eos = np.array([req.eos for req, _ in members], np.int32)
+        if self._paged:
+            for j, (req, row) in enumerate(members):
+                plan = req.page_plan[row]
+                pages = plan["shared"] + plan["owned"]
+                s = int(slots[j])
+                self._tables[s, :] = self._n_pages
+                self._tables[s, :len(pages)] = pages
+        pf0 = time_mod.monotonic()
+        with self._prof.phase("prefill"), self._device_lock, self.logger.time(
+            f"admit[{n}x{plen}]"
+        ):
+            pc = srv.prefill_chunk
+            if shared_len > 0:
+                row_cache = gather_rows(self._slot_cache, self._tables[slots], shared_len)
+                logits = None
+                for i in range(shared_len, plen, pc or plen):
+                    logits, row_cache = extend(self.model, row_cache,
+                                               stacked[:, i:i + (pc or plen)])
+            elif pc is None or pc >= plen:
+                logits, row_cache = prefill(self.model, stacked)
+            else:
+                logits, row_cache = prefill(self.model, stacked[:, :pc])
+                for i in range(pc, plen, pc):
+                    logits, row_cache = extend(self.model, row_cache, stacked[:, i:i + pc])
+            if self._paged:
+                # carries the full host table, so pending sentinel edits of
+                # retired slots are installed too
+                paged_insert(self._slot_cache, row_cache, slots, plen, shared_len,
+                             self._tables.copy())
+                self._tables_dirty = False
+            else:
+                slot_insert(self._slot_cache, row_cache, slots, plen)
+            first = pick_rows(logits, temps, top_ks, top_ps, seeds,
+                              np.full((n,), plen, np.int64)).cpu().numpy()
+        pf1 = time_mod.monotonic()  # first tokens are on the host now
+        for j, (req, row) in enumerate(members):
+            s = int(slots[j])
+            self._slot_req[s] = req
+            self._slot_row[s] = row
+            self._slot_emitted[s] = 1
+            self._slot_emit_t[s] = pf1
+            if req.first_tok_t is None:
+                req.first_tok_t = pf1
+                req.ttft_ms = round((pf1 - req.enq_t) * 1000.0, 3)
+                self._m_ttft[req.tier].observe(req.ttft_ms)
+                if req.ttft_ms > self._ttft_peak[req.tier]:
+                    self._ttft_peak[req.tier] = req.ttft_ms
+                    self._tel.flight.record(
+                        "ttft_high", request_id=req.request_id,
+                        trace_id=req.trace_id, tier=req.tier, ttft_ms=req.ttft_ms)
+                self._req_span(req, "admission", req.admit_t, (pf0 - req.admit_t) * 1000.0)
+            self._req_span(req, "prefill", pf0, (pf1 - pf0) * 1000.0,
+                           slot=s, row=row, plen=plen, shared=shared_len)
+            if self._paged:
+                plan = req.page_plan[row]
+                plan["committed"] = True
+                self._slot_pages[s] = plan["shared"] + plan["owned"]
+                self._register_prefix(plan)
+                self._note_client_pages(req.client_id)
+            self._tok[s] = first[j]
+            self._temps[s] = temps[j]
+            self._top_ks[s] = top_ks[j]
+            self._top_ps[s] = top_ps[j]
+            self._seeds[s] = seeds[j]
+            self._eos[s] = eos[j]
+            hit_eos = req.eos >= 0 and int(first[j]) == req.eos
+            self._done[s] = hit_eos
+            self._m_tokens.inc()
+            out = np.asarray([first[j]], np.int32)
+            if hit_eos and req.n_tokens > 1:
+                # instant eos: the rest of the budget is frozen repeats
+                out = np.concatenate([out, np.full((req.n_tokens - 1,), req.eos, np.int32)])
+            req.rows_out[row] = out
+            if req.n_tokens == 1 or hit_eos:
+                self._complete_row(s)
+
+    def _decode_iteration(self) -> None:
+        """Advance every live slot ``decode_chunk`` tokens, then retire
+        finished and cancelled rows."""
+        srv = self.serving
+        active = [i for i, r in enumerate(self._slot_req) if r is not None]
+        for s in active:  # cancelled rows retire before the dispatch
+            req = self._slot_req[s]
+            if req.cancelled:
+                self._retire_slot(s)
+                self._finish_error(req, RuntimeError("client disconnected"))
+        active = [i for i, r in enumerate(self._slot_req) if r is not None]
+        if not active:
+            self._m_slots.set(0)
+            return
+        with self._prof.phase("decode_iter"):
+            t0 = time_mod.monotonic()
+            with self._device_lock:
+                if self._paged and self._tables_dirty:
+                    # retired slots re-sentineled their rows on the host:
+                    # install before the dispatch so frozen rows' appends drop
+                    set_page_tables(self._slot_cache, self._tables.copy())
+                    self._tables_dirty = False
+                cache, tok, done, toks = decode_chunk(
+                    self.model, self._slot_cache, self._tok, self._done,
+                    self._temps, self._top_ks, self._top_ps, self._seeds,
+                    self._eos, srv.decode_chunk)
+                self._slot_cache = cache
+            t1 = time_mod.monotonic()
+            elapsed_ms = (t1 - t0) * 1000.0
+            self.decode_batches += 1
+            self._m_batches.inc()
+            self._tok = tok
+            self._done = done
+            emitted_now = 0
+            for s in active:
+                req = self._slot_req[s]
+                row = int(self._slot_row[s])
+                have = int(self._slot_emitted[s])
+                take = min(srv.decode_chunk, req.n_tokens - have)
+                chunk_toks = toks[s, :take].astype(np.int32)
+                emitted_now += take
+                self._slot_emitted[s] = have + take
+                if take > 0:
+                    self._m_tpot[req.tier].observe(
+                        (t1 - self._slot_emit_t[s]) * 1000.0 / take)
+                self._slot_emit_t[s] = t1
+                self._req_span(req, "decode_iter", t0, elapsed_ms,
+                               slot=s, n_active=len(active), take=take,
+                               share=round(elapsed_ms / len(active), 3))
+                req.rows_out[row] = np.concatenate([req.rows_out[row], chunk_toks])
+                if done[s]:
+                    # froze to eos in the loop: pad the rest of the budget
+                    pad = req.n_tokens - have - take
+                    if pad:
+                        req.rows_out[row] = np.concatenate(
+                            [req.rows_out[row], np.full((pad,), req.eos, np.int32)])
+                    self._complete_row(s)
+                elif have + take >= req.n_tokens:
+                    self._complete_row(s)
+            self._m_tokens.inc(emitted_now)
+            self._m_slots.set(sum(1 for r in self._slot_req if r is not None))
+
+    def _complete_row(self, s: int) -> None:
+        """Retire one finished slot and resolve its request once every row
+        is in."""
+        req = self._slot_req[s]
+        self._retire_slot(s)
+        req.rows_left -= 1
+        if req.rows_left == 0 and not req.done.is_set():
+            req.result = np.concatenate([req.prompt, np.stack(req.rows_out)], axis=1)
+            now = time_mod.monotonic()
+            if req.first_tok_t is not None:
+                req.tpot_ms = round((now - req.first_tok_t) * 1000.0
+                                    / max(req.n_tokens - 1, 1), 3)
+                if req.tpot_ms > self._tpot_peak[req.tier]:
+                    self._tpot_peak[req.tier] = req.tpot_ms
+                    self._tel.flight.record(
+                        "tpot_high", request_id=req.request_id,
+                        trace_id=req.trace_id, tier=req.tier, tpot_ms=req.tpot_ms)
+            self._req_span(req, "retire", now, 0.0, outcome="complete",
+                           emitted=int(req.n_tokens),
+                           ttft_ms=req.ttft_ms, tpot_ms=req.tpot_ms)
+            self._unregister(req)
+            req.done.set()
+
+    def _retire_slot(self, s: int) -> None:
+        """Park a slot frozen (done, no eos). Under the paged layout its
+        pages go back to the pool now and its table row re-sentinels, so
+        the frozen row's writes land nowhere (installed at the next
+        dispatch)."""
+        with self._prof.phase("retire"):
+            req = self._slot_req[s]
+            self._slot_req[s] = None
+            self._done[s] = True
+            self._temps[s] = 0.0
+            self._eos[s] = -1
+            if self._paged and self._slot_pages[s]:
+                pages = self._slot_pages[s]
+                self._slot_pages[s] = []
+                self._pool.unref(pages)
+                self._tables[s, :] = self._n_pages
+                self._m_pages_freed.inc(len(pages))
+                self._tables_dirty = True
+                self._note_occupancy()
+                if req is not None:
+                    self._note_client_pages(req.client_id)
+
+    def _finish_error(self, req: _Request, err: Exception) -> None:
+        if not req.done.is_set():
+            req.error = err
+            self._req_span(
+                req, "retire", time_mod.monotonic(), 0.0,
+                outcome="cancelled" if req.cancelled else "error",
+                error=type(err).__name__)
+            self._unregister(req)
+            req.done.set()
+
+    def _unregister(self, req: _Request) -> None:
+        with self._inflight_lock:
+            lst = self._inflight.get(req.client_id)
+            if lst is not None:
+                try:
+                    lst.remove(req)
+                except ValueError:
+                    pass
+                if not lst:
+                    self._inflight.pop(req.client_id, None)
+
+    def release_prefix_cache(self) -> int:
+        """Drop every prefix-map reference; returns how many pages that
+        freed. After a full drain plus this flush the pool is all-free."""
+        freed = 0
+        if self._paged:
+            while self._prefix_map:
+                _h, pg = self._prefix_map.popitem(last=False)
+                self._evicted_prefixes.append(_h)
+                self._prefix_hit_counts.pop(_h, None)
+                freed += self._pool.unref([pg])
+            self._note_occupancy()
+            self.verify_pool_conservation("release_prefix_cache")
+        return freed
+
+    def verify_pool_conservation(self, context: str = "") -> None:
+        """Assert ``free + referenced + shared == pool size`` when the pool
+        witness is enabled (``DISTRIFLOW_POOL_WITNESS=1``), else a no-op."""
+        if self._pool is None or self._pool_witness is None or not self._pool_witness.enabled:
+            return
+        held: set = set()
+        for pages in self._slot_pages:
+            held.update(pages)
+        shared_only = set(self._prefix_map.values()) - held
+        self._pool_witness.verify(self._pool.free_pages, len(held), len(shared_only),
+                                  context=context)
+
+    def _abort_all(self, err: Exception) -> None:
+        """Device failure mid-engine: error every waiter and reset slots."""
+        for s, req in enumerate(self._slot_req):
+            if req is not None:
+                self._retire_slot(s)
+                self._finish_error(req, err)
+        while self._backlog:
+            self._finish_error(self._backlog.popleft(), err)
+        self._m_slots.set(0)
+
+    def _shutdown_engine(self) -> None:
+        self._abort_all(RuntimeError("inference server stopped"))
+        self._drain_and_error()
+
+    def _drain_and_error(self) -> None:
+        """Error every request still queued at shutdown."""
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue_mod.Empty:
+                return
+            if item is not None:
+                self._finish_error(item, RuntimeError("inference server stopped"))
