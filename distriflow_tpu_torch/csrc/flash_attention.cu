@@ -211,12 +211,12 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // q, k, v, o: [BH, S, D] bf16 contiguous; lse: [BH, S] f32. Launches on
-// `stream`; returns cudaGetLastError() (0 = launched).
+// `stream`; returns cudaGetLastError() (0 = launched). Built for D = 64
+// only, the head dim of the served configuration.
 extern "C" int dftt_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int BH,
     int S, int D, int causal, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch<64>(q, k, v, o, lse, BH, S, causal, scale, st);
-  if (D == 128) return launch<128>(q, k, v, o, lse, BH, S, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

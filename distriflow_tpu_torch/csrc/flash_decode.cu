@@ -166,7 +166,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 // table == nullptr selects the slab layout: row b's tile t covers slab
-// positions [t*T, t*T + T) of a [B, S, H*D] cache.
+// positions [t*T, t*T + T) of a [B, S, H*D] cache. Built for D = 64 only,
+// the head dim of the served configuration.
 extern "C" int dftt_flash_decode_bf16(
     const void* q, const void* k, const void* v, const void* table,
     const void* lens, void* out, int B, int H, int D, int T, int n_tiles,
@@ -182,8 +183,6 @@ extern "C" int dftt_flash_decode_bf16(
   auto* op = static_cast<__nv_bfloat16*>(out);
   if (D == 64) {
     decode_kernel<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, tp, lp, op, H, T, n_tiles, S, n_pages, scale);
-  } else if (D == 128) {
-    decode_kernel<128><<<grid, kThreads, 0, st>>>(qp, kp, vp, tp, lp, op, H, T, n_tiles, S, n_pages, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

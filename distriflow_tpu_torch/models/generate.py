@@ -24,7 +24,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from distriflow_tpu_torch.models.transformer import KVCache, TransformerConfig, TransformerLM
+from distriflow_tpu_torch.models.transformer import (
+    KVCache,
+    TransformerConfig,
+    TransformerLM,
+    check_kernels_take,
+)
 
 _MASK64 = (1 << 64) - 1
 
@@ -181,6 +186,7 @@ def paged_cache(config: TransformerConfig, max_slots: int, page_size: int,
         raise ValueError(f"page_size must be positive, got {page_size}")
     if n_pages <= 0:
         raise ValueError(f"n_pages must be positive, got {n_pages}")
+    check_kernels_take(config, torch.device(device), page_size)
     pp = pages_per_slot(config.max_seq, page_size)
     shape = (n_pages + 1, page_size, config.d_model)  # + the scratch page
     return KVCache(

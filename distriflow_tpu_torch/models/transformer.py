@@ -41,6 +41,7 @@ from torch import nn
 
 from distriflow_tpu_torch.ops.flash_attention import flash_attention, flash_seq_supported
 from distriflow_tpu_torch.ops.flash_decode import (
+    SUPPORTED_HEAD_DIMS,
     flash_decode,
     flash_decode_paged,
     supports_paged,
@@ -153,6 +154,32 @@ def dense_attention(q, k, v, causal: bool = True) -> torch.Tensor:
 def _use_kernel(flag: Optional[bool], t: torch.Tensor) -> bool:
     """The tri-state kernel switch: None means "on CUDA tensors"."""
     return t.device.type == "cuda" if flag is None else flag
+
+
+def check_kernels_take(config: TransformerConfig, device: torch.device,
+                       page_size: Optional[int] = None) -> None:
+    """Raise ``NotImplementedError`` when a model on CUDA would need a
+    kernel for a dtype, head dim or page size the kernels do not take.
+    There is no plain path on the card to fall back to; a caller who wants
+    the plain path there sets ``use_flash_attention``/``use_flash_decode``
+    to False."""
+    if device.type != "cuda":
+        return
+    item = torch.empty((), dtype=config.dtype).element_size()
+    hd, d = config.n_heads * config.head_dim, config.head_dim
+    refused = []
+    if config.use_flash_attention is not False and not flash_seq_supported(
+            config.max_seq, d, item):
+        refused.append("prefill attention")
+    if config.use_flash_decode is not False:
+        if not supports_seq(config.max_seq, hd=hd, kv_item=item, d=d):
+            refused.append("slab decode")
+        if page_size is not None and not supports_paged(page_size, hd=hd, kv_item=item, d=d):
+            refused.append(f"paged decode at page_size {page_size}")
+    if refused:
+        raise NotImplementedError(
+            f"no CUDA kernel for {', '.join(refused)} at dtype {config.dtype}, "
+            f"head dim {d}: the kernels take bf16 at head dims {SUPPORTED_HEAD_DIMS}")
 
 
 class KVCache:
@@ -279,8 +306,7 @@ class Attention(nn.Module):
 
     def _prompt_attention(self, q, k, v):
         cfg = self.config
-        if _use_kernel(cfg.use_flash_attention, q) and flash_seq_supported(
-                q.shape[2], cfg.head_dim, q.element_size()):
+        if _use_kernel(cfg.use_flash_attention, q):  # on CUDA: the kernel or a raise
             return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=cfg.causal)
         return dense_attention(q, k, v, causal=cfg.causal)
@@ -313,22 +339,14 @@ class Attention(nn.Module):
             return self._out(self._prompt_attention(q, k, v).transpose(1, 2))
 
         ck = cache.k[layer]
-        if s == 1:
-            use_fd = cfg.use_flash_decode
-            if use_fd is None:
-                item = ck.element_size()
-                use_fd = q.device.type == "cuda" and (
-                    supports_paged(ck.shape[1], hd=hd, kv_item=item, d=cfg.head_dim)
-                    if cache.paged else
-                    supports_seq(cfg.max_seq, hd=hd, kv_item=item, d=cfg.head_dim))
-            if use_fd:
-                qf = q[:, :, 0, :].contiguous()  # [B, H, D]
-                lens = idx + s
-                if cache.paged:
-                    ctx = flash_decode_paged(qf, ck, cache.v[layer], cache.kernel_table(), lens)
-                else:
-                    ctx = flash_decode(qf, ck, cache.v[layer], lens)
-                return self._out(ctx[:, None].to(cfg.dtype))
+        if s == 1 and _use_kernel(cfg.use_flash_decode, q):  # on CUDA: the kernel or a raise
+            qf = q[:, :, 0, :].contiguous()  # [B, H, D]
+            lens = idx + s
+            if cache.paged:
+                ctx = flash_decode_paged(qf, ck, cache.v[layer], cache.kernel_table(), lens)
+            else:
+                ctx = flash_decode(qf, ck, cache.v[layer], lens)
+            return self._out(ctx[:, None].to(cfg.dtype))
 
         keys, vals = cache.view(layer)
         keys = keys.reshape(b, cfg.max_seq, cfg.n_heads, cfg.head_dim)
@@ -411,7 +429,9 @@ class TransformerLM(nn.Module):
         self.ln_f = LayerNorm(config.d_model)
         self.lm_head = nn.Parameter(torch.empty(config.d_model, config.vocab_size, dtype=config.dtype),
                                     requires_grad=False)
-        self.to(resolve_device(device))
+        dev = resolve_device(device)
+        check_kernels_take(config, dev)
+        self.to(dev)
         self.eval()
 
     @property

@@ -27,8 +27,7 @@ from distriflow_tpu_torch.ops import build
 
 NEG_INF = -1e30
 BLOCK = 64  # query rows and key positions per tile in the kernel
-SUPPORTED_HEAD_DIMS = (64, 128)
-SMEM_LIMIT_BYTES = 232448  # dynamic shared memory one H100 block may use
+SUPPORTED_HEAD_DIMS = (64,)  # the head dims the kernel is built and checked for
 
 _SIGNATURES = {
     "dftt_flash_attention_fwd_bf16": [
@@ -38,21 +37,12 @@ _SIGNATURES = {
 }
 
 
-def _smem_bytes(d: int) -> int:
-    """Shared memory one kernel block takes at head dim ``d`` (mirrors
-    ``smem_bytes<D>`` in the source): bf16 Q, K, V and P tiles plus f32
-    score and output tiles and the m/l/corr rows. It does not grow with S."""
-    return 2 * (BLOCK * d + 2 * BLOCK * d + BLOCK * BLOCK) + 4 * (
-        BLOCK * BLOCK + BLOCK * d + 3 * BLOCK)
-
-
 def flash_seq_supported(s: int, d: int, itemsize: int = 2) -> bool:
     """True when the kernel takes a prompt of length ``s`` at head dim
-    ``d`` and element size ``itemsize``: bf16 only, ``d`` in
-    :data:`SUPPORTED_HEAD_DIMS`, and the fixed tile set fitting the card's
-    shared memory. Any ``s >= 1`` tiles (edges are masked)."""
-    return (s >= 1 and itemsize == 2 and d in SUPPORTED_HEAD_DIMS
-            and _smem_bytes(d) <= SMEM_LIMIT_BYTES)
+    ``d`` and element size ``itemsize``: bf16 and ``d`` in
+    :data:`SUPPORTED_HEAD_DIMS`. Any ``s >= 1`` tiles (edges are masked)
+    and the shared-memory footprint does not grow with ``s``."""
+    return s >= 1 and itemsize == 2 and d in SUPPORTED_HEAD_DIMS
 
 
 def flash_attention_reference(

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import warnings
 from typing import Union
 
 import torch
@@ -37,7 +36,7 @@ from distriflow_tpu_torch.ops import build
 NEG_INF = -1e30
 SLAB_TILE = 128  # slab positions per tile: the identity table's page size
 MAX_TILE = 256  # largest page the kernel's shared score row holds
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64,)  # the head dims the kernel is built and checked for
 
 _SIGNATURES = {
     "dftt_flash_decode_bf16": [
@@ -47,20 +46,14 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 }
 
-_warned_gated: set = set()  # gate keys already warned about
 
-
-def _note_gated(key: tuple, what: str) -> None:
+def _note_refused() -> None:
     from distriflow_tpu_torch.obs import get_telemetry
 
     get_telemetry().counter(
         "ops_flash_decode_gated_total",
-        help="decode calls routed to the plain path by shape gating",
+        help="decode shapes the kernel gates refused (a CUDA model raises on them)",
     ).inc()
-    if key not in _warned_gated:
-        _warned_gated.add(key)
-        warnings.warn(f"flash_decode gated off for {what}: decoding on the "
-                      "plain PyTorch path", stacklevel=3)
 
 
 def _kernel_takes(hd: int, kv_item: int, d: int) -> bool:
@@ -68,25 +61,24 @@ def _kernel_takes(hd: int, kv_item: int, d: int) -> bool:
 
 
 def supports_seq(s: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
-    """True when :func:`flash_decode` runs a slab of ``s`` positions at
+    """True when :func:`flash_decode` takes a slab of ``s`` positions at
     packed width ``hd``, itemsize ``kv_item`` and head dim ``d``: bf16 and
-    a supported head dim (any ``s``; the last tile is masked). A gated
-    shape bumps ``ops_flash_decode_gated_total`` and warns once."""
+    a supported head dim (any ``s``; the last tile is masked). A refused
+    shape bumps ``ops_flash_decode_gated_total``; there is no plain path
+    on the card to route it to, so the caller raises."""
     if s >= 1 and _kernel_takes(hd, kv_item, d):
         return True
-    _note_gated(("seq", s, hd, kv_item, d),
-                f"cache length {s} (packed width {hd}, itemsize {kv_item}, head dim {d})")
+    _note_refused()
     return False
 
 
 def supports_paged(page_size: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
-    """True when :func:`flash_decode_paged` runs pages of ``page_size``
-    positions: at most :data:`MAX_TILE`, bf16, a supported head dim.
-    Gated shapes bump ``ops_flash_decode_gated_total`` and warn once."""
+    """True when :func:`flash_decode_paged` takes pages of ``page_size``
+    positions: at most :data:`MAX_TILE`, bf16, a supported head dim. A
+    refused shape bumps ``ops_flash_decode_gated_total``."""
     if 1 <= page_size <= MAX_TILE and _kernel_takes(hd, kv_item, d):
         return True
-    _note_gated(("paged", page_size, hd, kv_item, d),
-                f"page_size {page_size} (packed width {hd}, itemsize {kv_item}, head dim {d})")
+    _note_refused()
     return False
 
 

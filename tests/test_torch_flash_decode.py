@@ -9,6 +9,8 @@ online-softmax terms in different orders (the TPU kernel's block-diagonal
 matmuls against the port's per-head dot products).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,8 +94,34 @@ def test_gates_count_and_refuse_what_the_kernel_lacks():
     assert port_fd.supports_seq(2048, hd=512, kv_item=2, d=64)
     assert port_fd.supports_paged(128, hd=512, kv_item=2, d=64)
     assert ctr.value == before
-    with pytest.warns(UserWarning, match="gated off"):
-        assert not port_fd.supports_seq(2048, hd=512, kv_item=4, d=64)
-    with pytest.warns(UserWarning, match="gated off"):
-        assert not port_fd.supports_paged(512, hd=512, kv_item=2, d=64)  # page > MAX_TILE
-    assert ctr.value == before + 2
+    assert not port_fd.supports_seq(2048, hd=512, kv_item=4, d=64)
+    assert not port_fd.supports_paged(512, hd=512, kv_item=2, d=64)  # page > MAX_TILE
+    assert not port_fd.supports_paged(128, hd=1024, kv_item=2, d=128)  # built for D 64 only
+    assert ctr.value == before + 3
+
+
+@pytest.mark.parametrize("kw,page_size,what", [
+    (dict(dtype=torch.float32), None, "prefill attention, slab decode"),
+    (dict(d_model=256, n_heads=2), None, "head dim 128"),
+    ({}, 512, "paged decode at page_size 512"),
+])
+def test_cuda_model_raises_where_the_kernels_do_not_take_it(kw, page_size, what):
+    """On the card there is no plain path to fall back to: a model or paged
+    cache the kernels cannot serve is refused when it is built."""
+    from distriflow_tpu_torch.models.transformer import TransformerConfig, check_kernels_take
+
+    cfg = TransformerConfig(**{**dict(vocab_size=64, d_model=128, n_heads=2, n_layers=1,
+                                      d_ff=64, max_seq=256), **kw})
+    with pytest.raises(NotImplementedError, match=what):
+        check_kernels_take(cfg, torch.device("cuda"), page_size)
+    check_kernels_take(cfg, torch.device("cpu"), page_size)  # the CPU runs the plain path
+    off = dataclasses.replace(cfg, use_flash_attention=False, use_flash_decode=False)
+    check_kernels_take(off, torch.device("cuda"), page_size)  # the caller asked for plain
+
+
+def test_cuda_model_at_served_shapes_is_accepted():
+    from distriflow_tpu_torch.models.transformer import TransformerConfig, check_kernels_take
+
+    cfg = TransformerConfig(vocab_size=64, d_model=128, n_heads=2, n_layers=1, d_ff=64,
+                            max_seq=256)
+    check_kernels_take(cfg, torch.device("cuda"), 128)
