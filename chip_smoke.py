@@ -32,8 +32,26 @@
 6. Profiles one engine decode iteration (8 slots, chunk 8) with
    ``torch.profiler``: host wall time, device busy time, the device's idle
    share and the kernels that took the most device time.
+7. Trains the flagship LM (the same seeded flax-shaped tree, carried over
+   as f32 masters) with the port's ``SyncTrainer`` (adam, lr 1e-3, the
+   fused sparse CE) on one fixed seeded batch of B=8 x S=1024 tokens for
+   20 steps, with the launch counts read in a window of their own: each
+   step must launch the flash forward and backward kernels 8 times each
+   and the CE forward and backward once each, and no decode kernel; the
+   serving and solo windows must show no backward or CE launch. Prints a
+   ``training:`` line (step ms p50/max, tokens/s, first and last loss);
+   every loss must be finite and the last at least ``LOSS_FALL`` below
+   the first.
+8. Takes one step's loss and every parameter's gradient twice from the
+   same masters and batch, once through the kernels and once through the
+   plain path (``use_flash_attention=False``, plain sparse CE), and holds
+   them within ``STEP_TOL`` (``step_vs_plain:`` line).
+9. Profiles one training step with ``torch.profiler``
+   (``training_step_profile:`` line), the counterpart of step 6.
 
-The line before the last is the kernel table as JSON; the last line is
+The kernel table holds every kernel at its path's shapes (the three
+training kernels at B8 H8 S1024 D64 and N 8192 x V 32000). The line
+before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
 """
@@ -52,6 +70,7 @@ import torch
 
 SEED = 0
 N_TOKENS = 64
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 8, 1024
 # Kernel vs plain version, elementwise: |kernel - plain| <= atol + rtol * |plain|.
 # rtol 2**-7 is one bf16 rounding step of the output (8 significant bits).
 # The decode kernels add in the plain version's tile order, so only a
@@ -60,13 +79,36 @@ N_TOKENS = 64
 # the kernel against its running tile max, which adds up to ~2**-9 of |o|
 # before the output rounding: atol 2e-3 covers it. lse is f32 and sums the
 # same f32 p in both.
+# The flash backward rounds P and dS to bf16 like its plain version, but
+# from scores summed in another order, so a rounding flip of P or dS can
+# move dQ/dK/dV by more than one output step: atol 5e-3 above rtol 2**-7
+# (measured max abs error 0.0156 on the H100 at B8 H8 S1024, one bf16 step
+# of a dV near 4). dQ also sums its K-tile partials with atomics, in an
+# order that changes between runs. The CE forward sums f32 exps in another
+# order (measured 9.5e-7 on lse ~ 11); the CE gradient differs only by a
+# rounding flip of the bf16 output (measured 0.0).
 TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "flash_decode_paged": (1e-5, 2 ** -7),
-       "flash_decode": (1e-5, 2 ** -7)}
+       "flash_decode": (1e-5, 2 ** -7),
+       "flash_attention_bwd": (5e-3, 2 ** -7),
+       "fused_ce_fwd": (1e-5, 1e-6),
+       "fused_ce_bwd": (1e-6, 2 ** -7)}
 LSE_ATOL = 1e-4
+# A training step through the kernels against the plain path, from the
+# same f32 masters and batch: |loss difference| and, for every parameter,
+# ||grad_kernels - grad_plain|| / ||grad_plain||. The kernel path feeds
+# bf16 logits to the CE and rounds P and dS to bf16, the plain path keeps
+# f32 logits and f32 softmax: measured on the H100 8.5e-5 on the loss and
+# 0.0188 at worst (median 0.0093) on the gradients. The limits leave a
+# margin of about 10x on the loss and 2x on the gradients.
+STEP_TOL = {"loss": 1e-3, "grad_rel": 0.04}
+# nats the loss must fall over the 20 steps on its fixed batch (measured
+# 10.87 -> 4.21 on the H100)
+LOSS_FALL = 2.0
 NEAR_TIE = 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 
 
 def _card() -> str:
@@ -197,10 +239,7 @@ def _check_greedy(model, reqs, outs, solos):
 
 def _profile_decode_iteration(model, rng):
     """One engine decode iteration (8 slots, contexts 128-1000, chunk 8,
-    greedy) under ``torch.profiler``: host wall time against the device
-    time of the kernels it launched, and the kernels that took the most."""
-    from torch.profiler import ProfilerActivity, profile
-
+    greedy) under ``torch.profiler`` (:func:`_profiled`)."""
     from distriflow_tpu_torch.models.generate import decode_chunk, paged_cache, paged_insert, prefill
     from distriflow_tpu_torch.utils.config import ServingConfig
 
@@ -222,6 +261,15 @@ def _profile_decode_iteration(model, rng):
         _, state[0], state[1], _ = decode_chunk(model, cache, state[0], state[1], chunk=srv.decode_chunk, **off)
 
     step()  # warm
+    return _profiled(step)
+
+
+def _profiled(step):
+    """One call of ``step`` under ``torch.profiler``: host wall time against
+    the device time of the kernels it launched, and the kernels that took
+    the most."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -270,6 +318,17 @@ def _over(name, got, want, atol, rtol):
     return float(err.max())
 
 
+def _bound(nbytes, flops, peak=BF16_FLOPS):
+    """(least ms, what bounds it): bytes over the HBM rate against the
+    operations over the card's peak for their type."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _flush_buffer():
+    return torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > 50 MB L2
+
+
 def _kernel_rows(launches):
     """Each kernel at the main path's shapes: error against its plain
     version, and the times of kernel, plain version and library call."""
@@ -280,12 +339,8 @@ def _kernel_rows(launches):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)  # 128 MB > 50 MB L2
+    flush = _flush_buffer()
     rows = []
-
-    def bound(nbytes, flops):
-        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
@@ -299,7 +354,7 @@ def _kernel_rows(launches):
         errs.append(_over(f"flash_attention_fwd O S={s}", o, ro, *TOL["flash_attention_fwd"]))
         lse_errs.append(_over(f"flash_attention_fwd lse S={s}", lse, rl, LSE_ATOL, 0.0))
     pairs = s * (s + 1) // 2
-    tb, by = bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d)
+    tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d)
     rows.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_attention.cu",
@@ -329,7 +384,7 @@ def _kernel_rows(launches):
     err = _over("flash_decode_paged", fd.flash_decode_paged(q1, kp, vp, table, lens),
                 fd.flash_decode_paged_reference(q1, kp, vp, table, lens), *TOL["flash_decode_paged"])
     live = sum(lens_l)
-    tb, by = bound(2 * live * h * d * 2 + 2 * bsz * h * d * 2 + table.numel() * 4 + bsz * 4,
+    tb, by = _bound(2 * live * h * d * 2 + 2 * bsz * h * d * 2 + table.numel() * 4 + bsz * 4,
                    4 * live * h * d)
     rows.append({
         "name": "flash_decode_paged", "route": "cuda",
@@ -350,7 +405,7 @@ def _kernel_rows(launches):
                 fd.flash_decode_reference(qs, ks, vs, n), *TOL["flash_decode"])
     kh = ks.view(1, s_max, h, d).transpose(1, 2)[:, :, :n]
     vh = vs.view(1, s_max, h, d).transpose(1, 2)[:, :, :n]
-    tb, by = bound(2 * n * h * d * 2 + 2 * h * d * 2 + 4, 4 * n * h * d)
+    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2 + 4, 4 * n * h * d)
     rows.append({
         "name": "flash_decode", "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
@@ -366,21 +421,152 @@ def _kernel_rows(launches):
     return rows
 
 
+def _train(cfg, tree, tokens):
+    """The port's ``SyncTrainer`` on the flagship from the carried-over f32
+    masters, ``TRAIN_STEPS`` steps on one fixed batch; returns
+    ``(trainer, losses, step ms)``."""
+    from distriflow_tpu_torch.models.convert import params_from_jax
+    from distriflow_tpu_torch.models.transformer import transformer_lm
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    trainer = SyncTrainer(transformer_lm(cfg, device="cuda"), optimizer="adam", learning_rate=1e-3)
+    trainer.init()
+    trainer.set_params(params_from_jax(tree, cfg, masters=True))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        losses.append(trainer.step((x, y)))
+        ms.append(trainer.last_step_ms)
+    return trainer, losses, ms
+
+
+def _step_vs_plain(cfg, tree, tokens):
+    """One step's loss and gradients through the kernels and through the
+    plain path, from the same f32 masters and batch."""
+    import dataclasses
+
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.transformer import transformer_lm
+
+    x = torch.as_tensor(tokens[:, :-1], device="cuda")
+    y = torch.as_tensor(tokens[:, 1:], device="cuda")
+    out = {}
+    plain = dataclasses.replace(cfg, use_flash_attention=False, loss="sparse_softmax_cross_entropy")
+    for name, c in (("kernels", cfg), ("plain", plain)):
+        spec = transformer_lm(c, device="cuda")
+        model = lm_from_jax(c, tree, device="cuda", trainable=True)
+        loss, grads = spec.grad_fn()(model, x, y)
+        out[name] = (float(loss), grads)
+        del model
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30)) for n in gp}
+    worst = max(rel, key=rel.get)
+    report = {"loss_kernels": lk, "loss_plain": lp, "loss_abs_diff": abs(lk - lp),
+              "grad_rel_frobenius_max": rel[worst], "worst_param": worst,
+              "grad_rel_frobenius_median": float(np.median(list(rel.values()))),
+              "limits": STEP_TOL}
+    assert report["loss_abs_diff"] <= STEP_TOL["loss"], report
+    assert rel[worst] <= STEP_TOL["grad_rel"], report
+    return report
+
+
+def _training_kernel_rows(launches, steps):
+    """The three training kernels at the training step's shapes: error
+    against the plain version, and the times of kernel, plain version and
+    library call (whose backward is timed from a retained graph)."""
+    import torch.nn.functional as F
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+    from distriflow_tpu_torch.ops import fused_ce as ce
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    flush = _flush_buffer()
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    def row(name, source, replaces, err, shape, **times):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "launches_per_step": launches[name] / steps,
+                "max_abs_err": err, "tol": _tol(name), "shape": shape, **times}
+
+    # flash backward: B8 H8 S1024 D64 causal, the training step's attention
+    b, h, s, d = TRAIN_B, 8, TRAIN_S, 64
+    q, k, v, do = (randn(b, h, s, d) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    got = fa.flash_attention_backward(q, k, v, do, lse, delta, True)
+    want = fa.flash_attention_backward_reference(q, k, v, do, lse, delta, True)
+    err = max(_over(f"flash_attention_bwd d{n}", a, r, *TOL["flash_attention_bwd"])
+              for n, a, r in zip("qkv", got, want))
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    pairs = s * (s + 1) // 2
+    tb, by = _bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * d)
+    rows.append(row(
+        "flash_attention_bwd", "distriflow_tpu_torch/csrc/flash_attention_bwd.cu",
+        "distriflow_tpu/ops/flash_attention.py:272", err, f"B={b} H={h} S={s} D={d} causal",
+        ms=_timed(lambda: fa.flash_attention_backward(q, k, v, do, lse, delta, True), 20, flush),
+        plain_ms=_timed(lambda: fa.flash_attention_backward_reference(q, k, v, do, lse, delta, True),
+                        3, flush),
+        bound_ms=tb, bound_by=by,
+        library_ms=_timed(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), do, retain_graph=True),
+                          20, flush)))
+    del q, k, v, do, o, got, want, qs, ks, vs, sdpa
+
+    # fused CE: the flagship's [B*S, V] bf16 logits
+    n, vocab = TRAIN_B * TRAIN_S, 32000
+    logits = randn(n, vocab)
+    labels = torch.randint(0, vocab, (n,), generator=g, device=dev, dtype=torch.int32)
+    loss, lse = ce.fused_ce_forward(logits, labels)
+    rl, rs = ce.fused_ce_forward_reference(logits, labels)
+    err = max(_over("fused_ce_fwd loss", loss, rl, *TOL["fused_ce_fwd"]),
+              _over("fused_ce_fwd lse", lse, rs, *TOL["fused_ce_fwd"]))
+    tb, by = _bound(n * vocab * 2 + n * 4 + 2 * n * 4, 4 * n * vocab, F32_FLOPS)
+    lab64 = labels.long()
+    rows.append(row(
+        "fused_ce_fwd", "distriflow_tpu_torch/csrc/fused_ce.cu",
+        "distriflow_tpu/ops/fused_ce.py:77", err, f"N={n} V={vocab} bf16 sparse labels",
+        ms=_timed(lambda: ce.fused_ce_forward(logits, labels), 20, flush),
+        plain_ms=_timed(lambda: ce.fused_ce_forward_reference(logits, labels), 3, flush),
+        bound_ms=tb, bound_by=by,
+        library_ms=_timed(lambda: F.cross_entropy(logits, lab64, reduction="none"), 20, flush)))
+
+    gr = torch.rand(n, generator=g, device=dev) / n
+    err = _over("fused_ce_bwd", ce.fused_ce_backward(logits, labels, lse, gr),
+                ce.fused_ce_backward_reference(logits, labels, lse, gr), *TOL["fused_ce_bwd"])
+    tb, by = _bound(2 * n * vocab * 2 + 3 * n * 4, 4 * n * vocab, F32_FLOPS)
+    lg = logits.detach().clone().requires_grad_()
+    lib_loss = F.cross_entropy(lg, lab64, reduction="none")
+    rows.append(row(
+        "fused_ce_bwd", "distriflow_tpu_torch/csrc/fused_ce.cu",
+        "distriflow_tpu/ops/fused_ce.py:107", err, f"N={n} V={vocab} bf16 sparse labels",
+        ms=_timed(lambda: ce.fused_ce_backward(logits, labels, lse, gr), 20, flush),
+        plain_ms=_timed(lambda: ce.fused_ce_backward_reference(logits, labels, lse, gr), 3, flush),
+        bound_ms=tb, bound_by=by,
+        library_ms=_timed(lambda: torch.autograd.grad(lib_loss, lg, gr.to(lg.dtype),
+                                                      retain_graph=True), 20, flush)))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from distriflow_tpu_torch.models.convert import lm_from_jax
     from distriflow_tpu_torch.models.generate import generate
-    from distriflow_tpu_torch.models.transformer import TransformerConfig
+    from distriflow_tpu_torch.models.zoo import flagship_lm_config
     from distriflow_tpu_torch.ops import build
     from distriflow_tpu_torch.ops import flash_attention as fa
     from distriflow_tpu_torch.ops import flash_decode as fd
+    from distriflow_tpu_torch.ops import fused_ce as ce
 
     print(_card(), flush=True)
 
     t0 = time.perf_counter()
-    build.build_all(["flash_attention", "flash_decode"])
+    build.build_all(["flash_attention", "flash_decode", "flash_attention_bwd", "fused_ce"])
     print(f"kernel build s: {time.perf_counter() - t0:.2f}", flush=True)
     for name, log in build.ptxas_reports.items():
         for line in log.splitlines():
@@ -388,11 +574,11 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TransformerConfig(vocab_size=32000, d_model=512, n_heads=8, n_layers=8,
-                            d_ff=2048, max_seq=2048, dtype=torch.bfloat16)
+    cfg = flagship_lm_config()
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    model = lm_from_jax(cfg, _flagship_tree(cfg, rng), device="cuda")
+    tree = _flagship_tree(cfg, rng)
+    model = lm_from_jax(cfg, tree, device="cuda")
     torch.cuda.synchronize()
     print(f"model init s: {time.perf_counter() - t0:.2f}", flush=True)
     reqs = _requests(rng, cfg.vocab_size)
@@ -401,7 +587,11 @@ def main() -> int:
 
     counters = {"flash_attention_fwd": fa.flash_attention,
                 "flash_decode_paged": fd.flash_decode_paged,
-                "flash_decode": fd.flash_decode}
+                "flash_decode": fd.flash_decode,
+                "flash_attention_bwd": fa.flash_attention_backward,
+                "fused_ce_fwd": ce.fused_ce_forward,
+                "fused_ce_bwd": ce.fused_ce_backward}
+    training_only = ("flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
 
     def counted(run):
         for fn in counters.values():
@@ -416,25 +606,56 @@ def main() -> int:
     report = _check_greedy(model, reqs, outs, solos)
     print("serving:", json.dumps({"wall_s": serve_s, **stats}), flush=True)
     print("parity:", json.dumps(report), flush=True)
-    print("launches:", json.dumps({"serving": serving, "solo_generate": solo}), flush=True)
-    for path, counts, ran, idle in (("serving", serving, ("flash_attention_fwd", "flash_decode_paged"),
-                                     "flash_decode"),
-                                    ("solo generate()", solo, ("flash_attention_fwd", "flash_decode"),
-                                     "flash_decode_paged")):
+
+    # training: the flagship from the same tree as f32 masters, one batch
+    tokens = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1)).astype(np.int32)
+    (trainer, losses, step_ms), training = counted(lambda: _train(cfg, tree, tokens))
+    print("launches:", json.dumps({"serving": serving, "solo_generate": solo, "training": training}),
+          flush=True)
+    for path, counts, ran, idle in (
+            ("serving", serving, ("flash_attention_fwd", "flash_decode_paged"),
+             ("flash_decode",) + training_only),
+            ("solo generate()", solo, ("flash_attention_fwd", "flash_decode"),
+             ("flash_decode_paged",) + training_only),
+            ("training", training, ("flash_attention_fwd",) + training_only,
+             ("flash_decode", "flash_decode_paged"))):
         for k in ran:
             assert counts[k] > 0, f"kernel {k} never launched on the {path} path"
-        assert counts[idle] == 0, f"{path} launched {idle} {counts[idle]} times"
+        for k in idle:
+            assert counts[k] == 0, f"{path} launched {k} {counts[k]} times"
     assert stats["prefix_hits"] >= 1, "the prefix-sharing path did not run"
+    per_step = {"flash_attention_fwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    for k, n in per_step.items():
+        assert training[k] == n * TRAIN_STEPS, f"training launched {k} {training[k]} times, " \
+                                               f"want {n} per step x {TRAIN_STEPS}"
+    train_report = {
+        "steps": TRAIN_STEPS, "batch": TRAIN_B, "seq": TRAIN_S, "optimizer": "adam", "lr": 1e-3,
+        "loss": trainer.spec.loss, "step_ms_p50": float(np.median(step_ms)),
+        "step_ms_max": max(step_ms), "step_ms_first": step_ms[0],
+        "tokens_per_s": TRAIN_B * TRAIN_S / (float(np.median(step_ms)) / 1e3),
+        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("training:", json.dumps(train_report), flush=True)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] <= losses[0] - LOSS_FALL, f"loss fell {losses[0] - losses[-1]} < {LOSS_FALL}"
+    print("step_vs_plain:", json.dumps(_step_vs_plain(cfg, tree, tokens)), flush=True)
 
-    # each kernel's count on the path it serves: prefill and paged decode
-    # on the serving path, slab decode on solo generate()
+    # each kernel's count on its own path: prefill and paged decode on
+    # serving, slab decode on solo generate(), the rest on training
     rows = _kernel_rows({"flash_attention_fwd": serving["flash_attention_fwd"],
                          "flash_decode_paged": serving["flash_decode_paged"],
                          "flash_decode": solo["flash_decode"]})
+    rows += _training_kernel_rows(training, TRAIN_STEPS)
+    path_of = {"flash_decode": "solo_generate", **{k: "training" for k in training_only}}
     for r in rows:
-        r["path"] = "solo_generate" if r["name"] == "flash_decode" else "serving"
-        r["launches_by_path"] = {"serving": serving[r["name"]], "solo_generate": solo[r["name"]]}
+        r["path"] = path_of.get(r["name"], "serving")
+        r["launches_by_path"] = {"serving": serving[r["name"]], "solo_generate": solo[r["name"]],
+                                 "training": training[r["name"]]}
     print("decode_iteration_profile:", json.dumps(_profile_decode_iteration(model, rng)), flush=True)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    print("training_step_profile:", json.dumps(_profiled(lambda: trainer.step((x, y)))), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,14 @@
 :func:`params_from_jax` maps a flax ``TransformerLM`` params tree, given as
 nested dicts of numpy arrays (``{"params": {...}}`` or the inner dict), to
 a ``state_dict`` of :class:`~distriflow_tpu_torch.models.transformer.TransformerLM`.
-Matmul weights and the embedding are cast to ``config.dtype`` once here —
-the same values flax produces by casting the f32 master params on every
-call; LayerNorm parameters stay f32, as flax keeps them.
+
+- For serving (the default) matmul weights and the embedding are cast to
+  ``config.dtype`` once here — the same values flax produces by casting
+  the f32 master params on every call; LayerNorm parameters stay f32, as
+  flax keeps them.
+- For training (``masters=True``) every parameter stays f32, the flax
+  master params bit for bit, so a JAX trainer and the port's start from
+  the same bits; the trainable model casts them inside ``forward``.
 """
 
 from __future__ import annotations
@@ -23,14 +28,17 @@ def _arr(x: Any, dtype: torch.dtype, shape) -> torch.Tensor:
     return torch.from_numpy(a).reshape(shape).to(dtype)
 
 
-def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig) -> Dict[str, torch.Tensor]:
-    """Flax params -> the port's ``state_dict`` (CPU tensors)."""
+def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig,
+                    masters: bool = False) -> Dict[str, torch.Tensor]:
+    """Flax params -> the port's ``state_dict`` (CPU tensors): weights in
+    ``config.dtype``, or all f32 with ``masters``."""
     p = tree["params"] if "params" in tree else tree
     cfg = config
     hd = cfg.n_heads * cfg.head_dim
+    wdt = torch.float32 if masters else cfg.dtype
     out: Dict[str, torch.Tensor] = {
-        "embed": _arr(p["embed"]["embedding"], cfg.dtype, (cfg.vocab_size, cfg.d_model)),
-        "lm_head": _arr(p["lm_head"]["kernel"], cfg.dtype, (cfg.d_model, cfg.vocab_size)),
+        "embed": _arr(p["embed"]["embedding"], wdt, (cfg.vocab_size, cfg.d_model)),
+        "lm_head": _arr(p["lm_head"]["kernel"], wdt, (cfg.d_model, cfg.vocab_size)),
         "ln_f.scale": _arr(p["ln_f"]["scale"], torch.float32, (cfg.d_model,)),
         "ln_f.bias": _arr(p["ln_f"]["bias"], torch.float32, (cfg.d_model,)),
     }
@@ -42,17 +50,19 @@ def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig) -> Dict[
             out[pre + ln + ".bias"] = _arr(lp[ln]["bias"], torch.float32, (cfg.d_model,))
         attn = lp["attn"]
         for name in ("q_proj", "k_proj", "v_proj"):
-            out[pre + "attn." + name] = _arr(attn[name]["kernel"], cfg.dtype, (cfg.d_model, hd))
-        out[pre + "attn.o_proj"] = _arr(attn["o_proj"]["kernel"], cfg.dtype, (hd, cfg.d_model))
-        out[pre + "mlp.wi"] = _arr(lp["mlp"]["wi"]["kernel"], cfg.dtype, (cfg.d_model, cfg.d_ff))
-        out[pre + "mlp.wo"] = _arr(lp["mlp"]["wo"]["kernel"], cfg.dtype, (cfg.d_ff, cfg.d_model))
+            out[pre + "attn." + name] = _arr(attn[name]["kernel"], wdt, (cfg.d_model, hd))
+        out[pre + "attn.o_proj"] = _arr(attn["o_proj"]["kernel"], wdt, (hd, cfg.d_model))
+        out[pre + "mlp.wi"] = _arr(lp["mlp"]["wi"]["kernel"], wdt, (cfg.d_model, cfg.d_ff))
+        out[pre + "mlp.wo"] = _arr(lp["mlp"]["wo"]["kernel"], wdt, (cfg.d_ff, cfg.d_model))
     return out
 
 
 def lm_from_jax(config: TransformerConfig, tree: Mapping[str, Any],
-                device: Optional[Union[str, torch.device]] = None) -> TransformerLM:
+                device: Optional[Union[str, torch.device]] = None,
+                trainable: bool = False) -> TransformerLM:
     """A :class:`TransformerLM` on ``device`` (``cuda`` by default) that
-    computes the same function as the flax module with params ``tree``."""
-    model = TransformerLM(config, device=device)
-    model.load_state_dict(params_from_jax(tree, config), strict=True)
+    computes the same function as the flax module with params ``tree``;
+    ``trainable`` carries the f32 masters over into a model to train."""
+    model = TransformerLM(config, device=device, trainable=trainable)
+    model.load_state_dict(params_from_jax(tree, config, masters=trainable), strict=True)
     return model

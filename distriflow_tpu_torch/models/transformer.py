@@ -1,17 +1,37 @@
 """Port of ``distriflow_tpu/models/transformer.py``: the dense decoder LM.
 
 ``TransformerConfig`` keeps the JAX field names (``dtype`` is a
-``torch.dtype``). The modules are ``nn.Module``s holding inference
-weights in the JAX kernel layout (``[in, out]``), so
+``torch.dtype``). The modules are ``nn.Module``s holding weights in the
+JAX kernel layout (``[in, out]``), so
 :mod:`distriflow_tpu_torch.models.convert` copies a flax params tree over
 without transposes. MoE, ring/Ulysses attention, the pipelined LM and the
 int8 KV cache are not ported yet: the config refuses them.
 
+One module class serves both uses; whoever builds it picks the parameter
+storage with ``TransformerLM(config, trainable=...)``:
+
+- **serving** (``trainable=False``, the default): matmul weights and the
+  embedding are stored once in ``cfg.dtype`` and frozen. The per-call cast
+  to ``cfg.dtype`` is then the identity, so decoding pays nothing for it.
+- **training** (``trainable=True``, what :func:`transformer_lm`'s
+  ``init`` builds): every parameter is an f32 master that requires grad
+  and is cast to ``cfg.dtype`` inside ``forward``, as flax keeps f32
+  params and computes in ``dtype``. The embedding is indexed, then cast:
+  the same values as flax's cast-then-take without casting the whole
+  table every step.
+
 Layer arithmetic follows flax exactly: ``LayerNorm`` runs in f32 with
-``eps=1e-6``; every ``Dense``/``DenseGeneral`` computes in ``cfg.dtype``
-(the weights are cast once at load, which gives the same values as flax's
-per-call cast of the f32 master params); ``gelu`` is the tanh form; the
-residual stream is ``cfg.dtype``; decode logits are f32.
+``eps=1e-6``; every ``Dense``/``DenseGeneral`` computes in ``cfg.dtype``;
+``gelu`` is the tanh form; the residual stream is ``cfg.dtype``. Training
+logits stay in ``cfg.dtype`` when they feed the fused CE and are f32
+otherwise (``_cast_logits``); decode logits are f32. ``remat=True`` wraps
+each block in ``torch.utils.checkpoint`` during training (flax
+``nn.remat``): its activations are recomputed in the backward.
+
+Training-mode attention goes through the differentiable
+:func:`~distriflow_tpu_torch.ops.flash_attention.flash_attention` (the
+forward and backward kernels on CUDA) or, with ``use_flash_attention``
+off, through plain attention.
 
 Decoding carries an explicit :class:`KVCache` in place of flax's mutable
 ``cache`` collection. Its three layouts match the JAX cache pytrees:
@@ -37,8 +57,10 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
+from distriflow_tpu_torch.models.base import ModelSpec
 from distriflow_tpu_torch.ops.flash_attention import flash_attention, flash_seq_supported
 from distriflow_tpu_torch.ops.flash_decode import (
     SUPPORTED_HEAD_DIMS,
@@ -104,6 +126,23 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    def resolved_loss_for(self, device: Optional[Union[str, torch.device]] = None) -> str:
+        """The loss name the model spec trains with. An explicit ``loss`` is
+        always honored; ``loss=None`` resolves to the fused sparse CE (its
+        CUDA kernels) on a CUDA device and to the plain sparse CE on the
+        CPU, as JAX resolves to the fused Pallas CE on a TPU only.
+        ``device=None`` is the port's default device, CUDA."""
+        if self.loss is not None:
+            return self.loss
+        dev = torch.device("cuda" if device is None else device)
+        return ("fused_sparse_softmax_cross_entropy" if dev.type == "cuda"
+                else "sparse_softmax_cross_entropy")
+
+    @property
+    def resolved_loss(self) -> str:
+        """Resolution on the default device (single-device semantics)."""
+        return self.resolved_loss_for(None)
 
 
 def apply_rope(
@@ -279,34 +318,43 @@ class KVCache:
         self.index = self.index + s
 
 
+def _param(*shape: int, dtype: torch.dtype, trainable: bool) -> nn.Parameter:
+    """A weight: an f32 master that requires grad when ``trainable``, else
+    a frozen ``dtype`` copy."""
+    return nn.Parameter(torch.empty(*shape, dtype=torch.float32 if trainable else dtype),
+                        requires_grad=trainable)
+
+
 class Attention(nn.Module):
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, trainable: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         hd = cfg.n_heads * cfg.head_dim
         # JAX layout: DenseGeneral kernels [d, H, D] and [H, D, d], flattened
-        self.q_proj = nn.Parameter(torch.empty(cfg.d_model, hd, dtype=cfg.dtype), requires_grad=False)
-        self.k_proj = nn.Parameter(torch.empty(cfg.d_model, hd, dtype=cfg.dtype), requires_grad=False)
-        self.v_proj = nn.Parameter(torch.empty(cfg.d_model, hd, dtype=cfg.dtype), requires_grad=False)
-        self.o_proj = nn.Parameter(torch.empty(hd, cfg.d_model, dtype=cfg.dtype), requires_grad=False)
+        self.q_proj = _param(cfg.d_model, hd, dtype=cfg.dtype, trainable=trainable)
+        self.k_proj = _param(cfg.d_model, hd, dtype=cfg.dtype, trainable=trainable)
+        self.v_proj = _param(cfg.d_model, hd, dtype=cfg.dtype, trainable=trainable)
+        self.o_proj = _param(hd, cfg.d_model, dtype=cfg.dtype, trainable=trainable)
 
     def _qkv(self, x):
         cfg = self.config
         b, s, _ = x.shape
         xc = x.to(cfg.dtype)
         return tuple(
-            torch.matmul(xc, w).view(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+            torch.matmul(xc, w.to(cfg.dtype)).view(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
             for w in (self.q_proj, self.k_proj, self.v_proj))  # [B, H, s, D]
 
     def _out(self, ctx):
         """``ctx`` [B, s, H, D] -> [B, s, d_model] in cfg.dtype."""
         b, s = ctx.shape[:2]
-        return torch.matmul(ctx.reshape(b, s, -1).to(self.config.dtype), self.o_proj)
+        dt = self.config.dtype
+        return torch.matmul(ctx.reshape(b, s, -1).to(dt), self.o_proj.to(dt))
 
     def _prompt_attention(self, q, k, v):
         cfg = self.config
-        if _use_kernel(cfg.use_flash_attention, q):  # on CUDA: the kernel or a raise
+        if _use_kernel(cfg.use_flash_attention, q):  # on CUDA: the kernels or a raise
+            # differentiable: under autograd the backward kernel runs too
             return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=cfg.causal)
         return dense_attention(q, k, v, causal=cfg.causal)
@@ -376,36 +424,37 @@ class Attention(nn.Module):
 
 
 class DenseFFN(nn.Module):
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, trainable: bool = False):
         super().__init__()
         self.config = config
-        self.wi = nn.Parameter(torch.empty(config.d_model, config.d_ff, dtype=config.dtype), requires_grad=False)
-        self.wo = nn.Parameter(torch.empty(config.d_ff, config.d_model, dtype=config.dtype), requires_grad=False)
+        self.wi = _param(config.d_model, config.d_ff, dtype=config.dtype, trainable=trainable)
+        self.wo = _param(config.d_ff, config.d_model, dtype=config.dtype, trainable=trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(torch.matmul(x.to(self.config.dtype), self.wi), approximate="tanh")
-        return torch.matmul(h, self.wo)
+        dt = self.config.dtype
+        h = F.gelu(torch.matmul(x.to(dt), self.wi.to(dt)), approximate="tanh")
+        return torch.matmul(h, self.wo.to(dt))
 
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)``: f32 math, eps 1e-6, f32 out."""
 
-    def __init__(self, d: int):
+    def __init__(self, d: int, trainable: bool = False):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(d), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(d), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(d), requires_grad=trainable)
+        self.bias = nn.Parameter(torch.zeros(d), requires_grad=trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias, LN_EPS)
 
 
 class Block(nn.Module):
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, trainable: bool = False):
         super().__init__()
-        self.ln_attn = LayerNorm(config.d_model)
-        self.attn = Attention(config)
-        self.ln_mlp = LayerNorm(config.d_model)
-        self.mlp = DenseFFN(config)
+        self.ln_attn = LayerNorm(config.d_model, trainable)
+        self.attn = Attention(config, trainable)
+        self.ln_mlp = LayerNorm(config.d_model, trainable)
+        self.mlp = DenseFFN(config, trainable)
 
     def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0, fresh: bool = False):
         h = self.ln_attn(x)
@@ -416,19 +465,21 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """The causal LM. ``forward(tokens)`` is the training-mode pass;
-    ``decode(tokens, cache)`` the KV-cache pass every decoding path uses."""
+    ``decode(tokens, cache)`` the KV-cache pass every decoding path uses.
+    ``trainable`` selects f32 master parameters that require grad (see the
+    module docstring)."""
 
-    def __init__(self, config: TransformerConfig, device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, config: TransformerConfig, device: Optional[Union[str, torch.device]] = None,
+                 trainable: bool = False):
         super().__init__()
         from distriflow_tpu_torch.utils.device import resolve_device
 
         self.config = config
-        self.embed = nn.Parameter(torch.empty(config.vocab_size, config.d_model, dtype=config.dtype),
-                                  requires_grad=False)
-        self.layers = nn.ModuleList(Block(config) for _ in range(config.n_layers))
-        self.ln_f = LayerNorm(config.d_model)
-        self.lm_head = nn.Parameter(torch.empty(config.d_model, config.vocab_size, dtype=config.dtype),
-                                    requires_grad=False)
+        cfg = config
+        self.embed = _param(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype, trainable=trainable)
+        self.layers = nn.ModuleList(Block(cfg, trainable) for _ in range(cfg.n_layers))
+        self.ln_f = LayerNorm(cfg.d_model, trainable)
+        self.lm_head = _param(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype, trainable=trainable)
         dev = resolve_device(device)
         check_kernels_take(config, dev)
         self.to(dev)
@@ -438,14 +489,21 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens.long()].to(self.config.dtype)
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(self.ln_f(x).to(self.config.dtype), self.lm_head).float()
+        """Logits in ``cfg.dtype``."""
+        dt = self.config.dtype
+        return torch.matmul(self.ln_f(x).to(dt), self.lm_head.to(dt))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens.long()]
+        cfg = self.config
+        x = self._embed(tokens)
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
-            x = blk(x)
-        return self._head(x)
+            x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+        return _cast_logits(self._head(x), cfg.resolved_loss_for(self.device))
 
     def new_cache(self, batch: int) -> KVCache:
         """A zeroed solo cache: ``[batch, max_seq, H*D]`` slabs at position 0."""
@@ -465,8 +523,77 @@ class TransformerLM(nn.Module):
         fresh = cache is None
         if fresh:
             cache = self.new_cache(tokens.shape[0])
-        x = self.embed[tokens.long()]
+        x = self._embed(tokens)
         for i, blk in enumerate(self.layers):
             x = blk(x, cache, i, fresh)
         cache.advance(tokens.shape[1])
-        return self._head(x), cache
+        return self._head(x).float(), cache
+
+
+def _cast_logits(logits: torch.Tensor, loss_name: str) -> torch.Tensor:
+    """Training logits: ``cfg.dtype`` for the fused CE, which reads the
+    compute dtype and upcasts row by row (an f32 copy of the ``[tokens,
+    V]`` logits, and its twin in the backward, would be wasted bytes),
+    f32 for every other loss. ``loss_name`` must be the resolved name the
+    spec trains with, so dtype and loss never diverge."""
+    if loss_name.startswith("fused_"):
+        return logits
+    return logits.float()
+
+
+@torch.no_grad()
+def init_weights(model: TransformerLM, seed: int = 0) -> TransformerLM:
+    """Seeded random weights: every matmul kernel and the embedding
+    ``normal(0, 1/fan_in)`` (lecun-normal scale; fan_in = d_model for the
+    embedding), LayerNorm scale 1 and bias 0. Drawn on the CPU from one
+    ``torch.Generator``, so a seed gives the same weights on every device;
+    they are not flax's bits (carry a flax tree over with
+    :mod:`~distriflow_tpu_torch.models.convert` for that)."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.endswith(".scale"):
+            p.fill_(1.0)
+        elif name.endswith(".bias"):
+            p.zero_()
+        else:
+            fan_in = p.shape[1] if name == "embed" else p.shape[0]
+            p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
+    return model
+
+
+def transformer_lm(
+    config: Optional[TransformerConfig] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    example_seq: int = 128,
+    **overrides,
+) -> ModelSpec:
+    """ModelSpec for the causal LM on ``device`` (``cuda`` by default). ``x``
+    = int tokens ``[B, S]``; ``y`` = int next-token ids ``[B, S]`` (sparse
+    CE, fused on CUDA; set ``config.loss="softmax_cross_entropy"`` for
+    one-hot ``[B, S, V]`` targets). ``init(seed)`` builds a trainable model
+    (f32 masters, see the module docstring) with :func:`init_weights`."""
+    from distriflow_tpu_torch.utils.device import resolve_device
+
+    if config is None:
+        config = TransformerConfig(**overrides)
+    elif overrides:
+        config = dataclasses.replace(config, **overrides)
+    dev = resolve_device(device)
+    loss = config.resolved_loss_for(dev)
+    if dev.type == "cuda" and loss == "fused_sparse_softmax_cross_entropy" \
+            and config.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"no CUDA fused cross-entropy kernel for {config.dtype} logits: it takes bf16; "
+            "set loss='sparse_softmax_cross_entropy' for the plain loss")
+
+    def init(seed: int = 0) -> TransformerLM:
+        return init_weights(TransformerLM(config, device=dev, trainable=True), seed)
+
+    return ModelSpec(
+        init=init,
+        apply=lambda model, tokens: model(tokens),
+        loss=loss,
+        input_shape=(example_seq,),
+        output_shape=(config.vocab_size,),
+        name="transformer_lm",
+    )

@@ -1,5 +1,6 @@
-"""Port of ``distriflow_tpu/utils/config.py``: ``ServingConfig`` and the
-strict-key helpers only (the training configs wait for the training slice).
+"""Port of ``distriflow_tpu/utils/config.py``: ``CompileConfig``,
+``ServingConfig`` and the strict-key helpers (the mesh, client and server
+configs wait for the slices that use them).
 
 ``override(defaults, overrides)`` merges and raises on unrecognized keys;
 :func:`make_config` builds a dataclass config through it.
@@ -8,8 +9,8 @@ strict-key helpers only (the training configs wait for the training slice).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Type, TypeVar
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional, Sequence, Type, TypeVar
 
 T = TypeVar("T")
 
@@ -44,6 +45,17 @@ def make_config(cls: Type[T], overrides: Optional[Mapping[str, Any]] = None, **k
     defaults = {f.name: getattr(cls(), f.name) for f in dataclasses.fields(cls)}
     merged = override(defaults, {**(overrides or {}), **kw})
     return cls(**merged)
+
+
+@dataclass
+class CompileConfig:
+    """Model compile arguments, the fields ``SpecModel`` reads. ``loss=None``
+    means "use the model spec's loss", so setting only the optimizer never
+    silently substitutes the objective."""
+
+    loss: Optional[str] = None
+    metrics: Sequence[str] = field(default_factory=lambda: ("accuracy",))
+    optimizer: str = "sgd"
 
 
 @dataclass

@@ -4,13 +4,15 @@
 ``dftp-flat`` buffer (``MAGIC | meta_len | meta_json | blob``) that the wire
 protocol carries. The bytes are identical to the JAX package's, so a JAX
 ``InferenceClient`` can talk to the port's server and the reverse.
+:func:`serialize_tree`/:func:`deserialize_tree` key a tree's leaves by
+path, in JAX's ``keystr`` form (``['params']['embed']``), for checkpoints.
 
 Arrays come in as numpy arrays or CPU tensors. ``bfloat16`` has no numpy
 dtype without ``ml_dtypes``, so a ``bfloat16`` payload deserializes to a
 CPU ``torch.bfloat16`` tensor; every other dtype deserializes to numpy, as
 in the JAX package. Sparse (top-k) and int8-quantized payloads and
-``mean_serialized`` wait for the training slice: a blob carrying them is
-refused rather than misread.
+``mean_serialized`` belong to the wire-training planes, which are not
+ported yet: a blob carrying them is refused rather than misread.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import json
 import struct
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -160,3 +162,70 @@ def unpack_bytes(buf: bytes) -> Dict[str, SerializedArray]:
     if len(blob) < expected:
         raise ValueError(f"truncated dftp buffer: blob has {len(blob)} bytes, meta declares {expected}")
     return flat_deserialize(blob, meta)
+
+
+# -- trees -------------------------------------------------------------------
+# A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
+# arrays or Python numbers; None is an empty subtree, as in JAX. Dict keys
+# flatten in sorted order and paths read like jax.tree_util.keystr.
+
+
+def _leaves_with_path(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_with_path(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree) for x in _leaves_with_path(t, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any:
+    """``tree`` with every leaf replaced by ``fn(path, leaf)``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, t, f"{path}[{i}]") for i, t in enumerate(tree))
+    return fn(path, tree)
+
+
+def host_tree(tree: Any) -> Any:
+    """``tree`` with every tensor detached and copied to the CPU."""
+    return tree_map_with_path(
+        lambda _, v: v.detach().cpu() if isinstance(v, torch.Tensor) else v, tree)
+
+
+def serialize_tree(tree: Any) -> Dict[str, SerializedArray]:
+    """Tree of host arrays -> {path: SerializedArray}, keyed not positional."""
+    return {path: serialize_array(leaf) for path, leaf in _leaves_with_path(tree)}
+
+
+def deserialize_tree(
+    serialized: Dict[str, SerializedArray], like: Any, strict_shapes: bool = True
+) -> Any:
+    """{path: SerializedArray} -> a tree with the structure of ``like``.
+
+    Each leaf lands as the template leaf's kind and dtype (tensor, numpy
+    array or Python number), on the CPU. With ``strict_shapes`` (default),
+    a template leaf with a shape must match the serialized shape."""
+
+    def leaf(path: str, template: Any) -> Any:
+        if path not in serialized:
+            raise KeyError(f"serialized tree missing leaf {path!r}")
+        s = serialized[path]
+        t_shape = getattr(template, "shape", None)
+        if strict_shapes and t_shape is not None and tuple(t_shape) != s.shape:
+            raise ValueError(
+                f"shape mismatch at {path!r}: serialized {s.shape} vs template {tuple(t_shape)}")
+        arr = deserialize_array(s)
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
+        if isinstance(template, torch.Tensor):
+            return t.to(template.dtype)
+        if isinstance(template, np.ndarray):
+            return t.float().numpy().astype(template.dtype) if t.dtype == torch.bfloat16 \
+                else arr.astype(template.dtype)
+        return type(template)(t.item())
+
+    return tree_map_with_path(leaf, like)
