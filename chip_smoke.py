@@ -50,7 +50,9 @@
    (``training_step_profile:`` line), the counterpart of step 6.
 
 The kernel table holds every kernel at its path's shapes (the three
-training kernels at B8 H8 S1024 D64 and N 8192 x V 32000). The line
+training kernels at B8 H8 S1024 D64 and N 8192 x V 32000); the flash
+forward, which runs on both paths, is also held and timed at the training
+shape (its row's ``training_shape``). The line
 before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
@@ -86,13 +88,18 @@ TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 8, 1024
 # of a dV near 4). dQ also sums its K-tile partials with atomics, in an
 # order that changes between runs. The CE forward sums f32 exps in another
 # order (measured 9.5e-7 on lse ~ 11); the CE gradient differs only by a
-# rounding flip of the bf16 output (measured 0.0).
+# rounding flip of the bf16 output, which rtol 2**-7 covers. Its row draws
+# the upstream gradient g of order 1, so that the softmax term p * g
+# (~1e-5 for V=32000) of every column lies far above atol 1e-8 and is
+# held to rtol, not only the label column; the row also checks that
+# gradients missing the softmax term, with it doubled, or from an lse off
+# by 0.05 fail this limit.
 TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "flash_decode_paged": (1e-5, 2 ** -7),
        "flash_decode": (1e-5, 2 ** -7),
        "flash_attention_bwd": (5e-3, 2 ** -7),
        "fused_ce_fwd": (1e-5, 1e-6),
-       "fused_ce_bwd": (1e-6, 2 ** -7)}
+       "fused_ce_bwd": (1e-8, 2 ** -7)}
 LSE_ATOL = 1e-4
 # A training step through the kernels against the plain path, from the
 # same f32 masters and batch: |loss difference| and, for every parameter,
@@ -471,9 +478,11 @@ def _step_vs_plain(cfg, tree, tokens):
 
 
 def _training_kernel_rows(launches, steps):
-    """The three training kernels at the training step's shapes: error
-    against the plain version, and the times of kernel, plain version and
-    library call (whose backward is timed from a retained graph)."""
+    """The training kernels at the training step's shapes: error against
+    the plain version, and the times of kernel, plain version and library
+    call (whose backward is timed from a retained graph). Returns the rows
+    of the three training kernels and the flash forward's entry at the
+    training shape, which goes into that kernel's row."""
     import torch.nn.functional as F
 
     from distriflow_tpu_torch.ops import flash_attention as fa
@@ -492,10 +501,26 @@ def _training_kernel_rows(launches, steps):
                 "launches": launches[name], "launches_per_step": launches[name] / steps,
                 "max_abs_err": err, "tol": _tol(name), "shape": shape, **times}
 
-    # flash backward: B8 H8 S1024 D64 causal, the training step's attention
+    # flash forward and backward: B8 H8 S1024 D64 causal, the training
+    # step's attention
     b, h, s, d = TRAIN_B, 8, TRAIN_S, 64
     q, k, v, do = (randn(b, h, s, d) for _ in range(4))
     o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    ro, rl = fa.flash_attention_reference(q, k, v, True)
+    pairs = s * (s + 1) // 2
+    tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d)
+    fwd = {
+        "shape": f"B={b} H={h} S={s} D={d} causal",
+        "launches": launches["flash_attention_fwd"],
+        "launches_per_step": launches["flash_attention_fwd"] / steps,
+        "max_abs_err": _over("flash_attention_fwd O training", o, ro, *TOL["flash_attention_fwd"]),
+        "lse_max_abs_err": _over("flash_attention_fwd lse training", lse, rl, LSE_ATOL, 0.0),
+        "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 20, flush),
+        "plain_ms": _timed(lambda: fa.flash_attention_reference(q, k, v, True), 3, flush),
+        "bound_ms": tb, "bound_by": by,
+        "library_ms": _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                             20, flush)}
+    del ro, rl
     delta = (do.float() * o.float()).sum(-1)
     got = fa.flash_attention_backward(q, k, v, do, lse, delta, True)
     want = fa.flash_attention_backward_reference(q, k, v, do, lse, delta, True)
@@ -503,7 +528,6 @@ def _training_kernel_rows(launches, steps):
               for n, a, r in zip("qkv", got, want))
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    pairs = s * (s + 1) // 2
     tb, by = _bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * d)
     rows.append(row(
         "flash_attention_bwd", "distriflow_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -534,9 +558,24 @@ def _training_kernel_rows(launches, steps):
         bound_ms=tb, bound_by=by,
         library_ms=_timed(lambda: F.cross_entropy(logits, lab64, reduction="none"), 20, flush)))
 
-    gr = torch.rand(n, generator=g, device=dev) / n
-    err = _over("fused_ce_bwd", ce.fused_ce_backward(logits, labels, lse, gr),
-                ce.fused_ce_backward_reference(logits, labels, lse, gr), *TOL["fused_ce_bwd"])
+    # g of order 1, so that every column's softmax term is held to rtol
+    gr = torch.rand(n, generator=g, device=dev)
+    want = ce.fused_ce_backward_reference(logits, labels, lse, gr)
+    err = _over("fused_ce_bwd", ce.fused_ce_backward(logits, labels, lse, gr), want,
+                *TOL["fused_ce_bwd"])
+    # the limit must reject wrong gradients: the share of elements each
+    # falls outside it for (lse + inf drops the softmax term, lse - ln 2
+    # doubles it)
+    controls = {}
+    for name, shift in (("no_softmax", math.inf), ("twice_softmax", -math.log(2)),
+                        ("lse_plus_0.05", 0.05)):
+        wrong = ce.fused_ce_backward_reference(logits, labels, lse + shift, gr)
+        atol, rtol = TOL["fused_ce_bwd"]
+        controls[name] = float(((wrong.float() - want.float()).abs()
+                                > atol + rtol * want.float().abs()).float().mean())
+        assert controls[name] > 0.5, f"fused_ce_bwd limit passes a gradient with {name}: {controls}"
+        del wrong
+    del want
     tb, by = _bound(2 * n * vocab * 2 + 3 * n * 4, 4 * n * vocab, F32_FLOPS)
     lg = logits.detach().clone().requires_grad_()
     lib_loss = F.cross_entropy(lg, lab64, reduction="none")
@@ -547,8 +586,9 @@ def _training_kernel_rows(launches, steps):
         plain_ms=_timed(lambda: ce.fused_ce_backward_reference(logits, labels, lse, gr), 3, flush),
         bound_ms=tb, bound_by=by,
         library_ms=_timed(lambda: torch.autograd.grad(lib_loss, lg, gr.to(lg.dtype),
-                                                      retain_graph=True), 20, flush)))
-    return rows
+                                                      retain_graph=True), 20, flush),
+        rejected_share=controls))
+    return rows, fwd
 
 
 def main() -> int:
@@ -647,7 +687,8 @@ def main() -> int:
     rows = _kernel_rows({"flash_attention_fwd": serving["flash_attention_fwd"],
                          "flash_decode_paged": serving["flash_decode_paged"],
                          "flash_decode": solo["flash_decode"]})
-    rows += _training_kernel_rows(training, TRAIN_STEPS)
+    train_rows, rows[0]["training_shape"] = _training_kernel_rows(training, TRAIN_STEPS)
+    rows += train_rows
     path_of = {"flash_decode": "solo_generate", **{k: "training" for k in training_only}}
     for r in rows:
         r["path"] = path_of.get(r["name"], "serving")
