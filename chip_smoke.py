@@ -21,38 +21,57 @@
 4. Reads the kernels' launch counts for each path on its own: they are set
    to 0 just before the serving run and read just after it, then set to 0
    again around the solo ``generate()`` calls (the near-tie margins are
-   computed outside both windows). Serving must launch the prefill and the
-   paged decode kernel and not the slab one; solo ``generate()`` the
-   prefill and the slab decode kernel and not the paged one.
-5. Holds each kernel against its plain PyTorch version at the main path's
+   computed outside both windows). Each path must launch exactly its own
+   kernels and no other: serving the prefill and the paged decode kernel,
+   solo ``generate()`` the prefill and the slab decode kernel.
+5. Long context with the int8 KV cache: the same tree at ``max_seq``
+   16384 with ``kv_cache_dtype="int8"``. A new server answers 8 concurrent
+   ``generate`` requests (prompts 4 x 1024, 8192, 12000 and 16000, 64 new
+   tokens, six greedy and two sampled, plus one sharing the first 4096
+   tokens of the 8192-token prompt), then one ``beam`` (prompt 8192, 32
+   tokens, beam 4) and one ``score`` (16384 tokens from position 8192),
+   each in its own launch window: serving must launch the prefill and the
+   paged int8 kernel, ``beam`` the prefill and the slab int8 kernel,
+   ``score`` only the prefill. Greedy results are held against solo
+   ``generate()`` with ``"int8_force"`` (int8 caches on both sides, which
+   launches the prefill and slab int8 kernels), under the near-tie rule;
+   the beam's tokens and score must be finite and in range; the served
+   score must lie within ``SCORE_RTOL`` of ``sequence_logprob`` through
+   the plain attention path. One long-context decode iteration is
+   profiled as in step 7 (``long_context:`` line).
+6. Holds each kernel against its plain PyTorch version at the main path's
    shapes, elementwise within ``atol + rtol * |plain|`` (limits in
    ``TOL``), and times kernel, plain version and a PyTorch library call
    computing the same function (a yardstick only: the port never calls
    it), with CUDA events and the L2 cache flushed before every launch.
-6. Profiles one engine decode iteration (8 slots, chunk 8) with
+   The paged int8 row also times the paged bf16 and int8 kernels on the
+   same 8 rows at contexts 1024, 4096 and 16000 (``by_context``).
+7. Profiles one engine decode iteration (8 slots, chunk 8) with
    ``torch.profiler``: host wall time, device busy time, the device's idle
    share and the kernels that took the most device time.
-7. Trains the flagship LM (the same seeded flax-shaped tree, carried over
+8. Trains the flagship LM (the same seeded flax-shaped tree, carried over
    as f32 masters) with the port's ``SyncTrainer`` (adam, lr 1e-3, the
    fused sparse CE) on one fixed seeded batch of B=8 x S=1024 tokens for
    20 steps, with the launch counts read in a window of their own: each
    step must launch the flash forward and backward kernels 8 times each
-   and the CE forward and backward once each, and no decode kernel; the
-   serving and solo windows must show no backward or CE launch. Prints a
+   and the CE forward and backward once each, and no decode kernel; no
+   other window may show a backward or CE launch. Prints a
    ``training:`` line (step ms p50/max, tokens/s, first and last loss);
    every loss must be finite and the last at least ``LOSS_FALL`` below
    the first.
-8. Takes one step's loss and every parameter's gradient twice from the
+9. Takes one step's loss and every parameter's gradient twice from the
    same masters and batch, once through the kernels and once through the
    plain path (``use_flash_attention=False``, plain sparse CE), and holds
    them within ``STEP_TOL`` (``step_vs_plain:`` line).
-9. Profiles one training step with ``torch.profiler``
-   (``training_step_profile:`` line), the counterpart of step 6.
+10. Profiles one training step with ``torch.profiler``
+    (``training_step_profile:`` line), the counterpart of step 7.
 
 The kernel table holds every kernel at its path's shapes (the three
-training kernels at B8 H8 S1024 D64 and N 8192 x V 32000); the flash
-forward, which runs on both paths, is also held and timed at the training
-shape (its row's ``training_shape``). The line
+training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
+at the long phase's rows); the flash forward, which runs on every path,
+is also held and timed at the training shape (its row's
+``training_shape``) and at B1 H8 S16000 (``long_context``). Each row's
+``launches_by_path`` gives its count in every window. The line
 before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
@@ -60,6 +79,7 @@ CUDA device the script exits 1 before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -94,9 +114,17 @@ TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 8, 1024
 # held to rtol, not only the label column; the row also checks that
 # gradients missing the softmax term, with it doubled, or from an lse off
 # by 0.05 fail this limit.
+# The int8 decode kernels take the exact int dot (dp4a) and the f32
+# products in the plain version's order, and round p * v_scale to bf16
+# where it does, so only the f32 sums of the online softmax (per lane
+# group in the kernel, one einsum in the plain version) and expf against
+# torch.exp differ: the limit of the bf16 decode kernels, one rounding step
+# of the bf16 output.
 TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "flash_decode_paged": (1e-5, 2 ** -7),
        "flash_decode": (1e-5, 2 ** -7),
+       "flash_decode_paged_int8": (1e-5, 2 ** -7),
+       "flash_decode_int8": (1e-5, 2 ** -7),
        "flash_attention_bwd": (5e-3, 2 ** -7),
        "fused_ce_fwd": (1e-5, 1e-6),
        "fused_ce_bwd": (1e-8, 2 ** -7)}
@@ -113,9 +141,22 @@ STEP_TOL = {"loss": 1e-3, "grad_rel": 0.04}
 # 10.87 -> 4.21 on the H100)
 LOSS_FALL = 2.0
 NEAR_TIE = 0.05
+# the long-context int8 phase: the flagship at max_seq 16384 with the
+# int8 KV cache; prompt lengths of the eight generate requests, the last
+# sharing the first SHARED tokens (32 pages) of the 8192-token prompt
+LONG_MAX_SEQ = 16384
+LONG_LENS = (1024, 1024, 1024, 1024, 8192, 12000, 16000)
+SHARED, SHARER_OWN = 4096, 904
+BEAM_PROMPT, BEAM_TOKENS, BEAM_SIZE = 8192, 32, 4
+SCORE_LEN, SCORE_FROM = 16384, 8192
+# served score (prefill kernel, bf16 P) against the plain attention path
+# (f32 softmax) on the same tokens, relative
+SCORE_RTOL = 1e-3
+CROSSOVER_CONTEXTS = (1024, 4096, 16000)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
+INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 
 
 def _card() -> str:
@@ -160,16 +201,33 @@ def _requests(rng: np.random.Generator, vocab: int):
     return reqs
 
 
-def _serve(model, reqs):
-    """Drive the port's server with the port's client; returns
-    ``(outputs by name, engine stats)`` after stopping the server."""
+def _serve(model, reqs, counted, direct=()):
+    """Drive the port's server with the port's client: the ``generate``
+    requests in one counted window (:func:`_generate_wave`), then each
+    ``(name, fn(client))`` of ``direct`` in a window of its own. Returns
+    ``(outputs by name, engine stats, the generate window's launch counts,
+    {name: (result, launch counts)})`` after stopping the server."""
     from distriflow_tpu_torch.client.inference_client import InferenceClient
     from distriflow_tpu_torch.obs.telemetry import Telemetry
     from distriflow_tpu_torch.server.inference_server import InferenceServer
 
     server = InferenceServer(model, telemetry=Telemetry()).setup()
-    outs, errs = {}, []
     clients = [InferenceClient(server.address, timeout=600).setup() for _ in reqs]
+    try:
+        (outs, stats), counts = counted(lambda: _generate_wave(server, clients, reqs))
+        done = {name: counted(lambda fn=fn: fn(clients[0])) for name, fn in direct}
+        return outs, stats, counts, done
+    finally:
+        for c in clients:
+            c.close()
+        server.stop()
+
+
+def _generate_wave(server, clients, reqs):
+    """Every request of ``reqs`` at once, one client each; the last starts
+    once the others are admitted, so that the prompt pages it shares are
+    registered. Returns ``(outputs by name, engine stats)``."""
+    outs, errs = {}, []
 
     def run(client, name, prompt, kw):
         try:
@@ -177,31 +235,25 @@ def _serve(model, reqs):
         except Exception as e:  # re-raised on the main thread below
             errs.append((name, e))
 
-    try:
-        threads = [threading.Thread(target=run, args=(c, *r)) for c, r in zip(clients, reqs)]
-        for t in threads[:-1]:
-            t.start()
-        deadline = time.monotonic() + 300
-        while server.batched_requests < len(reqs) - 1:  # donor pages registered
-            if errs or time.monotonic() > deadline:
-                raise RuntimeError(f"first wave not admitted: {errs}")
-            time.sleep(0.001)
-        threads[-1].start()
-        for t in threads:
-            t.join(timeout=600)
-        if errs or any(t.is_alive() for t in threads):
-            raise RuntimeError(f"requests failed: {errs}")
-        stats = {
-            "decode_batches": server.decode_batches,
-            "prefix_hits": server.prefix_hits,
-            "phases_ms": {k: {q: v[q] for q in ("count", "p50", "max", "sum")}
-                          for k, v in server._prof.digests().items()},
-        }
-        return outs, stats
-    finally:
-        for c in clients:
-            c.close()
-        server.stop()
+    threads = [threading.Thread(target=run, args=(c, *r)) for c, r in zip(clients, reqs)]
+    for t in threads[:-1]:
+        t.start()
+    deadline = time.monotonic() + 300
+    while server.batched_requests < len(reqs) - 1:  # donor pages registered
+        if errs or time.monotonic() > deadline:
+            raise RuntimeError(f"first wave not admitted: {errs}")
+        time.sleep(0.001)
+    threads[-1].start()
+    for t in threads:
+        t.join(timeout=600)
+    if errs or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"requests failed: {errs}")
+    return outs, {
+        "decode_batches": server.decode_batches,
+        "prefix_hits": server.prefix_hits,
+        "phases_ms": {k: {q: v[q] for q in ("count", "p50", "max", "sum")}
+                      for k, v in server._prof.digests().items()},
+    }
 
 
 def _margin(model, prompt, gen, t):
@@ -244,8 +296,8 @@ def _check_greedy(model, reqs, outs, solos):
     return report
 
 
-def _profile_decode_iteration(model, rng):
-    """One engine decode iteration (8 slots, contexts 128-1000, chunk 8,
+def _profile_decode_iteration(model, rng, contexts):
+    """One engine decode iteration (8 slots at ``contexts``, chunk 8,
     greedy) under ``torch.profiler`` (:func:`_profiled`)."""
     from distriflow_tpu_torch.models.generate import decode_chunk, paged_cache, paged_insert, prefill
     from distriflow_tpu_torch.utils.config import ServingConfig
@@ -255,11 +307,15 @@ def _profile_decode_iteration(model, rng):
     cache = paged_cache(cfg, srv.max_slots, srv.page_size, n_pages, model.device)
     table = np.full((srv.max_slots, cache.page_table.shape[1]), n_pages, np.int32)
     first = np.zeros(srv.max_slots, np.int32)
-    for r, n in enumerate([128, 300, 512, 1000] * 2):
-        table[r, :-(-(n + 64) // srv.page_size)] = np.arange(16 * r, 16 * r + (-(-(n + 64) // srv.page_size)))
+    used = 0
+    for r, n in enumerate(contexts):
+        k = -(-(n + N_TOKENS) // srv.page_size)
+        table[r, :k] = np.arange(used, used + k)
+        used += k
         logits, row = prefill(model, rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32))
         paged_insert(cache, row, [r], n, 0, table)
         first[r] = int(logits.argmax())
+        del row
     off = dict(temps=np.zeros(8, np.float32), top_ks=np.zeros(8, np.int32),
                top_ps=np.ones(8, np.float32), seeds=np.zeros(8, np.int64), eos=np.full(8, -1, np.int32))
     state = [first, np.zeros(8, bool)]
@@ -450,8 +506,6 @@ def _train(cfg, tree, tokens):
 def _step_vs_plain(cfg, tree, tokens):
     """One step's loss and gradients through the kernels and through the
     plain path, from the same f32 masters and batch."""
-    import dataclasses
-
     from distriflow_tpu_torch.models.convert import lm_from_jax
     from distriflow_tpu_torch.models.transformer import transformer_lm
 
@@ -591,6 +645,214 @@ def _training_kernel_rows(launches, steps):
     return rows, fwd
 
 
+def _long_requests(rng: np.random.Generator, vocab: int):
+    """(name, prompt [1, P], kwargs) x 8 at long context: prompts of
+    :data:`LONG_LENS`, two of them sampled, and one that shares the first
+    :data:`SHARED` tokens of the 8192-token prompt."""
+    prompts = [rng.integers(0, vocab, (1, n), dtype=np.int64).astype(np.int32) for n in LONG_LENS]
+    sharer = np.concatenate(
+        [prompts[4][:, :SHARED], rng.integers(0, vocab, (1, SHARER_OWN)).astype(np.int32)], 1)
+    sampled = {1: dict(temperature=0.8, top_k=50, top_p=0.95, seed=4321),
+               5: dict(temperature=0.8, top_k=50, top_p=0.95, seed=77)}
+    reqs = [(f"p{n}_{i}", p, sampled.get(i, {})) for i, (n, p) in enumerate(zip(LONG_LENS, prompts))]
+    reqs.append((f"p{SHARED + SHARER_OWN}_shared", sharer, {}))
+    return reqs
+
+
+def _long_phase(cfg, tree, rng, counted, device="cuda"):
+    """The flagship at max_seq 16384 with ``kv_cache_dtype="int8"``: eight
+    generate requests, one beam and one score through the port's server
+    and client, each in its own launch-count window, then solo
+    ``generate()`` with ``"int8_force"`` (the same int8 caches) for the
+    greedy parity and the plain attention path for the score. Returns
+    ``(report, launch counts by path)``."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.generate import sequence_logprob
+
+    model = lm_from_jax(cfg, tree, device=device)
+    reqs = _long_requests(rng, cfg.vocab_size)
+    beam_prompt = rng.integers(0, cfg.vocab_size, (1, BEAM_PROMPT)).astype(np.int32)
+    score_tokens = rng.integers(0, cfg.vocab_size, (1, SCORE_LEN)).astype(np.int32)
+    direct = (("beam", lambda c: c.beam_search(beam_prompt, BEAM_TOKENS, beam_size=BEAM_SIZE)),
+              ("score", lambda c: c.score(score_tokens, from_pos=SCORE_FROM)))
+    t0 = time.perf_counter()
+    outs, stats, serving, done = _serve(model, reqs, counted, direct)
+    wall = time.perf_counter() - t0
+    assert stats["prefix_hits"] >= 1, "the prefix-sharing path did not run at long context"
+    (beam_toks, beam_scores), beam = done["beam"]
+    served_score, score = done["score"]
+    profile = _profile_decode_iteration(model, rng, list(LONG_LENS) + [SHARED + SHARER_OWN])
+    del model
+
+    force = lm_from_jax(dataclasses.replace(cfg, kv_cache_dtype="int8_force"), tree, device=device)
+    solos, solo = counted(lambda: _solo(force, reqs))
+    parity = _check_greedy(force, reqs, outs, solos)
+    del force, solos
+
+    beam_toks, beam_scores = np.asarray(beam_toks), np.asarray(beam_scores, np.float64)
+    assert beam_toks.shape == (1, BEAM_PROMPT + BEAM_TOKENS), beam_toks.shape
+    assert (beam_toks[:, :BEAM_PROMPT] == beam_prompt).all()
+    assert 0 <= beam_toks.min() and beam_toks.max() < cfg.vocab_size
+    assert np.isfinite(beam_scores).all(), beam_scores
+
+    plain = lm_from_jax(dataclasses.replace(cfg, use_flash_attention=False), tree, device=device)
+    want = float(sequence_logprob(plain, score_tokens, SCORE_FROM)[0])
+    del plain
+    got = float(np.asarray(served_score)[0])
+    rel = abs(got - want) / abs(want)
+    assert math.isfinite(got) and rel <= SCORE_RTOL, (got, want, rel)
+    report = {
+        "serving": {"wall_s": wall, **stats}, "parity": parity,
+        "beam": {"prompt": BEAM_PROMPT, "n_tokens": BEAM_TOKENS, "beam_size": BEAM_SIZE,
+                 "score": float(beam_scores[0]),
+                 "tokens_head": beam_toks[0, BEAM_PROMPT:BEAM_PROMPT + 8].tolist()},
+        "score": {"len": SCORE_LEN, "from_pos": SCORE_FROM, "served": got,
+                  "plain_attention": want, "rel_diff": rel, "limit": SCORE_RTOL},
+        "decode_iteration_profile": profile,
+    }
+    return report, {"long_serving": serving, "long_solo_generate": solo, "beam": beam,
+                    "score": score}
+
+
+def _int8_cache(g, lead, h, d):
+    """Random int8 K/V ``lead + (H*D,)`` and U(0.005, 0.05) f32 scales
+    ``lead + (H,)`` on the card."""
+    dev = torch.device("cuda")
+    k8, v8 = (torch.randint(-127, 128, lead + (h * d,), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(lead + (h,), generator=g, device=dev) * 0.045 + 0.005 for _ in range(2))
+    return k8, v8, ks, vs
+
+
+def _paged_rows(g, lens_l, ps, n_pages, pp):
+    """A page table giving row r ``ceil(lens_l[r] / ps)`` scattered pages
+    of an ``n_pages`` pool, sentinel after them."""
+    dev = torch.device("cuda")
+    perm = torch.randperm(n_pages, generator=g, device=dev).to(torch.int32)
+    table = torch.full((len(lens_l), pp), n_pages, dtype=torch.int32, device=dev)
+    used = 0
+    for r, n in enumerate(lens_l):
+        k = -(-n // ps)
+        table[r, :k] = perm[used:used + k]
+        used += k
+    return table, torch.tensor(lens_l, dtype=torch.int32, device=dev)
+
+
+def _int8_bound(live, b, h, d, table_entries=0):
+    """Bound of an int8 decode launch: every live position's K/V int8 and
+    its two f32 scales, q and the output in bf16, the table entries."""
+    return _bound(live * h * (2 * d + 2 * 4) + 2 * b * h * d * 2 + table_entries * 4,
+                  4 * live * h * d, INT8_OPS)
+
+
+def _long_kernel_rows(launches):
+    """Rows 4 and 5 (the int8 decode kernels) at the long phase's shapes,
+    with the paged bf16 and int8 kernels timed on the same 8 rows at each
+    of :data:`CROSSOVER_CONTEXTS` (row 4's ``by_context``), and the flash
+    forward's ``long_context`` entry at B1 H8 S16000."""
+    import torch.nn.functional as F
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    flush = _flush_buffer()
+    h, d, ps = 8, 64, 128
+    pp = LONG_MAX_SEQ // ps
+    no_library = ("no single PyTorch call computes attention over int8 K/V with per-(position, "
+                  "head) scales folded into the scores and probabilities")
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    # paged int8: the engine's 8 rows at the end of their 64 new tokens
+    lens_l = [n + N_TOKENS for n in LONG_LENS] + [SHARED + SHARER_OWN + N_TOKENS]
+    n_pages = sum(-(-n // ps) for n in lens_l) + 8
+    k8, v8, ks, vs = _int8_cache(g, (n_pages, ps), h, d)
+    table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
+    q = randn(len(lens_l), h, d)
+    args = (q, k8, v8, ks, vs, table, lens)
+    err = _over("flash_decode_paged_int8", fd.flash_decode_paged_int8(*args),
+                fd.flash_decode_paged_int8_reference(*args), *TOL["flash_decode_paged_int8"])
+    tb, by = _int8_bound(sum(lens_l), len(lens_l), h, d, int((table < n_pages).sum()))
+    by_context = {}
+    for ctx in CROSSOVER_CONTEXTS:
+        n_pg = 8 * -(-ctx // ps)
+        ck8, cv8, cks, cvs = _int8_cache(g, (n_pg, ps), h, d)
+        kb, vb = randn(n_pg, ps, h * d), randn(n_pg, ps, h * d)
+        ctab, clens = _paged_rows(g, [ctx] * 8, ps, n_pg, pp)
+        qc = randn(8, h, d)
+        by_context[str(ctx)] = {
+            "bf16_ms": _timed(lambda: fd.flash_decode_paged(qc, kb, vb, ctab, clens), 100, flush),
+            "int8_ms": _timed(lambda: fd.flash_decode_paged_int8(qc, ck8, cv8, cks, cvs, ctab, clens),
+                              100, flush),
+            "bf16_bound_ms": _bound(2 * 8 * ctx * h * d * 2, 4 * 8 * ctx * h * d)[0],
+            "int8_bound_ms": _int8_bound(8 * ctx, 8, h, d)[0]}
+        del ck8, cv8, cks, cvs, kb, vb
+    rows.append({
+        "name": "flash_decode_paged_int8", "route": "cuda",
+        "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "distriflow_tpu/ops/flash_decode.py:484",
+        "launches": launches["flash_decode_paged_int8"], "max_abs_err": err,
+        "tol": _tol("flash_decode_paged_int8"),
+        "ms": _timed(lambda: fd.flash_decode_paged_int8(*args), 100, flush),
+        "plain_ms": _timed(lambda: fd.flash_decode_paged_int8_reference(*args), 3, flush),
+        "bound_ms": tb, "bound_by": by, "library_ms": None, "library_note": no_library,
+        "shape": f"B={len(lens_l)} H={h} D={d} page={ps} contexts={lens_l} int8",
+        "by_context": by_context,
+    })
+    del k8, v8, ks, vs, args
+
+    # slab int8: the beam's 4 rows at its last step
+    b, n = BEAM_SIZE, BEAM_PROMPT + BEAM_TOKENS - 1
+    k8, v8, ks, vs = _int8_cache(g, (b, LONG_MAX_SEQ), h, d)
+    q = randn(b, h, d)
+    args = (q, k8, v8, ks, vs, n)
+    err = _over("flash_decode_int8", fd.flash_decode_int8(*args),
+                fd.flash_decode_int8_reference(*args), *TOL["flash_decode_int8"])
+    tb, by = _int8_bound(b * n, b, h, d)
+    rows.append({
+        "name": "flash_decode_int8", "route": "cuda",
+        "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "distriflow_tpu/ops/flash_decode.py:245",
+        "launches": launches["flash_decode_int8"], "max_abs_err": err,
+        "tol": _tol("flash_decode_int8"),
+        "ms": _timed(lambda: fd.flash_decode_int8(*args), 100, flush),
+        "plain_ms": _timed(lambda: fd.flash_decode_int8_reference(*args), 3, flush),
+        "bound_ms": tb, "bound_by": by, "library_ms": None, "library_note": no_library,
+        "shape": f"B={b} S={LONG_MAX_SEQ} valid={n} H={h} D={d} int8",
+    })
+    del k8, v8, ks, vs, args
+
+    # the flash forward at the longest prompt; its plain version one head
+    # at a time (the [S, S] f32 scores of all heads at once would take 8 GB)
+    s = LONG_LENS[-1]
+    q, k, v = (randn(1, h, s, d) for _ in range(3))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+
+    def plain():
+        return [fa.flash_attention_reference(q[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1], True)
+                for i in range(h)]
+
+    ref = plain()
+    ro, rl = torch.cat([r[0] for r in ref], 1), torch.cat([r[1] for r in ref], 1)
+    del ref
+    pairs = s * (s + 1) // 2
+    tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d)
+    long_context = {
+        "shape": f"B=1 H={h} S={s} D={d} causal",
+        "max_abs_err": _over("flash_attention_fwd O long", o, ro, *TOL["flash_attention_fwd"]),
+        "lse_max_abs_err": _over("flash_attention_fwd lse long", lse, rl, LSE_ATOL, 0.0),
+        "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 10, flush),
+        "plain_ms": _timed(plain, 1, flush),
+        "bound_ms": tb, "bound_by": by,
+        "library_ms": _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                             10, flush)}
+    return rows, long_context
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -628,6 +890,8 @@ def main() -> int:
     counters = {"flash_attention_fwd": fa.flash_attention,
                 "flash_decode_paged": fd.flash_decode_paged,
                 "flash_decode": fd.flash_decode,
+                "flash_decode_paged_int8": fd.flash_decode_paged_int8,
+                "flash_decode_int8": fd.flash_decode_int8,
                 "flash_attention_bwd": fa.flash_attention_backward,
                 "fused_ce_fwd": ce.fused_ce_forward,
                 "fused_ce_bwd": ce.fused_ce_backward}
@@ -640,31 +904,39 @@ def main() -> int:
         return out, {k: fn.launches for k, fn in counters.items()}
 
     t0 = time.perf_counter()
-    (outs, stats), serving = counted(lambda: _serve(model, reqs))
+    outs, stats, serving, _ = _serve(model, reqs, counted)
     serve_s = time.perf_counter() - t0
     solos, solo = counted(lambda: _solo(model, reqs))
     report = _check_greedy(model, reqs, outs, solos)
     print("serving:", json.dumps({"wall_s": serve_s, **stats}), flush=True)
     print("parity:", json.dumps(report), flush=True)
+    assert stats["prefix_hits"] >= 1, "the prefix-sharing path did not run"
+
+    # long context: the same tree at max_seq 16384 with the int8 KV cache
+    long_cfg = dataclasses.replace(flagship_lm_config(max_seq=LONG_MAX_SEQ), kv_cache_dtype="int8")
+    long_report, long_counts = _long_phase(long_cfg, tree, np.random.default_rng(SEED + 4), counted)
+    print("long_context:", json.dumps(long_report), flush=True)
 
     # training: the flagship from the same tree as f32 masters, one batch
     tokens = np.random.default_rng(SEED + 2).integers(
         0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1)).astype(np.int32)
     (trainer, losses, step_ms), training = counted(lambda: _train(cfg, tree, tokens))
-    print("launches:", json.dumps({"serving": serving, "solo_generate": solo, "training": training}),
-          flush=True)
-    for path, counts, ran, idle in (
-            ("serving", serving, ("flash_attention_fwd", "flash_decode_paged"),
-             ("flash_decode",) + training_only),
-            ("solo generate()", solo, ("flash_attention_fwd", "flash_decode"),
-             ("flash_decode_paged",) + training_only),
-            ("training", training, ("flash_attention_fwd",) + training_only,
-             ("flash_decode", "flash_decode_paged"))):
-        for k in ran:
-            assert counts[k] > 0, f"kernel {k} never launched on the {path} path"
-        for k in idle:
-            assert counts[k] == 0, f"{path} launched {k} {counts[k]} times"
-    assert stats["prefix_hits"] >= 1, "the prefix-sharing path did not run"
+    paths = {"serving": serving, "solo_generate": solo, **long_counts, "training": training}
+    print("launches:", json.dumps(paths), flush=True)
+    # each path launches exactly the kernels named here, and no other
+    ran = {"serving": ("flash_attention_fwd", "flash_decode_paged"),
+           "solo_generate": ("flash_attention_fwd", "flash_decode"),
+           "long_serving": ("flash_attention_fwd", "flash_decode_paged_int8"),
+           "long_solo_generate": ("flash_attention_fwd", "flash_decode_int8"),
+           "beam": ("flash_attention_fwd", "flash_decode_int8"),
+           "score": ("flash_attention_fwd",),
+           "training": ("flash_attention_fwd",) + training_only}
+    for path, counts in paths.items():
+        for k, n in counts.items():
+            if k in ran[path]:
+                assert n > 0, f"kernel {k} never launched on the {path} path"
+            else:
+                assert n == 0, f"{path} launched {k} {n} times"
     per_step = {"flash_attention_fwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
                 "fused_ce_fwd": 1, "fused_ce_bwd": 1}
     for k, n in per_step.items():
@@ -683,18 +955,24 @@ def main() -> int:
     print("step_vs_plain:", json.dumps(_step_vs_plain(cfg, tree, tokens)), flush=True)
 
     # each kernel's count on its own path: prefill and paged decode on
-    # serving, slab decode on solo generate(), the rest on training
+    # serving, slab decode on solo generate(), paged int8 on long-context
+    # serving, slab int8 on beam, the rest on training
     rows = _kernel_rows({"flash_attention_fwd": serving["flash_attention_fwd"],
                          "flash_decode_paged": serving["flash_decode_paged"],
                          "flash_decode": solo["flash_decode"]})
+    int8_rows, rows[0]["long_context"] = _long_kernel_rows(
+        {"flash_decode_paged_int8": long_counts["long_serving"]["flash_decode_paged_int8"],
+         "flash_decode_int8": long_counts["beam"]["flash_decode_int8"]})
+    rows += int8_rows
     train_rows, rows[0]["training_shape"] = _training_kernel_rows(training, TRAIN_STEPS)
     rows += train_rows
-    path_of = {"flash_decode": "solo_generate", **{k: "training" for k in training_only}}
+    path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
+               "flash_decode_int8": "beam", **{k: "training" for k in training_only}}
     for r in rows:
         r["path"] = path_of.get(r["name"], "serving")
-        r["launches_by_path"] = {"serving": serving[r["name"]], "solo_generate": solo[r["name"]],
-                                 "training": training[r["name"]]}
-    print("decode_iteration_profile:", json.dumps(_profile_decode_iteration(model, rng)), flush=True)
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
+    print("decode_iteration_profile:",
+          json.dumps(_profile_decode_iteration(model, rng, [128, 300, 512, 1000] * 2)), flush=True)
     x, y = tokens[:, :-1], tokens[:, 1:]
     print("training_step_profile:", json.dumps(_profiled(lambda: trainer.step((x, y)))), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

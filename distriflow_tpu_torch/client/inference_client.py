@@ -164,7 +164,7 @@ class InferenceClient:
         length_penalty: float = 0.0,
         eos_id: Optional[int] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Remote beam search (the JAX server's ``beam``); returns
+        """Remote beam search (the server's ``beam``); returns
         ``(tokens [B, P + n_tokens], scores [B])``."""
         payload = self._prompt_payload(prompt)  # dfcheck: payload beam_request
         payload.update(
@@ -179,7 +179,7 @@ class InferenceClient:
         return deserialize_array(result["tokens"]), deserialize_array(result["scores"])
 
     def score(self, tokens: np.ndarray, from_pos: int = 1) -> np.ndarray:
-        """Remote sequence scoring (the JAX server's ``score``): teacher-
+        """Remote sequence scoring (the server's ``score``): teacher-
         forced ``log P(tokens[:, from_pos:] | prefix)`` per row."""
         payload = self._prompt_payload(tokens)  # dfcheck: payload score_request
         payload["from_pos"] = int(from_pos)

@@ -1,13 +1,21 @@
-"""Port of ``distriflow_tpu/models/generate.py``: solo decoding and the
-continuous-batching engine's device half (beam search, sequence scoring
-and speculative decoding are not ported yet).
+"""Port of ``distriflow_tpu/models/generate.py``: solo decoding, beam
+search, sequence scoring and the continuous-batching engine's device half
+(speculative decoding is not ported yet).
 
 PyTorch runs eagerly, so the JAX package's jit builders
-(``_build_prefill``, ``_build_paged_fns``, ``_build_slot_fns``) become
-plain functions of the same names' members: :func:`prefill`/:func:`extend`,
-:func:`paged_insert`/:func:`gather_rows` and
-:func:`slot_insert`/:func:`pick_rows`/:func:`decode_chunk`; ``lax.scan``
-becomes a Python loop.
+(``_build_prefill``, ``_build_paged_fns``, ``_build_slot_fns``,
+``_build_beam_fns``, ``_build_score_fn``) become plain functions of the
+same names' members: :func:`prefill`/:func:`extend`,
+:func:`paged_insert`/:func:`gather_rows`,
+:func:`slot_insert`/:func:`pick_rows`/:func:`decode_chunk`,
+:func:`beam_search` and :func:`sequence_logprob`; ``lax.scan`` becomes a
+Python loop.
+
+**int8 KV cache.** Solo :func:`generate` and :func:`beam_search` know the
+context they will read (prompt + n_tokens) and gate an ``"int8"`` request
+on it (:func:`_gate_kv_dtype`); the engine's caches only know ``max_seq``
+and follow ``config.resolved_kv_cache_dtype``. Every engine cache helper
+carries the scale buffers beside K/V, as JAX's ``_POOL_LEAVES`` do.
 
 **Sampling.** JAX keys a sampled token by ``fold_in(PRNGKey(seed),
 position)``; torch cannot reproduce those bits. Here each ``(seed,
@@ -19,6 +27,7 @@ tokens solo and in the engine. Greedy decoding matches JAX token for token.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +37,7 @@ from distriflow_tpu_torch.models.transformer import (
     KVCache,
     TransformerConfig,
     TransformerLM,
+    cache_buffers,
     check_kernels_take,
 )
 
@@ -98,6 +108,23 @@ def _check_fits(p: int, n_tokens: int, config: TransformerConfig) -> None:
             f"({config.max_seq}); raise config.max_seq")
 
 
+def _gate_kv_dtype(config: TransformerConfig, context_len: int) -> TransformerConfig:
+    """Re-gate an ``"int8"`` KV request on the context this call reads
+    (JAX ``generate.py:111-126``): a long-``max_seq`` config serving a short
+    request keeps the ``cfg.dtype`` cache; ``"int8_force"`` is never
+    demoted."""
+    if (config.kv_cache_dtype == "int8"
+            and config.kv_cache_dtype_for(context_len) is None
+            and config.resolved_kv_cache_dtype == "int8"):
+        return dataclasses.replace(config, kv_cache_dtype=None)
+    return config
+
+
+def _int8_for(config: TransformerConfig, context_len: int) -> bool:
+    """Whether a solo decode reading ``context_len`` positions stores int8."""
+    return _gate_kv_dtype(config, context_len).resolved_kv_cache_dtype == "int8"
+
+
 def _tokens(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
                            device=device).to(torch.int32)
@@ -139,7 +166,7 @@ def generate(
             return _sample(logits, seed, pos).to(torch.int32)
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
-    logits, cache = model.decode(prompt)
+    logits, cache = model.decode(prompt, int8=_int8_for(config, p + n_tokens))
     tok = pick(logits[:, -1], p)
     done = tok == eos_id if eos_id is not None else None
     out = [prompt, tok[:, None]]
@@ -152,6 +179,110 @@ def generate(
         tok = nxt
         out.append(tok[:, None])
     return torch.cat(out, dim=1)
+
+
+def _penalize(scores: torch.Tensor, lengths: torch.Tensor, length_penalty: float) -> torch.Tensor:
+    """GNMT length penalty ``((5 + len) / 6) ** alpha``; alpha 0 = raw."""
+    if length_penalty == 0.0:
+        return scores
+    return scores / (((5.0 + lengths) / 6.0) ** length_penalty)
+
+
+@torch.no_grad()
+def beam_search(
+    model: TransformerLM,
+    prompt,
+    n_tokens: int,
+    beam_size: int = 4,
+    length_penalty: float = 0.0,
+    eos_id: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decode: ``(tokens [B, P + n_tokens] int32, scores [B]
+    f32)`` on the model's device (JAX ``generate.py:180-316``).
+
+    The prefix cache is tiled to ``B x beam_size`` rows after the prefill
+    and reordered with the beams at every step, scale buffers included;
+    each step is a solo slab decode, so an int8 search launches the int8
+    slab kernel. ``eos_id`` freezes finished beams (they repeat eos at zero
+    added score); ``length_penalty`` is the GNMT form, applied to pruning
+    and to the final ranking."""
+    config = model.config
+    prompt = _tokens(prompt, model.device)
+    b, p = prompt.shape
+    if not 1 <= beam_size <= config.vocab_size:
+        raise ValueError(f"beam_size must be in [1, vocab_size={config.vocab_size}], "
+                         f"got {beam_size}")
+    if eos_id is not None and not 0 <= eos_id < config.vocab_size:
+        raise ValueError(f"eos_id {eos_id} out of range for vocab_size {config.vocab_size}")
+    if n_tokens <= 0:
+        return prompt, torch.zeros((b,), dtype=torch.float32, device=model.device)
+    _check_fits(p, n_tokens, config)
+    dev, vocab, beam = model.device, config.vocab_size, beam_size
+    logits, cache = model.decode(prompt, int8=_int8_for(config, p + n_tokens))
+    scores, first = torch.topk(torch.log_softmax(logits[:, -1].float(), dim=-1), beam)
+    # batch row i serves beams i*beam .. i*beam + beam - 1
+    cache.reorder(torch.arange(b, device=dev).repeat_interleave(beam))
+    rows = b * beam
+    seqs = torch.zeros((rows, n_tokens), dtype=torch.int32, device=dev)
+    seqs[:, 0] = first.reshape(rows).to(torch.int32)
+    flat_scores = scores.reshape(rows)
+    finished = (first.reshape(rows) == eos_id if eos_id is not None
+                else torch.zeros((rows,), dtype=torch.bool, device=dev))
+    lengths = torch.ones((rows,), dtype=torch.float32, device=dev)
+    base = torch.arange(b, device=dev)[:, None] * beam
+    for t in range(1, n_tokens):
+        logits, cache = model.decode(seqs[:, t - 1:t], cache)
+        logp = torch.log_softmax(logits[:, -1].float(), dim=-1)  # [rows, V]
+        if eos_id is not None:
+            # a finished beam may only repeat eos at zero added score
+            only_eos = torch.full_like(logp, -1e30)
+            only_eos[:, eos_id] = 0.0
+            logp = torch.where(finished[:, None], only_eos, logp)
+        total = flat_scores[:, None] + logp  # raw cumulative
+        # prune by the objective the winner is ranked with
+        cand_len = lengths + torch.where(finished, 0.0, 1.0)
+        ranked = _penalize(total, cand_len[:, None], length_penalty).reshape(b, beam * vocab)
+        idx = torch.topk(ranked, beam, dim=-1).indices  # [B, beam]
+        new_scores = torch.gather(total.reshape(b, beam * vocab), -1, idx)
+        flat_parent = (base + idx // vocab).reshape(rows)
+        token = (idx % vocab).reshape(rows).to(torch.int32)
+        cache.reorder(flat_parent)
+        seqs = seqs[flat_parent]
+        seqs[:, t] = token
+        was_finished = finished[flat_parent]
+        lengths = lengths[flat_parent] + torch.where(was_finished, 0.0, 1.0)
+        if eos_id is not None:
+            finished = was_finished | (token == eos_id)
+        flat_scores = new_scores.reshape(rows)
+    ranked = _penalize(flat_scores.reshape(b, beam), lengths.reshape(b, beam), length_penalty)
+    best = torch.argmax(ranked, dim=-1)
+    pick = torch.arange(b, device=dev) * beam + best
+    return (torch.cat([prompt, seqs[pick]], dim=1),
+            ranked[torch.arange(b, device=dev), best])
+
+
+@torch.no_grad()
+def sequence_logprob(model: TransformerLM, tokens, from_pos: int = 1) -> torch.Tensor:
+    """Teacher-forced ``sum_{t >= from_pos} log P(tokens[:, t] |
+    tokens[:, :t])`` per row, ``[B]`` f32 on the model's device, from one
+    training-mode forward (JAX ``generate.py:318-376``; on CUDA the
+    prefill-attention kernel)."""
+    config = model.config
+    tokens = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor) else tokens,
+                        dtype=np.int64)
+    b, s = tokens.shape
+    if not 1 <= from_pos < s:
+        raise ValueError(f"from_pos must be in [1, {s - 1}], got {from_pos}")
+    if s > config.max_seq:
+        raise ValueError(f"sequence length {s} exceeds max_seq ({config.max_seq})")
+    lo, hi = int(tokens.min()), int(tokens.max())
+    if lo < 0 or hi >= config.vocab_size:
+        raise ValueError(f"token ids span [{lo}, {hi}] but vocab_size is {config.vocab_size}")
+    t = torch.as_tensor(tokens, device=model.device)
+    logp = torch.log_softmax(model(t[:, :-1]).float(), dim=-1)
+    target = torch.gather(logp, -1, t[:, 1:, None])[..., 0]  # [B, S-1]
+    mask = torch.arange(s - 1, device=model.device)[None, :] >= from_pos - 1
+    return (target * mask).sum(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -168,32 +299,34 @@ def pages_per_slot(max_seq: int, page_size: int) -> int:
 
 def slot_cache(config: TransformerConfig, max_slots: int, device) -> KVCache:
     """The engine's zeroed slab cache: ``[max_slots, max_seq, H*D]`` per
-    layer and a ``[max_slots]`` position vector."""
-    shape = (max_slots, config.max_seq, config.d_model)
-    return KVCache(
-        [torch.zeros(shape, dtype=config.dtype, device=device) for _ in range(config.n_layers)],
-        [torch.zeros(shape, dtype=config.dtype, device=device) for _ in range(config.n_layers)],
-        torch.zeros(max_slots, dtype=torch.int32, device=device), config.max_seq)
+    layer (int8 with ``[max_slots, max_seq, H]`` scales when
+    ``config.resolved_kv_cache_dtype`` says so) and a ``[max_slots]``
+    position vector."""
+    k, v, ks, vs = cache_buffers(config, (max_slots, config.max_seq),
+                                 config.resolved_kv_cache_dtype == "int8", device)
+    return KVCache(k, v, torch.zeros(max_slots, dtype=torch.int32, device=device),
+                   config.max_seq, k_scale=ks, v_scale=vs)
 
 
 def paged_cache(config: TransformerConfig, max_slots: int, page_size: int,
                 n_pages: int, device) -> KVCache:
     """The engine's paged cache: one ``[n_pages, page_size, H*D]`` pool
-    per layer (plus one scratch page, see ``KVCache``) and a
-    ``[max_slots, pages_per_slot + 1]`` table whose entries start at the
-    sentinel ``n_pages`` (nothing allocated)."""
+    per layer (int8 with ``[n_pages, page_size, H]`` scale pools when
+    ``config.resolved_kv_cache_dtype`` says so; each plus one scratch page,
+    see ``KVCache``) and a ``[max_slots, pages_per_slot + 1]`` table whose
+    entries start at the sentinel ``n_pages`` (nothing allocated)."""
     if page_size <= 0:
         raise ValueError(f"page_size must be positive, got {page_size}")
     if n_pages <= 0:
         raise ValueError(f"n_pages must be positive, got {n_pages}")
     check_kernels_take(config, torch.device(device), page_size)
     pp = pages_per_slot(config.max_seq, page_size)
-    shape = (n_pages + 1, page_size, config.d_model)  # + the scratch page
+    k, v, ks, vs = cache_buffers(config, (n_pages + 1, page_size),  # + the scratch page
+                                 config.resolved_kv_cache_dtype == "int8", device)
     return KVCache(
-        [torch.zeros(shape, dtype=config.dtype, device=device) for _ in range(config.n_layers)],
-        [torch.zeros(shape, dtype=config.dtype, device=device) for _ in range(config.n_layers)],
-        torch.zeros(max_slots, dtype=torch.int32, device=device), config.max_seq,
-        page_table=torch.full((max_slots, pp + 1), n_pages, dtype=torch.int32, device=device))
+        k, v, torch.zeros(max_slots, dtype=torch.int32, device=device), config.max_seq,
+        page_table=torch.full((max_slots, pp + 1), n_pages, dtype=torch.int32, device=device),
+        k_scale=ks, v_scale=vs)
 
 
 def set_page_tables(cache: KVCache, table) -> KVCache:
@@ -234,7 +367,7 @@ def paged_insert(cache: KVCache, row_cache: KVCache, slots, length: int,
     dev = cache.k[0].device
     slots = torch.as_tensor(np.asarray(slots), dtype=torch.long, device=dev)
     r = slots.shape[0]
-    n_pg, ps, feat = cache.k[0].shape
+    n_pg, ps, _ = cache.k[0].shape
     pp = cache.page_table.shape[1] - 1
     max_seq = cache.max_seq
     cols = torch.arange(max_seq, device=dev)[None, :].expand(r, max_seq)
@@ -242,8 +375,10 @@ def paged_insert(cache: KVCache, row_cache: KVCache, slots, length: int,
     phys = torch.gather(cache.page_table[slots].long(), 1, pg)
     keep = (cols >= start) & (cols < length) & (phys < n_pg)
     flat = cache.drop_to_scratch(phys * ps + cols % ps, keep).reshape(-1)
-    for dst, src in zip(cache.k_store + cache.v_store, row_cache.k + row_cache.v):
-        dst.view(-1, feat)[flat] = src[:, :max_seq].reshape(-1, feat).to(dst.dtype)
+    for name, dsts in cache.stores.items():
+        for dst, src in zip(dsts, row_cache.stores[name]):
+            w = dst.shape[-1]
+            dst.view(-1, w)[flat] = src[:, :max_seq].reshape(-1, w).to(dst.dtype)
     _index_vector(slots, length, cache)
     return cache
 
@@ -255,18 +390,19 @@ def gather_rows(cache: KVCache, tables, start: int) -> KVCache:
     a fresh prefill stopped there; ``extend`` then runs the suffix."""
     dev = cache.k[0].device
     tables = torch.as_tensor(np.asarray(tables), dtype=torch.long, device=dev)
-    n_pg, ps, feat = cache.k[0].shape
+    n_pg, ps, _ = cache.k[0].shape
     pp = pages_per_slot(cache.max_seq, ps)
     tab = torch.clamp(tables[:, :pp], max=n_pg - 1)
     r = tab.shape[0]
     live = (torch.arange(cache.max_seq, device=dev) < start)[None, :, None]
 
     def rows(pool):
-        g = pool[tab].reshape(r, pp * ps, feat)[:, :cache.max_seq]
+        g = pool[tab].reshape(r, pp * ps, pool.shape[-1])[:, :cache.max_seq]
         return torch.where(live, g, torch.zeros_like(g))
 
-    return KVCache([rows(t) for t in cache.k], [rows(t) for t in cache.v],
-                   int(start), cache.max_seq)
+    out = {name: [rows(t) for t in ts] for name, ts in cache.pools.items()}
+    return KVCache(out["k"], out["v"], int(start), cache.max_seq,
+                   k_scale=out.get("k_scale"), v_scale=out.get("v_scale"))
 
 
 @torch.no_grad()
@@ -276,8 +412,9 @@ def slot_insert(cache: KVCache, row_cache: KVCache, slots, length: int) -> KVCac
     dev = cache.k[0].device
     slots = torch.as_tensor(np.asarray(slots), dtype=torch.long, device=dev)
     keep = (slots >= 0) & (slots < cache.index.shape[0])
-    for dst, src in zip(cache.k + cache.v, row_cache.k + row_cache.v):
-        dst[slots[keep]] = src[keep].to(dst.dtype)
+    for name, dsts in cache.stores.items():
+        for dst, src in zip(dsts, row_cache.stores[name]):
+            dst[slots[keep]] = src[keep].to(dst.dtype)
     _index_vector(slots, length, cache)
     return cache
 

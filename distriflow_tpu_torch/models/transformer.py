@@ -4,8 +4,8 @@
 ``torch.dtype``). The modules are ``nn.Module``s holding weights in the
 JAX kernel layout (``[in, out]``), so
 :mod:`distriflow_tpu_torch.models.convert` copies a flax params tree over
-without transposes. MoE, ring/Ulysses attention, the pipelined LM and the
-int8 KV cache are not ported yet: the config refuses them.
+without transposes. MoE, ring/Ulysses attention and the pipelined LM are
+not ported yet: the config refuses them.
 
 One module class serves both uses; whoever builds it picks the parameter
 storage with ``TransformerLM(config, trainable=...)``:
@@ -43,6 +43,13 @@ Decoding carries an explicit :class:`KVCache` in place of flax's mutable
   position vector and a ``[B, pages_per_slot + 1]`` page table whose last
   column is pinned at the sentinel ``n_pages``.
 
+With ``kv_cache_dtype="int8"`` (gated on context, see
+:meth:`TransformerConfig.kv_cache_dtype_for`) or ``"int8_force"`` the
+cache holds int8 K/V with f32 scales per (position, head) beside them, in
+every layout; a fresh prefill attends over the exact projections, the
+decode kernels fold the scales in, and the plain path dequantizes (f32
+product, then cast) and quantizes q for single-token steps, as JAX does.
+
 Cache writes update the tensors in place (JAX rebuilds them functionally);
 that saves a copy of the whole pool per step. JAX's scatters silently drop
 out-of-range indices where ``index_put_`` would raise or wrap, so every
@@ -66,18 +73,27 @@ from distriflow_tpu_torch.ops.flash_decode import (
     SUPPORTED_HEAD_DIMS,
     flash_decode,
     flash_decode_paged,
+    quantize_int8,
     supports_paged,
     supports_seq,
 )
 
 NEG_INF = -1e30
 LN_EPS = 1e-6  # flax nn.LayerNorm's default epsilon
+# Context length from which kv_cache_dtype="int8" stores an int8 cache
+# (below it the cache stays cfg.dtype). The JAX package's value, copied
+# as it is: it decides which cache a request gets, so it is part of the
+# semantics the port must match. It was measured on a TPU; the H100's own
+# int8-vs-bf16 crossover is measured by chip_smoke.py (row 4's
+# by_context) and recorded in PERF.md.
+INT8_KV_DECODE_CROSSOVER_SEQ = 8192
+KV_CACHE_DTYPES = (None, "int8", "int8_force")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields as the JAX config. Values that select code this port
-    does not have yet (MoE, sequence-parallel attention, int8 KV) raise."""
+    does not have yet (MoE, sequence-parallel attention) raise."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -116,16 +132,35 @@ class TransformerConfig:
             "n_experts": self.n_experts != 0,
             "use_ring_attention": self.use_ring_attention,
             "use_ulysses_attention": self.use_ulysses_attention,
-            "kv_cache_dtype": self.kv_cache_dtype is not None,
         }
         for name, set_ in unported.items():
             if set_:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet")
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                f"kv_cache_dtype must be None, 'int8', or 'int8_force', "
+                f"got {self.kv_cache_dtype!r}")
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    def kv_cache_dtype_for(self, context_len: int) -> Optional[str]:
+        """The cache precision a decode that reads ``context_len`` positions
+        stores: ``"int8"`` when forced or at/above
+        :data:`INT8_KV_DECODE_CROSSOVER_SEQ`, else None (``cfg.dtype``)."""
+        if self.kv_cache_dtype == "int8_force":
+            return "int8"
+        if self.kv_cache_dtype == "int8" and context_len >= INT8_KV_DECODE_CROSSOVER_SEQ:
+            return "int8"
+        return None
+
+    @property
+    def resolved_kv_cache_dtype(self) -> Optional[str]:
+        """:meth:`kv_cache_dtype_for` at ``max_seq``: the precision when only
+        the allocation bound is known (the serving engine's caches)."""
+        return self.kv_cache_dtype_for(self.max_seq)
 
     def resolved_loss_for(self, device: Optional[Union[str, torch.device]] = None) -> str:
         """The loss name the model spec trains with. An explicit ``loss`` is
@@ -211,14 +246,40 @@ def check_kernels_take(config: TransformerConfig, device: torch.device,
             config.max_seq, d, item):
         refused.append("prefill attention")
     if config.use_flash_decode is not False:
-        if not supports_seq(config.max_seq, hd=hd, kv_item=item, d=d):
-            refused.append("slab decode")
-        if page_size is not None and not supports_paged(page_size, hd=hd, kv_item=item, d=d):
-            refused.append(f"paged decode at page_size {page_size}")
+        # the cache precisions a decode can get: the context gate may pick
+        # either side of the crossover under kv_cache_dtype="int8"
+        for kv_item in sorted({1 if config.kv_cache_dtype_for(n) == "int8" else item
+                               for n in (1, config.max_seq)}):
+            tag = " (int8 cache)" if kv_item == 1 else ""
+            q_ok = kv_item != 1 or item == 2  # the int8 kernels read a bf16 q
+            if not (supports_seq(config.max_seq, hd=hd, kv_item=kv_item, d=d) and q_ok):
+                refused.append("slab decode" + tag)
+            if page_size is not None and not (
+                    supports_paged(page_size, hd=hd, kv_item=kv_item, d=d) and q_ok):
+                refused.append(f"paged decode at page_size {page_size}{tag}")
     if refused:
         raise NotImplementedError(
             f"no CUDA kernel for {', '.join(refused)} at dtype {config.dtype}, "
-            f"head dim {d}: the kernels take bf16 at head dims {SUPPORTED_HEAD_DIMS}")
+            f"head dim {d}: the kernels take bf16 (and int8 caches with a bf16 q) "
+            f"at head dims {SUPPORTED_HEAD_DIMS}")
+
+
+def quantize_kv(t: torch.Tensor, n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 per (position, head), JAX ``_quantize``:
+    ``[B, s, H*D]`` -> (int8 ``[B, s, H*D]``, f32 scales ``[B, s, H]``).
+    Values are ``clip(round_half_even(t / max(scale, 1e-20)), -127, 127)``;
+    the stored scale is the unclamped one, so a zero row stores 0."""
+    b, s, hd = t.shape
+    q8, scale = quantize_int8(t.reshape(b, s, n_heads, hd // n_heads))
+    return q8.to(torch.int8).reshape(b, s, hd), scale
+
+
+def dequantize_kv(x8: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 ``[B, S, H*D]`` with ``[B, S, H]`` scales -> ``dtype``: the f32
+    product, then the cast (JAX ``transformer.py:472-480``)."""
+    b, s, hd = x8.shape
+    h = scale.shape[-1]
+    return (x8.float().reshape(b, s, h, hd // h) * scale[..., None]).to(dtype).reshape(b, s, hd)
 
 
 class KVCache:
@@ -227,28 +288,45 @@ class KVCache:
     ``[B]`` int32 tensor (slot and paged). The page table is held once,
     not per layer as in the JAX pytree: every layer's copy was identical.
 
+    An int8 cache also carries ``k_scale``/``v_scale``: per-layer f32
+    ``[B, max_seq, H]`` slabs or ``[n_pages, page_size, H]`` pools, written
+    by every path that writes K/V. ``stores`` maps each leaf name (JAX's
+    ``_POOL_LEAVES``: ``k``, ``v`` and, for int8, ``k_scale``, ``v_scale``)
+    to its per-layer storages, ``pools`` to the same without the scratch
+    page.
+
     A paged cache is built from ``[n_pages + 1, page_size, F]`` storages
-    whose last page is scratch: ``k``/``v`` are the ``[n_pages, ...]``
-    pools in front of it, and writes that JAX drops (sentinel pages, masked
-    positions) are routed into the scratch page, which nothing reads. That
-    drops them without the host sync a boolean-mask index would cost.
+    whose last page is scratch: ``k``/``v`` (and the scale pools) are the
+    ``[n_pages, ...]`` pools in front of it, and writes that JAX drops
+    (sentinel pages, masked positions) are routed into the scratch page,
+    which nothing reads. That drops them without the host sync a
+    boolean-mask index would cost.
     """
 
     def __init__(self, k: List[torch.Tensor], v: List[torch.Tensor],
                  index: Union[int, torch.Tensor], max_seq: int,
-                 page_table: Optional[torch.Tensor] = None):
+                 page_table: Optional[torch.Tensor] = None,
+                 k_scale: Optional[List[torch.Tensor]] = None,
+                 v_scale: Optional[List[torch.Tensor]] = None):
         self.index = index
         self.max_seq = max_seq
         self.page_table: Optional[torch.Tensor] = None
         self._kernel_table: Optional[torch.Tensor] = None
+        self.stores = {"k": k, "v": v}
+        if k_scale is not None:
+            self.stores.update(k_scale=k_scale, v_scale=v_scale)
         if page_table is None:
-            self.k, self.v = k, v
-            self.k_store = self.v_store = None
-        else:
-            self.k_store, self.v_store = k, v
-            self.k = [t[:-1] for t in k]  # leading slices: still contiguous
-            self.v = [t[:-1] for t in v]
+            self.pools = self.stores
+        else:  # leading slices: still contiguous
+            self.pools = {name: [t[:-1] for t in ts] for name, ts in self.stores.items()}
             self.set_page_table(page_table)
+        self.k, self.v = self.pools["k"], self.pools["v"]
+        self.k_scale, self.v_scale = self.pools.get("k_scale"), self.pools.get("v_scale")
+
+    @property
+    def quant(self) -> bool:
+        """True for an int8 cache (K/V int8, f32 scales beside them)."""
+        return self.k_scale is not None
 
     def drop_to_scratch(self, flat: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
         """Paged: flat pool offsets with every ``~keep`` entry moved into
@@ -271,44 +349,70 @@ class KVCache:
         self._kernel_table = self.page_table[:, :-1].contiguous()
 
     def store(self, layer: int, k_tok: torch.Tensor, v_tok: torch.Tensor) -> None:
-        """Write ``[B, s, H*D]`` K/V at each row's own position."""
+        """Write ``[B, s, H*D]`` K/V at each row's own position (an int8
+        cache quantizes them first and writes their scales alongside)."""
         b, s, _ = k_tok.shape
-        ck, cv = self.k[layer], self.v[layer]
+        vals = {"k": k_tok, "v": v_tok}
+        if self.quant:
+            h = self.k_scale[0].shape[-1]
+            vals["k"], vals["k_scale"] = quantize_kv(k_tok, h)
+            vals["v"], vals["v_scale"] = quantize_kv(v_tok, h)
+        ck = self.k[layer]
+        dev = ck.device
         if self.paged:
-            n_pg, ps, feat = ck.shape
+            n_pg, ps, _ = ck.shape
             pp = self.page_table.shape[1] - 1  # last column is the sentinel
-            cols = self.index[:, None].long() + torch.arange(s, device=ck.device)[None, :]
+            cols = self.index[:, None].long() + torch.arange(s, device=dev)[None, :]
             pg = torch.clamp(cols // ps, max=pp)  # logical past the table -> sentinel
             phys = torch.gather(self.page_table.long(), 1, pg)
             # sentinel pages (retired or unallocated) land in the scratch page
             flat = self.drop_to_scratch(phys * ps + cols % ps, phys < n_pg).reshape(-1)
-            self.k_store[layer].view(-1, feat)[flat] = k_tok.reshape(-1, feat).to(ck.dtype)
-            self.v_store[layer].view(-1, feat)[flat] = v_tok.reshape(-1, feat).to(cv.dtype)
+            for name, val in vals.items():
+                buf = self.stores[name][layer]
+                buf.view(-1, buf.shape[-1])[flat] = val.reshape(-1, buf.shape[-1]).to(buf.dtype)
         elif self.slot_mode:
-            rows = torch.arange(b, device=ck.device)[:, None].expand(b, s)
-            cols = self.index[:, None].long() + torch.arange(s, device=ck.device)[None, :]
+            rows = torch.arange(b, device=dev)[:, None].expand(b, s)
+            cols = self.index[:, None].long() + torch.arange(s, device=dev)[None, :]
             keep = cols < ck.shape[1]  # frozen rows parked past max_seq: drop
-            ck[rows[keep], cols[keep]] = k_tok[keep].to(ck.dtype)
-            cv[rows[keep], cols[keep]] = v_tok[keep].to(cv.dtype)
+            for name, val in vals.items():
+                buf = self.stores[name][layer]
+                buf[rows[keep], cols[keep]] = val[keep].to(buf.dtype)
         else:
             i = int(self.index)
             if i + s > ck.shape[1]:
                 raise ValueError(f"cache write [{i}, {i + s}) past max_seq {ck.shape[1]}")
-            ck[:, i:i + s] = k_tok.to(ck.dtype)
-            cv[:, i:i + s] = v_tok.to(cv.dtype)
+            for name, val in vals.items():
+                buf = self.stores[name][layer]
+                buf[:, i:i + s] = val.to(buf.dtype)
 
-    def view(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Slab-shaped ``[B, max_seq, F]`` K/V of every row. Paged rows are
-        gathered through the table; sentinel entries clamp to the last
-        real page, whose contents the per-row visibility mask discards."""
-        ck, cv = self.k[layer], self.v[layer]
+    def _rows(self, pool: torch.Tensor) -> torch.Tensor:
+        """Slab-shaped ``[B, max_seq, F]`` rows of one layer's buffer. Paged
+        rows are gathered through the table; sentinel entries clamp to the
+        last real page, whose contents the per-row visibility mask
+        discards."""
         if not self.paged:
-            return ck, cv
-        n_pg, ps, feat = ck.shape
+            return pool
+        n_pg, ps, feat = pool.shape
         tab = torch.clamp(self._kernel_table.long(), max=n_pg - 1)
         b, pp = tab.shape
-        return tuple(buf[tab].reshape(b, pp * ps, feat)[:, :self.max_seq]
-                     for buf in (ck, cv))
+        return pool[tab].reshape(b, pp * ps, feat)[:, :self.max_seq]
+
+    def view(self, layer: int, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Slab-shaped ``[B, max_seq, F]`` K/V of every row; an int8 cache
+        is dequantized to ``dtype`` (:func:`dequantize_kv`)."""
+        keys, vals = self._rows(self.k[layer]), self._rows(self.v[layer])
+        if not self.quant:
+            return keys, vals
+        return (dequantize_kv(keys, self._rows(self.k_scale[layer]), dtype),
+                dequantize_kv(vals, self._rows(self.v_scale[layer]), dtype))
+
+    def reorder(self, rows: torch.Tensor) -> None:
+        """Solo cache: gather every buffer's batch rows by ``rows`` (beam
+        search tiles and reorders its beams this way, scales included)."""
+        if self.paged or self.slot_mode:
+            raise ValueError("reorder takes a solo cache")
+        for bufs in self.stores.values():
+            bufs[:] = [t[rows] for t in bufs]
 
     def kernel_table(self) -> torch.Tensor:
         """``[B, pages_per_slot]`` int32 table without the sentinel column."""
@@ -386,17 +490,25 @@ class Attention(nn.Module):
             # the prompt alone is the whole answer (prefill kernel)
             return self._out(self._prompt_attention(q, k, v).transpose(1, 2))
 
-        ck = cache.k[layer]
         if s == 1 and _use_kernel(cfg.use_flash_decode, q):  # on CUDA: the kernel or a raise
             qf = q[:, :, 0, :].contiguous()  # [B, H, D]
             lens = idx + s
+            scales = {}
+            if cache.quant:  # the int8 kernels quantize q and fold the scales in
+                scales = dict(k_scale=cache.k_scale[layer], v_scale=cache.v_scale[layer])
             if cache.paged:
-                ctx = flash_decode_paged(qf, ck, cache.v[layer], cache.kernel_table(), lens)
+                ctx = flash_decode_paged(qf, cache.k[layer], cache.v[layer],
+                                         cache.kernel_table(), lens, **scales)
             else:
-                ctx = flash_decode(qf, ck, cache.v[layer], lens)
+                ctx = flash_decode(qf, cache.k[layer], cache.v[layer], lens, **scales)
             return self._out(ctx[:, None].to(cfg.dtype))
 
-        keys, vals = cache.view(layer)
+        if cache.quant and s == 1:
+            # the int8 kernels' per-head absmax q quantization, mirrored as
+            # JAX's plain path does (transformer.py:571-584)
+            q8, qsc = quantize_int8(q)
+            q = (q8 * qsc.clamp_min(1e-20)[..., None]).to(q.dtype)
+        keys, vals = cache.view(layer, cfg.dtype)
         keys = keys.reshape(b, cfg.max_seq, cfg.n_heads, cfg.head_dim)
         vals = vals.reshape(b, cfg.max_seq, cfg.n_heads, cfg.head_dim)
         scores = torch.einsum("bhqd,bkhd->bhqk", q.float(), keys.float()) / math.sqrt(cfg.head_dim)
@@ -505,29 +617,48 @@ class TransformerLM(nn.Module):
             x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         return _cast_logits(self._head(x), cfg.resolved_loss_for(self.device))
 
-    def new_cache(self, batch: int) -> KVCache:
-        """A zeroed solo cache: ``[batch, max_seq, H*D]`` slabs at position 0."""
+    def new_cache(self, batch: int, int8: Optional[bool] = None) -> KVCache:
+        """A zeroed solo cache: ``[batch, max_seq, H*D]`` slabs at position
+        0, int8 with scales when ``int8`` (None: the config's
+        :attr:`~TransformerConfig.resolved_kv_cache_dtype`)."""
         cfg = self.config
-        shape = (batch, cfg.max_seq, cfg.d_model)
-        return KVCache(
-            [torch.zeros(shape, dtype=cfg.dtype, device=self.device) for _ in range(cfg.n_layers)],
-            [torch.zeros(shape, dtype=cfg.dtype, device=self.device) for _ in range(cfg.n_layers)],
-            0, cfg.max_seq)
+        if int8 is None:
+            int8 = cfg.resolved_kv_cache_dtype == "int8"
+        k, v, ks, vs = cache_buffers(cfg, (batch, cfg.max_seq), int8, self.device)
+        return KVCache(k, v, 0, cfg.max_seq, k_scale=ks, v_scale=vs)
 
     @torch.no_grad()
-    def decode(self, tokens: torch.Tensor, cache: Optional[KVCache] = None
-               ) -> Tuple[torch.Tensor, KVCache]:
+    def decode(self, tokens: torch.Tensor, cache: Optional[KVCache] = None,
+               int8: Optional[bool] = None) -> Tuple[torch.Tensor, KVCache]:
         """Run ``tokens`` [B, s] through the cache; returns ``(logits
         [B, s, V] f32, cache)``. ``cache=None`` starts a fresh solo cache
-        (the prefill, which takes the prompt-attention kernel)."""
+        (the prefill, which takes the prompt-attention kernel), int8 as
+        :meth:`new_cache` decides from ``int8``."""
         fresh = cache is None
         if fresh:
-            cache = self.new_cache(tokens.shape[0])
+            cache = self.new_cache(tokens.shape[0], int8)
         x = self._embed(tokens)
         for i, blk in enumerate(self.layers):
             x = blk(x, cache, i, fresh)
         cache.advance(tokens.shape[1])
         return self._head(x).float(), cache
+
+
+def cache_buffers(config: TransformerConfig, lead: Tuple[int, int], int8: bool, device
+                  ) -> Tuple[List[torch.Tensor], ...]:
+    """Zeroed per-layer ``(k, v, k_scale, v_scale)`` buffers of shape
+    ``lead + (H*D,)`` (scales ``lead + (H,)`` f32, or None when not
+    ``int8``); K/V in ``cfg.dtype`` or int8."""
+    n = config.n_layers
+
+    def bufs(width, dtype):
+        return [torch.zeros(lead + (width,), dtype=dtype, device=device) for _ in range(n)]
+
+    kv_dtype = torch.int8 if int8 else config.dtype
+    k, v = bufs(config.d_model, kv_dtype), bufs(config.d_model, kv_dtype)
+    if not int8:
+        return k, v, None, None
+    return k, v, bufs(config.n_heads, torch.float32), bufs(config.n_heads, torch.float32)
 
 
 def _cast_logits(logits: torch.Tensor, loss_name: str) -> torch.Tensor:

@@ -5,8 +5,9 @@ PyTorch version (port of ``distriflow_tpu/ops``).
   (replace ``distriflow_tpu/ops/flash_attention.py::_fwd_kernel`` and
   ``_dkvq_kernel``), differentiable through an ``autograd.Function``;
 - :mod:`.flash_decode` — paged and slab single-token decode attention
-  (replace ``distriflow_tpu/ops/flash_decode.py::_paged_kernel`` and
-  ``_decode_kernel``);
+  over bf16 and int8 caches (replace
+  ``distriflow_tpu/ops/flash_decode.py::_paged_kernel``,
+  ``_decode_kernel``, ``_paged_kernel_quant`` and ``_decode_kernel_quant``);
 - :mod:`.fused_ce` — the fused sparse softmax cross-entropy, forward and
   backward (replace ``distriflow_tpu/ops/fused_ce.py::_fwd_kernel`` and
   ``_bwd_kernel`` with integer labels).

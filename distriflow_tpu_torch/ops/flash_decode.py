@@ -1,23 +1,38 @@
-"""Single-token decode attention: a hand-written Hopper kernel for the
-paged and the slab KV cache, and its plain version.
+"""Single-token decode attention: hand-written Hopper kernels for the
+paged and the slab KV cache, bf16 and int8, and their plain versions.
 
-Port of ``distriflow_tpu/ops/flash_decode.py`` (bf16 caches; the int8
-variants wait). ``csrc/flash_decode.cu`` replaces two Pallas kernels:
-``_paged_kernel`` (:func:`flash_decode_paged`, one query per row against a
-``[n_pages, page_size, H*D]`` pool through a ``[B, PP]`` page table) and
-``_decode_kernel`` (:func:`flash_decode`, against a token-major
-``[B, S, H*D]`` slab). One kernel serves both: the slab is read as a page
+Port of ``distriflow_tpu/ops/flash_decode.py``. ``csrc/flash_decode.cu``
+replaces four Pallas kernels:
+
+- ``_paged_kernel`` and ``_paged_kernel_quant``
+  (:func:`flash_decode_paged`, one query per row against a
+  ``[n_pages, page_size, H*D]`` pool through a ``[B, PP]`` page table);
+- ``_decode_kernel`` and ``_decode_kernel_quant`` (:func:`flash_decode`,
+  against a token-major ``[B, S, H*D]`` slab).
+
+One kernel per cache type serves both layouts: the slab is read as a page
 table that is the identity, with :data:`SLAB_TILE`-position pages, so at
 ``page_size == SLAB_TILE`` both accumulate in the same order and the
 serving engine's paged decode matches solo ``generate()`` on the card.
+Given ``k_scale``/``v_scale`` the two wrappers take int8 K/V and launch
+the int8 kernel (:func:`flash_decode_paged_int8`, :func:`flash_decode_int8`,
+each with its own launch count).
 
-Numeric contract (both the kernel and the plain versions here): q, K and
+Numeric contract, bf16 (the kernel and the plain versions here): q, K and
 V enter the products as bf16; scores, the running max and sum stay f32; p
 is rounded to bf16 for the PV product; accumulation is f32; positions at
 or past a row's valid length score -1e30. Sentinel page-table entries
 (``>= n_pages``) clamp to the last page, whose contents the length mask
 discards. The TPU kernel's block-diagonal query layout existed only to
 feed the TPU's matrix unit and is not carried over.
+
+Numeric contract, int8 (``flash_decode.py:176-215, 245-271, 545-551``):
+q is quantized per (row, head), ``qs = max(max|q| / 127, 1e-20)``,
+``q8 = clip(round_half_even(q / qs), -127, 127)``; the score is the exact
+int dot ``K8 . q8`` times ``k_scale``, times ``qs / sqrt(D)``, multiplied
+in that order in f32; ``l`` sums the unscaled p; the PV operand is
+``bf16(p * v_scale)`` against V int8 (exact as float), f32 accumulation;
+the output is ``acc / max(l, 1e-30)`` in q's dtype.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
@@ -27,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
@@ -44,6 +59,9 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "dftt_flash_decode_int8": [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 }
 
 
@@ -57,13 +75,14 @@ def _note_refused() -> None:
 
 
 def _kernel_takes(hd: int, kv_item: int, d: int) -> bool:
-    return kv_item == 2 and d in SUPPORTED_HEAD_DIMS and hd % d == 0
+    return kv_item in (1, 2) and d in SUPPORTED_HEAD_DIMS and hd % d == 0
 
 
 def supports_seq(s: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
     """True when :func:`flash_decode` takes a slab of ``s`` positions at
-    packed width ``hd``, itemsize ``kv_item`` and head dim ``d``: bf16 and
-    a supported head dim (any ``s``; the last tile is masked). A refused
+    packed width ``hd``, itemsize ``kv_item`` and head dim ``d``: bf16 or
+    int8 (``kv_item`` 1) and a supported head dim (any ``s``; the last tile
+    is masked). A refused
     shape bumps ``ops_flash_decode_gated_total``; there is no plain path
     on the card to route it to, so the caller raises."""
     if s >= 1 and _kernel_takes(hd, kv_item, d):
@@ -74,8 +93,8 @@ def supports_seq(s: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
 
 def supports_paged(page_size: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
     """True when :func:`flash_decode_paged` takes pages of ``page_size``
-    positions: at most :data:`MAX_TILE`, bf16, a supported head dim. A
-    refused shape bumps ``ops_flash_decode_gated_total``."""
+    positions: at most :data:`MAX_TILE`, bf16 or int8, a supported head
+    dim. A refused shape bumps ``ops_flash_decode_gated_total``."""
     if 1 <= page_size <= MAX_TILE and _kernel_takes(hd, kv_item, d):
         return True
     _note_refused()
@@ -88,20 +107,45 @@ def _row_lens(valid_len: Union[int, torch.Tensor], b: int, device) -> torch.Tens
     return torch.full((b,), int(valid_len), dtype=torch.int32, device=device)
 
 
+_DIVISOR_127 = {}  # one 127.0 tensor per device, see quantize_int8
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 over the last dim (JAX ``_quantize`` and the
+    decode kernels' q). Returns ``(values, s)``: ``s = max |x| / 127`` in
+    f32, unclamped (a zero row gives 0), and ``values = clip(
+    round_half_even(x / max(s, 1e-20)), -127, 127)`` as f32. ``s`` is taken
+    by true division: PyTorch multiplies a CUDA tensor divided by a Python
+    scalar by the scalar's reciprocal, which can differ in the last bit
+    from the division the kernels and the JAX package do."""
+    xf = x.float()
+    c = _DIVISOR_127.get(x.device)
+    if c is None:
+        c = _DIVISOR_127[x.device] = torch.full((), 127.0, device=x.device)
+    scale = xf.abs().amax(dim=-1) / c
+    return torch.clamp(torch.round(xf / scale.clamp_min(1e-20)[..., None]), -127, 127), scale
+
+
 def _online_softmax(q, tiles, lens, tile):
-    """The kernel's recurrence in plain PyTorch: ``tiles`` yields
-    ``(k, v)`` of shape ``[B, T, H, D]`` for consecutive tiles of ``tile``
-    positions; returns ``[B, H, D]`` f32."""
+    """The kernels' recurrence in plain PyTorch: ``tiles`` yields
+    ``(k, v, k_scale, v_scale)`` for consecutive tiles of ``tile``
+    positions, K/V ``[B, T, H, D]`` and, for an int8 cache, scales
+    ``[B, T, H]`` (else None); returns ``[B, H, D]`` f32."""
     b, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    qf = q.to(torch.bfloat16).float()
     m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
-    for j, (kt, vt) in enumerate(tiles):
-        kt = kt.to(torch.bfloat16).float()
-        vt = vt.to(torch.bfloat16).float()
-        s = torch.einsum("bhd,bphd->bhp", qf, kt) * scale
+    qf = q.to(torch.bfloat16).float()
+    q8, qs = quantize_int8(q)  # the int8 kernels' q
+    qscale = (qs.clamp_min(1e-20) * scale)[..., None]
+    for j, (kt, vt, kst, vst) in enumerate(tiles):
+        if kst is None:
+            s = torch.einsum("bhd,bphd->bhp", qf, kt.to(torch.bfloat16).float()) * scale
+        else:
+            # integers below 2**24 in every partial sum: the f32 dot is exact
+            dot = torch.einsum("bhd,bphd->bhp", q8, kt.float())
+            s = dot * kst.permute(0, 2, 1) * qscale
         pos = j * tile + torch.arange(kt.shape[1], device=q.device)
         s = torch.where(pos[None, None, :] < lens[:, None, None], s,
                         torch.full_like(s, NEG_INF))
@@ -109,41 +153,69 @@ def _online_softmax(q, tiles, lens, tile):
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bhp,bphd->bhd", p.to(torch.bfloat16).float(), vt)
+        pw = p if vst is None else p * vst.permute(0, 2, 1)
+        # int8 V widens to bf16 exactly, as the TPU kernel casts it
+        pv = torch.einsum("bhp,bphd->bhd", pw.to(torch.bfloat16).float(),
+                          vt.to(torch.bfloat16).float())
         acc = acc * corr[..., None] + pv
         m = m_new
     return acc * (1.0 / l.clamp_min(1e-30))[..., None]
 
 
-def flash_decode_paged_reference(q, k, v, page_table, valid_len) -> torch.Tensor:
-    """Plain version of :func:`flash_decode_paged`."""
+def _paged_tiles(q, k, v, k_scale, v_scale, page_table):
+    """One tile per page-table column: ``(k, v [B, ps, H, D], k_scale,
+    v_scale [B, ps, H] or None)``; sentinels clamp to the last page."""
     b, h, d = q.shape
-    n_pages, ps, hd = k.shape
-    lens = _row_lens(valid_len, b, q.device)
+    n_pages, ps, _ = k.shape
     tab = page_table.long().clamp(0, n_pages - 1)
+    for j in range(tab.shape[1]):
+        pg = tab[:, j]
+        yield (k[pg].reshape(b, ps, h, d), v[pg].reshape(b, ps, h, d),
+               None if k_scale is None else k_scale[pg],
+               None if v_scale is None else v_scale[pg])
 
-    def tiles():
-        for j in range(tab.shape[1]):
-            yield (k[tab[:, j]].reshape(b, ps, h, d), v[tab[:, j]].reshape(b, ps, h, d))
 
-    return _online_softmax(q, tiles(), lens, ps).to(q.dtype)
+def _slab_tiles(q, k, v, k_scale, v_scale):
+    """:data:`SLAB_TILE`-position tiles of the slabs, as :func:`_paged_tiles`."""
+    b, h, d = q.shape
+    s = k.shape[1]
+    for t0 in range(0, s, SLAB_TILE):
+        w = slice(t0, min(t0 + SLAB_TILE, s))
+        n = w.stop - t0
+        yield (k[:, w].reshape(b, n, h, d), v[:, w].reshape(b, n, h, d),
+               None if k_scale is None else k_scale[:, w],
+               None if v_scale is None else v_scale[:, w])
+
+
+def flash_decode_paged_reference(q, k, v, page_table, valid_len) -> torch.Tensor:
+    """Plain version of :func:`flash_decode_paged` (bf16 cache)."""
+    lens = _row_lens(valid_len, q.shape[0], q.device)
+    tiles = _paged_tiles(q, k, v, None, None, page_table)
+    return _online_softmax(q, tiles, lens, k.shape[1]).to(q.dtype)
 
 
 def flash_decode_reference(q, k, v, valid_len) -> torch.Tensor:
-    """Plain version of :func:`flash_decode`."""
-    b, h, d = q.shape
-    s = k.shape[1]
-    lens = _row_lens(valid_len, b, q.device)
-
-    def tiles():
-        for t0 in range(0, s, SLAB_TILE):
-            t1 = min(t0 + SLAB_TILE, s)
-            yield (k[:, t0:t1].reshape(b, t1 - t0, h, d), v[:, t0:t1].reshape(b, t1 - t0, h, d))
-
-    return _online_softmax(q, tiles(), lens, SLAB_TILE).to(q.dtype)
+    """Plain version of :func:`flash_decode` (bf16 cache)."""
+    lens = _row_lens(valid_len, q.shape[0], q.device)
+    return _online_softmax(q, _slab_tiles(q, k, v, None, None), lens, SLAB_TILE).to(q.dtype)
 
 
-def _check_cuda(q, pools, what):
+def flash_decode_paged_int8_reference(q, k, v, k_scale, v_scale, page_table,
+                                      valid_len) -> torch.Tensor:
+    """Plain version of :func:`flash_decode_paged_int8`."""
+    lens = _row_lens(valid_len, q.shape[0], q.device)
+    tiles = _paged_tiles(q, k, v, k_scale, v_scale, page_table)
+    return _online_softmax(q, tiles, lens, k.shape[1]).to(q.dtype)
+
+
+def flash_decode_int8_reference(q, k, v, k_scale, v_scale, valid_len) -> torch.Tensor:
+    """Plain version of :func:`flash_decode_int8`."""
+    lens = _row_lens(valid_len, q.shape[0], q.device)
+    tiles = _slab_tiles(q, k, v, k_scale, v_scale)
+    return _online_softmax(q, tiles, lens, SLAB_TILE).to(q.dtype)
+
+
+def _check_cuda(q, pools, what, dtype=torch.bfloat16, scales=()):
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dim() != 3 or q.dtype != torch.bfloat16 or not q.is_contiguous():
@@ -153,71 +225,136 @@ def _check_cuda(q, pools, what):
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{what}: no kernel for head dim {d}")
     for name, t in pools:
-        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous bf16 on {q.device}")
+        if t.device != q.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {dtype} on {q.device}")
         if t.dim() != 3 or t.shape[2] != h * d:
             raise ValueError(f"{what}: {name} must be [*, *, H*D={h * d}], got {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    for name, t in scales:
+        if (t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.shape != pools[0][1].shape[:2] + (h,)):
+            raise ValueError(f"{what}: {name} must be contiguous f32 "
+                             f"{tuple(pools[0][1].shape[:2]) + (h,)} on {q.device}")
 
 
-def _launch(q, k, v, table, lens, tile, n_tiles, s, n_pages, what):
-    b, h, d = q.shape
-    out = torch.empty_like(q)
-    lib = build.load("flash_decode", _SIGNATURES)
-    rc = lib.dftt_flash_decode_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if table is None else table.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, h, d, tile, n_tiles, s, n_pages, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, what)
-    return out
-
-
-def flash_decode_paged(q, k, v, page_table, valid_len) -> torch.Tensor:
-    """Decode attention against a paged cache, one query token per row.
-
-    ``q``: [B, H, D]; ``k``/``v``: page pools ``[n_pages, page_size,
-    H*D]``; ``page_table``: [B, PP] int32 (entries ``>= n_pages`` are
-    sentinels); ``valid_len``: an int or a ``[B]`` tensor of per-row
-    windows. Returns [B, H, D] in q's dtype."""
-    if q.device.type == "cpu":
-        return flash_decode_paged_reference(q, k, v, page_table, valid_len)
-    _check_cuda(q, (("k", k), ("v", v)), "flash_decode_paged")
+def _check_table(q, k, v, page_table, what):
     if k.shape != v.shape or not 1 <= k.shape[1] <= MAX_TILE:
-        raise ValueError(f"flash_decode_paged: pools {tuple(k.shape)}/{tuple(v.shape)} "
+        raise ValueError(f"{what}: pools {tuple(k.shape)}/{tuple(v.shape)} "
                          f"must match with page_size <= {MAX_TILE}")
     b = q.shape[0]
     if (page_table.device != q.device or page_table.dtype != torch.int32
             or page_table.dim() != 2 or page_table.shape[0] != b
             or not page_table.is_contiguous()):
-        raise ValueError("flash_decode_paged: page_table must be a contiguous "
+        raise ValueError(f"{what}: page_table must be a contiguous "
                          f"int32 [B={b}, PP] tensor on {q.device}")
+
+
+def _check_slab(q, k, v, what):
+    b = q.shape[0]
+    if k.shape != v.shape or k.shape[0] != b:
+        raise ValueError(f"{what}: slabs {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"must be [B={b}, S, H*D]")
+
+
+def _launch(q, k, v, scales, table, lens, tile, n_tiles, s, n_pages, what):
+    """One launch of the bf16 kernel (``scales`` None) or the int8 kernel
+    (``scales`` = (k_scale, v_scale))."""
+    b, h, d = q.shape
+    out = torch.empty_like(q)
+    lib = build.load("flash_decode", _SIGNATURES)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    if scales is None:
+        fn = lib.dftt_flash_decode_bf16
+    else:
+        fn = lib.dftt_flash_decode_int8
+        ptrs += [scales[0].data_ptr(), scales[1].data_ptr()]
+    rc = fn(*ptrs, None if table is None else table.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), b, h, d, tile, n_tiles, s, n_pages, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, what)
+    return out
+
+
+def flash_decode_paged(q, k, v, page_table, valid_len, k_scale=None, v_scale=None
+                       ) -> torch.Tensor:
+    """Decode attention against a paged cache, one query token per row.
+
+    ``q``: [B, H, D]; ``k``/``v``: page pools ``[n_pages, page_size,
+    H*D]`` (bf16, or int8 with ``k_scale``/``v_scale`` ``[n_pages,
+    page_size, H]`` f32 pools: :func:`flash_decode_paged_int8`);
+    ``page_table``: [B, PP] int32 (entries ``>= n_pages`` are sentinels);
+    ``valid_len``: an int or a ``[B]`` tensor of per-row windows. Returns
+    [B, H, D] in q's dtype."""
+    if k_scale is not None:
+        return flash_decode_paged_int8(q, k, v, k_scale, v_scale, page_table, valid_len)
+    if q.device.type == "cpu":
+        return flash_decode_paged_reference(q, k, v, page_table, valid_len)
+    _check_cuda(q, (("k", k), ("v", v)), "flash_decode_paged")
+    _check_table(q, k, v, page_table, "flash_decode_paged")
     n_pages, ps, _ = k.shape
     pp = page_table.shape[1]
-    out = _launch(q, k, v, page_table, _row_lens(valid_len, b, q.device),
+    out = _launch(q, k, v, None, page_table, _row_lens(valid_len, q.shape[0], q.device),
                   ps, pp, pp * ps, n_pages, "flash_decode_paged")
     flash_decode_paged.launches += 1
     return out
 
 
-def flash_decode(q, k, v, valid_len) -> torch.Tensor:
+def flash_decode(q, k, v, valid_len, k_scale=None, v_scale=None) -> torch.Tensor:
     """Decode attention for ONE query token per row against a token-major
-    slab ``k``/``v`` ``[B, S, H*D]``; ``valid_len`` is an int (every row
-    attends to ``[0, valid_len)``) or a ``[B]`` tensor. Returns [B, H, D]
-    in q's dtype."""
+    slab ``k``/``v`` ``[B, S, H*D]`` (bf16, or int8 with
+    ``k_scale``/``v_scale`` ``[B, S, H]`` f32: :func:`flash_decode_int8`);
+    ``valid_len`` is an int (every row attends to ``[0, valid_len)``) or a
+    ``[B]`` tensor. Returns [B, H, D] in q's dtype."""
+    if k_scale is not None:
+        return flash_decode_int8(q, k, v, k_scale, v_scale, valid_len)
     if q.device.type == "cpu":
         return flash_decode_reference(q, k, v, valid_len)
     _check_cuda(q, (("k", k), ("v", v)), "flash_decode")
-    b = q.shape[0]
-    if k.shape != v.shape or k.shape[0] != b:
-        raise ValueError(f"flash_decode: slabs {tuple(k.shape)}/{tuple(v.shape)} "
-                         f"must be [B={b}, S, H*D]")
+    _check_slab(q, k, v, "flash_decode")
     s = k.shape[1]
-    out = _launch(q, k, v, None, _row_lens(valid_len, b, q.device),
+    out = _launch(q, k, v, None, None, _row_lens(valid_len, q.shape[0], q.device),
                   SLAB_TILE, -(-s // SLAB_TILE), s, 0, "flash_decode")
     flash_decode.launches += 1
+    return out
+
+
+def flash_decode_paged_int8(q, k, v, k_scale, v_scale, page_table, valid_len) -> torch.Tensor:
+    """:func:`flash_decode_paged` over an int8 pool with f32 scale pools
+    (the int8 kernel, its own launch count)."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_int8_reference(q, k, v, k_scale, v_scale, page_table,
+                                                 valid_len)
+    what = "flash_decode_paged_int8"
+    _check_cuda(q, (("k", k), ("v", v)), what, torch.int8,
+                (("k_scale", k_scale), ("v_scale", v_scale)))
+    _check_table(q, k, v, page_table, what)
+    n_pages, ps, _ = k.shape
+    pp = page_table.shape[1]
+    out = _launch(q, k, v, (k_scale, v_scale), page_table,
+                  _row_lens(valid_len, q.shape[0], q.device), ps, pp, pp * ps, n_pages, what)
+    flash_decode_paged_int8.launches += 1
+    return out
+
+
+def flash_decode_int8(q, k, v, k_scale, v_scale, valid_len) -> torch.Tensor:
+    """:func:`flash_decode` over an int8 slab with f32 scales (the int8
+    kernel, its own launch count)."""
+    if q.device.type == "cpu":
+        return flash_decode_int8_reference(q, k, v, k_scale, v_scale, valid_len)
+    what = "flash_decode_int8"
+    _check_cuda(q, (("k", k), ("v", v)), what, torch.int8,
+                (("k_scale", k_scale), ("v_scale", v_scale)))
+    _check_slab(q, k, v, what)
+    s = k.shape[1]
+    out = _launch(q, k, v, (k_scale, v_scale), None, _row_lens(valid_len, q.shape[0], q.device),
+                  SLAB_TILE, -(-s // SLAB_TILE), s, 0, what)
+    flash_decode_int8.launches += 1
     return out
 
 
 #: kernel launches since the count was last set to 0
 flash_decode_paged.launches = 0
 flash_decode.launches = 0
+flash_decode_paged_int8.launches = 0
+flash_decode_int8.launches = 0

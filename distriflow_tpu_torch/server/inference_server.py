@@ -1,6 +1,5 @@
 """Port of ``distriflow_tpu/server/inference_server.py``: serve KV-cache
-decoding over the wire transport (beam search, scoring and speculative
-decoding are not ported yet).
+decoding over the wire transport (speculative decoding is not ported yet).
 
 Events, byte-compatible with the JAX package's clients (arrays travel as
 ``pack_bytes``/``SerializedArray`` buffers):
@@ -9,8 +8,14 @@ Events, byte-compatible with the JAX package's clients (arrays travel as
 - ``generate``    {prompt: <packed {tokens}>, n_tokens, temperature?,
   top_k?, top_p?, eos_id?, seed?, request_id?, tier?} ->
   {result: <packed {tokens}>, serving: {path, queue_ms?, ...}}
+- ``beam``        {prompt, n_tokens, beam_size?, length_penalty?, eos_id?}
+  -> {result: <packed {tokens, scores}>}
+- ``score``       {prompt: <packed {tokens}>, from_pos?} ->
+  {result: <packed {scores}>}
 - ``drain``, ``fleet_stats``, ``hedge_cancel`` — the fleet-router plane.
-- ``beam`` and ``score`` answer ``{"error": "... not ported yet"}``.
+
+``beam`` and ``score`` run on the direct path (one device program at a
+time, beside the engine) and echo a request's ``trace_id``.
 
 ``generate`` requests are served by the continuous-batching engine: one
 scheduler thread admits queued requests into free slots (gated on free KV
@@ -38,6 +43,7 @@ from distriflow_tpu_torch.comm.transport import ServerTransport
 from distriflow_tpu_torch.fleet.prefix_hash import page_hashes
 from distriflow_tpu_torch.models.generate import (
     _check_fits,
+    beam_search,
     decode_chunk,
     extend,
     gather_rows,
@@ -47,6 +53,7 @@ from distriflow_tpu_torch.models.generate import (
     pages_per_slot,
     pick_rows,
     prefill,
+    sequence_logprob,
     set_page_tables,
     slot_cache,
     slot_insert,
@@ -551,10 +558,40 @@ class InferenceServer:
         return ack
 
     def _on_beam(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
-        return {"error": "beam search is not ported yet (the JAX server has it)"}
+        prompt = _prompt_from(payload, self._prompt_cap())
+        n_tokens = int(payload["n_tokens"])
+        # .get with a default, not `or`: an explicit beam_size=0 must reach
+        # beam_search's validation, not silently become the default
+        beam_size = int(payload.get("beam_size", 4))
+        length_penalty = float(payload.get("length_penalty", 0.0))
+        eos_id = payload.get("eos_id")
+        with self._device_lock, self.logger.time(
+            f"beam[{prompt.shape[0]}x{prompt.shape[1]}+{n_tokens} k={beam_size}]"
+        ):
+            out, scores = beam_search(
+                self.model, prompt, n_tokens, beam_size=beam_size,
+                length_penalty=length_penalty,
+                eos_id=int(eos_id) if eos_id is not None else None)
+            result = {"tokens": serialize_array(out.cpu().numpy()),
+                      "scores": serialize_array(scores.cpu().numpy())}
+        return self._direct_ack(payload, result)
 
     def _on_score(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
-        return {"error": "sequence scoring is not ported yet (the JAX server has it)"}
+        tokens = _prompt_from(payload, self._prompt_cap())
+        from_pos = int(payload.get("from_pos", 1))
+        with self._device_lock, self.logger.time(
+            f"score[{tokens.shape[0]}x{tokens.shape[1]} from={from_pos}]"
+        ):
+            scores = sequence_logprob(self.model, tokens, from_pos).cpu().numpy()
+        return self._direct_ack(payload, {"scores": serialize_array(scores)})
+
+    @staticmethod
+    def _direct_ack(payload: Dict[str, Any], result: Dict[str, Any]) -> Dict[str, Any]:
+        ack = {"result": pack_bytes(result)}
+        tid = payload.get("trace_id")
+        if tid:
+            ack["trace_id"] = tid
+        return ack
 
     # -- continuous-batching engine ----------------------------------------
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from distriflow_tpu.client import InferenceClient as JaxClient
+from distriflow_tpu.models.generate import beam_search as jax_beam_search
 from distriflow_tpu.models.generate import generate as jax_generate
 from distriflow_tpu.models.transformer import TransformerConfig as JaxConfig
 from distriflow_tpu.models.transformer import transformer_lm
@@ -99,7 +100,7 @@ def test_greedy_generate_matches_jax_token_for_token(params, model):
     np.testing.assert_array_equal(_solo(model, prompt, 12), ref)
 
 
-def test_paged_server_matches_solo_for_both_clients(model):
+def test_paged_server_matches_solo_for_both_clients(params, model):
     ps = _prompts()
     n = 8
     solo = {k: _solo(model, p, n) for k, p in ps.items()}
@@ -119,8 +120,11 @@ def test_paged_server_matches_solo_for_both_clients(model):
                 lambda: jax_c.generate(ps["donor"], n),
             ])
             assert port_c.model_info()["n_layers"] == 2
-            with pytest.raises(NotImplementedError, match="not ported"):
-                port_c.beam_search(ps["short"], 2)
+            # beam search on the direct path beside the engine equals JAX's
+            toks, scores = port_c.beam_search(ps["short"], 2)
+            ref_toks, ref_scores = jax_beam_search(JCFG, params, jnp.asarray(ps["short"]), 2)
+            np.testing.assert_array_equal(toks, np.asarray(ref_toks))
+            np.testing.assert_allclose(scores, np.asarray(ref_scores), rtol=0, atol=1e-4)
         finally:
             port_c.close()
             jax_c.close()
