@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
-   from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, in
-   parallel) and prints the build time.
+   from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all five
+   in parallel) and prints the build time.
 2. Builds the flagship LM (vocab 32000, d_model 512, 8 heads x 64, 8
    layers, d_ff 2048, max_seq 2048, bf16) from a seeded numpy init carried
    over with ``lm_from_jax``, starts the port's ``InferenceServer`` with the
@@ -65,6 +65,29 @@
    them within ``STEP_TOL`` (``step_vs_plain:`` line).
 10. Profiles one training step with ``torch.profiler``
     (``training_step_profile:`` line), the counterpart of step 7.
+11. MobileNetV2 at the fused configuration of the JAX repo's
+    ``bench_mobilenet`` through its CLI's defaults (96 px, 100 classes,
+    width 1.0, GroupNorm, bf16, ``depthwise_impl="fused"``,
+    ``with_uint8_inputs`` + sparse CE, momentum 0.05, B 256), from a
+    seeded flax-shaped tree carried over by ``mobilenet_params_from_jax``:
+    20 steps through ``run_chunked`` over ``sampling_iterator`` +
+    ``prefetch_to_device`` on data made by the JAX repo's
+    ``synthetic_imagenet`` recipe, then ``evaluate_dataset`` on 512
+    validation images, each in a launch window of its own: exactly 17
+    depthwise forward and 17 backward launches per step and 17 forward
+    launches per evaluation chunk, and no other kernel (``mobilenet:``
+    line: step ms, samples/s, losses, validation loss and accuracy; the
+    mean of the last 5 losses must lie below that of the first 5). One
+    step through the kernels is held against one through their plain
+    versions within ``MN_STEP_TOL`` (``mobilenet_step_vs_plain:``), and one
+    step is profiled (``mobilenet_step_profile:``).
+12. Rows 11 and 12 (the depthwise kernels) hold every one of the step's
+    10 depthwise shapes at B 256 against the plain versions and time the
+    largest-bytes (48x48x96 stride 2) and the smallest (3x3x960) shape
+    against the plain versions, the bound and the three-call library
+    composition; ``step_ms_all_blocks`` sums the kernel over the 17
+    blocks of a step. Row 12 also shows that a backward without the
+    GroupNorm statistics' gradient terms fails its limit.
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -79,6 +102,7 @@ CUDA device the script exits 1 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -127,7 +151,9 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "flash_decode_int8": (1e-5, 2 ** -7),
        "flash_attention_bwd": (5e-3, 2 ** -7),
        "fused_ce_fwd": (1e-5, 1e-6),
-       "fused_ce_bwd": (1e-8, 2 ** -7)}
+       "fused_ce_bwd": (1e-8, 2 ** -7),
+       "depthwise_gn_fwd": (1e-5, 2 ** -7),
+       "depthwise_gn_bwd": (1e-5, 2 ** -7)}
 LSE_ATOL = 1e-4
 # A training step through the kernels against the plain path, from the
 # same f32 masters and batch: |loss difference| and, for every parameter,
@@ -137,6 +163,11 @@ LSE_ATOL = 1e-4
 # 0.0188 at worst (median 0.0093) on the gradients. The limits leave a
 # margin of about 10x on the loss and 2x on the gradients.
 STEP_TOL = {"loss": 1e-3, "grad_rel": 0.04}
+# MobileNetV2's step through the depthwise kernels against the plain
+# depthwise version on the card: |loss difference| / |loss| and the same
+# gradient limit as the LM's (the two differ only by the statistics'
+# summation order and the ReLU6 flips it causes)
+MN_STEP_TOL = {"loss_rel": 1e-3, "grad_rel": 0.04}
 # nats the loss must fall over the 20 steps on its fixed batch (measured
 # 10.87 -> 4.21 on the H100)
 LOSS_FALL = 2.0
@@ -153,6 +184,26 @@ SCORE_LEN, SCORE_FROM = 16384, 8192
 # (f32 softmax) on the same tokens, relative
 SCORE_RTOL = 1e-3
 CROSSOVER_CONTEXTS = (1024, 4096, 16000)
+# MobileNetV2 (BASELINE config #5): the fused candidate of the JAX repo's
+# bench.py::bench_mobilenet run through the defaults of its CLI
+# experiments/imagenet_subset/train.py (u8 wire format, sparse CE,
+# momentum 0.05, B 256, 96 px, 100 classes, width 1.0, bf16)
+MN = dict(image_size=96, classes=100, width=1.0)
+MN_B, MN_STEPS, MN_LR = 256, 20, 0.05
+MN_TRAIN, MN_VAL = 2048, 512
+# The depthwise kernels against their plain versions. The products and
+# sums of the conv round to bf16 at the same places in both, every
+# elementwise step is the same f32 operation, and every sum over positions
+# is the f32 of an f64 sum in both, so the forward agrees bit for bit
+# (measured 0.0 on the H100 at all 10 shapes). What is left are the last
+# bits of a division or an rsqrt, which can flip a bf16 rounding of the
+# conv-output cotangent or move an output across a ReLU6 bound and so
+# switch its gradient: measured at 6e-6 of dx's elements at most. dx is
+# held elementwise except for a share of at most DWGN_FLIP_SHARE; dw
+# (summed over the threads in f32 before the f64 sum), dscale and dbias
+# within DWGN_SUM_RTOL of their largest element (measured 2.8e-4).
+DWGN_FLIP_SHARE = 1e-3
+DWGN_SUM_RTOL = 2 ** -7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -853,6 +904,308 @@ def _long_kernel_rows(launches):
     return rows, long_context
 
 
+def _mobilenet_tree(rng: np.random.Generator, classes: int, width: float):
+    """A flax-shaped MobileNetV2 params tree (GroupNorm, the fused
+    depthwise branch) with lecun-normal-scaled random kernels, GroupNorm
+    scale 1 and bias 0, as flax initialises them."""
+    from distriflow_tpu_torch.models.mobilenet import V2_SCHEDULE, _make_divisible
+
+    def w(*shape, fan_in):
+        return rng.standard_normal(shape, dtype=np.float32) / np.float32(math.sqrt(fan_in))
+
+    def affine(c):
+        return {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
+
+    def conv_norm(cin, cout, k=1):
+        return {"Conv_0": {"kernel": w(k, k, cin, cout, fan_in=k * k * cin)},
+                "GroupNorm_0": affine(cout)}
+
+    ch = _make_divisible(32 * width)
+    p = {"_ConvNorm_0": conv_norm(3, ch, 3)}
+    i = 0
+    for t, c, n, _ in V2_SCHEDULE:
+        out = _make_divisible(c * width)
+        for _ in range(n):
+            layers = [conv_norm(ch, ch * t)] if t != 1 else []
+            layers += [{"kernel": w(3, 3, 1, ch * t, fan_in=9), **affine(ch * t)},
+                       conv_norm(ch * t, out)]
+            p[f"InvertedResidual_{i}"] = {f"_ConvNorm_{j}": layer for j, layer in enumerate(layers)}
+            ch, i = out, i + 1
+    head = _make_divisible(1280 * max(1.0, width))
+    p["_ConvNorm_1"] = conv_norm(ch, head)
+    p["Dense_0"] = {"kernel": w(head, classes, fan_in=head), "bias": np.zeros(classes, np.float32)}
+    return {"params": p}
+
+
+def _depthwise_shapes(image_size: int, width: float):
+    """{(H, W, C, stride): blocks} of MobileNetV2's depthwise convs."""
+    from distriflow_tpu_torch.models.mobilenet import V2_SCHEDULE, _make_divisible
+
+    s, ch, shapes = -(-image_size // 2), _make_divisible(32 * width), {}
+    for t, c, n, first in V2_SCHEDULE:
+        for j in range(n):
+            stride = first if j == 0 else 1
+            key = (s, s, ch * t, stride)
+            shapes[key] = shapes.get(key, 0) + 1
+            s, ch = -(-s // stride), _make_divisible(c * width)
+    return shapes
+
+
+def _synthetic_imagenet(n_train, n_val, num_classes, image_size, seed):
+    """The JAX repo's experiments/imagenet_subset/data.py::synthetic_imagenet
+    recipe: a 6x6x3 pattern per class, upsampled, plus noise, as uint8."""
+    rng = np.random.RandomState(seed)
+    patterns = rng.rand(num_classes, 6, 6, 3)
+    rep = image_size // 6 + 1
+
+    def make(n):
+        labels = rng.randint(0, num_classes, n).astype(np.int32)
+        base = np.repeat(np.repeat(patterns[labels], rep, axis=1), rep, axis=2)
+        base = base[:, :image_size, :image_size]
+        noise = rng.rand(n, image_size, image_size, 3) * 0.25
+        return ((base * 0.75 + noise) * 255).astype(np.uint8), labels
+
+    return make(n_train), make(n_val)
+
+
+def _mobilenet_spec(device="cuda"):
+    """The slice's MobileNetV2 spec: fused depthwise kernels, bf16, uint8
+    input, sparse CE (the CLI's ``--wire-format u8``)."""
+    from distriflow_tpu_torch.models.base import with_uint8_inputs
+    from distriflow_tpu_torch.models.mobilenet import mobilenet_v2
+
+    spec = mobilenet_v2(**MN, norm="group", dtype=torch.bfloat16, depthwise_impl="fused",
+                        gn_impl="flax", device=device)
+    return dataclasses.replace(with_uint8_inputs(spec), loss="sparse_softmax_cross_entropy")
+
+
+def _mobilenet_phase(tree, counted, device="cuda"):
+    """MobileNetV2 trained ``MN_STEPS`` steps by the port's ``run_chunked``
+    over ``sampling_iterator`` + ``prefetch_to_device``, then evaluated by
+    ``evaluate_dataset`` on the validation split, each in its own launch
+    window. Returns ``(report, trainer, a batch, launch counts by window)``."""
+    from distriflow_tpu_torch.data.prefetch import prefetch_to_device, sampling_iterator, to_uint8_wire
+    from distriflow_tpu_torch.models.convert import mobilenet_params_from_jax
+    from distriflow_tpu_torch.train.loop import evaluate_dataset, run_chunked
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    t0 = time.perf_counter()
+    train, val = _synthetic_imagenet(MN_TRAIN, MN_VAL, MN["classes"], MN["image_size"], SEED)
+    x, y = to_uint8_wire(*train)
+    vx, vy = to_uint8_wire(*val)
+    data_s = time.perf_counter() - t0
+    trainer = SyncTrainer(_mobilenet_spec(device), optimizer="momentum", learning_rate=MN_LR)
+    trainer.init(SEED)
+    trainer.set_params(mobilenet_params_from_jax(tree))
+    losses, step_ms = [], []
+    trainer.callbacks.register("step", lambda t: step_ms.append(t.last_step_ms))
+    stream = prefetch_to_device(sampling_iterator(x, y, MN_B, steps=MN_STEPS, seed=SEED), device)
+    res, train_counts = counted(lambda: run_chunked(
+        trainer, stream, steps=MN_STEPS, log=lambda s, l: losses.append(l), log_every=1))
+    (val_loss, val_acc), eval_counts = counted(
+        lambda: evaluate_dataset(trainer.evaluate, vx, vy, batch_size=MN_B))
+    assert res.steps_run == MN_STEPS and len(losses) == MN_STEPS, res
+    assert all(math.isfinite(v) for v in losses), losses
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    assert last < first, f"MobileNet loss did not fall: first 5 mean {first}, last 5 mean {last}"
+    assert math.isfinite(val_loss) and 0.0 <= val_acc <= 1.0, (val_loss, val_acc)
+    p50 = float(np.median(step_ms))
+    report = {
+        "config": {**MN, "batch": MN_B, "dtype": "bfloat16", "depthwise_impl": "fused",
+                   "gn_impl": "flax", "norm": "group", "wire": "uint8",
+                   "loss": trainer.spec.loss, "optimizer": "momentum", "lr": MN_LR},
+        "steps": MN_STEPS, "train_images": MN_TRAIN, "val_images": MN_VAL, "data_s": data_s,
+        "step_ms_p50": p50, "step_ms_max": max(step_ms), "step_ms_first": step_ms[0],
+        "samples_per_s": MN_B / (p50 / 1e3),
+        "steady_samples_per_s": res.steps_per_sec * MN_B,
+        "first_loss": losses[0], "last_loss": losses[-1], "first5_mean": first,
+        "last5_mean": last, "losses": losses, "val_loss": val_loss, "val_accuracy": val_acc,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None}
+    batch = next(sampling_iterator(x, y, MN_B, steps=1, seed=SEED + 1))
+    return report, trainer, batch, {"mobilenet_train": train_counts, "mobilenet_eval": eval_counts}
+
+
+def _mobilenet_step_vs_plain(tree, batch, device="cuda"):
+    """One step's loss and gradients through the depthwise kernels and
+    through their plain versions (patched in for the wrappers, forward and
+    backward), from the same f32 masters and batch."""
+    from unittest import mock
+
+    from distriflow_tpu_torch.models.convert import mobilenet_params_from_jax
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+    def plain():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(dg, "depthwise_gn_forward",
+                                              dg.depthwise3x3_groupnorm_reference))
+        stack.enter_context(mock.patch.object(dg, "depthwise_gn_backward",
+                                              dg.depthwise3x3_groupnorm_backward_reference))
+        return stack
+
+    x, y = (torch.as_tensor(a, device=device) for a in batch)
+    spec, out = _mobilenet_spec(device), {}
+    for name in ("kernels", "plain"):
+        model = spec.init(SEED)
+        model.load_state_dict(mobilenet_params_from_jax(tree), strict=True)
+        with plain() if name == "plain" else contextlib.nullcontext():
+            loss, grads = spec.grad_fn()(model, x, y)
+        out[name] = (float(loss), grads)
+        del model
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30)) for n in gp}
+    worst = max(rel, key=rel.get)
+    report = {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
+              "grad_rel_frobenius_max": rel[worst], "worst_param": worst,
+              "grad_rel_frobenius_median": float(np.median(list(rel.values()))),
+              "limits": MN_STEP_TOL}
+    assert report["loss_rel_diff"] <= MN_STEP_TOL["loss_rel"], report
+    assert rel[worst] <= MN_STEP_TOL["grad_rel"], report
+    return report
+
+
+def _dwgn_inputs(g, b, h, w, c):
+    """bf16 NHWC x ~ N(0, 1), a lecun-scaled [3, 3, C] kernel, affine near
+    flax's init, and an upstream gradient ~ U(0, 1): of nonzero mean, so
+    the GroupNorm statistics' terms carry real weight in dx."""
+    dev = torch.device("cuda")
+    x = torch.randn(b, h, w, c, generator=g, device=dev).to(torch.bfloat16)
+    k = (torch.randn(3, 3, c, generator=g, device=dev) / 3).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    bias = 0.1 * torch.randn(c, generator=g, device=dev)
+    return x, k, scale, bias
+
+
+def _dwgn_bwd_check(name, got, want):
+    """Max abs error of dx and the share of its elements outside the
+    elementwise limit (at most ``DWGN_FLIP_SHARE``); dw, dscale and dbias
+    within ``DWGN_SUM_RTOL`` of their largest plain element."""
+    atol, rtol = TOL["depthwise_gn_bwd"]
+    dx, dxr = got[0].float(), want[0].float()
+    err = (dx - dxr).abs()
+    share = float((err > atol + rtol * dxr.abs()).float().mean())
+    if share > DWGN_FLIP_SHARE:
+        raise AssertionError(f"{name}: {share} of dx outside atol {atol} + rtol {rtol} "
+                             f"(limit {DWGN_FLIP_SHARE}), max abs err {float(err.max())}")
+    sums = {}
+    for n, a, r in zip(("dw", "dscale", "dbias"), got[1:], want[1:]):
+        e, big = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+        if e > DWGN_SUM_RTOL * big:
+            raise AssertionError(f"{name}: {n} off by {e} > {DWGN_SUM_RTOL} x {big}")
+        sums[n] = e / big
+    return float(err.max()), share, sums
+
+
+def _dwgn_library(x, k, scale, bias, stride):
+    """The three-call composition cuDNN depthwise conv + F.group_norm +
+    F.hardtanh(0, 6) on NHWC x (a yardstick only)."""
+    import torch.nn.functional as F
+
+    from distriflow_tpu_torch.ops.depthwise_gn import _same_pads
+
+    ph, pw = _same_pads(x.shape[1], stride), _same_pads(x.shape[2], stride)
+    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1])).permute(0, 3, 1, 2)
+    y = F.conv2d(xp, k, stride=stride, groups=x.shape[3])
+    y = F.group_norm(y, x.shape[3] // 8, scale, bias, eps=1e-6)
+    return F.hardtanh(y, 0.0, 6.0)
+
+
+def _mobilenet_kernel_rows(launches, shapes):
+    """Rows 11 and 12: each depthwise shape of one step at B ``MN_B`` held
+    against the plain versions; times (kernel, plain, the library
+    composition, bound) at the largest-bytes shape (48x48x96 stride 2) and
+    the smallest (3x3x960), and the kernel and bound summed over all 17
+    blocks of a step."""
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    flush = _flush_buffer()
+    big, small = (48, 48, 96, 2), (3, 3, 960, 1)
+    lib_note = ("composition of three calls (cuDNN depthwise F.conv2d(groups=C) + F.group_norm + "
+                "F.hardtanh(0, 6); autograd through it for the backward): no single PyTorch "
+                "call computes this function")
+    fwd = {"errs": [], "by_shape": {}, "ms": 0.0, "bound": 0.0}
+    bwd = {"errs": [], "shares": [], "sums": {}, "by_shape": {}, "ms": 0.0, "bound": 0.0}
+    controls = {}
+    for key, count in shapes.items():
+        h, w, c, s = key
+        x, k, sc, bi = _dwgn_inputs(g, MN_B, h, w, c)
+        _, _, oh, ow = dg._geometry(h, w, s)
+        gout = torch.rand(MN_B, oh, ow, c, generator=g, device="cuda").to(torch.bfloat16)
+        tag = f"{h}x{w}x{c} s{s}"
+        fwd["errs"].append(_over(f"depthwise_gn_fwd {tag}", dg.depthwise_gn_forward(x, k, sc, bi, s),
+                                 dg.depthwise3x3_groupnorm_reference(x, k, sc, bi, s),
+                                 *TOL["depthwise_gn_fwd"]))
+        want = dg.depthwise3x3_groupnorm_backward_reference(x, k, sc, bi, gout, s)
+        err, share, sums = _dwgn_bwd_check(f"depthwise_gn_bwd {tag}",
+                                           dg.depthwise_gn_backward(x, k, sc, bi, gout, s), want)
+        bwd["errs"].append(err)
+        bwd["shares"].append(share)
+        for n, v in sums.items():
+            bwd["sums"][n] = max(bwd["sums"].get(n, 0.0), v)
+        n_out = MN_B * oh * ow * c
+        io = MN_B * h * w * c * 2 + 9 * c * 2 + 2 * c * 4
+        fb = _bound(io + n_out * 2, 28 * n_out, F32_FLOPS)
+        bb = _bound(io + n_out * 2 + MN_B * h * w * c * 2 + 9 * c * 2 + 2 * c * 4, 56 * n_out,
+                    F32_FLOPS)
+        iters = 20 if key in (big, small) else 5
+        tf = _timed(lambda: dg.depthwise_gn_forward(x, k, sc, bi, s), iters, flush)
+        tb = _timed(lambda: dg.depthwise_gn_backward(x, k, sc, bi, gout, s), iters, flush)
+        fwd["ms"] += count * tf
+        bwd["ms"] += count * tb
+        fwd["bound"] += count * fb[0]
+        bwd["bound"] += count * bb[0]
+        if key not in (big, small):
+            continue
+        kl = k.permute(2, 0, 1).unsqueeze(1).contiguous()
+        scb, bib = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, kl, scb, bib)]
+        lib_out = _dwgn_library(*leaves, s)
+        gout_nchw = gout.permute(0, 3, 1, 2)
+        fwd["by_shape"][tag] = {
+            "blocks_per_step": count, "max_abs_err": fwd["errs"][-1], "ms": tf,
+            "plain_ms": _timed(lambda: dg.depthwise3x3_groupnorm_reference(x, k, sc, bi, s), 3, flush),
+            "bound_ms": fb[0], "bound_by": fb[1],
+            "library_ms": _timed(lambda: _dwgn_library(x, kl, scb, bib, s), 20, flush)}
+        bwd["by_shape"][tag] = {
+            "blocks_per_step": count, "max_abs_err": err, "dx_outside_share": share,
+            "sum_rel_err": sums, "ms": tb,
+            "plain_ms": _timed(lambda: dg.depthwise3x3_groupnorm_backward_reference(
+                x, k, sc, bi, gout, s), 3, flush),
+            "bound_ms": bb[0], "bound_by": bb[1],
+            "library_ms": _timed(lambda: torch.autograd.grad(lib_out, leaves, gout_nchw,
+                                                             retain_graph=True), 20, flush)}
+        if key == big:
+            # the limit must reject a backward that treats the statistics as
+            # constants (drops the mean and inv gradient terms)
+            wrong = dg.depthwise3x3_groupnorm_backward_reference(x, k, sc, bi, gout, s,
+                                                                 drop_stats=True)
+            atol, rtol = TOL["depthwise_gn_bwd"]
+            controls["stats_terms_dropped"] = float(
+                ((wrong[0].float() - want[0].float()).abs()
+                 > atol + rtol * want[0].float().abs()).float().mean())
+            assert controls["stats_terms_dropped"] > 0.5, \
+                f"depthwise_gn_bwd limit passes a gradient without the statistics terms: {controls}"
+        del x, k, gout, want, leaves, lib_out
+    shape_note = f"B={MN_B} NHWC bf16; 17 blocks of {len(shapes)} shapes; ms/plain/library at {{}}"
+    rows = []
+    for name, d, line, extra in (
+            ("depthwise_gn_fwd", fwd, "distriflow_tpu/ops/depthwise_gn.py:180", {}),
+            ("depthwise_gn_bwd", bwd, "distriflow_tpu/ops/depthwise_gn.py:184",
+             {"dx_outside_share_max": max(bwd["shares"]), "dx_outside_limit": DWGN_FLIP_SHARE,
+              "sum_rel_err_max": bwd["sums"], "rejected_share": controls})):
+        at = d["by_shape"][f"{big[0]}x{big[1]}x{big[2]} s{big[3]}"]
+        rows.append({
+            "name": name, "route": "cuda", "source": "distriflow_tpu_torch/csrc/depthwise_gn.cu",
+            "replaces": line, "launches": launches[name],
+            "launches_per_step": launches[name] / MN_STEPS, "max_abs_err": max(d["errs"]),
+            "tol": _tol(name), "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "library_note": lib_note, "shape": shape_note.format("48x48x96 s2"),
+            "by_shape": d["by_shape"], "step_ms_all_blocks": d["ms"],
+            "step_bound_ms_all_blocks": d["bound"], **extra})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -861,6 +1214,7 @@ def main() -> int:
     from distriflow_tpu_torch.models.generate import generate
     from distriflow_tpu_torch.models.zoo import flagship_lm_config
     from distriflow_tpu_torch.ops import build
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
     from distriflow_tpu_torch.ops import flash_attention as fa
     from distriflow_tpu_torch.ops import flash_decode as fd
     from distriflow_tpu_torch.ops import fused_ce as ce
@@ -868,7 +1222,7 @@ def main() -> int:
     print(_card(), flush=True)
 
     t0 = time.perf_counter()
-    build.build_all(["flash_attention", "flash_decode", "flash_attention_bwd", "fused_ce"])
+    build.build_all()
     print(f"kernel build s: {time.perf_counter() - t0:.2f}", flush=True)
     for name, log in build.ptxas_reports.items():
         for line in log.splitlines():
@@ -894,7 +1248,9 @@ def main() -> int:
                 "flash_decode_int8": fd.flash_decode_int8,
                 "flash_attention_bwd": fa.flash_attention_backward,
                 "fused_ce_fwd": ce.fused_ce_forward,
-                "fused_ce_bwd": ce.fused_ce_backward}
+                "fused_ce_bwd": ce.fused_ce_backward,
+                "depthwise_gn_fwd": dg.depthwise_gn_forward,
+                "depthwise_gn_bwd": dg.depthwise_gn_backward}
     training_only = ("flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
 
     def counted(run):
@@ -921,7 +1277,11 @@ def main() -> int:
     tokens = np.random.default_rng(SEED + 2).integers(
         0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1)).astype(np.int32)
     (trainer, losses, step_ms), training = counted(lambda: _train(cfg, tree, tokens))
-    paths = {"serving": serving, "solo_generate": solo, **long_counts, "training": training}
+    # MobileNetV2 at the slice's configuration: train, then evaluate
+    mn_tree = _mobilenet_tree(np.random.default_rng(SEED + 6), MN["classes"], MN["width"])
+    mn_report, mn_trainer, mn_batch, mn_counts = _mobilenet_phase(mn_tree, counted)
+    paths = {"serving": serving, "solo_generate": solo, **long_counts, "training": training,
+             **mn_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
     ran = {"serving": ("flash_attention_fwd", "flash_decode_paged"),
@@ -930,7 +1290,9 @@ def main() -> int:
            "long_solo_generate": ("flash_attention_fwd", "flash_decode_int8"),
            "beam": ("flash_attention_fwd", "flash_decode_int8"),
            "score": ("flash_attention_fwd",),
-           "training": ("flash_attention_fwd",) + training_only}
+           "training": ("flash_attention_fwd",) + training_only,
+           "mobilenet_train": ("depthwise_gn_fwd", "depthwise_gn_bwd"),
+           "mobilenet_eval": ("depthwise_gn_fwd",)}
     for path, counts in paths.items():
         for k, n in counts.items():
             if k in ran[path]:
@@ -942,6 +1304,14 @@ def main() -> int:
     for k, n in per_step.items():
         assert training[k] == n * TRAIN_STEPS, f"training launched {k} {training[k]} times, " \
                                                f"want {n} per step x {TRAIN_STEPS}"
+    shapes = _depthwise_shapes(MN["image_size"], MN["width"])
+    blocks = sum(shapes.values())
+    assert blocks == 17, shapes
+    mn_train, mn_eval = mn_counts["mobilenet_train"], mn_counts["mobilenet_eval"]
+    for k in ("depthwise_gn_fwd", "depthwise_gn_bwd"):
+        assert mn_train[k] == blocks * MN_STEPS, f"MobileNet training launched {k} {mn_train[k]} " \
+                                                 f"times, want {blocks} per step x {MN_STEPS}"
+    assert mn_eval["depthwise_gn_fwd"] == blocks * -(-MN_VAL // MN_B), mn_eval
     train_report = {
         "steps": TRAIN_STEPS, "batch": TRAIN_B, "seq": TRAIN_S, "optimizer": "adam", "lr": 1e-3,
         "loss": trainer.spec.loss, "step_ms_p50": float(np.median(step_ms)),
@@ -953,6 +1323,9 @@ def main() -> int:
     assert all(math.isfinite(v) for v in losses), losses
     assert losses[-1] <= losses[0] - LOSS_FALL, f"loss fell {losses[0] - losses[-1]} < {LOSS_FALL}"
     print("step_vs_plain:", json.dumps(_step_vs_plain(cfg, tree, tokens)), flush=True)
+    print("mobilenet:", json.dumps(mn_report), flush=True)
+    print("mobilenet_step_vs_plain:", json.dumps(_mobilenet_step_vs_plain(mn_tree, mn_batch)),
+          flush=True)
 
     # each kernel's count on its own path: prefill and paged decode on
     # serving, slab decode on solo generate(), paged int8 on long-context
@@ -966,8 +1339,11 @@ def main() -> int:
     rows += int8_rows
     train_rows, rows[0]["training_shape"] = _training_kernel_rows(training, TRAIN_STEPS)
     rows += train_rows
+    rows += _mobilenet_kernel_rows({k: mn_train[k] for k in ("depthwise_gn_fwd", "depthwise_gn_bwd")},
+                                   shapes)
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
-               "flash_decode_int8": "beam", **{k: "training" for k in training_only}}
+               "flash_decode_int8": "beam", **{k: "training" for k in training_only},
+               "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train"}
     for r in rows:
         r["path"] = path_of.get(r["name"], "serving")
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
@@ -975,6 +1351,8 @@ def main() -> int:
           json.dumps(_profile_decode_iteration(model, rng, [128, 300, 512, 1000] * 2)), flush=True)
     x, y = tokens[:, :-1], tokens[:, 1:]
     print("training_step_profile:", json.dumps(_profiled(lambda: trainer.step((x, y)))), flush=True)
+    print("mobilenet_step_profile:", json.dumps(_profiled(lambda: mn_trainer.step(mn_batch))),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of ``distriflow_tpu`` for an NVIDIA H100.
 
 The JAX package stays the reference; this package mirrors its layout
-(``models/``, ``ops/``, ``server/``, ``client/``, ``comm/``, ``obs/``,
-``utils/``) so each module's counterpart is easy to find. It imports
+(``models/``, ``ops/``, ``train/``, ``data/``, ``server/``, ``client/``,
+``comm/``, ``obs/``, ``utils/``) so each module's counterpart is easy to find. It imports
 ``torch`` and numpy and never ``jax`` or anything under ``distriflow_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -376,3 +376,53 @@ class SpecModel(DistributedModel):
     @property
     def output_shape(self) -> Tuple[int, ...]:
         return tuple(self.spec.output_shape)
+
+
+def with_uint8_inputs(spec: ModelSpec, scale: float = 1.0 / 255.0, offset: float = 0.0
+                      ) -> ModelSpec:
+    """Wire-format adapter: the model takes raw integer (uint8) inputs and
+    normalizes them on the device, ``x * scale + offset`` after an f32
+    cast, so the host ships a quarter of the f32 bytes. Float input raises
+    ``TypeError``: already-normalized floats would be scaled twice. Pair
+    with integer labels and a sparse loss."""
+
+    def norm(x: torch.Tensor) -> torch.Tensor:
+        if x.is_floating_point():
+            raise TypeError(
+                f"with_uint8_inputs got {x.dtype} input; this spec expects raw integer "
+                "pixels (feed the un-normalized uint8 stream, or use the base spec for "
+                "float inputs)")
+        return x.float() * scale + offset
+
+    apply = spec.apply
+    new = dataclasses.replace(spec, apply=lambda model, x: apply(model, norm(x)))
+    if spec.apply_with_aux is not None:
+        with_aux = spec.apply_with_aux
+        new = dataclasses.replace(new, apply_with_aux=lambda model, x: with_aux(model, norm(x)))
+    return new
+
+
+ModelSource = Union[ModelSpec, DistributedModel, Callable[[], ModelSpec], str]
+
+
+def fetch_model(source: ModelSource, **kw: Any) -> DistributedModel:
+    """Resolve a model source to a DistributedModel: an existing
+    DistributedModel as it is, a ModelSpec or a zero-argument factory
+    returning one wrapped in :class:`SpecModel` (``kw`` go to it). The
+    JAX package's path and URL sources (Keras ``model.json``/``.h5``,
+    checkpoint directories) wait for the Keras-import slice and raise
+    ``NotImplementedError``."""
+    if isinstance(source, DistributedModel):
+        return source
+    if isinstance(source, ModelSpec):
+        return SpecModel(source, **kw)
+    if callable(source):
+        spec = source()
+        if not isinstance(spec, ModelSpec):
+            raise TypeError(f"model factory must return a ModelSpec, got {type(spec)}")
+        return SpecModel(spec, **kw)
+    if isinstance(source, str):
+        raise NotImplementedError(
+            f"fetch_model({source!r}): path and URL sources (Keras import, checkpoint "
+            "directories) are not ported yet; they come with the Keras-import slice")
+    raise TypeError(f"cannot resolve model source of type {type(source)}")

@@ -11,6 +11,9 @@ a ``state_dict`` of :class:`~distriflow_tpu_torch.models.transformer.Transformer
 - For training (``masters=True``) every parameter stays f32, the flax
   master params bit for bit, so a JAX trainer and the port's start from
   the same bits; the trainable model casts them inside ``forward``.
+
+:func:`mobilenet_params_from_jax` does the same for a flax MobileNetV2
+tree (f32 masters only; the model casts them on every call).
 """
 
 from __future__ import annotations
@@ -54,6 +57,32 @@ def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig,
         out[pre + "attn.o_proj"] = _arr(attn["o_proj"]["kernel"], wdt, (hd, cfg.d_model))
         out[pre + "mlp.wi"] = _arr(lp["mlp"]["wi"]["kernel"], wdt, (cfg.d_model, cfg.d_ff))
         out[pre + "mlp.wo"] = _arr(lp["mlp"]["wo"]["kernel"], wdt, (cfg.d_ff, cfg.d_model))
+    return out
+
+
+def mobilenet_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax MobileNetV2 params -> the port's ``state_dict`` (CPU tensors,
+    every one the f32 master bit for bit). Module paths are flax's
+    (``InvertedResidual_3._ConvNorm_1.GroupNorm_0.scale``); ``Conv_0``
+    kernels go from HWIO to OIHW; the fused and shift depthwise kernel, a
+    ``kernel`` directly under a ``_ConvNorm``, from ``[3, 3, 1, C]`` to
+    ``[3, 3, C]``; everything else keeps its shape."""
+    p = tree["params"] if "params" in tree else tree
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], path: tuple) -> None:
+        for name, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (name,))
+                continue
+            a = np.array(v, dtype=np.float32)
+            if name == "kernel" and path[-1] == "Conv_0":
+                a = a.transpose(3, 2, 0, 1)
+            elif name == "kernel" and path[-1].startswith("_ConvNorm_"):
+                a = a.reshape(3, 3, a.shape[-1])
+            out[".".join(path + (name,))] = torch.from_numpy(np.ascontiguousarray(a))
+
+    walk(p, ())
     return out
 
 

@@ -10,7 +10,11 @@ PyTorch version (port of ``distriflow_tpu/ops``).
   ``_decode_kernel``, ``_paged_kernel_quant`` and ``_decode_kernel_quant``);
 - :mod:`.fused_ce` — the fused sparse softmax cross-entropy, forward and
   backward (replace ``distriflow_tpu/ops/fused_ce.py::_fwd_kernel`` and
-  ``_bwd_kernel`` with integer labels).
+  ``_bwd_kernel`` with integer labels);
+- :mod:`.depthwise_gn` — MobileNetV2's fused depthwise 3x3 + GroupNorm +
+  ReLU6, forward and backward (replace
+  ``distriflow_tpu/ops/depthwise_gn.py::_fwd_kernel`` and ``_bwd_kernel``),
+  differentiable through an ``autograd.Function``.
 
 Sources live in ``distriflow_tpu_torch/csrc``; :mod:`.build` compiles them
 with ``nvcc`` at first use. A wrapper given CPU tensors runs its plain

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -26,6 +26,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+#: every kernel source of the port, ``csrc/<name>.cu``
+SOURCES = ("flash_attention", "flash_decode", "flash_attention_bwd", "fused_ce", "depthwise_gn")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -71,7 +74,7 @@ def _finish(name: str, proc: "subprocess.Popen[str] | None") -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
-def build_all(names: List[str]) -> None:
+def build_all(names: Sequence[str] = SOURCES) -> None:
     """Compile every named source that is not built yet, all in parallel."""
     with _lock:
         procs = [(n, _start(n)) for n in names]

@@ -1,1 +1,2 @@
-"""Port of ``distriflow_tpu/train``: the single-device synchronous trainer."""
+"""Port of ``distriflow_tpu/train``: the single-device synchronous trainer
+and the chunked training loop with exact chunked evaluation."""

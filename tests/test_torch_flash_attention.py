@@ -5,9 +5,20 @@ CUDA kernel's numeric contract. It is held against the JAX Pallas kernel in
 interpret mode and against ``blockwise_attention``, on inputs made from one
 numpy seed, at a length that is not a multiple of 8.
 
-Tolerances: f32 1e-5 (same algorithm, sums in another order); bf16 2e-2
-(outputs round to bf16, whose spacing near 1 is 2**-7 = 7.8e-3, and p is
-rounded to bf16 before the PV product on both sides).
+Tolerances: f32 1e-4. Both sides run the same algorithm in f32 but sum
+in orders chosen by their own CPU kernels (XLA's dot and reduction
+emitters against torch's BLAS and vectorised reductions), and those
+orders are not fixed from run to run: they follow the kernels' blocking
+for the threads each library gets on a loaded machine. What f32 itself
+guarantees is the bound of a sum of n terms, |error| <= n * 2**-24 *
+sum(|terms|): for the scores, n = D = 32 products of unit normals
+(sum |q k| ~ 25, scaled by 1/sqrt(32)) that is ~8e-6 on a score, which
+moves p by that relative amount and o by ~8e-6 x |v| (|v| up to ~3), and
+the softmax sums over S = 37 terms add ~7e-6 more; two sides at opposite
+ends of that bound differ by up to ~6e-5 (one run measured 7e-5 against
+a 1e-5 limit; typical runs differ by 6e-7). bf16 2e-2 (outputs round to
+bf16, whose spacing near 1 is 2**-7 = 7.8e-3, and p is rounded to bf16
+before the PV product on both sides).
 """
 
 import jax.numpy as jnp
@@ -23,7 +34,7 @@ pytestmark = pytest.mark.port
 torch.set_num_threads(2)
 
 B, H, S, D = 2, 2, 37, 32
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def _inputs(dtype_name):

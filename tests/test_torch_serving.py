@@ -212,9 +212,23 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'distriflow_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'distriflow_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'distriflow_tpu', 'experiments'))\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+    # every import statement, the ones inside functions included, of the
+    # port and of chip_smoke.py (which the card runs without the rest)
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    forbidden = {"jax", "jaxlib", "flax", "optax", "distriflow_tpu", "experiments"}
+    for path in [*sorted((root / "distriflow_tpu_torch").rglob("*.py")), root / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
+                     else [])
+            bad = [n for n in names if n.split(".")[0] in forbidden]
+            assert not bad, f"{path.relative_to(root)} imports {bad}"
