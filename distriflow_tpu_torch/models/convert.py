@@ -13,7 +13,8 @@ a ``state_dict`` of :class:`~distriflow_tpu_torch.models.transformer.Transformer
   the same bits; the trainable model casts them inside ``forward``.
 
 :func:`mobilenet_params_from_jax` does the same for a flax MobileNetV2
-tree (f32 masters only; the model casts them on every call).
+tree, and :func:`zoo_params_from_jax` for the zoo's MLP and ConvNet (f32
+masters only; the models cast them on every call).
 """
 
 from __future__ import annotations
@@ -67,6 +68,21 @@ def mobilenet_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor
     kernels go from HWIO to OIHW; the fused and shift depthwise kernel, a
     ``kernel`` directly under a ``_ConvNorm``, from ``[3, 3, 1, C]`` to
     ``[3, 3, C]``; everything else keeps its shape."""
+    return _module_params(tree)
+
+
+def zoo_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax params of a zoo ``MLP`` or ``ConvNet`` -> the port's
+    ``state_dict`` (CPU tensors, the f32 masters bit for bit). Module names
+    are flax's (``Conv_1.kernel``, ``Dense_0.bias``); ``Conv_*`` kernels go
+    from HWIO to OIHW; ``Dense_*`` kernels keep flax's ``[in, out]``, the
+    layout the port's ``Dense`` computes with."""
+    return _module_params(tree)
+
+
+def _module_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax params of a module tree -> a ``state_dict`` by flax's module
+    paths, every leaf f32, with the layout changes both converters name."""
     p = tree["params"] if "params" in tree else tree
     out: Dict[str, torch.Tensor] = {}
 
@@ -76,7 +92,7 @@ def mobilenet_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor
                 walk(v, path + (name,))
                 continue
             a = np.array(v, dtype=np.float32)
-            if name == "kernel" and path[-1] == "Conv_0":
+            if name == "kernel" and path[-1].startswith("Conv_"):
                 a = a.transpose(3, 2, 0, 1)
             elif name == "kernel" and path[-1].startswith("_ConvNorm_"):
                 a = a.reshape(3, 3, a.shape[-1])

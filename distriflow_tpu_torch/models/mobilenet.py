@@ -87,23 +87,27 @@ def _itemsize(dtype: torch.dtype) -> int:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(padding="SAME", use_bias=False)`` over NHWC, computed
-    in ``dtype``; ``kernel`` is f32 OIHW."""
+    """flax ``nn.Conv(padding="SAME")`` over NHWC, computed in ``dtype``;
+    ``kernel`` is f32 OIHW. Without a bias unless ``use_bias`` (MobileNet
+    passes ``use_bias=False`` to flax; the zoo keeps flax's default): a
+    bias of zeros, added in ``dtype`` after the convolution, as flax adds
+    it."""
 
     def __init__(self, in_ch: int, features: int, kernel: Tuple[int, int], stride: int,
-                 groups: int, dtype: torch.dtype):
+                 groups: int, dtype: torch.dtype, use_bias: bool = False):
         super().__init__()
         self.stride, self.groups, self.dtype = stride, groups, dtype
         self.kernel = nn.Parameter(torch.empty(features, in_ch // groups, *kernel))
         _lecun_normal_(self.kernel, kernel[0] * kernel[1] * (in_ch // groups))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kh, kw = self.kernel.shape[2:]
         ph, pw = _same_pad(x.shape[1], kh, self.stride), _same_pad(x.shape[2], kw, self.stride)
         x = F.pad(x.to(self.dtype), (0, 0, pw[0], pw[1], ph[0], ph[1]))
         y = F.conv2d(x.permute(0, 3, 1, 2), self.kernel.to(self.dtype), stride=self.stride,
-                     groups=self.groups)
-        return y.permute(0, 2, 3, 1)
+                     groups=self.groups).permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class _Affine(nn.Module):
