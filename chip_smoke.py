@@ -121,15 +121,19 @@
 15. Rows 7 and 8 (the dQ and dK/dV kernels) at B1 H8 S16384 D64 causal,
     from one forward's lse and delta shared by kernel and plain version;
     each must give the same bits on a second launch, and the limit must
-    reject a dQ without the delta term and a dK without the scale. Rows
-    9d and 10d (the dense CE) at the ConvNet's N 2048 x V 10 one-hot and,
-    under ``large``, at N 8192 x V 32000 with soft targets.
+    reject a dQ without the delta term and a dK without the scale; the
+    dK/dV kernel is also held at S 37 and 1000 (lengths that end inside a
+    tile), causal and not (``ragged_max_abs_err``). Rows 9d and 10d (the
+    dense CE) at the ConvNet's N 2048 x V 10 one-hot and, under
+    ``large``, at N 8192 x V 32000 with soft targets.
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
 at the long phase's rows); the flash forward, which runs on every path,
 is also held and timed at the training shape (its row's
-``training_shape``) and at B1 H8 S16000 (``long_context``). Each row's
+``training_shape``) and at B1 H8 S16000 (``long_context``), and held at
+S 1, 37, 512 and 1000, causal and not (``checks``), each giving the same
+bits on a second launch. Each row's
 ``launches_by_path`` gives its count in every window. The line
 before the last is the kernel table as JSON (14 rows); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
@@ -523,14 +527,23 @@ def _kernel_rows(launches):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
 
-    # prefill attention: the engine prefills the two same-length prompts together
+    # prefill attention: the engine prefills the two same-length prompts
+    # together; also the non-causal branch (TransformerConfig.causal=False)
+    # and ragged lengths that end inside a tile. The timed case comes last.
     errs, lse_errs, b, h, d = [], [], 2, 8, 64
-    for s in (512, 1000):
+    checks = {}
+    for s, causal in ((1, True), (1, False), (37, True), (37, False), (512, True),
+                      (1000, False), (1000, True)):
         q, k, v = randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d)
-        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-        ro, rl = fa.flash_attention_reference(q, k, v, True)
-        errs.append(_over(f"flash_attention_fwd O S={s}", o, ro, *TOL["flash_attention_fwd"]))
-        lse_errs.append(_over(f"flash_attention_fwd lse S={s}", lse, rl, LSE_ATOL, 0.0))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        ro, rl = fa.flash_attention_reference(q, k, v, causal)
+        tag = f"S={s} {'causal' if causal else 'non-causal'}"
+        errs.append(_over(f"flash_attention_fwd O {tag}", o, ro, *TOL["flash_attention_fwd"]))
+        lse_errs.append(_over(f"flash_attention_fwd lse {tag}", lse, rl, LSE_ATOL, 0.0))
+        checks[tag] = [errs[-1], lse_errs[-1]]
+        again = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse), \
+            f"flash_attention_fwd {tag}: a second launch gave other bits"
     pairs = s * (s + 1) // 2
     tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d)
     rows.append({
@@ -544,6 +557,7 @@ def _kernel_rows(launches):
         "bound_ms": tb, "bound_by": by,
         "library_ms": _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50, flush),
         "shape": f"B={b} H={h} S={s} D={d} causal",
+        "checks": checks, "deterministic": True,
     })
 
     # paged decode: 8 slots, contexts 128-1064, scattered pages of 128
@@ -1499,6 +1513,18 @@ def _split_bwd_rows(launches, steps):
     del no_delta, again_k, again_v
     for c in (controls_q, controls_kv):
         assert all(v > 0.5 for v in c.values()), f"a two-kernel limit passes a wrong gradient: {c}"
+    # the dK/dV kernel at lengths that end inside a tile (its lse and delta
+    # reads stop at S) and on the non-causal branch
+    ragged = {}
+    for rs, causal in ((37, True), (1000, True), (1000, False)):
+        rq, rk, rv, rdo = ((torch.randn(b, h, rs, d, generator=g, device=dev) + mean)
+                           .to(torch.bfloat16) for mean in (0.0, 1.0, 1.0, 0.0))
+        ro, rlse = fa.flash_attention(rq, rk, rv, causal=causal, return_lse=True)
+        rargs = (rq, rk, rv, rdo, rlse, (rdo.float() * ro.float()).sum(-1), causal)
+        tag = f"S={rs} {'causal' if causal else 'non-causal'}"
+        ragged[tag] = max(_over(f"flash_attention_dkv d{n} {tag}", a, w, *TOL["flash_attention_dkv"])
+                          for n, a, w in zip("kv", fa.flash_attention_dkv(*rargs),
+                                             fa.flash_attention_dkv_reference(*rargs)))
     pairs = b * h * s * (s + 1) // 2
     io = 4 * b * h * s * d * 2 + 2 * b * h * s * 4
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -1520,6 +1546,7 @@ def _split_bwd_rows(launches, steps):
             "library_note": "F.scaled_dot_product_attention backward: dQ, dK and dV together",
             "rejected_share": controls, "deterministic": True,
             "atol_needed": needed[name]})
+    rows[1]["ragged_max_abs_err"] = ragged
     return rows
 
 

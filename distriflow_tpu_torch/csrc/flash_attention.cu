@@ -6,217 +6,295 @@
 //
 // Numeric contract (flash_attention.py:103-159): Q.K^T takes bf16 operands
 // with f32 accumulation, the 1/sqrt(D) scale folds in after the product,
-// masked scores are -1e30 and carry exactly zero mass, p is rounded to
-// bf16 for the PV product, the accumulator and m/l stay f32. O is written
-// in bf16; lse = m + log(l) is written as a plain f32 [B*H, S] array (the
-// TPU kernel's 128-lane replicated copy was a TPU layout artifact).
+// masked scores carry exactly zero mass, p is rounded to bf16 for the PV
+// product, the accumulator and m/l stay f32. O is written in bf16; lse =
+// m + log(l) is written as a plain f32 [B*H, S] array (the TPU kernel's
+// 128-lane replicated copy was a TPU layout artifact). exp is taken as
+// exp2 with the scale folded into log2(e) (one f32 rounding apart).
 //
-// Grid: one block of 4 warps per (b*h, 64-row query tile); blockIdx.x is
-// the query tile. The block walks 64-position K/V tiles up to the causal
-// bound, keeping Q, the current K/V tile, the score and probability tiles
-// and the f32 output accumulator in shared memory. Both products run on
-// the tensor cores through WMMA 16x16x16 bf16 fragments; each warp owns 16
-// query rows. Rows and columns past S are zero-filled and masked, so any
-// S works and the shared-memory footprint does not depend on S.
+// Bound: per (b, h) the work is 4*S^2*D FLOPs (halved when causal) against
+// 4*S*D*2 bytes, so from a few hundred positions on the floor is FLOPs over
+// the tensor cores' 989 TF/s; the design keeps the tensor cores fed:
 //
-// Bound: at prefill lengths (S of a few hundred to a few thousand) the
-// work is 4*S^2*D FLOPs (halved when causal) against 4*S*D*2 bytes per
-// (b, h), so the floor is FLOPs / 989 TF/s. This first version is simple
-// rather than fast: synchronous tile loads, WMMA rather than wgmma, and a
-// shared-memory round trip for the score tile.
+// - Grid: one block per (b*h, 128-row query tile); blockIdx.x is the head,
+//   blockIdx.y counts the query tiles from the last, so the longest causal
+//   rows are launched first and the grid does not end in a tail of them.
+// - Warp roles: two consumer warpgroups own 64 query rows each; one
+//   producer warp issues TMA loads (Q once, then 128-position K and V tiles
+//   into a ring of kStages stages with full and empty mbarriers). Rows past
+//   S arrive zero-filled from the 3-D tensor map.
+// - S = Q.K^T is one wgmma (64 x 128, both operands in shared memory) per
+//   K tile into registers. The online softmax runs on the accumulator
+//   fragment: row max and sum across the four threads of a row by
+//   shuffles, m and l in registers. P is packed to bf16 in registers and is
+//   the register A operand of O += P.V (V read MN-major from shared
+//   memory); O stays in f32 registers. Nothing goes through shared memory
+//   but the TMA tiles.
+// - Within a warpgroup, tile t's Q.K^T is issued together with tile t-1's
+//   P.V, and tile t's softmax runs while the tensor cores finish that P.V;
+//   O is rescaled by tile t's correction once P.V has landed.
+// - Masking is applied only to K tiles that cross a warpgroup's diagonal or
+//   reach past S; the others run unmasked.
+// - Epilogue: O / l is written as bf16 straight from registers, lse = m +
+//   log(l) by one thread of each row.
 
 #include <cstdint>
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace dftt::hopper;
 
-constexpr int kThreads = 128;
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
+constexpr int kD = 64;
+constexpr int kConsumers = 2;          // warpgroups, 64 query rows each
+constexpr int kBQ = 64 * kConsumers;   // query rows per block
+constexpr int kBK = 128;               // key positions per K/V tile
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
+constexpr uint32_t kQBytes = kBQ * kRowBytes;
+constexpr uint32_t kKVBytes = kBK * kRowBytes;
+constexpr float kLog2e = 1.4426950408889634f;
+using Pipe = Ring<kStages>;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kBQ * D + 2 * kBK * D + kBQ * kBK) +
-         sizeof(float) * (kBQ * kBK + kBQ * D + 3 * kBQ);
-}
+constexpr size_t kSmemBytes = kSwizzleBytes + kQBytes + 2 * kStages * kKVBytes +
+                              sizeof(uint64_t) * (1 + 3 * kStages);
 
-template <int D>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          __nv_bfloat16* dst, int row0, int S) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + static_cast<int64_t>(row0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * D + col) = val;
-  }
-}
+// One consumer thread's view of a K tile's scores: rows row0 and row0 + 8
+// of its warpgroup's 64 (the first is first_row), columns 8n + col + {0, 1}.
+struct Tile {
+  int S, causal, first_row, row0, col;
+  float scale, scale_log2;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int S, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][D]
-  __nv_bfloat16* Ks = Qs + kBQ * D;                               // [BK][D]
-  __nv_bfloat16* Vs = Ks + kBK * D;                               // [BK][D]
-  __nv_bfloat16* Ps = Vs + kBK * D;                               // [BQ][BK]
-  float* Ss = reinterpret_cast<float*>(Ps + kBQ * kBK);           // [BQ][BK]
-  float* Os = Ss + kBQ * kBK;                                     // [BQ][D]
-  float* m_s = Os + kBQ * D;
-  float* l_s = m_s + kBQ;
-  float* c_s = l_s + kBQ;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int64_t bh = blockIdx.y;
-  const int64_t off = bh * S * D;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-
-  load_tile<D>(q + off, Qs, q0, S);
-  for (int i = tid; i < kBQ * D; i += kThreads) Os[i] = 0.f;
-  if (tid < kBQ) {
-    m_s[tid] = dftt::kNegInf;
-    l_s[tid] = 0.f;
-  }
-
-  int n_kb = (S + kBK - 1) / kBK;
-  if (causal) {
-    // K tiles wholly past this Q tile's last row are fully masked: skip them
-    const int last = (q0 + kBQ + kBK - 1) / kBK;
-    n_kb = n_kb < last ? n_kb : last;
-  }
-
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the previous tile's readers are done with Ks/Vs/Ps
-    load_tile<D>(k + off, Ks, k0, S);
-    load_tile<D>(v + off, Vs, k0, S);
-    __syncthreads();
-
-    {  // S = Q K^T for this warp's 16 rows, 4 fragments across the tile
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBK / 16];
+  // The raw scores of the K tile at k0, in acc, become f32 probabilities
+  // against the updated running max m (masked ones exactly 0); corr is the
+  // factor that rescales the earlier tiles' sums and accumulator, sum this
+  // tile's row sums (both across the row's four threads).
+  __device__ __forceinline__ void probabilities(float (&acc)[kBK / 2], int k0, float (&m)[2],
+                                                float (&corr)[2], float (&sum)[2]) const {
+    if (k0 + kBK > S || (causal && k0 + kBK - 1 > first_row)) {
 #pragma unroll
-      for (int j = 0; j < kBK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+      for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * D + kk, D);
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < kBK / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, Ks + j * 16 * D + kk, D);
-          wmma::mma_sync(acc[j], a, bf, acc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBK / 16; ++j)
-        wmma::store_matrix_sync(Ss + warp * 16 * kBK + j * 16, acc[j], kBK, wmma::mem_row_major);
+          for (int j = 0; j < 2; ++j) {
+            const int kpos = k0 + 8 * n + col + j;
+            if (kpos >= S || (causal && kpos > row0 + 8 * i)) acc[4 * n + 2 * i + j] = -INFINITY;
+          }
     }
-    __syncthreads();
-
-    {  // online softmax: two neighbouring lanes per query row, 32 columns each
-      const int r = tid >> 1;
-      const int c0 = (tid & 1) * (kBK / 2);
-      const int qpos = q0 + r;
-      float* srow = Ss + r * kBK;
-      float mx = dftt::kNegInf;
-      for (int c = c0; c < c0 + kBK / 2; ++c) {
-        const int kpos = k0 + c;
-        const bool ok = kpos < S && (!causal || qpos >= kpos);
-        const float s = ok ? srow[c] * scale : dftt::kNegInf;
-        srow[c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        mx[i] = fmaxf(mx[i], fmaxf(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]));
+    float neg_m2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i] * scale);
       const float safe = m_new <= dftt::kNegInf ? 0.f : m_new;
-      float sum = 0.f;
-      for (int c = c0; c < c0 + kBK / 2; ++c) {
-        const float s = srow[c];
-        const float p = s <= dftt::kNegInf ? 0.f : expf(s - safe);
-        Ps[r * kBK + c] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const float corr = m_old <= dftt::kNegInf ? 0.f : expf(m_old - safe);
-      if ((tid & 1) == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * corr + sum;
-        c_s[r] = corr;
-      }
+      corr[i] = m[i] <= dftt::kNegInf ? 0.f : exp2f((m[i] - safe) * kLog2e);
+      m[i] = m_new;
+      neg_m2[i] = -safe * kLog2e;
+      sum[i] = 0.f;
     }
-    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float p = exp2f(fmaf(acc[4 * n + 2 * i + j], scale_log2, neg_m2[i]));
+          acc[4 * n + 2 * i + j] = p;
+          sum[i] += p;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    }
+  }
+};
 
-    // O = O * corr + P V, this warp's 16 rows (its rows only: no block sync)
-    for (int i = tid & 31; i < 16 * D; i += 32) {
-      const int r = warp * 16 + i / D;
-      Os[r * D + i % D] *= c_s[r];
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int S, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = aligned_smem(smem_raw);
+  unsigned char* k_s = q_s + kQBytes;
+  unsigned char* v_s = k_s + kStages * kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * kKVBytes);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  int n_kb = (S + kBK - 1) / kBK;
+  // causal: K tiles wholly past this Q tile's last row are fully masked
+  if (causal) n_kb = min(n_kb, (q0 + kBQ + kBK - 1) / kBK);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Os + warp * 16 * D + j * 16, D, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * kBK + kk, kBK);
-        wmma::load_matrix_sync(bv, Vs + kk * D + j * 16, D);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * D + j * 16, acc, D, wmma::mem_row_major);
-    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    if (q0 + r < S) {
-      const float lf = fmaxf(l_s[r], 1e-30f);
-      o[off + static_cast<int64_t>(q0 + r) * D + i % D] = __float2bfloat16(Os[i] / lf);
+  if (warp == 4 * kConsumers) {  // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, kQBytes);
+      tma_load_rows(q_s, &tm_q, q0, bh, q_full);
+      for (int t = 0; t < n_kb; ++t) {
+        const int s = Pipe::stage(t);
+        mbar_wait(&empty[s], Pipe::empty_parity(t));
+        mbar_arrive_expect_tx(&k_full[s], kKVBytes);
+        tma_load_rows(k_s + s * kKVBytes, &tm_k, t * kBK, bh, &k_full[s]);
+        mbar_arrive_expect_tx(&v_full[s], kKVBytes);
+        tma_load_rows(v_s + s * kKVBytes, &tm_v, t * kBK, bh, &v_full[s]);
+      }
     }
+    return;
   }
-  if (tid < kBQ && q0 + tid < S) {
-    const float lf = fmaxf(l_s[tid], 1e-30f);
-    const float mm = m_s[tid] <= dftt::kNegInf ? 0.f : m_s[tid];
-    lse[bh * S + q0 + tid] = mm + logf(lf);
+
+  // a consumer warpgroup: rows first_row .. first_row + 63 of the Q tile;
+  // this thread holds rows row0 and row0 + 8, columns 8n + col + {0, 1}
+  const int wg = warp / 4;
+  const int first_row = q0 + 64 * wg;
+  const int row0 = first_row + 16 * (warp % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+
+  float acc_o[kD / 2], acc_s[kBK / 2];
+#pragma unroll
+  for (int r = 0; r < kD / 2; ++r) acc_o[r] = 0.f;
+#pragma unroll
+  for (int r = 0; r < kBK / 2; ++r) acc_s[r] = 0.f;
+  float m[2] = {dftt::kNegInf, dftt::kNegInf};
+  float l[2] = {0.f, 0.f};
+  float corr[2], sum[2];
+  uint32_t p_a[kBK / 16][4];
+  const Tile tile{S, causal, first_row, row0, col, scale, scale * kLog2e};
+
+  mbar_wait(q_full, 0);
+  const uint64_t desc_q = desc_kmajor(q_s + 64 * wg * kRowBytes);
+
+  // K tile 0: its scores, then its probabilities
+  mbar_wait(&k_full[0], 0);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kD / 16; ++j)
+    wgmma_m64n128k16_ss<0>(acc_s, desc_q + kmajor_step(j), desc_kmajor(k_s) + kmajor_step(j),
+                           j > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc_s);
+  tile.probabilities(acc_s, 0, m, corr, sum);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = sum[i];
+  acc_to_a(acc_s, p_a);
+
+  // K tile t's scores run beside tile t-1's P.V; tile t's softmax runs
+  // while the tensor cores finish that P.V
+  for (int t = 1; t < n_kb; ++t) {
+    const int s = Pipe::stage(t), sp = Pipe::stage(t - 1);
+    mbar_wait(&k_full[s], Pipe::full_parity(t));
+    mbar_wait(&v_full[sp], Pipe::full_parity(t - 1));
+    const uint64_t desc_k = desc_kmajor(k_s + s * kKVBytes);
+    const uint64_t desc_v = desc_mnmajor(v_s + sp * kKVBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j)
+      wgmma_m64n128k16_ss<0>(acc_s, desc_q + kmajor_step(j), desc_k + kmajor_step(j), j > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int c = 0; c < kBK / 16; ++c)
+      wgmma_m64n64k16_rs<1>(acc_o, p_a[c], desc_v + mnmajor_step(c), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores; P.V may still run
+    fence_regs(acc_s);
+    tile.probabilities(acc_s, t * kBK, m, corr, sum);
+    wgmma_wait<0>();
+    fence_regs(acc_o);
+    fence_regs(p_a);
+    if (threadIdx.x % 128 == 0) mbar_arrive(&empty[sp]);  // this warpgroup is done with tile t-1
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc_o[4 * n + 2 * i] *= corr[i];
+        acc_o[4 * n + 2 * i + 1] *= corr[i];
+      }
+    acc_to_a(acc_s, p_a);
+  }
+
+  {  // the last tile's P.V
+    const int s = Pipe::stage(n_kb - 1);
+    mbar_wait(&v_full[s], Pipe::full_parity(n_kb - 1));
+    const uint64_t desc_v = desc_mnmajor(v_s + s * kKVBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kBK / 16; ++c)
+      wgmma_m64n64k16_rs<1>(acc_o, p_a[c], desc_v + mnmajor_step(c), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_o);
+    fence_regs(p_a);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= S) continue;
+    const float lf = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* dst = o + (static_cast<int64_t>(bh) * S + row) * kD + col;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+          __floats2bfloat162_rn(acc_o[4 * n + 2 * i] / lf, acc_o[4 * n + 2 * i + 1] / lf);
+    if (lane % 4 == 0)
+      lse[static_cast<int64_t>(bh) * S + row] = (m[i] <= dftt::kNegInf ? 0.f : m[i]) + logf(lf);
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int BH, int S, int causal, float scale, cudaStream_t st) {
-  constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, BH);
-  fwd_kernel<D><<<grid, kThreads, bytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), S, scale, causal);
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
+           int causal, float scale, cudaStream_t st) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = make_row_map(&tm_q, q, BH, S, kBQ);
+  if (!err) err = make_row_map(&tm_k, k, BH, S, kBK);
+  if (!err) err = make_row_map(&tm_v, v, BH, S, kBK);
+  if (err) return err;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes)));
+  if (err) return err;
+  const dim3 grid(BH, (S + kBQ - 1) / kBQ);
+  fwd_kernel<<<grid, kThreads, kSmemBytes, st>>>(tm_q, tm_k, tm_v,
+                                                 static_cast<__nv_bfloat16*>(o),
+                                                 static_cast<float*>(lse), S, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o: [BH, S, D] bf16 contiguous; lse: [BH, S] f32. Launches on
-// `stream`; returns cudaGetLastError() (0 = launched). Built for D = 64
-// only, the head dim of the served configuration.
+// q, k, v, o: [BH, S, D] bf16 contiguous, 16-byte aligned; lse: [BH, S]
+// f32. Launches on `stream`; returns a CUDA error code (0 = launched; a
+// tensor map that cannot be encoded returns cudaErrorInvalidValue). Built
+// for D = 64 only, the head dim of the served configuration.
 extern "C" int dftt_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int BH,
     int S, int D, int causal, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, o, lse, BH, S, causal, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, o, lse, BH, S, causal, scale, static_cast<cudaStream_t>(stream));
 }

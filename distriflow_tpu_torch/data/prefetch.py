@@ -5,7 +5,9 @@ stream and device prefetch.
 the same seed (numpy's ``RandomState``). :func:`prefetch_to_device` keeps
 ``size`` batches in flight: each host batch is staged in pinned memory and
 copied with ``non_blocking=True`` on the current stream, so the next
-batch's transfer overlaps the current step. Order is preserved.
+batch's transfer overlaps the current step. Order is preserved. Arrays
+are placed in the dtypes ``jax.device_put`` gives them (float64 as
+float32, int64 as int32).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Any, Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
+
+from distriflow_tpu_torch.utils.device import canonical_dtype
 
 
 def prefetch_to_device(iterator: Iterable[Any], device: Optional[Union[str, torch.device]] = None,
@@ -38,7 +42,8 @@ def _place(batch: Any, device: torch.device) -> Any:
         return type(batch)(_place(b, device) for b in batch)
     if isinstance(batch, dict):
         return {k: _place(v, device) for k, v in batch.items()}
-    t = torch.as_tensor(np.asarray(batch))
+    t = batch if isinstance(batch, torch.Tensor) else torch.as_tensor(np.asarray(batch))
+    t = canonical_dtype(t)
     if device.type == "cuda":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)

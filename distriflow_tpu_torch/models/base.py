@@ -37,6 +37,7 @@ from torch import nn
 
 from distriflow_tpu_torch.models import losses as losses_lib
 from distriflow_tpu_torch.utils.config import CompileConfig
+from distriflow_tpu_torch.utils.device import canonical_dtype
 
 Params = Dict[str, torch.Tensor]
 LearningRate = Union[float, Callable[[int], float]]
@@ -163,12 +164,14 @@ def named_params(model: nn.Module) -> Params:
 
 
 def to_device(batch: Any, device: torch.device) -> Any:
-    """Numpy arrays and tensors of a batch tuple onto ``device``."""
+    """Numpy arrays and tensors of a batch tuple onto ``device``, in the
+    dtypes ``jax.device_put`` gives them (:func:`canonical_dtype`: float64
+    becomes float32, int64 int32)."""
     if batch is None:
         return None
     if isinstance(batch, (tuple, list)):
         return type(batch)(to_device(b, device) for b in batch)
-    return torch.as_tensor(batch).to(device, non_blocking=True)
+    return canonical_dtype(torch.as_tensor(batch)).to(device, non_blocking=True)
 
 
 def init_params(spec: "ModelSpec", seed: int = 0) -> nn.Module:
@@ -195,6 +198,19 @@ class ModelSpec:
     name: str = "model"
     apply_with_aux: Optional[Callable[[nn.Module, torch.Tensor],
                                       Tuple[torch.Tensor, torch.Tensor]]] = None
+    #: the device ``init`` builds on and the dtype ``apply``'s outputs come
+    #: in (``None``: not stated), for :meth:`check_loss`
+    device: Optional[torch.device] = None
+    dtype: Optional[torch.dtype] = None
+
+    def check_loss(self) -> None:
+        """Raise ``NotImplementedError`` when the loss runs a CUDA kernel
+        that cannot take this model's outputs (the fused cross-entropy
+        kernels take bf16 logits), so that such a model fails when built,
+        not at its first step."""
+        from distriflow_tpu_torch.ops import fused_ce  # the kernel layer owns the rule
+
+        fused_ce.check_model(self.loss, self.device, self.dtype)
 
     def loss_fn(self, model: nn.Module, x: torch.Tensor, y: torch.Tensor,
                 weight: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -301,6 +317,7 @@ class SpecModel(DistributedModel):
         if self.compile_config.loss is not None and self.compile_config.loss != spec.loss:
             # honor an explicitly configured loss over the spec default
             self.spec = dataclasses.replace(spec, loss=self.compile_config.loss)
+        self.spec.check_loss()
         self.learning_rate = 0.001 if learning_rate is None else learning_rate
         self._seed = seed
         self._initial = params

@@ -28,10 +28,17 @@ def spec_from_module(
     device: Optional[Union[str, torch.device]] = None,
 ) -> ModelSpec:
     """A ModelSpec whose ``init(seed)`` builds ``factory()`` from ``seed`` on
-    ``device`` (``cuda`` by default) and whose ``apply`` calls it."""
+    ``device`` (``cuda`` by default) and whose ``apply`` calls it.
+
+    On CUDA the spec's ``dtype``, the dtype the module computes in, is read
+    from a build on the meta device (the module's ``dtype`` attribute, else
+    its first floating parameter's), and a loss whose CUDA kernel cannot
+    take it raises ``NotImplementedError`` here
+    (:meth:`ModelSpec.check_loss`)."""
     from distriflow_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
+    dtype = _module_dtype(factory) if dev.type == "cuda" else None
 
     def init(seed: int = 0) -> nn.Module:
         with torch.random.fork_rng(devices=[]):
@@ -39,14 +46,29 @@ def spec_from_module(
             module = factory()
         return module.to(dev)
 
-    return ModelSpec(
+    spec = ModelSpec(
         init=init,
         apply=lambda model, x: model(x),
         loss=loss,
         input_shape=tuple(input_shape),
         output_shape=tuple(output_shape),
         name=name or getattr(factory, "__name__", type(factory).__name__),
+        device=dev,
+        dtype=dtype,
     )
+    spec.check_loss()
+    return spec
+
+
+def _module_dtype(factory: Callable[[], nn.Module]) -> Optional[torch.dtype]:
+    """The dtype ``factory()``'s module computes in, from a build on the
+    meta device (no memory is allocated)."""
+    with torch.device("meta"):
+        module = factory()
+    dtype = getattr(module, "dtype", None)
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return next((p.dtype for p in module.parameters() if p.is_floating_point()), None)
 
 
 class DistributedModuleModel(SpecModel):

@@ -711,20 +711,19 @@ def transformer_lm(
         config = dataclasses.replace(config, **overrides)
     dev = resolve_device(device)
     loss = config.resolved_loss_for(dev)
-    if dev.type == "cuda" and loss == "fused_sparse_softmax_cross_entropy" \
-            and config.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"no CUDA fused cross-entropy kernel for {config.dtype} logits: it takes bf16; "
-            "set loss='sparse_softmax_cross_entropy' for the plain loss")
 
     def init(seed: int = 0) -> TransformerLM:
         return init_weights(TransformerLM(config, device=dev, trainable=True), seed)
 
-    return ModelSpec(
+    spec = ModelSpec(
         init=init,
         apply=lambda model, tokens: model(tokens),
         loss=loss,
         input_shape=(example_seq,),
         output_shape=(config.vocab_size,),
         name="transformer_lm",
+        device=dev,
+        dtype=config.dtype,
     )
+    spec.check_loss()  # the fused CE takes bf16 logits
+    return spec

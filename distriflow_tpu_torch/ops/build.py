@@ -29,6 +29,9 @@ NVCC_FLAGS = [
 
 #: every kernel source of the port, ``csrc/<name>.cu``
 SOURCES = ("flash_attention", "flash_decode", "flash_attention_bwd", "fused_ce", "depthwise_gn")
+#: the headers each source includes (an edit to one rebuilds its sources)
+HEADERS = {"flash_attention": ("common.cuh", "hopper.cuh"),
+           "flash_attention_bwd": ("common.cuh", "hopper.cuh")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,7 +48,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + (CSRC / "common.cuh").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        (CSRC / h).read_bytes() for h in HEADERS.get(name, ("common.cuh",)))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

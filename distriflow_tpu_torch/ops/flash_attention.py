@@ -7,14 +7,16 @@ sources:
   or non-causal online-softmax attention over ``[B, H, S, D]`` bf16 tensors
   that never writes the ``[S, S]`` scores to device memory, returning O and
   the per-row logsumexp ``[B, H, S]`` f32 (plain, not the TPU kernel's
-  128-lane replicated layout);
+  128-lane replicated layout); a Hopper design (TMA loads, wgmma, the
+  softmax in registers);
 - ``csrc/flash_attention_bwd.cu`` replaces the fused backward
   ``_dkvq_kernel``: dK, dV and dQ from one P per tile pair. dQ is summed
   over K tiles with f32 atomics, so its summation order is not fixed from
   run to run. The same source replaces the two-kernel backward:
   ``_dq_kernel`` (dQ, one block per Q tile walking its K tiles) and
   ``_dkv_kernel`` (dK and dV, one block per K/V tile walking its Q
-  tiles). Neither uses atomics, so both give the same bits every run.
+  tiles; a Hopper design like the forward's). Neither uses atomics, so
+  both give the same bits every run.
 
 The backward layout is JAX's decision (:func:`bwd_layout`): the backward
 tiles JAX would pick (:func:`_bwd_autotune`, or ``bwd_block_q``/
@@ -44,7 +46,6 @@ import torch
 from distriflow_tpu_torch.ops import build
 
 NEG_INF = -1e30
-BLOCK = 64  # query rows and key positions per tile in the kernel
 SUPPORTED_HEAD_DIMS = (64,)  # the head dims the kernel is built and checked for
 
 _SIGNATURES = {
@@ -68,7 +69,7 @@ _BWD_SIGNATURES = {
 # The backward layout gate, the port's own copy of the JAX package's
 # (flash_attention.py:54-68, 441-498): the tiles its backward would take
 # and, from them, how many KV blocks. The CUDA kernels keep their own
-# 64-wide tiles; these numbers choose the layout only, so that the port
+# tiles; these numbers choose the layout only, so that the port
 # takes the fused or the two-kernel backward exactly where JAX does.
 _LANES = 128
 _BWD_BLOCK_CAP = 1024       # <= 2-byte inputs (bf16/fp16)
@@ -417,8 +418,8 @@ def flash_attention(
     ``bwd_block_q``/``bwd_block_k`` are JAX's backward tiles (``None``:
     autotuned, as there). Here they choose the backward's layout only
     (:func:`bwd_layout`: the fused kernel up to 8 KV blocks, the dQ and
-    dK/dV kernels past that); the CUDA kernels keep their own 64-wide
-    tiles, and the Q tile changes nothing.
+    dK/dV kernels past that); the CUDA kernels keep their own tiles, and
+    the Q tile changes nothing.
 
     CPU tensors run the plain versions. CUDA tensors launch the kernels or
     raise: they must be contiguous bf16 of one shape with ``D`` in

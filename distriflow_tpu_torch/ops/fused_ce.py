@@ -52,6 +52,23 @@ _SIGNATURES = {
 }
 # target dtypes that widen to f32 exactly
 _EXACT_TO_F32 = (torch.float16, torch.bfloat16, torch.float32)
+#: the logits dtype the kernels take
+LOGITS_DTYPE = torch.bfloat16
+#: the loss names whose CUDA path runs these kernels (registered below)
+LOSS_NAMES = ("fused_softmax_cross_entropy", "fused_sparse_softmax_cross_entropy")
+
+
+def check_model(loss: str, device: Optional[torch.device], dtype: Optional[torch.dtype]) -> None:
+    """Raise ``NotImplementedError`` when a model whose logits are ``dtype``
+    on ``device`` would send them to these kernels under ``loss`` and they
+    cannot take them; models call it when built, so that such a model fails
+    there and not at its first step. Nothing is known (``None``) or the
+    device is not CUDA: nothing to refuse."""
+    if device is not None and torch.device(device).type == "cuda" and loss in LOSS_NAMES \
+            and dtype is not None and dtype != LOGITS_DTYPE:
+        raise NotImplementedError(
+            f"no CUDA fused cross-entropy kernel for {dtype} logits: it takes bf16; "
+            f"set loss='{loss[len('fused_'):]}' for the plain loss")
 
 
 def fused_ce_forward_reference(logits: torch.Tensor, labels: torch.Tensor
@@ -82,7 +99,7 @@ def _check_rows(what: str, logits: torch.Tensor, **rows: torch.Tensor) -> None:
     every row vector is a contiguous ``[N]`` tensor of its kernel dtype."""
     if logits.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {logits.device}")
-    if logits.dim() != 2 or logits.dtype != torch.bfloat16 or not logits.is_contiguous():
+    if logits.dim() != 2 or logits.dtype != LOGITS_DTYPE or not logits.is_contiguous():
         raise TypeError(f"{what}: the kernel takes contiguous bf16 [N, V] logits, got "
                         f"{logits.dtype} {tuple(logits.shape)}")
     n = logits.shape[0]
@@ -280,9 +297,8 @@ def fused_softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 def register() -> None:
     from distriflow_tpu_torch.models import losses
 
-    for name, fn in (("fused_softmax_cross_entropy", fused_softmax_cross_entropy_per_example),
-                     ("fused_sparse_softmax_cross_entropy",
-                      fused_sparse_softmax_cross_entropy_per_example)):
+    for name, fn in zip(LOSS_NAMES, (fused_softmax_cross_entropy_per_example,
+                                     fused_sparse_softmax_cross_entropy_per_example)):
         if name not in losses.LOSSES:
             losses.register_loss(name, fn)
 

@@ -128,6 +128,7 @@ class SyncTrainer:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if ema_decay is not None and not (0.0 < ema_decay < 1.0):
             raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+        spec.check_loss()
         self.spec = spec
         self.optimizer = _optimizer(optimizer, learning_rate)
         self.grad_accum = grad_accum

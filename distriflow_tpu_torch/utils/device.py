@@ -13,6 +13,17 @@ from typing import Optional, Union
 import torch
 
 
+#: the host dtypes ``jax.device_put`` narrows under JAX's default (x64 off)
+_CANONICAL = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def canonical_dtype(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the dtype JAX would place it in: float64 becomes float32,
+    int64 becomes int32, every other dtype stays (``t`` itself)."""
+    want = _CANONICAL.get(t.dtype)
+    return t if want is None else t.to(want)
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` -> ``cuda`` (raises when no GPU is visible); an explicit
     device is returned as a ``torch.device`` after the same check for
