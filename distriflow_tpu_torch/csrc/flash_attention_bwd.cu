@@ -1,13 +1,16 @@
-// Attention backward (bf16): the fused kernel and the two-kernel layout.
+// Attention backward (bf16) for Hopper: the fused kernel, the two-kernel
+// layout, and the pass that sums the fused kernel's dQ partials.
 //
 // Replaces the Pallas TPU kernels of the JAX package
-//   distriflow_tpu/ops/flash_attention.py::_dkvq_kernel  (fused: dK, dV, dQ)
+//   distriflow_tpu/ops/flash_attention.py::_dkvq_kernel  (fused: dK, dV, dQ partials)
 //   distriflow_tpu/ops/flash_attention.py::_dq_kernel    (two-kernel: dQ)
 //   distriflow_tpu/ops/flash_attention.py::_dkv_kernel   (two-kernel: dK, dV)
-// The JAX package takes the fused kernel while its backward tiles give at
-// most _FUSED_BWD_MAX_KV_BLOCKS = 8 KV blocks (the flagship's S = 1024) and
-// the two kernels past that (bf16 at D 64: S > 8192, long-context
-// training); the wrappers in ops/flash_attention.py take the same decision.
+// and the sum over the fused kernel's per-KV-tile dQ partials that the JAX
+// package leaves to XLA (flash_attention.py:605). The JAX package takes the
+// fused kernel while its backward tiles give at most
+// _FUSED_BWD_MAX_KV_BLOCKS = 8 KV blocks (the flagship's S = 1024) and the
+// two kernels past that (bf16 at D 64: S > 8192, long-context training);
+// the wrappers in ops/flash_attention.py take the same decision.
 //
 // Numeric contract (flash_attention.py:171-336): S = Q.K^T from bf16
 // operands with f32 accumulation, scale folded in after the product;
@@ -16,325 +19,46 @@
 // bf16 before dS^T.Q and dS.K; every sum is f32; dK and dQ are scaled once
 // at the end and written in bf16 with dV. lse and delta are plain f32
 // [B*H, S] rows (delta = rowsum(dO * O), minus any lse cotangent, computed
-// by the caller).
+// by the caller). P is expf of the plain version's f32 argument, S*scale -
+// lse (which the compiler may contract into one fma; rounding S*scale
+// first was slower and needed no less atol): an exp2 with the scale folded
+// into log2(e) needed atol 8.1e-4 against the 1e-3 limit.
 //
-// Kernels 6 and 7 (fused, dQ) run blocks of 4 warps over 64-position
-// tiles, WMMA bf16 products with f32 accumulators, and stage S, dP, P and
-// dS in shared memory. Rows and columns past S are zero-filled and masked,
-// so any S works.
+// Every kernel here has one shape (csrc/hopper.cuh): a producer warp issues
+// TMA loads of [rows, 64] bf16 tiles (rows past S read as zeros) into a
+// ring of shared-memory stages with full and empty mbarriers, and two
+// consumer warpgroups of 64 rows each run wgmma products with S, dP, P and
+// dS in registers. No kernel uses atomics and each adds its terms in one
+// fixed order, so every launch gives the same bits.
 //
-// fused (bwd_kernel): one block per (b*h, K/V tile) walks the Q tiles at or
-// after the causal bound (all of them when not causal), keeps dK/dV in
-// fragments (each warp owning 16 key rows) and adds each Q tile's dQ
-// partial dS.K into a zeroed [B*H, S, D] f32 buffer with atomicAdd; the
-// caller scales and casts it. The TPU kernel writes n_kv f32 partial copies
-// of dQ instead; with 64-wide tiles that would be S/64 copies. The order in
-// which the K tiles' partials reach dQ is not fixed: dQ may differ between
-// runs in its last f32 bits before the bf16 cast.
+// Bound: per (b, h) and live causal pair the fused backward runs 5 products
+// of 2*D FLOPs (S, dP, dV, dK, dQ), the dQ kernel 3 (S, dP, dQ) and the
+// dK/dV kernel 4 (S, dP, dV, dK), on about 7*S*D*2 bytes of inputs and
+// outputs: at training lengths and beyond the floor is FLOPs / 989 TF/s.
 //
-// dQ (dq_kernel): one block per (b*h, 64-row Q tile) walks the K tiles up to
-// the causal bound, recomputes S and P, forms dP and dS for its own rows
-// and accumulates dQ += dS.K in fragments (each warp its 16 query rows). It
-// writes dQ*scale in bf16 once: no atomics, so dQ adds its K tiles in one
-// fixed order and is the same every run. At S = 16384 the fused kernel
-// would add 256 K tiles' partials into every dQ row with atomics; this is
-// the reason for the two layouts on this card too.
-//
-// dK/dV (dkv_kernel) is built for Hopper: TMA loads, mbarriers and wgmma
-// with every intermediate in registers (see its own note below). No
-// atomics either, so it gives the same bits every run.
-//
-// Bound: per (b, h) the fused kernel runs 5 products of S*S*D/2
-// multiply-adds (causal), the dQ kernel 3 (S, dP, dQ) and the dK/dV kernel 4
-// (S, dP, dV, dK), on about 7*S*D*2 bytes of inputs and outputs: at
-// training lengths and beyond the floor is FLOPs / 989 TF/s. Kernels 6 and
-// 7 are simple rather than fast: synchronous tile loads, WMMA rather than
-// wgmma, shared-memory round trips for S, dP, P and dS, causal work spread
-// unevenly over the blocks (a K tile near the start meets every Q tile,
-// one near the end almost none).
+// The fused kernel's dQ partials are the price of a dQ with the same bits
+// every launch: one f32 [64, 64] partial per live (KV tile, Q tile) pair,
+// written once and read once by the second pass. At B8 H8 S1024 causal (16
+// Q tiles x 8 KV tiles, 72 of 128 pairs live) that is 75.5 MB each way,
+// about 0.045 ms at 3.35 TB/s against the kernel's 0.0217 ms operation
+// bound; at B1 H8 S8192, the longest S of the fused layout (4,160 of 8,192
+// pairs), about 0.55 GB each way, 0.33 ms against 0.174 ms. The buffer is
+// [ceil(S/128), B*H, S, D] f32 (1.07 GB at B1 H8 S8192) and is never
+// zeroed: fully masked pairs are neither written nor read.
 
 #include <cstdint>
-
-#include <mma.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace dftt::hopper;
 
-constexpr int kThreads = 128;
-constexpr int kB = 64;  // positions per tile
-
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using FragARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-
-// Shared memory of every kernel: K, V, Q, dO tiles; P and dS in bf16; S and
-// dP in f32; lse and delta rows. (The dQ kernel leaves P unused.)
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * (4 * kB * D + 2 * kB * kB) +
-         sizeof(float) * (2 * kB * kB + 2 * kB);
-}
-
-template <int D>
-struct Tiles {
-  __nv_bfloat16 *Ks, *Vs, *Qs, *dOs, *Ps, *dSs;
-  float *Ss, *dPs, *lse_s, *delta_s;
-
-  __device__ explicit Tiles(unsigned char* smem) {
-    Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [kB][D]
-    Vs = Ks + kB * D;                              // [kB][D]
-    Qs = Vs + kB * D;                              // [kB][D]
-    dOs = Qs + kB * D;                             // [kB][D]
-    Ps = dOs + kB * D;                             // [q][k] bf16
-    dSs = Ps + kB * kB;                            // [q][k] bf16
-    Ss = reinterpret_cast<float*>(dSs + kB * kB);  // [q][k] f32
-    dPs = Ss + kB * kB;                            // [q][k] f32
-    lse_s = dPs + kB * kB;
-    delta_s = lse_s + kB;
-  }
-};
-
-template <int D>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          __nv_bfloat16* dst, int row0, int S) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kB * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + static_cast<int64_t>(row0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * D + col) = val;
-  }
-}
-
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, float* dst, int row0, int S) {
-  for (int i = threadIdx.x; i < kB; i += kThreads) dst[i] = row0 + i < S ? src[row0 + i] : 0.f;
-}
-
-// S = Q K^T and dP = dO V^T for this warp's 16 query rows, into Ss and dPs.
-template <int D>
-__device__ __forceinline__ void warp_scores(const Tiles<D>& t, int warp) {
-  FragAcc s_acc[kB / 16], p_acc[kB / 16];
-#pragma unroll
-  for (int j = 0; j < kB / 16; ++j) {
-    wmma::fill_fragment(s_acc[j], 0.f);
-    wmma::fill_fragment(p_acc[j], 0.f);
-  }
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragARow aq, ado;
-    wmma::load_matrix_sync(aq, t.Qs + warp * 16 * D + kk, D);
-    wmma::load_matrix_sync(ado, t.dOs + warp * 16 * D + kk, D);
-#pragma unroll
-    for (int j = 0; j < kB / 16; ++j) {
-      FragBCol bk, bv;
-      wmma::load_matrix_sync(bk, t.Ks + j * 16 * D + kk, D);
-      wmma::load_matrix_sync(bv, t.Vs + j * 16 * D + kk, D);
-      wmma::mma_sync(s_acc[j], aq, bk, s_acc[j]);
-      wmma::mma_sync(p_acc[j], ado, bv, p_acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kB / 16; ++j) {
-    wmma::store_matrix_sync(t.Ss + warp * 16 * kB + j * 16, s_acc[j], kB, wmma::mem_row_major);
-    wmma::store_matrix_sync(t.dPs + warp * 16 * kB + j * 16, p_acc[j], kB, wmma::mem_row_major);
-  }
-}
-
-// P = exp(S*scale - lse), 0 where masked, and dS = P (dP - delta), both in
-// bf16, for this warp's 16 query rows (P only when kWithP).
-template <int D, bool kWithP>
-__device__ __forceinline__ void warp_probs(const Tiles<D>& t, int warp, int lane, int q0, int k0,
-                                           int S, float scale, int causal) {
-  for (int i = lane; i < 16 * kB; i += 32) {
-    const int r = warp * 16 + i / kB;
-    const int c = i % kB;
-    const int qpos = q0 + r;
-    const int kpos = k0 + c;
-    const bool ok = qpos < S && kpos < S && (!causal || qpos >= kpos);
-    const float p = ok ? expf(t.Ss[r * kB + c] * scale - t.lse_s[r]) : 0.f;
-    if (kWithP) t.Ps[r * kB + c] = __float2bfloat16(p);
-    t.dSs[r * kB + c] = __float2bfloat16(p * (t.dPs[r * kB + c] - t.delta_s[r]));
-  }
-}
-
-// dV += P^T dO and dK += dS^T Q for this warp's 16 key rows (reads every
-// query row of P and dS).
-template <int D>
-__device__ __forceinline__ void warp_dkv(const Tiles<D>& t, int warp, FragAcc* dk_acc,
-                                         FragAcc* dv_acc) {
-#pragma unroll
-  for (int kk = 0; kk < kB; kk += 16) {
-    FragACol pt, dst;
-    wmma::load_matrix_sync(pt, t.Ps + warp * 16 + kk * kB, kB);
-    wmma::load_matrix_sync(dst, t.dSs + warp * 16 + kk * kB, kB);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragBRow bdo, bq;
-      wmma::load_matrix_sync(bdo, t.dOs + kk * D + j * 16, D);
-      wmma::load_matrix_sync(bq, t.Qs + kk * D + j * 16, D);
-      wmma::mma_sync(dv_acc[j], pt, bdo, dv_acc[j]);
-      wmma::mma_sync(dk_acc[j], dst, bq, dk_acc[j]);
-    }
-  }
-}
-
-// acc += dS K for this warp's 16 query rows.
-template <int D>
-__device__ __forceinline__ void warp_ds_k(const Tiles<D>& t, int warp, FragAcc* acc) {
-#pragma unroll
-  for (int kk = 0; kk < kB; kk += 16) {
-    FragARow ads;
-    wmma::load_matrix_sync(ads, t.dSs + warp * 16 * kB + kk, kB);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragBRow bk;
-      wmma::load_matrix_sync(bk, t.Ks + kk * D + j * 16, D);
-      wmma::mma_sync(acc[j], ads, bk, acc[j]);
-    }
-  }
-}
-
-// A warp's 16 x D accumulator staged row-major at `stage` (16 * kB floats of
-// its own), then written as bf16(acc * mul) to rows [row0, row0 + 16) of
-// `dst` ([S, D]), skipping rows past S.
-template <int D>
-__device__ __forceinline__ void store_rows(float* stage, const FragAcc* acc, __nv_bfloat16* dst,
-                                           int row0, int S, float mul, int lane) {
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(stage + j * 16, acc[j], D, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32)
-    if (row0 + i / D < S) dst[static_cast<int64_t>(row0) * D + i] = __float2bfloat16(stage[i] * mul);
-}
-
-// The K/V tile's side of the fused backward: dK and dV over the Q tiles it
-// meets, plus each Q tile's dQ partial added to dq_acc with atomics.
-template <int D>
-__device__ __forceinline__ void dkv_body(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    float* __restrict__ dq_acc, int S, float scale, int causal) {
-  static_assert(D % 16 == 0 && D <= kB, "staging reuses the 64x64 f32 tiles");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles<D> t(smem);
-  const int k0 = blockIdx.x * kB;
-  const int64_t bh = blockIdx.y;
-  const int64_t off = bh * S * D;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  load_tile<D>(k + off, t.Ks, k0, S);
-  load_tile<D>(v + off, t.Vs, k0, S);
-
-  FragAcc dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
-  }
-
-  const int n_q = (S + kB - 1) / kB;
-  // causal: Q tiles wholly before this K tile see none of it
-  for (int qb = causal ? blockIdx.x : 0; qb < n_q; ++qb) {
-    const int q0 = qb * kB;
-    __syncthreads();  // the previous step's readers are done with the tiles
-    load_tile<D>(q + off, t.Qs, q0, S);
-    load_tile<D>(dout + off, t.dOs, q0, S);
-    load_rows(lse + bh * S, t.lse_s, q0, S);
-    load_rows(delta + bh * S, t.delta_s, q0, S);
-    __syncthreads();
-    warp_scores<D>(t, warp);
-    __syncwarp();
-    warp_probs<D, true>(t, warp, lane, q0, k0, S, scale, causal);
-    __syncthreads();  // dV and dK read every query row of P and dS
-    warp_dkv<D>(t, warp, dk_acc, dv_acc);
-    {  // dQ partial = dS K for this warp's 16 query rows
-      FragAcc acc[D / 16];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-      warp_ds_k<D>(t, warp, acc);
-      // stage in this warp's own rows of Ss: no other warp reads them
-      float* stage = t.Ss + warp * 16 * kB;
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        wmma::store_matrix_sync(stage + j * 16, acc[j], D, wmma::mem_row_major);
-      __syncwarp();
-      const int row0 = q0 + warp * 16;
-      float* dst = dq_acc + off + static_cast<int64_t>(row0) * D;
-      for (int i = lane; i < 16 * D; i += 32)
-        if (row0 + i / D < S) atomicAdd(dst + i, stage[i]);
-    }
-  }
-  __syncthreads();
-
-  // dK = scale * acc and dV = acc in bf16, this warp's 16 key rows
-  const int row0 = k0 + warp * 16;
-  store_rows<D>(t.Ss + warp * 16 * kB, dk_acc, dk + off, row0, S, scale, lane);
-  store_rows<D>(t.dPs + warp * 16 * kB, dv_acc, dv + off, row0, S, 1.f, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    float* __restrict__ dq_acc, int S, float scale, int causal) {
-  dkv_body<D>(q, k, v, dout, lse, delta, dk, dv, dq_acc, S, scale, causal);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int S, float scale, int causal) {
-  static_assert(D % 16 == 0 && D <= kB, "staging reuses the 64x64 f32 tiles");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles<D> t(smem);
-  const int q0 = blockIdx.x * kB;
-  const int64_t bh = blockIdx.y;
-  const int64_t off = bh * S * D;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  load_tile<D>(q + off, t.Qs, q0, S);
-  load_tile<D>(dout + off, t.dOs, q0, S);
-  load_rows(lse + bh * S, t.lse_s, q0, S);
-  load_rows(delta + bh * S, t.delta_s, q0, S);
-
-  FragAcc acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  // causal: K tiles wholly after this Q tile's last row see none of it
-  const int last = causal ? blockIdx.x : (S + kB - 1) / kB - 1;
-  for (int kb = 0; kb <= last; ++kb) {
-    const int k0 = kb * kB;
-    __syncthreads();  // the previous step's readers are done with K and V
-    load_tile<D>(k + off, t.Ks, k0, S);
-    load_tile<D>(v + off, t.Vs, k0, S);
-    __syncthreads();
-    // every step below touches only this warp's 16 query rows of S, dP, dS
-    warp_scores<D>(t, warp);
-    __syncwarp();
-    warp_probs<D, false>(t, warp, lane, q0, k0, S, scale, causal);
-    __syncwarp();
-    warp_ds_k<D>(t, warp, acc);
-  }
-  __syncwarp();
-  store_rows<D>(t.Ss + warp * 16 * kB, acc, dq + off, q0 + warp * 16, S, scale, lane);
-}
+constexpr int kD = 64;
+constexpr int kConsumers = 2;                    // warpgroups, 64 rows each
+constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
+constexpr int kConsumerBarrier = 1;              // named barrier of the consumer warpgroups
 
 template <typename Kernel>
 int prepare(Kernel kernel, size_t bytes) {
@@ -342,50 +66,182 @@ int prepare(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// dQ of the two-kernel layout (kernel 7).
+//
+// One block per (b*h, 128-row Q tile): two consumer warpgroups own 64 query
+// rows each and keep their dQ accumulator in f32 registers for the whole
+// walk; the producer warp loads the Q and dO tiles once by TMA and then
+// streams 64-key K and V tiles, from key 0 up to the causal bound, through
+// a ring of kStages stages. Each consumer thread reads its two rows' lse
+// and delta once into registers (guarded by S). For each K tile a
+// warpgroup runs three wgmma products:
+//   S = Q.K^T and dP = dO.V^T (both operands in shared memory, K-major),
+//   P = exp(S * scale - lse) and dS = P (dP - delta) in registers, dS
+//   rounded to bf16 into the register A operand,
+//   dQ += dS.K with K read MN-major (as the forward reads V).
+// A warpgroup whose 64 rows all precede a K tile skips it. Masking runs only
+// on tiles that cross the warpgroup's diagonal or reach past S (keys past S,
+// zero-filled by TMA, are masked too). dQ * scale is written as bf16 from
+// registers. blockIdx.x is the head and blockIdx.y counts the Q tiles from
+// the last, so the longest causal rows start first.
+namespace dq_split {
 
-// q, k, v, dout, dk, dv: [BH, S, D] bf16 contiguous; lse, delta: [BH, S]
-// f32; dq_acc: [BH, S, D] f32, zeroed by the caller, receives the unscaled
-// dQ (sum over K tiles of dS.K). Launches on `stream`; returns
-// cudaGetLastError() (0 = launched). Built for D = 64 only, the head dim of
-// the trained and served configuration.
-extern "C" int dftt_flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, void* dq_acc,
-    int BH, int S, int D, int causal, float scale, void* stream) {
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t bytes = smem_bytes<64>();
-  const int err = prepare(bwd_kernel<64>, bytes);
-  if (err) return err;
-  bwd_kernel<64><<<dim3((S + kB - 1) / kB, BH), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      static_cast<float*>(dq_acc), S, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+constexpr int kBQ = 64 * kConsumers;  // query rows per block
+constexpr int kBK = 64;               // keys per streamed K/V tile
+constexpr int kStages = 4;
+constexpr uint32_t kQBytes = kBQ * kRowBytes;
+constexpr uint32_t kKVBytes = kBK * kRowBytes;
+using Pipe = Ring<kStages>;
+
+constexpr size_t kSmemBytes =
+    kSwizzleBytes + 2 * kQBytes + 2 * kStages * kKVBytes + sizeof(uint64_t) * (1 + 2 * kStages);
+
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int S, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = aligned_smem(smem_raw);
+  unsigned char* do_s = q_s + kQBytes;
+  unsigned char* k_s = do_s + kQBytes;
+  unsigned char* v_s = k_s + kStages * kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * kKVBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  int n_kb = (S + kBK - 1) / kBK;
+  // causal: K tiles wholly past this Q tile's last row are fully masked
+  if (causal) n_kb = min(n_kb, (q0 + kBQ) / kBK);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {  // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * kQBytes);
+      tma_load_rows(q_s, &tm_q, q0, bh, q_full);
+      tma_load_rows(do_s, &tm_do, q0, bh, q_full);
+      for (int t = 0; t < n_kb; ++t) {
+        const int s = Pipe::stage(t);
+        mbar_wait(&empty[s], Pipe::empty_parity(t));
+        mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
+        tma_load_rows(k_s + s * kKVBytes, &tm_k, t * kBK, bh, &full[s]);
+        tma_load_rows(v_s + s * kKVBytes, &tm_v, t * kBK, bh, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows first_row .. first_row + 63 of the Q tile;
+  // this thread holds rows row0 and row0 + 8 and, of each K tile, the keys
+  // 8n + col + {0, 1}
+  const int wg = warp / 4;
+  const int first_row = q0 + 64 * wg;
+  const int row0 = first_row + 16 * (warp % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+  float l[2], d[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const int64_t at = static_cast<int64_t>(bh) * S + row;
+    l[i] = row < S ? lse[at] : 0.f;
+    d[i] = row < S ? delta[at] : 0.f;
+  }
+  float acc_dq[kD / 2], acc_s[kBK / 2], acc_dp[kBK / 2];
+#pragma unroll
+  for (int r = 0; r < kD / 2; ++r) acc_dq[r] = 0.f;
+#pragma unroll
+  for (int r = 0; r < kBK / 2; ++r) acc_s[r] = acc_dp[r] = 0.f;
+
+  mbar_wait(q_full, 0);
+  const uint64_t desc_q = desc_kmajor(q_s + 64 * wg * kRowBytes);
+  const uint64_t desc_do = desc_kmajor(do_s + 64 * wg * kRowBytes);
+
+  for (int t = 0; t < n_kb; ++t) {
+    const int s = Pipe::stage(t);
+    const int k0 = t * kBK;
+    mbar_wait(&full[s], Pipe::full_parity(t));
+    // causal: every key of this tile follows every row of this warpgroup
+    if (causal && k0 > first_row + 63) {
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
+    const unsigned char* k_t = k_s + s * kKVBytes;
+    const uint64_t desc_k = desc_kmajor(k_t), desc_v = desc_kmajor(v_s + s * kKVBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j)
+      wgmma_m64n64k16_ss<0>(acc_s, desc_q + kmajor_step(j), desc_k + kmajor_step(j), j > 0);
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j)
+      wgmma_m64n64k16_ss<0>(acc_dp, desc_do + kmajor_step(j), desc_v + kmajor_step(j), j > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_s);
+    fence_regs(acc_dp);
+
+    // dS (f32) into acc_dp
+    const bool masked = k0 + kBK > S || (causal && k0 + kBK - 1 > first_row);
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = 4 * n + 2 * i + j;
+          float p = expf(acc_s[r] * scale - l[i]);
+          if (masked) {
+            const int kpos = k0 + 8 * n + col + j;
+            if (kpos >= S || (causal && kpos > row0 + 8 * i)) p = 0.f;
+          }
+          acc_dp[r] = p * (acc_dp[r] - d[i]);
+        }
+    uint32_t ds_a[kBK / 16][4];
+    acc_to_a(acc_dp, ds_a);
+
+    const uint64_t desc_k_mn = desc_mnmajor(k_t);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kBK / 16; ++c)
+      wgmma_m64n64k16_rs<1>(acc_dq, ds_a[c], desc_k_mn + mnmajor_step(c), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dq);
+    fence_regs(ds_a);
+    if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);  // this warpgroup is done with the stage
+  }
+
+  // dQ = scale * acc in bf16, straight from registers
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= S) continue;
+    __nv_bfloat16* dst = dq + (static_cast<int64_t>(bh) * S + row) * kD + col;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
+          acc_dq[4 * n + 2 * i] * scale, acc_dq[4 * n + 2 * i + 1] * scale);
+  }
 }
 
-// The two-kernel layout, first half: dq [BH, S, D] bf16 = scale * sum over
-// K tiles of dS.K, written once per Q tile. Inputs as above.
-extern "C" int dftt_flash_attention_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq,
-    int BH, int S, int D, int causal, float scale, void* stream) {
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t bytes = smem_bytes<64>();
-  const int err = prepare(dq_kernel<64>, bytes);
-  if (err) return err;
-  dq_kernel<64><<<dim3((S + kB - 1) / kB, BH), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), S, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
+}  // namespace dq_split
 
 // ---------------------------------------------------------------------------
-// dK/dV for Hopper (kernel 8).
+// dK/dV (kernel 8) and the fused backward (kernel 6): dkv_kernel<false>
+// and dkv_kernel<true>.
 //
 // One block per (b*h, 128-key K/V tile): two consumer warpgroups own 64 key
 // rows each and keep their dK and dV accumulators in f32 registers for the
@@ -397,44 +253,88 @@ extern "C" int dftt_flash_attention_dq_bf16(
 // barrier, so the consumers see them with the TMA bytes. For each Q tile a
 // warpgroup runs four wgmma products:
 //   S^T = K.Q^T and dP^T = V.dO^T (both operands in shared memory, K-major),
-//   P^T = exp(S^T * scale - lse) in registers (lse indexes the column; expf
-//   of the same f32 argument as the plain version),
+//   P^T = exp(S^T * scale - lse) in registers (lse indexes the column),
 //   dV += P^T.dO with P^T as bf16 in registers (dO read MN-major),
 //   dS^T = P^T (dP^T - delta) as bf16 in registers, dK += dS^T.Q.
-// S, dP, P and dS never touch shared memory. The numeric contract is the
-// two-kernel one above: P and dS rounded to bf16 before their products,
-// every sum f32, dK scaled once at the end. No atomics and one fixed walk
-// order: the same bits every launch. blockIdx.x is the head and blockIdx.y
-// the K tile in ascending order, so the heaviest causal tiles start first.
-namespace {
+// S, dP, P and dS never touch shared memory, and one P per tile pair feeds
+// every gradient (JAX's fused contract: 5 products a pair, not the
+// two-kernel layout's 7). blockIdx.x is the head and blockIdx.y the K tile
+// in ascending order, so the heaviest causal tiles start first.
+//
+// The fused kernel adds each Q tile's dQ partial dS.K over the block's 128
+// keys. dS lies in registers transposed (keys x queries), so each
+// warpgroup also stores its bf16 dS^T, transposed, into a swizzled [64
+// queries, 64 keys] tile (the K-major A operand), while its dV/dK products
+// run. The two warpgroups meet at a named barrier; then warpgroup t % 2
+// runs dQp = dS.K as SS wgmma over both tiles (K read MN-major), and writes
+// the f32 partial once into dqp[kv_tile, b*h, q rows, :] (JAX's
+// [n_kv, BH, S, D] layout at the port's 128-key tile). The dS tiles are
+// double-buffered by step parity: a buffer is written again only after the
+// next step's barrier, which the warpgroup that read it reaches after its
+// product is done. dq_sum_kernel then sums the partials.
 namespace dkv {
 
-using namespace dftt::hopper;
-
-constexpr int kD = 64;
-constexpr int kConsumers = 2;            // warpgroups, 64 key rows each
 constexpr int kBKV = 64 * kConsumers;    // key rows per block
 constexpr int kBQ = 64;                  // query rows per streamed tile
 constexpr int kStages = 3;
-constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
 constexpr uint32_t kKVBytes = kBKV * kRowBytes;
 constexpr uint32_t kQBytes = kBQ * kRowBytes;
+constexpr uint32_t kDsBytes = kBQ * kRowBytes;  // a warpgroup's dS tile, [64 queries, 64 keys] bf16
 using Pipe = Ring<kStages>;
 
-constexpr size_t kSmemBytes = kSwizzleBytes + 2 * kKVBytes + 2 * kStages * kQBytes +
-                              2 * kStages * kBQ * sizeof(float) +
-                              sizeof(uint64_t) * (1 + 2 * kStages);
+template <bool kDqPartials>
+__host__ __device__ constexpr uint32_t ds_bytes() {
+  return kDqPartials ? 2 * kConsumers * kDsBytes : 0;  // two step parities x two warpgroups
+}
 
+template <bool kDqPartials>
+constexpr size_t smem_bytes() {
+  return kSwizzleBytes + 2 * kKVBytes + ds_bytes<kDqPartials>() + 2 * kStages * kQBytes +
+         2 * kStages * kBQ * sizeof(float) + sizeof(uint64_t) * (1 + 2 * kStages);
+}
+
+// The KV tiles whose dQ partial the fused kernel writes for the 64-row Q
+// tile `q_tile`: tiles 0 .. live_kv_tiles - 1, all of them unless causal,
+// else those that start at or before the Q tile's last row. The second
+// pass reads exactly these. The last Q tile meets every KV tile, so the
+// wrapper sizes dqp at ceil(S / kBKV) tiles.
+__host__ __device__ __forceinline__ int live_kv_tiles(int q_tile, int S, int causal) {
+  const int n_kv = (S + kBKV - 1) / kBKV;
+  const int stop = (q_tile * kBQ + kBQ - 1) / kBKV + 1;
+  return causal && stop < n_kv ? stop : n_kv;
+}
+
+// This warpgroup's dS^T (f32, the accumulator layout of 64 keys x 64
+// queries) as bf16 dS into `tile`, [64 queries, 64 keys] with the 128-byte
+// swizzle: 16-byte chunk c of row r lies at chunk c ^ (r % 8). `key` is this
+// thread's first key within the warpgroup (the second is key + 8), `col`
+// its first query column of each group of 8.
+__device__ __forceinline__ void store_ds(const float (&ds_t)[kBQ / 2], unsigned char* tile, int key,
+                                         int col) {
+#pragma unroll
+  for (int n = 0; n < kBQ / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qr = 8 * n + col + j, kk = key + 8 * i;
+        const int off = qr * kRowBytes + ((((kk >> 3) ^ (qr & 7)) << 4) | ((kk & 7) << 1));
+        *reinterpret_cast<__nv_bfloat16*>(tile + off) = __float2bfloat16_rn(ds_t[4 * n + 2 * i + j]);
+      }
+}
+
+template <bool kDqPartials>
 __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, float scale,
-    int causal) {
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, float* __restrict__ dqp,
+    int S, float scale, int causal) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* k_s = aligned_smem(smem_raw);
   unsigned char* v_s = k_s + kKVBytes;
-  unsigned char* q_s = v_s + kKVBytes;
+  unsigned char* ds_s = v_s + kKVBytes;  // [step parity][warpgroup] dS tiles
+  unsigned char* q_s = ds_s + ds_bytes<kDqPartials>();
   unsigned char* do_s = q_s + kStages * kQBytes;
   float* lse_s = reinterpret_cast<float*>(do_s + kStages * kQBytes);
   float* delta_s = lse_s + kStages * kBQ;
@@ -444,7 +344,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBKV;
-  // causal: Q tiles wholly before this K tile see none of it
+  // causal: Q tiles wholly before this K tile see none of it (the first Q
+  // tile for which this K tile is live, by live_kv_tiles)
   const int qt0 = causal ? k0 / kBQ : 0;
   const int n_steps = (S + kBQ - 1) / kBQ - qt0;
   const int warp = threadIdx.x / 32;
@@ -517,68 +418,115 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
   for (int t = 0; t < n_steps; ++t) {
     const int s = Pipe::stage(t);
     const int q0 = (qt0 + t) * kBQ;
+    unsigned char* ds_t = ds_s + (t % 2) * kConsumers * kDsBytes;
     mbar_wait(&full[s], Pipe::full_parity(t));
-    // causal: every query of this tile precedes every key of this warpgroup
-    if (causal && q0 + kBQ - 1 < first_key) {
-      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
-      continue;
-    }
-    const unsigned char* q_t = q_s + s * kQBytes;
-    const unsigned char* do_t = do_s + s * kQBytes;
-    const uint64_t desc_q = desc_kmajor(q_t), desc_do = desc_kmajor(do_t);
-    wgmma_fence();
+    // causal: every query of this tile precedes every key of this
+    // warpgroup (never warpgroup 0, whose first key is at or before q0)
+    if (!(causal && q0 + kBQ - 1 < first_key)) {
+      const unsigned char* q_t = q_s + s * kQBytes;
+      const unsigned char* do_t = do_s + s * kQBytes;
+      const uint64_t desc_q = desc_kmajor(q_t), desc_do = desc_kmajor(do_t);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kD / 16; ++j)
-      wgmma_m64n64k16_ss<0>(acc_s, desc_k + kmajor_step(j), desc_q + kmajor_step(j), j > 0);
+      for (int j = 0; j < kD / 16; ++j)
+        wgmma_m64n64k16_ss<0>(acc_s, desc_k + kmajor_step(j), desc_q + kmajor_step(j), j > 0);
 #pragma unroll
-    for (int j = 0; j < kD / 16; ++j)
-      wgmma_m64n64k16_ss<0>(acc_dp, desc_v + kmajor_step(j), desc_do + kmajor_step(j), j > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc_s);
-    fence_regs(acc_dp);
+      for (int j = 0; j < kD / 16; ++j)
+        wgmma_m64n64k16_ss<0>(acc_dp, desc_v + kmajor_step(j), desc_do + kmajor_step(j), j > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_s);
+      fence_regs(acc_dp);
 
-    // P^T (f32) into acc_s and dS^T (f32) into acc_dp
-    const bool masked = q0 + kBQ > S || (causal && q0 < first_key + 63);
-    const float* lse_t = lse_s + s * kBQ;
-    const float* delta_t = delta_s + s * kBQ;
+      // P^T (f32) into acc_s and dS^T (f32) into acc_dp. Keys past S
+      // (zero-filled) are masked in the fused kernel only, whose dS.K
+      // reads them: dK/dV rows past S are never written, and the test
+      // slowed the dK/dV kernel at S 16384.
+      const bool masked = q0 + kBQ > S || (kDqPartials && first_key + 64 > S) ||
+                          (causal && q0 < first_key + 63);
+      const float* lse_t = lse_s + s * kBQ;
+      const float* delta_t = delta_s + s * kBQ;
 #pragma unroll
-    for (int n = 0; n < kBQ / 8; ++n) {
-      const float2 lq = *reinterpret_cast<const float2*>(lse_t + 8 * n + col);
-      const float2 dq = *reinterpret_cast<const float2*>(delta_t + 8 * n + col);
+      for (int n = 0; n < kBQ / 8; ++n) {
+        const float2 lq = *reinterpret_cast<const float2*>(lse_t + 8 * n + col);
+        const float2 dq = *reinterpret_cast<const float2*>(delta_t + 8 * n + col);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int r = 4 * n + 2 * i + j;
-          float p = expf(acc_s[r] * scale - (j ? lq.y : lq.x));
-          if (masked) {
-            const int qpos = q0 + 8 * n + col + j;
-            if (qpos >= S || (causal && qpos < key0 + 8 * i)) p = 0.f;
+          for (int j = 0; j < 2; ++j) {
+            const int r = 4 * n + 2 * i + j;
+            float p = expf(acc_s[r] * scale - (j ? lq.y : lq.x));
+            if (masked) {
+              const int qpos = q0 + 8 * n + col + j;
+              const int key = key0 + 8 * i;
+              if (qpos >= S || (kDqPartials && key >= S) || (causal && qpos < key)) p = 0.f;
+            }
+            acc_s[r] = p;
+            acc_dp[r] = p * (acc_dp[r] - (j ? dq.y : dq.x));
           }
-          acc_s[r] = p;
-          acc_dp[r] = p * (acc_dp[r] - (j ? dq.y : dq.x));
-        }
-    }
-    uint32_t p_a[kBQ / 16][4], ds_a[kBQ / 16][4];
-    acc_to_a(acc_s, p_a);
-    acc_to_a(acc_dp, ds_a);
+      }
+      uint32_t p_a[kBQ / 16][4], ds_a[kBQ / 16][4];
+      acc_to_a(acc_s, p_a);
+      acc_to_a(acc_dp, ds_a);
 
-    const uint64_t desc_do_mn = desc_mnmajor(do_t), desc_q_mn = desc_mnmajor(q_t);
-    wgmma_fence();
+      const uint64_t desc_do_mn = desc_mnmajor(do_t), desc_q_mn = desc_mnmajor(q_t);
+      wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kBQ / 16; ++c)
-      wgmma_m64n64k16_rs<1>(acc_dv, p_a[c], desc_do_mn + mnmajor_step(c), 1);
+      for (int c = 0; c < kBQ / 16; ++c)
+        wgmma_m64n64k16_rs<1>(acc_dv, p_a[c], desc_do_mn + mnmajor_step(c), 1);
 #pragma unroll
-    for (int c = 0; c < kBQ / 16; ++c)
-      wgmma_m64n64k16_rs<1>(acc_dk, ds_a[c], desc_q_mn + mnmajor_step(c), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc_dv);
-    fence_regs(acc_dk);
-    fence_regs(p_a);
-    fence_regs(ds_a);
+      for (int c = 0; c < kBQ / 16; ++c)
+        wgmma_m64n64k16_rs<1>(acc_dk, ds_a[c], desc_q_mn + mnmajor_step(c), 1);
+      wgmma_commit();
+      // while dV and dK run: this warpgroup's dS for the dQ partial
+      if constexpr (kDqPartials) store_ds(acc_dp, ds_t + wg * kDsBytes, key0 - first_key, col);
+      wgmma_wait<0>();
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
+      fence_regs(p_a);
+      fence_regs(ds_a);
+    }
     if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);  // this warpgroup is done with the stage
+
+    if constexpr (kDqPartials) {
+      fence_proxy_async();
+      named_barrier_sync(kConsumerBarrier, 128 * kConsumers);
+      if (wg == t % 2) {
+        // dQp = dS.K over the block's keys; warpgroup 1's tile holds no dS
+        // when it skipped this Q tile
+        const bool both = !(causal && q0 + kBQ - 1 < k0 + 64);
+        const uint64_t desc_k0 = desc_mnmajor(k_s), desc_k1 = desc_mnmajor(k_s + 64 * kRowBytes);
+        const uint64_t desc_ds0 = desc_kmajor(ds_t), desc_ds1 = desc_kmajor(ds_t + kDsBytes);
+        float acc_dq[kD / 2];  // live only here, so as not to hold 32 more registers in the walk
+#pragma unroll
+        for (int r = 0; r < kD / 2; ++r) acc_dq[r] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          wgmma_m64n64k16_ss<1>(acc_dq, desc_ds0 + kmajor_step(c), desc_k0 + mnmajor_step(c), c > 0);
+        if (both) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            wgmma_m64n64k16_ss<1>(acc_dq, desc_ds1 + kmajor_step(c), desc_k1 + mnmajor_step(c), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_dq);
+        // rows q0 + 16 (warp % 4) + lane / 4 + {0, 8}, written once
+        const int row0 = q0 + 16 * (warp % 4) + lane / 4;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + 8 * i;
+          if (row >= S) continue;
+          float* dst =
+              dqp + ((static_cast<int64_t>(blockIdx.y) * gridDim.x + bh) * S + row) * kD + col;
+#pragma unroll
+          for (int n = 0; n < kD / 8; ++n)
+            *reinterpret_cast<float2*>(dst + 8 * n) =
+                make_float2(acc_dq[4 * n + 2 * i], acc_dq[4 * n + 2 * i + 1]);
+        }
+      }
+    }
   }
 
   // dK = scale * acc and dV = acc in bf16, straight from registers
@@ -597,30 +545,116 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
   }
 }
 
+// The fused backward's second pass: dq = bf16(scale * sum of dqp[j]) over
+// the live KV tiles j of each row's Q tile, in ascending j. One thread per
+// four columns of a row (n = B*H * S * 16 of them): each partial is read
+// as one 16-byte load, a KV tile's slab (n float4) apart.
+__global__ void __launch_bounds__(256) dq_sum_kernel(const float* __restrict__ dqp,
+                                                     __nv_bfloat16* __restrict__ dq, int64_t n,
+                                                     int S, float scale, int causal) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int row = static_cast<int>((i / (kD / 4)) % S);
+  const int stop = live_kv_tiles(row / kBQ, S, causal);
+  const float4* src = reinterpret_cast<const float4*>(dqp) + i;
+  float4 acc = src[0];
+  for (int j = 1; j < stop; ++j) {
+    const float4 x = src[j * n];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(dq) + 2 * i;
+  dst[0] = __floats2bfloat162_rn(acc.x * scale, acc.y * scale);
+  dst[1] = __floats2bfloat162_rn(acc.z * scale, acc.w * scale);
+}
+
 }  // namespace dkv
+
+// TMA maps of q and dout with `q_rows`-row boxes, of k and v with `kv_rows`.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+int make_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout, int BH,
+              int S, int q_rows, int kv_rows) {
+  int err = make_row_map(&m->q, q, BH, S, q_rows);
+  if (!err) err = make_row_map(&m->dout, dout, BH, S, q_rows);
+  if (!err) err = make_row_map(&m->k, k, BH, S, kv_rows);
+  if (!err) err = make_row_map(&m->v, v, BH, S, kv_rows);
+  return err;
+}
+
+template <bool kDqPartials>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, void* dqp, int BH, int S, int causal,
+               float scale, cudaStream_t st) {
+  Maps m;
+  int err = make_maps(&m, q, k, v, dout, BH, S, dkv::kBQ, dkv::kBKV);
+  if (err) return err;
+  constexpr size_t bytes = dkv::smem_bytes<kDqPartials>();
+  err = prepare(dkv::dkv_kernel<kDqPartials>, bytes);
+  if (err) return err;
+  dkv::dkv_kernel<kDqPartials><<<dim3(BH, (S + dkv::kBKV - 1) / dkv::kBKV), kThreads, bytes, st>>>(
+      m.q, m.k, m.v, m.dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), static_cast<float*>(dqp),
+      S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// Every entry: q, k, v, dout and the bf16 outputs are contiguous [BH, S, D]
+// (16-byte aligned), lse and delta the plain f32 [BH, S] rows; D = 64 only,
+// the head dim of the trained and served configuration. Each launches on
+// `stream` and returns a CUDA error code (0 = launched; a tensor map that
+// cannot be encoded returns cudaErrorInvalidValue).
+
+// The fused backward: dk = scale * sum of dS^T.Q, dv = sum of P^T.dO, and
+// dq = scale * sum of dS.K through dqp, f32 scratch of
+// [ceil(S / 128), BH, S, D] that needs no zeroing (two kernels: the fused
+// one writes each live partial once, the second pass sums them).
+extern "C" int dftt_flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, void* dqp, void* dq,
+    int BH, int S, int D, int causal, float scale, void* stream) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, dqp, BH, S, causal, scale, st);
+  if (err) return err;
+  const int64_t n = static_cast<int64_t>(BH) * S * (kD / 4);
+  dkv::dq_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(dqp), static_cast<__nv_bfloat16*>(dq), n, S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two-kernel layout, first half: dq = scale * sum over K tiles of
+// dS.K, written once per Q tile.
+extern "C" int dftt_flash_attention_dq_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq,
+    int BH, int S, int D, int causal, float scale, void* stream) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  Maps m;
+  int err = make_maps(&m, q, k, v, dout, BH, S, dq_split::kBQ, dq_split::kBK);
+  if (err) return err;
+  err = prepare(dq_split::dq_kernel, dq_split::kSmemBytes);
+  if (err) return err;
+  dq_split::dq_kernel<<<dim3(BH, (S + dq_split::kBQ - 1) / dq_split::kBQ), kThreads, dq_split::kSmemBytes,
+                  static_cast<cudaStream_t>(stream)>>>(
+      m.q, m.k, m.v, m.dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The two-kernel layout, second half: dk = scale * sum over Q tiles of
-// dS^T.Q and dv = sum of P^T.dO, both [BH, S, D] bf16; q, k, v, dout as
-// above (16-byte aligned); lse and delta are the plain f32 [BH, S] rows.
-// Returns a CUDA error code (0 = launched; a tensor map that cannot
-// be encoded returns cudaErrorInvalidValue).
+// dS^T.Q and dv = sum of P^T.dO.
 extern "C" int dftt_flash_attention_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     int BH, int S, int D, int causal, float scale, void* stream) {
-  if (D != dkv::kD) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  int err = dftt::hopper::make_row_map(&tm_q, q, BH, S, dkv::kBQ);
-  if (!err) err = dftt::hopper::make_row_map(&tm_do, dout, BH, S, dkv::kBQ);
-  if (!err) err = dftt::hopper::make_row_map(&tm_k, k, BH, S, dkv::kBKV);
-  if (!err) err = dftt::hopper::make_row_map(&tm_v, v, BH, S, dkv::kBKV);
-  if (err) return err;
-  err = prepare(dkv::dkv_kernel, dkv::kSmemBytes);
-  if (err) return err;
-  dkv::dkv_kernel<<<dim3(BH, (S + dkv::kBKV - 1) / dkv::kBKV), dkv::kThreads, dkv::kSmemBytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, BH, S, causal, scale,
+                           static_cast<cudaStream_t>(stream));
 }

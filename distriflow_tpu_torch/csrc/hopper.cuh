@@ -121,6 +121,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Barrier `id` (1-15; 0 is __syncthreads) across `count` threads, a
+// multiple of 32: lets the consumer warpgroups meet without the producer.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Orders this thread's plain shared-memory stores before later reads by
+// the async proxy (wgmma operands, TMA): called by each storing thread
+// before the barrier that hands the tile to a wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // A ring of `kStages` shared-memory stages: a consumer waits for stage
 // t % kStages to be full, the producer for it to be empty again.
 template <int kStages>

@@ -10,13 +10,14 @@ sources:
   128-lane replicated layout); a Hopper design (TMA loads, wgmma, the
   softmax in registers);
 - ``csrc/flash_attention_bwd.cu`` replaces the fused backward
-  ``_dkvq_kernel``: dK, dV and dQ from one P per tile pair. dQ is summed
-  over K tiles with f32 atomics, so its summation order is not fixed from
-  run to run. The same source replaces the two-kernel backward:
-  ``_dq_kernel`` (dQ, one block per Q tile walking its K tiles) and
-  ``_dkv_kernel`` (dK and dV, one block per K/V tile walking its Q
-  tiles; a Hopper design like the forward's). Neither uses atomics, so
-  both give the same bits every run.
+  ``_dkvq_kernel``: dK, dV and dQ from one P per tile pair. As in JAX,
+  each live (KV tile, Q tile) pair writes its f32 dQ partial once and a
+  second pass sums them (the live range is ``live_kv_tiles`` in the
+  source). The same source replaces the two-kernel backward: ``_dq_kernel`` (dQ, one
+  block per Q tile walking its K tiles) and ``_dkv_kernel`` (dK and dV,
+  one block per K/V tile walking its Q tiles). All are Hopper designs
+  like the forward's; none uses atomics, so each gives the same bits
+  every run.
 
 The backward layout is JAX's decision (:func:`bwd_layout`): the backward
 tiles JAX would pick (:func:`_bwd_autotune`, or ``bwd_block_q``/
@@ -55,7 +56,7 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "dftt_flash_attention_bwd_bf16": [ctypes.c_void_p] * 9 + [
+    "dftt_flash_attention_bwd_bf16": [ctypes.c_void_p] * 10 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p],
     "dftt_flash_attention_dq_bf16": [ctypes.c_void_p] * 7 + [
@@ -133,6 +134,11 @@ def bwd_layout(s: int, d: int, dtype: torch.dtype, bwd_block_k: Optional[int] = 
     if bwd_block_k is not None:
         bk = _aligned_block(s, min(bwd_block_k, _bwd_block_cap(dtype)))
     return "fused" if s // bk <= _FUSED_BWD_MAX_KV_BLOCKS else "split"
+
+
+# The fused backward kernel's KV tile (``kBKV`` in
+# csrc/flash_attention_bwd.cu): its dQ scratch holds one slab per KV tile
+_FUSED_BWD_BLOCK_KV = 128
 
 
 def flash_seq_supported(s: int, d: int, itemsize: int = 2) -> bool:
@@ -295,24 +301,26 @@ def flash_attention_backward(
     CPU tensors run :func:`flash_attention_backward_reference`. CUDA
     tensors launch the backward kernel or raise: q/k/v/dO contiguous bf16
     of one shape with ``D`` in :data:`SUPPORTED_HEAD_DIMS`, lse/delta
-    contiguous f32. The kernel adds dQ over K tiles with f32 atomics into a
-    zeroed buffer that is scaled and cast here."""
+    contiguous f32. The kernel writes each live pair's f32 dQ partial once
+    into a ``[n_kv, B*H, S, D]`` scratch (JAX's layout, never zeroed), and a
+    second kernel sums them in ascending KV tile, scales and casts: two
+    kernels, one launch counted."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, do, lse, delta, causal)
     _check_backward_inputs("flash_attention_backward", q, k, v, do, lse, delta)
     b, h, s, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    scale = 1.0 / math.sqrt(d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    n_kv = -(-s // _FUSED_BWD_BLOCK_KV)
+    dqp = torch.empty((n_kv, b * h, s, d), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
     rc = lib.dftt_flash_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
-        b * h, s, d, int(causal), scale,
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqp.data_ptr(), dq.data_ptr(),
+        b * h, s, d, int(causal), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_backward")
     flash_attention_backward.launches += 1
-    return (dq_acc * scale).to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 def _check_backward_inputs(what: str, q, k, v, do, lse, delta) -> None:

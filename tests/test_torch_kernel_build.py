@@ -3,13 +3,15 @@
 - ``ops/build.py`` names each library by a hash of its source and of the
   headers it includes, so an edit to ``csrc/hopper.cuh`` rebuilds the two
   attention sources and no other.
-- The flash forward and the dK/dV kernel are Hopper designs: their
-  sources, with the headers they include, issue TMA loads
-  (``cp.async.bulk.tensor``) and ``wgmma.mma_async`` products, and neither
-  kernel keeps a WMMA path (the forward's source has none; the dK/dV
-  kernel's body has none, while kernels 6 and 7 beside it are still WMMA).
+- The attention kernels are Hopper designs: their sources, with the
+  headers they include, issue TMA loads (``cp.async.bulk.tensor``) and
+  ``wgmma.mma_async`` products. Neither source keeps a WMMA path or an
+  atomic add: the dQ kernel and the fused backward's dQ partial issue
+  wgmma products, and the fused backward's partials are summed by a
+  second pass, not with atomics.
 """
 
+import re
 import shutil
 
 import pytest
@@ -45,9 +47,25 @@ def test_attention_sources_use_tma_and_wgmma(name):
     assert '#include "hopper.cuh"' in (build.CSRC / f"{name}.cu").read_text()
 
 
+def _namespace(text, name):
+    """The body of C++ namespace ``name`` in ``text``, up to its matching brace."""
+    start = re.search(rf"\bnamespace\s+{name}\s*{{", text).end()
+    depth = 1
+    for i in range(start, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i]
+    raise AssertionError(f"namespace {name} is not closed")
+
+
 def test_forward_and_dkv_kernels_keep_no_wmma_path():
     assert "wmma" not in (build.CSRC / "flash_attention.cu").read_text()
     bwd = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    body = bwd[bwd.index("namespace dkv {"):]
-    assert "wmma" not in body and "wgmma_m64n64k16_rs" in body
-    assert "dkv_body<D, false>" not in bwd and "kDq" not in bwd
+    assert "wmma" not in bwd and "mma.h" not in bwd and "atomicAdd" not in bwd
+    # the dQ kernel and the fused kernel (with kernel 8) issue SS and RS wgmma
+    for name in ("dq_split", "dkv"):
+        body = _namespace(bwd, name)
+        assert "wgmma_m64n64k16_ss" in body and "wgmma_m64n64k16_rs" in body
+    # the fused backward's partials are summed by a second kernel
+    assert re.search(r"__global__[^;{]*\bdq_sum_kernel\s*\(", _namespace(bwd, "dkv"))
+    assert re.search(r"dq_sum_kernel\s*<<<", bwd)
