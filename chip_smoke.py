@@ -43,9 +43,19 @@
    shapes, elementwise within ``atol + rtol * |plain|`` (limits in
    ``TOL``), and times kernel, plain version and a PyTorch library call
    computing the same function (a yardstick only: the port never calls
-   it), with CUDA events and the L2 cache flushed before every launch.
-   The paged int8 row also times the paged bf16 and int8 kernels on the
-   same 8 rows at contexts 1024, 4096 and 16000 (``by_context``).
+   it), with CUDA events and the L2 cache flushed before every launch:
+   each time is the median of its launches, each behind a device-side
+   spin that keeps the host's launch work out of the bracket, with the
+   fastest and slowest launch beside it (``<key>_min_max``). The paged
+   int8 row also times the paged bf16 and int8 kernels on the same 8 rows
+   at contexts 1024, 4096 and 16000 (``by_context``); the slab int8 row
+   the B1 shape of long solo ``generate()`` (``long_solo``). Each decode
+   row (2-5) also gives the same bits on a second launch, holds the
+   contexts where splits begin and end and a row of length 0 beside live
+   rows (``edges_max_abs_err``), rejects a combine without the exp(m_i -
+   M) rescale and one without the split holding the max
+   (``rejected_share``), and is held and timed at 1, 2 and 4 tiles a split
+   (``by_split_tiles``).
 7. Profiles one engine decode iteration (8 slots, chunk 8) with
    ``torch.profiler``: host wall time, device busy time, the device's idle
    share and the kernels that took the most device time.
@@ -162,9 +172,14 @@ N_TOKENS = 64
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 8, 1024
 # Kernel vs plain version, elementwise: |kernel - plain| <= atol + rtol * |plain|.
 # rtol 2**-7 is one bf16 rounding step of the output (8 significant bits).
-# The decode kernels add in the plain version's tile order, so only a
-# rounding flip of the bf16 output separates them (measured 0.0 on the
-# H100). The prefill plain version rounds p against the row's final max,
+# The split-KV decode kernels and their plain versions cut a row into the
+# same splits, round p to bf16 against the same split max, and combine the
+# live splits in the same ascending order with each product and sum rounded
+# on its own; what differs is the order of the f32 sums inside a split (per
+# lane group in the kernel, one einsum in the plain version) and expf
+# against torch.exp, a few f32 ulps of acc and l, so only a rounding flip
+# of the bf16 output separates them (measured 0.0 to 9.8e-4, one bf16
+# step at |o| ~ 0.2, on the H100). The prefill plain version rounds p against the row's final max,
 # the kernel against its running tile max, which adds up to ~2**-9 of |o|
 # before the output rounding: atol 2e-3 covers it. lse is f32 and sums the
 # same f32 p in both.
@@ -181,10 +196,10 @@ TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 8, 1024
 # by 0.05 fail this limit.
 # The int8 decode kernels take the exact int dot (dp4a) and the f32
 # products in the plain version's order, and round p * v_scale to bf16
-# where it does, so only the f32 sums of the online softmax (per lane
-# group in the kernel, one einsum in the plain version) and expf against
-# torch.exp differ: the limit of the bf16 decode kernels, one rounding step
-# of the bf16 output.
+# where it does, against the same split max, so the same f32 sums and exps
+# differ: the limit of the bf16 decode kernels. Both limits must reject a
+# combine without the exp(m_i - M) rescale and one without a row's last
+# live split (each decode row's ``rejected_share``).
 TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "flash_decode_paged": (1e-5, 2 ** -7),
        "flash_decode": (1e-5, 2 ** -7),
@@ -248,6 +263,9 @@ SCORE_LEN, SCORE_FROM = 16384, 8192
 # (f32 softmax) on the same tokens, relative
 SCORE_RTOL = 1e-3
 CROSSOVER_CONTEXTS = (1024, 4096, 16000)
+# the tiles per split the decode rows time (``by_split_tiles``), the
+# choices for ops/flash_decode.py's SPLIT_TILES
+SPLIT_CHOICES = (1, 2, 4)
 # MobileNetV2 (BASELINE config #5): the fused candidate of the JAX repo's
 # bench.py::bench_mobilenet run through the defaults of its CLI
 # experiments/imagenet_subset/train.py (u8 wire format, sparse CE,
@@ -280,6 +298,10 @@ CN_TRAIN, CN_VAL = 4096, 512
 # within DWGN_SUM_RTOL of their largest element (measured 2.8e-4).
 DWGN_FLIP_SHARE = 1e-3
 DWGN_SUM_RTOL = 2 ** -7
+# The timer's device spin before each bracket (_timed): between SPIN_MIN_S
+# and SPIN_MAX_S, counted in cycles of the H100 SXM's highest SM clock
+# (1.98 GHz), so that a card at a lower clock spins longer, never shorter
+SPIN_MIN_S, SPIN_MAX_S, SPIN_CLOCK_HZ = 1e-4, 0.1, 1.98e9
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -475,20 +497,52 @@ def _profiled(step):
             "top_kernels": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top]}
 
 
+class _Ms(float):
+    """A median device time in ms that carries the fastest and the slowest
+    launch of its run (printed beside it as ``<key>_min_max``)."""
+    spread = (0.0, 0.0)
+
+
+def _with_spread(obj):
+    """``obj`` with ``<key>_min_max: [min, max]`` beside every timed value."""
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            out[k] = _with_spread(v)
+            if isinstance(v, _Ms):
+                out[f"{k}_min_max"] = list(v.spread)
+        return out
+    if isinstance(obj, list):
+        return [_with_spread(v) for v in obj]
+    return obj
+
+
 def _timed(fn, iters, flush):
-    """Mean device ms of ``fn`` over ``iters`` launches, each with L2 cold."""
-    for _ in range(2):
-        fn()
+    """Median device ms of ``fn`` over ``iters`` launches (an :class:`_Ms`),
+    each with L2 cold. A device-side spin precedes every bracket, at least
+    twice the host time of one call of ``fn``, so the device reaches the
+    first event only after the host has queued the whole call: the
+    wrapper's host work never sits inside the bracket."""
+    fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(max(SPIN_MIN_S, min(2 * host_s, SPIN_MAX_S)) * SPIN_CLOCK_HZ)
     evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
            for _ in range(iters)]
     for a, b in evs:
         flush.zero_()
+        torch.cuda._sleep(spin)
         a.record()
         fn()
         b.record()
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in evs) / iters
+    times = sorted(a.elapsed_time(b) for a, b in evs)
+    ms = _Ms(float(np.median(times)))
+    ms.spread = (times[0], times[-1])
+    return ms
 
 
 def _tol(name):
@@ -517,6 +571,92 @@ def _bound(nbytes, flops, peak=BF16_FLOPS):
 
 def _flush_buffer():
     return torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > 50 MB L2
+
+
+def _wrong_combines(name, parts, want):
+    """The share of elements outside ``name``'s limit around the plain
+    output ``want`` for three wrong combines of the plain split partials
+    ``parts``: without the exp(m_i - M) rescale (over the rows with two or
+    more live splits, the only ones it changes), without the split holding
+    each (row, head)'s max, and without each row's last live split (which
+    may hold too little of a peaked softmax to show: reported only)."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    live = [lv for *_, lv in parts]
+    acc = sum(torch.where(lv[:, None, None], a, 0.0) for (_, _, a, _), lv in zip(parts, live))
+    l = sum(torch.where(lv[:, None], li, 0.0) for (_, li, _, _), lv in zip(parts, live))
+    no_rescale = (acc * (1.0 / l.clamp_min(1e-30))[..., None]).to(want.dtype)
+    n_live = torch.stack(live).sum(0)
+    multi = n_live >= 2
+    assert multi.any(), f"{name}: no row spans two splits"
+    top = torch.stack([torch.where(lv[:, None], m, -math.inf) for m, _, _, lv in parts]).argmax(0)
+    no_max = [(m, torch.where(top == i, 0.0, li), torch.where((top == i)[..., None], 0.0, a), lv)
+              for i, (m, li, a, lv) in enumerate(parts)]
+    no_last = [(m, li, a, lv & (i < n_live - 1)) for i, (m, li, a, lv) in enumerate(parts)]
+    return {"no_rescale": _rejected(name, no_rescale[multi], want[multi]),
+            "drop_max_split": _rejected(name, fd.combine_partials(no_max).to(want.dtype), want),
+            "drop_last_split": _rejected(name, fd.combine_partials(no_last).to(want.dtype), want)}
+
+
+def _decode_checks(name, fn, plain, parts, flush, iters):
+    """A decode row's checks at its own inputs: the same bits on a second
+    launch; the limit rejecting the first two wrong combines of
+    :func:`_wrong_combines`; and, at each of :data:`SPLIT_CHOICES` tiles
+    per split, the kernel within the limit of the plain version and its
+    median time (``by_split_tiles``)."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    out = fn()
+    assert torch.equal(fn(), out), f"{name}: a second launch gave other bits"
+    rejected = _wrong_combines(name, parts(), plain())
+    assert rejected["no_rescale"] > 0.5 and rejected["drop_max_split"] > 0.5, \
+        f"{name}: the limit passes a wrong combine: {rejected}"
+    chosen, sweep = fd.SPLIT_TILES, {}
+    try:
+        for st in SPLIT_CHOICES:
+            fd.SPLIT_TILES = st
+            sweep[str(st)] = {"max_abs_err": _over(f"{name} split_tiles={st}", fn(), plain(),
+                                                   *TOL[name]),
+                              "ms": _timed(fn, iters, flush)}
+    finally:
+        fd.SPLIT_TILES = chosen
+    return {"deterministic": True, "rejected_share": rejected, "split_tiles": chosen,
+            "by_split_tiles": sweep}
+
+
+def _decode_edges(name, g, int8):
+    """``name``'s kernel (paged or slab, bf16 or int8) against its plain
+    version at the contexts where splits begin and end: 1, exactly one
+    split, one split plus 1, 0 beside live rows (its output must be exactly
+    0) and three splits plus 5, on a scattered page table with sentinel
+    tails or a slab; each launched twice (the same bits). Returns the max
+    abs error."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    h, d, ps = 8, 64, fd.SLAB_TILE
+    split = fd.split_tiles(ps) * ps
+    lens_l = [1, split, split + 1, 0, 3 * split + 5, 700]
+    b, pp = len(lens_l), -(-max(lens_l) // ps) + 2
+    q = torch.randn(b, h, d, generator=g, device=dev).to(torch.bfloat16)
+    if "paged" in name:
+        n_pages = sum(-(-n // ps) for n in lens_l) + 2
+        table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
+        lead = (n_pages, ps)
+    else:
+        table, lens, lead = None, torch.tensor(lens_l, dtype=torch.int32, device=dev), (b, pp * ps)
+    if int8:
+        k, v, ks, vs = _int8_cache(g, lead, h, d)
+    else:
+        k, v = (torch.randn(*lead, h * d, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ks = vs = None
+    args = (q, k, v) + ((ks, vs) if int8 else ()) + ((table,) if table is not None else ()) + (lens,)
+    fn = getattr(fd, name)
+    out = fn(*args)
+    assert torch.equal(fn(*args), out), f"{name} edges: a second launch gave other bits"
+    assert not out[lens_l.index(0)].any(), f"{name}: a row of length 0 did not give 0"
+    return _over(f"{name} edges", out, getattr(fd, f"{name}_reference")(*args), *TOL[name])
 
 
 def _kernel_rows(launches):
@@ -596,6 +736,10 @@ def _kernel_rows(launches):
         "plain_ms": _timed(lambda: fd.flash_decode_paged_reference(q1, kp, vp, table, lens), 5, flush),
         "bound_ms": tb, "bound_by": by, "library_ms": None,
         "shape": f"B={bsz} H={h} D={d} page={ps} contexts={lens_l}",
+        "edges_max_abs_err": _decode_edges("flash_decode_paged", g, False),
+        **_decode_checks("flash_decode_paged", lambda: fd.flash_decode_paged(q1, kp, vp, table, lens),
+                         lambda: fd.flash_decode_paged_reference(q1, kp, vp, table, lens),
+                         lambda: fd.split_partials(q1, kp, vp, lens, table), flush, 200),
     })
 
     # slab decode: solo generate() at max_seq 2048
@@ -603,9 +747,11 @@ def _kernel_rows(launches):
     ks, vs, qs = randn(1, s_max, h * d), randn(1, s_max, h * d), randn(1, h, d)
     err = _over("flash_decode", fd.flash_decode(qs, ks, vs, n),
                 fd.flash_decode_reference(qs, ks, vs, n), *TOL["flash_decode"])
-    kh = ks.view(1, s_max, h, d).transpose(1, 2)[:, :, :n]
-    vh = vs.view(1, s_max, h, d).transpose(1, 2)[:, :, :n]
-    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2 + 4, 4 * n * h * d)
+    # SDPA's yardstick on contiguous [1, H, n, D] copies made outside the
+    # timed call
+    kh = ks.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
+    vh = vs.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
+    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d)
     rows.append({
         "name": "flash_decode", "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
@@ -617,6 +763,10 @@ def _kernel_rows(launches):
         "bound_ms": tb, "bound_by": by,
         "library_ms": _timed(lambda: F.scaled_dot_product_attention(qs[:, :, None], kh, vh), 200, flush),
         "shape": f"B=1 S={s_max} valid={n} H={h} D={d}",
+        "edges_max_abs_err": _decode_edges("flash_decode", g, False),
+        **_decode_checks("flash_decode", lambda: fd.flash_decode(qs, ks, vs, n),
+                         lambda: fd.flash_decode_reference(qs, ks, vs, n),
+                         lambda: fd.split_partials(qs, ks, vs, n), flush, 200),
     })
     return rows
 
@@ -1004,6 +1154,10 @@ def _long_kernel_rows(launches):
         "bound_ms": tb, "bound_by": by, "library_ms": None, "library_note": no_library,
         "shape": f"B={len(lens_l)} H={h} D={d} page={ps} contexts={lens_l} int8",
         "by_context": by_context,
+        "edges_max_abs_err": _decode_edges("flash_decode_paged_int8", g, True),
+        **_decode_checks("flash_decode_paged_int8", lambda: fd.flash_decode_paged_int8(*args),
+                         lambda: fd.flash_decode_paged_int8_reference(*args),
+                         lambda: fd.split_partials(q, k8, v8, lens, table, ks, vs), flush, 100),
     })
     del k8, v8, ks, vs, args
 
@@ -1025,7 +1179,30 @@ def _long_kernel_rows(launches):
         "plain_ms": _timed(lambda: fd.flash_decode_int8_reference(*args), 3, flush),
         "bound_ms": tb, "bound_by": by, "library_ms": None, "library_note": no_library,
         "shape": f"B={b} S={LONG_MAX_SEQ} valid={n} H={h} D={d} int8",
+        "edges_max_abs_err": _decode_edges("flash_decode_int8", g, True),
+        **_decode_checks("flash_decode_int8", lambda: fd.flash_decode_int8(*args),
+                         lambda: fd.flash_decode_int8_reference(*args),
+                         lambda: fd.split_partials(q, k8, v8, n, None, ks, vs), flush, 100),
     })
+    del k8, v8, ks, vs, args
+
+    # slab int8 at the long solo generate()'s shape: B1, the longest prompt
+    # at its last new token
+    n = LONG_LENS[-1] + N_TOKENS - 1
+    k8, v8, ks, vs = _int8_cache(g, (1, LONG_MAX_SEQ), h, d)
+    args = (randn(1, h, d), k8, v8, ks, vs, n)
+    tb, by = _int8_bound(n, 1, h, d)
+    rows[-1]["long_solo"] = {
+        "shape": f"B=1 S={LONG_MAX_SEQ} valid={n} H={h} D={d} int8",
+        "max_abs_err": _over("flash_decode_int8 long solo", fd.flash_decode_int8(*args),
+                             fd.flash_decode_int8_reference(*args), *TOL["flash_decode_int8"]),
+        "ms": _timed(lambda: fd.flash_decode_int8(*args), 100, flush),
+        "plain_ms": _timed(lambda: fd.flash_decode_int8_reference(*args), 3, flush),
+        "bound_ms": tb, "bound_by": by,
+        "by_split_tiles": _decode_checks(
+            "flash_decode_int8", lambda: fd.flash_decode_int8(*args),
+            lambda: fd.flash_decode_int8_reference(*args),
+            lambda: fd.split_partials(*args[:3], n, None, *args[3:5]), flush, 100)["by_split_tiles"]}
     del k8, v8, ks, vs, args
 
     # the flash forward at the longest prompt; its plain version one head
@@ -1896,7 +2073,7 @@ def main() -> int:
     print("convnet_step_profile:", json.dumps(_profiled(lambda: cn_trainer.step(cn_batch))),
           flush=True)
     assert len(rows) == 14, [r["name"] for r in rows]
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": _with_spread(rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

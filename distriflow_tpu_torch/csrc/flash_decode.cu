@@ -1,5 +1,5 @@
 // Single-token decode attention over a paged or a slab KV cache, bf16 or
-// int8.
+// int8, as split-KV kernels with a fixed-order combine.
 //
 // Replaces four Pallas TPU kernels of the JAX package:
 //   distriflow_tpu/ops/flash_decode.py::_paged_kernel        (paged pool + page table)
@@ -7,375 +7,489 @@
 //   distriflow_tpu/ops/flash_decode.py::_paged_kernel_quant  (the same, int8 K/V + scales)
 //   distriflow_tpu/ops/flash_decode.py::_decode_kernel_quant
 // One kernel per cache type serves both layouts: a slab row is a page table
-// that is the identity, with pages of 128 positions. Both therefore
-// accumulate in the same order (one tile per page), so engine decode on the
-// paged pool and solo decode on the slab produce the same bits for the same
-// context.
+// that is the identity, with tiles of SLAB_TILE = 128 positions. A tile is a
+// page (paged) or 128 slab positions, and splits cut a row at the same
+// multiples of split_tiles tiles in both layouts, so engine decode on the
+// paged pool (pages of 128) and solo decode on the slab produce the same
+// bits for the same context.
 //
-// Numeric contract, bf16 (flash_decode.py:46-55, 176-215): q, K and V enter
-// the score and PV products as bf16; scores, the running max m and the
-// running sum l stay f32; p is rounded to bf16 for the PV product; the
-// accumulator is f32. Positions at or past the row's valid length score
-// -1e30.
+// Numeric contract, bf16 (ops/flash_decode.py, the plain version follows
+// the same order): q, K and V enter the score and PV products as bf16;
+// scores, the running max m and the running sum l stay f32; p is rounded to
+// bf16 for the PV product; the accumulator is f32. Positions at or past the
+// row's valid length score -1e30 (they are never read).
 //
-// Numeric contract, int8 (flash_decode.py:245-271, 545-551): each (row,
-// head) block quantizes its own q, qs = max(max|q| / 127, 1e-20) and
-// q8 = clip(rint(q / qs), -127, 127), with IEEE division and rintf (round
-// half to even; never built with fast math). The score is the int32 dot
-// K8 . q8 (exact: __dp4a), converted to f32 (exact, |dot| < 2^24), times
-// k_scale[pos, h], times qs / sqrt(D), in that order. l sums the unscaled
-// p; the PV operand is bf16(p * v_scale[pos, h]) times V int8 (exact as
-// f32); the output is acc * (1 / max(l, 1e-30)).
+// Numeric contract, int8: each block quantizes its own q,
+// qs = max(max|q| / 127, 1e-20) and q8 = clip(rint(q / qs), -127, 127),
+// with IEEE division and rintf (round half to even; never built with fast
+// math). The score is the int32 dot K8 . q8 (exact: __dp4a), converted to
+// f32 (exact, |dot| < 2^24), times k_scale[pos, h], times qs / sqrt(D), in
+// that order. l sums the unscaled p; the PV operand is bf16(p * v_scale[pos,
+// h]) times V int8 (exact as f32).
 //
-// Grid: one block of 128 threads per (row, head). The block reads its own
-// page-table entries (no scalar prefetch on this card), walks the row's
-// pages up to its valid length, and keeps the online softmax in registers
-// and shared memory. Each position's head slice (D = 64 values: 128 bytes
-// bf16, 64 bytes int8) is read by neighbouring lanes with one 16-byte load
-// each (8 lanes bf16, 4 lanes int8).
+// Split-KV. Grid (n_splits, H, B), 128 threads a block: block (s, h, b)
+// runs the online-softmax recurrence above from a fresh (m = -1e30, l = 0,
+// acc = 0) over tiles [s * split_tiles, (s + 1) * split_tiles) of row b,
+// head h, stopping at the row's last live tile, min(ceil(len / T),
+// n_tiles). n_tiles is the page table's width or ceil(S / 128), known on
+// the host, so no length is read there; a block whose split starts at or
+// past the last live tile exits without writing. split_tiles is an
+// argument, from ops/flash_decode.py::split_tiles(T): SPLIT_TILES (2) at
+// T = 128, so pages of 128 and slab tiles split at the same positions.
+// Each live block writes f32 (m, l, acc[D]) once into the scratch [B, H,
+// n_splits, D + 2] (torch.empty, never zeroed: only live splits are
+// written, and only live splits are read; 264 bytes a split, 1.1 MB at
+// B8 H8 and 64 splits, 16k context). The combine kernel, one block per
+// (row, head), reads the live splits in ascending order: M = max m_i,
+// acc = sum acc_i * exp(m_i - M), l = sum l_i * exp(m_i - M) (each product
+// and sum rounded on its own, as the plain version's torch ops are), out =
+// bf16(acc * (1 / max(l, 1e-30))); a row of length 0 gives 0. No atomics:
+// every launch gives the same bits. The combine is a programmatic
+// dependent launch (griddepcontrol), so its launch overlaps the split
+// grid's tail.
 //
-// Bound: decode reads every live K and V position once, 2 * len * D * 2
-// bytes per (row, head) in bf16 and 2 * len * (D + 4) in int8 (the two f32
-// scales), and does 4 * len * D operations on it: about 1 per byte, far
-// below the H100's ~295 FLOP/byte ridge, so the floor is bytes / 3.35
-// TB/s. The design reads only live positions (tiles past valid_len are
-// never touched, the last tile only up to valid_len) and never writes
-// scores to device memory. One block per (row, head) gives B*H blocks,
-// which underfills 132 SMs at small batch; splitting a row's pages across
-// blocks (a second combine pass) is the next step.
+// Inside a block. A tile's K and V head slices (D values: 128 bytes bf16,
+// 64 bytes int8, at a stride of H*D) and, for int8, the page's [T, H] f32
+// scales (contiguous, copied whole with 4-byte copies, coalesced) are
+// copied by all 128 threads with cp.async into a ring of min(split_tiles,
+// 3) shared-memory stages; each thread's copies arrive on the stage's
+// mbarrier (cp.async.mbarrier.arrive.noinc, count 128), which the block
+// waits on. Every stage is filled before the first tile is used, so a
+// split of up to three tiles has all its copies in flight at once and the
+// next tiles land while a tile's softmax and PV run; a longer split
+// refills a stage after a block barrier. A lane group (8 lanes bf16, 4
+// int8; 16 bytes each) owns positions grp, grp + 16 (32), ... of every
+// tile: it reduces its scores with shuffles, keeps them in registers and
+// applies p to its own V rows, so the only block barrier of a tile is the
+// tile max; l is summed per lane group and added across groups at the end
+// of the split, with acc.
+//
+// No wgmma: a decode query is one row per head (M = 1) and the flagship has
+// no grouped heads, so a tensor-core tile would be 1/64 full. These are
+// bandwidth kernels: every live K and V position is read once, 2 * len * D
+// * 2 bytes per (row, head) in bf16 and 2 * len * (D + 4) in int8, for 4 *
+// len * D operations, far below the H100's ~295 FLOP/byte ridge, so their
+// yardstick is bytes / 3.35 TB/s. Per block (ptxas, -Xptxas -v, as
+// chip_smoke.py prints it; no spills): the split kernel 72 registers and
+// 4.2 KB of static shared memory (bf16), 72 and 8.4 KB (int8); the combine
+// 40 and 16.5 KB. The dynamic ring is n_stages * (2 * T * D * itemsize + 2
+// * 16-aligned(T * H * 4) for int8): 32 KB bf16 and 24 KB int8 a stage at
+// T 128, H 8, two stages at SPLIT_TILES 2.
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTile = 256;
+constexpr int kMaxStages = 3;
+constexpr int kSmemLimit = 200 * 1024;  // dynamic shared memory a block may ask for
+constexpr int kCombineChunk = 64;       // splits the combine stages in shared memory at once
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
-    const __nv_bfloat16* __restrict__ q,    // [B, H, D]
-    const __nv_bfloat16* __restrict__ k,    // paged: [n_pages, T, H*D]; slab: [B, S, H*D]
-    const __nv_bfloat16* __restrict__ v,
-    const int32_t* __restrict__ table,      // [B, n_tiles] page ids, or nullptr (slab)
-    const int32_t* __restrict__ lens,       // [B] valid positions per row
-    __nv_bfloat16* __restrict__ out,        // [B, H, D]
-    int H, int T, int n_tiles, int S, int n_pages, float scale) {
-  constexpr int kVec = 8;                       // bf16 per 16-byte load
-  constexpr int kLanes = D / kVec;              // lanes per position
-  constexpr int kGroupsPerWarp = 32 / kLanes;
-  constexpr int kGroups = (kThreads / 32) * kGroupsPerWarp;
+using dftt::hopper::mbar_init;
+using dftt::hopper::mbar_wait;
+using dftt::hopper::smem_addr;
 
-  __shared__ float s_p[kMaxTile];
-  __shared__ float s_red[kThreads / 32];
+struct DecodeArgs {
+  const __nv_bfloat16* q;   // [B, H, D]
+  const void* k;            // paged: [n_pages, T, H*D]; slab: [B, S, H*D]; bf16 or int8
+  const void* v;
+  const float* ks;          // int8 only: paged [n_pages, T, H]; slab [B, S, H]
+  const float* vs;
+  const int32_t* table;     // [B, n_tiles] page ids, or nullptr (slab)
+  const int32_t* lens;      // [B] valid positions per row, or nullptr: len_all for every row
+  float* partial;           // [B, H, n_splits, D + 2]: (m, l, acc)
+  __nv_bfloat16* out;       // [B, H, D]
+  int H, T, n_tiles, S, n_pages, split_tiles, n_splits, len_all, n_stages;
+  float scale;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Arrives on `bar` once every cp.async this thread issued before has landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__host__ __device__ __forceinline__ int round16(int bytes) { return (bytes + 15) & ~15; }
+
+__device__ __forceinline__ int row_len(const DecodeArgs& a, int b) {
+  return a.lens != nullptr ? a.lens[b] : a.len_all;
+}
+
+// Live tiles of a row: min(ceil(len / T), n_tiles), 0 for len <= 0.
+__device__ __forceinline__ int live_tiles(const DecodeArgs& a, int len) {
+  const int tiles = len > 0 ? (len + a.T - 1) / a.T : 0;
+  return tiles < a.n_tiles ? tiles : a.n_tiles;
+}
+
+template <int D, bool kInt8>
+struct Layout {
+  static constexpr int kItem = kInt8 ? 1 : 2;
+  static constexpr int kRowBytes = D * kItem;         // one position's head slice
+  static constexpr int kVec = 16 / kItem;             // values per 16-byte chunk
+  static constexpr int kLanes = D / kVec;             // lanes (chunks) per position
+  static constexpr int kGroups = kThreads / kLanes;   // positions a pass
+  static constexpr int kPerGroup = kMaxTile / kGroups;
+  static_assert(kRowBytes % 16 == 0 && 32 % kLanes == 0, "a position is whole 16-byte chunks");
+  __host__ __device__ static int stage_bytes(int T, int H) {
+    return 2 * T * kRowBytes + (kInt8 ? 2 * round16(T * H * 4) : 0);
+  }
+};
+
+// Issues the copies of tile j of row b, head h (its `live` positions) into
+// `stage` and arrives on `bar`.
+template <int D, bool kInt8>
+__device__ __forceinline__ void load_tile(const DecodeArgs& a, unsigned char* stage, uint64_t* bar,
+                                          int b, int h, int j, int live, int tid) {
+  using L = Layout<D, kInt8>;
+  int64_t pos0;  // index of the tile's first position in the pool or slab
+  if (a.table != nullptr) {
+    int pg = a.table[static_cast<int64_t>(b) * a.n_tiles + j];
+    pg = pg < a.n_pages - 1 ? pg : a.n_pages - 1;  // sentinel entries clamp
+    pg = pg > 0 ? pg : 0;
+    pos0 = static_cast<int64_t>(pg) * a.T;
+  } else {
+    pos0 = static_cast<int64_t>(b) * a.S + static_cast<int64_t>(j) * a.T;
+  }
+  const int64_t row_stride = static_cast<int64_t>(a.H) * L::kRowBytes;
+  const int64_t head = pos0 * row_stride + static_cast<int64_t>(h) * L::kRowBytes;
+  const auto* kg = static_cast<const unsigned char*>(a.k) + head;
+  const auto* vg = static_cast<const unsigned char*>(a.v) + head;
+  unsigned char* sk = stage;
+  unsigned char* sv = stage + a.T * L::kRowBytes;
+  for (int c = tid; c < live * L::kLanes; c += kThreads) {
+    const int p = c / L::kLanes;
+    const int off = (c % L::kLanes) * 16;
+    cp_async16(sk + p * L::kRowBytes + off, kg + p * row_stride + off);
+    cp_async16(sv + p * L::kRowBytes + off, vg + p * row_stride + off);
+  }
+  if constexpr (kInt8) {
+    float* sks = reinterpret_cast<float*>(sv + a.T * L::kRowBytes);
+    float* svs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sks) +
+                                          round16(a.T * a.H * 4));
+    const float* ksg = a.ks + pos0 * a.H;
+    const float* vsg = a.vs + pos0 * a.H;
+    for (int c = tid; c < live * a.H; c += kThreads) {
+      cp_async4(sks + c, ksg + c);
+      cp_async4(svs + c, vsg + c);
+    }
+  }
+  cp_async_arrive(bar);
+}
+
+template <int D, bool kInt8>
+__global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
+  using L = Layout<D, kInt8>;
+  constexpr int kVec = L::kVec;
+  constexpr int kLanes = L::kLanes;
+  constexpr int kGroups = L::kGroups;
+
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ uint64_t full[kMaxStages];
+  __shared__ float s_red[2][kWarps];
   __shared__ float s_acc[kGroups][D];
+  __shared__ float s_l[kGroups];
+  __shared__ __align__(16) int8_t s_q8[D];
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
+  // the combine grid may start once every block here has started; it
+  // waits for this grid's end before it reads a partial
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int64_t bh = static_cast<int64_t>(b) * a.H + h;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int sub = lane % kLanes;
-  const int grp = warp * kGroupsPerWarp + lane / kLanes;
-  const int64_t hd = static_cast<int64_t>(H) * D;
+  const int grp = tid / kLanes;
 
-  float qv[kVec];
-  dftt::load8(q + static_cast<int64_t>(bh) * D + sub * kVec, qv);
+  const int len = row_len(a, b);
+  const int tiles = live_tiles(a, len);
+  const int t0 = split * a.split_tiles;
+  if (t0 >= tiles) return;  // a dead split
+  const int n_local = min(a.split_tiles, tiles - t0);
+  const int ns = a.n_stages;
+  const int stage_bytes = L::stage_bytes(a.T, a.H);
+  // positions of the row that may be read: the valid length, cut to the slab
+  const int valid = a.table != nullptr ? len : min(len, a.S);
+
+  if (tid == 0) {
+    for (int i = 0; i < ns; ++i) mbar_init(&full[i], kThreads);
+    dftt::hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // every stage's tile is in flight while q is prepared
+  const int ahead = min(n_local, ns);
+  for (int i = 0; i < ahead; ++i)
+    load_tile<D, kInt8>(a, ring + i * stage_bytes, &full[i], b, h, t0 + i,
+                        min(valid - (t0 + i) * a.T, a.T), tid);
+
+  // q: bf16 values of this lane's chunk, or the int8 chunk and its scale
+  float qv[kInt8 ? 1 : kVec];
+  int4 qw = make_int4(0, 0, 0, 0);
+  float qscale = 0.f;
+  if constexpr (kInt8) {
+    const float x = tid < D ? __bfloat162float(a.q[bh * D + tid]) : 0.f;
+    float amax = dftt::warp_max(fabsf(x));
+    if (lane == 0) s_red[1][warp] = amax;
+    __syncthreads();
+    amax = s_red[1][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, s_red[1][w]);
+    const float qs = fmaxf(amax / 127.f, 1e-20f);
+    if (tid < D) s_q8[tid] = static_cast<int8_t>(fminf(fmaxf(rintf(x / qs), -127.f), 127.f));
+    __syncthreads();  // s_q8 written; s_red[1] read before tile 1 rewrites it
+    qw = *reinterpret_cast<const int4*>(s_q8 + sub * kVec);
+    qscale = __fmul_rn(qs, a.scale);
+  } else {
+    dftt::load8(a.q + bh * D + sub * kVec, qv);
+  }
+
   float acc[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
   float m = dftt::kNegInf;
-  float l = 0.f;
+  float l = 0.f;  // this lane group's share of the sum
 
-  const int len = lens[b];
-  int tiles = len > 0 ? (len + T - 1) / T : 0;
-  tiles = tiles < n_tiles ? tiles : n_tiles;
+  for (int i = 0; i < n_local; ++i) {
+    const int live = min(valid - (t0 + i) * a.T, a.T);
+    const int st = i % ns;
+    const unsigned char* sk = ring + st * stage_bytes;
+    const unsigned char* sv = sk + a.T * L::kRowBytes;
+    const float* sks = reinterpret_cast<const float*>(sv + a.T * L::kRowBytes);
+    const float* svs = reinterpret_cast<const float*>(reinterpret_cast<const unsigned char*>(sks) +
+                                                      round16(a.T * a.H * 4));
+    mbar_wait(&full[st], (i / ns) & 1);
 
-  for (int t = 0; t < tiles; ++t) {
-    int64_t base;   // element offset of this tile's first position
-    int live;       // positions of this tile below the valid length
-    if (table != nullptr) {
-      int pg = table[static_cast<int64_t>(b) * n_tiles + t];
-      pg = pg < n_pages - 1 ? pg : n_pages - 1;   // sentinel entries clamp
-      pg = pg > 0 ? pg : 0;
-      base = static_cast<int64_t>(pg) * T * hd;
-      live = len - t * T;
-    } else {
-      base = (static_cast<int64_t>(b) * S + static_cast<int64_t>(t) * T) * hd;
-      live = min(len, S) - t * T;
-    }
-    live = live < T ? live : T;
-    const int64_t head = base + static_cast<int64_t>(h) * D + sub * kVec;
-
-    // scores: one position per lane group, reduced over its kLanes lanes
-    for (int p0 = 0; p0 < T; p0 += kGroups) {
-      const int p = p0 + grp;
-      float part = 0.f;
-      if (p < live) {
-        float kv[kVec];
-        dftt::load8(k + head + p * hd, kv);
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) part = fmaf(qv[i], kv[i], part);
-      }
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (sub == 0 && p < T) s_p[p] = p < live ? part * scale : dftt::kNegInf;
-    }
-    __syncthreads();
-
+    // scores of this group's positions, reduced over its kLanes lanes (every
+    // lane ends with the same sum)
+    float sc[L::kPerGroup];
     float mx = dftt::kNegInf;
-    for (int p = tid; p < T; p += kThreads) mx = fmaxf(mx, s_p[p]);
-    mx = dftt::warp_max(mx);
-    if (lane == 0) s_red[warp] = mx;
-    __syncthreads();
-    float tile_max = s_red[0];
 #pragma unroll
-    for (int w = 1; w < kThreads / 32; ++w) tile_max = fmaxf(tile_max, s_red[w]);
-    __syncthreads();  // every thread has read s_red before it is reused
+    for (int r = 0; r < L::kPerGroup; ++r) {
+      if (r * kGroups >= live) break;  // uniform across the block
+      const int p = grp + r * kGroups;
+      float s;
+      if constexpr (kInt8) {
+        int part = 0;
+        if (p < live) {
+          const int4 kw = *reinterpret_cast<const int4*>(sk + p * L::kRowBytes + sub * 16);
+          part = __dp4a(kw.x, qw.x, part);
+          part = __dp4a(kw.y, qw.y, part);
+          part = __dp4a(kw.z, qw.z, part);
+          part = __dp4a(kw.w, qw.w, part);
+        }
+#pragma unroll
+        for (int off = kLanes / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        s = p < live ? __fmul_rn(__fmul_rn(static_cast<float>(part), sks[p * a.H + h]), qscale)
+                     : dftt::kNegInf;
+      } else {
+        float part = 0.f;
+        if (p < live) {
+          float kv[kVec];
+          dftt::load8(reinterpret_cast<const __nv_bfloat16*>(sk + p * L::kRowBytes + sub * 16), kv);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) part = fmaf(qv[e], kv[e], part);
+        }
+#pragma unroll
+        for (int off = kLanes / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        s = p < live ? part * a.scale : dftt::kNegInf;
+      }
+      sc[r] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = dftt::warp_max(mx);
+    if (lane == 0) s_red[i & 1][warp] = mx;
+    __syncthreads();  // the tile's one block barrier: the tile max
+    float tile_max = s_red[i & 1][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) tile_max = fmaxf(tile_max, s_red[i & 1][w]);
 
     const float m_new = fmaxf(m, tile_max);
     const float corr = expf(m - m_new);
-    float psum = 0.f;
-    for (int p = tid; p < T; p += kThreads) {
-      const float pv = expf(s_p[p] - m_new);
-      s_p[p] = pv;
-      psum += pv;
-    }
-    psum = dftt::warp_sum(psum);
-    if (lane == 0) s_red[warp] = psum;
-    __syncthreads();
-    float tile_sum = 0.f;
+    l *= corr;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) tile_sum += s_red[w];
-    l = l * corr + tile_sum;
+    for (int e = 0; e < kVec; ++e) acc[e] *= corr;
+#pragma unroll
+    for (int r = 0; r < L::kPerGroup; ++r) {
+      if (r * kGroups >= live) break;
+      const int p = grp + r * kGroups;
+      if (p < live) {
+        const float pv = expf(sc[r] - m_new);
+        l += pv;
+        if constexpr (kInt8) {
+          // p * v_scale enters the PV product as bf16 (the TPU kernel's pw.astype)
+          const float pw = __bfloat162float(__float2bfloat16(__fmul_rn(pv, svs[p * a.H + h])));
+          const int4 vw = *reinterpret_cast<const int4*>(sv + p * L::kRowBytes + sub * 16);
+          const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[e] = fmaf(pw, static_cast<float>(vb[e]), acc[e]);
+        } else {
+          // p enters the PV product as bf16, like the TPU kernel's pw.astype
+          const float pw = __bfloat162float(__float2bfloat16(pv));
+          float vv[kVec];
+          dftt::load8(reinterpret_cast<const __nv_bfloat16*>(sv + p * L::kRowBytes + sub * 16), vv);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[e] = fmaf(pw, vv[e], acc[e]);
+        }
+      }
+    }
     m = m_new;
-
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[i] *= corr;
-    for (int p = grp; p < live; p += kGroups) {
-      // p enters the PV product as bf16, like the TPU kernel's pw.astype
-      const float pw = __bfloat162float(__float2bfloat16(s_p[p]));
-      float vv[kVec];
-      dftt::load8(v + head + p * hd, vv);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[i] = fmaf(pw, vv[i], acc[i]);
+    if (i + ns < n_local) {  // a split longer than the ring: refill this stage
+      __syncthreads();       // every thread is done with tile i
+      load_tile<D, kInt8>(a, ring + st * stage_bytes, &full[st], b, h, t0 + i + ns,
+                          min(valid - (t0 + i + ns) * a.T, a.T), tid);
     }
-    __syncthreads();  // s_p and s_red are rewritten by the next tile
   }
 
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) s_acc[grp][sub * kVec + i] = acc[i];
+  for (int e = 0; e < kVec; ++e) s_acc[grp][sub * kVec + e] = acc[e];
+  if (sub == 0) s_l[grp] = l;
   __syncthreads();
   if (tid < D) {
     float total = 0.f;
+    float lsum = 0.f;
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g) total += s_acc[g][tid];
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    out[static_cast<int64_t>(bh) * D + tid] = __float2bfloat16(total * inv);
+    for (int g = 0; g < kGroups; ++g) {
+      total += s_acc[g][tid];
+      lsum += s_l[g];
+    }
+    float* row = a.partial + (bh * a.n_splits + split) * (D + 2);
+    row[2 + tid] = total;
+    if (tid == 0) {
+      row[0] = m;
+      row[1] = lsum;
+    }
   }
 }
 
+// One block per (row, head): the live splits' partials in ascending order.
 template <int D>
-__global__ void __launch_bounds__(kThreads) decode_kernel_int8(
-    const __nv_bfloat16* __restrict__ q,    // [B, H, D]
-    const int8_t* __restrict__ k,           // paged: [n_pages, T, H*D]; slab: [B, S, H*D]
-    const int8_t* __restrict__ v,
-    const float* __restrict__ ks,           // paged: [n_pages, T, H]; slab: [B, S, H]
-    const float* __restrict__ vs,
-    const int32_t* __restrict__ table,      // [B, n_tiles] page ids, or nullptr (slab)
-    const int32_t* __restrict__ lens,       // [B] valid positions per row
-    __nv_bfloat16* __restrict__ out,        // [B, H, D]
-    int H, int T, int n_tiles, int S, int n_pages, float scale) {
-  constexpr int kVec = 16;                      // int8 per 16-byte load
-  constexpr int kLanes = D / kVec;              // lanes per position
-  constexpr int kGroupsPerWarp = 32 / kLanes;
-  constexpr int kGroups = (kThreads / 32) * kGroupsPerWarp;
-  static_assert(D <= kThreads, "one thread per q element");
-
-  __shared__ float s_p[kMaxTile];
-  __shared__ float s_red[kThreads / 32];
-  __shared__ float s_acc[kGroups][D];
-  __shared__ __align__(16) int8_t s_q8[D];
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
+__global__ void __launch_bounds__(kThreads) combine_kernel(const DecodeArgs a) {
+  __shared__ float s_part[kCombineChunk * (D + 2)];
+  __shared__ float s_red[kWarps];
+  const int64_t bh = blockIdx.x;
+  const int b = static_cast<int>(bh / a.H);
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int sub = lane % kLanes;
-  const int grp = warp * kGroupsPerWarp + lane / kLanes;
-  const int64_t hd = static_cast<int64_t>(H) * D;
+  const int n_live = (live_tiles(a, row_len(a, b)) + a.split_tiles - 1) / a.split_tiles;
+  const float* part = a.partial + bh * a.n_splits * (D + 2);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the split grid is done
 
-  // q quantization: absmax over this (row, head)'s D values
-  const float qv = tid < D ? __bfloat162float(q[static_cast<int64_t>(bh) * D + tid]) : 0.f;
-  float amax = dftt::warp_max(fabsf(qv));
-  if (lane == 0) s_red[warp] = amax;
+  float mx = dftt::kNegInf;
+  for (int i = tid; i < n_live; i += kThreads) mx = fmaxf(mx, part[i * (D + 2)]);
+  mx = dftt::warp_max(mx);
+  if ((tid & 31) == 0) s_red[tid >> 5] = mx;
   __syncthreads();
-  amax = s_red[0];
+  float top = s_red[0];  // M
 #pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) amax = fmaxf(amax, s_red[w]);
-  const float qs = fmaxf(amax / 127.f, 1e-20f);
-  if (tid < D) s_q8[tid] = static_cast<int8_t>(fminf(fmaxf(rintf(qv / qs), -127.f), 127.f));
-  __syncthreads();  // s_q8 written, s_red read before it is reused
-  const int4 qw = *reinterpret_cast<const int4*>(s_q8 + sub * kVec);
-  const float qscale = __fmul_rn(qs, scale);
+  for (int w = 1; w < kWarps; ++w) top = fmaxf(top, s_red[w]);
 
-  float acc[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
-  float m = dftt::kNegInf;
+  float acc = 0.f;
   float l = 0.f;
-
-  const int len = lens[b];
-  int tiles = len > 0 ? (len + T - 1) / T : 0;
-  tiles = tiles < n_tiles ? tiles : n_tiles;
-
-  for (int t = 0; t < tiles; ++t) {
-    int64_t pos0;   // index of this tile's first position in the pool / slab
-    int live;       // positions of this tile below the valid length
-    if (table != nullptr) {
-      int pg = table[static_cast<int64_t>(b) * n_tiles + t];
-      pg = pg < n_pages - 1 ? pg : n_pages - 1;   // sentinel entries clamp
-      pg = pg > 0 ? pg : 0;
-      pos0 = static_cast<int64_t>(pg) * T;
-      live = len - t * T;
-    } else {
-      pos0 = static_cast<int64_t>(b) * S + static_cast<int64_t>(t) * T;
-      live = min(len, S) - t * T;
-    }
-    live = live < T ? live : T;
-    const int64_t head = pos0 * hd + static_cast<int64_t>(h) * D + sub * kVec;
-    const int64_t sc = pos0 * H + h;   // scale of the tile's first position
-
-    // scores: one position per lane group, an exact int dot over its lanes
-    for (int p0 = 0; p0 < T; p0 += kGroups) {
-      const int p = p0 + grp;
-      int part = 0;
-      if (p < live) {
-        const int4 kw = *reinterpret_cast<const int4*>(k + head + p * hd);
-        part = __dp4a(kw.x, qw.x, part);
-        part = __dp4a(kw.y, qw.y, part);
-        part = __dp4a(kw.z, qw.z, part);
-        part = __dp4a(kw.w, qw.w, part);
+  for (int c0 = 0; c0 < n_live; c0 += kCombineChunk) {
+    const int n = min(kCombineChunk, n_live - c0);
+    __syncthreads();  // the previous chunk has been read
+    for (int e = tid; e < n * (D + 2); e += kThreads) s_part[e] = part[c0 * (D + 2) + e];
+    __syncthreads();
+    if (tid < D) {
+      for (int i = 0; i < n; ++i) {
+        const float* r = s_part + i * (D + 2);
+        const float w = expf(r[0] - top);
+        acc = __fadd_rn(acc, __fmul_rn(r[2 + tid], w));
+        l = __fadd_rn(l, __fmul_rn(r[1], w));
       }
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (sub == 0 && p < T)
-        s_p[p] = p < live
-            ? __fmul_rn(__fmul_rn(static_cast<float>(part), ks[sc + static_cast<int64_t>(p) * H]),
-                        qscale)
-            : dftt::kNegInf;
     }
-    __syncthreads();
-
-    float mx = dftt::kNegInf;
-    for (int p = tid; p < T; p += kThreads) mx = fmaxf(mx, s_p[p]);
-    mx = dftt::warp_max(mx);
-    if (lane == 0) s_red[warp] = mx;
-    __syncthreads();
-    float tile_max = s_red[0];
-#pragma unroll
-    for (int w = 1; w < kThreads / 32; ++w) tile_max = fmaxf(tile_max, s_red[w]);
-    __syncthreads();  // every thread has read s_red before it is reused
-
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    for (int p = tid; p < T; p += kThreads) {
-      const float pv = expf(s_p[p] - m_new);
-      s_p[p] = pv;
-      psum += pv;
-    }
-    psum = dftt::warp_sum(psum);
-    if (lane == 0) s_red[warp] = psum;
-    __syncthreads();
-    float tile_sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) tile_sum += s_red[w];
-    l = l * corr + tile_sum;   // the unscaled p
-    m = m_new;
-
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[i] *= corr;
-    for (int p = grp; p < live; p += kGroups) {
-      // p * v_scale enters the PV product as bf16 (the TPU kernel's pw.astype)
-      const float pw = __bfloat162float(__float2bfloat16(
-          __fmul_rn(s_p[p], vs[sc + static_cast<int64_t>(p) * H])));
-      const int4 vw = *reinterpret_cast<const int4*>(v + head + p * hd);
-      const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[i] = fmaf(pw, static_cast<float>(vb[i]), acc[i]);
-    }
-    __syncthreads();  // s_p and s_red are rewritten by the next tile
   }
+  if (tid < D) a.out[bh * D + tid] = __float2bfloat16(acc * (1.f / fmaxf(l, 1e-30f)));
+}
 
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) s_acc[grp][sub * kVec + i] = acc[i];
-  __syncthreads();
-  if (tid < D) {
-    float total = 0.f;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) total += s_acc[g][tid];
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    out[static_cast<int64_t>(bh) * D + tid] = __float2bfloat16(total * inv);
+template <int D, bool kInt8>
+int launch(DecodeArgs a, int B, cudaStream_t st) {
+  using L = Layout<D, kInt8>;
+  if (a.T <= 0 || a.T > kMaxTile || a.split_tiles <= 0 || a.n_tiles <= 0 ||
+      a.n_splits != (a.n_tiles + a.split_tiles - 1) / a.split_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int stage = L::stage_bytes(a.T, a.H);
+  int ns = a.split_tiles < kMaxStages ? a.split_tiles : kMaxStages;
+  while (ns > 2 && ns * stage > kSmemLimit) --ns;
+  if (ns * stage > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  a.n_stages = ns;
+  const int smem = ns * stage;
+  static bool opted_in = false;  // past 48 KB of shared memory (static + dynamic)
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_kernel<D, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
   }
+  split_kernel<D, kInt8><<<dim3(a.n_splits, a.H, B), kThreads, smem, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a programmatic dependent launch: the combine's launch overlaps the
+  // split grid's tail (griddepcontrol above)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * a.H);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, combine_kernel<D>, a);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 // table == nullptr selects the slab layout: row b's tile t covers slab
-// positions [t*T, t*T + T) of a [B, S, H*D] cache. Built for D = 64 only,
-// the head dim of the served configuration.
+// positions [t*T, t*T + T) of a [B, S, H*D] cache. lens == nullptr gives
+// every row len_all valid positions. partial is the f32
+// [B, H, n_splits, D + 2] scratch. Built for D = 64 only, the head dim of
+// the served configuration.
 extern "C" int dftt_flash_decode_bf16(
-    const void* q, const void* k, const void* v, const void* table,
-    const void* lens, void* out, int B, int H, int D, int T, int n_tiles,
-    int S, int n_pages, float scale, void* stream) {
-  if (T <= 0 || T > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B * H);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* tp = static_cast<const int32_t*>(table);
-  const auto* lp = static_cast<const int32_t*>(lens);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (D == 64) {
-    decode_kernel<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, tp, lp, op, H, T, n_tiles, S, n_pages, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+    const void* q, const void* k, const void* v, const void* table, const void* lens,
+    void* partial, void* out, int B, int H, int D, int T, int n_tiles, int S, int n_pages,
+    int split_tiles, int n_splits, int len_all, float scale, void* stream) {
+  const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k, v, nullptr, nullptr,
+                     static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
+                     static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out),
+                     H, T, n_tiles, S, n_pages, split_tiles, n_splits, len_all, 0, scale};
+  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<64, false>(a, B, static_cast<cudaStream_t>(stream));
 }
 
 // The int8 kernel (layouts as above); k_scale/v_scale are f32 [n_pages, T, H]
 // pools (paged) or [B, S, H] slabs. Every K/V pointer and the H*D row
 // stride must be 16-byte aligned.
 extern "C" int dftt_flash_decode_int8(
-    const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, const void* table, const void* lens, void* out, int B,
-    int H, int D, int T, int n_tiles, int S, int n_pages, float scale, void* stream) {
-  if (T <= 0 || T > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B * H);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const int8_t*>(k);
-  const auto* vp = static_cast<const int8_t*>(v);
-  const auto* ksp = static_cast<const float*>(k_scale);
-  const auto* vsp = static_cast<const float*>(v_scale);
-  const auto* tp = static_cast<const int32_t*>(table);
-  const auto* lp = static_cast<const int32_t*>(lens);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (D == 64) {
-    decode_kernel_int8<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, ksp, vsp, tp, lp, op, H, T,
-                                                      n_tiles, S, n_pages, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+    const void* table, const void* lens, void* partial, void* out, int B, int H, int D, int T,
+    int n_tiles, int S, int n_pages, int split_tiles, int n_splits, int len_all, float scale,
+    void* stream) {
+  const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
+                     static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                     static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
+                     static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out),
+                     H, T, n_tiles, S, n_pages, split_tiles, n_splits, len_all, 0, scale};
+  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<64, true>(a, B, static_cast<cudaStream_t>(stream));
 }

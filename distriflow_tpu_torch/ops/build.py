@@ -31,7 +31,8 @@ NVCC_FLAGS = [
 SOURCES = ("flash_attention", "flash_decode", "flash_attention_bwd", "fused_ce", "depthwise_gn")
 #: the headers each source includes (an edit to one rebuilds its sources)
 HEADERS = {"flash_attention": ("common.cuh", "hopper.cuh"),
-           "flash_attention_bwd": ("common.cuh", "hopper.cuh")}
+           "flash_attention_bwd": ("common.cuh", "hopper.cuh"),
+           "flash_decode": ("common.cuh", "hopper.cuh")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -18,6 +18,16 @@ Given ``k_scale``/``v_scale`` the two wrappers take int8 K/V and launch
 the int8 kernel (:func:`flash_decode_paged_int8`, :func:`flash_decode_int8`,
 each with its own launch count).
 
+Split-KV: each (row, head) is cut into splits of consecutive tiles (a
+tile is a page, or :data:`SLAB_TILE` slab positions), :func:`split_tiles`
+of them: :data:`SPLIT_TILES` at pages of SLAB_TILE. A split runs the
+online-softmax recurrence from a fresh ``(m, l, acc)``; a second pass
+combines the splits that hold a valid position, in
+ascending order: ``M = max m_i``, ``acc = sum acc_i * exp(m_i - M)``,
+``l = sum l_i * exp(m_i - M)``, ``out = acc * (1 / max(l, 1e-30))``. A
+row of length 0 has no such split and gives 0. The plain versions here
+follow the same order (:func:`split_partials`, :func:`combine_partials`).
+
 Numeric contract, bf16 (the kernel and the plain versions here): q, K and
 V enter the products as bf16; scores, the running max and sum stay f32; p
 is rounded to bf16 for the PV product; accumulation is f32; positions at
@@ -50,18 +60,19 @@ from distriflow_tpu_torch.ops import build
 
 NEG_INF = -1e30
 SLAB_TILE = 128  # slab positions per tile: the identity table's page size
-MAX_TILE = 256  # largest page the kernel's shared score row holds
+#: a split of the split-KV kernels spans SPLIT_TILES tiles of SLAB_TILE
+#: positions (:func:`split_tiles`), the same for every shape, so that pages
+#: of SLAB_TILE and slab tiles split at the same positions
+SPLIT_TILES = 2
+MAX_TILE = 256  # largest page: the kernels keep a tile's scores in registers
 SUPPORTED_HEAD_DIMS = (64,)  # the head dims the kernel is built and checked for
 
+# pointers, then B, H, D, T, n_tiles, S, n_pages, split_tiles, n_splits,
+# the length of every row (where lens is NULL), the score scale, the stream
+_INTS = [ctypes.c_int] * 10
 _SIGNATURES = {
-    "dftt_flash_decode_bf16": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
-    "dftt_flash_decode_int8": [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "dftt_flash_decode_bf16": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_float, ctypes.c_void_p],
+    "dftt_flash_decode_int8": [ctypes.c_void_p] * 9 + _INTS + [ctypes.c_float, ctypes.c_void_p],
 }
 
 
@@ -101,6 +112,14 @@ def supports_paged(page_size: int, hd: int = 512, kv_item: int = 2, d: int = 64)
     return False
 
 
+def split_tiles(tile: int) -> int:
+    """Tiles of ``tile`` positions in one split: the :data:`SPLIT_TILES` x
+    :data:`SLAB_TILE` positions of a split in whole tiles, at least one (a
+    page of SLAB_TILE gives SPLIT_TILES; a smaller page more pages, so the
+    partials of a row stay one per SPLIT_TILES x SLAB_TILE positions)."""
+    return max(1, SPLIT_TILES * SLAB_TILE // tile)
+
+
 def _row_lens(valid_len: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
     if isinstance(valid_len, torch.Tensor):
         return valid_len.to(device=device, dtype=torch.int32).reshape(-1).expand(b).contiguous()
@@ -126,20 +145,27 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(xf / scale.clamp_min(1e-20)[..., None]), -127, 127), scale
 
 
-def _online_softmax(q, tiles, lens, tile):
-    """The kernels' recurrence in plain PyTorch: ``tiles`` yields
-    ``(k, v, k_scale, v_scale)`` for consecutive tiles of ``tile``
-    positions, K/V ``[B, T, H, D]`` and, for an int8 cache, scales
-    ``[B, T, H]`` (else None); returns ``[B, H, D]`` f32."""
+def _split_partials(q, tiles, lens, tile, per_split):
+    """The split kernel in plain PyTorch: the recurrence from a fresh
+    ``(m, l, acc)`` over each run of ``per_split`` consecutive tiles.
+    ``tiles`` yields ``(k, v, k_scale, v_scale)`` for consecutive tiles of
+    ``tile`` positions, K/V ``[B, T, H, D]`` and, for an int8 cache, scales
+    ``[B, T, H]`` (else None). Returns one ``(m [B, H], l [B, H], acc
+    [B, H, D], live [B])`` per split; ``live`` marks the rows with a valid
+    position in the split (the kernel's live blocks)."""
     b, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
     qf = q.to(torch.bfloat16).float()
     q8, qs = quantize_int8(q)  # the int8 kernels' q
     qscale = (qs.clamp_min(1e-20) * scale)[..., None]
+    parts = []
     for j, (kt, vt, kst, vst) in enumerate(tiles):
+        if j % per_split == 0:
+            m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
+            l = torch.zeros((b, h), dtype=torch.float32, device=q.device)
+            acc = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+            parts.append([m, l, acc, j * tile < lens])
+        m, l, acc, _ = parts[-1]
         if kst is None:
             s = torch.einsum("bhd,bphd->bhp", qf, kt.to(torch.bfloat16).float()) * scale
         else:
@@ -157,8 +183,23 @@ def _online_softmax(q, tiles, lens, tile):
         # int8 V widens to bf16 exactly, as the TPU kernel casts it
         pv = torch.einsum("bhp,bphd->bhd", pw.to(torch.bfloat16).float(),
                           vt.to(torch.bfloat16).float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        parts[-1][:3] = m_new, l, acc * corr[..., None] + pv
+    return parts
+
+
+def combine_partials(parts) -> torch.Tensor:
+    """The combine kernel in plain PyTorch: the live splits of ``parts``
+    (:func:`split_partials`) in ascending order, each product and sum
+    rounded on its own; [B, H, D] f32."""
+    live = torch.stack([lv for *_, lv in parts])[..., None]  # [n, B, 1]
+    top = torch.where(live, torch.stack([m for m, *_ in parts]), NEG_INF).amax(0)
+    acc = torch.zeros_like(parts[0][2])
+    l = torch.zeros_like(parts[0][1])
+    for m, li, ai, lv in parts:
+        w = torch.exp(m - top)
+        lv = lv[:, None]
+        acc = torch.where(lv[..., None], acc + ai * w[..., None], acc)
+        l = torch.where(lv, l + li * w, l)
     return acc * (1.0 / l.clamp_min(1e-30))[..., None]
 
 
@@ -187,32 +228,40 @@ def _slab_tiles(q, k, v, k_scale, v_scale):
                None if v_scale is None else v_scale[:, w])
 
 
+def split_partials(q, k, v, valid_len, page_table=None, k_scale=None, v_scale=None):
+    """The split pass of any of the four kernels in plain PyTorch: the
+    paged layout where ``page_table`` is given, else the slab; int8 where
+    ``k_scale``/``v_scale`` are. One ``(m, l, acc, live)`` per split of
+    :func:`split_tiles` tiles (:func:`_split_partials`)."""
+    lens = _row_lens(valid_len, q.shape[0], q.device)
+    if page_table is None:
+        tiles, tile = _slab_tiles(q, k, v, k_scale, v_scale), SLAB_TILE
+    else:
+        tiles, tile = _paged_tiles(q, k, v, k_scale, v_scale, page_table), k.shape[1]
+    return _split_partials(q, tiles, lens, tile, split_tiles(tile))
+
+
 def flash_decode_paged_reference(q, k, v, page_table, valid_len) -> torch.Tensor:
     """Plain version of :func:`flash_decode_paged` (bf16 cache)."""
-    lens = _row_lens(valid_len, q.shape[0], q.device)
-    tiles = _paged_tiles(q, k, v, None, None, page_table)
-    return _online_softmax(q, tiles, lens, k.shape[1]).to(q.dtype)
+    return combine_partials(split_partials(q, k, v, valid_len, page_table)).to(q.dtype)
 
 
 def flash_decode_reference(q, k, v, valid_len) -> torch.Tensor:
     """Plain version of :func:`flash_decode` (bf16 cache)."""
-    lens = _row_lens(valid_len, q.shape[0], q.device)
-    return _online_softmax(q, _slab_tiles(q, k, v, None, None), lens, SLAB_TILE).to(q.dtype)
+    return combine_partials(split_partials(q, k, v, valid_len)).to(q.dtype)
 
 
 def flash_decode_paged_int8_reference(q, k, v, k_scale, v_scale, page_table,
                                       valid_len) -> torch.Tensor:
     """Plain version of :func:`flash_decode_paged_int8`."""
-    lens = _row_lens(valid_len, q.shape[0], q.device)
-    tiles = _paged_tiles(q, k, v, k_scale, v_scale, page_table)
-    return _online_softmax(q, tiles, lens, k.shape[1]).to(q.dtype)
+    return combine_partials(split_partials(q, k, v, valid_len, page_table, k_scale,
+                                           v_scale)).to(q.dtype)
 
 
 def flash_decode_int8_reference(q, k, v, k_scale, v_scale, valid_len) -> torch.Tensor:
     """Plain version of :func:`flash_decode_int8`."""
-    lens = _row_lens(valid_len, q.shape[0], q.device)
-    tiles = _slab_tiles(q, k, v, k_scale, v_scale)
-    return _online_softmax(q, tiles, lens, SLAB_TILE).to(q.dtype)
+    return combine_partials(split_partials(q, k, v, valid_len, None, k_scale,
+                                           v_scale)).to(q.dtype)
 
 
 def _check_cuda(q, pools, what, dtype=torch.bfloat16, scales=()):
@@ -257,11 +306,22 @@ def _check_slab(q, k, v, what):
                          f"must be [B={b}, S, H*D]")
 
 
-def _launch(q, k, v, scales, table, lens, tile, n_tiles, s, n_pages, what):
-    """One launch of the bf16 kernel (``scales`` None) or the int8 kernel
-    (``scales`` = (k_scale, v_scale))."""
+def _launch(q, k, v, scales, table, valid_len, tile, n_tiles, s, n_pages, what):
+    """The bf16 kernels (``scales`` None) or the int8 kernels (``scales`` =
+    (k_scale, v_scale)): the split kernel over ceil(n_tiles /
+    :func:`split_tiles`) splits, then the combine, which reads the f32
+    partials ``[B, H, n_splits, D + 2]`` (never zeroed: only live splits
+    are written and read). An int ``valid_len`` is passed by value, a
+    tensor as the kernels' ``[B]`` int32 lengths."""
     b, h, d = q.shape
+    if isinstance(valid_len, torch.Tensor):
+        lens, len_all = _row_lens(valid_len, b, q.device), 0
+    else:
+        lens, len_all = None, int(valid_len)
+    per_split = split_tiles(tile)
+    n_splits = -(-n_tiles // per_split)
     out = torch.empty_like(q)
+    partial = torch.empty((b, h, n_splits, d + 2), dtype=torch.float32, device=q.device)
     lib = build.load("flash_decode", _SIGNATURES)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     if scales is None:
@@ -269,8 +329,10 @@ def _launch(q, k, v, scales, table, lens, tile, n_tiles, s, n_pages, what):
     else:
         fn = lib.dftt_flash_decode_int8
         ptrs += [scales[0].data_ptr(), scales[1].data_ptr()]
-    rc = fn(*ptrs, None if table is None else table.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, h, d, tile, n_tiles, s, n_pages, 1.0 / math.sqrt(d),
+    rc = fn(*ptrs, None if table is None else table.data_ptr(),
+            None if lens is None else lens.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), b, h, d, tile,
+            n_tiles, s, n_pages, per_split, n_splits, len_all, 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, what)
     return out
@@ -294,7 +356,7 @@ def flash_decode_paged(q, k, v, page_table, valid_len, k_scale=None, v_scale=Non
     _check_table(q, k, v, page_table, "flash_decode_paged")
     n_pages, ps, _ = k.shape
     pp = page_table.shape[1]
-    out = _launch(q, k, v, None, page_table, _row_lens(valid_len, q.shape[0], q.device),
+    out = _launch(q, k, v, None, page_table, valid_len,
                   ps, pp, pp * ps, n_pages, "flash_decode_paged")
     flash_decode_paged.launches += 1
     return out
@@ -313,7 +375,7 @@ def flash_decode(q, k, v, valid_len, k_scale=None, v_scale=None) -> torch.Tensor
     _check_cuda(q, (("k", k), ("v", v)), "flash_decode")
     _check_slab(q, k, v, "flash_decode")
     s = k.shape[1]
-    out = _launch(q, k, v, None, None, _row_lens(valid_len, q.shape[0], q.device),
+    out = _launch(q, k, v, None, None, valid_len,
                   SLAB_TILE, -(-s // SLAB_TILE), s, 0, "flash_decode")
     flash_decode.launches += 1
     return out
@@ -332,7 +394,7 @@ def flash_decode_paged_int8(q, k, v, k_scale, v_scale, page_table, valid_len) ->
     n_pages, ps, _ = k.shape
     pp = page_table.shape[1]
     out = _launch(q, k, v, (k_scale, v_scale), page_table,
-                  _row_lens(valid_len, q.shape[0], q.device), ps, pp, pp * ps, n_pages, what)
+                  valid_len, ps, pp, pp * ps, n_pages, what)
     flash_decode_paged_int8.launches += 1
     return out
 
@@ -347,7 +409,7 @@ def flash_decode_int8(q, k, v, k_scale, v_scale, valid_len) -> torch.Tensor:
                 (("k_scale", k_scale), ("v_scale", v_scale)))
     _check_slab(q, k, v, what)
     s = k.shape[1]
-    out = _launch(q, k, v, (k_scale, v_scale), None, _row_lens(valid_len, q.shape[0], q.device),
+    out = _launch(q, k, v, (k_scale, v_scale), None, valid_len,
                   SLAB_TILE, -(-s // SLAB_TILE), s, 0, what)
     flash_decode_int8.launches += 1
     return out

@@ -2,7 +2,8 @@
 
 - ``ops/build.py`` names each library by a hash of its source and of the
   headers it includes, so an edit to ``csrc/hopper.cuh`` rebuilds the two
-  attention sources and no other.
+  attention sources and the decode source (its mbarrier helpers) and no
+  other.
 - The attention kernels are Hopper designs: their sources, with the
   headers they include, issue TMA loads (``cp.async.bulk.tensor``) and
   ``wgmma.mma_async`` products. Neither source keeps a WMMA path or an
@@ -30,7 +31,7 @@ def test_hopper_header_rebuilds_exactly_the_attention_sources(tmp_path, monkeypa
     (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text() + "\n// edited\n")
     after = {n: build._target(n).name for n in build.SOURCES}
     changed = {n for n in build.SOURCES if before[n] != after[n]}
-    assert changed == {"flash_attention", "flash_attention_bwd"}
+    assert changed == {"flash_attention", "flash_attention_bwd", "flash_decode"}
     (csrc / "common.cuh").write_text((csrc / "common.cuh").read_text() + "\n// edited\n")
     assert all(build._target(n).name != after[n] for n in build.SOURCES)
 
