@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` (an unpacked older checkout, e.g. ``git archive`` of the
+parent commit) also times that checkout's depthwise kernels on the same
+inputs, before and after this checkout's (rows 11-12, ``was_ms``).
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all five
@@ -92,12 +96,17 @@
     versions within ``MN_STEP_TOL`` (``mobilenet_step_vs_plain:``), and one
     step is profiled (``mobilenet_step_profile:``).
 12. Rows 11 and 12 (the depthwise kernels) hold every one of the step's
-    10 depthwise shapes at B 256 against the plain versions and time the
-    largest-bytes (48x48x96 stride 2) and the smallest (3x3x960) shape
-    against the plain versions, the bound and the three-call library
-    composition; ``step_ms_all_blocks`` sums the kernel over the 17
-    blocks of a step. Row 12 also shows that a backward without the
-    GroupNorm statistics' gradient terms fails its limit.
+    10 depthwise shapes at B 256 against the plain versions (the forward
+    bit for bit, asserted) and time the largest-bytes (48x48x96 stride 2)
+    and the smallest (3x3x960) shape against the plain versions, the
+    bound and the three-call library composition; ``step_ms_all_blocks``
+    sums the kernel over the 17 blocks of a step. Each shape gives the
+    same bits on a second launch (y; dx, dw, dscale, dbias) and prints
+    its plan (``by_shape``: channel chunk, cluster, tile, images a CTA,
+    CTAs, shared memory). Row 11 shows that a forward whose statistics
+    come from the cluster's rank-0 tile alone fails its limit, row 12
+    that a backward without the GroupNorm statistics' gradient terms
+    does.
 13. Long-context training: the flagship at max_seq 16384 with
     ``remat=True`` (the JAX CLI ``experiments/lm/train.py --seq 16384
     --remat`` at the flagship's dims; B 1 where the CLI defaults to 8),
@@ -159,6 +168,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -1428,6 +1438,72 @@ def _dwgn_library(x, k, scale, bias, stride):
     return F.hardtanh(y, 0.0, 6.0)
 
 
+DWGN_BIG, DWGN_SMALL = (48, 48, 96, 2), (3, 3, 960, 1)
+
+
+def _dwgn_cases(shapes):
+    """``(shape, x, k, scale, bias, g)`` of every depthwise shape at B
+    ``MN_B``, drawn in order from one seeded generator: the same tensors in
+    every run and every checkout."""
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for key in shapes:
+        h, w, c, s = key
+        x, k, sc, bi = _dwgn_inputs(g, MN_B, h, w, c)
+        _, _, oh, ow = dg._geometry(h, w, s)
+        gout = torch.rand(MN_B, oh, ow, c, generator=g, device="cuda").to(torch.bfloat16)
+        yield key, x, k, sc, bi, gout
+
+
+def _dwgn_times(shapes):
+    """``{shape: [forward ms, backward ms]}`` of the depthwise kernels of
+    the ``distriflow_tpu_torch`` first on ``sys.path``, timed as rows 11-12
+    time them."""
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+    flush, out = _flush_buffer(), {}
+    for (h, w, c, s), x, k, sc, bi, gout in _dwgn_cases(shapes):
+        iters = 20 if (h, w, c, s) in (DWGN_BIG, DWGN_SMALL) else 5
+        out[f"{h}x{w}x{c} s{s}"] = [
+            _timed(lambda: dg.depthwise_gn_forward(x, k, sc, bi, s), iters, flush),
+            _timed(lambda: dg.depthwise_gn_backward(x, k, sc, bi, gout, s), iters, flush)]
+    return out
+
+
+def _parent_dwgn_times(parent, shapes):
+    """:func:`_dwgn_times` of the checkout at ``parent``, in a process of
+    its own (the parent's package and kernels, this file's timer)."""
+    torch.cuda.empty_cache()
+    code = ("import importlib.util, json, sys\n"
+            f"spec = importlib.util.spec_from_file_location('smoke', {os.path.abspath(__file__)!r})\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            f"print(json.dumps(m._dwgn_times({list(shapes)!r})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True, text=True,
+                         timeout=600, check=True)
+    return {k: [float(v) for v in t] for k, t in json.loads(out.stdout.splitlines()[-1]).items()}
+
+
+def _plan_of(plan, batch):
+    return {"cc": plan.cc, "cluster": plan.cluster, "tile": [plan.rows, plan.cols],
+            "tiles_per_cta": plan.tiles_per_cta, "images_per_cta": plan.images,
+            "ctas": plan.ctas(batch), "smem_bytes": plan.smem}
+
+
+def _with_was(rows, shapes, was):
+    """Rows 11-12 with ``was_ms`` beside each shape and the step's sum:
+    the :func:`_dwgn_times` runs of an older checkout in ``was``."""
+    for i, row in enumerate(rows):
+        for (h, w, c, s), count in shapes.items():
+            tag = f"{h}x{w}x{c} s{s}"
+            row["by_shape"][tag]["was_ms"] = [run[tag][i] for run in was] or "not measured"
+        row["step_was_ms_all_blocks"] = [
+            sum(count * run[f"{h}x{w}x{c} s{s}"][i] for (h, w, c, s), count in shapes.items())
+            for run in was] or "not measured"
+    return rows
+
+
 def _mobilenet_kernel_rows(launches, shapes):
     """Rows 11 and 12: each depthwise shape of one step at B ``MN_B`` held
     against the plain versions; times (kernel, plain, the library
@@ -1436,27 +1512,33 @@ def _mobilenet_kernel_rows(launches, shapes):
     blocks of a step."""
     from distriflow_tpu_torch.ops import depthwise_gn as dg
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     flush = _flush_buffer()
-    big, small = (48, 48, 96, 2), (3, 3, 960, 1)
+    big, small = DWGN_BIG, DWGN_SMALL
     lib_note = ("composition of three calls (cuDNN depthwise F.conv2d(groups=C) + F.group_norm + "
                 "F.hardtanh(0, 6); autograd through it for the backward): no single PyTorch "
                 "call computes this function")
     fwd = {"errs": [], "by_shape": {}, "ms": 0.0, "bound": 0.0}
     bwd = {"errs": [], "shares": [], "sums": {}, "by_shape": {}, "ms": 0.0, "bound": 0.0}
-    controls = {}
-    for key, count in shapes.items():
-        h, w, c, s = key
-        x, k, sc, bi = _dwgn_inputs(g, MN_B, h, w, c)
+    controls, fwd_controls, same_bits = {}, {}, True
+    for (h, w, c, s), x, k, sc, bi, gout in _dwgn_cases(shapes):
+        key, count = (h, w, c, s), shapes[(h, w, c, s)]
         _, _, oh, ow = dg._geometry(h, w, s)
-        gout = torch.rand(MN_B, oh, ow, c, generator=g, device="cuda").to(torch.bfloat16)
         tag = f"{h}x{w}x{c} s{s}"
-        fwd["errs"].append(_over(f"depthwise_gn_fwd {tag}", dg.depthwise_gn_forward(x, k, sc, bi, s),
-                                 dg.depthwise3x3_groupnorm_reference(x, k, sc, bi, s),
-                                 *TOL["depthwise_gn_fwd"]))
+        y = dg.depthwise_gn_forward(x, k, sc, bi, s)
+        y_want = dg.depthwise3x3_groupnorm_reference(x, k, sc, bi, s)
+        fwd["errs"].append(_over(f"depthwise_gn_fwd {tag}", y, y_want, *TOL["depthwise_gn_fwd"]))
+        assert fwd["errs"][-1] == 0.0, f"depthwise_gn_fwd {tag}: not bit for bit ({fwd['errs'][-1]})"
         want = dg.depthwise3x3_groupnorm_backward_reference(x, k, sc, bi, gout, s)
-        err, share, sums = _dwgn_bwd_check(f"depthwise_gn_bwd {tag}",
-                                           dg.depthwise_gn_backward(x, k, sc, bi, gout, s), want)
+        got = dg.depthwise_gn_backward(x, k, sc, bi, gout, s)
+        err, share, sums = _dwgn_bwd_check(f"depthwise_gn_bwd {tag}", got, want)
+        again = dg.depthwise_gn_backward(x, k, sc, bi, gout, s)
+        same_bits &= torch.equal(y, dg.depthwise_gn_forward(x, k, sc, bi, s)) and all(
+            torch.equal(a, b) for a, b in zip(got, again))
+        assert same_bits, f"depthwise {tag}: a second launch gave other bits"
+        plans = {"fwd": _plan_of(dg.dwgn_plan(h, w, c, s, False), MN_B),
+                 "bwd": _plan_of(dg.dwgn_plan(h, w, c, s, True), MN_B)}
+        fwd["by_shape"][tag] = {"blocks_per_step": count, "plan": plans["fwd"]}
+        bwd["by_shape"][tag] = {"blocks_per_step": count, "plan": plans["bwd"]}
         bwd["errs"].append(err)
         bwd["shares"].append(share)
         for n, v in sums.items():
@@ -1473,6 +1555,8 @@ def _mobilenet_kernel_rows(launches, shapes):
         bwd["ms"] += count * tb
         fwd["bound"] += count * fb[0]
         bwd["bound"] += count * bb[0]
+        fwd["by_shape"][tag].update(ms=tf, max_abs_err=fwd["errs"][-1])
+        bwd["by_shape"][tag].update(ms=tb, max_abs_err=err, dx_outside_share=share)
         if key not in (big, small):
             continue
         kl = k.permute(2, 0, 1).unsqueeze(1).contiguous()
@@ -1480,20 +1564,31 @@ def _mobilenet_kernel_rows(launches, shapes):
         leaves = [t.detach().clone().requires_grad_() for t in (x, kl, scb, bib)]
         lib_out = _dwgn_library(*leaves, s)
         gout_nchw = gout.permute(0, 3, 1, 2)
-        fwd["by_shape"][tag] = {
-            "blocks_per_step": count, "max_abs_err": fwd["errs"][-1], "ms": tf,
-            "plain_ms": _timed(lambda: dg.depthwise3x3_groupnorm_reference(x, k, sc, bi, s), 3, flush),
-            "bound_ms": fb[0], "bound_by": fb[1],
-            "library_ms": _timed(lambda: _dwgn_library(x, kl, scb, bib, s), 20, flush)}
-        bwd["by_shape"][tag] = {
-            "blocks_per_step": count, "max_abs_err": err, "dx_outside_share": share,
-            "sum_rel_err": sums, "ms": tb,
-            "plain_ms": _timed(lambda: dg.depthwise3x3_groupnorm_backward_reference(
+        fwd["by_shape"][tag].update(
+            plain_ms=_timed(lambda: dg.depthwise3x3_groupnorm_reference(x, k, sc, bi, s), 3, flush),
+            bound_ms=fb[0], bound_by=fb[1],
+            library_ms=_timed(lambda: _dwgn_library(x, kl, scb, bib, s), 20, flush))
+        bwd["by_shape"][tag].update(
+            sum_rel_err=sums,
+            plain_ms=_timed(lambda: dg.depthwise3x3_groupnorm_backward_reference(
                 x, k, sc, bi, gout, s), 3, flush),
-            "bound_ms": bb[0], "bound_by": bb[1],
-            "library_ms": _timed(lambda: torch.autograd.grad(lib_out, leaves, gout_nchw,
-                                                             retain_graph=True), 20, flush)}
+            bound_ms=bb[0], bound_by=bb[1],
+            library_ms=_timed(lambda: torch.autograd.grad(lib_out, leaves, gout_nchw,
+                                                          retain_graph=True), 20, flush))
         if key == big:
+            # the forward's limit must reject statistics taken from the
+            # cluster's rank-0 tile alone (the plan's decomposition, a plain
+            # mirror): on N(0, 1) inputs a third of the image's positions
+            # move the mean and inv a little, and 0.41 of the outputs leave
+            # the limit (measured on the H100); 0.1 keeps a margin
+            wrong_y = dg.banded_forward_reference(x, k, sc, bi, s, stats_ranks=[0])
+            atol, rtol = TOL["depthwise_gn_fwd"]
+            fwd_controls["stats_from_rank0_only"] = float(
+                ((wrong_y.float() - y_want.float()).abs()
+                 > atol + rtol * y_want.float().abs()).float().mean())
+            assert fwd_controls["stats_from_rank0_only"] > 0.1, \
+                f"depthwise_gn_fwd limit passes rank-0-only statistics: {fwd_controls}"
+            del wrong_y
             # the limit must reject a backward that treats the statistics as
             # constants (drops the mean and inv gradient terms)
             wrong = dg.depthwise3x3_groupnorm_backward_reference(x, k, sc, bi, gout, s,
@@ -1504,11 +1599,12 @@ def _mobilenet_kernel_rows(launches, shapes):
                  > atol + rtol * want[0].float().abs()).float().mean())
             assert controls["stats_terms_dropped"] > 0.5, \
                 f"depthwise_gn_bwd limit passes a gradient without the statistics terms: {controls}"
-        del x, k, gout, want, leaves, lib_out
+        del x, k, gout, want, got, again, y, y_want, leaves, lib_out
     shape_note = f"B={MN_B} NHWC bf16; 17 blocks of {len(shapes)} shapes; ms/plain/library at {{}}"
     rows = []
     for name, d, line, extra in (
-            ("depthwise_gn_fwd", fwd, "distriflow_tpu/ops/depthwise_gn.py:180", {}),
+            ("depthwise_gn_fwd", fwd, "distriflow_tpu/ops/depthwise_gn.py:180",
+             {"rejected_share": fwd_controls}),
             ("depthwise_gn_bwd", bwd, "distriflow_tpu/ops/depthwise_gn.py:184",
              {"dx_outside_share_max": max(bwd["shares"]), "dx_outside_limit": DWGN_FLIP_SHARE,
               "sum_rel_err_max": bwd["sums"], "rejected_share": controls})):
@@ -1521,7 +1617,7 @@ def _mobilenet_kernel_rows(launches, shapes):
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"], "library_ms": at["library_ms"],
             "library_note": lib_note, "shape": shape_note.format("48x48x96 s2"),
             "by_shape": d["by_shape"], "step_ms_all_blocks": d["ms"],
-            "step_bound_ms_all_blocks": d["bound"], **extra})
+            "step_bound_ms_all_blocks": d["bound"], "deterministic": same_bits, **extra})
     return rows
 
 
@@ -1883,6 +1979,11 @@ def _dense_ce_rows(launches, steps):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--parent", help="an older checkout whose depthwise kernels to time too")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2051,8 +2152,13 @@ def main() -> int:
     rows += int8_rows
     train_rows, rows[0]["training_shape"] = _training_kernel_rows(training, TRAIN_STEPS)
     rows += train_rows
-    rows += _mobilenet_kernel_rows({k: mn_train[k] for k in ("depthwise_gn_fwd", "depthwise_gn_bwd")},
-                                   shapes)
+    # an older checkout's depthwise kernels before and after this one's
+    was = [_parent_dwgn_times(args.parent, shapes)] if args.parent else []
+    dw_rows = _mobilenet_kernel_rows(
+        {k: mn_train[k] for k in ("depthwise_gn_fwd", "depthwise_gn_bwd")}, shapes)
+    if args.parent:
+        was.append(_parent_dwgn_times(args.parent, shapes))
+    rows += _with_was(dw_rows, shapes, was)
     rows += _split_bwd_rows(long_training, LONG_TRAIN_STEPS)
     rows += _dense_ce_rows(cn_train, CN_STEPS)
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",

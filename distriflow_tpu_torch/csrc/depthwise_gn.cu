@@ -1,5 +1,6 @@
 // Fused depthwise 3x3 (SAME) + GroupNorm(8) + affine + ReLU6, forward and
-// backward, over bf16 NHWC activations.
+// backward, over bf16 NHWC activations, as thread-block-cluster kernels that
+// read the activation once through TMA.
 //
 // Replaces the Pallas TPU kernels of the JAX package
 //   distriflow_tpu/ops/depthwise_gn.py::_fwd_kernel  (kernel 11)
@@ -8,241 +9,506 @@
 //
 // Arithmetic (depthwise_gn.py:141-177): the conv adds the nine products
 // x * w[ky, kx] in (ky, kx) order, each product and each sum rounded to
-// bf16 (done in f32 with __fmul_rn/__fadd_rn, which nvcc never contracts
-// into an FMA, then rounded: the f32 product of two bf16 values is exact and
-// the f32 sum of two rounds to the same bf16). Statistics per (batch, group
-// of 8 channels) over all output positions in f32: mean, E[x^2],
-// inv = rsqrt(max(E[x^2] - mean^2, 0) + eps); y = bf16((x - mean) * inv *
-// scale + bias), then min(max(y, 0), 6). The backward is the exact
-// derivative jax.vjp takes of that tile: at y == 0 and y == 6 half the
+// bf16 (done on bf16 pairs with mul.rn/add.rn.bf16x2, the exact result
+// rounded once: the same bits as the f32 operation rounded to bf16, since the
+// f32 product of two bf16 values is exact and the f32 sum of two rounds to
+// the same bf16; dx's nine taps likewise). Statistics per (batch, group
+// of 8 channels) over all output positions: mean and E[x^2], each the f32
+// of an f64 sum, inv = rsqrt(max(E[x^2] - mean^2, 0) + eps); y = bf16((x -
+// mean) * inv * scale + bias), then min(max(y, 0), 6). The backward is the
+// exact derivative jax.vjp takes of that tile: at y == 0 and y == 6 half the
 // gradient passes, as does the variance clamp at 0; the conv-output
-// cotangent is rounded to bf16 and the nine dx contributions are added in
-// bf16 from tap (2, 2) down to (0, 0). dw, dscale, dbias leave the kernel as
-// per-batch f32 partials (dw rounded to bf16 per batch, as the tile's dw
-// is), summed over the batch outside in a fixed order: no atomics, so every
-// run gives the same bits.
-//
-// Every sum over a group's or a channel's positions (the statistics, the
-// statistics' gradients, dscale, dbias; dw over the threads) is accumulated
-// in f64 and rounded to f32 once, so it is the f32 of the exact sum, in
-// whatever order the threads add. The plain versions do the same, so the
-// two agree bit for bit where JAX's f32 sums would leave them apart by
-// their orders: the one-pass variance E[x^2] - E[x]^2 of a group whose
-// values are nearly constant (flat image regions) cancels, and f32 sums in
-// two orders then give variances, and outputs, percent apart.
-//
-// Grid. The TPU kernel keeps a (batch, channel-block) tile at full spatial
-// extent in VMEM. Here a block of 256 threads owns one batch element and up
-// to 32 groups (blockIdx = (group chunk, batch)); thread t takes group
-// t % gb and every (256 / gb)-th output position, so neighbouring threads
-// read neighbouring 16-byte group vectors (one load per position, tap and
-// group). Group statistics need every position of a group, and a 112x112
-// group does not fit shared memory, so nothing is kept: the forward walks
-// its positions twice (statistics, then output), recomputing the conv; the
-// second walk reads what the first just brought into L1/L2. The backward's
-// first kernel walks three times (statistics; dscale, dbias and the
-// statistics' gradients; the conv-output cotangent and dw) and writes the
-// cotangent to a bf16 scratch; its second kernel, one thread per (input
-// position, group), gathers the nine taps of that cotangent into dx. Shapes
-// of one MobileNetV2 step at 96 px and B 256 range from 48x48x32 (256
-// blocks, 36 positions a thread) to 3x3x960 (1,024 blocks, 9 positions).
+// cotangent (dacc) is rounded to bf16 and the nine dx contributions are
+// added in bf16 from tap (2, 2) down to (0, 0). dw, dscale and dbias leave
+// the kernel as per-batch f32 partials (dw rounded to bf16 per batch, as the
+// tile's dw is), summed over the batch outside in a fixed order. Every sum
+// over positions of the statistics, their gradients, dscale and dbias is
+// accumulated in f64 and rounded to f32 once: the f32 of the exact sum, so
+// the order in which threads, CTAs and tiles add does not show, and the
+// plain versions (ops/depthwise_gn.py) give the same bits. dw's rounded
+// products are added in f32 by each thread, then over a warp's lanes in f32
+// and over the warps in f64: its one sum whose last bits depend on the
+// order (fixed, so every launch gives the same bits).
 //
 // Bound: a few f32 operations per element against 2 bytes read and 2
 // written, so bytes bound both kernels (forward: x read, y written;
 // backward: x and g read, dx written).
+//
+// Plan (ops/depthwise_gn.py::dwgn_plan, passed in as ints; the layout below
+// refuses a launch whose shared-memory count differs from the plan's). One
+// cluster of `cluster` CTAs (at most 8, the portable size) owns one (batch
+// element, chunk of cc channels): grid (cluster, C / cc, ceil(B / nb)). The
+// output is cut into tiles of rows x cols positions, and rank r takes tiles
+// r, r + cluster, ... Each CTA loads a tile's input box with one 4-D TMA
+// copy ({C, W, H, B} map, box {cc, cols_in, rows_in, nb}) whose start may
+// be negative: the hardware fills everything outside the tensor with zeros,
+// and that is the SAME padding, with no branch in the tap loop. The
+// backward's g box comes on a second mbarrier, so pass 1 starts on x alone.
+// A thread keeps one group of 8 channels (cc / 8 is a power of two that
+// divides 32), and neighbouring threads read neighbouring 16-byte vectors.
+// Small images (3x3, 6x6, 12x12 at stride 2) put nb of them side by side in
+// one CTA, kThreads / nb threads (whole warps) each, so that a CTA's fixed
+// costs (the copy, the barriers, the reductions) serve more work.
+//   - Resident plans (one tile a CTA; every shape of MobileNetV2 at 96 px)
+//     load x (and in the backward g) once and run every pass from shared
+//     memory: HBM traffic is x once plus the halo rows, which the cluster's
+//     neighbours fetch at the same time through L2, and y (dx) once.
+//   - Shapes too wide or too large for eight resident tiles (the JAX gate
+//     admits, e.g., 341 x 341 at C 8) stream: each pass loads each of the
+//     CTA's tiles again (two passes over x in the forward, three over x and
+//     g in the backward).
+//
+// Cluster exchanges (no atomics). Each CTA reduces its per-thread f64 sums
+// with a warp butterfly and then across its 8 warps in order, stores them in
+// its shared memory, and meets the cluster at barrier.cluster
+// (release/acquire). Every CTA then reads every rank's slots through
+// distributed shared memory (mapa + ld.shared::cluster) in rank order 0..n-1,
+// so all of them hold the same statistics; rank 0 alone writes the batch
+// element's dscale/dbias and dw partials. Each exchange has slots of its own,
+// and the kernel ends at a cluster barrier, so that no CTA leaves while
+// another still reads its shared memory. A cluster of one (most shapes)
+// meets at __syncthreads instead. The butterflies shuffle all of a thread's
+// values at each step together, so that their latencies overlap.
+//   forward:  pass 1 statistics -> exchange -> pass 2 y.
+//   backward: pass 1 statistics -> exchange; pass 2 dscale, dbias and the
+//             statistics' gradients -> exchange; pass 3 (per tile) dacc over
+//             the tile and the ring of outputs around it, computed again
+//             from the box (which covers one more output on every side) and
+//             stored in place of g, then dw tap by tap over the tile, then dx
+//             for the input rows and columns the tile owns (those from its
+//             first output's stride multiple to the next tile's) -> exchange
+//             of dw. Recomputing the ring's cotangent instead of reading it
+//             from the neighbour keeps pass 3 free of cluster barriers and
+//             the same for resident and streamed plans: no dacc scratch in
+//             HBM and no second launch.
 
-#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using dftt::hopper::cluster_rank;
+using dftt::hopper::cluster_sync;
+using dftt::hopper::fence_barrier_init;
+using dftt::hopper::fence_proxy_async;
+using dftt::hopper::ld_cluster_f64;
+using dftt::hopper::mbar_arrive_expect_tx;
+using dftt::hopper::mbar_init;
+using dftt::hopper::mbar_wait;
+using dftt::hopper::smem_addr;
+using dftt::hopper::tma_load_nhwc;
+
 constexpr int kThreads = 256;
-constexpr int kMaxGroupsPerBlock = 32;
+constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 8;
+constexpr int kMaxChunk = 128;
+constexpr int kMaxCluster = 8;
+constexpr int kMaxBox = 256;
+constexpr int kSmemLimit = 232448;
 
-struct Geo {
-  int B, H, W, C, G, s, OH, OW, pt, pl, P, gb, nps;
+constexpr int align128(int n) { return (n + 127) / 128 * 128; }
+
+// One launch's geometry and plan, and the shared-memory layout they imply.
+struct Plan {
+  int B, H, W, C, s, OH, OW, pt, pl;  // activation, stride, output, SAME pads
+  int cc, gc;                         // channels and groups a cluster owns
+  int rows, cols, n_rt, n_ct;         // output tile; tiles down and across
+  int cluster, tiles, nb;             // CTAs a cluster, tiles a CTA, images a CTA
+  int halo;                           // 1 (backward): the box covers the tile's ring
+  int xr, xc, gr, gw;                 // x box and g box (rows, cols) of one image
+  int off_g, off_red, off_dwr, off_xch, off_st, off_bar, smem;
 };
 
-Geo make_geo(int B, int H, int W, int C, int s) {
-  Geo q;
-  q.B = B;
-  q.H = H;
-  q.W = W;
-  q.C = C;
-  q.G = C / kGroup;
-  q.s = s;
-  const int th = std::max(((H + s - 1) / s - 1) * s + 3 - H, 0);
-  const int tw = std::max(((W + s - 1) / s - 1) * s + 3 - W, 0);
-  q.pt = th / 2;
-  q.pl = tw / 2;
-  q.OH = (H + th - 3) / s + 1;
-  q.OW = (W + tw - 3) / s + 1;
-  q.P = q.OH * q.OW;
-  q.gb = std::min(q.G, kMaxGroupsPerBlock);
-  q.nps = kThreads / q.gb;
-  return q;
+bool make_plan(Plan& p, int B, int H, int W, int C, int s, int cc, int rows, int cols, int cluster,
+               int tiles, int nb, int backward) {
+  if (B < 1 || H < 1 || W < 1 || C < kGroup || C % kGroup || (s != 1 && s != 2) ||
+      cc < kGroup || cc > kMaxChunk || cc % kGroup || C % cc || 32 % (cc / kGroup) ||
+      C / cc > 65535 || rows < 1 || cols < 1 || tiles < 1 || cluster < 1 ||
+      cluster > kMaxCluster || (nb != 1 && nb != 2 && nb != 4 && nb != 8) || nb * cc > kThreads ||
+      (B + nb - 1) / nb > 65535)
+    return false;
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.s = s;
+  const int th = ((H + s - 1) / s - 1) * s + 3 - H, tw = ((W + s - 1) / s - 1) * s + 3 - W;
+  p.pt = (th > 0 ? th : 0) / 2;
+  p.pl = (tw > 0 ? tw : 0) / 2;
+  p.OH = (H + (th > 0 ? th : 0) - 3) / s + 1;
+  p.OW = (W + (tw > 0 ? tw : 0) - 3) / s + 1;
+  p.cc = cc;
+  p.gc = cc / kGroup;
+  p.rows = rows;
+  p.cols = cols;
+  p.n_rt = (p.OH + rows - 1) / rows;
+  p.n_ct = (p.OW + cols - 1) / cols;
+  p.cluster = cluster;
+  p.tiles = tiles;
+  p.nb = nb;
+  p.halo = backward ? 1 : 0;
+  p.xr = (rows + 2 * p.halo - 1) * s + 3;
+  p.xc = (cols + 2 * p.halo - 1) * s + 3;
+  p.gr = rows + 2;
+  p.gw = cols + 2;
+  const int n_tiles = p.n_rt * p.n_ct;
+  if (cluster > n_tiles || cluster * tiles < n_tiles || p.xr > kMaxBox || p.xc > kMaxBox ||
+      p.gw > kMaxBox || p.gr > kMaxBox)
+    return false;
+  // x boxes; g boxes (backward); two f64 reduction buffers of kWarps x cc;
+  // the backward's f32 warp sums of dw, [9][kWarps][cc]; exchange slots; 8
+  // floats of statistics a group; the two mbarriers (x, g)
+  const int xch = nb * (backward ? 11 * cc + 4 * p.gc : 2 * p.gc);
+  p.off_g = align128(nb * p.xr * p.xc * cc * 2);
+  p.off_red = p.off_g + align128(backward ? nb * p.gr * p.gw * cc * 2 : 0);
+  p.off_dwr = p.off_red + align128(2 * kWarps * cc * 8);
+  p.off_xch = p.off_dwr + align128(backward ? 9 * kWarps * cc * 4 : 0);
+  p.off_st = p.off_xch + align128(xch * 8);
+  p.off_bar = p.off_st + align128(nb * p.gc * 32);
+  p.smem = 128 + p.off_bar + 16;  // 128: to align the base
+  return p.smem <= kSmemLimit;
 }
 
-__device__ __forceinline__ float rb(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+struct Smem {
+  __nv_bfloat16* x;  // [nb][xr][xc][cc]
+  __nv_bfloat16* g;  // [nb][gr][gw][cc]: g, then the cotangent in its place
+  double* red;       // [2][8][kWarps][gc]
+  float* dwr;        // [9][kWarps][8][gc]
+  double* xch;       // stats [nb][2][gc]; ds, db [nb][8][gc]; dstats [nb][2][gc]; dw [9][nb][8][gc]
+  float* st;         // [nb][gc][8]: mean, var, inv, -, dvar / n, dmean / n
+  uint64_t* bar;     // [2]: the x boxes' and the g boxes' copies
+};
 
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
-  __align__(16) __nv_bfloat162 o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+__device__ __forceinline__ Smem carve(const Plan& p) {
+  extern __shared__ __align__(128) unsigned char raw[];
+  unsigned char* base = raw + ((128 - (smem_addr(raw) & 127)) & 127);
+  Smem sm;
+  sm.x = reinterpret_cast<__nv_bfloat16*>(base);
+  sm.g = reinterpret_cast<__nv_bfloat16*>(base + p.off_g);
+  sm.red = reinterpret_cast<double*>(base + p.off_red);
+  sm.dwr = reinterpret_cast<float*>(base + p.off_dwr);
+  sm.xch = reinterpret_cast<double*>(base + p.off_xch);
+  sm.st = reinterpret_cast<float*>(base + p.off_st);
+  sm.bar = reinterpret_cast<uint64_t*>(base + p.off_bar);
+  return sm;
 }
 
-// The 8 input values of group g at tap (ky, kx) of output (oy, ox); zeros
-// in the SAME padding.
-__device__ __forceinline__ void tap8(const __nv_bfloat16* xb, const Geo& q, int oy, int ox, int ky,
-                                     int kx, int g, float* v) {
-  const int iy = oy * q.s + ky - q.pt, ix = ox * q.s + kx - q.pl;
-  if (iy >= 0 && iy < q.H && ix >= 0 && ix < q.W) {
-    dftt::load8(xb + ((int64_t)iy * q.W + ix) * q.C + g * kGroup, v);
-  } else {
-#pragma unroll
-    for (int c = 0; c < kGroup; ++c) v[c] = 0.f;
-  }
-}
-
-// The conv at output position p for group g: nine rounded products added
-// in (ky, kx) order with a rounding after each add. w: [9][8] in shared.
-__device__ __forceinline__ void conv8(const __nv_bfloat16* xb, const Geo& q, int p, int g,
-                                      const float* w, float* acc) {
-  const int oy = p / q.OW, ox = p % q.OW;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    float v[kGroup];
-    tap8(xb, q, oy, ox, k / 3, k % 3, g, v);
-#pragma unroll
-    for (int c = 0; c < kGroup; ++c) {
-      const float t = rb(__fmul_rn(v[c], w[k * kGroup + c]));
-      acc[c] = k == 0 ? t : rb(__fadd_rn(acc[c], t));
-    }
-  }
-}
-
-// Per-thread state: this thread's group (local and global) and position slot.
+// A thread's place: image `img` of the CTA's nb (batch element b, real if
+// live), group g of the chunk (channels ch0..ch0+7), and its first position
+// slot and slot stride over the image's kThreads / nb threads (whole warps).
 struct Lane {
-  int gl, ps, g, b;
-  bool active;
+  int img, b, g, ch0, slot, step;
+  bool live;
+  __nv_bfloat16* xs;  // this image's x box
+  __nv_bfloat16* gs;  // this image's g box
 };
 
-__device__ __forceinline__ Lane lane(const Geo& q) {
+__device__ __forceinline__ Lane lane_of(const Plan& p, const Smem& sm, int chunk) {
+  const int tpi = kThreads / p.nb, lt = threadIdx.x % tpi;
   Lane l;
-  l.gl = threadIdx.x % q.gb;
-  l.ps = threadIdx.x / q.gb;
-  l.g = blockIdx.x * q.gb + l.gl;
-  l.b = blockIdx.y;
-  l.active = l.ps < q.nps && l.g < q.G;
+  l.img = threadIdx.x / tpi;
+  l.b = blockIdx.z * p.nb + l.img;
+  l.live = l.b < p.B;
+  l.g = lt % p.gc;
+  l.ch0 = chunk * p.cc + l.g * kGroup;
+  l.slot = lt / p.gc;
+  l.step = tpi / p.gc;
+  l.xs = sm.x + l.img * p.xr * p.xc * p.cc;
+  l.gs = sm.g + l.img * p.gr * p.gw * p.cc;
   return l;
 }
 
-// The block's groups' depthwise weights into shared memory as f32.
-__device__ __forceinline__ void load_weights(const __nv_bfloat16* w, const Geo& q, const Lane& l,
-                                             float (*sw)[9 * kGroup]) {
-  if (l.active && l.ps == 0) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) dftt::load8(w + k * q.C + l.g * kGroup, &sw[l.gl][k * kGroup]);
-  }
-  __syncthreads();
-}
-
-// Sum over position slots of each group's per-thread values, in slot
-// order; returns the sum to thread gl < gb (the others get 0).
-__device__ __forceinline__ double group_sum(double v, const Geo& q, double* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  double s = 0.0;
-  if (threadIdx.x < q.gb) {
-    for (int i = 0; i < q.nps; ++i) s = __dadd_rn(s, red[i * q.gb + threadIdx.x]);
-  }
-  __syncthreads();
-  return s;
-}
-
-// Sum over position slots of each (group, channel) value; thread
-// gl * 8 + c receives the sum of channel c of local group gl.
-template <typename T>
-__device__ __forceinline__ double channel_sum(const T* v, const Geo& q, double* red) {
-#pragma unroll
-  for (int c = 0; c < kGroup; ++c) red[threadIdx.x * kGroup + c] = v[c];
-  __syncthreads();
-  double s = 0.0;
-  if (threadIdx.x < q.gb * kGroup) {
-    const int gl = threadIdx.x / kGroup, c = threadIdx.x % kGroup;
-    for (int i = 0; i < q.nps; ++i) s = __dadd_rn(s, red[(i * q.gb + gl) * kGroup + c]);
-  }
-  __syncthreads();
-  return s;
-}
-
-struct Stats {
-  float m, var, inv;
+// Eight channels as four bf16 pairs (the lower channel in the low half).
+struct V8 {
+  uint32_t h[4];
 };
 
-// Pass over every position: each group's mean, E[x^2] - mean^2 and inv,
-// broadcast to the block through shared memory.
-__device__ Stats group_stats(const __nv_bfloat16* xb, const Geo& q, const Lane& l,
-                             const float* w, float eps, double* red, Stats* sh) {
-  double s = 0.0, ss = 0.0;
-  if (l.active) {
-    for (int p = l.ps; p < q.P; p += q.nps) {
-      float acc[kGroup];
-      conv8(xb, q, p, l.g, w, acc);
-#pragma unroll
-      for (int c = 0; c < kGroup; ++c) {
-        s = __dadd_rn(s, acc[c]);
-        ss = __dadd_rn(ss, __fmul_rn(acc[c], acc[c]));
-      }
-    }
-  }
-  s = group_sum(s, q, red);
-  ss = group_sum(ss, q, red);
-  if (threadIdx.x < q.gb) {
-    const double n = static_cast<double>(q.P * kGroup);
-    const float m = __double2float_rn(__ddiv_rn(s, n)), m2 = __double2float_rn(__ddiv_rn(ss, n));
-    const float var = __fsub_rn(m2, __fmul_rn(m, m));
-    sh[threadIdx.x] = {m, var, rsqrtf(__fadd_rn(fmaxf(var, 0.f), eps))};
-  }
-  __syncthreads();
-  return sh[l.gl];
+__device__ __forceinline__ V8 ld8(const __nv_bfloat16* p) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  return {{r.x, r.y, r.z, r.w}};
 }
 
-__global__ void __launch_bounds__(kThreads) dwgn_fwd_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    __nv_bfloat16* __restrict__ out, Geo q, float eps, int relu6) {
-  __shared__ float sw[kMaxGroupsPerBlock][9 * kGroup];
-  __shared__ double red[kThreads];
-  __shared__ Stats sh[kMaxGroupsPerBlock];
-  const Lane l = lane(q);
-  const __nv_bfloat16* xb = x + (int64_t)l.b * q.H * q.W * q.C;
-  load_weights(w, q, l, sw);
-  const Stats st = group_stats(xb, q, l, sw[l.gl], eps, red, sh);
-  if (!l.active) return;
-  float sc[kGroup], bi[kGroup];
+__device__ __forceinline__ void st8(__nv_bfloat16* p, const V8& v) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v.h[0], v.h[1], v.h[2], v.h[3]);
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+__device__ __forceinline__ void unpack8(const V8& v, float* f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = bf_lo(v.h[i]);
+    f[2 * i + 1] = bf_hi(v.h[i]);
+  }
+}
+
+// Eight f32 rounded to bf16, in pairs.
+__device__ __forceinline__ V8 pack8(const float* f) {
+  V8 v;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    v.h[i] = *reinterpret_cast<const uint32_t*>(&t);
+  }
+  return v;
+}
+
+// bf16 pair arithmetic, each result the exact one rounded once to bf16: the
+// same bits as the f32 operation rounded to bf16 (the f32 product of two
+// bf16 is exact, and the f32 sum of two rounds to the same bf16).
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// min(max(v, 0), 6) of each bf16 of a pair
+__device__ __forceinline__ uint32_t relu6_2(uint32_t v) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(v), "r"(0u));
+  asm("min.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(d), "r"(0x40c040c0u));
+  return d;
+}
+
+// A thread's nine weight vectors (its group's channels), its scale and
+// bias, read while the first copy flies; then the barrier that lets every
+// thread wait on the mbarrier thread 0 set up.
+__device__ __forceinline__ void prologue(const Plan& p, const __nv_bfloat16* __restrict__ w,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ bias, int ch0, V8 (&wr)[9],
+                                         float (&sc)[kGroup], float (&bi)[kGroup]) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) wr[k] = ld8(w + k * p.C + ch0);
 #pragma unroll
   for (int c = 0; c < kGroup; ++c) {
-    sc[c] = scale[l.g * kGroup + c];
-    bi[c] = bias[l.g * kGroup + c];
+    sc[c] = scale[ch0 + c];
+    bi[c] = bias[ch0 + c];
   }
-  __nv_bfloat16* ob = out + (int64_t)l.b * q.P * q.C + l.g * kGroup;
-  for (int p = l.ps; p < q.P; p += q.nps) {
-    float acc[kGroup];
-    conv8(xb, q, p, l.g, sw[l.gl], acc);
+  __syncthreads();
+}
+
+struct Tile {
+  int r0, c0, rr, cw;  // first output row and column; rows and columns present
+};
+
+// Tile i of rank `rank` (false past the last tile).
+__device__ __forceinline__ bool tile_of(const Plan& p, int rank, int i, Tile& t) {
+  const int idx = rank + i * p.cluster;
+  if (idx >= p.n_rt * p.n_ct) return false;
+  t.r0 = (idx / p.n_ct) * p.rows;
+  t.c0 = (idx % p.n_ct) * p.cols;
+  t.rr = min(p.rows, p.OH - t.r0);
+  t.cw = min(p.cols, p.OW - t.c0);
+  return true;
+}
+
+// Thread 0: the copies of tile t's boxes of the CTA's nb images, x on
+// bar[0] and, in the backward, g on bar[1] (pass 1 needs only x).
+__device__ __forceinline__ void copy_tile(const Plan& p, const CUtensorMap* tm_x,
+                                          const CUtensorMap* tm_g, const Smem& sm, const Tile& t,
+                                          int chunk) {
+  const int b0 = blockIdx.z * p.nb;
+  mbar_arrive_expect_tx(sm.bar, p.xr * p.xc * p.cc * 2 * p.nb);
+  tma_load_nhwc(sm.x, tm_x, chunk * p.cc, (t.c0 - p.halo) * p.s - p.pl,
+                (t.r0 - p.halo) * p.s - p.pt, b0, sm.bar);
+  if (p.halo) {
+    mbar_arrive_expect_tx(sm.bar + 1, p.gr * p.gw * p.cc * 2 * p.nb);
+    tma_load_nhwc(sm.g, tm_g, chunk * p.cc, t.c0 - 1, t.r0 - 1, b0, sm.bar + 1);
+  }
+}
+
+// Sets up the mbarrier and starts the copy of tile 0 where it stays (a
+// resident plan) before the weights load; returns whether the tile stays.
+__device__ __forceinline__ bool start(const Plan& p, const CUtensorMap* tm_x,
+                                      const CUtensorMap* tm_g, const Smem& sm, int rank,
+                                      int chunk) {
+  Tile t;
+  const bool resident = p.tiles == 1 && tile_of(p, rank, 0, t);
+  if (threadIdx.x == 0) {
+    mbar_init(sm.bar, 1);
+    mbar_init(sm.bar + 1, 1);
+    fence_barrier_init();
+    if (resident) copy_tile(p, tm_x, tm_g, sm, t, chunk);
+  }
+  return resident;
+}
+
+// A streamed plan's load of tile t; every thread calls it and returns when
+// the boxes have landed. The barrier first lets every thread finish with
+// the boxes it overwrites (and, with the proxy fence, orders the threads'
+// own stores before the copy's).
+__device__ __forceinline__ void fetch(const Plan& p, const CUtensorMap* tm_x,
+                                      const CUtensorMap* tm_g, const Smem& sm, const Tile& t,
+                                      int chunk, uint32_t& phase) {
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) copy_tile(p, tm_x, tm_g, sm, t, chunk);
+  mbar_wait(sm.bar, phase);
+  if (p.halo) mbar_wait(sm.bar + 1, phase);
+  phase ^= 1;
+}
+
+// The conv at box-local output (ly, lx) for group g: nine rounded products
+// added in (ky, kx) order with a rounding after each add, in bf16 pairs.
+__device__ __forceinline__ V8 conv8(const Plan& p, const __nv_bfloat16* xs, const V8 (&wr)[9],
+                                    int ly, int lx, int g) {
+  const __nv_bfloat16* base = xs + ((ly * p.s) * p.xc + lx * p.s) * p.cc + g * kGroup;
+  V8 acc;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const V8 v = ld8(base + ((k / 3) * p.xc + k % 3) * p.cc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t t = mul2(v.h[i], wr[k].h[i]);
+      acc.h[i] = k == 0 ? t : add2(acc.h[i], t);
+    }
+  }
+  return acc;
+}
+
+// Sums each thread's N values over the threads of its image and group:
+// thread (img * N + j) * gc + g (< nb * N * gc) receives value j of group g
+// of image img, added in a fixed order (a butterfly in each warp, then the
+// image's warps in order). red: N x kWarps x gc doubles. With kSync false
+// the caller alternates buffers and provides the barrier before `red` is
+// written again.
+template <int N, bool kSync = true>
+__device__ __forceinline__ double block_sum(const Plan& p, const double (&v)[N], double* red) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, gc = p.gc;
+  double a[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) a[j] = v[j];
+  for (int off = 16; off >= gc; off >>= 1) {  // the N values' shuffles in flight together
+#pragma unroll
+    for (int j = 0; j < N; ++j) a[j] = __dadd_rn(a[j], __shfl_xor_sync(0xffffffffu, a[j], off));
+  }
+  if (lane < gc) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) red[(j * kWarps + warp) * gc + lane] = a[j];
+  }
+  __syncthreads();
+  double s = 0.0;
+  const int t = threadIdx.x;
+  if (t < p.nb * N * gc) {
+    const int img = t / (N * gc), j = (t / gc) % N, g = t % gc, wpi = kWarps / p.nb;
+    for (int w = img * wpi; w < (img + 1) * wpi; ++w) s = __dadd_rn(s, red[(j * kWarps + w) * gc + g]);
+  }
+  if (kSync) __syncthreads();
+  return s;
+}
+
+// The barrier of an exchange: the cluster's, or the CTA's in a cluster of
+// one (no distributed shared memory to order).
+__device__ __forceinline__ void exchange_sync(const Plan& p) {
+  if (p.cluster > 1) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// The sum of slot `p` over the cluster's CTAs, in rank order (the loads
+// started together, then added).
+__device__ __forceinline__ double cluster_sum(const double* p, int n) {
+  double v[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) v[r] = r < n ? ld_cluster_f64(p, r) : 0.0;
+  double s = 0.0;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    if (r < n) s = __dadd_rn(s, v[r]);
+  return s;
+}
+
+// Pass 1 over one tile: each element's value and square into the f64 sums.
+__device__ __forceinline__ void stat_sums(const Plan& p, const Lane& l, const V8 (&wr)[9],
+                                          const Tile& t, double (&sums)[2]) {
+  for (int q = l.slot; q < t.rr * t.cw; q += l.step) {
+    float a[kGroup];
+    unpack8(conv8(p, l.xs, wr, p.halo + q / t.cw, p.halo + q % t.cw, l.g), a);
 #pragma unroll
     for (int c = 0; c < kGroup; ++c) {
-      const float yn = __fmul_rn(__fsub_rn(acc[c], st.m), st.inv);
-      float y = rb(__fadd_rn(__fmul_rn(yn, sc[c]), bi[c]));
-      if (relu6) y = fminf(fmaxf(y, 0.f), 6.f);
-      acc[c] = y;
+      sums[0] = __dadd_rn(sums[0], a[c]);
+      sums[1] = __dadd_rn(sums[1], __fmul_rn(a[c], a[c]));
     }
-    store8(ob + (int64_t)p * q.C, acc);
   }
+}
+
+// Pass 1's exchange: each (image, group)'s mean, E[x^2] - mean^2 and inv
+// from the CTAs' (sum, sum of squares), the same in every CTA of the
+// cluster.
+__device__ __forceinline__ void exchange_stats(const Plan& p, const Smem& sm, const double (&v)[2],
+                                               float eps) {
+  const double tot = block_sum<2>(p, v, sm.red);
+  const int t = threadIdx.x;
+  if (t < p.nb * 2 * p.gc) sm.xch[t] = tot;
+  exchange_sync(p);
+  if (t < p.nb * p.gc) {
+    const double* slots = sm.xch + (t / p.gc) * 2 * p.gc + t % p.gc;
+    const double n = static_cast<double>(p.OH) * p.OW * kGroup;
+    const double s = cluster_sum(slots, p.cluster), ss = cluster_sum(slots + p.gc, p.cluster);
+    const float m = __double2float_rn(__ddiv_rn(s, n)), m2 = __double2float_rn(__ddiv_rn(ss, n));
+    const float var = __fsub_rn(m2, __fmul_rn(m, m));
+    float* st = sm.st + t * 8;
+    st[0] = m;
+    st[1] = var;
+    st[2] = rsqrtf(__fadd_rn(fmaxf(var, 0.f), eps));
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 3) dwgn_fwd_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out, const Plan p, float eps, int relu6) {
+  const Smem sm = carve(p);
+  const int rank = static_cast<int>(cluster_rank()), chunk = blockIdx.y;
+  const Lane l = lane_of(p, sm, chunk);
+  const bool resident = start(p, &tm_x, &tm_x, sm, rank, chunk);
+  V8 wr[9];
+  float sc[kGroup], bi[kGroup];
+  prologue(p, w, scale, bias, l.ch0, wr, sc, bi);
+  uint32_t phase = 0;
+  Tile t;
+  if (resident) {
+    mbar_wait(sm.bar, 0);
+    phase = 1;
+  }
+
+  double sums[2] = {0.0, 0.0};
+  for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+    if (!resident) fetch(p, &tm_x, &tm_x, sm, t, chunk, phase);
+    stat_sums(p, l, wr, t, sums);
+  }
+  exchange_stats(p, sm, sums, eps);
+  const float* st = sm.st + (l.img * p.gc + l.g) * 8;
+  const float m = st[0], inv = st[2];
+  for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+    if (!resident) fetch(p, &tm_x, &tm_x, sm, t, chunk, phase);
+    for (int q = l.slot; l.live && q < t.rr * t.cw; q += l.step) {
+      const int ly = q / t.cw, lx = q % t.cw;
+      float a[kGroup];
+      unpack8(conv8(p, l.xs, wr, ly, lx, l.g), a);
+#pragma unroll
+      for (int c = 0; c < kGroup; ++c)
+        a[c] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(a[c], m), inv), sc[c]), bi[c]);
+      V8 y = pack8(a);
+      if (relu6) {
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) y.h[i2] = relu6_2(y.h[i2]);
+      }
+      st8(out + ((static_cast<int64_t>(l.b) * p.OH + t.r0 + ly) * p.OW + t.c0 + lx) * p.C + l.ch0,
+          y);
+    }
+  }
+  if (p.cluster > 1) cluster_sync();  // no CTA leaves while another may still read its slots
 }
 
 // d(min(max(y, 0), 6))/dy as jax.vjp takes it: 1 inside, 0.5 on a bound.
@@ -252,196 +518,312 @@ __device__ __forceinline__ float relu6_grad(float y) {
   return lo * hi;
 }
 
-// Per element of one position: xc = x - mean and dyn, the gradient of the
-// normalized value, from the upstream gradient.
-struct Elem {
-  float xc[kGroup], dz[kGroup], yn[kGroup], dyn[kGroup];
+// The per-element terms of one position's 8 channels from the conv output
+// `a` and the upstream gradient: xc = x - mean, yn, dz (the gradient past
+// ReLU6) and dyn = dz * scale.
+struct Elems {
+  float xc[kGroup], yn[kGroup], dz[kGroup], dyn[kGroup];
 };
 
-__device__ __forceinline__ void elem(const float* acc, const float* gv, const Stats& st,
-                                     const float* sc, const float* bi, int relu6, Elem& e) {
+__device__ __forceinline__ void elems(const float* a, const V8& g8, float m, float inv,
+                                      const float* sc, const float* bi, int relu6, Elems& e) {
+  float y[kGroup], gv[kGroup];
+  unpack8(g8, gv);
 #pragma unroll
   for (int c = 0; c < kGroup; ++c) {
-    e.xc[c] = __fsub_rn(acc[c], st.m);
-    e.yn[c] = __fmul_rn(e.xc[c], st.inv);
-    const float y = rb(__fadd_rn(__fmul_rn(e.yn[c], sc[c]), bi[c]));
-    e.dz[c] = relu6 ? __fmul_rn(gv[c], relu6_grad(y)) : gv[c];
+    e.xc[c] = __fsub_rn(a[c], m);
+    e.yn[c] = __fmul_rn(e.xc[c], inv);
+    y[c] = __fadd_rn(__fmul_rn(e.yn[c], sc[c]), bi[c]);
+  }
+  unpack8(pack8(y), y);  // y as the forward rounds it
+#pragma unroll
+  for (int c = 0; c < kGroup; ++c) {
+    e.dz[c] = relu6 ? __fmul_rn(gv[c], relu6_grad(y[c])) : gv[c];
     e.dyn[c] = __fmul_rn(e.dz[c], sc[c]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) dwgn_bwd_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    const __nv_bfloat16* __restrict__ gout, __nv_bfloat16* __restrict__ dacc,
-    float* __restrict__ dw_part, float* __restrict__ ds_part, float* __restrict__ db_part,
-    Geo q, float eps, int relu6) {
-  __shared__ float sw[kMaxGroupsPerBlock][9 * kGroup];
-  __shared__ double red[kThreads * kGroup];
-  __shared__ Stats sh[kMaxGroupsPerBlock];
-  __shared__ float2 coef[kMaxGroupsPerBlock];  // (dvar / n, dm / n) per group
-  const Lane l = lane(q);
-  const __nv_bfloat16* xb = x + (int64_t)l.b * q.H * q.W * q.C;
-  const int64_t out_off = (int64_t)l.b * q.P * q.C + l.g * kGroup;
-  load_weights(w, q, l, sw);
-  const Stats st = group_stats(xb, q, l, sw[l.gl], eps, red, sh);
+__global__ void __launch_bounds__(kThreads, 2) dwgn_bwd_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_g,
+    const __nv_bfloat16* __restrict__ w, const float* __restrict__ scale,
+    const float* __restrict__ bias, __nv_bfloat16* __restrict__ dx, float* __restrict__ dw_part,
+    float* __restrict__ ds_part, float* __restrict__ db_part, const Plan p, float eps,
+    int relu6) {
+  const Smem sm = carve(p);
+  const int rank = static_cast<int>(cluster_rank()), chunk = blockIdx.y;
+  const Lane l = lane_of(p, sm, chunk);
+  // thread t < nb * cc holds the sums of image t / cc, channel
+  // ((t % cc) % gc) * 8 + (t % cc) / gc of the chunk (block_sum's order)
+  const int t_id = threadIdx.x, ncc = p.nb * p.cc;
+  const int my_b = blockIdx.z * p.nb + t_id / p.cc;
+  const int my_ch = chunk * p.cc + (t_id % p.cc % p.gc) * kGroup + t_id % p.cc / p.gc;
+  const bool mine = t_id < ncc && my_b < p.B;
+  double* xch_ds = sm.xch + p.nb * 2 * p.gc;
+  double* xch_db = xch_ds + ncc;
+  double* xch_d = xch_db + ncc;
+  double* xch_dw = xch_d + p.nb * 2 * p.gc;
+  const bool resident = start(p, &tm_x, &tm_g, sm, rank, chunk);
+  V8 wr[9];
   float sc[kGroup], bi[kGroup];
-#pragma unroll
-  for (int c = 0; c < kGroup; ++c) {
-    sc[c] = l.active ? scale[l.g * kGroup + c] : 0.f;
-    bi[c] = l.active ? bias[l.g * kGroup + c] : 0.f;
+  prologue(p, w, scale, bias, l.ch0, wr, sc, bi);
+  uint32_t phase = 0;
+  Tile t;
+  if (resident) {
+    mbar_wait(sm.bar, 0);
+    phase = 1;
   }
 
-  // walk 2: dscale, dbias per channel; sum(dxc) and sum(dyn * xc) per group
-  double ds[kGroup] = {}, db[kGroup] = {}, sdxc = 0.0, sdinv = 0.0;
-  if (l.active) {
-    for (int p = l.ps; p < q.P; p += q.nps) {
-      float acc[kGroup], gv[kGroup];
-      conv8(xb, q, p, l.g, sw[l.gl], acc);
-      dftt::load8(gout + out_off + (int64_t)p * q.C, gv);
-      Elem e;
-      elem(acc, gv, st, sc, bi, relu6, e);
-#pragma unroll
-      for (int c = 0; c < kGroup; ++c) {
-        ds[c] = __dadd_rn(ds[c], __fmul_rn(e.dz[c], e.yn[c]));
-        db[c] = __dadd_rn(db[c], e.dz[c]);
-        sdxc = __dadd_rn(sdxc, __fmul_rn(e.dyn[c], st.inv));
-        sdinv = __dadd_rn(sdinv, __fmul_rn(e.dyn[c], e.xc[c]));
-      }
+  // pass 1: the statistics (box-local outputs start one ring in)
+  {
+    double sums[2] = {0.0, 0.0};
+    for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+      if (!resident) fetch(p, &tm_x, &tm_g, sm, t, chunk, phase);
+      stat_sums(p, l, wr, t, sums);
     }
+    exchange_stats(p, sm, sums, eps);
   }
-  const float dsum = __double2float_rn(channel_sum(ds, q, red));
-  const float bsum = __double2float_rn(channel_sum(db, q, red));
-  if (threadIdx.x < q.gb * kGroup) {
-    const int c = (blockIdx.x * q.gb) * kGroup + threadIdx.x;
-    if (c < q.C) {
-      ds_part[(int64_t)l.b * q.C + c] = dsum;
-      db_part[(int64_t)l.b * q.C + c] = bsum;
-    }
-  }
-  sdxc = group_sum(sdxc, q, red);
-  sdinv = group_sum(sdinv, q, red);
-  if (threadIdx.x < q.gb) {
-    const Stats s = sh[threadIdx.x];
-    const float n = static_cast<float>(q.P * kGroup);
-    const float dinv = __double2float_rn(sdinv), sxc = __double2float_rn(sdxc);
-    float dvar = __fmul_rn(dinv, __fmul_rn(-0.5f, __fdiv_rn(s.inv, __fadd_rn(fmaxf(s.var, 0.f), eps))));
-    dvar = __fmul_rn(dvar, s.var > 0.f ? 1.f : (s.var == 0.f ? 0.5f : 0.f));
-    const float dm = __fsub_rn(-sxc, __fmul_rn(__fmul_rn(2.f, dvar), s.m));
-    coef[threadIdx.x] = make_float2(__fdiv_rn(dvar, n), __fdiv_rn(dm, n));
-  }
-  __syncthreads();
+  float* st = sm.st + (l.img * p.gc + l.g) * 8;
+  const float m = st[0], inv = st[2];
 
-  // walk 3: the conv-output cotangent (to the scratch) and dw per tap
-  float dwa[9][kGroup] = {};
-  if (l.active) {
-    const float2 k2 = coef[l.gl];
-    for (int p = l.ps; p < q.P; p += q.nps) {
-      float acc[kGroup], gv[kGroup], da[kGroup];
-      conv8(xb, q, p, l.g, sw[l.gl], acc);
-      dftt::load8(gout + out_off + (int64_t)p * q.C, gv);
-      Elem e;
-      elem(acc, gv, st, sc, bi, relu6, e);
+  if (resident) mbar_wait(sm.bar + 1, 0);  // the g box
+
+  // pass 2: dscale, dbias per channel; sum(dyn * inv) and sum(dyn * xc) per group
+  {
+    double ds[kGroup] = {}, db[kGroup] = {}, dst[2] = {0.0, 0.0};
+    for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+      if (!resident) fetch(p, &tm_x, &tm_g, sm, t, chunk, phase);
+      for (int q = l.slot; q < t.rr * t.cw; q += l.step) {
+        const int ly = 1 + q / t.cw, lx = 1 + q % t.cw;
+        float a[kGroup];
+        unpack8(conv8(p, l.xs, wr, ly, lx, l.g), a);
+        Elems e;
+        elems(a, ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup), m, inv, sc, bi, relu6, e);
 #pragma unroll
-      for (int c = 0; c < kGroup; ++c) {
-        const float dxc = __fmul_rn(e.dyn[c], st.inv);
-        da[c] = rb(__fadd_rn(__fadd_rn(dxc, __fmul_rn(__fmul_rn(2.f, acc[c]), k2.x)), k2.y));
+        for (int c = 0; c < kGroup; ++c) {
+          ds[c] = __dadd_rn(ds[c], __fmul_rn(e.dz[c], e.yn[c]));
+          db[c] = __dadd_rn(db[c], e.dz[c]);
+          dst[0] = __dadd_rn(dst[0], __fmul_rn(e.dyn[c], inv));
+          dst[1] = __dadd_rn(dst[1], __fmul_rn(e.dyn[c], e.xc[c]));
+        }
       }
-      store8(dacc + out_off + (int64_t)p * q.C, da);
-      const int oy = p / q.OW, ox = p % q.OW;
+    }
+    const double dsum = block_sum<kGroup>(p, ds, sm.red);
+    const double bsum = block_sum<kGroup>(p, db, sm.red);
+    const double gsum = block_sum<2>(p, dst, sm.red);
+    if (t_id < ncc) {
+      xch_ds[t_id] = dsum;
+      xch_db[t_id] = bsum;
+      for (int k = 0; k < 9; ++k) xch_dw[k * ncc + t_id] = 0.0;
+    }
+    if (t_id < p.nb * 2 * p.gc) xch_d[t_id] = gsum;
+    exchange_sync(p);
+    if (t_id < p.nb * p.gc) {
+      float* gst = sm.st + t_id * 8;
+      const double* slots = xch_d + (t_id / p.gc) * 2 * p.gc + t_id % p.gc;
+      const float gm = gst[0], gvar = gst[1], ginv = gst[2];
+      const float n = static_cast<float>(p.OH * p.OW * kGroup);
+      const float sxc = __double2float_rn(cluster_sum(slots, p.cluster));
+      const float dinv = __double2float_rn(cluster_sum(slots + p.gc, p.cluster));
+      float dvar =
+          __fmul_rn(dinv, __fmul_rn(-0.5f, __fdiv_rn(ginv, __fadd_rn(fmaxf(gvar, 0.f), eps))));
+      dvar = __fmul_rn(dvar, gvar > 0.f ? 1.f : (gvar == 0.f ? 0.5f : 0.f));
+      const float dm = __fsub_rn(-sxc, __fmul_rn(__fmul_rn(2.f, dvar), gm));
+      gst[4] = __fdiv_rn(dvar, n);
+      gst[5] = __fdiv_rn(dm, n);
+    }
+    if (rank == 0 && mine) {
+      ds_part[static_cast<int64_t>(my_b) * p.C + my_ch] =
+          __double2float_rn(cluster_sum(xch_ds + t_id, p.cluster));
+      db_part[static_cast<int64_t>(my_b) * p.C + my_ch] =
+          __double2float_rn(cluster_sum(xch_db + t_id, p.cluster));
+    }
+    __syncthreads();
+  }
+  const float kv = st[4], km = st[5];
+
+  // pass 3, tile by tile: the cotangent over the tile and its ring (in
+  // place of g), dw over the tile's outputs, dx over the inputs it owns
+  for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+    if (!resident) fetch(p, &tm_x, &tm_g, sm, t, chunk, phase);
+    const int ew = t.cw + 2;
+    for (int q = l.slot; q < (t.rr + 2) * ew; q += l.step) {
+      const int ly = q / ew, lx = q % ew, oy = t.r0 - 1 + ly, ox = t.c0 - 1 + lx;
+      __nv_bfloat16* cell = l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup;
+      V8 da = {{0u, 0u, 0u, 0u}};
+      if (oy >= 0 && oy < p.OH && ox >= 0 && ox < p.OW) {
+        float a[kGroup], d[kGroup];
+        unpack8(conv8(p, l.xs, wr, ly, lx, l.g), a);
+        Elems e;
+        elems(a, ld8(cell), m, inv, sc, bi, relu6, e);
 #pragma unroll
+        for (int c = 0; c < kGroup; ++c)
+          d[c] = __fadd_rn(__fadd_rn(__fmul_rn(e.dyn[c], inv), __fmul_rn(__fmul_rn(2.f, a[c]), kv)),
+                           km);
+        da = pack8(d);
+      }
+      st8(cell, da);
+    }
+    __syncthreads();
+    // dw, one tap at a time: each thread adds its rounded products in f32,
+    // a butterfly adds the warp's lanes of a group in f32, and after the
+    // nine taps thread t < nb * cc adds its image's warps in f64
+    const int lane = t_id % 32, warp = t_id / 32;
+#pragma unroll 1
+    for (int k = 0; k < 9; ++k) {
+      const int ky = k / 3, kx = k % 3;
+      float a[kGroup] = {};
+      int qy = l.slot / t.cw, qx = l.slot % t.cw;
+      while (qy < t.rr) {
+        const int ly = 1 + qy, lx = 1 + qx;
+        const V8 d = ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
+        const V8 v = ld8(l.xs + ((ly * p.s + ky) * p.xc + lx * p.s + kx) * p.cc + l.g * kGroup);
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) {
+          const uint32_t pr = mul2(d.h[i2], v.h[i2]);
+          a[2 * i2] = __fadd_rn(a[2 * i2], bf_lo(pr));
+          a[2 * i2 + 1] = __fadd_rn(a[2 * i2 + 1], bf_hi(pr));
+        }
+        for (qx += l.step; qx >= t.cw; qx -= t.cw) ++qy;
+      }
+      for (int off = 16; off >= p.gc; off >>= 1) {
+#pragma unroll
+        for (int c = 0; c < kGroup; ++c) a[c] = __fadd_rn(a[c], __shfl_xor_sync(0xffffffffu, a[c], off));
+      }
+      if (lane < p.gc) {
+#pragma unroll
+        for (int c = 0; c < kGroup; ++c) sm.dwr[((k * kWarps + warp) * kGroup + c) * p.gc + lane] = a[c];
+      }
+    }
+    __syncthreads();
+    if (t_id < ncc) {
+      const int j = t_id % p.cc / p.gc, g = t_id % p.gc, wpi = kWarps / p.nb;
+      const int w0 = t_id / p.cc * wpi;
       for (int k = 0; k < 9; ++k) {
-        float v[kGroup];
-        tap8(xb, q, oy, ox, k / 3, k % 3, l.g, v);
-#pragma unroll
-        for (int c = 0; c < kGroup; ++c) dwa[k][c] = __fadd_rn(dwa[k][c], rb(__fmul_rn(da[c], v[c])));
+        double sk = 0.0;
+        for (int w = w0; w < w0 + wpi; ++w)
+          sk = __dadd_rn(sk, sm.dwr[((k * kWarps + w) * kGroup + j) * p.gc + g]);
+        xch_dw[k * ncc + t_id] = __dadd_rn(xch_dw[k * ncc + t_id], sk);
       }
     }
-  }
+    // dx at the inputs this tile owns: rows [r0 * s, (r0 + rows) * s) and
+    // columns likewise, clipped to the image; the nine taps in bf16 from
+    // (2, 2) down to (0, 0)
+    const int iy0 = t.r0 * p.s, ix0 = t.c0 * p.s;
+    const int ih = min((t.r0 + p.rows) * p.s, p.H) - iy0, iw = min((t.c0 + p.cols) * p.s, p.W) - ix0;
+    const int sh = p.s - 1;  // stride 1 or 2: divide by a shift
+    for (int qy = l.slot / iw, qx = l.slot % iw; l.live && qy < ih;) {
+      const int iy = iy0 + qy, ix = ix0 + qx;
+      for (qx += l.step; qx >= iw; qx -= iw) ++qy;
+      V8 acc = {{0u, 0u, 0u, 0u}};
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const double s = channel_sum(dwa[k], q, red);
-    if (threadIdx.x < q.gb * kGroup) {
-      const int c = (blockIdx.x * q.gb) * kGroup + threadIdx.x;
-      if (c < q.C) dw_part[((int64_t)l.b * 9 + k) * q.C + c] = rb(__double2float_rn(s));
+      for (int ky = 2; ky >= 0; --ky) {
+        const int ty = iy + p.pt - ky;
+        if (ty < 0 || (ty & sh)) continue;
+        const int ly = (ty >> sh) - (t.r0 - 1);
+#pragma unroll
+        for (int kx = 2; kx >= 0; --kx) {
+          const int tx = ix + p.pl - kx;
+          if (tx < 0 || (tx & sh)) continue;
+          const int lx = (tx >> sh) - (t.c0 - 1);
+          const V8 d = ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
+#pragma unroll
+          for (int i2 = 0; i2 < 4; ++i2)
+            acc.h[i2] = add2(acc.h[i2], mul2(d.h[i2], wr[ky * 3 + kx].h[i2]));
+        }
+      }
+      st8(dx + ((static_cast<int64_t>(l.b) * p.H + iy) * p.W + ix) * p.C + l.ch0, acc);
     }
   }
+  exchange_sync(p);
+  if (rank == 0) {
+    for (int v = t_id; v < 9 * ncc; v += kThreads) {
+      const int k = v / ncc, u = v % ncc, b = blockIdx.z * p.nb + u / p.cc;
+      if (b >= p.B) continue;
+      const int ch = chunk * p.cc + (u % p.cc % p.gc) * kGroup + u % p.cc / p.gc;
+      const float sum = __double2float_rn(cluster_sum(xch_dw + v, p.cluster));
+      dw_part[(static_cast<int64_t>(b) * 9 + k) * p.C + ch] = __bfloat162float(__float2bfloat16_rn(sum));
+    }
+  }
+  if (p.cluster > 1) cluster_sync();  // no CTA leaves while rank 0 may still read its slots
 }
 
-// dx at one (batch, input position, group): the cotangent at every output
-// position whose taps cover it, times that tap's weight, added in bf16 from
-// tap (2, 2) down to (0, 0).
-__global__ void __launch_bounds__(kThreads) dwgn_bwd_dx_kernel(
-    const __nv_bfloat16* __restrict__ dacc, const __nv_bfloat16* __restrict__ w,
-    __nv_bfloat16* __restrict__ dx, Geo q) {
-  const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (int64_t)q.B * q.H * q.W * q.G) return;
-  const int g = static_cast<int>(idx % q.G);
-  int64_t rest = idx / q.G;
-  const int ix = static_cast<int>(rest % q.W);
-  rest /= q.W;
-  const int iy = static_cast<int>(rest % q.H);
-  const int64_t b = rest / q.H;
-  const int py = iy + q.pt, px = ix + q.pl;
-  float acc[kGroup] = {};
-  for (int ky = 2; ky >= 0; --ky) {
-    const int ty = py - ky;
-    if (ty < 0 || ty % q.s) continue;
-    const int oy = ty / q.s;
-    if (oy >= q.OH) continue;
-    for (int kx = 2; kx >= 0; --kx) {
-      const int tx = px - kx;
-      if (tx < 0 || tx % q.s) continue;
-      const int ox = tx / q.s;
-      if (ox >= q.OW) continue;
-      float d[kGroup], wv[kGroup];
-      dftt::load8(dacc + ((b * q.OH + oy) * q.OW + ox) * q.C + g * kGroup, d);
-      dftt::load8(w + (ky * 3 + kx) * q.C + g * kGroup, wv);
-#pragma unroll
-      for (int c = 0; c < kGroup; ++c) acc[c] = rb(__fadd_rn(acc[c], rb(__fmul_rn(d[c], wv[c]))));
-    }
-  }
-  store8(dx + idx * kGroup, acc);
+// Opts a kernel into the card's whole shared memory once.
+template <typename Kernel>
+int opt_in(Kernel kernel, bool& done) {
+  if (done) return 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemLimit);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  done = err == cudaSuccess;
+  return static_cast<int>(err);
+}
+
+// Launches grid (cluster, C / cc, ceil(B / nb)) in clusters of `cluster` CTAs.
+template <typename... Exp, typename... Act>
+int launch_cluster(void (*kernel)(Exp...), const Plan& p, cudaStream_t st, Act&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster, p.C / p.cc, (p.B + p.nb - 1) / p.nb);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
 // x: [B, H, W, C] bf16 NHWC contiguous; w: [3, 3, C] bf16; scale, bias: [C]
-// f32; out: [B, OH, OW, C] bf16. C a multiple of 8, stride 1 or 2, every
-// pointer 16-byte aligned. Launches on `stream`; returns cudaGetLastError().
+// f32; out: [B, OH, OW, C] bf16. C a multiple of 8, stride 1 or 2, x 16-byte
+// aligned. cc, rows, cols, cluster, tiles, nb and smem are the plan
+// (ops/depthwise_gn.py::dwgn_plan); a plan this source cannot run, or whose
+// shared memory differs from its layout's, returns cudaErrorInvalidValue.
+// Launches on `stream`; returns a CUDA error code (0 = launched).
 extern "C" int dftt_dwgn_fwd_bf16(const void* x, const void* w, const void* scale,
                                   const void* bias, void* out, int B, int H, int W, int C,
-                                  int stride, float eps, int relu6, void* stream) {
-  const Geo q = make_geo(B, H, W, C, stride);
-  const dim3 grid((q.G + q.gb - 1) / q.gb, B);
-  dwgn_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), q, eps, relu6);
-  return static_cast<int>(cudaGetLastError());
+                                  int stride, float eps, int relu6, int cc, int rows, int cols,
+                                  int cluster, int tiles, int nb, int smem, void* stream) {
+  Plan p;
+  if (!make_plan(p, B, H, W, C, stride, cc, rows, cols, cluster, tiles, nb, 0) || p.smem != smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_x;
+  int err = dftt::hopper::make_nhwc_map(&tm_x, x, B, H, W, C, cc, p.xc, p.xr, nb);
+  static bool opted = false;
+  if (!err) err = opt_in(dwgn_fwd_kernel, opted);
+  if (err) return err;
+  return launch_cluster(dwgn_fwd_kernel, p, static_cast<cudaStream_t>(stream), tm_x,
+                        static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
+                        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), p, eps,
+                        relu6);
 }
 
-// As the forward, plus g: [B, OH, OW, C] bf16; dx: [B, H, W, C] bf16;
-// dacc: [B, OH, OW, C] bf16 scratch; dw_part: [B, 3, 3, C] f32; ds_part,
-// db_part: [B, C] f32.
+// As the forward, plus g: [B, OH, OW, C] bf16 (16-byte aligned); dx: [B, H,
+// W, C] bf16; dw_part: [B, 3, 3, C] f32; ds_part, db_part: [B, C] f32.
 extern "C" int dftt_dwgn_bwd_bf16(const void* x, const void* w, const void* scale,
-                                  const void* bias, const void* g, void* dx, void* dacc,
-                                  void* dw_part, void* ds_part, void* db_part, int B, int H,
-                                  int W, int C, int stride, float eps, int relu6, void* stream) {
-  const Geo q = make_geo(B, H, W, C, stride);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((q.G + q.gb - 1) / q.gb, B);
-  dwgn_bwd_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dacc),
-      static_cast<float*>(dw_part), static_cast<float*>(ds_part), static_cast<float*>(db_part),
-      q, eps, relu6);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t items = (int64_t)B * H * W * q.G;
-  dwgn_bwd_dx_kernel<<<static_cast<unsigned>((items + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(dacc), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(dx), q);
-  return static_cast<int>(cudaGetLastError());
+                                  const void* bias, const void* g, void* dx, void* dw_part,
+                                  void* ds_part, void* db_part, int B, int H, int W, int C,
+                                  int stride, float eps, int relu6, int cc, int rows, int cols,
+                                  int cluster, int tiles, int nb, int smem, void* stream) {
+  Plan p;
+  if (!make_plan(p, B, H, W, C, stride, cc, rows, cols, cluster, tiles, nb, 1) || p.smem != smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_x, tm_g;
+  int err = dftt::hopper::make_nhwc_map(&tm_x, x, B, H, W, C, cc, p.xc, p.xr, nb);
+  if (!err) err = dftt::hopper::make_nhwc_map(&tm_g, g, B, p.OH, p.OW, C, cc, p.gw, p.gr, nb);
+  static bool opted = false;
+  if (!err) err = opt_in(dwgn_bwd_kernel, opted);
+  if (err) return err;
+  return launch_cluster(dwgn_bwd_kernel, p, static_cast<cudaStream_t>(stream), tm_x, tm_g,
+                        static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
+                        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(dx),
+                        static_cast<float*>(dw_part), static_cast<float*>(ds_part),
+                        static_cast<float*>(db_part), p, eps, relu6);
 }

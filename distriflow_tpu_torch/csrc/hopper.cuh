@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the attention kernels: TMA tensor maps
-// and loads, mbarriers, and warpgroup matrix products (wgmma).
+// Hopper building blocks shared by the attention, decode and depthwise
+// kernels: TMA tensor maps and loads, mbarriers, cluster barriers and
+// distributed shared memory, and warpgroup matrix products (wgmma).
 //
-// Every tile these kernels stage is a bf16 [rows, 64] slice of a
+// Every attention tile is a bf16 [rows, 64] slice of a
 // contiguous [B*H, S, 64] tensor: one row is 128 bytes, exactly one
 // 128-byte swizzle atom wide. TMA copies it into shared memory with the
 // 128-byte swizzle, and wgmma reads it back through a descriptor of the
@@ -9,7 +10,8 @@
 // and K are in Q.K^T) or MN-major (the rows are the contraction, as V is
 // in P.V). The tensor map is 3-D, {64, S, B*H}, so that a box reaching
 // past row S is zero-filled by the hardware instead of reading the next
-// head's rows.
+// head's rows. The depthwise kernels stage unswizzled boxes of a 4-D map
+// over an NHWC activation (make_nhwc_map).
 #pragma once
 
 #include <cstdint>
@@ -66,6 +68,29 @@ inline int make_row_map(CUtensorMap* map, const void* base, int BH, int S, int r
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A tensor map over a contiguous bf16 NHWC tensor [B, H, W, C] (C a
+// multiple of 8) whose box is {c_box channels, w_box columns, h_box rows,
+// b_box images}, unswizzled: the box lands in shared memory as a dense
+// [b_box][h_box][w_box][c_box] tile, and every element outside the tensor
+// (a negative start included) reads as zero. Returns a CUDA error code.
+inline int make_nhwc_map(CUtensorMap* map, const void* base, int B, int H, int W, int C,
+                         int c_box, int w_box, int h_box, int b_box) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * 2;
+  const cuuint64_t strides[3] = {row, row * W, row * W * H};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(c_box), static_cast<cuuint32_t>(w_box),
+                             static_cast<cuuint32_t>(h_box), static_cast<cuuint32_t>(b_box)};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -155,6 +180,42 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(row), "r"(bh)
       : "memory");
+}
+
+// TMA: the box of an NHWC map (make_nhwc_map) at channel c, column x, row
+// y (either may be negative) of image b into `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_nhwc(void* dst, const CUtensorMap* map, int c, int x,
+                                              int y, int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c), "r"(x), "r"(y), "r"(b)
+      : "memory");
+}
+
+// Thread-block clusters: this CTA's rank, a barrier of every thread of
+// every CTA of the cluster (release/acquire: shared-memory writes before
+// it are seen by reads after it anywhere in the cluster), and a load from
+// the shared memory of the CTA of rank `rank` at the address `p` has in
+// this CTA.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ double ld_cluster_f64(const double* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];\n" : "=d"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // wgmma shared-memory descriptors for a 128-byte-swizzled tile of 128-byte

@@ -32,7 +32,8 @@ SOURCES = ("flash_attention", "flash_decode", "flash_attention_bwd", "fused_ce",
 #: the headers each source includes (an edit to one rebuilds its sources)
 HEADERS = {"flash_attention": ("common.cuh", "hopper.cuh"),
            "flash_attention_bwd": ("common.cuh", "hopper.cuh"),
-           "flash_decode": ("common.cuh", "hopper.cuh")}
+           "flash_decode": ("common.cuh", "hopper.cuh"),
+           "depthwise_gn": ("common.cuh", "hopper.cuh")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -8,7 +8,13 @@ reach device memory.
 
 - ``csrc/depthwise_gn.cu`` replaces the Pallas ``_fwd_kernel`` (forward)
   and ``_bwd_kernel`` (the ``jax.vjp`` of the same tile, which recomputes
-  the forward) for bf16 NHWC activations.
+  the forward) for bf16 NHWC activations: one kernel each, a thread-block
+  cluster per (batch element, channel chunk) whose CTAs load their tiles
+  once through TMA (SAME padding from the copy's zero fill) and exchange
+  the group statistics and partial sums through distributed shared memory
+  in rank order. :func:`dwgn_plan` cuts the activation and passes the cut
+  to the kernels; :func:`banded_forward_reference` and
+  :func:`banded_backward_reference` repeat that cut in plain PyTorch.
 - Activations are NHWC with channels in groups of 8; the depthwise kernel
   ``w`` is flax's ``[3, 3, 1, C]`` or squeezed ``[3, 3, C]``, in the
   activation dtype; ``scale``/``bias`` are the f32 GroupNorm affine.
@@ -36,7 +42,9 @@ recomputes in the backward, as the JAX ``custom_vjp`` does.
 from __future__ import annotations
 
 import ctypes
+import functools
 import warnings
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -55,9 +63,9 @@ _warned_gated: set = set()  # (h, w, c, stride) shapes already warned about
 
 _SIGNATURES = {
     "dftt_dwgn_fwd_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "dftt_dwgn_bwd_bf16": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "dftt_dwgn_bwd_bf16": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
 
@@ -123,6 +131,177 @@ def depthwise_gn_supported(h: int, w: int, c: int, stride: int = 1,
     return False
 
 
+# -- the kernels' plan -------------------------------------------------------
+
+THREADS = 256  # a CTA's threads (csrc/depthwise_gn.cu kThreads)
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+MAX_BOX = 256  # a TMA box's largest extent in each dimension
+SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper CTA may use
+# a tile's budget: three forward CTAs (80 registers a thread) or two
+# backward CTAs (128) on an SM's 228 KB
+SMEM_TARGET = {False: 72 * 1024, True: 112 * 1024}
+# (position, group) items a CTA of small images takes: four a thread
+ITEMS_PER_CTA = 4 * THREADS
+
+
+@dataclass(frozen=True)
+class DwgnPlan:
+    """How the kernels cut one ``[B, h, w, c]`` activation, chosen here and
+    passed to the CUDA source as ints. A cluster of ``cluster`` CTAs owns
+    one (batch element, chunk of ``cc`` channels); the output is cut into
+    tiles of ``rows`` x ``cols`` positions, and rank r of the cluster takes
+    tiles r, r + cluster, ... (``tiles_per_cta`` of them). With one tile a
+    CTA (a resident plan) its TMA box stays in shared memory for every pass;
+    otherwise each pass loads each tile again. ``halo`` is 1 for the
+    backward, whose box also covers the outputs next to the tile (their
+    cotangent feeds the tile's dx). A CTA holds ``images`` batch elements
+    side by side (small images: each takes ``THREADS / images`` threads),
+    so that the grid is ``(cluster, c / cc, ceil(B / images))``."""
+
+    h: int
+    w: int
+    c: int
+    stride: int
+    backward: bool
+    cc: int
+    rows: int
+    cols: int
+    cluster: int
+    tiles_per_cta: int
+    images: int
+    smem: int
+
+    @property
+    def geometry(self):
+        return _geometry(self.h, self.w, self.stride)
+
+    @property
+    def halo(self) -> int:
+        return int(self.backward)
+
+    @property
+    def n_row_tiles(self) -> int:
+        return -(-self.geometry[2] // self.rows)
+
+    @property
+    def n_col_tiles(self) -> int:
+        return -(-self.geometry[3] // self.cols)
+
+    @property
+    def x_box(self) -> Tuple[int, int]:
+        """(rows, cols) of the x box."""
+        return _x_box(self.rows, self.cols, self.stride, self.halo)
+
+    def ctas(self, batch: int) -> int:
+        return self.cluster * (self.c // self.cc) * -(-batch // self.images)
+
+    def tiles(self):
+        """``(rank, row0, col0, n_rows, n_cols)`` of every tile, in the
+        order each rank walks them."""
+        _, _, oh, ow = self.geometry
+        out = []
+        for rank in range(self.cluster):
+            for i in range(self.tiles_per_cta):
+                t = rank + i * self.cluster
+                if t < self.n_row_tiles * self.n_col_tiles:
+                    r0, c0 = (t // self.n_col_tiles) * self.rows, (t % self.n_col_tiles) * self.cols
+                    out.append((rank, r0, c0, min(self.rows, oh - r0), min(self.cols, ow - c0)))
+        return out
+
+
+def _align(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _x_box(rows: int, cols: int, stride: int, halo: int) -> Tuple[int, int]:
+    return (rows + 2 * halo - 1) * stride + 3, (cols + 2 * halo - 1) * stride + 3
+
+
+def _smem_bytes(cc: int, rows: int, cols: int, stride: int, backward: bool,
+                images: int = 1) -> int:
+    """The kernel's dynamic shared memory (csrc/depthwise_gn.cu
+    ``make_plan``, which refuses a launch whose count differs): the x boxes,
+    the backward's g boxes (overwritten by the conv-output cotangent), two
+    f64 reduction buffers of 8 warps, the backward's f32 warp sums of dw
+    (9 taps), the cluster's exchange slots, the
+    group statistics, the two mbarriers, and 128 bytes to align the base."""
+    xr, xc = _x_box(rows, cols, stride, int(backward))
+    gc = cc // GROUP_SIZE
+    warps = THREADS // 32
+    parts = (images * xr * xc * cc * 2,
+             images * (rows + 2) * (cols + 2) * cc * 2 if backward else 0,
+             2 * warps * cc * 8, 9 * warps * cc * 4 if backward else 0,
+             images * (11 * cc + 4 * gc if backward else 2 * gc) * 8, images * gc * 32)
+    return 128 + sum(_align(p) for p in parts) + 16
+
+
+def _chunks(c: int, positions: int):
+    """Channels a cluster may own, widest first: 8 * 2^k dividing C, at
+    most 64 (128 on an image of 64 positions or fewer, where a CTA has
+    little else to do), so that a thread keeps one group of 8 throughout."""
+    cap = 128 if positions <= 64 else 64
+    return [cc for cc in (128, 64, 32, 16, 8) if cc <= cap and c % cc == 0]
+
+
+def make_plan(h: int, w: int, c: int, stride: int, backward: bool, cc: int, rows: int,
+              cols: int, cluster: int = MAX_CLUSTER, images: int = 1) -> DwgnPlan:
+    """A plan of ``rows x cols`` output tiles spread over a cluster of at
+    most ``cluster`` CTAs (fewer where there are fewer tiles)."""
+    _, _, oh, ow = _geometry(h, w, stride)
+    n_tiles = -(-oh // rows) * -(-ow // cols)
+    cluster = min(cluster, n_tiles)
+    return DwgnPlan(h, w, c, stride, backward, cc, rows, cols, cluster, -(-n_tiles // cluster),
+                    images, _smem_bytes(cc, rows, cols, stride, backward, images))
+
+
+@functools.lru_cache(maxsize=256)
+def dwgn_plan(h: int, w: int, c: int, stride: int, backward: bool) -> DwgnPlan:
+    """The plan of the kernel for an ``[_, h, w, c]`` activation (any shape
+    :func:`depthwise_gn_supported` admits). Tiles span the whole width
+    where the TMA box allows (256 columns), else the fewest column tiles
+    that fit. Then, for the widest channel chunk that allows it, the
+    fewest row tiles whose cluster is at most ``MAX_CLUSTER`` and whose
+    shared memory is within ``SMEM_TARGET``, or failing that the most row
+    tiles within ``SMEM_LIMIT``: every tile stays resident. Failing both,
+    a cluster of ``MAX_CLUSTER`` walks tiles
+    within ``SMEM_TARGET`` and loads each tile once a pass (two passes
+    over x in the forward, three over x and g in the backward)."""
+    _, _, oh, ow = _geometry(h, w, stride)
+    halo = int(backward)
+
+    def fits(cc, rows, cols, budget):
+        xr, xc = _x_box(rows, cols, stride, halo)
+        return (max(xr, xc, rows + 2 * halo, cols + 2 * halo) <= MAX_BOX
+                and _smem_bytes(cc, rows, cols, stride, backward) <= budget)
+
+    row_counts = sorted({-(-oh // n) for n in range(1, oh + 1)}, reverse=True)
+    chunks = _chunks(c, oh * ow)
+    n_ct = 1
+    while not fits(chunks[-1], 1, -(-ow // n_ct), SMEM_LIMIT):
+        n_ct += 1
+    cols = -(-ow // n_ct)
+    n_ct = -(-ow // cols)
+    resident = [r for r in row_counts if -(-oh // r) * n_ct <= MAX_CLUSTER]
+    for cc in chunks:
+        rows = next((r for r in resident if fits(cc, r, cols, SMEM_TARGET[backward])), None)
+        if rows is not None and rows >= oh and cols >= ow:  # one tile: images side by side
+            images = max(n for n in (1, 2, 4, 8) if n == 1 or (
+                n * cc <= THREADS and n * oh * ow * cc // GROUP_SIZE <= ITEMS_PER_CTA
+                and _smem_bytes(cc, rows, cols, stride, backward, n) <= SMEM_TARGET[backward]))
+            return make_plan(h, w, c, stride, backward, cc, rows, cols, images=images)
+        if rows is not None:
+            return make_plan(h, w, c, stride, backward, cc, rows, cols)
+    for cc in chunks:  # the most tiles, the least shared memory
+        rows = next((r for r in reversed(resident) if fits(cc, r, cols, SMEM_LIMIT)), None)
+        if rows is not None:
+            return make_plan(h, w, c, stride, backward, cc, rows, cols)
+    cc = chunks[0]  # stream
+    while not fits(cc, 1, cols, SMEM_TARGET[backward]) and cols > 1:
+        cols = -(-cols // 2)
+    rows = next((r for r in row_counts if fits(cc, r, cols, SMEM_TARGET[backward])), 1)
+    return make_plan(h, w, c, stride, backward, cc, rows, cols)
+
+
 # -- plain versions ----------------------------------------------------------
 
 
@@ -132,7 +311,12 @@ def depthwise3x3(x: torch.Tensor, w3: torch.Tensor, stride: int) -> torch.Tensor
     The conv of the plain versions and of the unfused shift branch."""
     _, h, wd, _ = x.shape
     ph, pw, oh, ow = _geometry(h, wd, stride)
-    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    return _taps(F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1])), w3, stride, oh, ow)
+
+
+def _taps(xp: torch.Tensor, w3: torch.Tensor, stride: int, oh: int, ow: int) -> torch.Tensor:
+    """The nine shifted products of an already padded ``xp``, ``oh x ow``
+    outputs from its corner."""
     acc = None
     for ky in range(3):
         for kx in range(3):
@@ -254,6 +438,147 @@ def _reduce(dx, dwp, dsp, dbp, w, scale, bias):
             dbp.sum(0).to(bias.dtype))
 
 
+# -- the kernels' decomposition, in plain PyTorch ------------------------------
+#
+# Mirrors of the kernels' plan: tile by tile from each tile's TMA box (zeros
+# outside the image), per-rank f64 partials added in rank order, and the
+# backward's dx from each tile's cotangent over the tile and its ring. The
+# CPU tests hold them to the plain versions above bit for bit, which shows
+# that the band split changes no bits.
+
+
+def _boxes(x, plan: DwgnPlan):
+    """``(rank, r0, c0, rr, cw, box)`` of every tile: the x box from
+    output ``(r0 - halo, c0 - halo)`` on, zeros outside the image."""
+    _, h, wd, _ = x.shape
+    pt, pl, s, halo = _same_pads(h, plan.stride)[0], _same_pads(wd, plan.stride)[0], \
+        plan.stride, plan.halo
+    pad = 3 * s + 2
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    xr, xc = plan.x_box
+    for rank, r0, c0, rr, cw in plan.tiles():
+        y0, x0 = (r0 - halo) * s - pt + pad, (c0 - halo) * s - pl + pad
+        yield rank, r0, c0, rr, cw, xp[:, y0:y0 + xr, x0:x0 + xc]
+
+
+def _rank_sums(parts, ranks):
+    """The f64 per-rank partials added in rank order."""
+    tot = None
+    for r in ranks:
+        if r in parts:
+            tot = parts[r] if tot is None else tot + parts[r]
+    return tot
+
+
+def _banded_stats(x, w3, plan: DwgnPlan, eps, ranks=None):
+    """Pass 1: ``(m, var, inv)`` per (batch, group) from the tiles' f64
+    (sum, sum of squares), from ``ranks`` only if given."""
+    b, c = x.shape[0], x.shape[3]
+    parts, count = {}, {}
+    for rank, _, _, rr, cw, box in _boxes(x, plan):
+        h0 = plan.halo
+        acc = _taps(box[:, h0 * plan.stride:, h0 * plan.stride:], w3, plan.stride, rr, cw)
+        xg = acc.reshape(b, rr * cw, c // GROUP_SIZE, GROUP_SIZE).float()
+        sums = torch.stack([xg.double().sum(dim=(1, 3), keepdim=True),
+                            (xg * xg).double().sum(dim=(1, 3), keepdim=True)])
+        parts[rank] = sums if rank not in parts else parts[rank] + sums
+        count[rank] = count.get(rank, 0) + rr * cw * GROUP_SIZE
+    ranks = range(plan.cluster) if ranks is None else ranks
+    s, ss = _rank_sums(parts, ranks)
+    n = sum(count[r] for r in ranks)
+    m, m2 = (s / n).float(), (ss / n).float()
+    var = m2 - m * m
+    return m, var, torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+
+
+def banded_forward_reference(x, w, scale, bias, stride: int = 1, eps: float = 1e-6,
+                             relu6: bool = True, stats_ranks=None, plan=None) -> torch.Tensor:
+    """The forward kernel's decomposition under ``plan`` (by default
+    :func:`dwgn_plan`'s). With ``stats_ranks`` the statistics come from
+    those ranks' tiles alone, a deliberately wrong forward for the limit
+    checks."""
+    b, h, wd, c = x.shape
+    plan = plan or dwgn_plan(h, wd, c, stride, False)
+    w3 = _w3(w)
+    m, _, inv = _banded_stats(x, w3, plan, eps, stats_ranks)
+    _, _, oh, ow = plan.geometry
+    out = torch.empty(b, oh, ow, c, dtype=x.dtype, device=x.device)
+    for _, r0, c0, rr, cw, box in _boxes(x, plan):
+        acc = _taps(box, w3, stride, rr, cw)
+        xg = acc.reshape(b, rr * cw, c // GROUP_SIZE, GROUP_SIZE).float()
+        y = ((xg - m) * inv).reshape(acc.shape)
+        y = (y * scale.float() + bias.float()).to(x.dtype)
+        out[:, r0:r0 + rr, c0:c0 + cw] = torch.clamp(y, 0.0, 6.0) if relu6 else y
+    return out
+
+
+def banded_backward_reference(x, w, scale, bias, g, stride: int = 1, eps: float = 1e-6,
+                              relu6: bool = True, plan=None):
+    """The backward kernel's decomposition under ``plan`` (by default
+    :func:`dwgn_plan`'s): ``(dx, dw, dscale, dbias)`` as
+    :func:`depthwise3x3_groupnorm_backward_reference` gives them."""
+    b, h, wd, c = x.shape
+    plan = plan or dwgn_plan(h, wd, c, stride, True)
+    w3, s = _w3(w), stride
+    gsz, ng = GROUP_SIZE, c // GROUP_SIZE
+    (pt, _), (pl, _), oh, ow = plan.geometry
+    m, var, inv = _banded_stats(x, w3, plan, eps)
+    gp = F.pad(g, (0, 0, 1, 1, 1, 1))  # the g box's ring: zeros outside
+
+    def terms(acc, gt):
+        xg = acc.reshape(b, -1, ng, gsz).float()
+        xc = xg - m
+        yn = (xc * inv).reshape(acc.shape)
+        y = (yn * scale.float() + bias.float()).to(x.dtype)
+        dz = gt.float() * _half_at_ties(y.float(), True, True) if relu6 else gt.float()
+        dyn = (dz * scale.float()).reshape(xg.shape)
+        return xg, xc, yn, dz, dyn
+
+    parts = {}
+    for rank, r0, c0, rr, cw, box in _boxes(x, plan):
+        acc = _taps(box[:, s:, s:], w3, s, rr, cw)
+        xg, xc, yn, dz, dyn = terms(acc, g[:, r0:r0 + rr, c0:c0 + cw])
+        p = ((dz * yn).double().sum(dim=(1, 2)), dz.double().sum(dim=(1, 2)),
+             (dyn * inv).double().sum(dim=(1, 3), keepdim=True),
+             (dyn * xc).double().sum(dim=(1, 3), keepdim=True))
+        parts[rank] = p if rank not in parts else tuple(a + q for a, q in zip(parts[rank], p))
+    ranks = range(plan.cluster)
+    dsp, dbp, sxc, dinv = (_rank_sums({r: v[i] for r, v in parts.items()}, ranks)
+                           for i in range(4))
+    dsp, dbp, sxc, dinv = dsp.float(), dbp.float(), sxc.float(), dinv.float()
+    n = oh * ow * gsz
+    dvar = dinv * (-0.5 * (inv / (torch.clamp(var, min=0.0) + eps)))
+    dvar = dvar * _half_at_ties(var, True, False)
+    dm = -sxc - 2.0 * dvar * m
+
+    dx = torch.empty_like(x)
+    dw_parts = {}
+    for rank, r0, c0, rr, cw, box in _boxes(x, plan):
+        acc = _taps(box, w3, s, rr + 2, cw + 2)  # the tile and its ring
+        xg, _, _, _, dyn = terms(acc, gp[:, r0:r0 + rr + 2, c0:c0 + cw + 2])
+        dacc = (dyn * inv + 2.0 * xg * (dvar / n) + dm / n).reshape(acc.shape).to(x.dtype)
+        oy = torch.arange(r0 - 1, r0 + rr + 1, device=x.device)
+        ox = torch.arange(c0 - 1, c0 + cw + 1, device=x.device)
+        live = ((oy >= 0) & (oy < oh))[:, None] & ((ox >= 0) & (ox < ow))[None, :]
+        dacc = torch.where(live[None, :, :, None], dacc, torch.zeros_like(dacc))
+        dwt = torch.empty(b, 3, 3, c, dtype=torch.float64, device=x.device)
+        canvas = torch.zeros_like(box)
+        for ky in (2, 1, 0):
+            for kx in (2, 1, 0):
+                own = box[:, s + ky:s + ky + (rr - 1) * s + 1:s, s + kx:s + kx + (cw - 1) * s + 1:s]
+                dwt[:, ky, kx] = (dacc[:, 1:rr + 1, 1:cw + 1] * own).double().sum(dim=(1, 2))
+                rows = slice(ky, ky + (rr + 1) * s + 1, s)
+                cols = slice(kx, kx + (cw + 1) * s + 1, s)
+                canvas[:, rows, cols] = canvas[:, rows, cols] + dacc * w3[ky, kx]
+        dw_parts[rank] = dwt if rank not in dw_parts else dw_parts[rank] + dwt
+        iy0, ix0 = r0 * s, c0 * s
+        iy1, ix1 = min((r0 + plan.rows) * s, h), min((c0 + plan.cols) * s, wd)
+        by, bx = (r0 - 1) * s - pt, (c0 - 1) * s - pl
+        dx[:, iy0:iy1, ix0:ix1] = canvas[:, iy0 - by:iy1 - by, ix0 - bx:ix1 - bx]
+    dwp = _rank_sums(dw_parts, ranks).float().to(x.dtype).float()
+    return _reduce(dx, dwp, dsp, dbp, w, scale, bias)
+
+
 # -- the kernels -------------------------------------------------------------
 
 
@@ -283,9 +608,14 @@ def _check(what: str, x, w, scale, bias, stride, group_size, g=None) -> None:
         if g.shape != want or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
             raise ValueError(f"{what}: g must be a contiguous bf16 {want} on {x.device}")
     if any(t.data_ptr() % 16 for t in (x, w) + (() if g is None else (g,))):
-        raise ValueError(f"{what}: x, w and g must start on a 16-byte boundary (16-byte loads)")
+        raise ValueError(f"{what}: x, w and g must start on a 16-byte boundary (TMA, 16-byte loads)")
     if not 1 <= x.shape[0] <= 65535:
         raise ValueError(f"{what}: the kernel's grid takes a batch of 1 to 65535, got {x.shape[0]}")
+
+
+def _plan_ints(plan: DwgnPlan):
+    return (plan.cc, plan.rows, plan.cols, plan.cluster, plan.tiles_per_cta, plan.images,
+            plan.smem)
 
 
 def depthwise_gn_forward(x, w, scale, bias, stride: int = 1, eps: float = 1e-6,
@@ -300,7 +630,8 @@ def depthwise_gn_forward(x, w, scale, bias, stride: int = 1, eps: float = 1e-6,
     lib = build.load("depthwise_gn", _SIGNATURES)
     rc = lib.dftt_dwgn_fwd_bf16(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, h, wd, c, stride, eps, int(relu6), torch.cuda.current_stream(x.device).cuda_stream)
+        b, h, wd, c, stride, eps, int(relu6), *_plan_ints(dwgn_plan(h, wd, c, stride, False)),
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "depthwise_gn_forward")
     depthwise_gn_forward.launches += 1
     return out
@@ -317,17 +648,16 @@ def depthwise_gn_backward(x, w, scale, bias, g, stride: int = 1, eps: float = 1e
                                                          group_size, relu6)
     _check("depthwise_gn_backward", x, w, scale, bias, stride, group_size, g)
     b, h, wd, c = x.shape
-    _, _, oh, ow = _geometry(h, wd, stride)
     dx = torch.empty_like(x)
-    dacc = torch.empty(b, oh, ow, c, dtype=x.dtype, device=x.device)  # scratch
     dwp = torch.empty(b, 3, 3, c, dtype=torch.float32, device=x.device)
     dsp = torch.empty(b, c, dtype=torch.float32, device=x.device)
     dbp = torch.empty(b, c, dtype=torch.float32, device=x.device)
     lib = build.load("depthwise_gn", _SIGNATURES)
     rc = lib.dftt_dwgn_bwd_bf16(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), dacc.data_ptr(), dwp.data_ptr(), dsp.data_ptr(), dbp.data_ptr(),
-        b, h, wd, c, stride, eps, int(relu6), torch.cuda.current_stream(x.device).cuda_stream)
+        dx.data_ptr(), dwp.data_ptr(), dsp.data_ptr(), dbp.data_ptr(),
+        b, h, wd, c, stride, eps, int(relu6), *_plan_ints(dwgn_plan(h, wd, c, stride, True)),
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "depthwise_gn_backward")
     depthwise_gn_backward.launches += 1
     return _reduce(dx, dwp, dsp, dbp, w, scale, bias)

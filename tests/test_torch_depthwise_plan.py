@@ -1,0 +1,148 @@
+"""The depthwise kernels' plan (``ops/depthwise_gn.py::dwgn_plan``) and its
+plain mirror.
+
+The CUDA kernels cut each (batch element, channel chunk) into tiles spread
+over a thread-block cluster, as the plan says; they run only on the card.
+Here, on the CPU:
+
+- the plan, over MobileNetV2's 10 depthwise shapes at 96 px, the CPU
+  tests' shapes and a sweep of shapes the gate admits (wide rows at C 8
+  among them), covers every output position exactly once, keeps every
+  tile's input rows and columns within the SAME-padded image, gives every
+  input position to exactly one tile's dx, has its channel chunk divide C
+  with a power-of-two number of groups, keeps the cluster within the
+  portable 8 CTAs and shared memory within the card's 232,448 bytes, and
+  keeps every TMA box within 256 in each dimension;
+- the banded plain mirror (per-tile f64 partials added in rank order, dx
+  from each tile's cotangent over the tile and its ring) equals the plain
+  versions bit for bit, under the plan and under forced plans of several
+  tiles a cluster and several tiles a CTA, so the band split changes no
+  bits; statistics from rank 0's tiles alone do not.
+"""
+
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+pytestmark = pytest.mark.port
+
+# (h, w, c, stride): MobileNetV2's depthwise shapes at 96 px
+STEP_SHAPES = [(48, 48, 32, 1), (48, 48, 96, 2), (24, 24, 144, 1), (24, 24, 144, 2),
+               (12, 12, 192, 1), (12, 12, 192, 2), (6, 6, 384, 1), (6, 6, 576, 1),
+               (6, 6, 576, 2), (3, 3, 960, 1)]
+# the CPU parity tests' shapes and shapes the gate admits at bf16: the
+# 112 px stages at 224 px, wide and tall slivers at C 8 (rows past the TMA
+# box's 256 columns), odd sizes at stride 2, single positions
+SWEEP_SHAPES = [(8, 8, 16, 1), (9, 7, 16, 2), (8, 8, 16, 2), (13, 13, 32, 1), (13, 13, 32, 2),
+                (112, 112, 32, 1), (112, 112, 32, 2), (56, 56, 144, 1), (300, 300, 8, 2),
+                (1, 50000, 8, 1), (2, 3000, 16, 2), (600, 5, 8, 1), (5, 600, 8, 1),
+                (7, 300, 8, 2), (3, 257, 8, 2), (130, 130, 16, 1), (200, 17, 24, 1),
+                (64, 64, 40, 2), (1, 1, 8, 1), (1, 1, 8, 2), (2, 2, 8, 2)]
+
+
+def _needed_rows(plan, r0, rr, oh, pt):
+    """Input rows (padded coordinates may be negative) the tile reads for
+    the outputs it computes: its own, and in the backward the live ring."""
+    s = plan.stride
+    lo, hi = (max(r0 - 1, 0), min(r0 + rr + 1, oh)) if plan.backward else (r0, r0 + rr)
+    return lo * s - pt, (hi - 1) * s - pt + 3
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("h,w,c,stride", STEP_SHAPES + SWEEP_SHAPES)
+def test_plan_covers_the_image_within_the_card(h, w, c, stride, backward):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert dg.depthwise_gn_supported(h, w, c, stride, itemsize=2)
+    plan = dg.dwgn_plan(h, w, c, stride, backward)
+    (pt, pb), (pl, pr), oh, ow = dg._geometry(h, w, stride)
+    assert c % plan.cc == 0 and plan.cc % 8 == 0 and 32 % (plan.cc // 8) == 0
+    assert 1 <= plan.cluster <= dg.MAX_CLUSTER
+    assert plan.images in (1, 2, 4, 8) and plan.images * plan.cc <= dg.THREADS
+    assert plan.smem <= dg.SMEM_LIMIT
+    assert plan.smem == dg._smem_bytes(plan.cc, plan.rows, plan.cols, stride, backward, plan.images)
+    xr, xc = plan.x_box
+    assert max(xr, xc, plan.rows + 2 * plan.halo, plan.cols + 2 * plan.halo) <= dg.MAX_BOX
+    tiles = plan.tiles()
+    assert {t[0] for t in tiles} == set(range(plan.cluster))  # no rank idles
+    assert len(tiles) <= plan.cluster * plan.tiles_per_cta
+    covered = np.zeros((oh, ow), np.int32)
+    owned = np.zeros((h, w), np.int32)
+    for _, r0, c0, rr, cw in tiles:
+        covered[r0:r0 + rr, c0:c0 + cw] += 1
+        # every row and column the tile reads lies in the padded image and
+        # in the tile's box, which starts one ring out in the backward
+        for lo_hi, start, pad_lo, pad_hi, full, box in (
+                (_needed_rows(plan, r0, rr, oh, pt), r0, pt, pb, h, xr),
+                (_needed_rows(plan, c0, cw, ow, pl), c0, pl, pr, w, xc)):
+            lo, hi = lo_hi
+            assert -pad_lo <= lo < hi <= full + pad_hi
+            box_lo = (start - plan.halo) * stride - pad_lo
+            assert box_lo <= lo and hi <= box_lo + box
+        if backward:  # the inputs whose dx the tile writes
+            owned[r0 * stride:min((r0 + plan.rows) * stride, h),
+                  c0 * stride:min((c0 + plan.cols) * stride, w)] += 1
+    assert (covered == 1).all()
+    if backward:
+        assert (owned == 1).all()
+
+
+def _inputs(b, h, w, c, stride, seed=0):
+    rng = np.random.RandomState(seed)
+    _, _, oh, ow = dg._geometry(h, w, stride)
+
+    def bf16(*shape, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32) * scale).to(torch.bfloat16)
+
+    return (bf16(b, h, w, c), bf16(3, 3, c, scale=1 / 3),
+            torch.from_numpy(1 + 0.1 * rng.randn(c).astype(np.float32)),
+            torch.from_numpy(0.1 * rng.randn(c).astype(np.float32)),
+            torch.from_numpy(rng.rand(b, oh, ow, c).astype(np.float32)).to(torch.bfloat16))
+
+
+# (rows, cols, cluster) of forced plans: bands of one row, tiles in both
+# directions, several tiles a CTA (the streamed plans)
+FORCED = [None, (1, 64, 8), (2, 3, 4), (3, 64, 2), (64, 2, 8), (2, 2, 3)]
+
+
+@pytest.mark.parametrize("forced", FORCED)
+@pytest.mark.parametrize("h,w,c,stride", [(8, 8, 16, 1), (9, 7, 16, 2), (13, 13, 32, 1),
+                                          (13, 13, 32, 2), (8, 8, 32, 1), (9, 7, 32, 2)])
+def test_banded_mirror_is_the_plain_version_bit_for_bit(h, w, c, stride, forced):
+    x, k, scale, bias, g = _inputs(2, h, w, c, stride)
+    plans = [None, None]
+    if forced is not None:
+        rows, cols, cluster = forced
+        plans = [dg.make_plan(h, w, c, stride, bwd, 8, rows, cols, cluster) for bwd in (False, True)]
+    y = dg.depthwise3x3_groupnorm_reference(x, k, scale, bias, stride)
+    assert torch.equal(dg.banded_forward_reference(x, k, scale, bias, stride, plan=plans[0]), y)
+    want = dg.depthwise3x3_groupnorm_backward_reference(x, k, scale, bias, g, stride)
+    got = dg.banded_backward_reference(x, k, scale, bias, g, stride, plan=plans[1])
+    for name, a, r in zip(("dx", "dw", "dscale", "dbias"), got, want):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.parametrize("h,w,c,stride,forced", [(13, 13, 32, 1, (2, 3, 4)),
+                                                 (13, 13, 32, 2, (2, 2, 3)),
+                                                 (48, 48, 32, 1, None)])
+def test_rank0_statistics_alone_differ(h, w, c, stride, forced):
+    x, k, scale, bias, _ = _inputs(2, h, w, c, stride)
+    plan = dg.make_plan(h, w, c, stride, False, 8, *forced) if forced else None
+    wrong = dg.banded_forward_reference(x, k, scale, bias, stride, stats_ranks=[0], plan=plan)
+    y = dg.depthwise3x3_groupnorm_reference(x, k, scale, bias, stride)
+    assert (plan or dg.dwgn_plan(h, w, c, stride, False)).cluster > 1
+    assert (wrong.float() - y.float()).abs().max() > 0.01
+
+
+def test_step_shapes_take_resident_plans():
+    # every MobileNetV2 shape at 96 px keeps its tile in shared memory for
+    # every pass (one load of x, and of g), and the small ones put several
+    # images in a CTA
+    for h, w, c, stride in STEP_SHAPES:
+        for backward in (False, True):
+            assert dg.dwgn_plan(h, w, c, stride, backward).tiles_per_cta == 1
+    assert dg.dwgn_plan(3, 3, 960, 1, False).images > 1
