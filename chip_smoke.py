@@ -149,6 +149,27 @@ inputs, before and after this checkout's (rows 11-12, ``was_ms``).
     dense CE) at the ConvNet's N 2048 x V 10 one-hot and, under
     ``large``, at N 8192 x V 32000 with soft targets.
 
+16. The wire-training planes (``wire_training:`` line): the ConvNet of
+    step 14 (bf16, the fused dense CE, f32 masters from the same seeded
+    tree) trained by the port's servers and in-process port workers over
+    loopback TCP, each leg in a launch window of its own in which every
+    worker ``fit`` must launch kernels 9d and 10d exactly once and nothing
+    else runs. (a) ``AsynchronousSGDServer`` with two
+    ``AsynchronousSGDClient`` threads at BASELINE #3's CLI defaults (B 256,
+    momentum 0.05, ``maximum_staleness`` 4) over 4096 synthetic images for
+    2 epochs: every one of the 32 batches applied, rejected or suppressed,
+    the dataset exhausted, the fit losses falling, validation accuracy in
+    [0, 1]; updates/s, samples/s, each phase's p50 and max and the
+    staleness histogram. (b) One worker, 16 batches, full broadcasts
+    (``delta_broadcast`` off, cuDNN deterministic): the server's final
+    weights equal, bit for bit, one model that fits and updates on the same
+    batches in the server's dispatch order, and differ from the reversed
+    order. (c) ``FederatedServer`` (``min_updates_per_version`` 2) with two
+    ``FederatedClient``s of 1024 local images (one uploading int8 with
+    error feedback), 4 rounds, each waiting for both workers to install
+    the new version: 4 versions, nothing dropped, the loss falling, the
+    native host kernels built.
+
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
 at the long phase's rows); the flash forward, which runs on every path,
@@ -164,6 +185,7 @@ CUDA device the script exits 1 before doing anything.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -295,6 +317,17 @@ CORPUS_TOKENS, CORPUS_VOCAB, CORPUS_BRANCHING = 200_000, 256, 8
 # synthetic_cifar10 recipe of experiments/cifar10/cifar_data.py
 CN_B, CN_STEPS, CN_LR = 2048, 30, 0.01
 CN_TRAIN, CN_VAL = 4096, 512
+# The wire-training planes (BASELINE config #3 at experiments/cifar10/
+# train.py's defaults: B 256, momentum 0.05, 2 workers, maximum_staleness
+# 4) over loopback TCP with in-process workers: the async leg's dataset of
+# WIRE_TRAIN synthetic images for WIRE_EPOCHS epochs (32 batches), a
+# single-worker leg of WIRE_SINGLE_BATCHES batches held bit for bit against
+# an in-process replay, and gradient averaging with min_updates_per_version
+# 2 over FED_ROUNDS rounds of two workers with FED_LOCAL local images each
+WIRE_B, WIRE_LR, WIRE_WORKERS, WIRE_STALENESS = 256, 0.05, 2, 4
+WIRE_TRAIN, WIRE_EPOCHS, WIRE_SINGLE_BATCHES = 4096, 2, 16
+FED_LOCAL, FED_ROUNDS = 1024, 4
+WIRE_TIMEOUT_S = 300
 # The depthwise kernels against their plain versions. The products and
 # sums of the conv round to bf16 at the same places in both, every
 # elementwise step is the same f32 operation, and every sum over positions
@@ -1792,6 +1825,354 @@ def _convnet_step_vs_plain(tree, batch, device="cuda"):
     return _grads_vs_plain(out, STEP_TOL)
 
 
+class _Fits:
+    """Thread-safe log of every worker fit's loss, in completion order."""
+
+    def __init__(self):
+        self.losses, self._lock = [], threading.Lock()
+
+    def model(self, spec, **kw):
+        """A port ``SpecModel`` whose ``fit`` records its loss here."""
+        from distriflow_tpu_torch.models.base import SpecModel
+        from distriflow_tpu_torch.utils.config import CompileConfig
+
+        log = self
+
+        class Logged(SpecModel):
+            def fit(self, x, y):
+                grads = super().fit(x, y)
+                with log._lock:
+                    log.losses.append(self.last_loss)
+                return grads
+
+        return Logged(spec, CompileConfig(optimizer="momentum"), learning_rate=WIRE_LR, **kw)
+
+
+def _wire_model(tree, device):
+    """The server's (or the replay's) model: ``cifar_convnet`` in bf16 with
+    the fused dense CE and f32 masters from the seeded flax tree, momentum
+    at ``WIRE_LR``."""
+    from distriflow_tpu_torch.models.base import SpecModel
+    from distriflow_tpu_torch.models.convert import zoo_params_from_jax
+    from distriflow_tpu_torch.utils.config import CompileConfig
+
+    return SpecModel(_convnet_spec(device), CompileConfig(optimizer="momentum"),
+                     learning_rate=WIRE_LR, params=zoo_params_from_jax(tree))
+
+
+def _phase_stats(telemetry):
+    """p50, max and sum (ms) of every phase the server's and the clients'
+    profilers timed."""
+    out = {}
+    for role in ("client", "server"):
+        for phase, d in telemetry.profiler(role).digests().items():
+            out[f"{role}_{phase}"] = {"p50_ms": d.get("p50"), "max_ms": d.get("max"),
+                                      "sum_ms": d.get("sum"), "n": d.get("count")}
+    return out
+
+
+def _wait_for(cond, what, timeout=WIRE_TIMEOUT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"wire_training: {what} did not happen in {timeout} s")
+        time.sleep(0.005)
+
+
+def _async_leg(tree, x, y, device, workers, epochs, delta_broadcast, save_dir, snapshot_at=0):
+    """Port ``AsynchronousSGDServer`` over ``epochs`` epochs of ``x, y`` in
+    batches of ``WIRE_B``, with ``workers`` port ``AsynchronousSGDClient``
+    threads on ``device``. Returns ``(report, server model, dispatch order,
+    fits, a copy of the server's params after ``snapshot_at`` applied
+    updates or None)``."""
+    from distriflow_tpu_torch.utils.serialization import copy_tree
+    from distriflow_tpu_torch.client import AsynchronousSGDClient, DistributedClientConfig
+    from distriflow_tpu_torch.data.dataset import DistributedDataset
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+    from distriflow_tpu_torch.server import (AsynchronousSGDServer, DistributedServerConfig,
+                                             DistributedServerInMemoryModel)
+
+    tel, fits = Telemetry(), _Fits()
+    server_model = _wire_model(tree, device)
+    dataset = DistributedDataset(x, y, {"batch_size": WIRE_B, "epochs": epochs})
+    batches = dataset.num_batches * epochs
+    server = AsynchronousSGDServer(
+        DistributedServerInMemoryModel(server_model), dataset,
+        DistributedServerConfig(
+            server_hyperparams={"maximum_staleness": WIRE_STALENESS,
+                                "delta_broadcast": delta_broadcast},
+            client_hyperparams={"batch_size": WIRE_B, "learning_rate": WIRE_LR},
+            save_dir=save_dir, telemetry=tel))
+    order, snap = [], []
+    server.on_upload(lambda msg: order.append(msg.batch))
+    # fired on the apply thread after each apply, before the next one
+    server.on_new_version(lambda _: snap.append(copy_tree(server.model.get_params()))
+                          if server.applied_updates == snapshot_at else None)
+    server.setup()
+    clients = [AsynchronousSGDClient(server.address, fits.model(_convnet_spec(device)),
+                                     DistributedClientConfig(telemetry=tel, upload_timeout_s=120))
+               for _ in range(workers)]
+    done, errors = [0] * workers, []
+
+    def work(i):
+        try:
+            clients[i].setup(timeout=60)
+            done[i] = clients[i].train_until_complete(timeout=WIRE_TIMEOUT_S)
+        except BaseException as e:  # noqa: BLE001 - relayed to the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(i,), name=f"wire-worker-{i}")
+               for i in range(workers)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(WIRE_TIMEOUT_S + 60)
+        assert not errors, errors
+        assert not any(t.is_alive() for t in threads), "a wire worker did not finish"
+        _wait_for(lambda: server.applied_updates + server.rejected_updates
+                  + server.suppressed_uploads >= batches, "the server's last apply")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for c in clients:
+            c.dispose()
+        server.stop()
+    window = server._h_staleness.export_state().get("window") or []
+    report = {
+        "workers": workers, "batches": batches, "batch": WIRE_B, "epochs": epochs,
+        "delta_broadcast": delta_broadcast, "wall_s": wall,
+        "fits_by_worker": done, "applied": server.applied_updates,
+        "rejected": server.rejected_updates, "suppressed": server.suppressed_uploads,
+        "staleness_histogram": {str(int(k)): int(v) for k, v in
+                                sorted(collections.Counter(window).items())},
+        "updates_per_s": server.applied_updates / wall,
+        "samples_per_s": server.applied_updates * WIRE_B / wall,
+        "phases": _phase_stats(tel),
+        "wire_bytes": {"up": tel.counter_value("comm_up_bytes_total", role="server"),
+                       "down": tel.counter_value("comm_down_bytes_total", role="server")}}
+    assert server.applied_updates + server.rejected_updates + server.suppressed_uploads \
+        == batches, report
+    assert dataset.exhausted, report
+    return report, server_model, order, fits, (snap[0] if snap else None)
+
+
+def _federated_leg(tree, x, y, device, save_dir):
+    """Port ``FederatedServer`` (``min_updates_per_version`` 2) and two port
+    ``FederatedClient``s with ``FED_LOCAL`` local images each, one uploading
+    int8 with error feedback; ``FED_ROUNDS`` rounds, each waiting until both
+    workers installed the new version. Returns ``(report, server model,
+    fits)``."""
+    from distriflow_tpu_torch.client import DistributedClientConfig, FederatedClient
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+    from distriflow_tpu_torch.server import (DistributedServerConfig,
+                                             DistributedServerInMemoryModel, FederatedServer)
+
+    tel, fits = Telemetry(), _Fits()
+    server_model = _wire_model(tree, device)
+    server = FederatedServer(
+        DistributedServerInMemoryModel(server_model),
+        DistributedServerConfig(
+            server_hyperparams={"min_updates_per_version": 2},
+            client_hyperparams={"examples_per_update": WIRE_B, "batch_size": WIRE_B,
+                                "learning_rate": WIRE_LR},
+            save_dir=save_dir, telemetry=tel))
+    versions = []
+    server.on_new_version(versions.append)
+    server.setup()
+    comp = ("none", "int8")
+    clients = [FederatedClient(server.address, fits.model(_convnet_spec(device)),
+                               DistributedClientConfig(
+                                   hyperparams={"gradient_compression": c}, telemetry=tel,
+                                   upload_timeout_s=120))
+               for c in comp]
+    local = [(x[i * FED_LOCAL:(i + 1) * FED_LOCAL], y[i * FED_LOCAL:(i + 1) * FED_LOCAL])
+             for i in range(len(clients))]
+    t0 = time.perf_counter()
+    round_ms = []
+    try:
+        for c in clients:
+            c.setup(timeout=60)
+        for r in range(FED_ROUNDS):
+            tr = time.perf_counter()
+            errors = []
+
+            def upload(i):
+                try:
+                    lx, ly = local[i]
+                    sl = slice(r * WIRE_B, (r + 1) * WIRE_B)
+                    assert clients[i].distributed_update(lx[sl], ly[sl]) == 1
+                except BaseException as e:  # noqa: BLE001 - relayed to the main thread
+                    errors.append(e)
+
+            threads = [threading.Thread(target=upload, args=(i,)) for i in range(len(clients))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(WIRE_TIMEOUT_S)
+            assert not errors, errors
+            _wait_for(lambda: len(versions) == r + 1 and all(
+                c.msg.model.version == server.model.version for c in clients),
+                f"round {r}'s install on both workers")
+            round_ms.append((time.perf_counter() - tr) * 1e3)
+        wall = time.perf_counter() - t0
+    finally:
+        for c in clients:
+            c.dispose()
+        server.stop()
+    report = {
+        "workers": len(clients), "compression": list(comp), "rounds": FED_ROUNDS,
+        "examples_per_update": WIRE_B, "min_updates_per_version": 2,
+        "versions": len(versions), "dropped": server.dropped_uploads,
+        "uploads": server.num_updates, "wall_s": wall, "round_ms": round_ms,
+        "phases": _phase_stats(tel),
+        "wire_bytes": {"up": tel.counter_value("comm_up_bytes_total", role="server"),
+                       "down": tel.counter_value("comm_down_bytes_total", role="server")}}
+    assert len(versions) == FED_ROUNDS and server.dropped_uploads == 0, report
+    assert server.num_updates == 2 * FED_ROUNDS, report
+    return report, server_model, fits
+
+
+def _replay(tree, x, y, order, device, stale=0):
+    """One port model on ``device`` taking an ``update`` on each batch of
+    ``order`` without the wire, each gradient taken at its weights of
+    ``stale`` updates before (at 0 by a ``fit`` of the model itself); the
+    model and each fit's loss."""
+    from distriflow_tpu_torch.utils.serialization import copy_tree
+
+    model, losses = _wire_model(tree, device), []
+    worker = _wire_model(tree, device) if stale else model
+    history = [copy_tree(model.get_params())]
+    for b in order:
+        if stale:
+            worker.set_params(history[0])
+        grads = worker.fit(x[b * WIRE_B:(b + 1) * WIRE_B], y[b * WIRE_B:(b + 1) * WIRE_B])
+        losses.append(worker.last_loss)
+        model.update(grads)
+        if stale:
+            history = (history + [copy_tree(model.get_params())])[-(stale + 1):]
+    return model, losses
+
+
+def _val_spread(model, vx, vy, parts=4):
+    """``model``'s validation loss on the whole set and the spread (max -
+    min) of its losses on ``parts`` disjoint slices of it."""
+    n = len(vx) // parts
+    losses = [model.evaluate(vx[i * n:(i + 1) * n], vy[i * n:(i + 1) * n])[0]
+              for i in range(parts)]
+    return model.evaluate(vx, vy)[0], max(losses) - min(losses)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _wire_phase(tree, counted, device="cuda"):
+    """The wire-training planes on the card, each leg in its own launch
+    window: async SGD with 2 workers, async SGD with 1 worker and full
+    broadcasts held bit for bit against an in-process replay (and the
+    replay in reversed order, which must differ), and gradient averaging
+    with one int8 worker. Returns ``(report, counts by window)``."""
+    import tempfile
+
+    from distriflow_tpu_torch import native
+
+    assert native.ensure_built() and native.AVAILABLE, "the native host kernels did not build"
+    train, val = _synthetic_cifar10(WIRE_TRAIN, CN_VAL, SEED + 11)
+    (x, y), (vx, vy) = _to_xy(train), _to_xy(val)
+    with tempfile.TemporaryDirectory(prefix="wire-") as save_dir:
+        return _wire_legs(tree, counted, device, x, y, vx, vy, save_dir)
+
+
+def _wire_legs(tree, counted, device, x, y, vx, vy, save_dir):
+    from distriflow_tpu_torch import native
+
+    batches = WIRE_TRAIN // WIRE_B * WIRE_EPOCHS
+    epoch = WIRE_TRAIN // WIRE_B
+    (a_report, a_model, a_order, a_fits, a_epoch), a_counts = counted(lambda: _async_leg(
+        tree, x, y, device, WIRE_WORKERS, WIRE_EPOCHS, True, save_dir, snapshot_at=epoch))
+    val_loss, val_acc = a_model.evaluate(vx, vy)[:2]
+    del a_model
+    # the no-update control: the initial weights, which a server that
+    # applied nothing would end with; the spread of their validation loss
+    # over four slices of the set is the margin training must clear
+    probe = _wire_model(tree, device)
+    init_val, spread = _val_spread(probe, vx, vy)
+    probe.set_params(a_epoch)
+    epoch_val = probe.evaluate(vx, vy)[0]
+    del probe, a_epoch
+    # the same batches in the same order without the wire, at staleness 0
+    # and at the leg's staleness 1: does the second epoch's climb need the
+    # wire, or staleness? (reported, not asserted)
+    replays = {}
+    for stale in (0, 1):
+        r_model, r_losses = _replay(tree, x, y, a_order, device, stale)
+        replays[f"staleness{stale}"] = {"losses": r_losses,
+                                        "val_loss": r_model.evaluate(vx, vy)[0]}
+        del r_model
+    losses = a_fits.losses
+    a_report.update(order=a_order, losses=losses, fits=len(losses), val_loss=val_loss,
+                    val_accuracy=val_acc,
+                    init_val_loss=init_val, init_val_spread=spread,
+                    epoch1_val_loss=epoch_val, replays=replays)
+    assert all(math.isfinite(v) for v in losses), losses
+    # the loss falls: after the first epoch the server's weights beat the
+    # initial weights' validation loss by more than the control's spread
+    # (a server that applied no update fails this). The second epoch's
+    # climb, and so the final weights, are not held to it
+    assert init_val - epoch_val > spread, \
+        f"async wire training did not lower the validation loss in epoch 1: {init_val} -> " \
+        f"{epoch_val}, spread {spread}"
+    assert math.isfinite(val_loss) and 0.0 <= val_acc <= 1.0, (val_loss, val_acc)
+    # bitwise replay: needs a deterministic ConvNet backward (cuDNN's
+    # default weight-gradient algorithms may add with atomics)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        n = WIRE_SINGLE_BATCHES * WIRE_B
+        (s_report, s_model, order, s_fits, _), s_counts = counted(lambda: _async_leg(
+            tree, x[:n], y[:n], device, 1, 1, False, save_dir))
+        got = s_model.get_params()
+        replay = _replay(tree, x, y, order, device)[0].get_params()
+        reversed_replay = _replay(tree, x, y, order[::-1], device)[0].get_params()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert sorted(order) == list(range(WIRE_SINGLE_BATCHES)), order
+    s_report.update(order=order, bitwise_vs_replay=_same_bits(got, replay),
+                    reversed_control_rejected=not _same_bits(got, reversed_replay),
+                    max_abs_diff_vs_reversed=max(float((got[k] - reversed_replay[k]).abs().max())
+                                                 for k in got),
+                    fits=len(s_fits.losses), cudnn_deterministic=True)
+    assert s_report["bitwise_vs_replay"], "the single-worker wire run differs from its replay"
+    assert s_report["reversed_control_rejected"], "the reversed replay was not told apart"
+    del s_model, replay, reversed_replay
+    (f_report, f_model, f_fits), f_counts = counted(lambda: _federated_leg(
+        tree, x, y, device, save_dir))
+    f_first, f_last = float(np.mean(f_fits.losses[:2])), float(np.mean(f_fits.losses[-2:]))
+    f_report.update(first_round_loss=f_first, last_round_loss=f_last, fits=len(f_fits.losses),
+                    native_available=native.AVAILABLE)
+    assert all(math.isfinite(v) for v in f_fits.losses), f_fits.losses
+    assert f_last < f_first, f"averaging loss did not fall: round 1 {f_first}, round 4 {f_last}"
+    counts = {"wire_async": a_counts, "wire_single": s_counts, "wire_federated": f_counts}
+    for window, fit_count in (("wire_async", len(a_fits.losses)),
+                              ("wire_single", len(s_fits.losses)),
+                              ("wire_federated", len(f_fits.losses))):
+        for k in ("fused_ce_dense_fwd", "fused_ce_dense_bwd"):
+            if device == "cuda":
+                assert counts[window][k] == fit_count, \
+                    f"{window} launched {k} {counts[window][k]} times for {fit_count} fits"
+    assert len(a_fits.losses) == batches and len(s_fits.losses) == WIRE_SINGLE_BATCHES
+    assert len(f_fits.losses) == 2 * FED_ROUNDS
+    report = {"config": {"model": "cifar_convnet", "dtype": "bfloat16", "masters": "f32",
+                         "loss": "fused_softmax_cross_entropy", "targets": "one-hot f32",
+                         "optimizer": "momentum", "lr": WIRE_LR, "batch": WIRE_B,
+                         "maximum_staleness": WIRE_STALENESS, "transport": "loopback TCP"},
+              "async": a_report, "single": s_report, "federated": f_report}
+    return report, counts
+
+
 def _rejected(name, wrong, want):
     """The share of ``wrong``'s elements outside ``name``'s limit around
     ``want``."""
@@ -1913,10 +2294,13 @@ def _split_bwd_rows(launches, steps):
     return rows
 
 
-def _dense_ce_rows(launches, steps):
+def _dense_ce_rows(launches, steps, wire):
     """Rows 9d and 10d, the dense CE, at the ConvNet's shape (N 2048 x V
-    10, one-hot f32 targets) and, under ``large``, at N 8192 x V 32000
-    with soft targets, where the kernels stream real bytes."""
+    10, one-hot f32 targets), under ``wire`` at a wire worker's ``fit``
+    (N 256 x V 10, one-hot) and, under ``large``, at N 8192 x V 32000
+    with soft targets, where the kernels stream real bytes. ``launches``
+    are the ConvNet's ``steps`` training steps', ``wire`` the wire legs'
+    (one a worker's ``fit``); a row's ``launches`` is their sum."""
     import torch.nn.functional as F
 
     from distriflow_tpu_torch.ops import fused_ce as ce
@@ -1925,9 +2309,9 @@ def _dense_ce_rows(launches, steps):
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     flush = _flush_buffer()
     fwd, bwd = {}, {}
-    for tag, n, vocab in (("path", CN_B, 10), ("large", 8192, 32000)):
+    for tag, n, vocab in (("path", CN_B, 10), ("wire", WIRE_B, 10), ("large", 8192, 32000)):
         logits = torch.randn(n, vocab, generator=g, device=dev).to(torch.bfloat16)
-        if tag == "path":
+        if tag != "large":
             labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
             t = F.one_hot(labels, vocab).float()
             kind = "one-hot"
@@ -1969,10 +2353,12 @@ def _dense_ce_rows(launches, steps):
         rows.append({
             **d["path"], "name": name, "route": "cuda",
             "source": "distriflow_tpu_torch/csrc/fused_ce.cu", "replaces": line,
-            "variant": "sparse=False (dense targets)", "launches": launches[name],
+            "variant": "sparse=False (dense targets)",
+            "launches": launches[name] + sum(c[name] for c in wire.values()),
             "launches_per_step": launches[name] / steps,
-            "max_abs_err": max(d["path"]["max_abs_err"], d["large"]["max_abs_err"]),
-            "tol": _tol(name), "large": d["large"],
+            "launches_wire": {w: c[name] for w, c in wire.items()},
+            "max_abs_err": max(v["max_abs_err"] for v in d.values()),
+            "tol": _tol(name), "wire": d["wire"], "large": d["large"],
             "library_note": "F.cross_entropy with probability targets (its backward for the "
                             "gradient)"})
     return rows
@@ -2069,8 +2455,14 @@ def main() -> int:
     # the CIFAR-10 ConvNet with the fused dense CE: train, then evaluate
     cn_tree = _convnet_tree(np.random.default_rng(SEED + 9))
     cn_report, cn_trainer, cn_batch, cn_counts = _convnet_phase(cn_tree, counted)
+    # the wire-training planes: the same ConvNet trained by port servers and
+    # in-process port workers over loopback TCP
+    t0 = time.perf_counter()
+    wire_report, wire_counts = _wire_phase(cn_tree, counted)
+    wire_report["phase_s"] = time.perf_counter() - t0
+    print("wire_training:", json.dumps(wire_report), flush=True)
     paths = {"serving": serving, "solo_generate": solo, **long_counts, "training": training,
-             **mn_counts, "long_training": long_training, **cn_counts}
+             **mn_counts, "long_training": long_training, **cn_counts, **wire_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
     ran = {"serving": ("flash_attention_fwd", "flash_decode_paged"),
@@ -2085,7 +2477,8 @@ def main() -> int:
            "long_training": ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
                              "fused_ce_fwd", "fused_ce_bwd"),
            "convnet_train": ("fused_ce_dense_fwd", "fused_ce_dense_bwd"),
-           "convnet_eval": ("fused_ce_dense_fwd",)}
+           "convnet_eval": ("fused_ce_dense_fwd",),
+           **{w: ("fused_ce_dense_fwd", "fused_ce_dense_bwd") for w in wire_counts}}
     for path, counts in paths.items():
         for k, n in counts.items():
             if k in ran[path]:
@@ -2160,7 +2553,7 @@ def main() -> int:
         was.append(_parent_dwgn_times(args.parent, shapes))
     rows += _with_was(dw_rows, shapes, was)
     rows += _split_bwd_rows(long_training, LONG_TRAIN_STEPS)
-    rows += _dense_ce_rows(cn_train, CN_STEPS)
+    rows += _dense_ce_rows(cn_train, CN_STEPS, wire_counts)
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",

@@ -100,7 +100,9 @@ class Optimizer:
         updates: Params = {}
         for n, p in params.items():
             g = grads.get(n)
-            g = torch.zeros_like(p) if g is None else g.to(p.dtype)
+            # gradients read off the wire arrive on the host: one copy each
+            g = torch.zeros_like(p) if g is None else torch.as_tensor(g, dtype=p.dtype,
+                                                                      device=p.device)
             if not trainable(n):
                 updates[n] = g  # optax.masked passes a masked leaf's update through
                 continue
@@ -202,6 +204,13 @@ class ModelSpec:
     #: in (``None``: not stated), for :meth:`check_loss`
     device: Optional[torch.device] = None
     dtype: Optional[torch.dtype] = None
+    #: the wire layout of a params (or gradient) dict: ``to_wire(params)``
+    #: gives the JAX package's tree of host arrays (flax's nesting and
+    #: kernel layouts, so the wire's keystr paths and bytes are JAX's) and
+    #: ``from_wire(tree)`` maps such a tree back; ``None`` ships the port's
+    #: own ``{name: tensor}`` dict (:func:`params_to_wire`)
+    to_wire: Optional[Callable[[Params], Any]] = None
+    from_wire: Optional[Callable[[Any], Params]] = None
 
     def check_loss(self) -> None:
         """Raise ``NotImplementedError`` when the loss runs a CUDA kernel
@@ -393,6 +402,24 @@ class SpecModel(DistributedModel):
     @property
     def output_shape(self) -> Tuple[int, ...]:
         return tuple(self.spec.output_shape)
+
+
+def params_to_wire(model: Any, params: Any) -> Any:
+    """A params or gradient tree of ``model``'s layout as the tree the wire
+    carries, on the host: its spec's ``to_wire`` when it has one, else the
+    tree itself with tensors copied to the CPU (the serialize side of every
+    download and upload). ``model`` is the model, not a server's wrapper."""
+    from distriflow_tpu_torch.utils.serialization import host_tree
+
+    to_wire = getattr(getattr(model, "spec", None), "to_wire", None)
+    return host_tree(params) if to_wire is None else to_wire(params)
+
+
+def params_from_wire(model: Any, tree: Any) -> Any:
+    """Inverse of :func:`params_to_wire`: a tree read off the wire (host
+    arrays) in ``model``'s own layout."""
+    from_wire = getattr(getattr(model, "spec", None), "from_wire", None)
+    return tree if from_wire is None else from_wire(tree)
 
 
 def with_uint8_inputs(spec: ModelSpec, scale: float = 1.0 / 255.0, offset: float = 0.0

@@ -15,15 +15,20 @@ a ``state_dict`` of :class:`~distriflow_tpu_torch.models.transformer.Transformer
 :func:`mobilenet_params_from_jax` does the same for a flax MobileNetV2
 tree, and :func:`zoo_params_from_jax` for the zoo's MLP and ConvNet (f32
 masters only; the models cast them on every call).
+:func:`zoo_params_to_jax` is the exact inverse of both: the wire layout
+of those specs (:func:`with_flax_wire`), since the wire keys every leaf
+by its path in flax's tree.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from distriflow_tpu_torch.models.base import ModelSpec
 from distriflow_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
 
@@ -100,6 +105,38 @@ def _module_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(p, ())
     return out
+
+
+def zoo_params_to_jax(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``state_dict`` (or a gradient dict of the same names) of a
+    zoo ``MLP``/``ConvNet`` or a MobileNetV2 -> flax's ``{"params": {...}}``
+    tree of host numpy arrays: the exact inverse of
+    :func:`zoo_params_from_jax` and :func:`mobilenet_params_from_jax`
+    (names split on ``.`` into flax's nesting; ``Conv_*`` kernels OIHW ->
+    HWIO, a ``_ConvNorm``'s own ``[3, 3, C]`` kernel -> ``[3, 3, 1, C]``;
+    every leaf a fresh array in its own dtype, its bits unchanged)."""
+    from distriflow_tpu_torch.utils.serialization import to_numpy
+
+    out: Dict[str, Any] = {}
+    for name, v in params.items():
+        path = name.split(".")
+        a = np.array(to_numpy(v), copy=True)
+        if path[-1] == "kernel" and len(path) > 1 and path[-2].startswith("Conv_"):
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        elif path[-1] == "kernel" and len(path) > 1 and path[-2].startswith("_ConvNorm_"):
+            a = a.reshape(3, 3, 1, a.shape[-1])
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = a
+    return {"params": out}
+
+
+def with_flax_wire(spec: ModelSpec) -> ModelSpec:
+    """``spec`` whose params go on the wire in flax's layout
+    (:attr:`ModelSpec.to_wire`): every spec of a module named by flax's
+    paths, the zoo's and MobileNetV2's."""
+    return dataclasses.replace(spec, to_wire=zoo_params_to_jax, from_wire=_module_params)
 
 
 def lm_from_jax(config: TransformerConfig, tree: Mapping[str, Any],

@@ -329,6 +329,7 @@ def mobilenet_v2(
     """BASELINE config #5 model on ``device`` (``cuda`` by default); ``x``
     = NHWC images ``[B, image_size, image_size, 3]``. ``norm="group"``
     trains from scratch; ``norm="batch"`` is the frozen-BatchNorm variant."""
+    from distriflow_tpu_torch.models.convert import with_flax_wire
     from distriflow_tpu_torch.utils.device import resolve_device
 
     if norm not in ("group", "batch"):
@@ -347,11 +348,11 @@ def mobilenet_v2(
         raise NotImplementedError(
             f"no CUDA depthwise+GroupNorm kernel for {dtype} activations: it takes bf16; "
             "use dtype=torch.bfloat16 or depthwise_impl='shift'")
-    return spec_from_module(
+    return with_flax_wire(spec_from_module(
         lambda: MobileNetV2(classes=classes, width=width, norm=norm, dtype=dtype,
                             depthwise_impl=depthwise_impl, gn_impl=gn_impl),
         input_shape=(image_size, image_size, 3),
         output_shape=(classes,),
         name="mobilenet_v2",
         device=dev,
-    )
+    ))

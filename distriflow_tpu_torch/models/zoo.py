@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distriflow_tpu_torch.models.base import ModelSpec
+from distriflow_tpu_torch.models.convert import with_flax_wire
 from distriflow_tpu_torch.models.mobilenet import Conv, Dense
 from distriflow_tpu_torch.models.module_model import spec_from_module
 from distriflow_tpu_torch.models.transformer import TransformerConfig
@@ -90,23 +91,23 @@ def mnist_mlp(hidden: int = 10, dtype: torch.dtype = torch.float32,
               device: Device = None) -> ModelSpec:
     """BASELINE config #1 model (reference ``mnist_server.ts:16-22``) on
     ``device`` (``cuda`` by default)."""
-    return spec_from_module(lambda: MLP(28 * 28, hidden=hidden, classes=10, dtype=dtype),
-                            input_shape=(28, 28, 1), output_shape=(10,), name="mnist_mlp",
-                            device=device)
+    return with_flax_wire(spec_from_module(
+        lambda: MLP(28 * 28, hidden=hidden, classes=10, dtype=dtype),
+        input_shape=(28, 28, 1), output_shape=(10,), name="mnist_mlp", device=device))
 
 
 def mnist_convnet(dtype: torch.dtype = torch.float32, device: Device = None) -> ModelSpec:
     """Reference ``experiment/mnist/model.json`` ConvNet family."""
-    return spec_from_module(
+    return with_flax_wire(spec_from_module(
         lambda: ConvNet((28, 28, 1), features=(32, 64), classes=10, dense=128, dtype=dtype),
-        input_shape=(28, 28, 1), output_shape=(10,), name="mnist_convnet", device=device)
+        input_shape=(28, 28, 1), output_shape=(10,), name="mnist_convnet", device=device))
 
 
 def cifar_convnet(dtype: torch.dtype = torch.float32, device: Device = None) -> ModelSpec:
     """BASELINE config #2/#3 model."""
-    return spec_from_module(
+    return with_flax_wire(spec_from_module(
         lambda: ConvNet((32, 32, 3), features=(64, 128, 256), classes=10, dense=256, dtype=dtype),
-        input_shape=(32, 32, 3), output_shape=(10,), name="cifar_convnet", device=device)
+        input_shape=(32, 32, 3), output_shape=(10,), name="cifar_convnet", device=device))
 
 
 def flagship_lm_config(max_seq: int = 2048, dtype: torch.dtype = torch.bfloat16) -> TransformerConfig:

@@ -1,4 +1,5 @@
-"""Port of ``distriflow_tpu/obs/telemetry.py`` (the timeline store is left out; imports rewritten).
+"""Port of ``distriflow_tpu/obs/telemetry.py`` (imports rewritten; ``timeline`` is the no-op
+store, the ``TimelineStore`` is not ported yet).
 
 The `Telemetry` facade: one object per process (or per test) that owns
 the metrics registry, the tracer, and the export paths.
@@ -95,6 +96,26 @@ class Telemetry:
                 if self._flight is None:
                     self._flight = FlightRecorder(save_dir=self.save_dir)
         return self._flight
+
+    # -- timeline ------------------------------------------------------------
+
+    @property
+    def timeline(self):
+        """The shared ``NOOP_TIMELINE``: the JAX package hands it out until a
+        timeline is started, and the port's ``TimelineStore`` is not ported
+        yet, so event call sites cost nothing."""
+        from distriflow_tpu_torch.obs.timeline import NOOP_TIMELINE
+        return NOOP_TIMELINE
+
+    def start_timeline(self, interval_s: float = 0.25,
+                       save_dir: Optional[str] = None,
+                       capacity: int = 4096):
+        """The background timeline sampler is not ported yet; a disabled
+        telemetry returns the no-op store, as in the JAX package."""
+        from distriflow_tpu_torch.obs.timeline import NOOP_TIMELINE
+        if not self.enabled:
+            return NOOP_TIMELINE
+        raise NotImplementedError("the timeline store is not ported yet")
 
     # -- fleet health table -------------------------------------------------
 

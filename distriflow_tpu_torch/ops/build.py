@@ -39,6 +39,16 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 #: ptxas register/shared-memory report of each build, by source name
 ptxas_reports: Dict[str, str] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Count one launch of ``fn``'s kernel in ``fn.launches``. The wrappers
+    run on several threads at once (the wire-training clients fit in their
+    transport's handler threads), and a bare ``+= 1`` on an attribute can
+    lose an increment between threads: the lock keeps the count exact."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def _nvcc() -> str:

@@ -633,7 +633,7 @@ def depthwise_gn_forward(x, w, scale, bias, stride: int = 1, eps: float = 1e-6,
         b, h, wd, c, stride, eps, int(relu6), *_plan_ints(dwgn_plan(h, wd, c, stride, False)),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "depthwise_gn_forward")
-    depthwise_gn_forward.launches += 1
+    build.count_launch(depthwise_gn_forward)
     return out
 
 
@@ -659,7 +659,7 @@ def depthwise_gn_backward(x, w, scale, bias, g, stride: int = 1, eps: float = 1e
         b, h, wd, c, stride, eps, int(relu6), *_plan_ints(dwgn_plan(h, wd, c, stride, True)),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "depthwise_gn_backward")
-    depthwise_gn_backward.launches += 1
+    build.count_launch(depthwise_gn_backward)
     return _reduce(dx, dwp, dsp, dbp, w, scale, bias)
 
 

@@ -287,7 +287,7 @@ def _forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         b * h, s, d, int(causal), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return o, lse
 
 
@@ -319,7 +319,7 @@ def flash_attention_backward(
         b * h, s, d, int(causal), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_backward")
-    flash_attention_backward.launches += 1
+    build.count_launch(flash_attention_backward)
     return dq, dk, dv
 
 
@@ -354,7 +354,7 @@ def flash_attention_dq(
         delta.data_ptr(), dq.data_ptr(), b * h, s, d, int(causal), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_dq")
-    flash_attention_dq.launches += 1
+    build.count_launch(flash_attention_dq)
     return dq
 
 
@@ -376,7 +376,7 @@ def flash_attention_dkv(
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, s, d, int(causal),
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_dkv")
-    flash_attention_dkv.launches += 1
+    build.count_launch(flash_attention_dkv)
     return dk, dv
 
 

@@ -358,7 +358,7 @@ def flash_decode_paged(q, k, v, page_table, valid_len, k_scale=None, v_scale=Non
     pp = page_table.shape[1]
     out = _launch(q, k, v, None, page_table, valid_len,
                   ps, pp, pp * ps, n_pages, "flash_decode_paged")
-    flash_decode_paged.launches += 1
+    build.count_launch(flash_decode_paged)
     return out
 
 
@@ -377,7 +377,7 @@ def flash_decode(q, k, v, valid_len, k_scale=None, v_scale=None) -> torch.Tensor
     s = k.shape[1]
     out = _launch(q, k, v, None, None, valid_len,
                   SLAB_TILE, -(-s // SLAB_TILE), s, 0, "flash_decode")
-    flash_decode.launches += 1
+    build.count_launch(flash_decode)
     return out
 
 
@@ -395,7 +395,7 @@ def flash_decode_paged_int8(q, k, v, k_scale, v_scale, page_table, valid_len) ->
     pp = page_table.shape[1]
     out = _launch(q, k, v, (k_scale, v_scale), page_table,
                   valid_len, ps, pp, pp * ps, n_pages, what)
-    flash_decode_paged_int8.launches += 1
+    build.count_launch(flash_decode_paged_int8)
     return out
 
 
@@ -411,7 +411,7 @@ def flash_decode_int8(q, k, v, k_scale, v_scale, valid_len) -> torch.Tensor:
     s = k.shape[1]
     out = _launch(q, k, v, (k_scale, v_scale), None, valid_len,
                   SLAB_TILE, -(-s // SLAB_TILE), s, 0, what)
-    flash_decode_int8.launches += 1
+    build.count_launch(flash_decode_int8)
     return out
 
 

@@ -124,7 +124,7 @@ def fused_ce_forward(logits: torch.Tensor, labels: torch.Tensor
         logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(), n, v,
         torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_forward")
-    fused_ce_forward.launches += 1
+    build.count_launch(fused_ce_forward)
     return loss, lse
 
 
@@ -142,7 +142,7 @@ def fused_ce_backward(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Ten
         logits.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), grad.data_ptr(),
         n, v, torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_backward")
-    fused_ce_backward.launches += 1
+    build.count_launch(fused_ce_backward)
     return grad
 
 
@@ -190,7 +190,7 @@ def fused_ce_dense_forward(logits: torch.Tensor, targets: torch.Tensor
         logits.data_ptr(), targets.data_ptr(), loss.data_ptr(), lse.data_ptr(), n, v,
         torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_dense_forward")
-    fused_ce_dense_forward.launches += 1
+    build.count_launch(fused_ce_dense_forward)
     return loss, lse
 
 
@@ -209,7 +209,7 @@ def fused_ce_dense_backward(logits: torch.Tensor, targets: torch.Tensor, lse: to
         logits.data_ptr(), targets.data_ptr(), lse.data_ptr(), g.data_ptr(), grad.data_ptr(),
         n, v, torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_dense_backward")
-    fused_ce_dense_backward.launches += 1
+    build.count_launch(fused_ce_dense_backward)
     return grad
 
 
