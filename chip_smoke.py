@@ -170,6 +170,38 @@ inputs, before and after this checkout's (rows 11-12, ``was_ms``).
     the new version: 4 versions, nothing dropped, the loss falling, the
     native host kernels built.
 
+17. The in-process trainers on the same ConvNet (``inprocess_training:``
+    line), each leg in a launch window of its own in which every batch
+    (every FedAvg local step) launches kernels 9d and 10d exactly once and
+    nothing else runs. (a) ``AsyncSGDTrainer`` at the JAX repo's
+    ``bench.py::bench_cifar_async`` configuration (B 256, K 8 batches an
+    upload, 96 batches, 4 workers, ``maximum_staleness`` 2,
+    ``staleness_decay`` 0.7, sgd 0.01, ``stage_dataset``,
+    ``inflight_window`` 2; two warm K-groups through ``worker_loop(0)``,
+    the second profiled, before the timed ``train(4)``): every batch
+    applied or rejected, none rejected, the dataset exhausted, the
+    validation loss below the initial weights' by more than their spread
+    over four slices; samples/s, updates/s, ``phase_ms`` against the wall,
+    the staleness histogram, MFU per batch. (b) The CLI's defaults (B 256,
+    K 1, 2 workers, momentum 0.05, ``maximum_staleness`` 4), one epoch:
+    the final params equal a replay of the recorded apply schedule (each
+    batch's gradient at its recorded version) bit for bit; the lowest
+    validation loss of the epoch's second half, for the run and for a
+    staleness-0 replay of its order, below the initial weights' by more
+    than their spread; every version's validation loss reported for both
+    (and for the replay on a second dataset). (c) One worker, K 1,
+    16 batches: bit for bit against a ``SpecModel`` replay in the dispatch
+    order, the reversed order told apart, a snapshot taken mid-run
+    unchanged by later applies. (d) ``FederatedAveragingTrainer`` at
+    ``bench.py::bench_fedavg``'s configuration (K 8, B 128, sgd 0.01) at 1
+    and 4 workers, 3 rounds each: round losses falling, the 4-worker
+    first round equal bit for bit to the fixed-order mean of 4 solo runs,
+    round ms and samples/s, one more round profiled. (b)-(d) run with
+    cuDNN deterministic. (e) ``cost_analysis`` and ``mfu`` of the
+    ConvNet's B 2048 step and of the 16k remat LM step at their measured
+    p50: the kernel tally added once and equal to the analytic cost of the
+    path's kernels, the MFU finite and positive.
+
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
 at the long phase's rows); the flash forward, which runs on every path,
@@ -328,6 +360,22 @@ WIRE_B, WIRE_LR, WIRE_WORKERS, WIRE_STALENESS = 256, 0.05, 2, 4
 WIRE_TRAIN, WIRE_EPOCHS, WIRE_SINGLE_BATCHES = 4096, 2, 16
 FED_LOCAL, FED_ROUNDS = 1024, 4
 WIRE_TIMEOUT_S = 300
+# The in-process trainers on the ConvNet of step 14: (a) the JAX repo's
+# bench.py::bench_cifar_async (AsyncSGDTrainer, B 256, K 8 batches an
+# upload, 96 batches, 4 workers, maximum_staleness 2, staleness_decay 0.7,
+# sgd 0.01, stage_dataset, inflight_window 2, 2K warm batches through
+# worker_loop(0) before the timed train); (b) experiments/cifar10/train.py
+# --mode async at its defaults (B 256, K 1, 2 workers, momentum 0.05,
+# maximum_staleness 4) for one epoch of WIRE_TRAIN images; (c) one worker,
+# K 1, WIRE_SINGLE_BATCHES batches; (d) bench.py::bench_fedavg
+# (FederatedAveragingTrainer, K 8 local steps, B 128, sgd 0.01) at 1 and 4
+# workers, FA_ROUNDS rounds each. Leg (b) also replays, without the
+# trainer, one epoch of a second synthetic dataset (seed SEED +
+# IP_SECOND_DATA) and reports its validation loss at every version
+IP_B, IP_K, IP_BATCHES, IP_WORKERS = 256, 8, 96, 4
+IP_SECOND_DATA = 21
+IP_STALENESS, IP_DECAY, IP_LR, IP_WINDOW = 2, 0.7, 0.01, 2
+FA_K, FA_B, FA_LR, FA_ROUNDS, FA_WORKERS = 8, 128, 0.01, 3, (1, 4)
 # The depthwise kernels against their plain versions. The products and
 # sums of the conv round to bf16 at the same places in both, every
 # elementwise step is the same f32 operation, and every sum over positions
@@ -1848,15 +1896,15 @@ class _Fits:
         return Logged(spec, CompileConfig(optimizer="momentum"), learning_rate=WIRE_LR, **kw)
 
 
-def _wire_model(tree, device):
+def _wire_model(tree, device, loss="fused_softmax_cross_entropy"):
     """The server's (or the replay's) model: ``cifar_convnet`` in bf16 with
-    the fused dense CE and f32 masters from the seeded flax tree, momentum
-    at ``WIRE_LR``."""
+    the fused dense CE (or ``loss``) and f32 masters from the seeded flax
+    tree, momentum at ``WIRE_LR``."""
     from distriflow_tpu_torch.models.base import SpecModel
     from distriflow_tpu_torch.models.convert import zoo_params_from_jax
     from distriflow_tpu_torch.utils.config import CompileConfig
 
-    return SpecModel(_convnet_spec(device), CompileConfig(optimizer="momentum"),
+    return SpecModel(_convnet_spec(device, loss), CompileConfig(optimizer="momentum"),
                      learning_rate=WIRE_LR, params=zoo_params_from_jax(tree))
 
 
@@ -2035,15 +2083,16 @@ def _federated_leg(tree, x, y, device, save_dir):
     return report, server_model, fits
 
 
-def _replay(tree, x, y, order, device, stale=0):
+def _replay(tree, x, y, order, device, stale=0, loss="fused_softmax_cross_entropy",
+            each=None):
     """One port model on ``device`` taking an ``update`` on each batch of
     ``order`` without the wire, each gradient taken at its weights of
     ``stale`` updates before (at 0 by a ``fit`` of the model itself); the
-    model and each fit's loss."""
+    model and each fit's loss. ``each(model)`` runs after every update."""
     from distriflow_tpu_torch.utils.serialization import copy_tree
 
-    model, losses = _wire_model(tree, device), []
-    worker = _wire_model(tree, device) if stale else model
+    model, losses = _wire_model(tree, device, loss), []
+    worker = _wire_model(tree, device, loss) if stale else model
     history = [copy_tree(model.get_params())]
     for b in order:
         if stale:
@@ -2051,6 +2100,8 @@ def _replay(tree, x, y, order, device, stale=0):
         grads = worker.fit(x[b * WIRE_B:(b + 1) * WIRE_B], y[b * WIRE_B:(b + 1) * WIRE_B])
         losses.append(worker.last_loss)
         model.update(grads)
+        if each is not None:
+            each(model)
         if stale:
             history = (history + [copy_tree(model.get_params())])[-(stale + 1):]
     return model, losses
@@ -2171,6 +2222,398 @@ def _wire_legs(tree, counted, device, x, y, vx, vy, save_dir):
                          "maximum_staleness": WIRE_STALENESS, "transport": "loopback TCP"},
               "async": a_report, "single": s_report, "federated": f_report}
     return report, counts
+
+
+@contextlib.contextmanager
+def _fresh_telemetry():
+    """A new process telemetry for one leg (its profiler digests and
+    histograms hold that leg alone); the old one is put back after."""
+    from distriflow_tpu_torch.obs.telemetry import Telemetry, set_telemetry
+
+    tel = Telemetry()
+    prev = set_telemetry(tel)
+    try:
+        yield tel
+    finally:
+        set_telemetry(prev)
+
+
+def _staleness_histogram(tel):
+    h = tel.registry.histogram("train_gradient_staleness", mode="async")
+    window = h.export_state().get("window") or []
+    return {str(int(k)): int(v) for k, v in sorted(collections.Counter(window).items())}
+
+
+def _async_trainer(tree, x, y, device, **kw):
+    """A port ``AsyncSGDTrainer`` on ``x, y`` (one epoch, batches of
+    ``IP_B``) for the ConvNet from the seeded flax tree."""
+    from distriflow_tpu_torch.data.dataset import DistributedDataset
+    from distriflow_tpu_torch.models.convert import zoo_params_from_jax
+    from distriflow_tpu_torch.train.async_sgd import AsyncSGDTrainer
+
+    dataset = kw.pop("dataset", None) or DistributedDataset(x, y, {"batch_size": IP_B, "epochs": 1})
+    trainer = AsyncSGDTrainer(_convnet_spec(device), dataset, **kw)
+    trainer.init(SEED)
+    trainer.set_params(zoo_params_from_jax(tree))
+    return trainer
+
+
+def _async_report(trainer, tel, wall, batches, uploads, counters):
+    """Rates, phases (with their sum beside the wall), the staleness
+    histogram and the per-batch MFU of a timed ``train``."""
+    phase_sum = sum(trainer.phase_ms.values())
+    report = {
+        "counters": counters, "wall_s": wall, "batches": batches, "uploads": uploads,
+        "samples_per_s": batches * IP_B / wall, "updates_per_s": uploads / wall,
+        "phase_ms": dict(trainer.phase_ms), "phase_sum_ms": phase_sum,
+        "phase_sum_over_wall": phase_sum / (wall * 1e3),
+        "staleness_histogram": _staleness_histogram(tel),
+        "profiler": {k: {"p50_ms": d.get("p50"), "sum_ms": d.get("sum"), "n": d.get("count")}
+                     for k, d in tel.profiler("trainer").digests().items()}}
+    if trainer.devices[0].type == "cuda":
+        report["mfu_per_batch"] = trainer.mfu(IP_B, wall / batches)
+        report["cost_per_batch"] = _cost_fields(trainer.cost_analysis(IP_B))
+    return report
+
+
+def _cost_fields(cost):
+    return {k: cost[k] for k in ("flops", "aten_flops", "kernel_flops", "kernel_hw_flops",
+                                 "kernel_tally_added")}
+
+
+def _val_gain(trainer, init_val, spread, vx, vy, what):
+    """The validation loss of ``trainer``'s weights, held below the initial
+    weights' by more than the spread of their loss over four slices."""
+    val = trainer.evaluate(vx, vy)
+    assert init_val - val[0] > spread, \
+        f"{what}: the validation loss did not fall: {init_val} -> {val[0]}, spread {spread}"
+    return {"init_val_loss": init_val, "init_val_spread": spread, "val_loss": val[0],
+            "val_accuracy": val[1]}
+
+
+def _init_val(tree, device, vx, vy):
+    probe = _wire_model(tree, device)
+    out = _val_spread(probe, vx, vy)
+    del probe
+    return out
+
+
+def _async_bench_leg(tree, counted, device):
+    """(a) ``bench_cifar_async``'s configuration: 2K warm batches through
+    ``worker_loop(0)`` (the second group profiled), then the timed
+    ``train(4)``; the launch window holds all 96 batches."""
+    train, val = _synthetic_cifar10(IP_BATCHES * IP_B, CN_VAL, SEED + 12)
+    (x, y), (vx, vy) = _to_xy(train), _to_xy(val)
+    init_val, spread = _init_val(tree, device, vx, vy)
+    with _fresh_telemetry() as tel:
+        trainer = _async_trainer(
+            tree, x, y, device, learning_rate=IP_LR, steps_per_upload=IP_K,
+            hyperparams={"maximum_staleness": IP_STALENESS, "staleness_decay": IP_DECAY},
+            stage_dataset=True, inflight_window=IP_WINDOW)
+        trainer.pre_stage(trainer.devices[0])
+
+        def run():
+            trainer.worker_loop(0, max_steps=IP_K)
+            second = lambda: trainer.worker_loop(0, max_steps=IP_K)  # noqa: E731
+            profile = _profiled(second) if device == "cuda" else second() and None
+            warm = trainer.applied_updates + trainer.rejected_updates
+            for k in trainer.phase_ms:
+                trainer.phase_ms[k] = 0.0
+            t0 = time.perf_counter()
+            counters = trainer.train(num_workers=IP_WORKERS)
+            return profile, warm, counters, time.perf_counter() - t0
+
+        (profile, warm, counters, wall), counts = counted(run)
+        report = _async_report(trainer, tel, wall, IP_BATCHES - 2 * IP_K,
+                               counters["applied"] + counters["rejected"] - warm, counters)
+    assert trainer.dataset.exhausted and not trainer.dataset.incomplete_batches, report
+    assert counters["rejected"] == 0, report
+    report.update(_val_gain(trainer, init_val, spread, vx, vy, "bench_cifar_async"),
+                  warm_uploads=warm, one_upload_profile=profile,
+                  config={"batch": IP_B, "steps_per_upload": IP_K, "batches": IP_BATCHES,
+                          "workers": IP_WORKERS, "maximum_staleness": IP_STALENESS,
+                          "staleness_decay": IP_DECAY, "optimizer": "sgd", "lr": IP_LR,
+                          "stage_dataset": True, "inflight_window": IP_WINDOW})
+    return report, counts, IP_BATCHES
+
+
+def _schedule_replay(tree, x, y, schedule, device):
+    """The apply sequence of an async run replayed without the trainer: for
+    each apply, in order, one model's ``fit`` of its batch at the weights
+    of the version its gradient was taken at, then ``update`` (decay 1.0).
+    Returns the final params."""
+    from distriflow_tpu_torch.utils.serialization import copy_tree
+
+    model, worker = _wire_model(tree, device), _wire_model(tree, device)
+    history = [copy_tree(model.get_params())]
+    for batch, version in schedule:
+        worker.set_params(history[version])
+        model.update(worker.fit(x[batch * IP_B:(batch + 1) * IP_B],
+                                y[batch * IP_B:(batch + 1) * IP_B]))
+        history.append(copy_tree(model.get_params()))
+    return model.get_params()
+
+
+def _async_cli_leg(tree, counted, device, x, y, vx, vy):
+    """(b) ``train.py --mode async``'s defaults, one epoch. Each apply's
+    batch and gradient version are recorded, and the final params must
+    equal a replay of that schedule bit for bit (cuDNN deterministic).
+
+    The loss is held in the form of the wire leg's epoch-1 check, over the
+    epoch's second half: the lowest validation loss of the snapshots after
+    more than half the applies must lie below the initial weights' by more
+    than the spread of their loss over four slices, and so must that of a
+    staleness-0 replay of the same order (the sequential reference, which
+    must pass the check it sets). No single version is held: at this
+    learning rate and momentum the validation loss of the sequential
+    reference itself jumps within the epoch (on the second dataset, on an
+    H100 80GB HBM3 at 700 W: 0.925 at 7 applies, 3.008 at 9, against 2.289
+    at the start, and 0.005 at 16), and the run's at the epoch's end
+    (3.879 against 2.336 on the same card). Every version's loss is
+    reported for both, beside the same replay through the plain CE and
+    one on the second dataset."""
+    init_val, spread = _init_val(tree, device, vx, vy)
+    schedule, local, versions = [], threading.local(), []
+    with _fresh_telemetry() as tel:
+        trainer = _async_trainer(tree, x, y, device, learning_rate=WIRE_LR,
+                                 optimizer="momentum",
+                                 hyperparams={"maximum_staleness": WIRE_STALENESS})
+        # every version's params dict: never written after its apply
+        trainer.callbacks.register("new_version", lambda v: versions.append(
+            trainer.snapshot()[0]))
+        fit, submit = trainer._host_fit, trainer.submit
+
+        def logged_fit(model, group):  # the worker thread's group, for its submit
+            local.batches = [b.batch for b, _, _ in group]
+            return fit(model, group)
+
+        def logged_submit(grads, version, client_id="?"):
+            # FIFO tickets serialize submits: this list is the apply order
+            schedule.extend((b, version) for b in local.batches)
+            return submit(grads, version, client_id=client_id)
+
+        trainer._host_fit, trainer.submit = logged_fit, logged_submit
+
+        def run():
+            t0 = time.perf_counter()
+            counters = trainer.train(num_workers=WIRE_WORKERS)
+            return counters, time.perf_counter() - t0
+
+        (counters, wall), counts = counted(run)
+        batches = len(x) // IP_B
+        report = _async_report(trainer, tel, wall, batches, batches, counters)
+    assert trainer.dataset.exhausted and not trainer.dataset.incomplete_batches, report
+    assert counters["applied"] == batches and counters["rejected"] == 0, report
+    got = trainer.snapshot()[0]
+    replay = _schedule_replay(tree, x, y, schedule, device)
+    order = [b for b, _ in schedule]
+    sequential = {}
+    for loss in ("fused_softmax_cross_entropy", "softmax_cross_entropy"):
+        path = []
+        _, fits = _replay(tree, x, y, order, device, loss=loss,
+                          each=lambda m: path.append(m.evaluate(vx, vy)[0]))
+        sequential[loss] = {"val_by_version": path, "fit_losses": fits}
+    train2, val2 = _synthetic_cifar10(WIRE_TRAIN, CN_VAL, SEED + IP_SECOND_DATA)
+    (x2, y2), (vx2, vy2) = _to_xy(train2), _to_xy(val2)
+    init2, spread2 = _init_val(tree, device, vx2, vy2)
+    path2 = []
+    _, fits2 = _replay(tree, x2, y2, list(range(batches)), device,
+                       each=lambda m: path2.append(m.evaluate(vx2, vy2)[0]))
+    val = trainer.evaluate(vx, vy)
+    probe, async_path = _wire_model(tree, device), []
+    for params in versions:
+        probe.set_params(params)
+        async_path.append(probe.evaluate(vx, vy)[0])
+    del probe
+    late = batches // 2  # versions late + 1 ... batches
+    held = {"async": min(async_path[late:]),
+            "staleness0_replay": min(sequential["fused_softmax_cross_entropy"][
+                "val_by_version"][late:])}
+    report.update(schedule=schedule, bitwise_vs_schedule_replay=_same_bits(got, replay),
+                  init_val_loss=init_val, init_val_spread=spread, val_loss=val[0],
+                  val_accuracy=val[1], val_by_version=async_path,
+                  held_from_version=late + 1, held_lowest_val_loss=held,
+                  staleness0_replay=sequential,
+                  second_dataset_staleness0_replay={
+                      "seed": SEED + IP_SECOND_DATA, "init_val_loss": init2,
+                      "init_val_spread": spread2, "val_by_version": path2, "fit_losses": fits2},
+                  config={"batch": IP_B, "steps_per_upload": 1, "workers": WIRE_WORKERS,
+                          "maximum_staleness": WIRE_STALENESS, "optimizer": "momentum",
+                          "lr": WIRE_LR, "epochs": 1, "cudnn_deterministic": True})
+    assert sorted(b for b, _ in schedule) == list(range(batches)), schedule
+    assert report["bitwise_vs_schedule_replay"], "the async run differs from its schedule replay"
+    assert len(versions) == batches, len(versions)
+    for what, v in held.items():
+        assert init_val - v > spread, (
+            f"CLI defaults: {what}'s lowest validation loss after {late} applies did not "
+            f"fall: {init_val} -> {v}, spread {spread}")
+    return report, counts, batches
+
+
+def _async_single_leg(tree, counted, device, x, y):
+    """(c) One worker, K 1: the final params against a ``SpecModel`` replay
+    in the dataset's dispatch order, bit for bit (and the reversed order,
+    which must differ); a snapshot taken mid-run keeps its values."""
+    from distriflow_tpu_torch.data.dataset import DistributedDataset
+
+    order = []
+
+    class Logged(DistributedDataset):
+        def complete_batch(self, index):
+            order.append(index)
+            return super().complete_batch(index)
+
+    n = WIRE_SINGLE_BATCHES * IP_B
+    trainer = _async_trainer(tree, None, None, device, learning_rate=WIRE_LR,
+                             optimizer="momentum",
+                             hyperparams={"maximum_staleness": WIRE_STALENESS},
+                             dataset=Logged(x[:n], y[:n], {"batch_size": IP_B, "epochs": 1}))
+    mid = []
+    trainer.callbacks.register("new_version", lambda v: mid.append(
+        (trainer.params, {k: t.clone() for k, t in trainer.params.items()}))
+        if int(v) == WIRE_SINGLE_BATCHES // 2 else None)
+    counters, counts = counted(lambda: trainer.train(num_workers=1))
+    got = trainer.snapshot()[0]
+    replay = _replay(tree, x, y, order, device)[0].get_params()
+    reversed_replay = _replay(tree, x, y, order[::-1], device)[0].get_params()
+    (held, copy), = mid
+    report = {"counters": counters, "order": order,
+              "bitwise_vs_replay": _same_bits(got, replay),
+              "reversed_control_rejected": not _same_bits(got, reversed_replay),
+              "max_abs_diff_vs_reversed": max(float((got[k] - reversed_replay[k]).abs().max())
+                                              for k in got),
+              "mid_run_snapshot_kept": _same_bits(held, copy),
+              "mid_run_snapshot_differs_from_final": not _same_bits(held, got)}
+    assert sorted(order) == list(range(WIRE_SINGLE_BATCHES)), order
+    assert report["bitwise_vs_replay"], "the one-worker trainer differs from its replay"
+    assert report["reversed_control_rejected"], "the reversed replay was not told apart"
+    assert report["mid_run_snapshot_kept"], "a snapshot changed after later applies"
+    assert report["mid_run_snapshot_differs_from_final"], report
+    return report, counts, WIRE_SINGLE_BATCHES
+
+
+def _fedavg_leg(tree, counted, device, x, y, workers):
+    """(d) ``bench_fedavg``'s configuration at ``workers`` workers,
+    ``FA_ROUNDS`` rounds; with more than one worker the first round is held
+    bit for bit against the fixed-order mean of solo ``SpecModel`` runs
+    from the same weights. One more round is profiled outside the window."""
+    from distriflow_tpu_torch.models.base import SpecModel
+    from distriflow_tpu_torch.models.convert import zoo_params_from_jax
+    from distriflow_tpu_torch.train.federated import FederatedAveragingTrainer
+
+    with _fresh_telemetry():
+        trainer = FederatedAveragingTrainer(_convnet_spec(device), local_steps=FA_K,
+                                            local_batch_size=FA_B, learning_rate=FA_LR,
+                                            num_workers=workers)
+        trainer.init(SEED)
+        trainer.set_params(zoo_params_from_jax(tree))
+        start = {k: t.detach().clone() for k, t in trainer.params.items()}
+        rng = np.random.RandomState(SEED + 13)
+        rounds = [trainer.pack_round_data(x, y, rng) for _ in range(FA_ROUNDS + 1)]
+
+        def run():
+            out = []
+            for xs, ys in rounds[:FA_ROUNDS]:
+                t0 = time.perf_counter()
+                loss = trainer.round(xs, ys)
+                out.append((loss, (time.perf_counter() - t0) * 1e3))
+                if len(out) == 1:
+                    first = {k: t.detach().clone() for k, t in trainer.params.items()}
+            return out, first
+
+        (out, first), counts = counted(run)
+        profile = _profiled(lambda: trainer.round(*rounds[-1])) if device == "cuda" else None
+    losses, round_ms = [o[0] for o in out], [o[1] for o in out]
+    report = {"workers": workers, "local_steps": FA_K, "batch": FA_B, "rounds": FA_ROUNDS,
+              "round_losses": losses, "round_ms": round_ms,
+              "samples_per_s": workers * FA_K * FA_B / (float(np.median(round_ms)) / 1e3),
+              "one_round_profile": profile}
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], f"FedAvg W{workers}: the round loss did not fall: {losses}"
+    if workers > 1:
+        xs, ys = rounds[0]
+        acc = None
+        for w in range(workers):
+            solo = SpecModel(_convnet_spec(device), learning_rate=FA_LR, params=start)
+            for k in range(FA_K):
+                solo.update(solo.fit(xs[w, k], ys[w, k]))
+            p = solo.get_params()
+            acc = p if acc is None else {k: acc[k] + p[k] for k in acc}
+            del solo
+        report["round1_bitwise_vs_solo_mean"] = _same_bits(
+            first, {k: v / workers for k, v in acc.items()})
+        assert report["round1_bitwise_vs_solo_mean"], \
+            f"FedAvg W{workers}'s round differs from the fixed-order mean of its solo runs"
+    return report, counts, workers * FA_K * FA_ROUNDS
+
+
+def _inprocess_phase(tree, counted, device="cuda"):
+    """The in-process trainers, each leg in its own launch window in which
+    every batch (every local step) launches kernels 9d and 10d exactly once
+    and nothing else runs. Returns ``(report, counts by window)``."""
+    train, val = _synthetic_cifar10(WIRE_TRAIN, CN_VAL, SEED + 11)
+    (x, y), (vx, vy) = _to_xy(train), _to_xy(val)
+    report, counts = {}, {}
+    report["ip_async_bench"], counts["ip_async_bench"], fits = _async_bench_leg(
+        tree, counted, device)
+    report["ip_async_bench"]["fits"] = fits
+    # bitwise legs: a deterministic ConvNet backward (cuDNN's default
+    # weight-gradient algorithms may add with atomics)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for window, leg in (("ip_async_cli", lambda: _async_cli_leg(
+                                tree, counted, device, x, y, vx, vy)),
+                            ("ip_single", lambda: _async_single_leg(
+                                tree, counted, device, x, y))):
+            report[window], counts[window], fits = leg()
+            report[window]["fits"] = fits
+        for w in FA_WORKERS:
+            window = f"ip_fedavg_w{w}"
+            report[window], counts[window], fits = _fedavg_leg(tree, counted, device, x, y, w)
+            report[window]["fits"] = fits
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if device == "cuda":
+        for window, r in report.items():
+            for k in ("fused_ce_dense_fwd", "fused_ce_dense_bwd"):
+                assert counts[window][k] == r["fits"], \
+                    f"{window} launched {k} {counts[window][k]} times for {r['fits']} fits"
+    report["config"] = {"model": "cifar_convnet", "dtype": "bfloat16", "masters": "f32",
+                        "loss": "fused_softmax_cross_entropy", "targets": "one-hot f32"}
+    return report, counts
+
+
+def _cost_check(trainer, batch, step_ms, kernel_flops, kernel_hw_flops):
+    """``cost_analysis`` and ``mfu`` of one sync step at its measured p50:
+    the tally added once, and equal to the path's analytic kernel cost."""
+    cost = trainer.cost_analysis(batch)
+    out = {**_cost_fields(cost), "kernel_by_category": cost["kernel_by_category"],
+           "step_ms_p50": step_ms, "mfu": trainer.mfu(batch, step_ms / 1e3),
+           "expected_kernel_flops": kernel_flops, "expected_kernel_hw_flops": kernel_hw_flops}
+    assert cost["kernel_tally_added"] and cost["flops"] == cost["aten_flops"] + cost["kernel_flops"]
+    assert cost["kernel_flops"] == kernel_flops and cost["kernel_hw_flops"] == kernel_hw_flops, out
+    assert math.isfinite(out["mfu"]) and out["mfu"] > 0, out
+    return out
+
+
+def _cost_phase(cn_trainer, cn_batch, cn_report, lt_trainer, lt_cfg, lt_batch, lt_report):
+    """(e) ``cost_analysis`` and ``mfu`` of the ConvNet's B 2048 step (the
+    dense CE, forward and backward once) and of the 16k remat LM's step
+    (per layer one flash forward, its recompute in ``hw_flops`` only, one
+    two-kernel backward; the sparse CE once), at their measured p50."""
+    n, v = CN_B, 10
+    ce_dense = 8 * n * v  # 5 NV forward + 3 NV backward
+    b, s = lt_batch[0].shape
+    h, d, vocab = lt_cfg.n_heads, lt_cfg.head_dim, lt_cfg.vocab_size
+    unit = 2 * b * h * s * s * d // 2  # one causal matmul of attention
+    ce_sparse = 8 * b * s * vocab
+    layers = lt_cfg.n_layers
+    return {
+        "convnet": _cost_check(cn_trainer, cn_batch, cn_report["step_ms_p50"], ce_dense, ce_dense),
+        "long_lm": _cost_check(lt_trainer, lt_batch, lt_report["step_ms_p50"],
+                               layers * (2 * unit + 4 * unit) + ce_sparse,
+                               layers * (2 * 2 * unit + 7 * unit) + ce_sparse)}
 
 
 def _rejected(name, wrong, want):
@@ -2294,13 +2737,15 @@ def _split_bwd_rows(launches, steps):
     return rows
 
 
-def _dense_ce_rows(launches, steps, wire):
+def _dense_ce_rows(launches, steps, wire, inprocess):
     """Rows 9d and 10d, the dense CE, at the ConvNet's shape (N 2048 x V
     10, one-hot f32 targets), under ``wire`` at a wire worker's ``fit``
-    (N 256 x V 10, one-hot) and, under ``large``, at N 8192 x V 32000
-    with soft targets, where the kernels stream real bytes. ``launches``
-    are the ConvNet's ``steps`` training steps', ``wire`` the wire legs'
-    (one a worker's ``fit``); a row's ``launches`` is their sum."""
+    (N 256 x V 10, one-hot), under ``fedavg`` at a FedAvg local step (N
+    128) and, under ``large``, at N 8192 x V 32000 with soft targets,
+    where the kernels stream real bytes. ``launches`` are the ConvNet's
+    ``steps`` training steps', ``wire`` the wire legs' (one a worker's
+    ``fit``), ``inprocess`` the in-process trainers' (one a batch or a
+    local step); a row's ``launches`` is their sum."""
     import torch.nn.functional as F
 
     from distriflow_tpu_torch.ops import fused_ce as ce
@@ -2309,7 +2754,8 @@ def _dense_ce_rows(launches, steps, wire):
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     flush = _flush_buffer()
     fwd, bwd = {}, {}
-    for tag, n, vocab in (("path", CN_B, 10), ("wire", WIRE_B, 10), ("large", 8192, 32000)):
+    for tag, n, vocab in (("path", CN_B, 10), ("wire", WIRE_B, 10), ("fedavg", FA_B, 10),
+                          ("large", 8192, 32000)):
         logits = torch.randn(n, vocab, generator=g, device=dev).to(torch.bfloat16)
         if tag != "large":
             labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
@@ -2354,11 +2800,13 @@ def _dense_ce_rows(launches, steps, wire):
             **d["path"], "name": name, "route": "cuda",
             "source": "distriflow_tpu_torch/csrc/fused_ce.cu", "replaces": line,
             "variant": "sparse=False (dense targets)",
-            "launches": launches[name] + sum(c[name] for c in wire.values()),
+            "launches": launches[name] + sum(c[name] for c in wire.values())
+            + sum(c[name] for c in inprocess.values()),
             "launches_per_step": launches[name] / steps,
             "launches_wire": {w: c[name] for w, c in wire.items()},
+            "launches_inprocess": {w: c[name] for w, c in inprocess.items()},
             "max_abs_err": max(v["max_abs_err"] for v in d.values()),
-            "tol": _tol(name), "wire": d["wire"], "large": d["large"],
+            "tol": _tol(name), "wire": d["wire"], "fedavg": d["fedavg"], "large": d["large"],
             "library_note": "F.cross_entropy with probability targets (its backward for the "
                             "gradient)"})
     return rows
@@ -2461,8 +2909,17 @@ def main() -> int:
     wire_report, wire_counts = _wire_phase(cn_tree, counted)
     wire_report["phase_s"] = time.perf_counter() - t0
     print("wire_training:", json.dumps(wire_report), flush=True)
+    # the in-process trainers on the same ConvNet, then the cost of the
+    # ConvNet's and the 16k LM's sync steps at their measured p50
+    t0 = time.perf_counter()
+    ip_report, ip_counts = _inprocess_phase(cn_tree, counted)
+    ip_report["phase_s"] = time.perf_counter() - t0
+    ip_report["cost"] = _cost_phase(cn_trainer, cn_batch, cn_report, lt_trainer, lt_cfg,
+                                    lt_batch, lt_report)
+    print("inprocess_training:", json.dumps(ip_report), flush=True)
     paths = {"serving": serving, "solo_generate": solo, **long_counts, "training": training,
-             **mn_counts, "long_training": long_training, **cn_counts, **wire_counts}
+             **mn_counts, "long_training": long_training, **cn_counts, **wire_counts,
+             **ip_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
     ran = {"serving": ("flash_attention_fwd", "flash_decode_paged"),
@@ -2478,7 +2935,8 @@ def main() -> int:
                              "fused_ce_fwd", "fused_ce_bwd"),
            "convnet_train": ("fused_ce_dense_fwd", "fused_ce_dense_bwd"),
            "convnet_eval": ("fused_ce_dense_fwd",),
-           **{w: ("fused_ce_dense_fwd", "fused_ce_dense_bwd") for w in wire_counts}}
+           **{w: ("fused_ce_dense_fwd", "fused_ce_dense_bwd")
+              for w in (*wire_counts, *ip_counts)}}
     for path, counts in paths.items():
         for k, n in counts.items():
             if k in ran[path]:
@@ -2553,7 +3011,7 @@ def main() -> int:
         was.append(_parent_dwgn_times(args.parent, shapes))
     rows += _with_was(dw_rows, shapes, was)
     rows += _split_bwd_rows(long_training, LONG_TRAIN_STEPS)
-    rows += _dense_ce_rows(cn_train, CN_STEPS, wire_counts)
+    rows += _dense_ce_rows(cn_train, CN_STEPS, wire_counts, ip_counts)
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",

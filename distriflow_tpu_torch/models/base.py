@@ -165,6 +165,23 @@ def named_params(model: nn.Module) -> Params:
     return dict(model.named_parameters())
 
 
+def check_params(own: Params, params: Params) -> None:
+    """Raise ``KeyError`` unless ``params`` names every parameter of ``own``."""
+    missing = set(own) - set(params)
+    if missing:
+        raise KeyError(f"params missing {sorted(missing)}")
+
+
+@torch.no_grad()
+def load_params(model: nn.Module, params: Params) -> None:
+    """Copy ``params`` (by name; tensors or arrays) into ``model``'s own
+    parameters, in place; every parameter must be named."""
+    own = named_params(model)
+    check_params(own, params)
+    for n, p in own.items():
+        p.copy_(torch.as_tensor(params[n]))
+
+
 def to_device(batch: Any, device: torch.device) -> Any:
     """Numpy arrays and tensors of a batch tuple onto ``device``, in the
     dtypes ``jax.device_put`` gives them (:func:`canonical_dtype`: float64
@@ -343,22 +360,13 @@ class SpecModel(DistributedModel):
         if self.model is None:
             self.model = self.spec.init(self._seed)
             if self._initial is not None:
-                self._load(self._initial)
+                load_params(self.model, self._initial)
                 self._initial = None
         if self._opt_state is None:
             self._opt_state = self._optimizer.init(named_params(self.model))
 
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
-
-    @torch.no_grad()
-    def _load(self, params: Params) -> None:
-        own = named_params(self.model)
-        missing = set(own) - set(params)
-        if missing:
-            raise KeyError(f"params missing {sorted(missing)}")
-        for n, p in own.items():
-            p.copy_(torch.as_tensor(params[n]))
 
     # -- DistributedModel surface -----------------------------------------
 
@@ -393,7 +401,7 @@ class SpecModel(DistributedModel):
 
     def set_params(self, params: Params) -> None:
         self.setup()
-        self._load(params)
+        load_params(self.model, params)
 
     @property
     def input_shape(self) -> Tuple[int, ...]:

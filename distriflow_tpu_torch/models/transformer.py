@@ -68,6 +68,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from distriflow_tpu_torch.models.base import ModelSpec
+from distriflow_tpu_torch.ops import flop_count
 from distriflow_tpu_torch.ops.flash_attention import flash_attention, flash_seq_supported
 from distriflow_tpu_torch.ops.flash_decode import (
     SUPPORTED_HEAD_DIMS,
@@ -614,7 +615,10 @@ class TransformerLM(nn.Module):
         x = self._embed(tokens)
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
-            x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+            # the recompute's kernel costs are hardware FLOPs, not model FLOPs
+            x = torch.utils.checkpoint.checkpoint(
+                blk, x, use_reentrant=False, context_fn=flop_count.remat_contexts
+            ) if remat else blk(x)
         return _cast_logits(self._head(x), cfg.resolved_loss_for(self.device))
 
     def new_cache(self, batch: int, int8: Optional[bool] = None) -> KVCache:

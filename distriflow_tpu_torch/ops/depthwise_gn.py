@@ -50,7 +50,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from distriflow_tpu_torch.ops import build
+from distriflow_tpu_torch.ops import build, flop_count
 
 GROUP_SIZE = 8  # channels are multiples of 8 by construction (_make_divisible)
 MIN_CHANNELS = 8  # below one group there is nothing to normalize over
@@ -618,9 +618,27 @@ def _plan_ints(plan: DwgnPlan):
             plan.smem)
 
 
+def _record_cost(x: torch.Tensor, stride: int, backward: bool) -> None:
+    """JAX's analytic cost of one pass (``_record_cost``): 28 model FLOPs
+    an output element forward (9 MACs, GroupNorm), twice that backward,
+    whose recomputed forward counts in ``hw_flops`` only; every wrapper
+    records it, on either path."""
+    b, h, wd, c = x.shape
+    ph, pw, oh, ow = _geometry(h, wd, stride)
+    fwd = 28 * b * oh * ow * c
+    itemsize = x.element_size()
+    flop_count.record_kernel_cost(
+        flops=2 * fwd if backward else fwd,
+        bytes_accessed=(b * (h + sum(ph)) * (wd + sum(pw)) * c * itemsize
+                        + b * oh * ow * c * itemsize) * (2 if backward else 1),
+        transcendentals=b * (c // GROUP_SIZE), category="depthwise_gn",
+        hw_flops=3 * fwd if backward else fwd)
+
+
 def depthwise_gn_forward(x, w, scale, bias, stride: int = 1, eps: float = 1e-6,
                          group_size: int = GROUP_SIZE, relu6: bool = True) -> torch.Tensor:
     """The fused forward: the kernel on CUDA, the plain version on the CPU."""
+    _record_cost(x, stride, backward=False)
     if x.device.type == "cpu":
         return depthwise3x3_groupnorm_reference(x, w, scale, bias, stride, eps, group_size, relu6)
     _check("depthwise_gn_forward", x, w, scale, bias, stride, group_size)
@@ -643,6 +661,7 @@ def depthwise_gn_backward(x, w, scale, bias, g, stride: int = 1, eps: float = 1e
     dscale, dbias)``, each in its input's dtype and shape. The kernel
     writes dx and per-batch f32 partials of dw, dscale and dbias; they
     are summed over the batch here."""
+    _record_cost(x, stride, backward=True)
     if x.device.type == "cpu":
         return depthwise3x3_groupnorm_backward_reference(x, w, scale, bias, g, stride, eps,
                                                          group_size, relu6)

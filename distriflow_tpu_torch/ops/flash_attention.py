@@ -44,7 +44,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from distriflow_tpu_torch.ops import build
+from distriflow_tpu_torch.ops import build, flop_count
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (64,)  # the head dims the kernel is built and checked for
@@ -125,15 +125,50 @@ def _bwd_autotune(s: int, d: int, dtype: torch.dtype) -> Tuple[int, int]:
     return _aligned_block(s, 8), _aligned_block(s, 8)
 
 
+def _bwd_kv_blocks(s: int, d: int, dtype: torch.dtype, bwd_block_k: Optional[int] = None) -> int:
+    """The number of KV blocks of JAX's backward tiles at sequence length
+    ``s``, head dim ``d`` and input ``dtype``, with its KV tile autotuned
+    or pinned by ``bwd_block_k``."""
+    _, bk = _bwd_autotune(s, d, dtype)
+    if bwd_block_k is not None:
+        bk = _aligned_block(s, min(bwd_block_k, _bwd_block_cap(dtype)))
+    return s // bk
+
+
 def bwd_layout(s: int, d: int, dtype: torch.dtype, bwd_block_k: Optional[int] = None) -> str:
     """``"fused"`` or ``"split"``: the backward JAX's ``_flash_backward``
     takes at sequence length ``s``, head dim ``d`` and input ``dtype``,
     with its KV tile autotuned or pinned by ``bwd_block_k`` (the Q tile
     does not enter the decision)."""
-    _, bk = _bwd_autotune(s, d, dtype)
-    if bwd_block_k is not None:
-        bk = _aligned_block(s, min(bwd_block_k, _bwd_block_cap(dtype)))
-    return "fused" if s // bk <= _FUSED_BWD_MAX_KV_BLOCKS else "split"
+    fused = _bwd_kv_blocks(s, d, dtype, bwd_block_k) <= _FUSED_BWD_MAX_KV_BLOCKS
+    return "fused" if fused else "split"
+
+
+def _record_forward_cost(q: torch.Tensor, causal: bool) -> None:
+    """JAX's analytic cost of one forward (``_flash_forward``): QK^T + PV,
+    each 2*B*H*S*S*D, halved by the causal tile skip."""
+    b, h, s, d = q.shape
+    div = 2 if causal else 1
+    flop_count.record_kernel_cost(
+        flops=4 * b * h * s * s * d // div, bytes_accessed=4 * b * h * s * d * q.element_size(),
+        transcendentals=b * h * s * s // div, category="attention_fwd")
+
+
+def _record_backward_cost(q: torch.Tensor, causal: bool, bwd_block_k: Optional[int]) -> None:
+    """JAX's analytic cost of one backward (``_flash_backward``), in the
+    layout it takes: four matmuls of model FLOPs; the fused layout runs 5
+    and reads its f32 dQ partials, the two-kernel layout runs 7."""
+    b, h, s, d = q.shape
+    n_kv = _bwd_kv_blocks(s, d, q.dtype, bwd_block_k)
+    fused = n_kv <= _FUSED_BWD_MAX_KV_BLOCKS
+    div = 2 if causal else 1
+    unit = 2 * b * h * s * s * d // div
+    flop_count.record_kernel_cost(
+        flops=4 * unit,
+        bytes_accessed=8 * b * h * s * d * q.element_size()
+        + (2 * n_kv * b * h * s * d * 4 if fused else 0),
+        transcendentals=(1 if fused else 2) * b * h * s * s // div,
+        category="attention_bwd", hw_flops=(5 if fused else 7) * unit)
 
 
 # The fused backward kernel's KV tile (``kBKV`` in
@@ -274,7 +309,9 @@ def _check_kernel_inputs(what: str, ref: torch.Tensor, **tensors: torch.Tensor) 
 
 
 def _forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """O and lse: the kernel on CUDA tensors, the plain version on CPU."""
+    """O and lse: the kernel on CUDA tensors, the plain version on CPU;
+    either records the forward's analytic cost."""
+    _record_forward_cost(q, causal)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
     _check_kernel_inputs("flash_attention", q, q=q, k=k, v=v)
@@ -404,6 +441,7 @@ class _FlashAttention(torch.autograd.Function):
         if g_lse is not None:
             delta = delta - g_lse.float()
         args = (q, k, v, do.contiguous(), lse, delta.contiguous(), ctx.causal)
+        _record_backward_cost(q, ctx.causal, ctx.bwd_block_k)
         _, _, s, d = q.shape
         if bwd_layout(s, d, q.dtype, ctx.bwd_block_k) == "fused":
             dq, dk, dv = flash_attention_backward(*args)

@@ -38,7 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from distriflow_tpu_torch.ops import build
+from distriflow_tpu_torch.ops import build, flop_count
 
 NEG_INF = -1e30
 
@@ -109,10 +109,22 @@ def _check_rows(what: str, logits: torch.Tensor, **rows: torch.Tensor) -> None:
             raise ValueError(f"{what}: {name} must be contiguous {want} [{n}] on {logits.device}")
 
 
+def _record_cost(logits: torch.Tensor, backward: bool) -> None:
+    """JAX's analytic cost of one CE pass (``_record_ce_cost``): one [N, V]
+    stream, ~5 ops an element forward, ~3 backward; every wrapper records
+    it, on either path."""
+    n, v = logits.shape
+    flop_count.record_kernel_cost(
+        flops=(3 if backward else 5) * n * v,
+        bytes_accessed=(2 if backward else 1) * n * v * logits.element_size(),
+        transcendentals=n * v, category="fused_ce")
+
+
 def fused_ce_forward(logits: torch.Tensor, labels: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row ``(loss, lse)`` (f32) of ``[N, V]`` logits against ``[N]``
     int32 labels: the kernel on CUDA, the plain version on the CPU."""
+    _record_cost(logits, backward=False)
     if logits.device.type == "cpu":
         return fused_ce_forward_reference(logits, labels)
     _check_rows("fused_ce_forward", logits, labels=labels)
@@ -132,6 +144,7 @@ def fused_ce_backward(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Ten
                       g: torch.Tensor) -> torch.Tensor:
     """Gradient of the per-row losses against the logits, in their dtype,
     for the upstream per-row gradient ``g`` (f32 ``[N]``)."""
+    _record_cost(logits, backward=True)
     if logits.device.type == "cpu":
         return fused_ce_backward_reference(logits, labels, lse, g)
     _check_rows("fused_ce_backward", logits, labels=labels, lse=lse, g=g)
@@ -178,6 +191,7 @@ def fused_ce_dense_forward(logits: torch.Tensor, targets: torch.Tensor
     """Per-row ``(loss, lse)`` (f32) of ``[N, V]`` logits against ``[N, V]``
     dense targets: the kernel on CUDA (bf16 logits, f32 targets), the plain
     version on the CPU."""
+    _record_cost(logits, backward=False)
     if logits.device.type == "cpu":
         return fused_ce_dense_forward_reference(logits, targets)
     _check_rows("fused_ce_dense_forward", logits)
@@ -198,6 +212,7 @@ def fused_ce_dense_backward(logits: torch.Tensor, targets: torch.Tensor, lse: to
                             g: torch.Tensor) -> torch.Tensor:
     """Gradient of the per-row dense losses against the logits, in their
     dtype, for the upstream per-row gradient ``g`` (f32 ``[N]``)."""
+    _record_cost(logits, backward=True)
     if logits.device.type == "cpu":
         return fused_ce_dense_backward_reference(logits, targets, lse, g)
     _check_rows("fused_ce_dense_backward", logits, lse=lse, g=g)

@@ -14,11 +14,14 @@ after each step, ``grad_accum`` micro-batches are weighted by their weight
 sums, and ``checkpoint_dir``/``save_every`` write versioned checkpoints on
 a background thread.
 
+``cost_analysis`` counts one forward and backward with
+``torch.utils.flop_counter.FlopCounterMode`` and, on CUDA, adds the
+kernels' analytic tally (:mod:`distriflow_tpu_torch.ops.flop_count`);
+``mfu`` divides it by the step time and the card's dense bf16 peak.
+
 Not ported yet: device meshes (``mesh``, non-default ``param_rules``),
-ZeRO (``zero_level > 0``, ``zero_optimizer_sharding``), sharded
-checkpoints, and ``cost_analysis``/``mfu`` (they need the FLOP tally of
-``ops/flop_count.py`` and an H100 roofline). Each raises
-``NotImplementedError``.
+ZeRO (``zero_level > 0``, ``zero_optimizer_sharding``) and sharded
+checkpoints. Each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -88,6 +91,32 @@ def _clone(params: Params) -> Params:
     return {n: p.detach().clone() for n, p in params.items()}
 
 
+def peak_bf16_flops(device: torch.device) -> float:
+    """The dense bf16 peak of ``device``'s card from
+    :data:`SyncTrainer.PEAK_BF16_FLOPS`; an unknown card (or a CPU) raises."""
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+    for key, peak in SyncTrainer.PEAK_BF16_FLOPS.items():
+        if key in kind.lower():
+            return peak
+    raise ValueError(f"unknown device kind {kind!r}; pass peak_flops_per_chip=")
+
+
+def record_mfu(analysis: Dict[str, Any], step_seconds: float, peak_flops_per_chip: float,
+               gauge_mode: str) -> float:
+    """``analysis["flops"] / (step_seconds * peak)``, set on the
+    ``train_mfu{mode=gauge_mode}`` gauge (only when there is a count)."""
+    if not analysis.get("flops"):
+        raise ValueError(
+            f"the step's cost analysis reports no 'flops' (keys: {sorted(analysis)}); "
+            "MFU unavailable")
+    value = float(analysis["flops"]) / (step_seconds * peak_flops_per_chip)
+    get_telemetry().gauge(
+        "train_mfu", mode=gauge_mode,
+        help="model FLOPs utilization vs peak chip FLOPs",
+    ).set(value)
+    return value
+
+
 class SyncTrainer:
     """Synchronous trainer over one device (the device of the model that
     ``spec.init`` builds: CUDA for ``transformer_lm`` by default).
@@ -140,6 +169,7 @@ class SyncTrainer:
         self.model: Optional[nn.Module] = None
         self._grad = spec.grad_fn()
         self._eval_fns: Dict[Tuple[str, ...], Any] = {}
+        self._cost_cache: Dict[Any, Dict[str, Any]] = {}
         # observability (reference time()/log wrappers)
         self.last_step_ms: Optional[float] = None
         self._step_times: List[float] = []  # rolling window
@@ -272,13 +302,70 @@ class SyncTrainer:
             return None
         return sum(self._step_times) / len(self._step_times)
 
-    def cost_analysis(self, batch: Batch) -> Dict[str, float]:
-        raise NotImplementedError(
-            "cost_analysis is not ported yet: it needs ops/flop_count.py and an H100 roofline")
+    def profile(self, log_dir: str):
+        """Context manager capturing a ``torch.profiler`` trace of the
+        enclosed steps into ``log_dir`` (JAX: a ``jax.profiler`` trace)."""
+        from distriflow_tpu_torch.utils.profiling import trace
 
-    def mfu(self, batch: Batch, *args: Any, **kw: Any) -> float:
-        raise NotImplementedError(
-            "mfu is not ported yet: it needs ops/flop_count.py and an H100 roofline")
+        return trace(log_dir)
+
+    # dense bf16 tensor-core peak per card by device name, for mfu(): the
+    # public spec-sheet figures (not measurements), matched by substring of
+    # the lower-cased torch.cuda.get_device_name()
+    PEAK_BF16_FLOPS = {
+        "h100 80gb hbm3": 989e12,  # H100 SXM
+        "h100 pcie": 756e12,
+    }
+
+    def cost_analysis(self, batch: Batch) -> Dict[str, Any]:
+        """The cost of one step at ``batch``'s shapes: ``flops`` (the MFU
+        numerator), ``aten_flops`` (FlopCounterMode's matmuls and
+        convolutions) and the kernels' tally (``kernel_flops``, model
+        FLOPs; ``kernel_hw_flops``, with recompute; bytes, transcendentals,
+        ``kernel_by_category``; JAX's ``pallas_*`` keys alias them). On CUDA
+        ``flops`` is the aten count plus the tally, on the CPU the aten
+        count alone (:func:`~distriflow_tpu_torch.ops.flop_count.step_cost`).
+
+        One forward and backward of one micro-batch runs on the device (no
+        optimizer update; the model is left as it was), and every count is
+        multiplied by ``grad_accum``, the micro-batches a step runs. The
+        optimizer update and elementwise work are not counted (XLA's count
+        in JAX holds them). Cached per batch signature."""
+        from distriflow_tpu_torch.ops.flop_count import step_cost
+
+        if self.state is None:
+            self.init()
+        key = tuple((tuple(t.shape), str(t.dtype)) for t in batch if t is not None)
+        if key not in self._cost_cache:
+            x, y, w = self._place(batch) if len(batch) == 3 else (*self._place(batch), None)
+            n = x.shape[0] // self.grad_accum
+            micro = (x[:n], y[:n], None if w is None else w[:n])
+            self._cost_cache[key] = step_cost(
+                lambda: self._grad(self.model, *micro), self.device, self.grad_accum)
+        return self._cost_cache[key]
+
+    def mfu(
+        self,
+        batch: Batch,
+        step_seconds: Optional[float] = None,
+        peak_flops_per_chip: Optional[float] = None,
+        gauge_mode: str = "sync",
+    ) -> float:
+        """Model FLOPs utilization of one step: :meth:`cost_analysis`'s
+        ``flops`` / (step time x the card's dense bf16 peak).
+
+        ``step_seconds`` defaults to the rolling mean of :meth:`step` wall
+        times; ``peak_flops_per_chip`` is looked up from the device name
+        (:data:`PEAK_BF16_FLOPS`; an unknown card, or the CPU, raises).
+        Sets the ``train_mfu{mode=gauge_mode}`` gauge."""
+        if step_seconds is None:
+            if self.mean_step_ms is None:
+                raise ValueError("no steps timed yet; pass step_seconds=")
+            step_seconds = self.mean_step_ms / 1e3
+        if peak_flops_per_chip is None:
+            peak_flops_per_chip = peak_bf16_flops(self.device)
+        return record_mfu(self.cost_analysis(batch), step_seconds, peak_flops_per_chip,
+                          gauge_mode)
 
     # -- checkpointing -----------------------------------------------------
 

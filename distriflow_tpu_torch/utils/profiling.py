@@ -1,4 +1,5 @@
-"""Port of ``distriflow_tpu/utils/profiling.py``: the step timer.
+"""Port of ``distriflow_tpu/utils/profiling.py``: the step timer and the
+profiler trace.
 
 JAX's ``device_timer`` leaves the wait to its caller (a ``float(loss)``
 fetch blocks until the step is done). PyTorch also returns before the card
@@ -32,3 +33,20 @@ def device_timer(device: Optional[Union[str, torch.device]] = None) -> Iterator[
         if sync:
             torch.cuda.synchronize(dev)
         result["ms"] = (time.perf_counter() - start) * 1e3
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the block into ``log_dir``
+    (no-op if None): host ops, and CUDA kernels when a GPU is visible,
+    written as a Chrome/TensorBoard trace file when the block ends."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -200,9 +200,11 @@ def test_unported_options_raise():
                dict(zero_optimizer_sharding=True), dict(sharded_checkpoints=True)):
         with pytest.raises(NotImplementedError):
             SyncTrainer(spec, **kw)
+    # cost_analysis/mfu are ported (tests/test_torch_flop_count.py): on the
+    # CPU there is no card whose peak mfu could divide by
     trainer = SyncTrainer(spec)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        trainer.mfu(_batch())
+    with pytest.raises(ValueError, match="unknown device kind 'cpu'"):
+        trainer.mfu(_batch(), step_seconds=0.1)
 
 
 @pytest.mark.parametrize("name", Optimizer.NAMES)

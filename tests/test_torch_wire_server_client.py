@@ -232,6 +232,17 @@ def test_async_server_staleness_default_is_tolerant(tmp_path):
     assert make({"maximum_staleness": 0}).hyperparams.maximum_staleness == 0
     assert make({"maximum_staleness": 2}).hyperparams.maximum_staleness == 2
 
+    # the in-process trainer shares the same async default
+    from distriflow_tpu_torch.train.async_sgd import AsyncSGDTrainer
+    from distriflow_tpu_torch.utils.config import ServerHyperparams
+
+    spec = mnist_mlp(hidden=4, device="cpu")
+    t = AsyncSGDTrainer(spec, DistributedDataset(x, y, {"batch_size": 4}))
+    assert t.hyperparams.maximum_staleness == default
+    t0 = AsyncSGDTrainer(spec, DistributedDataset(x, y, {"batch_size": 4}),
+                         hyperparams=ServerHyperparams())  # explicit dataclass: honored verbatim
+    assert t0.hyperparams.maximum_staleness == 0
+
 
 def test_async_sgd_two_clients_both_complete(tmp_path):
     """Multi-client async: stragglers are re-dispatched when acks free work,
