@@ -202,15 +202,50 @@ inputs, before and after this checkout's (rows 11-12, ``was_ms``).
     p50: the kernel tally added once and equal to the analytic cost of the
     path's kernels, the MFU finite and positive.
 
+18. Speculative decoding (``speculative:`` line) at the JAX repo's
+    ``bench.py::bench_serving_speculative`` recipe: the target (vocab
+    32000, d_model 256, 4 heads x 64, 4 layers, d_ff 1024, max_seq 16384,
+    bf16) and ``draft_config_for("lm_draft", target)`` (2 layers, d_model
+    128, 4 heads x 32, d_ff 512, bf16, on the kernels' head-dim-32
+    builds), both from seeded flax-shaped trees. The draft is first
+    distilled on the card (``spec_distill:`` line): 50 Adam steps at 4e-3,
+    f32 through the plain path, on the target's greedy trajectory of the
+    1k prompt. Then a speculative server (k 4) and a plain paged server,
+    each with 4 slots, pages of 128, a pool of 4 x pages_per_slot and
+    prefix sharing off, answer greedy B 1 requests of 96 new tokens at
+    contexts 1024 and 16384 (prompts 928 and 16288), each in a launch
+    window of its own: the speculative window must launch the prefill at
+    D 64 (the target) and at D 32 (the draft), the paged decode kernel at
+    D 32 exactly rounds x (k + 1) x 2 times and never at D 64; the plain
+    window the prefill and paged decode at D 64 only. ms/token is the
+    96-token request's time less a 1-token request's, over 95 tokens. The
+    speculative output must equal the plain output under the near-tie
+    rule of step 3; sampled speculative requests with one seed must agree
+    and with another differ; both pools must end all free with zero
+    refcounts. The draft's own solo ``generate()`` (kernels 1 and 3 at D
+    32 only) is held against its plain path, and a ``draft_model="self"``
+    leg on the flagship 2k config against solo ``generate()``, with
+    acceptance at least ``SPEC_SELF_ACCEPT``. One round at each context is
+    profiled (``round_profile``).
+19. The roofline (``roofline:`` line): ``ops/roofline.py``'s projection
+    of the ConvNet's B 2048 step and the 16k remat LM step from their
+    ``cost_analysis`` (step 17 (e)), ``bound_by``, the projected step and
+    ``model_error`` against the measured p50, and this run's calibration
+    of each efficiency (bound over time of the kernel-table rows it is
+    taken from, and of one cuBLAS matmul at [16384, 512] x [512, 512]).
+
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
 at the long phase's rows); the flash forward, which runs on every path,
 is also held and timed at the training shape (its row's
 ``training_shape``) and at B1 H8 S16000 (``long_context``), and held at
 S 1, 37, 512 and 1000, causal and not (``checks``), each giving the same
-bits on a second launch. Each row's
+bits on a second launch. Rows 1-3 are also held at head dim 32, the
+draft's (``*_d32``): kernel 1 at B1 H4 S1024 and S16288, kernel 2 at the
+draft's contexts over the 4 slots, kernel 3 at the draft's solo shape,
+each with its D 64 row's checks. Each row's
 ``launches_by_path`` gives its count in every window. The line
-before the last is the kernel table as JSON (14 rows); the last line is
+before the last is the kernel table as JSON (17 rows); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
 """
@@ -511,11 +546,11 @@ def _solo(model, reqs):
     return {name: generate(model, prompt, N_TOKENS, **kw).cpu() for name, prompt, kw in reqs}
 
 
-def _check_greedy(model, reqs, outs, solos):
+def _check_greedy(model, reqs, outs, solos, n_tokens=N_TOKENS):
     report = {}
     for name, prompt, kw in reqs:
         got, solo = torch.as_tensor(outs[name]), solos[name]
-        assert got.shape == (1, prompt.shape[1] + N_TOKENS), (name, got.shape)
+        assert got.shape == (1, prompt.shape[1] + n_tokens), (name, got.shape)
         assert torch.equal(got[:, :prompt.shape[1]], solo[:, :prompt.shape[1]]), name
         assert int(got.min()) >= 0 and int(got.max()) < model.config.vocab_size, name
         diff = (got != solo).nonzero()
@@ -715,17 +750,17 @@ def _decode_checks(name, fn, plain, parts, flush, iters):
             "by_split_tiles": sweep}
 
 
-def _decode_edges(name, g, int8):
+def _decode_edges(name, g, int8, h=8, d=64):
     """``name``'s kernel (paged or slab, bf16 or int8) against its plain
     version at the contexts where splits begin and end: 1, exactly one
     split, one split plus 1, 0 beside live rows (its output must be exactly
     0) and three splits plus 5, on a scattered page table with sentinel
-    tails or a slab; each launched twice (the same bits). Returns the max
-    abs error."""
+    tails or a slab, at ``h`` heads of head dim ``d``; each launched twice
+    (the same bits). Returns the max abs error."""
     from distriflow_tpu_torch.ops import flash_decode as fd
 
     dev = torch.device("cuda")
-    h, d, ps = 8, 64, fd.SLAB_TILE
+    ps = fd.SLAB_TILE
     split = fd.split_tiles(ps) * ps
     lens_l = [1, split, split + 1, 0, 3 * split + 5, 700]
     b, pp = len(lens_l), -(-max(lens_l) // ps) + 2
@@ -2812,6 +2847,484 @@ def _dense_ce_rows(launches, steps, wire, inprocess):
     return rows
 
 
+# ---------------------------------------------------------------- speculative
+
+SPEC_K = 4                    # drafts a round
+SPEC_NEW = 96                 # new tokens a request
+SPEC_CONTEXTS = (1024, 16384)  # prompt + new tokens
+SPEC_PS, SPEC_SLOTS = 128, 4
+SPEC_DISTILL_STEPS, SPEC_DISTILL_LR = 50, 4e-3
+SPEC_SAMPLED = dict(temperature=0.8, top_k=50, seed=7)
+# the self-draft leg: accepted / proposed at least this (a draft equal to
+# the target is accepted unless the bf16 decode kernel and the verify's
+# einsum round a near-tie apart)
+SPEC_SELF_ACCEPT = 0.8
+SPEC_DRAFT_SOLO_NEW = 16
+
+
+#: ``bench.py::bench_serving_speculative``'s target (max_seq the longer
+#: context); the draft is ``draft_config_for("lm_draft", target)``
+SPEC_TARGET = dict(vocab_size=32000, d_model=256, n_heads=4, n_layers=4, d_ff=1024,
+                   dtype=torch.bfloat16)
+
+
+def _ctx_label(ctx):
+    return f"{ctx // 1024}k" if ctx % 1024 == 0 else str(ctx)
+
+
+def _spec_config():
+    from distriflow_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(max_seq=SPEC_CONTEXTS[-1], **SPEC_TARGET)
+
+
+def _distill_draft(target, dcfg, tree, prompt, device="cuda"):
+    """The bench's in-leg distillation: the draft (from ``tree``, f32, the
+    plain path) fitted by ``SPEC_DISTILL_STEPS`` Adam steps to the target's
+    greedy trajectory of ``prompt`` (the served target's argmax after each
+    prefix, on the generated positions), then carried into a serving draft
+    of ``dcfg`` (bf16, the kernels). Returns ``(draft, report)``."""
+    import torch.nn.functional as F
+
+    from distriflow_tpu_torch.models.convert import params_from_jax
+    from distriflow_tpu_torch.models.generate import generate
+    from distriflow_tpu_torch.models.transformer import TransformerLM
+
+    t0 = time.perf_counter()
+    prompt_t = torch.as_tensor(prompt, device=device)
+    corpus = generate(target, prompt_t, SPEC_NEW)
+    with torch.no_grad():
+        teach = torch.argmax(target(corpus), dim=-1)
+    f32 = dataclasses.replace(dcfg, dtype=torch.float32, use_flash_attention=False,
+                              use_flash_decode=False)
+    student = TransformerLM(f32, device=device, trainable=True)
+    student.load_state_dict(params_from_jax(tree, f32, masters=True))
+    x, y = corpus[:, :-1], teach[:, :-1].long()
+    mask = torch.zeros(x.shape, device=device)
+    mask[:, prompt.shape[1] - 1:] = 1.0
+    opt = torch.optim.Adam(student.parameters(), lr=SPEC_DISTILL_LR)
+    losses = []
+    for _ in range(SPEC_DISTILL_STEPS):
+        opt.zero_grad()
+        logits = student(x).float()
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1),
+                             reduction="none").reshape(y.shape)
+        loss = (ce * mask).sum() / mask.sum()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    draft = TransformerLM(dcfg, device=device)
+    draft.load_state_dict(student.state_dict())
+    if draft.device.type == "cuda":
+        torch.cuda.synchronize()
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], losses
+    return draft, {"steps": SPEC_DISTILL_STEPS, "lr": SPEC_DISTILL_LR, "first_ce": losses[0],
+                   "final_ce": losses[-1], "seconds": time.perf_counter() - t0}
+
+
+def _spec_serve(target, draft, prompts, counted, spec):
+    """Serve ``prompts`` ({context: [1, P]}) greedy, B 1, on a paged
+    server of ``SPEC_SLOTS`` slots over a pool of ``SPEC_SLOTS`` x
+    pages_per_slot pages, speculative (k ``SPEC_K``, ``draft``) or plain.
+    Per context: a 3-token priming request, a 1-token and a
+    ``SPEC_NEW``-token request, the latter in a launch window of its own;
+    ms/token is their difference over ``SPEC_NEW - 1`` tokens. Prefix
+    sharing is off, so every request prefills its whole prompt. The
+    speculative server also answers a sampled request twice with one seed
+    and once with another. The pool must end all free with zero
+    refcounts. Returns ``(by context, windows, sampled)``."""
+    from distriflow_tpu_torch.client.inference_client import InferenceClient
+    from distriflow_tpu_torch.models.generate import pages_per_slot
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+    from distriflow_tpu_torch.server.inference_server import InferenceServer
+    from distriflow_tpu_torch.utils.config import ServingConfig
+
+    cfg = target.config
+    extra = {"speculate_k": SPEC_K, "draft_model": "lm_draft"} if spec else {}
+    tel = Telemetry()
+    server = InferenceServer(target, telemetry=tel, draft=draft if spec else None, serving=ServingConfig(
+        kv_layout="paged", max_slots=SPEC_SLOTS, page_size=SPEC_PS, prefix_sharing=False,
+        page_pool_pages=SPEC_SLOTS * pages_per_slot(cfg.max_seq, SPEC_PS), batch_window_s=0.02,
+        **extra)).setup()
+    client = InferenceClient(server.address, timeout=600).setup()
+    out, windows, sampled = {}, {}, None
+    try:
+        for ctx, prompt in prompts.items():
+            client.generate(prompt, n_tokens=3)
+            p0 = tel.counter_value("serving_spec_proposed_total")
+            a0 = tel.counter_value("serving_spec_accepted_total")
+            t = time.perf_counter()
+            client.generate(prompt, n_tokens=1)
+            t1 = time.perf_counter() - t
+            r0 = server.decode_batches
+            t = time.perf_counter()
+            full, counts = counted(lambda: client.generate(prompt, n_tokens=SPEC_NEW))
+            tn = time.perf_counter() - t
+            rounds = server.decode_batches - r0
+            prop = tel.counter_value("serving_spec_proposed_total") - p0
+            acc = tel.counter_value("serving_spec_accepted_total") - a0
+            out[ctx] = {"out": full, "ms_per_token": (tn - t1) * 1e3 / (SPEC_NEW - 1),
+                        "request_ms": tn * 1e3, "one_token_ms": t1 * 1e3, "rounds": rounds,
+                        "proposed": prop, "accepted": acc,
+                        "accept_rate": acc / prop if prop else None,
+                        "accepted_per_round": acc / rounds if spec and rounds else None}
+            windows[f"{'spec' if spec else 'plain'}_{_ctx_label(ctx)}"] = counts
+        if spec:
+            prompt = prompts[SPEC_CONTEXTS[0]]
+            a, b = (client.generate(prompt, n_tokens=32, **SPEC_SAMPLED) for _ in range(2))
+            c = client.generate(prompt, n_tokens=32, **{**SPEC_SAMPLED, "seed": SPEC_SAMPLED["seed"] + 1})
+            assert np.array_equal(a, b), "sampled speculation: one seed gave two streams"
+            assert not np.array_equal(a, c), "sampled speculation: two seeds gave one stream"
+            assert (a[:, :prompt.shape[1]] == prompt).all() and (a >= 0).all() \
+                and (a < cfg.vocab_size).all()
+            sampled = {"same_seed_equal": True, "other_seed_differs": True,
+                       "differing_tokens": int((a != c).sum())}
+        phases = {k: {q: v[q] for q in ("count", "p50", "max", "sum")}
+                  for k, v in server._prof.digests().items()}
+    finally:
+        client.close()
+        server.stop()
+    server.release_prefix_cache()
+    pool = server._pool
+    assert pool.free_pages == pool.n_pages and not pool._refs.any(), \
+        f"the pool did not reconcile: {pool.free_pages} of {pool.n_pages} free"
+    assert all(r is None for r in server._slot_req)
+    assert not any(server._slot_pages) and not any(server._draft_pages)
+    for v in out.values():
+        v["phases_ms"] = phases
+    return out, windows, sampled
+
+
+def _profile_spec_round(target, draft, prompt, device="cuda"):
+    """One speculative round (draft k, verify, commit) of the engine's
+    ``SPEC_SLOTS`` slots with one live row at ``prompt``'s context, under
+    ``torch.profiler`` after a warm round (:func:`_profiled`)."""
+    from distriflow_tpu_torch.models.generate import (
+        commit,
+        draft_k,
+        paged_cache,
+        paged_insert,
+        pages_per_slot,
+        prefill,
+        verify,
+    )
+
+    pp = pages_per_slot(target.config.max_seq, SPEC_PS)
+    n_pages = SPEC_SLOTS * pp
+    plen = prompt.shape[1]
+    caches, first = [], 0
+    for i, m in enumerate((target, draft)):
+        table = np.full((SPEC_SLOTS, pp + 1), n_pages, np.int32)
+        table[0, :pp] = np.arange(i * pp, (i + 1) * pp)
+        logits, row = prefill(m, prompt)
+        caches.append(paged_insert(paged_cache(m.config, SPEC_SLOTS, SPEC_PS, n_pages, device),
+                                   row, [0], plen, 0, table))
+        first = first if i else int(logits.argmax())
+        del row
+    tok = np.zeros(SPEC_SLOTS, np.int32)
+    tok[0] = first
+    done = np.ones(SPEC_SLOTS, bool)
+    done[0] = False
+    off = (np.zeros(SPEC_SLOTS, np.float32), np.zeros(SPEC_SLOTS, np.int32),
+           np.ones(SPEC_SLOTS, np.float32), np.zeros(SPEC_SLOTS, np.int64))
+    eos = np.full(SPEC_SLOTS, -1, np.int32)
+    state = {"tok": tok}
+
+    def round_():
+        dcache, drafts, q = draft_k(draft, caches[1], state["tok"], *off, SPEC_K)
+        out = verify(target, caches[0], state["tok"], drafts, q, *off, done, eos, SPEC_K)
+        commit(draft, dcache, drafts[:, -1], out[6], out[7])
+        state["tok"] = out[4].cpu().numpy()
+
+    round_()  # warm
+    return _profiled(round_)
+
+
+def _spec_self_leg(model, reqs, solos, counted):
+    """``draft_model="self"`` on the flagship 2k config: the greedy
+    requests of the serving wave one at a time, each held against solo
+    ``generate()`` under the near-tie rule; the acceptance must be near k."""
+    from distriflow_tpu_torch.client.inference_client import InferenceClient
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+    from distriflow_tpu_torch.server.inference_server import InferenceServer
+    from distriflow_tpu_torch.utils.config import ServingConfig
+
+    greedy = [r for r in reqs if not r[2]][:3]
+    tel = Telemetry()
+    server = InferenceServer(model, telemetry=tel, serving=ServingConfig(
+        kv_layout="paged", speculate_k=SPEC_K, draft_model="self")).setup()
+    client = InferenceClient(server.address, timeout=600).setup()
+    try:
+        outs, counts = counted(lambda: {name: client.generate(p, N_TOKENS) for name, p, _ in greedy})
+        rounds = server.decode_batches
+    finally:
+        client.close()
+        server.stop()
+    prop = tel.counter_value("serving_spec_proposed_total")
+    acc = tel.counter_value("serving_spec_accepted_total")
+    report = {"parity": _check_greedy(model, greedy, outs, solos, N_TOKENS), "rounds": rounds,
+              "proposed": prop, "accepted": acc, "accept_rate": acc / prop,
+              "accepted_per_round": acc / rounds}
+    assert acc / prop >= SPEC_SELF_ACCEPT, f"self-draft acceptance {acc / prop} < {SPEC_SELF_ACCEPT}"
+    return report, counts
+
+
+def _spec_phase(model, reqs, solos, counted, device="cuda"):
+    """Speculative decoding at ``bench.py::bench_serving_speculative``'s
+    recipe (see the module docstring, step 18). Returns ``(report,
+    windows)``."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.generate import generate
+    from distriflow_tpu_torch.models.transformer import TransformerLM
+    from distriflow_tpu_torch.models.zoo import draft_config_for
+
+    rng = np.random.default_rng(SEED + 12)
+    cfg = _spec_config()
+    target = lm_from_jax(cfg, _flagship_tree(cfg, rng), device=device)
+    dcfg = draft_config_for("lm_draft", cfg)
+    assert dcfg.head_dim == 32 and dcfg.use_flash_attention is None and dcfg.use_flash_decode is None
+    prompts = {c: rng.integers(0, cfg.vocab_size, (1, c - SPEC_NEW)).astype(np.int32)
+               for c in SPEC_CONTEXTS}
+    draft, distill = _distill_draft(target, dcfg, _flagship_tree(dcfg, rng),
+                                    prompts[SPEC_CONTEXTS[0]], device)
+    print("spec_distill:", json.dumps(distill), flush=True)
+    spec, spec_windows, sampled = _spec_serve(target, draft, prompts, counted, True)
+    plain, plain_windows = _spec_serve(target, None, prompts, counted, False)[:2]
+    windows = {**spec_windows, **plain_windows}
+    # the greedy contract: speculative output equals plain output, but
+    # where the verify's einsum and the decode kernel round a near-tie apart
+    reqs_spec = [(_ctx_label(c), prompts[c], {}) for c in SPEC_CONTEXTS]
+    parity = _check_greedy(target, reqs_spec, {n: spec[c]["out"] for (n, _, _), c in
+                                               zip(reqs_spec, SPEC_CONTEXTS)},
+                           {n: torch.as_tensor(plain[c]["out"]) for (n, _, _), c in
+                            zip(reqs_spec, SPEC_CONTEXTS)}, n_tokens=SPEC_NEW)
+    # kernel 3 at D 32: the draft's own solo generate() against its plain path
+    prompt = prompts[SPEC_CONTEXTS[0]]
+    got, windows["draft_solo"] = counted(
+        lambda: generate(draft, prompt, SPEC_DRAFT_SOLO_NEW).cpu())
+    plain_draft = TransformerLM(dataclasses.replace(dcfg, use_flash_attention=False,
+                                                    use_flash_decode=False), device=device)
+    plain_draft.load_state_dict(draft.state_dict())
+    want = generate(plain_draft, prompt, SPEC_DRAFT_SOLO_NEW).cpu()
+    draft_parity = _check_greedy(plain_draft, [("draft", prompt, {})], {"draft": got},
+                                 {"draft": want}, n_tokens=SPEC_DRAFT_SOLO_NEW)
+    self_report, windows["spec_self"] = _spec_self_leg(model, reqs, solos, counted)
+    round_profile = {_ctx_label(c): _profile_spec_round(target, draft, prompts[c], device)
+                     for c in SPEC_CONTEXTS}
+    report = {
+        "target": {k: getattr(cfg, k) for k in ("vocab_size", "d_model", "n_heads", "n_layers",
+                                                "d_ff", "max_seq")},
+        "draft": {k: getattr(dcfg, k) for k in ("d_model", "n_heads", "n_layers", "d_ff")},
+        "k": SPEC_K, "new_tokens": SPEC_NEW, "distill": distill, "parity": parity,
+        "draft_solo_parity": draft_parity, "sampled": sampled, "self_draft_2k": self_report,
+        "rates": {_ctx_label(c): {
+            "spec_ms_per_token": spec[c]["ms_per_token"],
+            "plain_ms_per_token": plain[c]["ms_per_token"],
+            "speedup": plain[c]["ms_per_token"] / spec[c]["ms_per_token"],
+            "accept_rate": spec[c]["accept_rate"],
+            "accepted_per_round": spec[c]["accepted_per_round"], "rounds": spec[c]["rounds"],
+            "spec_request_ms": spec[c]["request_ms"], "plain_request_ms": plain[c]["request_ms"]}
+            for c in SPEC_CONTEXTS},
+        "spec_phases_ms": spec[SPEC_CONTEXTS[0]]["phases_ms"],
+        "round_profile": round_profile,
+        "pool_reconciled": True,
+    }
+    _check_spec_windows(report, windows, spec, dcfg)
+    return report, windows
+
+
+def _check_spec_windows(report, windows, spec, dcfg):
+    """The speculative windows' exact launches: the target's prefill at D
+    64 and the draft's at D 32; the draft's k steps and the commit on
+    kernel 2 at D 32, once a step per draft layer; kernel 2 never at D 64
+    (the target's verify is one s = k + 1 pass); the draft's solo
+    ``generate()`` on kernels 1 and 3 at D 32 only."""
+    for c in SPEC_CONTEXTS:
+        w = windows[f"spec_{_ctx_label(c)}"]
+        want_d32 = spec[c]["rounds"] * (SPEC_K + 1) * dcfg.n_layers
+        assert w["flash_decode_paged_d32"] == want_d32 == w["flash_decode_paged"], \
+            (c, w, spec[c]["rounds"])
+        assert w["flash_attention_fwd_d32"] > 0 and w["flash_attention_fwd"] > \
+            w["flash_attention_fwd_d32"], (c, w)
+        report["rates"][_ctx_label(c)]["launches"] = {
+            "flash_attention_fwd_d64": w["flash_attention_fwd"] - w["flash_attention_fwd_d32"],
+            "flash_attention_fwd_d32": w["flash_attention_fwd_d32"],
+            "flash_decode_paged_d32": w["flash_decode_paged_d32"], "flash_decode_paged_d64": 0}
+    solo = windows["draft_solo"]
+    assert solo["flash_decode"] == solo["flash_decode_d32"] > 0, solo
+    assert solo["flash_attention_fwd"] == solo["flash_attention_fwd_d32"] > 0, solo
+
+
+def _spec_kernel_rows(launches):
+    """Rows 1-3 at head dim 32, the draft's: kernel 1 at B1 H4 S1024 and
+    S16288 (the draft's prefills), kernel 2 paged at the draft's contexts
+    over the engine's 4 slots, kernel 3 (slab) at the draft's solo shape.
+    Each row: the limit of its D 64 row, the same bits on a second launch,
+    decode rows' wrong-combine rejections, split sweep and edges."""
+    import torch.nn.functional as F
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    flush = _flush_buffer()
+    h, d = 4, 32
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    checks, errs = {}, []
+    for s, causal in ((1, True), (37, False), (37, True), (300, True), (1000, False)):
+        q, k, v = randn(1, h, s, d), randn(1, h, s, d), randn(1, h, s, d)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        ro, rl = fa.flash_attention_reference(q, k, v, causal)
+        tag = f"S={s} {'causal' if causal else 'non-causal'}"
+        errs.append(_over(f"flash_attention_fwd D32 {tag}", o, ro, *TOL["flash_attention_fwd"]))
+        checks[tag] = [errs[-1], _over(f"flash_attention_fwd D32 lse {tag}", lse, rl, LSE_ATOL, 0.0)]
+    timed = {}
+    for s in (SPEC_CONTEXTS[0], SPEC_CONTEXTS[1] - SPEC_NEW):
+        q, k, v = randn(1, h, s, d), randn(1, h, s, d), randn(1, h, s, d)
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        again = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse), \
+            f"flash_attention_fwd D32 S={s}: a second launch gave other bits"
+
+        def plain(q=q, k=k, v=v):  # one head at a time: the [S, S] scores
+            return [fa.flash_attention_reference(q[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1], True)
+                    for i in range(h)]
+
+        ref = plain()
+        ro, rl = torch.cat([r[0] for r in ref], 1), torch.cat([r[1] for r in ref], 1)
+        del ref
+        errs.append(_over(f"flash_attention_fwd D32 S={s}", o, ro, *TOL["flash_attention_fwd"]))
+        lse_err = _over(f"flash_attention_fwd D32 lse S={s}", lse, rl, LSE_ATOL, 0.0)
+        pairs = s * (s + 1) // 2
+        tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d)
+        timed[s] = {"shape": f"B=1 H={h} S={s} D={d} causal", "max_abs_err": errs[-1],
+                    "lse_max_abs_err": lse_err,
+                    "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True),
+                                 20, flush),
+                    "plain_ms": _timed(plain, 1, flush), "bound_ms": tb, "bound_by": by,
+                    "library_ms": _timed(
+                        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20, flush)}
+    main_s = SPEC_CONTEXTS[0]
+    rows.append({
+        "name": "flash_attention_fwd_d32", "route": "cuda",
+        "source": "distriflow_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "distriflow_tpu/ops/flash_attention.py:92",
+        "launches": launches["flash_attention_fwd_d32"], "max_abs_err": max(errs),
+        "tol": _tol("flash_attention_fwd") + f"; lse atol {LSE_ATOL}",
+        **{k: timed[main_s][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "shape", "lse_max_abs_err")},
+        "long_context": timed[SPEC_CONTEXTS[1] - SPEC_NEW], "checks": checks,
+        "deterministic": True})
+
+    # paged: the engine's 4 slots at the draft's contexts, scattered pages
+    ps = SPEC_PS
+    lens_l = [SPEC_CONTEXTS[0] - SPEC_NEW + 40, SPEC_CONTEXTS[1] - 3, 700, 1]
+    bsz, pp = len(lens_l), SPEC_CONTEXTS[1] // ps
+    n_pages = sum(-(-n // ps) for n in lens_l) + 4
+    table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
+    kp, vp, q1 = randn(n_pages, ps, h * d), randn(n_pages, ps, h * d), randn(bsz, h, d)
+
+    def paged():
+        return fd.flash_decode_paged(q1, kp, vp, table, lens)
+
+    def paged_plain():
+        return fd.flash_decode_paged_reference(q1, kp, vp, table, lens)
+
+    live = sum(lens_l)
+    tb, by = _bound(2 * live * h * d * 2 + 2 * bsz * h * d * 2 + table.numel() * 4 + bsz * 4,
+                    4 * live * h * d)
+    rows.append({
+        "name": "flash_decode_paged_d32", "route": "cuda",
+        "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "distriflow_tpu/ops/flash_decode.py:474",
+        "launches": launches["flash_decode_paged_d32"],
+        "max_abs_err": _over("flash_decode_paged D32", paged(), paged_plain(),
+                             *TOL["flash_decode_paged"]),
+        "tol": _tol("flash_decode_paged"),
+        "ms": _timed(paged, 200, flush), "plain_ms": _timed(paged_plain, 5, flush),
+        "bound_ms": tb, "bound_by": by, "library_ms": None,
+        "shape": f"B={bsz} H={h} D={d} page={ps} contexts={lens_l}",
+        "edges_max_abs_err": _decode_edges("flash_decode_paged", g, False, h=h, d=d),
+        **_decode_checks("flash_decode_paged", paged, paged_plain,
+                         lambda: fd.split_partials(q1, kp, vp, lens, table), flush, 200)})
+
+    # slab: the draft's solo generate() (max_seq 16384) at its last step
+    s_max, n = SPEC_CONTEXTS[1], SPEC_CONTEXTS[0] - SPEC_NEW + SPEC_DRAFT_SOLO_NEW
+    ks, vs, qs = randn(1, s_max, h * d), randn(1, s_max, h * d), randn(1, h, d)
+    kh = ks.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
+    vh = vs.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
+    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d)
+    rows.append({
+        "name": "flash_decode_d32", "route": "cuda",
+        "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "distriflow_tpu/ops/flash_decode.py:235",
+        "launches": launches["flash_decode_d32"],
+        "max_abs_err": _over("flash_decode D32", fd.flash_decode(qs, ks, vs, n),
+                             fd.flash_decode_reference(qs, ks, vs, n), *TOL["flash_decode"]),
+        "tol": _tol("flash_decode"),
+        "ms": _timed(lambda: fd.flash_decode(qs, ks, vs, n), 200, flush),
+        "plain_ms": _timed(lambda: fd.flash_decode_reference(qs, ks, vs, n), 5, flush),
+        "bound_ms": tb, "bound_by": by,
+        "library_ms": _timed(lambda: F.scaled_dot_product_attention(qs[:, :, None], kh, vh), 200,
+                             flush),
+        "shape": f"B=1 S={s_max} valid={n} H={h} D={d}",
+        "edges_max_abs_err": _decode_edges("flash_decode", g, False, h=h, d=d),
+        **_decode_checks("flash_decode", lambda: fd.flash_decode(qs, ks, vs, n),
+                         lambda: fd.flash_decode_reference(qs, ks, vs, n),
+                         lambda: fd.split_partials(qs, ks, vs, n), flush, 200)})
+    return rows
+
+
+def _roofline_phase(cost, rows):
+    """The roofline (``ops/roofline.py``) of the ConvNet's B 2048 step and
+    the 16k remat LM step from their ``cost_analysis`` (the kernel tally's
+    categories and the aten remainder), against their measured p50; and
+    this run's calibration of each efficiency (bound over time of the
+    kernel-table rows it names, and of one cuBLAS matmul at the 16k LM
+    step's projection shape)."""
+    from distriflow_tpu_torch.ops import roofline as rl
+
+    by = {r["name"]: r for r in rows}
+    flush = _flush_buffer()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    a = torch.randn(16384, 512, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(512, 512, generator=g, device="cuda").to(torch.bfloat16)
+    mm_ms = _timed(lambda: a @ w, 50, flush)
+    mm_bound = _bound((a.numel() + w.numel() + a.numel()) * 2, 2 * 16384 * 512 * 512)[0]
+
+    def ratio(pairs):
+        return sum(b for b, _ in pairs) / sum(t for _, t in pairs)
+
+    lc = by["flash_attention_fwd"]["long_context"]
+    calibration = {
+        "attention_fwd": ratio([(lc["bound_ms"], lc["ms"])]),
+        "attention_bwd": ratio([(by[n]["bound_ms"], by[n]["ms"]) for n in
+                                ("flash_attention_bwd", "flash_attention_dq", "flash_attention_dkv")]),
+        "fused_ce": ratio([(by[n]["bound_ms"], by[n]["ms"]) for n in ("fused_ce_fwd", "fused_ce_bwd")]),
+        "depthwise_gn": ratio([(by[n]["step_bound_ms_all_blocks"], by[n]["step_ms_all_blocks"])
+                               for n in ("depthwise_gn_fwd", "depthwise_gn_bwd")]),
+        rl.REMAINDER: mm_bound / mm_ms,
+        "aten_matmul": {"shape": "[16384, 512] x [512, 512] bf16", "ms": mm_ms,
+                        "bound_ms": mm_bound}}
+    out = {"calibration": calibration, "efficiency_used": dict(rl.PHASE_EFFICIENCY)}
+    for name in ("convnet", "long_lm"):
+        c = cost[name]
+        rep = rl.roofline_report(c["kernel_by_category"], c["flops"], xla_flops=c["aten_flops"],
+                                 measured_step_s=c["step_ms_p50"] / 1e3)
+        assert math.isfinite(rep["model_error"]) and rep["step_time_s"] > 0, rep
+        out[name] = {"bound_by": rep["bound_by"], "projected_step_ms": rep["step_time_s"] * 1e3,
+                     "measured_step_ms_p50": c["step_ms_p50"], "model_error": rep["model_error"],
+                     "mfu_roofline": rep["mfu_roofline"],
+                     "phases_ms": {k: {"time": v["time_s"] * 1e3, "bound": v["bound"]}
+                                   for k, v in rep["phases"].items()}}
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -2868,11 +3381,19 @@ def main() -> int:
                 "fused_ce_dense_bwd": ce.fused_ce_dense_backward}
     training_only = ("flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
 
+    # the kernels built at two head dims also count their D 32 launches
+    by_head_dim = ("flash_attention_fwd", "flash_decode_paged", "flash_decode")
+
     def counted(run):
         for fn in counters.values():
             fn.launches = 0
+        for k in by_head_dim:
+            counters[k].launches_by_head_dim = {}
         out = run()
-        return out, {k: fn.launches for k, fn in counters.items()}
+        counts = {k: fn.launches for k, fn in counters.items()}
+        counts.update({f"{k}_d32": counters[k].launches_by_head_dim.get(32, 0)
+                       for k in by_head_dim})
+        return out, counts
 
     t0 = time.perf_counter()
     outs, stats, serving, _ = _serve(model, reqs, counted)
@@ -2887,6 +3408,12 @@ def main() -> int:
     long_cfg = dataclasses.replace(flagship_lm_config(max_seq=LONG_MAX_SEQ), kv_cache_dtype="int8")
     long_report, long_counts = _long_phase(long_cfg, tree, np.random.default_rng(SEED + 4), counted)
     print("long_context:", json.dumps(long_report), flush=True)
+    # speculative decoding: a distilled head-dim-32 draft over the target's
+    # page pool, at 1k and 16k context, against plain paged decode
+    t0 = time.perf_counter()
+    spec_report, spec_counts = _spec_phase(model, reqs, solos, counted)
+    spec_report["phase_s"] = time.perf_counter() - t0
+    print("speculative:", json.dumps(spec_report), flush=True)
 
     # training: the flagship from the same tree as f32 masters, one batch
     tokens = np.random.default_rng(SEED + 2).integers(
@@ -2917,9 +3444,9 @@ def main() -> int:
     ip_report["cost"] = _cost_phase(cn_trainer, cn_batch, cn_report, lt_trainer, lt_cfg,
                                     lt_batch, lt_report)
     print("inprocess_training:", json.dumps(ip_report), flush=True)
-    paths = {"serving": serving, "solo_generate": solo, **long_counts, "training": training,
-             **mn_counts, "long_training": long_training, **cn_counts, **wire_counts,
-             **ip_counts}
+    paths = {"serving": serving, "solo_generate": solo, **long_counts, **spec_counts,
+             "training": training, **mn_counts, "long_training": long_training, **cn_counts,
+             **wire_counts, **ip_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
     ran = {"serving": ("flash_attention_fwd", "flash_decode_paged"),
@@ -2928,6 +3455,12 @@ def main() -> int:
            "long_solo_generate": ("flash_attention_fwd", "flash_decode_int8"),
            "beam": ("flash_attention_fwd", "flash_decode_int8"),
            "score": ("flash_attention_fwd",),
+           **{w: ("flash_attention_fwd", "flash_attention_fwd_d32", "flash_decode_paged",
+                  "flash_decode_paged_d32") for w in ("spec_1k", "spec_16k")},
+           **{w: ("flash_attention_fwd", "flash_decode_paged")
+              for w in ("plain_1k", "plain_16k", "spec_self")},
+           "draft_solo": ("flash_attention_fwd", "flash_attention_fwd_d32", "flash_decode",
+                          "flash_decode_d32"),
            "training": ("flash_attention_fwd",) + training_only,
            "mobilenet_train": ("depthwise_gn_fwd", "depthwise_gn_bwd"),
            "mobilenet_eval": ("depthwise_gn_fwd",),
@@ -3012,11 +3545,20 @@ def main() -> int:
     rows += _with_was(dw_rows, shapes, was)
     rows += _split_bwd_rows(long_training, LONG_TRAIN_STEPS)
     rows += _dense_ce_rows(cn_train, CN_STEPS, wire_counts, ip_counts)
+    spec_windows = ("spec_1k", "spec_16k")
+    rows += _spec_kernel_rows({
+        "flash_attention_fwd_d32": sum(spec_counts[w]["flash_attention_fwd_d32"]
+                                       for w in spec_windows),
+        "flash_decode_paged_d32": sum(spec_counts[w]["flash_decode_paged_d32"]
+                                      for w in spec_windows),
+        "flash_decode_d32": spec_counts["draft_solo"]["flash_decode_d32"]})
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",
                "flash_attention_dq": "long_training", "flash_attention_dkv": "long_training",
-               "fused_ce_dense_fwd": "convnet_train", "fused_ce_dense_bwd": "convnet_train"}
+               "fused_ce_dense_fwd": "convnet_train", "fused_ce_dense_bwd": "convnet_train",
+               "flash_attention_fwd_d32": "spec_1k", "flash_decode_paged_d32": "spec_1k",
+               "flash_decode_d32": "draft_solo"}
     for r in rows:
         r["path"] = path_of.get(r["name"], "serving")
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
@@ -3029,7 +3571,9 @@ def main() -> int:
           flush=True)
     print("convnet_step_profile:", json.dumps(_profiled(lambda: cn_trainer.step(cn_batch))),
           flush=True)
-    assert len(rows) == 14, [r["name"] for r in rows]
+    roofline = _roofline_phase(ip_report["cost"], rows)
+    print("roofline:", json.dumps(roofline), flush=True)
+    assert len(rows) == 17, [r["name"] for r in rows]
     print(json.dumps({"kernels": _with_spread(rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,8 @@ carry ``# guarded-by: <lock>`` annotations, which the JAX package's
 ``python -m distriflow_tpu.analysis`` enforces over its copy (docs/ANALYSIS.md): ``_download_lock`` serializes
 weight installs, ``_comm_cv`` guards the upload-pipeline accounting, and
 ``_stats_lock`` guards the small cross-thread stats (per-version update
-counts, telemetry-report clock). ``self.transport`` is deliberately
+counts, telemetry-report clock), and ``_model_lock`` keeps a weight install
+from copying into the parameters while a fit on another thread uses them. ``self.transport`` is deliberately
 unguarded: it is swapped atomically by the reconnect loop and callers
 capture it once per operation (``transport = self.transport``).
 """
@@ -189,6 +190,12 @@ class AbstractClient:
         self._stats_lock = threading.Lock()
         self._first_download = threading.Event()
         self._download_lock = threading.Lock()
+        # the model's parameters live in place on its device: an install
+        # copies into the very tensors a fit's autograd graph has saved, so
+        # installs and fits/evaluates (on different handler threads when
+        # the server dispatches ahead) must not overlap. JAX rebinds an
+        # immutable pytree instead and needs no such lock.
+        self._model_lock = threading.Lock()
         # reconnect machinery: _transport_ready is set while a dialed
         # transport is (believed) usable; upload retries park on it instead
         # of hammering a dead connection. _resumed is set by the first
@@ -561,18 +568,19 @@ class AbstractClient:
         m = msg.model
         if m.delta_base is not None and m.delta_base != self._installed_version:
             return False
-        # the host copy of the installed params, in the wire layout
-        template = params_to_wire(self.model, self.model.get_params())
-        if m.delta_base is not None:
-            delta = deserialize_tree(m.vars, template)
+        with self._model_lock:
+            # the host copy of the installed params, in the wire layout
+            template = params_to_wire(self.model, self.model.get_params())
+            if m.delta_base is not None:
+                delta = deserialize_tree(m.vars, template)
 
-            def apply_delta(t, d):
-                return t + d if _is_float(t) else d
+                def apply_delta(t, d):
+                    return t + d if _is_float(t) else d
 
-            new = tree_map2(apply_delta, template, delta)
-        else:
-            new = deserialize_tree(m.vars, template)
-        self.model.set_params(params_from_wire(self.model, new))
+                new = tree_map2(apply_delta, template, delta)
+            else:
+                new = deserialize_tree(m.vars, template)
+            self.model.set_params(params_from_wire(self.model, new))
         self._installed_version = m.version
         return True
 

@@ -117,7 +117,8 @@ class AsynchronousSGDClient(AbstractClient):
                     y = deserialize_array(msg.data.y)
                     metrics: Optional[List[float]] = None
                     if self.config.send_metrics:
-                        metrics = self.model.evaluate(x, y)
+                        with self._model_lock:
+                            metrics = self.model.evaluate(x, y)
                     # the fit leg joins the dispatch's trace (when one rode
                     # the download header) so the assembler can place client
                     # compute on the round's critical path
@@ -127,7 +128,7 @@ class AsynchronousSGDClient(AbstractClient):
                                 parent_id=msg.span_id,
                                 client_id=self.client_id,
                                 model_version=msg.model.version,
-                            ) if msg.trace_id else _NULL_CTX:
+                            ) if msg.trace_id else _NULL_CTX, self._model_lock:
                         grads = self.model.fit(x, y)
                     upload = UploadMsg(
                         client_id=self.client_id,
@@ -184,14 +185,15 @@ class AsynchronousSGDClient(AbstractClient):
                     y = deserialize_array(msg.data.y)
                     metrics: Optional[List[float]] = None
                     if self.config.send_metrics:
-                        metrics = self.model.evaluate(x, y)
+                        with self._model_lock:
+                            metrics = self.model.evaluate(x, y)
                     with self.time("fit"), self._prof.phase("fit"), \
                             self.telemetry.span(
                                 "fit", trace_id=msg.trace_id,
                                 parent_id=msg.span_id,
                                 client_id=self.client_id,
                                 model_version=msg.model.version,
-                            ) if msg.trace_id else _NULL_CTX:
+                            ) if msg.trace_id else _NULL_CTX, self._model_lock:
                         grads = self.model.fit(x, y)
                     # the update_id is fixed at handoff so a redelivery
                     # arriving while this rides the pipe dedups against

@@ -68,7 +68,8 @@ class FederatedClient(AbstractClient):
             cx, cy = self._x_buf[:chunk], self._y_buf[:chunk]
             metrics: Optional[List[float]] = None
             if self.config.send_metrics:
-                metrics = self.model.evaluate(cx, cy)
+                with self._model_lock:
+                    metrics = self.model.evaluate(cx, cy)
             version = self.msg.model.version
             # no dispatch opened this round (data is client-local), so the
             # client roots the trace itself at fit time and threads it
@@ -77,7 +78,7 @@ class FederatedClient(AbstractClient):
             with self.time("fit"), self.telemetry.span(
                 "fit", trace_id=tid, client_id=self.client_id,
                 model_version=version,
-            ) if tid else _NULL_CTX:
+            ) if tid else _NULL_CTX, self._model_lock:
                 grads = self.model.fit(cx, cy)
             with self.time("upload"):
                 self.upload(

@@ -3,6 +3,11 @@
 // Replaces the Pallas TPU kernel of the JAX package
 //   distriflow_tpu/ops/flash_attention.py::_fwd_kernel
 // (causal or non-causal online-softmax attention with a causal tile skip).
+// Built for head dims 64 (the flagship's) and 32 (the speculative
+// draft's): one template, fwd_kernel<D>. At D 64 a tile row is 128 bytes
+// (128-byte swizzle, P.V as m64n64k16); at D 32 it is 64 bytes (64-byte
+// swizzle, descriptors of layout type 2, Q.K^T in two k16 steps, P.V as
+// m64n32k16). The loop structure, tiles and barriers are the same.
 //
 // Numeric contract (flash_attention.py:103-159): Q.K^T takes bf16 operands
 // with f32 accumulation, the 1/sqrt(D) scale folds in after the product,
@@ -47,19 +52,34 @@ namespace {
 
 using namespace dftt::hopper;
 
-constexpr int kD = 64;
 constexpr int kConsumers = 2;          // warpgroups, 64 query rows each
 constexpr int kBQ = 64 * kConsumers;   // query rows per block
 constexpr int kBK = 128;               // key positions per K/V tile
 constexpr int kStages = 3;
 constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
-constexpr uint32_t kQBytes = kBQ * kRowBytes;
-constexpr uint32_t kKVBytes = kBK * kRowBytes;
 constexpr float kLog2e = 1.4426950408889634f;
 using Pipe = Ring<kStages>;
 
-constexpr size_t kSmemBytes = kSwizzleBytes + kQBytes + 2 * kStages * kKVBytes +
-                              sizeof(uint64_t) * (1 + 3 * kStages);
+// The shared-memory layout of head dim D: a Q tile and kStages K and V
+// tiles of D-column rows (2 * D bytes each), then the barriers.
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 32, "built for head dims 64 and 32");
+  static constexpr int kRow = 2 * D;
+  static constexpr uint32_t kQBytes = kBQ * kRow;
+  static constexpr uint32_t kKVBytes = kBK * kRow;
+  static constexpr size_t kSmemBytes = kSwizzleBytes + kQBytes + 2 * kStages * kKVBytes +
+                                       sizeof(uint64_t) * (1 + 3 * kStages);
+};
+
+// O (+)= P.V for one k16 step: P in registers, V MN-major in shared memory.
+template <int D>
+__device__ __forceinline__ void pv_step(float* acc_o, const uint32_t* p_a, uint64_t desc_v) {
+  if constexpr (D == 64)
+    wgmma_m64n64k16_rs<1>(acc_o, p_a, desc_v, 1);
+  else
+    wgmma_m64n32k16_rs<1>(acc_o, p_a, desc_v, 1);
+}
 
 // One consumer thread's view of a K tile's scores: rows row0 and row0 + 8
 // of its warpgroup's 64 (the first is first_row), columns 8n + col + {0, 1}.
@@ -120,10 +140,14 @@ struct Tile {
   }
 };
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int S, float scale, int causal) {
+  using Sh = Shape<D>;
+  constexpr int kRow = Sh::kRow;
+  constexpr uint32_t kQBytes = Sh::kQBytes, kKVBytes = Sh::kKVBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = aligned_smem(smem_raw);
   unsigned char* k_s = q_s + kQBytes;
@@ -175,9 +199,9 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
   const int row0 = first_row + 16 * (warp % 4) + lane / 4;
   const int col = 2 * (lane % 4);
 
-  float acc_o[kD / 2], acc_s[kBK / 2];
+  float acc_o[D / 2], acc_s[kBK / 2];
 #pragma unroll
-  for (int r = 0; r < kD / 2; ++r) acc_o[r] = 0.f;
+  for (int r = 0; r < D / 2; ++r) acc_o[r] = 0.f;
 #pragma unroll
   for (int r = 0; r < kBK / 2; ++r) acc_s[r] = 0.f;
   float m[2] = {dftt::kNegInf, dftt::kNegInf};
@@ -187,14 +211,14 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
   const Tile tile{S, causal, first_row, row0, col, scale, scale * kLog2e};
 
   mbar_wait(q_full, 0);
-  const uint64_t desc_q = desc_kmajor(q_s + 64 * wg * kRowBytes);
+  const uint64_t desc_q = desc_kmajor<kRow>(q_s + 64 * wg * kRow);
 
   // K tile 0: its scores, then its probabilities
   mbar_wait(&k_full[0], 0);
   wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kD / 16; ++j)
-    wgmma_m64n128k16_ss<0>(acc_s, desc_q + kmajor_step(j), desc_kmajor(k_s) + kmajor_step(j),
+  for (int j = 0; j < D / 16; ++j)
+    wgmma_m64n128k16_ss<0>(acc_s, desc_q + kmajor_step(j), desc_kmajor<kRow>(k_s) + kmajor_step(j),
                            j > 0);
   wgmma_commit();
   wgmma_wait<0>();
@@ -210,16 +234,15 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
     const int s = Pipe::stage(t), sp = Pipe::stage(t - 1);
     mbar_wait(&k_full[s], Pipe::full_parity(t));
     mbar_wait(&v_full[sp], Pipe::full_parity(t - 1));
-    const uint64_t desc_k = desc_kmajor(k_s + s * kKVBytes);
-    const uint64_t desc_v = desc_mnmajor(v_s + sp * kKVBytes);
+    const uint64_t desc_k = desc_kmajor<kRow>(k_s + s * kKVBytes);
+    const uint64_t desc_v = desc_mnmajor<kRow>(v_s + sp * kKVBytes);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kD / 16; ++j)
+    for (int j = 0; j < D / 16; ++j)
       wgmma_m64n128k16_ss<0>(acc_s, desc_q + kmajor_step(j), desc_k + kmajor_step(j), j > 0);
     wgmma_commit();
 #pragma unroll
-    for (int c = 0; c < kBK / 16; ++c)
-      wgmma_m64n64k16_rs<1>(acc_o, p_a[c], desc_v + mnmajor_step(c), 1);
+    for (int c = 0; c < kBK / 16; ++c) pv_step<D>(acc_o, p_a[c], desc_v + mnmajor_step<kRow>(c));
     wgmma_commit();
     wgmma_wait<1>();  // the scores; P.V may still run
     fence_regs(acc_s);
@@ -231,7 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         acc_o[4 * n + 2 * i] *= corr[i];
@@ -243,11 +266,10 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
   {  // the last tile's P.V
     const int s = Pipe::stage(n_kb - 1);
     mbar_wait(&v_full[s], Pipe::full_parity(n_kb - 1));
-    const uint64_t desc_v = desc_mnmajor(v_s + s * kKVBytes);
+    const uint64_t desc_v = desc_mnmajor<kRow>(v_s + s * kKVBytes);
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kBK / 16; ++c)
-      wgmma_m64n64k16_rs<1>(acc_o, p_a[c], desc_v + mnmajor_step(c), 1);
+    for (int c = 0; c < kBK / 16; ++c) pv_step<D>(acc_o, p_a[c], desc_v + mnmajor_step<kRow>(c));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_o);
@@ -259,9 +281,9 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
     const int row = row0 + 8 * i;
     if (row >= S) continue;
     const float lf = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* dst = o + (static_cast<int64_t>(bh) * S + row) * kD + col;
+    __nv_bfloat16* dst = o + (static_cast<int64_t>(bh) * S + row) * D + col;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
           __floats2bfloat162_rn(acc_o[4 * n + 2 * i] / lf, acc_o[4 * n + 2 * i + 1] / lf);
     if (lane % 4 == 0)
@@ -269,20 +291,22 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
   }
 }
 
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
            int causal, float scale, cudaStream_t st) {
+  constexpr size_t kSmemBytes = Shape<D>::kSmemBytes;
   CUtensorMap tm_q, tm_k, tm_v;
-  int err = make_row_map(&tm_q, q, BH, S, kBQ);
-  if (!err) err = make_row_map(&tm_k, k, BH, S, kBK);
-  if (!err) err = make_row_map(&tm_v, v, BH, S, kBK);
+  int err = make_row_map(&tm_q, q, BH, S, kBQ, D);
+  if (!err) err = make_row_map(&tm_k, k, BH, S, kBK, D);
+  if (!err) err = make_row_map(&tm_v, v, BH, S, kBK, D);
   if (err) return err;
   err = static_cast<int>(cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes)));
+      fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes)));
   if (err) return err;
   const dim3 grid(BH, (S + kBQ - 1) / kBQ);
-  fwd_kernel<<<grid, kThreads, kSmemBytes, st>>>(tm_q, tm_k, tm_v,
-                                                 static_cast<__nv_bfloat16*>(o),
-                                                 static_cast<float*>(lse), S, scale, causal);
+  fwd_kernel<D><<<grid, kThreads, kSmemBytes, st>>>(tm_q, tm_k, tm_v,
+                                                    static_cast<__nv_bfloat16*>(o),
+                                                    static_cast<float*>(lse), S, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -291,10 +315,13 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // q, k, v, o: [BH, S, D] bf16 contiguous, 16-byte aligned; lse: [BH, S]
 // f32. Launches on `stream`; returns a CUDA error code (0 = launched; a
 // tensor map that cannot be encoded returns cudaErrorInvalidValue). Built
-// for D = 64 only, the head dim of the served configuration.
+// for D = 64 (the flagship's head dim) and D = 32 (the draft's); any other
+// D returns cudaErrorInvalidValue.
 extern "C" int dftt_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int BH,
     int S, int D, int causal, float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, k, v, o, lse, BH, S, causal, scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch<64>(q, k, v, o, lse, BH, S, causal, scale, st);
+  if (D == 32) return launch<32>(q, k, v, o, lse, BH, S, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

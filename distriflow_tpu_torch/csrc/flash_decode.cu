@@ -11,7 +11,10 @@
 // page (paged) or 128 slab positions, and splits cut a row at the same
 // multiples of split_tiles tiles in both layouts, so engine decode on the
 // paged pool (pages of 128) and solo decode on the slab produce the same
-// bits for the same context.
+// bits for the same context. The bf16 kernel is built at head dims 64 and
+// 32 (split_kernel<32, false>: 4 lanes of 16 bytes a position, 32
+// positions a pass; the partial rows are D + 2 = 34 floats, read and
+// written one float at a time), the int8 kernel at 64.
 //
 // Numeric contract, bf16 (ops/flash_decode.py, the plain version follows
 // the same order): q, K and V enter the score and PV products as bf16;
@@ -463,8 +466,9 @@ int launch(DecodeArgs a, int B, cudaStream_t st) {
 // table == nullptr selects the slab layout: row b's tile t covers slab
 // positions [t*T, t*T + T) of a [B, S, H*D] cache. lens == nullptr gives
 // every row len_all valid positions. partial is the f32
-// [B, H, n_splits, D + 2] scratch. Built for D = 64 only, the head dim of
-// the served configuration.
+// [B, H, n_splits, D + 2] scratch. Built for D = 64 (the flagship's head
+// dim) and D = 32 (the speculative draft's); any other D returns
+// cudaErrorInvalidValue.
 extern "C" int dftt_flash_decode_bf16(
     const void* q, const void* k, const void* v, const void* table, const void* lens,
     void* partial, void* out, int B, int H, int D, int T, int n_tiles, int S, int n_pages,
@@ -473,13 +477,15 @@ extern "C" int dftt_flash_decode_bf16(
                      static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
                      static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out),
                      H, T, n_tiles, S, n_pages, split_tiles, n_splits, len_all, 0, scale};
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<64, false>(a, B, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch<64, false>(a, B, st);
+  if (D == 32) return launch<32, false>(a, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The int8 kernel (layouts as above); k_scale/v_scale are f32 [n_pages, T, H]
 // pools (paged) or [B, S, H] slabs. Every K/V pointer and the H*D row
-// stride must be 16-byte aligned.
+// stride must be 16-byte aligned. Built for D = 64 only.
 extern "C" int dftt_flash_decode_int8(
     const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
     const void* table, const void* lens, void* partial, void* out, int B, int H, int D, int T,

@@ -2,16 +2,18 @@
 // kernels: TMA tensor maps and loads, mbarriers, cluster barriers and
 // distributed shared memory, and warpgroup matrix products (wgmma).
 //
-// Every attention tile is a bf16 [rows, 64] slice of a
-// contiguous [B*H, S, 64] tensor: one row is 128 bytes, exactly one
-// 128-byte swizzle atom wide. TMA copies it into shared memory with the
-// 128-byte swizzle, and wgmma reads it back through a descriptor of the
-// same swizzle, either K-major (the 64 columns are the contraction, as Q
-// and K are in Q.K^T) or MN-major (the rows are the contraction, as V is
-// in P.V). The tensor map is 3-D, {64, S, B*H}, so that a box reaching
-// past row S is zero-filled by the hardware instead of reading the next
-// head's rows. The depthwise kernels stage unswizzled boxes of a 4-D map
-// over an NHWC activation (make_nhwc_map).
+// Every attention tile is a bf16 [rows, D] slice of a contiguous
+// [B*H, S, D] tensor. At D 64 (every attention kernel) one row is 128
+// bytes, exactly one 128-byte swizzle atom wide; at D 32 (the forward's
+// second build) a row is 64 bytes and takes the 64-byte swizzle. TMA
+// copies a tile into shared memory with the swizzle of its row width, and
+// wgmma reads it back through a descriptor of the same swizzle, either
+// K-major (the D columns are the contraction, as Q and K are in Q.K^T) or
+// MN-major (the rows are the contraction, as V is in P.V). The tensor map
+// is 3-D, {D, S, B*H}, so that a box reaching past row S is zero-filled by
+// the hardware instead of reading the next head's rows. The depthwise
+// kernels stage unswizzled boxes of a 4-D map over an NHWC activation
+// (make_nhwc_map).
 #pragma once
 
 #include <cstdint>
@@ -24,9 +26,9 @@ namespace dftt {
 namespace hopper {
 
 // Every tile base in shared memory is aligned to the 1024-byte swizzle
-// pattern (8 rows of 128 bytes).
+// pattern (8 rows of 128 bytes; the 64-byte swizzle repeats every 512).
 constexpr int kSwizzleBytes = 1024;
-constexpr int kRowBytes = 128;  // 64 bf16 columns
+constexpr int kRowBytes = 128;  // 64 bf16 columns: the default row of every helper below
 
 // ---------------------------------------------------------------- host side
 
@@ -55,20 +57,24 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a contiguous bf16 [BH, S, 64] tensor whose box is
-// [1, rows, 64], 128-byte swizzled; rows past S read as zeros. Returns a
-// CUDA error code (0 = encoded).
-inline int make_row_map(CUtensorMap* map, const void* base, int BH, int S, int rows) {
+// A tensor map over a contiguous bf16 [BH, S, D] tensor (D 64 or 32)
+// whose box is [1, rows, D], swizzled by the row's width (128 or 64
+// bytes); rows past S read as zeros. Returns a CUDA error code (0 =
+// encoded).
+inline int make_row_map(CUtensorMap* map, const void* base, int BH, int S, int rows, int D = 64) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {kRowBytes, static_cast<cuuint64_t>(S) * kRowBytes};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  if (D != 64 && D != 32) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {row, static_cast<cuuint64_t>(S) * row};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(D), static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                              D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -218,31 +224,43 @@ __device__ __forceinline__ double ld_cluster_f64(const double* p, uint32_t rank)
   return v;
 }
 
-// wgmma shared-memory descriptors for a 128-byte-swizzled tile of 128-byte
-// rows whose base is 1024-byte aligned (bits 0-13 address >> 4, 16-29 the
-// leading and 32-45 the stride byte offset >> 4, 62-63 the swizzle mode).
-//
-// K-major: the rows are M (or N) and the 64 columns the contraction. Eight
-// rows make a 1024-byte atom, so the stride byte offset is 1024; the leading
-// offset is unused for a swizzled K-major tile. Step k16 of the contraction
-// starts 32 bytes further along the row.
+// wgmma shared-memory descriptors for a swizzled tile of kRow-byte rows
+// (128: the 128-byte swizzle, layout type 1; 64: the 64-byte swizzle,
+// layout type 2) whose base is aligned to its swizzle pattern (bits 0-13
+// address >> 4, 16-29 the leading and 32-45 the stride byte offset >> 4,
+// 62-63 the layout type). Eight rows make one swizzle atom of 8 * kRow
+// bytes.
+template <int kRow>
+struct Swizzle {
+  static_assert(kRow == 128 || kRow == 64, "rows of 64 or 32 bf16 columns");
+  static constexpr uint64_t kLayout = kRow == 128 ? 1 : 2;
+  static constexpr uint64_t kAtom16 = (8 * kRow) >> 4;  // one atom, in 16-byte units
+};
+
+// K-major: the rows are M (or N) and the kRow / 2 columns the contraction.
+// The stride byte offset steps one 8-row atom; the leading offset is
+// unused for a swizzled K-major tile. Step k16 of the contraction starts
+// 32 bytes further along the row (four steps at 128-byte rows, two at 64).
+template <int kRow = kRowBytes>
 __device__ __forceinline__ uint64_t desc_kmajor(const void* tile) {
   return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (uint64_t{kSwizzleBytes >> 4} << 32) | (uint64_t{1} << 62);
+         (Swizzle<kRow>::kAtom16 << 32) | (Swizzle<kRow>::kLayout << 62);
 }
 __device__ __forceinline__ uint64_t kmajor_step(int k16) { return static_cast<uint64_t>(2 * k16); }
 
-// MN-major: the rows are the contraction and the 64 columns N, one atom
-// wide; the stride byte offset (1024) steps 8 rows of the contraction, the
-// leading offset (between 64-column atoms) is unused at N 64. Step k16 of
-// the contraction starts 16 rows (2048 bytes) further.
+// MN-major: the rows are the contraction and the kRow / 2 columns N, one
+// atom wide; the stride byte offset steps 8 rows of the contraction, the
+// leading offset (between atoms along N) is unused at N = kRow / 2. Step
+// k16 of the contraction starts 16 rows (16 * kRow bytes) further.
+template <int kRow = kRowBytes>
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile) {
   return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
-         (uint64_t{kSwizzleBytes >> 4} << 16) | (uint64_t{kSwizzleBytes >> 4} << 32) |
-         (uint64_t{1} << 62);
+         (Swizzle<kRow>::kAtom16 << 16) | (Swizzle<kRow>::kAtom16 << 32) |
+         (Swizzle<kRow>::kLayout << 62);
 }
+template <int kRow = kRowBytes>
 __device__ __forceinline__ uint64_t mnmajor_step(int k16) {
-  return static_cast<uint64_t>(k16 * (16 * kRowBytes >> 4));
+  return static_cast<uint64_t>(k16 * (16 * kRow >> 4));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -356,6 +374,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, 
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A in registers, B in shared
+// memory: P.V at head dim 32.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kTransB));
 }
 

@@ -1,6 +1,7 @@
 """Port of ``distriflow_tpu/models/generate.py``: solo decoding, beam
-search, sequence scoring and the continuous-batching engine's device half
-(speculative decoding is not ported yet).
+search, sequence scoring, the continuous-batching engine's device half
+and speculative decoding's three device programs (:func:`draft_k`,
+:func:`verify`, :func:`commit`).
 
 PyTorch runs eagerly, so the JAX package's jit builders
 (``_build_prefill``, ``_build_paged_fns``, ``_build_slot_fns``,
@@ -23,6 +24,9 @@ absolute position)`` pair seeds its own ``torch.Generator``, so a sampled
 token depends only on the request's seed and progress — never on batch
 composition or chunk size — and a single-row request samples the same
 tokens solo and in the engine. Greedy decoding matches JAX token for token.
+Speculative rounds keep JAX's three decision kinds on streams of their
+own: ``(seed, position, tag)`` with tag 1 the draft's sample, 2 the
+accept coin, 3 the residual sample; tag 0 is the plain stream above.
 """
 
 from __future__ import annotations
@@ -82,23 +86,42 @@ def _truncate_logit_rows(logits: torch.Tensor, top_ks: torch.Tensor,
                        torch.full_like(logits, neg), logits)
 
 
-def _stream_seed(seed: int, position: int) -> int:
-    """SplitMix64 of ``(seed, position)``: one generator seed per pair."""
-    z = ((int(seed) & 0xFFFFFFFF) << 32 | (int(position) & 0xFFFFFFFF)) & _MASK64
+def _splitmix64(z: int) -> int:
     z = (z + 0x9E3779B97F4A7C15) & _MASK64
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+    return z ^ (z >> 31)
 
 
-def _sample(logits: torch.Tensor, seed: int, position: int) -> torch.Tensor:
+def _stream_seed(seed: int, position: int, tag: int = 0) -> int:
+    """SplitMix64 of ``(seed, position)``: one generator seed per pair; a
+    nonzero ``tag`` (the speculative decisions, JAX's ``fold_in`` tags)
+    mixes once more, so tag 0 is the plain stream and each tag its own."""
+    z = _splitmix64(((int(seed) & 0xFFFFFFFF) << 32 | (int(position) & 0xFFFFFFFF)) & _MASK64)
+    if tag:
+        z = _splitmix64(z ^ (int(tag) & 0xFFFFFFFF))
+    return z & ((1 << 63) - 1)
+
+
+def _generator(device, seed: int, position: int, tag: int) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_stream_seed(seed, position, tag))
+    return gen
+
+
+def _sample(logits: torch.Tensor, seed: int, position: int, tag: int = 0) -> torch.Tensor:
     """Categorical samples for the rows of ``logits`` [R, V] by the
-    Gumbel-max rule, noise drawn from the ``(seed, position)`` stream."""
-    gen = torch.Generator(device=logits.device)
-    gen.manual_seed(_stream_seed(seed, position))
+    Gumbel-max rule, noise drawn from the ``(seed, position, tag)`` stream."""
+    gen = _generator(logits.device, seed, position, tag)
     u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=torch.float32)
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
     return torch.argmax(logits.float() + gumbel, dim=-1)
+
+
+def _uniform(device, seed: int, position: int, tag: int) -> torch.Tensor:
+    """One U[0, 1) f32 draw from the ``(seed, position, tag)`` stream."""
+    return torch.rand((), generator=_generator(device, seed, position, tag), device=device,
+                      dtype=torch.float32)
 
 
 def _check_fits(p: int, n_tokens: int, config: TransformerConfig) -> None:
@@ -463,3 +486,182 @@ def decode_chunk(model: TransformerLM, cache: KVCache, tok, done, temps, top_ks,
         toks.append(nxt)
     toks_np = torch.stack(toks, dim=1).cpu().numpy()
     return cache, tok_t.cpu().numpy(), done_t.cpu().numpy(), toks_np
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (JAX ``_build_spec_fns``): a small draft model
+# proposes k tokens a round; the target scores all k + 1 positions in one
+# multi-token pass over the slot batch (the s > 1 path of
+# ``Attention.decode``, per-row visibility over the paged cache), so its
+# logits at each position are those of plain decode and greedy acceptance
+# gives the plain token stream. Sampled rows use the Leviathan et al.
+# rejection-sampling correction on the tagged streams below.
+
+#: stream tags under a row's ``(seed, position)``: one per decision kind
+_SPEC_DRAFT_TAG = 1   # the draft model's own sample
+_SPEC_ACCEPT_TAG = 2  # the accept/reject uniform
+_SPEC_RESID_TAG = 3   # the residual (correction) sample
+
+
+def _set_cache_positions(cache: KVCache, pos: torch.Tensor) -> KVCache:
+    """Set the cache's ``[B]`` position vector to ``pos`` (JAX
+    ``_set_cache_positions``; the port's cache keeps one index for every
+    layer, so there are no leaves to find, ``_find_cache_leaf``)."""
+    cache.index = pos.to(device=cache.index.device, dtype=torch.int32).clone()
+    return cache
+
+
+def _oob_write_position(cache: KVCache) -> int:
+    """A position whose cache write lands nowhere (JAX
+    ``_oob_write_position``): paged, ``pages_per_slot * page_size``, which
+    maps through the pinned sentinel column into the scratch page; a slab,
+    ``max_seq``, which the slot write drops."""
+    if cache.paged:
+        return (cache.page_table.shape[1] - 1) * cache.k[0].shape[1]
+    return cache.max_seq
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@torch.no_grad()
+def draft_k(model: TransformerLM, cache: KVCache, tok, temps, top_ks, top_ps, seeds,
+            k: int) -> Tuple[KVCache, torch.Tensor, torch.Tensor]:
+    """k single-token draft steps from each row's committed position:
+    ``(cache, drafts [B, k] int32, q [B, k, V] f32)``, ``q`` the draft's
+    proposal distributions after temperature and truncation (a
+    ``[B, k, 1]`` placeholder when no row samples). The draft cache's
+    index ends at ``p + k``."""
+    dev = model.device
+    tk = torch.as_tensor(np.array(tok, np.int32), device=dev)
+    temps = np.asarray(temps, np.float32)
+    sampled = np.flatnonzero(temps > 0)
+    if sampled.size:
+        t = torch.as_tensor(np.where(temps > 0, temps, 1.0), device=dev)[:, None]
+        kk = torch.as_tensor(np.asarray(top_ks), device=dev)
+        pp = torch.as_tensor(np.asarray(top_ps, np.float32), device=dev)
+        pos0 = _host(cache.index).astype(np.int64)
+    drafts, qs = [], []
+    for i in range(k):
+        logits, cache = model.decode(tk[:, None], cache)
+        lg = logits[:, -1]
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+        if sampled.size:
+            tl = _truncate_logit_rows(lg / t, kk, pp)
+            for r in sampled:  # the sample's position is the draft token's own
+                nxt[r] = _sample(tl[r:r + 1], int(seeds[r]), int(pos0[r]) + i + 1,
+                                 _SPEC_DRAFT_TAG)[0]
+            qs.append(torch.softmax(tl.float(), dim=-1))
+        else:
+            qs.append(torch.zeros((lg.shape[0], 1), dtype=torch.float32, device=dev))
+        drafts.append(nxt)
+        tk = nxt
+    return cache, torch.stack(drafts, dim=1), torch.stack(qs, dim=1)
+
+
+def _residual(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The correction distribution after a rejection, ``norm(max(p - q,
+    0))`` row by row; ``p`` itself where that is all zero (which only
+    rounding can give: p <= q everywhere accepts every draft)."""
+    resid = torch.clamp(p - q, min=0.0)
+    rs = resid.sum(dim=-1, keepdim=True)
+    return torch.where(rs > 1e-20, resid / torch.clamp(rs, min=1e-20), p)
+
+
+@torch.no_grad()
+def verify(model: TransformerLM, cache: KVCache, tok, drafts: torch.Tensor,
+           qprobs: torch.Tensor, temps, top_ks, top_ps, seeds, done, eos, k: int):
+    """One target pass over ``[tok, d_1..d_k]`` (s = k + 1) and the round's
+    decisions: ``(cache, emit [B, k+1], n_emit [B], n_acc [B], new_tok [B],
+    new_done [B], catch_up [B], new_idx [B])``, all tensors on the device.
+
+    Greedy rows accept the longest prefix of drafts equal to the target's
+    argmax; sampled rows accept draft j with probability ``min(1, p(d) /
+    q(d))`` (the accept coin at the draft's position). The correction (or,
+    after k acceptances, the bonus) token is the target's argmax after the
+    accepted prefix, or a sample of the residual ``norm(max(p - q, 0))``
+    (q padded with zeros after the last draft, so the bonus samples p).
+    An eos among the emitted tokens freezes the row there; rows done at
+    entry stay frozen. The index rolls back to ``p + n_acc + 1``: writes
+    at rejected positions stay behind it, invisible, and the next round
+    overwrites them."""
+    dev = model.device
+    tok_t = torch.as_tensor(np.array(tok, np.int32), device=dev)
+    done_t = torch.as_tensor(np.array(done, bool), device=dev)
+    eos_t = torch.as_tensor(np.array(eos, np.int32), device=dev)
+    temps = np.asarray(temps, np.float32)
+    sampled = np.flatnonzero(temps > 0)
+    b = tok_t.shape[0]
+    p = cache.index.clone()  # committed per-row positions
+    seq = torch.cat([tok_t[:, None], drafts], dim=1)  # [B, k+1]
+    logits, cache = model.decode(seq, cache)
+    tgt = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, k+1]
+    acc = drafts == tgt[:, :k]
+    rows = torch.arange(b, device=dev)
+    if sampled.size:
+        v = logits.shape[-1]
+        t = torch.as_tensor(np.where(temps > 0, temps, 1.0), device=dev)
+        flat = (logits / t[:, None, None]).reshape(b * (k + 1), v)
+        kk = torch.as_tensor(np.asarray(top_ks), device=dev).repeat_interleave(k + 1)
+        pp = torch.as_tensor(np.asarray(top_ps, np.float32), device=dev).repeat_interleave(k + 1)
+        pprobs = torch.softmax(_truncate_logit_rows(flat, kk, pp).float(), dim=-1).reshape(
+            b, k + 1, v)
+        p_host = _host(p).astype(np.int64)
+        us = torch.zeros((b, k), dtype=torch.float32, device=dev)
+        for r in sampled:  # draft j sits at absolute position p + 1 + j
+            for j in range(k):
+                us[r, j] = _uniform(dev, int(seeds[r]), int(p_host[r]) + 1 + j, _SPEC_ACCEPT_TAG)
+        pd = torch.gather(pprobs[:, :k], 2, drafts.long()[..., None])[..., 0]
+        qd = torch.gather(qprobs, 2, drafts.long()[..., None])[..., 0]
+        acc_sampled = us < torch.clamp(pd / torch.clamp(qd, min=1e-20), max=1.0)
+        is_sampled = torch.as_tensor(temps > 0, device=dev)[:, None]
+        acc = torch.where(is_sampled, acc_sampled, acc)
+    n_acc = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1)  # [B], 0..k
+    corr = tgt[rows, n_acc.long()]
+    if sampled.size:
+        qpad = torch.cat([qprobs, torch.zeros((b, 1, qprobs.shape[-1]), dtype=qprobs.dtype,
+                                              device=dev)], dim=1)
+        dist = _residual(pprobs[rows, n_acc.long()], qpad[rows, n_acc.long()])
+        n_acc_host = _host(n_acc).astype(np.int64)
+        corr = corr.clone()
+        for r in sampled:
+            corr[r] = _sample(torch.log(torch.clamp(dist[r:r + 1], min=1e-30)), int(seeds[r]),
+                              int(p_host[r]) + 1 + int(n_acc_host[r]), _SPEC_RESID_TAG)[0]
+    # the round's tokens: d_1..d_{n_acc}, then the correction
+    cols = torch.arange(k + 1, device=dev)[None, :]
+    drafts_pad = torch.cat([drafts, torch.zeros((b, 1), dtype=torch.int32, device=dev)], dim=1)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    emit = torch.where(cols < n_acc[:, None], drafts_pad,
+                       torch.where(cols == n_acc[:, None], corr[:, None], zero))
+    # an eos among them freezes the row exactly where plain decode would
+    hit = (eos_t >= 0)[:, None] & (emit == eos_t[:, None]) & (cols <= n_acc[:, None])
+    hit_any = hit.any(dim=1)
+    first_eos = torch.argmax(hit.to(torch.int32), dim=1).to(torch.int32)
+    n_emit = torch.where(hit_any, torch.minimum(n_acc + 1, first_eos + 1), n_acc + 1)
+    new_done = done_t | hit_any
+    eos0 = torch.clamp(eos_t, min=0)
+    new_tok = torch.where(new_done, eos0, corr)
+    # rows done at entry stay frozen (a retired slot; the host reads nothing)
+    emit = torch.where(done_t[:, None], eos0[:, None], emit)
+    n_emit = torch.where(done_t, torch.full_like(n_emit, k + 1), n_emit)
+    n_acc = torch.where(done_t, torch.zeros_like(n_acc), n_acc)
+    new_idx = (p + n_acc + 1).to(torch.int32)
+    catch_up = (n_acc == k) & ~done_t
+    return (_set_cache_positions(cache, new_idx), emit, n_emit, n_acc, new_tok, new_done,
+            catch_up, new_idx)
+
+
+@torch.no_grad()
+def commit(model: TransformerLM, cache: KVCache, last_draft: torch.Tensor,
+           catch_up: torch.Tensor, new_idx: torch.Tensor) -> KVCache:
+    """Re-sync the draft cache after a verify: rows that accepted all k
+    drafts lack d_k's own KV (the draft steps wrote only their inputs), so
+    one more draft step writes it at ``p + k``; the other rows' write is
+    diverted to :func:`_oob_write_position`. Every row then commits to
+    ``new_idx``."""
+    divert = torch.where(catch_up, cache.index,
+                         torch.full_like(cache.index, _oob_write_position(cache)))
+    _set_cache_positions(cache, divert)
+    _, cache = model.decode(last_draft.to(torch.int32)[:, None], cache)
+    return _set_cache_positions(cache, new_idx)

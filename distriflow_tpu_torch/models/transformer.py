@@ -69,8 +69,13 @@ from torch import nn
 
 from distriflow_tpu_torch.models.base import ModelSpec
 from distriflow_tpu_torch.ops import flop_count
-from distriflow_tpu_torch.ops.flash_attention import flash_attention, flash_seq_supported
+from distriflow_tpu_torch.ops.flash_attention import (
+    BWD_HEAD_DIMS,
+    flash_attention,
+    flash_seq_supported,
+)
 from distriflow_tpu_torch.ops.flash_decode import (
+    INT8_HEAD_DIMS,
     SUPPORTED_HEAD_DIMS,
     flash_decode,
     flash_decode_paged,
@@ -232,12 +237,12 @@ def _use_kernel(flag: Optional[bool], t: torch.Tensor) -> bool:
 
 
 def check_kernels_take(config: TransformerConfig, device: torch.device,
-                       page_size: Optional[int] = None) -> None:
+                       page_size: Optional[int] = None, training: bool = False) -> None:
     """Raise ``NotImplementedError`` when a model on CUDA would need a
-    kernel for a dtype, head dim or page size the kernels do not take.
-    There is no plain path on the card to fall back to; a caller who wants
-    the plain path there sets ``use_flash_attention``/``use_flash_decode``
-    to False."""
+    kernel for a dtype, head dim or page size the kernels do not take
+    (``training``: the attention backward's too). There is no plain path
+    on the card to fall back to; a caller who wants the plain path there
+    sets ``use_flash_attention``/``use_flash_decode`` to False."""
     if device.type != "cuda":
         return
     item = torch.empty((), dtype=config.dtype).element_size()
@@ -246,6 +251,8 @@ def check_kernels_take(config: TransformerConfig, device: torch.device,
     if config.use_flash_attention is not False and not flash_seq_supported(
             config.max_seq, d, item):
         refused.append("prefill attention")
+    if training and config.use_flash_attention is not False and d not in BWD_HEAD_DIMS:
+        refused.append("the attention backward")
     if config.use_flash_decode is not False:
         # the cache precisions a decode can get: the context gate may pick
         # either side of the crossover under kv_cache_dtype="int8"
@@ -261,8 +268,9 @@ def check_kernels_take(config: TransformerConfig, device: torch.device,
     if refused:
         raise NotImplementedError(
             f"no CUDA kernel for {', '.join(refused)} at dtype {config.dtype}, "
-            f"head dim {d}: the kernels take bf16 (and int8 caches with a bf16 q) "
-            f"at head dims {SUPPORTED_HEAD_DIMS}")
+            f"head dim {d}: the kernels take bf16 at head dims {SUPPORTED_HEAD_DIMS} "
+            f"(the attention backward {BWD_HEAD_DIMS}, int8 caches with a bf16 q "
+            f"{INT8_HEAD_DIMS})")
 
 
 def quantize_kv(t: torch.Tensor, n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -594,7 +602,7 @@ class TransformerLM(nn.Module):
         self.ln_f = LayerNorm(cfg.d_model, trainable)
         self.lm_head = _param(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype, trainable=trainable)
         dev = resolve_device(device)
-        check_kernels_take(config, dev)
+        check_kernels_take(config, dev, training=trainable)
         self.to(dev)
         self.eval()
 

@@ -27,6 +27,8 @@ kernels, which take bf16 logits.
 
 from __future__ import annotations
 
+import dataclasses
+
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -118,9 +120,39 @@ def flagship_lm_config(max_seq: int = 2048, dtype: torch.dtype = torch.bfloat16)
 
 
 def draft_lm_config(max_seq: int = 2048, dtype: torch.dtype = torch.bfloat16) -> TransformerConfig:
-    """The small LM: 2 layers at a quarter of the flagship's width (head
-    dim 32, which the CUDA kernels are not built for: on the card it runs
-    with ``use_flash_attention=False`` and ``use_flash_decode=False``)."""
+    """The small LM, the speculative draft: 2 layers at a quarter of the
+    flagship's width, 4 heads of head dim 32 (the prefill and bf16 decode
+    kernels are built at head dims 64 and 32, so on the card it runs on
+    them like the flagship)."""
     return TransformerConfig(
         vocab_size=32000, d_model=128, n_heads=4, n_layers=2, d_ff=512,
         max_seq=max_seq, dtype=dtype)
+
+
+#: ``ServingConfig.draft_model`` names -> config factories. ``"self"`` is
+#: resolved by :func:`draft_config_for` (the target config itself:
+#: self-speculation, acceptance ~= k by construction).
+_DRAFT_LMS = {"lm_draft": draft_lm_config}
+
+
+def draft_config_for(name: str, target: TransformerConfig) -> TransformerConfig:
+    """Resolve a ``ServingConfig.draft_model`` name against a target config
+    (JAX ``models/zoo.py:133-157``). The draft keeps its own depth and
+    width but takes the fields a draft/target pair must share: the vocab
+    (token ids mean the same), ``max_seq`` (the page-table width), the
+    dtype and the kernel switches (both halves run on the same kernels)."""
+    if name == "self":
+        return target
+    factory = _DRAFT_LMS.get(name)
+    if factory is None:
+        raise ValueError(
+            f"unknown draft_model {name!r}; known: {sorted(_DRAFT_LMS) + ['self']}")
+    draft = factory(max_seq=target.max_seq, dtype=target.dtype)
+    return dataclasses.replace(
+        draft,
+        vocab_size=target.vocab_size,
+        max_seq=target.max_seq,
+        dtype=target.dtype,
+        use_flash_attention=target.use_flash_attention,
+        use_flash_decode=target.use_flash_decode,
+    )

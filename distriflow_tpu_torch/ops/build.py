@@ -42,13 +42,18 @@ ptxas_reports: Dict[str, str] = {}
 _count_lock = threading.Lock()
 
 
-def count_launch(fn) -> None:
-    """Count one launch of ``fn``'s kernel in ``fn.launches``. The wrappers
-    run on several threads at once (the wire-training clients fit in their
-    transport's handler threads), and a bare ``+= 1`` on an attribute can
-    lose an increment between threads: the lock keeps the count exact."""
+def count_launch(fn, head_dim: "int | None" = None) -> None:
+    """Count one launch of ``fn``'s kernel in ``fn.launches`` and, for a
+    kernel built at several head dims, in ``fn.launches_by_head_dim``. The
+    wrappers run on several threads at once (the wire-training clients fit
+    in their transport's handler threads), and a bare ``+= 1`` on an
+    attribute can lose an increment between threads: the lock keeps the
+    count exact."""
     with _count_lock:
         fn.launches += 1
+        if head_dim is not None:
+            by = fn.launches_by_head_dim
+            by[head_dim] = by.get(head_dim, 0) + 1
 
 
 def _nvcc() -> str:

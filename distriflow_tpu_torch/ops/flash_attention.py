@@ -47,7 +47,11 @@ import torch
 from distriflow_tpu_torch.ops import build, flop_count
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (64,)  # the head dims the kernel is built and checked for
+#: the head dims the forward kernel is built and checked for: the
+#: flagship's 64 and the speculative draft's 32
+SUPPORTED_HEAD_DIMS = (32, 64)
+#: the head dims the backward kernels are built for
+BWD_HEAD_DIMS = (64,)
 
 _SIGNATURES = {
     "dftt_flash_attention_fwd_bf16": [
@@ -306,6 +310,8 @@ def _check_kernel_inputs(what: str, ref: torch.Tensor, **tensors: torch.Tensor) 
     _, _, s, d = ref.shape
     if not flash_seq_supported(s, d):
         raise ValueError(f"{what}: no kernel for S={s}, D={d}")
+    if what != "flash_attention" and d not in BWD_HEAD_DIMS:
+        raise ValueError(f"{what}: the backward kernels take D in {BWD_HEAD_DIMS}, got D={d}")
 
 
 def _forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -324,7 +330,7 @@ def _forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         b * h, s, d, int(causal), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
-    build.count_launch(flash_attention)
+    build.count_launch(flash_attention, d)
     return o, lse
 
 
@@ -337,7 +343,7 @@ def flash_attention_backward(
 
     CPU tensors run :func:`flash_attention_backward_reference`. CUDA
     tensors launch the backward kernel or raise: q/k/v/dO contiguous bf16
-    of one shape with ``D`` in :data:`SUPPORTED_HEAD_DIMS`, lse/delta
+    of one shape with ``D`` in :data:`BWD_HEAD_DIMS`, lse/delta
     contiguous f32. The kernel writes each live pair's f32 dQ partial once
     into a ``[n_kv, B*H, S, D]`` scratch (JAX's layout, never zeroed), and a
     second kernel sums them in ascending KV tile, scales and casts: two
@@ -480,8 +486,9 @@ def flash_attention(
     return (o, lse) if return_lse else o
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (the forward also by head dim)
 flash_attention.launches = 0
+flash_attention.launches_by_head_dim = {}
 flash_attention_backward.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0

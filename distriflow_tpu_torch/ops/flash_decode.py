@@ -65,7 +65,11 @@ SLAB_TILE = 128  # slab positions per tile: the identity table's page size
 #: of SLAB_TILE and slab tiles split at the same positions
 SPLIT_TILES = 2
 MAX_TILE = 256  # largest page: the kernels keep a tile's scores in registers
-SUPPORTED_HEAD_DIMS = (64,)  # the head dims the kernel is built and checked for
+#: the head dims the bf16 kernel is built and checked for: the flagship's
+#: 64 and the speculative draft's 32
+SUPPORTED_HEAD_DIMS = (32, 64)
+#: the head dims the int8 kernel is built for
+INT8_HEAD_DIMS = (64,)
 
 # pointers, then B, H, D, T, n_tiles, S, n_pages, split_tiles, n_splits,
 # the length of every row (where lens is NULL), the score scale, the stream
@@ -86,7 +90,8 @@ def _note_refused() -> None:
 
 
 def _kernel_takes(hd: int, kv_item: int, d: int) -> bool:
-    return kv_item in (1, 2) and d in SUPPORTED_HEAD_DIMS and hd % d == 0
+    dims = INT8_HEAD_DIMS if kv_item == 1 else SUPPORTED_HEAD_DIMS
+    return kv_item in (1, 2) and d in dims and hd % d == 0
 
 
 def supports_seq(s: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
@@ -271,7 +276,7 @@ def _check_cuda(q, pools, what, dtype=torch.bfloat16, scales=()):
         raise ValueError(f"{what}: q must be contiguous bf16 [B, H, D], got "
                          f"{q.dtype} {tuple(q.shape)}")
     b, h, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS:
+    if d not in (INT8_HEAD_DIMS if dtype == torch.int8 else SUPPORTED_HEAD_DIMS):
         raise ValueError(f"{what}: no kernel for head dim {d}")
     for name, t in pools:
         if t.device != q.device or t.dtype != dtype or not t.is_contiguous():
@@ -358,7 +363,7 @@ def flash_decode_paged(q, k, v, page_table, valid_len, k_scale=None, v_scale=Non
     pp = page_table.shape[1]
     out = _launch(q, k, v, None, page_table, valid_len,
                   ps, pp, pp * ps, n_pages, "flash_decode_paged")
-    build.count_launch(flash_decode_paged)
+    build.count_launch(flash_decode_paged, q.shape[-1])
     return out
 
 
@@ -377,7 +382,7 @@ def flash_decode(q, k, v, valid_len, k_scale=None, v_scale=None) -> torch.Tensor
     s = k.shape[1]
     out = _launch(q, k, v, None, None, valid_len,
                   SLAB_TILE, -(-s // SLAB_TILE), s, 0, "flash_decode")
-    build.count_launch(flash_decode)
+    build.count_launch(flash_decode, q.shape[-1])
     return out
 
 
@@ -415,8 +420,10 @@ def flash_decode_int8(q, k, v, k_scale, v_scale, valid_len) -> torch.Tensor:
     return out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (bf16 also by head dim)
 flash_decode_paged.launches = 0
+flash_decode_paged.launches_by_head_dim = {}
 flash_decode.launches = 0
+flash_decode.launches_by_head_dim = {}
 flash_decode_paged_int8.launches = 0
 flash_decode_int8.launches = 0

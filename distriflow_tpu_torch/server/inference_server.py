@@ -1,5 +1,5 @@
 """Port of ``distriflow_tpu/server/inference_server.py``: serve KV-cache
-decoding over the wire transport (speculative decoding is not ported yet).
+decoding over the wire transport.
 
 Events, byte-compatible with the JAX package's clients (arrays travel as
 ``pack_bytes``/``SerializedArray`` buffers):
@@ -26,6 +26,13 @@ engine cannot take (more rows than slots, multi-row sampled prompts) run
 the solo :func:`~distriflow_tpu_torch.models.generate.generate` ("direct").
 Greedy rows are row-independent; sampled rows draw from their own
 ``(seed, position)`` streams, so neither depends on batch composition.
+
+Speculative decoding (``ServingConfig.speculate_k > 0``, paged layout
+only): a small draft model keeps its own paged cache over the same page
+pool; each engine round drafts k tokens, verifies all k + 1 positions in
+one target pass and commits the accepted prefix
+(:func:`~distriflow_tpu_torch.models.generate.verify`). Greedy output
+equals plain decode's.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from collections import OrderedDict, deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from distriflow_tpu_torch.analysis.witness import PoolWitness
 from distriflow_tpu_torch.comm.transport import ServerTransport
@@ -44,7 +52,9 @@ from distriflow_tpu_torch.fleet.prefix_hash import page_hashes
 from distriflow_tpu_torch.models.generate import (
     _check_fits,
     beam_search,
+    commit,
     decode_chunk,
+    draft_k,
     extend,
     gather_rows,
     generate,
@@ -57,8 +67,10 @@ from distriflow_tpu_torch.models.generate import (
     set_page_tables,
     slot_cache,
     slot_insert,
+    verify,
 )
-from distriflow_tpu_torch.models.transformer import TransformerLM
+from distriflow_tpu_torch.models.transformer import TransformerLM, init_weights
+from distriflow_tpu_torch.models.zoo import draft_config_for
 from distriflow_tpu_torch.obs import FleetTable, get_telemetry
 from distriflow_tpu_torch.utils.config import ServingConfig
 from distriflow_tpu_torch.utils.logging import VerboseLogger
@@ -176,10 +188,23 @@ def _prompt_from(payload: Dict[str, Any], limit: Optional[int] = None) -> np.nda
     return arr.astype(np.int32)
 
 
+def _ready(t: torch.Tensor) -> None:
+    """Wait for the device work behind ``t`` (a phase's end on the card)."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
 class InferenceServer:
     """Serve a :class:`TransformerLM`'s decoding over the native transport.
     The model's device (``cuda`` unless it was built on the CPU) is where
-    every request runs."""
+    every request runs.
+
+    With ``serving.speculate_k > 0`` the draft is ``draft`` (the
+    counterpart of JAX's ``draft_params``; its config must share the
+    target's vocab, ``max_seq`` and dtype) or, with none given, a model of
+    ``draft_config_for(serving.draft_model or "lm_draft", config)`` with
+    seeded weights (:func:`init_weights`, seed 0). ``draft_model="self"``
+    drafts with the target itself, so :meth:`set_params` moves both."""
 
     def __init__(
         self,
@@ -189,12 +214,11 @@ class InferenceServer:
         verbose: Optional[bool] = None,
         serving: Optional[ServingConfig] = None,
         telemetry: Any = None,
+        draft: Optional[TransformerLM] = None,
     ):
         self.model = model
         self.config = config = model.config
         self.serving = (serving or ServingConfig()).validate()
-        if self.serving.speculate_k > 0:
-            raise NotImplementedError("speculative decoding (speculate_k > 0) is not ported yet")
         self.logger = VerboseLogger("InferenceServer", verbose)
         self._device_lock = threading.Lock()  # one device program at a time
         self.transport = ServerTransport(host, port)
@@ -256,6 +280,35 @@ class InferenceServer:
         # physical page; one pool reference per entry; insertion order is
         # the LRU order
         self._prefix_map: "OrderedDict[bytes, int]" = OrderedDict()
+        # speculative decoding: the draft keeps its own paged cache and page
+        # tables but draws page ids from the same _PagePool, so draft KV
+        # competes with target KV for the pool and every occupancy metric
+        # counts it
+        # (a self-draft is the target object itself, so set_params, which
+        # loads in place, moves both)
+        self._spec_k = self.serving.speculate_k
+        self.draft_model: Optional[TransformerLM] = None
+        self._draft_cache: Any = None
+        self._draft_tables = np.full((s, self._pp + 1), self._n_pages, np.int32)
+        self._draft_tables_dirty = False
+        self._draft_pages: List[List[int]] = [[] for _ in range(s)]
+        self.spec_accept_per_step = 0.0  # single-writer: scheduler thread
+        if self._spec_k:
+            name = self.serving.draft_model or "lm_draft"
+            if name == "self":
+                if draft is not None:
+                    raise ValueError('draft_model="self" drafts with the target; pass no draft')
+                self.draft_model = model
+            elif draft is not None:
+                shared = ("vocab_size", "max_seq", "dtype")
+                if any(getattr(draft.config, f) != getattr(config, f) for f in shared):
+                    raise ValueError(f"the draft must share the target's {', '.join(shared)}")
+                self.draft_model = draft
+            else:
+                self.draft_model = init_weights(
+                    TransformerLM(draft_config_for(name, config), device=model.device), seed=0)
+        elif draft is not None:
+            raise ValueError("a draft model needs serving.speculate_k > 0")
         tel = telemetry if telemetry is not None else get_telemetry()
         self._m_batches = tel.counter(
             "serving_decode_batches_total",
@@ -302,6 +355,15 @@ class InferenceServer:
             "serving_pages_allocated_total", help="KV-cache pages allocated")
         self._m_pages_freed = tel.counter(
             "serving_pages_released_total", help="KV-cache pages released")
+        self._m_spec_proposed = tel.counter(
+            "serving_spec_proposed_total",
+            help="draft tokens proposed by speculative decoding")
+        self._m_spec_accepted = tel.counter(
+            "serving_spec_accepted_total",
+            help="draft tokens accepted by the target model")
+        self._m_spec_rate = tel.gauge(
+            "serving_spec_accepted_per_step",
+            help="accepted draft tokens per speculative step")
         self._prof = tel.profiler("serving")
         self.fleet = FleetTable()
         self._tel = tel
@@ -336,7 +398,8 @@ class InferenceServer:
 
     def set_params(self, state_dict: Dict[str, Any]) -> None:
         """Swap serving weights; live requests continue on the new weights
-        from their next chunk (the KV cache is config-shaped only)."""
+        from their next chunk (the KV cache is config-shaped only). Under
+        ``draft_model="self"`` the draft is the target, so it follows."""
         with self._device_lock:
             self.model.load_state_dict(state_dict, strict=True)
 
@@ -415,8 +478,8 @@ class InferenceServer:
             "page_occupancy": (self._pool.used_pages / self._n_pages) if paged else 0.0,
             "free_pages": self._pool.free_pages if paged else -1,
             "prefix_hits": self.prefix_hits,
-            "speculate_k": 0,
-            "spec_accept_per_step": 0.0,
+            "speculate_k": self._spec_k,
+            "spec_accept_per_step": self.spec_accept_per_step,
             "evicted_prefixes": evicted,
             "warm_prefixes": warm,
             "prefix_entries": len(self._prefix_map),
@@ -646,10 +709,16 @@ class InferenceServer:
     def _pages_needed(self, plen: int, n_tokens: int) -> int:
         """Pages one row holds over its full horizon, reserved up front:
         prompt plus generated tokens rounded up to the chunk boundary (a
-        row frozen at eos keeps appending until retirement)."""
+        row frozen at eos keeps appending until retirement). Under
+        speculation a verify pass writes the whole ``[tok, d_1..d_k]``
+        window, up to ``speculate_k + 1`` positions past the committed
+        horizon; positions past ``pages_per_slot * page_size`` drop through
+        the sentinel and need no page (the ``min``)."""
         chunk = self.serving.decode_chunk
         written = plen
-        if n_tokens > 1:
+        if self._spec_k:
+            written += (n_tokens - 1) + self._spec_k + 1
+        elif n_tokens > 1:
             written += -(-(n_tokens - 1) // chunk) * chunk
         ps = self.serving.page_size
         return min(-(-written // ps), self._pp)
@@ -683,15 +752,18 @@ class InferenceServer:
         reservation. False = not enough free pages even after eviction."""
         plen = req.prompt.shape[1]
         need = self._pages_needed(plen, req.n_tokens)
+        # the draft's pages hold the draft model's KV, which target prefix
+        # hashes say nothing about: every draft page is owned, full horizon
+        dneed = need if self._spec_k else 0
         plans: List[Dict[str, Any]] = []
         for row in range(req.prompt.shape[0]):
             shared, hashes = self._row_plan(req.prompt[row])
             plans.append({"shared": shared, "hashes": hashes,
-                          "owned": None, "committed": False})
+                          "owned": None, "draft": [], "committed": False})
         # ref shared pages FIRST so eviction below can never free them
         for plan in plans:
             self._pool.ref(plan["shared"])
-        total_owned = sum(need - len(p["shared"]) for p in plans)
+        total_owned = sum(need + dneed - len(p["shared"]) for p in plans)
         if total_owned > self._pool.free_pages:
             self._evict_prefix(total_owned - self._pool.free_pages)
         if total_owned > self._pool.free_pages:
@@ -700,13 +772,15 @@ class InferenceServer:
             return False
         for plan in plans:
             plan["owned"] = self._pool.alloc(need - len(plan["shared"]))
+            plan["draft"] = self._pool.alloc(dneed)
             if plan["shared"]:
                 self.prefix_hits += 1
                 self._m_prefix_hits.inc()
                 self._m_prefix_tokens.inc(len(plan["shared"]) * self.serving.page_size)
                 for hj in plan["hashes"][:len(plan["shared"])]:
                     self._prefix_hit_counts[hj] = self._prefix_hit_counts.get(hj, 0) + 1
-            self._m_pages_alloc.inc(len(plan["shared"]) + len(plan["owned"]))
+            self._m_pages_alloc.inc(
+                len(plan["shared"]) + len(plan["owned"]) + len(plan["draft"]))
         req.page_plan = plans
         return True
 
@@ -714,7 +788,7 @@ class InferenceServer:
         """Return an uncommitted row reservation to the pool."""
         if plan is None or plan["committed"]:
             return
-        pages = plan["shared"] + (plan["owned"] or [])
+        pages = plan["shared"] + (plan["owned"] or []) + plan["draft"]
         self._pool.unref(pages)
         self._m_pages_freed.inc(len(pages))
         plan["committed"] = True  # never release twice
@@ -735,7 +809,8 @@ class InferenceServer:
             self._m_pages.set(self._pool.used_pages / self._n_pages)
 
     def _note_client_pages(self, client_id: str) -> None:
-        held = sum(len(self._slot_pages[s]) for s, r in enumerate(self._slot_req)
+        held = sum(len(self._slot_pages[s]) + len(self._draft_pages[s])
+                   for s, r in enumerate(self._slot_req)
                    if r is not None and r.client_id == client_id)
         self.fleet.note_pages(client_id, held)
 
@@ -758,6 +833,11 @@ class InferenceServer:
             if self._paged:
                 self._slot_cache = paged_cache(
                     self.config, srv.max_slots, srv.page_size, self._n_pages, dev)
+                if self._spec_k:
+                    # the draft's own K/V arrays (other dims), the same page ids
+                    self._draft_cache = paged_cache(
+                        self.draft_model.config, srv.max_slots, srv.page_size, self._n_pages,
+                        dev)
             else:
                 self._slot_cache = slot_cache(self.config, srv.max_slots, dev)
 
@@ -810,7 +890,9 @@ class InferenceServer:
                         for s, r in enumerate(self._slot_req):
                             if r is None:
                                 self._tables[s, :] = self._n_pages
+                                self._draft_tables[s, :] = self._n_pages
                         self._tables_dirty = True
+                        self._draft_tables_dirty = bool(self._spec_k)
                     for req in {id(r): r for r, _ in members}.values():
                         self._finish_error(req, e)
             self.batched_requests += len(admit)
@@ -845,6 +927,10 @@ class InferenceServer:
                 s = int(slots[j])
                 self._tables[s, :] = self._n_pages
                 self._tables[s, :len(pages)] = pages
+                if self._spec_k:
+                    dpages = plan["draft"]
+                    self._draft_tables[s, :] = self._n_pages
+                    self._draft_tables[s, :len(dpages)] = dpages
         pf0 = time_mod.monotonic()
         with self._prof.phase("prefill"), self._device_lock, self.logger.time(
             f"admit[{n}x{plen}]"
@@ -873,6 +959,20 @@ class InferenceServer:
             first = pick_rows(logits, temps, top_ks, top_ps, seeds,
                               np.full((n,), plen, np.int64)).cpu().numpy()
         pf1 = time_mod.monotonic()  # first tokens are on the host now
+        if self._spec_k:
+            # the draft prefills the full prompt: the target's shared prefix
+            # pages hold target KV, nothing the draft can reuse
+            dmodel = self.draft_model
+            with self._prof.phase("spec_draft"), self._device_lock:
+                if pc is None or pc >= plen:
+                    _, d_row = prefill(dmodel, stacked)
+                else:
+                    _, d_row = prefill(dmodel, stacked[:, :pc])
+                    for i in range(pc, plen, pc):
+                        _, d_row = extend(dmodel, d_row, stacked[:, i:i + pc])
+                paged_insert(self._draft_cache, d_row, slots, plen, 0,
+                             self._draft_tables.copy())
+                self._draft_tables_dirty = False
         for j, (req, row) in enumerate(members):
             s = int(slots[j])
             self._slot_req[s] = req
@@ -895,6 +995,7 @@ class InferenceServer:
                 plan = req.page_plan[row]
                 plan["committed"] = True
                 self._slot_pages[s] = plan["shared"] + plan["owned"]
+                self._draft_pages[s] = plan["draft"]
                 self._register_prefix(plan)
                 self._note_client_pages(req.client_id)
             self._tok[s] = first[j]
@@ -927,6 +1028,9 @@ class InferenceServer:
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not active:
             self._m_slots.set(0)
+            return
+        if self._spec_k:
+            self._spec_round(active)
             return
         with self._prof.phase("decode_iter"):
             t0 = time_mod.monotonic()
@@ -976,6 +1080,81 @@ class InferenceServer:
             self._m_tokens.inc(emitted_now)
             self._m_slots.set(sum(1 for r in self._slot_req if r is not None))
 
+    def _spec_round(self, active: List[int]) -> None:
+        """One speculative round over every live slot: draft k tokens,
+        verify all k + 1 positions in one target pass, commit the accepted
+        prefix (JAX ``_spec_round``). A round yields 1 to k + 1 tokens a
+        row; the host clips to the row's budget and retires rows as the
+        chunk path does. Each of the three programs is waited for before
+        its phase closes, so ``spec_draft``/``spec_verify``/``spec_commit``
+        attribute wall time honestly."""
+        k = self._spec_k
+        dmodel = self.draft_model
+        t0 = time_mod.monotonic()
+        with self._device_lock:
+            if self._tables_dirty:
+                set_page_tables(self._slot_cache, self._tables.copy())
+                self._tables_dirty = False
+            if self._draft_tables_dirty:
+                set_page_tables(self._draft_cache, self._draft_tables.copy())
+                self._draft_tables_dirty = False
+            with self._prof.phase("spec_draft"):
+                self._draft_cache, drafts, qprobs = draft_k(
+                    dmodel, self._draft_cache, self._tok, self._temps, self._top_ks,
+                    self._top_ps, self._seeds, k)
+                _ready(drafts)
+            td = time_mod.monotonic()
+            with self._prof.phase("spec_verify"):
+                (self._slot_cache, emit, n_emit, n_acc, new_tok, new_done, catch,
+                 new_idx) = verify(
+                    self.model, self._slot_cache, self._tok, drafts, qprobs, self._temps,
+                    self._top_ks, self._top_ps, self._seeds, self._done, self._eos, k)
+                emit, n_emit, n_acc = emit.cpu().numpy(), n_emit.cpu().numpy(), n_acc.cpu().numpy()
+                new_tok, new_done = new_tok.cpu().numpy(), new_done.cpu().numpy()
+            tv = time_mod.monotonic()
+            with self._prof.phase("spec_commit"):
+                self._draft_cache = commit(dmodel, self._draft_cache, drafts[:, -1], catch,
+                                           new_idx)
+                _ready(self._draft_cache.index)
+        tc = time_mod.monotonic()
+        self.decode_batches += 1
+        self._m_batches.inc()
+        self._tok = new_tok
+        self._done = new_done
+        emitted_now = 0
+        accepted_now = 0
+        for s in active:
+            req = self._slot_req[s]
+            row = int(self._slot_row[s])
+            have = int(self._slot_emitted[s])
+            take = min(int(n_emit[s]), req.n_tokens - have)
+            emitted_now += take
+            accepted_now += int(n_acc[s])
+            self._slot_emitted[s] = have + take
+            # per-slot TPOT: the interval normalized by what this slot took
+            if take > 0:
+                self._m_tpot[req.tier].observe((tc - self._slot_emit_t[s]) * 1000.0 / take)
+                self._slot_emit_t[s] = tc
+            self._req_span(req, "spec_draft", t0, (td - t0) * 1000.0, slot=s)
+            self._req_span(req, "spec_verify", td, (tv - td) * 1000.0, slot=s)
+            self._req_span(req, "spec_commit", tv, (tc - tv) * 1000.0,
+                           slot=s, accepted=int(n_acc[s]), take=take)
+            req.rows_out[row] = np.concatenate([req.rows_out[row], emit[s, :take].astype(np.int32)])
+            if new_done[s]:
+                pad = req.n_tokens - have - take
+                if pad:
+                    req.rows_out[row] = np.concatenate(
+                        [req.rows_out[row], np.full((pad,), req.eos, np.int32)])
+                self._complete_row(s)
+            elif have + take >= req.n_tokens:
+                self._complete_row(s)
+        self._m_tokens.inc(emitted_now)
+        self._m_spec_proposed.inc(k * len(active))
+        self._m_spec_accepted.inc(accepted_now)
+        self.spec_accept_per_step = accepted_now / len(active)
+        self._m_spec_rate.set(self.spec_accept_per_step)
+        self._m_slots.set(sum(1 for r in self._slot_req if r is not None))
+
     def _complete_row(self, s: int) -> None:
         """Retire one finished slot and resolve its request once every row
         is in."""
@@ -1010,12 +1189,18 @@ class InferenceServer:
             self._done[s] = True
             self._temps[s] = 0.0
             self._eos[s] = -1
-            if self._paged and self._slot_pages[s]:
+            if self._paged and (self._slot_pages[s] or self._draft_pages[s]):
                 pages = self._slot_pages[s]
                 self._slot_pages[s] = []
                 self._pool.unref(pages)
                 self._tables[s, :] = self._n_pages
-                self._m_pages_freed.inc(len(pages))
+                dpages = self._draft_pages[s]
+                self._draft_pages[s] = []
+                if dpages:
+                    self._pool.unref(dpages)
+                    self._draft_tables[s, :] = self._n_pages
+                    self._draft_tables_dirty = True
+                self._m_pages_freed.inc(len(pages) + len(dpages))
                 self._tables_dirty = True
                 self._note_occupancy()
                 if req is not None:
@@ -1062,7 +1247,7 @@ class InferenceServer:
         if self._pool is None or self._pool_witness is None or not self._pool_witness.enabled:
             return
         held: set = set()
-        for pages in self._slot_pages:
+        for pages in self._slot_pages + self._draft_pages:
             held.update(pages)
         shared_only = set(self._prefix_map.values()) - held
         self._pool_witness.verify(self._pool.free_pages, len(held), len(shared_only),

@@ -33,13 +33,15 @@ from distriflow_tpu_torch.ops import flash_attention as port_fa
 pytestmark = pytest.mark.port
 torch.set_num_threads(2)
 
-B, H, S, D = 2, 2, 37, 32
+B, H, S = 2, 2, 37
+#: the kernel's head dims: the flagship's 64 and the speculative draft's 32
+HEAD_DIMS = (32, 64)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
-def _inputs(dtype_name):
+def _inputs(dtype_name, d):
     rng = np.random.RandomState(0)
-    arrs = [rng.randn(B, H, S, D).astype(np.float32) for _ in range(3)]
+    arrs = [rng.randn(B, H, S, d).astype(np.float32) for _ in range(3)]
     jx = [jnp.asarray(a, dtype=getattr(jnp, dtype_name)) for a in arrs]
     # widen the rounded JAX values so both sides start from the same bits
     tt = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch, dtype_name))
@@ -51,22 +53,24 @@ def _np(t):
     return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_prefill_matches_pallas_interpret(dtype_name, causal):
-    (q, k, v), (tq, tk, tv) = _inputs(dtype_name)
+def test_plain_prefill_matches_pallas_interpret(dtype_name, causal, d):
+    (q, k, v), (tq, tk, tv) = _inputs(dtype_name, d)
     o_ref, lse_ref = flash_attention_with_lse(q, k, v, causal, interpret=True)
     o, lse = port_fa.flash_attention(tq, tk, tv, causal=causal, return_lse=True)
-    assert o.dtype == tq.dtype and o.shape == (B, H, S, D)
+    assert o.dtype == tq.dtype and o.shape == (B, H, S, d)
     assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
     np.testing.assert_allclose(_np(o), _np(o_ref), rtol=0, atol=TOL[dtype_name])
     np.testing.assert_allclose(_np(lse), _np(lse_ref), rtol=0, atol=TOL[dtype_name])
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_prefill_matches_blockwise(dtype_name, causal):
-    (q, k, v), (tq, tk, tv) = _inputs(dtype_name)
+def test_plain_prefill_matches_blockwise(dtype_name, causal, d):
+    (q, k, v), (tq, tk, tv) = _inputs(dtype_name, d)
     ref = blockwise_attention(q, k, v, causal=causal)
     out = port_fa.flash_attention(tq, tk, tv, causal=causal)
     np.testing.assert_allclose(_np(out), _np(ref), rtol=0, atol=TOL[dtype_name])
@@ -74,13 +78,16 @@ def test_plain_prefill_matches_blockwise(dtype_name, causal):
 
 def test_seq_gate_is_the_cards_shared_memory_rule():
     # any length tiles (edges are masked) and the kernel's shared memory
-    # does not grow with S; it is built for bf16 at D 64 only
+    # does not grow with S; it is built for bf16 at D 64 and 32
     for s in (1, 7, 37, 1000, 32_701):
-        assert port_fa.flash_seq_supported(s, 64)
+        for d in HEAD_DIMS:
+            assert port_fa.flash_seq_supported(s, d)
     assert not port_fa.flash_seq_supported(512, 128)
+    assert not port_fa.flash_seq_supported(512, 16)
     assert not port_fa.flash_seq_supported(512, 64, itemsize=4)
-    assert not port_fa.flash_seq_supported(512, 32)
+    assert not port_fa.flash_seq_supported(512, 32, itemsize=4)
     assert not port_fa.flash_seq_supported(0, 64)
+    assert port_fa.BWD_HEAD_DIMS == (64,)  # the backward stays at D 64
 
 
 def test_wrapper_refuses_devices_it_has_no_kernel_for():

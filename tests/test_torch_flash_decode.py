@@ -33,9 +33,10 @@ def _pair(a):
     return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("ps,pp", [(16, 3), (128, 2)])
-def test_plain_paged_matches_pallas_interpret(ps, pp):
-    b, h, d, n_pages = 3, 4, 32, 7
+def test_plain_paged_matches_pallas_interpret(ps, pp, d):
+    b, h, n_pages = 3, 4, 7
     rng = np.random.RandomState(8)
     jq, q = _pair(rng.randn(b, h, d))
     jk, k = _pair(rng.randn(n_pages, ps, h * d))
@@ -53,9 +54,10 @@ def test_plain_paged_matches_pallas_interpret(ps, pp):
                                rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("per_row", [False, True])
-def test_plain_slab_matches_pallas_interpret(per_row):
-    b, h, d, s = 2, 4, 32, 136  # past one 128-position tile
+def test_plain_slab_matches_pallas_interpret(per_row, d):
+    b, h, s = 2, 4, 136  # past one 128-position tile
     rng = np.random.RandomState(3)
     jq, q = _pair(rng.randn(b, h, d))
     jk, k = _pair(rng.randn(b, s, h * d))
@@ -96,8 +98,11 @@ def test_gates_count_and_refuse_what_the_kernel_lacks():
     assert ctr.value == before
     assert not port_fd.supports_seq(2048, hd=512, kv_item=4, d=64)
     assert not port_fd.supports_paged(512, hd=512, kv_item=2, d=64)  # page > MAX_TILE
-    assert not port_fd.supports_paged(128, hd=1024, kv_item=2, d=128)  # built for D 64 only
-    assert ctr.value == before + 3
+    assert not port_fd.supports_paged(128, hd=1024, kv_item=2, d=128)  # built for D 64 and 32
+    assert port_fd.supports_paged(128, hd=128, kv_item=2, d=32)  # the draft's bf16 pages
+    assert port_fd.supports_seq(2048, hd=128, kv_item=2, d=32)
+    assert not port_fd.supports_paged(128, hd=128, kv_item=1, d=32)  # int8 only at D 64
+    assert ctr.value == before + 4
 
 
 @pytest.mark.parametrize("kw,page_size,what", [

@@ -178,8 +178,19 @@ def test_sampled_rows_depend_only_on_seed_and_position(model):
 
 
 def test_speculative_serving_is_refused_at_construction(model):
-    with pytest.raises(NotImplementedError, match="speculative"):
-        InferenceServer(model, serving=ServingConfig(speculate_k=2))
+    """Speculative serving is ported (``tests/test_torch_speculative.py``):
+    a paged server with ``speculate_k`` builds its draft; what construction
+    still refuses is a draft model without speculation, a draft beside
+    ``draft_model="self"``, and speculation on the slab layout."""
+    server = InferenceServer(model, serving=ServingConfig(speculate_k=2, page_size=PS))
+    assert server.draft_model.config.head_dim == 32
+    with pytest.raises(ValueError, match="speculate_k"):
+        InferenceServer(model, serving=ServingConfig(page_size=PS), draft=model)
+    with pytest.raises(ValueError, match="self"):
+        InferenceServer(model, serving=ServingConfig(speculate_k=2, page_size=PS,
+                                                     draft_model="self"), draft=model)
+    with pytest.raises(ValueError, match="paged"):
+        InferenceServer(model, serving=ServingConfig(speculate_k=2, kv_layout="slab"))
 
 
 @pytest.mark.parametrize("arr", [

@@ -211,6 +211,78 @@ def test_async_sgd_end_to_end(tmp_path, inflight_window, delta_broadcast):
         server.stop()
 
 
+class _HeldInstallClient(AsynchronousSGDClient):
+    """Holds the first fit between its forward and its backward until the
+    second download's install has run (or ``hold_s`` passed): the window
+    in which a dispatch-ahead download lands while a fit is in flight."""
+
+    hold_s = 1.0
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.fit_started = threading.Event()
+        self.second_installed = threading.Event()
+        self._installs = 0
+        self._count_lock = threading.Lock()
+        self._held = False
+
+    def set_params_from(self, msg):
+        with self._count_lock:
+            n, self._installs = self._installs, self._installs + 1
+        if n == 1:
+            assert self.fit_started.wait(10), "the first fit never started"
+        installed = super().set_params_from(msg)
+        if n == 1:
+            self.second_installed.set()
+        return installed
+
+    def hold_first_fit(self, module, inputs, output):
+        if not self._held:
+            self._held = True
+            self.fit_started.set()
+            self.second_installed.wait(self.hold_s)
+
+
+def test_pipelined_install_waits_for_inflight_fit(tmp_path):
+    """Regression: with ``inflight_window`` 2 the server dispatches two
+    batches at once and the client handles them on two transport threads.
+    The second install copied the weights in place while the first fit's
+    autograd graph held them, so its backward raised, the batch was never
+    uploaded, and client and server both waited forever. The install now
+    waits for the fit; the first fit is held mid-step here so the two
+    always overlap."""
+    rng = np.random.RandomState(0)
+    n = 64
+    x = rng.randn(n, 28, 28, 1).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, n)]
+    dataset = DistributedDataset(x, y, {"batch_size": 32, "epochs": 1})
+    server = AsynchronousSGDServer(
+        DistributedServerInMemoryModel(_mlp(16, lr=0.1)),
+        dataset,
+        DistributedServerConfig(
+            # full downloads: the two installs may run in either order
+            server_hyperparams={"maximum_staleness": 10, "min_updates_per_version": 1,
+                                "delta_broadcast": False},
+            client_hyperparams={"inflight_window": 2},
+            save_dir=str(tmp_path / "models"),
+        ),
+    )
+    server.setup()
+    model = _mlp(16, lr=0.1)
+    model.setup()
+    client = _HeldInstallClient(server.address, model)
+    model.model.register_forward_hook(client.hold_first_fit)
+    try:
+        client.setup(timeout=10)
+        assert client.train_until_complete(timeout=20) == 2
+        assert client.fit_started.is_set()
+        _wait(lambda: server.applied_updates == 2, 10, "the applies")
+        assert dataset.exhausted
+    finally:
+        client.dispose()
+        server.stop()
+
+
 def test_async_server_staleness_default_is_tolerant(tmp_path):
     """Async mode does not inherit the sync-mode staleness-0 default;
     explicit settings (0 included) are honoured."""
