@@ -233,6 +233,39 @@ inputs, before and after this checkout's (rows 11-12, ``was_ms``).
     ``model_error`` against the measured p50, and this run's calibration
     of each efficiency (bound over time of the kernel-table rows it is
     taken from, and of one cuBLAS matmul at [16384, 512] x [512, 512]).
+20. The serving fleet (``fleet:`` line), on step 18's target (vocab
+    32000, d_model 256, 4 heads x 64, 4 layers, d_ff 1024, bf16, from a
+    seeded flax-shaped tree; max_seq each leg's context plus its new
+    tokens): port ``InferenceServer`` replicas in this process, each with
+    its own page pool and scheduler thread, behind the port's
+    ``FleetRouter``, each leg in launch windows of its own in which
+    kernel 1 must launch 4 times a fresh prefill and kernel 2 4 times a
+    decode step, as the replicas' own counters give them, at D 64 only.
+    (a) ``bench.py::bench_serving_fleet``'s defaults: 2 replicas (page
+    128, 6 slots, a pool of 3 x 7 + 2 x 9 pages, window 0.05 s), 6 users
+    re-sending their own 1024-token prompt for 64 greedy tokens, a cold
+    wave and 2 warm waves, under ``round_robin`` then ``affinity``: warm
+    tok/s per user, their ratio, prefix hit rates,
+    ``router_affinity_hits_total``; every routed output equal, bit for bit,
+    to its replica's answer to the same ``request_id`` asked directly, and
+    held against solo ``generate()`` under the near-tie rule (window
+    ``fleet_solo``: kernels 1 and 3). (b) ``bench_serving_elastic``'s
+    defaults: 3 replicas A/B/C on the ring (page 64, 2 slots, a pool of 36
+    pages, window 0.02 s, chunk 8), 512-token prompts and 16 new tokens;
+    8 tier-0 requests on A's arc with A's window stretched to 1 s,
+    unhedged, then hedged at 25 ms (hedged p50 below unhedged, every
+    hedge's loser cancelled on its replica); B drained and undrained under
+    traffic (goodput 1.0); the remap fractions of ``HashRing(256)``
+    (``ELASTIC_REMAP``). (c) 2 replicas and the router on one telemetry
+    with the timeline sampling every 0.1 s, B drained as the warm standby:
+    6 sequential idle tier-0 requests (1024 tokens, 64 new) give the TTFT
+    p99; a sustained band at twice that (3 samples) feeds a
+    ``HealthSentinel``, and ``FleetAutoscaler`` (cooldown 2 polls,
+    scale-in after 4 clean ones) polls every 0.25 s while 12 tier-0
+    requests arrive at once: it must undrain B during the burst, drain
+    the coldest arc after it, and act never inside a cooldown. Every
+    replica's pool ends all free. Row ``flash_decode_paged_p64`` holds
+    kernel 2 at the elastic leg's page 64 (B 2, H 4, contexts 1-528).
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -245,7 +278,7 @@ draft's (``*_d32``): kernel 1 at B1 H4 S1024 and S16288, kernel 2 at the
 draft's contexts over the 4 slots, kernel 3 at the draft's solo shape,
 each with its D 64 row's checks. Each row's
 ``launches_by_path`` gives its count in every window. The line
-before the last is the kernel table as JSON (17 rows); the last line is
+before the last is the kernel table as JSON (18 rows); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
 """
@@ -750,17 +783,18 @@ def _decode_checks(name, fn, plain, parts, flush, iters):
             "by_split_tiles": sweep}
 
 
-def _decode_edges(name, g, int8, h=8, d=64):
+def _decode_edges(name, g, int8, h=8, d=64, ps=None):
     """``name``'s kernel (paged or slab, bf16 or int8) against its plain
     version at the contexts where splits begin and end: 1, exactly one
     split, one split plus 1, 0 beside live rows (its output must be exactly
     0) and three splits plus 5, on a scattered page table with sentinel
-    tails or a slab, at ``h`` heads of head dim ``d``; each launched twice
-    (the same bits). Returns the max abs error."""
+    tails (pages of ``ps``, the slab tile by default) or a slab, at ``h``
+    heads of head dim ``d``; each launched twice (the same bits). Returns
+    the max abs error."""
     from distriflow_tpu_torch.ops import flash_decode as fd
 
     dev = torch.device("cuda")
-    ps = fd.SLAB_TILE
+    ps = ps or fd.SLAB_TILE
     split = fd.split_tiles(ps) * ps
     lens_l = [1, split, split + 1, 0, 3 * split + 5, 700]
     b, pp = len(lens_l), -(-max(lens_l) // ps) + 2
@@ -3280,6 +3314,492 @@ def _spec_kernel_rows(launches):
     return rows
 
 
+# -- the serving fleet (step 20) ---------------------------------------------
+
+#: leg (a): ``bench.py::bench_serving_fleet``'s defaults (users re-sending
+#: their own prompt; one cold wave, then the warm waves)
+FLEET_CTX, FLEET_NEW, FLEET_USERS, FLEET_WARM_WAVES, FLEET_PS = 1024, 64, 6, 2, 128
+FLEET_WINDOW_S = 0.05
+#: leg (b): ``bench.py::bench_serving_elastic``'s defaults
+ELASTIC_CTX, ELASTIC_NEW, ELASTIC_REQUESTS, ELASTIC_PS = 512, 16, 8, 64
+ELASTIC_WINDOW_S, ELASTIC_CHUNK, STRAGGLE_S, HEDGE_MS = 0.02, 8, 1.0, 25.0
+#: ``HashRing(256)`` remap fractions over ``warmset-0..1999``: a join of D
+#: to A/B/C, a leave of A (tests/test_torch_fleet_ring.py pins the same
+#: two from the JAX package's ring)
+ELASTIC_REMAP = (0.2515, 0.3475)
+#: leg (c): idle requests before and after, the burst, the autoscaler's
+#: poll period and the timeline's; 2 slots a replica, so the burst queues
+#: in waves and its TTFT grows wave by wave
+AUTOSCALE_IDLE, AUTOSCALE_BURST, AUTOSCALE_SLOTS = 6, 12, 2
+AUTOSCALE_POLL_S, AUTOSCALE_TIMELINE_S, AUTOSCALE_TIMEOUT_S = 0.25, 0.1, 30.0
+
+
+def _fleet_model(tree, ctx, new, device="cuda"):
+    """``SPEC_TARGET`` at max_seq ``ctx + new`` from the seeded tree."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.transformer import TransformerConfig
+
+    return lm_from_jax(TransformerConfig(max_seq=ctx + new, **SPEC_TARGET), tree, device=device)
+
+
+def _fleet_replicas(model, names, telemetry, **serving):
+    """Port ``InferenceServer``s in this process, one per name, each with
+    its own page pool and scheduler thread; ``telemetry(name)`` gives each
+    its telemetry."""
+    from distriflow_tpu_torch.server.inference_server import InferenceServer
+    from distriflow_tpu_torch.utils.config import ServingConfig
+
+    return {n: InferenceServer(model, telemetry=telemetry(n), serving=ServingConfig(
+        kv_layout="paged", **serving)).setup() for n in names}
+
+
+def _stop_fleet(router, replicas):
+    """Stop the router and the replicas; then every pool must hold all its
+    pages free, with zero refcounts, once the prefix map lets go."""
+    router.stop()
+    for name, s in replicas.items():
+        s.stop()
+        s.release_prefix_cache()
+        pool = s._pool
+        assert pool.free_pages == pool.n_pages and not pool._refs.any(), \
+            f"replica {name}: {pool.free_pages} of {pool.n_pages} pages free"
+        assert all(r is None for r in s._slot_req) and not any(s._slot_pages), name
+
+
+def _engine_counts(replicas):
+    """What the replicas' own counters say ran: fresh prefills (one kernel 1
+    launch a layer each) and decode steps (chunk x iterations: one kernel 2
+    launch a layer each), summed."""
+    return {"prefills": sum(s.prefills for s in replicas.values()),
+            "decode_steps": sum(s.decode_batches * s.serving.decode_chunk
+                                for s in replicas.values()),
+            "prefix_hits": sum(s.prefix_hits for s in replicas.values())}
+
+
+def _check_fleet_launches(window, counts, engine, n_layers):
+    """A fleet window launched kernel 1 once a layer a fresh prefill and
+    kernel 2 once a layer a decode step (at D 64: ``main`` holds the D 32
+    counts and every other kernel at 0)."""
+    want = (n_layers * engine["prefills"], n_layers * engine["decode_steps"])
+    got = (counts["flash_attention_fwd"], counts["flash_decode_paged"])
+    assert got == want and min(got) > 0, (window, counts, engine)
+
+
+def _wave(clients, prompts, n_tokens, request_ids=None):
+    """Every client sends its prompt at once (client i with
+    ``request_ids[i]``); returns ``(wall s, [(output, last_route)])``."""
+    out, errs = [None] * len(clients), []
+    barrier = threading.Barrier(len(clients))
+
+    def call(i):
+        try:
+            barrier.wait()
+            rid = request_ids[i] if request_ids else None
+            got = clients[i].generate(prompts[i], n_tokens, request_id=rid)
+            out[i] = (got, dict(clients[i].last_route))
+        except Exception as e:  # re-raised on the main thread below
+            errs.append((i, e))
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(clients))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"fleet wave failed: {errs}")
+    return wall, out
+
+
+def _affinity_leg(model, prompts, pool, policy):
+    """``bench_serving_fleet``'s leg for one policy: 2 fresh replicas behind
+    a router, the cold wave, then the warm waves (timed). Every routed
+    output is held, bit for bit, against its replica's answer to the same
+    ``request_id`` asked directly (the router passes the bits through)."""
+    from distriflow_tpu_torch.client.inference_client import InferenceClient
+    from distriflow_tpu_torch.fleet import FleetRouter, RouterClient
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+
+    replicas = _fleet_replicas(model, ("replica-0", "replica-1"), lambda _: Telemetry(),
+                               max_slots=len(prompts), page_size=FLEET_PS, page_pool_pages=pool,
+                               batch_window_s=FLEET_WINDOW_S)
+    router = FleetRouter(port=0, policy=policy, telemetry=Telemetry())
+    for name, s in replicas.items():
+        router.add_replica(s.address, name=name)
+    router.setup()
+    clients = [RouterClient(router.address, timeout=600).setup() for _ in prompts]
+    try:
+        routed, warm_wall = {}, 0.0
+        for wave in range(1 + FLEET_WARM_WAVES):
+            rids = [f"{policy}-w{wave}-u{i}" for i in range(len(prompts))]
+            wall, outs = _wave(clients, prompts, FLEET_NEW, rids)
+            warm_wall += wall if wave else 0.0
+            routed.update({rid: (i, *o) for i, (rid, o) in enumerate(zip(rids, outs))})
+        for rid, (i, out, route) in routed.items():
+            with InferenceClient(replicas[route["replica"]].address, timeout=600) as direct:
+                assert np.array_equal(direct.generate(prompts[i], FLEET_NEW, request_id=rid), out), \
+                    f"{rid}: the routed output is not the replica's answer"
+        affinity_hits = router._tel.counter_value("router_affinity_hits_total")
+        by_replica = {n: sum(1 for *_, r in routed.values() if r["replica"] == n) for n in replicas}
+    finally:
+        for c in clients:
+            c.close()
+        engine = _engine_counts(replicas)
+        _stop_fleet(router, replicas)
+    return {"tok_s_user": FLEET_WARM_WAVES * FLEET_NEW / warm_wall,
+            "hit_rate": engine["prefix_hits"] / float(FLEET_WARM_WAVES * len(prompts)),
+            "router_affinity_hits_total": affinity_hits, "warm_wall_s": warm_wall,
+            "requests_by_replica": by_replica, "engine": engine, "pools_reconciled": True}, routed
+
+
+def _fleet_affinity(tree, rng, counted, windows, device="cuda"):
+    """Leg (a): prefix affinity against round-robin (``bench_serving_fleet``),
+    each policy in a launch window of its own; every routed output held
+    against solo ``generate()`` under the near-tie rule (a window of its
+    own: kernels 1 and 3)."""
+    from distriflow_tpu_torch.models.generate import generate, pages_per_slot
+
+    model = _fleet_model(tree, FLEET_CTX, FLEET_NEW, device)
+    cfg = model.config
+    prompts = [rng.integers(0, cfg.vocab_size, (1, FLEET_CTX)).astype(np.int32)
+               for _ in range(FLEET_USERS)]
+    # affinity's partition (half the users' prefixes a replica) fits warm,
+    # round-robin's duplication does not
+    pool = (FLEET_USERS // 2) * ((FLEET_CTX - 1) // FLEET_PS) \
+        + 2 * pages_per_slot(FLEET_CTX + FLEET_NEW, FLEET_PS)
+    report, reqs, outs = {"pool_pages": pool}, [], {}
+    for policy in ("round_robin", "affinity"):
+        (leg, routed), counts = counted(lambda p=policy: _affinity_leg(model, prompts, pool, p))
+        windows[f"fleet_{policy}"] = counts
+        _check_fleet_launches(f"fleet_{policy}", counts, leg["engine"], cfg.n_layers)
+        report[policy] = leg
+        for rid, (i, out, _) in routed.items():
+            reqs.append((rid, prompts[i], {}))
+            outs[rid] = out
+    solo, windows["fleet_solo"] = counted(
+        lambda: [generate(model, p, FLEET_NEW).cpu() for p in prompts])
+    parity = _check_greedy(model, reqs, outs, {rid: solo[int(rid.rsplit("u", 1)[1])]
+                                               for rid, _, _ in reqs}, n_tokens=FLEET_NEW)
+    report["ratio"] = report["affinity"]["tok_s_user"] / report["round_robin"]["tok_s_user"]
+    report["parity"] = {"requests": len(parity),
+                        "equal_to_solo": sum(1 for v in parity.values() if v["equal_to_solo"]),
+                        "near_ties": {k: v for k, v in parity.items() if not v["equal_to_solo"]},
+                        "equal_to_direct": len(parity)}
+    return report
+
+
+def _owned(ring, owner, ctx, vocab):
+    """The first seeded prompt whose first chain hash ``ring`` places on
+    ``owner`` (``bench_serving_elastic``'s search)."""
+    from distriflow_tpu_torch.fleet import page_hashes
+
+    for seed in range(4096):
+        p = np.random.default_rng(seed).integers(1, vocab, size=(1, ctx)).astype(np.int32)
+        if ring.primary(page_hashes(p[0], ELASTIC_PS)[0]) == owner:
+            return p
+    raise AssertionError(f"no prompt owned by {owner}")
+
+
+def _elastic_run(model):
+    """Leg (b)'s fleet: 3 replicas on the ring, the straggler unhedged and
+    hedged, then the churn wave (``bench_serving_elastic``)."""
+    from distriflow_tpu_torch.client.inference_client import InferenceClient
+    from distriflow_tpu_torch.fleet import FleetRouter, RouterClient
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+
+    ctx, new = ELASTIC_CTX, ELASTIC_NEW
+    tels = {n: Telemetry() for n in "ABC"}
+    replicas = _fleet_replicas(
+        model, "ABC", tels.get, max_slots=2, page_size=ELASTIC_PS,
+        page_pool_pages=4 * ((ctx + new) // ELASTIC_PS + 1), batch_window_s=ELASTIC_WINDOW_S,
+        decode_chunk=ELASTIC_CHUNK)
+    tel = Telemetry()
+    router = FleetRouter(port=0, policy="ring", stats_interval_s=0.0, redial=False, telemetry=tel)
+    for name, s in replicas.items():
+        router.add_replica(s.address, name=name)
+    router.setup()
+    try:
+        prompts = {n: _owned(router.ring, n, ctx, model.config.vocab_size) for n in replicas}
+        for name, s in replicas.items():  # each replica's paths once, unrouted
+            with InferenceClient(s.address, timeout=600) as w:
+                w.generate(prompts[name], new)
+        sa = replicas["A"]
+
+        def straggler(hedged):
+            walls, ttfts, winners = [], [], []
+            with RouterClient(router.address, timeout=600) as c:
+                for _ in range(ELASTIC_REQUESTS):
+                    t0 = time.perf_counter()
+                    c.generate(prompts["A"], new, tier=0)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    ttfts.append(c.last_serving_meta["ttft_ms"])
+                    winners.append(c.last_replica)
+                    if hedged:  # let A's stretched window close on the cancelled copy
+                        time.sleep(STRAGGLE_S)
+            return {"wall_p50_ms": float(np.percentile(walls, 50)),
+                    "wall_p99_ms": float(np.percentile(walls, 99)),
+                    "replica_ttft_p50_ms": float(np.percentile(ttfts, 50)),
+                    "replica_ttft_p99_ms": float(np.percentile(ttfts, 99)),
+                    "walls_ms": walls, "answered_by": winners}
+
+        sa.serving.batch_window_s = STRAGGLE_S  # read at use time
+        try:
+            unhedged = straggler(False)
+            router.hedge_ms[0] = HEDGE_MS
+            hedged = straggler(True)
+        finally:
+            router.hedge_ms.clear()
+            sa.serving.batch_window_s = ELASTIC_WINDOW_S
+        hedges = tel.counter_value("router_hedges_total")
+        wins = tel.counter_value("router_hedge_wins_total")
+        cancelled = sum(t.counter_value("serving_hedge_cancelled_total") for t in tels.values())
+        with RouterClient(router.address, timeout=600) as c:  # the churn wave
+            def route_all():
+                served = []
+                for p in prompts.values():
+                    c.generate(p, 4, tier=1)
+                    served.append(c.last_replica)
+                return served
+
+            router.drain_replica("B")
+            left = route_all()
+            router.undrain_replica("B")
+            back = route_all()
+        accepted = sum(tel.counter_value("router_requests_total", tier=str(t)) for t in (0, 1, 2))
+        answered = sum(tel.counter_value("router_goodput_total", tier=str(t)) for t in (0, 1, 2))
+        membership = [(e["epoch"], e["event"], e["replica"]) for e in router.ring_membership()]
+    finally:
+        engine = _engine_counts(replicas)
+        _stop_fleet(router, replicas)
+    return {"unhedged": unhedged, "hedged": hedged, "router_hedges_total": hedges,
+            "router_hedge_wins_total": wins, "serving_hedge_cancelled_total": cancelled,
+            "churn": {"drained_B": left, "undrained_B": back, "accepted": accepted,
+                      "answered": answered, "goodput": answered / accepted if accepted else 0.0},
+            "ring_membership": membership, "engine": engine, "pools_reconciled": True}
+
+
+def _remap_fractions():
+    """``bench_serving_elastic``'s structural remap cost, on the port's ring."""
+    from distriflow_tpu_torch.fleet import HashRing
+
+    ring = HashRing(256)
+    ring.sync(["A", "B", "C"])
+    keys = [f"warmset-{i}".encode() for i in range(2000)]
+    base = ring.assignment(keys)
+    ring.add("D")
+    join = sum(1 for k, v in ring.assignment(keys).items() if v != base[k]) / len(keys)
+    ring.remove("D")
+    assert ring.assignment(keys) == base, "join + leave did not round-trip"
+    ring.remove("A")
+    leave = sum(1 for k, v in ring.assignment(keys).items() if v != base[k]) / len(keys)
+    return join, leave
+
+
+def _fleet_elastic(tree, counted, windows, device="cuda"):
+    """Leg (b): the elastic ring in a launch window of its own (page 64)."""
+    model = _fleet_model(tree, ELASTIC_CTX, ELASTIC_NEW, device)
+    report, windows["fleet_elastic"] = counted(lambda: _elastic_run(model))
+    _check_fleet_launches("fleet_elastic", windows["fleet_elastic"], report["engine"],
+                          model.config.n_layers)
+    un, he = report["unhedged"], report["hedged"]
+    assert he["wall_p50_ms"] < un["wall_p50_ms"], (he["wall_p50_ms"], un["wall_p50_ms"])
+    hedges = report["router_hedges_total"]
+    assert hedges >= 1 and report["serving_hedge_cancelled_total"] == hedges, \
+        f"hedge losers not cancelled: {report['serving_hedge_cancelled_total']} of {hedges}"
+    assert report["churn"]["goodput"] == 1.0, report["churn"]
+    join, leave = _remap_fractions()
+    assert (join, leave) == ELASTIC_REMAP, (join, leave)
+    report["remap"] = {"join_frac": join, "leave_frac": leave}
+    return report
+
+
+def _autoscale_run(model, prompts):
+    """Leg (c)'s episode: idle TTFT, a sustained band at twice its p99, the
+    burst under a polling autoscaler, the scale-in after it, idle again."""
+    from distriflow_tpu_torch.fleet import FleetAutoscaler, FleetRouter, RouterClient
+    from distriflow_tpu_torch.obs.health import HealthSentinel, SLOBand
+    from distriflow_tpu_torch.obs.registry import metric_ident
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+
+    tel = Telemetry()
+    store = tel.start_timeline(interval_s=AUTOSCALE_TIMELINE_S)
+    replicas = _fleet_replicas(model, "AB", lambda _: tel, max_slots=AUTOSCALE_SLOTS,
+                               page_size=FLEET_PS, batch_window_s=FLEET_WINDOW_S)
+    router = FleetRouter(port=0, policy="ring", stats_interval_s=0.0, redial=False, telemetry=tel)
+    for name, s in replicas.items():
+        router.add_replica(s.address, name=name)
+    router.setup()
+    stop, polls, errs = threading.Event(), [], []
+    try:
+        assert router.drain_replica("B")  # the warm standby
+
+        def sequential(ps):
+            ttfts = []
+            with RouterClient(router.address, tier=0, timeout=600) as c:
+                for p in ps:
+                    c.generate(p, FLEET_NEW)
+                    ttfts.append(c.last_serving_meta["ttft_ms"])
+            return ttfts
+
+        idle = sequential(prompts[:AUTOSCALE_IDLE])
+        idle_p99 = float(np.percentile(idle, 99))
+        band = SLOBand("ttft_p99_tier0", "serving_ttft_ms", "p99", {"tier": "0"},
+                       upper=2 * idle_p99, kind="sustained", sustained_samples=3)
+        scaler = FleetAutoscaler(router, HealthSentinel(tel, bands=[band]), min_replicas=1,
+                                 cooldown_checks=2, scale_in_clean_checks=4)
+
+        def poll():
+            try:
+                while not stop.is_set():
+                    router.refresh_stats()
+                    polls.append((time.time(), scaler.step()))
+                    stop.wait(AUTOSCALE_POLL_S)
+            except Exception as e:  # re-raised on the main thread below
+                errs.append(e)
+
+        poller = threading.Thread(target=poll, name="autoscaler-poll")
+        poller.start()
+        burst_p = prompts[AUTOSCALE_IDLE:AUTOSCALE_IDLE + AUTOSCALE_BURST]
+        clients = [RouterClient(router.address, tier=0, timeout=600).setup() for _ in burst_p]
+        try:
+            t_burst = time.time()
+            _, outs = _wave(clients, burst_p, FLEET_NEW)
+            t_end = time.time()
+        finally:
+            for c in clients:
+                c.close()
+        burst = [c.last_serving_meta["ttft_ms"] for c in clients]
+        deadline = time.monotonic() + AUTOSCALE_TIMEOUT_S
+        while time.monotonic() < deadline and not errs and \
+                not any(a["action"] == "scale_in" for _, acts in polls for a in acts):
+            time.sleep(AUTOSCALE_POLL_S)
+        stop.set()
+        poller.join(timeout=30)
+        if errs:
+            raise errs[0]
+        after = sequential(prompts[AUTOSCALE_IDLE + AUTOSCALE_BURST:])
+        live_after = [r.name for r in router.registry.live()]
+    finally:
+        stop.set()
+        tel.stop_timeline()
+        engine = _engine_counts(replicas)
+        _stop_fleet(router, replicas)
+    series = store.series(metric_ident("serving_ttft_ms", {"tier": "0"}), "p99")
+    breaching = [t for t, v in series if v is not None and v > band.upper]
+    actions = [(i, t, a) for i, (t, acts) in enumerate(polls) for a in acts]
+    return {"idle": idle, "burst": burst, "after": after, "upper_ms": band.upper,
+            "burst_window_s": [t_burst, t_end], "first_breach_t": breaching[0] if breaching else None,
+            "actions": actions, "polls": len(polls), "live_after": live_after,
+            "served_by": [o[1]["replica"] for o in outs], "engine": engine,
+            "events": [e["kind"] for e in store.events()]}
+
+
+def _fleet_autoscale(tree, rng, counted, windows, device="cuda"):
+    """Leg (c): the autoscaler on a real sentinel over the timeline, in a
+    launch window of its own."""
+    model = _fleet_model(tree, FLEET_CTX, FLEET_NEW, device)
+    n = 2 * AUTOSCALE_IDLE + AUTOSCALE_BURST
+    prompts = [rng.integers(0, model.config.vocab_size, (1, FLEET_CTX)).astype(np.int32)
+               for _ in range(n)]
+    run, windows["fleet_autoscale"] = counted(lambda: _autoscale_run(model, prompts))
+    _check_fleet_launches("fleet_autoscale", windows["fleet_autoscale"], run["engine"],
+                          model.config.n_layers)
+    acts = run["actions"]
+    kinds = [a["action"] for _, _, a in acts]
+    assert kinds[:1] == ["scale_out"] and acts[0][2]["via"] == "undrain" \
+        and acts[0][2]["replica"] == "B", acts
+    t_burst, t_end = run["burst_window_s"]
+    assert t_burst <= acts[0][1] <= t_end, f"no scale-out during the burst: {acts}"
+    assert "scale_in" in kinds[1:], f"no scale-in after the burst: {acts}"
+    assert len(run["live_after"]) == 1, run["live_after"]
+    for (i, _, _), (j, _, _) in zip(acts, acts[1:]):
+        assert j - i > 2, f"an action inside the cooldown: polls {i} and {j}"
+    assert run["first_breach_t"] is not None and run["first_breach_t"] <= acts[0][1]
+    return {"idle_ttft_p99_ms": float(np.percentile(run["idle"], 99)),
+            "burst_ttft_p99_ms": float(np.percentile(run["burst"], 99)),
+            "after_ttft_p99_ms": float(np.percentile(run["after"], 99)),
+            "band_upper_ms": run["upper_ms"],
+            "burst_s": t_end - t_burst,
+            "breach_to_scale_out_s": acts[0][1] - run["first_breach_t"],
+            "actions": [{"poll": i, "t_from_burst_s": t - t_burst, **a} for i, t, a in acts],
+            "polls": run["polls"], "burst_served_by": run["served_by"],
+            "live_after": run["live_after"], "timeline_events": run["events"],
+            "engine": run["engine"], "pools_reconciled": True}
+
+
+def _fleet_phase(counted, device="cuda"):
+    """The serving fleet (module docstring, step 20): legs (a)-(c), each
+    in launch windows of its own. Returns ``(report, windows)``."""
+    from distriflow_tpu_torch.models.transformer import TransformerConfig
+
+    rng = np.random.default_rng(SEED + 15)
+    tree = _flagship_tree(TransformerConfig(max_seq=FLEET_CTX + FLEET_NEW, **SPEC_TARGET), rng)
+    windows = {}
+    report = {"affinity": _fleet_affinity(tree, rng, counted, windows, device),
+              "elastic": _fleet_elastic(tree, counted, windows, device),
+              "autoscale": _fleet_autoscale(tree, rng, counted, windows, device)}
+    return report, windows
+
+
+def _p64_kernel_row(launches):
+    """Kernel 2 at page 64, the elastic leg's shape (B 2, H 4, D 64,
+    contexts up to 528): held against its plain version at context pairs
+    from 1 to 528, the same bits on a second launch, the edges at page 64,
+    the wrong combines rejected, the split sweep; timed at two rows of 528
+    and 520 as row 2 is timed."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    flush = _flush_buffer()
+    h, d, ps = 4, 64, ELASTIC_PS
+    pp = -(-(ELASTIC_CTX + ELASTIC_NEW) // ps) + 1
+    n_pages = 4 * ((ELASTIC_CTX + ELASTIC_NEW) // ps + 1)  # the leg's pool
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    kp, vp = randn(n_pages, ps, h * d), randn(n_pages, ps, h * d)
+    checks, errs = {}, []
+    for lens_l in ([1, 528], [64, 65], [255, 257], [300, 512], [527, 1]):
+        table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
+        q = randn(2, h, d)
+        out = fd.flash_decode_paged(q, kp, vp, table, lens)
+        assert torch.equal(fd.flash_decode_paged(q, kp, vp, table, lens), out), \
+            f"flash_decode_paged page {ps} {lens_l}: a second launch gave other bits"
+        errs.append(_over(f"flash_decode_paged page {ps} {lens_l}", out,
+                          fd.flash_decode_paged_reference(q, kp, vp, table, lens),
+                          *TOL["flash_decode_paged"]))
+        checks[str(lens_l)] = errs[-1]
+    lens_l = [ELASTIC_CTX + ELASTIC_NEW, ELASTIC_CTX + 8]
+    table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
+    q1 = randn(2, h, d)
+
+    def paged():
+        return fd.flash_decode_paged(q1, kp, vp, table, lens)
+
+    def paged_plain():
+        return fd.flash_decode_paged_reference(q1, kp, vp, table, lens)
+
+    errs.append(_over(f"flash_decode_paged page {ps}", paged(), paged_plain(),
+                      *TOL["flash_decode_paged"]))
+    live = sum(lens_l)
+    tb, by = _bound(2 * live * h * d * 2 + 2 * 2 * h * d * 2 + table.numel() * 4 + 2 * 4,
+                    4 * live * h * d)
+    return {
+        "name": "flash_decode_paged_p64", "route": "cuda",
+        "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "distriflow_tpu/ops/flash_decode.py:474",
+        "launches": launches, "max_abs_err": max(errs), "tol": _tol("flash_decode_paged"),
+        "ms": _timed(paged, 200, flush), "plain_ms": _timed(paged_plain, 5, flush),
+        "bound_ms": tb, "bound_by": by, "library_ms": None,
+        "shape": f"B=2 H={h} D={d} page={ps} contexts={lens_l}", "checks": checks,
+        "edges_max_abs_err": _decode_edges("flash_decode_paged", g, False, h=h, d=d, ps=ps),
+        **_decode_checks("flash_decode_paged", paged, paged_plain,
+                         lambda: fd.split_partials(q1, kp, vp, lens, table), flush, 200)}
+
+
 def _roofline_phase(cost, rows):
     """The roofline (``ops/roofline.py``) of the ConvNet's B 2048 step and
     the 16k remat LM step from their ``cost_analysis`` (the kernel tally's
@@ -3414,6 +3934,12 @@ def main() -> int:
     spec_report, spec_counts = _spec_phase(model, reqs, solos, counted)
     spec_report["phase_s"] = time.perf_counter() - t0
     print("speculative:", json.dumps(spec_report), flush=True)
+    # the serving fleet: port replicas behind the port's router, the
+    # elastic ring and the autoscaler on a sentinel over the timeline
+    t0 = time.perf_counter()
+    fleet_report, fleet_counts = _fleet_phase(counted)
+    fleet_report["phase_s"] = time.perf_counter() - t0
+    print("fleet:", json.dumps(fleet_report), flush=True)
 
     # training: the flagship from the same tree as f32 masters, one batch
     tokens = np.random.default_rng(SEED + 2).integers(
@@ -3445,7 +3971,7 @@ def main() -> int:
                                     lt_batch, lt_report)
     print("inprocess_training:", json.dumps(ip_report), flush=True)
     paths = {"serving": serving, "solo_generate": solo, **long_counts, **spec_counts,
-             "training": training, **mn_counts, "long_training": long_training, **cn_counts,
+             **fleet_counts, "training": training, **mn_counts, "long_training": long_training, **cn_counts,
              **wire_counts, **ip_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
@@ -3461,6 +3987,9 @@ def main() -> int:
               for w in ("plain_1k", "plain_16k", "spec_self")},
            "draft_solo": ("flash_attention_fwd", "flash_attention_fwd_d32", "flash_decode",
                           "flash_decode_d32"),
+           **{w: ("flash_attention_fwd", "flash_decode_paged")
+              for w in ("fleet_round_robin", "fleet_affinity", "fleet_elastic", "fleet_autoscale")},
+           "fleet_solo": ("flash_attention_fwd", "flash_decode"),
            "training": ("flash_attention_fwd",) + training_only,
            "mobilenet_train": ("depthwise_gn_fwd", "depthwise_gn_bwd"),
            "mobilenet_eval": ("depthwise_gn_fwd",),
@@ -3552,16 +4081,19 @@ def main() -> int:
         "flash_decode_paged_d32": sum(spec_counts[w]["flash_decode_paged_d32"]
                                       for w in spec_windows),
         "flash_decode_d32": spec_counts["draft_solo"]["flash_decode_d32"]})
+    rows.append(_p64_kernel_row(fleet_counts["fleet_elastic"]["flash_decode_paged"]))
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",
                "flash_attention_dq": "long_training", "flash_attention_dkv": "long_training",
                "fused_ce_dense_fwd": "convnet_train", "fused_ce_dense_bwd": "convnet_train",
                "flash_attention_fwd_d32": "spec_1k", "flash_decode_paged_d32": "spec_1k",
-               "flash_decode_d32": "draft_solo"}
+               "flash_decode_d32": "draft_solo", "flash_decode_paged_p64": "fleet_elastic"}
     for r in rows:
         r["path"] = path_of.get(r["name"], "serving")
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
+        # page 64 runs on the elastic leg alone (the counters do not split by page)
+        r["launches_by_path"] = ({r["path"]: r["launches"]} if r["name"] == "flash_decode_paged_p64"
+                                 else {p: c[r["name"]] for p, c in paths.items()})
     print("decode_iteration_profile:",
           json.dumps(_profile_decode_iteration(model, rng, [128, 300, 512, 1000] * 2)), flush=True)
     print("training_step_profile:", json.dumps(_profiled(lambda: trainer.step((x, y)))), flush=True)
@@ -3573,7 +4105,7 @@ def main() -> int:
           flush=True)
     roofline = _roofline_phase(ip_report["cost"], rows)
     print("roofline:", json.dumps(roofline), flush=True)
-    assert len(rows) == 17, [r["name"] for r in rows]
+    assert len(rows) == 18, [r["name"] for r in rows]
     print(json.dumps({"kernels": _with_spread(rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

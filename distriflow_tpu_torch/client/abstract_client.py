@@ -400,12 +400,16 @@ class AbstractClient:
             transport.close()
         # reap the comm thread WITHOUT draining: queued uploads fail fast
         # against the closed transport (the loop parks them as comm
-        # errors), and the thread exits on the sentinel
-        thread = self._comm_thread
+        # errors), and the thread exits on the sentinel. Read and clear it
+        # under _comm_cv, which _comm_acquire_slot holds across create and
+        # start, so the thread joined here has always been started (the
+        # JAX reference reads it unlocked and can join an unstarted thread)
+        with self._comm_cv:
+            thread, self._comm_thread = self._comm_thread, None
+            comm_q = self._comm_q
         if thread is not None:
-            self._comm_q.put(None)
+            comm_q.put(None)
             thread.join(timeout=5.0)
-            self._comm_thread = None
 
     # -- upload pipeline (inflight_window > 1) -------------------------------
 
@@ -433,6 +437,8 @@ class AbstractClient:
                 return False
             if self._comm_thread is None:
                 with self._comm_cv:
+                    if self._disposed:  # abort() ran while we waited
+                        return False
                     if self._comm_thread is None:
                         window = self.inflight_window()
                         self._comm_q = queue.Queue()

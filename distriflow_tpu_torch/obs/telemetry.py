@@ -1,5 +1,4 @@
-"""Port of ``distriflow_tpu/obs/telemetry.py`` (imports rewritten; ``timeline`` is the no-op
-store, the ``TimelineStore`` is not ported yet).
+"""Port of ``distriflow_tpu/obs/telemetry.py`` (copied with its imports rewritten).
 
 The `Telemetry` facade: one object per process (or per test) that owns
 the metrics registry, the tracer, and the export paths.
@@ -49,6 +48,7 @@ class Telemetry:
         self._fleet_providers: Dict[Any, Any] = {}
         self._samplers: list = []
         self._process_sampler_on = False
+        self._timeline = None
 
     # -- handle factories (delegate to the registry) -----------------------
 
@@ -97,25 +97,43 @@ class Telemetry:
                     self._flight = FlightRecorder(save_dir=self.save_dir)
         return self._flight
 
-    # -- timeline ------------------------------------------------------------
+    # -- timeline (obs/timeline.py; docs/OBSERVABILITY.md §12) -------------
 
     @property
     def timeline(self):
-        """The shared ``NOOP_TIMELINE``: the JAX package hands it out until a
-        timeline is started, and the port's ``TimelineStore`` is not ported
-        yet, so event call sites cost nothing."""
+        """The process timeline store — the shared ``NOOP_TIMELINE``
+        until :meth:`start_timeline` (or when disabled), so event call
+        sites never pay for an unstarted timeline."""
         from distriflow_tpu_torch.obs.timeline import NOOP_TIMELINE
-        return NOOP_TIMELINE
+        if not self.enabled or self._timeline is None:
+            return NOOP_TIMELINE
+        return self._timeline
 
     def start_timeline(self, interval_s: float = 0.25,
                        save_dir: Optional[str] = None,
                        capacity: int = 4096):
-        """The background timeline sampler is not ported yet; a disabled
-        telemetry returns the no-op store, as in the JAX package."""
-        from distriflow_tpu_torch.obs.timeline import NOOP_TIMELINE
+        """Start (or return, idempotently) the background timeline
+        sampler; samples + events persist to ``<save_dir>/timeline.jsonl``
+        (defaulting to this telemetry's ``save_dir``; in-memory-only
+        when both are None). Returns the live store (``NOOP_TIMELINE``
+        when disabled)."""
+        from distriflow_tpu_torch.obs.timeline import NOOP_TIMELINE, TimelineStore
         if not self.enabled:
             return NOOP_TIMELINE
-        raise NotImplementedError("the timeline store is not ported yet")
+        with self._profilers_lock:
+            if self._timeline is None:
+                self._timeline = TimelineStore(
+                    telemetry=self, interval_s=interval_s,
+                    capacity=capacity,
+                    save_dir=self.save_dir if save_dir is None else save_dir)
+        return self._timeline.start()
+
+    def stop_timeline(self) -> None:
+        """Stop the background sampler (keeps the store attached, so
+        windowed queries over the retained ring keep working)."""
+        t = self._timeline
+        if t is not None:
+            t.stop()
 
     # -- fleet health table -------------------------------------------------
 

@@ -123,8 +123,7 @@ class DistributedServerConfig:
     # time-resolved telemetry (docs/OBSERVABILITY.md §12): > 0 starts the
     # telemetry's background timeline sampler at this period for the life
     # of the server (samples + events persist to save_dir/timeline.jsonl);
-    # 0 leaves the timeline unstarted (the port's timeline store is not
-    # ported yet: > 0 raises at setup)
+    # 0 leaves the timeline unstarted
     timeline_interval_s: float = 0.0
 
 

@@ -248,6 +248,9 @@ class InferenceServer:
         # single-writer counters (scheduler thread), read by tests
         self.decode_batches = 0
         self.batched_requests = 0
+        # the target's fresh prefills: one prompt-attention kernel launch a
+        # layer each (a shared-prefix group's extend runs none)
+        self.prefills = 0
         self._inflight_lock = threading.Lock()
         self._inflight: Dict[str, List[_Request]] = {}  # guarded-by: _inflight_lock
         # slot state (host side; the device cache is allocated at the first
@@ -944,8 +947,10 @@ class InferenceServer:
                                                stacked[:, i:i + (pc or plen)])
             elif pc is None or pc >= plen:
                 logits, row_cache = prefill(self.model, stacked)
+                self.prefills += 1
             else:
                 logits, row_cache = prefill(self.model, stacked[:, :pc])
+                self.prefills += 1
                 for i in range(pc, plen, pc):
                     logits, row_cache = extend(self.model, row_cache, stacked[:, i:i + pc])
             if self._paged:

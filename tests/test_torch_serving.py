@@ -222,6 +222,11 @@ def test_port_imports_no_jax():
         "import distriflow_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'distriflow_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        # the serving fleet and its control plane, through their packages
+        "from distriflow_tpu_torch.fleet import (FleetAutoscaler, FleetRouter, HashRing,\n"
+        "    ReplicaRegistry, ReplicaState, RouterClient, page_hashes, shareable_pages)\n"
+        "from distriflow_tpu_torch.obs import (HealthSentinel, SLOBand, TimelineStore,\n"
+        "    assemble, default_bands)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distriflow_tpu', 'experiments'))\n"
         "print(bad)\n"

@@ -283,6 +283,57 @@ def test_pipelined_install_waits_for_inflight_fit(tmp_path):
         server.stop()
 
 
+def test_abort_never_joins_an_unstarted_comm_thread(monkeypatch):
+    """Regression: ``abort()`` read ``_comm_thread`` without ``_comm_cv``
+    while ``_comm_acquire_slot`` assigns the attribute and only then starts
+    the thread, so an abort in that window joined a thread that had not
+    started ("cannot join thread before it is started"). The comm thread's
+    ``start()`` is held here until the abort has had its chance to run."""
+    from distriflow_tpu_torch.client import abstract_client
+
+    assigned, go = threading.Event(), threading.Event()
+
+    class _HeldStart(threading.Thread):
+        def start(self):
+            assigned.set()
+            go.wait(timeout=10.0)
+            super().start()
+
+    class _Threading:
+        Thread = _HeldStart
+
+        def __getattr__(self, name):
+            return getattr(threading, name)
+
+    monkeypatch.setattr(abstract_client, "threading", _Threading())
+    client = AsynchronousSGDClient("127.0.0.1:1", MockModel())  # never dialled
+    got, errors = [], []
+
+    def acquire():
+        got.append(client._comm_acquire_slot())
+
+    def abort():
+        try:
+            client.abort()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    holder = threading.Thread(target=acquire)
+    holder.start()
+    assert assigned.wait(timeout=10.0), "the comm thread was never created"
+    aborter = threading.Thread(target=abort)
+    aborter.start()
+    aborter.join(timeout=0.5)  # the race: the thread is assigned, not started
+    go.set()
+    holder.join(timeout=10.0)
+    aborter.join(timeout=10.0)
+    assert not holder.is_alive() and not aborter.is_alive()
+    assert errors == [], errors
+    assert client._comm_thread is None
+    assert got == [True]  # the slot was taken before the abort reaped it
+    assert client._comm_acquire_slot() is False  # disposed: no new thread
+
+
 def test_async_server_staleness_default_is_tolerant(tmp_path):
     """Async mode does not inherit the sync-mode staleness-0 default;
     explicit settings (0 included) are honoured."""
