@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` (an unpacked older checkout, e.g. ``git archive`` of the
-parent commit) also times that checkout's depthwise kernels on the same
-inputs, before and after this checkout's (rows 11-12, ``was_ms``).
+parent commit) also times that checkout's depthwise and dense CE kernels
+on the same inputs, before and after this checkout's (rows 11-12, 9d and
+10d, ``was_ms``).
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all five
@@ -146,8 +147,16 @@ inputs, before and after this checkout's (rows 11-12, ``was_ms``).
     gets the same checks at the training shape (B8 H8 S1024) and, beyond
     them, is held and timed at B1 H8 S8192 (``longest_fused``: the fused
     layout's longest S and its largest dQ partial buffer). Rows 9d and 10d (the
-    dense CE) at the ConvNet's N 2048 x V 10 one-hot and, under
-    ``large``, at N 8192 x V 32000 with soft targets.
+    dense CE) at the ConvNet's N 2048 x V 10 one-hot, at the wire's and
+    FedAvg's N 256 and 128, under ``large`` at N 8192 x V 32000 with soft
+    targets (one block a row), and on the narrow layout's edges: a
+    partial last tile (N 2047), a base 20 bytes in (a [1:] view, N 2049)
+    and G 16 and 32 (V 100 and 256). Each shape is held against the plain
+    versions and gives the same bits twice; at G > 1 the limits must
+    reject a forward whose lse takes only lane 0's columns and a backward
+    whose lse misses the row max. Rows 9 and 10 are also held at N 2048 x
+    V 10 (``narrow``). Every row carries ``floor_ms``, an empty kernel
+    (``torch.cuda._sleep(0)``) timed in the same bracket.
 
 16. The wire-training planes (``wire_training:`` line): the ConvNet of
     step 14 (bf16, the fused dense CE, f32 masters from the same seeded
@@ -1104,7 +1113,51 @@ def _training_kernel_rows(launches, steps):
         library_ms=_timed(lambda: torch.autograd.grad(lib_loss, lg, gr.to(lg.dtype),
                                                       retain_graph=True), 20, flush),
         rejected_share=controls))
+    rows[-2]["narrow"], rows[-1]["narrow"] = _sparse_narrow(flush)
     return rows, fwd
+
+
+def _sparse_narrow(flush):
+    """Kernels 9 and 10 on the narrow layout, which no path of the port
+    runs sparse (its sparse CE is the LMs' V 32000): N 2048 x V 10 with
+    labels -1 and V (out of range: loss = lse) in some rows, each held
+    against its plain version, launched twice (the same bits) and timed."""
+    from distriflow_tpu_torch.ops import fused_ce as ce
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    n, vocab = CN_B, 10
+    logits = torch.randn(n, vocab, generator=g, device="cuda").to(torch.bfloat16)
+    labels = torch.randint(0, vocab, (n,), generator=g, device="cuda", dtype=torch.int32)
+    labels[::97], labels[1::97] = -1, vocab
+    gr = torch.rand(n, generator=g, device="cuda")
+    loss, lse = ce.fused_ce_forward(logits, labels)
+    again = ce.fused_ce_forward(logits, labels)
+    assert torch.equal(again[0], loss) and torch.equal(again[1], lse), \
+        "fused_ce_fwd narrow: a second launch gave other bits"
+    rl, rs = ce.fused_ce_forward_reference(logits, labels)
+    ferr = max(_over("fused_ce_fwd loss narrow", loss, rl, *TOL["fused_ce_fwd"]),
+               _over("fused_ce_fwd lse narrow", lse, rs, *TOL["fused_ce_fwd"]))
+    grad = ce.fused_ce_backward(logits, labels, lse, gr)
+    assert torch.equal(ce.fused_ce_backward(logits, labels, lse, gr), grad), \
+        "fused_ce_bwd narrow: a second launch gave other bits"
+    berr = _over("fused_ce_bwd narrow", grad, ce.fused_ce_backward_reference(logits, labels, lse, gr),
+                 *TOL["fused_ce_bwd"])
+    shape = f"N={n} V={vocab} bf16 sparse labels, -1 and {vocab} in every 97th row"
+    lanes, rows = ce._row_tile(vocab)
+    common = {"shape": shape, "lanes": lanes, "rows_a_block": rows, "deterministic": True}
+    return ({**common, "max_abs_err": ferr,
+             "ms": _timed(lambda: ce.fused_ce_forward(logits, labels), 20, flush),
+             "bound_ms": _bound(n * vocab * 2 + 3 * n * 4, 4 * n * vocab, F32_FLOPS)[0]},
+            {**common, "max_abs_err": berr,
+             "ms": _timed(lambda: ce.fused_ce_backward(logits, labels, lse, gr), 20, flush),
+             "bound_ms": _bound(2 * n * vocab * 2 + 3 * n * 4, 4 * n * vocab, F32_FLOPS)[0]})
+
+
+def _launch_floor():
+    """The launch floor: the median device ms of an empty kernel
+    (``torch.cuda._sleep(0)``) in :func:`_timed`'s bracket, behind the
+    same spin and L2 flush as every kernel's time."""
+    return _timed(lambda: torch.cuda._sleep(0), 50, _flush_buffer())
 
 
 def _fused_bwd_checks(pairs, flush):
@@ -1619,20 +1672,6 @@ def _dwgn_times(shapes):
             _timed(lambda: dg.depthwise_gn_forward(x, k, sc, bi, s), iters, flush),
             _timed(lambda: dg.depthwise_gn_backward(x, k, sc, bi, gout, s), iters, flush)]
     return out
-
-
-def _parent_dwgn_times(parent, shapes):
-    """:func:`_dwgn_times` of the checkout at ``parent``, in a process of
-    its own (the parent's package and kernels, this file's timer)."""
-    torch.cuda.empty_cache()
-    code = ("import importlib.util, json, sys\n"
-            f"spec = importlib.util.spec_from_file_location('smoke', {os.path.abspath(__file__)!r})\n"
-            "m = importlib.util.module_from_spec(spec)\n"
-            "spec.loader.exec_module(m)\n"
-            f"print(json.dumps(m._dwgn_times({list(shapes)!r})))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True, text=True,
-                         timeout=600, check=True)
-    return {k: [float(v) for v in t] for k, t in json.loads(out.stdout.splitlines()[-1]).items()}
 
 
 def _plan_of(plan, batch):
@@ -2806,62 +2845,157 @@ def _split_bwd_rows(launches, steps):
     return rows
 
 
+# Rows 9d and 10d's shapes: (tag, N, V, target kind, a [1:] view). The
+# path's N 2048 and the wire's and FedAvg's batches at V 10; N 8192 x V
+# 32000 (soft targets) on the block-per-row layout; and, on the narrow
+# layout, a partial last tile, a base 20 bytes into a tensor (a [1:] view,
+# also a partial tile), and G 16 and 32 (V 100, and 256, the widest).
+DENSE_CE_SHAPES = (("path", CN_B, 10, "one-hot", False), ("wire", WIRE_B, 10, "one-hot", False),
+                   ("fedavg", FA_B, 10, "one-hot", False), ("large", 8192, 32000, "soft", False),
+                   ("partial", 2047, 10, "one-hot", False), ("unaligned", 2049, 10, "one-hot", True),
+                   ("v100", 1024, 100, "soft", False), ("v256", 512, 256, "soft", False))
+
+
+def _dense_ce_inputs(i, n, vocab, kind, sliced):
+    """Shape ``i`` of :data:`DENSE_CE_SHAPES`: bf16 logits, f32 targets and
+    an upstream gradient g of order 1, from a generator of its own (the
+    same inputs in this checkout and an older one); ``sliced`` takes rows
+    [1:] of tensors one row longer."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8 + i)
+    m = n + sliced
+    logits = torch.randn(m, vocab, generator=g, device="cuda").to(torch.bfloat16)
+    if kind == "one-hot":
+        t = F.one_hot(torch.randint(0, vocab, (m,), generator=g, device="cuda"), vocab).float()
+    else:
+        t = torch.softmax(2 * torch.randn(m, vocab, generator=g, device="cuda"), -1)
+    gr = torch.rand(m, generator=g, device="cuda")
+    return (logits[1:], t[1:], gr[1:]) if sliced else (logits, t, gr)
+
+
+def _dense_ce_times():
+    """``{tag: [forward ms, backward ms]}`` of the dense CE kernels of the
+    ``distriflow_tpu_torch`` first on ``sys.path`` at every shape of
+    :data:`DENSE_CE_SHAPES`, timed as rows 9d and 10d time them."""
+    from distriflow_tpu_torch.ops import fused_ce as ce
+
+    flush, out = _flush_buffer(), {}
+    for i, (tag, n, vocab, kind, sliced) in enumerate(DENSE_CE_SHAPES):
+        logits, t, gr = _dense_ce_inputs(i, n, vocab, kind, sliced)
+        _, lse = ce.fused_ce_dense_forward(logits, t)
+        out[tag] = [_timed(lambda: ce.fused_ce_dense_forward(logits, t), 20, flush),
+                    _timed(lambda: ce.fused_ce_dense_backward(logits, t, lse, gr), 20, flush)]
+    return out
+
+
+def _parent_times(parent, fn, *args):
+    """``fn(*args)`` (a timing function of this file, by name) on the
+    checkout at ``parent``, in a process of its own (the parent's package
+    and kernels, this file's timer)."""
+    torch.cuda.empty_cache()
+    code = ("import importlib.util, json, sys\n"
+            f"spec = importlib.util.spec_from_file_location('smoke', {os.path.abspath(__file__)!r})\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            f"print(json.dumps(m.{fn}(*{list(args)!r})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True, text=True,
+                         timeout=600, check=True)
+    return {k: [float(v) for v in t] for k, t in json.loads(out.stdout.splitlines()[-1]).items()}
+
+
+def _narrow_controls(logits, t, loss, lse, gr, lanes):
+    """The share of elements outside rows 9d/10d's limits for two wrong
+    results of the narrow layout at G ``lanes``: a forward whose lse sums
+    only lane 0's columns (0, G, 2G, ...) and a backward whose lse misses
+    the row max shift (lse - max)."""
+    from distriflow_tpu_torch.ops import fused_ce as ce
+
+    x = logits.float()
+    lse0 = torch.logsumexp(x[:, ::lanes], -1)
+    fwd = _rejected("fused_ce_dense_fwd", torch.cat([lse0 - (lse - loss), lse0]),
+                    torch.cat([loss, lse]))
+    shifted = ce.fused_ce_dense_backward_reference(logits, t, lse - x.amax(-1), gr)
+    bwd = _rejected("fused_ce_dense_bwd", shifted,
+                    ce.fused_ce_dense_backward_reference(logits, t, lse, gr))
+    return {"lse_lane0_columns": fwd}, {"lse_without_max": bwd}
+
+
+def _with_ce_was(rows, was):
+    """Rows 9d and 10d with ``was_ms`` beside each shape: the
+    :func:`_dense_ce_times` runs of an older checkout in ``was``."""
+    for j, row in enumerate(rows):
+        for tag, *_ in DENSE_CE_SHAPES:
+            (row if tag == "path" else row[tag])["was_ms"] = \
+                [run[tag][j] for run in was] or "not measured"
+    return rows
+
+
 def _dense_ce_rows(launches, steps, wire, inprocess):
-    """Rows 9d and 10d, the dense CE, at the ConvNet's shape (N 2048 x V
-    10, one-hot f32 targets), under ``wire`` at a wire worker's ``fit``
-    (N 256 x V 10, one-hot), under ``fedavg`` at a FedAvg local step (N
-    128) and, under ``large``, at N 8192 x V 32000 with soft targets,
-    where the kernels stream real bytes. ``launches`` are the ConvNet's
-    ``steps`` training steps', ``wire`` the wire legs' (one a worker's
-    ``fit``), ``inprocess`` the in-process trainers' (one a batch or a
-    local step); a row's ``launches`` is their sum."""
+    """Rows 9d and 10d, the dense CE, at every shape of
+    :data:`DENSE_CE_SHAPES`: the ConvNet's (``path``, N 2048 x V 10, one-hot
+    f32 targets), a wire worker's ``fit`` (``wire``, N 256), a FedAvg local
+    step (``fedavg``, N 128), N 8192 x V 32000 with soft targets
+    (``large``, where the kernels stream real bytes) and the narrow
+    layout's edges. Each shape is held against the plain versions, gives
+    the same bits on a second launch and is timed; at G > 1 the limits must
+    reject the two wrong results of :func:`_narrow_controls`. ``launches``
+    are the ConvNet's ``steps`` training steps', ``wire`` the wire legs'
+    (one a worker's ``fit``), ``inprocess`` the in-process trainers' (one a
+    batch or a local step); a row's ``launches`` is their sum."""
     import torch.nn.functional as F
 
     from distriflow_tpu_torch.ops import fused_ce as ce
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + 8)
     flush = _flush_buffer()
     fwd, bwd = {}, {}
-    for tag, n, vocab in (("path", CN_B, 10), ("wire", WIRE_B, 10), ("fedavg", FA_B, 10),
-                          ("large", 8192, 32000)):
-        logits = torch.randn(n, vocab, generator=g, device=dev).to(torch.bfloat16)
-        if tag != "large":
-            labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
-            t = F.one_hot(labels, vocab).float()
-            kind = "one-hot"
-        else:
-            t = torch.softmax(2 * torch.randn(n, vocab, generator=g, device=dev), -1)
-            kind = "soft"
+    for i, (tag, n, vocab, kind, sliced) in enumerate(DENSE_CE_SHAPES):
+        logits, t, gr = _dense_ce_inputs(i, n, vocab, kind, sliced)
+        tile = ce._row_tile(vocab)
+        assert (tile is None) == (vocab > ce.NARROW_MAX_V), (tag, tile)
+        assert ce._aligned(logits, t) != sliced, f"{tag}: the base is not where it should be"
         loss, lse = ce.fused_ce_dense_forward(logits, t)
+        again = ce.fused_ce_dense_forward(logits, t)
+        assert torch.equal(again[0], loss) and torch.equal(again[1], lse), \
+            f"fused_ce_dense_fwd {tag}: a second launch gave other bits"
         rl, rs = ce.fused_ce_dense_forward_reference(logits, t)
         err = max(_over(f"fused_ce_dense_fwd loss {tag}", loss, rl, *TOL["fused_ce_dense_fwd"]),
                   _over(f"fused_ce_dense_fwd lse {tag}", lse, rs, *TOL["fused_ce_dense_fwd"]))
-        gr = torch.rand(n, generator=g, device=dev)
+        grad = ce.fused_ce_dense_backward(logits, t, lse, gr)
+        assert torch.equal(ce.fused_ce_dense_backward(logits, t, lse, gr), grad), \
+            f"fused_ce_dense_bwd {tag}: a second launch gave other bits"
         want = ce.fused_ce_dense_backward_reference(logits, t, lse, gr)
-        berr = _over(f"fused_ce_dense_bwd {tag}", ce.fused_ce_dense_backward(logits, t, lse, gr),
-                     want, *TOL["fused_ce_dense_bwd"])
+        berr = _over(f"fused_ce_dense_bwd {tag}", grad, want, *TOL["fused_ce_dense_bwd"])
         lg = logits.detach().clone().requires_grad_()
         lib_loss = F.cross_entropy(lg, t, reduction="none")
-        shape = f"N={n} V={vocab} bf16 logits, {kind} f32 targets"
+        lanes, rows = tile or (0, 0)
+        common = {"shape": f"N={n} V={vocab} bf16 logits, {kind} f32 targets"
+                           + (", a [1:] view (base 20 bytes in)" if sliced else ""),
+                  "lanes": lanes, "rows_a_block": rows, "deterministic": True}
         io = n * vocab * (2 + 4)
         tb, by = _bound(io + 2 * n * 4, 4 * n * vocab, F32_FLOPS)
         fwd[tag] = {
-            "shape": shape, "max_abs_err": err,
+            **common, "max_abs_err": err,
             "ms": _timed(lambda: ce.fused_ce_dense_forward(logits, t), 20, flush),
             "plain_ms": _timed(lambda: ce.fused_ce_dense_forward_reference(logits, t), 3, flush),
             "bound_ms": tb, "bound_by": by,
             "library_ms": _timed(lambda: F.cross_entropy(logits, t, reduction="none"), 20, flush)}
         tb, by = _bound(io + 2 * n * 4 + n * vocab * 2, 4 * n * vocab, F32_FLOPS)
         bwd[tag] = {
-            "shape": shape, "max_abs_err": berr,
+            **common, "max_abs_err": berr,
             "ms": _timed(lambda: ce.fused_ce_dense_backward(logits, t, lse, gr), 20, flush),
             "plain_ms": _timed(lambda: ce.fused_ce_dense_backward_reference(logits, t, lse, gr),
                                3, flush),
             "bound_ms": tb, "bound_by": by,
             "library_ms": _timed(lambda: torch.autograd.grad(
                 lib_loss, lg, gr.to(lib_loss.dtype), retain_graph=True), 20, flush)}
-        del logits, t, want, lg, lib_loss
+        if lanes > 1:
+            fwd[tag]["rejected_share"], bwd[tag]["rejected_share"] = _narrow_controls(
+                logits, t, loss, lse, gr, lanes)
+            for d in (fwd, bwd):
+                assert all(v > 0.5 for v in d[tag]["rejected_share"].values()), \
+                    f"a dense CE limit passes a wrong result at {tag}: {d[tag]['rejected_share']}"
+        del logits, t, want, grad, lg, lib_loss
     rows = []
     for name, line, d in (("fused_ce_dense_fwd", "distriflow_tpu/ops/fused_ce.py:77", fwd),
                           ("fused_ce_dense_bwd", "distriflow_tpu/ops/fused_ce.py:107", bwd)):
@@ -2875,7 +3009,7 @@ def _dense_ce_rows(launches, steps, wire, inprocess):
             "launches_wire": {w: c[name] for w, c in wire.items()},
             "launches_inprocess": {w: c[name] for w, c in inprocess.items()},
             "max_abs_err": max(v["max_abs_err"] for v in d.values()),
-            "tol": _tol(name), "wire": d["wire"], "fedavg": d["fedavg"], "large": d["large"],
+            "tol": _tol(name), **{tag: d[tag] for tag, *_ in DENSE_CE_SHAPES[1:]},
             "library_note": "F.cross_entropy with probability targets (its backward for the "
                             "gradient)"})
     return rows
@@ -4066,14 +4200,20 @@ def main() -> int:
     train_rows, rows[0]["training_shape"] = _training_kernel_rows(training, TRAIN_STEPS)
     rows += train_rows
     # an older checkout's depthwise kernels before and after this one's
-    was = [_parent_dwgn_times(args.parent, shapes)] if args.parent else []
+    was = [_parent_times(args.parent, "_dwgn_times", list(shapes))] if args.parent else []
     dw_rows = _mobilenet_kernel_rows(
         {k: mn_train[k] for k in ("depthwise_gn_fwd", "depthwise_gn_bwd")}, shapes)
     if args.parent:
-        was.append(_parent_dwgn_times(args.parent, shapes))
+        was.append(_parent_times(args.parent, "_dwgn_times", list(shapes)))
     rows += _with_was(dw_rows, shapes, was)
     rows += _split_bwd_rows(long_training, LONG_TRAIN_STEPS)
-    rows += _dense_ce_rows(cn_train, CN_STEPS, wire_counts, ip_counts)
+    # an older checkout's dense CE kernels before and after this one's
+    ce_was = [_parent_times(args.parent, "_dense_ce_times")] if args.parent else []
+    ce_rows = _dense_ce_rows(cn_train, CN_STEPS, wire_counts, ip_counts)
+    if args.parent:
+        ce_was.append(_parent_times(args.parent, "_dense_ce_times"))
+    rows += _with_ce_was(ce_rows, ce_was)
+    floor = _launch_floor()
     spec_windows = ("spec_1k", "spec_16k")
     rows += _spec_kernel_rows({
         "flash_attention_fwd_d32": sum(spec_counts[w]["flash_attention_fwd_d32"]
@@ -4090,6 +4230,7 @@ def main() -> int:
                "flash_attention_fwd_d32": "spec_1k", "flash_decode_paged_d32": "spec_1k",
                "flash_decode_d32": "draft_solo", "flash_decode_paged_p64": "fleet_elastic"}
     for r in rows:
+        r["floor_ms"] = floor
         r["path"] = path_of.get(r["name"], "serving")
         # page 64 runs on the elastic leg alone (the counters do not split by page)
         r["launches_by_path"] = ({r["path"]: r["launches"]} if r["name"] == "flash_decode_paged_p64"

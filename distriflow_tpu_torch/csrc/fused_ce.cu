@@ -6,32 +6,55 @@
 //   distriflow_tpu/ops/fused_ce.py::_bwd_kernel  (sparse=True and sparse=False)
 // The template flag kDense picks the variant, as `sparse` does there.
 //
-// Forward: per row, lse = logsumexp(x) in f32 with an online max and
-// exp-sum (fused_ce.py:57-104), and loss = lse - hit. Sparse: hit =
-// x[label]; a label outside [0, V) matches no column, so its loss is the
-// row's lse (fused_ce.py:469-479). Dense: hit = sum over columns of
+// Forward: per row, lse = logsumexp(x) in f32 with a max shift
+// (fused_ce.py:57-104), and loss = lse - hit. Sparse: hit = x[label]; a
+// label outside [0, V) matches no column, so its loss is the row's lse
+// (fused_ce.py:469-479). Dense: hit = sum over columns of
 // where(x > -1e30, x, 0) * t (fused_ce.py:94-97): a -inf logit with target
 // 0 adds 0, not NaN.
 // Backward: grad = (exp(x - lse) - t) * g, written in the logits' dtype
 // (fused_ce.py:107-116), where t is onehot(label) (sparse) or the target
 // row (dense).
 //
-// Grid: one block of 256 threads per row in every kernel. The TPU kernels
-// tile the vocab on a sequential grid axis and carry m/l/hit in VMEM
-// scratch; here each thread walks its share of the row with 16-byte loads
-// (eight bf16 logits, and eight f32 targets in two loads) keeping its own
-// online max, exp-sum and dense hit in registers, and the block combines
-// the 256 threads' values with warp shuffles and shared memory. The sparse
-// label hit is read once, by one thread, straight from the row. Any V
-// works: rows whose width is not a multiple of 8 (or whose bases are not
+// Two layouts, picked by the wrapper (ops/fused_ce.py::_row_tile):
+//
+// Wide rows (V > 256, the LM's V 32000): one block of 256 threads per row.
+// The TPU kernels tile the vocab on a sequential grid axis and carry m/l/hit
+// in VMEM scratch; here each thread walks its share of the row with
+// 16-byte loads (eight bf16 logits, and eight f32 targets in two loads)
+// keeping its own online max, exp-sum and dense hit in registers, and the
+// block combines the 256 threads' values with warp shuffles and shared
+// memory. The sparse label hit is read once, by one thread, straight from
+// the row. Rows whose width is not a multiple of 8 (or whose bases are not
 // 16-byte aligned) take a scalar loop.
+//
+// Narrow rows (V <= 256, every dense-CE head of the port: V 10): a block
+// of 256 threads owns R contiguous rows, a group of G lanes each (G the
+// least power of two with 8 G >= V, R = 256 / G; the TPU kernel tiles 256
+// rows a grid step, fused_ce.py:47). N 2048 at V 10 is 16 blocks in one
+// wave, where one block a row took two. Forward: each lane loads the
+// columns lane, lane + G, ... (at most 8) of its row, and the row's label,
+// straight into registers, and the group reduces the max, then the
+// exp-sum and the hit, with xor shuffles in a fixed order: no shared
+// memory, no barrier, one round trip to memory. Backward: no reduction;
+// the tile is one flat run of R V elements, eight consecutive ones a
+// thread, each with its row's lse and g: a whole chunk on an aligned base
+// takes 16-byte loads and one 16-byte store (R V 2 = 512 V / G bytes, a
+// multiple of 16, so every chunk of an aligned tensor is aligned), the
+// last chunk of a partial tile and a base off 16 bytes (a sliced view) go
+// element by element. Staging the forward's tile through shared memory
+// with flat 16-byte loads, then reading the rows from there, measured
+// 0.7-0.9 us slower on the H100 at N 2048 (a second memory step behind a
+// barrier): these kernels are bound by latency, not bytes.
 //
 // Bound: every kernel streams the [N, V] logits once (dense: the [N, V]
 // f32 targets too; the backward also writes the [N, V] gradient) and does a
 // few f32 operations and one exp per element: ~1 FLOP per byte, so the
 // floor is bytes / 3.35 TB/s. The design reads each logit and target
 // exactly once per kernel and writes nothing but the [N] loss and lse
-// (forward) or the gradient (backward).
+// (forward) or the gradient (backward). At V 10 the bytes take
+// nanoseconds: a launch and one round trip to memory bound the narrow
+// kernels.
 
 #include <cstdint>
 
@@ -172,58 +195,218 @@ __global__ void __launch_bounds__(kThreads) ce_bwd_kernel(
   }
 }
 
-// 16-byte rows: V a multiple of 8 and every row base aligned.
-int vector_rows(const void* a, const void* b, const void* c, int V) {
-  return (V % 8 == 0) && (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
-         (reinterpret_cast<uintptr_t>(b) % 16 == 0) && (reinterpret_cast<uintptr_t>(c) % 16 == 0);
+// ---------------------------------------------------------------- narrow rows
+
+// A narrow tile holds at most 256 / G rows of V <= 8 G columns: 2048
+// elements, eight a thread.
+constexpr int kTile = 2048;
+constexpr int kPer = kTile / kThreads;
+
+// Forward, narrow rows: block b owns rows [b R, b R + R) (fewer in the last
+// block), a group of `lanes` (G) threads each. Every load (the lane's
+// columns, its targets, the row's label) goes out before the first use.
+template <bool kDense>
+__global__ void __launch_bounds__(kThreads) ce_fwd_rows_kernel(
+    const __nv_bfloat16* __restrict__ logits, const int* __restrict__ labels,
+    const float* __restrict__ targets, float* __restrict__ loss, float* __restrict__ lse,
+    int N, int V, int lanes, int rows) {
+  const int lane = threadIdx.x % lanes;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * rows + threadIdx.x / lanes;
+  // every thread joins the shuffles; a group past the last row reads nothing
+  const int cols = row < N ? V : 0;
+  const __nv_bfloat16* x = logits + row * V;
+  const int lab = kDense || row >= N ? -1 : labels[row];
+  float f[kPer], tt[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int c = lane + j * lanes;
+    f[j] = c < cols ? __bfloat162float(x[c]) : dftt::kNegInf;
+    if constexpr (kDense) tt[j] = c < cols ? targets[row * V + c] : 0.f;
+  }
+  float m = dftt::kNegInf;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) m = fmaxf(m, f[j]);
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  float l = 0.f;
+  float hit = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int c = lane + j * lanes;
+    if (c < cols) {
+      l += expf(f[j] - m);
+      // sparse: the label's column lies in one lane; the others add 0
+      hit += kDense ? dense_hit(f[j], tt[j]) : (c == lab ? f[j] : 0.f);
+    }
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+    hit += __shfl_xor_sync(0xffffffffu, hit, off);
+  }
+  if (lane == 0 && row < N) {
+    const float out = m + logf(fmaxf(l, 1e-30f));
+    lse[row] = out;
+    loss[row] = out - hit;
+  }
+}
+
+// One thread's chunk of the narrow backward: the eight elements from `at`
+// (`e` within its tile, whose first row is `row0`), each with its row's
+// lse and g (and label). kWhole: all eight lie in the tile and the base is
+// aligned, so one 16-byte load of logits, two of targets and one 16-byte
+// store; else element by element, up to the tile's end `n`.
+template <bool kDense, bool kWhole>
+__device__ __forceinline__ void bwd_chunk(
+    const __nv_bfloat16* __restrict__ logits, const int* __restrict__ labels,
+    const float* __restrict__ targets, const float* __restrict__ lse,
+    const float* __restrict__ g, __nv_bfloat16* __restrict__ grad, int64_t row0, int64_t at,
+    int e, int n, int V) {
+  float f[kPer] = {}, tt[kPer] = {}, ls[kPer] = {}, gg[kPer] = {};
+  if constexpr (kWhole) {
+    dftt::load8(logits + at, f);
+    if constexpr (kDense) load8f(targets + at, tt);
+  }
+  int r = e / V;
+  int c = e - r * V;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    if (kWhole || e + i < n) {
+      if constexpr (!kWhole) {
+        f[i] = __bfloat162float(logits[at + i]);
+        if constexpr (kDense) tt[i] = targets[at + i];
+      }
+      if constexpr (!kDense) tt[i] = c == labels[row0 + r] ? 1.f : 0.f;
+      ls[i] = lse[row0 + r];
+      gg[i] = g[row0 + r];
+    }
+    if (++c == V) {
+      c = 0;
+      ++r;
+    }
+  }
+  float v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) v[i] = (expf(f[i] - ls[i]) - tt[i]) * gg[i];
+  if constexpr (kWhole) {
+    __align__(16) __nv_bfloat162 o[kPer / 2];
+#pragma unroll
+    for (int i = 0; i < kPer / 2; ++i) o[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(grad + at) = *reinterpret_cast<const uint4*>(o);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (e + i < n) grad[at + i] = __float2bfloat16(v[i]);
+  }
+}
+
+// Backward, narrow rows: no reduction. The block's [R, V] tile is one flat
+// run, eight consecutive elements a thread (bwd_chunk); the last chunk of
+// a partial tile and a base off 16 bytes (a sliced view) go element by
+// element. Every load goes out before the first use.
+template <bool kDense>
+__global__ void __launch_bounds__(kThreads) ce_bwd_rows_kernel(
+    const __nv_bfloat16* __restrict__ logits, const int* __restrict__ labels,
+    const float* __restrict__ targets, const float* __restrict__ lse,
+    const float* __restrict__ g, __nv_bfloat16* __restrict__ grad, int N, int V, int rows,
+    int aligned) {
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int nrows = static_cast<int>(N - row0 < rows ? N - row0 : rows);
+  const int n = nrows * V;
+  const int e = threadIdx.x * kPer;  // R V <= 2048: one chunk a thread
+  if (e >= n) return;
+  const int64_t at = row0 * V + e;
+  if (aligned && e + kPer <= n)
+    bwd_chunk<kDense, true>(logits, labels, targets, lse, g, grad, row0, at, e, n, V);
+  else
+    bwd_chunk<kDense, false>(logits, labels, targets, lse, g, grad, row0, at, e, n, V);
+}
+
+// ---------------------------------------------------------------- launches
+
+// The wrapper's tile: rows > 0 picks the narrow kernels (lanes * rows ==
+// 256 threads, at most kTile elements; rows >= 8, so every tile of an
+// aligned tensor starts on 16 bytes); rows == 0 the block-per-row ones.
+// `aligned`: every base pointer lies on 16 bytes.
+bool narrow_tile_ok(int V, int lanes, int rows) {
+  return lanes > 0 && lanes <= 32 && (lanes & (lanes - 1)) == 0 && lanes * rows == kThreads &&
+         V <= 8 * lanes && rows * V <= kTile;
 }
 
 template <bool kDense>
 int forward(const void* logits, const void* labels, const void* targets, void* loss, void* lse,
-            int N, int V, void* stream) {
-  ce_fwd_kernel<kDense><<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(logits), static_cast<const int*>(labels),
-      static_cast<const float*>(targets), static_cast<float*>(loss), static_cast<float*>(lse), V,
-      vector_rows(logits, logits, kDense ? targets : logits, V));
+            int N, int V, int lanes, int rows, int aligned, void* stream) {
+  const auto* x = static_cast<const __nv_bfloat16*>(logits);
+  const auto* lab = static_cast<const int*>(labels);
+  const auto* t = static_cast<const float*>(targets);
+  auto* lo = static_cast<float*>(loss);
+  auto* ls = static_cast<float*>(lse);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (rows > 0) {
+    if (!narrow_tile_ok(V, lanes, rows)) return static_cast<int>(cudaErrorInvalidValue);
+    ce_fwd_rows_kernel<kDense><<<(N + rows - 1) / rows, kThreads, 0, s>>>(
+        x, lab, t, lo, ls, N, V, lanes, rows);
+  } else {
+    ce_fwd_kernel<kDense><<<N, kThreads, 0, s>>>(x, lab, t, lo, ls, V, aligned && V % 8 == 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kDense>
 int backward(const void* logits, const void* labels, const void* targets, const void* lse,
-             const void* g, void* grad, int N, int V, void* stream) {
-  ce_bwd_kernel<kDense><<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(logits), static_cast<const int*>(labels),
-      static_cast<const float*>(targets), static_cast<const float*>(lse),
-      static_cast<const float*>(g), static_cast<__nv_bfloat16*>(grad), V,
-      vector_rows(logits, grad, kDense ? targets : logits, V));
+             const void* g, void* grad, int N, int V, int lanes, int rows, int aligned,
+             void* stream) {
+  const auto* x = static_cast<const __nv_bfloat16*>(logits);
+  const auto* lab = static_cast<const int*>(labels);
+  const auto* t = static_cast<const float*>(targets);
+  const auto* ls = static_cast<const float*>(lse);
+  const auto* gg = static_cast<const float*>(g);
+  auto* out = static_cast<__nv_bfloat16*>(grad);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (rows > 0) {
+    if (!narrow_tile_ok(V, lanes, rows)) return static_cast<int>(cudaErrorInvalidValue);
+    ce_bwd_rows_kernel<kDense><<<(N + rows - 1) / rows, kThreads, 0, s>>>(
+        x, lab, t, ls, gg, out, N, V, rows, aligned);
+  } else {
+    ce_bwd_kernel<kDense><<<N, kThreads, 0, s>>>(x, lab, t, ls, gg, out, V, aligned && V % 8 == 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Every entry point launches on `stream` and returns cudaGetLastError()
+// (0 = launched). (lanes, rows): the narrow tile of ops/fused_ce.py::
+// _row_tile, or rows 0 for one block a row; `aligned`: every pointer
+// argument's base lies on 16 bytes.
+
 // logits: [N, V] bf16 contiguous; labels: [N] int32; loss, lse: [N] f32.
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int dftt_fused_ce_fwd_bf16(const void* logits, const void* labels, void* loss,
-                                      void* lse, int N, int V, void* stream) {
-  return forward<false>(logits, labels, nullptr, loss, lse, N, V, stream);
+                                      void* lse, int N, int V, int lanes, int rows, int aligned,
+                                      void* stream) {
+  return forward<false>(logits, labels, nullptr, loss, lse, N, V, lanes, rows, aligned, stream);
 }
 
 // logits, grad: [N, V] bf16 contiguous; labels: [N] int32; lse, g: [N] f32.
 extern "C" int dftt_fused_ce_bwd_bf16(const void* logits, const void* labels, const void* lse,
-                                      const void* g, void* grad, int N, int V, void* stream) {
-  return backward<false>(logits, labels, nullptr, lse, g, grad, N, V, stream);
+                                      const void* g, void* grad, int N, int V, int lanes, int rows,
+                                      int aligned, void* stream) {
+  return backward<false>(logits, labels, nullptr, lse, g, grad, N, V, lanes, rows, aligned,
+                         stream);
 }
 
 // Dense targets: logits [N, V] bf16 and targets [N, V] f32, both
 // contiguous; loss, lse: [N] f32.
 extern "C" int dftt_fused_ce_dense_fwd_bf16(const void* logits, const void* targets, void* loss,
-                                            void* lse, int N, int V, void* stream) {
-  return forward<true>(logits, nullptr, targets, loss, lse, N, V, stream);
+                                            void* lse, int N, int V, int lanes, int rows,
+                                            int aligned, void* stream) {
+  return forward<true>(logits, nullptr, targets, loss, lse, N, V, lanes, rows, aligned, stream);
 }
 
 // Dense targets: logits, grad [N, V] bf16; targets [N, V] f32; lse, g [N] f32.
 extern "C" int dftt_fused_ce_dense_bwd_bf16(const void* logits, const void* targets,
                                             const void* lse, const void* g, void* grad, int N,
-                                            int V, void* stream) {
-  return backward<true>(logits, nullptr, targets, lse, g, grad, N, V, stream);
+                                            int V, int lanes, int rows, int aligned,
+                                            void* stream) {
+  return backward<true>(logits, nullptr, targets, lse, g, grad, N, V, lanes, rows, aligned,
+                        stream);
 }

@@ -18,6 +18,11 @@ from the saved per-row logsumexp.
   :func:`fused_softmax_cross_entropy_per_example` widens bf16 and f16
   targets to f32 first (exactly), and the kernels refuse any other dtype.
 
+Two launch layouts, chosen here by :func:`_row_tile`: a block of 256
+threads a row for wide vocabularies (the LM's V 32000), and for V <= 256
+(every dense-CE head of the port, V 10) a block of R rows, G lanes a row
+(the backward loads and stores the [R, V] tile 16 bytes at a time).
+
 Semantics kept from the JAX package that ``F.cross_entropy`` and optax do
 not share: a label outside ``[0, V)`` matches no column, so that row's loss
 is its lse and its gradient is the plain softmax (``fused_ce.py:469-479``);
@@ -42,14 +47,16 @@ from distriflow_tpu_torch.ops import build, flop_count
 
 NEG_INF = -1e30
 
+# pointers, then N, V, lanes, rows, aligned, then the stream
 _SIGNATURES = {
-    "dftt_fused_ce_fwd_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "dftt_fused_ce_bwd_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "dftt_fused_ce_dense_fwd_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                                             ctypes.c_void_p],
-    "dftt_fused_ce_dense_bwd_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                                             ctypes.c_void_p],
+    name: [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for name, n_ptrs in (("dftt_fused_ce_fwd_bf16", 4), ("dftt_fused_ce_bwd_bf16", 5),
+                         ("dftt_fused_ce_dense_fwd_bf16", 4), ("dftt_fused_ce_dense_bwd_bf16", 5))
 }
+#: threads a block, in both layouts (``kThreads`` in ``csrc/fused_ce.cu``)
+THREADS = 256
+#: the widest row the narrow layout takes: 8 columns a lane, 32 lanes
+NARROW_MAX_V = 256
 # target dtypes that widen to f32 exactly
 _EXACT_TO_F32 = (torch.float16, torch.bfloat16, torch.float32)
 #: the logits dtype the kernels take
@@ -109,6 +116,35 @@ def _check_rows(what: str, logits: torch.Tensor, **rows: torch.Tensor) -> None:
             raise ValueError(f"{what}: {name} must be contiguous {want} [{n}] on {logits.device}")
 
 
+def _row_tile(v: int) -> Optional[Tuple[int, int]]:
+    """The narrow layout's tile for rows of ``v`` columns: ``(lanes,
+    rows)``, G lanes a row (the least power of two with 8 G >= v, so that
+    a lane holds at most 8 columns) and R = 256 / G rows a block; ``None``
+    above :data:`NARROW_MAX_V`, where a block takes one row. A tile's [R,
+    v] bf16 logits are R v 2 = 512 v / G bytes, a multiple of 16 for every
+    G <= 32: the backward loads and stores whole tiles 16 bytes at a time
+    wherever :func:`_aligned` holds (all but a partial tile's last chunk)."""
+    if v > NARROW_MAX_V:
+        return None
+    lanes = 1
+    while 8 * lanes < v:
+        lanes *= 2
+    return lanes, THREADS // lanes
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's base lies on 16 bytes (a sliced view may
+    not): only then do the kernels take the 16-byte loads and stores."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _tile_args(logits: torch.Tensor, *tensors: torch.Tensor) -> Tuple[int, int, int]:
+    """``(lanes, rows, aligned)`` of a launch over ``logits`` (rows 0: one
+    block a row), ``tensors`` the launch's other [N, V] operands."""
+    lanes, rows = _row_tile(logits.shape[1]) or (0, 0)
+    return lanes, rows, int(_aligned(logits, *tensors))
+
+
 def _record_cost(logits: torch.Tensor, backward: bool) -> None:
     """JAX's analytic cost of one CE pass (``_record_ce_cost``): one [N, V]
     stream, ~5 ops an element forward, ~3 backward; every wrapper records
@@ -134,7 +170,7 @@ def fused_ce_forward(logits: torch.Tensor, labels: torch.Tensor
     lib = build.load("fused_ce", _SIGNATURES)
     rc = lib.dftt_fused_ce_fwd_bf16(
         logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(), n, v,
-        torch.cuda.current_stream(logits.device).cuda_stream)
+        *_tile_args(logits), torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_forward")
     build.count_launch(fused_ce_forward)
     return loss, lse
@@ -153,7 +189,7 @@ def fused_ce_backward(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Ten
     lib = build.load("fused_ce", _SIGNATURES)
     rc = lib.dftt_fused_ce_bwd_bf16(
         logits.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), grad.data_ptr(),
-        n, v, torch.cuda.current_stream(logits.device).cuda_stream)
+        n, v, *_tile_args(logits, grad), torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_backward")
     build.count_launch(fused_ce_backward)
     return grad
@@ -202,7 +238,7 @@ def fused_ce_dense_forward(logits: torch.Tensor, targets: torch.Tensor
     lib = build.load("fused_ce", _SIGNATURES)
     rc = lib.dftt_fused_ce_dense_fwd_bf16(
         logits.data_ptr(), targets.data_ptr(), loss.data_ptr(), lse.data_ptr(), n, v,
-        torch.cuda.current_stream(logits.device).cuda_stream)
+        *_tile_args(logits, targets), torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_dense_forward")
     build.count_launch(fused_ce_dense_forward)
     return loss, lse
@@ -222,7 +258,8 @@ def fused_ce_dense_backward(logits: torch.Tensor, targets: torch.Tensor, lse: to
     lib = build.load("fused_ce", _SIGNATURES)
     rc = lib.dftt_fused_ce_dense_bwd_bf16(
         logits.data_ptr(), targets.data_ptr(), lse.data_ptr(), g.data_ptr(), grad.data_ptr(),
-        n, v, torch.cuda.current_stream(logits.device).cuda_stream)
+        n, v, *_tile_args(logits, targets, grad),
+        torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_dense_backward")
     build.count_launch(fused_ce_dense_backward)
     return grad

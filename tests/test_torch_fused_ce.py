@@ -27,6 +27,7 @@ from distriflow_tpu.ops.fused_ce import (
     fused_softmax_cross_entropy as jax_dense_ce,
     fused_softmax_cross_entropy_per_example as jax_dense_ce_rows,
     fused_sparse_softmax_cross_entropy as jax_sparse_ce,
+    fused_sparse_softmax_cross_entropy_per_example as jax_sparse_ce_rows,
 )
 from distriflow_tpu_torch.models import losses as port_losses
 from distriflow_tpu_torch.ops import fused_ce as port_ce
@@ -211,3 +212,92 @@ def test_kernel_wrappers_refuse_devices_they_have_no_kernel_for():
         port_ce.fused_ce_dense_forward(x, x.float())
     with pytest.raises(ValueError, match="unsupported device"):
         port_ce.fused_ce_dense_backward(x, x.float(), lab.float(), lab.float())
+
+
+# -- the narrow layout (V <= 256): row tiles of G lanes a row ---------------
+
+
+def _narrow_inputs(kind, v, n, dtype_name):
+    """Inputs at a narrow vocabulary, where the CUDA kernels take the row
+    tile: logits with a -1e30 and a -inf entry in row 0, weights (one of
+    them 0 where there are several rows), and one-hot or soft targets
+    (target 0 at the -inf logit) or integer labels, one of them out of
+    range (negative: see ``_inputs``)."""
+    rng = np.random.RandomState(1000 * v + n)
+    x = (rng.randn(n, v) * 3).astype(np.float32)
+    x[0, 3], x[0, 7] = -1e30, -np.inf
+    labels = rng.randint(0, v, n).astype(np.int32)
+    labels[0] = 5
+    weight = rng.rand(n).astype(np.float32)
+    if n > 1:
+        weight[n // 3] = 0.0
+    if kind == "sparse":
+        labels[n // 2] = -1
+        t = labels
+    elif kind == "soft":
+        t = rng.rand(n, v).astype(np.float32) ** 4
+        t[0, 7] = 0.0
+        t /= t.sum(-1, keepdims=True)
+    else:
+        t = np.eye(v, dtype=np.float32)[labels]
+    jx = jnp.asarray(x, dtype=getattr(jnp, dtype_name))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype_name))
+    return jx, tx, t, weight
+
+
+@pytest.mark.parametrize("n", [1, 129, 2047])
+@pytest.mark.parametrize("v", [10, 100])
+@pytest.mark.parametrize("kind", ["one-hot", "soft", "sparse"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_narrow_vocab_matches_jax_fused_interpret(dtype_name, kind, v, n):
+    """Loss, per-row losses and gradient through the port's
+    ``autograd.Function`` against JAX's fused CE (Pallas in interpret mode)
+    at the vocabularies the row-tile layout takes (V 10: G 2, R 128; V 100:
+    G 16, R 16) and at N 1, one more than a tile (129) and one less than 16
+    tiles (2047), with weights, a -1e30 and a -inf logit, and (sparse) an
+    out-of-range label."""
+    jx, tx, t, weight = _narrow_inputs(kind, v, n, dtype_name)
+    if kind == "sparse":
+        jax_mean, jax_rows = jax_sparse_ce, jax_sparse_ce_rows
+        port_mean = port_ce.fused_sparse_softmax_cross_entropy
+        port_rows = port_ce.fused_sparse_softmax_cross_entropy_per_example
+    else:
+        jax_mean, jax_rows = jax_dense_ce, jax_dense_ce_rows
+        port_mean = port_ce.fused_softmax_cross_entropy
+        port_rows = port_ce.fused_softmax_cross_entropy_per_example
+    ref_loss, ref_grad = _jax(jax_mean, jx, t, weight)
+    x = tx.clone().requires_grad_()
+    loss = port_mean(x, torch.from_numpy(t), torch.from_numpy(weight))
+    loss.backward()
+    assert loss.dtype == torch.float32 and x.grad.dtype == tx.dtype
+    assert np.isfinite(ref_loss) and loss.item() == pytest.approx(ref_loss, abs=1e-5)
+    atol = 1e-6 if dtype_name == "float32" else 2 ** -8 * np.abs(ref_grad).max()
+    np.testing.assert_allclose(x.grad.float().numpy(), ref_grad, rtol=0, atol=atol)
+    ref_rows = np.asarray(jax_rows(jx, jnp.asarray(t)))
+    rows = port_rows(tx, torch.from_numpy(t)).detach().numpy()
+    assert np.isfinite(ref_rows).all()
+    np.testing.assert_allclose(rows, ref_rows, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("v, want", [(1, (1, 256)), (8, (1, 256)), (9, (2, 128)), (10, (2, 128)),
+                                     (100, (16, 16)), (256, (32, 8)), (257, None),
+                                     (32000, None)])
+def test_row_tile_and_the_flat_loads(v, want):
+    """``_row_tile``: G the least power of two with 8 G >= V, R = 256 / G,
+    at most the kernels' 2048-element tile; ``None`` (one block a row)
+    above V 256. A tile's bf16 bytes R V 2 are a multiple of 16, so every
+    tile of an aligned tensor starts on 16 bytes and the backward's flat
+    16-byte loads and stores are taken there; a [1:] view whose base is
+    off 16 bytes is marked for element loads (``aligned`` 0)."""
+    tile = port_ce._row_tile(v)
+    assert tile == want
+    if tile is not None:
+        lanes, rows = tile
+        assert lanes * rows == port_ce.THREADS and v <= 8 * lanes and (lanes == 1 or v > 4 * lanes)
+        assert rows * v <= 2048 and rows * v * 2 % 16 == 0
+    x = torch.zeros(3, v, dtype=torch.bfloat16)
+    t = torch.zeros(3, v)
+    assert x.data_ptr() % 16 == 0 and t.data_ptr() % 16 == 0
+    assert port_ce._tile_args(x, t) == (*(tile or (0, 0)), 1)
+    # the view's base lies 2 V bytes (logits) and 4 V bytes (targets) in
+    assert port_ce._tile_args(x[1:], t[1:]) == (*(tile or (0, 0)), int(v % 8 == 0))
