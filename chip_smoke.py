@@ -122,7 +122,9 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     losses finite, the mean of the last 3 below that of the first 3.
     ``long_step_vs_plain:`` holds one 16k step through the kernels against
     the plain path within ``STEP_TOL``; ``long_training_step_profile:``
-    profiles one step.
+    profiles one step. ``obs/cuda_hooks.py`` is installed on the
+    training's telemetry: a snapshot's ``device_peak_bytes{device=cuda:0}``
+    must equal ``torch.cuda.max_memory_allocated(0)`` (``memory_gauge``).
 14. The CIFAR-10 ConvNet (BASELINE config #2 as the JAX repo's
     ``bench.py::bench_cifar_sync`` runs it: ``cifar_convnet`` in bf16, B
     2048, sgd 0.01) with ``loss="fused_softmax_cross_entropy"`` on one-hot
@@ -275,6 +277,18 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     the coldest arc after it, and act never inside a cooldown. Every
     replica's pool ends all free. Row ``flash_decode_paged_p64`` holds
     kernel 2 at the elastic leg's page 64 (B 2, H 4, contexts 1-528).
+21. The port's doctor (``doctor:`` line): ``distriflow_tpu_torch.doctor.
+    main(["--device", "cuda"])`` in this process, in a launch window of its
+    own (``doctor``): it must exit 0 with "all checks passed" and every one
+    of its 22 checks ``ok``; the line holds each check's wall seconds and
+    the window's kernel 2 and 3 launches. Its LM drills (head dim 64,
+    bf16, pages of 16) must launch the paged decode kernel and solo
+    ``generate()``'s slab decode kernel, and no other kernel (kernel 1 not
+    at all: the drills use the plain prefill attention). Row
+    ``flash_decode_paged_p16`` holds kernel 2 at the drills' page 16 (B 2,
+    H 4, contexts 1-48; a split spans 16 pages), with the split edges at
+    page 16 and, on rows of 700 and 300, the wrong combines rejected and
+    the split sweep.
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -287,7 +301,7 @@ draft's (``*_d32``): kernel 1 at B1 H4 S1024 and S16288, kernel 2 at the
 draft's contexts over the 4 slots, kernel 3 at the draft's solo shape,
 each with its D 64 row's checks. Each row's
 ``launches_by_path`` gives its count in every window. The line
-before the last is the kernel table as JSON (18 rows); the last line is
+before the last is the kernel table as JSON (19 rows); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
 """
@@ -484,25 +498,9 @@ def _card() -> str:
 
 def _flagship_tree(cfg, rng: np.random.Generator):
     """A flax-shaped params tree with lecun-normal-scaled random weights."""
-    d, hd, f, v = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff, cfg.vocab_size
+    from distriflow_tpu_torch.models.convert import random_lm_tree
 
-    def w(*shape, fan_in):
-        return rng.standard_normal(shape, dtype=np.float32) / np.float32(math.sqrt(fan_in))
-
-    def ln():
-        return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
-
-    p = {"embed": {"embedding": w(v, d, fan_in=d)}, "ln_f": ln(),
-         "lm_head": {"kernel": w(d, v, fan_in=d)}}
-    for i in range(cfg.n_layers):
-        p[f"layers_{i}"] = {
-            "ln_attn": ln(), "ln_mlp": ln(),
-            "attn": {name: {"kernel": w(d, cfg.n_heads, cfg.head_dim, fan_in=d)}
-                     for name in ("q_proj", "k_proj", "v_proj")}
-            | {"o_proj": {"kernel": w(cfg.n_heads, cfg.head_dim, d, fan_in=hd)}},
-            "mlp": {"wi": {"kernel": w(d, f, fan_in=d)}, "wo": {"kernel": w(f, d, fan_in=f)}},
-        }
-    return {"params": p}
+    return random_lm_tree(cfg, rng)
 
 
 def _requests(rng: np.random.Generator, vocab: int):
@@ -1857,6 +1855,7 @@ def _long_training(tree, counted, device="cuda", steps=LONG_TRAIN_STEPS, seq=LON
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     (trainer, losses, ms), counts = counted(lambda: _train(cfg, tree, batches[:-1], device))
+    memory = _peak_gauge() if device == "cuda" else None
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
     p50 = float(np.median(ms))
     report = {
@@ -1867,10 +1866,28 @@ def _long_training(tree, counted, device="cuda", steps=LONG_TRAIN_STEPS, seq=LON
         "steps": steps, "data_s": data_s, "step_ms_p50": p50, "step_ms_max": max(ms),
         "step_ms_first": ms[0], "tokens_per_s": LONG_TRAIN_B * seq / (p50 / 1e3),
         "first3_mean": first, "last3_mean": last, "losses": losses,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None}
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None,
+        "memory_gauge": memory}
     assert all(math.isfinite(v) for v in losses), losses
     assert last < first, f"long-context loss did not fall: first 3 mean {first}, last 3 mean {last}"
     return report, trainer, cfg, batches[-1], counts
+
+
+def _peak_gauge():
+    """``obs/cuda_hooks.py`` on the training's telemetry (the process-global
+    one ``SyncTrainer`` records to): a snapshot's
+    ``device_peak_bytes{device=cuda:0}`` must equal
+    ``torch.cuda.max_memory_allocated(0)``, read right after it."""
+    from distriflow_tpu_torch.obs.cuda_hooks import install_cuda_hooks
+    from distriflow_tpu_torch.obs.registry import metric_ident
+    from distriflow_tpu_torch.obs.telemetry import get_telemetry
+
+    tel = get_telemetry()
+    assert install_cuda_hooks(tel) and install_cuda_hooks(tel), "install_cuda_hooks refused"
+    gauge = tel.snapshot()["gauges"].get(metric_ident("device_peak_bytes", {"device": "cuda:0"}))
+    peak = torch.cuda.max_memory_allocated(0)
+    assert gauge == peak, f"device_peak_bytes {gauge} != max_memory_allocated {peak}"
+    return {"device_peak_bytes": gauge, "max_memory_allocated": peak}
 
 
 def _convnet_tree(rng: np.random.Generator):
@@ -3876,27 +3893,27 @@ def _fleet_phase(counted, device="cuda"):
     return report, windows
 
 
-def _p64_kernel_row(launches):
-    """Kernel 2 at page 64, the elastic leg's shape (B 2, H 4, D 64,
-    contexts up to 528): held against its plain version at context pairs
-    from 1 to 528, the same bits on a second launch, the edges at page 64,
-    the wrong combines rejected, the split sweep; timed at two rows of 528
-    and 520 as row 2 is timed."""
+def _page_row(name, launches, seed, ps, n_pages, pp, pairs, timed, control=None):
+    """Kernel 2 (B 2, H 4, D 64) at page ``ps`` over a pool of ``n_pages``
+    and tables ``pp`` wide: held against its plain version at each context
+    pair of ``pairs``, each launched twice for the same bits; timed at the
+    pair ``timed`` against its plain version and its bound; the split
+    edges at page ``ps``; and, on the timed rows or on the rows ``control``
+    (which must span several splits), the same bits twice, the wrong
+    combines rejected and the split sweep."""
     from distriflow_tpu_torch.ops import flash_decode as fd
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    g = torch.Generator(device=dev).manual_seed(seed)
     flush = _flush_buffer()
-    h, d, ps = 4, 64, ELASTIC_PS
-    pp = -(-(ELASTIC_CTX + ELASTIC_NEW) // ps) + 1
-    n_pages = 4 * ((ELASTIC_CTX + ELASTIC_NEW) // ps + 1)  # the leg's pool
+    h, d = 4, 64
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
 
     kp, vp = randn(n_pages, ps, h * d), randn(n_pages, ps, h * d)
     checks, errs = {}, []
-    for lens_l in ([1, 528], [64, 65], [255, 257], [300, 512], [527, 1]):
+    for lens_l in pairs:
         table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
         q = randn(2, h, d)
         out = fd.flash_decode_paged(q, kp, vp, table, lens)
@@ -3906,8 +3923,7 @@ def _p64_kernel_row(launches):
                           fd.flash_decode_paged_reference(q, kp, vp, table, lens),
                           *TOL["flash_decode_paged"]))
         checks[str(lens_l)] = errs[-1]
-    lens_l = [ELASTIC_CTX + ELASTIC_NEW, ELASTIC_CTX + 8]
-    table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
+    table, lens = _paged_rows(g, timed, ps, n_pages, pp)
     q1 = randn(2, h, d)
 
     def paged():
@@ -3918,20 +3934,90 @@ def _p64_kernel_row(launches):
 
     errs.append(_over(f"flash_decode_paged page {ps}", paged(), paged_plain(),
                       *TOL["flash_decode_paged"]))
-    live = sum(lens_l)
+    ctl = (q1, kp, vp, table, lens)
+    extra = {}
+    if control is not None:  # the timed rows fit one split: others for the controls
+        n_long = sum(-(-n // ps) for n in control) + 2
+        kl, vl = randn(n_long, ps, h * d), randn(n_long, ps, h * d)
+        table_l, lens_l = _paged_rows(g, control, ps, n_long, -(-max(control) // ps) + 1)
+        ctl = (randn(2, h, d), kl, vl, table_l, lens_l)
+        extra["control_shape"] = f"B=2 H={h} D={d} page={ps} contexts={control}"
+    live = sum(timed)
     tb, by = _bound(2 * live * h * d * 2 + 2 * 2 * h * d * 2 + table.numel() * 4 + 2 * 4,
                     4 * live * h * d)
     return {
-        "name": "flash_decode_paged_p64", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
         "replaces": "distriflow_tpu/ops/flash_decode.py:474",
         "launches": launches, "max_abs_err": max(errs), "tol": _tol("flash_decode_paged"),
         "ms": _timed(paged, 200, flush), "plain_ms": _timed(paged_plain, 5, flush),
         "bound_ms": tb, "bound_by": by, "library_ms": None,
-        "shape": f"B=2 H={h} D={d} page={ps} contexts={lens_l}", "checks": checks,
+        "shape": f"B=2 H={h} D={d} page={ps} contexts={timed} pool={n_pages}",
+        "checks": checks, **extra,
         "edges_max_abs_err": _decode_edges("flash_decode_paged", g, False, h=h, d=d, ps=ps),
-        **_decode_checks("flash_decode_paged", paged, paged_plain,
-                         lambda: fd.split_partials(q1, kp, vp, lens, table), flush, 200)}
+        **_decode_checks("flash_decode_paged", lambda: fd.flash_decode_paged(*ctl),
+                         lambda: fd.flash_decode_paged_reference(*ctl),
+                         lambda: fd.split_partials(ctl[0], ctl[1], ctl[2], ctl[4], ctl[3]),
+                         flush, 200)}
+
+
+def _p64_kernel_row(launches):
+    """Kernel 2 at page 64, the elastic leg's shape (contexts up to 528,
+    its pool): :func:`_page_row` at context pairs from 1 to 528, timed at
+    rows of 528 and 520 as row 2 is timed."""
+    pp = -(-(ELASTIC_CTX + ELASTIC_NEW) // ELASTIC_PS) + 1
+    n_pages = 4 * ((ELASTIC_CTX + ELASTIC_NEW) // ELASTIC_PS + 1)  # the leg's pool
+    return _page_row("flash_decode_paged_p64", launches, SEED + 16, ELASTIC_PS, n_pages, pp,
+                     ([1, 528], [64, 65], [255, 257], [300, 512], [527, 1]),
+                     [ELASTIC_CTX + ELASTIC_NEW, ELASTIC_CTX + 8])
+
+
+# -- the port's doctor (step 21) -------------------------------------------
+
+#: the doctor's LM drills (``doctor.py::_drill_config``): B 2 slots, 4 heads
+#: x 64, pages of 16 in a pool of 24, contexts up to max_seq 48
+DOCTOR_PS, DOCTOR_POOL, DOCTOR_MAX_SEQ = 16, 24, 48
+
+
+def _doctor_phase(counted):
+    """``distriflow_tpu_torch.doctor.main()`` on ``cuda`` in this process,
+    in a launch window of its own: exit 0, "all checks passed", every
+    check ``ok`` (its line and its report row). Returns ``(report, launch
+    counts)``; ``report["checks"]`` has each check's wall seconds."""
+    import contextlib
+    import io
+
+    from distriflow_tpu_torch import doctor
+
+    rows, out = [], io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc, counts = counted(lambda: doctor.main(["--device", "cuda"], rows))
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    assert rc == 0 and "all checks passed" in text, f"the doctor exited {rc}"
+    assert len(rows) == 22 and all(r["status"] == "ok" for r in rows), rows
+    for r in rows:
+        assert f"  ok   {r['name']}" in text, r["name"]
+    assert counts["flash_decode_paged"] > 0, counts
+    assert counts["flash_attention_fwd"] == 0, counts
+    return {"wall_s": wall, "checks": {r["name"]: r["s"] for r in rows},
+            "launches": {k: counts[k] for k in ("flash_decode_paged", "flash_decode")}}, counts
+
+
+def _p16_kernel_row(launches):
+    """Kernel 2 at page 16, the doctor's drills' shape (a pool of 24 pages,
+    contexts up to 48), where a split spans 16 pages: :func:`_page_row` at
+    the context pairs 1/15/16/17/33/48 (rows of unequal length), timed at
+    rows of 48 and 33; the wrong combines and the split sweep on rows of
+    700 and 300, which span several splits."""
+    from distriflow_tpu_torch.models.generate import pages_per_slot
+
+    pp = pages_per_slot(DOCTOR_MAX_SEQ, DOCTOR_PS) + 1  # the engine's table width
+    return _page_row("flash_decode_paged_p16", launches, SEED + 17, DOCTOR_PS, DOCTOR_POOL, pp,
+                     ([1, 48], [15, 33], [16, 17], [17, 16], [33, 1], [48, 15]),
+                     [DOCTOR_MAX_SEQ, 33], control=[700, 300])
 
 
 def _roofline_phase(cost, rows):
@@ -4074,6 +4160,10 @@ def main() -> int:
     fleet_report, fleet_counts = _fleet_phase(counted)
     fleet_report["phase_s"] = time.perf_counter() - t0
     print("fleet:", json.dumps(fleet_report), flush=True)
+    # the port's doctor on the card: its 22 checks, the LM drills on the
+    # paged decode kernel at page 16
+    doctor_report, doctor_counts = _doctor_phase(counted)
+    print("doctor:", json.dumps(doctor_report), flush=True)
 
     # training: the flagship from the same tree as f32 masters, one batch
     tokens = np.random.default_rng(SEED + 2).integers(
@@ -4105,7 +4195,7 @@ def main() -> int:
                                     lt_batch, lt_report)
     print("inprocess_training:", json.dumps(ip_report), flush=True)
     paths = {"serving": serving, "solo_generate": solo, **long_counts, **spec_counts,
-             **fleet_counts, "training": training, **mn_counts, "long_training": long_training, **cn_counts,
+             **fleet_counts, "doctor": doctor_counts, "training": training, **mn_counts, "long_training": long_training, **cn_counts,
              **wire_counts, **ip_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
@@ -4124,6 +4214,7 @@ def main() -> int:
            **{w: ("flash_attention_fwd", "flash_decode_paged")
               for w in ("fleet_round_robin", "fleet_affinity", "fleet_elastic", "fleet_autoscale")},
            "fleet_solo": ("flash_attention_fwd", "flash_decode"),
+           "doctor": ("flash_decode_paged", "flash_decode"),
            "training": ("flash_attention_fwd",) + training_only,
            "mobilenet_train": ("depthwise_gn_fwd", "depthwise_gn_bwd"),
            "mobilenet_eval": ("depthwise_gn_fwd",),
@@ -4222,18 +4313,22 @@ def main() -> int:
                                       for w in spec_windows),
         "flash_decode_d32": spec_counts["draft_solo"]["flash_decode_d32"]})
     rows.append(_p64_kernel_row(fleet_counts["fleet_elastic"]["flash_decode_paged"]))
+    rows.append(_p16_kernel_row(doctor_counts["flash_decode_paged"]))
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",
                "flash_attention_dq": "long_training", "flash_attention_dkv": "long_training",
                "fused_ce_dense_fwd": "convnet_train", "fused_ce_dense_bwd": "convnet_train",
                "flash_attention_fwd_d32": "spec_1k", "flash_decode_paged_d32": "spec_1k",
-               "flash_decode_d32": "draft_solo", "flash_decode_paged_p64": "fleet_elastic"}
+               "flash_decode_d32": "draft_solo", "flash_decode_paged_p64": "fleet_elastic",
+               "flash_decode_paged_p16": "doctor"}
     for r in rows:
         r["floor_ms"] = floor
         r["path"] = path_of.get(r["name"], "serving")
-        # page 64 runs on the elastic leg alone (the counters do not split by page)
-        r["launches_by_path"] = ({r["path"]: r["launches"]} if r["name"] == "flash_decode_paged_p64"
+        # page 64 runs on the elastic leg alone, page 16 in the doctor alone
+        # (the counters do not split by page)
+        by_page = r["name"] in ("flash_decode_paged_p64", "flash_decode_paged_p16")
+        r["launches_by_path"] = ({r["path"]: r["launches"]} if by_page
                                  else {p: c[r["name"]] for p, c in paths.items()})
     print("decode_iteration_profile:",
           json.dumps(_profile_decode_iteration(model, rng, [128, 300, 512, 1000] * 2)), flush=True)
@@ -4246,7 +4341,7 @@ def main() -> int:
           flush=True)
     roofline = _roofline_phase(ip_report["cost"], rows)
     print("roofline:", json.dumps(roofline), flush=True)
-    assert len(rows) == 18, [r["name"] for r in rows]
+    assert len(rows) == 19, [r["name"] for r in rows]
     print(json.dumps({"kernels": _with_spread(rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

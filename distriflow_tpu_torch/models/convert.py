@@ -17,12 +17,14 @@ tree, and :func:`zoo_params_from_jax` for the zoo's MLP and ConvNet (f32
 masters only; the models cast them on every call).
 :func:`zoo_params_to_jax` is the exact inverse of both: the wire layout
 of those specs (:func:`with_flax_wire`), since the wire keys every leaf
-by its path in flax's tree.
+by its path in flax's tree. :func:`random_lm_tree` draws a flax-shaped
+LM tree from a numpy generator (seeded random weights to carry over).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -148,3 +150,29 @@ def lm_from_jax(config: TransformerConfig, tree: Mapping[str, Any],
     model = TransformerLM(config, device=device, trainable=trainable)
     model.load_state_dict(params_from_jax(tree, config, masters=trainable), strict=True)
     return model
+
+
+def random_lm_tree(config: TransformerConfig, rng: np.random.Generator) -> Dict[str, Any]:
+    """A flax-shaped ``TransformerLM`` params tree (``{"params": ...}``) of
+    f32 numpy arrays: every matmul kernel and the embedding drawn
+    ``normal(0, 1 / fan_in)`` from ``rng`` in a fixed order (embedding,
+    head, then each layer's q, k, v, o, wi, wo), LayerNorm scale 1 and
+    bias 0."""
+    d, h, hd, f, v = (config.d_model, config.n_heads, config.head_dim, config.d_ff,
+                      config.vocab_size)
+
+    def w(*shape, fan_in):
+        return rng.standard_normal(shape, dtype=np.float32) / np.float32(math.sqrt(fan_in))
+
+    def ln():
+        return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
+
+    p = {"embed": {"embedding": w(v, d, fan_in=d)}, "ln_f": ln(),
+         "lm_head": {"kernel": w(d, v, fan_in=d)}}
+    for i in range(config.n_layers):
+        attn = {name: {"kernel": w(d, h, hd, fan_in=d)} for name in ("q_proj", "k_proj", "v_proj")}
+        attn["o_proj"] = {"kernel": w(h, hd, d, fan_in=h * hd)}
+        p[f"layers_{i}"] = {"ln_attn": ln(), "ln_mlp": ln(), "attn": attn,
+                            "mlp": {"wi": {"kernel": w(d, f, fan_in=d)},
+                                    "wo": {"kernel": w(f, d, fan_in=f)}}}
+    return {"params": p}

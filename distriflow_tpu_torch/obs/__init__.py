@@ -2,16 +2,20 @@
 server, client and fleet router call (registry, tracing, profiler, flight
 recorder, ``ReportBuilder``, ``TelemetryCollector``, the windowed
 ``TimelineStore``, the ``HealthSentinel`` with its SLO bands and the
-``FleetTable``, and the trace assembler). The JAX package's ``dump``,
-``ledger`` and ``jax_hooks`` are not ported."""
+``FleetTable``, and the trace assembler), the offline run summary
+``python -m distriflow_tpu_torch.obs.dump <dir>`` (``dump.py``), the bench
+regression ledger (``ledger.py``) and the CUDA device-memory watermark
+(``cuda_hooks.py``, the counterpart of the JAX package's ``jax_hooks``)."""
 
 from distriflow_tpu_torch.obs.collector import ReportBuilder, TelemetryCollector  # noqa: F401
+from distriflow_tpu_torch.obs.cuda_hooks import install_cuda_hooks  # noqa: F401
 from distriflow_tpu_torch.obs.health import (  # noqa: F401
     FleetTable,
     HealthSentinel,
     SLOBand,
     default_bands,
 )
+from distriflow_tpu_torch.obs.ledger import BenchLedger, band_for, lower_is_better  # noqa: F401
 from distriflow_tpu_torch.obs.telemetry import (  # noqa: F401
     Telemetry,
     get_telemetry,

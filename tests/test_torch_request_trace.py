@@ -13,7 +13,8 @@
   metadata, per-slot TPOT under unequal budgets, one round per request
   and zero orphan spans after a replica is killed mid-decode and after a
   hedge, the shed verdict and the router's fleet row reconciled with its
-  counters. The JAX package's ``dump`` reads the port's run dir.
+  counters. The port's ``dump`` and the JAX package's read the port's run
+  dir and print the same lines.
 """
 
 import dataclasses
@@ -405,15 +406,35 @@ def test_chaos_failover_assembles_one_round_per_request(fleet_traced, params):
     for r in failed_over:
         assert r.attrs["replicas"] == ["A", "B"]
     assert sum(r.retries for r in reqs) == tel.counter_value("router_failovers_total")
-    # the JAX package's dump reads the port's run dir
+    # both packages' dump read the port's run dir, line for line
     from distriflow_tpu.obs.dump import summarize_requests
-    body = "\n".join(summarize_requests(run_dir))
+    from distriflow_tpu_torch.obs.dump import summarize_requests as port_summarize_requests
+    lines = port_summarize_requests(run_dir)
+    assert lines == summarize_requests(run_dir)
+    assert port_summarize_requests(run_dir, tier=0) == summarize_requests(run_dir, tier=0)
+    body = "\n".join(lines)
     assert "3 assembled, 3 committed, 0 orphan span(s)" in body and "B[forwarded]" in body
+
+
+def _straggle_until_cancelled(server, tel, timeout_s=30.0):
+    """Make ``server`` the hedge's straggler: its batch window stays open
+    until a ``hedge_cancel`` has flagged the loser (or ``timeout_s``), so the
+    hedged duplicate wins however long the winner's prefill takes on a
+    loaded host (a fixed window raced the winner's compute)."""
+    def window_s():
+        deadline = time.monotonic() + timeout_s
+        while (tel.counter_value("serving_hedge_cancelled_total") < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        return 0.0
+
+    server._window_s = window_s
 
 
 def test_hedged_request_assembles_one_round(model, params):
     tel = Telemetry()
-    sa = _replica(model, tel, batch_window_s=0.25)  # the straggler
+    sa = _replica(model, tel)
+    _straggle_until_cancelled(sa, tel)  # the straggler
     sb = _replica(model, tel)
     router = FleetRouter(port=0, policy="ring", stats_interval_s=0.0, redial=False,
                          telemetry=tel, hedge_ms={0: 25.0})
@@ -428,7 +449,11 @@ def test_hedged_request_assembles_one_round(model, params):
             assert c.last_replica == "B"
         np.testing.assert_array_equal(out, _solo(params, p, 3))
         assert tel.counter_value("router_hedges_total") == 1.0
-        time.sleep(0.4)  # the loser retires unadmitted once A's window closes
+        # the loser retires unadmitted once A's window closes on the cancel
+        deadline = time.monotonic() + 10.0
+        while len(tel.tracer.finished("retire")) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert tel.counter_value("serving_hedge_cancelled_total") == 1.0
     finally:
         router.stop()
         sa.stop()
@@ -475,5 +500,8 @@ def test_shed_verdict_wrong_hint_and_fleet_row(fleet_traced, params):
     assert fleet["A"]["role"] == fleet["B"]["role"] == "replica"
     tel.export_snapshot()
     from distriflow_tpu.obs.dump import summarize_fleet
-    body = "\n".join(summarize_fleet(run_dir))
+    from distriflow_tpu_torch.obs.dump import summarize_fleet as port_summarize_fleet
+    lines = port_summarize_fleet(run_dir)
+    assert lines == summarize_fleet(run_dir)
+    body = "\n".join(lines)
     assert "role=router" in body and "role=replica" in body

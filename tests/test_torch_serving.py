@@ -227,6 +227,13 @@ def test_port_imports_no_jax():
         "    ReplicaRegistry, ReplicaState, RouterClient, page_hashes, shareable_pages)\n"
         "from distriflow_tpu_torch.obs import (HealthSentinel, SLOBand, TimelineStore,\n"
         "    assemble, default_bands)\n"
+        # the doctor and what it drives
+        "from distriflow_tpu_torch.fleet import (AdaptiveController, SoakConfig, SoakModel,\n"
+        "    run_soak)\n"
+        "from distriflow_tpu_torch.obs import BenchLedger, install_cuda_hooks\n"
+        "from distriflow_tpu_torch.obs.dump import main, summarize_timeline\n"
+        "from distriflow_tpu_torch.parallel import collective_latency_us, data_parallel_mesh\n"
+        "from distriflow_tpu_torch.doctor import main\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distriflow_tpu', 'experiments'))\n"
         "print(bad)\n"
