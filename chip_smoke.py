@@ -289,6 +289,23 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     H 4, contexts 1-48; a split spans 16 pages), with the split edges at
     page 16 and, on rows of 700 and 300, the wrong combines rejected and
     the split sweep.
+22. The port's static analysis (``analysis:`` line, right after the
+    build): ``distriflow_tpu_torch.analysis.run_checks`` over the port's
+    package with its four families (lock, obs, wire, resource) and the
+    port's ``analysis/baseline.json``. Any finding the baseline does not
+    hold, any stale baseline entry, or a source file that does not parse
+    fails the run; the line holds the findings, baselined and stale
+    counts, the families, the files parsed and the wall seconds.
+23. Live wire payloads held to the port's ``comm/schema.py::
+    check_payload`` (``payloads:`` line): every ``generate``/``beam``/
+    ``score`` request and ack of the serving phases' clients (step 2 and
+    step 5), with each ack's ``serving_meta``; in the wire phase (step
+    16) every telemetry report a client's ``ReportBuilder`` builds and
+    every ``dftp_leaf`` of every dftp-flat blob serialized (the dense and
+    the int8 uploads of CUDA gradients, the CUDA weight downloads), then
+    one top-k blob of the ConvNet's CUDA parameters (f32 and int8 values,
+    the sparse ``since=2`` fields). A payload that fails its schema fails
+    the run; every payload name must be seen at least once.
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -516,10 +533,140 @@ def _requests(rng: np.random.Generator, vocab: int):
     return reqs
 
 
-def _serve(model, reqs, counted, direct=()):
+class _LivePayloads:
+    """Live wire payloads held to the port's ``comm/schema.py::
+    check_payload``: a count per payload name and phase. A payload that
+    fails its schema raises on the thread that carried it and is kept in
+    ``failures``, which :meth:`report` requires empty (a thread may
+    swallow the error)."""
+
+    #: request event -> (request schema, ack schema)
+    SERVING = {"generate": ("generate_request", "generate_ack"),
+               "beam": ("beam_request", "direct_ack"),
+               "score": ("score_request", "direct_ack")}
+    WIRE = ("report", "dftp_leaf")
+
+    def __init__(self):
+        self.counts = collections.defaultdict(collections.Counter)
+        self.leaf_kinds = collections.Counter()
+        self.failures = []
+        self._lock = threading.Lock()
+
+    def check(self, phase, name, payload):
+        from distriflow_tpu_torch.comm.schema import PAYLOADS, check_payload
+
+        try:
+            check_payload(name, payload)
+        except (KeyError, ValueError) as e:
+            with self._lock:
+                self.failures.append(f"{phase}/{name}: {e}")
+            raise
+        with self._lock:
+            self.counts[phase][name] += 1
+        for field in PAYLOADS[name].fields:  # nested payloads: an ack's serving_meta
+            if field.payload is not None and payload.get(field.name) is not None:
+                self.check(phase, field.payload, payload[field.name])
+
+    def tap(self, client):
+        """Hold every generate/beam/score request an ``InferenceClient``
+        sends and every ack it gets back."""
+        send = client._request
+
+        def request(event, payload):
+            names = self.SERVING.get(event)
+            if names:
+                self.check("serving", names[0], payload)
+            ack = send(event, payload)
+            if names:
+                self.check("serving", names[1], ack)
+            return ack
+
+        client._request = request
+        return client
+
+    @contextlib.contextmanager
+    def wire(self):
+        """Inside the block, hold every report a ``ReportBuilder`` builds
+        and every leaf of every dftp-flat blob serialized."""
+        from unittest import mock
+
+        from distriflow_tpu_torch.obs import collector
+        from distriflow_tpu_torch.utils import serialization
+
+        build, flat = collector.ReportBuilder.build, serialization.flat_serialize
+
+        def checked_build(rb, *args, **kw):
+            report = build(rb, *args, **kw)
+            self.check("wire", "report", report)
+            return report
+
+        def checked_flat(serialized):
+            blob, meta = flat(serialized)
+            for leaf in meta["leaves"]:
+                self.check("wire", "dftp_leaf", leaf)
+                kind = ("sparse" if leaf.get("encoding") == "sparse"
+                        else "int8" if "scale" in leaf else "dense")
+                with self._lock:
+                    self.leaf_kinds[kind] += 1
+            return blob, meta
+
+        with mock.patch.object(collector.ReportBuilder, "build", checked_build), \
+                mock.patch.object(serialization, "flat_serialize", checked_flat):
+            yield
+
+    def report(self):
+        """The ``payloads:`` line; every payload name seen at least once."""
+        want = {"serving": sorted({n for pair in self.SERVING.values() for n in pair}
+                                  | {"serving_meta"}),
+                "wire": list(self.WIRE)}
+        assert not self.failures, f"payloads that failed their schema: {self.failures}"
+        missing = {phase: [n for n in names if not self.counts[phase][n]]
+                   for phase, names in want.items()}
+        assert not any(missing.values()), f"payloads never seen: {missing}"
+        assert all(self.leaf_kinds[k] for k in ("dense", "int8", "sparse")), self.leaf_kinds
+        return {**{phase: dict(sorted(self.counts[phase].items())) for phase in want},
+                "dftp_leaf_kinds": dict(sorted(self.leaf_kinds.items()))}
+
+
+def _topk_probe(tree, device="cuda"):
+    """One top-k upload's encoding of CUDA tensors: each ConvNet parameter
+    of ``tree`` on ``device`` through ``topk_array`` at 0.25 (f32 values)
+    and again with int8 values, packed as one dftp-flat blob each. Returns
+    the leaves encoded."""
+    from distriflow_tpu_torch.utils.serialization import pack_bytes, topk_array
+
+    params = _wire_model(tree, device).get_params()
+    for quantize in (False, True):
+        pack_bytes({k: topk_array(v, 0.25, quantize=quantize) for k, v in params.items()})
+    return 2 * len(params)
+
+
+def _analysis_phase():
+    """The port's static analysis over its own package with its baseline
+    (all four families). Fails on a finding the baseline does not hold, a
+    stale baseline entry or a file that does not parse."""
+    from distriflow_tpu_torch.analysis import ALL_FAMILIES, run_checks
+    from distriflow_tpu_torch.analysis.core import (PACKAGE_ROOT, load_baseline,
+                                                    load_modules, match_baseline)
+
+    t0 = time.perf_counter()
+    findings = run_checks([PACKAGE_ROOT])
+    wall = time.perf_counter() - t0
+    fresh, stale = match_baseline(findings, load_baseline())
+    parsed, files = len(load_modules([PACKAGE_ROOT])), len(list(PACKAGE_ROOT.rglob("*.py")))
+    assert not fresh, "\n".join(f.render() for f in fresh)
+    assert not stale, f"stale baseline entries: {stale}"
+    assert parsed == files, f"{files - parsed} source files did not parse"
+    return {"findings": len(fresh), "baselined": len(findings) - len(fresh),
+            "stale": len(stale), "families": list(ALL_FAMILIES), "files_parsed": parsed,
+            "wall_s": wall}
+
+
+def _serve(model, reqs, counted, direct=(), payloads=None):
     """Drive the port's server with the port's client: the ``generate``
     requests in one counted window (:func:`_generate_wave`), then each
-    ``(name, fn(client))`` of ``direct`` in a window of its own. Returns
+    ``(name, fn(client))`` of ``direct`` in a window of its own; with
+    ``payloads`` (a :class:`_LivePayloads`) every client is tapped. Returns
     ``(outputs by name, engine stats, the generate window's launch counts,
     {name: (result, launch counts)})`` after stopping the server."""
     from distriflow_tpu_torch.client.inference_client import InferenceClient
@@ -528,6 +675,8 @@ def _serve(model, reqs, counted, direct=()):
 
     server = InferenceServer(model, telemetry=Telemetry()).setup()
     clients = [InferenceClient(server.address, timeout=600).setup() for _ in reqs]
+    if payloads is not None:
+        clients = [payloads.tap(c) for c in clients]
     try:
         (outs, stats), counts = counted(lambda: _generate_wave(server, clients, reqs))
         done = {name: counted(lambda fn=fn: fn(clients[0])) for name, fn in direct}
@@ -1222,7 +1371,7 @@ def _long_requests(rng: np.random.Generator, vocab: int):
     return reqs
 
 
-def _long_phase(cfg, tree, rng, counted, device="cuda"):
+def _long_phase(cfg, tree, rng, counted, device="cuda", payloads=None):
     """The flagship at max_seq 16384 with ``kv_cache_dtype="int8"``: eight
     generate requests, one beam and one score through the port's server
     and client, each in its own launch-count window, then solo
@@ -1239,7 +1388,7 @@ def _long_phase(cfg, tree, rng, counted, device="cuda"):
     direct = (("beam", lambda c: c.beam_search(beam_prompt, BEAM_TOKENS, beam_size=BEAM_SIZE)),
               ("score", lambda c: c.score(score_tokens, from_pos=SCORE_FROM)))
     t0 = time.perf_counter()
-    outs, stats, serving, done = _serve(model, reqs, counted, direct)
+    outs, stats, serving, done = _serve(model, reqs, counted, direct, payloads)
     wall = time.perf_counter() - t0
     assert stats["prefix_hits"] >= 1, "the prefix-sharing path did not run at long context"
     (beam_toks, beam_scores), beam = done["beam"]
@@ -4092,6 +4241,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    print("analysis:", json.dumps(_analysis_phase()), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = flagship_lm_config()
@@ -4136,7 +4286,8 @@ def main() -> int:
         return out, counts
 
     t0 = time.perf_counter()
-    outs, stats, serving, _ = _serve(model, reqs, counted)
+    payloads = _LivePayloads()
+    outs, stats, serving, _ = _serve(model, reqs, counted, payloads=payloads)
     serve_s = time.perf_counter() - t0
     solos, solo = counted(lambda: _solo(model, reqs))
     report = _check_greedy(model, reqs, outs, solos)
@@ -4146,7 +4297,8 @@ def main() -> int:
 
     # long context: the same tree at max_seq 16384 with the int8 KV cache
     long_cfg = dataclasses.replace(flagship_lm_config(max_seq=LONG_MAX_SEQ), kv_cache_dtype="int8")
-    long_report, long_counts = _long_phase(long_cfg, tree, np.random.default_rng(SEED + 4), counted)
+    long_report, long_counts = _long_phase(long_cfg, tree, np.random.default_rng(SEED + 4), counted,
+                                           payloads=payloads)
     print("long_context:", json.dumps(long_report), flush=True)
     # speculative decoding: a distilled head-dim-32 draft over the target's
     # page pool, at 1k and 16k context, against plain paged decode
@@ -4183,9 +4335,12 @@ def main() -> int:
     # the wire-training planes: the same ConvNet trained by port servers and
     # in-process port workers over loopback TCP
     t0 = time.perf_counter()
-    wire_report, wire_counts = _wire_phase(cn_tree, counted)
-    wire_report["phase_s"] = time.perf_counter() - t0
+    with payloads.wire():
+        wire_report, wire_counts = _wire_phase(cn_tree, counted)
+        wire_report["phase_s"] = time.perf_counter() - t0
+        wire_report["topk_probe_leaves"] = _topk_probe(cn_tree)
     print("wire_training:", json.dumps(wire_report), flush=True)
+    print("payloads:", json.dumps(payloads.report()), flush=True)
     # the in-process trainers on the same ConvNet, then the cost of the
     # ConvNet's and the 16k LM's sync steps at their measured p50
     t0 = time.perf_counter()

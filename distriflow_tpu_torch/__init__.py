@@ -2,7 +2,8 @@
 
 The JAX package stays the reference; this package mirrors its layout
 (``models/``, ``ops/``, ``train/``, ``data/``, ``server/``, ``client/``,
-``comm/``, ``obs/``, ``fleet/``, ``parallel/``, ``utils/``, ``doctor.py``) so each
+``comm/``, ``obs/``, ``fleet/``, ``parallel/``, ``utils/``, ``analysis/``,
+``doctor.py``) so each
 module's counterpart is easy to find. It imports
 ``torch`` and numpy and never ``jax`` or anything under ``distriflow_tpu``.
 

@@ -1,1 +1,3 @@
-"""Port of ``distriflow_tpu/comm``: frame codec and socket transport."""
+"""Port of ``distriflow_tpu/comm``: frame codec, socket transport, and the
+wire-schema registry (``comm/schema.py``: ``MESSAGES``, ``PAYLOADS``,
+``check_payload``), each imported as its submodule."""

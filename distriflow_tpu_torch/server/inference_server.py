@@ -148,6 +148,7 @@ class _PagePool:
     def refcount(self, page: int) -> int:
         return int(self._refs[page])
 
+    # dfcheck: pairs acquire=alloc release=unref
     def alloc(self, n: int) -> List[int]:
         if n > len(self._free):
             raise RuntimeError(
@@ -157,6 +158,7 @@ class _PagePool:
             self._refs[p] = 1
         return pages
 
+    # dfcheck: pairs acquire=ref release=unref mode=state
     def ref(self, pages: List[int]) -> None:
         for p in pages:
             if self._refs[p] <= 0:
@@ -455,6 +457,7 @@ class InferenceServer:
             self.end_drain()
         return {"draining": self._draining}
 
+    # dfcheck: payload -> fleet_stats
     def _on_fleet_stats(self, client_id: str, payload: Any) -> Dict[str, Any]:
         """Routing signals for the fleet router (advisory snapshots).
         ``evicted_prefixes`` is a drain: each evicted hash ships once."""
@@ -488,6 +491,7 @@ class InferenceServer:
             "prefix_entries": len(self._prefix_map),
         }
 
+    # dfcheck: payload payload=hedge_cancel -> hedge_cancel_ack
     def _on_hedge_cancel(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         """Cancel every in-flight admission carrying this request_id (the
         losing attempt of a hedged request)."""
@@ -503,6 +507,7 @@ class InferenceServer:
             self._m_hedge_cancelled.inc(cancelled)
         return {"request_id": rid, "cancelled": cancelled}
 
+    # dfcheck: payload payload=generate_request -> generate_ack
     def _on_generate(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         """Drain refusal + request-id idempotency around :meth:`_generate_ack`."""
         rid = payload.get("request_id")
@@ -544,6 +549,7 @@ class InferenceServer:
             if evt is not None:
                 evt.set()
 
+    # dfcheck: payload payload=generate_request -> generate_ack
     def _generate_ack(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         prompt = _prompt_from(payload, self._prompt_cap())
         n_tokens = int(payload["n_tokens"])
@@ -595,7 +601,7 @@ class InferenceServer:
             if item.result is None and item.error is not None:
                 raise item.error
             out = item.result
-            meta = {"path": "slots"}
+            meta = {"path": "slots"}  # dfcheck: payload serving_meta
             if item.admit_t is not None:
                 meta["queue_ms"] = round((item.admit_t - item.enq_t) * 1000.0, 3)
             if item.page_plan is not None:
@@ -616,13 +622,14 @@ class InferenceServer:
                     top_p=float(top_p) if top_p is not None else None,
                     eos_id=int(eos_id) if eos_id is not None else None,
                 ).cpu().numpy()
-            meta = {"path": "direct"}
+            meta = {"path": "direct"}  # dfcheck: payload serving_meta
         ack = {"result": pack_bytes({"tokens": serialize_array(out)}), "serving": meta}
         tid = payload.get("trace_id")
         if tid:
             ack["trace_id"] = tid
         return ack
 
+    # dfcheck: payload payload=beam_request -> direct_ack
     def _on_beam(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         prompt = _prompt_from(payload, self._prompt_cap())
         n_tokens = int(payload["n_tokens"])
@@ -642,6 +649,7 @@ class InferenceServer:
                       "scores": serialize_array(scores.cpu().numpy())}
         return self._direct_ack(payload, result)
 
+    # dfcheck: payload payload=score_request -> direct_ack
     def _on_score(self, client_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         tokens = _prompt_from(payload, self._prompt_cap())
         from_pos = int(payload.get("from_pos", 1))
@@ -749,6 +757,7 @@ class InferenceServer:
             self._prefix_hit_counts.pop(_h, None)
             shortfall -= self._pool.unref([pg])
 
+    # dfcheck: pairs acquire=_reserve release=_release_plan|_retire_slot counter=_m_pages_freed mode=state
     def _reserve(self, req: _Request) -> bool:
         """The paged admission gate: plan every row's pages (prefix hits
         first, owned pages for the rest of the horizon) and commit the

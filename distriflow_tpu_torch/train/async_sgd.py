@@ -432,7 +432,9 @@ class AsyncSGDTrainer:
         """Install ``params`` (by name; numpy arrays or tensors) and a fresh
         optimizer state; the version is kept (the port's way to start from
         carried-over weights, as ``SyncTrainer.set_params``)."""
-        if self.params is None:  # lifecycle: before the workers start
+        with self._lock:
+            uninitialized = self.params is None
+        if uninitialized:  # init() locks itself
             self.init()
         with self._lock:
             own = self.params
@@ -471,7 +473,7 @@ class AsyncSGDTrainer:
         if self.store is None:
             raise RuntimeError("no checkpoint_dir configured")
         # lifecycle: restore() runs before workers start; init() locks itself
-        if self.params is None:
+        if self.params is None:  # dfcheck: ignore[lock-discipline]
             self.init()
         version = version or self.store.last()
         if version is None:
@@ -693,7 +695,7 @@ class AsyncSGDTrainer:
     def train(self, num_workers: Optional[int] = None) -> Dict[str, int]:
         """Run workers over the dataset until exhausted; returns counters."""
         # lifecycle: no worker threads exist yet; init() locks itself
-        if self.params is None:
+        if self.params is None:  # dfcheck: ignore[lock-discipline]
             self.init()
         n = num_workers if num_workers is not None else len(self.devices)
         errors: List[BaseException] = []

@@ -566,7 +566,7 @@ def flat_serialize(serialized: Dict[str, SerializedArray]) -> Tuple[bytes, Dict[
     offset = 0
     for key in sorted(serialized):
         s = serialized[key]
-        leaf_meta = {
+        leaf_meta = {  # dfcheck: payload dftp_leaf
             "name": key,
             "dtype": s.dtype,
             "shape": list(s.shape),
@@ -597,7 +597,7 @@ def flat_deserialize(data: bytes, meta: Dict[str, Any]) -> Dict[str, SerializedA
     if version not in (_VERSION, _VERSION_SPARSE):
         raise ValueError(f"unsupported dftp-flat version: {version!r}")
     out: Dict[str, SerializedArray] = {}
-    for leaf in meta["leaves"]:
+    for leaf in meta["leaves"]:  # dfcheck: payload dftp_leaf
         start = leaf["byte_offset"]
         end = start + leaf["nbytes"]
         indices = None
@@ -605,8 +605,10 @@ def flat_deserialize(data: bytes, meta: Dict[str, Any]) -> Dict[str, SerializedA
             if leaf.get("index_dtype", "int32") != "int32":
                 raise ValueError(
                     f"unsupported sparse index dtype: {leaf.get('index_dtype')!r}")
-            i_start = leaf["indices_offset"]
-            indices = data[i_start:i_start + leaf["indices_nbytes"]]
+            # v2-only fields: presence is implied by encoding == "sparse"
+            # (a cross-key guard the static checker cannot prove)
+            i_start = leaf["indices_offset"]  # dfcheck: ignore[wire-version]
+            indices = data[i_start:i_start + leaf["indices_nbytes"]]  # dfcheck: ignore[wire-version]
         out[leaf["name"]] = SerializedArray(
             dtype=leaf["dtype"], shape=tuple(leaf["shape"]),
             data=data[start:end], scale=leaf.get("scale"), indices=indices)

@@ -234,6 +234,15 @@ def test_port_imports_no_jax():
         "from distriflow_tpu_torch.obs.dump import main, summarize_timeline\n"
         "from distriflow_tpu_torch.parallel import collective_latency_us, data_parallel_mesh\n"
         "from distriflow_tpu_torch.doctor import main\n"
+        # the static-analysis plane and the wire schema
+        "from distriflow_tpu_torch.analysis import ALL_FAMILIES, run_checks\n"
+        "from distriflow_tpu_torch.analysis.__main__ import main\n"
+        "from distriflow_tpu_torch.analysis.lock_check import check_locks\n"
+        "from distriflow_tpu_torch.analysis.obs_check import check_obs\n"
+        "from distriflow_tpu_torch.analysis.resource_check import check_resource\n"
+        "from distriflow_tpu_torch.analysis.wire_check import check_wire\n"
+        "from distriflow_tpu_torch.comm.schema import MESSAGES, PAYLOADS, check_payload\n"
+        "run_checks([__import__('pathlib').Path(p.__path__[0]) / 'comm'])\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distriflow_tpu', 'experiments'))\n"
         "print(bad)\n"

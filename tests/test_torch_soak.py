@@ -110,6 +110,29 @@ def test_collector_lru_stays_flat():
     assert collector.totals()["client_uploads_total"] == 32.0
 
 
+class _GatedStraggler(SoakModel):
+    """A transient straggler whose recovery is an event, not a fit count:
+    each fit runs ``slow_mult`` x slower until ``overridden()`` holds (the
+    controller's override has reached the client), and at full speed from
+    then on. ``fits_before_fast`` is the number of fits that ran slow."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.overridden = lambda: False
+        self.fits_before_fast = None
+
+    def fit(self, x, y):
+        if self.fits_before_fast is None and self.overridden():
+            self.fits_before_fast = self._fits
+        self.slow_first = self._fits + 1 if self.fits_before_fast is None else 0
+        return super().fit(x, y)
+
+
+def _uploads_of(server, stable_id):
+    rows = server.fleet.snapshot()
+    return sum(rows[c]["uploads"] for c in server.connections_of(stable_id) if c in rows)
+
+
 def test_straggler_override_roundtrip(tmp_path):
     # the fleet shares this process, whose heap holds JAX's and torch's
     # modules: a full collection (~0.1 s) lands inside every round in
@@ -149,9 +172,10 @@ def _straggler_override_roundtrip(tmp_path):
             fleet_straggler_factor=3.0, dump_dir=str(tmp_path))
         controller = AdaptiveController(server, sentinel, recovery_checks=2)
         for i in range(4):
-            model = SoakModel(
-                dim, 0.02, fit_delay_s=0.02, seed=i,
-                slow_first=3 if i == 0 else 0, slow_mult=8.0)
+            model = (_GatedStraggler if i == 0 else SoakModel)(
+                dim, 0.02, fit_delay_s=0.02, seed=i, slow_mult=8.0)
+            if i == 0:
+                slow_model = model
             client = AsynchronousSGDClient(
                 server.address, model,
                 DistributedClientConfig(
@@ -165,6 +189,7 @@ def _straggler_override_roundtrip(tmp_path):
             client.setup(timeout=15.0)
             clients.append(client)
         straggler = clients[0]
+        slow_model.overridden = lambda: straggler.hyperparam("inflight_window") == 1
         assert straggler.hyperparam("inflight_window") == 2
         assert straggler.hyperparam("topk_fraction") == 0.25
 
@@ -186,24 +211,34 @@ def _straggler_override_roundtrip(tmp_path):
             time.sleep(0.02)
         assert straggler.hyperparam("inflight_window") == 1
         assert straggler.hyperparam("topk_fraction") == 1.0
-        while time.monotonic() < deadline:
+        # the band is judged only at a controller poll: poll again once
+        # the server holds an upload from a fast fit, so that rt-0's
+        # latest round is never a stale slow one when its band clears
+        while time.monotonic() < deadline and (
+                slow_model.fits_before_fast is None
+                or _uploads_of(server, "rt-0") <= slow_model.fits_before_fast):
+            time.sleep(0.01)
+        while time.monotonic() < deadline and controller.ramps < 1:
             controller.step()
-            if (dataset.exhausted
-                    and server.applied_updates + server.rejected_updates >= total
-                    and controller.ramps >= 1):
-                break
             time.sleep(0.05)
-        assert dataset.exhausted, "run never drained"
-        assert controller.ramps == 1
-        assert server.client_overrides("rt-0") == {}
-        assert server.override_ids() == []
-        assert tel_s.counter_value("obs_slo_breach_total", band="fleet_straggler") == 1
         clear_deadline = time.monotonic() + 10.0
         while time.monotonic() < clear_deadline:
             if (straggler.hyperparam("inflight_window") == 2
                     and straggler.hyperparam("topk_fraction") == 0.25):
                 break
             time.sleep(0.05)
+        # the roundtrip ends when the cleared override has reached rt-0; the
+        # controller is not polled while the rest drains, where a host stall
+        # on any client would read as a new straggler by the wall clock alone
+        while time.monotonic() < deadline and not (
+                dataset.exhausted
+                and server.applied_updates + server.rejected_updates >= total):
+            time.sleep(0.05)
+        assert dataset.exhausted, "run never drained"
+        assert controller.ramps == 1
+        assert server.client_overrides("rt-0") == {}
+        assert server.override_ids() == []
+        assert tel_s.counter_value("obs_slo_breach_total", band="fleet_straggler") == 1
         assert straggler.hyperparam("inflight_window") == 2
         assert straggler.hyperparam("topk_fraction") == 0.25
         assert tel_s.counter_value("obs_slo_breach_total", band="fleet_straggler") == 1
