@@ -501,6 +501,20 @@ DWGN_SUM_RTOL = 2 ** -7
 # and SPIN_MAX_S, counted in cycles of the H100 SXM's highest SM clock
 # (1.98 GHz), so that a card at a lower clock spins longer, never shorter
 SPIN_MIN_S, SPIN_MAX_S, SPIN_CLOCK_HZ = 1e-4, 0.1, 1.98e9
+# MoE on one card: the JAX repo's bench.py::bench_moe row
+# transformer_moe_flagship (vocab 32000, d_model 512, 8 x 64 heads, d_ff
+# 2048, 8 experts, MOE_LAYERS 2, bf16, adam 1e-3, B 8, S 1024), Switch
+# top-1 and GShard top-2 from one tree; MOE_WARM + MOE_STEPS steps each on
+# windows of the LM CLI's corpus; the capacity sweep of bench_moe (top-2,
+# depth 1, f32, one forward); the top-1 model served at MOE_SERVE_SEQ
+MOE = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=2, d_ff=2048, max_seq=1024,
+           n_experts=8)
+MOE_B, MOE_S, MOE_WARM, MOE_STEPS, MOE_SERVE_SEQ = 8, 1024, 3, 10, 2048
+MOE_CAPACITY_SWEEP = (1.0, 1.25, 2.0)
+MOE_BEAM_PROMPT, MOE_BEAM_TOKENS, MOE_SCORE_LEN, MOE_SCORE_FROM = 512, 16, 1024, 512
+# a decode position whose top-2 router probabilities lie this close is
+# counted: batched and solo matmuls may route it to different experts
+ROUTER_NEAR_TIE = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -712,9 +726,16 @@ def _generate_wave(server, clients, reqs):
         t.join(timeout=600)
     if errs or any(t.is_alive() for t in threads):
         raise RuntimeError(f"requests failed: {errs}")
+    metas = [c.last_serving_meta for c in clients]
     return outs, {
         "decode_batches": server.decode_batches,
+        # one kernel 1 launch a layer a fresh prefill, one kernel 2 launch
+        # a layer a decode step
+        "prefills": server.prefills,
+        "decode_steps": server.decode_batches * server.serving.decode_chunk,
         "prefix_hits": server.prefix_hits,
+        "ttft_ms_p50": float(np.median([m["ttft_ms"] for m in metas])),
+        "tpot_ms_p50": float(np.median([m["tpot_ms"] for m in metas])),
         "phases_ms": {k: {q: v[q] for q in ("count", "p50", "max", "sum")}
                       for k, v in server._prof.digests().items()},
     }
@@ -4214,6 +4235,266 @@ def _roofline_phase(cost, rows):
     return out
 
 
+def _moe_config(k, **kw):
+    """:data:`MOE` at top-``k``, bf16."""
+    from distriflow_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(**MOE, moe_top_k=k, dtype=torch.bfloat16, **kw)
+
+
+def _route_choices(model, record):
+    """Forward hooks on every MoE router of ``model`` setting
+    ``record[layer]`` to the call's top-k expert indices ``[B, S, k]``;
+    returns the hook handles."""
+    def hook(layer, moe):
+        def keep(mod, args, gates):
+            record[layer] = moe._top_k(torch.softmax(gates.detach(), dim=-1))[1]
+        return keep
+    return [blk.moe.router.register_forward_hook(hook(i, blk.moe))
+            for i, blk in enumerate(model.layers)]
+
+
+def _pin_routes(model, record):
+    """Route every MoE layer of ``model`` to the experts of ``record``
+    (:func:`_route_choices` of another model on the same tokens), with
+    gate weights from ``model``'s own router probabilities."""
+    for i, blk in enumerate(model.layers):
+        def top_k(probs, idx=record[i]):
+            idx = idx.reshape(*probs.shape[:-1], idx.shape[-1])
+            return torch.gather(probs, -1, idx), idx
+        blk.moe._top_k = top_k
+
+
+def _moe_step_vs_plain(cfg, tree, x, y, device="cuda"):
+    """An MoE step's loss and gradients through the kernels against the
+    plain path (:func:`_step_vs_plain`'s), routed as the kernel step
+    routed, held to :data:`STEP_TOL`. Routing is a discontinuous choice:
+    where the plain path's own bf16/f32 differences upstream flip a
+    token's expert, that token's whole contribution (and, at capacity,
+    its neighbours' slots) moves to another expert's gradient, whatever
+    the kernels compute. So the plain step that routes on its own is
+    reported beside it with the tokens routed apart per layer, not held."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.transformer import transformer_lm
+
+    x, y = torch.as_tensor(x, device=device), torch.as_tensor(y, device=device)
+    plain = dataclasses.replace(cfg, use_flash_attention=False, loss="sparse_softmax_cross_entropy")
+
+    def step(c, record=None, pinned=None):
+        model = lm_from_jax(c, tree, device=device, trainable=True)
+        hooks = [] if record is None else _route_choices(model, record)
+        if pinned is not None:
+            _pin_routes(model, pinned)
+        loss, grads = transformer_lm(c, device=device).grad_fn()(model, x, y)
+        for h in hooks:
+            h.remove()
+        return float(loss), grads
+
+    routes_k, routes_p = {}, {}
+    kernels = step(cfg, routes_k)
+    own = step(plain, routes_p)
+    apart = {i: int((routes_k[i].sort(-1).values != routes_p[i].sort(-1).values).any(-1).sum())
+             for i in routes_k}
+    (lk, gk), (lp, gp) = kernels, own
+    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30)) for n in gp}
+    worst = max(rel, key=rel.get)
+    own_report = {"loss_plain": lp, "loss_abs_diff": abs(lk - lp),
+                  "grad_rel_frobenius_max": rel[worst], "worst_param": worst,
+                  "grad_rel_frobenius_median": float(np.median(list(rel.values()))),
+                  "tokens_routed_apart": apart, "tokens": x.numel()}
+    del own, gp
+    out = {"kernels": kernels, "plain": step(plain, pinned=routes_k)}
+    report = {"batch": x.shape[0], "seq": x.shape[1], "routed_as_kernel_step": True}
+    try:
+        report.update(_grads_vs_plain(out, STEP_TOL))
+    except AssertionError:
+        print("moe step against the plain step routing on its own:", json.dumps(own_report),
+              flush=True)
+        raise
+    report["plain_routing_on_its_own"] = own_report
+    return report
+
+
+def _expert_times(cfg, flush, device="cuda"):
+    """The experts' two products at the top-2 training shape (``[G, E, C,
+    d] x [E, d, f]``, gelu, ``x [E, f, d]``) in f32, as the MoE layer runs
+    them (JAX's promotion), and in bf16 for comparison."""
+    from distriflow_tpu_torch.models.transformer import _auto_block
+
+    n = MOE_B * MOE_S
+    g = _auto_block(n, cfg.moe_group_size)
+    c = max(1, int(cfg.capacity_factor * 2 * g / cfg.n_experts))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    shape = (n // g, cfg.n_experts, c, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=device)
+    wi = torch.randn(cfg.n_experts, cfg.d_model, cfg.d_ff, generator=gen, device=device) / 32
+    wo = torch.randn(cfg.n_experts, cfg.d_ff, cfg.d_model, generator=gen, device=device) / 64
+
+    def run(x, wi, wo):
+        h = torch.nn.functional.gelu(torch.einsum("xecd,edf->xecf", x, wi), approximate="tanh")
+        return torch.einsum("xecf,efd->xecd", h, wo)
+
+    bf = [t.to(torch.bfloat16) for t in (x, wi, wo)]
+    flops = 4.0 * shape[0] * cfg.n_experts * c * cfg.d_model * cfg.d_ff
+    f32_ms, bf16_ms = _timed(lambda: run(x, wi, wo), 10, flush), _timed(lambda: run(*bf), 10, flush)
+    return {"shape_xecd": list(shape), "d_ff": cfg.d_ff, "flops": flops, "f32_ms": f32_ms,
+            "f32_tflops": flops / f32_ms / 1e9, "bf16_ms": bf16_ms,
+            "bf16_tflops": flops / bf16_ms / 1e9}
+
+
+def _moe_train_leg(k, tree, batches, counted, device="cuda"):
+    """Top-``k`` trained on ``batches`` in a launch window of its own (per
+    step exactly: kernel 1 and the fused backward once a layer, the CE
+    forward and backward once); then its cost, MFU and phase split at the
+    timed steps' p50, one profiled step and the kernel step against the
+    plain step. Returns ``(report, launch counts)``."""
+    from distriflow_tpu_torch.models.transformer import moe_phase_fwd_flops
+
+    cfg = _moe_config(k)
+    (trainer, losses, ms), counts = counted(lambda: _train(cfg, tree, batches, device))
+    per_step = {"flash_attention_fwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    for name, n in counts.items():
+        assert n == per_step.get(name, 0) * len(batches), (f"moe_train_top{k}", name, n, counts)
+    drops = [float(b.moe.dropped_fraction) for b in trainer.model.layers]
+    x, y = batches[-1]
+    with torch.no_grad():
+        _, aux = trainer.model(torch.as_tensor(x, device=device), with_aux=True)
+    timed = ms[MOE_WARM:]
+    p50 = float(np.median(timed))
+    cost = trainer.cost_analysis((x, y))
+    report = {
+        "top_k": k, "steps": len(batches), "warm_steps": MOE_WARM, "batch": MOE_B, "seq": MOE_S,
+        "loss": trainer.spec.loss, "step_ms_p50": p50, "step_ms_max": max(timed),
+        "tokens_per_s": MOE_B * MOE_S / (p50 / 1e3),
+        "mfu": trainer.mfu((x, y), step_seconds=p50 / 1e3), "flops": cost["flops"],
+        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+        "aux_weighted": float(aux), "dropped_fraction": drops}
+    # bench.py's exact-FLOP split: each phase's share of the step's FLOPs
+    # (forward x 3 for forward and backward) of the p50 step
+    fwd = moe_phase_fwd_flops(cfg, MOE_B * MOE_S)
+    split = {f"top{k}_{p}_ms": p50 * v * cfg.n_layers * 3 / cost["flops"] for p, v in fwd.items()}
+    split[f"top{k}_other_ms"] = p50 - sum(split.values())
+    report["phase_split"] = split
+    prof = _profiled(lambda: trainer.step((x, y)))
+    prof["top_kernels"] = prof["top_kernels"][:5]
+    report["step_profile"] = prof
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], f"top-{k} loss did not fall: {losses}"
+    del trainer
+    report["step_vs_plain"] = _moe_step_vs_plain(cfg, tree, x, y, device)
+    return report, counts
+
+
+def _router_near_ties(model, record):
+    """Forward hooks counting, at every single-token decode call of every
+    MoE layer, the positions whose top-2 router probabilities lie within
+    :data:`ROUTER_NEAR_TIE` (device tensors appended to ``record``)."""
+    def hook(mod, args, gates):
+        if gates.shape[1] == 1:
+            top = torch.topk(torch.softmax(gates, dim=-1), 2, dim=-1).values
+            record.append(((top[..., 0] - top[..., 1]) < ROUTER_NEAR_TIE).sum())
+            record.append(torch.tensor(-gates.shape[0], device=gates.device))
+    return [blk.moe.router.register_forward_hook(hook) for blk in model.layers]
+
+
+def _moe_serving_leg(tree, rng, counted, device="cuda"):
+    """The top-1 model at max_seq :data:`MOE_SERVE_SEQ` behind the port's
+    server (default ``ServingConfig``): the 2k recipe's eight requests,
+    then one beam and one score, each in its own window; solo
+    ``generate()`` in a window of its own for the greedy parity. Returns
+    ``(report, launch counts by window)``."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.generate import beam_search, sequence_logprob
+
+    cfg = dataclasses.replace(_moe_config(1), max_seq=MOE_SERVE_SEQ)
+    n = cfg.n_layers
+    model = lm_from_jax(cfg, tree, device=device)
+    reqs = _requests(rng, cfg.vocab_size)
+    beam_prompt = rng.integers(0, cfg.vocab_size, (1, MOE_BEAM_PROMPT)).astype(np.int32)
+    score_tokens = rng.integers(0, cfg.vocab_size, (1, MOE_SCORE_LEN)).astype(np.int32)
+    direct = (("beam", lambda c: c.beam_search(beam_prompt, MOE_BEAM_TOKENS, beam_size=4)),
+              ("score", lambda c: c.score(score_tokens, from_pos=MOE_SCORE_FROM)))
+    t0 = time.perf_counter()
+    outs, stats, serving, done = _serve(model, reqs, counted, direct)
+    wall = time.perf_counter() - t0
+    (beam_toks, beam_scores), beam = done["beam"]
+    served_score, score = done["score"]
+    ties = []
+    hooks = _router_near_ties(model, ties)
+    solos, solo = counted(lambda: _solo(model, reqs))
+    for h in hooks:
+        h.remove()
+    near = torch.stack(ties).reshape(-1, 2).sum(0).tolist() if ties else [0, 0]
+    parity = _check_greedy(model, reqs, outs, solos, N_TOKENS)
+    windows = {"moe_serving": serving, "moe_solo_generate": solo, "moe_beam": beam,
+               "moe_score": score}
+    want = {"moe_serving": {"flash_attention_fwd": n * stats["prefills"],
+                            "flash_decode_paged": n * stats["decode_steps"]},
+            "moe_solo_generate": {"flash_attention_fwd": n * len(reqs),
+                                  "flash_decode": n * len(reqs) * (N_TOKENS - 1)},
+            "moe_beam": {"flash_attention_fwd": n, "flash_decode": n * (MOE_BEAM_TOKENS - 1)},
+            "moe_score": {"flash_attention_fwd": n}}
+    assert stats["prefills"] > 0 and stats["decode_steps"] > 0, stats
+    for w, counts in windows.items():
+        for name, c in counts.items():
+            assert c == want[w].get(name, 0), (w, name, c, counts, stats)
+    ref_toks, ref_scores = beam_search(model, beam_prompt, MOE_BEAM_TOKENS, beam_size=4)
+    assert np.array_equal(np.asarray(beam_toks), ref_toks.cpu().numpy()), "served beam != solo"
+    want_score = float(sequence_logprob(model, score_tokens, MOE_SCORE_FROM)[0])
+    got_score = float(np.asarray(served_score)[0])
+    rel = abs(got_score - want_score) / abs(want_score)
+    assert math.isfinite(got_score) and rel <= SCORE_RTOL, (got_score, want_score, rel)
+    report = {
+        "max_seq": cfg.max_seq, "top_k": 1, "serving": {"wall_s": wall, **stats},
+        "parity": parity,
+        "router_near_ties": {"positions": near[0], "decode_positions_x_layers": -near[1],
+                             "within": ROUTER_NEAR_TIE},
+        "beam": {"prompt": MOE_BEAM_PROMPT, "n_tokens": MOE_BEAM_TOKENS, "beam_size": 4,
+                 "score": float(np.asarray(beam_scores)[0]), "equal_to_solo": True},
+        "score": {"len": MOE_SCORE_LEN, "from_pos": MOE_SCORE_FROM, "served": got_score,
+                  "solo": want_score, "rel_diff": rel, "limit": SCORE_RTOL},
+        "decode_iteration_profile": _profile_decode_iteration(model, rng, [128, 300, 512, 1000] * 2)}
+    return report, windows
+
+
+def _moe_phase(counted, device="cuda"):
+    """MoE on one card: legs (a) ``moe_train_top1``/``moe_train_top2``,
+    (b) the capacity sweep, (c) ``moe_serving`` with its ``moe_beam`` and
+    ``moe_score`` windows. Returns ``(report, launch counts by window)``."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax, random_lm_tree
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    tree = random_lm_tree(_moe_config(1), rng)  # one tree for top-1 and top-2
+    batches = _corpus_windows(_markov_corpus(CORPUS_TOKENS, SEED), MOE_B, MOE_S,
+                              MOE_WARM + MOE_STEPS, SEED + 17)
+    report, windows = {"config": {**MOE, "dtype": "bfloat16", "optimizer": "adam", "lr": 1e-3}}, {}
+    for k in (1, 2):
+        report[f"top{k}"], windows[f"moe_train_top{k}"] = _moe_train_leg(k, tree, batches, counted,
+                                                                         device)
+    report["expert_products"] = _expert_times(_moe_config(2), _flush_buffer(), device)
+    sweep_cfg = dataclasses.replace(_moe_config(2), n_layers=1, dtype=torch.float32,
+                                    use_flash_attention=False, use_flash_decode=False,
+                                    loss="sparse_softmax_cross_entropy")
+    xs = torch.as_tensor(rng.integers(0, MOE["vocab_size"], (MOE_B, MOE_S)), device=device)
+    sweep = []
+    for f in MOE_CAPACITY_SWEEP:
+        model = lm_from_jax(dataclasses.replace(sweep_cfg, capacity_factor=f), tree, device=device)
+        with torch.no_grad():
+            model(xs)
+        sweep.append({"capacity_factor": f,
+                      "dropped_fraction": float(model.layers[0].moe.dropped_fraction)})
+        del model
+    drops = [r["dropped_fraction"] for r in sweep]
+    assert drops == sorted(drops, reverse=True), sweep  # more capacity drops no more
+    report["capacity_sweep"] = sweep
+    report["serving"], serve_windows = _moe_serving_leg(tree, rng, counted, device)
+    windows.update(serve_windows)
+    report["phase_s"] = time.perf_counter() - t0
+    return report, windows
+
+
 def main() -> int:
     import argparse
 
@@ -4316,6 +4597,10 @@ def main() -> int:
     # paged decode kernel at page 16
     doctor_report, doctor_counts = _doctor_phase(counted)
     print("doctor:", json.dumps(doctor_report), flush=True)
+    # MoE on one card: Switch top-1 and GShard top-2 trained, the capacity
+    # sweep, the top-1 model served (each window checked exactly inside)
+    moe_report, moe_counts = _moe_phase(counted)
+    print("moe:", json.dumps(_with_spread(moe_report)), flush=True)
 
     # training: the flagship from the same tree as f32 masters, one batch
     tokens = np.random.default_rng(SEED + 2).integers(
@@ -4350,7 +4635,7 @@ def main() -> int:
                                     lt_batch, lt_report)
     print("inprocess_training:", json.dumps(ip_report), flush=True)
     paths = {"serving": serving, "solo_generate": solo, **long_counts, **spec_counts,
-             **fleet_counts, "doctor": doctor_counts, "training": training, **mn_counts, "long_training": long_training, **cn_counts,
+             **fleet_counts, "doctor": doctor_counts, **moe_counts, "training": training, **mn_counts, "long_training": long_training, **cn_counts,
              **wire_counts, **ip_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
@@ -4375,6 +4660,11 @@ def main() -> int:
            "mobilenet_eval": ("depthwise_gn_fwd",),
            "long_training": ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
                              "fused_ce_fwd", "fused_ce_bwd"),
+           **{w: ("flash_attention_fwd",) + training_only
+              for w in ("moe_train_top1", "moe_train_top2")},
+           "moe_serving": ("flash_attention_fwd", "flash_decode_paged"),
+           **{w: ("flash_attention_fwd", "flash_decode") for w in ("moe_solo_generate", "moe_beam")},
+           "moe_score": ("flash_attention_fwd",),
            "convnet_train": ("fused_ce_dense_fwd", "fused_ce_dense_bwd"),
            "convnet_eval": ("fused_ce_dense_fwd",),
            **{w: ("fused_ce_dense_fwd", "fused_ce_dense_bwd")

@@ -736,11 +736,14 @@ def _run_checks(device_arg: str, report: Optional[List[Dict[str, Any]]]) -> int:
         tier-1 soak test covers chaos reconciliation and lets the
         controller act); "clean" here pins the converse — no straggler,
         no adaptation. Leg B
-        (scripted straggler): one client fits 8x slow for its first
-        three batches; the straggler band must trip, the controller must
-        push exactly one per-client adaptation, the band must clear on
-        recovery and ramp the override back — with the same exact
-        reconciliation at the end."""
+        (scripted straggler): one client fits 8x slow until the
+        controller's override has reached it (``straggler_until_override``,
+        the port's event-ordered straggler: JAX's leg counts three slow
+        fits, which race the controller's polls under host load); the
+        straggler band must trip, the controller must push exactly one
+        per-client adaptation, the band must clear on recovery and ramp
+        the override back — with the same exact reconciliation at the
+        end."""
         from distriflow_tpu_torch.fleet import SoakConfig, run_soak
 
         with tempfile.TemporaryDirectory() as d:
@@ -757,7 +760,7 @@ def _run_checks(device_arg: str, report: Optional[List[Dict[str, Any]]]) -> int:
         with tempfile.TemporaryDirectory() as d:
             strag = run_soak(SoakConfig(
                 n_clients=6, n_batches=120, epochs=2, chaos=False,
-                churn_kills=0, straggler_slow_fits=3,
+                churn_kills=0, straggler_until_override=True,
                 straggler_slow_mult=8.0, fit_delay_range_s=(0.015, 0.025),
                 straggler_factor=3.0, recovery_checks=2,
                 poll_interval_s=0.05, save_dir=d, timeout_s=90))

@@ -1,5 +1,9 @@
 """Port of ``distriflow_tpu/fleet/soak.py`` (copied with its imports
-rewritten; ``run_soak`` runs under :func:`frozen_heap`).
+rewritten; ``run_soak`` runs under :func:`frozen_heap`). One port-side
+test aid: ``SoakConfig.straggler_until_override`` scripts the transient
+straggler by events (:class:`GatedStraggler`), where JAX's
+``straggler_slow_fits`` counts fits and so races the controller's polls
+under host load.
 
 Training-fleet soak harness: hundreds of clients, churn, chaos, and
 an exactness audit at quiescence.
@@ -63,7 +67,7 @@ from distriflow_tpu_torch.server.async_server import AsynchronousSGDServer
 from distriflow_tpu_torch.server.models import DistributedServerInMemoryModel
 from distriflow_tpu_torch.utils.config import RetryPolicy
 
-__all__ = ["SoakConfig", "SoakModel", "SoakResult", "SoakError", "frozen_heap",
+__all__ = ["SoakConfig", "SoakModel", "GatedStraggler", "SoakResult", "SoakError", "frozen_heap",
            "run_soak"]
 
 
@@ -141,6 +145,31 @@ class SoakModel(DistributedModel):
         return (None, 1)
 
 
+class GatedStraggler(SoakModel):
+    """A transient straggler whose recovery is an event, not a fit count:
+    each fit runs ``slow_mult`` x slower until ``overridden()`` holds (the
+    controller's override has reached the client), and at full speed from
+    then on. ``fits_before_fast`` is the number of fits that ran slow
+    (None while it is still slow); ``fit_log`` holds ``(seconds, whether
+    the override had reached the client)`` for every fit."""
+
+    def __init__(self, *args: Any, **kw: Any):
+        super().__init__(*args, **kw)
+        self.overridden = lambda: False
+        self.fits_before_fast: Optional[int] = None
+        self.fit_log: List[Tuple[float, bool]] = []
+
+    def fit(self, x: np.ndarray, y: np.ndarray) -> Dict[str, np.ndarray]:
+        if self.fits_before_fast is None and self.overridden():
+            self.fits_before_fast = self._fits
+        reached = self.fits_before_fast is not None
+        self.slow_first = 0 if reached else self._fits + 1
+        t0 = time.monotonic()
+        out = super().fit(x, y)
+        self.fit_log.append((time.monotonic() - t0, reached))
+        return out
+
+
 @dataclass
 class SoakConfig:
     """Knobs for one soak run. Defaults are the tier-1 miniature; the
@@ -168,6 +197,16 @@ class SoakConfig:
     # slower, then recovers. 0 disables.
     straggler_slow_fits: int = 0
     straggler_slow_mult: float = 25.0
+    # port-side test aid (no JAX counterpart): client 0 runs slow_mult x
+    # slower until the controller's override has reached it, then at full
+    # speed (GatedStraggler); once the override is set, the controller is
+    # polled again only when the server holds an upload of a fast fit (a
+    # stale slow round can never clear and re-enter the band), and not at
+    # all after it ramped the override back (the rest drains unjudged: a
+    # host stall there would read as a new straggler by the wall clock
+    # alone). Replaces straggler_slow_fits, whose fit count races the
+    # controller's polls under host load.
+    straggler_until_override: bool = False
     # churn: abrupt kills (no goodbye) starting churn_start_s into the
     # run, one every churn_interval_s, each rejoining (same stable
     # client_id, fresh connection) after rejoin_delay_s
@@ -249,6 +288,8 @@ class SoakResult:
     mismatches: Dict[str, Tuple[Any, Any]] = field(default_factory=dict)
     clients_evicted: int = 0
     errors: List[str] = field(default_factory=list)
+    # straggler_until_override: the GatedStraggler's fit_log
+    straggler_fits: List[Tuple[float, bool]] = field(default_factory=list)
 
     def bench_numbers(self) -> Dict[str, float]:
         """The ledger-facing scalars (bench.py ``fleet_soak`` row)."""
@@ -282,6 +323,37 @@ class _ClientRec:
         self.client: Optional[AsynchronousSGDClient] = None
         self.slow_first = 0
         self.slow_mult = 1.0
+        self.gated = False  # SoakConfig.straggler_until_override
+        self.model: Optional[SoakModel] = None
+
+
+def _uploads_of(server: AsynchronousSGDServer, stable_id: str) -> int:
+    """Uploads the server holds from every connection of ``stable_id``."""
+    rows = server.fleet.snapshot()
+    return sum(rows[c]["uploads"] for c in server.connections_of(stable_id) if c in rows)
+
+
+def _override_reached(server: AsynchronousSGDServer, rec: _ClientRec):
+    """``GatedStraggler.overridden`` for ``rec``: the server holds an
+    override for it and its client sees every overridden value."""
+    def reached() -> bool:
+        want = server.client_overrides(rec.stable_id)
+        client = rec.client
+        return bool(want) and client is not None and all(
+            client.hyperparam(k) == v for k, v in want.items())
+    return reached
+
+
+def _poll_open(controller: AdaptiveController, server: AsynchronousSGDServer,
+               gated: Optional[_ClientRec]) -> bool:
+    """Whether the soak loop polls the controller now (always, unless
+    ``straggler_until_override``: see that field)."""
+    if gated is None or not controller.adaptations:
+        return True
+    if controller.ramps:
+        return False
+    fast = gated.model.fits_before_fast
+    return fast is not None and _uploads_of(server, gated.stable_id) > fast
 
 
 def _serial_baseline(cfg: SoakConfig, x: np.ndarray, y: np.ndarray) -> float:
@@ -299,10 +371,11 @@ def _serial_baseline(cfg: SoakConfig, x: np.ndarray, y: np.ndarray) -> float:
 
 def _make_client(rec: _ClientRec, address: str, cfg: SoakConfig,
                  seed: int) -> AsynchronousSGDClient:
-    model = SoakModel(
+    model = (GatedStraggler if rec.gated else SoakModel)(
         cfg.dim, cfg.learning_rate, fit_delay_s=rec.fit_delay_s,
         jitter=0.4, seed=seed, slow_first=rec.slow_first,
         slow_mult=rec.slow_mult)
+    rec.model = model
     client = AsynchronousSGDClient(
         address, model,
         DistributedClientConfig(
@@ -445,7 +518,10 @@ def _run_soak(cfg: SoakConfig) -> SoakResult:
                              duplicate=cfg.duplicate, delay=cfg.delay,
                              delay_s=cfg.delay_s, schedule=schedule)
         rec = _ClientRec(f"soak-{i:03d}", delay, plan)
-        if i == 0 and cfg.straggler_slow_fits > 0:
+        if i == 0 and cfg.straggler_until_override:
+            rec.gated = True
+            rec.slow_mult = cfg.straggler_slow_mult
+        elif i == 0 and cfg.straggler_slow_fits > 0:
             rec.slow_first = cfg.straggler_slow_fits
             rec.slow_mult = cfg.straggler_slow_mult
         recs.append(rec)
@@ -483,6 +559,9 @@ def _run_soak(cfg: SoakConfig) -> SoakResult:
             if not _setup_with_retry(rec, server.address, cfg,
                                      cfg.seed * 7919 + i):
                 raise SoakError(f"client {rec.stable_id} never joined")
+        gated = recs[0] if recs[0].gated else None
+        if gated is not None:
+            gated.model.overridden = _override_reached(server, gated)
 
         # churn plan: kill times + pending rejoins
         kill_times = [start + cfg.churn_start_s + k * cfg.churn_interval_s
@@ -490,7 +569,7 @@ def _run_soak(cfg: SoakConfig) -> SoakResult:
         pending_rejoin: List[Tuple[float, _ClientRec]] = []
         max_dead = max(1, int(cfg.max_dead_fraction * cfg.n_clients))
         # the scripted straggler is churn-exempt so drills stay readable
-        killable = [r for r in recs if not r.slow_first]
+        killable = [r for r in recs if not (r.slow_first or r.gated)]
 
         deadline = start + cfg.timeout_s
         done = False
@@ -516,7 +595,7 @@ def _run_soak(cfg: SoakConfig) -> SoakResult:
                 kills += 1
                 tel_s.timeline.event("churn_kill", client=victim.stable_id)
                 pending_rejoin.append((now + cfg.rejoin_delay_s, victim))
-            if controller is not None:
+            if controller is not None and _poll_open(controller, server, gated):
                 controller.step()
             if (server.applied_updates + server.rejected_updates >= total
                     and dataset.exhausted
@@ -539,7 +618,7 @@ def _run_soak(cfg: SoakConfig) -> SoakResult:
         # client's final (recovered) round time, so a breach whose
         # signal cleared late in the run still clears the band and
         # ramps its override back without manual intervention
-        if controller is not None:
+        if controller is not None and not (gated is not None and controller.ramps):
             for _ in range(cfg.recovery_checks + 2):
                 controller.step()
                 time.sleep(min(cfg.poll_interval_s, 0.05))
@@ -669,6 +748,7 @@ def _run_soak(cfg: SoakConfig) -> SoakResult:
             mismatches=mismatches,
             clients_evicted=server.collector.clients_evicted,
             errors=errors,
+            straggler_fits=list(gated.model.fit_log) if gated is not None else [],
         )
         if cfg.strict and errors:
             raise SoakError("soak audit failed:\n  " + "\n  ".join(errors))

@@ -42,7 +42,10 @@ def _arr(x: Any, dtype: torch.dtype, shape) -> torch.Tensor:
 def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig,
                     masters: bool = False) -> Dict[str, torch.Tensor]:
     """Flax params -> the port's ``state_dict`` (CPU tensors): weights in
-    ``config.dtype``, or all f32 with ``masters``."""
+    ``config.dtype``, or all f32 with ``masters``. An MoE config's layers
+    carry ``moe.experts_wi`` [E, d, f], ``moe.experts_wo`` [E, f, d] (as the
+    other weights) and ``moe.router.kernel`` [d, E] / ``.bias`` [E]
+    (always f32) in place of ``mlp``."""
     p = tree["params"] if "params" in tree else tree
     cfg = config
     hd = cfg.n_heads * cfg.head_dim
@@ -63,6 +66,15 @@ def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig,
         for name in ("q_proj", "k_proj", "v_proj"):
             out[pre + "attn." + name] = _arr(attn[name]["kernel"], wdt, (cfg.d_model, hd))
         out[pre + "attn.o_proj"] = _arr(attn["o_proj"]["kernel"], wdt, (hd, cfg.d_model))
+        if cfg.n_experts > 0:
+            moe, e = lp["moe"], cfg.n_experts
+            out[pre + "moe.experts_wi"] = _arr(moe["experts_wi"], wdt, (e, cfg.d_model, cfg.d_ff))
+            out[pre + "moe.experts_wo"] = _arr(moe["experts_wo"], wdt, (e, cfg.d_ff, cfg.d_model))
+            # the router is f32 in both models (flax Dense(dtype=float32))
+            out[pre + "moe.router.kernel"] = _arr(moe["router"]["kernel"], torch.float32,
+                                                  (cfg.d_model, e))
+            out[pre + "moe.router.bias"] = _arr(moe["router"]["bias"], torch.float32, (e,))
+            continue
         out[pre + "mlp.wi"] = _arr(lp["mlp"]["wi"]["kernel"], wdt, (cfg.d_model, cfg.d_ff))
         out[pre + "mlp.wo"] = _arr(lp["mlp"]["wo"]["kernel"], wdt, (cfg.d_ff, cfg.d_model))
     return out
@@ -157,7 +169,9 @@ def random_lm_tree(config: TransformerConfig, rng: np.random.Generator) -> Dict[
     f32 numpy arrays: every matmul kernel and the embedding drawn
     ``normal(0, 1 / fan_in)`` from ``rng`` in a fixed order (embedding,
     head, then each layer's q, k, v, o, wi, wo), LayerNorm scale 1 and
-    bias 0."""
+    bias 0. An MoE config's layers draw, after o, the router kernel
+    (fan_in d), ``experts_wi`` (E*d) and ``experts_wo`` (E*f), flax's
+    lecun fan-ins; the router bias is 0."""
     d, h, hd, f, v = (config.d_model, config.n_heads, config.head_dim, config.d_ff,
                       config.vocab_size)
 
@@ -172,7 +186,14 @@ def random_lm_tree(config: TransformerConfig, rng: np.random.Generator) -> Dict[
     for i in range(config.n_layers):
         attn = {name: {"kernel": w(d, h, hd, fan_in=d)} for name in ("q_proj", "k_proj", "v_proj")}
         attn["o_proj"] = {"kernel": w(h, hd, d, fan_in=h * hd)}
-        p[f"layers_{i}"] = {"ln_attn": ln(), "ln_mlp": ln(), "attn": attn,
-                            "mlp": {"wi": {"kernel": w(d, f, fan_in=d)},
-                                    "wo": {"kernel": w(f, d, fan_in=f)}}}
+        layer = p[f"layers_{i}"] = {"ln_attn": ln(), "ln_mlp": ln(), "attn": attn}
+        e = config.n_experts
+        if e > 0:
+            layer["moe"] = {"router": {"kernel": w(d, e, fan_in=d),
+                                       "bias": np.zeros(e, np.float32)},
+                            "experts_wi": w(e, d, f, fan_in=e * d),
+                            "experts_wo": w(e, f, d, fan_in=e * f)}
+        else:
+            layer["mlp"] = {"wi": {"kernel": w(d, f, fan_in=d)},
+                            "wo": {"kernel": w(f, d, fan_in=f)}}
     return {"params": p}

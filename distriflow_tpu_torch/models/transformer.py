@@ -4,8 +4,8 @@
 ``torch.dtype``). The modules are ``nn.Module``s holding weights in the
 JAX kernel layout (``[in, out]``), so
 :mod:`distriflow_tpu_torch.models.convert` copies a flax params tree over
-without transposes. MoE, ring/Ulysses attention and the pipelined LM are
-not ported yet: the config refuses them.
+without transposes. Ring/Ulysses attention and the pipelined LM are not
+ported yet: the config refuses them.
 
 One module class serves both uses; whoever builds it picks the parameter
 storage with ``TransformerLM(config, trainable=...)``:
@@ -22,7 +22,8 @@ storage with ``TransformerLM(config, trainable=...)``:
 
 Layer arithmetic follows flax exactly: ``LayerNorm`` runs in f32 with
 ``eps=1e-6``; every ``Dense``/``DenseGeneral`` computes in ``cfg.dtype``;
-``gelu`` is the tanh form; the residual stream is ``cfg.dtype``. Training
+``gelu`` is the tanh form; the residual stream is ``cfg.dtype`` (f32 from
+the first MoE block on: see :class:`MoEFFN`). Training
 logits stay in ``cfg.dtype`` when they feed the fused CE and are f32
 otherwise (``_cast_logits``); decode logits are f32. ``remat=True`` wraps
 each block in ``torch.utils.checkpoint`` during training (flax
@@ -99,7 +100,7 @@ KV_CACHE_DTYPES = (None, "int8", "int8_force")
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields as the JAX config. Values that select code this port
-    does not have yet (MoE, sequence-parallel attention) raise."""
+    does not have yet (sequence-parallel attention) raise."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -134,8 +135,10 @@ class TransformerConfig:
         if self.d_model % self.n_heads:
             raise ValueError(
                 f"d_model {self.d_model} not divisible by n_heads {self.n_heads}")
+        if self.n_experts > 0 and not 1 <= self.moe_top_k <= self.n_experts:
+            raise ValueError(
+                f"moe_top_k must be in [1, n_experts={self.n_experts}], got {self.moe_top_k}")
         unported = {
-            "n_experts": self.n_experts != 0,
             "use_ring_attention": self.use_ring_attention,
             "use_ulysses_attention": self.use_ulysses_attention,
         }
@@ -557,6 +560,149 @@ class DenseFFN(nn.Module):
         return torch.matmul(h, self.wo.to(dt))
 
 
+def _auto_block(s: int, target: int = 512) -> int:
+    """Largest divisor of ``s`` that is <= target (JAX
+    ``parallel/ring_attention.py::_auto_block``): the MoE routing group."""
+    for b in range(min(s, target), 0, -1):
+        if s % b == 0:
+            return b
+    return s
+
+
+def moe_phase_fwd_flops(config: TransformerConfig, n_tok: int) -> dict:
+    """Exact forward FLOPs of one capacity-routed MoE layer's phases over
+    ``n_tok`` tokens (JAX ``bench.py::_moe_phase_fwd_flops``): the router's
+    ``Dense(E)``, the dispatch and combine one-hot contractions over the
+    choice-major ``k * g`` axis, and the experts' two ``[E, C, d] x [d, f]``
+    products. These are the matmuls :class:`MoEFFN` runs, so
+    ``FlopCounterMode`` counts their sum for one forward."""
+    k, e = config.moe_top_k, config.n_experts
+    g = _auto_block(n_tok, config.moe_group_size)
+    groups = n_tok // g
+    c = max(1, int(config.capacity_factor * k * g / e))
+    d, f = config.d_model, config.d_ff
+    return {"router": 2.0 * n_tok * d * e,
+            "dispatch": 2.0 * groups * k * g * e * c * d,
+            "expert": 4.0 * groups * e * c * d * f,
+            "combine": 2.0 * groups * k * g * e * c * d}
+
+
+class Router(nn.Module):
+    """flax ``nn.Dense(E, dtype=float32)`` with a bias: ``kernel`` [d, E]
+    and ``bias`` [E] are f32 in the serving model too."""
+
+    def __init__(self, d: int, e: int, trainable: bool = False):
+        super().__init__()
+        self.kernel = _param(d, e, dtype=torch.float32, trainable=trainable)
+        self.bias = nn.Parameter(torch.zeros(e), requires_grad=trainable)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x.float(), self.kernel) + self.bias
+
+
+class MoEFFN(nn.Module):
+    """JAX ``MoEFFN``: Switch top-1 (``moe_top_k=1``, combine scaled by the
+    raw chosen probability) or GShard top-k (the chosen probabilities
+    normalised over the pair), with capacity dispatch in routing groups of
+    ``_auto_block(B*S, moe_group_size)`` tokens and ``capacity =
+    max(1, int(capacity_factor * k * g / E))`` slots an expert. The
+    (token, choice) pairs take slots choice-major, every first choice
+    before any second; a pair past its expert's capacity gets a zero row
+    and rides the residual. Dispatch and combine are one-hot contractions,
+    as in JAX. ``dense=True`` (``moe_dense_dispatch``, and every call with
+    a KV cache) runs every expert on every token and weighs each token's
+    true top-k with the same gate weights: the no-drop limit.
+
+    Dtypes are JAX's promotions: the router runs in f32 from f32
+    parameters; the experts' contractions run in the promotion of the
+    input's dtype and ``cfg.dtype`` (f32, since the input is LayerNorm's
+    f32 output) over ``cfg.dtype``-rounded weights, and the dispatch and
+    combine weights are rounded to ``cfg.dtype`` before they multiply, so
+    the output is f32 under a bf16 config. Ties between experts go to the
+    lower index, as ``jax.lax.top_k`` breaks them.
+
+    ``forward`` returns ``(out, load_balance)``: the Switch term ``E *
+    sum_e f_e * P_e`` (f_e the first-choice fraction, P_e the mean router
+    probability) of a capacity forward, None for a dense one (JAX sows it
+    into ``aux`` on the capacity path only). ``dropped_fraction`` holds the
+    last forward's ``1 - sum(dispatch) / (k * B*S)`` (a detached 0-d
+    tensor; None after a dense forward), JAX's ``moe_stats`` entry."""
+
+    def __init__(self, config: TransformerConfig, trainable: bool = False):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.experts_wi = _param(e, d, f, dtype=cfg.dtype, trainable=trainable)
+        self.experts_wo = _param(e, f, d, dtype=cfg.dtype, trainable=trainable)
+        self.router = Router(d, e, trainable)
+        self.dropped_fraction: Optional[torch.Tensor] = None
+
+    def _top_k(self, probs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(values, indices)`` of the k largest probabilities, equal
+        values by ascending expert index (``torch.topk`` does not promise
+        an order among ties on CUDA)."""
+        k = self.config.moe_top_k
+        if k == 1:
+            idx = torch.argmax(probs, dim=-1, keepdim=True)  # the first maximum
+            return torch.gather(probs, -1, idx), idx
+        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idx[..., :k]
+
+    def forward(self, x: torch.Tensor, dense: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        cfg = self.config
+        e, k, dt = cfg.n_experts, cfg.moe_top_k, cfg.dtype
+        ct = torch.promote_types(x.dtype, dt)  # jnp.einsum's promotion
+        wi = self.experts_wi.to(dt).to(ct)
+        wo = self.experts_wo.to(dt).to(ct)
+        xc = x.to(ct)
+        probs = torch.softmax(self.router(x), dim=-1)  # [B, S, E] f32
+        if dense or cfg.moe_dense_dispatch:
+            topv, topi = self._top_k(probs)
+            w = topv if k == 1 else topv / topv.sum(-1, keepdim=True)
+            gate = (F.one_hot(topi, e).to(probs.dtype) * w[..., None]).sum(-2)  # [B, S, E]
+            h = F.gelu(torch.einsum("bsd,edf->bsef", xc, wi), approximate="tanh")
+            out = torch.einsum("bsef,efd->bsed", h, wo)
+            self.dropped_fraction = None
+            return torch.einsum("bsed,bse->bsd", out, gate.to(dt).to(ct)), None
+
+        b, s, d = x.shape
+        n_tok = b * s
+        g = _auto_block(n_tok, cfg.moe_group_size)
+        n_grp = n_tok // g
+        capacity = max(1, int(cfg.capacity_factor * k * g / e))
+        grp_probs = probs.reshape(n_grp, g, e)
+        topv, topi = self._top_k(grp_probs)  # [G, g, K]
+        onehot = F.one_hot(topi, e)  # [G, g, K, E] int64
+        gate = topv if k == 1 else topv / topv.sum(-1, keepdim=True)
+        # the load-balance term on the first choice; f_e carries no gradient
+        f_frac = onehot[:, :, 0, :].float().mean(dim=(0, 1))
+        p_mean = grp_probs.mean(dim=(0, 1))
+        load_balance = e * (f_frac * p_mean).sum()
+        # each (token, choice) pair's slot in its expert's buffer (the
+        # 1-based cumsum, less one), pairs flattened choice-major; -1 (not
+        # routed) and >= capacity (overflow) match no slot, so their rows
+        # are zero (F.one_hot would raise on them)
+        oh_flat = onehot.transpose(1, 2).reshape(n_grp, k * g, e)
+        slot = torch.cumsum(oh_flat, dim=1) * oh_flat - 1
+        slots = torch.arange(capacity, device=x.device)
+        dispatch = (slot[..., None] == slots).to(torch.float32)  # [G, K*g, E, C] 0/1
+        self.dropped_fraction = (1.0 - dispatch.sum() / torch.tensor(
+            float(k * n_tok), device=x.device)).detach()
+        gate_flat = gate.transpose(1, 2).reshape(n_grp, k * g)
+        combine = dispatch * gate_flat[..., None, None]
+        grp_x = xc.reshape(n_grp, g, d)
+        x_rep = grp_x if k == 1 else grp_x.repeat(1, k, 1)  # jnp.tile: choice-major
+        expert_in = torch.einsum("xtec,xtd->xecd", dispatch.to(dt).to(ct), x_rep)
+        h = F.gelu(torch.einsum("xecd,edf->xecf", expert_in, wi), approximate="tanh")
+        expert_out = torch.einsum("xecf,efd->xecd", h, wo)
+        out = torch.einsum("xtec,xecd->xtd", combine.to(dt).to(ct), expert_out)
+        if k > 1:
+            out = out.reshape(n_grp, k, g, d).sum(dim=1)
+        return out.reshape(b, s, d), load_balance
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)``: f32 math, eps 1e-6, f32 out."""
 
@@ -575,13 +721,23 @@ class Block(nn.Module):
         self.ln_attn = LayerNorm(config.d_model, trainable)
         self.attn = Attention(config, trainable)
         self.ln_mlp = LayerNorm(config.d_model, trainable)
-        self.mlp = DenseFFN(config, trainable)
+        if config.n_experts > 0:  # flax names the FFN "moe" or "mlp"
+            self.moe = MoEFFN(config, trainable)
+        else:
+            self.mlp = DenseFFN(config, trainable)
 
-    def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0, fresh: bool = False):
+    def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0, fresh: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(x, load_balance)``; the MoE term is None for a dense FFN and
+        for dense dispatch, which every call with a cache takes (JAX
+        ``generate.py::_decode_module``)."""
         h = self.ln_attn(x)
         a = self.attn(h) if cache is None else self.attn.decode(h, cache, layer, fresh)
         x = x + a
-        return x + self.mlp(self.ln_mlp(x))
+        if not hasattr(self, "moe"):
+            return x + self.mlp(self.ln_mlp(x)), None
+        out, aux = self.moe(self.ln_mlp(x), dense=cache is not None)
+        return x + out, aux
 
 
 class TransformerLM(nn.Module):
@@ -618,16 +774,29 @@ class TransformerLM(nn.Module):
         dt = self.config.dtype
         return torch.matmul(self.ln_f(x).to(dt), self.lm_head.to(dt))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, with_aux: bool = False):
+        """Training-mode logits; with ``with_aux``, ``(logits, aux)``: the
+        MoE load-balance terms of this forward summed over the layers and
+        scaled by ``router_aux_weight / their count`` (JAX
+        ``transformer_lm``'s ``apply_with_aux``; 0.0 where no layer gave
+        one). Under remat each term is taken from the block's first
+        forward, so the backward's recompute does not add it again, and
+        its gradient reaches the router through the recompute."""
         cfg = self.config
         x = self._embed(tokens)
         remat = cfg.remat and torch.is_grad_enabled()
+        terms = []
         for blk in self.layers:
             # the recompute's kernel costs are hardware FLOPs, not model FLOPs
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 blk, x, use_reentrant=False, context_fn=flop_count.remat_contexts
             ) if remat else blk(x)
-        return _cast_logits(self._head(x), cfg.resolved_loss_for(self.device))
+            if aux is not None:
+                terms.append(aux)
+        logits = _cast_logits(self._head(x), cfg.resolved_loss_for(self.device))
+        if not with_aux:
+            return logits
+        return logits, sum(terms) * (cfg.router_aux_weight / max(len(terms), 1))
 
     def new_cache(self, batch: int, int8: Optional[bool] = None) -> KVCache:
         """A zeroed solo cache: ``[batch, max_seq, H*D]`` slabs at position
@@ -651,7 +820,7 @@ class TransformerLM(nn.Module):
             cache = self.new_cache(tokens.shape[0], int8)
         x = self._embed(tokens)
         for i, blk in enumerate(self.layers):
-            x = blk(x, cache, i, fresh)
+            x, _ = blk(x, cache, i, fresh)
         cache.advance(tokens.shape[1])
         return self._head(x).float(), cache
 
@@ -688,7 +857,9 @@ def _cast_logits(logits: torch.Tensor, loss_name: str) -> torch.Tensor:
 def init_weights(model: TransformerLM, seed: int = 0) -> TransformerLM:
     """Seeded random weights: every matmul kernel and the embedding
     ``normal(0, 1/fan_in)`` (lecun-normal scale; fan_in = d_model for the
-    embedding), LayerNorm scale 1 and bias 0. Drawn on the CPU from one
+    embedding, and flax's product of every axis but the last for the
+    ``[E, in, out]`` expert weights: E*d and E*f), LayerNorm scale 1 and
+    every bias (LayerNorm's, the MoE router's) 0. Drawn on the CPU from one
     ``torch.Generator``, so a seed gives the same weights on every device;
     they are not flax's bits (carry a flax tree over with
     :mod:`~distriflow_tpu_torch.models.convert` for that)."""
@@ -699,7 +870,7 @@ def init_weights(model: TransformerLM, seed: int = 0) -> TransformerLM:
         elif name.endswith(".bias"):
             p.zero_()
         else:
-            fan_in = p.shape[1] if name == "embed" else p.shape[0]
+            fan_in = p.shape[1] if name == "embed" else math.prod(p.shape[:-1])
             p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
     return model
 
@@ -714,7 +885,10 @@ def transformer_lm(
     = int tokens ``[B, S]``; ``y`` = int next-token ids ``[B, S]`` (sparse
     CE, fused on CUDA; set ``config.loss="softmax_cross_entropy"`` for
     one-hot ``[B, S, V]`` targets). ``init(seed)`` builds a trainable model
-    (f32 masters, see the module docstring) with :func:`init_weights`."""
+    (f32 masters, see the module docstring) with :func:`init_weights`.
+    A capacity-routed MoE config with ``router_aux_weight > 0`` trains with
+    ``apply_with_aux``: the logits and the weighted load-balance term of
+    the same forward (eval metrics leave the term out)."""
     from distriflow_tpu_torch.utils.device import resolve_device
 
     if config is None:
@@ -736,6 +910,10 @@ def transformer_lm(
         name="transformer_lm",
         device=dev,
         dtype=config.dtype,
+        apply_with_aux=(
+            (lambda model, tokens: model(tokens, with_aux=True))
+            if config.n_experts > 0 and config.router_aux_weight > 0
+            and not config.moe_dense_dispatch else None),
     )
     spec.check_loss()  # the fused CE takes bf16 logits
     return spec

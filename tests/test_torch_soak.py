@@ -10,6 +10,9 @@ server and clients.
   ``slow`` tier, as JAX marks it.
 - ``SoakModel`` and the dense serial baseline are the JAX package's
   numpy, bit for bit: the same gradients, the same baseline loss.
+- The port's event-ordered straggler (``GatedStraggler``,
+  ``SoakConfig.straggler_until_override``): slow until the controller's
+  override has reached it, never by a fit count.
 """
 
 import dataclasses
@@ -24,7 +27,7 @@ from distriflow_tpu_torch.client.async_client import AsynchronousSGDClient
 from distriflow_tpu_torch.data.dataset import DistributedDataset
 from distriflow_tpu_torch.fleet import AdaptiveController, SoakConfig, run_soak
 from distriflow_tpu_torch.fleet import soak as port_soak
-from distriflow_tpu_torch.fleet.soak import SoakModel, frozen_heap
+from distriflow_tpu_torch.fleet.soak import GatedStraggler, SoakModel, frozen_heap
 from distriflow_tpu_torch.obs import HealthSentinel, Telemetry
 from distriflow_tpu_torch.obs.collector import ReportBuilder, TelemetryCollector
 from distriflow_tpu_torch.server.abstract_server import DistributedServerConfig
@@ -64,7 +67,10 @@ def test_soak_model_matches_jax():
         b.update(gb)
     np.testing.assert_array_equal(a.get_params()["w"], b.get_params()["w"])
     assert a.evaluate(x, y) == b.evaluate(x, y)
-    assert dataclasses.asdict(SoakConfig()) == dataclasses.asdict(jax_soak.SoakConfig())
+    # JAX's fields and defaults, plus the port's one test aid, off by default
+    port_cfg = dataclasses.asdict(SoakConfig())
+    assert port_cfg.pop("straggler_until_override") is False
+    assert port_cfg == dataclasses.asdict(jax_soak.SoakConfig())
 
 
 def test_soak_miniature(tmp_path):
@@ -108,24 +114,6 @@ def test_collector_lru_stays_flat():
     assert collector.clients_evicted == 500 - 32
     assert tel.counter_value("fleet_clients_evicted_total") == 500 - 32
     assert collector.totals()["client_uploads_total"] == 32.0
-
-
-class _GatedStraggler(SoakModel):
-    """A transient straggler whose recovery is an event, not a fit count:
-    each fit runs ``slow_mult`` x slower until ``overridden()`` holds (the
-    controller's override has reached the client), and at full speed from
-    then on. ``fits_before_fast`` is the number of fits that ran slow."""
-
-    def __init__(self, *args, **kw):
-        super().__init__(*args, **kw)
-        self.overridden = lambda: False
-        self.fits_before_fast = None
-
-    def fit(self, x, y):
-        if self.fits_before_fast is None and self.overridden():
-            self.fits_before_fast = self._fits
-        self.slow_first = self._fits + 1 if self.fits_before_fast is None else 0
-        return super().fit(x, y)
 
 
 def _uploads_of(server, stable_id):
@@ -172,7 +160,7 @@ def _straggler_override_roundtrip(tmp_path):
             fleet_straggler_factor=3.0, dump_dir=str(tmp_path))
         controller = AdaptiveController(server, sentinel, recovery_checks=2)
         for i in range(4):
-            model = (_GatedStraggler if i == 0 else SoakModel)(
+            model = (GatedStraggler if i == 0 else SoakModel)(
                 dim, 0.02, fit_delay_s=0.02, seed=i, slow_mult=8.0)
             if i == 0:
                 slow_model = model
@@ -263,3 +251,37 @@ def test_frozen_heap_nests_and_restores():
     assert gc.get_freeze_count() == 0
     del junk, fresh
 
+
+
+def test_gated_straggler_recovers_only_when_overridden():
+    model = GatedStraggler(3, fit_delay_s=0.005, slow_mult=8.0)
+    x, y = np.ones((2, 3)), np.ones(2)
+    for _ in range(6):  # more slow fits than any fit count scripts
+        model.fit(x, y)
+    assert model.fits_before_fast is None
+    model.overridden = lambda: True
+    model.fit(x, y)
+    model.overridden = lambda: False  # a cleared override keeps it fast
+    model.fit(x, y)
+    assert model.fits_before_fast == 6
+    assert [reached for _, reached in model.fit_log] == [False] * 6 + [True] * 2
+    assert all(s >= 0.04 for s, _ in model.fit_log[:6])
+
+
+def test_soak_straggler_stays_slow_until_its_override_lands(tmp_path):
+    """The doctor's straggler leg: every fit of the straggler that ran
+    before the controller's override reached it was slow (a straggler
+    that recovers first, as a fit count lets it, fails here), and the
+    override was pushed once and ramped back."""
+    res = run_soak(SoakConfig(
+        n_clients=6, n_batches=120, epochs=2, chaos=False, churn_kills=0,
+        straggler_until_override=True, straggler_slow_mult=8.0,
+        fit_delay_range_s=(0.015, 0.025), straggler_factor=3.0, recovery_checks=2,
+        poll_interval_s=0.05, save_dir=str(tmp_path), timeout_s=90))
+    assert res.errors == [] and res.reconcile_ok
+    assert res.adaptations == 1 and res.ramps >= 1 and res.overrides_active == 0
+    before = [s for s, reached in res.straggler_fits if not reached]
+    after = [s for s, reached in res.straggler_fits if reached]
+    assert before and after, res.straggler_fits
+    # slow: 8 x a base delay of at least 15 ms, less the 40% jitter
+    assert min(before) >= 8 * 0.015 * 0.6, before

@@ -77,8 +77,16 @@ def _port_decode(model, prompt, steps):
 def test_config_keeps_jax_field_names_and_refuses_unported_paths():
     assert {f.name for f in dataclasses.fields(PCFG)} == {f.name for f in dataclasses.fields(JCFG)}
     hash(PCFG)
-    with pytest.raises(NotImplementedError):
-        TransformerConfig(n_experts=4)
+    for unported in ("use_ring_attention", "use_ulysses_attention"):
+        with pytest.raises(NotImplementedError):
+            TransformerConfig(**{unported: True})
+    # MoE builds; its top-k range is JAX's check
+    for bad_k in (0, 5):
+        with pytest.raises(ValueError):
+            TransformerConfig(n_experts=4, moe_top_k=bad_k)
+        with pytest.raises(ValueError):
+            JaxConfig(n_experts=4, moe_top_k=bad_k)
+    assert TransformerConfig(n_experts=4, moe_top_k=4).n_experts == 4
     with pytest.raises(TypeError):
         TransformerConfig(dtype="bfloat16")
 
