@@ -306,6 +306,34 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     one top-k blob of the ConvNet's CUDA parameters (f32 and int8 values,
     the sparse ``since=2`` fields). A payload that fails its schema fails
     the run; every payload name must be seen at least once.
+24. The training layouts on ``torch.distributed`` (``mesh:`` line): a
+    world of 4 ranks on this card (spawn, ``gloo``: NCCL refuses two
+    ranks on one device; ``parallel/collectives.py`` stages each
+    collective of a CUDA tensor through the host and counts the bytes),
+    started by ``parallel.initialize``, at the flagship's widths cut to 2
+    layers, adam 1e-3, 3 steps a leg on the LM corpus's windows, from one
+    seeded flax-shaped tree: (a) ``dp4`` ``{data 4}``, B 8 S 1024,
+    ZeRO-2; (b) ``dp2_tp2`` ``{data 2, model 2}``, Megatron TP
+    (``TRANSFORMER_TP_RULES``), ZeRO-1; (c) ``ring`` ``{seq 4}``, B 1 S
+    16384 with remat, ring attention (kernel 1 at chunk 4096); (d)
+    ``ulysses``, the same, Ulysses attention (kernel 1 at S 16384 on 2
+    local heads); (e) ``ep``, bench_moe's top-2 shape (8 experts) on
+    ``{data 2, expert 2}``; (f) ``fedavg_mesh``, the ConvNet's FedAvg, one
+    worker a rank (K 4, B 128, 2 rounds). Every rank's window must launch
+    exactly the kernels ``_mesh_windows`` works out from layers x ring
+    steps x remat (windows ``mesh_<leg>``); every leg is held against one
+    rank on the card from the same tree and batches (``MESH_TOL``: the
+    loss, and each parameter's update relative to the reference's, a
+    limit a planted dropped data rank must exceed; FedAvg bit for bit;
+    the EP reference routed as the mesh routed), a ZeRO
+    rank's optimizer state for each leaf it slices must be the replicated
+    bytes / ``data``, and a rank that fails fails the run. The line holds
+    each leg's backend, host-staged bytes, step p50 of every rank (4
+    ranks sharing one H100 over gloo: not a multi-card figure), errors
+    against the reference, and each collective's latency at 4 MB. Row 1
+    holds kernel 1 at the legs' new shapes: the ring's off-diagonal
+    chunk pair (``ring_chunk``, B1 H8 S4096 non-causal, O and lse) and
+    Ulysses' local heads (``ulysses_local_heads``, B1 H2 S16384).
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -4495,6 +4523,482 @@ def _moe_phase(counted, device="cuda"):
     return report, windows
 
 
+# -- the mesh phase: the training layouts on torch.distributed -------------
+#
+# A world of MESH_WORLD ranks on cuda:0 (spawn, gloo: NCCL refuses two ranks
+# on one card; collectives of CUDA tensors are staged through the host by
+# parallel/collectives.py and counted), each leg at the flagship's widths
+# (vocab 32000, d_model 512, 8 x 64 heads, d_ff 2048, bf16) cut to
+# MESH_LAYERS layers, adam 1e-3, MESH_STEPS steps on the LM corpus's
+# windows, from one seeded flax-shaped tree. This process runs each leg's
+# single-rank reference from the same tree and batches while the world runs
+# (the EP leg's after it: it is routed as the mesh routed).
+MESH_WORLD, MESH_LAYERS, MESH_STEPS = 4, 2, 3
+MESH_B, MESH_S, MESH_LONG_B, MESH_LONG_S = 8, 1024, 1, 16384
+MESH_FA_K, MESH_FA_B, MESH_FA_ROUNDS = 4, 128, 2
+MESH_DEADLINE_S = 600
+# leg -> (mesh, rules, ZeRO level)
+MESH_LEGS = {"dp4": ({"data": 4}, "REPLICATED_RULES", 2),
+             "dp2_tp2": ({"data": 2, "model": 2}, "TRANSFORMER_TP_RULES", 1),
+             "ring": ({"seq": 4}, "REPLICATED_RULES", 0),
+             "ulysses": ({"seq": 4}, "REPLICATED_RULES", 0),
+             "ep": ({"data": 2, "expert": 2}, "TRANSFORMER_TP_RULES", 0),
+             "fedavg_mesh": ({"data": 4}, None, 0)}
+# The mesh against one rank on the card, from the same tree and batches.
+# The mesh rounds bf16 partial sums (a row-parallel matmul's, the ring's
+# chunk outputs) at other points than one rank does, and sums the
+# gradients over ranks in f32 in another order; adam normalises each
+# gradient element, so an element whose gradient is near 0 may move by up
+# to 2 x lr a step either way, and the largest parameter difference
+# (reported: 3.0e-3 to 4.4e-3 on the H100) is as large as a whole update.
+# What is held is the update: for each parameter, the distance between
+# the mesh's and the reference's parameters over the reference update's
+# size (Frobenius norms), which reads 1 for a parameter the mesh left
+# where it started. Its limit lies between the sound legs' largest
+# reading and what the dp4 leg's planted fault reads (the reference
+# trained without data rank 3's rows, as if that rank's gradient were
+# dropped); the run fails if that fault would pass. The loss limit is
+# absolute, per step, every rank: the kernel step's against the plain
+# step's (STEP_TOL). FedAvg runs the same kernels at the same shapes on
+# each rank as the one-device trainer runs worker by worker, and sums the
+# workers in the same order: it is held bit for bit.
+MESH_TOL = {"loss_abs": 1e-3, "update_rel": 0.1}
+MESH_COLLECTIVES = ("psum", "all_gather", "reduce_scatter", "ppermute", "all_to_all")
+
+
+def _kernel_counters():
+    """The launch counter of every kernel wrapper, by name."""
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+    from distriflow_tpu_torch.ops import flash_attention as fa
+    from distriflow_tpu_torch.ops import flash_decode as fd
+    from distriflow_tpu_torch.ops import fused_ce as ce
+
+    return {"flash_attention_fwd": fa.flash_attention,
+            "flash_decode_paged": fd.flash_decode_paged,
+            "flash_decode": fd.flash_decode,
+            "flash_decode_paged_int8": fd.flash_decode_paged_int8,
+            "flash_decode_int8": fd.flash_decode_int8,
+            "flash_attention_bwd": fa.flash_attention_backward,
+            "fused_ce_fwd": ce.fused_ce_forward,
+            "fused_ce_bwd": ce.fused_ce_backward,
+            "depthwise_gn_fwd": dg.depthwise_gn_forward,
+            "depthwise_gn_bwd": dg.depthwise_gn_backward,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkv": fa.flash_attention_dkv,
+            "fused_ce_dense_fwd": ce.fused_ce_dense_forward,
+            "fused_ce_dense_bwd": ce.fused_ce_dense_backward}
+
+
+# the kernels built at two head dims also count their D 32 launches
+_BY_HEAD_DIM = ("flash_attention_fwd", "flash_decode_paged", "flash_decode")
+
+
+def _counted(run):
+    """``(run(), counts)``: every counter set to 0 just before ``run`` and
+    read just after it (``<name>_d32`` for the head-dim-32 launches)."""
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    for k in _BY_HEAD_DIM:
+        counters[k].launches_by_head_dim = {}
+    out = run()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    counts.update({f"{k}_d32": counters[k].launches_by_head_dim.get(32, 0) for k in _BY_HEAD_DIM})
+    return out, counts
+
+
+def _mesh_cfg(leg):
+    """The leg's model: the flagship's widths at MESH_LAYERS layers (B 8 S
+    1024), at S 16384 with remat for ring and Ulysses, bench_moe's top-2
+    shape for EP."""
+    from distriflow_tpu_torch.models.zoo import flagship_lm_config
+
+    if leg == "ep":
+        return _moe_config(2)
+    if leg in ("ring", "ulysses"):
+        return dataclasses.replace(flagship_lm_config(max_seq=MESH_LONG_S), n_layers=MESH_LAYERS,
+                                   remat=True, use_ring_attention=leg == "ring",
+                                   use_ulysses_attention=leg == "ulysses")
+    return dataclasses.replace(flagship_lm_config(max_seq=MESH_S), n_layers=MESH_LAYERS)
+
+
+_MESH_DATA = {}
+
+
+def _mesh_data(leg):
+    """``(tree, batches)`` of a leg, made from seeds (the same in every
+    process): LM windows of the CLI corpus, or FedAvg's round data."""
+    if leg in _MESH_DATA:
+        return _MESH_DATA[leg]
+    if leg == "fedavg_mesh":
+        tree = _convnet_tree(np.random.default_rng(SEED + 33))
+        x, y = _to_xy(_synthetic_cifar10(MESH_WORLD * MESH_FA_K * MESH_FA_B * MESH_FA_ROUNDS,
+                                         8, SEED + 33)[0])
+        rng = np.random.RandomState(SEED + 34)
+        n = MESH_WORLD * MESH_FA_K * MESH_FA_B
+        rounds = []
+        for _ in range(MESH_FA_ROUNDS):
+            idx = rng.permutation(len(x))[:n]
+            shape = (MESH_WORLD, MESH_FA_K, MESH_FA_B)
+            rounds.append((x[idx].reshape(shape + x.shape[1:]), y[idx].reshape(shape + y.shape[1:])))
+        out = (tree, rounds)
+    else:
+        cfg = _mesh_cfg(leg)
+        corpus = _MESH_DATA.setdefault("corpus", _markov_corpus(CORPUS_TOKENS, SEED))
+        long = leg in ("ring", "ulysses")
+        b, s = (MESH_LONG_B, MESH_LONG_S) if long else (MOE_B, MOE_S) if leg == "ep" else (
+            MESH_B, MESH_S)
+        seed = SEED + (32 if leg == "ep" else 31 if long else 30)
+        out = (_flagship_tree(cfg, np.random.default_rng(seed)),
+               _corpus_windows(corpus, b, s, MESH_STEPS, seed))
+    _MESH_DATA[leg] = out
+    return out
+
+
+def _mesh_windows(leg, cfg):
+    """The exact launches of one rank's window: per step and layer kernel
+    1 once (once per ring step around the ``seq`` ring, and again in the
+    remat recompute), the backward of the layout ``bwd_layout`` gives the
+    local attention, the fused CE forward and backward once where the
+    mesh keeps it (``data``/``expert`` meshes); FedAvg the dense CE once
+    each a local step."""
+    from distriflow_tpu_torch.ops.flash_attention import bwd_layout
+
+    if leg == "fedavg_mesh":
+        n = MESH_FA_K * MESH_FA_ROUNDS
+        return {"fused_ce_dense_fwd": n, "fused_ce_dense_bwd": n}
+    shape = MESH_LEGS[leg][0]
+    ring = shape.get("seq", 1) if leg == "ring" else 1
+    s = MESH_LONG_S // ring if leg in ("ring", "ulysses") else MESH_S
+    fwd = cfg.n_layers * ring * (2 if cfg.remat else 1)
+    bwd = cfg.n_layers * ring
+    out = {"flash_attention_fwd": fwd * MESH_STEPS}
+    if bwd_layout(s, cfg.head_dim, cfg.dtype) == "fused":
+        out["flash_attention_bwd"] = bwd * MESH_STEPS
+    else:
+        out["flash_attention_dq"] = out["flash_attention_dkv"] = bwd * MESH_STEPS
+    if leg in ("dp4", "ep"):
+        out["fused_ce_fwd"] = out["fused_ce_bwd"] = MESH_STEPS
+    return out
+
+
+def _mesh_leg(leg, rank, out_dir, device="cuda"):
+    """One leg on this rank: its window's launch counts, losses, step
+    times, host-staged bytes, and (rank 0) the gathered parameters."""
+    import torch.distributed as dist
+
+    from distriflow_tpu_torch.models.convert import params_from_jax, zoo_params_from_jax
+    from distriflow_tpu_torch.models.transformer import transformer_lm
+    from distriflow_tpu_torch.parallel import collectives, create_mesh, sharding
+    from distriflow_tpu_torch.train.federated import FederatedAveragingTrainer
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    shape, rules, zero = MESH_LEGS[leg]
+    mesh = create_mesh(shape, device)
+    tree, batches = _mesh_data(leg)
+    collectives.staged_bytes.clear()
+    out = {"backend": dist.get_backend(), "mesh": shape}
+    if leg == "fedavg_mesh":
+        trainer = FederatedAveragingTrainer(_convnet_spec(device), mesh=mesh, local_steps=MESH_FA_K,
+                                            local_batch_size=MESH_FA_B, learning_rate=FA_LR)
+        trainer.init(SEED)
+        trainer.set_params(zoo_params_from_jax(tree))
+
+        def run():
+            losses, ms = [], []
+            for xs, ys in batches:
+                t0 = time.perf_counter()
+                losses.append(trainer.round(xs, ys))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return losses, ms
+
+        (losses, ms), counts = _counted(run)
+        params = {n: p.detach().cpu() for n, p in trainer.params.items()}
+    else:
+        cfg = _mesh_cfg(leg)
+        trainer = SyncTrainer(transformer_lm(cfg, device=device, mesh=mesh), mesh=mesh, optimizer="adam",
+                              learning_rate=1e-3, param_rules=getattr(sharding, rules),
+                              zero_level=zero)
+        trainer.init()
+        trainer.set_params(params_from_jax(tree, cfg, masters=True))
+        record, routes = {}, []
+        hooks = _route_choices(trainer.model, record) if cfg.n_experts else []
+
+        def run():
+            losses, ms = [], []
+            for x, y in batches:
+                losses.append(trainer.step((x, y)))
+                ms.append(trainer.last_step_ms)
+                if hooks:
+                    routes.append({i: r.cpu() for i, r in record.items()})
+            return losses, ms
+
+        (losses, ms), counts = _counted(run)
+        for h in hooks:
+            h.remove()
+        st = trainer.state
+        out["opt_bytes"] = {n: sum(st.opt_state[k][n].numel() * st.opt_state[k][n].element_size()
+                                   for k in ("mu", "nu")) for n in st.params}
+        out["param_bytes"] = {n: p.numel() * p.element_size() for n, p in st.params.items()}
+        out["zsliced"] = {n: n in trainer._zslices for n in st.params}
+        out["routes"] = routes
+        out["loss_name"] = trainer.spec.loss
+        params = {n: p.cpu() for n, p in trainer.get_params().items()}  # every rank gathers
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out.update(losses=losses, step_ms=ms, counts=counts, staged_bytes=dict(collectives.staged_bytes))
+    if rank == 0:
+        torch.save(params, os.path.join(out_dir, f"{leg}.params.pt"))
+    return out
+
+
+def _mesh_rank(rank, port, out_dir, device="cuda"):
+    """One rank of the mesh world: every leg, then each collective's
+    latency at 4 MB over ``data`` of a ``{data 4}`` mesh."""
+    import torch.distributed as dist
+
+    from distriflow_tpu_torch.parallel import collective_latency_us, create_mesh, initialize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(f"localhost:{port}", MESH_WORLD, rank, device=device, ranks_per_device=MESH_WORLD)
+    try:
+        res = {leg: _mesh_leg(leg, rank, out_dir, device) for leg in MESH_LEGS}
+        mesh = create_mesh({"data": MESH_WORLD}, device)
+        res["latency_us"] = {c: collective_latency_us(mesh, 4 * 1024 * 1024, "data", iters=5,
+                                                      collective=c) for c in MESH_COLLECTIVES}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_reference(leg, routes=None, device="cuda", rows=None):
+    """The leg on one rank of the card: ``(losses, params)``. ``routes``
+    (the EP leg's, per step and layer, every data rank's rows in order)
+    pins the MoE routing; ``rows`` (a slice) trains on those rows of each
+    batch alone."""
+    from distriflow_tpu_torch.models.convert import zoo_params_from_jax
+    from distriflow_tpu_torch.train.federated import FederatedAveragingTrainer
+
+    tree, batches = _mesh_data(leg)
+    if leg == "fedavg_mesh":
+        trainer = FederatedAveragingTrainer(_convnet_spec(device), local_steps=MESH_FA_K,
+                                            local_batch_size=MESH_FA_B, learning_rate=FA_LR,
+                                            num_workers=MESH_WORLD)
+        trainer.init(SEED)
+        trainer.set_params(zoo_params_from_jax(tree))
+        losses = [trainer.round(xs, ys) for xs, ys in batches]
+        return losses, {n: p.detach().cpu() for n, p in trainer.params.items()}
+    cfg = dataclasses.replace(_mesh_cfg(leg), use_ring_attention=False, use_ulysses_attention=False)
+    if rows is not None:
+        batches = [(x[rows], y[rows]) for x, y in batches]
+    if routes is None:
+        trainer, losses, _ = _train(cfg, tree, batches, device)
+    else:
+        from distriflow_tpu_torch.models.convert import params_from_jax
+        from distriflow_tpu_torch.models.transformer import transformer_lm
+        from distriflow_tpu_torch.train.sync import SyncTrainer
+
+        trainer = SyncTrainer(transformer_lm(cfg, device=device), optimizer="adam",
+                              learning_rate=1e-3)
+        trainer.init()
+        trainer.set_params(params_from_jax(tree, cfg, masters=True))
+        losses = []
+        for step, (x, y) in enumerate(batches):
+            _pin_routes(trainer.model, {i: r.to(device) for i, r in routes[step].items()})
+            losses.append(trainer.step((x, y)))
+    params = {n: p.cpu() for n, p in trainer.get_params().items()}
+    del trainer
+    return losses, params
+
+
+def _mesh_start(leg, cfg):
+    """The full parameters a leg starts from (its tree carried over)."""
+    from distriflow_tpu_torch.models.convert import params_from_jax, zoo_params_from_jax
+
+    tree = _mesh_data(leg)[0]
+    if leg == "fedavg_mesh":
+        return zoo_params_from_jax(tree)
+    return params_from_jax(tree, cfg, masters=True)
+
+
+def _mesh_kernel_entries():
+    """Kernel 1 at the shapes the mesh legs give it, against its plain
+    version (one head at a time) and SDPA: the ring's off-diagonal chunk
+    pair (B1 H8 S4096, non-causal, the lse the merge reads) and Ulysses'
+    local heads (B1 H2 S16384, causal). Row 1's ``ring_chunk`` and
+    ``ulysses_local_heads``."""
+    import torch.nn.functional as F
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 35)
+    flush = _flush_buffer()
+    d, out = 64, {}
+    ring = MESH_LEGS["ring"][0]["seq"]
+    for key, h, s, causal in (("ring_chunk", 8, MESH_LONG_S // ring, False),
+                              ("ulysses_local_heads", 8 // MESH_LEGS["ulysses"][0]["seq"],
+                               MESH_LONG_S, True)):
+        q, k, v = (torch.randn(1, h, s, d, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+
+        def plain(q=q, k=k, v=v, h=h, causal=causal):
+            return [fa.flash_attention_reference(q[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1],
+                                                 causal) for i in range(h)]
+
+        ref = plain()
+        ro, rl = torch.cat([r[0] for r in ref], 1), torch.cat([r[1] for r in ref], 1)
+        del ref
+        pairs = s * (s + 1) // 2 if causal else s * s
+        tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d)
+        out[key] = {
+            "shape": f"B=1 H={h} S={s} D={d} {'causal' if causal else 'non-causal'}",
+            "max_abs_err": _over(f"flash_attention_fwd O {key}", o, ro, *TOL["flash_attention_fwd"]),
+            "lse_max_abs_err": _over(f"flash_attention_fwd lse {key}", lse, rl, LSE_ATOL, 0.0),
+            "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=causal, return_lse=True), 10,
+                         flush),
+            "plain_ms": _timed(plain, 1, flush), "bound_ms": tb, "bound_by": by,
+            "library_ms": _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                                 10, flush)}
+        del q, k, v, o, lse, ro, rl
+    return out
+
+
+def _update_rel(params, ref_params, start):
+    """``{name: |params - ref| / |ref - start|}`` (Frobenius norms): each
+    parameter's distance from the reference over the reference update."""
+    out = {}
+    for n, ref in ref_params.items():
+        num = float((params[n].float() - ref.float()).norm())
+        den = float((ref.float() - start[n].float()).norm())
+        out[n] = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+    return out
+
+
+def _mesh_vs_reference(leg, ranks, ref, params, start, planted=None):
+    """The leg's losses (every rank) and rank 0's gathered parameters
+    against the one-rank reference (``start``: the parameters both began
+    from; ``planted``: the parameters of a planted fault, which the
+    update check must catch)."""
+    ref_losses, ref_params = ref
+    loss_err = max(abs(a - b) for r in ranks for a, b in zip(r[leg]["losses"], ref_losses))
+    diffs = {n: float((params[n].float() - ref_params[n].float()).abs().max()) for n in ref_params}
+    worst = max(diffs, key=diffs.get)
+    rel = _update_rel(params, ref_params, start)
+    worst_rel = max(rel, key=rel.get)
+    num = sum(float((params[n].float() - ref_params[n].float()).square().sum()) for n in ref_params)
+    den = sum(float((ref_params[n].float() - start[n].float()).square().sum()) for n in ref_params)
+    report = {"loss_max_abs_err": loss_err, "update_rel_max": rel[worst_rel],
+              "update_rel_worst_param": worst_rel,
+              "update_rel_frobenius": math.sqrt(num / max(den, 1e-30)),
+              "param_max_abs_err": diffs[worst], "worst_param": worst,
+              "losses": ranks[0][leg]["losses"], "ref_losses": ref_losses}
+    if leg == "fedavg_mesh":
+        report["bitwise"] = _same_bits(params, ref_params) and loss_err == 0.0
+        assert report["bitwise"], ("the mesh FedAvg differs from the one-device trainer", report)
+        return report
+    if planted is not None:
+        fault = _update_rel(planted, ref_params, start)
+        report["planted_rank_dropped"] = {"max": max(fault.values()), "min": min(fault.values())}
+        assert report["planted_rank_dropped"]["max"] > MESH_TOL["update_rel"], (
+            "the update check would pass a dropped data rank", leg, report)
+    assert loss_err <= MESH_TOL["loss_abs"], (leg, report)
+    assert rel[worst_rel] <= MESH_TOL["update_rel"], (leg, report)
+    return report
+
+
+def _mesh_phase(device="cuda"):
+    """The ``mesh:`` phase (see MESH_LEGS): spawn the world, run the
+    references alongside, check every leg. Returns ``(report, {window:
+    rank 0's counts})``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from distriflow_tpu_torch.parallel import backend_for
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    out_dir = tempfile.mkdtemp(prefix="mesh-")
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, port, out_dir, device))
+             for r in range(MESH_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        refs = {leg: _mesh_reference(leg, device=device) for leg in ("dp4", "ring", "fedavg_mesh")}
+        refs["dp2_tp2"], refs["ulysses"] = refs["dp4"], refs["ring"]  # same model, tree, batches
+        # the planted fault: dp4 as if data rank 3's gradient were dropped
+        dp = MESH_LEGS["dp4"][0]["data"]
+        planted = _mesh_reference("dp4", device=device, rows=slice(0, MESH_B - MESH_B // dp))[1]
+        end = time.monotonic() + MESH_DEADLINE_S
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    assert not hung, f"mesh ranks {hung} outlived {MESH_DEADLINE_S} s"
+    codes = [p.exitcode for p in procs]
+    assert not any(codes), f"a mesh rank failed: exit codes {codes}"
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(MESH_WORLD)]
+    world_s = time.perf_counter() - t0
+    # the EP reference routed as the mesh routed: ranks 0 and 2 hold data
+    # rows 0-3 and 4-7 ({data 2, expert 2}, row-major)
+    ep_routes = [{i: torch.cat([ranks[0]["ep"]["routes"][s][i], ranks[2]["ep"]["routes"][s][i]])
+                  for i in ranks[0]["ep"]["routes"][s]} for s in range(MESH_STEPS)]
+    refs["ep"] = _mesh_reference("ep", ep_routes, device)
+    report = {"world": MESH_WORLD, "layers": MESH_LAYERS, "steps": MESH_STEPS, "tol": MESH_TOL,
+              "note": "4 ranks sharing one H100 over gloo: not a multi-card figure",
+              "latency_us_4MB": ranks[0]["latency_us"], "legs": {}}
+    windows = {}
+    for leg, (shape, rules, zero) in MESH_LEGS.items():
+        params = torch.load(os.path.join(out_dir, f"{leg}.params.pt"), weights_only=False)
+        cfg = None if leg == "fedavg_mesh" else _mesh_cfg(leg)
+        want = _mesh_windows(leg, cfg)
+        for r, res in enumerate(ranks):
+            got = {k: n for k, n in res[leg]["counts"].items() if n}
+            assert got == want, (f"mesh_{leg}", f"rank {r}", got, want)
+            assert res[leg]["backend"] == backend_for(device, MESH_WORLD) == "gloo", res[leg]
+        rec = {"mesh": shape, "rules": rules, "zero_level": zero, "backend": ranks[0][leg]["backend"],
+               "launches_per_rank": want,
+               "step_ms_p50_by_rank": [float(np.median(r[leg]["step_ms"])) for r in ranks],
+               "staged_bytes": ranks[0][leg]["staged_bytes"],
+               **_mesh_vs_reference(leg, ranks, refs[leg], params, _mesh_start(leg, cfg),
+                                    planted if leg == "dp4" else None)}
+        if leg != "fedavg_mesh":
+            rec["loss"] = ranks[0][leg]["loss_name"]
+            sliced = 0
+            for res in ranks:  # ZeRO: a sliced leaf's moments are 1/data of replicated
+                for n, nbytes in res[leg]["opt_bytes"].items():
+                    full = 2 * res[leg]["param_bytes"][n]
+                    if res[leg]["zsliced"][n]:
+                        assert nbytes * shape["data"] == full, (leg, n, nbytes, full)
+                        sliced += 1
+                    else:
+                        assert nbytes == full, (leg, n, nbytes, full)
+            assert (sliced > 0) == (zero > 0), (leg, sliced)
+            rec["opt_state_bytes_rank0"] = sum(ranks[0][leg]["opt_bytes"].values())
+            rec["opt_state_bytes_replicated"] = 2 * sum(ranks[0][leg]["param_bytes"].values())
+        report["legs"][leg] = rec
+        windows[f"mesh_{leg}"] = ranks[0][leg]["counts"]
+    report["phase_s"] = time.perf_counter() - t0
+    report["world_s"] = world_s
+    return report, windows
+
+
 def main() -> int:
     import argparse
 
@@ -4508,10 +5012,6 @@ def main() -> int:
     from distriflow_tpu_torch.models.generate import generate
     from distriflow_tpu_torch.models.zoo import flagship_lm_config
     from distriflow_tpu_torch.ops import build
-    from distriflow_tpu_torch.ops import depthwise_gn as dg
-    from distriflow_tpu_torch.ops import flash_attention as fa
-    from distriflow_tpu_torch.ops import flash_decode as fd
-    from distriflow_tpu_torch.ops import fused_ce as ce
 
     print(_card(), flush=True)
 
@@ -4536,35 +5036,8 @@ def main() -> int:
     generate(model, reqs[0][1][:, :16], 4)  # warm-up: library handles, kernel loads
     torch.cuda.synchronize()
 
-    counters = {"flash_attention_fwd": fa.flash_attention,
-                "flash_decode_paged": fd.flash_decode_paged,
-                "flash_decode": fd.flash_decode,
-                "flash_decode_paged_int8": fd.flash_decode_paged_int8,
-                "flash_decode_int8": fd.flash_decode_int8,
-                "flash_attention_bwd": fa.flash_attention_backward,
-                "fused_ce_fwd": ce.fused_ce_forward,
-                "fused_ce_bwd": ce.fused_ce_backward,
-                "depthwise_gn_fwd": dg.depthwise_gn_forward,
-                "depthwise_gn_bwd": dg.depthwise_gn_backward,
-                "flash_attention_dq": fa.flash_attention_dq,
-                "flash_attention_dkv": fa.flash_attention_dkv,
-                "fused_ce_dense_fwd": ce.fused_ce_dense_forward,
-                "fused_ce_dense_bwd": ce.fused_ce_dense_backward}
     training_only = ("flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd")
-
-    # the kernels built at two head dims also count their D 32 launches
-    by_head_dim = ("flash_attention_fwd", "flash_decode_paged", "flash_decode")
-
-    def counted(run):
-        for fn in counters.values():
-            fn.launches = 0
-        for k in by_head_dim:
-            counters[k].launches_by_head_dim = {}
-        out = run()
-        counts = {k: fn.launches for k, fn in counters.items()}
-        counts.update({f"{k}_d32": counters[k].launches_by_head_dim.get(32, 0)
-                       for k in by_head_dim})
-        return out, counts
+    counted = _counted
 
     t0 = time.perf_counter()
     payloads = _LivePayloads()
@@ -4601,6 +5074,10 @@ def main() -> int:
     # sweep, the top-1 model served (each window checked exactly inside)
     moe_report, moe_counts = _moe_phase(counted)
     print("moe:", json.dumps(_with_spread(moe_report)), flush=True)
+    # the training layouts on torch.distributed: 4 ranks on this card
+    # (gloo), each leg against one rank on the card
+    mesh_report, mesh_counts = _mesh_phase()
+    print("mesh:", json.dumps(mesh_report), flush=True)
 
     # training: the flagship from the same tree as f32 masters, one batch
     tokens = np.random.default_rng(SEED + 2).integers(
@@ -4636,7 +5113,7 @@ def main() -> int:
     print("inprocess_training:", json.dumps(ip_report), flush=True)
     paths = {"serving": serving, "solo_generate": solo, **long_counts, **spec_counts,
              **fleet_counts, "doctor": doctor_counts, **moe_counts, "training": training, **mn_counts, "long_training": long_training, **cn_counts,
-             **wire_counts, **ip_counts}
+             **wire_counts, **ip_counts, **mesh_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
     ran = {"serving": ("flash_attention_fwd", "flash_decode_paged"),
@@ -4668,7 +5145,9 @@ def main() -> int:
            "convnet_train": ("fused_ce_dense_fwd", "fused_ce_dense_bwd"),
            "convnet_eval": ("fused_ce_dense_fwd",),
            **{w: ("fused_ce_dense_fwd", "fused_ce_dense_bwd")
-              for w in (*wire_counts, *ip_counts)}}
+              for w in (*wire_counts, *ip_counts)},
+           **{f"mesh_{leg}": tuple(rec["launches_per_rank"])
+              for leg, rec in mesh_report["legs"].items()}}
     for path, counts in paths.items():
         for k, n in counts.items():
             if k in ran[path]:
@@ -4734,6 +5213,7 @@ def main() -> int:
          "flash_decode_int8": long_counts["beam"]["flash_decode_int8"]})
     rows += int8_rows
     train_rows, rows[0]["training_shape"] = _training_kernel_rows(training, TRAIN_STEPS)
+    rows[0].update(_mesh_kernel_entries())
     rows += train_rows
     # an older checkout's depthwise kernels before and after this one's
     was = [_parent_times(args.parent, "_dwgn_times", list(shapes))] if args.parent else []

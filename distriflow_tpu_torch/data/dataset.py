@@ -272,11 +272,18 @@ class DistributedDataset:
     # -- device edges ------------------------------------------------------
 
     def next_sharded(self, mesh, axis: str = "data") -> Optional[Batch]:
-        """Next batch placed on a device mesh (JAX: batch-dim sharded over
-        ``axis``, zero-padded with a 0-weight mask). Device meshes are not
-        ported yet: the port trains on one device."""
-        raise NotImplementedError(
-            "next_sharded: device meshes are not ported yet; the port trains on one device")
+        """Next batch as this rank's slice on the mesh, batch-dim sharded
+        over ``axis`` (``parallel.mesh.shard_batch_padded``). Partial
+        batches are zero-padded to the axis size with a 0-weight mask so
+        weighted-mean losses stay exact. Every rank of the mesh draws the
+        same batch and keeps its slice."""
+        from distriflow_tpu_torch.parallel.mesh import shard_batch_padded
+
+        b = self.next()
+        if b is None:
+            return None
+        x, y, w = shard_batch_padded(mesh, b.x, b.y, axis)
+        return Batch(batch=b.batch, epoch=b.epoch, x=x, y=y, weight=w)
 
     def __iter__(self):
         while True:

@@ -26,15 +26,20 @@ def prefetch_to_device(iterator: Iterable[Any], device: Optional[Union[str, torc
     """Yield device-resident batches, keeping ``size`` transfers in flight
     (``size=2`` is double buffering). ``iterator`` yields host batch
     tuples, lists or dicts of arrays; ``device`` is ``cuda`` by default.
-    A ``mesh`` (the JAX package's batch sharding) is not ported yet."""
+    With a ``mesh`` each yielded batch is this rank's slice, batch-dim
+    sharded over ``data`` (``parallel.mesh.shard_batch``, on the mesh's
+    device: JAX's batch sharding); every rank iterates the same global
+    batches."""
     from distriflow_tpu_torch.utils.device import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "prefetch_to_device: device meshes are not ported yet; the port trains on one device")
     if size < 1:  # validate at the call site, not at first iteration
         raise ValueError(f"prefetch size must be >= 1, got {size}")
-    return _prefetch(iterator, resolve_device(device), size)
+    if mesh is not None:
+        from distriflow_tpu_torch.parallel.mesh import shard_batch
+
+        return _prefetch(iterator, lambda b: shard_batch(mesh, b), size)
+    dev = resolve_device(device)
+    return _prefetch(iterator, lambda b: _place(b, dev), size)
 
 
 def _place(batch: Any, device: torch.device) -> Any:
@@ -49,10 +54,10 @@ def _place(batch: Any, device: torch.device) -> Any:
     return t.to(device, non_blocking=True)
 
 
-def _prefetch(iterator: Iterable[Any], device: torch.device, size: int) -> Iterator[Any]:
+def _prefetch(iterator: Iterable[Any], place, size: int) -> Iterator[Any]:
     buffer: collections.deque = collections.deque()
     for batch in iterator:
-        buffer.append(_place(batch, device))
+        buffer.append(place(batch))
         if len(buffer) >= size:
             yield buffer.popleft()
     while buffer:

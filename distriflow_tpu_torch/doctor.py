@@ -997,17 +997,30 @@ def _run_checks(device_arg: str, report: Optional[List[Dict[str, Any]]]) -> int:
                     f"autoscaler acted on a clean fleet: {scaler.actions()}")
                 assert not watch.breached(), watch.breached()
 
-                # -- straggler leg: stretch A's admission window; the
-                #    tier-0 watermark hedges to the second arc owner ------
+                # -- straggler leg: A's admission window stays open until
+                #    the hedge's cancel has reached A (event-ordered, not
+                #    a 0.25 s window racing the duplicate under load);
+                #    the tier-0 watermark hedges to the second arc owner --
                 key = page_hashes(prompts["A"][0], ps)[0]
                 second = router.ring.lookup(key, 2)[1]
-                sa.serving.batch_window_s = 0.25  # read at use time
+
+                def held_window():
+                    # A's scheduler holds the straggler in its backlog
+                    # until B has won and the router's hedge_cancel has
+                    # flagged it; the cap only bounds a broken run
+                    end = time.monotonic() + 30.0
+                    while (tel.counter_value("serving_hedge_cancelled_total") < 1
+                           and time.monotonic() < end):
+                        time.sleep(0.002)
+                    return 0.0
+
+                sa._window_s = held_window  # read at use time
                 router.hedge_ms[0] = 25.0  # arm the tier-0 watermark
                 try:
                     out = c.generate(prompts["A"], 4, request_id="hedge-1")
                 finally:
                     router.hedge_ms.clear()
-                    sa.serving.batch_window_s = 0.05
+                    del sa._window_s
                 solo.check(out, prompts["A"], 4)
                 assert c.last_replica == second, (
                     f"hedge won on {c.last_replica}, expected {second}")
@@ -1735,11 +1748,17 @@ def _run_checks(device_arg: str, report: Optional[List[Dict[str, Any]]]) -> int:
                     assert not read_bundles(dump_dir), (
                         "clean run wrote a flight bundle")
 
-                    # scripted fault: 0.4 s admission->prefill delay on
-                    # whichever replica admits the next tier-0 request
+                    # scripted fault: an admission->prefill delay on
+                    # whichever replica admits the next tier-0 request,
+                    # 0.4 s or, where the clean run's p99 puts the
+                    # ceiling higher (a loaded host), the ceiling + 0.1 s:
+                    # the slow TTFT passes the ceiling by construction,
+                    # not by a race against the clean tail
+                    delay_s = max(0.4, (ceiling + 100.0) / 1e3)
+
                     def slowed(orig):
                         def admit(plen, shared_len, members):
-                            time.sleep(0.4)
+                            time.sleep(delay_s)
                             return orig(plen, shared_len, members)
                         return admit
 

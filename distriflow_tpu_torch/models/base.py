@@ -228,6 +228,12 @@ class ModelSpec:
     #: own ``{name: tensor}`` dict (:func:`params_to_wire`)
     to_wire: Optional[Callable[[Params], Any]] = None
     from_wire: Optional[Callable[[Any], Params]] = None
+    #: the mesh the model runs on (``None``: one device); see
+    #: :meth:`loss_sums`
+    mesh: Any = None
+    #: a parameter name -> its flax path under ``['params']``, which the
+    #: sharding rules match (``None``: the name split on ``.``)
+    flax_path: Optional[Callable[[str], Tuple[str, ...]]] = None
 
     def check_loss(self) -> None:
         """Raise ``NotImplementedError`` when the loss runs a CUDA kernel
@@ -257,6 +263,41 @@ class ModelSpec:
                 total = total + loss(p, t, weight)
             return total
         return loss(preds, y, weight)
+
+    def _per_example(self, model: nn.Module) -> Callable[..., torch.Tensor]:
+        """The per-example loss; vocab-parallel logits (an LM whose
+        ``lm_head`` holds a ``model`` slice) take the vocab-parallel CE."""
+        if getattr(model, "vocab_parallel", False):
+            if self.loss != "sparse_softmax_cross_entropy":
+                raise NotImplementedError(
+                    f"loss {self.loss!r} over vocab-parallel logits: only the sparse CE is "
+                    "ported there")
+            return lambda logits, y: losses_lib.vocab_parallel_sparse_ce_per_example(
+                logits, y, model.mesh)
+        losses_lib.get_loss(self.loss)  # registers the fused losses
+        return losses_lib.PER_EXAMPLE[self.loss]
+
+    def loss_sums(self, model: nn.Module, x: torch.Tensor, y: torch.Tensor,
+                  weight: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """This rank's ``(sum of w * loss, sum of w, aux)`` over its
+        examples (every per-example loss weighs 1 without ``weight``; a
+        ``[B]`` weight covers every loss of its row); ``aux`` is the
+        ``apply_with_aux`` term or None. On a mesh the trainers all-reduce
+        the sums, never the local means, so padded partial batches stay
+        exact."""
+        if self.apply_with_aux is not None:
+            preds, aux = self.apply_with_aux(model, x)
+        else:
+            preds, aux = self.apply(model, x), None
+        if isinstance(preds, (tuple, list)):
+            raise NotImplementedError("multi-output models on a mesh are not ported")
+        per = self._per_example(model)(preds, y)
+        if weight is None:
+            return per.sum(), torch.tensor(float(per.numel()), device=per.device), aux
+        w = torch.as_tensor(weight, device=per.device).to(per.dtype)
+        w = torch.broadcast_to(w.reshape(w.shape + (1,) * (per.dim() - w.dim())), per.shape)
+        return (per * w).sum(), w.sum(), aux
 
     def grad_fn(self) -> Callable[..., Tuple[torch.Tensor, Params]]:
         """``(model, x, y[, weight]) -> (loss, grads)``: the detached loss

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,44 +39,71 @@ def _arr(x: Any, dtype: torch.dtype, shape) -> torch.Tensor:
     return torch.from_numpy(a).reshape(shape).to(dtype)
 
 
+#: the port's matmul weights whose flax module holds them as ``kernel``
+_LM_KERNELS = ("q_proj", "k_proj", "v_proj", "o_proj", "wi", "wo")
+
+
+def lm_flax_path(name: str) -> Tuple[str, ...]:
+    """The flax path (under ``params``) of the LM parameter the port names
+    ``name``: ``layers.3.attn.q_proj`` -> ``("layers_3", "attn", "q_proj",
+    "kernel")``, ``embed`` -> ``("embed", "embedding")``. The one name map
+    between the two packages: :func:`params_from_jax` reads each leaf
+    through it and the sharding rules resolve each name through it
+    (``parallel/sharding.py``)."""
+    if name == "embed":
+        return ("embed", "embedding")
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts = [f"layers_{parts[1]}"] + parts[2:]
+    if parts[-1] in _LM_KERNELS or parts[-1] == "lm_head":
+        parts.append("kernel")
+    return tuple(parts)
+
+
+def lm_param_shapes(config: TransformerConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
+    """``{port name: (shape, is_weight)}`` of every LM parameter, in the
+    port's flattened layouts (``q_proj`` ``[d, H*D]``, ``o_proj``
+    ``[H*D, d]``); ``is_weight`` marks the leaves stored in ``cfg.dtype``
+    for serving (LayerNorm and the MoE router stay f32)."""
+    cfg = config
+    d, hd, e, f = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_experts, cfg.d_ff
+    out = {"embed": ((cfg.vocab_size, d), True), "lm_head": ((d, cfg.vocab_size), True),
+           "ln_f.scale": ((d,), False), "ln_f.bias": ((d,), False)}
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        for ln in ("ln_attn", "ln_mlp"):
+            out[pre + ln + ".scale"] = ((d,), False)
+            out[pre + ln + ".bias"] = ((d,), False)
+        for name in ("q_proj", "k_proj", "v_proj"):
+            out[pre + "attn." + name] = ((d, hd), True)
+        out[pre + "attn.o_proj"] = ((hd, d), True)
+        if e > 0:
+            out[pre + "moe.experts_wi"] = ((e, d, f), True)
+            out[pre + "moe.experts_wo"] = ((e, f, d), True)
+            out[pre + "moe.router.kernel"] = ((d, e), False)
+            out[pre + "moe.router.bias"] = ((e,), False)
+        else:
+            out[pre + "mlp.wi"] = ((d, f), True)
+            out[pre + "mlp.wo"] = ((f, d), True)
+    return out
+
+
 def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig,
                     masters: bool = False) -> Dict[str, torch.Tensor]:
     """Flax params -> the port's ``state_dict`` (CPU tensors): weights in
     ``config.dtype``, or all f32 with ``masters``. An MoE config's layers
     carry ``moe.experts_wi`` [E, d, f], ``moe.experts_wo`` [E, f, d] (as the
     other weights) and ``moe.router.kernel`` [d, E] / ``.bias`` [E]
-    (always f32) in place of ``mlp``."""
+    (always f32) in place of ``mlp``. Each leaf is read through
+    :func:`lm_flax_path`."""
     p = tree["params"] if "params" in tree else tree
-    cfg = config
-    hd = cfg.n_heads * cfg.head_dim
-    wdt = torch.float32 if masters else cfg.dtype
-    out: Dict[str, torch.Tensor] = {
-        "embed": _arr(p["embed"]["embedding"], wdt, (cfg.vocab_size, cfg.d_model)),
-        "lm_head": _arr(p["lm_head"]["kernel"], wdt, (cfg.d_model, cfg.vocab_size)),
-        "ln_f.scale": _arr(p["ln_f"]["scale"], torch.float32, (cfg.d_model,)),
-        "ln_f.bias": _arr(p["ln_f"]["bias"], torch.float32, (cfg.d_model,)),
-    }
-    for i in range(cfg.n_layers):
-        lp = p[f"layers_{i}"]
-        pre = f"layers.{i}."
-        for ln in ("ln_attn", "ln_mlp"):
-            out[pre + ln + ".scale"] = _arr(lp[ln]["scale"], torch.float32, (cfg.d_model,))
-            out[pre + ln + ".bias"] = _arr(lp[ln]["bias"], torch.float32, (cfg.d_model,))
-        attn = lp["attn"]
-        for name in ("q_proj", "k_proj", "v_proj"):
-            out[pre + "attn." + name] = _arr(attn[name]["kernel"], wdt, (cfg.d_model, hd))
-        out[pre + "attn.o_proj"] = _arr(attn["o_proj"]["kernel"], wdt, (hd, cfg.d_model))
-        if cfg.n_experts > 0:
-            moe, e = lp["moe"], cfg.n_experts
-            out[pre + "moe.experts_wi"] = _arr(moe["experts_wi"], wdt, (e, cfg.d_model, cfg.d_ff))
-            out[pre + "moe.experts_wo"] = _arr(moe["experts_wo"], wdt, (e, cfg.d_ff, cfg.d_model))
-            # the router is f32 in both models (flax Dense(dtype=float32))
-            out[pre + "moe.router.kernel"] = _arr(moe["router"]["kernel"], torch.float32,
-                                                  (cfg.d_model, e))
-            out[pre + "moe.router.bias"] = _arr(moe["router"]["bias"], torch.float32, (e,))
-            continue
-        out[pre + "mlp.wi"] = _arr(lp["mlp"]["wi"]["kernel"], wdt, (cfg.d_model, cfg.d_ff))
-        out[pre + "mlp.wo"] = _arr(lp["mlp"]["wo"]["kernel"], wdt, (cfg.d_ff, cfg.d_model))
+    wdt = torch.float32 if masters else config.dtype
+    out: Dict[str, torch.Tensor] = {}
+    for name, (shape, weight) in lm_param_shapes(config).items():
+        node = p
+        for key in lm_flax_path(name):
+            node = node[key]
+        out[name] = _arr(node, wdt if weight else torch.float32, shape)
     return out
 
 

@@ -99,6 +99,47 @@ def sparse_softmax_cross_entropy_per_example(logits, targets):
     return torch.logsumexp(x, dim=-1) - label_logits
 
 
+def vocab_parallel_sparse_ce_per_example(logits, targets, mesh, axis: str = "model"):
+    """The sparse CE of logits sharded on the vocabulary over ``axis``
+    (each rank holds its ``V/n`` slice; Megatron's vocab-parallel CE, what
+    GSPMD makes of JAX's sparse CE there): the row max and the sum of
+    exponentials are all-reduced over the axis, and the label's logit is
+    taken by the rank holding it. Equals
+    :func:`sparse_softmax_cross_entropy_per_example` of the full logits,
+    on every rank; its gradient is this rank's vocabulary slice of the
+    full gradient."""
+    from distriflow_tpu_torch.parallel.collectives import pmax, psum
+    from distriflow_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    x = logits.float()
+    vl = x.shape[-1]
+    v0 = axis_index(mesh, axis) * vl
+    lab = targets.long()
+    lab = torch.where(lab < 0, lab + vl * axis_size(mesh, axis), lab)
+    m = pmax(x.detach().amax(-1), axis, mesh)
+    sumexp = psum(torch.exp(x - m[..., None]).sum(-1), axis, mesh)
+    here = (lab >= v0) & (lab < v0 + vl)
+    picked = torch.gather(x, -1, (lab - v0).clamp(0, vl - 1)[..., None])[..., 0]
+    label_logits = psum(torch.where(here, picked, torch.zeros_like(picked)), axis, mesh)
+    return torch.log(sumexp) + m - label_logits
+
+
+def vocab_parallel_argmax(logits, mesh, axis: str = "model"):
+    """The index of the largest logit over the full vocabulary from the
+    vocab-sharded ``logits`` (the lowest index among equal maxima, as
+    ``argmax`` takes it)."""
+    from distriflow_tpu_torch.parallel.collectives import pmax, pmin
+    from distriflow_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    vl = logits.shape[-1]
+    local_max, local_idx = logits.float().max(-1)
+    m = pmax(local_max, axis, mesh)
+    big = vl * axis_size(mesh, axis)
+    cand = torch.where(local_max == m, local_idx + axis_index(mesh, axis) * vl,
+                       torch.full_like(local_idx, big))
+    return pmin(cand, axis, mesh)
+
+
 PER_EXAMPLE: Dict[str, PerExampleFn] = {
     "absolute_difference": absolute_difference_per_example,
     "mean_squared_error": mean_squared_error_per_example,

@@ -4,8 +4,7 @@
 ``torch.dtype``). The modules are ``nn.Module``s holding weights in the
 JAX kernel layout (``[in, out]``), so
 :mod:`distriflow_tpu_torch.models.convert` copies a flax params tree over
-without transposes. Ring/Ulysses attention and the pipelined LM are not
-ported yet: the config refuses them.
+without transposes. The pipelined LM is not ported yet.
 
 One module class serves both uses; whoever builds it picks the parameter
 storage with ``TransformerLM(config, trainable=...)``:
@@ -51,6 +50,35 @@ every layout; a fresh prefill attends over the exact projections, the
 decode kernels fold the scales in, and the plain path dequantizes (f32
 product, then cast) and quantizes q for single-token steps, as JAX does.
 
+**On a mesh** (``TransformerLM(..., mesh=)``, a five-axis mesh of
+``distriflow_tpu_torch.parallel``) every rank holds its local blocks of the
+parameters (``parallel/sharding.py::shard_params``) and computes on local
+tensors, with the collectives GSPMD would insert written out:
+
+- a sharded ``q/k/v_proj`` (whole heads) and ``mlp.wi`` are
+  column-parallel, ``o_proj`` and ``mlp.wo`` row-parallel: the block's
+  input passes ``copy_to`` over ``model`` and its output ``psum``
+  (Megatron's f/g); attention (kernel 1 on CUDA) runs on the local
+  ``[B/dp, H/tp, S, D]`` with no collective;
+- ``embed`` sharded on ``d_model``: its output is all-gathered over
+  ``model``; ``lm_head`` sharded on vocab: the logits stay vocab-parallel
+  (the spec's loss then runs the vocab-parallel CE, ``models/losses.py``);
+- with ``use_ring_attention`` or ``use_ulysses_attention`` and a ``seq``
+  axis above 1, the residual stream stays sequence-sharded: RoPE takes
+  global positions (the local index plus ``rank_in_seq x chunk``) and
+  attention runs over the ring or the all-to-all;
+- MoE experts sharded over ``expert`` (EP): tokens are sharded over
+  ``data`` only, so every rank of an ``expert`` group holds the same
+  tokens; each rank dispatches to, runs and combines its own E/ep experts
+  (and their ``model`` slice) and the combine is ``psum``'d over
+  ``expert``. The routing group is ``_auto_block`` of the global token
+  count, and the load-balance term's means and ``dropped_fraction`` are
+  global (all-reduced over ``data``).
+
+A parameter is sharded where its local shape is smaller than its full
+shape, so the same module runs any rule table that shards these dims.
+Sharded decoding is not ported yet (``decode`` raises).
+
 Cache writes update the tensors in place (JAX rebuilds them functionally);
 that saves a copy of the whole pool per step. JAX's scatters silently drop
 out-of-range indices where ``index_put_`` would raise or wrap, so every
@@ -75,6 +103,18 @@ from distriflow_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_seq_supported,
 )
+from distriflow_tpu_torch.parallel.collectives import (
+    all_gather_invariant,
+    copy_to,
+    psum,
+)
+from distriflow_tpu_torch.parallel.mesh import axis_index, axis_size
+from distriflow_tpu_torch.parallel.ring_attention import (
+    _auto_block,
+    dense_attention,
+    ring_attention,
+)
+from distriflow_tpu_torch.parallel.ulysses import ulysses_attention
 from distriflow_tpu_torch.ops.flash_decode import (
     INT8_HEAD_DIMS,
     SUPPORTED_HEAD_DIMS,
@@ -99,8 +139,7 @@ KV_CACHE_DTYPES = (None, "int8", "int8_force")
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Same fields as the JAX config. Values that select code this port
-    does not have yet (sequence-parallel attention) raise."""
+    """Same fields as the JAX config."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -138,14 +177,14 @@ class TransformerConfig:
         if self.n_experts > 0 and not 1 <= self.moe_top_k <= self.n_experts:
             raise ValueError(
                 f"moe_top_k must be in [1, n_experts={self.n_experts}], got {self.moe_top_k}")
-        unported = {
-            "use_ring_attention": self.use_ring_attention,
-            "use_ulysses_attention": self.use_ulysses_attention,
-        }
-        for name, set_ in unported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet")
+        if self.use_ring_attention and self.use_ulysses_attention:
+            raise ValueError(
+                "use_ring_attention and use_ulysses_attention are mutually "
+                "exclusive sequence-parallel strategies; pick one")
+        if self.pipeline_schedule is not None:
+            raise NotImplementedError(
+                f"pipeline_schedule={self.pipeline_schedule!r}: the pipelined LM "
+                "(parallel/pipeline.py) is not ported yet; it comes with the next slice")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(
                 f"kv_cache_dtype must be None, 'int8', or 'int8_force', "
@@ -171,14 +210,22 @@ class TransformerConfig:
         the allocation bound is known (the serving engine's caches)."""
         return self.kv_cache_dtype_for(self.max_seq)
 
-    def resolved_loss_for(self, device: Optional[Union[str, torch.device]] = None) -> str:
+    def resolved_loss_for(self, device: Optional[Union[str, torch.device]] = None,
+                          mesh=None) -> str:
         """The loss name the model spec trains with. An explicit ``loss`` is
         always honored; ``loss=None`` resolves to the fused sparse CE (its
         CUDA kernels) on a CUDA device and to the plain sparse CE on the
         CPU, as JAX resolves to the fused Pallas CE on a TPU only.
-        ``device=None`` is the port's default device, CUDA."""
+        ``device=None`` is the port's default device, CUDA. On a ``mesh``
+        whose ``model``, ``pipe`` or ``seq`` axis is above 1 it is the
+        plain sparse CE, as in JAX (vocab-sharded logits, or a sequence
+        dim the fused CE's flat rows do not cover); a mesh whose only
+        axes above 1 are ``data`` and ``expert`` keeps the fused CE on the
+        local rows."""
         if self.loss is not None:
             return self.loss
+        if mesh is not None and any(axis_size(mesh, ax) > 1 for ax in ("model", "pipe", "seq")):
+            return "sparse_softmax_cross_entropy"
         dev = torch.device("cuda" if device is None else device)
         return ("fused_sparse_softmax_cross_entropy" if dev.type == "cuda"
                 else "sparse_softmax_cross_entropy")
@@ -187,6 +234,12 @@ class TransformerConfig:
     def resolved_loss(self) -> str:
         """Resolution on the default device (single-device semantics)."""
         return self.resolved_loss_for(None)
+
+    def sequence_sharded(self, mesh) -> bool:
+        """True when the residual stream runs sequence-sharded on ``mesh``:
+        ring or Ulysses attention and a ``seq`` axis above 1."""
+        return (self.use_ring_attention or self.use_ulysses_attention) and \
+            axis_size(mesh, "seq") > 1
 
 
 def apply_rope(
@@ -221,17 +274,6 @@ def apply_rope(
         return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
     return rot(q), rot(k)
-
-
-def dense_attention(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Plain softmax attention over ``[B, H, S, D]`` in f32 (the path JAX
-    takes through ``blockwise_attention`` when flash is off)."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    if causal:
-        n = q.shape[2]
-        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
-    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
 
 
 def _use_kernel(flag: Optional[bool], t: torch.Tensor) -> bool:
@@ -442,10 +484,11 @@ def _param(*shape: int, dtype: torch.dtype, trainable: bool) -> nn.Parameter:
 
 
 class Attention(nn.Module):
-    def __init__(self, config: TransformerConfig, trainable: bool = False):
+    def __init__(self, config: TransformerConfig, trainable: bool = False, mesh=None):
         super().__init__()
         cfg = config
         self.config = cfg
+        self.mesh = mesh
         hd = cfg.n_heads * cfg.head_dim
         # JAX layout: DenseGeneral kernels [d, H, D] and [H, D, d], flattened
         self.q_proj = _param(cfg.d_model, hd, dtype=cfg.dtype, trainable=trainable)
@@ -458,8 +501,8 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         xc = x.to(cfg.dtype)
         return tuple(
-            torch.matmul(xc, w.to(cfg.dtype)).view(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-            for w in (self.q_proj, self.k_proj, self.v_proj))  # [B, H, s, D]
+            torch.matmul(xc, w.to(cfg.dtype)).view(b, s, -1, cfg.head_dim).transpose(1, 2)
+            for w in (self.q_proj, self.k_proj, self.v_proj))  # [B, H (local), s, D]
 
     def _out(self, ctx):
         """``ctx`` [B, s, H, D] -> [B, s, d_model] in cfg.dtype."""
@@ -475,13 +518,34 @@ class Attention(nn.Module):
                                    causal=cfg.causal)
         return dense_attention(q, k, v, causal=cfg.causal)
 
+    @property
+    def heads_sharded(self) -> bool:
+        """True when this rank holds a ``model`` slice of the heads."""
+        return self.q_proj.shape[1] < self.config.n_heads * self.config.head_dim
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Training-mode attention over the whole sequence (no cache)."""
-        cfg = self.config
+        """Training-mode attention over the whole sequence (no cache); on a
+        mesh over this rank's heads and, sequence-sharded, its chunk."""
+        cfg, mesh = self.config, self.mesh
+        tp = mesh is not None and self.heads_sharded
+        if tp:
+            x = copy_to(x, "model", mesh)
         q, k, v = self._qkv(x)
+        sp = mesh is not None and cfg.sequence_sharded(mesh)
         if cfg.use_rope:
-            q, k = apply_rope(q, k, base=cfg.rope_base)
-        return self._out(self._prompt_attention(q, k, v).transpose(1, 2))
+            # sequence-sharded: global positions, this chunk's start first
+            offset = axis_index(mesh, "seq") * q.shape[2] if sp else 0
+            q, k = apply_rope(q, k, base=cfg.rope_base, offset=offset)
+        if sp and cfg.use_ring_attention:
+            out = ring_attention(q, k, v, mesh, axis="seq", causal=cfg.causal,
+                                 use_flash=_use_kernel(cfg.use_flash_attention, q))
+        elif sp:
+            out = ulysses_attention(q, k, v, mesh, axis="seq", causal=cfg.causal,
+                                    use_flash=_use_kernel(cfg.use_flash_attention, q))
+        else:  # local [B/dp, H/tp, S, D]: no collective
+            out = self._prompt_attention(q, k, v)
+        out = self._out(out.transpose(1, 2))
+        return psum(out, "model", mesh) if tp else out
 
     def decode(self, x: torch.Tensor, cache: KVCache, layer: int, fresh: bool) -> torch.Tensor:
         """Incremental attention against ``cache`` (JAX ``_decode_attend``):
@@ -548,25 +612,21 @@ class Attention(nn.Module):
 
 
 class DenseFFN(nn.Module):
-    def __init__(self, config: TransformerConfig, trainable: bool = False):
+    def __init__(self, config: TransformerConfig, trainable: bool = False, mesh=None):
         super().__init__()
         self.config = config
+        self.mesh = mesh
         self.wi = _param(config.d_model, config.d_ff, dtype=config.dtype, trainable=trainable)
         self.wo = _param(config.d_ff, config.d_model, dtype=config.dtype, trainable=trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.config.dtype
+        tp = self.mesh is not None and self.wi.shape[1] < self.config.d_ff
+        if tp:  # column-parallel wi, row-parallel wo
+            x = copy_to(x, "model", self.mesh)
         h = F.gelu(torch.matmul(x.to(dt), self.wi.to(dt)), approximate="tanh")
-        return torch.matmul(h, self.wo.to(dt))
-
-
-def _auto_block(s: int, target: int = 512) -> int:
-    """Largest divisor of ``s`` that is <= target (JAX
-    ``parallel/ring_attention.py::_auto_block``): the MoE routing group."""
-    for b in range(min(s, target), 0, -1):
-        if s % b == 0:
-            return b
-    return s
+        out = torch.matmul(h, self.wo.to(dt))
+        return psum(out, "model", self.mesh) if tp else out
 
 
 def moe_phase_fwd_flops(config: TransformerConfig, n_tok: int) -> dict:
@@ -628,10 +688,11 @@ class MoEFFN(nn.Module):
     last forward's ``1 - sum(dispatch) / (k * B*S)`` (a detached 0-d
     tensor; None after a dense forward), JAX's ``moe_stats`` entry."""
 
-    def __init__(self, config: TransformerConfig, trainable: bool = False):
+    def __init__(self, config: TransformerConfig, trainable: bool = False, mesh=None):
         super().__init__()
         cfg = config
         self.config = cfg
+        self.mesh = mesh
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
         self.experts_wi = _param(e, d, f, dtype=cfg.dtype, trainable=trainable)
         self.experts_wo = _param(e, f, d, dtype=cfg.dtype, trainable=trainable)
@@ -651,13 +712,19 @@ class MoEFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, dense: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        cfg = self.config
+        cfg, mesh = self.config, self.mesh
         e, k, dt = cfg.n_experts, cfg.moe_top_k, cfg.dtype
         ct = torch.promote_types(x.dtype, dt)  # jnp.einsum's promotion
         wi = self.experts_wi.to(dt).to(ct)
         wo = self.experts_wo.to(dt).to(ct)
         xc = x.to(ct)
         probs = torch.softmax(self.router(x), dim=-1)  # [B, S, E] f32
+        e_local, tp = wi.shape[0], mesh is not None and wi.shape[2] < cfg.d_ff
+        ep = mesh is not None and e_local < e
+        if (dense or cfg.moe_dense_dispatch) and (ep or tp):
+            raise NotImplementedError(
+                "dense MoE dispatch over sharded experts is not ported yet "
+                "(sharded decoding comes with the next slice)")
         if dense or cfg.moe_dense_dispatch:
             topv, topi = self._top_k(probs)
             w = topv if k == 1 else topv / topv.sum(-1, keepdim=True)
@@ -669,16 +736,27 @@ class MoEFFN(nn.Module):
 
         b, s, d = x.shape
         n_tok = b * s
-        g = _auto_block(n_tok, cfg.moe_group_size)
+        # on a mesh the tokens are sharded over data alone: the routing
+        # group is JAX's, cut from the global token count
+        dp = axis_size(mesh, "data")
+        g = _auto_block(n_tok * dp, cfg.moe_group_size)
+        if n_tok % g:
+            raise NotImplementedError(
+                f"routing groups of {g} tokens span data ranks ({n_tok} tokens a rank); "
+                "lower moe_group_size")
         n_grp = n_tok // g
         capacity = max(1, int(cfg.capacity_factor * k * g / e))
         grp_probs = probs.reshape(n_grp, g, e)
         topv, topi = self._top_k(grp_probs)  # [G, g, K]
         onehot = F.one_hot(topi, e)  # [G, g, K, E] int64
         gate = topv if k == 1 else topv / topv.sum(-1, keepdim=True)
-        # the load-balance term on the first choice; f_e carries no gradient
+        # the load-balance term on the first choice; f_e carries no gradient;
+        # both means are global (every data rank holds as many tokens)
         f_frac = onehot[:, :, 0, :].float().mean(dim=(0, 1))
         p_mean = grp_probs.mean(dim=(0, 1))
+        if dp > 1:
+            f_frac = psum(f_frac, "data", mesh) / dp
+            p_mean = psum(p_mean, "data", mesh) / dp
         load_balance = e * (f_frac * p_mean).sum()
         # each (token, choice) pair's slot in its expert's buffer (the
         # 1-based cumsum, less one), pairs flattened choice-major; -1 (not
@@ -688,18 +766,35 @@ class MoEFFN(nn.Module):
         slot = torch.cumsum(oh_flat, dim=1) * oh_flat - 1
         slots = torch.arange(capacity, device=x.device)
         dispatch = (slot[..., None] == slots).to(torch.float32)  # [G, K*g, E, C] 0/1
-        self.dropped_fraction = (1.0 - dispatch.sum() / torch.tensor(
-            float(k * n_tok), device=x.device)).detach()
+        kept = dispatch.sum()
+        if dp > 1:
+            kept = psum(kept.detach(), "data", mesh)
+        self.dropped_fraction = (1.0 - kept / torch.tensor(
+            float(k * n_tok * dp), device=x.device)).detach()
         gate_flat = gate.transpose(1, 2).reshape(n_grp, k * g)
-        combine = dispatch * gate_flat[..., None, None]
         grp_x = xc.reshape(n_grp, g, d)
+        if ep:
+            # this rank's experts: the dispatch, the run and the combine of
+            # E/ep experts; x and the gates reach the other experts' ranks
+            # too, so their gradients are summed over expert (copy_to)
+            e0 = axis_index(mesh, "expert") * e_local
+            dispatch = dispatch[:, :, e0:e0 + e_local]
+            grp_x = copy_to(grp_x, "expert", mesh)
+            gate_flat = copy_to(gate_flat, "expert", mesh)
+        combine = dispatch * gate_flat[..., None, None]
         x_rep = grp_x if k == 1 else grp_x.repeat(1, k, 1)  # jnp.tile: choice-major
         expert_in = torch.einsum("xtec,xtd->xecd", dispatch.to(dt).to(ct), x_rep)
+        if tp:  # each expert's d_ff sliced over model
+            expert_in = copy_to(expert_in, "model", mesh)
         h = F.gelu(torch.einsum("xecd,edf->xecf", expert_in, wi), approximate="tanh")
         expert_out = torch.einsum("xecf,efd->xecd", h, wo)
+        if tp:
+            expert_out = psum(expert_out, "model", mesh)
         out = torch.einsum("xtec,xecd->xtd", combine.to(dt).to(ct), expert_out)
         if k > 1:
             out = out.reshape(n_grp, k, g, d).sum(dim=1)
+        if ep:
+            out = psum(out, "expert", mesh)
         return out.reshape(b, s, d), load_balance
 
 
@@ -716,15 +811,15 @@ class LayerNorm(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, config: TransformerConfig, trainable: bool = False):
+    def __init__(self, config: TransformerConfig, trainable: bool = False, mesh=None):
         super().__init__()
         self.ln_attn = LayerNorm(config.d_model, trainable)
-        self.attn = Attention(config, trainable)
+        self.attn = Attention(config, trainable, mesh)
         self.ln_mlp = LayerNorm(config.d_model, trainable)
         if config.n_experts > 0:  # flax names the FFN "moe" or "mlp"
-            self.moe = MoEFFN(config, trainable)
+            self.moe = MoEFFN(config, trainable, mesh)
         else:
-            self.mlp = DenseFFN(config, trainable)
+            self.mlp = DenseFFN(config, trainable, mesh)
 
     def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0, fresh: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -744,17 +839,20 @@ class TransformerLM(nn.Module):
     """The causal LM. ``forward(tokens)`` is the training-mode pass;
     ``decode(tokens, cache)`` the KV-cache pass every decoding path uses.
     ``trainable`` selects f32 master parameters that require grad (see the
-    module docstring)."""
+    module docstring). ``mesh`` makes it run on this rank's local blocks
+    (the parameters are built full; ``SyncTrainer._shard_model`` swaps in
+    the blocks)."""
 
     def __init__(self, config: TransformerConfig, device: Optional[Union[str, torch.device]] = None,
-                 trainable: bool = False):
+                 trainable: bool = False, mesh=None):
         super().__init__()
         from distriflow_tpu_torch.utils.device import resolve_device
 
         self.config = config
+        self.mesh = mesh
         cfg = config
         self.embed = _param(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype, trainable=trainable)
-        self.layers = nn.ModuleList(Block(cfg, trainable) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, trainable, mesh) for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, trainable)
         self.lm_head = _param(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype, trainable=trainable)
         dev = resolve_device(device)
@@ -766,13 +864,33 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def vocab_parallel(self) -> bool:
+        """True when ``lm_head`` holds a ``model`` slice of the vocabulary:
+        the training logits are then this rank's vocabulary slice."""
+        return self.lm_head.shape[1] < self.config.vocab_size
+
+    @property
+    def sharded(self) -> bool:
+        """True when any parameter holds a slice (the model runs on a mesh)."""
+        from distriflow_tpu_torch.models.convert import lm_param_shapes
+
+        full = lm_param_shapes(self.config)
+        return any(tuple(p.shape) != full[n][0] for n, p in self.named_parameters())
+
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()].to(self.config.dtype)
+        x = self.embed[tokens.long()].to(self.config.dtype)
+        if self.mesh is not None and self.embed.shape[1] < self.config.d_model:
+            x = all_gather_invariant(x, "model", self.mesh, gather_axis=-1)
+        return x
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits in ``cfg.dtype``."""
+        """Logits in ``cfg.dtype`` (vocab-parallel: this rank's slice)."""
         dt = self.config.dtype
-        return torch.matmul(self.ln_f(x).to(dt), self.lm_head.to(dt))
+        h = self.ln_f(x).to(dt)
+        if self.mesh is not None and self.vocab_parallel:
+            h = copy_to(h, "model", self.mesh)
+        return torch.matmul(h, self.lm_head.to(dt))
 
     def forward(self, tokens: torch.Tensor, with_aux: bool = False):
         """Training-mode logits; with ``with_aux``, ``(logits, aux)``: the
@@ -793,7 +911,7 @@ class TransformerLM(nn.Module):
             ) if remat else blk(x)
             if aux is not None:
                 terms.append(aux)
-        logits = _cast_logits(self._head(x), cfg.resolved_loss_for(self.device))
+        logits = _cast_logits(self._head(x), cfg.resolved_loss_for(self.device, self.mesh))
         if not with_aux:
             return logits
         return logits, sum(terms) * (cfg.router_aux_weight / max(len(terms), 1))
@@ -815,6 +933,10 @@ class TransformerLM(nn.Module):
         [B, s, V] f32, cache)``. ``cache=None`` starts a fresh solo cache
         (the prefill, which takes the prompt-attention kernel), int8 as
         :meth:`new_cache` decides from ``int8``."""
+        if self.mesh is not None and self.sharded:
+            raise NotImplementedError(
+                "decoding over sharded parameters is not ported yet (TP-sharded decoding "
+                "comes with the next slice)")
         fresh = cache is None
         if fresh:
             cache = self.new_cache(tokens.shape[0], int8)
@@ -875,10 +997,17 @@ def init_weights(model: TransformerLM, seed: int = 0) -> TransformerLM:
     return model
 
 
+def _lm_flax_path(name: str) -> Tuple[str, ...]:
+    from distriflow_tpu_torch.models.convert import lm_flax_path  # convert imports this module
+
+    return lm_flax_path(name)
+
+
 def transformer_lm(
     config: Optional[TransformerConfig] = None,
     device: Optional[Union[str, torch.device]] = None,
     example_seq: int = 128,
+    mesh=None,
     **overrides,
 ) -> ModelSpec:
     """ModelSpec for the causal LM on ``device`` (``cuda`` by default). ``x``
@@ -888,7 +1017,10 @@ def transformer_lm(
     (f32 masters, see the module docstring) with :func:`init_weights`.
     A capacity-routed MoE config with ``router_aux_weight > 0`` trains with
     ``apply_with_aux``: the logits and the weighted load-balance term of
-    the same forward (eval metrics leave the term out)."""
+    the same forward (eval metrics leave the term out). On a ``mesh`` the
+    loss resolves as JAX's does there (:meth:`TransformerConfig.resolved_loss_for`)
+    and ``init`` builds the mesh-aware model with full parameters; the
+    trainer shards them by its rules."""
     from distriflow_tpu_torch.utils.device import resolve_device
 
     if config is None:
@@ -896,10 +1028,10 @@ def transformer_lm(
     elif overrides:
         config = dataclasses.replace(config, **overrides)
     dev = resolve_device(device)
-    loss = config.resolved_loss_for(dev)
+    loss = config.resolved_loss_for(dev, mesh)
 
     def init(seed: int = 0) -> TransformerLM:
-        return init_weights(TransformerLM(config, device=dev, trainable=True), seed)
+        return init_weights(TransformerLM(config, device=dev, trainable=True, mesh=mesh), seed)
 
     spec = ModelSpec(
         init=init,
@@ -914,6 +1046,8 @@ def transformer_lm(
             (lambda model, tokens: model(tokens, with_aux=True))
             if config.n_experts > 0 and config.router_aux_weight > 0
             and not config.moe_dense_dispatch else None),
+        mesh=mesh,
+        flax_path=_lm_flax_path,
     )
     spec.check_loss()  # the fused CE takes bf16 logits
     return spec

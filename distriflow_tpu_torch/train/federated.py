@@ -1,16 +1,20 @@
 """Port of ``distriflow_tpu/train/federated.py``: federated averaging,
-local steps then a weight average, on one device.
+local steps then a weight average, on one device or on a mesh.
 
 A round is W workers. Each starts from the same weights with a fresh
 optimizer state, takes K local optimizer steps on its ``[K, B, ...]``
 slice of the round data and records its mean loss; then the weights and
 the losses are averaged in a fixed order, a sum over w = 0 … W-1 and a
 divide by W, as ``pmean`` does. JAX runs the W workers as one
-``shard_map`` over the mesh's ``data`` axis; the port has no device
-meshes yet, so the W workers run one after the other on the one device,
-and ``num_workers`` stands in for ``mesh.shape["data"]`` (1, the size of
-one card's mesh, by default). Passing a ``mesh`` raises
-``NotImplementedError``.
+``shard_map`` over the mesh's ``data`` axis.
+
+- With a ``mesh`` (``torch.distributed``, every rank runs the trainer)
+  one rank is one worker, ``num_workers = mesh.shape["data"]``: each
+  rank trains on its slice of the (global, every rank the same) round
+  data, and the average is an all-gather over ``data`` summed in rank
+  order (the same bits on every rank).
+- Without one the W workers run one after the other on the one device,
+  and ``num_workers`` stands in for ``mesh.shape["data"]`` (1 by default).
 
 The JAX module's description follows.
 
@@ -51,7 +55,8 @@ from distriflow_tpu_torch.utils.serialization import host_tree
 
 
 class FederatedAveragingTrainer:
-    """FedAvg over ``num_workers`` workers that take turns on one device."""
+    """FedAvg over ``num_workers`` workers that take turns on one device,
+    or over a mesh's ``data`` axis, one rank a worker."""
 
     def __init__(
         self,
@@ -68,9 +73,10 @@ class FederatedAveragingTrainer:
         num_workers: int = 1,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "FederatedAveragingTrainer: device meshes are not ported yet; pass "
-                "num_workers= to run that many workers in turn on one device")
+            from distriflow_tpu_torch.parallel.mesh import axis_size
+
+            num_workers = axis_size(mesh, "data")
+        self.mesh = mesh
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         spec.check_loss()
@@ -144,6 +150,8 @@ class FederatedAveragingTrainer:
     def _round(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """The W local runs, then the fixed-order average of their weights
         and mean losses (sum over w, then divide by W)."""
+        if self.mesh is not None:
+            return self._mesh_round(x, y)
         acc: Optional[Params] = None
         loss_sum = None
         for w in range(self.num_workers):
@@ -159,6 +167,20 @@ class FederatedAveragingTrainer:
                 loss_sum = loss_sum + mean_loss
         load_params(self.model, {n: v / self.num_workers for n, v in acc.items()})
         return loss_sum / self.num_workers
+
+    @torch.no_grad()
+    def _mesh_round(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """This rank's worker (its ``data`` index) on its ``[K, B, ...]``
+        slice, then the rank-ordered average over ``data``."""
+        from distriflow_tpu_torch.parallel.collectives import gather_ordered_sum
+
+        with torch.enable_grad():
+            mean_loss = self._local_train(x[0], y[0]).mean()
+        w = self.num_workers
+        avg = {n: gather_ordered_sum(p, "data", self.mesh) / w
+               for n, p in named_params(self._worker).items()}
+        load_params(self.model, avg)
+        return gather_ordered_sum(mean_loss, "data", self.mesh) / w
 
     def round(self, x, y) -> float:
         """One FedAvg round.
@@ -178,6 +200,11 @@ class FederatedAveragingTrainer:
         with self._prof.step():
             t_stage = time.perf_counter()
             with self._prof.phase("stage"):
+                if self.mesh is not None:  # this worker's [1, K, B, ...] slice
+                    from distriflow_tpu_torch.parallel.mesh import axis_index
+
+                    i = axis_index(self.mesh, "data")
+                    x, y = x[i:i + 1], y[i:i + 1]
                 x, y = to_device((x, y), self.device)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)

@@ -1,5 +1,5 @@
 """Port of ``distriflow_tpu/train/sync.py``: the synchronous trainer, on one
-device.
+device or on a mesh.
 
 One step runs the model's forward and backward (on CUDA through the flash
 attention and fused cross-entropy kernels), the optimizer update and the
@@ -19,9 +19,38 @@ a background thread.
 kernels' analytic tally (:mod:`distriflow_tpu_torch.ops.flop_count`);
 ``mfu`` divides it by the step time and the card's dense bf16 peak.
 
-Not ported yet: device meshes (``mesh``, non-default ``param_rules``),
-ZeRO (``zero_level > 0``, ``zero_optimizer_sharding``) and sharded
-checkpoints. Each raises ``NotImplementedError``.
+**On a mesh** (``mesh=``, a five-axis mesh of ``distriflow_tpu_torch.
+parallel``; every rank runs the trainer, SPMD) the spec's model holds this
+rank's blocks of the parameters, as ``param_rules`` places them
+(``parallel/sharding.py``; ``REPLICATED_RULES`` by default). Every rank
+takes the *global* host batch and trains on its slice (``shard_batch``:
+rows over ``data``, and the sequence over ``seq`` when the model runs
+sequence-sharded), or on a batch already sharded. What GSPMD inserts in
+JAX is written out here:
+
+- the loss is exact on padded partial batches: each rank sums its
+  weighted losses and weights (``ModelSpec.loss_sums``); the weight sums
+  are all-reduced over ``data`` (and ``seq``), never the local means, and
+  the gradients of the local sums are sum-reduced over the same axes, then
+  divided by the global weight sum (so the DP gradient is the global
+  mean). A replicated aux term (the MoE load balance, global on every
+  rank) weighs in with its micro-batch's global weight sum, as JAX's
+  ``grad_accum`` weighs it;
+- ``zero_level`` 1 (or ``zero_optimizer_sharding``): each optimizer
+  moment holds this rank's ``data`` slice along the dim ``_zero_extend``
+  picks; each rank updates its slice of the parameter and the slices are
+  all-gathered back; 2: the gradients are reduce-scattered over ``data``
+  along that dim instead of all-reduced, and the EMA is sharded like the
+  moments.
+
+One device takes the same step path as a mesh: with no mesh every
+collective returns its input, every parameter is whole and no ZeRO slice
+is cut.
+
+``get_params`` gathers the full parameters (every rank must call it);
+``save`` gathers the full state and rank 0 writes it (unsharded).
+``sharded_checkpoints=True`` is not ported yet (the next slice's
+``checkpoint/sharded.py``) and raises.
 """
 
 from __future__ import annotations
@@ -45,6 +74,9 @@ from distriflow_tpu_torch.models.base import (
     to_device,
 )
 from distriflow_tpu_torch.obs.telemetry import get_telemetry
+from distriflow_tpu_torch.parallel import sharding
+from distriflow_tpu_torch.parallel.collectives import _all_gather, _all_reduce, _reduce_scatter
+from distriflow_tpu_torch.parallel.mesh import axis_index, axis_size, is_local, shard_batch
 from distriflow_tpu_torch.utils.logging import CallbackRegistry, VerboseLogger
 from distriflow_tpu_torch.utils.profiling import device_timer
 from distriflow_tpu_torch.utils.serialization import host_tree
@@ -91,6 +123,39 @@ def _clone(params: Params) -> Params:
     return {n: p.detach().clone() for n, p in params.items()}
 
 
+@torch.no_grad()
+def _swap_params(model: nn.Module, blocks: Params) -> None:
+    """Replace each named parameter of ``model`` by a new parameter holding
+    ``blocks[name]`` (on the parameter's device, its ``requires_grad``)."""
+    for mod_name, mod in model.named_modules():
+        for pname, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            full = f"{mod_name}.{pname}" if mod_name else pname
+            mod._parameters[pname] = nn.Parameter(
+                blocks[full].to(device=p.device, dtype=p.dtype), requires_grad=p.requires_grad)
+
+
+def _flat_all_reduce(tree: Params, mesh, axes) -> Params:
+    """Sum-allreduce every tensor of ``tree`` over ``axes`` as one flat
+    buffer per dtype (one collective each, not one a tensor); the tree
+    itself where every axis has size 1 (or there is no mesh)."""
+    if all(axis_size(mesh, ax) == 1 for ax in axes):
+        return tree
+    out: Params = {}
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for n, t in tree.items():
+        by_dtype.setdefault(t.dtype, []).append(n)
+    for names in by_dtype.values():
+        flat = _all_reduce(torch.cat([tree[n].reshape(-1) for n in names]), mesh, axes)
+        off = 0
+        for n in names:
+            k = tree[n].numel()
+            out[n] = flat[off:off + k].view_as(tree[n])
+            off += k
+    return {n: out[n] for n in tree}
+
+
 def peak_bf16_flops(device: torch.device) -> float:
     """The dense bf16 peak of ``device``'s card from
     :data:`SyncTrainer.PEAK_BF16_FLOPS`; an unknown card (or a CPU) raises."""
@@ -119,7 +184,8 @@ def record_mfu(analysis: Dict[str, Any], step_seconds: float, peak_flops_per_chi
 
 class SyncTrainer:
     """Synchronous trainer over one device (the device of the model that
-    ``spec.init`` builds: CUDA for ``transformer_lm`` by default).
+    ``spec.init`` builds: CUDA for ``transformer_lm`` by default) or over
+    a mesh (see the module docstring).
 
     ``grad_accum`` splits the batch into K sequential micro-batches whose
     gradients are averaged, each weighted by its weight sum, before one
@@ -143,16 +209,30 @@ class SyncTrainer:
         ema_decay: Optional[float] = None,
         zero_level: Optional[int] = None,
     ):
-        if mesh is not None or param_rules is not None:
+        if sharded_checkpoints:
             raise NotImplementedError(
-                "SyncTrainer: device meshes and sharding rules are not ported yet; "
-                "the port trains on one device")
+                "SyncTrainer(sharded_checkpoints=True) is not ported yet: it comes with the "
+                "next slice's checkpoint/sharded.py")
+        mesh = spec.mesh if mesh is None else mesh
+        if spec.mesh is not None and spec.mesh is not mesh:
+            raise ValueError("the spec was built on another mesh than the trainer's")
+        if mesh is not None and axis_size(mesh, "pipe") > 1:
+            raise NotImplementedError(
+                "SyncTrainer on a mesh with pipe > 1: the pipeline schedules are not ported "
+                "yet; they come with the next slice (parallel/pipeline.py)")
+        if mesh is None and param_rules is not None:
+            raise ValueError("param_rules need a mesh")
+        if mesh is not None and spec.mesh is None and any(
+                axis_size(mesh, ax) > 1 for ax in ("model", "seq", "pipe", "expert")):
+            raise ValueError("a mesh with model, seq, pipe or expert axes above 1 needs a "
+                             "spec built on it (e.g. transformer_lm(config, mesh=mesh))")
         if zero_level is None:
             zero_level = 1 if zero_optimizer_sharding else 0
         if zero_level not in (0, 1, 2):
             raise ValueError(f"zero_level must be 0, 1 or 2, got {zero_level}")
-        if zero_level:
-            raise NotImplementedError(f"SyncTrainer: ZeRO level {zero_level} is not ported yet")
+        self.mesh = mesh
+        self.param_rules = sharding.REPLICATED_RULES if param_rules is None else param_rules
+        self.zero_level = zero_level if mesh is not None else 0
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if ema_decay is not None and not (0.0 < ema_decay < 1.0):
@@ -167,8 +247,7 @@ class SyncTrainer:
         self.callbacks = CallbackRegistry("new_version", "step")
         self.state: Optional[TrainState] = None
         self.model: Optional[nn.Module] = None
-        self._grad = spec.grad_fn()
-        self._eval_fns: Dict[Tuple[str, ...], Any] = {}
+        self._grad = spec.grad_fn()  # cost_analysis's forward and backward
         self._cost_cache: Dict[Any, Dict[str, Any]] = {}
         # observability (reference time()/log wrappers)
         self.last_step_ms: Optional[float] = None
@@ -187,14 +266,130 @@ class SyncTrainer:
     # -- state ------------------------------------------------------------
 
     def init(self, seed: int = 0) -> TrainState:
-        """Build the model from ``seed`` and a fresh optimizer state."""
+        """Build the model from ``seed`` and a fresh optimizer state (on a
+        mesh: this rank's blocks of the parameters, the moments sliced
+        over ``data`` by the ZeRO level)."""
         with self.logger.time("model setup"):
             self.model = init_params(self.spec, seed)
+            self._shard_model()
             params = named_params(self.model)
-            ema = _clone(params) if self.ema_decay else None
-            self.state = TrainState(params=params, opt_state=self.optimizer.init(params),
-                                    step=0, ema=ema)
+            self.state = TrainState(params=params, opt_state=self._opt_init(params), step=0,
+                                    ema=self._ema_init(params))
         return self.state
+
+    # -- the mesh ---------------------------------------------------------
+    #
+    # One device is the mesh of size 1: every collective over an axis of
+    # size 1 (or with no mesh) returns its input, every parameter is
+    # replicated and no ZeRO slice is cut, so one step path serves both.
+
+    @torch.no_grad()
+    def _shard_model(self) -> None:
+        """Record each parameter's spec and ZeRO slice and, on a mesh,
+        swap the model's full parameters for this rank's blocks."""
+        mesh, full, flax_path = self.mesh, named_params(self.model), self.spec.flax_path
+        self._specs = {n: sharding.spec_for(n, p.dim(), self.param_rules, flax_path)
+                       for n, p in full.items()}
+        cfg = getattr(self.model, "config", None)
+        seq = mesh is not None and hasattr(cfg, "sequence_sharded") and cfg.sequence_sharded(mesh)
+        self._seq_axis = "seq" if seq else None
+        # the gradient sums over every axis the examples are split over
+        self._red_axes = ("data", "seq") if seq else ("data",)
+        self._zslices: Dict[str, Tuple[int, int, int]] = {}
+        if mesh is None:
+            return
+        _swap_params(self.model, sharding.shard_params(full, mesh, self.param_rules, flax_path))
+        dp, di = axis_size(mesh, "data"), axis_index(mesh, "data")
+        for n, p in full.items():
+            dim = (sharding.zero_dim(self._specs[n], tuple(p.shape), mesh, "data")
+                   if self.zero_level >= 1 else None)
+            if dim is not None:
+                size = p.shape[dim] // dp
+                self._zslices[n] = (dim, di * size, size)
+
+    def _zview(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO slice of a local block (a view), or the block."""
+        z = self._zslices.get(name)
+        return t if z is None else t.narrow(*z)
+
+    def _opt_init(self, params: Params) -> Dict[str, Any]:
+        return self.optimizer.init({n: self._zview(n, p) for n, p in params.items()})
+
+    def _ema_init(self, params: Params) -> Optional[Params]:
+        if not self.ema_decay:
+            return None
+        if self.zero_level >= 2:  # the EMA shards like the moments
+            return {n: self._zview(n, p).detach().clone() for n, p in params.items()}
+        return _clone(params)
+
+    def _unzero(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A ZeRO slice gathered over ``data`` into the local block."""
+        z = self._zslices.get(name)
+        return t if z is None else _all_gather(t.contiguous(), self.mesh, "data", z[0])
+
+    def _gather(self, tree: Params, zero: bool) -> Params:
+        """Parameter-shaped tensors of this rank (ZeRO slices when
+        ``zero``) gathered into the full tensors (copies; every rank must
+        call)."""
+        blocks = {n: self._unzero(n, t) for n, t in tree.items()} if zero else tree
+        return sharding.gather_params(blocks, self.mesh, self.param_rules, self.spec.flax_path)
+
+    def _grads(self, x, y, w) -> Tuple[torch.Tensor, Params]:
+        """The global weighted-mean loss and this rank's gradients of it
+        (reduced over the example axes; ZeRO-2: this rank's slices).
+        ``grad_accum`` micro-batches each weigh their weight sums, so the
+        result equals one full-batch weighted-mean step."""
+        mesh, red, accum = self.mesh, self._red_axes, self.grad_accum
+        params = named_params(self.model)
+        live = [n for n, p in params.items() if p.requires_grad]
+        n = x.shape[0] // accum
+        gsum: Params = {}
+        num_tot = den_tot = extra = 0.0
+        for i in range(accum):
+            sl = slice(i * n, (i + 1) * n)
+            num, den, aux = self.spec.loss_sums(
+                self.model, x[sl], y[sl], None if w is None else w[sl].float())
+            den_g = _all_reduce(den.detach(), mesh, red)
+            obj = num if aux is None else num + aux * den_g
+            gs = torch.autograd.grad(obj, [params[k] for k in live], allow_unused=True)
+            for k, g in zip(live, gs):
+                if g is not None:
+                    gsum[k] = g if k not in gsum else gsum[k] + g
+            num_tot = num_tot + num.detach()
+            den_tot = den_tot + den_g
+            if aux is not None:
+                extra = extra + aux.detach() * den_g
+        # zeros where a parameter does not require grad (JAX's gradient of
+        # a stopped leaf)
+        gsum = {k: gsum[k] if k in gsum else torch.zeros_like(p) for k, p in params.items()}
+        total = torch.clamp(den_tot, min=1e-9)
+        loss = (_all_reduce(num_tot, mesh, red) + extra) / total
+        gsum = _flat_all_reduce(gsum, mesh, red[1:])
+        if self._zslices and self.zero_level >= 2:
+            plain = _flat_all_reduce({k: v for k, v in gsum.items() if k not in self._zslices},
+                                     mesh, ("data",))
+            gsum = {k: plain[k] if k in plain else
+                    _reduce_scatter(v, mesh, "data", self._zslices[k][0]) for k, v in gsum.items()}
+        else:
+            gsum = _flat_all_reduce(gsum, mesh, ("data",))
+        return loss, {k: v / total for k, v in gsum.items()}
+
+    @torch.no_grad()
+    def _update(self, grads: Params) -> None:
+        """The optimizer step on this rank's (ZeRO) slices; the updated
+        slices are all-gathered back into the blocks."""
+        st = self.state
+        zp = {n: self._zview(n, p) for n, p in st.params.items()}
+        zg = grads if self.zero_level >= 2 else {n: self._zview(n, g) for n, g in grads.items()}
+        updates, st.opt_state = self.optimizer.update(zg, st.opt_state, zp)
+        apply_updates(zp, updates)
+        for n in self._zslices:
+            st.params[n].copy_(self._unzero(n, zp[n]))
+        if self.ema_decay is not None:
+            d = self.ema_decay
+            src = zp if self.zero_level >= 2 else st.params
+            for n, e in st.ema.items():
+                e.mul_(d).add_(src[n].to(e.dtype), alpha=1.0 - d)
 
     @property
     def device(self) -> torch.device:
@@ -216,37 +411,20 @@ class SyncTrainer:
         if accum > 1 and x.shape[0] % accum:
             raise ValueError(
                 f"global batch size {x.shape[0]} not divisible by grad_accum={accum}")
-        if accum > 1:
-            # weight each micro-gradient by its weight sum so the result
-            # equals one big weighted-mean step
-            n = x.shape[0] // accum
-            gsum: Optional[Params] = None
-            lsum = wtot = 0.0
-            for i in range(accum):
-                sl = slice(i * n, (i + 1) * n)
-                mw = None if w is None else w[sl]
-                l, g = self._grad(self.model, x[sl], y[sl], mw)
-                wsum = torch.tensor(float(n), device=l.device) if mw is None else mw.float().sum()
-                gsum = ({k: wsum * v for k, v in g.items()} if gsum is None
-                        else {k: gsum[k] + wsum * v for k, v in g.items()})
-                lsum, wtot = lsum + wsum * l, wtot + wsum
-            grads = {k: v / wtot for k, v in gsum.items()}
-            loss = lsum / wtot
-        else:
-            loss, grads = self._grad(self.model, x, y, w)
-        st = self.state
-        updates, st.opt_state = self.optimizer.update(grads, st.opt_state, st.params)
-        apply_updates(st.params, updates)
-        if self.ema_decay is not None:
-            d = self.ema_decay
-            with torch.no_grad():
-                for n, e in st.ema.items():
-                    e.mul_(d).add_(st.params[n].to(e.dtype), alpha=1.0 - d)
-        st.step += 1
+        loss, grads = self._grads(x, y, w)
+        self._update(grads)
+        self.state.step += 1
         return loss
 
     def _place(self, batch: Batch) -> Batch:
-        return to_device(tuple(batch), self.device)
+        """On a mesh this rank's slice of a global batch (a batch
+        ``shard_batch`` made is taken as it is); else the batch on the
+        model's device."""
+        if self.mesh is None:
+            return to_device(tuple(batch), self.device)
+        return tuple(b if b is None or is_local(b) else
+                     shard_batch(self.mesh, b, "data", self._seq_axis if b.ndim >= 2 else None)
+                     for b in batch)
 
     def step(self, batch: Batch) -> float:
         """Run one step on ``(x, y[, weight])`` (numpy arrays or tensors);
@@ -283,9 +461,11 @@ class SyncTrainer:
         call, as in JAX."""
         if self.state is None:
             self.init()
-        batches = self._place(batches)
         k = batches[0].shape[0]
-        losses = torch.stack([self._one_step(tuple(b[i] for b in batches)) for i in range(k)])
+        if self.mesh is None:  # every step's batch in one copy (then placed already)
+            batches = self._place(batches)
+        losses = torch.stack([self._one_step(self._place(tuple(b[i] for b in batches)))
+                              for i in range(k)])
         self.callbacks.fire("step", self)
         if self.callbacks.has("new_version") or (self.save_every and self.store is not None):
             version = self.version
@@ -333,6 +513,8 @@ class SyncTrainer:
         in JAX holds them). Cached per batch signature."""
         from distriflow_tpu_torch.ops.flop_count import step_cost
 
+        if self.mesh is not None:
+            raise NotImplementedError("cost_analysis on a mesh is not ported yet")
         if self.state is None:
             self.init()
         key = tuple((tuple(t.shape), str(t.dtype)) for t in batch if t is not None)
@@ -376,6 +558,36 @@ class SyncTrainer:
             tree["ema"] = st.ema
         return tree
 
+    def _full_state_tree(self) -> Dict[str, Any]:
+        """:meth:`_state_tree` with every tensor gathered to its full shape
+        (on a mesh; every rank must call)."""
+        if self.mesh is None:
+            return self._state_tree()
+        st = self.state
+        out = {"params": self._gather(st.params, False), "step": st.step,
+               "opt_state": {k: self._gather(v, self.zero_level >= 1) if isinstance(v, dict)
+                             else v for k, v in st.opt_state.items()}}
+        if st.ema is not None:
+            out["ema"] = self._gather(st.ema, self.zero_level >= 2)
+        return out
+
+    def _shard_state_tree(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """A full host state tree cut into this rank's blocks and slices."""
+        if self.mesh is None:
+            return host
+
+        def cut(tree, zero):
+            blocks = sharding.shard_params(tree, self.mesh, self.param_rules, self.spec.flax_path)
+            return {n: self._zview(n, t).contiguous() if zero else t for n, t in blocks.items()}
+
+        out = dict(host)
+        out["params"] = cut(host["params"], False)
+        out["opt_state"] = {k: (cut(v, self.zero_level >= 1) if isinstance(v, dict) else v)
+                            for k, v in host["opt_state"].items()}
+        if "ema" in host:
+            out["ema"] = cut(host["ema"], self.zero_level >= 2)
+        return out
+
     def save(self, wait: bool = False, drop_if_busy: bool = False) -> Optional[str]:
         """Checkpoint the whole state (params, optimizer state, step, EMA).
 
@@ -389,12 +601,21 @@ class SyncTrainer:
         if self.state is None:
             raise RuntimeError("trainer not initialized")
         version = str(self.version)
+        if self.mesh is not None:
+            # gathered on every rank (collectives), written by rank 0 alone;
+            # every rank saves at every version, so none skips
+            from distriflow_tpu_torch.parallel.distributed import is_coordinator
+
+            host = host_tree(self._full_state_tree())
+            if not is_coordinator():
+                return version
+            drop_if_busy = False
         self._ensure_writer()
         if drop_if_busy and self._save_queue.full():
             # check BEFORE the copy: a skipped autosave must not pay for it
             self.logger.log(f"skipping checkpoint {version}: writer busy")
             return None
-        item = _SaveItem(version, host_tree(self._state_tree()))
+        item = _SaveItem(version, host if self.mesh is not None else host_tree(self._state_tree()))
         if drop_if_busy:
             try:
                 self._save_queue.put_nowait(item)
@@ -437,7 +658,7 @@ class SyncTrainer:
         version = version or self.store.last()
         if version is None:
             return False
-        like = self._state_tree()
+        like = self._full_state_tree()
         want_ema = "ema" in like
         try:
             host = self.store.load(version, like)
@@ -447,12 +668,13 @@ class SyncTrainer:
             # checkpoint predates EMA being enabled: seed it from the params
             like.pop("ema")
             host = self.store.load(version, like)
+        host = self._shard_state_tree(host)
         st = self.state
         _assign(st.params, host["params"])
         st.opt_state = _assign(st.opt_state, host["opt_state"])
         st.step = int(host["step"])
         if want_ema:
-            st.ema = _assign(st.ema, host["ema"]) if "ema" in host else _clone(st.params)
+            st.ema = _assign(st.ema, host["ema"]) if "ema" in host else self._ema_init(st.params)
         return True
 
     def _ensure_writer(self) -> None:
@@ -496,45 +718,78 @@ class SyncTrainer:
         finally:
             _assign(own, saved)
 
+    @torch.no_grad()
     def evaluate(self, x, y, metrics: Tuple[str, ...] = ("loss", "accuracy"),
                  use_ema: bool = False, weight=None) -> List[float]:
-        """Example-mean metrics on one batch; ``weight`` (per row, 0 for
-        padding) makes padded partial batches exact."""
+        """Example-mean metrics of the (global) batch; ``weight`` (per
+        row, 0 for padding) makes padded partial batches exact. Each
+        rank's weighted sums are all-reduced over the example axes;
+        vocab-parallel logits take the vocab-parallel CE and argmax."""
+        from distriflow_tpu_torch.models import losses as losses_lib
+
         if self.state is None:
             self.init()
-        key = tuple(metrics)
-        if key not in self._eval_fns:
-            self._eval_fns[key] = self.spec.metrics_fn(list(key))
-        fn = self._eval_fns[key]
         if use_ema and self.state.ema is None:
             raise RuntimeError("no EMA state; construct with ema_decay=")
-        x, y, w = to_device((x, y, weight), self.device)
-        with self._weights(self.state.ema) if use_ema else contextlib.nullcontext():
-            return [float(v) for v in fn(self.model, x, y, None if w is None else w.float())]
+        ema = self.state.ema
+        if use_ema and self.zero_level >= 2:
+            ema = {n: self._unzero(n, e) for n, e in ema.items()}
+        x, y, w = self._place((x, y, weight))
+        model = self.model
+        vp = getattr(model, "vocab_parallel", False)
+        out = []
+        with self._weights(ema) if use_ema else contextlib.nullcontext():
+            preds = self.spec.apply(model, x)
+            for m in metrics:
+                if m == "loss":
+                    per = self.spec._per_example(model)(preds, y)
+                elif m == "accuracy":
+                    labels = y if y.dim() == preds.dim() - 1 else y.argmax(-1)
+                    guess = (losses_lib.vocab_parallel_argmax(preds, model.mesh) if vp
+                             else preds.argmax(-1))
+                    per = (guess == labels).float()
+                else:
+                    losses_lib.get_metric(m)  # raises: an unknown metric
+                    raise NotImplementedError(f"metric {m!r} has no per-example form")
+                if w is None:
+                    num, den = per.sum(), torch.tensor(float(per.numel()), device=per.device)
+                else:
+                    wb = w.float().reshape(w.shape + (1,) * (per.dim() - w.dim()))
+                    wb = torch.broadcast_to(wb, per.shape)
+                    num, den = (per * wb).sum(), wb.sum()
+                sums = _all_reduce(torch.stack([num.float(), den.float()]), self.mesh,
+                                   self._red_axes)
+                out.append(float(sums[0] / torch.clamp(sums[1], min=1e-9)))
+        return out
 
     def get_params(self) -> Params:
-        """A detached copy of every parameter by name."""
+        """A detached copy of every parameter by name (on a mesh the full
+        tensors; every rank must call)."""
         if self.state is None:
             raise RuntimeError("trainer not initialized; call init() first")
-        return _clone(self.state.params)
+        return self._gather(self.state.params, False)
 
     @property
     def ema_params(self) -> Params:
         """A copy of the EMA weights (requires ``ema_decay``)."""
         if self.state is None or self.state.ema is None:
             raise RuntimeError("no EMA state; construct with ema_decay=")
-        return _clone(self.state.ema)
+        return self._gather(self.state.ema, self.zero_level >= 2)
 
     def set_params(self, params: Params) -> None:
-        """Install ``params`` (by name; numpy arrays or tensors), rebuild the
-        optimizer state and restart the EMA at them, as JAX does; the step
-        counter is kept."""
+        """Install ``params`` (by name; numpy arrays or tensors; on a mesh
+        the full tensors, every rank the same), rebuild the optimizer state
+        and restart the EMA at them, as JAX does; the step counter is
+        kept."""
         if self.state is None:
             self.init()
         st = self.state
         missing = set(st.params) - set(params)
         if missing:
             raise KeyError(f"params missing {sorted(missing)}")
-        _assign(st.params, {n: torch.as_tensor(params[n]) for n in st.params})
-        st.opt_state = self.optimizer.init(st.params)
-        st.ema = _clone(st.params) if self.ema_decay else None
+        # the full tensors, cut into this rank's blocks
+        given = {n: torch.as_tensor(params[n]) for n in st.params}
+        _assign(st.params, sharding.shard_params(given, self.mesh, self.param_rules,
+                                                 self.spec.flax_path))
+        st.opt_state = self._opt_init(st.params)
+        st.ema = self._ema_init(st.params)

@@ -1,8 +1,8 @@
 """Port of ``distriflow_tpu/utils/config.py``: the strict-key helpers,
 the wire-training configs (``RetryPolicy``, ``ClientHyperparams``,
 ``ServerHyperparams``, ``QuarantinePolicy``, ``DatasetConfig``),
-``CompileConfig`` and ``ServingConfig`` (``MeshConfig`` waits for the
-multi-device slice). Every default is the JAX package's.
+``CompileConfig``, ``MeshConfig`` and ``ServingConfig``. Every default is
+the JAX package's.
 
 ``override(defaults, overrides)`` merges and raises on unrecognized keys;
 :func:`make_config` builds a dataclass config through it.
@@ -295,6 +295,24 @@ class CompileConfig:
     loss: Optional[str] = None
     metrics: Sequence[str] = field(default_factory=lambda: ("accuracy",))
     optimizer: str = "sgd"
+
+
+@dataclass
+class MeshConfig:
+    """Device-mesh layout for the parallel layer (JAX ``MeshConfig``, field
+    for field). Axis sizes of 1 are always legal; the product of the sizes
+    must equal the number of ranks. ``data`` is DP, ``model`` TP, ``seq``
+    SP (ring or Ulysses attention), ``pipe`` PP, ``expert`` EP."""
+
+    data: int = 1
+    model: int = 1
+    seq: int = 1
+    pipe: int = 1
+    expert: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model * self.seq * self.pipe * self.expert
 
 
 @dataclass

@@ -56,7 +56,9 @@ def test_doctor_passes_on_cpu_with_jax_names():
     assert len(names) == 22
     assert [n for _, n in rows] == names, out.stdout
     assert all(tag == "ok  " for tag, _ in rows), out.stdout
-    assert "process 0/1" in out.stdout and "mesh {'data': 1}" in out.stdout
+    # the five-axis mesh, as JAX's doctor prints dict(mesh.shape)
+    assert "process 0/1" in out.stdout and \
+        "mesh {'data': 1, 'model': 1, 'seq': 1, 'pipe': 1, 'expert': 1}" in out.stdout
     assert "routed outputs bit-identical to solo" in out.stdout
 
 

@@ -186,8 +186,18 @@ def test_rounds_match_jax(devices, workers, optimizer):
 
 
 def test_mesh_is_not_ported_and_workers_must_be_positive():
-    with pytest.raises(NotImplementedError, match="num_workers"):
-        FederatedAveragingTrainer(_spec(8), mesh=object())
+    # meshes are ported (tests/test_torch_federated_mesh.py): a mesh sets
+    # the worker count to its data axis, here a one-process gloo world's 1
+    import torch.distributed as dist
+
+    from distriflow_tpu_torch.parallel import data_parallel_mesh, ensure_process_group
+
+    assert ensure_process_group("cpu")
+    try:
+        trainer = FederatedAveragingTrainer(_spec(8), mesh=data_parallel_mesh("cpu"))
+        assert trainer.num_workers == 1
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="num_workers"):
         FederatedAveragingTrainer(_spec(8), num_workers=0)
     assert FederatedAveragingTrainer(_spec(8)).num_workers == 1

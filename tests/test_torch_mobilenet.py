@@ -252,8 +252,18 @@ def test_sampling_stream_and_wire_equal_jax():
                                       "cpu", size=2))
     assert [int(b[1][0]) for b in batches] == [y[0], y[2], y[4]]
     assert all(isinstance(t, torch.Tensor) for b in batches for t in b)
-    with pytest.raises(NotImplementedError):
-        prefetch_to_device(iter([]), "cpu", mesh=object())
+    # a mesh is ported: on a one-rank mesh every batch arrives whole
+    # (the multi-rank slices: tests/test_torch_parallel.py)
+    import torch.distributed as dist
+
+    from distriflow_tpu_torch.parallel import data_parallel_mesh, ensure_process_group
+
+    assert ensure_process_group("cpu")
+    try:
+        on_mesh = list(prefetch_to_device(iter([(x[:2], y[:2])]), mesh=data_parallel_mesh("cpu")))
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(on_mesh[0][1].numpy(), y[:2])
     with pytest.raises(ValueError):
         prefetch_to_device(iter([]), "cpu", size=0)
 

@@ -3,7 +3,8 @@ on the CPU: a single-process ``gloo`` world gives the mesh ``{"data": 1}``
 (JAX's ``data_parallel_mesh`` over one device has data 1 as well), the
 allreduce latency is positive, and the group the caller started is torn
 down, leaving none for the next test. A two-process gloo world gives
-``{"data": 2}``. The axis and size checks refuse what is not ported."""
+``{"data": 2}``. A mesh has JAX's five axes (sizes of 1 kept); the size
+check refuses axis sizes that do not multiply to the world size."""
 
 import pytest
 import torch
@@ -36,15 +37,16 @@ def test_single_process_mesh_and_allreduce(no_group):
         assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
         assert ensure_process_group("cpu") is False  # one is up: not ours
         mesh = data_parallel_mesh("cpu")
-        assert mesh_shape(mesh) == {"data": 1}
-        assert mesh.mesh_dim_names == AXES == ("data",)
+        ones = {"data": 1, "model": 1, "seq": 1, "pipe": 1, "expert": 1}
+        assert mesh_shape(mesh) == ones
+        assert mesh.mesh_dim_names == AXES == ("data", "model", "seq", "pipe", "expert")
         us = collective_latency_us(mesh, nbytes=256 * 1024, iters=3)
         assert us > 0
-        assert mesh_shape(create_mesh({"data": 1}, "cpu")) == {"data": 1}
+        assert mesh_shape(create_mesh({"data": 1}, "cpu")) == ones
         with pytest.raises(ValueError, match="multiply to 2"):
             create_mesh({"data": 2}, "cpu")
-        with pytest.raises(NotImplementedError, match="model"):
-            create_mesh({"data": 1, "model": 1}, "cpu")
+        # every axis is ported now: a size-1 model axis is accepted
+        assert mesh_shape(create_mesh({"data": 1, "model": 1}, "cpu")) == ones
     finally:
         dist.destroy_process_group()
     assert not dist.is_initialized()

@@ -196,10 +196,15 @@ def test_spec_model_fit_update_is_one_trainer_step():
 
 def test_unported_options_raise():
     spec = transformer_lm(PCFG, device="cpu")
-    for kw in (dict(mesh=object()), dict(param_rules=object()), dict(zero_level=1),
-               dict(zero_optimizer_sharding=True), dict(sharded_checkpoints=True)):
-        with pytest.raises(NotImplementedError):
-            SyncTrainer(spec, **kw)
+    # sharded checkpoints wait for the next slice; meshes, rules and ZeRO
+    # are ported (tests/test_torch_sync_mesh.py): rules need a mesh, and
+    # ZeRO without one shards nothing (a one-device data axis), as in JAX
+    with pytest.raises(NotImplementedError, match="next slice"):
+        SyncTrainer(spec, sharded_checkpoints=True)
+    with pytest.raises(ValueError, match="need a mesh"):
+        SyncTrainer(spec, param_rules=())
+    for kw in (dict(zero_level=1), dict(zero_optimizer_sharding=True)):
+        assert SyncTrainer(spec, **kw).zero_level == 0
     # cost_analysis/mfu are ported (tests/test_torch_flop_count.py): on the
     # CPU there is no card whose peak mfu could divide by
     trainer = SyncTrainer(spec)

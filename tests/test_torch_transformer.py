@@ -77,9 +77,13 @@ def _port_decode(model, prompt, steps):
 def test_config_keeps_jax_field_names_and_refuses_unported_paths():
     assert {f.name for f in dataclasses.fields(PCFG)} == {f.name for f in dataclasses.fields(JCFG)}
     hash(PCFG)
-    for unported in ("use_ring_attention", "use_ulysses_attention"):
-        with pytest.raises(NotImplementedError):
-            TransformerConfig(**{unported: True})
+    # the sequence-parallel paths are ported: each builds, both at once is
+    # JAX's ValueError
+    for sp in ("use_ring_attention", "use_ulysses_attention"):
+        assert getattr(TransformerConfig(**{sp: True}), sp)
+    for cls in (TransformerConfig, JaxConfig):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            cls(use_ring_attention=True, use_ulysses_attention=True)
     # MoE builds; its top-k range is JAX's check
     for bad_k in (0, 5):
         with pytest.raises(ValueError):

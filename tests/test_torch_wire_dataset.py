@@ -82,8 +82,23 @@ def test_restore_state_and_preprocess_match_jax():
     assert port_ser.pack_bytes({"x": msg.x, "y": msg.y}) == \
         port_ser.pack_bytes({"x": port_ser.serialize_array(held[1][0].x),
                              "y": port_ser.serialize_array(held[1][0].y)})
-    with pytest.raises(NotImplementedError):
-        port.next_sharded(mesh=None)
+    # next_sharded is ported: on a one-rank mesh the whole batch, with JAX's
+    # all-ones weight (the multi-rank slices: tests/test_torch_parallel.py)
+    import jax
+    import torch.distributed as dist
+
+    from distriflow_tpu.parallel.mesh import data_parallel_mesh as jax_mesh
+    from distriflow_tpu_torch.parallel import data_parallel_mesh, ensure_process_group
+
+    assert ensure_process_group("cpu")
+    try:
+        got = port.next_sharded(data_parallel_mesh("cpu"))
+    finally:
+        dist.destroy_process_group()
+    want = ref.next_sharded(jax_mesh(jax.devices()[:1]))
+    assert (got.batch, got.epoch) == (want.batch, want.epoch)
+    for a, b in ((got.x, want.x), (got.y, want.y), (got.weight, want.weight)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_sample_batch_matches_jax():
