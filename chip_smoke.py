@@ -4763,6 +4763,9 @@ def _mesh_rank(rank, port, out_dir, device="cuda"):
     initialize(f"localhost:{port}", MESH_WORLD, rank, device=device, ranks_per_device=MESH_WORLD)
     try:
         res = {leg: _mesh_leg(leg, rank, out_dir, device) for leg in MESH_LEGS}
+        res.update({leg: _pipe_leg(leg, rank, out_dir, device) for leg in PIPE_LEGS})
+        res["ckpt"] = _ckpt_leg(rank, out_dir, device)
+        res["tp"] = _tp_serve_leg(rank, out_dir, device)
         mesh = create_mesh({"data": MESH_WORLD}, device)
         res["latency_us"] = {c: collective_latency_us(mesh, 4 * 1024 * 1024, "data", iters=5,
                                                       collective=c) for c in MESH_COLLECTIVES}
@@ -4916,10 +4919,13 @@ def _mesh_vs_reference(leg, ranks, ref, params, start, planted=None):
     return report
 
 
-def _mesh_phase(device="cuda"):
-    """The ``mesh:`` phase (see MESH_LEGS): spawn the world, run the
-    references alongside, check every leg. Returns ``(report, {window:
-    rank 0's counts})``."""
+def _mesh_phase(serve_ref, device="cuda"):
+    """The ``mesh:`` phase (see MESH_LEGS and PIPE_LEGS): spawn the world,
+    run the references alongside, check every leg. ``serve_ref``: the 2k
+    phase's ``(one-rank model, tree, requests, solo outputs)``, which the
+    TP legs are held to. Returns ``(report, {window: rank 0's counts})``."""
+    import shutil
+
     import tempfile
 
     import torch.multiprocessing as mp
@@ -4940,6 +4946,14 @@ def _mesh_phase(device="cuda"):
         # the planted fault: dp4 as if data rank 3's gradient were dropped
         dp = MESH_LEGS["dp4"][0]["data"]
         planted = _mesh_reference("dp4", device=device, rows=slice(0, MESH_B - MESH_B // dp))[1]
+        # the pipeline legs' reference (every leg: one tree, one batch
+        # stream), and its planted fault: the last microbatch's gradient
+        # dropped (the reference trained without those rows)
+        pipe_tree, pipe_batches = _pipe_data()
+        pipe_ref = _pipe_reference(pipe_tree, pipe_batches, device)
+        last = MESH_B // PIPE_LEGS["pp4_gpipe"][2]
+        pipe_planted = _pipe_reference(pipe_tree, [(x[:-last], y[:-last]) for x, y in pipe_batches],
+                                       device)[1]
         end = time.monotonic() + MESH_DEADLINE_S
         for p in procs:
             p.join(max(0.0, end - time.monotonic()))
@@ -4963,7 +4977,7 @@ def _mesh_phase(device="cuda"):
     report = {"world": MESH_WORLD, "layers": MESH_LAYERS, "steps": MESH_STEPS, "tol": MESH_TOL,
               "note": "4 ranks sharing one H100 over gloo: not a multi-card figure",
               "latency_us_4MB": ranks[0]["latency_us"], "legs": {}}
-    windows = {}
+    windows, expected = {}, {}
     for leg, (shape, rules, zero) in MESH_LEGS.items():
         params = torch.load(os.path.join(out_dir, f"{leg}.params.pt"), weights_only=False)
         cfg = None if leg == "fedavg_mesh" else _mesh_cfg(leg)
@@ -4972,6 +4986,7 @@ def _mesh_phase(device="cuda"):
             got = {k: n for k, n in res[leg]["counts"].items() if n}
             assert got == want, (f"mesh_{leg}", f"rank {r}", got, want)
             assert res[leg]["backend"] == backend_for(device, MESH_WORLD) == "gloo", res[leg]
+        expected[f"mesh_{leg}"] = want
         rec = {"mesh": shape, "rules": rules, "zero_level": zero, "backend": ranks[0][leg]["backend"],
                "launches_per_rank": want,
                "step_ms_p50_by_rank": [float(np.median(r[leg]["step_ms"])) for r in ranks],
@@ -4994,9 +5009,626 @@ def _mesh_phase(device="cuda"):
             rec["opt_state_bytes_replicated"] = 2 * sum(ranks[0][leg]["param_bytes"].values())
         report["legs"][leg] = rec
         windows[f"mesh_{leg}"] = ranks[0][leg]["counts"]
+    for leg in PIPE_LEGS:
+        report["legs"][leg] = _pipe_check(ranks, pipe_ref, pipe_planted, leg, out_dir)
+        windows[f"mesh_{leg}"] = ranks[0][leg]["counts"]
+        expected[f"mesh_{leg}"] = report["legs"][leg]["launches_per_rank"]
+    report["pipe_memory"] = _pipe_memory_order(report["legs"])
+    report["legs"]["ckpt"] = _ckpt_check(ranks)
+    tp = ranks[0]["tp"]
+    stats = {k: tp[k]["stats"] for k in ("tp_serve", "tp_serve_int8")}
+    want = _tp_windows(stats, _tp_cfg())
+    for key, w in want.items():
+        for r, res in enumerate(ranks):
+            got = {k: n for k, n in res["tp"]["windows"][key].items() if n}
+            assert got == w, (f"mesh_{key}", f"rank {r}", got, w)
+        windows[f"mesh_{key}"] = tp["windows"][key]
+        expected[f"mesh_{key}"] = w
+    report["legs"]["tp_serve"] = {
+        "mesh": TP_SERVE_MESH, "rules": "TRANSFORMER_TP_RULES", "layers": _tp_cfg().n_layers,
+        "local_heads": tp["local_heads"], "launches_per_rank": want,
+        "follower_ops": [r["tp"].get("tp_serve_follower_ops") for r in ranks[1:]],
+        "stats": {k: {q: v[q] for q in ("prefills", "decode_steps", "decode_batches",
+                                       "prefix_hits", "ttft_ms_p50", "tpot_ms_p50")}
+                  for k, v in stats.items()},
+        "vs_one_rank": _tp_check(serve_ref, tp)}
+    report["windows_expected"] = expected
     report["phase_s"] = time.perf_counter() - t0
     report["world_s"] = world_s
+    shutil.rmtree(out_dir, ignore_errors=True)
     return report, windows
+
+
+def _tp_cfg():
+    from distriflow_tpu_torch.models.zoo import flagship_lm_config
+
+    return flagship_lm_config()
+
+
+def _pipe_reference(tree, batches, device="cuda"):
+    """The pipeline legs' model on one rank: ``(losses, parameters)``."""
+    trainer, losses, _ = _train(_pipe_cfg(), tree, batches, device)
+    params = {n: p.cpu() for n, p in trainer.get_params().items()}
+    del trainer
+    return losses, params
+
+
+def _ckpt_check(ranks):
+    """The ckpt leg: every rank restored, the restored state the saved one
+    bit for bit, the next step's loss within MESH_TOL of the saver's, the
+    shard files the state's unique bytes, and both planted faults caught."""
+    res = [r["ckpt"] for r in ranks]
+    loss_err = max(abs(r["next_loss_saver"] - r["next_loss_restored"]) for r in res)
+    rec = {"saved_on": MESH_LEGS["dp2_tp2"][0], "restored_on": {"data": MESH_WORLD},
+           "zero_level": 1, "state_bytes": res[0]["state_bytes"], "disk_bytes": res[0]["disk_bytes"],
+           "save_s": res[0]["save_s"], "restore_s": res[0]["restore_s"],
+           "next_loss_abs_err": loss_err,
+           "planted_flipped_byte_caught": all(not r["flipped_equal"] for r in res),
+           "planted_missing_shard_raised": [r["missing_raised"] for r in res]}
+    assert all(r["restored"] and r["restored_equal"] for r in res), ("ckpt restore", rec)
+    assert loss_err <= MESH_TOL["loss_abs"], ("ckpt next step", rec)
+    assert rec["disk_bytes"] == rec["state_bytes"], ("ckpt bytes on disk", rec)
+    assert rec["planted_flipped_byte_caught"], ("a flipped shard byte restored unseen", rec)
+    assert all(rec["planted_missing_shard_raised"]), ("a missing shard restored", rec)
+    return rec
+
+
+# -- the mesh phase's second half: the pipeline, sharded checkpoints and
+# TP-sharded decoding and serving ------------------------------------------
+#
+# The same world runs these legs after the training layouts. The pipeline
+# legs train the flagship at all 8 layers (B 8 S 1024, adam 1e-3,
+# MESH_STEPS steps, the plain sparse CE a mesh with pipe > 1 resolves to)
+# from JAX-shaped pipelined trees of one seed (`random_pipelined_lm_tree`:
+# the same layers stacked into each leg's stages); this process trains
+# the flat tree of that seed on one rank as their reference.
+# leg -> (mesh, schedule, microbatches)
+PIPE_LEGS = {"pp4_gpipe": ({"pipe": 4}, "gpipe", 4),
+             "pp4_remat": ({"pipe": 4}, "remat", 4),
+             "pp4_1f1b": ({"pipe": 4}, "1f1b", 4),
+             "dp2_pp2": ({"data": 2, "pipe": 2}, "gpipe", 2),
+             "pp2_tp2": ({"pipe": 2, "model": 2}, "gpipe", 2)}
+# the microbatch counts whose step memory the {pipe 4} legs report
+PIPE_MEM_M = (4, 8)
+# 1F1B's step memory at M 8 over M 4: "flat" (JAX's test holds 8x the
+# microbatches under 3x the temp memory)
+PIPE_FLAT = 1.1
+PIPE_SEED = SEED + 36
+TP_SERVE_MESH = {"data": 2, "model": 2}
+# the TP legs' lengths: the beam's tokens and width, the planted fault's
+TP_BEAM = (16, 4)
+TP_PLANTED_TOKENS = 16
+# |a TP beam's score - one rank's teacher-forced score of its tokens| (16
+# tokens, bf16): the one earlier reading put a TP beam 0.034 from one
+# rank's best (H100 80GB HBM3, 700 W); the limit leaves about 3x
+BEAM_SCORE_TOL = 0.1
+
+
+def _pipe_cfg():
+    from distriflow_tpu_torch.models.zoo import flagship_lm_config
+
+    return dataclasses.replace(flagship_lm_config(max_seq=MESH_S),
+                               loss="sparse_softmax_cross_entropy")
+
+
+def _pipe_data():
+    """``(flat tree, batches)`` of every pipeline leg (the same in every
+    process)."""
+    if "pipe" not in _MESH_DATA:
+        cfg = _pipe_cfg()
+        corpus = _MESH_DATA.setdefault("corpus", _markov_corpus(CORPUS_TOKENS, SEED))
+        _MESH_DATA["pipe"] = (_flagship_tree(cfg, np.random.default_rng(PIPE_SEED)),
+                              _corpus_windows(corpus, MESH_B, MESH_S, MESH_STEPS, PIPE_SEED))
+    return _MESH_DATA["pipe"]
+
+
+def _pipe_windows(leg, cfg):
+    """The exact launches of one rank's window of a pipeline leg: every
+    tick of the M + P - 1 runs the stage's blocks (kernel 1 each, zeros in
+    the bubbles) and, under gpipe, each tick's backward (kernel 6, or the
+    two-kernel backward past 8 KV blocks); remat re-runs every tick's
+    forward in its backward; 1F1B recomputes each microbatch's forward
+    twice in its backward (the forward wave and the re-linearisation)
+    and runs M backwards."""
+    from distriflow_tpu_torch.ops.flash_attention import bwd_layout
+
+    shape, sched, m = PIPE_LEGS[leg]
+    p = shape["pipe"]
+    per = cfg.n_layers // p
+    ticks = m + p - 1
+    fwd = {"gpipe": ticks, "remat": 2 * ticks, "1f1b": ticks + 2 * m}[sched] * per
+    bwd = (m if sched == "1f1b" else ticks) * per
+    out = {"flash_attention_fwd": fwd * MESH_STEPS}
+    if bwd_layout(MESH_S, cfg.head_dim, cfg.dtype) == "fused":
+        out["flash_attention_bwd"] = bwd * MESH_STEPS
+    else:
+        out["flash_attention_dq"] = out["flash_attention_dkv"] = bwd * MESH_STEPS
+    return out
+
+
+def _pipe_trainer(leg, mesh, cfg, m, device):
+    from distriflow_tpu_torch.models.convert import (
+        pipelined_params_from_jax,
+        random_pipelined_lm_tree,
+    )
+    from distriflow_tpu_torch.models.transformer import pipelined_transformer_lm
+    from distriflow_tpu_torch.parallel import sharding
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    shape, sched, _ = PIPE_LEGS[leg]
+    spec = pipelined_transformer_lm(dataclasses.replace(cfg, pipeline_schedule=sched),
+                                    device=device, mesh=mesh, num_microbatches=m)
+    trainer = SyncTrainer(spec, mesh=mesh, optimizer="adam", learning_rate=1e-3,
+                          param_rules=sharding.PIPELINED_TRANSFORMER_RULES)
+    trainer.init()
+    p = shape["pipe"]
+    tree = random_pipelined_lm_tree(cfg, p, np.random.default_rng(PIPE_SEED))
+    trainer.set_params(pipelined_params_from_jax(tree, cfg, p, masters=True))
+    return trainer
+
+
+def _step_memory(trainer, batch, device):
+    """One step: ``(loss, (its peak bytes, the peak over what the step
+    started with))`` (zeros off CUDA)."""
+    if device != "cuda":
+        return trainer.step(batch), (0, 0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = trainer.step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return loss, (peak, peak - base)
+
+
+def _pipe_leg(leg, rank, out_dir, device="cuda"):
+    """One pipeline leg on this rank: its window's counts, losses, step
+    times, the step memory at each of PIPE_MEM_M ({pipe 4} legs) and (rank
+    0) the gathered parameters, unstacked into the plain LM's layers."""
+    from distriflow_tpu_torch.models.convert import pipelined_to_layers
+    from distriflow_tpu_torch.parallel import collectives, create_mesh
+
+    shape, sched, m = PIPE_LEGS[leg]
+    mesh = create_mesh(shape, device)
+    cfg = _pipe_cfg()
+    batches = _pipe_data()[1]
+    collectives.staged_bytes.clear()
+    trainer = _pipe_trainer(leg, mesh, cfg, m, device)
+    mem = {}
+
+    def run():
+        losses, ms = [], []
+        for i, (x, y) in enumerate(batches):
+            if i == len(batches) - 1 and shape == {"pipe": 4}:
+                loss, mem[m] = _step_memory(trainer, (x, y), device)
+                losses.append(loss)
+            else:
+                losses.append(trainer.step((x, y)))
+            ms.append(trainer.last_step_ms)
+        return losses, ms
+
+    (losses, ms), counts = _counted(run)
+    out = {"losses": losses, "step_ms": ms, "counts": counts, "loss_name": trainer.spec.loss,
+           "staged_bytes": dict(collectives.staged_bytes), "schedule": sched}
+    params = {n: p.cpu() for n, p in trainer.get_params().items()}
+    del trainer
+    if shape == {"pipe": 4}:
+        for mm in PIPE_MEM_M:
+            if mm not in mem:
+                t = _pipe_trainer(leg, mesh, cfg, mm, device)
+                mem[mm] = _step_memory(t, batches[0], device)[1]
+                del t
+        out["step_mem"] = {str(k): v for k, v in mem.items()}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(pipelined_to_layers(params, shape["pipe"]),
+                   os.path.join(out_dir, f"{leg}.params.pt"))
+    return out
+
+
+def _state_bytes(tree):
+    """The bytes of every leaf of a (full) state tree: each unique element
+    of the state once."""
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return np.asarray(tree).nbytes
+
+
+def _ckpt_leg(rank, out_dir, device="cuda"):
+    """The dp2_tp2 ZeRO-1 trainer saves a sharded checkpoint after one
+    step and takes its next step; a trainer on {data 4} restores it (the
+    reshard path) and takes the same next step. Then the planted faults:
+    a copy with one flipped byte in a shard file (the restored state must
+    differ from the saved) and one with a shard file missing (restore
+    must raise)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from distriflow_tpu_torch.models.convert import params_from_jax
+    from distriflow_tpu_torch.models.transformer import transformer_lm
+    from distriflow_tpu_torch.parallel import create_mesh, sharding
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    cfg = _mesh_cfg("dp2_tp2")
+    tree, batches = _mesh_data("dp2_tp2")
+    root = os.path.join(out_dir, "ckpt")
+
+    def trainer(shape, d, seed=0):
+        mesh = create_mesh(shape, device)
+        t = SyncTrainer(transformer_lm(cfg, device=device, mesh=mesh), mesh=mesh, optimizer="adam",
+                        learning_rate=1e-3, param_rules=sharding.TRANSFORMER_TP_RULES,
+                        zero_level=1, checkpoint_dir=d, sharded_checkpoints=True)
+        t.init(seed)
+        return t
+
+    saver = trainer(MESH_LEGS["dp2_tp2"][0], os.path.join(root, "main"))
+    saver.set_params(params_from_jax(tree, cfg, masters=True))
+    saver.step(batches[0])
+    t0 = time.perf_counter()
+    version = saver.save(wait=True)
+    save_s = time.perf_counter() - t0
+    full = saver._full_state_tree()
+    saved = {k: v for k, v in full.items()}
+    out = {"version": version, "save_s": save_s, "state_bytes": _state_bytes(full)}
+    out["next_loss_saver"] = saver.step(batches[1])
+    saver.close()
+    del saver
+    vdir = os.path.join(root, "main", version)
+    if rank == 0:
+        out["disk_bytes"] = sum(os.path.getsize(os.path.join(vdir, f))
+                                for f in os.listdir(vdir) if f.startswith("shards."))
+        # the planted copies: one byte flipped in the middle of rank 1's
+        # shard file; rank 2's shard file missing
+        for name in ("flip", "missing"):
+            shutil.copytree(os.path.join(root, "main"), os.path.join(root, name), symlinks=True)
+        path = os.path.join(root, "flip", version, "shards.1.bin")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0x40]))
+        os.remove(os.path.join(root, "missing", version, "shards.2.bin"))
+    dist.barrier()
+    again = trainer({"data": MESH_WORLD}, os.path.join(root, "main"), seed=5)
+    t0 = time.perf_counter()
+    out["restored"] = again.restore(version)
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored_equal"] = _same_bits(_flat_state(again._full_state_tree()), _flat_state(saved))
+    out["next_loss_restored"] = again.step(batches[1])
+    again.close()
+    del again
+    flip = trainer({"data": MESH_WORLD}, os.path.join(root, "flip"), seed=5)
+    flip.restore(version)
+    out["flipped_equal"] = _same_bits(_flat_state(flip._full_state_tree()), _flat_state(saved))
+    flip.close()
+    del flip
+    missing = trainer({"data": MESH_WORLD}, os.path.join(root, "missing"), seed=5)
+    try:
+        missing.restore(version)
+        out["missing_raised"] = None
+    except OSError as e:
+        out["missing_raised"] = type(e).__name__
+    missing.close()
+    del missing
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(root)
+    return out
+
+
+def _flat_state(tree, prefix=""):
+    """A state tree's tensors by path, on the host."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_state(v, f"{prefix}{k}/"))
+        elif isinstance(v, torch.Tensor):
+            out[f"{prefix}{k}"] = v.detach().cpu()
+    return out
+
+
+def _tp_serve_leg(rank, out_dir, device="cuda"):
+    """The full flagship (8 layers) on {data 2, model 2} under
+    TRANSFORMER_TP_RULES: rank 0 serves the 8 requests of the 2k phase
+    (the others follow), then every rank runs a bf16 and an int8_force
+    ``generate``, a beam and an int8_force server wave of 2 requests, each
+    in a window of its own; then the planted fault (every rank skips the
+    ``o_proj`` psum) generates and searches once more."""
+    from distriflow_tpu_torch.client.inference_client import InferenceClient
+    from distriflow_tpu_torch.models import transformer as tr
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.generate import beam_search, generate
+    from distriflow_tpu_torch.models.zoo import flagship_lm_config
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+    from distriflow_tpu_torch.parallel import create_mesh
+    from distriflow_tpu_torch.server.inference_server import InferenceServer
+
+    cfg = flagship_lm_config()
+    rng = np.random.default_rng(SEED)  # the 2k phase's tree and requests
+    tree = _flagship_tree(cfg, rng)
+    reqs = _requests(rng, cfg.vocab_size)
+    mesh = create_mesh(TP_SERVE_MESH, device)
+    model = lm_from_jax(cfg, tree, device=device, mesh=mesh)
+    int8 = lm_from_jax(dataclasses.replace(cfg, kv_cache_dtype="int8_force"), tree,
+                       device=device, mesh=mesh)
+    out, windows = {"local_heads": model.local_heads}, {}
+
+    def serve(m, wave, key):
+        server = InferenceServer(m, telemetry=Telemetry())
+        if rank:
+            _, windows[key] = _counted(server.follow)
+            out[f"{key}_follower_ops"] = server.follower_ops
+            return
+        server.setup()
+        clients = [InferenceClient(server.address, timeout=600).setup() for _ in wave]
+        try:
+            (outs, stats), windows[key] = _counted(lambda: _generate_wave(server, clients, wave))
+        finally:
+            for c in clients:
+                c.close()
+            server.stop()
+        out[key] = {"outs": {k: np.asarray(v) for k, v in outs.items()}, "stats": stats}
+
+    serve(model, reqs, "tp_serve")
+    name, prompt, _ = reqs[3]
+    out["generate"], windows["tp_generate"] = _counted(
+        lambda: generate(model, prompt, N_TOKENS).cpu())
+    out["generate_int8"], windows["tp_generate_int8"] = _counted(
+        lambda: generate(int8, prompt, N_TOKENS).cpu())
+    n_beam, width = TP_BEAM
+    (toks, scores), windows["tp_beam"] = _counted(
+        lambda: beam_search(model, reqs[0][1], n_beam, beam_size=width))
+    out["beam"] = (toks.cpu(), scores.cpu())
+    serve(int8, reqs[1:3], "tp_serve_int8")
+    reduce = tr.Attention._reduce
+    tr.Attention._reduce = lambda self, x: x  # the planted fault: no o_proj psum
+    try:
+        out["planted"] = generate(model, reqs[0][1], TP_PLANTED_TOKENS).cpu()
+        toks, scores = beam_search(model, reqs[0][1], n_beam, beam_size=width)
+        out["planted_beam"] = (toks.cpu(), scores.cpu())
+    finally:
+        tr.Attention._reduce = reduce
+    out["windows"] = windows
+    return out
+
+
+def _tp_windows(stats, cfg):
+    """The exact windows of the TP legs (every rank the same): a fresh
+    prefill launches kernel 1 once a layer, a decode step the decode
+    kernel once a layer."""
+    n = cfg.n_layers
+    n_beam, _ = TP_BEAM
+    return {"tp_serve": {"flash_attention_fwd": n * stats["tp_serve"]["prefills"],
+                         "flash_decode_paged": n * stats["tp_serve"]["decode_steps"]},
+            "tp_generate": {"flash_attention_fwd": n, "flash_decode": n * (N_TOKENS - 1)},
+            "tp_generate_int8": {"flash_attention_fwd": n,
+                                 "flash_decode_int8": n * (N_TOKENS - 1)},
+            "tp_beam": {"flash_attention_fwd": n, "flash_decode": n * (n_beam - 1)},
+            "tp_serve_int8": {"flash_attention_fwd": n * stats["tp_serve_int8"]["prefills"],
+                              "flash_decode_paged_int8":
+                                  n * stats["tp_serve_int8"]["decode_steps"]}}
+
+
+def _decode_logprob(model, prompt, gen):
+    """One rank's teacher-forced score of ``gen`` [1, n] after ``prompt``
+    on the path a beam scores on: the prefill, then one slab decode step a
+    token, summing the log-softmax of the f32 decode logits."""
+    from distriflow_tpu_torch.models.generate import _int8_for
+
+    gen = gen.to(model.device)
+    logits, cache = model.decode(prompt, int8=_int8_for(model.config,
+                                                        prompt.shape[1] + gen.shape[1]))
+    total = 0.0
+    for t in range(gen.shape[1]):
+        total += float(torch.log_softmax(logits[0, -1].float(), dim=-1)[int(gen[0, t])])
+        if t + 1 < gen.shape[1]:
+            logits, cache = model.decode(gen[:, t:t + 1], cache)
+    return total
+
+
+def _beam_verdict(model, prompt, got, ref):
+    """A TP beam ``got = (tokens, scores)`` against one rank's ``ref`` on
+    the same prompt (length penalty 0: a score is the sum of its tokens'
+    log-probabilities). Its score must be one rank's teacher-forced score
+    of its own tokens within BEAM_SCORE_TOL. Its tokens must equal one
+    rank's, or differ at a near tie: the first differing step, where one
+    rank's logits of the two tokens after their common prefix lie within
+    NEAR_TIE, or the whole beams, whose one-rank scores lie within
+    NEAR_TIE (the TP beam no worse than that below one rank's best; beam
+    search ranks whole beams, so a tie there also flips the winner)."""
+    toks, scores = got
+    ref_toks, ref_scores = (t.cpu() for t in ref)
+    p = prompt.shape[1]
+    gen, ref_gen = toks[:, p:], ref_toks[:, p:]
+    rescored = _decode_logprob(model, prompt, gen)
+    rep = {"score": float(scores[0]), "ref_score": float(ref_scores[0]),
+           "one_rank_score_of_its_tokens": rescored,
+           "score_err": abs(float(scores[0]) - rescored), "within": BEAM_SCORE_TOL,
+           "equal": torch.equal(toks, ref_toks)}
+    ok = rep["score_err"] < BEAM_SCORE_TOL
+    if not rep["equal"]:
+        t = int((gen != ref_gen).nonzero()[0, 1])
+        logits, _ = model.decode(torch.cat([prompt, ref_gen[:, :t].to(model.device)], dim=1))
+        last = logits[0, -1].float()
+        step_margin = abs(float(last[int(ref_gen[0, t])] - last[int(gen[0, t])]))
+        beam_gap = rep["ref_score"] - rescored
+        rep.update(first_mismatch=t, step_margin=step_margin, beam_gap=beam_gap,
+                   near_tie=NEAR_TIE)
+        ok = ok and (step_margin < NEAR_TIE or beam_gap < NEAR_TIE)
+    rep["ok"] = ok
+    return rep
+
+
+def _tp_check(serve_ref, tp):
+    """The TP legs against one rank on the card: the served greedy tokens
+    and each generate under the near-tie rule, the beam
+    (:func:`_beam_verdict`), the int8 wave, and the planted fault, whose
+    generate must diverge and whose beam must fail the verdict."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.generate import beam_search, generate
+
+    model, tree, reqs, solos = serve_ref
+    cfg = model.config
+    int8 = lm_from_jax(dataclasses.replace(cfg, kv_cache_dtype="int8_force"), tree,
+                       device=model.device)
+    report = {"serve": _check_greedy(model, reqs, tp["tp_serve"]["outs"], solos, N_TOKENS)}
+    name, prompt, _ = reqs[3]
+    report["generate"] = _check_greedy(model, [reqs[3]], {name: tp["generate"]}, solos,
+                                       N_TOKENS)[name]
+    solo8 = {n: generate(int8, p, N_TOKENS).cpu() for n, p, _ in reqs[1:4]}
+    report["generate_int8"] = _check_greedy(int8, [reqs[3]], {name: tp["generate_int8"]},
+                                            solo8, N_TOKENS)[name]
+    report["serve_int8"] = _check_greedy(int8, reqs[1:3], tp["tp_serve_int8"]["outs"], solo8,
+                                         N_TOKENS)
+    n_beam, width = TP_BEAM
+    prompt0 = torch.as_tensor(reqs[0][1], device=model.device)
+    ref = beam_search(model, prompt0, n_beam, beam_size=width)
+    report["beam"] = _beam_verdict(model, prompt0, tp["beam"], ref)
+    assert report["beam"]["ok"], ("tp beam", report["beam"])
+    report["planted_beam_no_o_proj_psum"] = _beam_verdict(model, prompt0, tp["planted_beam"], ref)
+    assert not report["planted_beam_no_o_proj_psum"]["ok"], (
+        "the TP beam check would pass a rank skipping the o_proj psum",
+        report["planted_beam_no_o_proj_psum"])
+    p0 = reqs[0][1].shape[1]
+    planted = tp["planted"]
+    want = solos[reqs[0][0]][:, :p0 + TP_PLANTED_TOKENS]
+    report["planted_no_o_proj_psum"] = {"tokens_differing": int((planted != want).sum())}
+    assert not torch.equal(planted, want), "the TP check would pass a rank skipping the o_proj psum"
+    del int8
+    return report
+
+
+def _pipe_check(ranks, ref, planted, leg, out_dir):
+    """A pipeline leg against the one-rank reference (``_mesh_vs_reference``
+    on the unstacked parameters, ``planted`` the reference without the
+    last microbatch's rows), its exact windows on every rank, and the
+    {pipe 4} legs' step memory."""
+    cfg = _pipe_cfg()
+    params = torch.load(os.path.join(out_dir, f"{leg}.params.pt"), weights_only=False)
+    want = _pipe_windows(leg, cfg)
+    for r, res in enumerate(ranks):
+        got = {k: n for k, n in res[leg]["counts"].items() if n}
+        assert got == want, (f"mesh_{leg}", f"rank {r}", got, want)
+    from distriflow_tpu_torch.models.convert import params_from_jax
+
+    start = params_from_jax(_pipe_data()[0], cfg, masters=True)
+    shape, sched, m = PIPE_LEGS[leg]
+    rec = {"mesh": shape, "schedule": sched, "microbatches": m, "layers": cfg.n_layers,
+           "rules": "PIPELINED_TRANSFORMER_RULES", "loss": ranks[0][leg]["loss_name"],
+           "launches_per_rank": want,
+           "step_ms_p50_by_rank": [float(np.median(r[leg]["step_ms"])) for r in ranks],
+           "staged_bytes": ranks[0][leg]["staged_bytes"],
+           **_mesh_vs_reference(leg, ranks, ref, params, start, planted)}
+    if "step_mem" in ranks[0][leg]:
+        rec["step_mem_bytes_by_rank"] = [r[leg]["step_mem"] for r in ranks]
+    return rec
+
+
+def _pipe_memory_order(legs):
+    """JAX's memory assertions on the card, every rank: remat's step
+    (peak over what the step started with) below gpipe's at each M, and
+    1F1B's flat from M 4 to 8 (within PIPE_FLAT)."""
+    n = len(legs["pp4_gpipe"]["step_mem_bytes_by_rank"])
+    out = {}
+    for r in range(n):
+        g, rm, f = (legs[k]["step_mem_bytes_by_rank"][r] for k in
+                    ("pp4_gpipe", "pp4_remat", "pp4_1f1b"))
+        for m in PIPE_MEM_M:
+            assert rm[str(m)][1] < g[str(m)][1], ("remat not below gpipe", r, m, rm, g)
+        lo, hi = (f[str(m)][1] for m in PIPE_MEM_M)
+        assert hi <= PIPE_FLAT * lo, ("1f1b not flat in M", r, lo, hi)
+        out[f"rank{r}"] = {"remat_over_gpipe": {str(m): rm[str(m)][1] / g[str(m)][1]
+                                                for m in PIPE_MEM_M},
+                           "1f1b_m8_over_m4": hi / lo}
+    return out
+
+
+def _mesh_tp_entries():
+    """The kernels at the second half's shapes, each against its plain
+    version and (where one exists) SDPA: kernel 1 at TP's local heads (B2
+    H4 S1000 causal) and at the pipeline's microbatch (B2 H8 S1024
+    causal); kernel 3 (B1 H4), kernel 2 (B8 H4) and kernel 5 (B1 H4) at
+    TP's local heads, at the 2k phase's contexts. ``{row name: {entry:
+    ...}}``."""
+    import torch.nn.functional as F
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    flush = _flush_buffer()
+    d, out = 64, {"flash_attention_fwd": {}, "flash_decode": {}, "flash_decode_paged": {},
+                  "flash_decode_int8": {}}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for key, b, h, s in (("tp_local_heads", 2, 4, 1000), ("pipeline_microbatch", 2, 8, MESH_S)):
+        q, k, v = randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d)
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        ro, rl = fa.flash_attention_reference(q, k, v, True)
+        tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * (s * (s + 1) // 2) * d)
+        out["flash_attention_fwd"][key] = {
+            "shape": f"B={b} H={h} S={s} D={d} causal",
+            "max_abs_err": _over(f"flash_attention_fwd O {key}", o, ro, *TOL["flash_attention_fwd"]),
+            "lse_max_abs_err": _over(f"flash_attention_fwd lse {key}", lse, rl, LSE_ATOL, 0.0),
+            "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 50,
+                         flush),
+            "plain_ms": _timed(lambda: fa.flash_attention_reference(q, k, v, True), 5, flush),
+            "bound_ms": tb, "bound_by": by,
+            "library_ms": _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                                 50, flush)}
+    h = 4
+    # slab decode, bf16 and int8: solo generate() at max_seq 2048, context 1064
+    s_max, n = 2048, 1064
+    qs = randn(1, h, d)
+    ks, vs = randn(1, s_max, h * d), randn(1, s_max, h * d)
+    kh = ks.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
+    vh = vs.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
+    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d)
+    out["flash_decode"]["tp_local_heads"] = {
+        "shape": f"B=1 S={s_max} valid={n} H={h} D={d}",
+        "max_abs_err": _over("flash_decode tp", fd.flash_decode(qs, ks, vs, n),
+                             fd.flash_decode_reference(qs, ks, vs, n), *TOL["flash_decode"]),
+        "ms": _timed(lambda: fd.flash_decode(qs, ks, vs, n), 200, flush),
+        "plain_ms": _timed(lambda: fd.flash_decode_reference(qs, ks, vs, n), 5, flush),
+        "bound_ms": tb, "bound_by": by,
+        "library_ms": _timed(lambda: F.scaled_dot_product_attention(qs[:, :, None], kh, vh), 200,
+                             flush)}
+    k8, v8, k_sc, v_sc = _int8_cache(g, (1, s_max), h, d)
+    tb, by = _bound(2 * n * h * d + 2 * n * h * 4 + 2 * h * d * 2, 4 * n * h * d)
+    out["flash_decode_int8"]["tp_local_heads"] = {
+        "shape": f"B=1 S={s_max} valid={n} H={h} D={d} int8",
+        "max_abs_err": _over("flash_decode_int8 tp", fd.flash_decode_int8(qs, k8, v8, k_sc, v_sc, n),
+                             fd.flash_decode_int8_reference(qs, k8, v8, k_sc, v_sc, n),
+                             *TOL["flash_decode_int8"]),
+        "ms": _timed(lambda: fd.flash_decode_int8(qs, k8, v8, k_sc, v_sc, n), 200, flush),
+        "plain_ms": _timed(lambda: fd.flash_decode_int8_reference(qs, k8, v8, k_sc, v_sc, n), 5,
+                           flush),
+        "bound_ms": tb, "bound_by": by, "library_ms": None}
+    # paged decode: the engine's 8 slots at the 2k phase's contexts
+    n_pages, ps, bsz = 128, 128, 8
+    lens_l = [129, 300, 513, 1001, 193, 577, 1064, 128]
+    table, lens = _paged_rows(g, lens_l, ps, n_pages, 16)
+    kp, vp, q1 = randn(n_pages, ps, h * d), randn(n_pages, ps, h * d), randn(bsz, h, d)
+    live = sum(lens_l)
+    tb, by = _bound(2 * live * h * d * 2 + 2 * bsz * h * d * 2 + table.numel() * 4 + bsz * 4,
+                   4 * live * h * d)
+    out["flash_decode_paged"]["tp_local_heads"] = {
+        "shape": f"B={bsz} H={h} D={d} page={ps} contexts={lens_l}",
+        "max_abs_err": _over("flash_decode_paged tp", fd.flash_decode_paged(q1, kp, vp, table, lens),
+                             fd.flash_decode_paged_reference(q1, kp, vp, table, lens),
+                             *TOL["flash_decode_paged"]),
+        "ms": _timed(lambda: fd.flash_decode_paged(q1, kp, vp, table, lens), 200, flush),
+        "plain_ms": _timed(lambda: fd.flash_decode_paged_reference(q1, kp, vp, table, lens), 5,
+                           flush),
+        "bound_ms": tb, "bound_by": by, "library_ms": None}
+    return out
 
 
 def main() -> int:
@@ -5076,7 +5708,7 @@ def main() -> int:
     print("moe:", json.dumps(_with_spread(moe_report)), flush=True)
     # the training layouts on torch.distributed: 4 ranks on this card
     # (gloo), each leg against one rank on the card
-    mesh_report, mesh_counts = _mesh_phase()
+    mesh_report, mesh_counts = _mesh_phase((model, tree, reqs, solos))
     print("mesh:", json.dumps(mesh_report), flush=True)
 
     # training: the flagship from the same tree as f32 masters, one batch
@@ -5146,8 +5778,7 @@ def main() -> int:
            "convnet_eval": ("fused_ce_dense_fwd",),
            **{w: ("fused_ce_dense_fwd", "fused_ce_dense_bwd")
               for w in (*wire_counts, *ip_counts)},
-           **{f"mesh_{leg}": tuple(rec["launches_per_rank"])
-              for leg, rec in mesh_report["legs"].items()}}
+           **{w: tuple(want) for w, want in mesh_report["windows_expected"].items()}}
     for path, counts in paths.items():
         for k, n in counts.items():
             if k in ran[path]:
@@ -5238,6 +5869,10 @@ def main() -> int:
                                       for w in spec_windows),
         "flash_decode_d32": spec_counts["draft_solo"]["flash_decode_d32"]})
     rows.append(_p64_kernel_row(fleet_counts["fleet_elastic"]["flash_decode_paged"]))
+    # the mesh's TP and pipeline shapes, in the rows of the kernels they run
+    tp_entries = _mesh_tp_entries()
+    for r in rows:
+        r.update(tp_entries.get(r["name"], {}))
     rows.append(_p16_kernel_row(doctor_counts["flash_decode_paged"]))
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},

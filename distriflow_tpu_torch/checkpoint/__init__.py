@@ -1,10 +1,10 @@
 """Port of ``distriflow_tpu/checkpoint``: the versioned tree store, the
-trainers' store constructor and the model-level ``save_model``/
-``load_model``. The multi-host sharded store waits for the device-mesh
-slice."""
+sharded store (one shard file a rank, JAX's layout), the trainers' store
+constructor and the model-level ``save_model``/``load_model``."""
 
 from typing import Any, Optional
 
+from distriflow_tpu_torch.checkpoint.sharded import ShardedCheckpointStore
 from distriflow_tpu_torch.checkpoint.store import CheckpointStore
 
 
@@ -51,13 +51,14 @@ def load_model(save_dir: str, spec: Any = None, version: Optional[str] = None,
 
 def make_store(checkpoint_dir: Optional[str], max_checkpoints: Optional[int] = None,
                sharded: bool = False) -> Optional[CheckpointStore]:
-    """The one trainer-side store constructor: None dir -> no store.
-    ``sharded`` (the multi-host per-shard store) is not ported yet."""
-    if sharded:
-        raise NotImplementedError("sharded checkpoints are not ported yet")
+    """The one trainer-side store constructor: None dir -> no store;
+    ``sharded`` selects the per-shard store."""
     if checkpoint_dir is None:
         return None
+    if sharded:
+        return ShardedCheckpointStore(checkpoint_dir, max_checkpoints)
     return CheckpointStore(checkpoint_dir, max_checkpoints)
 
 
-__all__ = ["CheckpointStore", "save_model", "load_model", "make_store"]
+__all__ = ["CheckpointStore", "ShardedCheckpointStore", "save_model", "load_model",
+           "make_store"]

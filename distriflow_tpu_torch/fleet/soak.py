@@ -204,8 +204,10 @@ class SoakConfig:
     # stale slow round can never clear and re-enter the band), and not at
     # all after it ramped the override back (the rest drains unjudged: a
     # host stall there would read as a new straggler by the wall clock
-    # alone). Replaces straggler_slow_fits, whose fit count races the
-    # controller's polls under host load.
+    # alone). Before the first adaptation it is polled only once the
+    # server holds an upload of the straggler's slow fit. Replaces
+    # straggler_slow_fits, whose fit count races the controller's polls
+    # under host load.
     straggler_until_override: bool = False
     # churn: abrupt kills (no goodbye) starting churn_start_s into the
     # run, one every churn_interval_s, each rejoining (same stable
@@ -347,9 +349,15 @@ def _override_reached(server: AsynchronousSGDServer, rec: _ClientRec):
 def _poll_open(controller: AdaptiveController, server: AsynchronousSGDServer,
                gated: Optional[_ClientRec]) -> bool:
     """Whether the soak loop polls the controller now (always, unless
-    ``straggler_until_override``: see that field)."""
-    if gated is None or not controller.adaptations:
+    ``straggler_until_override``: see that field). Before the first
+    adaptation the controller is polled only once the server holds an
+    upload of the straggler's (slow) fit: until then every poll would
+    judge the other clients' rounds alone, where a host stall reads as a
+    straggler by the wall clock."""
+    if gated is None:
         return True
+    if not controller.adaptations:
+        return _uploads_of(server, gated.stable_id) > 0
     if controller.ramps:
         return False
     fast = gated.model.fits_before_fast

@@ -182,6 +182,49 @@ def load_params(model: nn.Module, params: Params) -> None:
         p.copy_(torch.as_tensor(params[n]))
 
 
+@torch.no_grad()
+def swap_params(model: nn.Module, blocks: Params) -> None:
+    """Replace each named parameter of ``model`` by a new parameter holding
+    ``blocks[name]`` (on the parameter's device and dtype, its
+    ``requires_grad``): how a model built with full shapes takes this
+    rank's blocks on a mesh."""
+    for mod_name, mod in model.named_modules():
+        for pname, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            full = f"{mod_name}.{pname}" if mod_name else pname
+            mod._parameters[pname] = nn.Parameter(
+                torch.as_tensor(blocks[full]).to(device=p.device, dtype=p.dtype),
+                requires_grad=p.requires_grad)
+
+
+def cut_blocks(model: nn.Module, full: Params, mesh: Any, rules: Any,
+               flax_path: Any = None) -> None:
+    """Swap the full parameters of ``model`` for this rank's blocks of
+    ``full`` on ``mesh`` under the rule table ``rules`` (names resolved
+    through ``flax_path``), and record that cut on the model
+    (``model.block_cut``): whatever builds a model on a mesh cuts it here,
+    once, so :func:`shard_state` cuts later weights the same way."""
+    from distriflow_tpu_torch.parallel import sharding
+
+    swap_params(model, sharding.shard_params(full, mesh, rules, flax_path))
+    model.block_cut = (mesh, rules, flax_path)
+
+
+def shard_state(model: nn.Module, full: Params) -> Params:
+    """This rank's blocks of the full tensors ``full``, cut as ``model``'s
+    own parameters were (:func:`cut_blocks`). A model cut some other way
+    raises: nothing would say which table its blocks follow."""
+    cut = getattr(model, "block_cut", None)
+    if cut is None:
+        raise ValueError("the model's blocks were not cut by cut_blocks: no rule table "
+                         "to cut new weights by")
+    from distriflow_tpu_torch.parallel import sharding
+
+    mesh, rules, flax_path = cut
+    return sharding.shard_params(full, mesh, rules, flax_path)
+
+
 def to_device(batch: Any, device: torch.device) -> Any:
     """Numpy arrays and tensors of a batch tuple onto ``device``, in the
     dtypes ``jax.device_put`` gives them (:func:`canonical_dtype`: float64

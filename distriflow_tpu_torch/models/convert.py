@@ -107,6 +107,98 @@ def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig,
     return out
 
 
+def pipelined_lm_flax_path(name: str) -> Tuple[str, ...]:
+    """The path in JAX's pipelined LM tree (``{"embed": {"params": ...},
+    "stages": {"params": ...}, "head": {"params": ...}}``) of the
+    pipelined LM parameter the port names ``name``: ``embed`` ->
+    ``("embed", "params", "embed", "embedding")``,
+    ``stages.block_1.attn.q_proj`` -> ``("stages", "params", "block_1",
+    "attn", "q_proj", "kernel")``, ``ln_f.scale`` and ``lm_head`` under
+    ``("head", "params")``."""
+    if name == "embed":
+        return ("embed", "params", "embed", "embedding")
+    parts = name.split(".")
+    if parts[-1] in _LM_KERNELS or parts[-1] == "lm_head":
+        parts.append("kernel")
+    if parts[0] == "stages":
+        return ("stages", "params") + tuple(parts[1:])
+    return ("head", "params") + tuple(parts)
+
+
+def pipelined_param_shapes(config: TransformerConfig, n_stages: int
+                           ) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
+    """:func:`lm_param_shapes` of the pipelined LM: ``embed``, ``ln_f.*``,
+    ``lm_head``, and each of a stage's ``n_layers / n_stages`` blocks as
+    ``stages.block_<i>.*`` with a leading stages dim."""
+    per = config.n_layers // n_stages
+    out = {}
+    for name, (shape, weight) in lm_param_shapes(config).items():
+        if not name.startswith("layers."):
+            out[name] = (shape, weight)
+            continue
+        _, i, rest = name.split(".", 2)
+        if int(i) < per:
+            out[f"stages.block_{i}.{rest}"] = ((n_stages,) + shape, weight)
+    return out
+
+
+def pipelined_params_from_jax(tree: Mapping[str, Any], config: TransformerConfig,
+                              n_stages: int, masters: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX's pipelined LM tree -> the port's ``PipelinedTransformerLM``
+    ``state_dict`` (CPU tensors; f32 with ``masters``), each leaf read
+    through :func:`pipelined_lm_flax_path` (``q_proj`` ``[P, d, H, D]`` ->
+    ``[P, d, H*D]``)."""
+    wdt = torch.float32 if masters else config.dtype
+    out: Dict[str, torch.Tensor] = {}
+    for name, (shape, weight) in pipelined_param_shapes(config, n_stages).items():
+        node = tree
+        for key in pipelined_lm_flax_path(name):
+            node = node[key]
+        out[name] = _arr(node, wdt if weight else torch.float32, shape)
+    return out
+
+
+def pipelined_to_layers(params: Mapping[str, torch.Tensor], n_stages: int
+                        ) -> Dict[str, torch.Tensor]:
+    """A pipelined LM's parameters as the plain LM's (``stages.block_i.X``
+    of stage s -> ``layers.<s * per + i>.X``): the same function run
+    without the pipeline."""
+    per = len({n.split(".")[1] for n in params if n.startswith("stages.")})
+    out = {}
+    for name, t in params.items():
+        if not name.startswith("stages."):
+            out[name] = t
+            continue
+        _, blk, rest = name.split(".", 2)
+        i = int(blk.split("_")[1])
+        for st in range(n_stages):
+            out[f"layers.{st * per + i}.{rest}"] = t[st]
+    return out
+
+
+def random_pipelined_lm_tree(config: TransformerConfig, n_stages: int,
+                             rng: np.random.Generator) -> Dict[str, Any]:
+    """A JAX-shaped pipelined LM tree of f32 numpy arrays (``{"embed":
+    {"params": ...}, "stages": {"params": {"block_<i>": ...}}, "head":
+    {"params": ...}}``): the layers :func:`random_lm_tree` draws from
+    ``rng`` stacked into ``n_stages`` stages of ``n_layers / n_stages``
+    blocks, so :func:`pipelined_to_layers` of its parameters is that
+    tree's."""
+    flat = random_lm_tree(config, rng)["params"]
+    per = config.n_layers // n_stages
+    stages = {f"block_{i}": _stack([flat[f"layers_{s * per + i}"] for s in range(n_stages)])
+              for i in range(per)}
+    return {"embed": {"params": {"embed": flat["embed"]}},
+            "stages": {"params": stages},
+            "head": {"params": {"ln_f": flat["ln_f"], "lm_head": flat["lm_head"]}}}
+
+
+def _stack(trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 def mobilenet_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax MobileNetV2 params -> the port's ``state_dict`` (CPU tensors,
     every one the f32 master bit for bit). Module paths are flax's
@@ -182,12 +274,22 @@ def with_flax_wire(spec: ModelSpec) -> ModelSpec:
 
 def lm_from_jax(config: TransformerConfig, tree: Mapping[str, Any],
                 device: Optional[Union[str, torch.device]] = None,
-                trainable: bool = False) -> TransformerLM:
+                trainable: bool = False, mesh=None) -> TransformerLM:
     """A :class:`TransformerLM` on ``device`` (``cuda`` by default) that
     computes the same function as the flax module with params ``tree``;
-    ``trainable`` carries the f32 masters over into a model to train."""
-    model = TransformerLM(config, device=device, trainable=trainable)
-    model.load_state_dict(params_from_jax(tree, config, masters=trainable), strict=True)
+    ``trainable`` carries the f32 masters over into a model to train. With
+    ``mesh`` the model holds this rank's blocks under
+    ``TRANSFORMER_TP_RULES``, cut by ``models/base.py::cut_blocks``, so it
+    carries the table: every rank calls it with the same tree."""
+    model = TransformerLM(config, device=device, trainable=trainable, mesh=mesh)
+    params = params_from_jax(tree, config, masters=trainable)
+    if mesh is None:
+        model.load_state_dict(params, strict=True)
+        return model
+    from distriflow_tpu_torch.models.base import cut_blocks
+    from distriflow_tpu_torch.parallel import sharding
+
+    cut_blocks(model, params, mesh, sharding.TRANSFORMER_TP_RULES, lm_flax_path)
     return model
 
 

@@ -37,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from distriflow_tpu_torch.parallel.collectives import _all_gather
 from distriflow_tpu_torch.models.transformer import (
     KVCache,
     TransformerConfig,
@@ -302,7 +303,10 @@ def sequence_logprob(model: TransformerLM, tokens, from_pos: int = 1) -> torch.T
     if lo < 0 or hi >= config.vocab_size:
         raise ValueError(f"token ids span [{lo}, {hi}] but vocab_size is {config.vocab_size}")
     t = torch.as_tensor(tokens, device=model.device)
-    logp = torch.log_softmax(model(t[:, :-1]).float(), dim=-1)
+    logits = model(t[:, :-1]).float()
+    if model.mesh is not None and model.vocab_parallel:  # every rank: the whole vocabulary
+        logits = _all_gather(logits, model.mesh, "model", logits.dim() - 1)
+    logp = torch.log_softmax(logits, dim=-1)
     target = torch.gather(logp, -1, t[:, 1:, None])[..., 0]  # [B, S-1]
     mask = torch.arange(s - 1, device=model.device)[None, :] >= from_pos - 1
     return (target * mask).sum(dim=-1)
@@ -320,24 +324,27 @@ def pages_per_slot(max_seq: int, page_size: int) -> int:
     return -(-max_seq // page_size)
 
 
-def slot_cache(config: TransformerConfig, max_slots: int, device) -> KVCache:
+def slot_cache(config: TransformerConfig, max_slots: int, device,
+               heads: Optional[int] = None) -> KVCache:
     """The engine's zeroed slab cache: ``[max_slots, max_seq, H*D]`` per
     layer (int8 with ``[max_slots, max_seq, H]`` scales when
     ``config.resolved_kv_cache_dtype`` says so) and a ``[max_slots]``
-    position vector."""
+    position vector; ``heads`` is a ``model``-sharded model's local head
+    count (``TransformerLM.local_heads``)."""
     k, v, ks, vs = cache_buffers(config, (max_slots, config.max_seq),
-                                 config.resolved_kv_cache_dtype == "int8", device)
+                                 config.resolved_kv_cache_dtype == "int8", device, heads)
     return KVCache(k, v, torch.zeros(max_slots, dtype=torch.int32, device=device),
                    config.max_seq, k_scale=ks, v_scale=vs)
 
 
 def paged_cache(config: TransformerConfig, max_slots: int, page_size: int,
-                n_pages: int, device) -> KVCache:
+                n_pages: int, device, heads: Optional[int] = None) -> KVCache:
     """The engine's paged cache: one ``[n_pages, page_size, H*D]`` pool
     per layer (int8 with ``[n_pages, page_size, H]`` scale pools when
     ``config.resolved_kv_cache_dtype`` says so; each plus one scratch page,
     see ``KVCache``) and a ``[max_slots, pages_per_slot + 1]`` table whose
-    entries start at the sentinel ``n_pages`` (nothing allocated)."""
+    entries start at the sentinel ``n_pages`` (nothing allocated). ``heads``
+    as :func:`slot_cache`'s."""
     if page_size <= 0:
         raise ValueError(f"page_size must be positive, got {page_size}")
     if n_pages <= 0:
@@ -345,7 +352,7 @@ def paged_cache(config: TransformerConfig, max_slots: int, page_size: int,
     check_kernels_take(config, torch.device(device), page_size)
     pp = pages_per_slot(config.max_seq, page_size)
     k, v, ks, vs = cache_buffers(config, (n_pages + 1, page_size),  # + the scratch page
-                                 config.resolved_kv_cache_dtype == "int8", device)
+                                 config.resolved_kv_cache_dtype == "int8", device, heads)
     return KVCache(
         k, v, torch.zeros(max_slots, dtype=torch.int32, device=device), config.max_seq,
         page_table=torch.full((max_slots, pp + 1), n_pages, dtype=torch.int32, device=device),

@@ -4,7 +4,8 @@
 ``torch.dtype``). The modules are ``nn.Module``s holding weights in the
 JAX kernel layout (``[in, out]``), so
 :mod:`distriflow_tpu_torch.models.convert` copies a flax params tree over
-without transposes. The pipelined LM is not ported yet.
+without transposes. :func:`pipelined_transformer_lm` builds the pipelined
+LM (:class:`PipelinedTransformerLM`) over a mesh's ``pipe`` axis.
 
 One module class serves both uses; whoever builds it picks the parameter
 storage with ``TransformerLM(config, trainable=...)``:
@@ -77,7 +78,14 @@ tensors, with the collectives GSPMD would insert written out:
 
 A parameter is sharded where its local shape is smaller than its full
 shape, so the same module runs any rule table that shards these dims.
-Sharded decoding is not ported yet (``decode`` raises).
+Decoding on a mesh (``decode``, so every path of ``models/generate.py``)
+runs SPMD: every rank takes the same tokens (rows replicated over
+``data``), its KV cache holds its ``model`` slice of the heads, every
+attention path runs on those heads (kernel 1 for a fresh prefill, kernels
+2-5 for a token), ``o_proj``'s partials are ``psum``'d, and the
+vocab-parallel logits are all-gathered over ``model`` before any
+sampling; dense MoE dispatch over sharded experts ``psum``'s each rank's
+partial combine over ``expert``/``model``.
 
 Cache writes update the tensors in place (JAX rebuilds them functionally);
 that saves a copy of the whole pool per step. JAX's scatters silently drop
@@ -104,6 +112,7 @@ from distriflow_tpu_torch.ops.flash_attention import (
     flash_seq_supported,
 )
 from distriflow_tpu_torch.parallel.collectives import (
+    _all_gather,
     all_gather_invariant,
     copy_to,
     psum,
@@ -181,10 +190,6 @@ class TransformerConfig:
             raise ValueError(
                 "use_ring_attention and use_ulysses_attention are mutually "
                 "exclusive sequence-parallel strategies; pick one")
-        if self.pipeline_schedule is not None:
-            raise NotImplementedError(
-                f"pipeline_schedule={self.pipeline_schedule!r}: the pipelined LM "
-                "(parallel/pipeline.py) is not ported yet; it comes with the next slice")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(
                 f"kv_cache_dtype must be None, 'int8', or 'int8_force', "
@@ -523,6 +528,17 @@ class Attention(nn.Module):
         """True when this rank holds a ``model`` slice of the heads."""
         return self.q_proj.shape[1] < self.config.n_heads * self.config.head_dim
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank holds (all of them off a mesh)."""
+        return self.q_proj.shape[1] // self.config.head_dim
+
+    def _reduce(self, out: torch.Tensor) -> torch.Tensor:
+        """The row-parallel ``o_proj``'s partial sums ``psum``'d over
+        ``model`` where the heads are sharded."""
+        return psum(out, "model", self.mesh) if self.mesh is not None and \
+            self.heads_sharded else out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Training-mode attention over the whole sequence (no cache); on a
         mesh over this rank's heads and, sequence-sharded, its chunk."""
@@ -549,10 +565,18 @@ class Attention(nn.Module):
 
     def decode(self, x: torch.Tensor, cache: KVCache, layer: int, fresh: bool) -> torch.Tensor:
         """Incremental attention against ``cache`` (JAX ``_decode_attend``):
-        writes this call's K/V at each row's position, then attends."""
+        writes this call's K/V at each row's position, then attends. With
+        the heads sharded over ``model`` the cache holds this rank's heads
+        and every attention path runs on them (kernel 1 for a fresh
+        prefill, kernels 2-5 for a token); ``o_proj``'s partials are
+        ``psum``'d."""
+        return self._reduce(self._decode_local(x, cache, layer, fresh))
+
+    def _decode_local(self, x: torch.Tensor, cache: KVCache, layer: int, fresh: bool
+                      ) -> torch.Tensor:
         cfg = self.config
         b, s, _ = x.shape
-        hd = cfg.n_heads * cfg.head_dim
+        hd, heads = self.q_proj.shape[1], self.local_heads
         q, k, v = self._qkv(x)
         idx = cache.index
         if cfg.use_rope:
@@ -585,8 +609,8 @@ class Attention(nn.Module):
             q8, qsc = quantize_int8(q)
             q = (q8 * qsc.clamp_min(1e-20)[..., None]).to(q.dtype)
         keys, vals = cache.view(layer, cfg.dtype)
-        keys = keys.reshape(b, cfg.max_seq, cfg.n_heads, cfg.head_dim)
-        vals = vals.reshape(b, cfg.max_seq, cfg.n_heads, cfg.head_dim)
+        keys = keys.reshape(b, cfg.max_seq, heads, cfg.head_dim)
+        vals = vals.reshape(b, cfg.max_seq, heads, cfg.head_dim)
         scores = torch.einsum("bhqd,bkhd->bhqk", q.float(), keys.float()) / math.sqrt(cfg.head_dim)
         k_pos = torch.arange(cfg.max_seq, device=q.device)
         steps = torch.arange(s, device=q.device)
@@ -698,6 +722,10 @@ class MoEFFN(nn.Module):
         self.experts_wo = _param(e, f, d, dtype=cfg.dtype, trainable=trainable)
         self.router = Router(d, e, trainable)
         self.dropped_fraction: Optional[torch.Tensor] = None
+        # the axis the tokens are sharded over; None inside a pipeline
+        # stage, whose routing groups are cut from the local tokens (JAX's
+        # stages run under the manual data axis)
+        self.data_axis: Optional[str] = "data"
 
     def _top_k(self, probs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(values, indices)`` of the k largest probabilities, equal
@@ -721,24 +749,30 @@ class MoEFFN(nn.Module):
         probs = torch.softmax(self.router(x), dim=-1)  # [B, S, E] f32
         e_local, tp = wi.shape[0], mesh is not None and wi.shape[2] < cfg.d_ff
         ep = mesh is not None and e_local < e
-        if (dense or cfg.moe_dense_dispatch) and (ep or tp):
-            raise NotImplementedError(
-                "dense MoE dispatch over sharded experts is not ported yet "
-                "(sharded decoding comes with the next slice)")
         if dense or cfg.moe_dense_dispatch:
             topv, topi = self._top_k(probs)
             w = topv if k == 1 else topv / topv.sum(-1, keepdim=True)
             gate = (F.one_hot(topi, e).to(probs.dtype) * w[..., None]).sum(-2)  # [B, S, E]
+            # sharded experts: each rank runs its E/ep experts (and their
+            # model slice of d_ff) on every token and the partial combines
+            # are psum'd; x and the gates reach every rank of those axes
+            axes = tuple(ax for ax, on in (("expert", ep), ("model", tp)) if on)
+            if axes:
+                xc, gate = copy_to(xc, axes, mesh), copy_to(gate, axes, mesh)
+            if ep:
+                e0 = axis_index(mesh, "expert") * e_local
+                gate = gate[..., e0:e0 + e_local]
             h = F.gelu(torch.einsum("bsd,edf->bsef", xc, wi), approximate="tanh")
             out = torch.einsum("bsef,efd->bsed", h, wo)
             self.dropped_fraction = None
-            return torch.einsum("bsed,bse->bsd", out, gate.to(dt).to(ct)), None
+            out = torch.einsum("bsed,bse->bsd", out, gate.to(dt).to(ct))
+            return (psum(out, axes, mesh) if axes else out), None
 
         b, s, d = x.shape
         n_tok = b * s
         # on a mesh the tokens are sharded over data alone: the routing
         # group is JAX's, cut from the global token count
-        dp = axis_size(mesh, "data")
+        dp = axis_size(mesh, self.data_axis) if self.data_axis else 1
         g = _auto_block(n_tok * dp, cfg.moe_group_size)
         if n_tok % g:
             raise NotImplementedError(
@@ -840,8 +874,10 @@ class TransformerLM(nn.Module):
     ``decode(tokens, cache)`` the KV-cache pass every decoding path uses.
     ``trainable`` selects f32 master parameters that require grad (see the
     module docstring). ``mesh`` makes it run on this rank's local blocks
-    (the parameters are built full; ``SyncTrainer._shard_model`` swaps in
-    the blocks)."""
+    (the parameters are built full; whatever builds it on the mesh,
+    ``SyncTrainer._shard_model`` or ``lm_from_jax``, swaps in the blocks
+    through ``models/base.py::cut_blocks``, which records the rule table
+    on the model)."""
 
     def __init__(self, config: TransformerConfig, device: Optional[Union[str, torch.device]] = None,
                  trainable: bool = False, mesh=None):
@@ -870,14 +906,6 @@ class TransformerLM(nn.Module):
         the training logits are then this rank's vocabulary slice."""
         return self.lm_head.shape[1] < self.config.vocab_size
 
-    @property
-    def sharded(self) -> bool:
-        """True when any parameter holds a slice (the model runs on a mesh)."""
-        from distriflow_tpu_torch.models.convert import lm_param_shapes
-
-        full = lm_param_shapes(self.config)
-        return any(tuple(p.shape) != full[n][0] for n, p in self.named_parameters())
-
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed[tokens.long()].to(self.config.dtype)
         if self.mesh is not None and self.embed.shape[1] < self.config.d_model:
@@ -891,6 +919,20 @@ class TransformerLM(nn.Module):
         if self.mesh is not None and self.vocab_parallel:
             h = copy_to(h, "model", self.mesh)
         return torch.matmul(h, self.lm_head.to(dt))
+
+    def _decode_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Decode logits: f32, and vocab-parallel ones all-gathered over
+        ``model``, so sampling sees exactly the one-rank logits."""
+        logits = self._head(x).float()
+        if self.mesh is not None and self.vocab_parallel:
+            logits = _all_gather(logits, self.mesh, "model", logits.dim() - 1)
+        return logits
+
+    @property
+    def local_heads(self) -> int:
+        """The heads of this rank's KV cache (``model``-sharded ones are
+        a slice of ``n_heads``)."""
+        return self.layers[0].attn.local_heads if len(self.layers) else self.config.n_heads
 
     def forward(self, tokens: torch.Tensor, with_aux: bool = False):
         """Training-mode logits; with ``with_aux``, ``(logits, aux)``: the
@@ -923,7 +965,8 @@ class TransformerLM(nn.Module):
         cfg = self.config
         if int8 is None:
             int8 = cfg.resolved_kv_cache_dtype == "int8"
-        k, v, ks, vs = cache_buffers(cfg, (batch, cfg.max_seq), int8, self.device)
+        k, v, ks, vs = cache_buffers(cfg, (batch, cfg.max_seq), int8, self.device,
+                                     self.local_heads)
         return KVCache(k, v, 0, cfg.max_seq, k_scale=ks, v_scale=vs)
 
     @torch.no_grad()
@@ -932,11 +975,9 @@ class TransformerLM(nn.Module):
         """Run ``tokens`` [B, s] through the cache; returns ``(logits
         [B, s, V] f32, cache)``. ``cache=None`` starts a fresh solo cache
         (the prefill, which takes the prompt-attention kernel), int8 as
-        :meth:`new_cache` decides from ``int8``."""
-        if self.mesh is not None and self.sharded:
-            raise NotImplementedError(
-                "decoding over sharded parameters is not ported yet (TP-sharded decoding "
-                "comes with the next slice)")
+        :meth:`new_cache` decides from ``int8``. On a mesh every rank runs
+        the same call on the same (replicated) tokens over its local
+        heads and experts, and gets the full logits."""
         fresh = cache is None
         if fresh:
             cache = self.new_cache(tokens.shape[0], int8)
@@ -944,24 +985,27 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.layers):
             x, _ = blk(x, cache, i, fresh)
         cache.advance(tokens.shape[1])
-        return self._head(x).float(), cache
+        return self._decode_logits(x), cache
 
 
-def cache_buffers(config: TransformerConfig, lead: Tuple[int, int], int8: bool, device
-                  ) -> Tuple[List[torch.Tensor], ...]:
+def cache_buffers(config: TransformerConfig, lead: Tuple[int, int], int8: bool, device,
+                  heads: Optional[int] = None) -> Tuple[List[torch.Tensor], ...]:
     """Zeroed per-layer ``(k, v, k_scale, v_scale)`` buffers of shape
     ``lead + (H*D,)`` (scales ``lead + (H,)`` f32, or None when not
-    ``int8``); K/V in ``cfg.dtype`` or int8."""
+    ``int8``); K/V in ``cfg.dtype`` or int8. ``heads`` (``n_heads`` by
+    default) is a ``model``-sharded model's local head count."""
     n = config.n_layers
+    heads = config.n_heads if heads is None else heads
 
     def bufs(width, dtype):
         return [torch.zeros(lead + (width,), dtype=dtype, device=device) for _ in range(n)]
 
     kv_dtype = torch.int8 if int8 else config.dtype
-    k, v = bufs(config.d_model, kv_dtype), bufs(config.d_model, kv_dtype)
+    width = heads * config.head_dim
+    k, v = bufs(width, kv_dtype), bufs(width, kv_dtype)
     if not int8:
         return k, v, None, None
-    return k, v, bufs(config.n_heads, torch.float32), bufs(config.n_heads, torch.float32)
+    return k, v, bufs(heads, torch.float32), bufs(heads, torch.float32)
 
 
 def _cast_logits(logits: torch.Tensor, loss_name: str) -> torch.Tensor:
@@ -976,11 +1020,12 @@ def _cast_logits(logits: torch.Tensor, loss_name: str) -> torch.Tensor:
 
 
 @torch.no_grad()
-def init_weights(model: TransformerLM, seed: int = 0) -> TransformerLM:
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights: every matmul kernel and the embedding
     ``normal(0, 1/fan_in)`` (lecun-normal scale; fan_in = d_model for the
     embedding, and flax's product of every axis but the last for the
-    ``[E, in, out]`` expert weights: E*d and E*f), LayerNorm scale 1 and
+    ``[E, in, out]`` expert weights: E*d and E*f; a pipelined LM's stage
+    weights leave the leading stages dim out), LayerNorm scale 1 and
     every bias (LayerNorm's, the MoE router's) 0. Drawn on the CPU from one
     ``torch.Generator``, so a seed gives the same weights on every device;
     they are not flax's bits (carry a flax tree over with
@@ -992,7 +1037,8 @@ def init_weights(model: TransformerLM, seed: int = 0) -> TransformerLM:
         elif name.endswith(".bias"):
             p.zero_()
         else:
-            fan_in = p.shape[1] if name == "embed" else math.prod(p.shape[:-1])
+            lead = 1 if name.startswith("stages.") else 0
+            fan_in = p.shape[1] if name == "embed" else math.prod(p.shape[lead:-1])
             p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
     return model
 
@@ -1050,4 +1096,151 @@ def transformer_lm(
         flax_path=_lm_flax_path,
     )
     spec.check_loss()  # the fused CE takes bf16 logits
+    return spec
+
+
+class StageBlocks(nn.Module):
+    """One pipeline stage's ``per`` consecutive blocks (``block_0`` ...),
+    every parameter stacked over the stages: ``[n_stages, ...]`` when
+    built, this rank's ``[1, ...]`` slice once the trainer shards it over
+    ``pipe``. :meth:`stage_fn` runs one stage's slices through the blocks
+    (``torch.func.functional_call``), which is what the pipeline schedules
+    call; with the heads, FFN or experts sharded the blocks run their
+    ``model``/``expert`` collectives as :class:`TransformerLM`'s do. MoE
+    routing groups are cut from the stage's local tokens."""
+
+    def __init__(self, config: TransformerConfig, per: int, n_stages: int,
+                 trainable: bool = False, mesh=None):
+        super().__init__()
+        self.per = per
+        for i in range(per):
+            blk = Block(config, trainable, mesh)
+            if hasattr(blk, "moe"):
+                blk.moe.data_axis = None
+            self.add_module(f"block_{i}", blk)
+        with torch.no_grad():
+            for mod in self.modules():
+                for pname, p in list(mod._parameters.items()):
+                    mod._parameters[pname] = nn.Parameter(
+                        p.new_empty((n_stages,) + tuple(p.shape)), requires_grad=p.requires_grad)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks on ``x`` with the parameters in place (call it
+        through :meth:`stage_fn`, which puts one stage's slices there)."""
+        for i in range(self.per):
+            x, _ = getattr(self, f"block_{i}")(x)
+        return x
+
+    def stage_fn(self, params, x: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(self, params, (x,))
+
+
+class PipelinedTransformerLM(nn.Module):
+    """JAX ``pipelined_transformer_lm``'s model: the embedding
+    (``_EmbedIn``), P stages of ``n_layers / P`` blocks run by the
+    schedule of ``pipeline_schedule`` over ``pipe``
+    (:mod:`distriflow_tpu_torch.parallel.pipeline`), and the head
+    (``_HeadOut``: ``ln_f`` and ``lm_head``). The embedding and the head
+    live outside the pipeline on every pipe rank; TP shards them as
+    :class:`TransformerLM`'s."""
+
+    def __init__(self, config: TransformerConfig, mesh, num_microbatches: int,
+                 device: Optional[Union[str, torch.device]] = None, trainable: bool = False):
+        super().__init__()
+        from distriflow_tpu_torch.parallel.pipeline import SCHEDULES
+        from distriflow_tpu_torch.utils.device import resolve_device
+
+        cfg = config
+        self.config, self.mesh = cfg, mesh
+        n_stages = axis_size(mesh, "pipe")
+        self.num_microbatches = num_microbatches
+        self.schedule = SCHEDULES[pipeline_schedule_of(cfg)]
+        self.embed = _param(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype, trainable=trainable)
+        self.stages = StageBlocks(cfg, cfg.n_layers // n_stages, n_stages, trainable, mesh)
+        self.ln_f = LayerNorm(cfg.d_model, trainable)
+        self.lm_head = _param(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype, trainable=trainable)
+        dev = resolve_device(device)
+        check_kernels_take(config, dev, training=trainable)
+        self.to(dev)
+        self.eval()
+
+    device = TransformerLM.device
+    vocab_parallel = TransformerLM.vocab_parallel
+    _embed = TransformerLM._embed
+    _head = TransformerLM._head
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Training-mode logits of this rank's rows (vocab-parallel over
+        ``model``: this rank's slice), on every pipe rank."""
+        x = self._embed(tokens)
+        stacked = dict(self.stages.named_parameters())
+        x = self.schedule(self.stages.stage_fn, stacked, x, self.mesh, self.num_microbatches)
+        return _cast_logits(self._head(x), self.config.resolved_loss_for(self.device, self.mesh))
+
+
+def pipeline_schedule_of(config: TransformerConfig) -> str:
+    """The backward schedule: ``pipeline_schedule``, else ``"remat"`` with
+    ``remat=True`` and ``"gpipe"`` without (JAX's choice); an unknown
+    name is JAX's ``ValueError``."""
+    from distriflow_tpu_torch.parallel.pipeline import SCHEDULES
+
+    schedule = config.pipeline_schedule or ("remat" if config.remat else "gpipe")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"pipeline_schedule must be one of {sorted(SCHEDULES)}, "
+                         f"got {schedule!r}")
+    return schedule
+
+
+def _pipelined_flax_path(name: str) -> Tuple[str, ...]:
+    from distriflow_tpu_torch.models.convert import pipelined_lm_flax_path
+
+    return pipelined_lm_flax_path(name)
+
+
+def pipelined_transformer_lm(
+    config: Optional[TransformerConfig] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
+    num_microbatches: Optional[int] = None,
+    example_seq: int = 128,
+    **overrides,
+) -> ModelSpec:
+    """JAX ``pipelined_transformer_lm``: the causal LM over the mesh's
+    ``pipe`` axis (DP x PP x TP), ``n_layers / P`` blocks a stage, the
+    batch in ``num_microbatches`` microbatches (default P). ``init`` builds
+    the model with full, stacked parameters; the trainer shards them with
+    ``PIPELINED_TRANSFORMER_RULES``. The loss resolves as on any mesh with
+    ``pipe`` > 1: the plain sparse CE."""
+    from distriflow_tpu_torch.utils.device import resolve_device
+
+    if config is None:
+        config = TransformerConfig(**overrides)
+    elif overrides:
+        config = dataclasses.replace(config, **overrides)
+    if mesh is None or axis_size(mesh, "pipe") < 2:
+        raise ValueError("pipelined_transformer_lm needs a mesh with pipe >= 2")
+    pipeline_schedule_of(config)
+    n_stages = axis_size(mesh, "pipe")
+    if config.n_layers % n_stages:
+        raise ValueError(f"n_layers {config.n_layers} not divisible by pipe axis {n_stages}")
+    m = num_microbatches or n_stages
+    dev = resolve_device(device)
+
+    def init(seed: int = 0) -> PipelinedTransformerLM:
+        return init_weights(PipelinedTransformerLM(config, mesh, m, device=dev, trainable=True),
+                            seed)
+
+    spec = ModelSpec(
+        init=init,
+        apply=lambda model, tokens: model(tokens),
+        loss=config.resolved_loss_for(dev, mesh),
+        input_shape=(example_seq,),
+        output_shape=(config.vocab_size,),
+        name="pipelined_transformer_lm",
+        device=dev,
+        dtype=config.dtype,
+        mesh=mesh,
+        flax_path=_pipelined_flax_path,
+    )
+    spec.check_loss()
     return spec

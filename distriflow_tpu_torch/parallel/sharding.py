@@ -49,9 +49,9 @@ TRANSFORMER_TP_RULES: Rules = (
     (r".*", ()),
 )
 
-# For the pipelined LM (not ported yet: the pipeline slice): stage params
-# carry a leading stages dim sharded over `pipe`; TP specs shift right by
-# one dim. Embed/head live outside the pipeline and keep plain TP sharding.
+# For the pipelined LM (models/transformer.py::pipelined_transformer_lm):
+# stage params carry a leading stages dim sharded over `pipe`; TP specs
+# shift right by one dim. Embed/head live outside the pipeline and keep plain TP sharding.
 PIPELINED_TRANSFORMER_RULES: Rules = (
     (r".*stages.*experts_wi", ("pipe", "expert", None, "model")),
     (r".*stages.*experts_wo", ("pipe", "expert", "model", None)),

@@ -33,12 +33,42 @@ pool; each engine round drafts k tokens, verifies all k + 1 positions in
 one target pass and commits the accepted prefix
 (:func:`~distriflow_tpu_torch.models.generate.verify`). Greedy output
 equals plain decode's.
+
+**Mesh-aware serving** (JAX's "mesh-aware serving"): a model on a mesh
+(``TransformerLM(..., mesh=)`` holding this rank's blocks, cut by
+``models/base.py::cut_blocks``, e.g. ``lm_from_jax(mesh=)`` under
+``TRANSFORMER_TP_RULES``: the model carries its rule table, by which a
+weight load cuts the new weights) is served SPMD, one process a rank. Every rank
+constructs the server; rank 0 owns the transport, admission, the page
+allocator and every other host decision, and the other ranks run
+:meth:`InferenceServer.follow`. Each device program rank 0 runs (the cache
+allocation, an admission's prefill and insert, an engine iteration, a
+direct ``generate``, ``beam``, ``score``, a weight load) is first sent to
+the followers over a gloo group of its own (``broadcast_object_list``:
+the op and its host arguments: rows, slot and page tables, tokens,
+sampling settings), under the device lock, so every rank runs the same
+programs in the same order on the same inputs: each over its local heads
+(its paged pool holds those heads' K/V at the same page indices) and with
+the same collectives. Host-only paths (a refusal, a disconnect, a
+cancelled row's retirement) send nothing; their effect reaches the
+followers in the next program's tables. After each program every rank
+reports over the same group how it ended: the mesh stays in step when
+every rank succeeded or every rank raised the same error (a program
+refused on identical inputs); otherwise every rank stops serving at once,
+rank 0 with :attr:`InferenceServer.mesh_error` naming the rank and its
+error (a rank that failed before one of the program's collectives holds
+its partners there until the mesh group's timeout first). While no
+program runs, rank 0 sends a no-op every half control timeout, so an idle
+rank 0 is never taken for a lost one. ``stop`` sends the followers' exit.
+A follower that loses rank 0 (no program and no no-op) raises within the
+control group's timeout. Speculative serving over a mesh is refused.
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
 import threading
+from datetime import timedelta
 import time as time_mod
 from collections import OrderedDict, deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -69,6 +99,7 @@ from distriflow_tpu_torch.models.generate import (
     slot_insert,
     verify,
 )
+from distriflow_tpu_torch.models.base import shard_state
 from distriflow_tpu_torch.models.transformer import TransformerLM, init_weights
 from distriflow_tpu_torch.models.zoo import draft_config_for
 from distriflow_tpu_torch.obs import FleetTable, get_telemetry
@@ -217,12 +248,35 @@ class InferenceServer:
         serving: Optional[ServingConfig] = None,
         telemetry: Any = None,
         draft: Optional[TransformerLM] = None,
+        control_timeout_s: float = 60.0,
     ):
         self.model = model
         self.config = config = model.config
         self.serving = (serving or ServingConfig()).validate()
         self.logger = VerboseLogger("InferenceServer", verbose)
         self._device_lock = threading.Lock()  # one device program at a time
+        # the mesh (see the module docstring): rank 0 leads, the rest follow
+        import torch.distributed as dist
+
+        self.mesh = getattr(model, "mesh", None)
+        self._spmd = self.mesh is not None and dist.is_initialized() and \
+            dist.get_world_size() > 1
+        self.is_leader = not self._spmd or dist.get_rank() == 0
+        if self._spmd and self.serving.speculate_k:
+            raise NotImplementedError(
+                "speculative serving over a mesh is not ported")
+        # every rank makes the control group, in the same order
+        self._ctl = dist.new_group(backend="gloo", timeout=timedelta(
+            seconds=control_timeout_s)) if self._spmd else None
+        self._ctl_timeout_s = control_timeout_s
+        self._ctl_closed = False  # guarded-by: _device_lock
+        self._last_send = 0.0  # guarded-by: _device_lock
+        # why the mesh stopped serving (rank 0; None while in step)
+        self.mesh_error: Optional[str] = None  # guarded-by: _device_lock
+        self._heartbeat: Optional[threading.Thread] = None
+        self._follower: Optional[threading.Thread] = None
+        self.follower_error: Optional[BaseException] = None
+        self.follower_ops = 0  # device programs a follower ran
         self.transport = ServerTransport(host, port)
         self.transport.on("model_info", self._on_info)
         self.transport.on("generate", self._on_generate)
@@ -377,16 +431,32 @@ class InferenceServer:
     # -- lifecycle ---------------------------------------------------------
 
     def setup(self) -> "InferenceServer":
+        """Start serving (rank 0), or start following rank 0's programs
+        (every other rank of a mesh; :meth:`follow` waits for the end)."""
+        if not self.is_leader:
+            self._follower = threading.Thread(target=self._follow_loop, daemon=True,
+                                              name="inference-follower")
+            self._follower.start()
+            return self
         self._stopped.clear()
         self._drain_and_error()
         self.transport.start()
         self._dispatcher = threading.Thread(
             target=self._engine_loop, daemon=True, name="inference-batcher")
         self._dispatcher.start()
+        if self._spmd:
+            with self._device_lock:
+                self._last_send = time_mod.monotonic()
+            self._heartbeat = threading.Thread(
+                target=self._heartbeat_loop, daemon=True, name="inference-heartbeat")
+            self._heartbeat.start()
         self.logger.log(f"serving on {self.address}")
         return self
 
     def stop(self) -> None:
+        if not self.is_leader:
+            self.follow()
+            return
         self._stopped.set()  # before the drain: closes the enqueue race
         self.transport.stop()
         if self._dispatcher is not None:
@@ -394,8 +464,137 @@ class InferenceServer:
             self._dispatcher.join(timeout=5.0)
             self._dispatcher = None
         self._drain_and_error()
+        if self._spmd:
+            with self._device_lock:  # the followers' last program
+                if not self._ctl_closed:
+                    self._send("stop", {})
+                    self._ctl_closed = True
+            if self._heartbeat is not None:
+                self._heartbeat.join(timeout=5.0)
+                self._heartbeat = None
         self._tel.unregister_fleet(id(self))
         self.verify_pool_conservation("stop")
+
+    # -- the mesh: rank 0 sends each device program, the others follow ------
+
+    def _send(self, op: str, kw: Dict[str, Any]) -> None:
+        """Broadcast program ``op`` to the followers (device lock held)."""
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([(op, kw)], src=0, group=self._ctl)
+        self._last_send = time_mod.monotonic()
+
+    def _mirror(self, op: str, **kw: Any) -> Any:
+        """Run device program ``op`` here, sent to the followers first on a
+        mesh (call with the device lock held: the lock orders the
+        programs), then agree with them on how it ended."""
+        if not self._spmd:
+            return getattr(self, f"_op_{op}")(**kw)
+        if self._ctl_closed:
+            raise RuntimeError(f"mesh serving stopped: {self.mesh_error}" if self.mesh_error
+                               else "inference server stopped")
+        try:
+            self._send(op, kw)
+        except Exception as e:  # a follower is gone
+            self._stop_mesh(f"{op}: sending the program failed: {e!r}")
+            raise RuntimeError(f"mesh serving stopped: {self.mesh_error}") from e
+        err: Optional[Exception] = None
+        out = None
+        try:
+            out = getattr(self, f"_op_{op}")(**kw)
+        except Exception as e:
+            err = e
+        broken = self._agree(op, err)
+        if broken is not None:
+            self._stop_mesh(broken)
+            raise RuntimeError(f"mesh serving stopped: {broken}") from err
+        if err is not None:  # every rank raised it: the mesh stays in step
+            raise err
+        return out
+
+    def _stop_mesh(self, why: str) -> None:
+        """Rank 0 stops sending programs (device lock held)."""
+        self._ctl_closed = True
+        self.mesh_error = why
+        self.logger.log(f"mesh serving stopped: {why}")
+
+    def _agree(self, op: str, err: Optional[Exception]) -> Optional[str]:
+        """Every rank reports how program ``op`` ended (None, or its error);
+        returns None when the mesh stays in step (every rank succeeded, or
+        every rank raised the same error), else why every rank stops. All
+        ranks see the same reports, so all reach the same verdict."""
+        import torch.distributed as dist
+
+        mine = None if err is None else f"{type(err).__name__}: {err}"
+        seen: List[Optional[str]] = [None] * dist.get_world_size(self._ctl)
+        try:
+            dist.all_gather_object(seen, mine, group=self._ctl)
+        except Exception as e:
+            return f"{op}: the ranks' status exchange failed: {e!r}"
+        if all(s == seen[0] for s in seen):
+            return None
+        return f"{op}: " + "; ".join(
+            f"rank {r} raised {s}" if s is not None else f"rank {r} succeeded"
+            for r, s in enumerate(seen))
+
+    def _heartbeat_loop(self) -> None:
+        """Rank 0 while it serves: a no-op program whenever none was sent
+        for half the control timeout, so the followers, which wait at most
+        that timeout for the next program, never take an idle rank 0 for
+        a lost one."""
+        period = self._ctl_timeout_s / 2
+        while not self._stopped.wait(period / 4):
+            with self._device_lock:
+                if self._ctl_closed:
+                    return
+                if time_mod.monotonic() - self._last_send < period:
+                    continue
+                try:
+                    self._send("noop", {})
+                except Exception as e:
+                    self._stop_mesh(f"noop: sending failed: {e!r}")
+                    return
+
+    def _follow_loop(self) -> None:
+        import torch.distributed as dist
+
+        try:
+            while True:
+                box: List[Any] = [None]
+                dist.broadcast_object_list(box, src=0, group=self._ctl)
+                op, kw = box[0]
+                if op == "stop":
+                    return
+                if op == "noop":
+                    continue
+                self.follower_ops += 1
+                err: Optional[Exception] = None
+                try:
+                    getattr(self, f"_op_{op}")(**kw)
+                except Exception as e:
+                    err = e
+                broken = self._agree(op, err)
+                if broken is not None:
+                    self.follower_error = RuntimeError(f"mesh serving stopped: {broken}")
+                    self.follower_error.__cause__ = err
+                    return
+                if err is not None:  # rank 0 raised it too and reports it
+                    self.logger.log(f"follower: {op} raised {err!r} on every rank")
+        except BaseException as e:  # rank 0 lost: the control group timed out
+            self.follower_error = e
+
+    def follow(self) -> None:
+        """A follower rank: run rank 0's device programs until its
+        ``stop``; raises if rank 0 was lost (within the control group's
+        timeout) or the mesh stopped serving (a program ended on some rank
+        unlike on the others)."""
+        if self.is_leader:
+            raise RuntimeError("rank 0 serves; only the other ranks follow")
+        if self._follower is None:
+            self.setup()
+        self._follower.join()
+        if self.follower_error is not None:
+            raise self.follower_error
 
     @property
     def address(self) -> str:
@@ -406,7 +605,13 @@ class InferenceServer:
         from their next chunk (the KV cache is config-shaped only). Under
         ``draft_model="self"`` the draft is the target, so it follows."""
         with self._device_lock:
-            self.model.load_state_dict(state_dict, strict=True)
+            self._mirror("load", state_dict=state_dict)
+
+    def _op_load(self, state_dict: Dict[str, Any]) -> None:
+        if self.mesh is not None:  # the full tensors: each rank keeps its blocks
+            state_dict = shard_state(
+                self.model, {n: torch.as_tensor(v) for n, v in state_dict.items()})
+        self.model.load_state_dict(state_dict, strict=True)
 
     def _window_s(self) -> float:
         w = self.serving.batch_window_s
@@ -616,12 +821,11 @@ class InferenceServer:
             with self._device_lock, self.logger.time(
                 f"generate[{prompt.shape[0]}x{prompt.shape[1]}+{n_tokens}]"
             ):
-                out = generate(
-                    self.model, prompt, n_tokens, temperature=temperature, seed=seed,
-                    top_k=int(top_k) if top_k is not None else None,
+                out = self._mirror(
+                    "generate", prompt=prompt, n_tokens=n_tokens, temperature=temperature,
+                    seed=seed, top_k=int(top_k) if top_k is not None else None,
                     top_p=float(top_p) if top_p is not None else None,
-                    eos_id=int(eos_id) if eos_id is not None else None,
-                ).cpu().numpy()
+                    eos_id=int(eos_id) if eos_id is not None else None)
             meta = {"path": "direct"}  # dfcheck: payload serving_meta
         ack = {"result": pack_bytes({"tokens": serialize_array(out)}), "serving": meta}
         tid = payload.get("trace_id")
@@ -641,12 +845,10 @@ class InferenceServer:
         with self._device_lock, self.logger.time(
             f"beam[{prompt.shape[0]}x{prompt.shape[1]}+{n_tokens} k={beam_size}]"
         ):
-            out, scores = beam_search(
-                self.model, prompt, n_tokens, beam_size=beam_size,
-                length_penalty=length_penalty,
-                eos_id=int(eos_id) if eos_id is not None else None)
-            result = {"tokens": serialize_array(out.cpu().numpy()),
-                      "scores": serialize_array(scores.cpu().numpy())}
+            out, scores = self._mirror(
+                "beam", prompt=prompt, n_tokens=n_tokens, beam_size=beam_size,
+                length_penalty=length_penalty, eos_id=int(eos_id) if eos_id is not None else None)
+            result = {"tokens": serialize_array(out), "scores": serialize_array(scores)}
         return self._direct_ack(payload, result)
 
     # dfcheck: payload payload=score_request -> direct_ack
@@ -656,8 +858,21 @@ class InferenceServer:
         with self._device_lock, self.logger.time(
             f"score[{tokens.shape[0]}x{tokens.shape[1]} from={from_pos}]"
         ):
-            scores = sequence_logprob(self.model, tokens, from_pos).cpu().numpy()
+            scores = self._mirror("score", tokens=tokens, from_pos=from_pos)
         return self._direct_ack(payload, {"scores": serialize_array(scores)})
+
+    # the direct paths' device programs (every rank of a mesh runs them)
+
+    def _op_generate(self, prompt: np.ndarray, n_tokens: int, **kw: Any) -> np.ndarray:
+        return generate(self.model, prompt, n_tokens, **kw).cpu().numpy()
+
+    def _op_beam(self, prompt: np.ndarray, n_tokens: int, **kw: Any
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        out, scores = beam_search(self.model, prompt, n_tokens, **kw)
+        return out.cpu().numpy(), scores.cpu().numpy()
+
+    def _op_score(self, tokens: np.ndarray, from_pos: int) -> np.ndarray:
+        return sequence_logprob(self.model, tokens, from_pos).cpu().numpy()
 
     @staticmethod
     def _direct_ack(payload: Dict[str, Any], result: Dict[str, Any]) -> Dict[str, Any]:
@@ -840,18 +1055,22 @@ class InferenceServer:
     def _ensure_cache(self) -> None:
         if self._slot_cache is not None:
             return
-        srv, dev = self.serving, self.model.device
         with self._device_lock:
-            if self._paged:
-                self._slot_cache = paged_cache(
-                    self.config, srv.max_slots, srv.page_size, self._n_pages, dev)
-                if self._spec_k:
-                    # the draft's own K/V arrays (other dims), the same page ids
-                    self._draft_cache = paged_cache(
-                        self.draft_model.config, srv.max_slots, srv.page_size, self._n_pages,
-                        dev)
-            else:
-                self._slot_cache = slot_cache(self.config, srv.max_slots, dev)
+            self._mirror("ensure_cache")
+
+    def _op_ensure_cache(self) -> None:
+        """The engine's caches, of this rank's heads."""
+        srv, dev, heads = self.serving, self.model.device, self.model.local_heads
+        if self._paged:
+            self._slot_cache = paged_cache(
+                self.config, srv.max_slots, srv.page_size, self._n_pages, dev, heads)
+            if self._spec_k:
+                # the draft's own K/V arrays (other dims), the same page ids
+                self._draft_cache = paged_cache(
+                    self.draft_model.config, srv.max_slots, srv.page_size, self._n_pages,
+                    dev)
+        else:
+            self._slot_cache = slot_cache(self.config, srv.max_slots, dev, heads)
 
     def _admit(self) -> None:
         """Move backlog requests into free slots (strict FIFO), prefill
@@ -944,34 +1163,15 @@ class InferenceServer:
                     self._draft_tables[s, :] = self._n_pages
                     self._draft_tables[s, :len(dpages)] = dpages
         pf0 = time_mod.monotonic()
+        pc = srv.prefill_chunk
         with self._prof.phase("prefill"), self._device_lock, self.logger.time(
             f"admit[{n}x{plen}]"
         ):
-            pc = srv.prefill_chunk
-            if shared_len > 0:
-                row_cache = gather_rows(self._slot_cache, self._tables[slots], shared_len)
-                logits = None
-                for i in range(shared_len, plen, pc or plen):
-                    logits, row_cache = extend(self.model, row_cache,
-                                               stacked[:, i:i + (pc or plen)])
-            elif pc is None or pc >= plen:
-                logits, row_cache = prefill(self.model, stacked)
-                self.prefills += 1
-            else:
-                logits, row_cache = prefill(self.model, stacked[:, :pc])
-                self.prefills += 1
-                for i in range(pc, plen, pc):
-                    logits, row_cache = extend(self.model, row_cache, stacked[:, i:i + pc])
-            if self._paged:
-                # carries the full host table, so pending sentinel edits of
-                # retired slots are installed too
-                paged_insert(self._slot_cache, row_cache, slots, plen, shared_len,
-                             self._tables.copy())
-                self._tables_dirty = False
-            else:
-                slot_insert(self._slot_cache, row_cache, slots, plen)
-            first = pick_rows(logits, temps, top_ks, top_ps, seeds,
-                              np.full((n,), plen, np.int64)).cpu().numpy()
+            first = self._mirror(
+                "prefill", stacked=stacked, slots=slots, plen=plen, shared_len=shared_len,
+                tables=self._tables.copy() if self._paged else None, temps=temps,
+                top_ks=top_ks, top_ps=top_ps, seeds=seeds)
+            self._tables_dirty = self._tables_dirty and not self._paged
         pf1 = time_mod.monotonic()  # first tokens are on the host now
         if self._spec_k:
             # the draft prefills the full prompt: the target's shared prefix
@@ -1029,6 +1229,45 @@ class InferenceServer:
             if req.n_tokens == 1 or hit_eos:
                 self._complete_row(s)
 
+    def _op_prefill(self, stacked: np.ndarray, slots: np.ndarray, plen: int, shared_len: int,
+                    tables: Optional[np.ndarray], temps, top_ks, top_ps, seeds) -> np.ndarray:
+        """An admission group's device program: prefill (or extend past a
+        shared prefix), insert into the engine cache, pick the first
+        tokens. ``tables`` (paged) is the full host table, so pending
+        sentinel edits of retired slots are installed too."""
+        pc = self.serving.prefill_chunk
+        if shared_len > 0:
+            row_cache = gather_rows(self._slot_cache, tables[slots], shared_len)
+            logits = None
+            for i in range(shared_len, plen, pc or plen):
+                logits, row_cache = extend(self.model, row_cache,
+                                           stacked[:, i:i + (pc or plen)])
+        elif pc is None or pc >= plen:
+            logits, row_cache = prefill(self.model, stacked)
+            self.prefills += 1
+        else:
+            logits, row_cache = prefill(self.model, stacked[:, :pc])
+            self.prefills += 1
+            for i in range(pc, plen, pc):
+                logits, row_cache = extend(self.model, row_cache, stacked[:, i:i + pc])
+        if tables is not None:
+            paged_insert(self._slot_cache, row_cache, slots, plen, shared_len, tables)
+        else:
+            slot_insert(self._slot_cache, row_cache, slots, plen)
+        return pick_rows(logits, temps, top_ks, top_ps, seeds,
+                         np.full((len(slots),), plen, np.int64)).cpu().numpy()
+
+    def _op_decode(self, tables: Optional[np.ndarray], tok, done, temps, top_ks, top_ps,
+                   seeds, eos, chunk: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """An engine iteration's device program (``tables``: the host page
+        table when it changed since the last install)."""
+        if tables is not None:
+            set_page_tables(self._slot_cache, tables)
+        cache, tok, done, toks = decode_chunk(self.model, self._slot_cache, tok, done, temps,
+                                              top_ks, top_ps, seeds, eos, chunk)
+        self._slot_cache = cache
+        return tok, done, toks
+
     def _decode_iteration(self) -> None:
         """Advance every live slot ``decode_chunk`` tokens, then retire
         finished and cancelled rows."""
@@ -1049,16 +1288,14 @@ class InferenceServer:
         with self._prof.phase("decode_iter"):
             t0 = time_mod.monotonic()
             with self._device_lock:
-                if self._paged and self._tables_dirty:
-                    # retired slots re-sentineled their rows on the host:
-                    # install before the dispatch so frozen rows' appends drop
-                    set_page_tables(self._slot_cache, self._tables.copy())
-                    self._tables_dirty = False
-                cache, tok, done, toks = decode_chunk(
-                    self.model, self._slot_cache, self._tok, self._done,
-                    self._temps, self._top_ks, self._top_ps, self._seeds,
-                    self._eos, srv.decode_chunk)
-                self._slot_cache = cache
+                # retired slots re-sentineled their rows on the host:
+                # install before the dispatch so frozen rows' appends drop
+                tables = self._tables.copy() if self._paged and self._tables_dirty else None
+                self._tables_dirty = self._tables_dirty and tables is None
+                tok, done, toks = self._mirror(
+                    "decode", tables=tables, tok=self._tok, done=self._done,
+                    temps=self._temps, top_ks=self._top_ks, top_ps=self._top_ps,
+                    seeds=self._seeds, eos=self._eos, chunk=srv.decode_chunk)
             t1 = time_mod.monotonic()
             elapsed_ms = (t1 - t0) * 1000.0
             self.decode_batches += 1

@@ -47,10 +47,19 @@ One device takes the same step path as a mesh: with no mesh every
 collective returns its input, every parameter is whole and no ZeRO slice
 is cut.
 
+A mesh with ``pipe`` > 1 trains the pipelined LM
+(``models/transformer.py::pipelined_transformer_lm``, under
+``PIPELINED_TRANSFORMER_RULES``): its stage parameters are each pipe
+rank's own, the embedding and head are replicated over ``pipe`` and come
+out of the schedule with equal gradients on every pipe rank, so the one
+step path above serves it unchanged.
+
 ``get_params`` gathers the full parameters (every rank must call it);
-``save`` gathers the full state and rank 0 writes it (unsharded).
-``sharded_checkpoints=True`` is not ported yet (the next slice's
-``checkpoint/sharded.py``) and raises.
+``save`` gathers the full state and rank 0 writes it (unsharded). With
+``sharded_checkpoints=True`` every rank snapshots its own blocks and ZeRO
+slices (``checkpoint/sharded.py``, JAX's layout) and the background writer
+commits them collectively over the process group's store; ``restore``
+reads this rank's blocks back, from any mesh's checkpoint.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ from distriflow_tpu_torch.models.base import (
     Params,
     _optimizer,
     apply_updates,
+    cut_blocks,
     init_params,
     named_params,
     to_device,
@@ -121,19 +131,6 @@ def _assign(dst: Any, src: Any) -> Any:
 
 def _clone(params: Params) -> Params:
     return {n: p.detach().clone() for n, p in params.items()}
-
-
-@torch.no_grad()
-def _swap_params(model: nn.Module, blocks: Params) -> None:
-    """Replace each named parameter of ``model`` by a new parameter holding
-    ``blocks[name]`` (on the parameter's device, its ``requires_grad``)."""
-    for mod_name, mod in model.named_modules():
-        for pname, p in list(mod._parameters.items()):
-            if p is None:
-                continue
-            full = f"{mod_name}.{pname}" if mod_name else pname
-            mod._parameters[pname] = nn.Parameter(
-                blocks[full].to(device=p.device, dtype=p.dtype), requires_grad=p.requires_grad)
 
 
 def _flat_all_reduce(tree: Params, mesh, axes) -> Params:
@@ -209,17 +206,9 @@ class SyncTrainer:
         ema_decay: Optional[float] = None,
         zero_level: Optional[int] = None,
     ):
-        if sharded_checkpoints:
-            raise NotImplementedError(
-                "SyncTrainer(sharded_checkpoints=True) is not ported yet: it comes with the "
-                "next slice's checkpoint/sharded.py")
         mesh = spec.mesh if mesh is None else mesh
         if spec.mesh is not None and spec.mesh is not mesh:
             raise ValueError("the spec was built on another mesh than the trainer's")
-        if mesh is not None and axis_size(mesh, "pipe") > 1:
-            raise NotImplementedError(
-                "SyncTrainer on a mesh with pipe > 1: the pipeline schedules are not ported "
-                "yet; they come with the next slice (parallel/pipeline.py)")
         if mesh is None and param_rules is not None:
             raise ValueError("param_rules need a mesh")
         if mesh is not None and spec.mesh is None and any(
@@ -290,6 +279,7 @@ class SyncTrainer:
         mesh, full, flax_path = self.mesh, named_params(self.model), self.spec.flax_path
         self._specs = {n: sharding.spec_for(n, p.dim(), self.param_rules, flax_path)
                        for n, p in full.items()}
+        self._full_shapes = {n: tuple(p.shape) for n, p in full.items()}
         cfg = getattr(self.model, "config", None)
         seq = mesh is not None and hasattr(cfg, "sequence_sharded") and cfg.sequence_sharded(mesh)
         self._seq_axis = "seq" if seq else None
@@ -298,7 +288,7 @@ class SyncTrainer:
         self._zslices: Dict[str, Tuple[int, int, int]] = {}
         if mesh is None:
             return
-        _swap_params(self.model, sharding.shard_params(full, mesh, self.param_rules, flax_path))
+        cut_blocks(self.model, full, mesh, self.param_rules, flax_path)
         dp, di = axis_size(mesh, "data"), axis_index(mesh, "data")
         for n, p in full.items():
             dim = (sharding.zero_dim(self._specs[n], tuple(p.shape), mesh, "data")
@@ -588,6 +578,32 @@ class SyncTrainer:
             out["ema"] = cut(host["ema"], self.zero_level >= 2)
         return out
 
+    def _state_placements(self) -> Dict[str, Any]:
+        """The :class:`~distriflow_tpu_torch.parallel.mesh.Placement` of each
+        leaf of :meth:`_state_tree` (the sharded store's ``placements``):
+        parameters by their specs, the moments (and the ZeRO-2 EMA)
+        extended over ``data`` where ZeRO slices them."""
+        from distriflow_tpu_torch.parallel.mesh import Placement
+
+        st, mesh = self.state, self.mesh
+
+        def zero(level):
+            return "data" if self.zero_level >= level else None
+
+        moments = {k: v for k, v in st.opt_state.items() if isinstance(v, dict)}
+        out = {"params": {n: Placement(mesh, s) for n, s in self._specs.items()},
+               "opt_state": sharding.opt_state_shardings(moments, self._specs,
+                                                         self._full_shapes, mesh, zero(1))}
+        if st.ema is not None:
+            out["ema"] = sharding.opt_state_shardings({"ema": st.ema}, self._specs,
+                                                      self._full_shapes, mesh, zero(2))["ema"]
+        return out
+
+    def _sharded_store(self) -> bool:
+        from distriflow_tpu_torch.checkpoint.sharded import ShardedCheckpointStore
+
+        return isinstance(self.store, ShardedCheckpointStore)
+
     def save(self, wait: bool = False, drop_if_busy: bool = False) -> Optional[str]:
         """Checkpoint the whole state (params, optimizer state, step, EMA).
 
@@ -595,13 +611,23 @@ class SyncTrainer:
         write runs on a background writer, so the loop never waits on disk.
         The queue is bounded: ``save()`` blocks for a slot, auto-saves pass
         ``drop_if_busy`` and skip instead. With ``wait`` the call blocks
-        until the write lands and raises that write's own error, if any."""
+        until the write lands and raises that write's own error, if any.
+        A sharded save is collective: every rank saves every version (no
+        rank skips one on its own queue's state)."""
         if self.store is None:
             raise RuntimeError("no checkpoint_dir configured")
         if self.state is None:
             raise RuntimeError("trainer not initialized")
         version = str(self.version)
-        if self.mesh is not None:
+        if self._sharded_store():
+            # every rank snapshots its own blocks (the writer does file I/O);
+            # the save is collective, so on a mesh no rank skips a version
+            drop_if_busy = drop_if_busy and self.mesh is None
+            placements = self._state_placements() if self.mesh is not None else None
+
+            def take():
+                return self.store.snapshot(self._state_tree(), placements=placements)
+        elif self.mesh is not None:
             # gathered on every rank (collectives), written by rank 0 alone;
             # every rank saves at every version, so none skips
             from distriflow_tpu_torch.parallel.distributed import is_coordinator
@@ -610,12 +636,18 @@ class SyncTrainer:
             if not is_coordinator():
                 return version
             drop_if_busy = False
+
+            def take():
+                return host
+        else:
+            def take():
+                return host_tree(self._state_tree())
         self._ensure_writer()
         if drop_if_busy and self._save_queue.full():
             # check BEFORE the copy: a skipped autosave must not pay for it
             self.logger.log(f"skipping checkpoint {version}: writer busy")
             return None
-        item = _SaveItem(version, host if self.mesh is not None else host_tree(self._state_tree()))
+        item = _SaveItem(version, take())
         if drop_if_busy:
             try:
                 self._save_queue.put_nowait(item)
@@ -658,17 +690,22 @@ class SyncTrainer:
         version = version or self.store.last()
         if version is None:
             return False
-        like = self._full_state_tree()
+        sharded = self._sharded_store()
+        # the sharded store reads this rank's blocks; the plain one the
+        # full tree, cut here
+        like = self._state_tree() if sharded else self._full_state_tree()
+        kw = {"placements": self._state_placements()} if sharded and self.mesh is not None else {}
         want_ema = "ema" in like
         try:
-            host = self.store.load(version, like)
+            host = self.store.load(version, like, **kw)
         except KeyError:
             if not want_ema:
                 raise
             # checkpoint predates EMA being enabled: seed it from the params
             like.pop("ema")
-            host = self.store.load(version, like)
-        host = self._shard_state_tree(host)
+            host = self.store.load(version, like, **kw)
+        if not sharded:
+            host = self._shard_state_tree(host)
         st = self.state
         _assign(st.params, host["params"])
         st.opt_state = _assign(st.opt_state, host["opt_state"])

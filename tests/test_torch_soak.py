@@ -285,3 +285,52 @@ def test_soak_straggler_stays_slow_until_its_override_lands(tmp_path):
     assert before and after, res.straggler_fits
     # slow: 8 x a base delay of at least 15 ms, less the 40% jitter
     assert min(before) >= 8 * 0.015 * 0.6, before
+
+
+def test_poll_opens_only_once_the_straggler_round_reached_the_server():
+    """``straggler_until_override``'s event order: no poll before the
+    server holds an upload of the straggler's slow fit (the polls would
+    judge the other clients' rounds alone), none after the adaptation
+    until an upload of a fast fit has arrived, none after the ramp."""
+
+    class _Server:
+        uploads = 0
+
+        def connections_of(self, stable_id):
+            return ["c0"]
+
+        @property
+        def fleet(self):
+            server = self
+
+            class _Fleet:
+                def snapshot(self):
+                    return {"c0": {"uploads": server.uploads}}
+
+            return _Fleet()
+
+    class _Controller:
+        adaptations = 0
+        ramps = 0
+
+    class _Model:
+        fits_before_fast = None
+
+    class _Rec:
+        stable_id = "soak-000"
+        model = _Model()
+
+    server, ctl, rec = _Server(), _Controller(), _Rec()
+    assert port_soak._poll_open(ctl, server, None)
+    assert not port_soak._poll_open(ctl, server, rec)
+    server.uploads = 1  # the slow round reached the server
+    assert port_soak._poll_open(ctl, server, rec)
+    ctl.adaptations = 1
+    assert not port_soak._poll_open(ctl, server, rec)  # still slow
+    rec.model.fits_before_fast = 3
+    server.uploads = 3
+    assert not port_soak._poll_open(ctl, server, rec)  # no fast upload yet
+    server.uploads = 4
+    assert port_soak._poll_open(ctl, server, rec)
+    ctl.ramps = 1
+    assert not port_soak._poll_open(ctl, server, rec)

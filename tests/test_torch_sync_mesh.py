@@ -198,22 +198,26 @@ def test_zero_holds_a_data_slice_of_the_moments(runs, name):
     assert sliced > 0
 
 
-def test_pipeline_and_sharded_checkpoints_wait_for_the_next_slice():
+def test_pipeline_and_sharded_checkpoints_wait_for_the_next_slice(tmp_path):
+    """Both are ported now (``tests/test_torch_pipeline.py``,
+    ``tests/test_torch_sharded_checkpoint.py``): every schedule builds,
+    ``sharded_checkpoints=True`` gives the sharded store, and a mesh with
+    ``pipe`` > 1 needs a spec built on it (the pipelined LM)."""
+    from distriflow_tpu_torch.checkpoint import ShardedCheckpointStore
     from distriflow_tpu_torch.models.transformer import transformer_lm
     from distriflow_tpu_torch.train.sync import SyncTrainer
 
-    for sched in ("gpipe", "1f1b"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            TransformerConfig(**DIMS, pipeline_schedule=sched)
+    for sched in ("gpipe", "remat", "1f1b"):
+        assert TransformerConfig(**DIMS, pipeline_schedule=sched).pipeline_schedule == sched
     spec = transformer_lm(TransformerConfig(**DIMS, dtype=torch.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        SyncTrainer(spec, sharded_checkpoints=True)
+    trainer = SyncTrainer(spec, checkpoint_dir=str(tmp_path), sharded_checkpoints=True)
+    assert isinstance(trainer.store, ShardedCheckpointStore)
 
     class _PipeMesh:  # SyncTrainer reads only the axis sizes before refusing
         mesh_dim_names = ("data", "model", "seq", "pipe", "expert")
         shape = (1, 1, 1, 2, 1)
 
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="needs a spec built on it"):
         SyncTrainer(spec, mesh=_PipeMesh())
 
 

@@ -194,13 +194,16 @@ def test_spec_model_fit_update_is_one_trainer_step():
     assert len(model.evaluate(*batch)) == 2
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    from distriflow_tpu_torch.checkpoint import ShardedCheckpointStore
+
     spec = transformer_lm(PCFG, device="cpu")
-    # sharded checkpoints wait for the next slice; meshes, rules and ZeRO
-    # are ported (tests/test_torch_sync_mesh.py): rules need a mesh, and
-    # ZeRO without one shards nothing (a one-device data axis), as in JAX
-    with pytest.raises(NotImplementedError, match="next slice"):
-        SyncTrainer(spec, sharded_checkpoints=True)
+    # sharded checkpoints are ported (tests/test_torch_sharded_checkpoint.py);
+    # meshes, rules and ZeRO too (tests/test_torch_sync_mesh.py): rules
+    # need a mesh, and ZeRO without one shards nothing (a one-device data
+    # axis), as in JAX
+    trainer = SyncTrainer(spec, checkpoint_dir=str(tmp_path), sharded_checkpoints=True)
+    assert isinstance(trainer.store, ShardedCheckpointStore)
     with pytest.raises(ValueError, match="need a mesh"):
         SyncTrainer(spec, param_rules=())
     for kw in (dict(zero_level=1), dict(zero_optimizer_sharding=True)):

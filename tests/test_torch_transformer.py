@@ -93,6 +93,10 @@ def test_config_keeps_jax_field_names_and_refuses_unported_paths():
     assert TransformerConfig(n_experts=4, moe_top_k=4).n_experts == 4
     with pytest.raises(TypeError):
         TransformerConfig(dtype="bfloat16")
+    # the pipeline schedules are ported (tests/test_torch_pipeline.py): the
+    # config takes any name, as JAX's does; the pipelined LM checks it
+    for sched in ("gpipe", "remat", "1f1b"):
+        assert TransformerConfig(pipeline_schedule=sched).pipeline_schedule == sched
 
 
 @pytest.mark.parametrize("per_row", [False, True])
