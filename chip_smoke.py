@@ -334,6 +334,35 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     holds kernel 1 at the legs' new shapes: the ring's off-diagonal
     chunk pair (``ring_chunk``, B1 H8 S4096 non-causal, O and lse) and
     Ulysses' local heads (``ulysses_local_heads``, B1 H2 S16384).
+25. The Keras import (``keras:`` line): step 14's ConvNet written as a
+    tfjs-layers Sequential ``model.json`` (conv 3x3 same 64/128/256 with
+    ReLU and 2x2 max pools, dense 256 ReLU, dense 10 softmax) with step
+    14's tree exported by ``export_keras_weights``: (a) ``fetch_model``
+    of the path in bf16 with the fused dense CE, trained at step 14's
+    recipe (the trailing softmax stripped, every loss within
+    ``KERAS_LOSS_TOL`` of the zoo ConvNet's, windows ``keras_train`` 30
+    + 30 launches of 9d/10d and ``keras_eval`` 1); (b) the same file
+    from a loopback ``http.server``, its parameters and logits equal to
+    the path's bit for bit; (c) an async-SGD server from the path and
+    two workers, one on the URL's model (bf16) and one handed the bare
+    URL (its own ``fetch_model``: f32, the plain CE), one epoch of the
+    wire phase's images: every batch applied exactly once, the server's
+    validation loss lower by more than its spread, every payload checked
+    (``payloads:`` phase ``keras``) and the blobs' leaves named by the
+    Keras tree, window ``keras_wire`` one launch each a bf16 fit; (d) the
+    trained parameters exported and reloaded bit for bit.
+26. The streaming token dataset (``streaming:`` line): 1,048,576 tokens
+    of the LM CLI's Markov corpus at vocab 32000 written by
+    ``write_token_file`` (uint16), the flagship at B 8 S 1024 (sgd)
+    trained from ``StreamingTokenDataset`` 10 steps, a ``save_model``
+    checkpoint and the cursor ``state()``, 10 more steps (window
+    ``streaming_train``); a fresh trainer from ``load_model`` and a fresh
+    dataset from ``restore`` replay the last 10 (``streaming_resume``):
+    the batches bit for bit, and the losses, or the parameters whose
+    gradients differ between two identical steps are named; two
+    processes' shards disjoint and covering the epoch but their last
+    partial batches. Each window launches kernels 1 and 6 8 times a step
+    and 9 and 10 once.
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -591,6 +620,7 @@ class _LivePayloads:
     def __init__(self):
         self.counts = collections.defaultdict(collections.Counter)
         self.leaf_kinds = collections.Counter()
+        self.leaf_names = collections.defaultdict(set)
         self.failures = []
         self._lock = threading.Lock()
 
@@ -627,9 +657,10 @@ class _LivePayloads:
         return client
 
     @contextlib.contextmanager
-    def wire(self):
+    def wire(self, phase="wire"):
         """Inside the block, hold every report a ``ReportBuilder`` builds
-        and every leaf of every dftp-flat blob serialized."""
+        and every leaf of every dftp-flat blob serialized, counted under
+        ``phase``; ``leaf_names[phase]`` gathers the leaves' paths."""
         from unittest import mock
 
         from distriflow_tpu_torch.obs import collector
@@ -639,13 +670,15 @@ class _LivePayloads:
 
         def checked_build(rb, *args, **kw):
             report = build(rb, *args, **kw)
-            self.check("wire", "report", report)
+            self.check(phase, "report", report)
             return report
 
         def checked_flat(serialized):
             blob, meta = flat(serialized)
             for leaf in meta["leaves"]:
-                self.check("wire", "dftp_leaf", leaf)
+                self.check(phase, "dftp_leaf", leaf)
+                with self._lock:
+                    self.leaf_names[phase].add(leaf["name"])
                 kind = ("sparse" if leaf.get("encoding") == "sparse"
                         else "int8" if "scale" in leaf else "dense")
                 with self._lock:
@@ -660,7 +693,7 @@ class _LivePayloads:
         """The ``payloads:`` line; every payload name seen at least once."""
         want = {"serving": sorted({n for pair in self.SERVING.values() for n in pair}
                                   | {"serving_meta"}),
-                "wire": list(self.WIRE)}
+                "wire": list(self.WIRE), "keras": list(self.WIRE)}
         assert not self.failures, f"payloads that failed their schema: {self.failures}"
         missing = {phase: [n for n in names if not self.counts[phase][n]]
                    for phase, names in want.items()}
@@ -2006,16 +2039,16 @@ def _mobilenet_kernel_rows(launches, shapes):
     return rows
 
 
-def _markov_corpus(n_tokens: int, seed: int) -> np.ndarray:
+def _markov_corpus(n_tokens: int, seed: int, vocab: int = CORPUS_VOCAB) -> np.ndarray:
     """The JAX repo's ``experiments/lm/data.py::generate_corpus`` recipe at
     order 1: a seeded table of ``CORPUS_BRANCHING`` successors for each of
-    the ``CORPUS_VOCAB`` ids, walked by seeded choices; ``[n_tokens]``
-    int32."""
+    the ``vocab`` ids (the CLI's ``CORPUS_VOCAB`` by default), walked by
+    seeded choices; ``[n_tokens]`` int32."""
     rng = np.random.RandomState(seed)
-    table = rng.randint(0, CORPUS_VOCAB, size=(CORPUS_VOCAB, CORPUS_BRANCHING))
+    table = rng.randint(0, vocab, size=(vocab, CORPUS_BRANCHING))
     rng = np.random.RandomState(seed + 1)
     out = np.empty(n_tokens, np.int32)
-    ctx = rng.randint(0, CORPUS_VOCAB)
+    ctx = rng.randint(0, vocab)
     choices = rng.randint(0, CORPUS_BRANCHING, size=n_tokens)
     for i in range(n_tokens):
         ctx = out[i] = table[ctx, choices[i]]
@@ -2139,18 +2172,28 @@ def _convnet_phase(tree, counted, device="cuda", steps=CN_STEPS, batch=CN_B):
     ``sampling_iterator`` + ``prefetch_to_device``, then evaluated by
     ``evaluate_dataset`` on the validation split, each in its own launch
     window. Returns ``(report, trainer, a batch, launch counts by window)``."""
-    from distriflow_tpu_torch.data.prefetch import prefetch_to_device, sampling_iterator
     from distriflow_tpu_torch.models.convert import zoo_params_from_jax
-    from distriflow_tpu_torch.train.loop import evaluate_dataset, run_chunked
     from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    trainer = SyncTrainer(_convnet_spec(device), optimizer="sgd", learning_rate=CN_LR)
+    trainer.init(SEED)
+    trainer.set_params(zoo_params_from_jax(tree))
+    report, step_batch, train_counts, eval_counts = _run_convnet(trainer, counted, device, steps,
+                                                                 batch, "cifar_convnet")
+    return report, trainer, step_batch, {"convnet_train": train_counts, "convnet_eval": eval_counts}
+
+
+def _run_convnet(trainer, counted, device, steps, batch, model):
+    """``trainer`` (a ConvNet at BASELINE #2's recipe) trained ``steps``
+    steps on the synthetic CIFAR-10 batches and evaluated, each in its own
+    launch window: ``(report, a spare batch, train counts, eval counts)``."""
+    from distriflow_tpu_torch.data.prefetch import prefetch_to_device, sampling_iterator
+    from distriflow_tpu_torch.train.loop import evaluate_dataset, run_chunked
 
     t0 = time.perf_counter()
     train, val = _synthetic_cifar10(CN_TRAIN, CN_VAL, SEED)
     (x, y), (vx, vy) = _to_xy(train), _to_xy(val)
     data_s = time.perf_counter() - t0
-    trainer = SyncTrainer(_convnet_spec(device), optimizer="sgd", learning_rate=CN_LR)
-    trainer.init(SEED)
-    trainer.set_params(zoo_params_from_jax(tree))
     losses, step_ms = [], []
     trainer.callbacks.register("step", lambda t: step_ms.append(t.last_step_ms))
     stream = prefetch_to_device(sampling_iterator(x, y, batch, steps=steps, seed=SEED), device)
@@ -2161,11 +2204,11 @@ def _convnet_phase(tree, counted, device="cuda", steps=CN_STEPS, batch=CN_B):
     assert res.steps_run == steps and len(losses) == steps, res
     assert all(math.isfinite(v) for v in losses), losses
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    assert last < first, f"ConvNet loss did not fall: first 5 mean {first}, last 5 mean {last}"
+    assert last < first, f"{model} loss did not fall: first 5 mean {first}, last 5 mean {last}"
     assert math.isfinite(val_loss) and 0.0 <= val_acc <= 1.0, (val_loss, val_acc)
     p50 = float(np.median(step_ms))
     report = {
-        "config": {"model": "cifar_convnet", "batch": batch, "dtype": "bfloat16",
+        "config": {"model": model, "batch": batch, "dtype": "bfloat16",
                    "loss": trainer.spec.loss, "targets": "one-hot f32", "optimizer": "sgd",
                    "lr": CN_LR},
         "steps": steps, "train_images": CN_TRAIN, "val_images": CN_VAL, "data_s": data_s,
@@ -2174,7 +2217,7 @@ def _convnet_phase(tree, counted, device="cuda", steps=CN_STEPS, batch=CN_B):
         "first_loss": losses[0], "last_loss": losses[-1], "first5_mean": first,
         "last5_mean": last, "losses": losses, "val_loss": val_loss, "val_accuracy": val_acc}
     step_batch = next(sampling_iterator(x, y, batch, steps=1, seed=SEED + 1))
-    return report, trainer, step_batch, {"convnet_train": train_counts, "convnet_eval": eval_counts}
+    return report, step_batch, train_counts, eval_counts
 
 
 def _convnet_step_vs_plain(tree, batch, device="cuda"):
@@ -5631,6 +5674,384 @@ def _mesh_tp_entries():
     return out
 
 
+# The Keras import (keras:): BASELINE #2's ConvNet written as a
+# tfjs-layers Sequential model.json whose weights (_convnet_tree's, under
+# the Keras layer names) come from the port's export_keras_weights; trained
+# from its path at _convnet_phase's recipe (each step's loss within
+# KERAS_LOSS_TOL of the zoo ConvNet's from the same tree), loaded from a
+# loopback URL, trained over the wire by one worker on the URL's model and
+# one on the bare URL string (f32, plain CE), and exported back
+KERAS_LOSS_TOL = 1e-2
+KERAS_NAMES = {"Conv_0": "conv2d_1", "Conv_1": "conv2d_2", "Conv_2": "conv2d_3",
+               "Dense_0": "dense_1", "Dense_1": "dense_2"}
+# The streaming token dataset (streaming:): a token file of STREAM_TOKENS
+# tokens of the Markov corpus at the flagship's vocabulary (uint16),
+# streamed into the flagship LM at B STREAM_B x S STREAM_S, sgd
+# STREAM_LR (stateless, so a save_model checkpoint is the trainer's whole
+# state), STREAM_STEPS steps, a checkpoint, STREAM_STEPS more; then a
+# fresh trainer and dataset resumed from the checkpoint and the cursor
+STREAM_TOKENS, STREAM_B, STREAM_S, STREAM_STEPS, STREAM_LR = 1 << 20, 8, 1024, 10, 0.05
+
+
+def _keras_convnet_files(tree, root):
+    """Write ``cifar_convnet`` as a tfjs-layers Sequential topology (conv
+    3x3 same 64/128/256 each with ReLU and a 2x2 max pool, flatten, dense
+    256 ReLU, dense 10 softmax, on 32x32x3) and export ``tree``'s weights
+    next to it with ``export_keras_weights``; returns the model.json path
+    (under ``root/www``)."""
+    from distriflow_tpu_torch.models.keras_import import export_keras_weights
+
+    layers = []
+    for i, f in enumerate((64, 128, 256)):
+        cfg = {"name": f"conv2d_{i + 1}", "filters": f, "kernel_size": [3, 3],
+               "strides": [1, 1], "padding": "same", "activation": "relu", "use_bias": True}
+        if i == 0:
+            cfg["batch_input_shape"] = [None, 32, 32, 3]
+        layers += [{"class_name": "Conv2D", "config": cfg},
+                   {"class_name": "MaxPooling2D", "config": {
+                       "name": f"max_pooling2d_{i + 1}", "pool_size": [2, 2],
+                       "strides": [2, 2], "padding": "valid"}}]
+    layers += [{"class_name": "Flatten", "config": {"name": "flatten_1"}},
+               {"class_name": "Dense", "config": {"name": "dense_1", "units": 256,
+                                                  "activation": "relu"}},
+               {"class_name": "Dense", "config": {"name": "dense_2", "units": 10,
+                                                  "activation": "softmax"}}]
+    topology = os.path.join(root, "topology.json")
+    with open(topology, "w") as f:
+        json.dump({"modelTopology": {"model_config": {
+            "class_name": "Sequential", "config": {"name": "cifar_convnet", "layers": layers}}}},
+            f)
+    weights = {KERAS_NAMES[k]: v for k, v in tree["params"].items()}
+    return export_keras_weights(topology, weights, os.path.join(root, "www"))
+
+
+@contextlib.contextmanager
+def _http_root(root):
+    """A loopback ``http.server`` on port 0 serving ``root``; yields its
+    base URL."""
+    import functools
+    from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+
+    class Quiet(SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Quiet, directory=root))
+    thread = threading.Thread(target=server.serve_forever, name="keras-http", daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_port}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+
+
+def _keras_model(source, device, **kw):
+    """``fetch_model(source)`` in bf16 with the fused dense CE."""
+    from distriflow_tpu_torch.models.base import fetch_model
+
+    return fetch_model(source, dtype=torch.bfloat16, loss="fused_softmax_cross_entropy",
+                       device=device, **kw)
+
+
+def _keras_phase(tree, cn_report, counted, payloads, device="cuda"):
+    """The ``keras:`` phase: (a) train from the path, (b) load from a URL,
+    (c) the wire, (d) the export round trip. Returns ``(report, counts by
+    window)``."""
+    import tempfile
+
+    from distriflow_tpu_torch.models.base import SpecModel
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    report, counts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="keras-") as root:
+        t0 = time.perf_counter()
+        path = _keras_convnet_files(tree, root)
+        report["write_s"] = time.perf_counter() - t0
+        # (a) training from the path, at the zoo ConvNet's recipe
+        t0 = time.perf_counter()
+        model = _keras_model(path, device)
+        assert model.spec.name == "keras:model:logits", model.spec.name
+        trainer = SyncTrainer(model.spec, optimizer="sgd", learning_rate=CN_LR)
+        trainer.init(SEED)
+        train, batch, counts["keras_train"], counts["keras_eval"] = _run_convnet(
+            trainer, counted, device, CN_STEPS, CN_B, "keras:cifar_convnet")
+        diffs = [abs(a - b) for a, b in zip(train["losses"], cn_report["losses"])]
+        train.update(phase_s=time.perf_counter() - t0, spec_name=model.spec.name,
+                     zoo_losses=cn_report["losses"], worst_loss_diff_vs_zoo=max(diffs),
+                     bitwise_vs_zoo=train["losses"] == cn_report["losses"])
+        assert len(diffs) == CN_STEPS and max(diffs) <= KERAS_LOSS_TOL, \
+            f"Keras ConvNet losses {max(diffs)} from the zoo ConvNet's (limit {KERAS_LOSS_TOL})"
+        report["train"] = train
+        with _http_root(os.path.dirname(path)) as base:
+            # (b) the same file over a loopback URL
+            t0 = time.perf_counter()
+            url = f"{base}/model.json"
+            remote, local = _keras_model(url, device), _keras_model(path, device)
+            x = torch.as_tensor(batch[0][:256], device=device)
+            same_params = _same_bits(remote.get_params(), local.get_params())
+            same_logits = torch.equal(remote.predict(x), local.predict(x))
+            report["url"] = {"load_s": time.perf_counter() - t0, "params_bitwise": same_params,
+                             "logits_bitwise": same_logits}
+            assert same_params and same_logits, report["url"]
+            del local
+            # (c) the wire: a server from the path, a worker on the URL's
+            # model and a worker handed the bare URL string
+            with payloads.wire("keras"):
+                report["wire"], server_tree, counts["keras_wire"] = _keras_wire(
+                    path, url, remote.spec, counted, device)
+            del remote
+        # every blob's leaves: the weights' and gradients' (the Keras tree)
+        # and a batch's data ('x', 'y')
+        names = {f"['{layer}']['{w}']" for layer, ws in server_tree.items() for w in ws}
+        assert payloads.leaf_names["keras"] == names | {"x", "y"}, \
+            f"wire leaves {sorted(payloads.leaf_names['keras'])} are not the Keras tree's {sorted(names)}"
+        report["wire"]["leaf_names"] = sorted(names)
+        if device == "cuda":  # exact windows: one launch each a step, a batch, a bf16 fit
+            for k in ("fused_ce_dense_fwd", "fused_ce_dense_bwd"):
+                assert counts["keras_train"][k] == CN_STEPS, (k, counts["keras_train"])
+                assert counts["keras_wire"][k] == report["wire"]["kernel_fits"], \
+                    (k, counts["keras_wire"], report["wire"]["kernel_fits"])
+            assert counts["keras_eval"]["fused_ce_dense_fwd"] == -(-CN_VAL // CN_B), \
+                counts["keras_eval"]
+        # (d) export the trained model and load it back
+        t0 = time.perf_counter()
+        trained = trainer.get_params()
+        out = os.path.join(root, "export")
+        from distriflow_tpu_torch.models.keras_import import export_keras_weights
+
+        reloaded = _keras_model(export_keras_weights(path, trained, out), device)
+        before = SpecModel(model.spec, params=trained)
+        x = torch.as_tensor(batch[0], device=device)
+        report["export"] = {"s": time.perf_counter() - t0,
+                            "params_bitwise": _same_bits(reloaded.get_params(), trained),
+                            "logits_bitwise": torch.equal(reloaded.predict(x), before.predict(x))}
+        assert report["export"]["params_bitwise"] and report["export"]["logits_bitwise"], \
+            report["export"]
+    return report, counts
+
+
+def _keras_wire(path, url, url_spec, counted, device):
+    """Port ``AsynchronousSGDServer`` on the Keras ConvNet from ``path``
+    (bf16, fused dense CE, momentum at ``WIRE_LR``) over one epoch of
+    ``WIRE_TRAIN`` synthetic images in batches of ``WIRE_B``, with two port
+    workers: one on a model of ``url_spec`` (bf16, its fits launch the
+    dense CE kernels) and one handed the bare ``url`` (its own
+    ``fetch_model``: f32, the plain CE); the server's validation losses
+    before and after are taken outside the launch window. Returns
+    ``(report, the server's final wire tree, the window's counts)``."""
+    import tempfile
+
+    from distriflow_tpu_torch.client import AsynchronousSGDClient, DistributedClientConfig
+    from distriflow_tpu_torch.data.dataset import DistributedDataset
+    from distriflow_tpu_torch.models.base import params_to_wire
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+    from distriflow_tpu_torch.server import (AsynchronousSGDServer, DistributedServerConfig,
+                                             DistributedServerInMemoryModel)
+    from distriflow_tpu_torch.utils.config import CompileConfig
+
+    train, val = _synthetic_cifar10(WIRE_TRAIN, CN_VAL, SEED + 11)
+    (x, y), (vx, vy) = _to_xy(train), _to_xy(val)
+    tel, fits = Telemetry(), _Fits()
+    server_model = _keras_model(path, device, compile_config=CompileConfig(optimizer="momentum"),
+                                learning_rate=WIRE_LR)
+    init_val, spread = _val_spread(server_model, vx, vy)
+    dataset = DistributedDataset(x, y, {"batch_size": WIRE_B, "epochs": 1})
+    batches = dataset.num_batches
+
+    def train(save_dir):
+        server = AsynchronousSGDServer(
+            DistributedServerInMemoryModel(server_model), dataset,
+            DistributedServerConfig(
+                # delta_broadcast at its default (on): the bf16 server's
+                # leaves ship whole and the f32 worker must install them whole
+                server_hyperparams={"maximum_staleness": WIRE_STALENESS},
+                client_hyperparams={"batch_size": WIRE_B, "learning_rate": WIRE_LR},
+                save_dir=save_dir, telemetry=tel))
+        server.setup()
+        cfg = DistributedClientConfig(telemetry=tel, upload_timeout_s=120)
+        clients, done, errors = [], [0, 0], []
+
+        def work(i):
+            try:
+                clients[i].setup(timeout=60)
+                done[i] = clients[i].train_until_complete(timeout=WIRE_TIMEOUT_S)
+            except BaseException as e:  # noqa: BLE001 - relayed to the main thread
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=work, args=(i,), name=f"keras-worker-{i}")
+                   for i in range(2)]
+        try:
+            clients.append(AsynchronousSGDClient(server.address, fits.model(url_spec), cfg))
+            clients.append(AsynchronousSGDClient(server.address, url, cfg))
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(WIRE_TIMEOUT_S + 60)
+            assert not errors, errors
+            assert not any(t.is_alive() for t in threads), "a Keras wire worker did not finish"
+            _wait_for(lambda: server.applied_updates + server.rejected_updates
+                      + server.suppressed_uploads >= batches, "the Keras server's last apply")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for c in clients:
+                c.dispose()
+            server.stop()
+        return server, clients[1].model, done, wall
+
+    with tempfile.TemporaryDirectory(prefix="keras-wire-") as save_dir:
+        (server, plain_client, done, wall), counts = counted(lambda: train(save_dir))
+    final_val = server_model.evaluate(vx, vy)[0]
+    report = {"batches": batches, "batch": WIRE_B, "wall_s": wall, "fits_by_worker": done,
+              "applied": server.applied_updates, "rejected": server.rejected_updates,
+              "suppressed": server.suppressed_uploads, "duplicates": server.duplicate_uploads,
+              "broadcasts": {k: tel.counter_value(f"comm_broadcasts_{k}_total", role="server")
+                             for k in ("delta", "full")},
+              "kernel_fits": len(fits.losses), "url_worker_losses": fits.losses,
+              "bare_url_worker": {"dtype": str(plain_client.spec.dtype),
+                                  "loss": plain_client.spec.loss,
+                                  "spec_name": plain_client.spec.name},
+              "init_val_loss": init_val, "init_val_spread": spread, "final_val_loss": final_val}
+    # every upload handled exactly once, as in _async_leg: the dataset ran
+    # out, every batch was applied or rejected as stale, none suppressed or
+    # applied twice
+    assert dataset.exhausted, report
+    assert server.applied_updates + server.rejected_updates == batches \
+        and server.applied_updates > 0 and not server.suppressed_uploads \
+        and not server.duplicate_uploads, report
+    assert sum(done) == batches and all(done), report
+    assert report["broadcasts"]["delta"] > 0, report
+    assert plain_client.spec.dtype == torch.float32 and \
+        plain_client.spec.loss == "softmax_cross_entropy", report
+    assert init_val - final_val > spread, \
+        f"the Keras wire run did not lower the validation loss: {init_val} -> {final_val}, " \
+        f"spread {spread}"
+    return report, params_to_wire(server_model, server_model.get_params()), counts
+
+
+def _streaming_phase(tree, counted, device="cuda"):
+    """The ``streaming:`` phase. Returns ``(report, counts by window)``."""
+    import tempfile
+
+    from distriflow_tpu_torch.checkpoint import CheckpointStore, load_model, save_model
+    from distriflow_tpu_torch.data.streaming import StreamingTokenDataset, write_token_file
+    from distriflow_tpu_torch.models.base import SpecModel
+    from distriflow_tpu_torch.models.convert import params_from_jax
+    from distriflow_tpu_torch.models.transformer import transformer_lm
+    from distriflow_tpu_torch.models.zoo import flagship_lm_config
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    cfg = flagship_lm_config(max_seq=STREAM_S)
+    report = {"config": {"model": "flagship LM", "batch": STREAM_B, "seq": STREAM_S,
+                         "optimizer": "sgd", "lr": STREAM_LR, "loss": "fused sparse CE",
+                         "steps": [STREAM_STEPS, STREAM_STEPS, STREAM_STEPS]}}
+
+    def trainer_from(params):
+        t = SyncTrainer(transformer_lm(cfg, device=device), optimizer="sgd",
+                        learning_rate=STREAM_LR)
+        t.init()
+        t.set_params(params)
+        return t
+
+    step_ms = []
+
+    def run(trainer, ds, n):
+        batches, losses = [], []
+        for x, y in ds.take(n):
+            batches.append((x, y))
+            losses.append(trainer.step((x, y)))
+            step_ms.append(trainer.last_step_ms)
+        return batches, losses
+
+    with tempfile.TemporaryDirectory(prefix="streaming-") as root:
+        t0 = time.perf_counter()
+        corpus = _markov_corpus(STREAM_TOKENS, SEED + 40, vocab=cfg.vocab_size)
+        path = write_token_file(os.path.join(root, "corpus"), corpus)
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        ds = StreamingTokenDataset(path, seq_len=STREAM_S, batch_size=STREAM_B, seed=SEED + 41)
+        report["data"] = {"tokens": meta["count"], "dtype": meta["dtype"],
+                          "windows": ds.n_windows, "batches_per_epoch": ds.batches_per_epoch,
+                          "max_token_id": ds.max_token_id(), "write_s": time.perf_counter() - t0,
+                          "process": [ds.process_index, ds.process_count]}
+        assert meta["dtype"] == "uint16" and meta["count"] >= 1_000_000, meta
+        assert ds.max_token_id() < cfg.vocab_size
+        trainer = trainer_from(params_from_jax(tree, cfg, masters=True))
+        # the first STREAM_STEPS steps, the checkpoint and the cursor, then
+        # STREAM_STEPS more: the run the resume must replay
+        def train_and_checkpoint():
+            first = run(trainer, ds, STREAM_STEPS)[1]
+            save_model(CheckpointStore(os.path.join(root, "ckpt")),
+                       SpecModel(trainer.spec, params=trainer.get_params()), version="1")
+            cursor = ds.state()
+            return (first, cursor) + run(trainer, ds, STREAM_STEPS)
+
+        t0 = time.perf_counter()
+        (first, state, after, want), counts_train = counted(train_and_checkpoint)
+        train_s = time.perf_counter() - t0
+        # a fresh trainer from load_model and a fresh dataset from the cursor
+        t0 = time.perf_counter()
+        loaded = load_model(os.path.join(root, "ckpt"), spec=transformer_lm(cfg, device=device))
+        resumed = trainer_from(loaded.get_params())
+        del loaded
+        ds2 = StreamingTokenDataset(path, seq_len=STREAM_S, batch_size=STREAM_B, seed=SEED + 41)
+        ds2.restore(state)
+        (again, got), counts_resume = counted(lambda: run(resumed, ds2, STREAM_STEPS))
+        resume_s = time.perf_counter() - t0
+        same_batches = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                           for a, b in zip(after, again))
+        diffs = [abs(a - b) for a, b in zip(want, got)]
+        p50 = float(np.median(step_ms))
+        report.update(train_s=train_s, resume_s=resume_s, step_ms_p50=p50,
+                      step_ms_max=max(step_ms), tokens_per_s=STREAM_B * STREAM_S / (p50 / 1e3),
+                      losses=first + want,
+                      resumed_losses=got, cursor=state, batches_bitwise=same_batches,
+                      losses_bitwise=got == want, worst_loss_diff=max(diffs))
+        assert all(math.isfinite(v) for v in first + want + got), report
+        assert len(again) == STREAM_STEPS and same_batches, "the resumed batches differ"
+        if got != want:
+            # name the parameters whose gradients differ between two
+            # identical steps: the op that produced them is at fault
+            report["nondeterministic_grads"] = _grad_bits_differ(resumed, after[0])
+        # two processes' shards: disjoint, and together the whole epoch
+        # less at most each one's last partial batch
+        shards = [set(StreamingTokenDataset(path, seq_len=STREAM_S, batch_size=STREAM_B,
+                                            seed=SEED + 41, process_index=i,
+                                            process_count=2)._epoch_order(0).tolist())
+                  for i in range(2)]
+        union = len(shards[0] | shards[1])
+        report["sharding"] = {"process_count": 2, "windows": [len(s) for s in shards],
+                              "disjoint": not shards[0] & shards[1], "covered": union,
+                              "epoch_windows": ds.n_windows}
+        assert report["sharding"]["disjoint"] and ds.n_windows - union < 2 * STREAM_B, \
+            report["sharding"]
+    counts = {"streaming_train": counts_train, "streaming_resume": counts_resume}
+    per_step = {"flash_attention_fwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    for window, steps in (("streaming_train", 2 * STREAM_STEPS),
+                          ("streaming_resume", STREAM_STEPS)):
+        for k, n in per_step.items() if device == "cuda" else ():
+            assert counts[window][k] == n * steps, \
+                f"{window} launched {k} {counts[window][k]} times, want {n} a step x {steps}"
+    return report, counts
+
+
+def _grad_bits_differ(trainer, batch):
+    """The parameters whose gradients differ bit for bit between two
+    gradient computations from the same parameters and batch."""
+    from distriflow_tpu_torch.models.base import to_device
+
+    model = trainer.model
+    x, y = to_device(batch, next(model.parameters()).device)
+    grad = trainer.spec.grad_fn()
+    one, two = grad(model, x, y)[1], grad(model, x, y)[1]
+    return sorted(n for n in one if not torch.equal(one[n], two[n]))
+
+
 def main() -> int:
     import argparse
 
@@ -5734,7 +6155,18 @@ def main() -> int:
         wire_report["phase_s"] = time.perf_counter() - t0
         wire_report["topk_probe_leaves"] = _topk_probe(cn_tree)
     print("wire_training:", json.dumps(wire_report), flush=True)
+    # the Keras import: the same ConvNet as a model.json, trained from its
+    # path, loaded from a loopback URL, trained over the wire, exported
+    t0 = time.perf_counter()
+    keras_report, keras_counts = _keras_phase(cn_tree, cn_report, counted, payloads)
+    keras_report["phase_s"] = time.perf_counter() - t0
+    print("keras:", json.dumps(keras_report), flush=True)
     print("payloads:", json.dumps(payloads.report()), flush=True)
+    # the streaming token dataset under the flagship LM, and its resume
+    t0 = time.perf_counter()
+    stream_report, stream_counts = _streaming_phase(tree, counted)
+    stream_report["phase_s"] = time.perf_counter() - t0
+    print("streaming:", json.dumps(stream_report), flush=True)
     # the in-process trainers on the same ConvNet, then the cost of the
     # ConvNet's and the 16k LM's sync steps at their measured p50
     t0 = time.perf_counter()
@@ -5745,7 +6177,7 @@ def main() -> int:
     print("inprocess_training:", json.dumps(ip_report), flush=True)
     paths = {"serving": serving, "solo_generate": solo, **long_counts, **spec_counts,
              **fleet_counts, "doctor": doctor_counts, **moe_counts, "training": training, **mn_counts, "long_training": long_training, **cn_counts,
-             **wire_counts, **ip_counts, **mesh_counts}
+             **wire_counts, **ip_counts, **mesh_counts, **keras_counts, **stream_counts}
     print("launches:", json.dumps(paths), flush=True)
     # each path launches exactly the kernels named here, and no other
     ran = {"serving": ("flash_attention_fwd", "flash_decode_paged"),
@@ -5778,7 +6210,10 @@ def main() -> int:
            "convnet_eval": ("fused_ce_dense_fwd",),
            **{w: ("fused_ce_dense_fwd", "fused_ce_dense_bwd")
               for w in (*wire_counts, *ip_counts)},
-           **{w: tuple(want) for w, want in mesh_report["windows_expected"].items()}}
+           **{w: tuple(want) for w, want in mesh_report["windows_expected"].items()},
+           **{w: ("fused_ce_dense_fwd", "fused_ce_dense_bwd") for w in ("keras_train", "keras_wire")},
+           "keras_eval": ("fused_ce_dense_fwd",),
+           **{w: ("flash_attention_fwd",) + training_only for w in stream_counts}}
     for path, counts in paths.items():
         for k, n in counts.items():
             if k in ran[path]:

@@ -78,7 +78,7 @@ from distriflow_tpu_torch.utils.logging import CallbackRegistry, VerboseLogger
 from distriflow_tpu_torch.utils.messages import DownloadMsg, Events, UploadMsg
 from distriflow_tpu_torch.utils.serialization import (
     _f32,
-    _is_float,
+    _kind,
     _leaves_with_path,
     cast_tree,
     deserialize_array,
@@ -87,7 +87,7 @@ from distriflow_tpu_torch.utils.serialization import (
     sanitize_finite,
     serialize_tree,
     topk_array,
-    tree_map2,
+    tree_map_with_path,
     tree_wire_nbytes,
 )
 
@@ -570,7 +570,15 @@ class AbstractClient:
         against the params of version ``delta_base``. It only installs when
         our installed version matches that base; returns False otherwise so
         the caller can request a full resync instead of applying a delta to
-        the wrong foundation."""
+        the wrong foundation.
+
+        Which leaves are deltas is read from each leaf's dtype on the wire,
+        not from the local model's: the server ships ``new - base`` only for
+        its own float leaves (numpy kind ``"f"``, so f32 or, under
+        ``weight_compression="float16"``, f16), and every other leaf whole.
+        A bfloat16 server (or ``weight_compression="bfloat16"``) thus
+        replaces an f32 worker's weights instead of adding to them. The JAX
+        client decides from its own param dtype and adds them."""
         m = msg.model
         if m.delta_base is not None and m.delta_base != self._installed_version:
             return False
@@ -578,12 +586,13 @@ class AbstractClient:
             # the host copy of the installed params, in the wire layout
             template = params_to_wire(self.model, self.model.get_params())
             if m.delta_base is not None:
-                delta = deserialize_tree(m.vars, template)
+                delta = dict(_leaves_with_path(deserialize_tree(m.vars, template)))
 
-                def apply_delta(t, d):
-                    return t + d if _is_float(t) else d
+                def apply_delta(path, t):
+                    d = delta[path]
+                    return t + d if _kind(m.vars[path].dtype) == "f" else d
 
-                new = tree_map2(apply_delta, template, delta)
+                new = tree_map_with_path(apply_delta, template)
             else:
                 new = deserialize_tree(m.vars, template)
             self.model.set_params(params_from_wire(self.model, new))

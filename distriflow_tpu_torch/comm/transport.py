@@ -557,7 +557,9 @@ class ServerTransport:
                 # handler that blocks waiting for a peer ack would otherwise
                 # deadlock the connection (the ack frame would sit unread)
                 self._loop.create_task(dispatch(msg))
-        except (asyncio.IncompleteReadError, ConnectionResetError, asyncio.CancelledError):
+        except (asyncio.IncompleteReadError, ConnectionError, asyncio.CancelledError):
+            # ConnectionError, not only its reset: a client dropped while the
+            # loop writes to it (the heartbeat echo) fails with BrokenPipeError
             pass
         except FrameCorruptionError as e:
             # a desynced stream cannot be resynchronized: reset the
@@ -752,8 +754,9 @@ class ClientTransport:
                     if msg.get("event") == _HB_EVENT:
                         continue  # server's heartbeat echo; timestamp is enough
                     loop.create_task(dispatch(msg))
-            except (asyncio.IncompleteReadError, ConnectionResetError):
-                # server went away (EOF/reset) without us calling close()
+            except (asyncio.IncompleteReadError, ConnectionError):
+                # server went away (EOF, reset or broken pipe) without us
+                # calling close()
                 if not self._stopped and self.on_server_lost is not None:
                     print("[transport] server connection lost", file=sys.stderr, flush=True)
                     await loop.run_in_executor(None, self.on_server_lost)

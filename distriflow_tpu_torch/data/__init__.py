@@ -1,6 +1,6 @@
 """Port of ``distriflow_tpu/data``: batch dispatch with ack/requeue, the
-host batch stream and device prefetch of the training loops (the
-streaming token dataset waits for its slice)."""
+host batch stream and device prefetch of the training loops, and the
+streaming token dataset."""
 
 from distriflow_tpu_torch.data.dataset import (
     Batch,
@@ -13,6 +13,7 @@ from distriflow_tpu_torch.data.prefetch import (
     sampling_iterator,
     to_uint8_wire,
 )
+from distriflow_tpu_torch.data.streaming import StreamingTokenDataset, write_token_file
 
 __all__ = [
     "Batch",
@@ -22,4 +23,6 @@ __all__ = [
     "prefetch_to_device",
     "sampling_iterator",
     "to_uint8_wire",
+    "StreamingTokenDataset",
+    "write_token_file",
 ]

@@ -351,7 +351,8 @@ class ModelSpec:
             params = named_params(model)
             live = [n for n, p in params.items() if p.requires_grad]
             loss = self.loss_fn(model, x, y, weight)
-            gs = torch.autograd.grad(loss, [params[n] for n in live], allow_unused=True)
+            gs = (torch.autograd.grad(loss, [params[n] for n in live], allow_unused=True)
+                  if live else ())  # a model without parameters: no gradients
             grads = {n: torch.zeros_like(p) for n, p in params.items()}
             grads.update({n: g for n, g in zip(live, gs) if g is not None})
             return loss.detach(), grads
@@ -542,12 +543,18 @@ ModelSource = Union[ModelSpec, DistributedModel, Callable[[], ModelSpec], str]
 
 
 def fetch_model(source: ModelSource, **kw: Any) -> DistributedModel:
-    """Resolve a model source to a DistributedModel: an existing
-    DistributedModel as it is, a ModelSpec or a zero-argument factory
-    returning one wrapped in :class:`SpecModel` (``kw`` go to it). The
-    JAX package's path and URL sources (Keras ``model.json``/``.h5``,
-    checkpoint directories) wait for the Keras-import slice and raise
-    ``NotImplementedError``."""
+    """Resolve a model source to a DistributedModel (the reference's
+    ``fetchModel``, which takes a string URL, a model instance or an async
+    factory): an existing DistributedModel as it is; a ModelSpec or a
+    zero-argument factory returning one wrapped in :class:`SpecModel`; a
+    string as JAX's ``fetch_model`` resolves it: an ``http(s)://`` URL
+    through :func:`~distriflow_tpu_torch.models.keras_import.spec_from_url`,
+    a ``.json`` path through ``spec_from_keras_json``, a ``.h5``/``.hdf5``
+    path through ``spec_from_keras_h5``, anything else as a checkpoint
+    directory through :func:`distriflow_tpu_torch.checkpoint.load_model`.
+    ``input_shape``, ``loss``, ``logits_output``, ``load_weights``,
+    ``dtype`` and ``device`` go to the Keras parser, the rest of ``kw`` to
+    the SpecModel."""
     if isinstance(source, DistributedModel):
         return source
     if isinstance(source, ModelSpec):
@@ -558,7 +565,19 @@ def fetch_model(source: ModelSource, **kw: Any) -> DistributedModel:
             raise TypeError(f"model factory must return a ModelSpec, got {type(spec)}")
         return SpecModel(spec, **kw)
     if isinstance(source, str):
-        raise NotImplementedError(
-            f"fetch_model({source!r}): path and URL sources (Keras import, checkpoint "
-            "directories) are not ported yet; they come with the Keras-import slice")
+        from distriflow_tpu_torch.models import keras_import
+
+        if source.startswith(("http://", "https://")):
+            parse = keras_import.spec_from_url
+        elif source.endswith(".json"):
+            parse = keras_import.spec_from_keras_json
+        elif source.endswith((".h5", ".hdf5")):
+            parse = keras_import.spec_from_keras_h5
+        else:
+            from distriflow_tpu_torch.checkpoint import load_model  # lazy: layer dependency
+
+            return load_model(source, **kw)
+        spec_kw = {k: kw.pop(k) for k in ("input_shape", "loss", "logits_output",
+                                          "load_weights", "dtype", "device") if k in kw}
+        return SpecModel(parse(source, **spec_kw), **kw)
     raise TypeError(f"cannot resolve model source of type {type(source)}")

@@ -17,7 +17,8 @@ tree, and :func:`zoo_params_from_jax` for the zoo's MLP and ConvNet (f32
 masters only; the models cast them on every call).
 :func:`zoo_params_to_jax` is the exact inverse of both: the wire layout
 of those specs (:func:`with_flax_wire`), since the wire keys every leaf
-by its path in flax's tree. :func:`random_lm_tree` draws a flax-shaped
+by its path in flax's tree. :func:`keras_params_from_jax` carries JAX's
+Keras params over. :func:`random_lm_tree` draws a flax-shaped
 LM tree from a numpy generator (seeded random weights to carry over).
 """
 
@@ -263,6 +264,19 @@ def zoo_params_to_jax(params: Mapping[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[path[-1]] = a
     return {"params": out}
+
+
+def keras_params_from_jax(tree: Mapping[str, Mapping[str, Any]]) -> Dict[str, torch.Tensor]:
+    """JAX's Keras params (``{layer: {weight: array}}``, numpy or JAX
+    arrays, any float dtype) -> the ``state_dict`` of the port's
+    :class:`~distriflow_tpu_torch.models.keras_import.KerasModel` (CPU f32
+    tensors by the port's names, ``<layer>.<weight>``; bf16 leaves widen
+    exactly), for ``load_state_dict``, ``SpecModel(params=...)`` or a
+    trainer's ``set_params``."""
+    from distriflow_tpu_torch.models.keras_import import keras_tree_to_params
+
+    return {n: torch.from_numpy(np.array(v, dtype=np.float32))
+            for n, v in keras_tree_to_params(tree).items()}
 
 
 def with_flax_wire(spec: ModelSpec) -> ModelSpec:

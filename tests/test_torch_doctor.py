@@ -15,6 +15,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -112,3 +113,45 @@ def test_solo_near_tie_rule(monkeypatch):
         changed = want.copy()
         changed[0, 0] = (changed[0, 0] + 1) % 64
         solo.check(changed, prompt, 4)
+
+
+def _one_drill(monkeypatch, capsys, name):
+    """Run the drill whose name contains ``name`` alone, in this process,
+    on the CPU; returns its ``ok``/``FAIL`` line."""
+    from distriflow_tpu_torch import doctor
+
+    run = doctor._run_check
+    monkeypatch.setattr(doctor, "_run_check", lambda check, fn, mandatory=True, report=None: (
+        run(check, fn, mandatory, report) if name in check else True))
+    doctor._run_checks("cpu", None)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if name in ln]
+    assert len(lines) == 1, lines
+    return lines[0]
+
+
+def test_kill_and_resume_kills_at_the_kill_point(monkeypatch, capsys):
+    """The kill is an event: the apply that reaches the seeded kill point
+    holds server1's apply thread until stop() begins, so server1 cannot
+    run on to the end of the dataset (and broadcast its completion) before
+    the kill; the drill reports exactly that many applies."""
+    line = _one_drill(monkeypatch, capsys, "kill-and-resume")
+    assert line.startswith("  ok   ") and "killed after 5 applies" in line, line
+
+
+def test_elastic_drill_verdict_survives_a_stalled_winner(monkeypatch, capsys):
+    """The hedged winner's prefill stalls well past the clean ceiling
+    (clean p99 + 200 ms): the straggler verdict, which counts events (A
+    admitted nothing, the tier-0 band gained exactly the winner's TTFT),
+    still holds."""
+    from distriflow_tpu_torch.server.inference_server import InferenceServer
+
+    admit = InferenceServer._admit_group
+
+    def stalled(self, plen, shared_len, members):
+        if any(getattr(req, "request_id", None) == "hedge-1" for req, _ in members):
+            time.sleep(0.6)
+        return admit(self, plen, shared_len, members)
+
+    monkeypatch.setattr(InferenceServer, "_admit_group", stalled)
+    line = _one_drill(monkeypatch, capsys, "elastic fleet")
+    assert line.startswith("  ok   "), line

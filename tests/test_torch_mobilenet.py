@@ -268,7 +268,7 @@ def test_sampling_stream_and_wire_equal_jax():
         prefetch_to_device(iter([]), "cpu", size=0)
 
 
-def test_uint8_spec_rejects_float_and_fetch_model_sources():
+def test_uint8_spec_rejects_float_and_fetch_model_sources(tmp_path):
     spec = with_uint8_inputs(mobilenet_v2(**SIZE, device="cpu"))
     model = spec.init(0)
     with pytest.raises(TypeError):
@@ -281,8 +281,12 @@ def test_uint8_spec_rejects_float_and_fetch_model_sources():
     assert fetch_model(dm) is dm and dm.predict(np.zeros((3, 4), np.float32)).shape == (3, 2)
     with pytest.raises(TypeError):
         fetch_model(lambda: 3)
-    with pytest.raises(NotImplementedError):
-        fetch_model("model.json")
+    # string sources resolve as JAX's do: a missing model.json, and a
+    # directory with no checkpoint, raise FileNotFoundError
+    with pytest.raises(FileNotFoundError):
+        fetch_model(str(tmp_path / "model.json"), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        fetch_model(str(tmp_path / "checkpoints"), device="cpu")
     for bad in (dict(norm="layer"), dict(depthwise_impl="dw"), dict(gn_impl="x"),
                 dict(depthwise_impl="fused", norm="batch")):
         with pytest.raises(ValueError):

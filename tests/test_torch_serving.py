@@ -242,6 +242,13 @@ def test_port_imports_no_jax():
         "from distriflow_tpu_torch.analysis.resource_check import check_resource\n"
         "from distriflow_tpu_torch.analysis.wire_check import check_wire\n"
         "from distriflow_tpu_torch.comm.schema import MESSAGES, PAYLOADS, check_payload\n"
+        # the model and data sources, under JAX's names
+        "from distriflow_tpu_torch import (DistributedDynamicModel, StreamingTokenDataset,\n"
+        "    export_keras_weights, fetch_model, spec_from_keras_h5, spec_from_keras_json,\n"
+        "    spec_from_url, write_token_file)\n"
+        "from distriflow_tpu_torch.models import DistributedDynamicModel, spec_from_keras_json\n"
+        "from distriflow_tpu_torch.data import StreamingTokenDataset, write_token_file\n"
+        "from distriflow_tpu_torch.models.convert import keras_params_from_jax\n"
         "run_checks([__import__('pathlib').Path(p.__path__[0]) / 'comm'])\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distriflow_tpu', 'experiments'))\n"
