@@ -363,6 +363,24 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     processes' shards disjoint and covering the epoch but their last
     partial batches. Each window launches kernels 1 and 6 8 times a step
     and 9 and 10 once.
+27. Speculative serving over a TP mesh and the mesh's cost (in the
+    ``mesh:`` line): the same world serves step 18's target on ``{data
+    2, model 2}`` (2 local heads a rank) from its seeded tree, with step
+    18's distilled ``lm_draft`` (whole on every rank) at k 4 on the 1k
+    prompt (``tp_spec``: a greedy B 1 request of 96 tokens, ms/token,
+    acceptance, two sampled requests of one seed and one of another), a
+    plain TP server on the same request (``tp_plain``) and the self-draft
+    (``tp_spec_self``, acceptance at least ``SPEC_SELF_ACCEPT``); the
+    speculative outputs held to the plain server's under the near-tie
+    rule, the caches' head widths, the pools reconciled, every window
+    exact on every rank (kernel 1 at D 64 and D 32 once a layer a fresh
+    prefill, kernel 2 at D 32 rounds x (k + 1) x 2, never at D 64 with
+    ``lm_draft``), and a planted fault (one follower's drafts altered
+    before the verify) that must stop every rank with rank 0 naming it.
+    Each ``dp4`` and ``dp2_tp2`` rank reports ``cost_analysis`` (its own
+    shard's micro-batch) and ``mfu`` at its step p50 (4 ranks sharing
+    one card over gloo, over one card's peak: not a multi-card figure),
+    its kernel tally equal to the analytic cost of its launches.
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -3498,7 +3516,7 @@ def _spec_self_leg(model, reqs, solos, counted):
 def _spec_phase(model, reqs, solos, counted, device="cuda"):
     """Speculative decoding at ``bench.py::bench_serving_speculative``'s
     recipe (see the module docstring, step 18). Returns ``(report,
-    windows)``."""
+    windows, the distilled draft)``."""
     from distriflow_tpu_torch.models.convert import lm_from_jax
     from distriflow_tpu_torch.models.generate import generate
     from distriflow_tpu_torch.models.transformer import TransformerLM
@@ -3556,7 +3574,7 @@ def _spec_phase(model, reqs, solos, counted, device="cuda"):
         "pool_reconciled": True,
     }
     _check_spec_windows(report, windows, spec, dcfg)
-    return report, windows
+    return report, windows, draft
 
 
 def _check_spec_windows(report, windows, spec, dcfg):
@@ -4606,6 +4624,8 @@ MESH_LEGS = {"dp4": ({"data": 4}, "REPLICATED_RULES", 2),
 # each rank as the one-device trainer runs worker by worker, and sums the
 # workers in the same order: it is held bit for bit.
 MESH_TOL = {"loss_abs": 1e-3, "update_rel": 0.1}
+# the legs whose ranks report ``cost_analysis`` and ``mfu`` (per device)
+MESH_COST_LEGS = ("dp4", "dp2_tp2")
 MESH_COLLECTIVES = ("psum", "all_gather", "reduce_scatter", "ppermute", "all_to_all")
 
 
@@ -4779,6 +4799,12 @@ def _mesh_leg(leg, rank, out_dir, device="cuda"):
         (losses, ms), counts = _counted(run)
         for h in hooks:
             h.remove()
+        if leg in MESH_COST_LEGS:  # outside the window: it launches the kernels
+            cost = trainer.cost_analysis(batches[0])
+            p50 = float(np.median(ms))
+            out["cost"] = {**_cost_fields(cost), "kernel_by_category": cost["kernel_by_category"],
+                           "kernel_tally_added": cost["kernel_tally_added"], "step_ms_p50": p50,
+                           "mfu": trainer.mfu(batches[0], p50 / 1e3)}
         st = trainer.state
         out["opt_bytes"] = {n: sum(st.opt_state[k][n].numel() * st.opt_state[k][n].element_size()
                                    for k in ("mu", "nu")) for n in st.params}
@@ -4809,6 +4835,7 @@ def _mesh_rank(rank, port, out_dir, device="cuda"):
         res.update({leg: _pipe_leg(leg, rank, out_dir, device) for leg in PIPE_LEGS})
         res["ckpt"] = _ckpt_leg(rank, out_dir, device)
         res["tp"] = _tp_serve_leg(rank, out_dir, device)
+        res["tp_spec"] = _tp_spec_leg(rank, out_dir, device)
         mesh = create_mesh({"data": MESH_WORLD}, device)
         res["latency_us"] = {c: collective_latency_us(mesh, 4 * 1024 * 1024, "data", iters=5,
                                                       collective=c) for c in MESH_COLLECTIVES}
@@ -4962,11 +4989,13 @@ def _mesh_vs_reference(leg, ranks, ref, params, start, planted=None):
     return report
 
 
-def _mesh_phase(serve_ref, device="cuda"):
+def _mesh_phase(serve_ref, spec_draft, device="cuda"):
     """The ``mesh:`` phase (see MESH_LEGS and PIPE_LEGS): spawn the world,
     run the references alongside, check every leg. ``serve_ref``: the 2k
     phase's ``(one-rank model, tree, requests, solo outputs)``, which the
-    TP legs are held to. Returns ``(report, {window: rank 0's counts})``."""
+    TP legs are held to; ``spec_draft``: the speculative phase's distilled
+    draft, which the ``tp_spec`` leg serves with. Returns ``(report,
+    {window: rank 0's counts})``."""
     import shutil
 
     import tempfile
@@ -4978,6 +5007,8 @@ def _mesh_phase(serve_ref, device="cuda"):
     t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
     out_dir = tempfile.mkdtemp(prefix="mesh-")
+    torch.save({n: t.detach().cpu() for n, t in spec_draft.state_dict().items()},
+               os.path.join(out_dir, "spec_draft.pt"))
     port = _free_port()
     procs = [ctx.Process(target=_mesh_rank, args=(r, port, out_dir, device))
              for r in range(MESH_WORLD)]
@@ -5050,6 +5081,8 @@ def _mesh_phase(serve_ref, device="cuda"):
             assert (sliced > 0) == (zero > 0), (leg, sliced)
             rec["opt_state_bytes_rank0"] = sum(ranks[0][leg]["opt_bytes"].values())
             rec["opt_state_bytes_replicated"] = 2 * sum(ranks[0][leg]["param_bytes"].values())
+        if leg in MESH_COST_LEGS:
+            rec["cost_by_rank"] = _mesh_cost_check(leg, cfg, ranks)
         report["legs"][leg] = rec
         windows[f"mesh_{leg}"] = ranks[0][leg]["counts"]
     for leg in PIPE_LEGS:
@@ -5075,6 +5108,10 @@ def _mesh_phase(serve_ref, device="cuda"):
                                        "prefix_hits", "ttft_ms_p50", "tpot_ms_p50")}
                   for k, v in stats.items()},
         "vs_one_rank": _tp_check(serve_ref, tp)}
+    spec_rec, spec_windows, spec_expected = _tp_spec_check(ranks, device)
+    report["legs"]["tp_spec"] = spec_rec
+    windows.update(spec_windows)
+    expected.update(spec_expected)
     report["windows_expected"] = expected
     report["phase_s"] = time.perf_counter() - t0
     report["world_s"] = world_s
@@ -5543,6 +5580,274 @@ def _tp_check(serve_ref, tp):
     assert not torch.equal(planted, want), "the TP check would pass a rank skipping the o_proj psum"
     del int8
     return report
+
+
+def _mesh_cost_check(leg, cfg, ranks):
+    """Each rank's ``cost_analysis`` of a ``MESH_COST_LEGS`` leg and its
+    ``mfu`` at the rank's step p50: the kernel tally added once on the
+    card, and equal to the analytic cost of this rank's launches: per
+    layer one flash forward and one backward of its layout over its local
+    rows and heads, and, where the mesh keeps it (``data`` meshes), the
+    fused sparse CE over its local rows. The MFU is 4 ranks sharing one
+    card over host-staged gloo, each rank's per-device FLOPs over its own
+    step time and one card's peak: not a multi-card figure."""
+    from distriflow_tpu_torch.ops.flash_attention import bwd_layout
+
+    shape = MESH_LEGS[leg][0]
+    b = MESH_B // shape.get("data", 1)
+    h = cfg.n_heads // shape.get("model", 1)
+    unit = 2 * b * h * MESH_S * MESH_S * cfg.head_dim // 2  # one causal matmul
+    bwd_hw = 5 if bwd_layout(MESH_S, cfg.head_dim, cfg.dtype) == "fused" else 7
+    ce = 8 * b * MESH_S * cfg.vocab_size if "fused_ce_fwd" in _mesh_windows(leg, cfg) else 0
+    want = (cfg.n_layers * 6 * unit + ce, cfg.n_layers * (2 + bwd_hw) * unit + ce)
+    out = []
+    for r, res in enumerate(ranks):
+        cost = res[leg]["cost"]
+        rec = {**cost, "expected_kernel_flops": want[0], "expected_kernel_hw_flops": want[1],
+               "note": "4 ranks sharing one H100 over gloo: per-device FLOPs over one card's "
+                       "peak, not a multi-card figure"}
+        assert cost["kernel_tally_added"] and cost["flops"] == \
+            cost["aten_flops"] + cost["kernel_flops"], (leg, r, rec)
+        assert (cost["kernel_flops"], cost["kernel_hw_flops"]) == want, (leg, r, rec)
+        assert math.isfinite(cost["mfu"]) and cost["mfu"] > 0, (leg, r, rec)
+        out.append(rec)
+    return out
+
+
+# the tp_spec leg's planted fault: the rank whose drafts are altered, and
+# the tokens of its request
+TP_SPEC_PLANTED_RANK, TP_SPEC_PLANTED_TOKENS = 2, 16
+
+
+def _tp_spec_leg(rank, out_dir, device="cuda"):
+    """Speculative serving over TP_SERVE_MESH (TRANSFORMER_TP_RULES: 2 of
+    SPEC_TARGET's 4 heads a rank), from the speculative phase's seeded
+    tree and prompt (the 1k context), on the paged server of
+    ``_spec_serve`` (SPEC_SLOTS slots, page SPEC_PS, no prefix sharing).
+    Rank 0 serves, the others follow; each server's whole life is a
+    launch window on every rank:
+
+    - ``tp_spec``: the distilled ``lm_draft`` (whole on every rank, D 32),
+      k SPEC_K: a 3-token priming request, a 1-token one, the greedy B 1
+      request of SPEC_NEW tokens (ms/token their difference over
+      SPEC_NEW - 1 tokens), then SPEC_SAMPLED twice and with another
+      seed;
+    - ``tp_plain``: the greedy request on a plain TP server;
+    - ``tp_spec_self``: ``draft_model="self"`` (the TP target on its local
+      heads), the greedy request;
+    - then, in no window, the planted fault: rank TP_SPEC_PLANTED_RANK
+      alters its drafts before the verify."""
+    from distriflow_tpu_torch.client.inference_client import InferenceClient
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.generate import pages_per_slot
+    from distriflow_tpu_torch.models.transformer import TransformerLM
+    from distriflow_tpu_torch.models.zoo import draft_config_for
+    from distriflow_tpu_torch.obs.telemetry import Telemetry
+    from distriflow_tpu_torch.parallel import create_mesh
+    from distriflow_tpu_torch.server.inference_server import InferenceServer
+    from distriflow_tpu_torch.utils.config import ServingConfig
+
+    cfg = _spec_config()
+    rng = np.random.default_rng(SEED + 12)  # the speculative phase's tree and prompts
+    tree = _flagship_tree(cfg, rng)
+    prompt = {c: rng.integers(0, cfg.vocab_size, (1, c - SPEC_NEW)).astype(np.int32)
+              for c in SPEC_CONTEXTS}[SPEC_CONTEXTS[0]]
+    mesh = create_mesh(TP_SERVE_MESH, device)
+    model = lm_from_jax(cfg, tree, device=device, mesh=mesh)
+    draft = TransformerLM(draft_config_for("lm_draft", cfg), device=device)
+    draft.load_state_dict(torch.load(os.path.join(out_dir, "spec_draft.pt")))
+    out, windows = {"local_heads": model.local_heads}, {}
+
+    def server_for(draft=None, **serving):
+        pool = SPEC_SLOTS * pages_per_slot(cfg.max_seq, SPEC_PS)
+        tel = Telemetry()
+        return tel, InferenceServer(model, telemetry=tel, draft=draft, serving=ServingConfig(
+            kv_layout="paged", max_slots=SPEC_SLOTS, page_size=SPEC_PS, prefix_sharing=False,
+            page_pool_pages=pool, batch_window_s=0.02, **serving))
+
+    def serve(key, sampled=False, **serving):
+        tel, server = server_for(**serving)
+        if rank:
+            try:
+                _, windows[key] = _counted(server.follow)
+                out[key] = {"error": None}
+            except Exception as e:
+                out[key] = {"error": f"{type(e).__name__}: {e}"}
+            out[key].update(follower_ops=server.follower_ops,
+                            draft_width=server._draft_cache.k[0].shape[-1]
+                            if server._draft_cache is not None else None)
+            return
+        server.setup()
+        client = InferenceClient(server.address, timeout=600).setup()
+        rec = {}
+
+        def run():
+            client.generate(prompt, n_tokens=3)
+            t = time.perf_counter()
+            client.generate(prompt, n_tokens=1)
+            t1 = time.perf_counter() - t
+            r0, p0, a0 = (server.decode_batches, tel.counter_value("serving_spec_proposed_total"),
+                          tel.counter_value("serving_spec_accepted_total"))
+            t = time.perf_counter()
+            rec["out"] = client.generate(prompt, n_tokens=SPEC_NEW)
+            tn = time.perf_counter() - t
+            rounds = server.decode_batches - r0
+            prop = tel.counter_value("serving_spec_proposed_total") - p0
+            acc = tel.counter_value("serving_spec_accepted_total") - a0
+            rec.update(ms_per_token=(tn - t1) * 1e3 / (SPEC_NEW - 1), request_ms=tn * 1e3,
+                       rounds=rounds, proposed=prop, accepted=acc,
+                       accept_rate=acc / prop if prop else None,
+                       accepted_per_round=acc / rounds if prop else None)
+            if sampled:
+                a, b = (client.generate(prompt, n_tokens=32, **SPEC_SAMPLED) for _ in range(2))
+                c = client.generate(prompt, n_tokens=32,
+                                    **{**SPEC_SAMPLED, "seed": SPEC_SAMPLED["seed"] + 1})
+                rec["sampled"] = {"same_seed_equal": bool(np.array_equal(a, b)),
+                                  "other_seed_differs": not np.array_equal(a, c),
+                                  "differing_tokens": int((a != c).sum()),
+                                  "in_vocab": bool((a >= 0).all() and (a < cfg.vocab_size).all())}
+
+        try:
+            _, windows[key] = _counted(run)
+            rec.update(prefills=server.prefills, decode_batches=server.decode_batches,
+                       decode_chunk=server.serving.decode_chunk, speculate_k=server._spec_k,
+                       target_width=server._slot_cache.k[0].shape[-1],
+                       draft_width=server._draft_cache.k[0].shape[-1]
+                       if server._draft_cache is not None else None,
+                       phases_ms={k: {q: v[q] for q in ("count", "p50", "max", "sum")}
+                                  for k, v in server._prof.digests().items()})
+        finally:
+            client.close()
+            server.stop()
+        server.release_prefix_cache()
+        pool = server._pool
+        rec["pool_free"] = bool(pool.free_pages == pool.n_pages and not pool._refs.any()
+                                and not any(server._slot_pages) and not any(server._draft_pages))
+        out[key] = rec
+
+    serve("tp_spec", sampled=True, speculate_k=SPEC_K, draft_model="lm_draft", draft=draft)
+    serve("tp_plain")
+    serve("tp_spec_self", speculate_k=SPEC_K, draft_model="self")
+    # the planted fault: one follower's drafts altered before the verify
+    _, hurt = server_for(speculate_k=SPEC_K, draft_model="lm_draft", draft=draft)
+    if rank == TP_SPEC_PLANTED_RANK:
+        real = hurt._draft
+
+        def altered(*a, **kw):
+            drafts, qprobs = real(*a, **kw)
+            return (drafts + 1) % cfg.vocab_size, qprobs
+
+        hurt._draft = altered
+    if rank:
+        try:
+            hurt.follow()
+            out["planted"] = {"error": None}
+        except Exception as e:
+            out["planted"] = {"error": f"{type(e).__name__}: {e}"}
+    else:
+        hurt.setup()
+        outcomes = []
+        try:
+            with InferenceClient(hurt.address, timeout=600).setup() as c:
+                for _ in range(2):
+                    try:
+                        c.generate(prompt, n_tokens=TP_SPEC_PLANTED_TOKENS)
+                        outcomes.append("served")
+                    except Exception as e:
+                        outcomes.append(f"raised {type(e).__name__}")
+        finally:
+            hurt.stop()
+        out["planted"] = {"outcomes": outcomes, "mesh_error": hurt.mesh_error}
+    del model, draft
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["windows"] = windows
+    return out
+
+
+def _tp_spec_check(ranks, device="cuda"):
+    """The ``tp_spec`` leg (:func:`_tp_spec_leg`) against its contract:
+    every window exact on every rank (kernel 1 once a layer a fresh
+    prefill of the target at D 64 and of the draft at D 32 or, self, D 64;
+    kernel 2 at D 32 rounds x (k + 1) x the draft's layers, never at D 64
+    under ``lm_draft``; the plain server decode_chunk steps a layer an
+    iteration), the speculative greedy outputs against the plain TP
+    server's under the near-tie rule (one rank's target gives the
+    margins), the sampled seeds, the self-draft's acceptance, the pools
+    and the followers, the caches' head widths, and the planted fault
+    stopping every rank with rank 0 naming the altered rank. Returns
+    ``(record, windows, expected windows)``."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.zoo import draft_config_for
+
+    tp = ranks[0]["tp_spec"]
+    cfg = _spec_config()
+    dcfg = draft_config_for("lm_draft", cfg)
+    k, n, nd = SPEC_K, cfg.n_layers, dcfg.n_layers
+    spec, plain, self_ = tp["tp_spec"], tp["tp_plain"], tp["tp_spec_self"]
+    for r, res in enumerate(ranks[1:], 1):
+        for key in ("tp_spec", "tp_plain", "tp_spec_self"):
+            f = res["tp_spec"][key]
+            assert f["error"] is None and f["follower_ops"] > 0, (key, f"rank {r}", f)
+    want = {
+        "tp_spec": {"flash_attention_fwd": spec["prefills"] * (n + nd),
+                    "flash_attention_fwd_d32": spec["prefills"] * nd,
+                    "flash_decode_paged": spec["decode_batches"] * (k + 1) * nd,
+                    "flash_decode_paged_d32": spec["decode_batches"] * (k + 1) * nd},
+        "tp_plain": {"flash_attention_fwd": plain["prefills"] * n,
+                     "flash_decode_paged": plain["decode_batches"] * plain["decode_chunk"] * n},
+        "tp_spec_self": {"flash_attention_fwd": 2 * self_["prefills"] * n,
+                         "flash_decode_paged": self_["decode_batches"] * (k + 1) * n}}
+    for key, w in want.items():
+        for r, res in enumerate(ranks):
+            got = {q: c for q, c in res["tp_spec"]["windows"][key].items() if c}
+            assert got == w, (f"mesh_{key}", f"rank {r}", got, w)
+    d = cfg.head_dim
+    assert tp["local_heads"] == cfg.n_heads // TP_SERVE_MESH["model"]
+    assert spec["target_width"] == tp["local_heads"] * d == self_["draft_width"], tp
+    assert spec["draft_width"] == dcfg.n_heads * dcfg.head_dim, spec  # the whole draft
+    for r, res in enumerate(ranks[1:], 1):
+        assert res["tp_spec"]["tp_spec"]["draft_width"] == spec["draft_width"], r
+        assert res["tp_spec"]["tp_spec_self"]["draft_width"] == self_["draft_width"], r
+    assert all(v["pool_free"] for v in (spec, plain, self_)), "a tp_spec pool did not reconcile"
+    sampled = spec["sampled"]
+    assert sampled["same_seed_equal"] and sampled["other_seed_differs"] and sampled["in_vocab"], \
+        sampled
+    target = lm_from_jax(cfg, _flagship_tree(cfg, np.random.default_rng(SEED + 12)),
+                         device=device)
+    p_len = spec["out"].shape[1] - SPEC_NEW
+    prompt = spec["out"][:, :p_len]
+    reqs = [("tp_spec_1k", prompt, {})]
+    plain_out = {"tp_spec_1k": torch.as_tensor(plain["out"])}
+    parity = _check_greedy(target, reqs, {"tp_spec_1k": spec["out"]}, plain_out, SPEC_NEW)
+    self_parity = _check_greedy(target, reqs, {"tp_spec_1k": self_["out"]}, plain_out, SPEC_NEW)
+    del target
+    assert self_["accept_rate"] >= SPEC_SELF_ACCEPT, \
+        f"TP self-draft acceptance {self_['accept_rate']} < {SPEC_SELF_ACCEPT}"
+    planted = tp["planted"]
+    named = f"rank {TP_SPEC_PLANTED_RANK} drafted"
+    assert planted["outcomes"] and all(o.startswith("raised") for o in planted["outcomes"]), planted
+    assert named in (planted["mesh_error"] or ""), planted
+    for r, res in enumerate(ranks[1:], 1):
+        err = res["tp_spec"]["planted"]["error"]
+        assert err is not None and named in err, ("the planted draft fault", f"rank {r}", err)
+    keep = ("ms_per_token", "request_ms", "rounds", "proposed", "accepted", "accept_rate",
+            "accepted_per_round", "prefills", "decode_batches", "phases_ms")
+    rec = {"mesh": TP_SERVE_MESH, "rules": "TRANSFORMER_TP_RULES", "k": k,
+           "context": SPEC_CONTEXTS[0], "new_tokens": SPEC_NEW, "local_heads": tp["local_heads"],
+           "note": "4 ranks sharing one H100 over gloo: not a multi-card figure",
+           "launches_per_rank": want, "parity_vs_plain_tp": parity,
+           "self_parity_vs_plain_tp": self_parity, "sampled": sampled,
+           "widths": {"target": spec["target_width"], "lm_draft": spec["draft_width"],
+                      "self_draft": self_["draft_width"]},
+           "follower_ops": {key: [r["tp_spec"][key]["follower_ops"] for r in ranks[1:]]
+                            for key in want},
+           "planted_draft_fault": {"rank": TP_SPEC_PLANTED_RANK, **planted,
+                                   "follower_errors": [r["tp_spec"]["planted"]["error"]
+                                                       for r in ranks[1:]]},
+           **{key: {q: tp[key][q] for q in keep} for key in want}}
+    windows = {f"mesh_{key}": tp["windows"][key] for key in want}
+    return rec, windows, {f"mesh_{key}": w for key, w in want.items()}
 
 
 def _pipe_check(ranks, ref, planted, leg, out_dir):
@@ -6110,7 +6415,7 @@ def main() -> int:
     # speculative decoding: a distilled head-dim-32 draft over the target's
     # page pool, at 1k and 16k context, against plain paged decode
     t0 = time.perf_counter()
-    spec_report, spec_counts = _spec_phase(model, reqs, solos, counted)
+    spec_report, spec_counts, spec_draft = _spec_phase(model, reqs, solos, counted)
     spec_report["phase_s"] = time.perf_counter() - t0
     print("speculative:", json.dumps(spec_report), flush=True)
     # the serving fleet: port replicas behind the port's router, the
@@ -6129,7 +6434,8 @@ def main() -> int:
     print("moe:", json.dumps(_with_spread(moe_report)), flush=True)
     # the training layouts on torch.distributed: 4 ranks on this card
     # (gloo), each leg against one rank on the card
-    mesh_report, mesh_counts = _mesh_phase((model, tree, reqs, solos))
+    mesh_report, mesh_counts = _mesh_phase((model, tree, reqs, solos), spec_draft)
+    del spec_draft
     print("mesh:", json.dumps(mesh_report), flush=True)
 
     # training: the flagship from the same tree as f32 masters, one batch

@@ -47,7 +47,7 @@ import numpy as np
 
 from distriflow_tpu_torch.utils.config import DatasetConfig, dataset_config
 from distriflow_tpu_torch.utils.messages import DataMsg
-from distriflow_tpu_torch.utils.serialization import serialize_array
+from distriflow_tpu_torch.utils.serialization import batch_rows, serialize_array, tree_map
 
 Preprocess = Callable[[np.ndarray, np.ndarray], Tuple[np.ndarray, np.ndarray]]
 
@@ -84,11 +84,13 @@ class DistributedDataset:
             self.config = config.validate()
         else:
             self.config = dataset_config(config)
-        self.x = np.asarray(x)
-        self.y = np.asarray(y)
-        if len(self.x) != len(self.y):
-            raise ValueError(f"x and y lengths differ: {len(self.x)} vs {len(self.y)}")
-        n = len(self.x)
+        # a model of several inputs or outputs takes tuples of arrays
+        self.x = tree_map(np.asarray, x)
+        self.y = tree_map(np.asarray, y)
+        if batch_rows(self.x) != batch_rows(self.y):
+            raise ValueError(
+                f"x and y lengths differ: {batch_rows(self.x)} vs {batch_rows(self.y)}")
+        n = self.num_rows = batch_rows(self.x)
         bs = self.config.batch_size
         full, rem = divmod(n, bs)
         self.num_batches = full + (1 if (rem and self.config.small_last_batch) else 0)
@@ -259,8 +261,8 @@ class DistributedDataset:
     def _materialize(self, idx: int, epoch: int) -> Batch:
         bs = self.config.batch_size
         lo = idx * bs
-        hi = min(lo + bs, len(self.x))  # fixed: never over-run the final slice
-        bx, by = self.x[lo:hi], self.y[lo:hi]
+        hi = min(lo + bs, self.num_rows)  # fixed: never over-run the final slice
+        bx, by = (tree_map(lambda a: a[lo:hi], t) for t in (self.x, self.y))
         for fn in self._preprocess:
             bx, by = fn(bx, by)
         return Batch(batch=idx, epoch=epoch, x=bx, y=by)

@@ -236,6 +236,17 @@ def to_device(batch: Any, device: torch.device) -> Any:
     return canonical_dtype(torch.as_tensor(batch)).to(device, non_blocking=True)
 
 
+def _weighted_sums(per: torch.Tensor, weight: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sum of w * per, sum of w)`` over per-example losses ``per``; a
+    ``[B]`` weight covers every loss of its row, no weight weighs each 1."""
+    if weight is None:
+        return per.sum(), torch.tensor(float(per.numel()), device=per.device)
+    w = torch.as_tensor(weight, device=per.device).to(per.dtype)
+    w = torch.broadcast_to(w.reshape(w.shape + (1,) * (per.dim() - w.dim())), per.shape)
+    return (per * w).sum(), w.sum()
+
+
 def init_params(spec: "ModelSpec", seed: int = 0) -> nn.Module:
     """Build the spec's model from ``seed`` (JAX: jit of ``spec.init``;
     PyTorch runs eagerly, so this is ``spec.init`` itself)."""
@@ -320,7 +331,7 @@ class ModelSpec:
         losses_lib.get_loss(self.loss)  # registers the fused losses
         return losses_lib.PER_EXAMPLE[self.loss]
 
-    def loss_sums(self, model: nn.Module, x: torch.Tensor, y: torch.Tensor,
+    def loss_sums(self, model: nn.Module, x: Any, y: Any,
                   weight: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """This rank's ``(sum of w * loss, sum of w, aux)`` over its
@@ -328,19 +339,27 @@ class ModelSpec:
         ``[B]`` weight covers every loss of its row); ``aux`` is the
         ``apply_with_aux`` term or None. On a mesh the trainers all-reduce
         the sums, never the local means, so padded partial batches stay
-        exact."""
+        exact.
+
+        A model of several outputs (targets a matching tuple) gives one
+        sum of each kind an output, as ``[n_outputs]`` f32 vectors: the
+        trainers all-reduce each output's own and form JAX's loss, the sum
+        over outputs of each output's weighted mean, so outputs of other
+        per-example shapes keep their own denominators."""
         if self.apply_with_aux is not None:
             preds, aux = self.apply_with_aux(model, x)
         else:
             preds, aux = self.apply(model, x), None
+        per_example = self._per_example(model)
         if isinstance(preds, (tuple, list)):
-            raise NotImplementedError("multi-output models on a mesh are not ported")
-        per = self._per_example(model)(preds, y)
-        if weight is None:
-            return per.sum(), torch.tensor(float(per.numel()), device=per.device), aux
-        w = torch.as_tensor(weight, device=per.device).to(per.dtype)
-        w = torch.broadcast_to(w.reshape(w.shape + (1,) * (per.dim() - w.dim())), per.shape)
-        return (per * w).sum(), w.sum(), aux
+            if not isinstance(y, (tuple, list)) or len(y) != len(preds):
+                raise ValueError(
+                    f"model has {len(preds)} outputs; targets must be a "
+                    f"{len(preds)}-tuple, got {type(y).__name__}")
+            sums = [_weighted_sums(per_example(p, t), weight) for p, t in zip(preds, y)]
+            return (torch.stack([s[0].float() for s in sums]),
+                    torch.stack([s[1].float() for s in sums]), aux)
+        return (*_weighted_sums(per_example(preds, y), weight), aux)
 
     def grad_fn(self) -> Callable[..., Tuple[torch.Tensor, Params]]:
         """``(model, x, y[, weight]) -> (loss, grads)``: the detached loss

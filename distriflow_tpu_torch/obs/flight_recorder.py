@@ -13,8 +13,9 @@ writes one self-contained JSON bundle under ``<save_dir>/flight/`` —
 bounded in size (oldest events dropped first) and scrubbed of secrets
 and raw payload bytes before anything reaches disk.
 
-Bundles are JSON files (the JAX package's ``obs.dump --flight`` reads
-them; the port's ``dump`` is not ported yet). A disabled :class:`~distriflow_tpu_torch.obs.telemetry.Telemetry`
+Bundles are JSON files, which ``python -m distriflow_tpu_torch.obs.dump
+--flight`` summarizes (:func:`distriflow_tpu_torch.obs.dump.summarize_flight`;
+the JAX package's ``obs.dump --flight`` reads them too). A disabled :class:`~distriflow_tpu_torch.obs.telemetry.Telemetry`
 hands out the shared :data:`NOOP_FLIGHT` (records nothing, dumps
 nothing).
 """

@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from distriflow_tpu_torch.utils.config import MeshConfig
+from distriflow_tpu_torch.utils.serialization import batch_rows, tree_map
 
 AXES: Tuple[str, ...] = ("data", "model", "seq", "pipe", "expert")
 #: the timeout of every process group the port starts (gloo's default is
@@ -220,7 +221,7 @@ def shard_batch_padded(mesh, x: Any, y: Any, axis: str = "data",
     and 0.0 for padding, so weighted-mean losses stay exact."""
     x, y, weight = pad_partial_batch(axis_size(mesh, axis), x, y)
     if weight is None:
-        weight = np.ones((len(x),), dtype=np.float32)
+        weight = np.ones((batch_rows(x),), dtype=np.float32)
     return shard_batch(mesh, (x, y, weight), axis, seq_axis)
 
 
@@ -229,8 +230,9 @@ def pad_partial_batch(divisor: int, *arrays: Any) -> Tuple[Any, ...]:
 
     Returns ``(*padded_arrays, weight)``: ``weight`` is 1.0 for real rows
     and 0.0 for padding (so weighted-mean losses/metrics stay exact), or
-    ``None`` when no padding was needed."""
-    n = len(arrays[0])
+    ``None`` when no padding was needed. An array may be a tuple of
+    arrays (a model of several inputs or outputs): each is padded."""
+    n = batch_rows(arrays[0])
     pad = (-n) % max(int(divisor), 1)
     if not pad:
         return (*arrays, None)
@@ -240,7 +242,7 @@ def pad_partial_batch(divisor: int, *arrays: Any) -> Tuple[Any, ...]:
         return np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1))
 
     weight = np.concatenate([np.ones((n,), np.float32), np.zeros((pad,), np.float32)])
-    return (*(pad0(v) for v in arrays), weight)
+    return (*(tree_map(pad0, v) for v in arrays), weight)
 
 
 def replicate(mesh, tree: Any) -> Any:

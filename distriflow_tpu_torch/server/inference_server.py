@@ -61,11 +61,23 @@ its partners there until the mesh group's timeout first). While no
 program runs, rank 0 sends a no-op every half control timeout, so an idle
 rank 0 is never taken for a lost one. ``stop`` sends the followers' exit.
 A follower that loses rank 0 (no program and no no-op) raises within the
-control group's timeout. Speculative serving over a mesh is refused.
+control group's timeout.
+
+Speculative serving runs over a mesh too: the draft's prefill at admission
+and each round's draft, verify and commit are device programs every rank
+runs (one ``spec_round`` program a round). The draft follows JAX's layout:
+a separate draft (``lm_draft``, or a ``draft=`` model built with no mesh)
+is whole on every rank, and ``draft_model="self"`` drafts with the TP
+target on its local heads (its cache sized by them). Each rank computes
+the drafts the target's verify consumes itself, none is sent: the same
+programs on the same inputs give the same drafts, and each rank reports a
+digest of its drafts and proposal sums with its outcome, so ranks that
+drafted apart stop every rank at once, with ``mesh_error`` naming them.
 """
 
 from __future__ import annotations
 
+import hashlib
 import queue as queue_mod
 import threading
 from datetime import timedelta
@@ -262,9 +274,6 @@ class InferenceServer:
         self._spmd = self.mesh is not None and dist.is_initialized() and \
             dist.get_world_size() > 1
         self.is_leader = not self._spmd or dist.get_rank() == 0
-        if self._spmd and self.serving.speculate_k:
-            raise NotImplementedError(
-                "speculative serving over a mesh is not ported")
         # every rank makes the control group, in the same order
         self._ctl = dist.new_group(backend="gloo", timeout=timedelta(
             seconds=control_timeout_s)) if self._spmd else None
@@ -277,6 +286,9 @@ class InferenceServer:
         self._follower: Optional[threading.Thread] = None
         self.follower_error: Optional[BaseException] = None
         self.follower_ops = 0  # device programs a follower ran
+        # what the running program's inputs were, for the ranks to agree on
+        # (None, or a short string; set by a program, read by _agree)
+        self._op_check: Optional[str] = None
         self.transport = ServerTransport(host, port)
         self.transport.on("model_info", self._on_info)
         self.transport.on("generate", self._on_generate)
@@ -500,11 +512,12 @@ class InferenceServer:
             raise RuntimeError(f"mesh serving stopped: {self.mesh_error}") from e
         err: Optional[Exception] = None
         out = None
+        self._op_check = None
         try:
             out = getattr(self, f"_op_{op}")(**kw)
         except Exception as e:
             err = e
-        broken = self._agree(op, err)
+        broken = self._agree(op, err, self._op_check)
         if broken is not None:
             self._stop_mesh(broken)
             raise RuntimeError(f"mesh serving stopped: {broken}") from err
@@ -518,24 +531,31 @@ class InferenceServer:
         self.mesh_error = why
         self.logger.log(f"mesh serving stopped: {why}")
 
-    def _agree(self, op: str, err: Optional[Exception]) -> Optional[str]:
-        """Every rank reports how program ``op`` ended (None, or its error);
+    def _agree(self, op: str, err: Optional[Exception],
+               check: Optional[str] = None) -> Optional[str]:
+        """Every rank reports how program ``op`` ended (None, or its error)
+        and the program's ``check`` (what it computed on, where it says);
         returns None when the mesh stays in step (every rank succeeded, or
-        every rank raised the same error), else why every rank stops. All
-        ranks see the same reports, so all reach the same verdict."""
+        every rank raised the same error, on the same check), else why
+        every rank stops. All ranks see the same reports, so all reach the
+        same verdict."""
         import torch.distributed as dist
 
-        mine = None if err is None else f"{type(err).__name__}: {err}"
-        seen: List[Optional[str]] = [None] * dist.get_world_size(self._ctl)
+        mine = (None if err is None else f"{type(err).__name__}: {err}", check)
+        seen: List[Any] = [None] * dist.get_world_size(self._ctl)
         try:
             dist.all_gather_object(seen, mine, group=self._ctl)
         except Exception as e:
             return f"{op}: the ranks' status exchange failed: {e!r}"
         if all(s == seen[0] for s in seen):
             return None
+        if all(s[0] == seen[0][0] for s in seen):  # the same outcome on other inputs
+            return f"{op}: " + "; ".join(
+                f"rank {r} {c} where rank 0 {seen[0][1]}"
+                for r, (_, c) in enumerate(seen) if c != seen[0][1])
         return f"{op}: " + "; ".join(
             f"rank {r} raised {s}" if s is not None else f"rank {r} succeeded"
-            for r, s in enumerate(seen))
+            for r, (s, _) in enumerate(seen))
 
     def _heartbeat_loop(self) -> None:
         """Rank 0 while it serves: a no-op program whenever none was sent
@@ -569,11 +589,12 @@ class InferenceServer:
                     continue
                 self.follower_ops += 1
                 err: Optional[Exception] = None
+                self._op_check = None
                 try:
                     getattr(self, f"_op_{op}")(**kw)
                 except Exception as e:
                     err = e
-                broken = self._agree(op, err)
+                broken = self._agree(op, err, self._op_check)
                 if broken is not None:
                     self.follower_error = RuntimeError(f"mesh serving stopped: {broken}")
                     self.follower_error.__cause__ = err
@@ -1065,10 +1086,11 @@ class InferenceServer:
             self._slot_cache = paged_cache(
                 self.config, srv.max_slots, srv.page_size, self._n_pages, dev, heads)
             if self._spec_k:
-                # the draft's own K/V arrays (other dims), the same page ids
+                # the draft's own K/V arrays (other dims; a self-draft on a
+                # mesh holds the target's local heads), the same page ids
                 self._draft_cache = paged_cache(
                     self.draft_model.config, srv.max_slots, srv.page_size, self._n_pages,
-                    dev)
+                    dev, self.draft_model.local_heads)
         else:
             self._slot_cache = slot_cache(self.config, srv.max_slots, dev, heads)
 
@@ -1141,7 +1163,6 @@ class InferenceServer:
         Groups run at their exact size: the JAX engine padded slab groups
         to power-of-two buckets (dropped slot ids) only to bound XLA
         recompiles, which eager PyTorch does not have."""
-        srv = self.serving
         n = len(members)
         stacked = np.stack([req.prompt[row] for req, row in members])
         free_ids = [i for i, r in enumerate(self._slot_req) if r is None]
@@ -1163,7 +1184,6 @@ class InferenceServer:
                     self._draft_tables[s, :] = self._n_pages
                     self._draft_tables[s, :len(dpages)] = dpages
         pf0 = time_mod.monotonic()
-        pc = srv.prefill_chunk
         with self._prof.phase("prefill"), self._device_lock, self.logger.time(
             f"admit[{n}x{plen}]"
         ):
@@ -1174,18 +1194,9 @@ class InferenceServer:
             self._tables_dirty = self._tables_dirty and not self._paged
         pf1 = time_mod.monotonic()  # first tokens are on the host now
         if self._spec_k:
-            # the draft prefills the full prompt: the target's shared prefix
-            # pages hold target KV, nothing the draft can reuse
-            dmodel = self.draft_model
             with self._prof.phase("spec_draft"), self._device_lock:
-                if pc is None or pc >= plen:
-                    _, d_row = prefill(dmodel, stacked)
-                else:
-                    _, d_row = prefill(dmodel, stacked[:, :pc])
-                    for i in range(pc, plen, pc):
-                        _, d_row = extend(dmodel, d_row, stacked[:, i:i + pc])
-                paged_insert(self._draft_cache, d_row, slots, plen, 0,
-                             self._draft_tables.copy())
+                self._mirror("draft_prefill", stacked=stacked, slots=slots, plen=plen,
+                             tables=self._draft_tables.copy())
                 self._draft_tables_dirty = False
         for j, (req, row) in enumerate(members):
             s = int(slots[j])
@@ -1256,6 +1267,21 @@ class InferenceServer:
             slot_insert(self._slot_cache, row_cache, slots, plen)
         return pick_rows(logits, temps, top_ks, top_ps, seeds,
                          np.full((len(slots),), plen, np.int64)).cpu().numpy()
+
+    def _op_draft_prefill(self, stacked: np.ndarray, slots: np.ndarray, plen: int,
+                          tables: np.ndarray) -> None:
+        """An admission group's draft program: the draft prefills the full
+        prompts (the target's shared prefix pages hold target KV, nothing
+        the draft can reuse) and inserts them into the draft cache through
+        ``tables``, the host's full draft table."""
+        dmodel, pc = self.draft_model, self.serving.prefill_chunk
+        if pc is None or pc >= plen:
+            _, d_row = prefill(dmodel, stacked)
+        else:
+            _, d_row = prefill(dmodel, stacked[:, :pc])
+            for i in range(pc, plen, pc):
+                _, d_row = extend(dmodel, d_row, stacked[:, i:i + pc])
+        paged_insert(self._draft_cache, d_row, slots, plen, 0, tables)
 
     def _op_decode(self, tables: Optional[np.ndarray], tok, done, temps, top_ks, top_ps,
                    seeds, eos, chunk: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -1334,40 +1360,19 @@ class InferenceServer:
     def _spec_round(self, active: List[int]) -> None:
         """One speculative round over every live slot: draft k tokens,
         verify all k + 1 positions in one target pass, commit the accepted
-        prefix (JAX ``_spec_round``). A round yields 1 to k + 1 tokens a
-        row; the host clips to the row's budget and retires rows as the
-        chunk path does. Each of the three programs is waited for before
-        its phase closes, so ``spec_draft``/``spec_verify``/``spec_commit``
-        attribute wall time honestly."""
+        prefix (JAX ``_spec_round``; the device programs are one
+        ``spec_round``, :meth:`_op_spec_round`). A round yields 1 to k + 1
+        tokens a row; the host clips to the row's budget and retires rows
+        as the chunk path does."""
         k = self._spec_k
-        dmodel = self.draft_model
-        t0 = time_mod.monotonic()
         with self._device_lock:
-            if self._tables_dirty:
-                set_page_tables(self._slot_cache, self._tables.copy())
-                self._tables_dirty = False
-            if self._draft_tables_dirty:
-                set_page_tables(self._draft_cache, self._draft_tables.copy())
-                self._draft_tables_dirty = False
-            with self._prof.phase("spec_draft"):
-                self._draft_cache, drafts, qprobs = draft_k(
-                    dmodel, self._draft_cache, self._tok, self._temps, self._top_ks,
-                    self._top_ps, self._seeds, k)
-                _ready(drafts)
-            td = time_mod.monotonic()
-            with self._prof.phase("spec_verify"):
-                (self._slot_cache, emit, n_emit, n_acc, new_tok, new_done, catch,
-                 new_idx) = verify(
-                    self.model, self._slot_cache, self._tok, drafts, qprobs, self._temps,
-                    self._top_ks, self._top_ps, self._seeds, self._done, self._eos, k)
-                emit, n_emit, n_acc = emit.cpu().numpy(), n_emit.cpu().numpy(), n_acc.cpu().numpy()
-                new_tok, new_done = new_tok.cpu().numpy(), new_done.cpu().numpy()
-            tv = time_mod.monotonic()
-            with self._prof.phase("spec_commit"):
-                self._draft_cache = commit(dmodel, self._draft_cache, drafts[:, -1], catch,
-                                           new_idx)
-                _ready(self._draft_cache.index)
-        tc = time_mod.monotonic()
+            tables = self._tables.copy() if self._tables_dirty else None
+            draft_tables = self._draft_tables.copy() if self._draft_tables_dirty else None
+            self._tables_dirty = self._draft_tables_dirty = False
+            emit, n_emit, n_acc, new_tok, new_done, (t0, td, tv, tc) = self._mirror(
+                "spec_round", tables=tables, draft_tables=draft_tables, tok=self._tok,
+                temps=self._temps, top_ks=self._top_ks, top_ps=self._top_ps,
+                seeds=self._seeds, done=self._done, eos=self._eos, k=k)
         self.decode_batches += 1
         self._m_batches.inc()
         self._tok = new_tok
@@ -1405,6 +1410,50 @@ class InferenceServer:
         self.spec_accept_per_step = accepted_now / len(active)
         self._m_spec_rate.set(self.spec_accept_per_step)
         self._m_slots.set(sum(1 for r in self._slot_req if r is not None))
+
+    def _draft(self, tok, temps, top_ks, top_ps, seeds, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The draft's k steps from the draft cache (``draft_k``):
+        ``(drafts [B, k], proposal distributions)``."""
+        self._draft_cache, drafts, qprobs = draft_k(
+            self.draft_model, self._draft_cache, tok, temps, top_ks, top_ps, seeds, k)
+        return drafts, qprobs
+
+    def _op_spec_round(self, tables: Optional[np.ndarray], draft_tables: Optional[np.ndarray],
+                       tok, temps, top_ks, top_ps, seeds, done, eos, k: int):
+        """A speculative round's device programs: the table installs
+        (``tables``/``draft_tables``: the host's, where they changed), the
+        draft's k steps, the target's verify and the draft's commit. Each
+        of the three is waited for before its phase closes, so
+        ``spec_draft``/``spec_verify``/``spec_commit`` attribute wall time
+        honestly. Returns the verify's host results and the round's clock
+        ``(t0, draft done, verify done, commit done)``. On a mesh its check
+        is a digest of the drafts and proposal sums the verify consumed,
+        which every rank computes for itself (see the module docstring)."""
+        if tables is not None:
+            set_page_tables(self._slot_cache, tables)
+        if draft_tables is not None:
+            set_page_tables(self._draft_cache, draft_tables)
+        t0 = time_mod.monotonic()
+        with self._prof.phase("spec_draft"):
+            drafts, qprobs = self._draft(tok, temps, top_ks, top_ps, seeds, k)
+            _ready(drafts)
+            if self._spmd:
+                digest = hashlib.sha1(drafts.cpu().numpy().tobytes())
+                digest.update(qprobs.float().sum(dim=(1, 2)).cpu().numpy().tobytes())
+                self._op_check = f"drafted {digest.hexdigest()[:16]}"
+        td = time_mod.monotonic()
+        with self._prof.phase("spec_verify"):
+            (self._slot_cache, emit, n_emit, n_acc, new_tok, new_done, catch,
+             new_idx) = verify(self.model, self._slot_cache, tok, drafts, qprobs, temps,
+                               top_ks, top_ps, seeds, done, eos, k)
+            host = tuple(t.cpu().numpy() for t in (emit, n_emit, n_acc, new_tok, new_done))
+        tv = time_mod.monotonic()
+        with self._prof.phase("spec_commit"):
+            self._draft_cache = commit(self.draft_model, self._draft_cache, drafts[:, -1],
+                                       catch, new_idx)
+            _ready(self._draft_cache.index)
+        return (*host, (t0, td, tv, time_mod.monotonic()))
 
     def _complete_row(self, s: int) -> None:
         """Retire one finished slot and resolve its request once every row

@@ -88,7 +88,7 @@ from distriflow_tpu_torch.obs.tracing import new_trace_id
 from distriflow_tpu_torch.utils.config import ServerHyperparams, async_server_hyperparams
 from distriflow_tpu_torch.utils.device import resolve_device
 from distriflow_tpu_torch.utils.logging import CallbackRegistry, VerboseLogger
-from distriflow_tpu_torch.utils.serialization import copy_tree, host_tree
+from distriflow_tpu_torch.utils.serialization import copy_tree, host_tree, tree_map
 
 
 def mean_grads(grad, model: nn.Module, batches: List[Tuple[torch.Tensor, torch.Tensor]]) -> Params:
@@ -663,7 +663,8 @@ class AsyncSGDTrainer:
         ``(batch, lo, size)``."""
         xd, yd = self._device_dataset(device)
         return mean_grads(self._grad, model,
-                          [(xd[lo:lo + size], yd[lo:lo + size]) for _, lo, size in group])
+                          [tuple(tree_map(lambda t: t[lo:lo + size], d) for d in (xd, yd))
+                           for _, lo, size in group])
 
     def _take_batches(self, budget: int, device: torch.device) -> List[Tuple[Any, Any, Any]]:
         """Pull up to ``budget`` batches; blocks (5 s) only for the first.
@@ -686,7 +687,7 @@ class AsyncSGDTrainer:
                         "disable staging or drop the preprocess chain")
                 bs = self.dataset.config.batch_size
                 lo = batch.batch * bs
-                size = min(lo + bs, len(self.dataset.x)) - lo
+                size = min(lo + bs, self.dataset.num_rows) - lo
                 group.append((batch, lo, size))
             else:
                 group.append((batch, *to_device((batch.x, batch.y), device)))
@@ -762,8 +763,9 @@ class AsyncSGDTrainer:
             if params is None:
                 params = self.init()
             dev = self.devices[0]
-            x, y = (t.new_zeros((key,) + tuple(t.shape[1:])) for t in to_device(
-                (self.dataset.x[:1], self.dataset.y[:1]), dev))
+            x, y = (tree_map(lambda t: t.new_zeros((key,) + tuple(t.shape[1:])),
+                             to_device(tree_map(lambda a: a[:1], d), dev))
+                    for d in (self.dataset.x, self.dataset.y))
             with self._eval_lock:
                 model = self._model_for("eval", dev)
                 load_params(model, params)

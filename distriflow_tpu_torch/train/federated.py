@@ -51,7 +51,7 @@ from distriflow_tpu_torch.obs.telemetry import get_telemetry
 from distriflow_tpu_torch.obs.tracing import new_trace_id
 from distriflow_tpu_torch.utils.logging import CallbackRegistry, VerboseLogger
 from distriflow_tpu_torch.utils.profiling import device_timer
-from distriflow_tpu_torch.utils.serialization import host_tree
+from distriflow_tpu_torch.utils.serialization import batch_rows, host_tree, tree_leaves, tree_map
 
 
 class FederatedAveragingTrainer:
@@ -139,8 +139,8 @@ class FederatedAveragingTrainer:
         params = named_params(worker)
         opt_state = self.optimizer.init(params)
         losses = []
-        for x, y in zip(xs, ys):
-            loss, grads = self._grad(worker, x, y)
+        for j in range(self.local_steps):
+            loss, grads = self._grad(worker, *(tree_map(lambda t: t[j], d) for d in (xs, ys)))
             updates, opt_state = self.optimizer.update(grads, opt_state, params)
             apply_updates(params, updates)
             losses.append(loss)
@@ -156,7 +156,8 @@ class FederatedAveragingTrainer:
         loss_sum = None
         for w in range(self.num_workers):
             with torch.enable_grad():
-                mean_loss = self._local_train(x[w], y[w]).mean()
+                mean_loss = self._local_train(*(tree_map(lambda t: t[w], d)
+                                                for d in (x, y))).mean()
             trained = named_params(self._worker)
             if acc is None:
                 acc = {n: p.clone() for n, p in trained.items()}
@@ -175,7 +176,8 @@ class FederatedAveragingTrainer:
         from distriflow_tpu_torch.parallel.collectives import gather_ordered_sum
 
         with torch.enable_grad():
-            mean_loss = self._local_train(x[0], y[0]).mean()
+            mean_loss = self._local_train(*(tree_map(lambda t: t[0], d)
+                                            for d in (x, y))).mean()
         w = self.num_workers
         avg = {n: gather_ordered_sum(p, "data", self.mesh) / w
                for n, p in named_params(self._worker).items()}
@@ -186,15 +188,17 @@ class FederatedAveragingTrainer:
         """One FedAvg round.
 
         ``x``/``y`` hold every worker's local data for the round, shaped
-        ``[num_workers, local_steps, local_batch_size, ...]``.
+        ``[num_workers, local_steps, local_batch_size, ...]`` (tuples of
+        such arrays for a model of several inputs or outputs).
         """
         if self.model is None:
             self.init()
         w, k, b = self.num_workers, self.local_steps, self.local_batch_size
-        if tuple(x.shape[:3]) != (w, k, b):
+        lead = tuple(tree_leaves(x)[0].shape[:3])
+        if lead != (w, k, b):
             raise ValueError(
                 f"round data must be [workers={w}, local_steps={k}, batch={b}, ...]; "
-                f"got {tuple(x.shape[:3])}")
+                f"got {lead}")
         tid = new_trace_id() if self._tracer.enabled else None
         t0_wall, t0_mono = time.time(), time.monotonic()
         with self._prof.step():
@@ -204,7 +208,7 @@ class FederatedAveragingTrainer:
                     from distriflow_tpu_torch.parallel.mesh import axis_index
 
                     i = axis_index(self.mesh, "data")
-                    x, y = x[i:i + 1], y[i:i + 1]
+                    x, y = (tree_map(lambda t: t[i:i + 1], d) for d in (x, y))
                 x, y = to_device((x, y), self.device)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -231,15 +235,20 @@ class FederatedAveragingTrainer:
 
     def pack_round_data(self, x, y, rng=None):
         """Convenience: sample a round's [W, K, B, ...] layout from arrays."""
-        from distriflow_tpu_torch.data.dataset import sample_batch
+        from distriflow_tpu_torch import native
 
         w, k, b = self.num_workers, self.local_steps, self.local_batch_size
         need = w * k * b
-        if len(x) < need:
-            raise ValueError(f"need at least {need} examples per round, got {len(x)}")
-        idx = (rng or np.random.RandomState(self.round_index)).permutation(len(x))[:need]
-        xs, ys = sample_batch(x, y, idx)
-        return xs.reshape((w, k, b) + xs.shape[1:]), ys.reshape((w, k, b) + ys.shape[1:])
+        n = batch_rows(x)
+        if n < need:
+            raise ValueError(f"need at least {need} examples per round, got {n}")
+        idx = (rng or np.random.RandomState(self.round_index)).permutation(n)[:need]
+
+        def pack(d):  # the rows of ``idx`` (``data.dataset.sample_batch``'s gather)
+            rows = native.gather_rows(np.asarray(d), idx)
+            return rows.reshape((w, k, b) + rows.shape[1:])
+
+        return tree_map(pack, x), tree_map(pack, y)
 
     def save(self) -> str:
         """Checkpoint the averaged params + round counter (synchronous)."""

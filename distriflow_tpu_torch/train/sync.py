@@ -17,7 +17,13 @@ a background thread.
 ``cost_analysis`` counts one forward and backward with
 ``torch.utils.flop_counter.FlopCounterMode`` and, on CUDA, adds the
 kernels' analytic tally (:mod:`distriflow_tpu_torch.ops.flop_count`);
-``mfu`` divides it by the step time and the card's dense bf16 peak.
+``mfu`` divides it by the step time and the card's dense bf16 peak. On a
+mesh both are per device, as in JAX.
+
+A model of several inputs or outputs takes tuples of arrays for ``x`` and
+``y``; every leaf is placed, sliced into micro-batches and sharded on its
+row axis, and the loss is JAX's: the sum over outputs of each output's
+weighted mean.
 
 **On a mesh** (``mesh=``, a five-axis mesh of ``distriflow_tpu_torch.
 parallel``; every rank runs the trainer, SPMD) the spec's model holds this
@@ -86,10 +92,10 @@ from distriflow_tpu_torch.models.base import (
 from distriflow_tpu_torch.obs.telemetry import get_telemetry
 from distriflow_tpu_torch.parallel import sharding
 from distriflow_tpu_torch.parallel.collectives import _all_gather, _all_reduce, _reduce_scatter
-from distriflow_tpu_torch.parallel.mesh import axis_index, axis_size, is_local, shard_batch
+from distriflow_tpu_torch.parallel.mesh import axis_index, axis_size, shard_batch
 from distriflow_tpu_torch.utils.logging import CallbackRegistry, VerboseLogger
 from distriflow_tpu_torch.utils.profiling import device_timer
-from distriflow_tpu_torch.utils.serialization import host_tree
+from distriflow_tpu_torch.utils.serialization import batch_rows, host_tree, tree_leaves, tree_map
 
 Batch = Tuple[Any, ...]
 
@@ -236,7 +242,6 @@ class SyncTrainer:
         self.callbacks = CallbackRegistry("new_version", "step")
         self.state: Optional[TrainState] = None
         self.model: Optional[nn.Module] = None
-        self._grad = spec.grad_fn()  # cost_analysis's forward and backward
         self._cost_cache: Dict[Any, Dict[str, Any]] = {}
         # observability (reference time()/log wrappers)
         self.last_step_ms: Optional[float] = None
@@ -324,23 +329,45 @@ class SyncTrainer:
         blocks = {n: self._unzero(n, t) for n, t in tree.items()} if zero else tree
         return sharding.gather_params(blocks, self.mesh, self.param_rules, self.spec.flax_path)
 
+    def _micro(self, x, y, w, rows: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                   Optional[torch.Tensor]]:
+        """One micro-batch's forward on this rank (``rows`` of its rows):
+        ``(objective, numerator, global weight sum, aux)``. The objectives'
+        gradients, summed over micro-batches and reduced over the example
+        axes, over the summed global weight sums, are the step's gradient.
+
+        A model of several outputs (``ModelSpec.loss_sums``) weighs its
+        micro-batch's loss, the sum of each output's weighted mean (each
+        output's sums all-reduced on their own), by the micro-batch's
+        weight sum, as JAX's ``grad_accum`` weighs it."""
+        mesh, red = self.mesh, self._red_axes
+        num, den, aux = self.spec.loss_sums(self.model, x, y, w)
+        den_g = _all_reduce(den.detach(), mesh, red)
+        if num.dim():
+            wsum = torch.tensor(float(rows), device=num.device) if w is None else w.sum()
+            wsum_g = _all_reduce(wsum, mesh, red)
+            num, den_g = (num * (wsum_g / torch.clamp(den_g, min=1e-9))).sum(), wsum_g
+        obj = num if aux is None else num + aux * den_g
+        return obj, num, den_g, aux
+
     def _grads(self, x, y, w) -> Tuple[torch.Tensor, Params]:
         """The global weighted-mean loss and this rank's gradients of it
         (reduced over the example axes; ZeRO-2: this rank's slices).
         ``grad_accum`` micro-batches each weigh their weight sums, so the
-        result equals one full-batch weighted-mean step."""
+        result equals one full-batch weighted-mean step. ``x`` and ``y``
+        may be tuples (a model of several inputs or outputs): every leaf
+        is cut on its row axis."""
         mesh, red, accum = self.mesh, self._red_axes, self.grad_accum
         params = named_params(self.model)
         live = [n for n, p in params.items() if p.requires_grad]
-        n = x.shape[0] // accum
+        n = batch_rows(x) // accum
         gsum: Params = {}
         num_tot = den_tot = extra = 0.0
         for i in range(accum):
             sl = slice(i * n, (i + 1) * n)
-            num, den, aux = self.spec.loss_sums(
-                self.model, x[sl], y[sl], None if w is None else w[sl].float())
-            den_g = _all_reduce(den.detach(), mesh, red)
-            obj = num if aux is None else num + aux * den_g
+            obj, num, den_g, aux = self._micro(
+                tree_map(lambda t: t[sl], x), tree_map(lambda t: t[sl], y),
+                None if w is None else w[sl].float(), n)
             gs = torch.autograd.grad(obj, [params[k] for k in live], allow_unused=True)
             for k, g in zip(live, gs):
                 if g is not None:
@@ -398,9 +425,9 @@ class SyncTrainer:
         """One update in place; returns the loss tensor (not fetched)."""
         x, y, w = batch if len(batch) == 3 else (*batch, None)
         accum = self.grad_accum
-        if accum > 1 and x.shape[0] % accum:
+        if accum > 1 and batch_rows(x) % accum:
             raise ValueError(
-                f"global batch size {x.shape[0]} not divisible by grad_accum={accum}")
+                f"global batch size {batch_rows(x)} not divisible by grad_accum={accum}")
         loss, grads = self._grads(x, y, w)
         self._update(grads)
         self.state.step += 1
@@ -408,13 +435,11 @@ class SyncTrainer:
 
     def _place(self, batch: Batch) -> Batch:
         """On a mesh this rank's slice of a global batch (a batch
-        ``shard_batch`` made is taken as it is); else the batch on the
-        model's device."""
+        ``shard_batch`` made is taken as it is; every leaf of a tuple cut
+        on its row axis); else the batch on the model's device."""
         if self.mesh is None:
             return to_device(tuple(batch), self.device)
-        return tuple(b if b is None or is_local(b) else
-                     shard_batch(self.mesh, b, "data", self._seq_axis if b.ndim >= 2 else None)
-                     for b in batch)
+        return tuple(shard_batch(self.mesh, b, "data", self._seq_axis) for b in batch)
 
     def step(self, batch: Batch) -> float:
         """Run one step on ``(x, y[, weight])`` (numpy arrays or tensors);
@@ -451,11 +476,12 @@ class SyncTrainer:
         call, as in JAX."""
         if self.state is None:
             self.init()
-        k = batches[0].shape[0]
+        k = batch_rows(batches[0])
         if self.mesh is None:  # every step's batch in one copy (then placed already)
             batches = self._place(batches)
-        losses = torch.stack([self._one_step(self._place(tuple(b[i] for b in batches)))
-                              for i in range(k)])
+        losses = torch.stack([
+            self._one_step(self._place(tuple(tree_map(lambda t: t[i], b) for b in batches)))
+            for i in range(k)])
         self.callbacks.fire("step", self)
         if self.callbacks.has("new_version") or (self.save_every and self.store is not None):
             version = self.version
@@ -488,32 +514,42 @@ class SyncTrainer:
     }
 
     def cost_analysis(self, batch: Batch) -> Dict[str, Any]:
-        """The cost of one step at ``batch``'s shapes: ``flops`` (the MFU
-        numerator), ``aten_flops`` (FlopCounterMode's matmuls and
-        convolutions) and the kernels' tally (``kernel_flops``, model
-        FLOPs; ``kernel_hw_flops``, with recompute; bytes, transcendentals,
-        ``kernel_by_category``; JAX's ``pallas_*`` keys alias them). On CUDA
-        ``flops`` is the aten count plus the tally, on the CPU the aten
-        count alone (:func:`~distriflow_tpu_torch.ops.flop_count.step_cost`).
+        """The **per-device** cost of one step at ``batch``'s shapes:
+        ``flops`` (the MFU numerator), ``aten_flops`` (FlopCounterMode's
+        matmuls and convolutions) and the kernels' tally (``kernel_flops``,
+        model FLOPs; ``kernel_hw_flops``, with recompute; bytes,
+        transcendentals, ``kernel_by_category``; JAX's ``pallas_*`` keys
+        alias them). On CUDA ``flops`` is the aten count plus the tally, on
+        the CPU the aten count alone
+        (:func:`~distriflow_tpu_torch.ops.flop_count.step_cost`).
 
-        One forward and backward of one micro-batch runs on the device (no
-        optimizer update; the model is left as it was), and every count is
-        multiplied by ``grad_accum``, the micro-batches a step runs. The
-        optimizer update and elementwise work are not counted (XLA's count
-        in JAX holds them). Cached per batch signature."""
+        This rank runs the step's forward and backward of its own first
+        micro-batch (no optimizer update; the model is left as it was) and
+        every count is multiplied by ``grad_accum``, the micro-batches a
+        step runs. On a mesh that is this rank's shard (its rows over
+        ``data``, its heads over ``model``), counted at its own shapes: the
+        per-device convention of JAX's count (multiply by the mesh size for
+        whole-mesh totals). The forward runs the mesh's collectives, so
+        every rank must call. The optimizer update and elementwise work
+        are not counted (XLA's count in JAX holds them). Cached per batch
+        signature (the shapes and dtypes of every leaf)."""
         from distriflow_tpu_torch.ops.flop_count import step_cost
 
-        if self.mesh is not None:
-            raise NotImplementedError("cost_analysis on a mesh is not ported yet")
         if self.state is None:
             self.init()
-        key = tuple((tuple(t.shape), str(t.dtype)) for t in batch if t is not None)
+        key = tuple((tuple(t.shape), str(t.dtype)) for t in tree_leaves(batch))
         if key not in self._cost_cache:
-            x, y, w = self._place(batch) if len(batch) == 3 else (*self._place(batch), None)
-            n = x.shape[0] // self.grad_accum
-            micro = (x[:n], y[:n], None if w is None else w[:n])
-            self._cost_cache[key] = step_cost(
-                lambda: self._grad(self.model, *micro), self.device, self.grad_accum)
+            placed = self._place(batch)
+            x, y, w = placed if len(placed) == 3 else (*placed, None)
+            n = batch_rows(x) // self.grad_accum
+            micro = (tree_map(lambda t: t[:n], x), tree_map(lambda t: t[:n], y),
+                     None if w is None else w[:n].float(), n)
+            live = [p for p in self.model.parameters() if p.requires_grad]
+
+            def run():
+                torch.autograd.grad(self._micro(*micro)[0], live, allow_unused=True)
+
+            self._cost_cache[key] = step_cost(run, self.device, self.grad_accum)
         return self._cost_cache[key]
 
     def mfu(
@@ -524,7 +560,9 @@ class SyncTrainer:
         gauge_mode: str = "sync",
     ) -> float:
         """Model FLOPs utilization of one step: :meth:`cost_analysis`'s
-        ``flops`` / (step time x the card's dense bf16 peak).
+        ``flops`` / (step time x the card's dense bf16 peak). On a mesh
+        that is this rank's per-device count over one card's peak (JAX's
+        convention), and every rank must call.
 
         ``step_seconds`` defaults to the rolling mean of :meth:`step` wall
         times; ``peak_flops_per_chip`` is looked up from the device name
@@ -777,6 +815,9 @@ class SyncTrainer:
         out = []
         with self._weights(ema) if use_ema else contextlib.nullcontext():
             preds = self.spec.apply(model, x)
+            if isinstance(preds, (tuple, list)):  # JAX's evaluate raises there too
+                raise ValueError(f"evaluate takes a model of one output; this one has "
+                                 f"{len(preds)}")
             for m in metrics:
                 if m == "loss":
                     per = self.spec._per_example(model)(preds, y)

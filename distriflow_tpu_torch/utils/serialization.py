@@ -310,6 +310,17 @@ def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any, path: str = "")
     return fn(path, tree)
 
 
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``tree`` with every leaf replaced by ``fn(leaf)`` (``jax.tree.map``)."""
+    return tree_map_with_path(lambda _, v: fn(v), tree)
+
+
+def batch_rows(tree: Any) -> int:
+    """The rows of a batch tree (an array, or a tuple of them for a model
+    of several inputs or outputs): its first leaf's dim 0."""
+    return len(tree_leaves(tree)[0])
+
+
 def tree_map2(fn: Callable[[Any, Any], Any], a: Any, b: Any) -> Any:
     """``fn`` over the leaves of two trees of the same structure (JAX's
     ``jax.tree.map(fn, a, b)``); a structure mismatch raises ``ValueError``."""

@@ -158,3 +158,46 @@ def both(path, x, y=None, loader="json", dtype="float32", tol=None, **kw):
         for n in tg:
             assert_close(tg[n].float().numpy(), want_g[n], tol, f"grad {n}")
     return jspec, tspec
+
+
+def two_input_graph():
+    """Two inputs through ``Concatenate``: tokens -> Embedding -> GAP and
+    floats -> Dense, one softmax head (``[B, 3]``)."""
+    return functional([
+        graph_input("tokens", (5,)), graph_input("feats", (3,)),
+        node("Embedding", "emb", ["tokens"], input_dim=11, output_dim=4),
+        node("GlobalAveragePooling1D", "pool", ["emb"]),
+        node("Dense", "proj", ["feats"], units=4, activation="tanh"),
+        node("Concatenate", "cat", ["pool", "proj"], axis=-1),
+        node("Dense", "head", ["cat"], units=3, activation="softmax"),
+    ], ["tokens", "feats"], ["head"])
+
+
+def two_output_graph():
+    """Two output heads of other per-example shapes: tokens -> Embedding,
+    then a softmax head at every position (``[B, 5, 3]``, a ``[B, 5]``
+    per-example loss) and a pooled softmax head (``[B, 2]``, a ``[B]``
+    loss)."""
+    return functional([
+        graph_input("tokens", (5,)),
+        node("Embedding", "emb", ["tokens"], input_dim=11, output_dim=4),
+        node("Dense", "head_a", ["emb"], units=3, activation="softmax"),
+        node("GlobalAveragePooling1D", "pool", ["emb"]),
+        node("Dense", "head_b_pre", ["pool"], units=2),
+        node("Softmax", "head_b", ["head_b_pre"], axis=-1),
+    ], ["tokens"], ["head_a", "head_b"])
+
+
+def multi_io_data(graph, n, seed):
+    """``(x, y)`` for :func:`two_input_graph` or :func:`two_output_graph`:
+    ``n`` rows drawn from ``seed``, one-hot targets."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, 11, (n, 5)).astype(np.int32)
+    if graph == "two_inputs":
+        return ((tokens, rng.standard_normal((n, 3)).astype(np.float32)),
+                np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)])
+    return tokens, (np.eye(3, dtype=np.float32)[rng.integers(0, 3, (n, 5))],
+                    np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)])
+
+
+MULTI_IO_GRAPHS = {"two_inputs": two_input_graph, "two_outputs": two_output_graph}

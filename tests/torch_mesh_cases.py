@@ -1,6 +1,7 @@
 """Rank bodies of the port's mesh tests (``tests/test_torch_parallel.py``,
 ``test_torch_ring_attention.py``, ``test_torch_ulysses.py``,
-``test_torch_sync_mesh.py``, ``test_torch_federated_mesh.py``).
+``test_torch_sync_mesh.py``, ``test_torch_federated_mesh.py`` and the
+other ``test_torch_*`` files that run a world).
 
 :func:`run_world` spawns a gloo world of CPU processes (spawn start
 method, a file store, :data:`~distriflow_tpu_torch.parallel.mesh.GROUP_TIMEOUT`
@@ -295,6 +296,62 @@ def sync_cases(rank, p):
         res[name] = out if rank == 0 or case.get("all_ranks") else {
             "opt_bytes": out["opt_bytes"], "zslices": out["zslices"],
             "param_bytes": out["param_bytes"], "losses": losses}
+    return res
+
+
+# -- tests/test_torch_multi_io.py ------------------------------------------
+
+
+def multi_io_cases(rank, p):
+    """Each Keras graph of several inputs or outputs on ``{data 4}``: a
+    partial batch padded to the axis size, trained at ``grad_accum`` 1 and
+    2 (and the two-input model's weighted ``evaluate``)."""
+    from distriflow_tpu_torch.models import keras_import as tk
+    from distriflow_tpu_torch.parallel.mesh import create_mesh, pad_partial_batch, shard_batch
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    mesh = create_mesh({"data": 4}, "cpu")
+    res = {}
+    for name, path in p["paths"].items():
+        xp, yp, w = pad_partial_batch(4, *p["data"][name])
+        res["rows_per_rank"] = len(shard_batch(mesh, w))
+        for accum in (1, 2):
+            t = SyncTrainer(tk.spec_from_keras_json(path, device="cpu"), mesh=mesh,
+                            learning_rate=p["lr"], grad_accum=accum)
+            t.init()
+            out = {"losses": [t.step((xp, yp, w)) for _ in range(p["steps"])],
+                   "params": {n: _np(v) for n, v in t.get_params().items()}}
+            if name == "two_inputs":
+                out["eval"] = t.evaluate(xp, yp, weight=w)
+            res[f"{name}_accum{accum}"] = out
+    return res
+
+
+# -- tests/test_torch_mesh_cost.py -----------------------------------------
+
+
+def cost_cases(rank, p):
+    """Each case's ``cost_analysis`` and ``mfu`` on this rank, at every
+    ``grad_accum`` (and whether a second call came from the cache)."""
+    from distriflow_tpu_torch.models.transformer import TransformerConfig, transformer_lm
+    from distriflow_tpu_torch.parallel import sharding
+    from distriflow_tpu_torch.parallel.mesh import create_mesh
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    res = {}
+    seconds, peak = p["mfu"]
+    for name, case in p["cases"].items():
+        mesh = create_mesh(case["mesh"], "cpu")
+        cfg = TransformerConfig(**p["dims"], dtype=torch.float32, use_flash_attention=True,
+                                loss=case["loss"])
+        for accum in p["accums"]:
+            t = SyncTrainer(transformer_lm(cfg, device="cpu", mesh=mesh), mesh=mesh,
+                            param_rules=getattr(sharding, case["rules"]), grad_accum=accum)
+            t.init()
+            cost = t.cost_analysis(p["batch"])
+            res[(name, accum)] = {
+                "cost": cost, "cached": t.cost_analysis(p["batch"]) is cost,
+                "mfu": t.mfu(p["batch"], step_seconds=seconds, peak_flops_per_chip=peak)}
     return res
 
 
@@ -729,6 +786,135 @@ def _cut_cases(cfg, tree, model, mesh):
             "uncut": uncut}
 
 
+def _spec_served(server, requests, disconnect_prompt):
+    """Rank 0's side of a speculative mesh scenario: the greedy requests,
+    a sampled one, a refused request, a client that disconnects while its
+    request is mid-round, one more greedy request, then new weights and a
+    request on them."""
+    import threading
+
+    from distriflow_tpu_torch.client.inference_client import InferenceClient
+
+    out = {}
+    with InferenceClient(server.address).setup() as c:
+        out["greedy"] = [c.generate(pr, n_tokens=n) for pr, n in requests["greedy"]]
+        out["sampled"] = c.generate(requests["sampled"], n_tokens=6, temperature=0.8, top_k=8,
+                                    seed=7)
+        try:  # refused on rank 0 before any device program
+            c.generate(requests["beam"], n_tokens=10_000)
+            out["refused"] = None
+        except Exception as e:
+            out["refused"] = str(e)
+    c2 = InferenceClient(server.address).setup()
+    errors = []
+
+    def doomed():
+        try:
+            c2.generate(disconnect_prompt, n_tokens=20)
+        except Exception as e:
+            errors.append(e)
+
+    rounds = server.decode_batches
+    t = threading.Thread(target=doomed, daemon=True)
+    t.start()
+    deadline = time.time() + 30
+    while server.decode_batches == rounds and time.time() < deadline:
+        time.sleep(0.0005)  # until the request's first round ran
+    with server._device_lock:  # the engine stops at its next round
+        out["mid_round"] = any(r is not None for r in server._slot_req)
+        c2.close()
+        while time.time() < deadline:  # cancelled (or already retired: the
+            with server._inflight_lock:  # engine retires between rounds unlocked)
+                reqs = [r for rs in server._inflight.values() for r in rs]
+            if all(r.cancelled for r in reqs):
+                break
+            time.sleep(0.005)
+    t.join(timeout=30)
+    out["disconnected"] = bool(errors)
+    with InferenceClient(server.address).setup() as c:
+        prompt, n = requests["greedy"][0]
+        out["after"] = c.generate(prompt, n_tokens=n)
+        server.set_params(requests["weights"])
+        out["reloaded"] = c.generate(prompt, n_tokens=n)
+    out["rounds"] = server.decode_batches
+    return out
+
+
+def _pool_free(server):
+    """The server's page pool after its prefix cache is released: all
+    pages free, every refcount 0, no slot holding target or draft pages."""
+    server.release_prefix_cache()
+    pool = server._pool
+    return (pool.free_pages == pool.n_pages and not pool._refs.any()
+            and not any(server._slot_pages) and not any(server._draft_pages))
+
+
+def _spec_cases(rank, cfg, p, tp):
+    """The speculative mesh server (k 3) with ``lm_draft`` and with
+    ``"self"``, each on a fresh TP model of the tree: rank 0 serves
+    :func:`_spec_served`, the others follow; each rank's cache widths;
+    the one-rank speculative server's sampled answer. Then a follower
+    whose drafts differ from rank 0's (rank 2 alters them before the
+    verify) stops every rank."""
+    from distriflow_tpu_torch.client.inference_client import InferenceClient
+    from distriflow_tpu_torch.server.inference_server import InferenceServer
+    from distriflow_tpu_torch.utils.config import ServingConfig
+
+    res = {}
+    for draft in ("lm_draft", "self"):
+        serving = ServingConfig(kv_layout="paged", page_size=8, speculate_k=3,
+                                draft_model=draft, batch_window_s=0.02)
+        server = InferenceServer(_tp_model(cfg, p["tree"], tp), port=0, serving=serving)
+        out = {}
+        if rank == 0:
+            server.setup()
+            try:
+                out = _spec_served(server, p["requests"], p["prompts"]["disconnect"])
+            finally:
+                server.stop()
+            out["pool_free"] = _pool_free(server)
+            ref = InferenceServer(_tp_model(cfg, p["tree"], None), port=0, serving=serving)
+            ref.setup()
+            try:
+                with InferenceClient(ref.address).setup() as c:
+                    out["sampled_ref"] = c.generate(p["requests"]["sampled"], n_tokens=6,
+                                                    temperature=0.8, top_k=8, seed=7)
+            finally:
+                ref.stop()
+            out["ref_pool_free"] = _pool_free(ref)
+        else:
+            out["followed"] = _followed(server)
+        out["widths"] = (server._slot_cache.k[0].shape[-1], server._draft_cache.k[0].shape[-1],
+                         server.draft_model.local_heads * server.draft_model.config.head_dim)
+        res[draft] = out
+    # a follower that drafts apart: rank 2 alters its drafts before the verify
+    serving = ServingConfig(kv_layout="paged", page_size=8, speculate_k=3,
+                            draft_model="lm_draft", batch_window_s=0.02)
+    hurt = InferenceServer(_tp_model(cfg, p["tree"], tp), port=0, serving=serving)
+    if rank == 2:
+        real = hurt._draft
+
+        def altered(*a, **kw):
+            drafts, qprobs = real(*a, **kw)
+            return (drafts + 1) % cfg.vocab_size, qprobs
+
+        hurt._draft = altered
+    prompt0, n0 = p["requests"]["greedy"][1]
+    if rank == 0:
+        hurt.setup()
+        try:
+            with InferenceClient(hurt.address).setup() as c:
+                first = _outcome(lambda: c.generate(prompt0, n_tokens=n0))
+                res["hurt"] = {"first": first,
+                               "next": _outcome(lambda: c.generate(prompt0, n_tokens=n0))}
+        finally:
+            hurt.stop()
+        res["hurt"]["mesh_error"] = hurt.mesh_error
+    else:
+        res["hurt"] = _followed(hurt)
+    return res
+
+
 def tp_decode_cases(rank, p):
     import dataclasses
 
@@ -831,4 +1017,6 @@ def tp_decode_cases(rank, p):
             res["lost"] = None
         except Exception as e:
             res["lost"] = (type(e).__name__, time.monotonic() - t0)
+    dist.barrier()  # rank 0 waits for the lost followers before it leads again
+    res["spec"] = _spec_cases(rank, cfg, p, tp)
     return res
