@@ -25,11 +25,20 @@
 // into log2(e) needed atol 8.1e-4 against the 1e-3 limit.
 //
 // Every kernel here has one shape (csrc/hopper.cuh): a producer warp issues
-// TMA loads of [rows, 64] bf16 tiles (rows past S read as zeros) into a
+// TMA loads of [rows, D] bf16 tiles (rows past S read as zeros) into a
 // ring of shared-memory stages with full and empty mbarriers, and two
 // consumer warpgroups of 64 rows each run wgmma products with S, dP, P and
 // dS in registers. No kernel uses atomics and each adds its terms in one
 // fixed order, so every launch gives the same bits.
+//
+// Every kernel is a template on the head dim D, built for 64 (the
+// flagship's) and 32 (the JAX LM CLI's model, d_model 256 over 8 heads),
+// as the forward is (csrc/flash_attention.cu). At D 32 a tile row is 64
+// bytes: the 64-byte swizzle and descriptors of layout type 2. The
+// products whose contraction is D (S = Q.K^T, dP = dO.V^T and their
+// transposes) take D / 16 = 2 k16 steps; those whose N is D (dQ += dS.K,
+// dV += P^T.dO, dK += dS^T.Q) are m64n32k16. The fused kernel's dS tile is
+// [64 queries, 64 keys] at every D, so it keeps 128-byte rows.
 //
 // Bound: per (b, h) and live causal pair the fused backward runs 5 products
 // of 2*D FLOPs (S, dP, dV, dK, dQ), the dQ kernel 3 (S, dP, dQ) and the
@@ -55,7 +64,6 @@ namespace {
 
 using namespace dftt::hopper;
 
-constexpr int kD = 64;
 constexpr int kConsumers = 2;                    // warpgroups, 64 rows each
 constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
 constexpr int kConsumerBarrier = 1;              // named barrier of the consumer warpgroups
@@ -90,18 +98,29 @@ namespace dq_split {
 constexpr int kBQ = 64 * kConsumers;  // query rows per block
 constexpr int kBK = 64;               // keys per streamed K/V tile
 constexpr int kStages = 4;
-constexpr uint32_t kQBytes = kBQ * kRowBytes;
-constexpr uint32_t kKVBytes = kBK * kRowBytes;
 using Pipe = Ring<kStages>;
 
-constexpr size_t kSmemBytes =
-    kSwizzleBytes + 2 * kQBytes + 2 * kStages * kKVBytes + sizeof(uint64_t) * (1 + 2 * kStages);
+// The shared-memory layout at head dim D: the Q and dO tiles, then
+// kStages K and V tiles of D-column rows (2 * D bytes each), then the
+// barriers.
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 32, "built for head dims 64 and 32");
+  static constexpr int kRow = 2 * D;
+  static constexpr uint32_t kQBytes = kBQ * kRow;
+  static constexpr uint32_t kKVBytes = kBK * kRow;
+  static constexpr size_t kSmemBytes =
+      kSwizzleBytes + 2 * kQBytes + 2 * kStages * kKVBytes + sizeof(uint64_t) * (1 + 2 * kStages);
+};
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dq, int S, float scale, int causal) {
+  constexpr int kRow = Shape<D>::kRow;
+  constexpr uint32_t kQBytes = Shape<D>::kQBytes, kKVBytes = Shape<D>::kKVBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = aligned_smem(smem_raw);
   unsigned char* do_s = q_s + kQBytes;
@@ -160,15 +179,15 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
     l[i] = row < S ? lse[at] : 0.f;
     d[i] = row < S ? delta[at] : 0.f;
   }
-  float acc_dq[kD / 2], acc_s[kBK / 2], acc_dp[kBK / 2];
+  float acc_dq[D / 2], acc_s[kBK / 2], acc_dp[kBK / 2];
 #pragma unroll
-  for (int r = 0; r < kD / 2; ++r) acc_dq[r] = 0.f;
+  for (int r = 0; r < D / 2; ++r) acc_dq[r] = 0.f;
 #pragma unroll
   for (int r = 0; r < kBK / 2; ++r) acc_s[r] = acc_dp[r] = 0.f;
 
   mbar_wait(q_full, 0);
-  const uint64_t desc_q = desc_kmajor(q_s + 64 * wg * kRowBytes);
-  const uint64_t desc_do = desc_kmajor(do_s + 64 * wg * kRowBytes);
+  const uint64_t desc_q = desc_kmajor<kRow>(q_s + 64 * wg * kRow);
+  const uint64_t desc_do = desc_kmajor<kRow>(do_s + 64 * wg * kRow);
 
   for (int t = 0; t < n_kb; ++t) {
     const int s = Pipe::stage(t);
@@ -180,13 +199,14 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
       continue;
     }
     const unsigned char* k_t = k_s + s * kKVBytes;
-    const uint64_t desc_k = desc_kmajor(k_t), desc_v = desc_kmajor(v_s + s * kKVBytes);
+    const uint64_t desc_k = desc_kmajor<kRow>(k_t),
+                   desc_v = desc_kmajor<kRow>(v_s + s * kKVBytes);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kD / 16; ++j)
+    for (int j = 0; j < D / 16; ++j)
       wgmma_m64n64k16_ss<0>(acc_s, desc_q + kmajor_step(j), desc_k + kmajor_step(j), j > 0);
 #pragma unroll
-    for (int j = 0; j < kD / 16; ++j)
+    for (int j = 0; j < D / 16; ++j)
       wgmma_m64n64k16_ss<0>(acc_dp, desc_do + kmajor_step(j), desc_v + kmajor_step(j), j > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -212,11 +232,16 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
     uint32_t ds_a[kBK / 16][4];
     acc_to_a(acc_dp, ds_a);
 
-    const uint64_t desc_k_mn = desc_mnmajor(k_t);
+    // dQ += dS.K: N is D (m64n64k16 at D 64, m64n32k16 at D 32)
+    const uint64_t desc_k_mn = desc_mnmajor<kRow>(k_t);
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kBK / 16; ++c)
-      wgmma_m64n64k16_rs<1>(acc_dq, ds_a[c], desc_k_mn + mnmajor_step(c), 1);
+    for (int c = 0; c < kBK / 16; ++c) {
+      if constexpr (D == 64)
+        wgmma_m64n64k16_rs<1>(acc_dq, ds_a[c], desc_k_mn + mnmajor_step<kRow>(c), 1);
+      else
+        wgmma_m64n32k16_rs<1>(acc_dq, ds_a[c], desc_k_mn + mnmajor_step<kRow>(c), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_dq);
@@ -229,9 +254,9 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= S) continue;
-    __nv_bfloat16* dst = dq + (static_cast<int64_t>(bh) * S + row) * kD + col;
+    __nv_bfloat16* dst = dq + (static_cast<int64_t>(bh) * S + row) * D + col;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
           acc_dq[4 * n + 2 * i] * scale, acc_dq[4 * n + 2 * i + 1] * scale);
   }
@@ -277,20 +302,28 @@ namespace dkv {
 constexpr int kBKV = 64 * kConsumers;    // key rows per block
 constexpr int kBQ = 64;                  // query rows per streamed tile
 constexpr int kStages = 3;
-constexpr uint32_t kKVBytes = kBKV * kRowBytes;
-constexpr uint32_t kQBytes = kBQ * kRowBytes;
-constexpr uint32_t kDsBytes = kBQ * kRowBytes;  // a warpgroup's dS tile, [64 queries, 64 keys] bf16
+// a warpgroup's dS tile, [64 queries, 64 keys] bf16: 128-byte rows at every D
+constexpr uint32_t kDsBytes = kBQ * kRowBytes;
 using Pipe = Ring<kStages>;
+
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 32, "built for head dims 64 and 32");
+  static constexpr int kRow = 2 * D;
+  static constexpr uint32_t kKVBytes = kBKV * kRow;
+  static constexpr uint32_t kQBytes = kBQ * kRow;
+};
 
 template <bool kDqPartials>
 __host__ __device__ constexpr uint32_t ds_bytes() {
   return kDqPartials ? 2 * kConsumers * kDsBytes : 0;  // two step parities x two warpgroups
 }
 
-template <bool kDqPartials>
+template <bool kDqPartials, int D>
 constexpr size_t smem_bytes() {
-  return kSwizzleBytes + 2 * kKVBytes + ds_bytes<kDqPartials>() + 2 * kStages * kQBytes +
-         2 * kStages * kBQ * sizeof(float) + sizeof(uint64_t) * (1 + 2 * kStages);
+  return kSwizzleBytes + 2 * Shape<D>::kKVBytes + ds_bytes<kDqPartials>() +
+         2 * kStages * Shape<D>::kQBytes + 2 * kStages * kBQ * sizeof(float) +
+         sizeof(uint64_t) * (1 + 2 * kStages);
 }
 
 // The KV tiles whose dQ partial the fused kernel writes for the 64-row Q
@@ -323,13 +356,15 @@ __device__ __forceinline__ void store_ds(const float (&ds_t)[kBQ / 2], unsigned 
       }
 }
 
-template <bool kDqPartials>
+template <bool kDqPartials, int D>
 __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, float* __restrict__ dqp,
     int S, float scale, int causal) {
+  constexpr int kRow = Shape<D>::kRow;
+  constexpr uint32_t kKVBytes = Shape<D>::kKVBytes, kQBytes = Shape<D>::kQBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* k_s = aligned_smem(smem_raw);
   unsigned char* v_s = k_s + kKVBytes;
@@ -405,15 +440,15 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
   const int first_key = k0 + 64 * wg;
   const int key0 = first_key + 16 * (warp % 4) + lane / 4;
   const int col = 2 * (lane % 4);
-  float acc_dk[kD / 2], acc_dv[kD / 2], acc_s[kBQ / 2], acc_dp[kBQ / 2];
+  float acc_dk[D / 2], acc_dv[D / 2], acc_s[kBQ / 2], acc_dp[kBQ / 2];
 #pragma unroll
-  for (int r = 0; r < kD / 2; ++r) acc_dk[r] = acc_dv[r] = 0.f;
+  for (int r = 0; r < D / 2; ++r) acc_dk[r] = acc_dv[r] = 0.f;
 #pragma unroll
   for (int r = 0; r < kBQ / 2; ++r) acc_s[r] = acc_dp[r] = 0.f;
 
   mbar_wait(kv_full, 0);
-  const uint64_t desc_k = desc_kmajor(k_s + 64 * wg * kRowBytes);
-  const uint64_t desc_v = desc_kmajor(v_s + 64 * wg * kRowBytes);
+  const uint64_t desc_k = desc_kmajor<kRow>(k_s + 64 * wg * kRow);
+  const uint64_t desc_v = desc_kmajor<kRow>(v_s + 64 * wg * kRow);
 
   for (int t = 0; t < n_steps; ++t) {
     const int s = Pipe::stage(t);
@@ -425,13 +460,13 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
     if (!(causal && q0 + kBQ - 1 < first_key)) {
       const unsigned char* q_t = q_s + s * kQBytes;
       const unsigned char* do_t = do_s + s * kQBytes;
-      const uint64_t desc_q = desc_kmajor(q_t), desc_do = desc_kmajor(do_t);
+      const uint64_t desc_q = desc_kmajor<kRow>(q_t), desc_do = desc_kmajor<kRow>(do_t);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kD / 16; ++j)
+      for (int j = 0; j < D / 16; ++j)
         wgmma_m64n64k16_ss<0>(acc_s, desc_k + kmajor_step(j), desc_q + kmajor_step(j), j > 0);
 #pragma unroll
-      for (int j = 0; j < kD / 16; ++j)
+      for (int j = 0; j < D / 16; ++j)
         wgmma_m64n64k16_ss<0>(acc_dp, desc_v + kmajor_step(j), desc_do + kmajor_step(j), j > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -469,14 +504,23 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
       acc_to_a(acc_s, p_a);
       acc_to_a(acc_dp, ds_a);
 
-      const uint64_t desc_do_mn = desc_mnmajor(do_t), desc_q_mn = desc_mnmajor(q_t);
+      // dV += P^T.dO and dK += dS^T.Q: N is D
+      const uint64_t desc_do_mn = desc_mnmajor<kRow>(do_t), desc_q_mn = desc_mnmajor<kRow>(q_t);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < kBQ / 16; ++c)
-        wgmma_m64n64k16_rs<1>(acc_dv, p_a[c], desc_do_mn + mnmajor_step(c), 1);
+      for (int c = 0; c < kBQ / 16; ++c) {
+        if constexpr (D == 64)
+          wgmma_m64n64k16_rs<1>(acc_dv, p_a[c], desc_do_mn + mnmajor_step<kRow>(c), 1);
+        else
+          wgmma_m64n32k16_rs<1>(acc_dv, p_a[c], desc_do_mn + mnmajor_step<kRow>(c), 1);
+      }
 #pragma unroll
-      for (int c = 0; c < kBQ / 16; ++c)
-        wgmma_m64n64k16_rs<1>(acc_dk, ds_a[c], desc_q_mn + mnmajor_step(c), 1);
+      for (int c = 0; c < kBQ / 16; ++c) {
+        if constexpr (D == 64)
+          wgmma_m64n64k16_rs<1>(acc_dk, ds_a[c], desc_q_mn + mnmajor_step<kRow>(c), 1);
+        else
+          wgmma_m64n32k16_rs<1>(acc_dk, ds_a[c], desc_q_mn + mnmajor_step<kRow>(c), 1);
+      }
       wgmma_commit();
       // while dV and dK run: this warpgroup's dS for the dQ partial
       if constexpr (kDqPartials) store_ds(acc_dp, ds_t + wg * kDsBytes, key0 - first_key, col);
@@ -495,19 +539,32 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
         // dQp = dS.K over the block's keys; warpgroup 1's tile holds no dS
         // when it skipped this Q tile
         const bool both = !(causal && q0 + kBQ - 1 < k0 + 64);
-        const uint64_t desc_k0 = desc_mnmajor(k_s), desc_k1 = desc_mnmajor(k_s + 64 * kRowBytes);
+        const uint64_t desc_k0 = desc_mnmajor<kRow>(k_s),
+                       desc_k1 = desc_mnmajor<kRow>(k_s + 64 * kRow);
         const uint64_t desc_ds0 = desc_kmajor(ds_t), desc_ds1 = desc_kmajor(ds_t + kDsBytes);
-        float acc_dq[kD / 2];  // live only here, so as not to hold 32 more registers in the walk
+        float acc_dq[D / 2];  // live only here, so as not to hold D / 2 more registers in the walk
 #pragma unroll
-        for (int r = 0; r < kD / 2; ++r) acc_dq[r] = 0.f;
+        for (int r = 0; r < D / 2; ++r) acc_dq[r] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          wgmma_m64n64k16_ss<1>(acc_dq, desc_ds0 + kmajor_step(c), desc_k0 + mnmajor_step(c), c > 0);
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (D == 64)
+            wgmma_m64n64k16_ss<1>(acc_dq, desc_ds0 + kmajor_step(c),
+                                  desc_k0 + mnmajor_step<kRow>(c), c > 0);
+          else
+            wgmma_m64n32k16_ss<1>(acc_dq, desc_ds0 + kmajor_step(c),
+                                  desc_k0 + mnmajor_step<kRow>(c), c > 0);
+        }
         if (both) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            wgmma_m64n64k16_ss<1>(acc_dq, desc_ds1 + kmajor_step(c), desc_k1 + mnmajor_step(c), 1);
+          for (int c = 0; c < 4; ++c) {
+            if constexpr (D == 64)
+              wgmma_m64n64k16_ss<1>(acc_dq, desc_ds1 + kmajor_step(c),
+                                    desc_k1 + mnmajor_step<kRow>(c), 1);
+            else
+              wgmma_m64n32k16_ss<1>(acc_dq, desc_ds1 + kmajor_step(c),
+                                    desc_k1 + mnmajor_step<kRow>(c), 1);
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -519,9 +576,9 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
           const int row = row0 + 8 * i;
           if (row >= S) continue;
           float* dst =
-              dqp + ((static_cast<int64_t>(blockIdx.y) * gridDim.x + bh) * S + row) * kD + col;
+              dqp + ((static_cast<int64_t>(blockIdx.y) * gridDim.x + bh) * S + row) * D + col;
 #pragma unroll
-          for (int n = 0; n < kD / 8; ++n)
+          for (int n = 0; n < D / 8; ++n)
             *reinterpret_cast<float2*>(dst + 8 * n) =
                 make_float2(acc_dq[4 * n + 2 * i], acc_dq[4 * n + 2 * i + 1]);
         }
@@ -534,9 +591,9 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
   for (int i = 0; i < 2; ++i) {
     const int key = key0 + 8 * i;
     if (key >= S) continue;
-    const int64_t off = (static_cast<int64_t>(bh) * S + key) * kD + col;
+    const int64_t off = (static_cast<int64_t>(bh) * S + key) * D + col;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) = __floats2bfloat162_rn(
           acc_dk[4 * n + 2 * i] * scale, acc_dk[4 * n + 2 * i + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) =
@@ -547,14 +604,15 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(
 
 // The fused backward's second pass: dq = bf16(scale * sum of dqp[j]) over
 // the live KV tiles j of each row's Q tile, in ascending j. One thread per
-// four columns of a row (n = B*H * S * 16 of them): each partial is read
-// as one 16-byte load, a KV tile's slab (n float4) apart.
+// four columns of a row (n = B*H * S * D / 4 of them): each partial is read
+// as one 16-byte load, a KV tile's slab (n float4) apart. The head dim is
+// an argument: the pass is bound by bytes, and one build serves both.
 __global__ void __launch_bounds__(256) dq_sum_kernel(const float* __restrict__ dqp,
                                                      __nv_bfloat16* __restrict__ dq, int64_t n,
-                                                     int S, float scale, int causal) {
+                                                     int S, int D, float scale, int causal) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int row = static_cast<int>((i / (kD / 4)) % S);
+  const int row = static_cast<int>((i / (D / 4)) % S);
   const int stop = live_kv_tiles(row / kBQ, S, causal);
   const float4* src = reinterpret_cast<const float4*>(dqp) + i;
   float4 acc = src[0];
@@ -572,44 +630,73 @@ __global__ void __launch_bounds__(256) dq_sum_kernel(const float* __restrict__ d
 
 }  // namespace dkv
 
-// TMA maps of q and dout with `q_rows`-row boxes, of k and v with `kv_rows`.
+// TMA maps of q and dout with `q_rows`-row boxes, of k and v with `kv_rows`,
+// over [BH, S, D] tensors.
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
 int make_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout, int BH,
-              int S, int q_rows, int kv_rows) {
-  int err = make_row_map(&m->q, q, BH, S, q_rows);
-  if (!err) err = make_row_map(&m->dout, dout, BH, S, q_rows);
-  if (!err) err = make_row_map(&m->k, k, BH, S, kv_rows);
-  if (!err) err = make_row_map(&m->v, v, BH, S, kv_rows);
+              int S, int D, int q_rows, int kv_rows) {
+  int err = make_row_map(&m->q, q, BH, S, q_rows, D);
+  if (!err) err = make_row_map(&m->dout, dout, BH, S, q_rows, D);
+  if (!err) err = make_row_map(&m->k, k, BH, S, kv_rows, D);
+  if (!err) err = make_row_map(&m->v, v, BH, S, kv_rows, D);
   return err;
 }
 
-template <bool kDqPartials>
+template <bool kDqPartials, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, void* dqp, int BH, int S, int causal,
                float scale, cudaStream_t st) {
   Maps m;
-  int err = make_maps(&m, q, k, v, dout, BH, S, dkv::kBQ, dkv::kBKV);
+  int err = make_maps(&m, q, k, v, dout, BH, S, D, dkv::kBQ, dkv::kBKV);
   if (err) return err;
-  constexpr size_t bytes = dkv::smem_bytes<kDqPartials>();
-  err = prepare(dkv::dkv_kernel<kDqPartials>, bytes);
+  constexpr size_t bytes = dkv::smem_bytes<kDqPartials, D>();
+  err = prepare(dkv::dkv_kernel<kDqPartials, D>, bytes);
   if (err) return err;
-  dkv::dkv_kernel<kDqPartials><<<dim3(BH, (S + dkv::kBKV - 1) / dkv::kBKV), kThreads, bytes, st>>>(
+  dkv::dkv_kernel<kDqPartials, D><<<dim3(BH, (S + dkv::kBKV - 1) / dkv::kBKV), kThreads, bytes, st>>>(
       m.q, m.k, m.v, m.dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), static_cast<float*>(dqp),
       S, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, void* dqp, void* dq, int BH, int S,
+               int causal, float scale, cudaStream_t st) {
+  const int err = launch_dkv<true, D>(q, k, v, dout, lse, delta, dk, dv, dqp, BH, S, causal, scale, st);
+  if (err) return err;
+  const int64_t n = static_cast<int64_t>(BH) * S * (D / 4);
+  dkv::dq_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(dqp), static_cast<__nv_bfloat16*>(dq), n, S, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int BH, int S, int causal, float scale, cudaStream_t st) {
+  using Sh = dq_split::Shape<D>;
+  Maps m;
+  int err = make_maps(&m, q, k, v, dout, BH, S, D, dq_split::kBQ, dq_split::kBK);
+  if (err) return err;
+  err = prepare(dq_split::dq_kernel<D>, Sh::kSmemBytes);
+  if (err) return err;
+  dq_split::dq_kernel<D><<<dim3(BH, (S + dq_split::kBQ - 1) / dq_split::kBQ), kThreads,
+                           Sh::kSmemBytes, st>>>(
+      m.q, m.k, m.v, m.dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Every entry: q, k, v, dout and the bf16 outputs are contiguous [BH, S, D]
-// (16-byte aligned), lse and delta the plain f32 [BH, S] rows; D = 64 only,
-// the head dim of the trained and served configuration. Each launches on
-// `stream` and returns a CUDA error code (0 = launched; a tensor map that
-// cannot be encoded returns cudaErrorInvalidValue).
+// (16-byte aligned), lse and delta the plain f32 [BH, S] rows; D = 64 or
+// 32, any other D returns cudaErrorInvalidValue. Each launches on `stream`
+// and returns a CUDA error code (0 = launched; a tensor map that cannot be
+// encoded returns cudaErrorInvalidValue).
 
 // The fused backward: dk = scale * sum of dS^T.Q, dv = sum of P^T.dO, and
 // dq = scale * sum of dS.K through dqp, f32 scratch of
@@ -619,14 +706,10 @@ extern "C" int dftt_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, void* dqp, void* dq,
     int BH, int S, int D, int causal, float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, dqp, BH, S, causal, scale, st);
-  if (err) return err;
-  const int64_t n = static_cast<int64_t>(BH) * S * (kD / 4);
-  dkv::dq_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(dqp), static_cast<__nv_bfloat16*>(dq), n, S, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if (D == 64) return launch_bwd<64>(q, k, v, dout, lse, delta, dk, dv, dqp, dq, BH, S, causal, scale, st);
+  if (D == 32) return launch_bwd<32>(q, k, v, dout, lse, delta, dk, dv, dqp, dq, BH, S, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The two-kernel layout, first half: dq = scale * sum over K tiles of
@@ -635,17 +718,10 @@ extern "C" int dftt_flash_attention_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq,
     int BH, int S, int D, int causal, float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  Maps m;
-  int err = make_maps(&m, q, k, v, dout, BH, S, dq_split::kBQ, dq_split::kBK);
-  if (err) return err;
-  err = prepare(dq_split::dq_kernel, dq_split::kSmemBytes);
-  if (err) return err;
-  dq_split::dq_kernel<<<dim3(BH, (S + dq_split::kBQ - 1) / dq_split::kBQ), kThreads, dq_split::kSmemBytes,
-                  static_cast<cudaStream_t>(stream)>>>(
-      m.q, m.k, m.v, m.dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), S, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, S, causal, scale, st);
+  if (D == 32) return launch_dq<32>(q, k, v, dout, lse, delta, dq, BH, S, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The two-kernel layout, second half: dk = scale * sum over Q tiles of
@@ -654,7 +730,10 @@ extern "C" int dftt_flash_attention_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     int BH, int S, int D, int causal, float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, nullptr, BH, S, causal, scale,
-                           static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_dkv<false, 64>(q, k, v, dout, lse, delta, dk, dv, nullptr, BH, S, causal, scale, st);
+  if (D == 32)
+    return launch_dkv<false, 32>(q, k, v, dout, lse, delta, dk, dv, nullptr, BH, S, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,10 +1,14 @@
-// Fused softmax cross-entropy (bf16 logits; int32 labels or f32 dense
-// targets).
+// Fused softmax cross-entropy (bf16 or f32 logits; int32 labels or f32
+// dense targets).
 //
 // Replaces the Pallas TPU kernels of the JAX package
 //   distriflow_tpu/ops/fused_ce.py::_fwd_kernel  (sparse=True and sparse=False)
 //   distriflow_tpu/ops/fused_ce.py::_bwd_kernel  (sparse=True and sparse=False)
-// The template flag kDense picks the variant, as `sparse` does there.
+// The template flag kDense picks the variant, as `sparse` does there, and
+// the template type T the logits' element type, bf16 (a bf16 model's
+// logits) or float (an f32 model's, the LM CLI's --dtype float32): the JAX
+// kernels keep logits.dtype (fused_ce.py:345, :419) and write the gradient
+// in it (:116). Every sum and exp is f32 in both.
 //
 // Forward: per row, lse = logsumexp(x) in f32 with a max shift
 // (fused_ce.py:57-104), and loss = lse - hit. Sparse: hit = x[label]; a
@@ -21,7 +25,8 @@
 // Wide rows (V > 256, the LM's V 32000): one block of 256 threads per row.
 // The TPU kernels tile the vocab on a sequential grid axis and carry m/l/hit
 // in VMEM scratch; here each thread walks its share of the row with
-// 16-byte loads (eight bf16 logits, and eight f32 targets in two loads)
+// 16-byte loads (eight bf16 logits in one, eight f32 logits or targets in
+// two)
 // keeping its own online max, exp-sum and dense hit in registers, and the
 // block combines the 256 threads' values with warp shuffles and shared
 // memory. The sparse label hit is read once, by one thread, straight from
@@ -39,8 +44,9 @@
 // memory, no barrier, one round trip to memory. Backward: no reduction;
 // the tile is one flat run of R V elements, eight consecutive ones a
 // thread, each with its row's lse and g: a whole chunk on an aligned base
-// takes 16-byte loads and one 16-byte store (R V 2 = 512 V / G bytes, a
-// multiple of 16, so every chunk of an aligned tensor is aligned), the
+// takes 16-byte loads and one 16-byte store per 16 bytes (a tile is R V
+// sizeof(T) = 512 V / G or 1024 V / G bytes, a multiple of 16, so every
+// chunk of an aligned tensor is aligned), the
 // last chunk of a partial tile and a base off 16 bytes (a sliced view) go
 // element by element. Staging the forward's tile through shared memory
 // with flat 16-byte loads, then reading the rows from there, measured
@@ -64,6 +70,22 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// The logits' element type T (bf16 or float): widen, narrow, and eight
+// values by 16-byte loads and stores from an aligned base.
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+
 // Merge the running pair (m, l) with (m2, l2): max and exp-sum of the union.
 __device__ __forceinline__ void combine(float& m, float& l, float m2, float l2) {
   const float mn = fmaxf(m, m2);
@@ -80,19 +102,36 @@ __device__ __forceinline__ void load8f(const float* __restrict__ src, float* dst
   for (int i = 0; i < 8; ++i) dst[i] = v[i];
 }
 
+__device__ __forceinline__ void load8x(const __nv_bfloat16* __restrict__ src, float* dst) {
+  dftt::load8(src, dst);
+}
+__device__ __forceinline__ void load8x(const float* __restrict__ src, float* dst) {
+  load8f(src, dst);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
+  __align__(16) __nv_bfloat162 o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+}
+__device__ __forceinline__ void store8(float* dst, const float* v) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // A logit's share of the dense hit: x * t, with masked (-1e30 or -inf)
 // logits contributing 0.
 __device__ __forceinline__ float dense_hit(float x, float t) {
   return (x > dftt::kNegInf ? x : 0.f) * t;
 }
 
-template <bool kDense>
+template <bool kDense, typename T>
 __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(
-    const __nv_bfloat16* __restrict__ logits, const int* __restrict__ labels,
+    const T* __restrict__ logits, const int* __restrict__ labels,
     const float* __restrict__ targets, float* __restrict__ loss, float* __restrict__ lse,
     int V, int vec) {
   const int64_t row = blockIdx.x;
-  const __nv_bfloat16* x = logits + row * V;
+  const T* x = logits + row * V;
   const float* t = kDense ? targets + row * V : nullptr;
   float m = dftt::kNegInf;
   float l = 0.f;
@@ -100,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(
   if (vec) {
     for (int c = threadIdx.x * 8; c < V; c += kThreads * 8) {
       float f[8];
-      dftt::load8(x + c, f);
+      load8x(x + c, f);
       float mx = f[0];
 #pragma unroll
       for (int i = 1; i < 8; ++i) mx = fmaxf(mx, f[i]);
@@ -119,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(
     }
   } else {
     for (int c = threadIdx.x; c < V; c += kThreads) {
-      const float xv = __bfloat162float(x[c]);
+      const float xv = to_f32(x[c]);
       combine(m, l, xv, 1.f);
       if constexpr (kDense) hit += dense_hit(xv, t[c]);
     }
@@ -148,49 +187,44 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(
     const float out = sm[0] + logf(fmaxf(sl[0], 1e-30f));
     if constexpr (!kDense) {
       const int lab = labels[row];
-      total = (lab >= 0 && lab < V) ? __bfloat162float(x[lab]) : 0.f;
+      total = (lab >= 0 && lab < V) ? to_f32(x[lab]) : 0.f;
     }
     lse[row] = out;
     loss[row] = out - total;
   }
 }
 
-template <bool kDense>
+template <bool kDense, typename T>
 __global__ void __launch_bounds__(kThreads) ce_bwd_kernel(
-    const __nv_bfloat16* __restrict__ logits, const int* __restrict__ labels,
+    const T* __restrict__ logits, const int* __restrict__ labels,
     const float* __restrict__ targets, const float* __restrict__ lse,
-    const float* __restrict__ g, __nv_bfloat16* __restrict__ grad, int V, int vec) {
+    const float* __restrict__ g, T* __restrict__ grad, int V, int vec) {
   const int64_t row = blockIdx.x;
-  const __nv_bfloat16* x = logits + row * V;
+  const T* x = logits + row * V;
   const float* t = kDense ? targets + row * V : nullptr;
-  __nv_bfloat16* out = grad + row * V;
+  T* out = grad + row * V;
   const float lse_r = lse[row];
   const float g_r = g[row];
   const int lab = kDense ? -1 : labels[row];
   if (vec) {
     for (int c = threadIdx.x * 8; c < V; c += kThreads * 8) {
-      float f[8], tt[8];
-      dftt::load8(x + c, f);
+      float f[8], tt[8], o[8];
+      load8x(x + c, f);
       if constexpr (kDense) {
         load8f(t + c, tt);
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i) tt[i] = c + i == lab ? 1.f : 0.f;
       }
-      __align__(16) __nv_bfloat162 o[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = (expf(f[2 * i] - lse_r) - tt[2 * i]) * g_r;
-        const float b = (expf(f[2 * i + 1] - lse_r) - tt[2 * i + 1]) * g_r;
-        o[i] = __floats2bfloat162_rn(a, b);
-      }
-      *reinterpret_cast<uint4*>(out + c) = *reinterpret_cast<const uint4*>(o);
+      for (int i = 0; i < 8; ++i) o[i] = (expf(f[i] - lse_r) - tt[i]) * g_r;
+      store8(out + c, o);
     }
   } else {
     for (int c = threadIdx.x; c < V; c += kThreads) {
-      const float p = expf(__bfloat162float(x[c]) - lse_r);
+      const float p = expf(to_f32(x[c]) - lse_r);
       const float tc = kDense ? t[c] : (c == lab ? 1.f : 0.f);
-      out[c] = __float2bfloat16((p - tc) * g_r);
+      out[c] = from_f32<T>((p - tc) * g_r);
     }
   }
 }
@@ -205,22 +239,22 @@ constexpr int kPer = kTile / kThreads;
 // Forward, narrow rows: block b owns rows [b R, b R + R) (fewer in the last
 // block), a group of `lanes` (G) threads each. Every load (the lane's
 // columns, its targets, the row's label) goes out before the first use.
-template <bool kDense>
+template <bool kDense, typename T>
 __global__ void __launch_bounds__(kThreads) ce_fwd_rows_kernel(
-    const __nv_bfloat16* __restrict__ logits, const int* __restrict__ labels,
+    const T* __restrict__ logits, const int* __restrict__ labels,
     const float* __restrict__ targets, float* __restrict__ loss, float* __restrict__ lse,
     int N, int V, int lanes, int rows) {
   const int lane = threadIdx.x % lanes;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * rows + threadIdx.x / lanes;
   // every thread joins the shuffles; a group past the last row reads nothing
   const int cols = row < N ? V : 0;
-  const __nv_bfloat16* x = logits + row * V;
+  const T* x = logits + row * V;
   const int lab = kDense || row >= N ? -1 : labels[row];
   float f[kPer], tt[kPer];
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const int c = lane + j * lanes;
-    f[j] = c < cols ? __bfloat162float(x[c]) : dftt::kNegInf;
+    f[j] = c < cols ? to_f32(x[c]) : dftt::kNegInf;
     if constexpr (kDense) tt[j] = c < cols ? targets[row * V + c] : 0.f;
   }
   float m = dftt::kNegInf;
@@ -255,15 +289,15 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_rows_kernel(
 // lse and g (and label). kWhole: all eight lie in the tile and the base is
 // aligned, so one 16-byte load of logits, two of targets and one 16-byte
 // store; else element by element, up to the tile's end `n`.
-template <bool kDense, bool kWhole>
+template <bool kDense, bool kWhole, typename T>
 __device__ __forceinline__ void bwd_chunk(
-    const __nv_bfloat16* __restrict__ logits, const int* __restrict__ labels,
+    const T* __restrict__ logits, const int* __restrict__ labels,
     const float* __restrict__ targets, const float* __restrict__ lse,
-    const float* __restrict__ g, __nv_bfloat16* __restrict__ grad, int64_t row0, int64_t at,
+    const float* __restrict__ g, T* __restrict__ grad, int64_t row0, int64_t at,
     int e, int n, int V) {
   float f[kPer] = {}, tt[kPer] = {}, ls[kPer] = {}, gg[kPer] = {};
   if constexpr (kWhole) {
-    dftt::load8(logits + at, f);
+    load8x(logits + at, f);
     if constexpr (kDense) load8f(targets + at, tt);
   }
   int r = e / V;
@@ -272,7 +306,7 @@ __device__ __forceinline__ void bwd_chunk(
   for (int i = 0; i < kPer; ++i) {
     if (kWhole || e + i < n) {
       if constexpr (!kWhole) {
-        f[i] = __bfloat162float(logits[at + i]);
+        f[i] = to_f32(logits[at + i]);
         if constexpr (kDense) tt[i] = targets[at + i];
       }
       if constexpr (!kDense) tt[i] = c == labels[row0 + r] ? 1.f : 0.f;
@@ -288,14 +322,11 @@ __device__ __forceinline__ void bwd_chunk(
 #pragma unroll
   for (int i = 0; i < kPer; ++i) v[i] = (expf(f[i] - ls[i]) - tt[i]) * gg[i];
   if constexpr (kWhole) {
-    __align__(16) __nv_bfloat162 o[kPer / 2];
-#pragma unroll
-    for (int i = 0; i < kPer / 2; ++i) o[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(grad + at) = *reinterpret_cast<const uint4*>(o);
+    store8(grad + at, v);
   } else {
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
-      if (e + i < n) grad[at + i] = __float2bfloat16(v[i]);
+      if (e + i < n) grad[at + i] = from_f32<T>(v[i]);
   }
 }
 
@@ -303,11 +334,11 @@ __device__ __forceinline__ void bwd_chunk(
 // run, eight consecutive elements a thread (bwd_chunk); the last chunk of
 // a partial tile and a base off 16 bytes (a sliced view) go element by
 // element. Every load goes out before the first use.
-template <bool kDense>
+template <bool kDense, typename T>
 __global__ void __launch_bounds__(kThreads) ce_bwd_rows_kernel(
-    const __nv_bfloat16* __restrict__ logits, const int* __restrict__ labels,
+    const T* __restrict__ logits, const int* __restrict__ labels,
     const float* __restrict__ targets, const float* __restrict__ lse,
-    const float* __restrict__ g, __nv_bfloat16* __restrict__ grad, int N, int V, int rows,
+    const float* __restrict__ g, T* __restrict__ grad, int N, int V, int rows,
     int aligned) {
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows;
   const int nrows = static_cast<int>(N - row0 < rows ? N - row0 : rows);
@@ -316,9 +347,9 @@ __global__ void __launch_bounds__(kThreads) ce_bwd_rows_kernel(
   if (e >= n) return;
   const int64_t at = row0 * V + e;
   if (aligned && e + kPer <= n)
-    bwd_chunk<kDense, true>(logits, labels, targets, lse, g, grad, row0, at, e, n, V);
+    bwd_chunk<kDense, true, T>(logits, labels, targets, lse, g, grad, row0, at, e, n, V);
   else
-    bwd_chunk<kDense, false>(logits, labels, targets, lse, g, grad, row0, at, e, n, V);
+    bwd_chunk<kDense, false, T>(logits, labels, targets, lse, g, grad, row0, at, e, n, V);
 }
 
 // ---------------------------------------------------------------- launches
@@ -332,10 +363,10 @@ bool narrow_tile_ok(int V, int lanes, int rows) {
          V <= 8 * lanes && rows * V <= kTile;
 }
 
-template <bool kDense>
+template <bool kDense, typename T>
 int forward(const void* logits, const void* labels, const void* targets, void* loss, void* lse,
             int N, int V, int lanes, int rows, int aligned, void* stream) {
-  const auto* x = static_cast<const __nv_bfloat16*>(logits);
+  const auto* x = static_cast<const T*>(logits);
   const auto* lab = static_cast<const int*>(labels);
   const auto* t = static_cast<const float*>(targets);
   auto* lo = static_cast<float*>(loss);
@@ -343,31 +374,31 @@ int forward(const void* logits, const void* labels, const void* targets, void* l
   const auto s = static_cast<cudaStream_t>(stream);
   if (rows > 0) {
     if (!narrow_tile_ok(V, lanes, rows)) return static_cast<int>(cudaErrorInvalidValue);
-    ce_fwd_rows_kernel<kDense><<<(N + rows - 1) / rows, kThreads, 0, s>>>(
+    ce_fwd_rows_kernel<kDense, T><<<(N + rows - 1) / rows, kThreads, 0, s>>>(
         x, lab, t, lo, ls, N, V, lanes, rows);
   } else {
-    ce_fwd_kernel<kDense><<<N, kThreads, 0, s>>>(x, lab, t, lo, ls, V, aligned && V % 8 == 0);
+    ce_fwd_kernel<kDense, T><<<N, kThreads, 0, s>>>(x, lab, t, lo, ls, V, aligned && V % 8 == 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDense>
+template <bool kDense, typename T>
 int backward(const void* logits, const void* labels, const void* targets, const void* lse,
              const void* g, void* grad, int N, int V, int lanes, int rows, int aligned,
              void* stream) {
-  const auto* x = static_cast<const __nv_bfloat16*>(logits);
+  const auto* x = static_cast<const T*>(logits);
   const auto* lab = static_cast<const int*>(labels);
   const auto* t = static_cast<const float*>(targets);
   const auto* ls = static_cast<const float*>(lse);
   const auto* gg = static_cast<const float*>(g);
-  auto* out = static_cast<__nv_bfloat16*>(grad);
+  auto* out = static_cast<T*>(grad);
   const auto s = static_cast<cudaStream_t>(stream);
   if (rows > 0) {
     if (!narrow_tile_ok(V, lanes, rows)) return static_cast<int>(cudaErrorInvalidValue);
-    ce_bwd_rows_kernel<kDense><<<(N + rows - 1) / rows, kThreads, 0, s>>>(
+    ce_bwd_rows_kernel<kDense, T><<<(N + rows - 1) / rows, kThreads, 0, s>>>(
         x, lab, t, ls, gg, out, N, V, rows, aligned);
   } else {
-    ce_bwd_kernel<kDense><<<N, kThreads, 0, s>>>(x, lab, t, ls, gg, out, V, aligned && V % 8 == 0);
+    ce_bwd_kernel<kDense, T><<<N, kThreads, 0, s>>>(x, lab, t, ls, gg, out, V, aligned && V % 8 == 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -379,34 +410,64 @@ int backward(const void* logits, const void* labels, const void* targets, const 
 // _row_tile, or rows 0 for one block a row; `aligned`: every pointer
 // argument's base lies on 16 bytes.
 
-// logits: [N, V] bf16 contiguous; labels: [N] int32; loss, lse: [N] f32.
+// The bf16 entries take bf16 logits and write a bf16 gradient; the f32
+// entries (`_f32`) take f32 logits and write an f32 gradient.
+
+// logits: [N, V] contiguous; labels: [N] int32; loss, lse: [N] f32.
 extern "C" int dftt_fused_ce_fwd_bf16(const void* logits, const void* labels, void* loss,
                                       void* lse, int N, int V, int lanes, int rows, int aligned,
                                       void* stream) {
-  return forward<false>(logits, labels, nullptr, loss, lse, N, V, lanes, rows, aligned, stream);
+  return forward<false, __nv_bfloat16>(logits, labels, nullptr, loss, lse, N, V, lanes, rows,
+                                       aligned, stream);
+}
+extern "C" int dftt_fused_ce_fwd_f32(const void* logits, const void* labels, void* loss,
+                                     void* lse, int N, int V, int lanes, int rows, int aligned,
+                                     void* stream) {
+  return forward<false, float>(logits, labels, nullptr, loss, lse, N, V, lanes, rows, aligned,
+                               stream);
 }
 
-// logits, grad: [N, V] bf16 contiguous; labels: [N] int32; lse, g: [N] f32.
+// logits, grad: [N, V] contiguous; labels: [N] int32; lse, g: [N] f32.
 extern "C" int dftt_fused_ce_bwd_bf16(const void* logits, const void* labels, const void* lse,
                                       const void* g, void* grad, int N, int V, int lanes, int rows,
                                       int aligned, void* stream) {
-  return backward<false>(logits, labels, nullptr, lse, g, grad, N, V, lanes, rows, aligned,
-                         stream);
+  return backward<false, __nv_bfloat16>(logits, labels, nullptr, lse, g, grad, N, V, lanes, rows,
+                                        aligned, stream);
+}
+extern "C" int dftt_fused_ce_bwd_f32(const void* logits, const void* labels, const void* lse,
+                                     const void* g, void* grad, int N, int V, int lanes, int rows,
+                                     int aligned, void* stream) {
+  return backward<false, float>(logits, labels, nullptr, lse, g, grad, N, V, lanes, rows, aligned,
+                                stream);
 }
 
-// Dense targets: logits [N, V] bf16 and targets [N, V] f32, both
-// contiguous; loss, lse: [N] f32.
+// Dense targets: logits [N, V] and targets [N, V] f32, both contiguous;
+// loss, lse: [N] f32.
 extern "C" int dftt_fused_ce_dense_fwd_bf16(const void* logits, const void* targets, void* loss,
                                             void* lse, int N, int V, int lanes, int rows,
                                             int aligned, void* stream) {
-  return forward<true>(logits, nullptr, targets, loss, lse, N, V, lanes, rows, aligned, stream);
+  return forward<true, __nv_bfloat16>(logits, nullptr, targets, loss, lse, N, V, lanes, rows,
+                                      aligned, stream);
+}
+extern "C" int dftt_fused_ce_dense_fwd_f32(const void* logits, const void* targets, void* loss,
+                                           void* lse, int N, int V, int lanes, int rows,
+                                           int aligned, void* stream) {
+  return forward<true, float>(logits, nullptr, targets, loss, lse, N, V, lanes, rows, aligned,
+                              stream);
 }
 
-// Dense targets: logits, grad [N, V] bf16; targets [N, V] f32; lse, g [N] f32.
+// Dense targets: logits, grad [N, V]; targets [N, V] f32; lse, g [N] f32.
 extern "C" int dftt_fused_ce_dense_bwd_bf16(const void* logits, const void* targets,
                                             const void* lse, const void* g, void* grad, int N,
                                             int V, int lanes, int rows, int aligned,
                                             void* stream) {
-  return backward<true>(logits, nullptr, targets, lse, g, grad, N, V, lanes, rows, aligned,
-                        stream);
+  return backward<true, __nv_bfloat16>(logits, nullptr, targets, lse, g, grad, N, V, lanes, rows,
+                                       aligned, stream);
+}
+extern "C" int dftt_fused_ce_dense_bwd_f32(const void* logits, const void* targets,
+                                           const void* lse, const void* g, void* grad, int N,
+                                           int V, int lanes, int rows, int aligned,
+                                           void* stream) {
+  return backward<true, float>(logits, nullptr, targets, lse, g, grad, N, V, lanes, rows, aligned,
+                               stream);
 }

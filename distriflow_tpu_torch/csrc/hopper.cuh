@@ -3,9 +3,9 @@
 // distributed shared memory, and warpgroup matrix products (wgmma).
 //
 // Every attention tile is a bf16 [rows, D] slice of a contiguous
-// [B*H, S, D] tensor. At D 64 (every attention kernel) one row is 128
-// bytes, exactly one 128-byte swizzle atom wide; at D 32 (the forward's
-// second build) a row is 64 bytes and takes the 64-byte swizzle. TMA
+// [B*H, S, D] tensor. At D 64 one row is 128 bytes, exactly one 128-byte
+// swizzle atom wide; at D 32 (every attention kernel's second build) a
+// row is 64 bytes and takes the 64-byte swizzle. TMA
 // copies a tile into shared memory with the swizzle of its row width, and
 // wgmma reads it back through a descriptor of the same swizzle, either
 // K-major (the D columns are the contraction, as Q and K are in Q.K^T) or
@@ -377,8 +377,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kTransB));
 }
 
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B in shared memory: the
+// fused backward's dQ partial dS.K at head dim 32.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
 // D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A in registers, B in shared
-// memory: P.V at head dim 32.
+// memory: P.V at head dim 32 (and the backward's products whose N is D).
 template <int kTransB>
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a, uint64_t desc_b,
                                                    int accumulate) {

@@ -240,6 +240,18 @@ class _Solo:
         return f"equal to solo up to {self.near_ties} bf16 near-tie(s)"
 
 
+def _pipelined_fit_bound(rounds: List[Dict[str, float]]) -> bool:
+    """The critical-path drill's verdict on its pipelined run, judged
+    round by round: ``fit`` outweighs ``submit`` on the critical path in
+    every applied round but at most one. One host stall inside one
+    round's submit (~90 ms on a loaded machine, three times the drill's
+    30 ms fit pad) flips one round and the mean of four, not this; an
+    upload tail that leaks onto the critical path puts submit above fit
+    in every round and fails it."""
+    fit_rounds = sum(1 for ph in rounds if ph.get("fit", 0.0) > ph.get("submit", 0.0))
+    return fit_rounds >= len(rounds) - 1
+
+
 def _run_check(name: str, fn, mandatory: bool = True,
                report: Optional[List[Dict[str, Any]]] = None) -> bool:
     t0 = time.perf_counter()
@@ -1827,8 +1839,9 @@ def _run_checks(device_arg: str, report: Optional[List[Dict[str, Any]]]) -> int:
         clean loopback async run (fit padded to ~30 ms so the round has a
         real dominant phase) must NOT attribute its rounds to ``submit``;
         the same run PIPELINED (``inflight_window=2``, round-6) must
-        attribute to ``fit`` — the upload tail rides the comm thread and
-        must not leak onto the critical path; and the run with every
+        attribute to ``fit``, in at least 3 of its 4 rounds — the upload
+        tail rides the comm thread and must not leak onto the critical
+        path; and the run with every
         upload frame under a scripted 0.3 s delay must shift every
         applied round's ``bound_by`` to ``submit`` — and only that run.
         Then the ledger gate: three baseline rows plus one synthetically
@@ -1936,12 +1949,11 @@ def _run_checks(device_arg: str, report: Optional[List[Dict[str, Any]]]) -> int:
             assert agg_piped["bound_by"] in ("fit", "idle"), (
                 f"pipelined clean run not fit/idle-bound: {agg_piped}"
             )
-            piped_means = agg_piped["phase_mean_ms"]
-            assert (piped_means.get("fit", 0.0)
-                    > piped_means.get("submit", 0.0)), (
-                f"pipelined run: submit outweighed the padded fit — "
-                f"overlap booking leaked onto the critical path: "
-                f"{piped_means}"
+            piped_rounds = [dict(r.phases) for r in piped.applied()]
+            assert _pipelined_fit_bound(piped_rounds), (
+                f"pipelined run: submit outweighed the padded fit in more "
+                f"than one round — overlap booking leaked onto the "
+                f"critical path: {piped_rounds}"
             )
 
             plan = FaultPlan(seed=11, schedule=[
@@ -1998,7 +2010,7 @@ def _run_checks(device_arg: str, report: Optional[List[Dict[str, Any]]]) -> int:
         submit_mean = agg_slow["phase_mean_ms"].get("submit", 0.0)
         return (f"clean run bound_by={baseline_bound}, pipelined "
                 f"(window=2) bound_by={agg_piped['bound_by']} with "
-                f"fit>submit means (4 rounds, 0 orphans each); 0.3 s "
+                f"fit>submit in 3+ of 4 rounds (0 orphans each); 0.3 s "
                 f"scripted upload delay landed in the submit phase "
                 f"({submit_mean:.0f} ms/round, bound_by="
                 f"{agg_slow['bound_by']}); ledger: healthy row ok, "

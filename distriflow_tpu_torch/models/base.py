@@ -292,8 +292,8 @@ class ModelSpec:
     def check_loss(self) -> None:
         """Raise ``NotImplementedError`` when the loss runs a CUDA kernel
         that cannot take this model's outputs (the fused cross-entropy
-        kernels take bf16 logits), so that such a model fails when built,
-        not at its first step."""
+        kernels take bf16 and f32 logits), so that such a model fails when
+        built, not at its first step."""
         from distriflow_tpu_torch.ops import fused_ce  # the kernel layer owns the rule
 
         fused_ce.check_model(self.loss, self.device, self.dtype)

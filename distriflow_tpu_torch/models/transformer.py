@@ -108,6 +108,8 @@ from distriflow_tpu_torch.models.base import ModelSpec
 from distriflow_tpu_torch.ops import flop_count
 from distriflow_tpu_torch.ops.flash_attention import (
     BWD_HEAD_DIMS,
+    KERNEL_DTYPES,
+    backward_supported,
     flash_attention,
     flash_seq_supported,
 )
@@ -287,39 +289,49 @@ def _use_kernel(flag: Optional[bool], t: torch.Tensor) -> bool:
 
 
 def check_kernels_take(config: TransformerConfig, device: torch.device,
-                       page_size: Optional[int] = None, training: bool = False) -> None:
+                       page_size: Optional[int] = None, training: bool = False,
+                       decode: bool = True) -> None:
     """Raise ``NotImplementedError`` when a model on CUDA would need a
-    kernel for a dtype, head dim or page size the kernels do not take
-    (``training``: the attention backward's too). There is no plain path
-    on the card to fall back to; a caller who wants the plain path there
-    sets ``use_flash_attention``/``use_flash_decode`` to False."""
+    kernel for a dtype, head dim, length or page size the kernels do not
+    take. The prompt attention is always checked, its backward with
+    ``training``, and the decode kernels with ``decode`` (paged ones at
+    ``page_size``). A model is checked when it is built, without
+    ``decode``; a decode cache when it is built (:func:`cache_buffers`,
+    ``models/generate.py::paged_cache``), with it. So an f32 model trains
+    over the f32 kernels and refuses a decode by name, when one is set up.
+    There is no plain path on the card to fall back to; a caller who wants
+    the plain path there sets ``use_flash_attention``/``use_flash_decode``
+    to False."""
     if device.type != "cuda":
         return
     item = torch.empty((), dtype=config.dtype).element_size()
     hd, d = config.n_heads * config.head_dim, config.head_dim
     refused = []
-    if config.use_flash_attention is not False and not flash_seq_supported(
-            config.max_seq, d, item):
+    flash = config.use_flash_attention is not False
+    if flash and not (config.dtype in KERNEL_DTYPES
+                      and flash_seq_supported(config.max_seq, d, item)):
         refused.append("prefill attention")
-    if training and config.use_flash_attention is not False and d not in BWD_HEAD_DIMS:
+    if training and flash and not backward_supported(config.max_seq, d, config.dtype):
         refused.append("the attention backward")
-    if config.use_flash_decode is not False:
+    if decode and config.use_flash_decode is not False:
+        # the decode kernels read a bf16 q (and a bf16 or int8 cache)
+        bf16 = config.dtype == torch.bfloat16
         # the cache precisions a decode can get: the context gate may pick
         # either side of the crossover under kv_cache_dtype="int8"
         for kv_item in sorted({1 if config.kv_cache_dtype_for(n) == "int8" else item
                                for n in (1, config.max_seq)}):
             tag = " (int8 cache)" if kv_item == 1 else ""
-            q_ok = kv_item != 1 or item == 2  # the int8 kernels read a bf16 q
-            if not (supports_seq(config.max_seq, hd=hd, kv_item=kv_item, d=d) and q_ok):
+            if not (supports_seq(config.max_seq, hd=hd, kv_item=kv_item, d=d) and bf16):
                 refused.append("slab decode" + tag)
             if page_size is not None and not (
-                    supports_paged(page_size, hd=hd, kv_item=kv_item, d=d) and q_ok):
+                    supports_paged(page_size, hd=hd, kv_item=kv_item, d=d) and bf16):
                 refused.append(f"paged decode at page_size {page_size}{tag}")
     if refused:
         raise NotImplementedError(
             f"no CUDA kernel for {', '.join(refused)} at dtype {config.dtype}, "
-            f"head dim {d}: the kernels take bf16 at head dims {SUPPORTED_HEAD_DIMS} "
-            f"(the attention backward {BWD_HEAD_DIMS}, int8 caches with a bf16 q "
+            f"head dim {d}, max_seq {config.max_seq}: the attention kernels take bf16 and "
+            f"f32 at head dims {SUPPORTED_HEAD_DIMS} (the backward at {BWD_HEAD_DIMS}, f32 "
+            f"in the fused layout only), the decode kernels bf16 (int8 caches at "
             f"{INT8_HEAD_DIMS})")
 
 
@@ -892,7 +904,7 @@ class TransformerLM(nn.Module):
         self.ln_f = LayerNorm(cfg.d_model, trainable)
         self.lm_head = _param(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype, trainable=trainable)
         dev = resolve_device(device)
-        check_kernels_take(config, dev, training=trainable)
+        check_kernels_take(config, dev, training=trainable, decode=False)
         self.to(dev)
         self.eval()
 
@@ -994,6 +1006,7 @@ def cache_buffers(config: TransformerConfig, lead: Tuple[int, int], int8: bool, 
     ``lead + (H*D,)`` (scales ``lead + (H,)`` f32, or None when not
     ``int8``); K/V in ``cfg.dtype`` or int8. ``heads`` (``n_heads`` by
     default) is a ``model``-sharded model's local head count."""
+    check_kernels_take(config, torch.device(device))  # the decode kernels must take it
     n = config.n_layers
     heads = config.n_heads if heads is None else heads
 
@@ -1095,7 +1108,7 @@ def transformer_lm(
         mesh=mesh,
         flax_path=_lm_flax_path,
     )
-    spec.check_loss()  # the fused CE takes bf16 logits
+    spec.check_loss()  # the fused CE takes bf16 and f32 logits
     return spec
 
 
@@ -1160,7 +1173,7 @@ class PipelinedTransformerLM(nn.Module):
         self.ln_f = LayerNorm(cfg.d_model, trainable)
         self.lm_head = _param(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype, trainable=trainable)
         dev = resolve_device(device)
-        check_kernels_take(config, dev, training=trainable)
+        check_kernels_take(config, dev, training=trainable, decode=False)
         self.to(dev)
         self.eval()
 

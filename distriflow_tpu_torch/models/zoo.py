@@ -22,7 +22,7 @@ pooling is 2x2 stride 2 ``VALID``, and the flatten before the first
 tensor cores). The specs compute ``softmax_cross_entropy`` on one-hot
 targets, as JAX's; ``dataclasses.replace(spec,
 loss="fused_softmax_cross_entropy")`` trains through the fused dense CE
-kernels, which take bf16 logits.
+kernels, which take bf16 and f32 logits.
 """
 
 from __future__ import annotations

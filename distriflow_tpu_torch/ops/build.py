@@ -28,7 +28,8 @@ NVCC_FLAGS = [
 ]
 
 #: every kernel source of the port, ``csrc/<name>.cu``
-SOURCES = ("flash_attention", "flash_decode", "flash_attention_bwd", "fused_ce", "depthwise_gn")
+SOURCES = ("flash_attention", "flash_decode", "flash_attention_bwd", "fused_ce", "depthwise_gn",
+           "flash_attention_f32")
 #: the headers each source includes (an edit to one rebuilds its sources)
 HEADERS = {"flash_attention": ("common.cuh", "hopper.cuh"),
            "flash_attention_bwd": ("common.cuh", "hopper.cuh"),
@@ -42,18 +43,21 @@ ptxas_reports: Dict[str, str] = {}
 _count_lock = threading.Lock()
 
 
-def count_launch(fn, head_dim: "int | None" = None) -> None:
+def count_launch(fn, head_dim: "int | None" = None, dtype=None) -> None:
     """Count one launch of ``fn``'s kernel in ``fn.launches`` and, for a
-    kernel built at several head dims, in ``fn.launches_by_head_dim``. The
-    wrappers run on several threads at once (the wire-training clients fit
-    in their transport's handler threads), and a bare ``+= 1`` on an
-    attribute can lose an increment between threads: the lock keeps the
-    count exact."""
+    kernel built at several head dims or element types, in
+    ``fn.launches_by_head_dim`` and ``fn.launches_by_dtype`` (keyed by the
+    dtype's name, ``"float32"``). The wrappers run on several threads at
+    once (the wire-training clients fit in their transport's handler
+    threads), and a bare ``+= 1`` on an attribute can lose an increment
+    between threads: the lock keeps the count exact."""
     with _count_lock:
         fn.launches += 1
-        if head_dim is not None:
-            by = fn.launches_by_head_dim
-            by[head_dim] = by.get(head_dim, 0) + 1
+        for by, key in ((getattr(fn, "launches_by_head_dim", None), head_dim),
+                        (getattr(fn, "launches_by_dtype", None),
+                         None if dtype is None else str(dtype).replace("torch.", ""))):
+            if by is not None and key is not None:
+                by[key] = by.get(key, 0) + 1
 
 
 def _nvcc() -> str:

@@ -1,7 +1,7 @@
 """Flash attention: hand-written Hopper kernels and their plain versions.
 
-Port of ``distriflow_tpu/ops/flash_attention.py``. Four kernels, from two
-sources:
+Port of ``distriflow_tpu/ops/flash_attention.py``. Four bf16 kernels
+from two sources, and two f32 kernels from a third:
 
 - ``csrc/flash_attention.cu`` replaces the Pallas ``_fwd_kernel``: causal
   or non-causal online-softmax attention over ``[B, H, S, D]`` bf16 tensors
@@ -17,7 +17,16 @@ sources:
   block per Q tile walking its K tiles) and ``_dkv_kernel`` (dK and dV,
   one block per K/V tile walking its Q tiles). All are Hopper designs
   like the forward's; none uses atomics, so each gives the same bits
-  every run.
+  every run;
+- ``csrc/flash_attention_f32.cu`` replaces ``_fwd_kernel`` and
+  ``_dkvq_kernel`` on f32 inputs (the JAX LM CLI's ``--dtype float32``):
+  the forward and the fused backward with write-once f32 dQ partials, f32
+  throughout on the CUDA cores (no TF32). The two-kernel layout has no f32
+  build: an f32 backward past JAX's fused range (2048 positions) raises.
+
+Every kernel is built for head dims 64 and 32 (:data:`SUPPORTED_HEAD_DIMS`,
+:data:`BWD_HEAD_DIMS`); a wrapper counts its launches in ``launches``, by
+head dim in ``launches_by_head_dim`` and by dtype in ``launches_by_dtype``.
 
 The backward layout is JAX's decision (:func:`bwd_layout`): the backward
 tiles JAX would pick (:func:`_bwd_autotune`, or ``bwd_block_q``/
@@ -48,16 +57,25 @@ from distriflow_tpu_torch.ops import build, flop_count
 
 NEG_INF = -1e30
 #: the head dims the forward kernel is built and checked for: the
-#: flagship's 64 and the speculative draft's 32
+#: flagship's 64, and 32 (the speculative draft's and the JAX LM CLI's)
 SUPPORTED_HEAD_DIMS = (32, 64)
 #: the head dims the backward kernels are built for
-BWD_HEAD_DIMS = (64,)
+BWD_HEAD_DIMS = (32, 64)
+#: the input dtypes the kernels take: bf16 (every layout) and f32 (the
+#: forward and the fused backward)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 _SIGNATURES = {
     "dftt_flash_attention_fwd_bf16": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+}
+_F32_SIGNATURES = {
+    "dftt_flash_attention_fwd_f32": _SIGNATURES["dftt_flash_attention_fwd_bf16"],
+    "dftt_flash_attention_bwd_f32": [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
     "dftt_flash_attention_bwd_bf16": [ctypes.c_void_p] * 10 + [
@@ -155,7 +173,8 @@ def _record_forward_cost(q: torch.Tensor, causal: bool) -> None:
     div = 2 if causal else 1
     flop_count.record_kernel_cost(
         flops=4 * b * h * s * s * d // div, bytes_accessed=4 * b * h * s * d * q.element_size(),
-        transcendentals=b * h * s * s // div, category="attention_fwd")
+        transcendentals=b * h * s * s // div, category="attention_fwd",
+        f32=q.dtype == torch.float32)
 
 
 def _record_backward_cost(q: torch.Tensor, causal: bool, bwd_block_k: Optional[int]) -> None:
@@ -172,20 +191,34 @@ def _record_backward_cost(q: torch.Tensor, causal: bool, bwd_block_k: Optional[i
         bytes_accessed=8 * b * h * s * d * q.element_size()
         + (2 * n_kv * b * h * s * d * 4 if fused else 0),
         transcendentals=(1 if fused else 2) * b * h * s * s // div,
-        category="attention_bwd", hw_flops=(5 if fused else 7) * unit)
+        category="attention_bwd", hw_flops=(5 if fused else 7) * unit,
+        f32=q.dtype == torch.float32)
 
 
-# The fused backward kernel's KV tile (``kBKV`` in
-# csrc/flash_attention_bwd.cu): its dQ scratch holds one slab per KV tile
+# The fused backward kernels' KV tiles (``kBKV`` in
+# csrc/flash_attention_bwd.cu; ``kRows`` in csrc/flash_attention_f32.cu
+# for f32): the dQ scratch holds one slab per KV tile
 _FUSED_BWD_BLOCK_KV = 128
+_F32_BWD_BLOCK_KV = 64
 
 
 def flash_seq_supported(s: int, d: int, itemsize: int = 2) -> bool:
     """True when the kernel takes a prompt of length ``s`` at head dim
-    ``d`` and element size ``itemsize``: bf16 and ``d`` in
-    :data:`SUPPORTED_HEAD_DIMS`. Any ``s >= 1`` tiles (edges are masked)
-    and the shared-memory footprint does not grow with ``s``."""
-    return s >= 1 and itemsize == 2 and d in SUPPORTED_HEAD_DIMS
+    ``d`` and element size ``itemsize``: bf16 (2) or f32 (4), and ``d``
+    in :data:`SUPPORTED_HEAD_DIMS`. Any ``s >= 1`` tiles (edges are
+    masked) and the shared-memory footprint does not grow with ``s``."""
+    return s >= 1 and itemsize in (2, 4) and d in SUPPORTED_HEAD_DIMS
+
+
+def backward_supported(s: int, d: int, dtype: torch.dtype,
+                       bwd_block_k: Optional[int] = None) -> bool:
+    """True when a kernel takes the backward JAX runs at sequence length
+    ``s``, head dim ``d`` and input ``dtype`` (:func:`bwd_layout`): bf16 in
+    either layout, f32 in the fused one only, ``d`` in
+    :data:`BWD_HEAD_DIMS`."""
+    if d not in BWD_HEAD_DIMS or dtype not in KERNEL_DTYPES:
+        return False
+    return dtype == torch.bfloat16 or bwd_layout(s, d, dtype, bwd_block_k) == "fused"
 
 
 def _causal_keep(n: int, device) -> torch.Tensor:
@@ -294,21 +327,26 @@ def flash_attention_dkv_reference(
 
 
 def _check_kernel_inputs(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous bf16 [B, H, S, D] tensor
-    shaped like ``ref`` on ref's CUDA device, at a (S, D) the kernels take."""
+    """Raise unless every tensor is a contiguous [B, H, S, D] tensor of
+    ref's dtype (bf16, or f32 where ``what`` has an f32 build) shaped like
+    ``ref`` on ref's CUDA device, at a (S, D) the kernels take."""
     if ref.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ref.device}")
+    takes = KERNEL_DTYPES if what in ("flash_attention", "flash_attention_backward") \
+        else (torch.bfloat16,)
     for name, t in tensors.items():
         if t.device != ref.device or t.shape != ref.shape or t.dim() != 4:
             raise ValueError(
                 f"{what}: {name} must be [B, H, S, D] like q "
                 f"{tuple(ref.shape)} on {ref.device}, got {tuple(t.shape)} on {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the kernel takes bf16, {name} is {t.dtype}")
+        if t.dtype not in takes or t.dtype != ref.dtype:
+            names = " or ".join(str(x).replace("torch.", "") for x in takes)
+            raise TypeError(f"{what}: the kernel takes {names} (all of one dtype), "
+                            f"{name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     _, _, s, d = ref.shape
-    if not flash_seq_supported(s, d):
+    if not flash_seq_supported(s, d, ref.element_size()):
         raise ValueError(f"{what}: no kernel for S={s}, D={d}")
     if what != "flash_attention" and d not in BWD_HEAD_DIMS:
         raise ValueError(f"{what}: the backward kernels take D in {BWD_HEAD_DIMS}, got D={d}")
@@ -324,13 +362,15 @@ def _forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     b, h, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = build.load("flash_attention", _SIGNATURES)
-    rc = lib.dftt_flash_attention_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h, s, d, int(causal), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.float32:
+        fn = build.load("flash_attention_f32", _F32_SIGNATURES).dftt_flash_attention_fwd_f32
+    else:
+        fn = build.load("flash_attention", _SIGNATURES).dftt_flash_attention_fwd_bf16
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b * h, s, d, int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
-    build.count_launch(flash_attention, d)
+    build.count_launch(flash_attention, d, q.dtype)
     return o, lse
 
 
@@ -343,26 +383,28 @@ def flash_attention_backward(
 
     CPU tensors run :func:`flash_attention_backward_reference`. CUDA
     tensors launch the backward kernel or raise: q/k/v/dO contiguous bf16
-    of one shape with ``D`` in :data:`BWD_HEAD_DIMS`, lse/delta
+    or f32 of one shape with ``D`` in :data:`BWD_HEAD_DIMS`, lse/delta
     contiguous f32. The kernel writes each live pair's f32 dQ partial once
-    into a ``[n_kv, B*H, S, D]`` scratch (JAX's layout, never zeroed), and a
-    second kernel sums them in ascending KV tile, scales and casts: two
-    kernels, one launch counted."""
+    into a ``[n_kv, B*H, S, D]`` scratch (JAX's layout at the kernel's KV
+    tile, never zeroed), and a second kernel sums them in ascending KV
+    tile, scales and casts: two kernels, one launch counted."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, do, lse, delta, causal)
     _check_backward_inputs("flash_attention_backward", q, k, v, do, lse, delta)
     b, h, s, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    n_kv = -(-s // _FUSED_BWD_BLOCK_KV)
+    n_kv = -(-s // (_F32_BWD_BLOCK_KV if q.dtype == torch.float32 else _FUSED_BWD_BLOCK_KV))
     dqp = torch.empty((n_kv, b * h, s, d), dtype=torch.float32, device=q.device)
-    lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    rc = lib.dftt_flash_attention_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqp.data_ptr(), dq.data_ptr(),
-        b * h, s, d, int(causal), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.float32:
+        fn = build.load("flash_attention_f32", _F32_SIGNATURES).dftt_flash_attention_bwd_f32
+    else:
+        fn = build.load("flash_attention_bwd", _BWD_SIGNATURES).dftt_flash_attention_bwd_bf16
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqp.data_ptr(), dq.data_ptr(),
+            b * h, s, d, int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_backward")
-    build.count_launch(flash_attention_backward)
+    build.count_launch(flash_attention_backward, d, q.dtype)
     return dq, dk, dv
 
 
@@ -397,7 +439,7 @@ def flash_attention_dq(
         delta.data_ptr(), dq.data_ptr(), b * h, s, d, int(causal), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_dq")
-    build.count_launch(flash_attention_dq)
+    build.count_launch(flash_attention_dq, d, q.dtype)
     return dq
 
 
@@ -419,7 +461,7 @@ def flash_attention_dkv(
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, s, d, int(causal),
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention_dkv")
-    build.count_launch(flash_attention_dkv)
+    build.count_launch(flash_attention_dkv, d, q.dtype)
     return dk, dv
 
 
@@ -474,8 +516,9 @@ def flash_attention(
     the Q tile changes nothing.
 
     CPU tensors run the plain versions. CUDA tensors launch the kernels or
-    raise: they must be contiguous bf16 of one shape with ``D`` in
-    :data:`SUPPORTED_HEAD_DIMS`. Without a gradient to track (serving runs
+    raise: they must be contiguous bf16 or f32 of one shape with ``D`` in
+    :data:`SUPPORTED_HEAD_DIMS` (f32 trains in the fused backward's range
+    only, :func:`backward_supported`). Without a gradient to track (serving runs
     under ``torch.no_grad()``) the forward is called directly, with no
     autograd bookkeeping."""
     del bwd_block_q  # JAX's Q tile; the layout depends on the KV tile alone
@@ -486,9 +529,10 @@ def flash_attention(
     return (o, lse) if return_lse else o
 
 
-#: kernel launches since the count was last set to 0 (the forward also by head dim)
-flash_attention.launches = 0
-flash_attention.launches_by_head_dim = {}
-flash_attention_backward.launches = 0
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+#: kernel launches since the count was last set to 0, also by head dim and
+#: by dtype
+for _fn in (flash_attention, flash_attention_backward, flash_attention_dq, flash_attention_dkv):
+    _fn.launches = 0
+    _fn.launches_by_head_dim = {}
+    _fn.launches_by_dtype = {}
+del _fn

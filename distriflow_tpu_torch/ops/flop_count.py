@@ -12,7 +12,7 @@ formulas at JAX's record sites, so the tally is held against JAX's on the
 CPU; on the CPU ``cost_analysis`` does not add it, because the plain
 versions' aten ops are counted already (JAX's interpret-mode rule).
 
-Two differences from JAX's module:
+Three differences from JAX's module:
 
 - The tally is one per process, not a context variable: PyTorch runs a
   CUDA backward on autograd threads of its own, which a context variable
@@ -23,6 +23,11 @@ Two differences from JAX's module:
   go to ``hw_flops`` (and its bytes and transcendentals, which the card
   does move and compute, to theirs), never to ``flops``. JAX's trace of a
   ``nn.remat`` model records the recomputed forward as model FLOPs too.
+- A kernel that computes in f32 on the CUDA cores (the f32 attention
+  kernels) also files its ``hw_flops`` under its category's
+  ``f32_hw_flops``, so that :mod:`~distriflow_tpu_torch.ops.roofline`
+  bounds that work by the f32 peak and not the bf16 tensor-core peak. The
+  four fields and the categories stay JAX's.
 
 The JAX names stay as aliases: :func:`record_pallas_cost`,
 :func:`tally_pallas_cost`.
@@ -45,6 +50,8 @@ import threading
 from typing import Dict, Iterator, Optional
 
 _FIELDS = ("flops", "bytes_accessed", "transcendentals", "hw_flops")
+#: a category's hardware FLOPs that ran in f32 on the CUDA cores
+F32_FIELD = "f32_hw_flops"
 
 _lock = threading.Lock()
 _active: Optional[Dict[str, float]] = None  # guarded-by: _lock
@@ -57,10 +64,13 @@ def record_kernel_cost(
     transcendentals: float = 0.0,
     category: Optional[str] = None,
     hw_flops: Optional[float] = None,
+    f32: bool = False,
 ) -> None:
     """Add one kernel call's analytic cost to the open tally (a no-op when
     none is open). ``hw_flops`` defaults to ``flops``; inside
-    :func:`recompute` the call's model FLOPs count as hardware FLOPs only."""
+    :func:`recompute` the call's model FLOPs count as hardware FLOPs only.
+    ``f32``: the kernel computes in f32 on the CUDA cores, so its
+    ``hw_flops`` also go to its category's ``f32_hw_flops``."""
     if _active is None:  # the common case: no lock, no dict
         return
     hw = float(flops if hw_flops is None else hw_flops)
@@ -77,6 +87,8 @@ def record_kernel_cost(
             tally[f] += v
             if cat is not None:
                 cat[f] += v
+        if f32 and cat is not None:
+            cat[F32_FIELD] = cat.get(F32_FIELD, 0.0) + hw
 
 
 @contextlib.contextmanager
@@ -118,7 +130,8 @@ def scale_tally(tally: Dict[str, float], factor: float) -> None:
     ``factor`` in place (a pass traced once and run ``factor`` times)."""
     for f in _FIELDS:
         tally[f] *= factor
-        for cat in tally["by_category"].values():
+    for cat in tally["by_category"].values():
+        for f in cat:
             cat[f] *= factor
 
 

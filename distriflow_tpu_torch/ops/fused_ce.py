@@ -8,7 +8,8 @@ integer labels, a one-hot target) to device memory; the backward writes
 from the saved per-row logsumexp.
 
 ``csrc/fused_ce.cu`` replaces the Pallas ``_fwd_kernel`` and
-``_bwd_kernel`` in both their variants:
+``_bwd_kernel`` in both their variants, on bf16 or f32 logits (the JAX
+kernels keep the logits' dtype, and so does the gradient here):
 
 - ``sparse=True`` (integer labels, the LM loss): :func:`fused_ce_forward`
   and :func:`fused_ce_backward`;
@@ -47,11 +48,13 @@ from distriflow_tpu_torch.ops import build, flop_count
 
 NEG_INF = -1e30
 
-# pointers, then N, V, lanes, rows, aligned, then the stream
+# pointers, then N, V, lanes, rows, aligned, then the stream; each entry
+# at bf16 and f32 logits
 _SIGNATURES = {
-    name: [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    for name, n_ptrs in (("dftt_fused_ce_fwd_bf16", 4), ("dftt_fused_ce_bwd_bf16", 5),
-                         ("dftt_fused_ce_dense_fwd_bf16", 4), ("dftt_fused_ce_dense_bwd_bf16", 5))
+    f"{name}_{tag}": [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for name, n_ptrs in (("dftt_fused_ce_fwd", 4), ("dftt_fused_ce_bwd", 5),
+                         ("dftt_fused_ce_dense_fwd", 4), ("dftt_fused_ce_dense_bwd", 5))
+    for tag in ("bf16", "f32")
 }
 #: threads a block, in both layouts (``kThreads`` in ``csrc/fused_ce.cu``)
 THREADS = 256
@@ -59,8 +62,9 @@ THREADS = 256
 NARROW_MAX_V = 256
 # target dtypes that widen to f32 exactly
 _EXACT_TO_F32 = (torch.float16, torch.bfloat16, torch.float32)
-#: the logits dtype the kernels take
-LOGITS_DTYPE = torch.bfloat16
+#: the logits dtypes the kernels take
+LOGITS_DTYPE = frozenset({torch.bfloat16, torch.float32})
+_TAG = {torch.bfloat16: "bf16", torch.float32: "f32"}
 #: the loss names whose CUDA path runs these kernels (registered below)
 LOSS_NAMES = ("fused_softmax_cross_entropy", "fused_sparse_softmax_cross_entropy")
 
@@ -72,9 +76,9 @@ def check_model(loss: str, device: Optional[torch.device], dtype: Optional[torch
     there and not at its first step. Nothing is known (``None``) or the
     device is not CUDA: nothing to refuse."""
     if device is not None and torch.device(device).type == "cuda" and loss in LOSS_NAMES \
-            and dtype is not None and dtype != LOGITS_DTYPE:
+            and dtype is not None and dtype not in LOGITS_DTYPE:
         raise NotImplementedError(
-            f"no CUDA fused cross-entropy kernel for {dtype} logits: it takes bf16; "
+            f"no CUDA fused cross-entropy kernel for {dtype} logits: it takes bf16 or f32; "
             f"set loss='{loss[len('fused_'):]}' for the plain loss")
 
 
@@ -102,12 +106,12 @@ def fused_ce_backward_reference(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _check_rows(what: str, logits: torch.Tensor, **rows: torch.Tensor) -> None:
-    """Raise unless ``logits`` is contiguous bf16 ``[N, V]`` on CUDA and
-    every row vector is a contiguous ``[N]`` tensor of its kernel dtype."""
+    """Raise unless ``logits`` is contiguous bf16 or f32 ``[N, V]`` on CUDA
+    and every row vector is a contiguous ``[N]`` tensor of its kernel dtype."""
     if logits.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {logits.device}")
-    if logits.dim() != 2 or logits.dtype != LOGITS_DTYPE or not logits.is_contiguous():
-        raise TypeError(f"{what}: the kernel takes contiguous bf16 [N, V] logits, got "
+    if logits.dim() != 2 or logits.dtype not in LOGITS_DTYPE or not logits.is_contiguous():
+        raise TypeError(f"{what}: the kernel takes contiguous bf16 or f32 [N, V] logits, got "
                         f"{logits.dtype} {tuple(logits.shape)}")
     n = logits.shape[0]
     for name, t in rows.items():
@@ -121,8 +125,9 @@ def _row_tile(v: int) -> Optional[Tuple[int, int]]:
     rows)``, G lanes a row (the least power of two with 8 G >= v, so that
     a lane holds at most 8 columns) and R = 256 / G rows a block; ``None``
     above :data:`NARROW_MAX_V`, where a block takes one row. A tile's [R,
-    v] bf16 logits are R v 2 = 512 v / G bytes, a multiple of 16 for every
-    G <= 32: the backward loads and stores whole tiles 16 bytes at a time
+    v] logits are 512 v / G bytes (bf16) or 1024 v / G (f32), a multiple
+    of 16 for every G <= 32: the backward loads and stores whole tiles 16
+    bytes at a time
     wherever :func:`_aligned` holds (all but a partial tile's last chunk)."""
     if v > NARROW_MAX_V:
         return None
@@ -130,6 +135,12 @@ def _row_tile(v: int) -> Optional[Tuple[int, int]]:
     while 8 * lanes < v:
         lanes *= 2
     return lanes, THREADS // lanes
+
+
+def _entry(name: str, logits: torch.Tensor):
+    """The C entry ``dftt_fused_ce_<name>`` built for the logits' dtype."""
+    lib = build.load("fused_ce", _SIGNATURES)
+    return getattr(lib, f"dftt_fused_ce_{name}_{_TAG[logits.dtype]}")
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -167,12 +178,12 @@ def fused_ce_forward(logits: torch.Tensor, labels: torch.Tensor
     n, v = logits.shape
     loss = torch.empty(n, dtype=torch.float32, device=logits.device)
     lse = torch.empty(n, dtype=torch.float32, device=logits.device)
-    lib = build.load("fused_ce", _SIGNATURES)
-    rc = lib.dftt_fused_ce_fwd_bf16(
+    fn = _entry("fwd", logits)
+    rc = fn(
         logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(), n, v,
         *_tile_args(logits), torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_forward")
-    build.count_launch(fused_ce_forward)
+    build.count_launch(fused_ce_forward, dtype=logits.dtype)
     return loss, lse
 
 
@@ -186,12 +197,12 @@ def fused_ce_backward(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Ten
     _check_rows("fused_ce_backward", logits, labels=labels, lse=lse, g=g)
     n, v = logits.shape
     grad = torch.empty_like(logits)
-    lib = build.load("fused_ce", _SIGNATURES)
-    rc = lib.dftt_fused_ce_bwd_bf16(
+    fn = _entry("bwd", logits)
+    rc = fn(
         logits.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), grad.data_ptr(),
         n, v, *_tile_args(logits, grad), torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_backward")
-    build.count_launch(fused_ce_backward)
+    build.count_launch(fused_ce_backward, dtype=logits.dtype)
     return grad
 
 
@@ -225,7 +236,7 @@ def _check_targets(what: str, logits: torch.Tensor, targets: torch.Tensor) -> No
 def fused_ce_dense_forward(logits: torch.Tensor, targets: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row ``(loss, lse)`` (f32) of ``[N, V]`` logits against ``[N, V]``
-    dense targets: the kernel on CUDA (bf16 logits, f32 targets), the plain
+    dense targets: the kernel on CUDA (bf16 or f32 logits, f32 targets), the plain
     version on the CPU."""
     _record_cost(logits, backward=False)
     if logits.device.type == "cpu":
@@ -235,12 +246,12 @@ def fused_ce_dense_forward(logits: torch.Tensor, targets: torch.Tensor
     n, v = logits.shape
     loss = torch.empty(n, dtype=torch.float32, device=logits.device)
     lse = torch.empty(n, dtype=torch.float32, device=logits.device)
-    lib = build.load("fused_ce", _SIGNATURES)
-    rc = lib.dftt_fused_ce_dense_fwd_bf16(
+    fn = _entry("dense_fwd", logits)
+    rc = fn(
         logits.data_ptr(), targets.data_ptr(), loss.data_ptr(), lse.data_ptr(), n, v,
         *_tile_args(logits, targets), torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_dense_forward")
-    build.count_launch(fused_ce_dense_forward)
+    build.count_launch(fused_ce_dense_forward, dtype=logits.dtype)
     return loss, lse
 
 
@@ -255,21 +266,21 @@ def fused_ce_dense_backward(logits: torch.Tensor, targets: torch.Tensor, lse: to
     _check_targets("fused_ce_dense_backward", logits, targets)
     n, v = logits.shape
     grad = torch.empty_like(logits)
-    lib = build.load("fused_ce", _SIGNATURES)
-    rc = lib.dftt_fused_ce_dense_bwd_bf16(
+    fn = _entry("dense_bwd", logits)
+    rc = fn(
         logits.data_ptr(), targets.data_ptr(), lse.data_ptr(), g.data_ptr(), grad.data_ptr(),
         n, v, *_tile_args(logits, targets, grad),
         torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(rc, "fused_ce_dense_backward")
-    build.count_launch(fused_ce_dense_backward)
+    build.count_launch(fused_ce_dense_backward, dtype=logits.dtype)
     return grad
 
 
-#: kernel launches since the count was last set to 0
-fused_ce_forward.launches = 0
-fused_ce_backward.launches = 0
-fused_ce_dense_forward.launches = 0
-fused_ce_dense_backward.launches = 0
+#: kernel launches since the count was last set to 0, also by logits dtype
+for _fn in (fused_ce_forward, fused_ce_backward, fused_ce_dense_forward, fused_ce_dense_backward):
+    _fn.launches = 0
+    _fn.launches_by_dtype = {}
+del _fn
 
 
 class _SparseCE(torch.autograd.Function):

@@ -11,12 +11,13 @@
   parameters within 1e-6 over 3 sgd steps (the same f32 arithmetic, sums
   in other orders).
 - A spec whose loss runs the fused cross-entropy kernels on CUDA with
-  logits other than bf16 is refused when built (``NotImplementedError``):
-  by ``spec_from_module`` (and so ``DistributedModuleModel``), by
-  ``SyncTrainer`` and by ``SpecModel``. Driven here without a card by
-  making ``torch.cuda.is_available`` report one: nothing is allocated
-  before the refusal. The same configurations build and train on the CPU,
-  through the plain losses.
+  logits other than bf16 or f32 (f16) is refused when built
+  (``NotImplementedError``): by ``spec_from_module`` (and so
+  ``DistributedModuleModel``), by ``SyncTrainer`` and by ``SpecModel``;
+  f32 and bf16 specs build. Driven here without a card by making
+  ``torch.cuda.is_available`` report one: nothing is allocated before the
+  refusal. The same configurations build and train on the CPU, through
+  the plain losses.
 """
 
 import dataclasses
@@ -114,23 +115,31 @@ def fake_card(monkeypatch):
 
 @pytest.mark.parametrize("loss", FUSED)
 def test_fused_loss_on_an_f32_cuda_model_is_refused_when_built(fake_card, loss):
+    # f32 logits now have kernels: an f32 model builds, and the dtype the
+    # kernels still refuse, f16, is refused at each of the same places
     spec = zoo.cifar_convnet(device="cuda")  # f32, the plain loss: builds
     assert spec.dtype == torch.float32 and spec.device.type == "cuda"
-    fused = dataclasses.replace(spec, loss=loss)
+    SyncTrainer(dataclasses.replace(spec, loss=loss), optimizer="sgd", learning_rate=0.01)
+    SpecModel(spec, compile_config=CompileConfig(loss=loss))
+    half = zoo.cifar_convnet(dtype=torch.float16, device="cuda")
     with pytest.raises(NotImplementedError, match="takes bf16"):
-        SyncTrainer(fused, optimizer="sgd", learning_rate=0.01)
+        SyncTrainer(dataclasses.replace(half, loss=loss), optimizer="sgd", learning_rate=0.01)
     with pytest.raises(NotImplementedError, match="takes bf16"):
-        SpecModel(spec, compile_config=CompileConfig(loss=loss))
+        SpecModel(half, compile_config=CompileConfig(loss=loss))
     with pytest.raises(NotImplementedError, match="takes bf16"):
-        spec_from_module(lambda: torch.nn.Linear(4, 2), (4,), (2,), loss=loss, device="cuda")
+        spec_from_module(lambda: torch.nn.Linear(4, 2, dtype=torch.float16), (4,), (2,),
+                         loss=loss, device="cuda")
     with pytest.raises(NotImplementedError, match="takes bf16"):
-        DistributedModuleModel(lambda: torch.nn.Linear(4, 2), (4,), (2,),
+        DistributedModuleModel(lambda: torch.nn.Linear(4, 2, dtype=torch.float16), (4,), (2,),
                                compile_config=CompileConfig(loss=loss), device="cuda")
     with pytest.raises(NotImplementedError, match="takes bf16"):
         transformer_lm(TransformerConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=1,
-                                         d_ff=64, max_seq=16, dtype=torch.float32,
+                                         d_ff=64, max_seq=16, dtype=torch.float16,
                                          loss="fused_sparse_softmax_cross_entropy"),
                        device="cuda")
+    transformer_lm(TransformerConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=1,
+                                     d_ff=64, max_seq=16, dtype=torch.float32,
+                                     loss="fused_sparse_softmax_cross_entropy"), device="cuda")
 
 
 @pytest.mark.parametrize("loss", FUSED)
@@ -145,12 +154,14 @@ def test_fused_loss_on_a_bf16_cuda_model_builds(fake_card, loss):
 
 
 @pytest.mark.parametrize("loss,device,dtype,refused", [
-    ("fused_softmax_cross_entropy", "cuda", torch.float32, True),
+    ("fused_softmax_cross_entropy", "cuda", torch.float16, True),
     ("fused_sparse_softmax_cross_entropy", "cuda", torch.float16, True),
     ("fused_sparse_softmax_cross_entropy", "cuda", torch.bfloat16, False),
     ("fused_softmax_cross_entropy", "cpu", torch.float32, False),
     ("softmax_cross_entropy", "cuda", torch.float32, False),
     ("fused_softmax_cross_entropy", "cuda", None, False),
+    ("fused_softmax_cross_entropy", "cuda", torch.float32, False),
+    ("fused_sparse_softmax_cross_entropy", "cuda", torch.float32, False),
 ])
 def test_the_kernel_layer_owns_the_fused_ce_dtype_rule(loss, device, dtype, refused):
     # the rule every model's build-time check calls, beside the launch-time check
@@ -159,7 +170,8 @@ def test_the_kernel_layer_owns_the_fused_ce_dtype_rule(loss, device, dtype, refu
             fused_ce.check_model(loss, torch.device(device), dtype)
     else:
         fused_ce.check_model(loss, torch.device(device), dtype)
-    assert set(fused_ce.LOSS_NAMES) == set(FUSED) and fused_ce.LOGITS_DTYPE == torch.bfloat16
+    assert set(fused_ce.LOSS_NAMES) == set(FUSED)
+    assert fused_ce.LOGITS_DTYPE == {torch.bfloat16, torch.float32}
 
 
 def test_fused_dense_loss_on_an_f32_model_trains_on_the_cpu():

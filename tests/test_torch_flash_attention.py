@@ -78,16 +78,17 @@ def test_plain_prefill_matches_blockwise(dtype_name, causal, d):
 
 def test_seq_gate_is_the_cards_shared_memory_rule():
     # any length tiles (edges are masked) and the kernel's shared memory
-    # does not grow with S; it is built for bf16 at D 64 and 32
+    # does not grow with S; it is built for bf16 and f32 at D 64 and 32
     for s in (1, 7, 37, 1000, 32_701):
         for d in HEAD_DIMS:
             assert port_fa.flash_seq_supported(s, d)
     assert not port_fa.flash_seq_supported(512, 128)
     assert not port_fa.flash_seq_supported(512, 16)
-    assert not port_fa.flash_seq_supported(512, 64, itemsize=4)
-    assert not port_fa.flash_seq_supported(512, 32, itemsize=4)
+    assert port_fa.flash_seq_supported(512, 64, itemsize=4)  # the f32 kernel
+    assert port_fa.flash_seq_supported(512, 32, itemsize=4)
+    assert not port_fa.flash_seq_supported(512, 64, itemsize=1)
     assert not port_fa.flash_seq_supported(0, 64)
-    assert port_fa.BWD_HEAD_DIMS == (64,)  # the backward stays at D 64
+    assert port_fa.BWD_HEAD_DIMS == (32, 64)  # the backward at both head dims
 
 
 def test_wrapper_refuses_devices_it_has_no_kernel_for():

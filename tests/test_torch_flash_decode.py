@@ -106,13 +106,16 @@ def test_gates_count_and_refuse_what_the_kernel_lacks():
 
 
 @pytest.mark.parametrize("kw,page_size,what", [
-    (dict(dtype=torch.float32), None, "prefill attention, slab decode"),
+    (dict(dtype=torch.float16), None, "prefill attention, slab decode"),
     (dict(d_model=256, n_heads=2), None, "head dim 128"),
     ({}, 512, "paged decode at page_size 512"),
+    # f32 has prefill kernels; the decode kernels read bf16
+    (dict(dtype=torch.float32), None, "no CUDA kernel for slab decode"),
 ])
 def test_cuda_model_raises_where_the_kernels_do_not_take_it(kw, page_size, what):
-    """On the card there is no plain path to fall back to: a model or paged
-    cache the kernels cannot serve is refused when it is built."""
+    """On the card there is no plain path to fall back to: a model, or the
+    decode cache it would decode through, that the kernels cannot serve is
+    refused when it is built."""
     from distriflow_tpu_torch.models.transformer import TransformerConfig, check_kernels_take
 
     cfg = TransformerConfig(**{**dict(vocab_size=64, d_model=128, n_heads=2, n_layers=1,

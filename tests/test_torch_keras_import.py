@@ -577,12 +577,16 @@ def test_h5_topology_and_weights(tmp_path):
 
 def test_fused_loss_on_an_f32_cuda_model_is_refused_when_built(tmp_path, monkeypatch):
     """The spec states its device and dtype, so ``check_loss`` refuses a
-    fused CE loss on an f32 CUDA model when it is built (driven on the
+    fused CE loss on a CUDA model whose logits the kernels do not take
+    (f16) when it is built, and builds an f32 or bf16 one (driven on the
     CPU: nothing is allocated before the refusal)."""
     path = _load(tmp_path, _convnet())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(NotImplementedError, match="bf16"):
-        tk.spec_from_keras_json(path, loss="fused_softmax_cross_entropy", device="cuda")
+        tk.spec_from_keras_json(path, loss="fused_softmax_cross_entropy", device="cuda",
+                                dtype=torch.float16)
+    spec = tk.spec_from_keras_json(path, loss="fused_softmax_cross_entropy", device="cuda")
+    assert spec.dtype == torch.float32
     spec = tk.spec_from_keras_json(path, loss="fused_softmax_cross_entropy", device="cuda",
                                    dtype=torch.bfloat16)
     assert spec.device == torch.device("cuda") and spec.dtype == torch.bfloat16
