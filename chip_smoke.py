@@ -400,19 +400,37 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     (``lm_cli_long``: kernel 1 twice a layer a step, kernels 7 and 8 at D
     32 once); (c) ``--dtype float32`` at S 512, 20 steps
     (``lm_cli_f32``: kernels 1 and 6 in f32 at D 32, 9 and 10 on f32
-    logits, the counts of (a)); an f32 ``generate()`` must then be
-    refused by name (no decode kernel reads f32). Each path's losses
-    fall, and one step through the kernels is held against the plain
-    path within ``STEP_TOL`` (path (b) on the batch's first row: the
-    plain path's [S, S] scores). Rows ``flash_attention_bwd_d32``,
+    logits, the counts of (a)), then its ``--generate 64``
+    (``lm_cli_f32_generate``: kernel 1 in f32 once a layer, kernel 3 on
+    the f32 slab 63 times a layer, no bf16 decode) and ``--serve`` at
+    page 128 (``lm_cli_f32_serve``: the 4 greedy requests, a beam of 16
+    tokens and a score of a 512-token window; kernel 1 in f32 once a
+    layer a prefill, kernel 2 on the f32 pool once a layer a decode step,
+    kernel 3 once a layer a beam step after the first), every served
+    greedy stream equal to solo f32 ``generate()`` bit for bit (pages of
+    128 split as slab tiles), the beam under the near-tie rule, the score
+    within ``SCORE_RTOL`` of the plain attention path; an f32 paged cache
+    at page 16 (where JAX decodes in true f32 through XLA) refused by
+    name; (d) ``--dtype float32 --seq 16384 --remat`` at B 8, 3 steps
+    (``lm_cli_f32_long``: kernel 1 in f32 twice a layer a step, kernels 7
+    and 8 in f32 once, 9 and 10 on f32 logits once a step; losses, step
+    p50 and peak memory reported). Each path's losses fall, and one step
+    through the kernels is held against the plain path within
+    ``STEP_TOL`` (paths (b) and (d) on the batch's first row: the plain
+    path's [S, S] scores). Rows ``flash_attention_bwd_d32``,
     ``flash_attention_dq_d32``, ``flash_attention_dkv_d32``,
     ``flash_attention_fwd_f32``, ``flash_attention_bwd_f32`` (and D 64
     beside them), ``fused_ce_fwd_f32``, ``fused_ce_bwd_f32`` (N 4096 x V
-    256, and V 32000 beside them) and ``fused_ce_dense_fwd_f32``,
-    ``fused_ce_dense_bwd_f32`` (no path runs them) hold each new variant
-    at its path's shape: the limit, the same bits twice, planted faults
-    rejected, ragged lengths, and its time beside its bound, its plain
-    version (f32 with TF32 off) and a library call.
+    256, and V 32000 beside them), ``fused_ce_dense_fwd_f32``,
+    ``fused_ce_dense_bwd_f32`` (no path runs them),
+    ``flash_decode_f32`` (B1, the CLI's f32 slab of 512; D 64 at B1
+    S2048, 1064 valid), ``flash_decode_paged_f32`` (the serve leg's slots
+    at page 128; D 64 at row 2's B8 H8 shape), ``flash_attention_dq_f32``
+    and ``flash_attention_dkv_f32`` (B8 H8 S16384 D32; D 64 at B1 H8
+    S16384) hold each new variant at its path's shape: the limit, the
+    same bits twice, planted faults rejected, ragged lengths (the
+    attention rows), and its time beside its bound, its plain version
+    (f32 with TF32 off) and a library call.
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -425,7 +443,7 @@ draft's (``*_d32``): kernel 1 at B1 H4 S1024 and S16288, kernel 2 at the
 draft's contexts over the 4 slots, kernel 3 at the draft's solo shape,
 each with its D 64 row's checks. Each row's
 ``launches_by_path`` gives its count in every window. The line
-before the last is the kernel table as JSON (28 rows); the last line is
+before the last is the kernel table as JSON (32 rows); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
 """
@@ -503,7 +521,14 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "fused_ce_fwd_f32": (1e-6, 1e-5),
        "fused_ce_bwd_f32": (1e-8, 1e-5),
        "fused_ce_dense_fwd_f32": (1e-6, 1e-5),
-       "fused_ce_dense_bwd_f32": (1e-8, 1e-5)}
+       "fused_ce_dense_bwd_f32": (1e-8, 1e-5),
+       # the f32 decode kernels: this f32 order term plus two flips of p
+       # per (row, head), see F32_DECODE_FLIPS below
+       "flash_decode_f32": (1e-6, 1e-5),
+       "flash_decode_paged_f32": (1e-6, 1e-5),
+       # the f32 two-kernel backward, see below
+       "flash_attention_dq_f32": (1e-6, 1e-5),
+       "flash_attention_dkv_f32": (2e-5, 1e-5)}
 # The f32 kernels (attention forward and fused backward, the CE on f32
 # logits) add f32 terms in another order than their plain versions, with
 # no rounding to a narrower type anywhere: an element differs by a few f32
@@ -527,12 +552,47 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
 # B1 H8 S8192; 5e-3 keeps about the 3x margin that 1e-3 has over rows
 # 7-8's need (row 6's ``atol_needed_by_check`` gives each run's). No
 # backward kernel uses atomics, so each gives the same bits every launch.
+# The f32 two-kernel backward (kernels 7 and 8 on f32 inputs) computes in
+# f32 throughout, as the fused f32 row, and dQ keeps its limit (the largest
+# atol any element needed above rtol 1e-5 was 4.9e-7 at the path's shape,
+# B8 H8 S16384 D32, on the H100: the row's ``atol_needed``). dK and dV need
+# more: the dK/dV kernel sums each key's terms over all its queries, up to
+# 16384 at S 16384, against 512 in the fused row, one f32 add a term in its
+# order where the plain version's cuBLAS product takes another; two orders
+# of a sum of n terms drift apart as about sqrt(n) rounding steps of the
+# partial sums, sqrt(32) = 5.7 times the fused row's, and where dK or dV
+# cancels to near 0 that drift is all the error. Measured need (the row's
+# ``atol_needed``): 4.1e-6 at D 32, 6.4e-6 at D 64 (B1 H8 S16384); atol
+# 2e-5 keeps a margin of 3.
+# The f32 decode kernels (kernels 2 and 3 on f32 caches) follow the bf16
+# decode rows' derivation without the output's bf16 rounding: they round q,
+# K, V and p to bf16 as their plain versions do, against the same running
+# max, and combine the same live splits in the same order, so what stays
+# is the order of the f32 sums (atol 1e-6 + rtol 1e-5 of |plain|, the
+# other f32 rows' term) and a flip of p: where the scores' f32 sums differ
+# in their last bits, a p can round to the neighbouring bf16 value, which
+# moves output element d by at most 2**-7 w_j |v_jd|, w_j the position's
+# softmax weight. The top position of a (row, head) cannot flip: its p is
+# exp(0) = 1 on both sides. The limit adds F32_DECODE_FLIPS such flips,
+# each at the heaviest other position of the (row, head):
+# 2 * 2**-7 * max_j w_j |v_jd| (:func:`_f32_decode_atol`). A limit as wide
+# as one bf16 rounding of q, K and V would pass a true-f32 decode, the
+# computation JAX runs where its f32 gate says no and the reason the port
+# refuses those shapes; so each f32 decode case also holds the unrounded
+# decode (:func:`_unrounded_decode`) against the plain version, and the
+# row fails unless some element of every case, and at least
+# TRUE_F32_MIN_SHARE of all its cases' elements, lie outside the limit
+# (on CPU draws of the rows' shapes: 1 to 16% a case, the short rows of
+# 33 and 95 positions the least, 5% or more pooled; a share of 0 at every
+# shape at the earlier limit, 2 * 2**-7 * max|v| / L over the whole cache).
 # The dense CE forward adds sum(x * t) over the row in f32 in another
 # order than its plain version, as the sparse one adds its exps (measured
 # 9.5e-7 at V 10 and at V 32000): the sparse limit. The dense CE gradient
 # differs only by a rounding flip of the bf16 output (measured 0.0), as
 # the sparse one.
 LSE_ATOL = 1e-4
+F32_DECODE_FLIPS = 2
+TRUE_F32_MIN_SHARE = 0.01
 # A training step through the kernels against the plain path, from the
 # same f32 masters and batch: |loss difference| and, for every parameter,
 # ||grad_kernels - grad_plain|| / ||grad_plain||. The kernel path feeds
@@ -1014,7 +1074,47 @@ def _timed(fn, iters, flush):
 
 def _tol(name):
     atol, rtol = TOL[name]
-    return f"atol {atol} + rtol {rtol} x |plain|"
+    flips = (f" + {F32_DECODE_FLIPS} x 2**-7 x max_j w_j |v_jd| (j not the top position)"
+             if name in ("flash_decode_f32", "flash_decode_paged_f32") else "")
+    return f"atol {atol} + rtol {rtol} x |plain|{flips}"
+
+
+def _f32_decode_rows(q, k, v, lens, table=None):
+    """Each row's K and V ``[B, P, H, D]`` (a slab's rows, or the pages of
+    each row's table in order) and its valid positions ``[B, P]``."""
+    b, h, d = q.shape
+    if table is None:
+        kr, vr = (t.view(t.shape[0], t.shape[1], h, d) for t in (k, v))
+    else:
+        tab = table.long().clamp(0, k.shape[0] - 1)
+        kr, vr = (t[tab].reshape(b, -1, h, d) for t in (k, v))
+    return kr, vr, torch.arange(kr.shape[1], device=q.device) < lens[:, None].long()
+
+
+def _f32_decode_atol(name, q, kr, vr, valid):
+    """The f32 decode limit's atol, elementwise ``[B, H, D]``: ``name``'s
+    f32 order term plus :data:`F32_DECODE_FLIPS` flips of p, each charged
+    at the (row, head)'s heaviest ``w_j |v_jd|`` but for its top position
+    (``w`` the softmax of the bf16-rounded scores; see the note above
+    :data:`TOL`'s f32 decode entries). ``kr, vr, valid`` from
+    :func:`_f32_decode_rows`."""
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    s = torch.einsum("bhd,bphd->bhp", bf(q), bf(kr)) / math.sqrt(q.shape[-1])
+    s = torch.where(valid[:, None], s, -1e30)
+    w = torch.softmax(s, -1) * valid[:, None]
+    w = w.scatter(-1, s.argmax(-1, keepdim=True), 0.0)  # p = exp(0) = 1 there on both sides
+    heaviest = (w[..., None] * bf(vr).abs().permute(0, 2, 1, 3)).amax(2)
+    return TOL[name][0] + F32_DECODE_FLIPS * 2 ** -7 * heaviest
+
+
+def _unrounded_decode(q, kr, vr, valid):
+    """Decode with no bf16 rounding of q, K, V or p, in f64: what XLA's
+    true-f32 decode computes, to within f32. The f32 rows' control: their
+    limit must put a share of its elements outside (``true_f32_share``),
+    else it could not tell the bf16-compute contract from true f32."""
+    s = torch.einsum("bhd,bphd->bhp", q.double(), kr.double()) / math.sqrt(q.shape[-1])
+    w = torch.softmax(torch.where(valid[:, None], s, -1e30), -1)
+    return torch.einsum("bhp,bphd->bhd", w, vr.double()).float()
 
 
 def _over(name, got, want, atol, rtol):
@@ -1040,13 +1140,15 @@ def _flush_buffer():
     return torch.empty(32 << 20, dtype=torch.float32, device="cuda")  # 128 MB > 50 MB L2
 
 
-def _wrong_combines(name, parts, want):
+def _wrong_combines(name, parts, want, atol=None):
     """The share of elements outside ``name``'s limit around the plain
     output ``want`` for three wrong combines of the plain split partials
     ``parts``: without the exp(m_i - M) rescale (over the rows with two or
     more live splits, the only ones it changes), without the split holding
     each (row, head)'s max, and without each row's last live split (which
-    may hold too little of a peaked softmax to show: reported only)."""
+    may hold too little of a peaked softmax to show: reported only).
+    ``atol``: a ``[B, H, 1]`` tensor in place of the limit's atol (the f32
+    rows')."""
     from distriflow_tpu_torch.ops import flash_decode as fd
 
     live = [lv for *_, lv in parts]
@@ -1060,9 +1162,12 @@ def _wrong_combines(name, parts, want):
     no_max = [(m, torch.where(top == i, 0.0, li), torch.where((top == i)[..., None], 0.0, a), lv)
               for i, (m, li, a, lv) in enumerate(parts)]
     no_last = [(m, li, a, lv & (i < n_live - 1)) for i, (m, li, a, lv) in enumerate(parts)]
-    return {"no_rescale": _rejected(name, no_rescale[multi], want[multi]),
-            "drop_max_split": _rejected(name, fd.combine_partials(no_max).to(want.dtype), want),
-            "drop_last_split": _rejected(name, fd.combine_partials(no_last).to(want.dtype), want)}
+    return {"no_rescale": _rejected(name, no_rescale[multi], want[multi],
+                                    None if atol is None else atol[multi]),
+            "drop_max_split": _rejected(name, fd.combine_partials(no_max).to(want.dtype), want,
+                                        atol),
+            "drop_last_split": _rejected(name, fd.combine_partials(no_last).to(want.dtype), want,
+                                         atol)}
 
 
 def _decode_checks(name, fn, plain, parts, flush, iters):
@@ -2178,18 +2283,24 @@ def _long_training(tree, counted, device="cuda", steps=LONG_TRAIN_STEPS, seq=LON
 # (vocab 256 from experiments/lm/data.py, d_model 256 over 8 heads of 32, 4
 # layers, d_ff 1024, seq 512, B 8, bf16, adam at 3e-3, --attention auto and
 # the loss auto: the fused sparse CE on the accelerator), on windows of its
-# order-1 Markov corpus, from a seeded flax-shaped tree. Three paths, each
+# order-1 Markov corpus, from a seeded flax-shaped tree. Four paths, each
 # in launch windows of its own: (a) the defaults, LM_CLI_STEPS steps, then
 # --generate 64 from a 32-token prompt of the held-out tail (slab decode)
 # and --serve (LM_CLI_SERVE greedy requests through InferenceServer, paged
 # decode); (b) --seq 16384 --remat at B 8, LM_CLI_LONG_STEPS steps (the
 # two-kernel backward); (c) --dtype float32 at S 512, LM_CLI_STEPS steps
-# (the f32 kernels).
+# (the f32 kernels), then --generate 64 and --serve in f32 (the f32 decode
+# kernels; the served requests also a beam of LM_CLI_BEAM_TOKENS tokens and
+# a score of a whole window); (d) --dtype float32 --seq 16384 --remat at B
+# 8, LM_CLI_F32_LONG_STEPS steps (the f32 two-kernel backward; fewer steps
+# than (b)'s, its f32 kernels run on the CUDA cores, but 3: from this init
+# the loss of the second step's batch lies above the first's in both
+# dtypes, 6.0587 -> 6.0620 -> 5.8834 in bf16, so 2 steps show no fall).
 LM_CLI = dict(vocab_size=CORPUS_VOCAB, d_model=256, n_heads=8, n_layers=4, d_ff=1024,
               max_seq=512)
 LM_CLI_B, LM_CLI_LR, LM_CLI_STEPS = 8, 3e-3, 20
-LM_CLI_LONG_S, LM_CLI_LONG_STEPS = 16384, 4
-LM_CLI_PROMPT, LM_CLI_SERVE = 32, 4
+LM_CLI_LONG_S, LM_CLI_LONG_STEPS, LM_CLI_F32_LONG_STEPS = 16384, 4, 3
+LM_CLI_PROMPT, LM_CLI_SERVE, LM_CLI_BEAM_TOKENS = 32, 4, 16
 
 
 def _lm_cli_config(**kw):
@@ -2222,8 +2333,85 @@ def _exact(window, counts, want):
     assert got == want, f"{window}: launched {got}, want {want}"
 
 
+def _follow_share(corpus, toks, prompt):
+    """The share of a generated stream's transitions that the corpus has."""
+    seen = set(zip(corpus[:-1].tolist(), corpus[1:].tolist()))
+    toks = toks.tolist()
+    follows = [(a, b) in seen for a, b in zip(toks[prompt - 1:-1], toks[prompt:])]
+    return sum(follows) / len(follows)
+
+
+def _lm_cli_f32_decode(model, corpus, held, prompts, counted, device):
+    """Path (c)'s decode legs on the trained f32 model: ``--generate 64``
+    (slab), then ``--serve`` (the greedy requests, a beam and a score
+    through the port's server at its default page size 128, one window),
+    then pages of 16 refused by name. Returns ``(report, windows)``."""
+    from distriflow_tpu_torch.models.generate import beam_search, generate, paged_cache
+    from distriflow_tpu_torch.models.generate import sequence_logprob
+    from distriflow_tpu_torch.models.transformer import TransformerLM
+
+    cfg, n = model.config, model.config.n_layers
+    f32 = ("", "_d32", "_f32")
+    gen, w = counted(lambda: generate(model, prompts[0], N_TOKENS).cpu())
+    windows = {"lm_cli_f32_generate": w}
+    _exact("lm_cli_f32_generate", w, {**{f"flash_attention_fwd{t}": n for t in f32},
+                                      **{f"flash_decode{t}": n * (N_TOKENS - 1) for t in f32}})
+    report = {"generate": {"prompt": LM_CLI_PROMPT, "tokens": N_TOKENS,
+                           "follow_corpus_share": _follow_share(corpus, gen[0], LM_CLI_PROMPT)}}
+    reqs = [(f"cli{i}", p, {}) for i, p in enumerate(prompts)]
+    solos = {"cli0": gen, **_solo(model, reqs[1:])}
+    score_tokens = held[-cfg.max_seq:][None].astype(np.int32)
+    direct = (("beam", lambda c: c.beam_search(prompts[1], LM_CLI_BEAM_TOKENS, beam_size=BEAM_SIZE)),
+              ("score", lambda c: c.score(score_tokens, from_pos=LM_CLI_PROMPT)))
+    outs, stats, w, done = _serve(model, reqs, counted, direct)
+    (beam_got, beam_w), (served_score, score_w) = done["beam"], done["score"]
+    w = {k: w[k] + beam_w[k] + score_w[k] for k in w}
+    windows["lm_cli_f32_serve"] = w
+    # one kernel 1 launch a layer a prefill (the engine's, the beam's, the
+    # score's), one paged launch a layer a decode step, one slab launch a
+    # layer a beam step after the first
+    _exact("lm_cli_f32_serve", w, {
+        **{f"flash_attention_fwd{t}": n * (stats["prefills"] + 2) for t in f32},
+        **{f"flash_decode_paged{t}": n * stats["decode_steps"] for t in f32},
+        **{f"flash_decode{t}": n * (LM_CLI_BEAM_TOKENS - 1) for t in f32}})
+    # pages of 128 and slab tiles split alike: every served greedy stream is
+    # solo generate()'s, bit for bit
+    parity = {name: torch.equal(torch.as_tensor(outs[name]), solos[name]) for name, *_ in reqs}
+    assert all(parity.values()), f"served f32 streams differ from solo generate(): {parity}"
+    beam = _beam_verdict(model, torch.as_tensor(prompts[1], device=model.device),
+                         (torch.as_tensor(np.asarray(beam_got[0]), dtype=torch.int32),
+                          torch.as_tensor(np.asarray(beam_got[1]), dtype=torch.float32)),
+                         beam_search(model, prompts[1], LM_CLI_BEAM_TOKENS, beam_size=BEAM_SIZE))
+    assert beam["ok"], beam
+    plain = TransformerLM(dataclasses.replace(cfg, use_flash_attention=False), device=device)
+    plain.load_state_dict(model.state_dict())
+    want = float(sequence_logprob(plain, score_tokens, LM_CLI_PROMPT)[0])
+    del plain
+    got = float(np.asarray(served_score)[0])
+    rel = abs(got - want) / abs(want)
+    assert math.isfinite(got) and rel <= SCORE_RTOL, (got, want, rel)
+    report["serve"] = {
+        **stats, "greedy_equal_to_solo": parity, "page_size": 128,
+        "follow_corpus_share": {name: _follow_share(corpus, torch.as_tensor(outs[name])[0],
+                                                    LM_CLI_PROMPT) for name, *_ in reqs},
+        "beam": {"n_tokens": LM_CLI_BEAM_TOKENS, "beam_size": BEAM_SIZE, **beam},
+        "score": {"len": cfg.max_seq, "from_pos": LM_CLI_PROMPT, "served": got,
+                  "plain_attention": want, "rel_diff": rel, "limit": SCORE_RTOL}}
+    # pages of 16: JAX decodes an f32 cache there through XLA in true f32,
+    # which no kernel here computes, so the card refuses the cache by name
+    # (the CPU runs the plain path)
+    if device == "cuda":
+        try:
+            paged_cache(cfg, 8, 16, 16, device)
+            raise AssertionError("an f32 paged cache at page_size 16 was not refused")
+        except NotImplementedError as e:
+            assert "paged decode at page_size 16" in str(e), e
+            report["page16_refused"] = str(e)
+    return report, windows
+
+
 def _lm_cli_phase(counted, device="cuda"):
-    """The three paths of the JAX LM CLI's model (see :data:`LM_CLI`),
+    """The four paths of the JAX LM CLI's model (see :data:`LM_CLI`),
     each through the port's entry points: ``transformer_lm`` ->
     ``SyncTrainer``, then ``generate`` and ``InferenceServer``. Returns
     ``(report, launch windows)``."""
@@ -2261,11 +2449,8 @@ def _lm_cli_phase(counted, device="cuda"):
     _exact("lm_cli_generate", w, {"flash_attention_fwd": n, "flash_attention_fwd_d32": n,
                                   "flash_decode": n * (N_TOKENS - 1),
                                   "flash_decode_d32": n * (N_TOKENS - 1)})
-    seen = set(zip(corpus[:-1].tolist(), corpus[1:].tolist()))
-    toks = gen[0].tolist()
-    follows = [(a, b) in seen for a, b in zip(toks[LM_CLI_PROMPT - 1:-1], toks[LM_CLI_PROMPT:])]
     report["generate"] = {"prompt": LM_CLI_PROMPT, "tokens": N_TOKENS,
-                          "follow_corpus_share": sum(follows) / len(follows)}
+                          "follow_corpus_share": _follow_share(corpus, gen[0], LM_CLI_PROMPT)}
     # --serve: greedy requests through the port's server and client, held
     # against solo generate (the first is the --generate stream itself)
     reqs = [(f"cli{i}", p, {}) for i, p in enumerate(prompts)]
@@ -2302,7 +2487,8 @@ def _lm_cli_phase(counted, device="cuda"):
     x, y = long_batches[-1]
     report["long"]["step_vs_plain"] = _step_vs_plain(long_cfg, tree, x[:1], y[:1], device)
 
-    # (c) --dtype float32: kernels 1, 6, 9 and 10 on f32, at D 32
+    # (c) --dtype float32: kernels 1, 6, 9 and 10 on f32, at D 32, then its
+    # --generate and --serve: kernels 3 and 2 on f32 caches
     f32_cfg = _lm_cli_config(dtype=torch.float32)
     assert bwd_layout(f32_cfg.max_seq, f32_cfg.head_dim, f32_cfg.dtype) == "fused"
     (trainer, losses, ms), w = counted(
@@ -2313,19 +2499,37 @@ def _lm_cli_phase(counted, device="cuda"):
                              **{f"fused_ce_{k}{t}": steps for k in ("fwd", "bwd") for t in ("", "_f32")}})
     report["float32"] = _cli_train_report(f32_cfg, trainer, losses, ms, f32_cfg.max_seq)
     report["float32"]["step_vs_plain"] = _step_vs_plain(f32_cfg, tree, *batches[-1], device)
-    # --dtype float32 --generate: no decode kernel reads f32, so the card
-    # refuses it by name (the CPU runs the plain path)
     f32_model = TransformerLM(f32_cfg, device=device)
     f32_model.load_state_dict(trainer.get_params())
     del trainer
-    if device == "cuda":
-        try:
-            generate(f32_model, prompts[0], 4)
-            raise AssertionError("an f32 generate was not refused")
-        except NotImplementedError as e:
-            assert "slab decode" in str(e), e
-            report["float32"]["generate_refused"] = str(e)
+    decode_report, decode_windows = _lm_cli_f32_decode(f32_model, corpus, held, prompts, counted,
+                                                       device)
+    report["float32"].update(decode_report)
+    windows.update(decode_windows)
     del f32_model
+
+    # (d) --dtype float32 --seq 16384 --remat at B 8: kernel 1 in f32 twice
+    # a layer a step, the f32 two-kernel backward (kernels 7 and 8) once
+    f32_long = _lm_cli_config(dtype=torch.float32, max_seq=LM_CLI_LONG_S, remat=True)
+    assert bwd_layout(LM_CLI_LONG_S, f32_long.head_dim, f32_long.dtype) == "split"
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ls = LM_CLI_F32_LONG_STEPS
+    (trainer, losses, ms), w = counted(
+        lambda: _train(f32_long, tree, long_batches[:ls], device, LM_CLI_LR))
+    windows["lm_cli_f32_long"] = w
+    _exact("lm_cli_f32_long", w, {
+        **{f"flash_attention_fwd{t}": 2 * n * ls for t in ("", "_d32", "_f32")},
+        **{f"flash_attention_{k}{t}": n * ls for k in ("dq", "dkv") for t in ("", "_d32", "_f32")},
+        "flash_attention_bwd": 0, **{f"fused_ce_{k}{t}": ls for k in ("fwd", "bwd") for t in ("", "_f32")}})
+    report["float32_long"] = _cli_train_report(f32_long, trainer, losses, ms, LM_CLI_LONG_S)
+    # (b)'s bf16 steps on the same batches from the same init, beside it
+    report["float32_long"]["loss_vs_bf16_long"] = max(
+        abs(a - b) for a, b in zip(losses, report["long"]["losses"]))
+    if device == "cuda":
+        report["float32_long"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del trainer
+    report["float32_long"]["step_vs_plain"] = _step_vs_plain(f32_long, tree, x[:1], y[:1], device)
     return report, windows
 
 
@@ -2642,6 +2846,206 @@ def _lm_cli_ce_rows(launches):
                              library_note="F.cross_entropy (reduction none) on f32 logits",
                              rejected_share=main["rejected_share"], deterministic=True,
                              wide=at["wide"], lanes=main["lanes"], rows_a_block=main["rows_a_block"]))
+    return rows
+
+
+def _f32_decode_case(g, b, h, d, lens_l, ps=None, s_max=None):
+    """f32 decode inputs at ``b`` rows of ``h`` heads of ``d``: a slab
+    ``[b, s_max, H*D]`` (``ps`` None) or a pool of pages of ``ps`` behind a
+    scattered table, rows of ``lens_l`` valid positions. Returns ``(run,
+    plain, parts, (q, k, v), live positions, table entries, rows)``, rows
+    from :func:`_f32_decode_rows`."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    if ps is None:
+        k, v = (torch.randn(b, s_max, h * d, generator=g, device=dev) for _ in range(2))
+        args, entries, table = (q, k, v, lens), 0, None
+        run, plain = fd.flash_decode, fd.flash_decode_reference
+        parts = lambda: fd.split_partials(q, k, v, lens)  # noqa: E731
+    else:
+        pp = -(-max(lens_l) // ps)
+        n_pages = sum(-(-n // ps) for n in lens_l) + 2
+        table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
+        k, v = (torch.randn(n_pages, ps, h * d, generator=g, device=dev) for _ in range(2))
+        args, entries = (q, k, v, table, lens), table.numel()
+        run, plain = fd.flash_decode_paged, fd.flash_decode_paged_reference
+        parts = lambda: fd.split_partials(q, k, v, lens, table)  # noqa: E731
+    return ((lambda: run(*args)), (lambda: plain(*args)), parts, (q, k, v), sum(lens_l), entries,
+            _f32_decode_rows(q, k, v, lens, table))
+
+
+def _f32_decode_row(name, launches, line, cases, flush, library):
+    """One f32 decode row from ``cases`` (label -> :func:`_f32_decode_case`
+    arguments; the first is the path's shape, ``"d64"`` the D 64 one
+    beside it): at each, the error within the f32 decode limit, the
+    unrounded decode outside it (for some element at each case, and for at
+    least :data:`TRUE_F32_MIN_SHARE` of all the cases' elements), the same
+    bits on a second launch, the wrong combines rejected, the times of
+    kernel and plain version beside the bytes bound, and ``library(case)``
+    where it gives one."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    at, outside, elements = {}, 0.0, 0
+    for label, (b, h, d, lens_l, ps, s_max) in cases.items():
+        run, plain, parts, qkv, live, entries, rows = _f32_decode_case(g, b, h, d, lens_l, ps,
+                                                                       s_max)
+        out, want = run(), plain()
+        assert out.dtype == torch.float32 and torch.equal(run(), out), \
+            f"{name} {label}: a second launch gave other bits"
+        atol = _f32_decode_atol(name, qkv[0], *rows)
+        err = _over(f"{name} {label}", out, want, atol, TOL[name][1])
+        unrounded = _unrounded_decode(qkv[0], *rows)
+        true_f32_share = _rejected(name, unrounded, want, atol)
+        assert true_f32_share > 0, f"{name} {label}: the limit passes true f32"
+        outside += true_f32_share * want.numel()
+        elements += want.numel()
+        rejected = None  # a case whose rows hold one split each has no combine to get wrong
+        if max(lens_l) > fd.split_tiles(ps or fd.SLAB_TILE) * (ps or fd.SLAB_TILE):
+            rejected = _wrong_combines(name, parts(), want, atol)
+            assert rejected["no_rescale"] > 0.5 and rejected["drop_max_split"] > 0.5, \
+                f"{name} {label}: the limit passes a wrong combine: {rejected}"
+        tb, by = _bound(2 * live * h * d * 4 + 2 * b * h * d * 4 + entries * 4 + b * 4,
+                        4 * live * h * d, F32_FLOPS)
+        shape = (f"B={b} H={h} D={d} f32 " + (f"S={s_max} valid={lens_l}" if ps is None
+                                              else f"page={ps} contexts={lens_l}"))
+        lib = library(lens_l[0], s_max, *qkv) if ps is None else None
+        at[label] = {"shape": shape, "max_abs_err": err,
+                     "atol_max": float(atol.max()), "atol_median": float(atol.median()),
+                     "true_f32_share": true_f32_share,
+                     "true_f32_max_err": float((unrounded - want).abs().max()),
+                     "rejected_share": rejected,
+                     "ms": _timed(run, 200, flush), "plain_ms": _timed(plain, 5, flush),
+                     "bound_ms": tb, "bound_by": by,
+                     "library_ms": None if lib is None else _timed(lib, 200, flush)}
+    assert outside >= TRUE_F32_MIN_SHARE * elements, \
+        f"{name}: the limit passes true f32 ({outside} of {elements} elements outside)"
+    main, rest = next(iter(at.values())), dict(list(at.items())[1:])
+    return _row(name, "distriflow_tpu_torch/csrc/flash_decode.cu", line, launches,
+                max(a["max_abs_err"] for a in at.values()), main["shape"],
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "rejected_share", "atol_max", "atol_median",
+                                        "true_f32_share", "true_f32_max_err")},
+                deterministic=True, **rest)
+
+
+def _lm_cli_f32_rows(launches):
+    """The rows path (c)'s decode and path (d)'s backward add, each held
+    against its plain version at its path's shape with the D 64 shape
+    beside it: kernels 3 and 2 on f32 caches (``flash_decode_f32``: B1,
+    the CLI's slab of 512 all valid, and at 95, ``--generate 64``'s last
+    step; D 64 at row 3's B1 S2048 with 1064 valid;
+    ``flash_decode_paged_f32``: the serve leg's slots at page 128, contexts
+    33, 64 and 95 and one of 300 past a split; D 64 at row 2's B8 H8
+    shape), and kernels 7 and 8 in f32 (B8 H8 S16384 D32; D 64 at B1 H8
+    S16384). Each: its limit, the same bits on a second launch, planted
+    faults rejected, its time beside its bound, its plain version (TF32
+    off) and a library call; for 7 and 8 also ragged lengths and the share
+    of elements a TF32 plain version would put outside the limit."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    flush = _flush_buffer()
+    h, d = LM_CLI["n_heads"], LM_CLI["d_model"] // LM_CLI["n_heads"]
+    s = LM_CLI["max_seq"]
+
+    def slab_sdpa(n, s_max, q, k, v):
+        # SDPA on [B, H, n, D] f32 copies of the n valid positions (every
+        # row's), made outside the timed call
+        b, hh, dd = q.shape
+        kh, vh = (t.view(b, s_max, hh, dd).transpose(1, 2)[:, :, :n].contiguous() for t in (k, v))
+        return lambda: F.scaled_dot_product_attention(q[:, :, None], kh, vh)
+
+    rows = [
+        _f32_decode_row("flash_decode_f32", launches, "distriflow_tpu/ops/flash_decode.py:235", {
+            "path": (1, h, d, [s], None, s), "generate_last_step": (1, h, d, [95], None, s),
+            "d64": (1, 8, 64, [1064], None, 2048)}, flush, slab_sdpa),
+        _f32_decode_row("flash_decode_paged_f32", launches,
+                        "distriflow_tpu/ops/flash_decode.py:474", {
+                            "path": (4, h, d, [33, 64, 95, 300], 128, None),
+                            "d64": (8, 8, 64, [129, 300, 513, 1001, 193, 577, 1064, 128], 128,
+                                    None),
+                            # the largest page the f32 gate takes: one 128 KB
+                            # ring stage a block at D 64
+                            "d64_page256": (8, 8, 64, [129, 300, 513, 1001, 193, 577, 1064, 128],
+                                            256, None)}, flush, slab_sdpa)]
+    rows[1]["library_note"] = "null: no single PyTorch call attends over a paged cache"
+    rows[0]["library_note"] = ("F.scaled_dot_product_attention on contiguous f32 copies of the "
+                               "valid positions (TF32 off)")
+
+    # kernels 7 and 8 in f32: --dtype float32 --seq 16384 --remat, B 8
+    g = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    src = "distriflow_tpu_torch/csrc/flash_attention_f32.cu"
+    ls = LM_CLI_LONG_S
+    by = {"flash_attention_dq_f32": {}, "flash_attention_dkv_f32": {}}
+    for label, b, dd in (("path", LM_CLI_B, d), ("d64", 1, 64)):
+        args = _bwd_inputs(g, b, h, ls, True, dd, torch.float32)
+        q, k, v, do, lse, delta, _ = args
+        dq, want_q = fa.flash_attention_dq(*args), fa.flash_attention_dq_reference(*args)
+        assert torch.equal(fa.flash_attention_dq(*args), dq), f"dq f32 {label}: other bits"
+        nq = "flash_attention_dq_f32"
+        err_q = _over(f"{nq} {label}", dq, want_q, *TOL[nq])
+        no_delta = fa.flash_attention_dq_reference(q, k, v, do, lse, torch.zeros_like(delta), True)
+        ctl_q = {"no_delta": _rejected(nq, no_delta, want_q),
+                 "tf32_plain": _tf32_share(nq, lambda: fa.flash_attention_dq_reference(*args),
+                                           want_q)}
+        need_q = _atol_needed(nq, [(dq, want_q)])
+        del dq, want_q, no_delta
+        (dk, dv), (want_k, want_v) = fa.flash_attention_dkv(*args), fa.flash_attention_dkv_reference(*args)
+        again = fa.flash_attention_dkv(*args)
+        assert torch.equal(again[0], dk) and torch.equal(again[1], dv), f"dkv f32 {label}: other bits"
+        nk = "flash_attention_dkv_f32"
+        err_k = max(_over(f"{nk} {label} dk", dk, want_k, *TOL[nk]),
+                    _over(f"{nk} {label} dv", dv, want_v, *TOL[nk]))
+        ctl_k = {"dk_unscaled": _rejected(nk, want_k * math.sqrt(dd), want_k),
+                 "tf32_plain_dk": _tf32_share(
+                     nk, lambda: fa.flash_attention_dkv_reference(*args), want_k)}
+        need_k = _atol_needed(nk, [(dk, want_k), (dv, want_v)])
+        del dk, dv, want_k, want_v, again
+        assert ctl_q["no_delta"] > 0.5 and ctl_k["dk_unscaled"] > 0.5, \
+            f"an f32 two-kernel limit passes a wrong gradient: {ctl_q} {ctl_k}"
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        # the math backend's [B, H, S, S] f32 scores would take 68.7 GB at
+        # the path's shape: SDPA's f32 backward on its memory-efficient one
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        library = _timed(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True), 3,
+                         flush)
+        pairs = ls * (ls + 1) // 2
+        io = 4 * b * h * ls * dd * 4 + 2 * b * h * ls * 4
+        shape = f"B={b} H={h} S={ls} D={dd} causal f32"
+        for name, products, outs, fn, plain, err, ctl, need in (
+                (nq, 3, 1, fa.flash_attention_dq, fa.flash_attention_dq_reference, err_q, ctl_q,
+                 need_q),
+                (nk, 4, 2, fa.flash_attention_dkv, fa.flash_attention_dkv_reference, err_k, ctl_k,
+                 need_k)):
+            tb, bb = _bound(io + outs * b * h * ls * dd * 4, products * 2 * b * h * pairs * dd,
+                            F32_FLOPS)
+            by[name][label] = {"shape": shape, "max_abs_err": err, "rejected_share": ctl,
+                               "atol_needed": need,
+                               "ms": _timed(lambda fn=fn: fn(*args), 5, flush),
+                               "plain_ms": _timed(lambda plain=plain: plain(*args), 1, flush),
+                               "bound_ms": tb, "bound_by": bb, "library_ms": library}
+        del args, q, k, v, do, lse, delta, qs, ks, vs, out
+    for name, line, fn, plain in (
+            ("flash_attention_dq_f32", "distriflow_tpu/ops/flash_attention.py:162",
+             lambda *a: (fa.flash_attention_dq(*a),), lambda *a: (fa.flash_attention_dq_reference(*a),)),
+            ("flash_attention_dkv_f32", "distriflow_tpu/ops/flash_attention.py:212",
+             fa.flash_attention_dkv, fa.flash_attention_dkv_reference)):
+        main = by[name]["path"]
+        rows.append(_row(name, src, line, launches, max(a["max_abs_err"] for a in by[name].values()),
+                         main["shape"], **{k: main[k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "rejected_share", "atol_needed")},
+                         library_note="F.scaled_dot_product_attention backward, f32, the "
+                                      "memory-efficient backend: dQ, dK and dV together",
+                         d64=by[name]["d64"], deterministic=True,
+                         ragged_max_abs_err=_ragged_bwd(name, fn, plain, g, 1, h, d, torch.float32)))
     return rows
 
 
@@ -3540,10 +3944,11 @@ def _cost_phase(cn_trainer, cn_batch, cn_report, lt_trainer, lt_cfg, lt_batch, l
                                layers * (2 * 2 * unit + 7 * unit) + ce_sparse)}
 
 
-def _rejected(name, wrong, want):
+def _rejected(name, wrong, want, atol=None):
     """The share of ``wrong``'s elements outside ``name``'s limit around
-    ``want``."""
-    atol, rtol = TOL[name]
+    ``want`` (its atol replaced by ``atol``, a number or a tensor, where
+    given)."""
+    atol, rtol = (TOL[name][0] if atol is None else atol), TOL[name][1]
     wrong, want = wrong.float(), want.float()
     return float(((wrong - want).abs() > atol + rtol * want.abs()).float().mean())
 
@@ -5207,7 +5612,8 @@ def _kernel_counters():
 _BY_HEAD_DIM = ("flash_attention_fwd", "flash_decode_paged", "flash_decode",
                 "flash_attention_bwd", "flash_attention_dq", "flash_attention_dkv")
 _BY_DTYPE = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd",
-             "fused_ce_dense_fwd", "fused_ce_dense_bwd")
+             "fused_ce_dense_fwd", "fused_ce_dense_bwd", "flash_decode", "flash_decode_paged",
+             "flash_attention_dq", "flash_attention_dkv")
 
 
 def _counted(run):
@@ -6936,7 +7342,7 @@ def main() -> int:
     print(f"kernel build s: {time.perf_counter() - t0:.2f}", flush=True)
     for name, log in build.ptxas_reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}")
     print("analysis:", json.dumps(_analysis_phase()), flush=True)
 
@@ -7096,6 +7502,15 @@ def main() -> int:
                            "fused_ce_fwd", "fused_ce_bwd"),
            "lm_cli_f32": tuple(f"{k}{t}" for k in ("flash_attention_fwd", "flash_attention_bwd")
                                for t in ("", "_d32", "_f32"))
+           + tuple(f"{k}{t}" for k in ("fused_ce_fwd", "fused_ce_bwd") for t in ("", "_f32")),
+           "lm_cli_f32_generate": tuple(f"{k}{t}" for k in ("flash_attention_fwd", "flash_decode")
+                                        for t in ("", "_d32", "_f32")),
+           "lm_cli_f32_serve": tuple(f"{k}{t}" for k in ("flash_attention_fwd", "flash_decode",
+                                                         "flash_decode_paged")
+                                     for t in ("", "_d32", "_f32")),
+           "lm_cli_f32_long": tuple(f"{k}{t}" for k in ("flash_attention_fwd", "flash_attention_dq",
+                                                        "flash_attention_dkv")
+                                    for t in ("", "_d32", "_f32"))
            + tuple(f"{k}{t}" for k in ("fused_ce_fwd", "fused_ce_bwd") for t in ("", "_f32"))}
     for path, counts in paths.items():
         for k, n in counts.items():
@@ -7197,9 +7612,13 @@ def main() -> int:
                 "flash_attention_dkv_d32": "lm_cli_long",
                 **{k: "lm_cli_f32" for k in ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
                                              "fused_ce_fwd_f32", "fused_ce_bwd_f32")},
-                **{k: None for k in ("fused_ce_dense_fwd_f32", "fused_ce_dense_bwd_f32")}}
+                **{k: None for k in ("fused_ce_dense_fwd_f32", "fused_ce_dense_bwd_f32")},
+                "flash_decode_f32": "lm_cli_f32_generate", "flash_decode_paged_f32": "lm_cli_f32_serve",
+                "flash_attention_dq_f32": "lm_cli_f32_long",
+                "flash_attention_dkv_f32": "lm_cli_f32_long"}
     cli_launches = {k: cli_counts[w][k] if w else 0 for k, w in cli_rows.items()}
-    rows += _lm_cli_attention_rows(cli_launches) + _lm_cli_ce_rows(cli_launches)
+    rows += (_lm_cli_attention_rows(cli_launches) + _lm_cli_ce_rows(cli_launches)
+             + _lm_cli_f32_rows(cli_launches))
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",
@@ -7227,7 +7646,7 @@ def main() -> int:
           flush=True)
     roofline = _roofline_phase(ip_report["cost"], rows)
     print("roofline:", json.dumps(roofline), flush=True)
-    assert len(rows) == 28, [r["name"] for r in rows]
+    assert len(rows) == 32, [r["name"] for r in rows]
     print(json.dumps({"kernels": _with_spread(rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

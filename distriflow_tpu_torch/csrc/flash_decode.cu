@@ -1,26 +1,37 @@
-// Single-token decode attention over a paged or a slab KV cache, bf16 or
-// int8, as split-KV kernels with a fixed-order combine.
+// Single-token decode attention over a paged or a slab KV cache, bf16, f32
+// or int8, as split-KV kernels with a fixed-order combine.
 //
 // Replaces four Pallas TPU kernels of the JAX package:
 //   distriflow_tpu/ops/flash_decode.py::_paged_kernel        (paged pool + page table)
 //   distriflow_tpu/ops/flash_decode.py::_decode_kernel       (contiguous [B, S, H*D] slab)
 //   distriflow_tpu/ops/flash_decode.py::_paged_kernel_quant  (the same, int8 K/V + scales)
 //   distriflow_tpu/ops/flash_decode.py::_decode_kernel_quant
-// One kernel per cache type serves both layouts: a slab row is a page table
-// that is the identity, with tiles of SLAB_TILE = 128 positions. A tile is a
-// page (paged) or 128 slab positions, and splits cut a row at the same
-// multiples of split_tiles tiles in both layouts, so engine decode on the
-// paged pool (pages of 128) and solo decode on the slab produce the same
-// bits for the same context. The bf16 kernel is built at head dims 64 and
-// 32 (split_kernel<32, false>: 4 lanes of 16 bytes a position, 32
-// positions a pass; the partial rows are D + 2 = 34 floats, read and
-// written one float at a time), the int8 kernel at 64.
+// The first two on bf16 and on f32 caches (the JAX LM CLI's --dtype
+// float32). One kernel per cache type serves both layouts: a slab row is a
+// page table that is the identity, with tiles of SLAB_TILE = 128 positions.
+// A tile is a page (paged) or 128 slab positions, and splits cut a row at
+// the same multiples of split_tiles tiles in both layouts, so engine decode
+// on the paged pool (pages of 128) and solo decode on the slab produce the
+// same bits for the same context. The split kernel is a template on the
+// head dim and the cache type (Cache::kBf16, kF32, kInt8): bf16 and f32 are
+// built at head dims 64 and 32, int8 at 64. A position's head slice is read
+// as 16-byte chunks: 8 bf16, 4 f32 or 16 int8 values a lane, so D / 8, D /
+// 4 or D / 16 lanes a position (split_kernel<32, kBf16>: 4 lanes, 32
+// positions a pass; <32, kF32>: 8 lanes, 16 positions a pass); the partial
+// rows are D + 2 floats, read and written one float at a time.
 //
 // Numeric contract, bf16 (ops/flash_decode.py, the plain version follows
 // the same order): q, K and V enter the score and PV products as bf16;
 // scores, the running max m and the running sum l stay f32; p is rounded to
 // bf16 for the PV product; the accumulator is f32. Positions at or past the
 // row's valid length score -1e30 (they are never read).
+//
+// Numeric contract, f32 (the JAX package's "bf16-compute contract for f32
+// caches", flash_decode.py:46-56): the kernel reads f32 q, K and V and
+// rounds each value to bf16 (round to nearest even, __float2bfloat16_rn:
+// JAX's .astype(jnp.bfloat16), the plain version's .to(torch.bfloat16))
+// before its product; everything after is the bf16 contract, and the
+// output is written in f32, unrounded (q's dtype).
 //
 // Numeric contract, int8: each block quantizes its own q,
 // qs = max(max|q| / 127, 1e-20) and q8 = clip(rint(q / qs), -127, 127),
@@ -46,13 +57,13 @@
 // (row, head), reads the live splits in ascending order: M = max m_i,
 // acc = sum acc_i * exp(m_i - M), l = sum l_i * exp(m_i - M) (each product
 // and sum rounded on its own, as the plain version's torch ops are), out =
-// bf16(acc * (1 / max(l, 1e-30))); a row of length 0 gives 0. No atomics:
-// every launch gives the same bits. The combine is a programmatic
-// dependent launch (griddepcontrol), so its launch overlaps the split
-// grid's tail.
+// acc * (1 / max(l, 1e-30)), rounded to bf16 for a bf16 or int8 cache and
+// kept in f32 for an f32 one; a row of length 0 gives 0. No atomics: every
+// launch gives the same bits. The combine is a programmatic dependent
+// launch (griddepcontrol), so its launch overlaps the split grid's tail.
 //
 // Inside a block. A tile's K and V head slices (D values: 128 bytes bf16,
-// 64 bytes int8, at a stride of H*D) and, for int8, the page's [T, H] f32
+// 256 f32, 64 int8, at a stride of H*D) and, for int8, the page's [T, H] f32
 // scales (contiguous, copied whole with 4-byte copies, coalesced) are
 // copied by all 128 threads with cp.async into a ring of min(split_tiles,
 // 3) shared-memory stages; each thread's copies arrive on the stage's
@@ -60,26 +71,36 @@
 // waits on. Every stage is filled before the first tile is used, so a
 // split of up to three tiles has all its copies in flight at once and the
 // next tiles land while a tile's softmax and PV run; a longer split
-// refills a stage after a block barrier. A lane group (8 lanes bf16, 4
-// int8; 16 bytes each) owns positions grp, grp + 16 (32), ... of every
-// tile: it reduces its scores with shuffles, keeps them in registers and
-// applies p to its own V rows, so the only block barrier of a tile is the
-// tile max; l is summed per lane group and added across groups at the end
-// of the split, with acc.
+// refills a stage after a block barrier. A lane group (D / 8 lanes bf16,
+// D / 4 f32, D / 16 int8; 16 bytes each) owns positions grp, grp + 128 /
+// lanes, ... of every tile: it reduces its scores with shuffles, keeps them
+// in registers and applies p to its own V rows, so the only block barrier
+// of a tile is the tile max; l is summed per lane group and added across
+// groups at the end of the split, with acc.
+//
+// Shared memory at f32. A stage is 2 * T * D * 4 bytes: 32 KB at T 128 and
+// D 32, 64 KB at D 64, 128 KB for one page of 256 at D 64. The ring holds
+// min(split_tiles, 3) stages (1 at T 256, 2 at T 128, 3 at T 64: 96 KB at D
+// 64), under the 200 KB a block asks for (kSmemLimit, opted in for every
+// instantiation; the static part adds at most 8.4 KB, within the card's 227
+// KB). The f32 gate takes pages of 128 to 256 only, so a block holds 64 to
+// 128 KB at D 64 (one or two blocks an SM) and 32 to 64 KB at D 32 (three
+// to six).
 //
 // No wgmma: a decode query is one row per head (M = 1) and the flagship has
 // no grouped heads, so a tensor-core tile would be 1/64 full. These are
 // bandwidth kernels: every live K and V position is read once, 2 * len * D
-// * 2 bytes per (row, head) in bf16 and 2 * len * (D + 4) in int8, for 4 *
-// len * D operations, far below the H100's ~295 FLOP/byte ridge, so their
-// yardstick is bytes / 3.35 TB/s. Per block (ptxas, -Xptxas -v, as
-// chip_smoke.py prints it; no spills): the split kernel 72 registers and
-// 4.2 KB of static shared memory (bf16), 72 and 8.4 KB (int8); the combine
-// 40 and 16.5 KB. The dynamic ring is n_stages * (2 * T * D * itemsize + 2
-// * 16-aligned(T * H * 4) for int8): 32 KB bf16 and 24 KB int8 a stage at
-// T 128, H 8, two stages at SPLIT_TILES 2.
+// * 2 bytes per (row, head) in bf16, twice that in f32 and 2 * len * (D +
+// 4) in int8, for 4 * len * D operations, far below the H100's ~295
+// FLOP/byte ridge, so their yardstick is bytes / 3.35 TB/s. Per block
+// (ptxas, -Xptxas -v, as chip_smoke.py prints it; no spills): the split
+// kernel 72 registers and 4.2 KB of static shared memory (bf16), 72 and
+// 8.4 KB (int8); the combine 40 and 16.5 KB. The dynamic ring is n_stages
+// * (2 * T * D * itemsize + 2 * 16-aligned(T * H * 4) for int8): 32 KB bf16
+// and 24 KB int8 a stage at T 128, H 8, two stages at SPLIT_TILES 2.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -97,16 +118,19 @@ using dftt::hopper::mbar_init;
 using dftt::hopper::mbar_wait;
 using dftt::hopper::smem_addr;
 
+// The cache's element type: the template parameter of the split kernel.
+enum class Cache { kBf16, kF32, kInt8 };
+
 struct DecodeArgs {
-  const __nv_bfloat16* q;   // [B, H, D]
-  const void* k;            // paged: [n_pages, T, H*D]; slab: [B, S, H*D]; bf16 or int8
+  const void* q;            // [B, H, D]: bf16 (bf16 and int8 caches) or f32 (f32 cache)
+  const void* k;            // paged: [n_pages, T, H*D]; slab: [B, S, H*D]; bf16, f32 or int8
   const void* v;
   const float* ks;          // int8 only: paged [n_pages, T, H]; slab [B, S, H]
   const float* vs;
   const int32_t* table;     // [B, n_tiles] page ids, or nullptr (slab)
   const int32_t* lens;      // [B] valid positions per row, or nullptr: len_all for every row
   float* partial;           // [B, H, n_splits, D + 2]: (m, l, acc)
-  __nv_bfloat16* out;       // [B, H, D]
+  void* out;                // [B, H, D] in q's dtype
   int H, T, n_tiles, S, n_pages, split_tiles, n_splits, len_all, n_stages;
   float scale;
 };
@@ -139,9 +163,10 @@ __device__ __forceinline__ int live_tiles(const DecodeArgs& a, int len) {
   return tiles < a.n_tiles ? tiles : a.n_tiles;
 }
 
-template <int D, bool kInt8>
+template <int D, Cache C>
 struct Layout {
-  static constexpr int kItem = kInt8 ? 1 : 2;
+  static constexpr bool kInt8 = C == Cache::kInt8;
+  static constexpr int kItem = kInt8 ? 1 : C == Cache::kBf16 ? 2 : 4;
   static constexpr int kRowBytes = D * kItem;         // one position's head slice
   static constexpr int kVec = 16 / kItem;             // values per 16-byte chunk
   static constexpr int kLanes = D / kVec;             // lanes (chunks) per position
@@ -155,10 +180,10 @@ struct Layout {
 
 // Issues the copies of tile j of row b, head h (its `live` positions) into
 // `stage` and arrives on `bar`.
-template <int D, bool kInt8>
+template <int D, Cache C>
 __device__ __forceinline__ void load_tile(const DecodeArgs& a, unsigned char* stage, uint64_t* bar,
                                           int b, int h, int j, int live, int tid) {
-  using L = Layout<D, kInt8>;
+  using L = Layout<D, C>;
   int64_t pos0;  // index of the tile's first position in the pool or slab
   if (a.table != nullptr) {
     int pg = a.table[static_cast<int64_t>(b) * a.n_tiles + j];
@@ -180,7 +205,7 @@ __device__ __forceinline__ void load_tile(const DecodeArgs& a, unsigned char* st
     cp_async16(sk + p * L::kRowBytes + off, kg + p * row_stride + off);
     cp_async16(sv + p * L::kRowBytes + off, vg + p * row_stride + off);
   }
-  if constexpr (kInt8) {
+  if constexpr (L::kInt8) {
     float* sks = reinterpret_cast<float*>(sv + a.T * L::kRowBytes);
     float* svs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sks) +
                                           round16(a.T * a.H * 4));
@@ -194,9 +219,26 @@ __device__ __forceinline__ void load_tile(const DecodeArgs& a, unsigned char* st
   cp_async_arrive(bar);
 }
 
-template <int D, bool kInt8>
+// One 16-byte chunk of a bf16 or f32 head slice as f32 values, each f32
+// value rounded to bf16 first (round to nearest even: the TPU kernel's
+// .astype(jnp.bfloat16) of an f32 tile).
+template <Cache C>
+__device__ __forceinline__ void load_chunk(const void* src, float* dst) {
+  if constexpr (C == Cache::kF32) {
+    const float4 raw = *reinterpret_cast<const float4*>(src);
+    dst[0] = __bfloat162float(__float2bfloat16_rn(raw.x));
+    dst[1] = __bfloat162float(__float2bfloat16_rn(raw.y));
+    dst[2] = __bfloat162float(__float2bfloat16_rn(raw.z));
+    dst[3] = __bfloat162float(__float2bfloat16_rn(raw.w));
+  } else {
+    dftt::load8(static_cast<const __nv_bfloat16*>(src), dst);
+  }
+}
+
+template <int D, Cache C>
 __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
-  using L = Layout<D, kInt8>;
+  using L = Layout<D, C>;
+  constexpr bool kInt8 = L::kInt8;
   constexpr int kVec = L::kVec;
   constexpr int kLanes = L::kLanes;
   constexpr int kGroups = L::kGroups;
@@ -239,15 +281,16 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
   // every stage's tile is in flight while q is prepared
   const int ahead = min(n_local, ns);
   for (int i = 0; i < ahead; ++i)
-    load_tile<D, kInt8>(a, ring + i * stage_bytes, &full[i], b, h, t0 + i,
-                        min(valid - (t0 + i) * a.T, a.T), tid);
+    load_tile<D, C>(a, ring + i * stage_bytes, &full[i], b, h, t0 + i,
+                    min(valid - (t0 + i) * a.T, a.T), tid);
 
-  // q: bf16 values of this lane's chunk, or the int8 chunk and its scale
+  // q: this lane's chunk as bf16 values, or the int8 chunk and its scale
   float qv[kInt8 ? 1 : kVec];
   int4 qw = make_int4(0, 0, 0, 0);
   float qscale = 0.f;
   if constexpr (kInt8) {
-    const float x = tid < D ? __bfloat162float(a.q[bh * D + tid]) : 0.f;
+    const auto* qg = static_cast<const __nv_bfloat16*>(a.q);
+    const float x = tid < D ? __bfloat162float(qg[bh * D + tid]) : 0.f;
     float amax = dftt::warp_max(fabsf(x));
     if (lane == 0) s_red[1][warp] = amax;
     __syncthreads();
@@ -260,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
     qw = *reinterpret_cast<const int4*>(s_q8 + sub * kVec);
     qscale = __fmul_rn(qs, a.scale);
   } else {
-    dftt::load8(a.q + bh * D + sub * kVec, qv);
+    load_chunk<C>(static_cast<const unsigned char*>(a.q) + (bh * D + sub * kVec) * L::kItem, qv);
   }
 
   float acc[kVec];
@@ -306,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
         float part = 0.f;
         if (p < live) {
           float kv[kVec];
-          dftt::load8(reinterpret_cast<const __nv_bfloat16*>(sk + p * L::kRowBytes + sub * 16), kv);
+          load_chunk<C>(sk + p * L::kRowBytes + sub * 16, kv);
 #pragma unroll
           for (int e = 0; e < kVec; ++e) part = fmaf(qv[e], kv[e], part);
         }
@@ -348,7 +391,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
           // p enters the PV product as bf16, like the TPU kernel's pw.astype
           const float pw = __bfloat162float(__float2bfloat16(pv));
           float vv[kVec];
-          dftt::load8(reinterpret_cast<const __nv_bfloat16*>(sv + p * L::kRowBytes + sub * 16), vv);
+          load_chunk<C>(sv + p * L::kRowBytes + sub * 16, vv);
 #pragma unroll
           for (int e = 0; e < kVec; ++e) acc[e] = fmaf(pw, vv[e], acc[e]);
         }
@@ -357,8 +400,8 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
     m = m_new;
     if (i + ns < n_local) {  // a split longer than the ring: refill this stage
       __syncthreads();       // every thread is done with tile i
-      load_tile<D, kInt8>(a, ring + st * stage_bytes, &full[st], b, h, t0 + i + ns,
-                          min(valid - (t0 + i + ns) * a.T, a.T), tid);
+      load_tile<D, C>(a, ring + st * stage_bytes, &full[st], b, h, t0 + i + ns,
+                      min(valid - (t0 + i + ns) * a.T, a.T), tid);
     }
   }
 
@@ -383,8 +426,12 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
   }
 }
 
-// One block per (row, head): the live splits' partials in ascending order.
-template <int D>
+__device__ __forceinline__ void store_out(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
+__device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
+
+// One block per (row, head): the live splits' partials in ascending order,
+// the output in Out (q's dtype).
+template <int D, typename Out>
 __global__ void __launch_bounds__(kThreads) combine_kernel(const DecodeArgs a) {
   __shared__ float s_part[kCombineChunk * (D + 2)];
   __shared__ float s_red[kWarps];
@@ -420,12 +467,13 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(const DecodeArgs a) {
       }
     }
   }
-  if (tid < D) a.out[bh * D + tid] = __float2bfloat16(acc * (1.f / fmaxf(l, 1e-30f)));
+  if (tid < D) store_out(static_cast<Out*>(a.out) + bh * D + tid, acc * (1.f / fmaxf(l, 1e-30f)));
 }
 
-template <int D, bool kInt8>
+template <int D, Cache C>
 int launch(DecodeArgs a, int B, cudaStream_t st) {
-  using L = Layout<D, kInt8>;
+  using L = Layout<D, C>;
+  using Out = typename std::conditional<C == Cache::kF32, float, __nv_bfloat16>::type;
   if (a.T <= 0 || a.T > kMaxTile || a.split_tiles <= 0 || a.n_tiles <= 0 ||
       a.n_splits != (a.n_tiles + a.split_tiles - 1) / a.split_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -438,11 +486,11 @@ int launch(DecodeArgs a, int B, cudaStream_t st) {
   static bool opted_in = false;  // past 48 KB of shared memory (static + dynamic)
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        split_kernel<D, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+        split_kernel<D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  split_kernel<D, kInt8><<<dim3(a.n_splits, a.H, B), kThreads, smem, st>>>(a);
+  split_kernel<D, C><<<dim3(a.n_splits, a.H, B), kThreads, smem, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // a programmatic dependent launch: the combine's launch overlaps the
@@ -456,7 +504,7 @@ int launch(DecodeArgs a, int B, cudaStream_t st) {
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, combine_kernel<D>, a);
+  err = cudaLaunchKernelEx(&cfg, combine_kernel<D, Out>, a);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -466,36 +514,53 @@ int launch(DecodeArgs a, int B, cudaStream_t st) {
 // table == nullptr selects the slab layout: row b's tile t covers slab
 // positions [t*T, t*T + T) of a [B, S, H*D] cache. lens == nullptr gives
 // every row len_all valid positions. partial is the f32
-// [B, H, n_splits, D + 2] scratch. Built for D = 64 (the flagship's head
-// dim) and D = 32 (the speculative draft's); any other D returns
-// cudaErrorInvalidValue.
+// [B, H, n_splits, D + 2] scratch. q, k, v and out are bf16. Built for D =
+// 64 (the flagship's head dim) and D = 32 (the speculative draft's and the
+// JAX LM CLI's); any other D returns cudaErrorInvalidValue.
 extern "C" int dftt_flash_decode_bf16(
     const void* q, const void* k, const void* v, const void* table, const void* lens,
     void* partial, void* out, int B, int H, int D, int T, int n_tiles, int S, int n_pages,
     int split_tiles, int n_splits, int len_all, float scale, void* stream) {
-  const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k, v, nullptr, nullptr,
+  const DecodeArgs a{q, k, v, nullptr, nullptr,
                      static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
-                     static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out),
+                     static_cast<float*>(partial), out,
                      H, T, n_tiles, S, n_pages, split_tiles, n_splits, len_all, 0, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64, false>(a, B, st);
-  if (D == 32) return launch<32, false>(a, B, st);
+  if (D == 64) return launch<64, Cache::kBf16>(a, B, st);
+  if (D == 32) return launch<32, Cache::kBf16>(a, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 kernel, arguments as dftt_flash_decode_bf16's: q, k, v and out
+// are f32 (q, K and V rounded to bf16 for the products, the output f32).
+// Built for D = 64 and D = 32.
+extern "C" int dftt_flash_decode_f32(
+    const void* q, const void* k, const void* v, const void* table, const void* lens,
+    void* partial, void* out, int B, int H, int D, int T, int n_tiles, int S, int n_pages,
+    int split_tiles, int n_splits, int len_all, float scale, void* stream) {
+  const DecodeArgs a{q, k, v, nullptr, nullptr,
+                     static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
+                     static_cast<float*>(partial), out,
+                     H, T, n_tiles, S, n_pages, split_tiles, n_splits, len_all, 0, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch<64, Cache::kF32>(a, B, st);
+  if (D == 32) return launch<32, Cache::kF32>(a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The int8 kernel (layouts as above); k_scale/v_scale are f32 [n_pages, T, H]
-// pools (paged) or [B, S, H] slabs. Every K/V pointer and the H*D row
-// stride must be 16-byte aligned. Built for D = 64 only.
+// pools (paged) or [B, S, H] slabs; q and out are bf16. Every K/V pointer
+// and the H*D row stride must be 16-byte aligned. Built for D = 64 only.
 extern "C" int dftt_flash_decode_int8(
     const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
     const void* table, const void* lens, void* partial, void* out, int B, int H, int D, int T,
     int n_tiles, int S, int n_pages, int split_tiles, int n_splits, int len_all, float scale,
     void* stream) {
-  const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
+  const DecodeArgs a{q, k, v,
                      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                      static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
-                     static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out),
+                     static_cast<float*>(partial), out,
                      H, T, n_tiles, S, n_pages, split_tiles, n_splits, len_all, 0, scale};
   if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<64, true>(a, B, static_cast<cudaStream_t>(stream));
+  return launch<64, Cache::kInt8>(a, B, static_cast<cudaStream_t>(stream));
 }

@@ -128,6 +128,8 @@ from distriflow_tpu_torch.parallel.ring_attention import (
 from distriflow_tpu_torch.parallel.ulysses import ulysses_attention
 from distriflow_tpu_torch.ops.flash_decode import (
     INT8_HEAD_DIMS,
+    MAX_TILE,
+    MIN_BLOCK_K,
     SUPPORTED_HEAD_DIMS,
     flash_decode,
     flash_decode_paged,
@@ -297,9 +299,10 @@ def check_kernels_take(config: TransformerConfig, device: torch.device,
     ``training``, and the decode kernels with ``decode`` (paged ones at
     ``page_size``). A model is checked when it is built, without
     ``decode``; a decode cache when it is built (:func:`cache_buffers`,
-    ``models/generate.py::paged_cache``), with it. So an f32 model trains
-    over the f32 kernels and refuses a decode by name, when one is set up.
-    There is no plain path on the card to fall back to; a caller who wants
+    ``models/generate.py::paged_cache``), with it. So a model whose decode
+    shape JAX would send to XLA (an f32 cache at pages under 128, or a slab
+    no JAX tile divides) trains and refuses its decode by name, when one is
+    set up. There is no plain path on the card to fall back to; a caller who wants
     the plain path there sets ``use_flash_attention``/``use_flash_decode``
     to False."""
     if device.type != "cuda":
@@ -311,28 +314,32 @@ def check_kernels_take(config: TransformerConfig, device: torch.device,
     if flash and not (config.dtype in KERNEL_DTYPES
                       and flash_seq_supported(config.max_seq, d, item)):
         refused.append("prefill attention")
-    if training and flash and not backward_supported(config.max_seq, d, config.dtype):
+    if training and flash and not backward_supported(d, config.dtype):
         refused.append("the attention backward")
     if decode and config.use_flash_decode is not False:
-        # the decode kernels read a bf16 q (and a bf16 or int8 cache)
-        bf16 = config.dtype == torch.bfloat16
         # the cache precisions a decode can get: the context gate may pick
         # either side of the crossover under kv_cache_dtype="int8"
         for kv_item in sorted({1 if config.kv_cache_dtype_for(n) == "int8" else item
                                for n in (1, config.max_seq)}):
             tag = " (int8 cache)" if kv_item == 1 else ""
-            if not (supports_seq(config.max_seq, hd=hd, kv_item=kv_item, d=d) and bf16):
+            # the kernels read a q of the cache's dtype, bf16 or f32; the
+            # int8 kernels a bf16 q
+            q_taken = config.dtype == torch.bfloat16 or (
+                config.dtype == torch.float32 and kv_item == 4)
+            if not (supports_seq(config.max_seq, hd=hd, kv_item=kv_item, d=d) and q_taken):
                 refused.append("slab decode" + tag)
             if page_size is not None and not (
-                    supports_paged(page_size, hd=hd, kv_item=kv_item, d=d) and bf16):
+                    supports_paged(page_size, hd=hd, kv_item=kv_item, d=d) and q_taken):
                 refused.append(f"paged decode at page_size {page_size}{tag}")
     if refused:
         raise NotImplementedError(
             f"no CUDA kernel for {', '.join(refused)} at dtype {config.dtype}, "
             f"head dim {d}, max_seq {config.max_seq}: the attention kernels take bf16 and "
-            f"f32 at head dims {SUPPORTED_HEAD_DIMS} (the backward at {BWD_HEAD_DIMS}, f32 "
-            f"in the fused layout only), the decode kernels bf16 (int8 caches at "
-            f"{INT8_HEAD_DIMS})")
+            f"f32 at head dims {SUPPORTED_HEAD_DIMS} (the backward at {BWD_HEAD_DIMS}), the "
+            f"decode kernels bf16 and f32 caches with a query of the cache's dtype at "
+            f"{SUPPORTED_HEAD_DIMS} and pages up to {MAX_TILE} (f32 where JAX's flash-decode "
+            f"gate takes the shape: pages of at least {MIN_BLOCK_K}, a multiple of 8, slabs "
+            f"it can tile), int8 caches with a bf16 query at {INT8_HEAD_DIMS}")
 
 
 def quantize_kv(t: torch.Tensor, n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:

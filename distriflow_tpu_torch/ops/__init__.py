@@ -7,7 +7,7 @@ PyTorch version (port of ``distriflow_tpu/ops``).
   ``_dq_kernel`` and ``_dkv_kernel``), differentiable through an
   ``autograd.Function`` that takes the layout JAX would;
 - :mod:`.flash_decode` — paged and slab single-token decode attention
-  over bf16 and int8 caches (replace
+  over bf16, f32 and int8 caches (replace
   ``distriflow_tpu/ops/flash_decode.py::_paged_kernel``,
   ``_decode_kernel``, ``_paged_kernel_quant`` and ``_decode_kernel_quant``);
 - :mod:`.fused_ce` — the fused softmax cross-entropy, forward and

@@ -1,7 +1,7 @@
 """Flash attention: hand-written Hopper kernels and their plain versions.
 
 Port of ``distriflow_tpu/ops/flash_attention.py``. Four bf16 kernels
-from two sources, and two f32 kernels from a third:
+from two sources, and four f32 kernels from a third:
 
 - ``csrc/flash_attention.cu`` replaces the Pallas ``_fwd_kernel``: causal
   or non-causal online-softmax attention over ``[B, H, S, D]`` bf16 tensors
@@ -18,11 +18,12 @@ from two sources, and two f32 kernels from a third:
   one block per K/V tile walking its Q tiles). All are Hopper designs
   like the forward's; none uses atomics, so each gives the same bits
   every run;
-- ``csrc/flash_attention_f32.cu`` replaces ``_fwd_kernel`` and
-  ``_dkvq_kernel`` on f32 inputs (the JAX LM CLI's ``--dtype float32``):
-  the forward and the fused backward with write-once f32 dQ partials, f32
-  throughout on the CUDA cores (no TF32). The two-kernel layout has no f32
-  build: an f32 backward past JAX's fused range (2048 positions) raises.
+- ``csrc/flash_attention_f32.cu`` replaces ``_fwd_kernel``,
+  ``_dkvq_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` on f32 inputs (the
+  JAX LM CLI's ``--dtype float32``, and with ``--seq 16384`` the
+  two-kernel layout that JAX takes for f32 past 2048 positions): the
+  forward, the fused backward with write-once f32 dQ partials, and the dQ
+  and dK/dV kernels, f32 throughout on the CUDA cores (no TF32).
 
 Every kernel is built for head dims 64 and 32 (:data:`SUPPORTED_HEAD_DIMS`,
 :data:`BWD_HEAD_DIMS`); a wrapper counts its launches in ``launches``, by
@@ -61,8 +62,7 @@ NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64)
 #: the head dims the backward kernels are built for
 BWD_HEAD_DIMS = (32, 64)
-#: the input dtypes the kernels take: bf16 (every layout) and f32 (the
-#: forward and the fused backward)
+#: the input dtypes the kernels take, in every layout: bf16 and f32
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 _SIGNATURES = {
@@ -74,6 +74,12 @@ _SIGNATURES = {
 _F32_SIGNATURES = {
     "dftt_flash_attention_fwd_f32": _SIGNATURES["dftt_flash_attention_fwd_bf16"],
     "dftt_flash_attention_bwd_f32": [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p],
+    "dftt_flash_attention_dq_f32": [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p],
+    "dftt_flash_attention_dkv_f32": [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p],
 }
@@ -210,15 +216,11 @@ def flash_seq_supported(s: int, d: int, itemsize: int = 2) -> bool:
     return s >= 1 and itemsize in (2, 4) and d in SUPPORTED_HEAD_DIMS
 
 
-def backward_supported(s: int, d: int, dtype: torch.dtype,
-                       bwd_block_k: Optional[int] = None) -> bool:
-    """True when a kernel takes the backward JAX runs at sequence length
-    ``s``, head dim ``d`` and input ``dtype`` (:func:`bwd_layout`): bf16 in
-    either layout, f32 in the fused one only, ``d`` in
-    :data:`BWD_HEAD_DIMS`."""
-    if d not in BWD_HEAD_DIMS or dtype not in KERNEL_DTYPES:
-        return False
-    return dtype == torch.bfloat16 or bwd_layout(s, d, dtype, bwd_block_k) == "fused"
+def backward_supported(d: int, dtype: torch.dtype) -> bool:
+    """True when a kernel takes the attention backward at head dim ``d``
+    and input ``dtype``: bf16 or f32 in either layout (:func:`bwd_layout`
+    chooses which), ``d`` in :data:`BWD_HEAD_DIMS`."""
+    return d in BWD_HEAD_DIMS and dtype in KERNEL_DTYPES
 
 
 def _causal_keep(n: int, device) -> torch.Tensor:
@@ -328,19 +330,17 @@ def flash_attention_dkv_reference(
 
 def _check_kernel_inputs(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous [B, H, S, D] tensor of
-    ref's dtype (bf16, or f32 where ``what`` has an f32 build) shaped like
-    ``ref`` on ref's CUDA device, at a (S, D) the kernels take."""
+    ref's dtype (bf16 or f32) shaped like ``ref`` on ref's CUDA device, at
+    a (S, D) the kernels take."""
     if ref.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ref.device}")
-    takes = KERNEL_DTYPES if what in ("flash_attention", "flash_attention_backward") \
-        else (torch.bfloat16,)
     for name, t in tensors.items():
         if t.device != ref.device or t.shape != ref.shape or t.dim() != 4:
             raise ValueError(
                 f"{what}: {name} must be [B, H, S, D] like q "
                 f"{tuple(ref.shape)} on {ref.device}, got {tuple(t.shape)} on {t.device}")
-        if t.dtype not in takes or t.dtype != ref.dtype:
-            names = " or ".join(str(x).replace("torch.", "") for x in takes)
+        if t.dtype not in KERNEL_DTYPES or t.dtype != ref.dtype:
+            names = " or ".join(str(x).replace("torch.", "") for x in KERNEL_DTYPES)
             raise TypeError(f"{what}: the kernel takes {names} (all of one dtype), "
                             f"{name} is {t.dtype}")
         if not t.is_contiguous():
@@ -425,16 +425,19 @@ def flash_attention_dq(
     the forward's ``lse`` and ``delta`` (both ``[B, H, S]`` f32).
 
     CPU tensors run :func:`flash_attention_dq_reference`. CUDA tensors
-    launch the dQ kernel or raise, on the inputs
+    launch the dQ kernel of q's dtype or raise, on the inputs
     :func:`flash_attention_backward` takes. The kernel writes the scaled
-    bf16 dQ once per Q tile, with no atomics."""
+    dQ once per Q tile, with no atomics."""
     if q.device.type == "cpu":
         return flash_attention_dq_reference(q, k, v, do, lse, delta, causal)
     _check_backward_inputs("flash_attention_dq", q, k, v, do, lse, delta)
     b, h, s, d = q.shape
     dq = torch.empty_like(q)
-    lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    rc = lib.dftt_flash_attention_dq_bf16(
+    if q.dtype == torch.float32:
+        fn = build.load("flash_attention_f32", _F32_SIGNATURES).dftt_flash_attention_dq_f32
+    else:
+        fn = build.load("flash_attention_bwd", _BWD_SIGNATURES).dftt_flash_attention_dq_bf16
+    rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b * h, s, d, int(causal), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -449,14 +452,17 @@ def flash_attention_dkv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` of attention, the second half of the two-kernel
     backward. CPU tensors run :func:`flash_attention_dkv_reference`; CUDA
-    tensors launch the dK/dV kernel or raise."""
+    tensors launch the dK/dV kernel of q's dtype or raise."""
     if q.device.type == "cpu":
         return flash_attention_dkv_reference(q, k, v, do, lse, delta, causal)
     _check_backward_inputs("flash_attention_dkv", q, k, v, do, lse, delta)
     b, h, s, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    rc = lib.dftt_flash_attention_dkv_bf16(
+    if q.dtype == torch.float32:
+        fn = build.load("flash_attention_f32", _F32_SIGNATURES).dftt_flash_attention_dkv_f32
+    else:
+        fn = build.load("flash_attention_bwd", _BWD_SIGNATURES).dftt_flash_attention_dkv_bf16
+    rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, s, d, int(causal),
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
@@ -517,8 +523,7 @@ def flash_attention(
 
     CPU tensors run the plain versions. CUDA tensors launch the kernels or
     raise: they must be contiguous bf16 or f32 of one shape with ``D`` in
-    :data:`SUPPORTED_HEAD_DIMS` (f32 trains in the fused backward's range
-    only, :func:`backward_supported`). Without a gradient to track (serving runs
+    :data:`SUPPORTED_HEAD_DIMS`. Without a gradient to track (serving runs
     under ``torch.no_grad()``) the forward is called directly, with no
     autograd bookkeeping."""
     del bwd_block_q  # JAX's Q tile; the layout depends on the KV tile alone

@@ -1,5 +1,5 @@
 """Single-token decode attention: hand-written Hopper kernels for the
-paged and the slab KV cache, bf16 and int8, and their plain versions.
+paged and the slab KV cache, bf16, f32 and int8, and their plain versions.
 
 Port of ``distriflow_tpu/ops/flash_decode.py``. ``csrc/flash_decode.cu``
 replaces four Pallas kernels:
@@ -10,7 +10,10 @@ replaces four Pallas kernels:
 - ``_decode_kernel`` and ``_decode_kernel_quant`` (:func:`flash_decode`,
   against a token-major ``[B, S, H*D]`` slab).
 
-One kernel per cache type serves both layouts: the slab is read as a page
+The first two take bf16 and f32 caches (an f32 query with an f32 cache:
+the JAX LM CLI's ``--dtype float32``), each with a kernel of its own (the
+f32 launches also counted in ``launches_by_dtype``). One kernel per cache
+type serves both layouts: the slab is read as a page
 table that is the identity, with :data:`SLAB_TILE`-position pages, so at
 ``page_size == SLAB_TILE`` both accumulate in the same order and the
 serving engine's paged decode matches solo ``generate()`` on the card.
@@ -35,6 +38,18 @@ or past a row's valid length score -1e30. Sentinel page-table entries
 (``>= n_pages``) clamp to the last page, whose contents the length mask
 discards. The TPU kernel's block-diagonal query layout existed only to
 feed the TPU's matrix unit and is not carried over.
+
+Numeric contract, f32 (JAX's "bf16-compute contract for f32 caches",
+``flash_decode.py:46-56``): q, K and V are read in f32 and each value is
+rounded to bf16 (round to nearest even) before its product; from there on
+it is the bf16 contract; the output is f32, unrounded. So an f32 cache
+buys no contraction accuracy over bf16 here, as in JAX. The f32 gate
+(:func:`supports_seq`, :func:`supports_paged` at ``kv_item`` 4) is JAX's
+own VMEM model and tile floor (:func:`_jax_f32_fits`,
+:func:`_jax_tiles_f32`; pages a multiple of 8 and at least
+:data:`MIN_BLOCK_K`), which the port copies: where it says no, JAX decodes
+through XLA in true f32, a different computation, and the port refuses by
+name instead of rounding to bf16.
 
 Numeric contract, int8 (``flash_decode.py:176-215, 245-271, 545-551``):
 q is quantized per (row, head), ``qs = max(max|q| / 127, 1e-20)``,
@@ -71,11 +86,19 @@ SUPPORTED_HEAD_DIMS = (32, 64)
 #: the head dims the int8 kernel is built for
 INT8_HEAD_DIMS = (64,)
 
+# JAX's f32 decode gate (distriflow_tpu/ops/flash_decode.py:85-163, 445-455),
+# the port's own copy: the TPU tile model decides where JAX runs its kernel
+# on an f32 cache and where it takes XLA's true-f32 decode instead
+BLOCK_K = 2048
+VMEM_LIMIT_BYTES = 16 * 1024 * 1024
+MIN_BLOCK_K = 128
+
 # pointers, then B, H, D, T, n_tiles, S, n_pages, split_tiles, n_splits,
 # the length of every row (where lens is NULL), the score scale, the stream
 _INTS = [ctypes.c_int] * 10
 _SIGNATURES = {
     "dftt_flash_decode_bf16": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_float, ctypes.c_void_p],
+    "dftt_flash_decode_f32": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_float, ctypes.c_void_p],
     "dftt_flash_decode_int8": [ctypes.c_void_p] * 9 + _INTS + [ctypes.c_float, ctypes.c_void_p],
 }
 
@@ -91,17 +114,36 @@ def _note_refused() -> None:
 
 def _kernel_takes(hd: int, kv_item: int, d: int) -> bool:
     dims = INT8_HEAD_DIMS if kv_item == 1 else SUPPORTED_HEAD_DIMS
-    return kv_item in (1, 2) and d in dims and hd % d == 0
+    return kv_item in (1, 2, 4) and d in dims and hd % d == 0
+
+
+def _jax_f32_fits(bk: int, hd: int) -> bool:
+    """JAX's scoped-VMEM model of an f32 cache tile of ``bk`` positions at
+    packed width ``hd``: double-buffered f32 K/V tiles and their bf16 cast
+    copies, plus 10%, within :data:`VMEM_LIMIT_BYTES`."""
+    return int((2 * 2 * bk * hd * 4 + 2 * bk * hd * 2) * 1.1) <= VMEM_LIMIT_BYTES
+
+
+def _jax_tiles_f32(s: int, hd: int) -> bool:
+    """True when JAX's gate finds a tile for an f32 slab of ``s``
+    positions: ``s`` itself up to :data:`BLOCK_K`, else a multiple-of-8
+    divisor of ``s`` down to :data:`MIN_BLOCK_K`, that fits the VMEM model."""
+    if s <= BLOCK_K and _jax_f32_fits(s, hd):
+        return True
+    return any(s % bk == 0 and _jax_f32_fits(bk, hd)
+               for bk in range(min(BLOCK_K, s) // 8 * 8, MIN_BLOCK_K - 1, -8))
 
 
 def supports_seq(s: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
     """True when :func:`flash_decode` takes a slab of ``s`` positions at
     packed width ``hd``, itemsize ``kv_item`` and head dim ``d``: bf16 or
-    int8 (``kv_item`` 1) and a supported head dim (any ``s``; the last tile
-    is masked). A refused
-    shape bumps ``ops_flash_decode_gated_total``; there is no plain path
-    on the card to route it to, so the caller raises."""
-    if s >= 1 and _kernel_takes(hd, kv_item, d):
+    int8 (``kv_item`` 1) at a supported head dim and any ``s`` (the last
+    tile is masked); f32 (``kv_item`` 4) where JAX's own gate runs its
+    kernel (:func:`_jax_tiles_f32`). A refused shape bumps
+    ``ops_flash_decode_gated_total``; there is no plain path on the card
+    to route it to, so the caller raises."""
+    if s >= 1 and _kernel_takes(hd, kv_item, d) and (
+            kv_item != 4 or _jax_tiles_f32(s, hd)):
         return True
     _note_refused()
     return False
@@ -109,9 +151,13 @@ def supports_seq(s: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
 
 def supports_paged(page_size: int, hd: int = 512, kv_item: int = 2, d: int = 64) -> bool:
     """True when :func:`flash_decode_paged` takes pages of ``page_size``
-    positions: at most :data:`MAX_TILE`, bf16 or int8, a supported head
-    dim. A refused shape bumps ``ops_flash_decode_gated_total``."""
-    if 1 <= page_size <= MAX_TILE and _kernel_takes(hd, kv_item, d):
+    positions: at most :data:`MAX_TILE`, bf16, f32 or int8, a supported
+    head dim; f32 only where JAX's own gate runs its kernel too (a
+    multiple of 8, at least :data:`MIN_BLOCK_K`, a page pair within the
+    VMEM model). A refused shape bumps ``ops_flash_decode_gated_total``."""
+    jax_takes = kv_item != 4 or (page_size % 8 == 0 and page_size >= MIN_BLOCK_K and
+                                 _jax_f32_fits(page_size, hd))
+    if 1 <= page_size <= MAX_TILE and _kernel_takes(hd, kv_item, d) and jax_takes:
         return True
     _note_refused()
     return False
@@ -247,12 +293,12 @@ def split_partials(q, k, v, valid_len, page_table=None, k_scale=None, v_scale=No
 
 
 def flash_decode_paged_reference(q, k, v, page_table, valid_len) -> torch.Tensor:
-    """Plain version of :func:`flash_decode_paged` (bf16 cache)."""
+    """Plain version of :func:`flash_decode_paged` (bf16 or f32 cache)."""
     return combine_partials(split_partials(q, k, v, valid_len, page_table)).to(q.dtype)
 
 
 def flash_decode_reference(q, k, v, valid_len) -> torch.Tensor:
-    """Plain version of :func:`flash_decode` (bf16 cache)."""
+    """Plain version of :func:`flash_decode` (bf16 or f32 cache)."""
     return combine_partials(split_partials(q, k, v, valid_len)).to(q.dtype)
 
 
@@ -269,12 +315,17 @@ def flash_decode_int8_reference(q, k, v, k_scale, v_scale, valid_len) -> torch.T
                                            v_scale)).to(q.dtype)
 
 
-def _check_cuda(q, pools, what, dtype=torch.bfloat16, scales=()):
+def _check_cuda(q, pools, what, dtype=None, scales=()):
+    """``dtype`` None: the bf16 or the f32 kernel, q and the pools of one
+    dtype; else (int8) a bf16 q and pools of ``dtype``."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
-    if q.dim() != 3 or q.dtype != torch.bfloat16 or not q.is_contiguous():
-        raise ValueError(f"{what}: q must be contiguous bf16 [B, H, D], got "
+    q_dtypes = (torch.bfloat16, torch.float32) if dtype is None else (torch.bfloat16,)
+    if q.dim() != 3 or q.dtype not in q_dtypes or not q.is_contiguous():
+        names = " or ".join(str(t).replace("torch.", "") for t in q_dtypes)
+        raise ValueError(f"{what}: q must be contiguous {names} [B, H, D], got "
                          f"{q.dtype} {tuple(q.shape)}")
+    dtype = q.dtype if dtype is None else dtype
     b, h, d = q.shape
     if d not in (INT8_HEAD_DIMS if dtype == torch.int8 else SUPPORTED_HEAD_DIMS):
         raise ValueError(f"{what}: no kernel for head dim {d}")
@@ -312,9 +363,9 @@ def _check_slab(q, k, v, what):
 
 
 def _launch(q, k, v, scales, table, valid_len, tile, n_tiles, s, n_pages, what):
-    """The bf16 kernels (``scales`` None) or the int8 kernels (``scales`` =
-    (k_scale, v_scale)): the split kernel over ceil(n_tiles /
-    :func:`split_tiles`) splits, then the combine, which reads the f32
+    """The bf16 or f32 kernels (``scales`` None, by q's dtype) or the int8
+    kernels (``scales`` = (k_scale, v_scale)): the split kernel over
+    ceil(n_tiles / :func:`split_tiles`) splits, then the combine, which reads the f32
     partials ``[B, H, n_splits, D + 2]`` (never zeroed: only live splits
     are written and read). An int ``valid_len`` is passed by value, a
     tensor as the kernels' ``[B]`` int32 lengths."""
@@ -330,7 +381,7 @@ def _launch(q, k, v, scales, table, valid_len, tile, n_tiles, s, n_pages, what):
     lib = build.load("flash_decode", _SIGNATURES)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     if scales is None:
-        fn = lib.dftt_flash_decode_bf16
+        fn = lib.dftt_flash_decode_f32 if q.dtype == torch.float32 else lib.dftt_flash_decode_bf16
     else:
         fn = lib.dftt_flash_decode_int8
         ptrs += [scales[0].data_ptr(), scales[1].data_ptr()]
@@ -348,7 +399,7 @@ def flash_decode_paged(q, k, v, page_table, valid_len, k_scale=None, v_scale=Non
     """Decode attention against a paged cache, one query token per row.
 
     ``q``: [B, H, D]; ``k``/``v``: page pools ``[n_pages, page_size,
-    H*D]`` (bf16, or int8 with ``k_scale``/``v_scale`` ``[n_pages,
+    H*D]`` (q's dtype, bf16 or f32; or int8 with ``k_scale``/``v_scale`` ``[n_pages,
     page_size, H]`` f32 pools: :func:`flash_decode_paged_int8`);
     ``page_table``: [B, PP] int32 (entries ``>= n_pages`` are sentinels);
     ``valid_len``: an int or a ``[B]`` tensor of per-row windows. Returns
@@ -363,13 +414,13 @@ def flash_decode_paged(q, k, v, page_table, valid_len, k_scale=None, v_scale=Non
     pp = page_table.shape[1]
     out = _launch(q, k, v, None, page_table, valid_len,
                   ps, pp, pp * ps, n_pages, "flash_decode_paged")
-    build.count_launch(flash_decode_paged, q.shape[-1])
+    build.count_launch(flash_decode_paged, q.shape[-1], q.dtype)
     return out
 
 
 def flash_decode(q, k, v, valid_len, k_scale=None, v_scale=None) -> torch.Tensor:
     """Decode attention for ONE query token per row against a token-major
-    slab ``k``/``v`` ``[B, S, H*D]`` (bf16, or int8 with
+    slab ``k``/``v`` ``[B, S, H*D]`` (q's dtype, bf16 or f32; or int8 with
     ``k_scale``/``v_scale`` ``[B, S, H]`` f32: :func:`flash_decode_int8`);
     ``valid_len`` is an int (every row attends to ``[0, valid_len)``) or a
     ``[B]`` tensor. Returns [B, H, D] in q's dtype."""
@@ -382,7 +433,7 @@ def flash_decode(q, k, v, valid_len, k_scale=None, v_scale=None) -> torch.Tensor
     s = k.shape[1]
     out = _launch(q, k, v, None, None, valid_len,
                   SLAB_TILE, -(-s // SLAB_TILE), s, 0, "flash_decode")
-    build.count_launch(flash_decode, q.shape[-1])
+    build.count_launch(flash_decode, q.shape[-1], q.dtype)
     return out
 
 
@@ -420,10 +471,13 @@ def flash_decode_int8(q, k, v, k_scale, v_scale, valid_len) -> torch.Tensor:
     return out
 
 
-#: kernel launches since the count was last set to 0 (bf16 also by head dim)
+#: kernel launches since the count was last set to 0 (bf16 and f32 also by
+#: head dim and by dtype)
 flash_decode_paged.launches = 0
 flash_decode_paged.launches_by_head_dim = {}
+flash_decode_paged.launches_by_dtype = {}
 flash_decode.launches = 0
 flash_decode.launches_by_head_dim = {}
+flash_decode.launches_by_dtype = {}
 flash_decode_paged_int8.launches = 0
 flash_decode_int8.launches = 0

@@ -14,6 +14,13 @@
   interpret mode (JAX's ``_dq_kernel`` and ``_dkv_kernel``), on inputs
   made from one numpy seed, causal and not, with and without a cotangent
   on the lse output.
+- f32 in the two-kernel layout (the CUDA ``dq_kernel`` and ``dkv_kernel``
+  of ``csrc/flash_attention_f32.cu``, the JAX LM CLI's ``--dtype float32
+  --seq 16384``) at head dims 32 and 64, ``bwd_block_k`` pinned to 8 so
+  that S 96 takes it: the dQ and dK/dV wrappers' plain versions against
+  JAX's f32 ``_dq_kernel``/``_dkv_kernel`` in interpret mode, each
+  gradient element within the first-order f32 error bound of the recipe
+  computed for these very inputs (:func:`_f32_error_bound`).
 - The dispatcher calls the dQ and dK/dV wrappers exactly when the gate
   says so, and the fused wrapper otherwise.
 
@@ -79,9 +86,9 @@ def test_pinned_blocks_choose_the_layout_as_in_jax():
         assert port_fa.bwd_layout(s, D, torch.bfloat16, bwd_block_k=blk) == want, (s, blk)
 
 
-def _inputs(dtype_name, seed=0):
+def _inputs(dtype_name, seed=0, d=D):
     rng = np.random.RandomState(seed)
-    arrs = [rng.randn(B, H, S, D).astype(np.float32) for _ in range(4)]
+    arrs = [rng.randn(B, H, S, d).astype(np.float32) for _ in range(4)]
     glse = rng.randn(B, H, S).astype(np.float32)
     jx = [jnp.asarray(a, dtype=getattr(jnp, dtype_name)) for a in arrs]
     # widen the rounded JAX values so both sides start from the same bits
@@ -128,6 +135,22 @@ def test_two_kernel_plain_backward_matches_jax_grad_interpret(dtype_name, causal
     ours = _port_grads(tq, tk, tv, tdo, glse, causal, with_lse)
     for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
         np.testing.assert_allclose(a, r, rtol=0, atol=TOL[dtype_name], err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64])
+def test_f32_two_kernel_backward_matches_jax_at_head_dims(d, causal):
+    """The f32 two-kernel layout at both built head dims: the dQ and dK/dV
+    wrappers (through autograd, the layout pinned) against JAX's f32 split
+    kernels, elementwise within the error bound of these inputs."""
+    assert port_fa.bwd_layout(S, d, torch.float32, BLOCK) == "split"
+    assert port_fa.backward_supported(d, torch.float32)
+    (q, k, v, do), (tq, tk, tv, tdo), glse = _inputs("float32", seed=5, d=d)
+    ref = _jax_grads(q, k, v, do, glse, causal, True)
+    ours = _port_grads(tq, tk, tv, tdo, glse, causal, True)
+    bound = _f32_error_bound(*(np.asarray(a) for a in (q, k, v, do)), glse, causal, True)
+    for name, a, r, limit in zip(("dq", "dk", "dv"), ours, ref, bound):
+        np.testing.assert_allclose(a, r, rtol=0, atol=limit, err_msg=name)
 
 
 def _f32_error_bound(q, k, v, do, glse, causal, with_lse):

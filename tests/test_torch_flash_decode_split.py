@@ -263,8 +263,9 @@ def test_split_rule_is_one_python_constant_passed_to_the_kernels():
     assert port_fd.split_tiles(16) * 16 == port_fd.SPLIT_TILES * ps
     assert port_fd.split_tiles(256) == max(1, port_fd.SPLIT_TILES // 2)
     src = (build.CSRC / "flash_decode.cu").read_text()
-    assert len(re.findall(r"int split_tiles, int n_splits, int len_all", src)) == 2
+    # the bf16, f32 and int8 entry points
+    assert len(re.findall(r"int split_tiles, int n_splits, int len_all", src)) == 3
     assert not re.search(r"\batomic\w*\s*\(|\bred\.|\batom\.", src) and "cp.async" in src
     assert re.search(r"__global__[^;{]*\bcombine_kernel\s*\(", src)
-    assert "cudaLaunchKernelEx(&cfg, combine_kernel<D>" in src
+    assert "cudaLaunchKernelEx(&cfg, combine_kernel<D, Out>" in src
     assert "flash_decode" in build.HEADERS and "hopper.cuh" in build.HEADERS["flash_decode"]

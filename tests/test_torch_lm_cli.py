@@ -28,11 +28,23 @@ inputs made from one numpy seed.
   relative (the same f32 arithmetic, sums in other orders). bf16: 2e-3
   relative, the bf16 limit of ``test_torch_train.py`` (bf16 rounds at
   other points in the two frameworks).
+- The small CLI model in f32 decoding (``--dtype float32 --generate``
+  and ``--serve``), flash attention and flash decode on, so that the port
+  runs the f32 decode kernels' plain versions and JAX its Pallas decode
+  kernels in interpret mode on f32 caches (both round q, K, V and p to
+  bf16 alike): greedy ``generate`` and the streams the port's
+  ``InferenceServer`` serves at its default page size 128 equal JAX's
+  ``generate`` token for token; a beam's tokens equal JAX's and its
+  scores, and a served score, lie within 1e-4 of JAX's, the limit of
+  ``test_torch_beam_score.py`` (the same log-softmax sums in another
+  order; measured 1.9e-6 and 0.0).
 - The gate rule on ``torch.device("cuda")``: ``check_kernels_take`` reads
   the config only, and a model is built with its ``.to`` stubbed, so no
   card is needed. The CLI's defaults train at S 512 and at S 16384 with
-  remat, and ``--dtype float32`` at S 512; each case without a kernel is
-  refused by name.
+  remat, ``--dtype float32`` trains at S 512 and at S 16384 with remat
+  (the f32 two-kernel backward) and decodes through slab and pages of 128;
+  each case without a kernel (an f32 cache at pages under 128 or a slab
+  JAX cannot tile, an f32 model with an int8 cache) is refused by name.
 """
 
 import dataclasses
@@ -44,6 +56,9 @@ import numpy as np
 import pytest
 import torch
 
+from distriflow_tpu.models.generate import beam_search as jax_beam_search
+from distriflow_tpu.models.generate import generate as jax_generate
+from distriflow_tpu.models.generate import sequence_logprob as jax_sequence_logprob
 from distriflow_tpu.models.transformer import TransformerConfig as JaxConfig
 from distriflow_tpu.models.transformer import transformer_lm as jax_transformer_lm
 from distriflow_tpu.ops.fused_ce import (
@@ -52,13 +67,16 @@ from distriflow_tpu.ops.fused_ce import (
 )
 from distriflow_tpu.parallel import data_parallel_mesh
 from distriflow_tpu.train.sync import SyncTrainer as JaxTrainer
+from distriflow_tpu_torch.client.inference_client import InferenceClient
 from distriflow_tpu_torch.models import generate as port_generate
 from distriflow_tpu_torch.models import transformer as port_tf
-from distriflow_tpu_torch.models.convert import params_from_jax
+from distriflow_tpu_torch.models.convert import lm_from_jax, params_from_jax
 from distriflow_tpu_torch.models.transformer import TransformerConfig, transformer_lm
 from distriflow_tpu_torch.ops import fused_ce as port_ce
 from distriflow_tpu_torch.ops import flash_attention as port_fa
+from distriflow_tpu_torch.server.inference_server import InferenceServer
 from distriflow_tpu_torch.train.sync import SyncTrainer
+from distriflow_tpu_torch.utils.config import ServingConfig
 from experiments.lm.data import batches, generate_corpus
 from test_torch_flash_attention_split import _f32_error_bound
 
@@ -254,6 +272,46 @@ def test_small_cli_model_trains_as_jax(devices, dtype_name, loss_rel):
     assert losses[-1] < losses[0]
 
 
+DECODE_ATOL = 1e-4
+DECODE_NEW = 24
+
+
+def test_small_f32_cli_model_generates_and_serves_as_jax():
+    """``--dtype float32 --generate`` and ``--serve`` on the small CLI
+    model: JAX's f32 flash decode (Pallas, interpret mode) against the
+    port's f32 decode kernels' plain versions, slab and paged."""
+    jcfg = JaxConfig(**SMALL, dtype=jnp.float32, use_flash_attention=True, use_flash_decode=True)
+    pcfg = TransformerConfig(**SMALL, dtype=torch.float32, use_flash_attention=True,
+                             use_flash_decode=True)
+    params = jax.tree_util.tree_map(
+        np.asarray, jax_transformer_lm(jcfg, example_seq=16).init(jax.random.PRNGKey(3)))
+    model = lm_from_jax(pcfg, params, device="cpu")
+    corpus = generate_corpus(20_000, seed=0)
+    # 16-token prompts from the held-out tail, as the CLI's --generate takes them
+    prompts = np.stack([corpus[-1000 + 100 * i:-1000 + 100 * i + 16]
+                        for i in range(4)]).astype(np.int32)
+    ref = np.asarray(jax_generate(jcfg, params, jnp.asarray(prompts), DECODE_NEW))
+    np.testing.assert_array_equal(port_generate.generate(model, prompts, DECODE_NEW).numpy(), ref)
+    ref_toks, ref_beam = jax_beam_search(jcfg, params, jnp.asarray(prompts[:1]), 8, beam_size=4)
+    tokens = corpus[-500:-452][None].astype(np.int32)
+    ref_score = np.asarray(jax_sequence_logprob(jcfg, params, jnp.asarray(tokens), 8))
+    server = InferenceServer(model, serving=ServingConfig(batch_window_s=0.05)).setup()
+    assert server.serving.page_size == 128
+    try:
+        with InferenceClient(server.address).setup() as c:
+            for i in range(len(prompts)):
+                np.testing.assert_array_equal(c.generate(prompts[i:i + 1], DECODE_NEW), ref[i:i + 1])
+            toks, beam = c.beam_search(prompts[:1], 8, beam_size=4)
+            np.testing.assert_array_equal(np.asarray(toks), np.asarray(ref_toks))
+            np.testing.assert_allclose(np.asarray(beam, np.float32), np.asarray(ref_beam),
+                                       rtol=0, atol=DECODE_ATOL)
+            np.testing.assert_allclose(np.asarray(c.score(tokens, from_pos=8), np.float32),
+                                       ref_score, rtol=0, atol=DECODE_ATOL)
+        assert server.decode_batches > 0
+    finally:
+        server.stop()
+
+
 # the CLI's defaults (experiments/lm/train.py:54-66, data.py:20)
 CLI = TransformerConfig(vocab_size=256, d_model=256, n_heads=8, n_layers=4, d_ff=1024,
                         max_seq=512)
@@ -264,11 +322,12 @@ CUDA = torch.device("cuda")
     {},                                           # the defaults: bf16, S 512
     dict(max_seq=16384, remat=True),              # --seq 16384 --remat
     dict(dtype=torch.float32),                    # --dtype float32
+    dict(dtype=torch.float32, max_seq=16384, remat=True),  # both: the f32 two-kernel backward
 ])
 def test_cli_configurations_build_on_cuda(monkeypatch, kw):
-    """The CLI's three training configurations build a trainable model on
-    CUDA (``TransformerLM``'s own check, its move to the card stubbed)
-    with the fused sparse CE."""
+    """The CLI's training configurations build a trainable model on CUDA
+    (``TransformerLM``'s own check, its move to the card stubbed) with the
+    fused sparse CE."""
     cfg = dataclasses.replace(CLI, **kw)
     assert cfg.head_dim == 32
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -279,12 +338,30 @@ def test_cli_configurations_build_on_cuda(monkeypatch, kw):
     port_ce.check_model(spec.loss, CUDA, cfg.dtype)
 
 
+@pytest.mark.parametrize("kw,call", [
+    (dict(dtype=torch.float32), dict()),                   # --dtype float32 --generate
+    (dict(dtype=torch.float32), dict(page_size=128)),      # --dtype float32 --serve
+    # --dtype float32 --seq 16384 --remat: past JAX's fused range, the f32
+    # two-kernel backward
+    (dict(dtype=torch.float32, max_seq=16384, remat=True), dict(training=True, decode=False)),
+])
+def test_f32_cli_paths_are_taken_on_cuda(kw, call):
+    cfg = dataclasses.replace(CLI, **kw)
+    port_tf.check_kernels_take(cfg, CUDA, **call)
+    if call.get("training"):
+        assert port_fa.bwd_layout(cfg.max_seq, cfg.head_dim, cfg.dtype) == "split"
+        assert port_fa.backward_supported(cfg.head_dim, cfg.dtype)
+
+
 @pytest.mark.parametrize("kw,call,what", [
-    # --dtype float32 with --generate / --serve: the decode kernels read bf16
-    (dict(dtype=torch.float32), dict(), "slab decode"),
-    (dict(dtype=torch.float32), dict(page_size=128), "paged decode at page_size 128"),
-    # f32 past JAX's fused range takes the two-kernel layout, which has no f32 build
-    (dict(dtype=torch.float32, max_seq=16384, remat=True), dict(training=True, decode=False),
+    # an f32 slab that no JAX tile divides (2056 = 8 x 257): JAX decodes it
+    # through XLA in true f32, which no kernel here computes
+    (dict(dtype=torch.float32, max_seq=2056), dict(), "slab decode"),
+    # an f32 model with an int8 cache: the int8 kernel reads a bf16 query
+    (dict(dtype=torch.float32, kv_cache_dtype="int8_force"), dict(page_size=128),
+     "paged decode at page_size 128"),
+    # head dim 128: no kernel, forward or backward
+    (dict(d_model=256, n_heads=2, max_seq=16384, remat=True), dict(training=True, decode=False),
      "the attention backward"),
     (dict(d_model=256, n_heads=2), dict(training=True, decode=False), "prefill attention"),
     (dict(kv_cache_dtype="int8_force"), dict(page_size=128), "slab decode \\(int8 cache\\)"),
@@ -298,15 +375,30 @@ def test_cases_without_a_kernel_are_refused_by_name(kw, call, what):
 
 
 def test_f32_model_trains_but_refuses_a_decode_cache(monkeypatch):
-    """An f32 model passes its build check; the decode cache it would
-    generate or serve through is refused, by name, before anything is
-    allocated."""
+    """An f32 model passes its build check; the f32 decode caches it
+    generates and serves through are built on CUDA (allocation stubbed to
+    the meta device: no card here), the slab and pages of 128; a pool of
+    pages of 16, where JAX decodes in true f32 through XLA, is refused by
+    name before anything is allocated."""
     cfg = dataclasses.replace(CLI, dtype=torch.float32)
     port_tf.check_kernels_take(cfg, CUDA, training=True, decode=False)
     port_ce.check_model("fused_sparse_softmax_cross_entropy", CUDA, torch.float32)
-    with pytest.raises(NotImplementedError, match="slab decode"):
-        port_tf.cache_buffers(cfg, (1, cfg.max_seq), False, CUDA)
-    with pytest.raises(NotImplementedError, match="paged decode at page_size 128"):
-        port_generate.paged_cache(cfg, 8, 128, 16, CUDA)
+    allocated = []
+    for name in ("zeros", "full"):
+        real = getattr(torch, name)
+
+        def on_meta(*a, real=real, device=None, **k):
+            allocated.append(str(device))
+            return real(*a, device="meta" if str(device).startswith("cuda") else device, **k)
+        monkeypatch.setattr(torch, name, on_meta)
+    k, v, ks, vs = port_tf.cache_buffers(cfg, (1, cfg.max_seq), False, CUDA)
+    assert k[0].shape == (1, cfg.max_seq, cfg.d_model) and k[0].dtype == torch.float32
+    assert ks is None and len(v) == cfg.n_layers
+    cache = port_generate.paged_cache(cfg, 8, 128, 16, CUDA)
+    assert cache.k[0].shape == (16, 128, cfg.d_model) and cache.k[0].dtype == torch.float32
+    n = len(allocated)
+    with pytest.raises(NotImplementedError, match="paged decode at page_size 16"):
+        port_generate.paged_cache(cfg, 8, 16, 16, CUDA)
+    assert len(allocated) == n
     # bf16 at the CLI's defaults: every decode kernel takes it
     port_tf.check_kernels_take(CLI, CUDA, page_size=128, training=True)
