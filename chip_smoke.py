@@ -107,7 +107,24 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     CTAs, shared memory). Row 11 shows that a forward whose statistics
     come from the cluster's rank-0 tile alone fails its limit, row 12
     that a backward without the GroupNorm statistics' gradient terms
-    does.
+    does. Then MobileNetV2 at its default f32 (``mobilenet_f32:`` line),
+    the model JAX builds as written: (a) step 11's recipe with the dtype
+    left alone, in windows ``mobilenet_f32_train`` and
+    ``mobilenet_f32_eval`` (exactly 17 f32 depthwise forward and 17 f32
+    backward launches a step, 17 f32 forward launches a chunk, no bf16
+    depthwise launch; step 11's windows show no f32 launch), the losses
+    falling, the step p50, samples/s, peak memory, the value of
+    ``torch.backends.cudnn.allow_tf32`` the convolutions ran under, and
+    one profiled step; (b) one step against the plain depthwise versions
+    within ``MN_F32_STEP_TOL``; (c) 224 px (1000 classes, B 64, 3 steps,
+    ``mobilenet_f32_224``: 17 + 17 f32 launches a step, every loss
+    finite). Rows ``depthwise_gn_fwd_f32`` and ``depthwise_gn_bwd_f32``
+    hold all 10 shapes at 96 px (B 256) and all 10 at 224 px (B 64)
+    against the plain versions and the banded mirror of the f32 plan
+    (``differ_share``: the share of elements not bit for bit), time each,
+    and time the plain versions and the library composition (TF32 off) at
+    each resolution's largest-bytes and smallest shape; the same two
+    planted faults are rejected.
 13. Long-context training: the flagship at max_seq 16384 with
     ``remat=True`` (the JAX CLI ``experiments/lm/train.py --seq 16384
     --remat`` at the flagship's dims; B 1 where the CLI defaults to 8),
@@ -443,7 +460,7 @@ draft's (``*_d32``): kernel 1 at B1 H4 S1024 and S16288, kernel 2 at the
 draft's contexts over the 4 slots, kernel 3 at the draft's solo shape,
 each with its D 64 row's checks. Each row's
 ``launches_by_path`` gives its count in every window. The line
-before the last is the kernel table as JSON (32 rows); the last line is
+before the last is the kernel table as JSON (34 rows); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
 """
@@ -528,7 +545,10 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "flash_decode_paged_f32": (1e-6, 1e-5),
        # the f32 two-kernel backward, see below
        "flash_attention_dq_f32": (1e-6, 1e-5),
-       "flash_attention_dkv_f32": (2e-5, 1e-5)}
+       "flash_attention_dkv_f32": (2e-5, 1e-5),
+       # the f32 depthwise kernels, see DWGN_F32_SUM_RTOL below
+       "depthwise_gn_fwd_f32": (1e-6, 1e-5),
+       "depthwise_gn_bwd_f32": (1e-6, 1e-5)}
 # The f32 kernels (attention forward and fused backward, the CE on f32
 # logits) add f32 terms in another order than their plain versions, with
 # no rounding to a narrower type anywhere: an element differs by a few f32
@@ -632,6 +652,21 @@ SPLIT_CHOICES = (1, 2, 4)
 MN = dict(image_size=96, classes=100, width=1.0)
 MN_B, MN_STEPS, MN_LR = 256, 20, 0.05
 MN_TRAIN, MN_VAL = 2048, 512
+# The same recipe at the model's default f32 (JAX's mobilenet_v2 builds
+# f32, and its fused branch runs the Pallas kernel in f32), then
+# MobileNetV2's published ImageNet shapes: 224 px, 1000 classes, width
+# 1.0, B MN224_B for MN224_STEPS steps
+MN224 = dict(image_size=224, classes=1000, width=1.0)
+MN224_B, MN224_STEPS = 64, 3
+# The f32 step through the depthwise kernels against the plain depthwise
+# versions: the kernels compute the plain versions' f32 arithmetic (the
+# same roundings, every sum over positions the f32 of an f64 sum), so the
+# two steps differ only where an f64 sum of the same terms in another
+# order rounds to the neighbouring f32 (dw), one f32 step of 2**-24 of an
+# element, and by whatever the library's convolutions add between two
+# launches; the limits are the CPU parity test's against JAX (1e-5 on the
+# loss, 1e-4 on the gradients), 100 and 400 times tighter than bf16's
+MN_F32_STEP_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-4}
 # Long-context training: experiments/lm/train.py --seq 16384 --remat at the
 # flagship's dims (adam 1e-3, the fused sparse CE), B 1 where the CLI
 # defaults to 8, on random windows of its synthetic corpus
@@ -684,6 +719,19 @@ FA_K, FA_B, FA_LR, FA_ROUNDS, FA_WORKERS = 8, 128, 0.01, 3, (1, 4)
 # within DWGN_SUM_RTOL of their largest element (measured 2.8e-4).
 DWGN_FLIP_SHARE = 1e-3
 DWGN_SUM_RTOL = 2 ** -7
+# The f32 depthwise kernels (kernels 11-12 on f32 activations) round every
+# product, sum, division and affine step to f32 where their plain versions
+# do (which divide truly, ops/depthwise_gn.py::_div), and take every sum
+# over positions as the f32 of an f64 sum, as the plain versions do: the
+# forward is held bit for bit (measured so at all 20 shapes on the H100);
+# dx, dscale and dbias elementwise at the f32 rows' limit (atol 1e-6 +
+# rtol 1e-5, TOL), where each was measured bit for bit too (the rows
+# report the share of elements that differ). dw's f64 sums
+# add the same f32 products in another order (the threads, the warps, the
+# cluster's ranks) than the plain version's, which can round the f32 result
+# to its neighbour: one f32 step, 2**-24 relative; dw is held within
+# DWGN_F32_SUM_RTOL of its largest element, sixteen such steps.
+DWGN_F32_SUM_RTOL = 1e-6
 # The timer's device spin before each bracket (_timed): between SPIN_MIN_S
 # and SPIN_MAX_S, counted in cycles of the H100 SXM's highest SM clock
 # (1.98 GHz), so that a card at a lower clock spins longer, never shorter
@@ -1913,33 +1961,38 @@ def _synthetic_imagenet(n_train, n_val, num_classes, image_size, seed):
     return make(n_train), make(n_val)
 
 
-def _mobilenet_spec(device="cuda"):
-    """The slice's MobileNetV2 spec: fused depthwise kernels, bf16, uint8
-    input, sparse CE (the CLI's ``--wire-format u8``)."""
+def _mobilenet_spec(device="cuda", f32=False, size=None):
+    """The slice's MobileNetV2 spec (``MN`` unless ``size``): fused
+    depthwise kernels, uint8 input, sparse CE (the CLI's ``--wire-format
+    u8``), in bf16, or with ``f32`` at the model's default dtype (f32)."""
     from distriflow_tpu_torch.models.base import with_uint8_inputs
     from distriflow_tpu_torch.models.mobilenet import mobilenet_v2
 
-    spec = mobilenet_v2(**MN, norm="group", dtype=torch.bfloat16, depthwise_impl="fused",
-                        gn_impl="flax", device=device)
+    dtype = {} if f32 else {"dtype": torch.bfloat16}
+    spec = mobilenet_v2(**(size or MN), norm="group", depthwise_impl="fused", gn_impl="flax",
+                        device=device, **dtype)
     return dataclasses.replace(with_uint8_inputs(spec), loss="sparse_softmax_cross_entropy")
 
 
-def _mobilenet_phase(tree, counted, device="cuda"):
+def _mobilenet_phase(tree, counted, device="cuda", f32=False):
     """MobileNetV2 trained ``MN_STEPS`` steps by the port's ``run_chunked``
     over ``sampling_iterator`` + ``prefetch_to_device``, then evaluated by
     ``evaluate_dataset`` on the validation split, each in its own launch
-    window. Returns ``(report, trainer, a batch, launch counts by window)``."""
+    window, in bf16 or (``f32``) at the model's default f32. Returns
+    ``(report, trainer, a batch, launch counts by window)``."""
     from distriflow_tpu_torch.data.prefetch import prefetch_to_device, sampling_iterator, to_uint8_wire
     from distriflow_tpu_torch.models.convert import mobilenet_params_from_jax
     from distriflow_tpu_torch.train.loop import evaluate_dataset, run_chunked
     from distriflow_tpu_torch.train.sync import SyncTrainer
 
+    if f32 and device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     train, val = _synthetic_imagenet(MN_TRAIN, MN_VAL, MN["classes"], MN["image_size"], SEED)
     x, y = to_uint8_wire(*train)
     vx, vy = to_uint8_wire(*val)
     data_s = time.perf_counter() - t0
-    trainer = SyncTrainer(_mobilenet_spec(device), optimizer="momentum", learning_rate=MN_LR)
+    trainer = SyncTrainer(_mobilenet_spec(device, f32), optimizer="momentum", learning_rate=MN_LR)
     trainer.init(SEED)
     trainer.set_params(mobilenet_params_from_jax(tree))
     losses, step_ms = [], []
@@ -1956,9 +2009,10 @@ def _mobilenet_phase(tree, counted, device="cuda"):
     assert math.isfinite(val_loss) and 0.0 <= val_acc <= 1.0, (val_loss, val_acc)
     p50 = float(np.median(step_ms))
     report = {
-        "config": {**MN, "batch": MN_B, "dtype": "bfloat16", "depthwise_impl": "fused",
-                   "gn_impl": "flax", "norm": "group", "wire": "uint8",
-                   "loss": trainer.spec.loss, "optimizer": "momentum", "lr": MN_LR},
+        "config": {**MN, "batch": MN_B, "dtype": "float32" if f32 else "bfloat16",
+                   "depthwise_impl": "fused", "gn_impl": "flax", "norm": "group",
+                   "wire": "uint8", "loss": trainer.spec.loss, "optimizer": "momentum",
+                   "lr": MN_LR},
         "steps": MN_STEPS, "train_images": MN_TRAIN, "val_images": MN_VAL, "data_s": data_s,
         "step_ms_p50": p50, "step_ms_max": max(step_ms), "step_ms_first": step_ms[0],
         "samples_per_s": MN_B / (p50 / 1e3),
@@ -1967,13 +2021,71 @@ def _mobilenet_phase(tree, counted, device="cuda"):
         "last5_mean": last, "losses": losses, "val_loss": val_loss, "val_accuracy": val_acc,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None}
     batch = next(sampling_iterator(x, y, MN_B, steps=1, seed=SEED + 1))
-    return report, trainer, batch, {"mobilenet_train": train_counts, "mobilenet_eval": eval_counts}
+    tag = "mobilenet_f32" if f32 else "mobilenet"
+    return report, trainer, batch, {f"{tag}_train": train_counts, f"{tag}_eval": eval_counts}
 
 
-def _mobilenet_step_vs_plain(tree, batch, device="cuda"):
+def _mobilenet_224(counted, device="cuda"):
+    """MobileNetV2 at 224 px (1000 classes, width 1.0, the model's default
+    f32, the fused depthwise at all 17 blocks): ``MN224_STEPS`` steps of
+    B ``MN224_B`` through ``SyncTrainer`` in one launch window, from a
+    seeded tree on the synthetic ImageNet recipe. Returns ``(report,
+    counts)``."""
+    from distriflow_tpu_torch.data.prefetch import prefetch_to_device, sampling_iterator, to_uint8_wire
+    from distriflow_tpu_torch.models.convert import mobilenet_params_from_jax
+    from distriflow_tpu_torch.train.loop import run_chunked
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    n = MN224_B * MN224_STEPS
+    (x, y), _ = _synthetic_imagenet(n, 0, MN224["classes"], MN224["image_size"], SEED + 7)
+    x, y = to_uint8_wire(x, y)
+    tree = _mobilenet_tree(np.random.default_rng(SEED + 7), MN224["classes"], MN224["width"])
+    trainer = SyncTrainer(_mobilenet_spec(device, f32=True, size=MN224), optimizer="momentum",
+                          learning_rate=MN_LR)
+    trainer.init(SEED)
+    trainer.set_params(mobilenet_params_from_jax(tree))
+    del tree
+    losses, step_ms = [], []
+    trainer.callbacks.register("step", lambda t: step_ms.append(t.last_step_ms))
+    stream = prefetch_to_device(sampling_iterator(x, y, MN224_B, steps=MN224_STEPS, seed=SEED),
+                                device)
+    res, counts = counted(lambda: run_chunked(
+        trainer, stream, steps=MN224_STEPS, log=lambda s, l: losses.append(l), log_every=1))
+    assert res.steps_run == MN224_STEPS and len(losses) == MN224_STEPS, res
+    assert all(math.isfinite(v) for v in losses), losses
+    report = {"config": {**MN224, "batch": MN224_B, "dtype": "float32", "depthwise_impl": "fused",
+                         "wire": "uint8", "loss": trainer.spec.loss, "optimizer": "momentum",
+                         "lr": MN_LR},
+              "steps": MN224_STEPS, "losses": losses, "step_ms": step_ms,
+              "samples_per_s": MN224_B / (float(np.median(step_ms)) / 1e3),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None}
+    return report, counts
+
+
+def _mobilenet_f32_phase(tree, counted, device="cuda"):
+    """MobileNetV2 at its default f32 with the fused depthwise: (a) the
+    bf16 phase's recipe (:func:`_mobilenet_phase`), with one profiled step
+    after its windows; (b) one step against the plain depthwise versions;
+    (c) 224 px (:func:`_mobilenet_224`). Returns ``(report, counts by
+    window)``."""
+    report, trainer, batch, counts = _mobilenet_phase(tree, counted, device, f32=True)
+    # the pointwise and stem convolutions run through cuDNN under torch's
+    # default, which the package leaves alone
+    report["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
+    report["step_profile"] = _profiled(lambda: trainer.step(batch)) if device == "cuda" else None
+    del trainer
+    report["step_vs_plain"] = _mobilenet_step_vs_plain(tree, batch, device, f32=True)
+    report["px224"], counts["mobilenet_f32_224"] = _mobilenet_224(counted, device)
+    return report, counts
+
+
+def _mobilenet_step_vs_plain(tree, batch, device="cuda", f32=False):
     """One step's loss and gradients through the depthwise kernels and
     through their plain versions (patched in for the wrappers, forward and
-    backward), from the same f32 masters and batch."""
+    backward), from the same f32 masters and batch, in bf16 or (``f32``)
+    at the model's default f32."""
     from unittest import mock
 
     from distriflow_tpu_torch.models.convert import mobilenet_params_from_jax
@@ -1988,7 +2100,7 @@ def _mobilenet_step_vs_plain(tree, batch, device="cuda"):
         return stack
 
     x, y = (torch.as_tensor(a, device=device) for a in batch)
-    spec, out = _mobilenet_spec(device), {}
+    spec, out = _mobilenet_spec(device, f32), {}
     for name in ("kernels", "plain"):
         model = spec.init(SEED)
         model.load_state_dict(mobilenet_params_from_jax(tree), strict=True)
@@ -1996,16 +2108,17 @@ def _mobilenet_step_vs_plain(tree, batch, device="cuda"):
             loss, grads = spec.grad_fn()(model, x, y)
         out[name] = (float(loss), grads)
         del model
-    return _grads_vs_plain(out, MN_STEP_TOL, "loss_rel")
+    return _grads_vs_plain(out, MN_F32_STEP_TOL if f32 else MN_STEP_TOL, "loss_rel")
 
 
-def _dwgn_inputs(g, b, h, w, c):
-    """bf16 NHWC x ~ N(0, 1), a lecun-scaled [3, 3, C] kernel, affine near
-    flax's init, and an upstream gradient ~ U(0, 1): of nonzero mean, so
-    the GroupNorm statistics' terms carry real weight in dx."""
+def _dwgn_inputs(g, b, h, w, c, dtype=torch.bfloat16):
+    """NHWC x ~ N(0, 1), a lecun-scaled [3, 3, C] kernel (both in
+    ``dtype``), affine near flax's init, and an upstream gradient ~ U(0,
+    1): of nonzero mean, so the GroupNorm statistics' terms carry real
+    weight in dx."""
     dev = torch.device("cuda")
-    x = torch.randn(b, h, w, c, generator=g, device=dev).to(torch.bfloat16)
-    k = (torch.randn(3, 3, c, generator=g, device=dev) / 3).to(torch.bfloat16)
+    x = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
+    k = (torch.randn(3, 3, c, generator=g, device=dev) / 3).to(dtype)
     scale = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
     bias = 0.1 * torch.randn(c, generator=g, device=dev)
     return x, k, scale, bias
@@ -2048,18 +2161,18 @@ def _dwgn_library(x, k, scale, bias, stride):
 DWGN_BIG, DWGN_SMALL = (48, 48, 96, 2), (3, 3, 960, 1)
 
 
-def _dwgn_cases(shapes):
+def _dwgn_cases(shapes, batch=MN_B, dtype=torch.bfloat16, seed=SEED + 5):
     """``(shape, x, k, scale, bias, g)`` of every depthwise shape at B
-    ``MN_B``, drawn in order from one seeded generator: the same tensors in
-    every run and every checkout."""
+    ``batch`` in ``dtype``, drawn in order from one seeded generator: the
+    same tensors in every run and every checkout."""
     from distriflow_tpu_torch.ops import depthwise_gn as dg
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     for key in shapes:
         h, w, c, s = key
-        x, k, sc, bi = _dwgn_inputs(g, MN_B, h, w, c)
+        x, k, sc, bi = _dwgn_inputs(g, batch, h, w, c, dtype)
         _, _, oh, ow = dg._geometry(h, w, s)
-        gout = torch.rand(MN_B, oh, ow, c, generator=g, device="cuda").to(torch.bfloat16)
+        gout = torch.rand(batch, oh, ow, c, generator=g, device="cuda").to(dtype)
         yield key, x, k, sc, bi, gout
 
 
@@ -2212,6 +2325,162 @@ def _mobilenet_kernel_rows(launches, shapes):
             "by_shape": d["by_shape"], "step_ms_all_blocks": d["ms"],
             "step_bound_ms_all_blocks": d["bound"], "deterministic": same_bits, **extra})
     return rows
+
+
+# the f32 rows' timed shapes: the largest-bytes and the smallest shape at
+# 96 px (as the bf16 rows) and at 224 px
+DWGN224_BIG, DWGN224_SMALL = (112, 112, 96, 2), (7, 7, 960, 1)
+
+
+def _dwgn_f32_check(name, got, want):
+    """``(max abs err of dx, {sum: err / its largest element}, share of
+    elements that differ by tensor)`` of an f32 backward against ``want``:
+    dx, dscale and dbias within ``name``'s limit elementwise, dw within
+    ``DWGN_F32_SUM_RTOL`` of its largest element (see the note above it)."""
+    atol, rtol = TOL[name]
+    names = ("dx", "dw", "dscale", "dbias")
+    differ = {n: float((a != r).float().mean()) for n, a, r in zip(names, got, want)}
+    err, sums = 0.0, {}
+    for n, a, r in zip(names, got, want):
+        if n == "dw":
+            e, big = float((a - r).abs().max()), float(r.abs().max())
+            if e > DWGN_F32_SUM_RTOL * big:
+                raise AssertionError(f"{name}: dw off by {e} > {DWGN_F32_SUM_RTOL} x {big}")
+            sums[n] = e / big
+        else:
+            e = _over(f"{name} {n}", a, r, atol, rtol)
+            if n == "dx":
+                err = e
+            else:
+                sums[n] = e / float(r.abs().max())
+    return err, sums, differ
+
+
+def _mobilenet_f32_kernel_rows(launches):
+    """Rows 11 and 12 in f32: every depthwise shape of MobileNetV2 at 96 px
+    (B ``MN_B``) and at 224 px (B ``MN224_B``) held against the plain
+    versions and the banded mirror of the f32 plan; kernel times at every
+    shape, bounds at 4 bytes an element, and the plain versions' and the
+    library composition's times (cuDNN depthwise in f32 + F.group_norm +
+    F.hardtanh, TF32 off) at the largest-bytes and the smallest shape of
+    each resolution; the planted faults at 48x48x96 s2."""
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+    flush = _flush_buffer()
+    timed_at = (DWGN_BIG, DWGN_SMALL, DWGN224_BIG, DWGN224_SMALL)
+    lib_note = ("composition of three calls (cuDNN depthwise F.conv2d(groups=C) in f32 with "
+                "cudnn.allow_tf32 off + F.group_norm + F.hardtanh(0, 6); autograd through it for "
+                "the backward): no single PyTorch call computes this function")
+    fwd, bwd = ({"errs": [], "by_shape": {}, "ms": {}, "bound": {}, "differ": {}, "sums": {}}
+                for _ in range(2))
+    controls, fwd_controls, same_bits = {}, {}, True
+    for px, batch, size in ((96, MN_B, MN), (224, MN224_B, MN224)):
+        shapes = _depthwise_shapes(size["image_size"], size["width"])
+        for d in (fwd, bwd):
+            d["ms"][px] = d["bound"][px] = 0.0
+        for key, x, k, sc, bi, gout in _dwgn_cases(shapes, batch, torch.float32, SEED + 8):
+            (h, w, c, s), count = key, shapes[key]
+            _, _, oh, ow = dg._geometry(h, w, s)
+            tag = f"{px}px {h}x{w}x{c} s{s}"
+            y = dg.depthwise_gn_forward(x, k, sc, bi, s)
+            y_want = dg.depthwise3x3_groupnorm_reference(x, k, sc, bi, s)
+            y_band = dg.banded_forward_reference(x, k, sc, bi, s)
+            fwd["errs"].append(_over(f"depthwise_gn_fwd_f32 {tag}", y, y_want,
+                                     *TOL["depthwise_gn_fwd_f32"]))
+            _over(f"depthwise_gn_fwd_f32 {tag} (banded)", y, y_band, *TOL["depthwise_gn_fwd_f32"])
+            fwd["differ"][tag] = {"y": float((y != y_want).float().mean()),
+                                  "y_vs_banded": float((y != y_band).float().mean())}
+            assert not any(fwd["differ"][tag].values()), \
+                f"depthwise_gn_fwd_f32 {tag}: not bit for bit ({fwd['differ'][tag]})"
+            want = dg.depthwise3x3_groupnorm_backward_reference(x, k, sc, bi, gout, s)
+            band = dg.banded_backward_reference(x, k, sc, bi, gout, s)
+            got = dg.depthwise_gn_backward(x, k, sc, bi, gout, s)
+            err, sums, differ = _dwgn_f32_check("depthwise_gn_bwd_f32", got, want)
+            _dwgn_f32_check("depthwise_gn_bwd_f32", got, band)
+            bwd["errs"].append(err)
+            bwd["differ"][tag] = differ
+            for n, v in sums.items():
+                bwd["sums"][n] = max(bwd["sums"].get(n, 0.0), v)
+            again = dg.depthwise_gn_backward(x, k, sc, bi, gout, s)
+            same_bits &= torch.equal(y, dg.depthwise_gn_forward(x, k, sc, bi, s)) and all(
+                torch.equal(a, b) for a, b in zip(got, again))
+            assert same_bits, f"depthwise f32 {tag}: a second launch gave other bits"
+            n_out, n_in = batch * oh * ow * c, batch * h * w * c
+            io = n_in * 4 + 9 * c * 4 + 2 * c * 4
+            fb = _bound(io + n_out * 4, 28 * n_out, F32_FLOPS)
+            bb = _bound(io + n_out * 4 + n_in * 4 + 9 * c * 4 + 2 * c * 4, 56 * n_out, F32_FLOPS)
+            iters = 20 if key in timed_at else 5
+            tf = _timed(lambda: dg.depthwise_gn_forward(x, k, sc, bi, s), iters, flush)
+            tb = _timed(lambda: dg.depthwise_gn_backward(x, k, sc, bi, gout, s), iters, flush)
+            for d, t, bnd, plan_bwd in ((fwd, tf, fb, False), (bwd, tb, bb, True)):
+                d["ms"][px] += count * t
+                d["bound"][px] += count * bnd[0]
+                d["by_shape"][tag] = {
+                    "blocks_per_step": count, "batch": batch, "ms": t, "bound_ms": bnd[0],
+                    "bound_by": bnd[1],
+                    "plan": _plan_of(dg.dwgn_plan(h, w, c, s, plan_bwd, 4), batch)}
+            fwd["by_shape"][tag]["max_abs_err"] = fwd["errs"][-1]
+            bwd["by_shape"][tag].update(max_abs_err=err, sum_rel_err=sums)
+            if key in timed_at:
+                kl = k.permute(2, 0, 1).unsqueeze(1).contiguous()
+                tf32 = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+                try:
+                    leaves = [t.detach().clone().requires_grad_() for t in (x, kl, sc, bi)]
+                    lib_out = _dwgn_library(*leaves, s)
+                    gout_nchw = gout.permute(0, 3, 1, 2)
+                    fwd["by_shape"][tag].update(
+                        plain_ms=_timed(lambda: dg.depthwise3x3_groupnorm_reference(
+                            x, k, sc, bi, s), 3, flush),
+                        library_ms=_timed(lambda: _dwgn_library(x, kl, sc, bi, s), 20, flush))
+                    bwd["by_shape"][tag].update(
+                        plain_ms=_timed(lambda: dg.depthwise3x3_groupnorm_backward_reference(
+                            x, k, sc, bi, gout, s), 3, flush),
+                        library_ms=_timed(lambda: torch.autograd.grad(
+                            lib_out, leaves, gout_nchw, retain_graph=True), 20, flush))
+                finally:
+                    torch.backends.cudnn.allow_tf32 = tf32
+                del leaves, lib_out
+            if key == DWGN_BIG:
+                # the limits must reject statistics from rank 0's tiles
+                # alone and a backward without the statistics' gradient
+                atol, rtol = TOL["depthwise_gn_fwd_f32"]
+                assert dg.dwgn_plan(h, w, c, s, False, 4).cluster > 1
+                wrong_y = dg.banded_forward_reference(x, k, sc, bi, s, stats_ranks=[0])
+                fwd_controls["stats_from_rank0_only"] = float(
+                    ((wrong_y - y_want).abs() > atol + rtol * y_want.abs()).float().mean())
+                assert fwd_controls["stats_from_rank0_only"] > 0.1, fwd_controls
+                wrong = dg.depthwise3x3_groupnorm_backward_reference(x, k, sc, bi, gout, s,
+                                                                     drop_stats=True)
+                atol, rtol = TOL["depthwise_gn_bwd_f32"]
+                controls["stats_terms_dropped"] = float(
+                    ((wrong[0] - want[0]).abs() > atol + rtol * want[0].abs()).float().mean())
+                assert controls["stats_terms_dropped"] > 0.5, controls
+                del wrong_y, wrong
+            del x, k, gout, want, band, got, again, y, y_want, y_band
+    out = []
+    for name, d, line, extra in (
+            ("depthwise_gn_fwd_f32", fwd, "distriflow_tpu/ops/depthwise_gn.py:180",
+             {"rejected_share": fwd_controls}),
+            ("depthwise_gn_bwd_f32", bwd, "distriflow_tpu/ops/depthwise_gn.py:184",
+             {"sum_rel_err_max": bwd["sums"], "sum_limit": f"dw within {DWGN_F32_SUM_RTOL} of "
+              "its largest element; dscale and dbias at the row's tol",
+              "rejected_share": controls})):
+        at = d["by_shape"][f"96px {DWGN_BIG[0]}x{DWGN_BIG[1]}x{DWGN_BIG[2]} s{DWGN_BIG[3]}"]
+        out.append({
+            "name": name, "route": "cuda", "source": "distriflow_tpu_torch/csrc/depthwise_gn.cu",
+            "replaces": line, "launches": launches[name],
+            "launches_per_step": launches[name] / MN_STEPS, "max_abs_err": max(d["errs"]),
+            "tol": _tol(name), "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "library_note": lib_note,
+            "shape": f"f32 NHWC; 17 blocks of 10 shapes at 96 px (B={MN_B}) and at 224 px "
+                     f"(B={MN224_B}); ms/plain/library at 96px 48x48x96 s2",
+            "by_shape": d["by_shape"], "differ_share": d["differ"],
+            "step_ms_all_blocks": d["ms"][96], "step_bound_ms_all_blocks": d["bound"][96],
+            "step224_ms_all_blocks": d["ms"][224], "step224_bound_ms_all_blocks": d["bound"][224],
+            "deterministic": same_bits, **extra})
+    return out
 
 
 def _markov_corpus(n_tokens: int, seed: int, vocab: int = CORPUS_VOCAB) -> np.ndarray:
@@ -5613,7 +5882,7 @@ _BY_HEAD_DIM = ("flash_attention_fwd", "flash_decode_paged", "flash_decode",
                 "flash_attention_bwd", "flash_attention_dq", "flash_attention_dkv")
 _BY_DTYPE = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd", "fused_ce_bwd",
              "fused_ce_dense_fwd", "fused_ce_dense_bwd", "flash_decode", "flash_decode_paged",
-             "flash_attention_dq", "flash_attention_dkv")
+             "flash_attention_dq", "flash_attention_dkv", "depthwise_gn_fwd", "depthwise_gn_bwd")
 
 
 def _counted(run):
@@ -7411,6 +7680,11 @@ def main() -> int:
     # MobileNetV2 at the slice's configuration: train, then evaluate
     mn_tree = _mobilenet_tree(np.random.default_rng(SEED + 6), MN["classes"], MN["width"])
     mn_report, mn_trainer, mn_batch, mn_counts = _mobilenet_phase(mn_tree, counted)
+    # the same MobileNetV2 at its default f32 (a)-(b), then at 224 px (c)
+    t0 = time.perf_counter()
+    mnf_report, mnf_counts = _mobilenet_f32_phase(mn_tree, counted)
+    mnf_report["phase_s"] = time.perf_counter() - t0
+    print("mobilenet_f32:", json.dumps(mnf_report), flush=True)
     # long-context training: the flagship at 16k with remat, the two-kernel
     # backward
     lt_report, lt_trainer, lt_cfg, lt_batch, long_training = _long_training(tree, counted)
@@ -7452,7 +7726,8 @@ def main() -> int:
                                     lt_batch, lt_report)
     print("inprocess_training:", json.dumps(ip_report), flush=True)
     paths = {"serving": serving, "solo_generate": solo, **long_counts, **spec_counts,
-             **fleet_counts, "doctor": doctor_counts, **moe_counts, "training": training, **mn_counts, "long_training": long_training, **cn_counts,
+             **fleet_counts, "doctor": doctor_counts, **moe_counts, "training": training, **mn_counts,
+             **mnf_counts, "long_training": long_training, **cn_counts,
              **wire_counts, **ip_counts, **mesh_counts, **keras_counts, **stream_counts,
              **cli_counts}
     print("launches:", json.dumps(paths), flush=True)
@@ -7476,6 +7751,9 @@ def main() -> int:
            "training": ("flash_attention_fwd",) + training_only,
            "mobilenet_train": ("depthwise_gn_fwd", "depthwise_gn_bwd"),
            "mobilenet_eval": ("depthwise_gn_fwd",),
+           **{w: ("depthwise_gn_fwd", "depthwise_gn_fwd_f32", "depthwise_gn_bwd",
+                  "depthwise_gn_bwd_f32") for w in ("mobilenet_f32_train", "mobilenet_f32_224")},
+           "mobilenet_f32_eval": ("depthwise_gn_fwd", "depthwise_gn_fwd_f32"),
            "long_training": ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
                              "fused_ce_fwd", "fused_ce_bwd"),
            **{w: ("flash_attention_fwd",) + training_only
@@ -7531,6 +7809,14 @@ def main() -> int:
         assert mn_train[k] == blocks * MN_STEPS, f"MobileNet training launched {k} {mn_train[k]} " \
                                                  f"times, want {blocks} per step x {MN_STEPS}"
     assert mn_eval["depthwise_gn_fwd"] == blocks * -(-MN_VAL // MN_B), mn_eval
+    # the f32 windows launch the f32 kernels alone, 17 + 17 a step and 17 a
+    # chunk (the totals equal the f32 counts: no bf16 launch)
+    assert sum(_depthwise_shapes(MN224["image_size"], MN224["width"]).values()) == blocks
+    for w, steps in (("mobilenet_f32_train", MN_STEPS), ("mobilenet_f32_224", MN224_STEPS)):
+        _exact(w, mnf_counts[w], {f"depthwise_gn_{d}{t}": blocks * steps
+                                  for d in ("fwd", "bwd") for t in ("", "_f32")})
+    _exact("mobilenet_f32_eval", mnf_counts["mobilenet_f32_eval"],
+           {f"depthwise_gn_fwd{t}": blocks * -(-MN_VAL // MN_B) for t in ("", "_f32")})
     # under remat each layer's forward runs twice (once more in the backward)
     long_per_step = {"flash_attention_fwd": 2 * lt_cfg.n_layers,
                      "flash_attention_dq": lt_cfg.n_layers, "flash_attention_dkv": lt_cfg.n_layers,
@@ -7586,6 +7872,8 @@ def main() -> int:
     if args.parent:
         was.append(_parent_times(args.parent, "_dwgn_times", list(shapes)))
     rows += _with_was(dw_rows, shapes, was)
+    rows += _mobilenet_f32_kernel_rows({k: mnf_counts["mobilenet_f32_train"][k]
+                                        for k in ("depthwise_gn_fwd_f32", "depthwise_gn_bwd_f32")})
     rows += _split_bwd_rows(long_training, LONG_TRAIN_STEPS)
     # an older checkout's dense CE kernels before and after this one's
     ce_was = [_parent_times(args.parent, "_dense_ce_times")] if args.parent else []
@@ -7622,6 +7910,8 @@ def main() -> int:
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",
+               "depthwise_gn_fwd_f32": "mobilenet_f32_train",
+               "depthwise_gn_bwd_f32": "mobilenet_f32_train",
                "flash_attention_dq": "long_training", "flash_attention_dkv": "long_training",
                "fused_ce_dense_fwd": "convnet_train", "fused_ce_dense_bwd": "convnet_train",
                "flash_attention_fwd_d32": "spec_1k", "flash_decode_paged_d32": "spec_1k",
@@ -7646,7 +7936,7 @@ def main() -> int:
           flush=True)
     roofline = _roofline_phase(ip_report["cost"], rows)
     print("roofline:", json.dumps(roofline), flush=True)
-    assert len(rows) == 32, [r["name"] for r in rows]
+    assert len(rows) == 34, [r["name"] for r in rows]
     print(json.dumps({"kernels": _with_spread(rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 // Fused depthwise 3x3 (SAME) + GroupNorm(8) + affine + ReLU6, forward and
-// backward, over bf16 NHWC activations, as thread-block-cluster kernels that
-// read the activation once through TMA.
+// backward, over bf16 or f32 NHWC activations, as thread-block-cluster
+// kernels that read the activation once through TMA. Both kernels are
+// templates on the element type (Bf16, F32 below); the two instances differ
+// only where an element's width or rounding shows.
 //
 // Replaces the Pallas TPU kernels of the JAX package
 //   distriflow_tpu/ops/depthwise_gn.py::_fwd_kernel  (kernel 11)
@@ -9,29 +11,33 @@
 //
 // Arithmetic (depthwise_gn.py:141-177): the conv adds the nine products
 // x * w[ky, kx] in (ky, kx) order, each product and each sum rounded to
-// bf16 (done on bf16 pairs with mul.rn/add.rn.bf16x2, the exact result
-// rounded once: the same bits as the f32 operation rounded to bf16, since the
-// f32 product of two bf16 values is exact and the f32 sum of two rounds to
-// the same bf16; dx's nine taps likewise). Statistics per (batch, group
+// the activation dtype. In bf16 this runs on bf16 pairs with
+// mul.rn/add.rn.bf16x2, the exact result rounded once: the same bits as the
+// f32 operation rounded to bf16, since the f32 product of two bf16 values
+// is exact and the f32 sum of two rounds to the same bf16; dx's nine taps
+// likewise. In f32 each product and each sum is its own __fmul_rn/__fadd_rn,
+// so that nvcc cannot contract a product and a sum into one FMA (the tile
+// and the plain versions round both). Statistics per (batch, group
 // of 8 channels) over all output positions: mean and E[x^2], each the f32
-// of an f64 sum, inv = rsqrt(max(E[x^2] - mean^2, 0) + eps); y = bf16((x -
-// mean) * inv * scale + bias), then min(max(y, 0), 6). The backward is the
-// exact derivative jax.vjp takes of that tile: at y == 0 and y == 6 half the
-// gradient passes, as does the variance clamp at 0; the conv-output
-// cotangent (dacc) is rounded to bf16 and the nine dx contributions are
-// added in bf16 from tap (2, 2) down to (0, 0). dw, dscale and dbias leave
-// the kernel as per-batch f32 partials (dw rounded to bf16 per batch, as the
-// tile's dw is), summed over the batch outside in a fixed order. Every sum
-// over positions of the statistics, their gradients, dscale and dbias is
-// accumulated in f64 and rounded to f32 once: the f32 of the exact sum, so
-// the order in which threads, CTAs and tiles add does not show, and the
-// plain versions (ops/depthwise_gn.py) give the same bits. dw's rounded
-// products are added in f32 by each thread, then over a warp's lanes in f32
-// and over the warps in f64: its one sum whose last bits depend on the
-// order (fixed, so every launch gives the same bits).
+// of an f64 sum, inv = rsqrt(max(E[x^2] - mean^2, 0) + eps); y = the
+// activation dtype of ((x - mean) * inv * scale + bias), then min(max(y,
+// 0), 6). The backward is the exact derivative jax.vjp takes of that tile:
+// at y == 0 and y == 6 half the gradient passes, as does the variance clamp
+// at 0; the conv-output cotangent (dacc) is rounded to the activation dtype
+// and the nine dx contributions are added in that dtype from tap (2, 2)
+// down to (0, 0). dw, dscale and dbias leave the kernel as per-batch f32
+// partials (in bf16 dw rounded to bf16 per batch, as the tile's dw is),
+// summed over the batch outside in a fixed order. Every sum over positions
+// of the statistics, their gradients, dscale and dbias is accumulated in
+// f64 and rounded to f32 once: the f32 of the exact sum, so the order in
+// which threads, CTAs and tiles add does not show, and the plain versions
+// (ops/depthwise_gn.py) give the same bits. In f32 dw is such a sum too.
+// In bf16 dw's rounded products are added in f32 by each thread, then over
+// a warp's lanes in f32 and over the warps in f64: its one sum whose last
+// bits depend on the order (fixed, so every launch gives the same bits).
 //
-// Bound: a few f32 operations per element against 2 bytes read and 2
-// written, so bytes bound both kernels (forward: x read, y written;
+// Bound: a few f32 operations per element against 2 (4) bytes read and 2
+// (4) written, so bytes bound both kernels (forward: x read, y written;
 // backward: x and g read, dx written).
 //
 // Plan (ops/depthwise_gn.py::dwgn_plan, passed in as ints; the layout below
@@ -45,11 +51,13 @@
 // and that is the SAME padding, with no branch in the tap loop. The
 // backward's g box comes on a second mbarrier, so pass 1 starts on x alone.
 // A thread keeps one group of 8 channels (cc / 8 is a power of two that
-// divides 32), and neighbouring threads read neighbouring 16-byte vectors.
+// divides 32), and neighbouring threads read neighbouring groups: one
+// 16-byte vector each in bf16, two in f32.
 // Small images (3x3, 6x6, 12x12 at stride 2) put nb of them side by side in
 // one CTA, kThreads / nb threads (whole warps) each, so that a CTA's fixed
 // costs (the copy, the barriers, the reductions) serve more work.
-//   - Resident plans (one tile a CTA; every shape of MobileNetV2 at 96 px)
+//   - Resident plans (one tile a CTA; every shape of MobileNetV2 at 96 and
+//     at 224 px, in bf16 and in f32)
 //     load x (and in the backward g) once and run every pass from shared
 //     memory: HBM traffic is x once plus the halo rows, which the cluster's
 //     neighbours fetch at the same time through L2, and y (dx) once.
@@ -87,6 +95,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
+
 namespace {
 
 using dftt::hopper::cluster_rank;
@@ -110,6 +119,127 @@ constexpr int kSmemLimit = 232448;
 
 constexpr int align128(int n) { return (n + 127) / 128 * 128; }
 
+// bf16 pair arithmetic, each result the exact one rounded once to bf16: the
+// same bits as the f32 operation rounded to bf16 (the f32 product of two
+// bf16 is exact, and the f32 sum of two rounds to the same bf16).
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// The element types. A thread's eight channels (a V8) are four bf16 pairs
+// (the lower channel in the low half: one 16-byte vector) or eight floats
+// (two 16-byte vectors). mul and add round each result to the type; pack8
+// rounds eight f32 values to it; relu6 is min(max(v, 0), 6) in the type.
+// kFwdBlocks and kBwdBlocks are the CTAs an SM keeps (__launch_bounds__):
+// bf16 fits 80 and 128 registers, f32's nine weight vectors take twice the
+// registers, so its forward keeps two CTAs and its backward one.
+struct Bf16 {
+  using Elem = __nv_bfloat16;
+  static constexpr int kItemsize = 2, kFwdBlocks = 3, kBwdBlocks = 2;
+  struct V8 {
+    uint32_t h[4];
+  };
+  static __device__ __forceinline__ V8 ld8(const Elem* p) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    return {{r.x, r.y, r.z, r.w}};
+  }
+  static __device__ __forceinline__ void st8(Elem* p, const V8& v) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v.h[0], v.h[1], v.h[2], v.h[3]);
+  }
+  static __device__ __forceinline__ V8 zero() { return {{0u, 0u, 0u, 0u}}; }
+  static __device__ __forceinline__ void unpack8(const V8& v, float* f) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = bf_lo(v.h[i]);
+      f[2 * i + 1] = bf_hi(v.h[i]);
+    }
+  }
+  static __device__ __forceinline__ V8 pack8(const float* f) {
+    V8 v;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      v.h[i] = *reinterpret_cast<const uint32_t*>(&t);
+    }
+    return v;
+  }
+  static __device__ __forceinline__ V8 mul(const V8& a, const V8& b) {
+    V8 d;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d.h[i] = mul2(a.h[i], b.h[i]);
+    return d;
+  }
+  static __device__ __forceinline__ V8 add(const V8& a, const V8& b) {
+    V8 d;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d.h[i] = add2(a.h[i], b.h[i]);
+    return d;
+  }
+  static __device__ __forceinline__ V8 relu6(V8 v) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      asm("max.bf16x2 %0, %1, %2;" : "=r"(v.h[i]) : "r"(v.h[i]), "r"(0u));
+      asm("min.bf16x2 %0, %1, %2;" : "=r"(v.h[i]) : "r"(v.h[i]), "r"(0x40c040c0u));
+    }
+    return v;
+  }
+};
+
+struct F32 {
+  using Elem = float;
+  static constexpr int kItemsize = 4, kFwdBlocks = 2, kBwdBlocks = 1;
+  struct V8 {
+    float f[8];
+  };
+  static __device__ __forceinline__ V8 ld8(const Elem* p) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    return {{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+  }
+  static __device__ __forceinline__ void st8(Elem* p, const V8& v) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v.f[0], v.f[1], v.f[2], v.f[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v.f[4], v.f[5], v.f[6], v.f[7]);
+  }
+  static __device__ __forceinline__ V8 zero() { return {{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}}; }
+  static __device__ __forceinline__ void unpack8(const V8& v, float* f) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = v.f[i];
+  }
+  static __device__ __forceinline__ V8 pack8(const float* f) {
+    V8 v;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v.f[i] = f[i];
+    return v;
+  }
+  static __device__ __forceinline__ V8 mul(const V8& a, const V8& b) {
+    V8 d;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d.f[i] = __fmul_rn(a.f[i], b.f[i]);
+    return d;
+  }
+  static __device__ __forceinline__ V8 add(const V8& a, const V8& b) {
+    V8 d;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d.f[i] = __fadd_rn(a.f[i], b.f[i]);
+    return d;
+  }
+  static __device__ __forceinline__ V8 relu6(V8 v) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v.f[i] = fminf(fmaxf(v.f[i], 0.f), 6.f);
+    return v;
+  }
+};
+
 // One launch's geometry and plan, and the shared-memory layout they imply.
 struct Plan {
   int B, H, W, C, s, OH, OW, pt, pl;  // activation, stride, output, SAME pads
@@ -121,13 +251,13 @@ struct Plan {
   int off_g, off_red, off_dwr, off_xch, off_st, off_bar, smem;
 };
 
-bool make_plan(Plan& p, int B, int H, int W, int C, int s, int cc, int rows, int cols, int cluster,
-               int tiles, int nb, int backward) {
+bool make_plan(Plan& p, int B, int H, int W, int C, int s, int item, int cc, int rows, int cols,
+               int cluster, int tiles, int nb, int backward) {
   if (B < 1 || H < 1 || W < 1 || C < kGroup || C % kGroup || (s != 1 && s != 2) ||
-      cc < kGroup || cc > kMaxChunk || cc % kGroup || C % cc || 32 % (cc / kGroup) ||
-      C / cc > 65535 || rows < 1 || cols < 1 || tiles < 1 || cluster < 1 ||
-      cluster > kMaxCluster || (nb != 1 && nb != 2 && nb != 4 && nb != 8) || nb * cc > kThreads ||
-      (B + nb - 1) / nb > 65535)
+      (item != 2 && item != 4) || cc < kGroup || cc > kMaxChunk || cc % kGroup || C % cc ||
+      32 % (cc / kGroup) || C / cc > 65535 || rows < 1 || cols < 1 || tiles < 1 ||
+      cluster < 1 || cluster > kMaxCluster || (nb != 1 && nb != 2 && nb != 4 && nb != 8) ||
+      nb * cc > kThreads || (B + nb - 1) / nb > 65535)
     return false;
   p.B = B;
   p.H = H;
@@ -158,35 +288,38 @@ bool make_plan(Plan& p, int B, int H, int W, int C, int s, int cc, int rows, int
       p.gw > kMaxBox || p.gr > kMaxBox)
     return false;
   // x boxes; g boxes (backward); two f64 reduction buffers of kWarps x cc;
-  // the backward's f32 warp sums of dw, [9][kWarps][cc]; exchange slots; 8
+  // the bf16 backward's f32 warp sums of dw, [9][kWarps][cc] (the f32
+  // backward sums dw through the reduction buffers); exchange slots; 8
   // floats of statistics a group; the two mbarriers (x, g)
   const int xch = nb * (backward ? 11 * cc + 4 * p.gc : 2 * p.gc);
-  p.off_g = align128(nb * p.xr * p.xc * cc * 2);
-  p.off_red = p.off_g + align128(backward ? nb * p.gr * p.gw * cc * 2 : 0);
+  p.off_g = align128(nb * p.xr * p.xc * cc * item);
+  p.off_red = p.off_g + align128(backward ? nb * p.gr * p.gw * cc * item : 0);
   p.off_dwr = p.off_red + align128(2 * kWarps * cc * 8);
-  p.off_xch = p.off_dwr + align128(backward ? 9 * kWarps * cc * 4 : 0);
+  p.off_xch = p.off_dwr + align128(backward && item == 2 ? 9 * kWarps * cc * 4 : 0);
   p.off_st = p.off_xch + align128(xch * 8);
   p.off_bar = p.off_st + align128(nb * p.gc * 32);
   p.smem = 128 + p.off_bar + 16;  // 128: to align the base
   return p.smem <= kSmemLimit;
 }
 
+template <typename T>
 struct Smem {
-  __nv_bfloat16* x;  // [nb][xr][xc][cc]
-  __nv_bfloat16* g;  // [nb][gr][gw][cc]: g, then the cotangent in its place
-  double* red;       // [2][8][kWarps][gc]
-  float* dwr;        // [9][kWarps][8][gc]
-  double* xch;       // stats [nb][2][gc]; ds, db [nb][8][gc]; dstats [nb][2][gc]; dw [9][nb][8][gc]
-  float* st;         // [nb][gc][8]: mean, var, inv, -, dvar / n, dmean / n
-  uint64_t* bar;     // [2]: the x boxes' and the g boxes' copies
+  typename T::Elem* x;  // [nb][xr][xc][cc]
+  typename T::Elem* g;  // [nb][gr][gw][cc]: g, then the cotangent in its place
+  double* red;          // [2][8][kWarps][gc]
+  float* dwr;           // bf16 backward: [9][kWarps][8][gc]
+  double* xch;          // stats [nb][2][gc]; ds, db [nb][8][gc]; dstats [nb][2][gc]; dw [9][nb][8][gc]
+  float* st;            // [nb][gc][8]: mean, var, inv, -, dvar / n, dmean / n
+  uint64_t* bar;        // [2]: the x boxes' and the g boxes' copies
 };
 
-__device__ __forceinline__ Smem carve(const Plan& p) {
+template <typename T>
+__device__ __forceinline__ Smem<T> carve(const Plan& p) {
   extern __shared__ __align__(128) unsigned char raw[];
   unsigned char* base = raw + ((128 - (smem_addr(raw) & 127)) & 127);
-  Smem sm;
-  sm.x = reinterpret_cast<__nv_bfloat16*>(base);
-  sm.g = reinterpret_cast<__nv_bfloat16*>(base + p.off_g);
+  Smem<T> sm;
+  sm.x = reinterpret_cast<typename T::Elem*>(base);
+  sm.g = reinterpret_cast<typename T::Elem*>(base + p.off_g);
   sm.red = reinterpret_cast<double*>(base + p.off_red);
   sm.dwr = reinterpret_cast<float*>(base + p.off_dwr);
   sm.xch = reinterpret_cast<double*>(base + p.off_xch);
@@ -198,16 +331,18 @@ __device__ __forceinline__ Smem carve(const Plan& p) {
 // A thread's place: image `img` of the CTA's nb (batch element b, real if
 // live), group g of the chunk (channels ch0..ch0+7), and its first position
 // slot and slot stride over the image's kThreads / nb threads (whole warps).
+template <typename T>
 struct Lane {
   int img, b, g, ch0, slot, step;
   bool live;
-  __nv_bfloat16* xs;  // this image's x box
-  __nv_bfloat16* gs;  // this image's g box
+  typename T::Elem* xs;  // this image's x box
+  typename T::Elem* gs;  // this image's g box
 };
 
-__device__ __forceinline__ Lane lane_of(const Plan& p, const Smem& sm, int chunk) {
+template <typename T>
+__device__ __forceinline__ Lane<T> lane_of(const Plan& p, const Smem<T>& sm, int chunk) {
   const int tpi = kThreads / p.nb, lt = threadIdx.x % tpi;
-  Lane l;
+  Lane<T> l;
   l.img = threadIdx.x / tpi;
   l.b = blockIdx.z * p.nb + l.img;
   l.live = l.b < p.B;
@@ -220,72 +355,17 @@ __device__ __forceinline__ Lane lane_of(const Plan& p, const Smem& sm, int chunk
   return l;
 }
 
-// Eight channels as four bf16 pairs (the lower channel in the low half).
-struct V8 {
-  uint32_t h[4];
-};
-
-__device__ __forceinline__ V8 ld8(const __nv_bfloat16* p) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  return {{r.x, r.y, r.z, r.w}};
-}
-
-__device__ __forceinline__ void st8(__nv_bfloat16* p, const V8& v) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(v.h[0], v.h[1], v.h[2], v.h[3]);
-}
-
-__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-__device__ __forceinline__ void unpack8(const V8& v, float* f) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = bf_lo(v.h[i]);
-    f[2 * i + 1] = bf_hi(v.h[i]);
-  }
-}
-
-// Eight f32 rounded to bf16, in pairs.
-__device__ __forceinline__ V8 pack8(const float* f) {
-  V8 v;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    v.h[i] = *reinterpret_cast<const uint32_t*>(&t);
-  }
-  return v;
-}
-
-// bf16 pair arithmetic, each result the exact one rounded once to bf16: the
-// same bits as the f32 operation rounded to bf16 (the f32 product of two
-// bf16 is exact, and the f32 sum of two rounds to the same bf16).
-__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-// min(max(v, 0), 6) of each bf16 of a pair
-__device__ __forceinline__ uint32_t relu6_2(uint32_t v) {
-  uint32_t d;
-  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(v), "r"(0u));
-  asm("min.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(d), "r"(0x40c040c0u));
-  return d;
-}
-
 // A thread's nine weight vectors (its group's channels), its scale and
 // bias, read while the first copy flies; then the barrier that lets every
 // thread wait on the mbarrier thread 0 set up.
-__device__ __forceinline__ void prologue(const Plan& p, const __nv_bfloat16* __restrict__ w,
+template <typename T>
+__device__ __forceinline__ void prologue(const Plan& p, const typename T::Elem* __restrict__ w,
                                          const float* __restrict__ scale,
-                                         const float* __restrict__ bias, int ch0, V8 (&wr)[9],
-                                         float (&sc)[kGroup], float (&bi)[kGroup]) {
+                                         const float* __restrict__ bias, int ch0,
+                                         typename T::V8 (&wr)[9], float (&sc)[kGroup],
+                                         float (&bi)[kGroup]) {
 #pragma unroll
-  for (int k = 0; k < 9; ++k) wr[k] = ld8(w + k * p.C + ch0);
+  for (int k = 0; k < 9; ++k) wr[k] = T::ld8(w + k * p.C + ch0);
 #pragma unroll
   for (int c = 0; c < kGroup; ++c) {
     sc[c] = scale[ch0 + c];
@@ -311,23 +391,25 @@ __device__ __forceinline__ bool tile_of(const Plan& p, int rank, int i, Tile& t)
 
 // Thread 0: the copies of tile t's boxes of the CTA's nb images, x on
 // bar[0] and, in the backward, g on bar[1] (pass 1 needs only x).
+template <typename T>
 __device__ __forceinline__ void copy_tile(const Plan& p, const CUtensorMap* tm_x,
-                                          const CUtensorMap* tm_g, const Smem& sm, const Tile& t,
-                                          int chunk) {
+                                          const CUtensorMap* tm_g, const Smem<T>& sm,
+                                          const Tile& t, int chunk) {
   const int b0 = blockIdx.z * p.nb;
-  mbar_arrive_expect_tx(sm.bar, p.xr * p.xc * p.cc * 2 * p.nb);
+  mbar_arrive_expect_tx(sm.bar, p.xr * p.xc * p.cc * T::kItemsize * p.nb);
   tma_load_nhwc(sm.x, tm_x, chunk * p.cc, (t.c0 - p.halo) * p.s - p.pl,
                 (t.r0 - p.halo) * p.s - p.pt, b0, sm.bar);
   if (p.halo) {
-    mbar_arrive_expect_tx(sm.bar + 1, p.gr * p.gw * p.cc * 2 * p.nb);
+    mbar_arrive_expect_tx(sm.bar + 1, p.gr * p.gw * p.cc * T::kItemsize * p.nb);
     tma_load_nhwc(sm.g, tm_g, chunk * p.cc, t.c0 - 1, t.r0 - 1, b0, sm.bar + 1);
   }
 }
 
 // Sets up the mbarrier and starts the copy of tile 0 where it stays (a
 // resident plan) before the weights load; returns whether the tile stays.
+template <typename T>
 __device__ __forceinline__ bool start(const Plan& p, const CUtensorMap* tm_x,
-                                      const CUtensorMap* tm_g, const Smem& sm, int rank,
+                                      const CUtensorMap* tm_g, const Smem<T>& sm, int rank,
                                       int chunk) {
   Tile t;
   const bool resident = p.tiles == 1 && tile_of(p, rank, 0, t);
@@ -344,8 +426,9 @@ __device__ __forceinline__ bool start(const Plan& p, const CUtensorMap* tm_x,
 // the boxes have landed. The barrier first lets every thread finish with
 // the boxes it overwrites (and, with the proxy fence, orders the threads'
 // own stores before the copy's).
+template <typename T>
 __device__ __forceinline__ void fetch(const Plan& p, const CUtensorMap* tm_x,
-                                      const CUtensorMap* tm_g, const Smem& sm, const Tile& t,
+                                      const CUtensorMap* tm_g, const Smem<T>& sm, const Tile& t,
                                       int chunk, uint32_t& phase) {
   fence_proxy_async();
   __syncthreads();
@@ -356,19 +439,17 @@ __device__ __forceinline__ void fetch(const Plan& p, const CUtensorMap* tm_x,
 }
 
 // The conv at box-local output (ly, lx) for group g: nine rounded products
-// added in (ky, kx) order with a rounding after each add, in bf16 pairs.
-__device__ __forceinline__ V8 conv8(const Plan& p, const __nv_bfloat16* xs, const V8 (&wr)[9],
-                                    int ly, int lx, int g) {
-  const __nv_bfloat16* base = xs + ((ly * p.s) * p.xc + lx * p.s) * p.cc + g * kGroup;
-  V8 acc;
+// added in (ky, kx) order with a rounding after each add.
+template <typename T>
+__device__ __forceinline__ typename T::V8 conv8(const Plan& p, const typename T::Elem* xs,
+                                                const typename T::V8 (&wr)[9], int ly, int lx,
+                                                int g) {
+  const typename T::Elem* base = xs + ((ly * p.s) * p.xc + lx * p.s) * p.cc + g * kGroup;
+  typename T::V8 acc;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    const V8 v = ld8(base + ((k / 3) * p.xc + k % 3) * p.cc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t t = mul2(v.h[i], wr[k].h[i]);
-      acc.h[i] = k == 0 ? t : add2(acc.h[i], t);
-    }
+    const typename T::V8 t = T::mul(T::ld8(base + ((k / 3) * p.xc + k % 3) * p.cc), wr[k]);
+    acc = k == 0 ? t : T::add(acc, t);
   }
   return acc;
 }
@@ -428,11 +509,13 @@ __device__ __forceinline__ double cluster_sum(const double* p, int n) {
 }
 
 // Pass 1 over one tile: each element's value and square into the f64 sums.
-__device__ __forceinline__ void stat_sums(const Plan& p, const Lane& l, const V8 (&wr)[9],
-                                          const Tile& t, double (&sums)[2]) {
+template <typename T>
+__device__ __forceinline__ void stat_sums(const Plan& p, const Lane<T>& l,
+                                          const typename T::V8 (&wr)[9], const Tile& t,
+                                          double (&sums)[2]) {
   for (int q = l.slot; q < t.rr * t.cw; q += l.step) {
     float a[kGroup];
-    unpack8(conv8(p, l.xs, wr, p.halo + q / t.cw, p.halo + q % t.cw, l.g), a);
+    T::unpack8(conv8<T>(p, l.xs, wr, p.halo + q / t.cw, p.halo + q % t.cw, l.g), a);
 #pragma unroll
     for (int c = 0; c < kGroup; ++c) {
       sums[0] = __dadd_rn(sums[0], a[c]);
@@ -444,8 +527,9 @@ __device__ __forceinline__ void stat_sums(const Plan& p, const Lane& l, const V8
 // Pass 1's exchange: each (image, group)'s mean, E[x^2] - mean^2 and inv
 // from the CTAs' (sum, sum of squares), the same in every CTA of the
 // cluster.
-__device__ __forceinline__ void exchange_stats(const Plan& p, const Smem& sm, const double (&v)[2],
-                                               float eps) {
+template <typename T>
+__device__ __forceinline__ void exchange_stats(const Plan& p, const Smem<T>& sm,
+                                               const double (&v)[2], float eps) {
   const double tot = block_sum<2>(p, v, sm.red);
   const int t = threadIdx.x;
   if (t < p.nb * 2 * p.gc) sm.xch[t] = tot;
@@ -464,17 +548,19 @@ __device__ __forceinline__ void exchange_stats(const Plan& p, const Smem& sm, co
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 3) dwgn_fwd_kernel(
-    const __grid_constant__ CUtensorMap tm_x, const __nv_bfloat16* __restrict__ w,
+template <typename T>
+__global__ void __launch_bounds__(kThreads, T::kFwdBlocks) dwgn_fwd_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const typename T::Elem* __restrict__ w,
     const float* __restrict__ scale, const float* __restrict__ bias,
-    __nv_bfloat16* __restrict__ out, const Plan p, float eps, int relu6) {
-  const Smem sm = carve(p);
+    typename T::Elem* __restrict__ out, const Plan p, float eps, int relu6) {
+  using V8 = typename T::V8;
+  const Smem<T> sm = carve<T>(p);
   const int rank = static_cast<int>(cluster_rank()), chunk = blockIdx.y;
-  const Lane l = lane_of(p, sm, chunk);
+  const Lane<T> l = lane_of(p, sm, chunk);
   const bool resident = start(p, &tm_x, &tm_x, sm, rank, chunk);
   V8 wr[9];
   float sc[kGroup], bi[kGroup];
-  prologue(p, w, scale, bias, l.ch0, wr, sc, bi);
+  prologue<T>(p, w, scale, bias, l.ch0, wr, sc, bi);
   uint32_t phase = 0;
   Tile t;
   if (resident) {
@@ -495,17 +581,15 @@ __global__ void __launch_bounds__(kThreads, 3) dwgn_fwd_kernel(
     for (int q = l.slot; l.live && q < t.rr * t.cw; q += l.step) {
       const int ly = q / t.cw, lx = q % t.cw;
       float a[kGroup];
-      unpack8(conv8(p, l.xs, wr, ly, lx, l.g), a);
+      T::unpack8(conv8<T>(p, l.xs, wr, ly, lx, l.g), a);
 #pragma unroll
       for (int c = 0; c < kGroup; ++c)
         a[c] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(a[c], m), inv), sc[c]), bi[c]);
-      V8 y = pack8(a);
-      if (relu6) {
-#pragma unroll
-        for (int i2 = 0; i2 < 4; ++i2) y.h[i2] = relu6_2(y.h[i2]);
-      }
-      st8(out + ((static_cast<int64_t>(l.b) * p.OH + t.r0 + ly) * p.OW + t.c0 + lx) * p.C + l.ch0,
-          y);
+      V8 y = T::pack8(a);
+      if (relu6) y = T::relu6(y);
+      T::st8(out + ((static_cast<int64_t>(l.b) * p.OH + t.r0 + ly) * p.OW + t.c0 + lx) * p.C +
+                 l.ch0,
+             y);
     }
   }
   if (p.cluster > 1) cluster_sync();  // no CTA leaves while another may still read its slots
@@ -525,17 +609,18 @@ struct Elems {
   float xc[kGroup], yn[kGroup], dz[kGroup], dyn[kGroup];
 };
 
-__device__ __forceinline__ void elems(const float* a, const V8& g8, float m, float inv,
+template <typename T>
+__device__ __forceinline__ void elems(const float* a, const typename T::V8& g8, float m, float inv,
                                       const float* sc, const float* bi, int relu6, Elems& e) {
   float y[kGroup], gv[kGroup];
-  unpack8(g8, gv);
+  T::unpack8(g8, gv);
 #pragma unroll
   for (int c = 0; c < kGroup; ++c) {
     e.xc[c] = __fsub_rn(a[c], m);
     e.yn[c] = __fmul_rn(e.xc[c], inv);
     y[c] = __fadd_rn(__fmul_rn(e.yn[c], sc[c]), bi[c]);
   }
-  unpack8(pack8(y), y);  // y as the forward rounds it
+  T::unpack8(T::pack8(y), y);  // y as the forward rounds it
 #pragma unroll
   for (int c = 0; c < kGroup; ++c) {
     e.dz[c] = relu6 ? __fmul_rn(gv[c], relu6_grad(y[c])) : gv[c];
@@ -543,15 +628,17 @@ __device__ __forceinline__ void elems(const float* a, const V8& g8, float m, flo
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) dwgn_bwd_kernel(
+template <typename T>
+__global__ void __launch_bounds__(kThreads, T::kBwdBlocks) dwgn_bwd_kernel(
     const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_g,
-    const __nv_bfloat16* __restrict__ w, const float* __restrict__ scale,
-    const float* __restrict__ bias, __nv_bfloat16* __restrict__ dx, float* __restrict__ dw_part,
-    float* __restrict__ ds_part, float* __restrict__ db_part, const Plan p, float eps,
-    int relu6) {
-  const Smem sm = carve(p);
+    const typename T::Elem* __restrict__ w, const float* __restrict__ scale,
+    const float* __restrict__ bias, typename T::Elem* __restrict__ dx,
+    float* __restrict__ dw_part, float* __restrict__ ds_part, float* __restrict__ db_part,
+    const Plan p, float eps, int relu6) {
+  using V8 = typename T::V8;
+  const Smem<T> sm = carve<T>(p);
   const int rank = static_cast<int>(cluster_rank()), chunk = blockIdx.y;
-  const Lane l = lane_of(p, sm, chunk);
+  const Lane<T> l = lane_of(p, sm, chunk);
   // thread t < nb * cc holds the sums of image t / cc, channel
   // ((t % cc) % gc) * 8 + (t % cc) / gc of the chunk (block_sum's order)
   const int t_id = threadIdx.x, ncc = p.nb * p.cc;
@@ -565,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, 2) dwgn_bwd_kernel(
   const bool resident = start(p, &tm_x, &tm_g, sm, rank, chunk);
   V8 wr[9];
   float sc[kGroup], bi[kGroup];
-  prologue(p, w, scale, bias, l.ch0, wr, sc, bi);
+  prologue<T>(p, w, scale, bias, l.ch0, wr, sc, bi);
   uint32_t phase = 0;
   Tile t;
   if (resident) {
@@ -595,9 +682,10 @@ __global__ void __launch_bounds__(kThreads, 2) dwgn_bwd_kernel(
       for (int q = l.slot; q < t.rr * t.cw; q += l.step) {
         const int ly = 1 + q / t.cw, lx = 1 + q % t.cw;
         float a[kGroup];
-        unpack8(conv8(p, l.xs, wr, ly, lx, l.g), a);
+        T::unpack8(conv8<T>(p, l.xs, wr, ly, lx, l.g), a);
         Elems e;
-        elems(a, ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup), m, inv, sc, bi, relu6, e);
+        elems<T>(a, T::ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup), m, inv, sc, bi, relu6,
+                 e);
 #pragma unroll
         for (int c = 0; c < kGroup; ++c) {
           ds[c] = __dadd_rn(ds[c], __fmul_rn(e.dz[c], e.yn[c]));
@@ -648,73 +736,99 @@ __global__ void __launch_bounds__(kThreads, 2) dwgn_bwd_kernel(
     const int ew = t.cw + 2;
     for (int q = l.slot; q < (t.rr + 2) * ew; q += l.step) {
       const int ly = q / ew, lx = q % ew, oy = t.r0 - 1 + ly, ox = t.c0 - 1 + lx;
-      __nv_bfloat16* cell = l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup;
-      V8 da = {{0u, 0u, 0u, 0u}};
+      typename T::Elem* cell = l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup;
+      V8 da = T::zero();
       if (oy >= 0 && oy < p.OH && ox >= 0 && ox < p.OW) {
         float a[kGroup], d[kGroup];
-        unpack8(conv8(p, l.xs, wr, ly, lx, l.g), a);
+        T::unpack8(conv8<T>(p, l.xs, wr, ly, lx, l.g), a);
         Elems e;
-        elems(a, ld8(cell), m, inv, sc, bi, relu6, e);
+        elems<T>(a, T::ld8(cell), m, inv, sc, bi, relu6, e);
 #pragma unroll
         for (int c = 0; c < kGroup; ++c)
           d[c] = __fadd_rn(__fadd_rn(__fmul_rn(e.dyn[c], inv), __fmul_rn(__fmul_rn(2.f, a[c]), kv)),
                            km);
-        da = pack8(d);
+        da = T::pack8(d);
       }
-      st8(cell, da);
+      T::st8(cell, da);
     }
     __syncthreads();
-    // dw, one tap at a time: each thread adds its rounded products in f32,
-    // a butterfly adds the warp's lanes of a group in f32, and after the
-    // nine taps thread t < nb * cc adds its image's warps in f64
-    const int lane = t_id % 32, warp = t_id / 32;
+    // dw, one tap at a time over the tile's outputs
 #pragma unroll 1
     for (int k = 0; k < 9; ++k) {
       const int ky = k / 3, kx = k % 3;
-      float a[kGroup] = {};
       int qy = l.slot / t.cw, qx = l.slot % t.cw;
-      while (qy < t.rr) {
-        const int ly = 1 + qy, lx = 1 + qx;
-        const V8 d = ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
-        const V8 v = ld8(l.xs + ((ly * p.s + ky) * p.xc + lx * p.s + kx) * p.cc + l.g * kGroup);
+      if constexpr (T::kItemsize == 2) {
+        // each thread adds its rounded products in f32, a butterfly adds
+        // the warp's lanes of a group in f32, and after the nine taps
+        // thread t < nb * cc adds its image's warps in f64
+        const int lane = t_id % 32, warp = t_id / 32;
+        float a[kGroup] = {};
+        while (qy < t.rr) {
+          const int ly = 1 + qy, lx = 1 + qx;
+          const V8 d = T::ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
+          const V8 v =
+              T::ld8(l.xs + ((ly * p.s + ky) * p.xc + lx * p.s + kx) * p.cc + l.g * kGroup);
 #pragma unroll
-        for (int i2 = 0; i2 < 4; ++i2) {
-          const uint32_t pr = mul2(d.h[i2], v.h[i2]);
-          a[2 * i2] = __fadd_rn(a[2 * i2], bf_lo(pr));
-          a[2 * i2 + 1] = __fadd_rn(a[2 * i2 + 1], bf_hi(pr));
+          for (int i2 = 0; i2 < 4; ++i2) {
+            const uint32_t pr = mul2(d.h[i2], v.h[i2]);
+            a[2 * i2] = __fadd_rn(a[2 * i2], bf_lo(pr));
+            a[2 * i2 + 1] = __fadd_rn(a[2 * i2 + 1], bf_hi(pr));
+          }
+          for (qx += l.step; qx >= t.cw; qx -= t.cw) ++qy;
         }
-        for (qx += l.step; qx >= t.cw; qx -= t.cw) ++qy;
-      }
-      for (int off = 16; off >= p.gc; off >>= 1) {
+        for (int off = 16; off >= p.gc; off >>= 1) {
 #pragma unroll
-        for (int c = 0; c < kGroup; ++c) a[c] = __fadd_rn(a[c], __shfl_xor_sync(0xffffffffu, a[c], off));
-      }
-      if (lane < p.gc) {
+          for (int c = 0; c < kGroup; ++c)
+            a[c] = __fadd_rn(a[c], __shfl_xor_sync(0xffffffffu, a[c], off));
+        }
+        if (lane < p.gc) {
 #pragma unroll
-        for (int c = 0; c < kGroup; ++c) sm.dwr[((k * kWarps + warp) * kGroup + c) * p.gc + lane] = a[c];
+          for (int c = 0; c < kGroup; ++c)
+            sm.dwr[((k * kWarps + warp) * kGroup + c) * p.gc + lane] = a[c];
+        }
+      } else {
+        // each f32 product is added in f64, through the thread, the warp's
+        // butterfly and the image's warps (block_sum on the two reduction
+        // buffers in turn): the f32 of the exact sum, as the statistics
+        double a[kGroup] = {};
+        while (qy < t.rr) {
+          const int ly = 1 + qy, lx = 1 + qx;
+          const V8 d = T::ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
+          const V8 v =
+              T::ld8(l.xs + ((ly * p.s + ky) * p.xc + lx * p.s + kx) * p.cc + l.g * kGroup);
+          const V8 pr = T::mul(d, v);
+#pragma unroll
+          for (int c = 0; c < kGroup; ++c) a[c] = __dadd_rn(a[c], pr.f[c]);
+          for (qx += l.step; qx >= t.cw; qx -= t.cw) ++qy;
+        }
+        const double sk =
+            block_sum<kGroup, false>(p, a, sm.red + (k & 1) * kGroup * kWarps * p.gc);
+        if (t_id < ncc) xch_dw[k * ncc + t_id] = __dadd_rn(xch_dw[k * ncc + t_id], sk);
       }
     }
-    __syncthreads();
-    if (t_id < ncc) {
-      const int j = t_id % p.cc / p.gc, g = t_id % p.gc, wpi = kWarps / p.nb;
-      const int w0 = t_id / p.cc * wpi;
-      for (int k = 0; k < 9; ++k) {
-        double sk = 0.0;
-        for (int w = w0; w < w0 + wpi; ++w)
-          sk = __dadd_rn(sk, sm.dwr[((k * kWarps + w) * kGroup + j) * p.gc + g]);
-        xch_dw[k * ncc + t_id] = __dadd_rn(xch_dw[k * ncc + t_id], sk);
+    if constexpr (T::kItemsize == 2) {
+      __syncthreads();
+      if (t_id < ncc) {
+        const int j = t_id % p.cc / p.gc, g = t_id % p.gc, wpi = kWarps / p.nb;
+        const int w0 = t_id / p.cc * wpi;
+        for (int k = 0; k < 9; ++k) {
+          double sk = 0.0;
+          for (int w = w0; w < w0 + wpi; ++w)
+            sk = __dadd_rn(sk, sm.dwr[((k * kWarps + w) * kGroup + j) * p.gc + g]);
+          xch_dw[k * ncc + t_id] = __dadd_rn(xch_dw[k * ncc + t_id], sk);
+        }
       }
     }
     // dx at the inputs this tile owns: rows [r0 * s, (r0 + rows) * s) and
-    // columns likewise, clipped to the image; the nine taps in bf16 from
-    // (2, 2) down to (0, 0)
+    // columns likewise, clipped to the image; the nine taps in the
+    // activation dtype from (2, 2) down to (0, 0)
     const int iy0 = t.r0 * p.s, ix0 = t.c0 * p.s;
     const int ih = min((t.r0 + p.rows) * p.s, p.H) - iy0, iw = min((t.c0 + p.cols) * p.s, p.W) - ix0;
     const int sh = p.s - 1;  // stride 1 or 2: divide by a shift
     for (int qy = l.slot / iw, qx = l.slot % iw; l.live && qy < ih;) {
       const int iy = iy0 + qy, ix = ix0 + qx;
       for (qx += l.step; qx >= iw; qx -= iw) ++qy;
-      V8 acc = {{0u, 0u, 0u, 0u}};
+      V8 acc = T::zero();
 #pragma unroll
       for (int ky = 2; ky >= 0; --ky) {
         const int ty = iy + p.pt - ky;
@@ -725,13 +839,11 @@ __global__ void __launch_bounds__(kThreads, 2) dwgn_bwd_kernel(
           const int tx = ix + p.pl - kx;
           if (tx < 0 || (tx & sh)) continue;
           const int lx = (tx >> sh) - (t.c0 - 1);
-          const V8 d = ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
-#pragma unroll
-          for (int i2 = 0; i2 < 4; ++i2)
-            acc.h[i2] = add2(acc.h[i2], mul2(d.h[i2], wr[ky * 3 + kx].h[i2]));
+          const V8 d = T::ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
+          acc = T::add(acc, T::mul(d, wr[ky * 3 + kx]));
         }
       }
-      st8(dx + ((static_cast<int64_t>(l.b) * p.H + iy) * p.W + ix) * p.C + l.ch0, acc);
+      T::st8(dx + ((static_cast<int64_t>(l.b) * p.H + iy) * p.W + ix) * p.C + l.ch0, acc);
     }
   }
   exchange_sync(p);
@@ -741,7 +853,8 @@ __global__ void __launch_bounds__(kThreads, 2) dwgn_bwd_kernel(
       if (b >= p.B) continue;
       const int ch = chunk * p.cc + (u % p.cc % p.gc) * kGroup + u % p.cc / p.gc;
       const float sum = __double2float_rn(cluster_sum(xch_dw + v, p.cluster));
-      dw_part[(static_cast<int64_t>(b) * 9 + k) * p.C + ch] = __bfloat162float(__float2bfloat16_rn(sum));
+      dw_part[(static_cast<int64_t>(b) * 9 + k) * p.C + ch] =
+          T::kItemsize == 2 ? __bfloat162float(__float2bfloat16_rn(sum)) : sum;
     }
   }
   if (p.cluster > 1) cluster_sync();  // no CTA leaves while rank 0 may still read its slots
@@ -779,51 +892,82 @@ int launch_cluster(void (*kernel)(Exp...), const Plan& p, cudaStream_t st, Act&&
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-}  // namespace
-
-// x: [B, H, W, C] bf16 NHWC contiguous; w: [3, 3, C] bf16; scale, bias: [C]
-// f32; out: [B, OH, OW, C] bf16. C a multiple of 8, stride 1 or 2, x 16-byte
-// aligned. cc, rows, cols, cluster, tiles, nb and smem are the plan
-// (ops/depthwise_gn.py::dwgn_plan); a plan this source cannot run, or whose
-// shared memory differs from its layout's, returns cudaErrorInvalidValue.
-// Launches on `stream`; returns a CUDA error code (0 = launched).
-extern "C" int dftt_dwgn_fwd_bf16(const void* x, const void* w, const void* scale,
-                                  const void* bias, void* out, int B, int H, int W, int C,
-                                  int stride, float eps, int relu6, int cc, int rows, int cols,
-                                  int cluster, int tiles, int nb, int smem, void* stream) {
+template <typename T>
+int dwgn_fwd(const void* x, const void* w, const void* scale, const void* bias, void* out, int B,
+             int H, int W, int C, int stride, float eps, int relu6, int cc, int rows, int cols,
+             int cluster, int tiles, int nb, int smem, void* stream) {
   Plan p;
-  if (!make_plan(p, B, H, W, C, stride, cc, rows, cols, cluster, tiles, nb, 0) || p.smem != smem)
+  if (!make_plan(p, B, H, W, C, stride, T::kItemsize, cc, rows, cols, cluster, tiles, nb, 0) ||
+      p.smem != smem)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_x;
-  int err = dftt::hopper::make_nhwc_map(&tm_x, x, B, H, W, C, cc, p.xc, p.xr, nb);
+  int err = dftt::hopper::make_nhwc_map(&tm_x, x, B, H, W, C, cc, p.xc, p.xr, nb, T::kItemsize);
   static bool opted = false;
-  if (!err) err = opt_in(dwgn_fwd_kernel, opted);
+  if (!err) err = opt_in(dwgn_fwd_kernel<T>, opted);
   if (err) return err;
-  return launch_cluster(dwgn_fwd_kernel, p, static_cast<cudaStream_t>(stream), tm_x,
-                        static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
-                        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), p, eps,
-                        relu6);
+  using E = typename T::Elem;
+  return launch_cluster(dwgn_fwd_kernel<T>, p, static_cast<cudaStream_t>(stream), tm_x,
+                        static_cast<const E*>(w), static_cast<const float*>(scale),
+                        static_cast<const float*>(bias), static_cast<E*>(out), p, eps, relu6);
 }
 
-// As the forward, plus g: [B, OH, OW, C] bf16 (16-byte aligned); dx: [B, H,
-// W, C] bf16; dw_part: [B, 3, 3, C] f32; ds_part, db_part: [B, C] f32.
-extern "C" int dftt_dwgn_bwd_bf16(const void* x, const void* w, const void* scale,
-                                  const void* bias, const void* g, void* dx, void* dw_part,
-                                  void* ds_part, void* db_part, int B, int H, int W, int C,
-                                  int stride, float eps, int relu6, int cc, int rows, int cols,
-                                  int cluster, int tiles, int nb, int smem, void* stream) {
+template <typename T>
+int dwgn_bwd(const void* x, const void* w, const void* scale, const void* bias, const void* g,
+             void* dx, void* dw_part, void* ds_part, void* db_part, int B, int H, int W, int C,
+             int stride, float eps, int relu6, int cc, int rows, int cols, int cluster, int tiles,
+             int nb, int smem, void* stream) {
   Plan p;
-  if (!make_plan(p, B, H, W, C, stride, cc, rows, cols, cluster, tiles, nb, 1) || p.smem != smem)
+  if (!make_plan(p, B, H, W, C, stride, T::kItemsize, cc, rows, cols, cluster, tiles, nb, 1) ||
+      p.smem != smem)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_x, tm_g;
-  int err = dftt::hopper::make_nhwc_map(&tm_x, x, B, H, W, C, cc, p.xc, p.xr, nb);
-  if (!err) err = dftt::hopper::make_nhwc_map(&tm_g, g, B, p.OH, p.OW, C, cc, p.gw, p.gr, nb);
+  int err = dftt::hopper::make_nhwc_map(&tm_x, x, B, H, W, C, cc, p.xc, p.xr, nb, T::kItemsize);
+  if (!err)
+    err = dftt::hopper::make_nhwc_map(&tm_g, g, B, p.OH, p.OW, C, cc, p.gw, p.gr, nb,
+                                      T::kItemsize);
   static bool opted = false;
-  if (!err) err = opt_in(dwgn_bwd_kernel, opted);
+  if (!err) err = opt_in(dwgn_bwd_kernel<T>, opted);
   if (err) return err;
-  return launch_cluster(dwgn_bwd_kernel, p, static_cast<cudaStream_t>(stream), tm_x, tm_g,
-                        static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
-                        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(dx),
+  using E = typename T::Elem;
+  return launch_cluster(dwgn_bwd_kernel<T>, p, static_cast<cudaStream_t>(stream), tm_x, tm_g,
+                        static_cast<const E*>(w), static_cast<const float*>(scale),
+                        static_cast<const float*>(bias), static_cast<E*>(dx),
                         static_cast<float*>(dw_part), static_cast<float*>(ds_part),
                         static_cast<float*>(db_part), p, eps, relu6);
 }
+
+}  // namespace
+
+// x: [B, H, W, C] NHWC contiguous, bf16 (_bf16) or f32 (_f32); w: [3, 3, C]
+// in x's dtype; scale, bias: [C] f32; out: [B, OH, OW, C] in x's dtype. C a
+// multiple of 8, stride 1 or 2, x 16-byte aligned. cc, rows, cols, cluster,
+// tiles, nb and smem are the plan (ops/depthwise_gn.py::dwgn_plan at x's
+// itemsize); a plan this source cannot run, or whose shared memory differs
+// from its layout's (a plan for the other dtype among them), returns
+// cudaErrorInvalidValue. Launches on `stream`; returns a CUDA error code
+// (0 = launched).
+#define DWGN_FWD_ENTRY(name, T)                                                               \
+  extern "C" int name(const void* x, const void* w, const void* scale, const void* bias,      \
+                      void* out, int B, int H, int W, int C, int stride, float eps, int relu6, \
+                      int cc, int rows, int cols, int cluster, int tiles, int nb, int smem,   \
+                      void* stream) {                                                         \
+    return dwgn_fwd<T>(x, w, scale, bias, out, B, H, W, C, stride, eps, relu6, cc, rows, cols, \
+                       cluster, tiles, nb, smem, stream);                                     \
+  }
+DWGN_FWD_ENTRY(dftt_dwgn_fwd_bf16, Bf16)
+DWGN_FWD_ENTRY(dftt_dwgn_fwd_f32, F32)
+
+// As the forward, plus g: [B, OH, OW, C] in x's dtype (16-byte aligned);
+// dx: [B, H, W, C] in x's dtype; dw_part: [B, 3, 3, C] f32; ds_part,
+// db_part: [B, C] f32.
+#define DWGN_BWD_ENTRY(name, T)                                                                \
+  extern "C" int name(const void* x, const void* w, const void* scale, const void* bias,       \
+                      const void* g, void* dx, void* dw_part, void* ds_part, void* db_part,     \
+                      int B, int H, int W, int C, int stride, float eps, int relu6, int cc,     \
+                      int rows, int cols, int cluster, int tiles, int nb, int smem,             \
+                      void* stream) {                                                          \
+    return dwgn_bwd<T>(x, w, scale, bias, g, dx, dw_part, ds_part, db_part, B, H, W, C, stride, \
+                       eps, relu6, cc, rows, cols, cluster, tiles, nb, smem, stream);          \
+  }
+DWGN_BWD_ENTRY(dftt_dwgn_bwd_bf16, Bf16)
+DWGN_BWD_ENTRY(dftt_dwgn_bwd_f32, F32)

@@ -78,23 +78,28 @@ inline int make_row_map(CUtensorMap* map, const void* base, int BH, int S, int r
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// A tensor map over a contiguous bf16 NHWC tensor [B, H, W, C] (C a
-// multiple of 8) whose box is {c_box channels, w_box columns, h_box rows,
-// b_box images}, unswizzled: the box lands in shared memory as a dense
-// [b_box][h_box][w_box][c_box] tile, and every element outside the tensor
-// (a negative start included) reads as zero. Returns a CUDA error code.
+// A tensor map over a contiguous NHWC tensor [B, H, W, C] (C a multiple
+// of 8) of bf16 (itemsize 2) or f32 (itemsize 4) elements, whose box is
+// {c_box channels, w_box columns, h_box rows, b_box images}, unswizzled:
+// the box lands in shared memory as a dense [b_box][h_box][w_box][c_box]
+// tile, and every element outside the tensor (a negative start included)
+// reads as zero. Returns a CUDA error code.
 inline int make_nhwc_map(CUtensorMap* map, const void* base, int B, int H, int W, int C,
-                         int c_box, int w_box, int h_box, int b_box) {
+                         int c_box, int w_box, int h_box, int b_box, int itemsize) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  if (itemsize != 2 && itemsize != 4) return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(C) * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * itemsize;
   const cuuint64_t strides[3] = {row, row * W, row * W * H};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(c_box), static_cast<cuuint32_t>(w_box),
                              static_cast<cuuint32_t>(h_box), static_cast<cuuint32_t>(b_box)};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUresult res = encode(map,
+                              itemsize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              4, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -26,8 +26,10 @@ names, so a flax params tree maps onto the ``state_dict`` path for path
 - ``norm="batch"``: :class:`FrozenBatchNorm`, statistics as ``frozen_``
   parameters the optimizer never moves.
 
-The fused kernels take bf16 only: a fused model in another dtype on CUDA
-raises when it is built.
+The fused kernels take bf16 and f32 (the model's default, as in JAX): a
+fused model in another dtype on CUDA raises when it is built. Shapes the
+JAX gate refuses at the compute dtype's itemsize take the unfused branch
+on both packages.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from torch import nn
 from distriflow_tpu_torch.models.base import ModelSpec
 from distriflow_tpu_torch.models.module_model import spec_from_module
 from distriflow_tpu_torch.ops.depthwise_gn import (
+    KERNEL_DTYPES,
     depthwise3x3,
     depthwise3x3_groupnorm,
     depthwise_gn_supported,
@@ -344,10 +347,10 @@ def mobilenet_v2(
     if gn_impl not in ("flax", "onepass"):
         raise ValueError(f"gn_impl must be 'flax' or 'onepass', got {gn_impl!r}")
     dev = resolve_device(device)
-    if depthwise_impl == "fused" and dev.type == "cuda" and dtype != torch.bfloat16:
+    if depthwise_impl == "fused" and dev.type == "cuda" and dtype not in KERNEL_DTYPES:
         raise NotImplementedError(
-            f"no CUDA depthwise+GroupNorm kernel for {dtype} activations: it takes bf16; "
-            "use dtype=torch.bfloat16 or depthwise_impl='shift'")
+            f"no CUDA depthwise+GroupNorm kernel for {dtype} activations: it takes bf16 "
+            "and f32; use one of them or depthwise_impl='shift'")
     return with_flax_wire(spec_from_module(
         lambda: MobileNetV2(classes=classes, width=width, norm=norm, dtype=dtype,
                             depthwise_impl=depthwise_impl, gn_impl=gn_impl),

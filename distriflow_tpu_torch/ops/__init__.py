@@ -15,7 +15,7 @@ PyTorch version (port of ``distriflow_tpu/ops``).
   ``distriflow_tpu/ops/fused_ce.py::_fwd_kernel`` and ``_bwd_kernel``,
   ``sparse=True`` and ``sparse=False``);
 - :mod:`.depthwise_gn` — MobileNetV2's fused depthwise 3x3 + GroupNorm +
-  ReLU6, forward and backward (replace
+  ReLU6, forward and backward, over bf16 and f32 activations (replace
   ``distriflow_tpu/ops/depthwise_gn.py::_fwd_kernel`` and ``_bwd_kernel``),
   differentiable through an ``autograd.Function``.
 

@@ -8,13 +8,15 @@ reach device memory.
 
 - ``csrc/depthwise_gn.cu`` replaces the Pallas ``_fwd_kernel`` (forward)
   and ``_bwd_kernel`` (the ``jax.vjp`` of the same tile, which recomputes
-  the forward) for bf16 NHWC activations: one kernel each, a thread-block
-  cluster per (batch element, channel chunk) whose CTAs load their tiles
-  once through TMA (SAME padding from the copy's zero fill) and exchange
-  the group statistics and partial sums through distributed shared memory
-  in rank order. :func:`dwgn_plan` cuts the activation and passes the cut
-  to the kernels; :func:`banded_forward_reference` and
-  :func:`banded_backward_reference` repeat that cut in plain PyTorch.
+  the forward) for bf16 and f32 NHWC activations (JAX's kernel takes
+  either; f32 is MobileNetV2's default): one kernel each, templates on the
+  element type, a thread-block cluster per (batch element, channel chunk)
+  whose CTAs load their tiles once through TMA (SAME padding from the
+  copy's zero fill) and exchange the group statistics and partial sums
+  through distributed shared memory in rank order. :func:`dwgn_plan` cuts
+  the activation for the element size and passes the cut to the kernels;
+  :func:`banded_forward_reference` and :func:`banded_backward_reference`
+  repeat that cut in plain PyTorch.
 - Activations are NHWC with channels in groups of 8; the depthwise kernel
   ``w`` is flax's ``[3, 3, 1, C]`` or squeezed ``[3, 3, C]``, in the
   activation dtype; ``scale``/``bias`` are the f32 GroupNorm affine.
@@ -34,7 +36,8 @@ derivative as ``jax.vjp`` takes it, including the ties of ReLU6: at
 
 :func:`depthwise_gn_forward` and :func:`depthwise_gn_backward` launch the
 kernels for CUDA tensors (or raise) and run the plain versions for CPU
-tensors; each counts its launches. :func:`depthwise3x3_groupnorm` is the
+tensors; each counts its launches, and its f32 ones apart
+(``launches_by_dtype``). :func:`depthwise3x3_groupnorm` is the
 differentiable entry point; it saves only ``(x, w, scale, bias)`` and
 recomputes in the backward, as the JAX ``custom_vjp`` does.
 """
@@ -61,12 +64,14 @@ VMEM_LIMIT_BYTES = 16 * 1024 * 1024
 
 _warned_gated: set = set()  # (h, w, c, stride) shapes already warned about
 
-_SIGNATURES = {
-    "dftt_dwgn_fwd_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-    + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    "dftt_dwgn_bwd_bf16": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-    + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-}
+_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
+_SIGNATURES = {f"dftt_dwgn_{d}_{t}": args for d, args in (("fwd", _FWD_ARGS), ("bwd", _BWD_ARGS))
+               for t in ("bf16", "f32")}
+#: the kernels' element types, by the suffix of their entry points
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def _same_pads(d: int, stride: int) -> Tuple[int, int]:
@@ -137,9 +142,12 @@ THREADS = 256  # a CTA's threads (csrc/depthwise_gn.cu kThreads)
 MAX_CLUSTER = 8  # the portable thread-block cluster size
 MAX_BOX = 256  # a TMA box's largest extent in each dimension
 SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper CTA may use
-# a tile's budget: three forward CTAs (80 registers a thread) or two
-# backward CTAs (128) on an SM's 228 KB
-SMEM_TARGET = {False: 72 * 1024, True: 112 * 1024}
+# a tile's budget by (backward, itemsize): in bf16 three forward CTAs (80
+# registers a thread) or two backward CTAs (128) on an SM's 228 KB; in f32
+# two forward CTAs (128 registers) or one backward CTA (223 registers),
+# whose tile may then take most of the SM's shared memory
+SMEM_TARGET = {(False, 2): 72 * 1024, (True, 2): 112 * 1024,
+               (False, 4): 112 * 1024, (True, 4): 200 * 1024}
 # (position, group) items a CTA of small images takes: four a thread
 ITEMS_PER_CTA = 4 * THREADS
 
@@ -156,7 +164,10 @@ class DwgnPlan:
     backward, whose box also covers the outputs next to the tile (their
     cotangent feeds the tile's dx). A CTA holds ``images`` batch elements
     side by side (small images: each takes ``THREADS / images`` threads),
-    so that the grid is ``(cluster, c / cc, ceil(B / images))``."""
+    so that the grid is ``(cluster, c / cc, ceil(B / images))``.
+    ``itemsize`` is the element's bytes (2 bf16, 4 f32): a plan is for one
+    element type, and the other type's kernel refuses it (its shared
+    memory differs)."""
 
     h: int
     w: int
@@ -170,6 +181,7 @@ class DwgnPlan:
     tiles_per_cta: int
     images: int
     smem: int
+    itemsize: int = 2
 
     @property
     def geometry(self):
@@ -218,19 +230,20 @@ def _x_box(rows: int, cols: int, stride: int, halo: int) -> Tuple[int, int]:
 
 
 def _smem_bytes(cc: int, rows: int, cols: int, stride: int, backward: bool,
-                images: int = 1) -> int:
+                images: int = 1, itemsize: int = 2) -> int:
     """The kernel's dynamic shared memory (csrc/depthwise_gn.cu
-    ``make_plan``, which refuses a launch whose count differs): the x boxes,
-    the backward's g boxes (overwritten by the conv-output cotangent), two
-    f64 reduction buffers of 8 warps, the backward's f32 warp sums of dw
-    (9 taps), the cluster's exchange slots, the
+    ``make_plan``, which refuses a launch whose count differs): the x boxes
+    and the backward's g boxes (overwritten by the conv-output cotangent)
+    at ``itemsize`` bytes an element, two f64 reduction buffers of 8 warps,
+    the bf16 backward's f32 warp sums of dw (9 taps; the f32 backward sums
+    dw through the reduction buffers), the cluster's exchange slots, the
     group statistics, the two mbarriers, and 128 bytes to align the base."""
     xr, xc = _x_box(rows, cols, stride, int(backward))
     gc = cc // GROUP_SIZE
     warps = THREADS // 32
-    parts = (images * xr * xc * cc * 2,
-             images * (rows + 2) * (cols + 2) * cc * 2 if backward else 0,
-             2 * warps * cc * 8, 9 * warps * cc * 4 if backward else 0,
+    parts = (images * xr * xc * cc * itemsize,
+             images * (rows + 2) * (cols + 2) * cc * itemsize if backward else 0,
+             2 * warps * cc * 8, 9 * warps * cc * 4 if backward and itemsize == 2 else 0,
              images * (11 * cc + 4 * gc if backward else 2 * gc) * 8, images * gc * 32)
     return 128 + sum(_align(p) for p in parts) + 16
 
@@ -244,20 +257,24 @@ def _chunks(c: int, positions: int):
 
 
 def make_plan(h: int, w: int, c: int, stride: int, backward: bool, cc: int, rows: int,
-              cols: int, cluster: int = MAX_CLUSTER, images: int = 1) -> DwgnPlan:
+              cols: int, cluster: int = MAX_CLUSTER, images: int = 1,
+              itemsize: int = 2) -> DwgnPlan:
     """A plan of ``rows x cols`` output tiles spread over a cluster of at
     most ``cluster`` CTAs (fewer where there are fewer tiles)."""
     _, _, oh, ow = _geometry(h, w, stride)
     n_tiles = -(-oh // rows) * -(-ow // cols)
     cluster = min(cluster, n_tiles)
     return DwgnPlan(h, w, c, stride, backward, cc, rows, cols, cluster, -(-n_tiles // cluster),
-                    images, _smem_bytes(cc, rows, cols, stride, backward, images))
+                    images, _smem_bytes(cc, rows, cols, stride, backward, images, itemsize),
+                    itemsize)
 
 
-@functools.lru_cache(maxsize=256)
-def dwgn_plan(h: int, w: int, c: int, stride: int, backward: bool) -> DwgnPlan:
-    """The plan of the kernel for an ``[_, h, w, c]`` activation (any shape
-    :func:`depthwise_gn_supported` admits). Tiles span the whole width
+@functools.lru_cache(maxsize=512)
+def dwgn_plan(h: int, w: int, c: int, stride: int, backward: bool,
+              itemsize: int = 2) -> DwgnPlan:
+    """The plan of the kernel for an ``[_, h, w, c]`` activation of
+    ``itemsize``-byte elements (any shape :func:`depthwise_gn_supported`
+    admits at that itemsize). Tiles span the whole width
     where the TMA box allows (256 columns), else the fewest column tiles
     that fit. Then, for the widest channel chunk that allows it, the
     fewest row tiles whose cluster is at most ``MAX_CLUSTER`` and whose
@@ -267,12 +284,19 @@ def dwgn_plan(h: int, w: int, c: int, stride: int, backward: bool) -> DwgnPlan:
     within ``SMEM_TARGET`` and loads each tile once a pass (two passes
     over x in the forward, three over x and g in the backward)."""
     _, _, oh, ow = _geometry(h, w, stride)
-    halo = int(backward)
+    halo, target = int(backward), SMEM_TARGET[(backward, itemsize)]
+
+    def smem(cc, rows, cols, images=1):
+        return _smem_bytes(cc, rows, cols, stride, backward, images, itemsize)
 
     def fits(cc, rows, cols, budget):
         xr, xc = _x_box(rows, cols, stride, halo)
         return (max(xr, xc, rows + 2 * halo, cols + 2 * halo) <= MAX_BOX
-                and _smem_bytes(cc, rows, cols, stride, backward) <= budget)
+                and smem(cc, rows, cols) <= budget)
+
+    def plan(cc, rows, cols, images=1):
+        return make_plan(h, w, c, stride, backward, cc, rows, cols, images=images,
+                         itemsize=itemsize)
 
     row_counts = sorted({-(-oh // n) for n in range(1, oh + 1)}, reverse=True)
     chunks = _chunks(c, oh * ow)
@@ -283,23 +307,23 @@ def dwgn_plan(h: int, w: int, c: int, stride: int, backward: bool) -> DwgnPlan:
     n_ct = -(-ow // cols)
     resident = [r for r in row_counts if -(-oh // r) * n_ct <= MAX_CLUSTER]
     for cc in chunks:
-        rows = next((r for r in resident if fits(cc, r, cols, SMEM_TARGET[backward])), None)
+        rows = next((r for r in resident if fits(cc, r, cols, target)), None)
         if rows is not None and rows >= oh and cols >= ow:  # one tile: images side by side
             images = max(n for n in (1, 2, 4, 8) if n == 1 or (
                 n * cc <= THREADS and n * oh * ow * cc // GROUP_SIZE <= ITEMS_PER_CTA
-                and _smem_bytes(cc, rows, cols, stride, backward, n) <= SMEM_TARGET[backward]))
-            return make_plan(h, w, c, stride, backward, cc, rows, cols, images=images)
+                and smem(cc, rows, cols, n) <= target))
+            return plan(cc, rows, cols, images)
         if rows is not None:
-            return make_plan(h, w, c, stride, backward, cc, rows, cols)
+            return plan(cc, rows, cols)
     for cc in chunks:  # the most tiles, the least shared memory
         rows = next((r for r in reversed(resident) if fits(cc, r, cols, SMEM_LIMIT)), None)
         if rows is not None:
-            return make_plan(h, w, c, stride, backward, cc, rows, cols)
+            return plan(cc, rows, cols)
     cc = chunks[0]  # stream
-    while not fits(cc, 1, cols, SMEM_TARGET[backward]) and cols > 1:
+    while not fits(cc, 1, cols, target) and cols > 1:
         cols = -(-cols // 2)
-    rows = next((r for r in row_counts if fits(cc, r, cols, SMEM_TARGET[backward])), 1)
-    return make_plan(h, w, c, stride, backward, cc, rows, cols)
+    rows = next((r for r in row_counts if fits(cc, r, cols, target)), 1)
+    return plan(cc, rows, cols)
 
 
 # -- plain versions ----------------------------------------------------------
@@ -332,13 +356,22 @@ def _sum(t: torch.Tensor, dims) -> torch.Tensor:
     return t.double().sum(dim=dims, keepdim=True).float()
 
 
+def _div(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t / n`` rounded once, as the kernels divide. PyTorch's CUDA
+    kernels divide by a host number (and take a mean) by multiplying with
+    its reciprocal, which can round an f32 result the other way; a divisor
+    on ``t``'s device is a true division there and on the CPU alike."""
+    return t / torch.tensor(n, dtype=t.dtype, device=t.device)
+
+
 def _stats(acc: torch.Tensor, group_size: int, eps: float):
     """``(xg [B, P, G, gs] f32, mean, E[x^2] - mean^2, inv)`` per group;
     the means are f32 of the exact means."""
     b, oh, ow, c = acc.shape
     xg = acc.reshape(b, oh * ow, c // group_size, group_size).float()
-    m = xg.double().mean(dim=(1, 3), keepdim=True).float()
-    m2 = (xg * xg).double().mean(dim=(1, 3), keepdim=True).float()
+    n = oh * ow * group_size
+    m = _div(xg.double().sum(dim=(1, 3), keepdim=True), n).float()
+    m2 = _div((xg * xg).double().sum(dim=(1, 3), keepdim=True), n).float()
     var = m2 - m * m
     inv = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
     return xg, m, var, inv
@@ -394,7 +427,7 @@ def _dacc_reference(x, w, scale, bias, g, stride, eps, group_size, relu6, drop_s
     dvar = dinv * (-0.5 * (inv / (torch.clamp(var, min=0.0) + eps)))
     dvar = dvar * _half_at_ties(var, True, False)
     dm = -_sum(dxc, (1, 3)) - 2.0 * dvar * m
-    dxg = dxc + 2.0 * xg * (dvar / n) + dm / n
+    dxg = dxc + 2.0 * xg * _div(dvar, n) + _div(dm, n)
     return acc, dxg.reshape(acc.shape).to(x.dtype), dscale, dbias
 
 
@@ -486,7 +519,7 @@ def _banded_stats(x, w3, plan: DwgnPlan, eps, ranks=None):
     ranks = range(plan.cluster) if ranks is None else ranks
     s, ss = _rank_sums(parts, ranks)
     n = sum(count[r] for r in ranks)
-    m, m2 = (s / n).float(), (ss / n).float()
+    m, m2 = _div(s, n).float(), _div(ss, n).float()
     var = m2 - m * m
     return m, var, torch.rsqrt(torch.clamp(var, min=0.0) + eps)
 
@@ -494,11 +527,11 @@ def _banded_stats(x, w3, plan: DwgnPlan, eps, ranks=None):
 def banded_forward_reference(x, w, scale, bias, stride: int = 1, eps: float = 1e-6,
                              relu6: bool = True, stats_ranks=None, plan=None) -> torch.Tensor:
     """The forward kernel's decomposition under ``plan`` (by default
-    :func:`dwgn_plan`'s). With ``stats_ranks`` the statistics come from
-    those ranks' tiles alone, a deliberately wrong forward for the limit
-    checks."""
+    :func:`dwgn_plan`'s at ``x``'s itemsize). With ``stats_ranks`` the
+    statistics come from those ranks' tiles alone, a deliberately wrong
+    forward for the limit checks."""
     b, h, wd, c = x.shape
-    plan = plan or dwgn_plan(h, wd, c, stride, False)
+    plan = plan or dwgn_plan(h, wd, c, stride, False, x.element_size())
     w3 = _w3(w)
     m, _, inv = _banded_stats(x, w3, plan, eps, stats_ranks)
     _, _, oh, ow = plan.geometry
@@ -515,10 +548,10 @@ def banded_forward_reference(x, w, scale, bias, stride: int = 1, eps: float = 1e
 def banded_backward_reference(x, w, scale, bias, g, stride: int = 1, eps: float = 1e-6,
                               relu6: bool = True, plan=None):
     """The backward kernel's decomposition under ``plan`` (by default
-    :func:`dwgn_plan`'s): ``(dx, dw, dscale, dbias)`` as
+    :func:`dwgn_plan`'s at ``x``'s itemsize): ``(dx, dw, dscale, dbias)`` as
     :func:`depthwise3x3_groupnorm_backward_reference` gives them."""
     b, h, wd, c = x.shape
-    plan = plan or dwgn_plan(h, wd, c, stride, True)
+    plan = plan or dwgn_plan(h, wd, c, stride, True, x.element_size())
     w3, s = _w3(w), stride
     gsz, ng = GROUP_SIZE, c // GROUP_SIZE
     (pt, _), (pl, _), oh, ow = plan.geometry
@@ -556,7 +589,7 @@ def banded_backward_reference(x, w, scale, bias, g, stride: int = 1, eps: float 
     for rank, r0, c0, rr, cw, box in _boxes(x, plan):
         acc = _taps(box, w3, s, rr + 2, cw + 2)  # the tile and its ring
         xg, _, _, _, dyn = terms(acc, gp[:, r0:r0 + rr + 2, c0:c0 + cw + 2])
-        dacc = (dyn * inv + 2.0 * xg * (dvar / n) + dm / n).reshape(acc.shape).to(x.dtype)
+        dacc = (dyn * inv + 2.0 * xg * _div(dvar, n) + _div(dm, n)).reshape(acc.shape).to(x.dtype)
         oy = torch.arange(r0 - 1, r0 + rr + 1, device=x.device)
         ox = torch.arange(c0 - 1, c0 + cw + 1, device=x.device)
         live = ((oy >= 0) & (oy < oh))[:, None] & ((ox >= 0) & (ox < ow))[None, :]
@@ -583,21 +616,23 @@ def banded_backward_reference(x, w, scale, bias, g, stride: int = 1, eps: float 
 
 
 def _check(what: str, x, w, scale, bias, stride, group_size, g=None) -> None:
-    """Raise unless the kernels take these tensors: contiguous bf16 NHWC
-    ``x`` (and ``g``) on CUDA, a contiguous bf16 ``[3, 3, C]`` kernel,
-    contiguous f32 ``[C]`` affine, groups of 8, stride 1 or 2."""
+    """Raise unless the kernels take these tensors: contiguous bf16 or f32
+    NHWC ``x`` (and ``g``, in ``x``'s dtype) on CUDA, a contiguous
+    ``[3, 3, C]`` kernel in ``x``'s dtype, contiguous f32 ``[C]`` affine,
+    groups of 8, stride 1 or 2."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dim() != 4 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise TypeError(f"{what}: the kernel takes contiguous bf16 NHWC x, got "
+    if x.dim() != 4 or x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
+        raise TypeError(f"{what}: the kernel takes contiguous bf16 or f32 NHWC x, got "
                         f"{x.dtype} {tuple(x.shape)}")
     c = x.shape[3]
     if group_size != GROUP_SIZE or c % GROUP_SIZE or c < MIN_CHANNELS or stride not in (1, 2):
         raise ValueError(f"{what}: the kernel takes groups of {GROUP_SIZE} channels and "
                          f"stride 1 or 2, got C={c}, group_size={group_size}, stride={stride}")
-    if (w.numel() != 9 * c or w.shape[-1] != c or w.dtype != torch.bfloat16
+    if (w.numel() != 9 * c or w.shape[-1] != c or w.dtype != x.dtype
             or not w.is_contiguous() or w.device != x.device):
-        raise ValueError(f"{what}: w must be a contiguous bf16 [3, 3, (1,) {c}] on {x.device}")
+        raise ValueError(f"{what}: w must be a contiguous {x.dtype} [3, 3, (1,) {c}] on "
+                         f"{x.device}")
     for name, t in (("scale", scale), ("bias", bias)):
         if t.shape != (c,) or t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != x.device:
@@ -606,7 +641,7 @@ def _check(what: str, x, w, scale, bias, stride, group_size, g=None) -> None:
         _, _, oh, ow = _geometry(x.shape[1], x.shape[2], stride)
         want = (x.shape[0], oh, ow, c)
         if g.shape != want or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
-            raise ValueError(f"{what}: g must be a contiguous bf16 {want} on {x.device}")
+            raise ValueError(f"{what}: g must be a contiguous {x.dtype} {want} on {x.device}")
     if any(t.data_ptr() % 16 for t in (x, w) + (() if g is None else (g,))):
         raise ValueError(f"{what}: x, w and g must start on a 16-byte boundary (TMA, 16-byte loads)")
     if not 1 <= x.shape[0] <= 65535:
@@ -646,12 +681,13 @@ def depthwise_gn_forward(x, w, scale, bias, stride: int = 1, eps: float = 1e-6,
     _, _, oh, ow = _geometry(h, wd, stride)
     out = torch.empty(b, oh, ow, c, dtype=x.dtype, device=x.device)
     lib = build.load("depthwise_gn", _SIGNATURES)
-    rc = lib.dftt_dwgn_fwd_bf16(
+    plan = dwgn_plan(h, wd, c, stride, False, x.element_size())
+    rc = getattr(lib, f"dftt_dwgn_fwd_{KERNEL_DTYPES[x.dtype]}")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, h, wd, c, stride, eps, int(relu6), *_plan_ints(dwgn_plan(h, wd, c, stride, False)),
+        b, h, wd, c, stride, eps, int(relu6), *_plan_ints(plan),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "depthwise_gn_forward")
-    build.count_launch(depthwise_gn_forward)
+    build.count_launch(depthwise_gn_forward, dtype=x.dtype)
     return out
 
 
@@ -672,19 +708,22 @@ def depthwise_gn_backward(x, w, scale, bias, g, stride: int = 1, eps: float = 1e
     dsp = torch.empty(b, c, dtype=torch.float32, device=x.device)
     dbp = torch.empty(b, c, dtype=torch.float32, device=x.device)
     lib = build.load("depthwise_gn", _SIGNATURES)
-    rc = lib.dftt_dwgn_bwd_bf16(
+    plan = dwgn_plan(h, wd, c, stride, True, x.element_size())
+    rc = getattr(lib, f"dftt_dwgn_bwd_{KERNEL_DTYPES[x.dtype]}")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), g.data_ptr(),
         dx.data_ptr(), dwp.data_ptr(), dsp.data_ptr(), dbp.data_ptr(),
-        b, h, wd, c, stride, eps, int(relu6), *_plan_ints(dwgn_plan(h, wd, c, stride, True)),
+        b, h, wd, c, stride, eps, int(relu6), *_plan_ints(plan),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "depthwise_gn_backward")
-    build.count_launch(depthwise_gn_backward)
+    build.count_launch(depthwise_gn_backward, dtype=x.dtype)
     return _reduce(dx, dwp, dsp, dbp, w, scale, bias)
 
 
-#: kernel launches since the count was last set to 0
-depthwise_gn_forward.launches = 0
-depthwise_gn_backward.launches = 0
+#: kernel launches since the count was last set to 0, and by element type
+#: (``"float32"``, ``"bfloat16"``)
+for _fn in (depthwise_gn_forward, depthwise_gn_backward):
+    _fn.launches = 0
+    _fn.launches_by_dtype = {}
 
 
 class _DepthwiseGN(torch.autograd.Function):

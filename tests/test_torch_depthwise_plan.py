@@ -5,19 +5,26 @@ The CUDA kernels cut each (batch element, channel chunk) into tiles spread
 over a thread-block cluster, as the plan says; they run only on the card.
 Here, on the CPU:
 
-- the plan, over MobileNetV2's 10 depthwise shapes at 96 px, the CPU
-  tests' shapes and a sweep of shapes the gate admits (wide rows at C 8
-  among them), covers every output position exactly once, keeps every
+- the plan, over MobileNetV2's 10 depthwise shapes at 96 px and its 10 at
+  224 px, the CPU tests' shapes and a sweep of shapes the gate admits
+  (wide rows at C 8 among them), each in bf16 and in f32 (every one of
+  them admitted by the gate at both itemsizes), covers every output
+  position exactly once, keeps every
   tile's input rows and columns within the SAME-padded image, gives every
   input position to exactly one tile's dx, has its channel chunk divide C
   with a power-of-two number of groups, keeps the cluster within the
   portable 8 CTAs and shared memory within the card's 232,448 bytes, and
-  keeps every TMA box within 256 in each dimension;
+  keeps every TMA box within 256 in each dimension, with shared memory
+  counted at the plan's itemsize (2 or 4 bytes an element);
 - the banded plain mirror (per-tile f64 partials added in rank order, dx
   from each tile's cotangent over the tile and its ring) equals the plain
   versions bit for bit, under the plan and under forced plans of several
-  tiles a cluster and several tiles a CTA, so the band split changes no
-  bits; statistics from rank 0's tiles alone do not.
+  tiles a cluster and several tiles a CTA, in bf16 and in f32, so the band
+  split changes no bits; statistics from rank 0's tiles alone do not;
+- the plan is cut for the element's size: every MobileNetV2 shape stays
+  resident at both, a bf16 plan's cut counts other shared memory at 4
+  bytes (the f32 kernel refuses it), and the cut itself differs where the
+  count moves a shape past its budget.
 """
 
 import warnings
@@ -34,6 +41,10 @@ pytestmark = pytest.mark.port
 STEP_SHAPES = [(48, 48, 32, 1), (48, 48, 96, 2), (24, 24, 144, 1), (24, 24, 144, 2),
                (12, 12, 192, 1), (12, 12, 192, 2), (6, 6, 384, 1), (6, 6, 576, 1),
                (6, 6, 576, 2), (3, 3, 960, 1)]
+# and at 224 px, MobileNetV2's ImageNet resolution
+IMAGENET_SHAPES = [(112, 112, 32, 1), (112, 112, 96, 2), (56, 56, 144, 1), (56, 56, 144, 2),
+                   (28, 28, 192, 1), (28, 28, 192, 2), (14, 14, 384, 1), (14, 14, 576, 1),
+                   (14, 14, 576, 2), (7, 7, 960, 1)]
 # the CPU parity tests' shapes and shapes the gate admits at bf16: the
 # 112 px stages at 224 px, wide and tall slivers at C 8 (rows past the TMA
 # box's 256 columns), odd sizes at stride 2, single positions
@@ -42,6 +53,18 @@ SWEEP_SHAPES = [(8, 8, 16, 1), (9, 7, 16, 2), (8, 8, 16, 2), (13, 13, 32, 1), (1
                 (1, 50000, 8, 1), (2, 3000, 16, 2), (600, 5, 8, 1), (5, 600, 8, 1),
                 (7, 300, 8, 2), (3, 257, 8, 2), (130, 130, 16, 1), (200, 17, 24, 1),
                 (64, 64, 40, 2), (1, 1, 8, 1), (1, 1, 8, 2), (2, 2, 8, 2)]
+
+
+def _shape_id(shape, itemsize):
+    return "-".join(map(str, shape)) + ("-f32" if itemsize == 4 else "")
+
+
+# every shape at bf16 (the ids the bf16 cases have always had), then every
+# shape at f32; the 224 px shapes, new here, at both
+PLAN_CASES = ([pytest.param(*s, 2, id=_shape_id(s, 2)) for s in STEP_SHAPES + SWEEP_SHAPES]
+              + [pytest.param(*s, 2, id=_shape_id(s, 2) + "-224px") for s in IMAGENET_SHAPES]
+              + [pytest.param(*s, 4, id=_shape_id(s, 4)) for s in STEP_SHAPES + SWEEP_SHAPES]
+              + [pytest.param(*s, 4, id=_shape_id(s, 4) + "-224px") for s in IMAGENET_SHAPES])
 
 
 def _needed_rows(plan, r0, rr, oh, pt):
@@ -53,18 +76,20 @@ def _needed_rows(plan, r0, rr, oh, pt):
 
 
 @pytest.mark.parametrize("backward", [False, True])
-@pytest.mark.parametrize("h,w,c,stride", STEP_SHAPES + SWEEP_SHAPES)
-def test_plan_covers_the_image_within_the_card(h, w, c, stride, backward):
+@pytest.mark.parametrize("h,w,c,stride,itemsize", PLAN_CASES)
+def test_plan_covers_the_image_within_the_card(h, w, c, stride, itemsize, backward):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        assert dg.depthwise_gn_supported(h, w, c, stride, itemsize=2)
-    plan = dg.dwgn_plan(h, w, c, stride, backward)
+        assert dg.depthwise_gn_supported(h, w, c, stride, itemsize=itemsize)
+    plan = dg.dwgn_plan(h, w, c, stride, backward, itemsize)
+    assert plan.itemsize == itemsize
     (pt, pb), (pl, pr), oh, ow = dg._geometry(h, w, stride)
     assert c % plan.cc == 0 and plan.cc % 8 == 0 and 32 % (plan.cc // 8) == 0
     assert 1 <= plan.cluster <= dg.MAX_CLUSTER
     assert plan.images in (1, 2, 4, 8) and plan.images * plan.cc <= dg.THREADS
     assert plan.smem <= dg.SMEM_LIMIT
-    assert plan.smem == dg._smem_bytes(plan.cc, plan.rows, plan.cols, stride, backward, plan.images)
+    assert plan.smem == dg._smem_bytes(plan.cc, plan.rows, plan.cols, stride, backward, plan.images,
+                                       itemsize)
     xr, xc = plan.x_box
     assert max(xr, xc, plan.rows + 2 * plan.halo, plan.cols + 2 * plan.halo) <= dg.MAX_BOX
     tiles = plan.tiles()
@@ -91,17 +116,17 @@ def test_plan_covers_the_image_within_the_card(h, w, c, stride, backward):
         assert (owned == 1).all()
 
 
-def _inputs(b, h, w, c, stride, seed=0):
+def _inputs(b, h, w, c, stride, seed=0, dtype=torch.bfloat16):
     rng = np.random.RandomState(seed)
     _, _, oh, ow = dg._geometry(h, w, stride)
 
-    def bf16(*shape, scale=1.0):
-        return torch.from_numpy(rng.randn(*shape).astype(np.float32) * scale).to(torch.bfloat16)
+    def act(*shape, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32) * scale).to(dtype)
 
-    return (bf16(b, h, w, c), bf16(3, 3, c, scale=1 / 3),
+    return (act(b, h, w, c), act(3, 3, c, scale=1 / 3),
             torch.from_numpy(1 + 0.1 * rng.randn(c).astype(np.float32)),
             torch.from_numpy(0.1 * rng.randn(c).astype(np.float32)),
-            torch.from_numpy(rng.rand(b, oh, ow, c).astype(np.float32)).to(torch.bfloat16))
+            torch.from_numpy(rng.rand(b, oh, ow, c).astype(np.float32)).to(dtype))
 
 
 # (rows, cols, cluster) of forced plans: bands of one row, tiles in both
@@ -109,15 +134,22 @@ def _inputs(b, h, w, c, stride, seed=0):
 FORCED = [None, (1, 64, 8), (2, 3, 4), (3, 64, 2), (64, 2, 8), (2, 2, 3)]
 
 
+MIRROR_SHAPES = [(8, 8, 16, 1), (9, 7, 16, 2), (13, 13, 32, 1), (13, 13, 32, 2), (8, 8, 32, 1),
+                 (9, 7, 32, 2)]
+
+
 @pytest.mark.parametrize("forced", FORCED)
-@pytest.mark.parametrize("h,w,c,stride", [(8, 8, 16, 1), (9, 7, 16, 2), (13, 13, 32, 1),
-                                          (13, 13, 32, 2), (8, 8, 32, 1), (9, 7, 32, 2)])
-def test_banded_mirror_is_the_plain_version_bit_for_bit(h, w, c, stride, forced):
-    x, k, scale, bias, g = _inputs(2, h, w, c, stride)
+@pytest.mark.parametrize("h,w,c,stride,itemsize",
+                         [pytest.param(*s, i, id=_shape_id(s, i)) for i in (2, 4)
+                          for s in MIRROR_SHAPES])
+def test_banded_mirror_is_the_plain_version_bit_for_bit(h, w, c, stride, itemsize, forced):
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    x, k, scale, bias, g = _inputs(2, h, w, c, stride, dtype=dtype)
     plans = [None, None]
     if forced is not None:
         rows, cols, cluster = forced
-        plans = [dg.make_plan(h, w, c, stride, bwd, 8, rows, cols, cluster) for bwd in (False, True)]
+        plans = [dg.make_plan(h, w, c, stride, bwd, 8, rows, cols, cluster, itemsize=itemsize)
+                 for bwd in (False, True)]
     y = dg.depthwise3x3_groupnorm_reference(x, k, scale, bias, stride)
     assert torch.equal(dg.banded_forward_reference(x, k, scale, bias, stride, plan=plans[0]), y)
     want = dg.depthwise3x3_groupnorm_backward_reference(x, k, scale, bias, g, stride)
@@ -126,23 +158,70 @@ def test_banded_mirror_is_the_plain_version_bit_for_bit(h, w, c, stride, forced)
         assert torch.equal(a, r), name
 
 
-@pytest.mark.parametrize("h,w,c,stride,forced", [(13, 13, 32, 1, (2, 3, 4)),
-                                                 (13, 13, 32, 2, (2, 2, 3)),
-                                                 (48, 48, 32, 1, None)])
-def test_rank0_statistics_alone_differ(h, w, c, stride, forced):
-    x, k, scale, bias, _ = _inputs(2, h, w, c, stride)
-    plan = dg.make_plan(h, w, c, stride, False, 8, *forced) if forced else None
+RANK0_CASES = [((13, 13, 32, 1), (2, 3, 4), "forced0"), ((13, 13, 32, 2), (2, 2, 3), "forced1"),
+               ((48, 48, 32, 1), None, "None")]
+
+
+@pytest.mark.parametrize("h,w,c,stride,forced,itemsize", [
+    pytest.param(*s, f, i, id=f"{_shape_id(s, i)}-{tag}") for i in (2, 4)
+    for s, f, tag in RANK0_CASES])
+def test_rank0_statistics_alone_differ(h, w, c, stride, forced, itemsize):
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    x, k, scale, bias, _ = _inputs(2, h, w, c, stride, dtype=dtype)
+    plan = dg.make_plan(h, w, c, stride, False, 8, *forced, itemsize=itemsize) if forced else None
     wrong = dg.banded_forward_reference(x, k, scale, bias, stride, stats_ranks=[0], plan=plan)
     y = dg.depthwise3x3_groupnorm_reference(x, k, scale, bias, stride)
-    assert (plan or dg.dwgn_plan(h, w, c, stride, False)).cluster > 1
+    assert (plan or dg.dwgn_plan(h, w, c, stride, False, itemsize)).cluster > 1
     assert (wrong.float() - y.float()).abs().max() > 0.01
 
 
 def test_step_shapes_take_resident_plans():
-    # every MobileNetV2 shape at 96 px keeps its tile in shared memory for
-    # every pass (one load of x, and of g), and the small ones put several
-    # images in a CTA
-    for h, w, c, stride in STEP_SHAPES:
+    # every MobileNetV2 shape at 96 px and at 224 px keeps its tile in
+    # shared memory for every pass (one load of x, and of g) in bf16 and in
+    # f32, and the small ones put several images in a CTA
+    for h, w, c, stride in STEP_SHAPES + IMAGENET_SHAPES:
         for backward in (False, True):
-            assert dg.dwgn_plan(h, w, c, stride, backward).tiles_per_cta == 1
-    assert dg.dwgn_plan(3, 3, 960, 1, False).images > 1
+            for itemsize in (2, 4):
+                assert dg.dwgn_plan(h, w, c, stride, backward, itemsize).tiles_per_cta == 1
+    for itemsize in (2, 4):
+        assert dg.dwgn_plan(3, 3, 960, 1, False, itemsize).images > 1
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_plans_are_cut_for_the_element_size(backward):
+    # the f32 boxes count 4 bytes an element, and the f32 backward keeps no
+    # f32 warp sums of dw (it sums dw through the f64 reduction buffers):
+    # the forward of 3x3x960 (cc 64, one 3x3 tile, 4 images a CTA) holds
+    # 4 x 5 x 5 x 64 x 4 bytes of x, two 8-warp f64 buffers of 64
+    # channels, 2 f64 statistics slots a group and image, 8 floats of
+    # statistics a group and image, 16 bytes of mbarriers and 128 to align
+    assert dg._smem_bytes(64, 3, 3, 1, False, 4, 4) == (
+        128 + 4 * 5 * 5 * 64 * 4 + 2 * 8 * 64 * 8 + 4 * 2 * 8 * 8 + 4 * 8 * 32 + 16)
+    assert dg._smem_bytes(64, 3, 3, 1, True, 1, 4) == (
+        128 + 7 * 7 * 64 * 4 + 5 * 5 * 64 * 4 + 2 * 8 * 64 * 8 + (11 * 64 + 4 * 8) * 8
+        + 8 * 32 + 16)
+    assert dg._smem_bytes(64, 3, 3, 1, True, 1, 2) == (
+        128 + 7 * 7 * 64 * 2 + 5 * 5 * 64 * 2 + 2 * 8 * 64 * 8 + 9 * 8 * 64 * 4
+        + (11 * 64 + 4 * 8) * 8 + 8 * 32 + 16)
+    cuts = set()
+    for h, w, c, stride in STEP_SHAPES + IMAGENET_SHAPES + SWEEP_SHAPES:
+        p2, p4 = (dg.dwgn_plan(h, w, c, stride, backward, i) for i in (2, 4))
+        # a bf16 plan's cut at 4 bytes is other shared memory: the f32
+        # entry point refuses it, as the bf16 one refuses an f32 plan
+        assert dg._smem_bytes(p2.cc, p2.rows, p2.cols, stride, backward, p2.images, 4) != p2.smem
+        assert dg._smem_bytes(p4.cc, p4.rows, p4.cols, stride, backward, p4.images, 2) != p4.smem
+        if (p2.cc, p2.rows, p2.cols, p2.cluster, p2.images) != (
+                p4.cc, p4.rows, p4.cols, p4.cluster, p4.images):
+            cuts.add((h, w, c, stride))
+    # shapes whose bf16 cut does not fit the f32 budget at 4 bytes are cut
+    # anew: in the forward (the same budget a CTA at twice the bytes) the
+    # 112 px stage takes cc 8 over 4 CTAs where bf16 takes cc 16 over 7; the
+    # f32 backward keeps one CTA an SM, whose larger budget fits most bf16
+    # cuts and puts more images side by side in the small ones
+    if backward:
+        assert (12, 12, 192, 2) in cuts and (6, 6, 576, 2) in cuts
+        assert dg.dwgn_plan(6, 6, 576, 2, True, 4).images > dg.dwgn_plan(6, 6, 576, 2, True, 2).images
+    else:
+        assert (48, 48, 32, 1) in cuts and (112, 112, 32, 1) in cuts
+        f = dg.dwgn_plan(112, 112, 32, 1, False, 4)
+        assert (f.cc, f.cluster) == (8, 4) and dg.dwgn_plan(112, 112, 32, 1, False, 2).cc == 16

@@ -17,12 +17,19 @@ fused branch runs the JAX Pallas kernel in interpret mode):
   distance of JAX's bf16 logits from its own f32 ones (measured 0.070
   against 0.124);
 - three ``SyncTrainer`` steps (``with_uint8_inputs``, sparse CE,
-  momentum 0.05, f32, the ``"conv"`` depthwise, B 8) from flax's own
-  init: losses within 1e-5 relative, parameters after within 1e-4
-  (measured 3.4e-6 and 4.8e-5). Momentum 0.05 is too large a step for
-  this small model (its loss rises), so each step amplifies the last
-  one's rounding differences; from the perturbed test tree above they
-  outgrow the limits by the third step.
+  momentum 0.05, f32, B 8) from flax's own init, with the ``"conv"``
+  depthwise and with the ``"fused"`` one at the model's default f32 (the
+  JAX side runs its Pallas kernel in interpret mode, the port the
+  kernels' plain versions): losses within 1e-5 relative, parameters after
+  within 1e-4 (conv measured 3.4e-6 and 4.8e-5). Momentum 0.05 is too
+  large a step for this small model (its loss rises), so each step
+  amplifies the last one's rounding differences; from the perturbed test
+  tree above they outgrow the limits by the third step;
+- the fused model's gate: at width 1.4 and 224 px both packages send
+  112x112x144 at stride 2 to the unfused branch in f32 (JAX's VMEM
+  estimate at 4 bytes an element) and fuse it in bf16, and agree on every
+  other depthwise shape; the fused model builds on CUDA in bf16 and f32
+  and refuses any other dtype by name.
 
 The loop (``run_chunked`` with K 1 and K 2, ``evaluate_dataset`` with a
 padded tail), the data stream and the wire cast are held against their
@@ -31,6 +38,7 @@ own contracts and the JAX package's outputs.
 
 import dataclasses
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -179,15 +187,15 @@ def _wire_data(n=16, seed=5):
     return (rng.rand(n, 32, 32, 3) * 255).astype(np.uint8), rng.randint(0, 8, n).astype(np.int32)
 
 
-def test_sync_trainer_three_steps_match_jax(devices):
+def _three_steps_match_jax(devices, impl):
     # the CLI's u8 wire format: raw pixels normalised on the device, sparse CE
-    jspec = dataclasses.replace(jax_uint8(jax_mobilenet(**SIZE, depthwise_impl="conv")),
+    jspec = dataclasses.replace(jax_uint8(jax_mobilenet(**SIZE, depthwise_impl=impl)),
                                 loss="sparse_softmax_cross_entropy")
     jt = JaxTrainer(jspec, mesh=data_parallel_mesh(devices[:1]), optimizer="momentum",
                     learning_rate=0.05)
     jt.init(jax.random.PRNGKey(0))  # flax's init, carried over: what the CLI trains from
     tree = jax.tree.map(np.asarray, jt.get_params())
-    pspec = dataclasses.replace(with_uint8_inputs(mobilenet_v2(**SIZE, depthwise_impl="conv",
+    pspec = dataclasses.replace(with_uint8_inputs(mobilenet_v2(**SIZE, depthwise_impl=impl,
                                                                device="cpu")),
                                 loss="sparse_softmax_cross_entropy")
     pt = SyncTrainer(pspec, optimizer="momentum", learning_rate=0.05)
@@ -201,6 +209,86 @@ def test_sync_trainer_three_steps_match_jax(devices):
     for name, p in pt.get_params().items():
         np.testing.assert_allclose(p.numpy(), want[name].numpy(), atol=1e-4, rtol=0,
                                    err_msg=name)
+
+
+def test_sync_trainer_three_steps_match_jax(devices):
+    _three_steps_match_jax(devices, "conv")
+
+
+def test_sync_trainer_three_steps_fused_f32_match_jax(devices):
+    # the fused depthwise at the model's default f32: JAX's Pallas kernel
+    # (interpret mode) against the port's kernels' plain versions
+    assert inspect.signature(mobilenet_v2).parameters["dtype"].default is torch.float32
+    _three_steps_match_jax(devices, "fused")
+
+
+def _gate_calls(monkeypatch, module, run):
+    """``[(h, w, c, stride, itemsize, admitted)]`` of every gate call
+    ``run`` makes through ``module.depthwise_gn_supported``."""
+    calls, real = [], module.depthwise_gn_supported
+
+    def gate(h, w, c, stride=1, group_size=8, itemsize=4):
+        ok = real(h, w, c, stride, group_size, itemsize)
+        calls.append((h, w, c, stride, itemsize, ok))
+        return ok
+
+    with monkeypatch.context() as m:
+        m.setattr(module, "depthwise_gn_supported", gate)
+        run()
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_gate_at_width_1_4_and_224px_matches_jax(monkeypatch, dtype):
+    import warnings
+
+    from distriflow_tpu.ops import depthwise_gn as jax_dg
+    from distriflow_tpu_torch.models import mobilenet as port_mn
+    from distriflow_tpu_torch.ops.depthwise_gn import _geometry
+
+    size = dict(image_size=224, classes=1000, width=1.4)
+    jspec = jax_mobilenet(**size, depthwise_impl="fused", dtype=getattr(jnp, dtype))
+    x = jax.ShapeDtypeStruct((1, 224, 224, 3), jnp.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        params = jax.eval_shape(jspec.init, jax.random.PRNGKey(0))
+        # traced only: the JAX branch is chosen while tracing, nothing runs
+        want = _gate_calls(monkeypatch, jax_dg, lambda: jax.eval_shape(jspec.apply, params, x))
+        # the port's model on the meta device: shapes only; the fused
+        # function is replaced by an empty output of its shape
+        model = port_mn.MobileNetV2(classes=1000, width=1.4, dtype=getattr(torch, dtype),
+                                    depthwise_impl="fused").to("meta")
+        fused = []
+
+        def record(xd, w, scale, bias, stride, *rest):
+            fused.append((*xd.shape[1:], stride))
+            oh, ow = _geometry(xd.shape[1], xd.shape[2], stride)[2:]
+            return xd.new_empty(xd.shape[0], oh, ow, xd.shape[3])
+
+        monkeypatch.setattr(port_mn, "depthwise3x3_groupnorm", record)
+        got = _gate_calls(monkeypatch, port_mn,
+                          lambda: model(torch.empty(1, 224, 224, 3, device="meta")))
+    assert got == want and len(got) == 17
+    assert fused == [(h, w, c, s) for h, w, c, s, _, ok in got if ok]
+    gated = [(h, w, c, s) for h, w, c, s, _, ok in got if not ok]
+    assert gated == ([(112, 112, 144, 2)] if dtype == "float32" else [])
+    assert {item for *_, item, _ in got} == {4 if dtype == "float32" else 2}
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``torch.cuda.is_available()`` reports a card, so that entry points
+    resolve ``cuda`` (nothing may allocate on it here)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+
+def test_fused_model_on_cuda_takes_bf16_and_f32_and_refuses_others(fake_card):
+    for dtype in (torch.float32, torch.bfloat16):
+        spec = mobilenet_v2(**SIZE, dtype=dtype, depthwise_impl="fused", device="cuda")
+        assert spec.device.type == "cuda"
+    with pytest.raises(NotImplementedError, match="torch.float16"):
+        mobilenet_v2(**SIZE, dtype=torch.float16, depthwise_impl="fused", device="cuda")
+    mobilenet_v2(**SIZE, dtype=torch.float16, depthwise_impl="shift", device="cuda")
 
 
 def _port_trainer(seed=0):
