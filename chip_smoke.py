@@ -4,8 +4,8 @@
 
 ``--parent DIR`` (an unpacked older checkout, e.g. ``git archive`` of the
 parent commit) also times that checkout's depthwise and dense CE kernels
-on the same inputs, before and after this checkout's (rows 11-12, 9d and
-10d, ``was_ms``).
+and its f32 attention kernels on the same inputs, before and after this
+checkout's (rows 11-12, 9d, 10d, and 1, 6, 7 and 8 in f32, ``was_ms``).
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all six
@@ -431,7 +431,9 @@ on the same inputs, before and after this checkout's (rows 11-12, 9d and
     name; (d) ``--dtype float32 --seq 16384 --remat`` at B 8, 3 steps
     (``lm_cli_f32_long``: kernel 1 in f32 twice a layer a step, kernels 7
     and 8 in f32 once, 9 and 10 on f32 logits once a step; losses, step
-    p50 and peak memory reported). Each path's losses fall, and one step
+    p50 and peak memory reported, and one more step under
+    ``torch.profiler``: device time by kernel, idle share). Each path's
+    losses fall, and one step
     through the kernels is held against the plain path within
     ``STEP_TOL`` (paths (b) and (d) on the batch's first row: the plain
     path's [S, S] scores). Rows ``flash_attention_bwd_d32``,
@@ -753,6 +755,7 @@ ROUTER_NEAR_TIE = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core peak
 INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 
 
@@ -2797,6 +2800,10 @@ def _lm_cli_phase(counted, device="cuda"):
         abs(a - b) for a, b in zip(losses, report["long"]["losses"]))
     if device == "cuda":
         report["float32_long"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # one more step under the profiler, outside the window: device time
+        # by kernel and the idle share
+        report["float32_long"]["step_profile"] = _profiled(
+            lambda: trainer.step(long_batches[ls]))
     del trainer
     report["float32_long"]["step_vs_plain"] = _step_vs_plain(f32_long, tree, x[:1], y[:1], device)
     return report, windows
@@ -2808,18 +2815,33 @@ def _row(name, source, replaces, launches, err, shape, **rest):
             **rest}
 
 
+def _tf32_run(plain):
+    """``plain()`` with TF32 products (one TF32 pass each)."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return plain()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
 def _tf32_share(name, plain, want):
     """The share of elements of ``plain()`` run with TF32 products outside
     ``name``'s limit around the true-f32 ``want`` (reported: the f32 rows'
     yardstick must run with TF32 off)."""
-    was = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        got = plain()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = was
+    got = _tf32_run(plain)
     got = got if isinstance(got, torch.Tensor) else got[0]
     return _rejected(name, got, want)
+
+
+def _beside_tf32(name, got, want, tf32):
+    """A kernel's error beside one TF32 pass's on the same plain recipe:
+    each one's largest error and share of elements outside ``name``'s
+    limit around ``want``."""
+    err = lambda x: float((x.float() - want.float()).abs().max())  # noqa: E731
+    return {"kernel_max_abs_err": err(got), "kernel_outside_share": _rejected(name, got, want),
+            "tf32_plain_max_abs_err": err(tf32),
+            "tf32_plain_outside_share": _rejected(name, tf32, want)}
 
 
 def _sdpa_math(q, k, v):
@@ -3201,6 +3223,45 @@ def _f32_decode_row(name, launches, line, cases, flush, library):
                 deterministic=True, **rest)
 
 
+def _f32_attention_times():
+    """The f32 attention kernels on this process's package, what
+    ``--parent`` times on an older checkout before and after this one's
+    rows: kernels 7 and 8 at the path's shape and the D 64 shape of
+    :func:`_lm_cli_f32_rows` (``"path"``, ``"d64"``: [dQ ms, dK/dV ms]) and
+    kernels 1 and 6 at their rows' B8 H8 S512 D32 (``"fwd_bwd"``: [forward
+    ms, fused backward ms])."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    flush = _flush_buffer()
+    h, d = LM_CLI["n_heads"], LM_CLI["d_model"] // LM_CLI["n_heads"]
+    out = {}
+    for label, b, dd in (("path", LM_CLI_B, d), ("d64", 1, 64)):
+        args = _bwd_inputs(g, b, h, LM_CLI_LONG_S, True, dd, torch.float32)
+        out[label] = [_timed(lambda: fa.flash_attention_dq(*args), 5, flush),
+                      _timed(lambda: fa.flash_attention_dkv(*args), 5, flush)]
+        del args
+    args = _bwd_inputs(g, LM_CLI_B, h, LM_CLI["max_seq"], True, d, torch.float32)
+    out["fwd_bwd"] = [_timed(lambda: fa.flash_attention(*args[:3], causal=True), 20, flush),
+                      _timed(lambda: fa.flash_attention_backward(*args), 20, flush)]
+    return out
+
+
+def _with_f32_was(rows, was):
+    """Rows 1, 6, 7 and 8 in f32 with ``was_ms``: the older checkout's
+    kernels before and after this one's (kernels 7 and 8 at both shapes)."""
+    at = {"flash_attention_fwd_f32": ("fwd_bwd", 0), "flash_attention_bwd_f32": ("fwd_bwd", 1),
+          "flash_attention_dq_f32": ("path", 0), "flash_attention_dkv_f32": ("path", 1)}
+    for row in rows:
+        if row["name"] not in at:
+            continue
+        key, i = at[row["name"]]
+        row["was_ms"] = [run[key][i] for run in was] or "not measured"
+        if key == "path":
+            row["d64"]["was_ms"] = [run["d64"][i] for run in was] or "not measured"
+    return rows
+
+
 def _lm_cli_f32_rows(launches):
     """The rows path (c)'s decode and path (d)'s backward add, each held
     against its plain version at its path's shape with the D 64 shape
@@ -3212,8 +3273,12 @@ def _lm_cli_f32_rows(launches):
     shape), and kernels 7 and 8 in f32 (B8 H8 S16384 D32; D 64 at B1 H8
     S16384). Each: its limit, the same bits on a second launch, planted
     faults rejected, its time beside its bound, its plain version (TF32
-    off) and a library call; for 7 and 8 also ragged lengths and the share
-    of elements a TF32 plain version would put outside the limit."""
+    off) and a library call; for 7 and 8 also ragged lengths (at D 64 too:
+    :func:`_ragged_f32_d64`), the largest error and the share of elements
+    outside the limit of one TF32 pass of the plain recipe beside the
+    kernel's own (``tf32_vs_kernel``), and the bound of the function's f32
+    products at the split-precision rate beside their bound at the FFMA
+    peak (``bound_ffma_ms``)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -3260,22 +3325,25 @@ def _lm_cli_f32_rows(launches):
         nq = "flash_attention_dq_f32"
         err_q = _over(f"{nq} {label}", dq, want_q, *TOL[nq])
         no_delta = fa.flash_attention_dq_reference(q, k, v, do, lse, torch.zeros_like(delta), True)
+        tf32_q = _tf32_run(lambda: fa.flash_attention_dq_reference(*args))
         ctl_q = {"no_delta": _rejected(nq, no_delta, want_q),
-                 "tf32_plain": _tf32_share(nq, lambda: fa.flash_attention_dq_reference(*args),
-                                           want_q)}
+                 "tf32_plain": _rejected(nq, tf32_q, want_q)}
+        beside_q = {"dq": _beside_tf32(nq, dq, want_q, tf32_q)}
         need_q = _atol_needed(nq, [(dq, want_q)])
-        del dq, want_q, no_delta
+        del dq, want_q, no_delta, tf32_q
         (dk, dv), (want_k, want_v) = fa.flash_attention_dkv(*args), fa.flash_attention_dkv_reference(*args)
         again = fa.flash_attention_dkv(*args)
         assert torch.equal(again[0], dk) and torch.equal(again[1], dv), f"dkv f32 {label}: other bits"
         nk = "flash_attention_dkv_f32"
         err_k = max(_over(f"{nk} {label} dk", dk, want_k, *TOL[nk]),
                     _over(f"{nk} {label} dv", dv, want_v, *TOL[nk]))
+        tf32_k, tf32_v = _tf32_run(lambda: fa.flash_attention_dkv_reference(*args))
         ctl_k = {"dk_unscaled": _rejected(nk, want_k * math.sqrt(dd), want_k),
-                 "tf32_plain_dk": _tf32_share(
-                     nk, lambda: fa.flash_attention_dkv_reference(*args), want_k)}
+                 "tf32_plain_dk": _rejected(nk, tf32_k, want_k)}
+        beside_k = {"dk": _beside_tf32(nk, dk, want_k, tf32_k),
+                    "dv": _beside_tf32(nk, dv, want_v, tf32_v)}
         need_k = _atol_needed(nk, [(dk, want_k), (dv, want_v)])
-        del dk, dv, want_k, want_v, again
+        del dk, dv, want_k, want_v, again, tf32_k, tf32_v
         assert ctl_q["no_delta"] > 0.5 and ctl_k["dk_unscaled"] > 0.5, \
             f"an f32 two-kernel limit passes a wrong gradient: {ctl_q} {ctl_k}"
         qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -3287,19 +3355,25 @@ def _lm_cli_f32_rows(launches):
                          flush)
         pairs = ls * (ls + 1) // 2
         io = 4 * b * h * ls * dd * 4 + 2 * b * h * ls * 4
+        unit = 2 * b * h * pairs * dd  # the FLOPs of one product
         shape = f"B={b} H={h} S={ls} D={dd} causal f32"
-        for name, products, outs, fn, plain, err, ctl, need in (
+        # the function's f32 products (dQ: S, dP, dS K; dK/dV: S^T, dP^T,
+        # P^T dO, dS^T Q), bounded at the split-precision rate (3 TF32
+        # products each) with the FFMA peak's bound beside
+        for name, products, outs, fn, plain, err, ctl, need, beside in (
                 (nq, 3, 1, fa.flash_attention_dq, fa.flash_attention_dq_reference, err_q, ctl_q,
-                 need_q),
-                (nk, 4, 2, fa.flash_attention_dkv, fa.flash_attention_dkv_reference, err_k, ctl_k,
-                 need_k)):
-            tb, bb = _bound(io + outs * b * h * ls * dd * 4, products * 2 * b * h * pairs * dd,
-                            F32_FLOPS)
+                 need_q, beside_q),
+                (nk, 4, 2, fa.flash_attention_dkv, fa.flash_attention_dkv_reference, err_k,
+                 ctl_k, need_k, beside_k)):
+            nbytes = io + outs * b * h * ls * dd * 4
+            tb, bb = _bound(nbytes, 3 * products * unit, TF32_FLOPS)
             by[name][label] = {"shape": shape, "max_abs_err": err, "rejected_share": ctl,
-                               "atol_needed": need,
+                               "atol_needed": need, "tf32_vs_kernel": beside,
                                "ms": _timed(lambda fn=fn: fn(*args), 5, flush),
                                "plain_ms": _timed(lambda plain=plain: plain(*args), 1, flush),
-                               "bound_ms": tb, "bound_by": bb, "library_ms": library}
+                               "bound_ms": tb, "bound_by": bb,
+                               "bound_ffma_ms": _bound(nbytes, products * unit, F32_FLOPS)[0],
+                               "library_ms": library}
         del args, q, k, v, do, lse, delta, qs, ks, vs, out
     for name, line, fn, plain in (
             ("flash_attention_dq_f32", "distriflow_tpu/ops/flash_attention.py:162",
@@ -3309,13 +3383,48 @@ def _lm_cli_f32_rows(launches):
         main = by[name]["path"]
         rows.append(_row(name, src, line, launches, max(a["max_abs_err"] for a in by[name].values()),
                          main["shape"], **{k: main[k] for k in (
-                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                             "rejected_share", "atol_needed")},
+                             "ms", "plain_ms", "bound_ms", "bound_by", "bound_ffma_ms",
+                             "library_ms", "rejected_share", "atol_needed", "tf32_vs_kernel")},
                          library_note="F.scaled_dot_product_attention backward, f32, the "
                                       "memory-efficient backend: dQ, dK and dV together",
                          d64=by[name]["d64"], deterministic=True,
                          ragged_max_abs_err=_ragged_bwd(name, fn, plain, g, 1, h, d, torch.float32)))
+    for row, ragged in zip(rows[-2:], _ragged_f32_d64(h)):
+        row["d64"]["ragged"] = ragged
     return rows
+
+
+# (S, causal) of the f32 two-kernel rows at D 64: RAGGED_BWD's lengths and
+# the short causal ones where dQ leaves elements outside its limit
+RAGGED_F32_D64 = ((1, True), (37, True), (37, False), (128, True), (1000, True), (1000, False))
+
+
+def _ragged_f32_d64(h):
+    """Kernels 7 and 8 in f32 at D 64 (B1, ``h`` heads) on
+    :data:`RAGGED_F32_D64`, with inputs of their own generator: dK and dV
+    held to their limit (max abs error by length); dQ reported and not
+    held, an open fault (at some short causal lengths the plain version's
+    dP is not a sum in d order, and dQ's atol 1e-6 follows its rounding):
+    by length, its max abs error, the atol it needs and the elements
+    outside its limit."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    nq, nk = "flash_attention_dq_f32", "flash_attention_dkv_f32"
+    dq, dkv = {}, {}
+    for s, causal in RAGGED_F32_D64:
+        args = _bwd_inputs(g, 1, h, s, causal, 64, torch.float32)
+        tag = f"S={s} {'causal' if causal else 'non-causal'}"
+        got, want = fa.flash_attention_dq(*args), fa.flash_attention_dq_reference(*args)
+        atol, rtol = TOL[nq]
+        dq[tag] = {"max_abs_err": float((got - want).abs().max()),
+                   "atol_needed": _atol_needed(nq, [(got, want)]),
+                   "outside": int(((got - want).abs() > atol + rtol * want.abs()).sum()),
+                   "elements": want.numel()}
+        dkv[tag] = max(_over(f"{nk} D=64 {tag}", a, w, *TOL[nk])
+                       for a, w in zip(fa.flash_attention_dkv(*args),
+                                       fa.flash_attention_dkv_reference(*args)))
+    return dq, dkv
 
 
 def _peak_gauge():
@@ -7594,7 +7703,8 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--parent", help="an older checkout whose depthwise kernels to time too")
+    ap.add_argument("--parent", help="an older checkout whose depthwise, dense CE and f32 "
+                                     "attention kernels to time too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7905,8 +8015,13 @@ def main() -> int:
                 "flash_attention_dq_f32": "lm_cli_f32_long",
                 "flash_attention_dkv_f32": "lm_cli_f32_long"}
     cli_launches = {k: cli_counts[w][k] if w else 0 for k, w in cli_rows.items()}
-    rows += (_lm_cli_attention_rows(cli_launches) + _lm_cli_ce_rows(cli_launches)
-             + _lm_cli_f32_rows(cli_launches))
+    # an older checkout's f32 attention kernels before and after this one's
+    f32_was = [_parent_times(args.parent, "_f32_attention_times")] if args.parent else []
+    cli_kernel_rows = (_lm_cli_attention_rows(cli_launches) + _lm_cli_ce_rows(cli_launches)
+                       + _lm_cli_f32_rows(cli_launches))
+    if args.parent:
+        f32_was.append(_parent_times(args.parent, "_f32_attention_times"))
+    rows += _with_f32_was(cli_kernel_rows, f32_was)
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",

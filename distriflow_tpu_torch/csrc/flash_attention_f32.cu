@@ -1,4 +1,6 @@
-// Attention forward and backward in f32, on the CUDA cores (FFMA).
+// Attention forward and backward in f32: the forward and the fused
+// backward on the CUDA cores (FFMA), the two-kernel backward on the tensor
+// cores in split-precision TF32.
 //
 // Replaces the Pallas TPU kernels of the JAX package on f32 inputs
 //   distriflow_tpu/ops/flash_attention.py::_fwd_kernel   (forward: O and lse)
@@ -9,11 +11,8 @@
 // leaves to XLA (flash_attention.py:605). JAX runs them on f32 inputs for a
 // model whose compute dtype is f32 (the LM CLI's --dtype float32; the
 // two-kernel layout past 2048 positions, as at --seq 16384), with f32
-// operands and f32 accumulation. These kernels keep that: every product,
-// sum and exp is an f32 operation on the CUDA cores. TF32 wgmma would round
-// each operand to 10 mantissa bits and so train another model than the
-// JAX package's f32 one: it is not used. Built for head dims 64 and 32
-// (template D).
+// operands and f32 accumulation. Every kernel here keeps f32's accuracy.
+// Built for head dims 64 and 32 (template D).
 //
 // Numeric contract (flash_attention.py:103-159 and 297-336 at f32): the
 // scores q.k are summed in f32 and scaled after the sum; masked scores
@@ -22,7 +21,8 @@
 // delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K, every value f32
 // (JAX's casts of P and dS to the input dtype are no-ops at f32).
 //
-// Layout: a block of 256 threads owns 64 rows, four threads a row.
+// FFMA kernels (forward, fused backward): a block of 256 threads owns 64
+// rows, four threads a row.
 // Forward: the rows are queries. Each tile of 64 keys and values is staged
 // in shared memory, rows padded to D + 1 floats so that the four threads of
 // a row and the eight rows of a warp read distinct banks. A thread holds
@@ -35,24 +35,65 @@
 // queries a thread) into shared memory, adds to dK and dV (D / 4 columns a
 // thread, in registers), and writes the Q tile's f32 dQ partial dS.K once
 // into dqp[kv_tile, bh, q, :]. A second kernel sums each row's live
-// partials in ascending KV tile. The two-kernel layout's dK/dV kernel is
-// the same kernel without the dQ partial (bwd_kernel<D, false>).
-// Its dQ kernel (dq_kernel<D>): the rows are 64 queries, four threads a row,
-// each holding its query row and its dO row in registers. The block walks
-// the key tiles from 0 to the causal bound in ascending order; for each it
-// stages K and V (rows padded to D + 1), recomputes P = exp(s * scale -
-// lse) and dP = dO.V^T for 16 keys a thread, writes dS = P (dP - delta)
-// into shared memory and adds dS.K to D / 4 dQ columns a thread in
-// registers. dQ is written once, scaled, at the end: no partials, no
-// atomics. No kernel here uses atomics: every launch gives the same bits.
+// partials in ascending KV tile.
+//
+// Two-kernel backward (namespace split3: dq_kernel<D>, dkv_kernel<D>), on
+// the tensor cores in split-precision TF32. One TF32 pass would keep 10 of
+// f32's 23 mantissa bits and fail f32's limits (chip_smoke.py's tf32_plain
+// control). Split precision does not: each operand x is split once per tile
+// into big = tf32(x) (cvt.rna) and small = tf32(x - big), where x - big is
+// exact in f32, so big + small holds x to about 2^-22 of its magnitude. Each
+// product a.b is three tensor-core products, a_small.b_big + a_big.b_small +
+// a_big.b_big, summed in f32; the dropped a_small.b_small is of the same
+// order. The tensor cores truncate each mma's f32 sum (on the H100 an exact
+// sum 1.75 ulp above 1 comes out 1 ulp above: tools/f32_dq_limit_probe.py),
+// so no sum runs long in one accumulator. A score (S or dP, a sum
+// over D) takes one accumulator, at most 24 mma; dK and dV take a fresh
+// accumulator for each streamed tile (12 mma), added to the running
+// sum in f32 on the CUDA cores; dQ, whose limit is the tightest, one for
+// each 8-wide k-step (3 mma). The dK/dV kernel runs all four products so:
+// S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q. The dQ kernel runs
+// dQ += dS K so, and keeps S and dP as FFMA sums over d in order, as the
+// plain version's f32 products take them. dQ's limit (atol 1e-6) tracks the
+// cancellation in dP - delta to within the plain version's own rounding of
+// dP: at B8 H8 S16384 D32 a recipe with dP split falls outside it, and so
+// does the exact (f64) recipe (tools/f32_dq_limit_probe.py), while the
+// kernel, with dP and S as FFMA sums, holds it. Everything
+// else stays f32 on the CUDA cores: the scale after the sum, expf, the masks
+// (masked scores carry exactly zero mass), P (dP - delta).
+// Route: mma.sync.m16n8k8 tf32, fragments read from padded shared memory.
+// wgmma takes tf32 operands only K-major, and three of the products (dS K,
+// P^T dO, dS^T Q) read their B operand MN-major; mma.sync reads any
+// layout, and its accumulator layout is the A layout of the next product
+// once the k index is permuted (key 2t in A column t, key 2t + 1 in column
+// t + 4, with B's rows to match), so the dK/dV kernel takes P^T and dS^T
+// from accumulators to A fragments in registers; the dQ kernel's dS goes
+// through a warp-private tile in shared memory. A block of 8 warps owns
+// 128 resident rows, 16 a warp (dQ: the queries, with Q and dO; dK/dV:
+// the keys, with K and V, split into big and small in shared memory once);
+// the streamed tiles (the dQ kernel's K and V, 64 rows at D 32 and 32 at
+// D 64; the dK/dV kernel's Q, dO, lse and delta, 32 rows, so that at D 32
+// two of its blocks share an SM) come through a ring of two stages by
+// cp.async (16-byte copies, rows past S zero-filled), each split once it
+// has landed. Rows
+// are padded to D + 4 floats, so every fragment load hits distinct banks.
+// dQ, dK and dV are written once at the end, scaled: no partials, no
+// atomics.
+// No kernel here uses atomics: every launch gives the same bits.
 //
 // Bound: per (b, h) the forward does 4 S^2 D FLOPs, the fused backward 10
 // S^2 D, the dQ kernel 6 S^2 D and the dK/dV kernel 8 S^2 D (halved when
 // causal) against 4 S D, 8 S D, 5 S D and 6 S D f32 values moved, so from
-// a few dozen positions on the floor is operations over the f32 peak of 67
-// TFLOP/s. These are the simple kernels: each FMA takes one operand from
-// shared memory, so they run at a fraction of that peak; their times stand
-// beside their bounds in PERF.md.
+// a few dozen positions on the floor is operations. For the FFMA kernels
+// that is the f32 peak of 67 TFLOP/s; each FMA takes one operand from
+// shared memory, so they run at a fraction of it. Split precision runs
+// three TF32 products for each f32 one at 495 TFLOP/s: 165 TFLOP/s of
+// f32-accurate products, the rate that bounds both two-kernel backward
+// functions. At B8 H8 S16384 D32 causal the dK/dV bound is 13.33 ms and the
+// dQ bound 9.99 ms (32.82 and 24.62 at the FFMA peak). The dQ kernel runs
+// two of its three products (S, dP) as FFMA, so the work as it runs it
+// takes at least 19.74 ms; it keeps them there for its limit, as above.
+// Their times stand beside their bounds in PERF.md.
 
 #include <cstdint>
 
@@ -91,11 +132,6 @@ constexpr size_t fwd_smem_bytes() {
 template <int D>
 constexpr size_t bwd_smem_bytes() {
   return sizeof(float) * (4 * kRows * (D + 1) + 2 * kRows * kPPad + 2 * kTile);
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * kTile * (D + 1) + kRows * kPPad);
 }
 
 // One block per (b*h, 64-row Q tile); blockIdx.y counts the Q tiles from
@@ -198,10 +234,9 @@ __device__ __forceinline__ int live_kv_tiles(int q_tile, int S, int causal) {
   return causal && q_tile + 1 < n_kv ? q_tile + 1 : n_kv;
 }
 
-// One block per (b*h, 64-key K/V tile), in ascending order. kDq: the fused
-// kernel (dQ partials into dqp); without it, the two-kernel layout's dK/dV
-// kernel (dqp unused).
-template <int D, bool kDq>
+// The fused backward: one block per (b*h, 64-key K/V tile), in ascending
+// order.
+template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
@@ -268,11 +303,7 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(
       pt_s[r * kPPad + qi] = p;
       dst_s[r * kPPad + qi] = p * (dp[j] - delta_s[qi]);
     }
-    if constexpr (kDq) {
-      __syncthreads();  // dQ reads every key's dS^T
-    } else {
-      __syncwarp();  // the row's P^T and dS^T, written by its four threads of this warp
-    }
+    __syncthreads();  // dQ reads every key's dS^T
 
     // dV += P^T dO and dK += dS^T Q for this thread's key
 #pragma unroll 4
@@ -285,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(
         acc_dk[i] = fmaf(ds, q_s[qi * kPad + c], acc_dk[i]);
       }
     }
-    if constexpr (kDq) {
+    {
       // the Q tile's dQ partial dS.K over this block's keys: query row q0 + r
       float acc_dq[D / kLanes];
 #pragma unroll
@@ -313,87 +344,6 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(
       dk[off + lane + kLanes * i] = acc_dk[i] * scale;
       dv[off + lane + kLanes * i] = acc_dv[i];
     }
-  }
-}
-
-// The two-kernel layout's dQ: one block per (b*h, 64-row Q tile); blockIdx.y
-// counts the Q tiles from the last, so the longest causal rows start first.
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int S, float scale, int causal) {
-  constexpr int kPad = D + 1;
-  extern __shared__ float smem[];
-  float* k_s = smem;  // the streamed K and V tiles (first the block's Q and dO)
-  float* v_s = k_s + kTile * kPad;
-  float* ds_s = v_s + kTile * kPad;  // dS [64 queries][64 keys]
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int64_t base = static_cast<int64_t>(bh) * S * D;
-  const int r = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
-  const int row = q0 + r;
-  int n_kt = (S + kTile - 1) / kTile;
-  // causal: key tiles wholly past this Q tile's last row are fully masked
-  if (causal) n_kt = min(n_kt, (q0 + kRows + kTile - 1) / kTile);
-
-  load_tile<D>(k_s, q + base, q0, S);
-  load_tile<D>(v_s, dout + base, q0, S);
-  __syncthreads();
-  float qr[D], dor[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = k_s[r * kPad + d];
-    dor[d] = v_s[r * kPad + d];
-  }
-  const float lse_r = row < S ? lse[static_cast<int64_t>(bh) * S + row] : 0.f;
-  const float delta_r = row < S ? delta[static_cast<int64_t>(bh) * S + row] : 0.f;
-  float acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
-
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();  // every thread is done with the previous tiles (or Q and dO)
-    load_tile<D>(k_s, k + base, k0, S);
-    load_tile<D>(v_s, v + base, k0, S);
-    __syncthreads();
-    // S and dP for this thread's query and keys 4 j + lane
-    float s[kPer], dp[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[j] = dp[j] = 0.f;
-#pragma unroll  // whole: qr and dor stay in registers
-    for (int d = 0; d < D; ++d) {
-      const float qd = qr[d], od = dor[d];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int kj = (lane + kLanes * j) * kPad + d;
-        s[j] = fmaf(qd, k_s[kj], s[j]);
-        dp[j] = fmaf(od, v_s[kj], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int key = k0 + lane + kLanes * j;
-      float p = expf(s[j] * scale - lse_r);
-      if (row >= S || key >= S || (causal && key > row)) p = 0.f;
-      ds_s[r * kPPad + lane + kLanes * j] = p * (dp[j] - delta_r);
-    }
-    __syncwarp();  // the row's dS, written by its four threads of this warp
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float ds = ds_s[r * kPPad + kk];
-#pragma unroll
-      for (int i = 0; i < D / kLanes; ++i)
-        acc[i] = fmaf(ds, k_s[kk * kPad + lane + kLanes * i], acc[i]);
-    }
-  }
-
-  if (row < S) {
-    float* dst = dq + base + static_cast<int64_t>(row) * D;
-#pragma unroll
-    for (int i = 0; i < D / kLanes; ++i) dst[lane + kLanes * i] = acc[i] * scale;
   }
 }
 
@@ -429,9 +379,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
                const void* delta, void* dk, void* dv, void* dqp, void* dq, int BH, int S,
                int causal, float scale, cudaStream_t st) {
   constexpr size_t bytes = bwd_smem_bytes<D>();
-  int err = prepare(bwd_kernel<D, true>, bytes);
+  int err = prepare(bwd_kernel<D>, bytes);
   if (err) return err;
-  bwd_kernel<D, true><<<dim3(BH, (S + kRows - 1) / kRows), kThreads, bytes, st>>>(
+  bwd_kernel<D><<<dim3(BH, (S + kRows - 1) / kRows), kThreads, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
@@ -444,14 +394,468 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   return static_cast<int>(cudaGetLastError());
 }
 
+// The two-kernel backward in split-precision TF32 (see the note at the top).
+namespace split3 {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kM = 16 * kWarps;  // a block's resident rows, 16 a warp
+
+// The streamed tile's rows of the dQ kernel (keys) and of the dK/dV
+// kernel (queries), and the padded row of every tile in shared memory (D +
+// 4 words: fragment loads hit distinct banks, rows stay 16-byte aligned for
+// cp.async). At D 32 the dK/dV kernel's 32-row tiles let two blocks share
+// an SM (110 KB each, 128 registers), which ran faster on the H100 at B8
+// H8 S16384; the dQ kernel gained nothing from two.
+template <int D>
+constexpr int kDqTileRows = D == 32 ? 64 : 32;
+constexpr int kDkvTileRows = 32;
+template <int D>
+constexpr int kDkvBlocks = D == 32 ? 2 : 1;
+template <int D>
+constexpr int kPitch = D + 4;
+
+// Shared memory of either kernel: four resident [kM] tiles and two stages
+// of four streamed [kN] tiles (big and small of two tensors), plus two
+// stages of kN lse and kN delta values (the dK/dV kernel's).
+template <int D, int kN>
+constexpr size_t smem_bytes() {
+  return sizeof(uint32_t) * (kPitch<D> * (4 * kM + 2 * 4 * kN) + 2 * 2 * kN);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to about 2^-22 |x|; x - big is exact in f32.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// d += a.b on the tensor cores: a [16 x 8] row-major, b [8 x 8] column-major.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A B fragment: tile[off] and tile[off + step], step 4 (k along a row) or
+// a row's pitch (k down the rows).
+struct FragB {
+  uint32_t x[2];
+};
+__device__ __forceinline__ FragB frag_b(const uint32_t* tile, int off, int step) {
+  return {{tile[off], tile[off + step]}};
+}
+
+__device__ __forceinline__ void zero(float (&d)[4]) { d[0] = d[1] = d[2] = d[3] = 0.f; }
+
+// d += a.b for one 8-wide k-step in split precision, on the tensor cores:
+// the small cross terms first, then big.big.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], FragB bb, FragB bs) {
+  mma(d, as, bb.x[0], bb.x[1]);
+  mma(d, ab, bs.x[0], bs.x[1]);
+  mma(d, ab, bb.x[0], bb.x[1]);
+}
+
+// acc += a.b for one k-step as mma3 does, in a fresh accumulator added to
+// acc in f32 on the CUDA cores: the tensor cores sum 24 products at most.
+__device__ __forceinline__ void mma3_add(float (&acc)[4], const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4], FragB bb, FragB bs) {
+  float d[4];
+  zero(d);
+  mma3(d, ab, as, bb, bs);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
+// A fragment of rows row, row + 8 and columns col, col + 4 of a padded tile.
+template <int P>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint32_t* tile, int row, int col) {
+  a[0] = tile[row * P + col];
+  a[1] = tile[(row + 8) * P + col];
+  a[2] = tile[row * P + col + 4];
+  a[3] = tile[(row + 8) * P + col + 4];
+}
+
+// An accumulator [16 rows x 8 columns] as the split A fragment of the next
+// product, its columns in the permuted k order (2t in column t, 2t + 1 in
+// column t + 4).
+__device__ __forceinline__ void acc_to_a(const float (&c)[4], uint32_t (&ab)[4],
+                                         uint32_t (&as)[4]) {
+  split(c[0], ab[0], as[0]);
+  split(c[2], ab[1], as[1]);
+  split(c[1], ab[2], as[2]);
+  split(c[3], ab[3], as[3]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(__cvta_generic_to_global(src)), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(__cvta_generic_to_global(src)), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + Rows) of a [S, D] f32 slice into a padded tile by
+// cp.async; rows past S are zero-filled.
+template <int D, int Rows>
+__device__ __forceinline__ void stage(uint32_t* dst, const float* __restrict__ src, int r0, int S) {
+  constexpr int kChunks = D / 4;
+  for (int e = threadIdx.x; e < Rows * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = 4 * (e % kChunks);
+    const bool in = r0 + r < S;
+    cp_async16(dst + r * kPitch<D> + c, src + (in ? static_cast<int64_t>(r0 + r) * D + c : 0), in);
+  }
+}
+
+// A landed tile split into big and small (src may be big: in place).
+template <int D, int Rows>
+__device__ __forceinline__ void split_tile(const uint32_t* src, uint32_t* big, uint32_t* small) {
+  constexpr int kChunks = D / 4;
+  for (int e = threadIdx.x; e < Rows * kChunks; e += kThreads) {
+    const int off = (e / kChunks) * kPitch<D> + 4 * (e % kChunks);
+    const uint4 x = *reinterpret_cast<const uint4*>(src + off);
+    uint4 b, s;
+    split(__uint_as_float(x.x), b.x, s.x);
+    split(__uint_as_float(x.y), b.y, s.y);
+    split(__uint_as_float(x.z), b.z, s.z);
+    split(__uint_as_float(x.w), b.w, s.w);
+    *reinterpret_cast<uint4*>(big + off) = b;
+    *reinterpret_cast<uint4*>(small + off) = s;
+  }
+}
+
+// The tiles of both kernels' shared memory: four resident [kM] tiles, four
+// [kN] tiles a stage, then each stage's lse and delta (the dK/dV kernel's).
+template <int D, int kN>
+struct Smem {
+  static constexpr int kP = kPitch<D>;
+  uint32_t* base;
+  __device__ uint32_t* resident(int i) const { return base + i * kM * kP; }
+  __device__ uint32_t* streamed(int st, int i) const {
+    return base + 4 * kM * kP + (st * 4 + i) * kN * kP;
+  }
+  __device__ float* rowvec(int st, int i) const {
+    return reinterpret_cast<float*>(base + 4 * kM * kP + 8 * kN * kP) + (st * 2 + i) * kN;
+  }
+};
+
+// dQ: one block per (b*h, 128-row Q tile); blockIdx.y counts the Q tiles
+// from the last, so the longest causal rows start first. Warp w owns rows
+// 16 w .. 16 w + 15 of the tile. S and dP are FFMA sums over d in order,
+// as the plain version's f32 products take them: a lane holds the rows
+// rg + 4 i and the keys kg + 8 i' of its warp's tile (rg = lane / 8, kg =
+// lane % 8), so a 16-byte shared-memory load of a Q or dO row serves a
+// quarter-warp, and the eight keys a quarter-warp loads hit distinct
+// banks. dS goes through the warp's own [16 x (kN + 8)] tile into mma A
+// fragments; in dQ's accumulators a lane holds rows g and g + 8 (g =
+// lane / 4) and columns 2t and 2t + 1 (t = lane % 4) of every 8 columns.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int S, float scale, int causal) {
+  constexpr int kP = kPitch<D>, kN = kDqTileRows<D>;
+  constexpr int kT = kN / 8;    // a lane's keys in the FFMA layout; k-steps of dS.K
+  constexpr int kD = D / 8;     // n-tiles of dS.K
+  constexpr int kSP = kN + 8;   // a row of a warp's dS tile (LDS.64 of a fragment pair: no conflicts)
+  static_assert(kWarps * 16 * kSP <= 2 * kM * kP, "dS tiles overflow their slot");
+  extern __shared__ __align__(16) uint32_t split_smem[];
+  const Smem<D, kN> sm{split_smem};
+  // resident: Q and dO rows (f32), then the warps' dS tiles; each stage:
+  // K (f32, big, small) and V (f32)
+  const float* qr = reinterpret_cast<const float*>(sm.resident(0));
+  const float* orow = reinterpret_cast<const float*>(sm.resident(1));
+
+  const int bh = blockIdx.x;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kM;
+  const int64_t base = static_cast<int64_t>(bh) * S * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane / 8, kg = lane % 8, g = lane / 4, t = lane % 4;
+  const int wr = 16 * warp;
+  float* ds_w = reinterpret_cast<float*>(sm.resident(2)) + warp * 16 * kSP;
+  int n_kt = (S + kN - 1) / kN;
+  // causal: key tiles wholly past this Q tile's last row are fully masked
+  if (causal) n_kt = min(n_kt, (r0 + kM + kN - 1) / kN);
+
+  stage<D, kM>(sm.resident(0), q + base, r0, S);
+  stage<D, kM>(sm.resident(1), dout + base, r0, S);
+  stage<D, kN>(sm.streamed(0, 0), k + base, 0, S);
+  stage<D, kN>(sm.streamed(0, 3), v + base, 0, S);
+  cp_commit();
+  int row[4];
+  float lse_r[4], delta_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row[i] = r0 + wr + rg + 4 * i;
+    lse_r[i] = row[i] < S ? lse[static_cast<int64_t>(bh) * S + row[i]] : 0.f;
+    delta_r[i] = row[i] < S ? delta[static_cast<int64_t>(bh) * S + row[i]] : 0.f;
+  }
+  float acc[kD][4];
+#pragma unroll
+  for (int n = 0; n < kD; ++n) zero(acc[n]);
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1, c0 = it * kN;
+    if (it + 1 < n_kt) {
+      stage<D, kN>(sm.streamed(st ^ 1, 0), k + base, c0 + kN, S);
+      stage<D, kN>(sm.streamed(st ^ 1, 3), v + base, c0 + kN, S);
+    }
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    const float* kr = reinterpret_cast<const float*>(sm.streamed(st, 0));
+    const float* vr = reinterpret_cast<const float*>(sm.streamed(st, 3));
+    const uint32_t *kb = sm.streamed(st, 1), *ks = sm.streamed(st, 2);
+    split_tile<D, kN>(sm.streamed(st, 0), sm.streamed(st, 1), sm.streamed(st, 2));
+
+    // S = Q K^T and dP = dO V^T, each element an FFMA chain over d = 0 .. D - 1
+    float s[4][kT], dp[4][kT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {  // four d a 16-byte load, each chain in order
+      float4 qd[4], od[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qd[i] = *reinterpret_cast<const float4*>(qr + (wr + rg + 4 * i) * kP + d);
+        od[i] = *reinterpret_cast<const float4*>(orow + (wr + rg + 4 * i) * kP + d);
+      }
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        const float4 kd = *reinterpret_cast<const float4*>(kr + (kg + 8 * j) * kP + d);
+        const float4 vd = *reinterpret_cast<const float4*>(vr + (kg + 8 * j) * kP + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(qd[i].x, kd.x, s[i][j]);
+          s[i][j] = fmaf(qd[i].y, kd.y, s[i][j]);
+          s[i][j] = fmaf(qd[i].z, kd.z, s[i][j]);
+          s[i][j] = fmaf(qd[i].w, kd.w, s[i][j]);
+          dp[i][j] = fmaf(od[i].x, vd.x, dp[i][j]);
+          dp[i][j] = fmaf(od[i].y, vd.y, dp[i][j]);
+          dp[i][j] = fmaf(od[i].z, vd.z, dp[i][j]);
+          dp[i][j] = fmaf(od[i].w, vd.w, dp[i][j]);
+        }
+      }
+    }
+    // dS = P (dP - delta), P = exp(s * scale - lse) rounded as the plain
+    // version rounds it, masked pairs 0, into the warp's dS tile
+    const bool edge = c0 + kN > S || r0 + wr + 16 > S || (causal && c0 + kN - 1 > r0 + wr);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        const int key = c0 + kg + 8 * j;
+        float p = expf(__fsub_rn(__fmul_rn(s[i][j], scale), lse_r[i]));
+        if (edge && (row[i] >= S || key >= S || (causal && key > row[i]))) p = 0.f;
+        ds_w[(rg + 4 * i) * kSP + kg + 8 * j] = p * (dp[i][j] - delta_r[i]);
+      }
+    }
+    __syncthreads();  // the warps' dS tiles, and every lane's split of K
+    // dQ += dS K over the tile's keys on the tensor cores, the k index
+    // permuted (key 2t in A column t, 2t + 1 in column t + 4)
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      const float2 lo = *reinterpret_cast<const float2*>(ds_w + g * kSP + 8 * j + 2 * t);
+      const float2 hi = *reinterpret_cast<const float2*>(ds_w + (g + 8) * kSP + 8 * j + 2 * t);
+      const float c[4] = {lo.x, lo.y, hi.x, hi.y};
+      uint32_t ab[4], as[4];
+      acc_to_a(c, ab, as);
+#pragma unroll
+      for (int n = 0; n < kD; ++n) {
+        const int off = (8 * j + 2 * t) * kP + 8 * n + g;
+        mma3_add(acc[n], ab, as, frag_b(kb, off, kP), frag_b(ks, off, kP));
+      }
+    }
+    __syncthreads();  // every warp is done with this stage and its dS tile
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int out = r0 + wr + g + 8 * i;
+    if (out >= S) continue;
+    float* dst = dq + base + static_cast<int64_t>(out) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kD; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
+}
+
+// dK and dV: one block per (b*h, 128-key K/V tile), in ascending order (the
+// longest causal walks first). Warp w owns keys 16 w .. 16 w + 15; the
+// streamed tiles are the queries, with their dO, lse and delta.
+template <int D>
+__global__ void __launch_bounds__(kThreads, kDkvBlocks<D>) dkv_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
+    float scale, int causal) {
+  constexpr int kP = kPitch<D>, kN = kDkvTileRows;
+  constexpr int kT = kN / 8;  // n-tiles of S^T and dP^T; k-steps of P^T dO and dS^T Q
+  constexpr int kD = D / 8;   // k-steps of S^T and dP^T; n-tiles of P^T dO and dS^T Q
+  extern __shared__ __align__(16) uint32_t split_smem[];
+  const Smem<D, kN> sm{split_smem};
+  uint32_t *kb = sm.resident(0), *ks = sm.resident(1), *vb = sm.resident(2), *vs = sm.resident(3);
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kM;
+  const int64_t base = static_cast<int64_t>(bh) * S * D;
+  const float* lse_bh = lse + static_cast<int64_t>(bh) * S;
+  const float* delta_bh = delta + static_cast<int64_t>(bh) * S;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int wr = 16 * warp;
+  // causal: Q tiles wholly before this K tile see none of it
+  const int qt0 = causal ? k0 / kN : 0;
+  const int n_qt = (S + kN - 1) / kN;
+
+  auto stage_q = [&](int st, int q0) {
+    stage<D, kN>(sm.streamed(st, 0), q + base, q0, S);
+    stage<D, kN>(sm.streamed(st, 2), dout + base, q0, S);
+    for (int e = threadIdx.x; e < 2 * kN; e += kThreads) {
+      const int r = e % kN;
+      const bool in = q0 + r < S;
+      cp_async4(sm.rowvec(st, e / kN) + r, (e < kN ? lse_bh : delta_bh) + (in ? q0 + r : 0), in);
+    }
+  };
+  stage<D, kM>(kb, k + base, k0, S);
+  stage<D, kM>(vb, v + base, k0, S);
+  stage_q(0, qt0 * kN);
+  cp_commit();
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key[i] = k0 + wr + g + 8 * i;
+  float acc_dk[kD][4], acc_dv[kD][4];
+#pragma unroll
+  for (int n = 0; n < kD; ++n) {
+    zero(acc_dk[n]);
+    zero(acc_dv[n]);
+  }
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int st = (qt - qt0) & 1, q0 = qt * kN;
+    if (qt + 1 < n_qt) stage_q(st ^ 1, q0 + kN);
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    if (qt == qt0) {
+      split_tile<D, kM>(kb, kb, ks);
+      split_tile<D, kM>(vb, vb, vs);
+    }
+    const uint32_t *qtb = sm.streamed(st, 0), *qts = sm.streamed(st, 1);
+    const uint32_t *otb = sm.streamed(st, 2), *ots = sm.streamed(st, 3);
+    const float *lse_s = sm.rowvec(st, 0), *delta_s = sm.rowvec(st, 1);
+    split_tile<D, kN>(sm.streamed(st, 0), sm.streamed(st, 0), sm.streamed(st, 1));
+    split_tile<D, kN>(sm.streamed(st, 2), sm.streamed(st, 2), sm.streamed(st, 3));
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys and the tile's queries
+    float s[kT][4], dp[kT][4];
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      zero(s[j]);
+      zero(dp[j]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD; ++kk) {
+      uint32_t kab[4], kas[4], vab[4], vas[4];
+      load_a<kP>(kab, kb, wr + g, 8 * kk + t);
+      load_a<kP>(kas, ks, wr + g, 8 * kk + t);
+      load_a<kP>(vab, vb, wr + g, 8 * kk + t);
+      load_a<kP>(vas, vs, wr + g, 8 * kk + t);
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        const int off = (8 * j + g) * kP + 8 * kk + t;
+        mma3(s[j], kab, kas, frag_b(qtb, off, 4), frag_b(qts, off, 4));
+        mma3(dp[j], vab, vas, frag_b(otb, off, 4), frag_b(ots, off, 4));
+      }
+    }
+    // P^T into s and dS^T = P^T (dP^T - delta) into dp, masked pairs 0
+    const bool edge = q0 + kN > S || k0 + wr + 16 > S || (causal && q0 < k0 + wr + 15);
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, qi = 8 * j + 2 * t + (e & 1), query = q0 + qi;
+        float p = expf(__fsub_rn(__fmul_rn(s[j][e], scale), lse_s[qi]));
+        if (edge && (query >= S || key[i] >= S || (causal && query < key[i]))) p = 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - delta_s[qi]);
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q over the tile's queries, each in a fresh
+    // accumulator added to the running sum in f32
+    float pv[kD][4], pk[kD][4];
+#pragma unroll
+    for (int n = 0; n < kD; ++n) {
+      zero(pv[n]);
+      zero(pk[n]);
+    }
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      uint32_t pab[4], pas[4], dab[4], das[4];
+      acc_to_a(s[j], pab, pas);
+      acc_to_a(dp[j], dab, das);
+#pragma unroll
+      for (int n = 0; n < kD; ++n) {
+        const int off = (8 * j + 2 * t) * kP + 8 * n + g;
+        mma3(pv[n], pab, pas, frag_b(otb, off, kP), frag_b(ots, off, kP));
+        mma3(pk[n], dab, das, frag_b(qtb, off, kP), frag_b(qts, off, kP));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_dv[n][e] += pv[n][e];
+        acc_dk[n][e] += pk[n][e];
+      }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= S) continue;
+    const int64_t off = base + static_cast<int64_t>(key[i]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kD; ++n) {
+      *reinterpret_cast<float2*>(dk + off + 8 * n) =
+          make_float2(acc_dk[n][2 * i] * scale, acc_dk[n][2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * n) =
+          make_float2(acc_dv[n][2 * i], acc_dv[n][2 * i + 1]);
+    }
+  }
+}
+
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int BH, int S, int causal, float scale,
               cudaStream_t st) {
-  constexpr size_t bytes = dq_smem_bytes<D>();
+  constexpr size_t bytes = smem_bytes<D, kDqTileRows<D>>();
   const int err = prepare(dq_kernel<D>, bytes);
   if (err) return err;
-  dq_kernel<D><<<dim3(BH, (S + kRows - 1) / kRows), kThreads, bytes, st>>>(
+  dq_kernel<D><<<dim3(BH, (S + kM - 1) / kM), kThreads, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq), S, scale, causal);
@@ -462,16 +866,18 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int BH, int S, int causal, float scale,
                cudaStream_t st) {
-  constexpr size_t bytes = bwd_smem_bytes<D>();
-  const int err = prepare(bwd_kernel<D, false>, bytes);
+  constexpr size_t bytes = smem_bytes<D, kDkvTileRows>();
+  const int err = prepare(dkv_kernel<D>, bytes);
   if (err) return err;
-  bwd_kernel<D, false><<<dim3(BH, (S + kRows - 1) / kRows), kThreads, bytes, st>>>(
+  dkv_kernel<D><<<dim3(BH, (S + kM - 1) / kM), kThreads, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
-      nullptr, S, scale, causal);
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), S,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace split3
 
 }  // namespace
 
@@ -509,8 +915,8 @@ extern "C" int dftt_flash_attention_dq_f32(const void* q, const void* k, const v
                                            void* dq, int BH, int S, int D, int causal, float scale,
                                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, S, causal, scale, st);
-  if (D == 32) return launch_dq<32>(q, k, v, dout, lse, delta, dq, BH, S, causal, scale, st);
+  if (D == 64) return split3::launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, S, causal, scale, st);
+  if (D == 32) return split3::launch_dq<32>(q, k, v, dout, lse, delta, dq, BH, S, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -521,7 +927,7 @@ extern "C" int dftt_flash_attention_dkv_f32(const void* q, const void* k, const 
                                             void* dk, void* dv, int BH, int S, int D, int causal,
                                             float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, S, causal, scale, st);
-  if (D == 32) return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, S, causal, scale, st);
+  if (D == 64) return split3::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, S, causal, scale, st);
+  if (D == 32) return split3::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, S, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

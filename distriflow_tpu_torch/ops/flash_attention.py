@@ -22,8 +22,13 @@ from two sources, and four f32 kernels from a third:
   ``_dkvq_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` on f32 inputs (the
   JAX LM CLI's ``--dtype float32``, and with ``--seq 16384`` the
   two-kernel layout that JAX takes for f32 past 2048 positions): the
-  forward, the fused backward with write-once f32 dQ partials, and the dQ
-  and dK/dV kernels, f32 throughout on the CUDA cores (no TF32).
+  forward and the fused backward with write-once f32 dQ partials in f32 on
+  the CUDA cores, and the dQ and dK/dV kernels on the tensor cores in
+  split-precision TF32 (each f32 operand split into two TF32 parts and
+  each product taken as three TF32 products summed in f32, which keeps
+  f32's accuracy where one TF32 pass does not). Their arithmetic has a
+  plain mirror, :func:`flash_attention_split_tf32_reference`, for the
+  tests and ``chip_smoke.py``.
 
 Every kernel is built for head dims 64 and 32 (:data:`SUPPORTED_HEAD_DIMS`,
 :data:`BWD_HEAD_DIMS`); a wrapper counts its launches in ``launches``, by
@@ -186,19 +191,29 @@ def _record_forward_cost(q: torch.Tensor, causal: bool) -> None:
 def _record_backward_cost(q: torch.Tensor, causal: bool, bwd_block_k: Optional[int]) -> None:
     """JAX's analytic cost of one backward (``_flash_backward``), in the
     layout it takes: four matmuls of model FLOPs; the fused layout runs 5
-    and reads its f32 dQ partials, the two-kernel layout runs 7."""
+    and reads its f32 dQ partials, the two-kernel layout runs 7. In f32
+    the two-kernel layout runs :data:`_F32_SPLIT_TF32_PRODUCTS` of its 7 as
+    split-precision TF32 (the rest, S and dP of the dQ kernel, on FFMA)."""
     b, h, s, d = q.shape
     n_kv = _bwd_kv_blocks(s, d, q.dtype, bwd_block_k)
     fused = n_kv <= _FUSED_BWD_MAX_KV_BLOCKS
     div = 2 if causal else 1
     unit = 2 * b * h * s * s * d // div
+    f32 = q.dtype == torch.float32
     flop_count.record_kernel_cost(
         flops=4 * unit,
         bytes_accessed=8 * b * h * s * d * q.element_size()
         + (2 * n_kv * b * h * s * d * 4 if fused else 0),
         transcendentals=(1 if fused else 2) * b * h * s * s // div,
-        category="attention_bwd", hw_flops=(5 if fused else 7) * unit,
-        f32=q.dtype == torch.float32)
+        category="attention_bwd", hw_flops=(5 if fused else 7) * unit, f32=f32,
+        tf32x3=_F32_SPLIT_TF32_PRODUCTS * unit if f32 and not fused else 0)
+
+
+# The products of the f32 two-kernel backward that run as split-precision
+# TF32 on the tensor cores (csrc/flash_attention_f32.cu): dS.K in the dQ
+# kernel and all four of the dK/dV kernel's; the dQ kernel's S and dP stay
+# FFMA sums.
+_F32_SPLIT_TF32_PRODUCTS = 5
 
 
 # The fused backward kernels' KV tiles (``kBKV`` in
@@ -328,6 +343,68 @@ def flash_attention_dkv_reference(
     return _per_head(one, q, k, v, do, lse, delta)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to 10
+    mantissa bits, to nearest with ties away from zero, on the f32 bits
+    (the 13 low bits cleared). The value stays an f32 tensor."""
+    bits = x.float().contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+
+
+def _split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ b`` as the split-precision kernels take it: each operand split
+    into ``big = tf32(x)`` and ``small = tf32(x - big)`` (``x - big`` is
+    exact in f32) and the three TF32 products summed in f32, the small
+    cross terms first. ``passes=1``: one TF32 product, ``tf32(a) @
+    tf32(b)``. TF32 values multiply exactly in f32, so the f32 matmul of
+    the parts is the tensor cores' product of them."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return ab @ bb
+    a_small, b_small = _tf32_rna(a - ab), _tf32_rna(b - bb)
+    return (a_small @ bb + ab @ b_small) + ab @ bb
+
+
+def flash_attention_split_tf32_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, causal: bool = True, passes: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain mirror of the f32 two-kernel backward's arithmetic
+    (``dq_kernel`` and ``dkv_kernel`` in ``csrc/flash_attention_f32.cu``):
+    ``(dQ, dK, dV)`` f32 from f32 ``[B, H, S, D]`` inputs. The products the
+    kernels run in split-precision TF32 are taken by
+    :func:`_split_tf32_matmul` (``passes`` 3, or 1 for one TF32 pass): the
+    dK/dV kernel's four, S = Q K^T, dP = dO V^T, P^T dO and dS^T Q, and the
+    dQ kernel's dS K, whose S and dP are f32 sums as in the plain version.
+    Everything else is f32 as in :func:`flash_attention_dq_reference`: the
+    scale after the sum, masked pairs exactly 0, dS = P (dP - delta). The
+    kernels' own sum order (8-wide k-steps, each added to an f32 sum) is
+    not mirrored. For the tests and ``chip_smoke.py`` only; one (b, h)
+    slice at a time."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def mm(a, b):
+        return _split_tf32_matmul(a, b, passes)
+
+    def one(q, k, v, do, lse, delta):
+        q, k, v, do = (t.float() for t in (q, k, v, do))
+        keep = _causal_keep(q.shape[2], q.device) if causal else None
+
+        def dscores(s, dp):
+            p = torch.exp(s * scale - lse.float()[..., None])
+            if keep is not None:
+                p = torch.where(keep, p, torch.zeros_like(p))
+            return p, p * (dp - delta.float()[..., None])
+
+        _, ds = dscores(q @ k.transpose(-1, -2), do @ v.transpose(-1, -2))
+        dq = mm(ds, k) * scale
+        p, ds = dscores(mm(q, k.transpose(-1, -2)), mm(do, v.transpose(-1, -2)))
+        return dq, mm(ds.transpose(-1, -2), q) * scale, mm(p.transpose(-1, -2), do)
+
+    return _per_head(one, q, k, v, do, lse, delta)
+
+
 def _check_kernel_inputs(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous [B, H, S, D] tensor of
     ref's dtype (bf16 or f32) shaped like ``ref`` on ref's CUDA device, at
@@ -410,6 +487,10 @@ def flash_attention_backward(
 
 def _check_backward_inputs(what: str, q, k, v, do, lse, delta) -> None:
     _check_kernel_inputs(what, q, q=q, k=k, v=v, do=do)
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary (the kernels "
+                             f"copy rows in 16-byte pieces)")
     b, h, s, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (b, h, s) or t.dtype != torch.float32 or not t.is_contiguous() \

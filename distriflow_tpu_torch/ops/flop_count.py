@@ -23,10 +23,13 @@ Three differences from JAX's module:
   go to ``hw_flops`` (and its bytes and transcendentals, which the card
   does move and compute, to theirs), never to ``flops``. JAX's trace of a
   ``nn.remat`` model records the recomputed forward as model FLOPs too.
-- A kernel that computes in f32 on the CUDA cores (the f32 attention
-  kernels) also files its ``hw_flops`` under its category's
-  ``f32_hw_flops``, so that :mod:`~distriflow_tpu_torch.ops.roofline`
-  bounds that work by the f32 peak and not the bf16 tensor-core peak. The
+- A kernel that computes in f32 (the f32 attention kernels) also files
+  its ``hw_flops`` under its category's ``f32_hw_flops``, so that
+  :mod:`~distriflow_tpu_torch.ops.roofline` bounds that work by the f32
+  peak and not the bf16 tensor-core peak; the part of them that it runs
+  on the tensor cores in split-precision TF32 (three TF32 products for
+  each f32 one: the f32 two-kernel backward) goes under
+  ``tf32x3_hw_flops`` instead, bounded by a third of the TF32 peak. The
   four fields and the categories stay JAX's.
 
 The JAX names stay as aliases: :func:`record_pallas_cost`,
@@ -52,6 +55,9 @@ from typing import Dict, Iterator, Optional
 _FIELDS = ("flops", "bytes_accessed", "transcendentals", "hw_flops")
 #: a category's hardware FLOPs that ran in f32 on the CUDA cores
 F32_FIELD = "f32_hw_flops"
+#: a category's f32 hardware FLOPs that ran as split-precision TF32 (each
+#: f32 product three TF32 products on the tensor cores)
+TF32X3_FIELD = "tf32x3_hw_flops"
 
 _lock = threading.Lock()
 _active: Optional[Dict[str, float]] = None  # guarded-by: _lock
@@ -65,12 +71,15 @@ def record_kernel_cost(
     category: Optional[str] = None,
     hw_flops: Optional[float] = None,
     f32: bool = False,
+    tf32x3: float = 0.0,
 ) -> None:
     """Add one kernel call's analytic cost to the open tally (a no-op when
     none is open). ``hw_flops`` defaults to ``flops``; inside
     :func:`recompute` the call's model FLOPs count as hardware FLOPs only.
-    ``f32``: the kernel computes in f32 on the CUDA cores, so its
-    ``hw_flops`` also go to its category's ``f32_hw_flops``."""
+    ``f32``: the kernel computes in f32, so its ``hw_flops`` also go to its
+    category's ``f32_hw_flops``, but for ``tf32x3`` of them, which it runs
+    as split-precision TF32 on the tensor cores and which go to its
+    ``tf32x3_hw_flops``."""
     if _active is None:  # the common case: no lock, no dict
         return
     hw = float(flops if hw_flops is None else hw_flops)
@@ -88,7 +97,9 @@ def record_kernel_cost(
             if cat is not None:
                 cat[f] += v
         if f32 and cat is not None:
-            cat[F32_FIELD] = cat.get(F32_FIELD, 0.0) + hw
+            cat[F32_FIELD] = cat.get(F32_FIELD, 0.0) + hw - float(tf32x3)
+            if tf32x3:
+                cat[TF32X3_FIELD] = cat.get(TF32X3_FIELD, 0.0) + float(tf32x3)
 
 
 @contextlib.contextmanager

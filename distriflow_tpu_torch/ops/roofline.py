@@ -24,8 +24,10 @@ Differences from the JAX module, whose TPU numbers do not carry over:
   HBM bandwidth (:data:`H100_PEAK_BF16_FLOPS`, :data:`H100_HBM_BYTES_PER_S`);
   the share of a category's ``hw_flops`` that its kernels run in f32 on
   the CUDA cores (the tally's ``f32_hw_flops``: the f32 attention
-  kernels) goes at the f32 peak instead (:data:`H100_PEAK_F32_FLOPS`), at
-  the phase's efficiency;
+  kernels) goes at the f32 peak instead (:data:`H100_PEAK_F32_FLOPS`), and
+  the share they run as split-precision TF32 (``tf32x3_hw_flops``: the f32
+  two-kernel backward, three TF32 products for each f32 one) at a third of
+  the TF32 peak (:data:`H100_SPLIT_TF32_FLOPS`), at the phase's efficiency;
 - each :data:`PHASE_EFFICIENCY` is the port's own fraction of peak, bound
   over time from ``chip_smoke.py``'s kernel table on an H100 (the rows,
   shapes and times beside each). As in JAX the fraction scales the compute leg only,
@@ -45,7 +47,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-from distriflow_tpu_torch.ops.flop_count import F32_FIELD
+from distriflow_tpu_torch.ops.flop_count import F32_FIELD, TF32X3_FIELD
 
 #: H100 SXM, NVIDIA's data sheet: dense bf16 tensor-core rate and HBM3
 #: bandwidth (the figures ``train/sync.py`` keeps for MFU)
@@ -53,6 +55,10 @@ H100_PEAK_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM, NVIDIA's data sheet: f32 outside the tensor cores
 H100_PEAK_F32_FLOPS = 67e12
+#: H100 SXM, NVIDIA's data sheet: dense TF32 on the tensor cores
+H100_PEAK_TF32_FLOPS = 495e12
+#: f32 products taken as three TF32 products each (split precision)
+H100_SPLIT_TF32_FLOPS = H100_PEAK_TF32_FLOPS / 3
 
 #: the phase of everything outside the kernel tally (JAX's ``xla``)
 REMAINDER = "aten"
@@ -90,12 +96,15 @@ def phase_time_s(
     peak_flops: float = H100_PEAK_BF16_FLOPS,
     hbm_bw: float = H100_HBM_BYTES_PER_S,
     f32_hw_flops: float = 0.0,
+    tf32x3_hw_flops: float = 0.0,
 ) -> Dict[str, float]:
     """One phase's roofline: the compute and memory legs and which binds.
-    ``f32_hw_flops`` of the ``hw_flops`` run at :data:`H100_PEAK_F32_FLOPS`."""
+    ``f32_hw_flops`` of the ``hw_flops`` run at :data:`H100_PEAK_F32_FLOPS`,
+    ``tf32x3_hw_flops`` at :data:`H100_SPLIT_TF32_FLOPS`."""
     eff = PHASE_EFFICIENCY.get(phase, _DEFAULT_EFFICIENCY)
-    t_compute = ((hw_flops - f32_hw_flops) / (peak_flops * eff)
-                 + f32_hw_flops / (H100_PEAK_F32_FLOPS * eff)) if hw_flops else 0.0
+    rest = hw_flops - f32_hw_flops - tf32x3_hw_flops
+    t_compute = (rest / (peak_flops * eff) + f32_hw_flops / (H100_PEAK_F32_FLOPS * eff)
+                 + tf32x3_hw_flops / (H100_SPLIT_TF32_FLOPS * eff)) if hw_flops else 0.0
     t_memory = bytes_accessed / hbm_bw if bytes_accessed else 0.0
     return {
         "time_s": max(t_compute, t_memory),
@@ -132,6 +141,7 @@ def roofline_report(
             float(cat.get("hw_flops", cat.get("flops", 0.0))),
             float(cat.get("bytes_accessed", 0.0)),
             name, peak_flops, hbm_bw, float(cat.get(F32_FIELD, 0.0)),
+            float(cat.get(TF32X3_FIELD, 0.0)),
         )
     if xla_flops or xla_bytes:
         phases[REMAINDER] = phase_time_s(

@@ -8,7 +8,11 @@
 - ``bound_by`` follows the phase whose leg is longest, and flips where the
   legs cross; ``model_error`` is (projected - measured) / measured;
 - the report runs on the port's real ``SyncTrainer.cost_analysis`` output
-  for a tiny LM on the CPU.
+  for a tiny LM on the CPU;
+- the f32 two-kernel backward files five of its seven products as
+  split-precision TF32, bounded at a third of the TF32 peak, and the dQ
+  kernel's S and dP at the f32 peak; the fused f32 backward stays at the
+  f32 peak.
 """
 
 import importlib
@@ -119,3 +123,33 @@ def test_report_on_a_real_cost_analysis():
     assert rep["step_time_s"] > 0 and 0 < rep["mfu_roofline"] < 1
     assert rep["bound_by"] in rep["phases"]
     assert np.isfinite(rep["model_error"])
+
+
+@pytest.mark.parametrize("layout", ["split", "fused"])
+def test_f32_backward_bounded_at_the_rate_its_kernels_use(layout):
+    from distriflow_tpu_torch.ops import flash_attention as fa
+    from distriflow_tpu_torch.ops import flop_count
+
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 96, 32).astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    pin = 8 if layout == "split" else None  # 12 KV blocks of JAX's tile 8, or one
+    assert fa.bwd_layout(96, 32, torch.float32, pin) == layout
+    with flop_count.tally_kernel_cost() as tally:
+        fa.flash_attention(q, k, v, causal=True, bwd_block_k=pin).sum().backward()
+    bwd = tally["by_category"]["attention_bwd"]
+    eff = port_rl.PHASE_EFFICIENCY["attention_bwd"]
+    leg = port_rl.roofline_report({"attention_bwd": bwd}, 1.0)["phases"]["attention_bwd"]
+    if layout == "fused":
+        assert flop_count.TF32X3_FIELD not in bwd
+        assert bwd[flop_count.F32_FIELD] == bwd["hw_flops"]
+        assert leg["compute_s"] == pytest.approx(bwd["hw_flops"] / (67e12 * eff))
+        return
+    unit = bwd["hw_flops"] / 7
+    assert bwd[flop_count.TF32X3_FIELD] == pytest.approx(5 * unit)
+    assert bwd[flop_count.F32_FIELD] == pytest.approx(2 * unit)
+    assert port_rl.H100_SPLIT_TF32_FLOPS == pytest.approx(495e12 / 3)
+    assert leg["compute_s"] == pytest.approx((2 * unit / 67e12 + 5 * unit / (495e12 / 3)) / eff)
+    assert leg["compute_s"] == pytest.approx(port_rl.phase_time_s(
+        bwd["hw_flops"], 0.0, "attention_bwd", f32_hw_flops=2 * unit,
+        tf32x3_hw_flops=5 * unit)["compute_s"])
