@@ -446,10 +446,15 @@ checkout's (rows 11-12, 9d, 10d, and 1, 6, 7 and 8 in f32, ``was_ms``).
     S2048, 1064 valid), ``flash_decode_paged_f32`` (the serve leg's slots
     at page 128; D 64 at row 2's B8 H8 shape), ``flash_attention_dq_f32``
     and ``flash_attention_dkv_f32`` (B8 H8 S16384 D32; D 64 at B1 H8
-    S16384) hold each new variant at its path's shape: the limit, the
-    same bits twice, planted faults rejected, ragged lengths (the
-    attention rows), and its time beside its bound, its plain version
-    (f32 with TF32 off) and a library call.
+    S16384; dQ also held against its recipe in f64, ``exact``), and
+    ``flash_attention_fwd_f32_long`` (kernel 1 in f32 at path (d)'s B8 H8
+    S16384 D32, held head by head) hold each new variant at its path's
+    shape: the limit, the same bits twice, planted faults rejected, ragged
+    lengths (the attention rows; the f32 forward's at D 64 too), and its
+    time beside its bound, its plain version (f32 with TF32 off) and a
+    library call. A NaN in q, k or v reaches the same outputs of the f32
+    forward, dQ and dK/dV kernels as of their plain versions
+    (``nan_reaches``).
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -462,7 +467,7 @@ draft's (``*_d32``): kernel 1 at B1 H4 S1024 and S16288, kernel 2 at the
 draft's contexts over the 4 slots, kernel 3 at the draft's solo shape,
 each with its D 64 row's checks. Each row's
 ``launches_by_path`` gives its count in every window. The line
-before the last is the kernel table as JSON (34 rows); the last line is
+before the last is the kernel table as JSON (35 rows); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device the script exits 1 before doing anything.
 """
@@ -547,6 +552,8 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "flash_decode_paged_f32": (1e-6, 1e-5),
        # the f32 two-kernel backward, see below
        "flash_attention_dq_f32": (1e-6, 1e-5),
+       # f32 dQ against its recipe in f64, see below
+       "flash_attention_dq_f32_exact": (7e-6, 1e-5),
        "flash_attention_dkv_f32": (2e-5, 1e-5),
        # the f32 depthwise kernels, see DWGN_F32_SUM_RTOL below
        "depthwise_gn_fwd_f32": (1e-6, 1e-5),
@@ -586,6 +593,23 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
 # cancels to near 0 that drift is all the error. Measured need (the row's
 # ``atol_needed``): 4.1e-6 at D 32, 6.4e-6 at D 64 (B1 H8 S16384); atol
 # 2e-5 keeps a margin of 3.
+# f32 dQ against the plain version holds atol 1e-6 only because the dQ
+# kernel sums S and dP in the plain version's order: exact arithmetic
+# needs more against it. So f32 dQ is held against the dQ recipe in f64
+# from the same f32 inputs (:func:`_dq_f64_recipe`), which shares no f32
+# rounding with the kernel, under ``flash_attention_dq_f32_exact``. Its
+# atol by rule: the f32 plain version must itself pass it at every shape
+# where dQ is held; the largest atol the plain version needs there,
+# doubled and rounded up to one significant digit; below 1/100 of what
+# one TF32 pass needs at the path's shape; and the planted faults (delta
+# taken as 0, one TF32 pass of the plain recipe) outside it for more than
+# half of dQ's elements at the path's shape and at D 64. Readings
+# (tools/f32_dq_limit_probe.py on the H100, these inputs): the plain
+# version needs 2.66e-6 at B8 H8 S16384 D32, 7.1e-7 at B1 H8 S16384 D64
+# and at most 3.35e-6 on RAGGED_F32_D64 (S 1 causal), so 2 x 3.35e-6 ->
+# 7e-6, under 3.1e-5 (one TF32 pass needs 3.1e-3); the kernel needs at
+# most 3.35e-6; delta 0 puts 99.999% and 100% of dQ outside it, one TF32
+# pass 97.1% and 97.2%.
 # The f32 decode kernels (kernels 2 and 3 on f32 caches) follow the bf16
 # decode rows' derivation without the output's bf16 rounding: they round q,
 # K, V and p to bf16 as their plain versions do, against the same running
@@ -2809,10 +2833,11 @@ def _lm_cli_phase(counted, device="cuda"):
     return report, windows
 
 
-def _row(name, source, replaces, launches, err, shape, **rest):
+def _row(name, source, replaces, launches, err, shape, tol_of=None, **rest):
+    """A kernel-table row; its limit is ``TOL[tol_of or name]``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "tol": _tol(name), "shape": shape,
-            **rest}
+            "launches": launches[name], "max_abs_err": err, "tol": _tol(tol_of or name),
+            "shape": shape, **rest}
 
 
 def _tf32_run(plain):
@@ -2981,28 +3006,49 @@ def _lm_cli_attention_rows(launches):
         assert c["bf16_operands"] > 0.5, f"{name}: the limit passes a bf16 forward: {c}"
         controls[f"D={dd}"] = c
         pairs = s * (s + 1) // 2
-        tb, by = _bound(4 * b * h * s * dd * 4 + b * h * s * 4, 4 * b * h * pairs * dd, F32_FLOPS)
+        # both products in split-precision TF32: 3 TF32 products each
+        nbytes, flops = 4 * b * h * s * dd * 4 + b * h * s * 4, 4 * b * h * pairs * dd
+        tb, by = _bound(nbytes, 3 * flops, TF32_FLOPS)
         by_d[dd] = {"shape": f"B={b} H={h} S={s} D={dd} causal f32", "max_abs_err": err,
+                    "bound_ffma_ms": _bound(nbytes, flops, F32_FLOPS)[0],
                     "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True),
                                  20, flush),
                     "plain_ms": _timed(lambda: fa.flash_attention_reference(q, k, v, True), 3, flush),
                     "bound_ms": tb, "bound_by": by,
                     "library_ms": _timed(lambda: _sdpa_math(q, k, v), 20, flush)}
+    # ragged lengths: D 32 on RAGGED_BWD, D 64 (its own build) on
+    # RAGGED_F32_D64 from a generator of its own, so no earlier draw moved
     ragged = {}
-    for ss, causal in RAGGED_BWD:
-        q, k, v = (torch.randn(1, h, ss, d, generator=g, device=dev) for _ in range(3))
-        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
-        ro, rl = fa.flash_attention_reference(q, k, v, causal)
-        ragged[f"S={ss} {'causal' if causal else 'non-causal'}"] = max(
-            _over(f"{name} S={ss}", o, ro, *TOL[name]), _over(f"{name} lse S={ss}", lse, rl, *TOL[name]))
+    g64 = torch.Generator(device=dev).manual_seed(SEED + 50)
+    for dd, gg, lengths in ((d, g, RAGGED_BWD), (64, g64, RAGGED_F32_D64)):
+        by_len = ragged[dd] = {}
+        for ss, causal in lengths:
+            q, k, v = (torch.randn(1, h, ss, dd, generator=gg, device=dev) for _ in range(3))
+            o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+            ro, rl = fa.flash_attention_reference(q, k, v, causal)
+            by_len[f"S={ss} {'causal' if causal else 'non-causal'}"] = max(
+                _over(f"{name} D{dd} S={ss}", o, ro, *TOL[name]),
+                _over(f"{name} D{dd} lse S={ss}", lse, rl, *TOL[name]))
+    # views that start 4 bytes past a 16-byte boundary: the wrapper copies them
+    gu = torch.Generator(device=dev).manual_seed(SEED + 48)
+    for dd in (d, 64):
+        n = h * 300 * dd
+        buf = torch.randn(3 * n + 1, generator=gu, device=dev)
+        q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(1, h, 300, dd) for i in range(3))
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        ro, rl = fa.flash_attention_reference(q, k, v, True)
+        ragged[dd]["S=300 causal, unaligned"] = max(
+            _over(f"{name} D{dd} unaligned", o, ro, *TOL[name]),
+            _over(f"{name} D{dd} lse unaligned", lse, rl, *TOL[name]))
+    by_d[64]["ragged"] = ragged[64]
     main = by_d[d]
     rows.append(_row(name, src_f32, "distriflow_tpu/ops/flash_attention.py:92", launches,
                      main["max_abs_err"], main["shape"], ms=main["ms"], plain_ms=main["plain_ms"],
                      bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                     library_ms=main["library_ms"],
+                     bound_ffma_ms=main["bound_ffma_ms"], library_ms=main["library_ms"],
                      library_note="F.scaled_dot_product_attention, math backend, f32 (TF32 off)",
                      d64=by_d[64], rejected_share=controls, deterministic=True,
-                     ragged_max_abs_err=ragged))
+                     ragged_max_abs_err=ragged[d]))
 
     # kernel 6 in f32: the fused backward, D 32 and D 64 beside it
     name = "flash_attention_bwd_f32"
@@ -3227,9 +3273,10 @@ def _f32_attention_times():
     """The f32 attention kernels on this process's package, what
     ``--parent`` times on an older checkout before and after this one's
     rows: kernels 7 and 8 at the path's shape and the D 64 shape of
-    :func:`_lm_cli_f32_rows` (``"path"``, ``"d64"``: [dQ ms, dK/dV ms]) and
-    kernels 1 and 6 at their rows' B8 H8 S512 D32 (``"fwd_bwd"``: [forward
-    ms, fused backward ms])."""
+    :func:`_lm_cli_f32_rows` (``"path"``, ``"d64"``: [dQ ms, dK/dV ms]),
+    kernels 1 and 6 at their rows' B8 H8 S512 D32 and D64 (``"fwd_bwd"``,
+    ``"fwd_bwd_d64"``: [forward ms, fused backward ms]) and kernel 1 at
+    path (d)'s shape (``"fwd_long"``: [forward ms])."""
     from distriflow_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 44)
@@ -3241,25 +3288,117 @@ def _f32_attention_times():
         out[label] = [_timed(lambda: fa.flash_attention_dq(*args), 5, flush),
                       _timed(lambda: fa.flash_attention_dkv(*args), 5, flush)]
         del args
-    args = _bwd_inputs(g, LM_CLI_B, h, LM_CLI["max_seq"], True, d, torch.float32)
-    out["fwd_bwd"] = [_timed(lambda: fa.flash_attention(*args[:3], causal=True), 20, flush),
+    for label, dd in (("fwd_bwd", d), ("fwd_bwd_d64", 64)):
+        args = _bwd_inputs(g, LM_CLI_B, h, LM_CLI["max_seq"], True, dd, torch.float32)
+        out[label] = [_timed(lambda: fa.flash_attention(*args[:3], causal=True), 20, flush),
                       _timed(lambda: fa.flash_attention_backward(*args), 20, flush)]
+        del args
+    q, k, v = _f32_fwd_long_inputs(torch.Generator(device="cuda").manual_seed(F32_FWD_LONG_SEED))
+    out["fwd_long"] = [_timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 5,
+                              flush)]
     return out
+
+
+#: the generator seed of kernel 1's f32 inputs at path (d)'s shape
+F32_FWD_LONG_SEED = SEED + 46
+
+
+def _f32_fwd_long_inputs(g):
+    """q, k, v of kernel 1 in f32 at path (d)'s shape (B8 H8 S16384 D32),
+    standard normal from ``g``."""
+    h, d = LM_CLI["n_heads"], LM_CLI["d_model"] // LM_CLI["n_heads"]
+    return tuple(torch.randn(LM_CLI_B, h, LM_CLI_LONG_S, d, generator=g, device="cuda")
+                 for _ in range(3))
 
 
 def _with_f32_was(rows, was):
     """Rows 1, 6, 7 and 8 in f32 with ``was_ms``: the older checkout's
-    kernels before and after this one's (kernels 7 and 8 at both shapes)."""
-    at = {"flash_attention_fwd_f32": ("fwd_bwd", 0), "flash_attention_bwd_f32": ("fwd_bwd", 1),
-          "flash_attention_dq_f32": ("path", 0), "flash_attention_dkv_f32": ("path", 1)}
+    kernels before and after this one's, at each row's shape and at the
+    D 64 shape beside it."""
+    at = {"flash_attention_fwd_f32": ("fwd_bwd", "fwd_bwd_d64", 0),
+          "flash_attention_bwd_f32": ("fwd_bwd", "fwd_bwd_d64", 1),
+          "flash_attention_fwd_f32_long": ("fwd_long", None, 0),
+          "flash_attention_dq_f32": ("path", "d64", 0), "flash_attention_dkv_f32": ("path", "d64", 1)}
     for row in rows:
         if row["name"] not in at:
             continue
-        key, i = at[row["name"]]
+        key, key64, i = at[row["name"]]
         row["was_ms"] = [run[key][i] for run in was] or "not measured"
-        if key == "path":
-            row["d64"]["was_ms"] = [run["d64"][i] for run in was] or "not measured"
+        if key64:
+            row["d64"]["was_ms"] = [run[key64][i] for run in was] or "not measured"
     return rows
+
+
+def _dq_f64_recipe(q, k, v, do, lse, delta, causal):
+    """dQ's recipe in f64 from the f32 inputs (P = exp(s * scale - lse),
+    masked pairs 0, dS = P (dP - delta), dQ = scale dS K), one (b, h) slice
+    at a time: the reference f32 dQ is held to
+    (``TOL["flash_attention_dq_f32_exact"]``)."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def one(q, k, v, do, lse, delta):
+        q, k, v, do, lse, delta = (t.double() for t in (q, k, v, do, lse, delta))
+        p = torch.exp(q @ k.transpose(-1, -2) * scale - lse[..., None])
+        if causal:
+            p = torch.where(fa._causal_keep(q.shape[2], q.device), p, torch.zeros_like(p))
+        return ((p * (do @ v.transpose(-1, -2) - delta[..., None])) @ k * scale,)
+
+    return fa._per_head(one, q, k, v, do, lse, delta)[0]
+
+
+def _dq_exact_check(label, dq, plain, args, wrong):
+    """f32 dQ (``dq``) and its f32 plain version (``plain``) held against
+    the f64 recipe under ``TOL["flash_attention_dq_f32_exact"]``: each
+    one's largest error and the atol it needs, and the share of elements
+    each of ``wrong`` (planted faults, by name) puts outside the limit."""
+    ne = "flash_attention_dq_f32_exact"
+    exact = _dq_f64_recipe(*args)
+    out = {"tol": _tol(ne).replace("|plain|", "|f64 recipe|"),
+           "max_abs_err": _over(f"{ne} {label}", dq, exact, *TOL[ne]),
+           "kernel_atol_needed": _atol_needed(ne, [(dq, exact)]),
+           "plain_max_abs_err": _over(f"{ne} plain {label}", plain, exact, *TOL[ne]),
+           "plain_atol_needed": _atol_needed(ne, [(plain, exact)])}
+    if wrong:
+        out["rejected_share"] = {n: _rejected(ne, w, exact) for n, w in wrong.items()}
+        assert all(x > 0.5 for x in out["rejected_share"].values()), \
+            f"{ne} {label}: the limit passes a wrong dQ: {out['rejected_share']}"
+    return out
+
+
+NAN_BITS = 0x7FFFFFFF  # the NaN that device arithmetic produces
+NAN_OUTPUTS = ("o", "lse", "dq", "dk", "dv")
+
+
+def _nan_outputs(fwd, bwd, q, k, v, do):
+    """Which outputs of one forward and backward carry a NaN when one
+    element of q, of k or of v is the NaN :data:`NAN_BITS` (causal; q's
+    at row S/2, k's and v's at row S/3): ``{"q": {"o": bool, ...}, ...}``.
+    ``fwd(q, k, v)`` gives (O, lse), ``bwd(q, k, v, dO, lse, delta)``
+    (dQ, dK, dV), delta = rowsum(dO O) of that forward."""
+    s = q.shape[2]
+    out = {}
+    for which, row, col in (("q", s // 2, 0), ("k", s // 3, 1), ("v", s // 3, 2)):
+        t = {"q": q.clone(), "k": k.clone(), "v": v.clone()}
+        t[which].view(torch.int32)[..., row, col] = NAN_BITS
+        o, lse = fwd(t["q"], t["k"], t["v"])
+        grads = bwd(t["q"], t["k"], t["v"], do, lse, (do * o).sum(-1))
+        out[which] = {n: bool(x.isnan().any()) for n, x in zip(NAN_OUTPUTS, (o, lse, *grads))}
+    return out
+
+
+def _nan_check(label, fwd, bwd, plain_fwd, plain_bwd, q, k, v, do):
+    """A NaN in q, k or v reaches the same outputs through ``fwd`` and
+    ``bwd`` as through the plain versions, and always O, dQ and dK (dV =
+    P^T dO and lse do not read V); raises otherwise. Returns the outputs
+    that carried it."""
+    got = _nan_outputs(fwd, bwd, q, k, v, do)
+    want = _nan_outputs(plain_fwd, plain_bwd, q, k, v, do)
+    assert got == want, f"{label}: a NaN input reaches {got}, its plain version {want}"
+    assert all(got[w][n] for w in got for n in ("o", "dq", "dk")), \
+        f"{label}: a NaN input gave a finite O, dQ or dK: {got}"
+    return {w: [n for n in NAN_OUTPUTS if got[w][n]] for w in got}
 
 
 def _lm_cli_f32_rows(launches):
@@ -3330,6 +3469,8 @@ def _lm_cli_f32_rows(launches):
                  "tf32_plain": _rejected(nq, tf32_q, want_q)}
         beside_q = {"dq": _beside_tf32(nq, dq, want_q, tf32_q)}
         need_q = _atol_needed(nq, [(dq, want_q)])
+        exact_q = _dq_exact_check(label, dq, want_q, args,
+                                  {"no_delta": no_delta, "tf32_plain": tf32_q})
         del dq, want_q, no_delta, tf32_q
         (dk, dv), (want_k, want_v) = fa.flash_attention_dkv(*args), fa.flash_attention_dkv_reference(*args)
         again = fa.flash_attention_dkv(*args)
@@ -3374,6 +3515,7 @@ def _lm_cli_f32_rows(launches):
                                "bound_ms": tb, "bound_by": bb,
                                "bound_ffma_ms": _bound(nbytes, products * unit, F32_FLOPS)[0],
                                "library_ms": library}
+        by[nq][label]["exact"] = exact_q
         del args, q, k, v, do, lse, delta, qs, ks, vs, out
     for name, line, fn, plain in (
             ("flash_attention_dq_f32", "distriflow_tpu/ops/flash_attention.py:162",
@@ -3385,28 +3527,114 @@ def _lm_cli_f32_rows(launches):
                          main["shape"], **{k: main[k] for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by", "bound_ffma_ms",
                              "library_ms", "rejected_share", "atol_needed", "tf32_vs_kernel")},
+                         **({"exact": main["exact"]} if "exact" in main else {}),
                          library_note="F.scaled_dot_product_attention backward, f32, the "
                                       "memory-efficient backend: dQ, dK and dV together",
                          d64=by[name]["d64"], deterministic=True,
                          ragged_max_abs_err=_ragged_bwd(name, fn, plain, g, 1, h, d, torch.float32)))
     for row, ragged in zip(rows[-2:], _ragged_f32_d64(h)):
         row["d64"]["ragged"] = ragged
+    rows.append(_f32_fwd_long_row(launches, flush))
+    nan = _f32_nan_checks(h)
+    for row in rows[-3:]:
+        row["nan_reaches"] = nan
     return rows
 
 
-# (S, causal) of the f32 two-kernel rows at D 64: RAGGED_BWD's lengths and
-# the short causal ones where dQ leaves elements outside its limit
+def _f32_nan_checks(h):
+    """:func:`_nan_check` on the f32 forward, dQ and dK/dV kernels (B1,
+    ``h`` heads, S 300 causal, D 32 and D 64, inputs of their own
+    generator) against their plain versions (TF32 off)."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 49)
+
+    def fwd(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True, return_lse=True)
+
+    def bwd(*a):
+        return (fa.flash_attention_dq(*a, True), *fa.flash_attention_dkv(*a, True))
+
+    def plain_bwd(*a):
+        return (fa.flash_attention_dq_reference(*a, True), *fa.flash_attention_dkv_reference(*a, True))
+
+    out = {}
+    for d in (LM_CLI["d_model"] // LM_CLI["n_heads"], 64):
+        q, k, v, do = (torch.randn(1, h, 300, d, generator=g, device="cuda") for _ in range(4))
+        out[f"D={d}"] = _nan_check(f"f32 split kernels D={d}", fwd, bwd,
+                                   lambda *a: fa.flash_attention_reference(*a, True), plain_bwd,
+                                   q, k, v, do)
+    return out
+
+
+def _f32_fwd_long_row(launches, flush):
+    """Kernel 1 in f32 at path (d)'s shape (``--dtype float32 --seq 16384
+    --remat``: B8 H8 S16384 D32 causal): held against its plain version
+    one (b, h) slice at a time (one [S, S] f32 score tensor live), the same
+    bits on a second launch, a bf16 forward rejected and one TF32 pass's
+    share outside reported; its time beside its bound at the split-precision
+    TF32 rate (both products, 3 TF32 products each) and at the FFMA peak,
+    the plain version's and SDPA's f32 forward on its memory-efficient
+    backend (TF32 off: the math backend's [8, 8, 16384, 16384] f32 scores
+    would take 68.7 GB)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    name, nf = "flash_attention_fwd_f32_long", "flash_attention_fwd_f32"
+    q, k, v = _f32_fwd_long_inputs(torch.Generator(device="cuda").manual_seed(F32_FWD_LONG_SEED))
+    b, h, s, d = q.shape
+
+    def plain(*t):
+        return fa._per_head(lambda *x: fa.flash_attention_reference(*x, True), *t)
+
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    again = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse), f"{name}: other bits"
+    del again
+    ro, rl = plain(q, k, v)
+    err = max(_over(f"{name} O", o, ro, *TOL[nf]), _over(f"{name} lse", lse, rl, *TOL[nf]))
+    needed = {"o": _atol_needed(nf, [(o, ro)]), "lse": _atol_needed(nf, [(lse, rl)])}
+    del o, lse
+    # planted: P and V through bf16 (the bf16 kernel's contract) must fail
+    # the f32 limit; one TF32 pass of the plain version is reported
+    controls = {"bf16_operands": _rejected(nf, plain(*(t.bfloat16() for t in (q, k, v)))[0], ro),
+                "tf32_plain": _tf32_share(nf, lambda: plain(q, k, v), ro)}
+    assert controls["bf16_operands"] > 0.5, f"{name}: the limit passes a bf16 forward: {controls}"
+    del ro, rl
+    pairs = s * (s + 1) // 2
+    nbytes, flops = 4 * b * h * s * d * 4 + b * h * s * 4, 4 * b * h * pairs * d
+    tb, by = _bound(nbytes, 3 * flops, TF32_FLOPS)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        library = _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5, flush)
+    return _row(name, "distriflow_tpu_torch/csrc/flash_attention_f32.cu",
+                "distriflow_tpu/ops/flash_attention.py:92", launches, err,
+                f"B={b} H={h} S={s} D={d} causal f32", tol_of=nf,
+                ms=_timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 5,
+                          flush),
+                plain_ms=_timed(lambda: plain(q, k, v), 1, flush), bound_ms=tb, bound_by=by,
+                bound_ffma_ms=_bound(nbytes, flops, F32_FLOPS)[0], library_ms=library,
+                library_note="F.scaled_dot_product_attention, f32 (TF32 off), the "
+                             "memory-efficient backend", rejected_share=controls,
+                atol_needed=needed, deterministic=True)
+
+
+# (S, causal) of the f32 two-kernel rows and the f32 forward at D 64:
+# RAGGED_BWD's lengths and the short causal ones where dQ leaves elements
+# outside its limit (S 1: one row of one warp; S 128: one full block)
 RAGGED_F32_D64 = ((1, True), (37, True), (37, False), (128, True), (1000, True), (1000, False))
 
 
 def _ragged_f32_d64(h):
     """Kernels 7 and 8 in f32 at D 64 (B1, ``h`` heads) on
     :data:`RAGGED_F32_D64`, with inputs of their own generator: dK and dV
-    held to their limit (max abs error by length); dQ reported and not
-    held, an open fault (at some short causal lengths the plain version's
-    dP is not a sum in d order, and dQ's atol 1e-6 follows its rounding):
-    by length, its max abs error, the atol it needs and the elements
-    outside its limit."""
+    held to their limit (max abs error by length); dQ held to the f64
+    recipe (:func:`_dq_exact_check`), with its plain version, and reported
+    against the plain version (at some short causal lengths the plain
+    version's dP is not a sum in d order, and atol 1e-6 follows its
+    rounding): by length, its max abs error, the atol it needs and the
+    elements outside that limit."""
     from distriflow_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 45)
@@ -3420,7 +3648,8 @@ def _ragged_f32_d64(h):
         dq[tag] = {"max_abs_err": float((got - want).abs().max()),
                    "atol_needed": _atol_needed(nq, [(got, want)]),
                    "outside": int(((got - want).abs() > atol + rtol * want.abs()).sum()),
-                   "elements": want.numel()}
+                   "elements": want.numel(),
+                   "exact": _dq_exact_check(f"D=64 {tag}", got, want, args, {})}
         dkv[tag] = max(_over(f"{nk} D=64 {tag}", a, w, *TOL[nk])
                        for a, w in zip(fa.flash_attention_dkv(*args),
                                        fa.flash_attention_dkv_reference(*args)))
@@ -8013,8 +8242,11 @@ def main() -> int:
                 **{k: None for k in ("fused_ce_dense_fwd_f32", "fused_ce_dense_bwd_f32")},
                 "flash_decode_f32": "lm_cli_f32_generate", "flash_decode_paged_f32": "lm_cli_f32_serve",
                 "flash_attention_dq_f32": "lm_cli_f32_long",
-                "flash_attention_dkv_f32": "lm_cli_f32_long"}
-    cli_launches = {k: cli_counts[w][k] if w else 0 for k, w in cli_rows.items()}
+                "flash_attention_dkv_f32": "lm_cli_f32_long",
+                "flash_attention_fwd_f32_long": "lm_cli_f32_long"}
+    # kernel 1 in f32 at path (d)'s shape reads the f32 forward's counter
+    counter = {"flash_attention_fwd_f32_long": "flash_attention_fwd_f32"}
+    cli_launches = {k: cli_counts[w][counter.get(k, k)] if w else 0 for k, w in cli_rows.items()}
     # an older checkout's f32 attention kernels before and after this one's
     f32_was = [_parent_times(args.parent, "_f32_attention_times")] if args.parent else []
     cli_kernel_rows = (_lm_cli_attention_rows(cli_launches) + _lm_cli_ce_rows(cli_launches)
@@ -8035,11 +8267,11 @@ def main() -> int:
     for r in rows:
         r["floor_ms"] = floor
         r["path"] = path_of.get(r["name"], "serving")
-        # page 64 runs on the elastic leg alone, page 16 in the doctor alone
-        # (the counters do not split by page)
-        by_page = r["name"] in ("flash_decode_paged_p64", "flash_decode_paged_p16")
-        r["launches_by_path"] = ({r["path"]: r["launches"]} if by_page
-                                 else {p: c[r["name"]] for p, c in paths.items()})
+        # page 64 runs on the elastic leg alone, page 16 in the doctor alone,
+        # kernel 1 in f32 at S 16384 on path (d) alone: no counter of their own
+        own = r["name"] not in ("flash_decode_paged_p64", "flash_decode_paged_p16", *counter)
+        r["launches_by_path"] = ({p: c[r["name"]] for p, c in paths.items()} if own
+                                 else {r["path"]: r["launches"]})
     print("decode_iteration_profile:",
           json.dumps(_profile_decode_iteration(model, rng, [128, 300, 512, 1000] * 2)), flush=True)
     print("training_step_profile:", json.dumps(_profiled(lambda: trainer.step((x, y)))), flush=True)
@@ -8051,7 +8283,7 @@ def main() -> int:
           flush=True)
     roofline = _roofline_phase(ip_report["cost"], rows)
     print("roofline:", json.dumps(roofline), flush=True)
-    assert len(rows) == 34, [r["name"] for r in rows]
+    assert len(rows) == 35, [r["name"] for r in rows]
     print(json.dumps({"kernels": _with_spread(rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-// Attention forward and backward in f32: the forward and the fused
-// backward on the CUDA cores (FFMA), the two-kernel backward on the tensor
+// Attention forward and backward in f32: the fused backward on the CUDA
+// cores (FFMA), the forward and the two-kernel backward on the tensor
 // cores in split-precision TF32.
 //
 // Replaces the Pallas TPU kernels of the JAX package on f32 inputs
@@ -21,36 +21,34 @@
 // delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K, every value f32
 // (JAX's casts of P and dS to the input dtype are no-ops at f32).
 //
-// FFMA kernels (forward, fused backward): a block of 256 threads owns 64
-// rows, four threads a row.
-// Forward: the rows are queries. Each tile of 64 keys and values is staged
-// in shared memory, rows padded to D + 1 floats so that the four threads of
-// a row and the eight rows of a warp read distinct banks. A thread holds
-// its query row in registers, computes the scores of 16 keys (key 4 j +
-// its lane), and the row's max and sum combine over its four threads by
-// shuffles; P goes through shared memory, and the thread accumulates D / 4
-// output columns (column 4 i + its lane) in registers.
-// Fused backward: the rows are the 64 keys of one K/V tile. The block walks
-// the Q tiles from the causal bound on; for each it writes P^T and dS^T (16
-// queries a thread) into shared memory, adds to dK and dV (D / 4 columns a
-// thread, in registers), and writes the Q tile's f32 dQ partial dS.K once
-// into dqp[kv_tile, bh, q, :]. A second kernel sums each row's live
-// partials in ascending KV tile.
+// The FFMA kernel (fused backward): a block of 256 threads owns 64 keys,
+// four threads a key. The block walks the Q tiles from the causal bound
+// on; for each it writes P^T and dS^T (16 queries a thread) into shared
+// memory, rows padded to D + 1 floats so that the four threads of a key
+// and the eight keys of a warp read distinct banks, adds to dK and dV (D /
+// 4 columns a thread, in registers), and writes the Q tile's f32 dQ
+// partial dS.K once into dqp[kv_tile, bh, q, :]. A second kernel sums
+// each row's live partials in ascending KV tile.
 //
-// Two-kernel backward (namespace split3: dq_kernel<D>, dkv_kernel<D>), on
-// the tensor cores in split-precision TF32. One TF32 pass would keep 10 of
-// f32's 23 mantissa bits and fail f32's limits (chip_smoke.py's tf32_plain
-// control). Split precision does not: each operand x is split once per tile
-// into big = tf32(x) (cvt.rna) and small = tf32(x - big), where x - big is
-// exact in f32, so big + small holds x to about 2^-22 of its magnitude. Each
-// product a.b is three tensor-core products, a_small.b_big + a_big.b_small +
-// a_big.b_big, summed in f32; the dropped a_small.b_small is of the same
-// order. The tensor cores truncate each mma's f32 sum (on the H100 an exact
-// sum 1.75 ulp above 1 comes out 1 ulp above: tools/f32_dq_limit_probe.py),
-// so no sum runs long in one accumulator. A score (S or dP, a sum
-// over D) takes one accumulator, at most 24 mma; dK and dV take a fresh
-// accumulator for each streamed tile (12 mma), added to the running
-// sum in f32 on the CUDA cores; dQ, whose limit is the tightest, one for
+// The forward and the two-kernel backward (namespace split3: fwd_kernel<D>,
+// dq_kernel<D>, dkv_kernel<D>), on the tensor cores in split-precision
+// TF32. One TF32 pass would keep 10 of f32's 23 mantissa bits and fail
+// f32's limits (chip_smoke.py's tf32_plain control). Split precision does
+// not: each operand x is split once per tile into big = tf32(x)
+// (cvt.rna) and small = tf32(x - big), where x - big is exact in f32, so
+// big + small holds x to about 2^-22 of its magnitude; a NaN stays NaN in
+// both parts, so a NaN input reaches the outputs as in the plain version.
+// Each product a.b is three tensor-core products, a_small.b_big +
+// a_big.b_small + a_big.b_big, summed in f32; the dropped a_small.b_small
+// is of the same order. The tensor cores truncate each mma's f32 sum (on
+// the H100 an exact sum 1.75 ulp above 1 comes out 1 ulp above:
+// tools/f32_dq_limit_probe.py), so no sum runs long in one accumulator.
+// A score (S or dP, a sum over D) takes one accumulator, at most 24 mma
+// (the forward's S, held to a tighter limit, one for each 8-wide k-step);
+// the forward's O takes a fresh accumulator for each 64-key tile (24
+// mma), rescaled and added to the running O in f32 on the CUDA cores; dK
+// and dV take a fresh accumulator for each streamed tile (12 mma), added
+// to the running sum in f32 on the CUDA cores; dQ, whose limit is the tightest, one for
 // each 8-wide k-step (3 mma). The dK/dV kernel runs all four products so:
 // S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q. The dQ kernel runs
 // dQ += dS K so, and keeps S and dP as FFMA sums over d in order, as the
@@ -58,39 +56,49 @@
 // cancellation in dP - delta to within the plain version's own rounding of
 // dP: at B8 H8 S16384 D32 a recipe with dP split falls outside it, and so
 // does the exact (f64) recipe (tools/f32_dq_limit_probe.py), while the
-// kernel, with dP and S as FFMA sums, holds it. Everything
+// kernel, with dP and S as FFMA sums, holds it. So dQ is also held
+// against the f64 recipe, which shares no f32 rounding with it, at atol
+// 7e-6 (chip_smoke.py's flash_attention_dq_f32_exact). Everything
 // else stays f32 on the CUDA cores: the scale after the sum, expf, the masks
-// (masked scores carry exactly zero mass), P (dP - delta).
+// (masked scores carry exactly zero mass), the online softmax, P (dP -
+// delta). The forward's limit (atol 1e-6 + rtol 1e-5 of the plain
+// version) holds with both its products split: at the JAX LM CLI's path
+// (d) shape, B8 H8 S16384 D32 causal, the recipe with S and P V split
+// needs atol 5.1e-7 for O, at B8 H8 S512 D64 7.4e-7, where one TF32 pass
+// needs 1.2e-3 to 1.8e-3 (tools/f32_fwd_limit_probe.py on the H100; the
+// recipe sums each product in f32 without the tensor cores' truncation).
 // Route: mma.sync.m16n8k8 tf32, fragments read from padded shared memory.
 // wgmma takes tf32 operands only K-major, and three of the products (dS K,
 // P^T dO, dS^T Q) read their B operand MN-major; mma.sync reads any
 // layout, and its accumulator layout is the A layout of the next product
 // once the k index is permuted (key 2t in A column t, key 2t + 1 in column
-// t + 4, with B's rows to match), so the dK/dV kernel takes P^T and dS^T
-// from accumulators to A fragments in registers; the dQ kernel's dS goes
-// through a warp-private tile in shared memory. A block of 8 warps owns
-// 128 resident rows, 16 a warp (dQ: the queries, with Q and dO; dK/dV:
-// the keys, with K and V, split into big and small in shared memory once);
-// the streamed tiles (the dQ kernel's K and V, 64 rows at D 32 and 32 at
-// D 64; the dK/dV kernel's Q, dO, lse and delta, 32 rows, so that at D 32
-// two of its blocks share an SM) come through a ring of two stages by
-// cp.async (16-byte copies, rows past S zero-filled), each split once it
-// has landed. Rows
-// are padded to D + 4 floats, so every fragment load hits distinct banks.
-// dQ, dK and dV are written once at the end, scaled: no partials, no
-// atomics.
+// t + 4, with B's rows to match), so the forward takes P and the dK/dV
+// kernel P^T and dS^T from accumulators to A fragments in registers; the
+// dQ kernel's dS goes through a warp-private tile in shared memory. A
+// block of 8 warps owns 128 resident rows, 16 a warp (forward: the
+// queries, Q split once into A fragments in registers; dQ: the queries,
+// with Q and dO; dK/dV: the keys, with K and V, split into big and small
+// in shared memory once); the streamed tiles (the forward's K and V, 64
+// rows; the dQ kernel's K and V, 64 rows at D 32 and 32 at D 64; the
+// dK/dV kernel's Q, dO, lse and delta, 32 rows, so that at D 32 two of its
+// blocks share an SM) come through a ring of two stages by cp.async
+// (16-byte copies, rows past S zero-filled), each split once it has
+// landed. Rows are padded to D + 4 floats, so every fragment load hits
+// distinct banks. O and lse, dQ, dK and dV are written once at the end: no
+// partials, no atomics.
 // No kernel here uses atomics: every launch gives the same bits.
 //
 // Bound: per (b, h) the forward does 4 S^2 D FLOPs, the fused backward 10
 // S^2 D, the dQ kernel 6 S^2 D and the dK/dV kernel 8 S^2 D (halved when
 // causal) against 4 S D, 8 S D, 5 S D and 6 S D f32 values moved, so from
-// a few dozen positions on the floor is operations. For the FFMA kernels
+// a few dozen positions on the floor is operations. For the FFMA kernel
 // that is the f32 peak of 67 TFLOP/s; each FMA takes one operand from
-// shared memory, so they run at a fraction of it. Split precision runs
+// shared memory, so it runs at a fraction of it. Split precision runs
 // three TF32 products for each f32 one at 495 TFLOP/s: 165 TFLOP/s of
-// f32-accurate products, the rate that bounds both two-kernel backward
-// functions. At B8 H8 S16384 D32 causal the dK/dV bound is 13.33 ms and the
-// dQ bound 9.99 ms (32.82 and 24.62 at the FFMA peak). The dQ kernel runs
+// f32-accurate products, the rate that bounds the forward and both
+// two-kernel backward functions. At B8 H8 S16384 D32 causal the forward's
+// bound is 6.66 ms, the dK/dV bound 13.33 ms and the dQ bound 9.99 ms
+// (16.41, 32.82 and 24.62 at the FFMA peak). The dQ kernel runs
 // two of its three products (S, dP) as FFMA, so the work as it runs it
 // takes at least 19.74 ms; it keeps them there for its limit, as above.
 // Their times stand beside their bounds in PERF.md.
@@ -102,8 +110,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 64;                 // a block's rows: queries (forward) or keys (backward)
-constexpr int kTile = 64;                 // a streamed tile: keys (forward) or queries (backward)
+constexpr int kRows = 64;                 // a block's keys
+constexpr int kTile = 64;                 // a streamed tile of queries
 constexpr int kLanes = kThreads / kRows;  // threads a row
 constexpr int kPer = kTile / kLanes;      // tile columns a thread
 constexpr int kPPad = kTile + 1;          // a padded row of a [64, 64] P or dS tile
@@ -125,105 +133,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
 }
 
 template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (3 * kRows * (D + 1) + kRows * kPPad);
-}
-
-template <int D>
 constexpr size_t bwd_smem_bytes() {
   return sizeof(float) * (4 * kRows * (D + 1) + 2 * kRows * kPPad + 2 * kTile);
-}
-
-// One block per (b*h, 64-row Q tile); blockIdx.y counts the Q tiles from
-// the last, so the longest causal rows start first.
-template <int D>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int S, float scale, int causal) {
-  constexpr int kPad = D + 1;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kRows * kPad;
-  float* v_s = k_s + kRows * kPad;
-  float* p_s = v_s + kRows * kPad;  // [64 queries][64 keys]
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int64_t base = static_cast<int64_t>(bh) * S * D;
-  const int r = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
-  const int row = q0 + r;
-  int n_kt = (S + kTile - 1) / kTile;
-  // causal: key tiles wholly past this Q tile's last row are fully masked
-  if (causal) n_kt = min(n_kt, (q0 + kRows + kTile - 1) / kTile);
-
-  load_tile<D>(q_s, q + base, q0, S);
-  __syncthreads();
-  float qr[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = q_s[r * kPad + d];
-  float acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
-  float m = dftt::kNegInf, l = 0.f;
-
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();  // every thread is done with the previous tile's K, V and P
-    load_tile<D>(k_s, k + base, k0, S);
-    load_tile<D>(v_s, v + base, k0, S);
-    __syncthreads();
-    float s[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[j] = 0.f;
-#pragma unroll  // whole: qr stays in registers
-    for (int d = 0; d < D; ++d) {
-      const float qd = qr[d];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[j] = fmaf(qd, k_s[(lane + kLanes * j) * kPad + d], s[j]);
-    }
-    float mx = dftt::kNegInf;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int key = k0 + lane + kLanes * j;
-      s[j] = key >= S || (causal && key > row) ? dftt::kNegInf : s[j] * scale;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float safe = m_new <= dftt::kNegInf ? 0.f : m_new;
-    const float corr = m <= dftt::kNegInf ? 0.f : expf(m - safe);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const float p = s[j] <= dftt::kNegInf ? 0.f : expf(s[j] - safe);
-      p_s[r * kPPad + lane + kLanes * j] = p;
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = l * corr + sum;
-    m = m_new;
-    __syncwarp();  // the row's P, written by its four threads of this warp
-#pragma unroll
-    for (int i = 0; i < D / kLanes; ++i) acc[i] *= corr;
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float p = p_s[r * kPPad + kk];
-#pragma unroll
-      for (int i = 0; i < D / kLanes; ++i)
-        acc[i] = fmaf(p, v_s[kk * kPad + lane + kLanes * i], acc[i]);
-    }
-  }
-
-  if (row < S) {
-    const float lf = fmaxf(l, 1e-30f);
-    float* dst = o + base + static_cast<int64_t>(row) * D;
-#pragma unroll
-    for (int i = 0; i < D / kLanes; ++i) dst[lane + kLanes * i] = acc[i] / lf;
-    if (lane == 0)
-      lse[static_cast<int64_t>(bh) * S + row] = (m <= dftt::kNegInf ? 0.f : m) + logf(lf);
-  }
 }
 
 // The KV tiles whose dQ partial the fused kernel writes for Q tile
@@ -363,18 +274,6 @@ __global__ void __launch_bounds__(256) dq_sum_kernel(const float* __restrict__ d
 }
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
-               int causal, float scale, cudaStream_t st) {
-  constexpr size_t bytes = fwd_smem_bytes<D>();
-  const int err = prepare(fwd_kernel<D>, bytes);
-  if (err) return err;
-  fwd_kernel<D><<<dim3(BH, (S + kRows - 1) / kRows), kThreads, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), S, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, void* dqp, void* dq, int BH, int S,
                int causal, float scale, cudaStream_t st) {
@@ -414,6 +313,19 @@ template <int D>
 constexpr int kDkvBlocks = D == 32 ? 2 : 1;
 template <int D>
 constexpr int kPitch = D + 4;
+// The forward's streamed tile of keys (with their values), and its blocks
+// an SM: at D 32 two (128 registers, 90 KB each, under 100 bytes of spill)
+// ran 1.4x faster than one on the H100 at B8 H8 S16384.
+constexpr int kFwdKeys = 64;
+template <int D>
+constexpr int kFwdBlocks = D == 32 ? 2 : 1;
+
+// The forward's shared memory: Q's [kM] rows, then two stages of four
+// [kFwdKeys] tiles (K big and small, V big and small).
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(uint32_t) * kPitch<D> * (kM + 2 * 4 * kFwdKeys);
+}
 
 // Shared memory of either kernel: four resident [kM] tiles and two stages
 // of four streamed [kN] tiles (big and small of two tensors), plus two
@@ -423,6 +335,7 @@ constexpr size_t smem_bytes() {
   return sizeof(uint32_t) * (kPitch<D> * (4 * kM + 2 * 4 * kN) + 2 * 2 * kN);
 }
 
+// x rounded to TF32 (to nearest, ties away from zero); a NaN stays a NaN.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -848,6 +761,177 @@ __global__ void __launch_bounds__(kThreads, kDkvBlocks<D>) dkv_kernel(
   }
 }
 
+// The forward: one block per (b*h, 128-row Q tile); blockIdx.y counts the
+// Q tiles from the last, so the longest causal rows start first. Warp w
+// owns query rows 16 w .. 16 w + 15: its Q, split once into big and small,
+// stays in registers as A fragments. The 64-key K and V tiles come through
+// the ring, each split once in shared memory after it lands, while the
+// next tile's copy is in flight. S = Q K^T takes a fresh accumulator for
+// each 8-wide k-step (3 mma), added to the score in f32: with one
+// accumulator of all D / 8 k-steps (24 mma at D 64) the tensor cores'
+// truncation left elements of O outside the forward's limit (atol 1.2e-6
+// needed over 12 draws of B8 H8 S512 D64 on the H100, 6.7e-7 so). In S a
+// lane holds rows g and g + 8 (g = lane / 4) and keys 2t and 2t + 1 (t =
+// lane % 4), so each row's max and sum combine over the lane's quad by
+// shuffles, and m and l stay in registers. P goes from the S accumulators
+// to split A fragments of P V (acc_to_a: key 2t in column t, 2t + 1 in
+// column t + 4, V's rows read in that order), never through shared
+// memory; each tile's P V takes fresh accumulators (24 mma each), rescaled
+// and added to O in f32.
+template <int D>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks<D>) fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int S, float scale, int causal) {
+  constexpr int kP = kPitch<D>, kN = kFwdKeys;
+  constexpr int kT = kN / 8;  // n-tiles of S; k-steps of P V
+  constexpr int kD = D / 8;   // k-steps of S; n-tiles of P V
+  extern __shared__ __align__(16) uint32_t split_smem[];
+  // Q's rows (f32), then each stage: K (f32, then big), K small, V (f32,
+  // then big), V small
+  uint32_t* const q_s = split_smem;
+  auto tile = [&](int st, int i) { return split_smem + (kM + (st * 4 + i) * kN) * kP; };
+
+  const int bh = blockIdx.x;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kM;
+  const int64_t base = static_cast<int64_t>(bh) * S * D;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int wr = r0 + 16 * warp;  // the warp's first row
+  int n_kt = (S + kN - 1) / kN;
+  // causal: key tiles wholly past this Q tile's last row are fully masked
+  if (causal) n_kt = min(n_kt, (r0 + kM + kN - 1) / kN);
+
+  stage<D, kM>(q_s, q + base, r0, S);
+  stage<D, kN>(tile(0, 0), k + base, 0, S);
+  stage<D, kN>(tile(0, 2), v + base, 0, S);
+  cp_commit();
+  const int row[2] = {wr + g, wr + g + 8};
+  uint32_t qb[kD][4], qs[kD][4];
+  float acc[kD][4], m[2] = {dftt::kNegInf, dftt::kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kD; ++n) zero(acc[n]);
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1, k0 = it * kN;
+    if (it + 1 < n_kt) {
+      stage<D, kN>(tile(st ^ 1, 0), k + base, k0 + kN, S);
+      stage<D, kN>(tile(st ^ 1, 2), v + base, k0 + kN, S);
+    }
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kD; ++kk) {
+        uint32_t a[4];
+        load_a<kP>(a, q_s, wr - r0 + g, 8 * kk + t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(__uint_as_float(a[e]), qb[kk][e], qs[kk][e]);
+      }
+    }
+    split_tile<D, kN>(tile(st, 0), tile(st, 0), tile(st, 1));
+    split_tile<D, kN>(tile(st, 2), tile(st, 2), tile(st, 3));
+    __syncthreads();
+    // causal: a tile wholly past the warp's last row adds nothing to it
+    if (!causal || k0 <= wr + 15) {
+      const uint32_t *kb = tile(st, 0), *ks = tile(st, 1), *vb = tile(st, 2), *vs = tile(st, 3);
+      float s[kT][4];
+#pragma unroll
+      for (int j = 0; j < kT; ++j) zero(s[j]);
+#pragma unroll
+      for (int j = 0; j < kT; ++j)
+#pragma unroll
+        for (int kk = 0; kk < kD; ++kk) {
+          const int off = (8 * j + g) * kP + 8 * kk + t;
+          mma3_add(s[j], qb[kk], qs[kk], frag_b(kb, off, 4), frag_b(ks, off, 4));
+        }
+      // the scale after the sum; masked scores at -1e30, with no mass
+      const bool edge = k0 + kN > S || (causal && k0 + kN - 1 > wr);
+      float mx[2] = {dftt::kNegInf, dftt::kNegInf};
+#pragma unroll
+      for (int j = 0; j < kT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, key = k0 + 8 * j + 2 * t + (e & 1);
+          float x = __fmul_rn(s[j][e], scale);
+          if (edge && (key >= S || (causal && key > row[i]))) x = dftt::kNegInf;
+          s[j][e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      float safe[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        safe[i] = m_new <= dftt::kNegInf ? 0.f : m_new;
+        corr[i] = m[i] <= dftt::kNegInf ? 0.f : expf(__fsub_rn(m[i], safe[i]));
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p = s[j][e] <= dftt::kNegInf ? 0.f : expf(__fsub_rn(s[j][e], safe[i]));
+          s[j][e] = p;
+          sum[i] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l[i] = l[i] * corr[i] + sum[i];
+      }
+      // O = O corr + P V, this tile's P V in fresh accumulators
+      float pv[kD][4];
+#pragma unroll
+      for (int n = 0; n < kD; ++n) zero(pv[n]);
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        uint32_t pab[4], pas[4];
+        acc_to_a(s[j], pab, pas);
+#pragma unroll
+        for (int n = 0; n < kD; ++n) {
+          const int off = (8 * j + 2 * t) * kP + 8 * n + g;
+          mma3(pv[n], pab, pas, frag_b(vb, off, kP), frag_b(vs, off, kP));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = acc[n][e] * corr[e >> 1] + pv[n][e];
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // O = acc / max(l, 1e-30), lse = safe m + log of it, written once; a
+  // NaN l stays NaN (fmaxf would drop it), as in the plain version
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= S) continue;
+    const float lf = l[i] < 1e-30f ? 1e-30f : l[i];
+    float* dst = o + base + static_cast<int64_t>(row[i]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kD; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(acc[n][2 * i] / lf, acc[n][2 * i + 1] / lf);
+    if (t == 0)
+      lse[static_cast<int64_t>(bh) * S + row[i]] = (m[i] <= dftt::kNegInf ? 0.f : m[i]) + logf(lf);
+  }
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
+               int causal, float scale, cudaStream_t st) {
+  constexpr size_t bytes = fwd_smem_bytes<D>();
+  const int err = prepare(fwd_kernel<D>, bytes);
+  if (err) return err;
+  fwd_kernel<D><<<dim3(BH, (S + kM - 1) / kM), kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int BH, int S, int causal, float scale,
@@ -883,7 +967,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 // Every tensor is contiguous f32: q, k, v, o, dout and the gradients
 // [BH, S, D], lse and delta [BH, S], dqp [ceil(S / 64), BH, S, D] (never
-// zeroed). D = 64 or 32; any other D returns cudaErrorInvalidValue. Each
+// zeroed); the split-precision kernels' inputs start on a 16-byte
+// boundary. D = 64 or 32; any other D returns cudaErrorInvalidValue. Each
 // launches on `stream` and returns a CUDA error code (0 = launched).
 // Signatures as the bf16 entry points' (flash_attention.cu,
 // flash_attention_bwd.cu).
@@ -892,8 +977,8 @@ extern "C" int dftt_flash_attention_fwd_f32(const void* q, const void* k, const 
                                             void* lse, int BH, int S, int D, int causal,
                                             float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_fwd<64>(q, k, v, o, lse, BH, S, causal, scale, st);
-  if (D == 32) return launch_fwd<32>(q, k, v, o, lse, BH, S, causal, scale, st);
+  if (D == 64) return split3::launch_fwd<64>(q, k, v, o, lse, BH, S, causal, scale, st);
+  if (D == 32) return split3::launch_fwd<32>(q, k, v, o, lse, BH, S, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

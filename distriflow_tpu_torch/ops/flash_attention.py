@@ -22,13 +22,15 @@ from two sources, and four f32 kernels from a third:
   ``_dkvq_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` on f32 inputs (the
   JAX LM CLI's ``--dtype float32``, and with ``--seq 16384`` the
   two-kernel layout that JAX takes for f32 past 2048 positions): the
-  forward and the fused backward with write-once f32 dQ partials in f32 on
-  the CUDA cores, and the dQ and dK/dV kernels on the tensor cores in
-  split-precision TF32 (each f32 operand split into two TF32 parts and
-  each product taken as three TF32 products summed in f32, which keeps
-  f32's accuracy where one TF32 pass does not). Their arithmetic has a
-  plain mirror, :func:`flash_attention_split_tf32_reference`, for the
-  tests and ``chip_smoke.py``.
+  fused backward with write-once f32 dQ partials in f32 on the CUDA
+  cores, and the forward and the dQ and dK/dV kernels on the tensor cores
+  in split-precision TF32 (each f32 operand split into two
+  TF32 parts and each product taken as three TF32 products summed in
+  f32, which keeps f32's accuracy where one TF32 pass does not). Their
+  arithmetic has plain mirrors,
+  :func:`flash_attention_forward_split_tf32_reference` and
+  :func:`flash_attention_split_tf32_reference`, for the tests and
+  ``chip_smoke.py``.
 
 Every kernel is built for head dims 64 and 32 (:data:`SUPPORTED_HEAD_DIMS`,
 :data:`BWD_HEAD_DIMS`); a wrapper counts its launches in ``launches``, by
@@ -179,13 +181,16 @@ def bwd_layout(s: int, d: int, dtype: torch.dtype, bwd_block_k: Optional[int] = 
 
 def _record_forward_cost(q: torch.Tensor, causal: bool) -> None:
     """JAX's analytic cost of one forward (``_flash_forward``): QK^T + PV,
-    each 2*B*H*S*S*D, halved by the causal tile skip."""
+    each 2*B*H*S*S*D, halved by the causal tile skip. In f32 the kernel
+    runs both products as split-precision TF32 (``tf32x3``)."""
     b, h, s, d = q.shape
     div = 2 if causal else 1
+    flops = 4 * b * h * s * s * d // div
+    f32 = q.dtype == torch.float32
     flop_count.record_kernel_cost(
-        flops=4 * b * h * s * s * d // div, bytes_accessed=4 * b * h * s * d * q.element_size(),
+        flops=flops, bytes_accessed=4 * b * h * s * d * q.element_size(),
         transcendentals=b * h * s * s // div, category="attention_fwd",
-        f32=q.dtype == torch.float32)
+        f32=f32, tf32x3=flops if f32 else 0)
 
 
 def _record_backward_cost(q: torch.Tensor, causal: bool, bwd_block_k: Optional[int]) -> None:
@@ -346,10 +351,14 @@ def flash_attention_dkv_reference(
 def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
     """``x`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to 10
     mantissa bits, to nearest with ties away from zero, on the f32 bits
-    (the 13 low bits cleared). The value stays an f32 tensor."""
-    bits = x.float().contiguous().view(torch.int32)
+    (the 13 low bits cleared). A NaN or an infinity (every exponent bit
+    set) is left as it is: the rounding's carry would turn a NaN into a
+    zero or an infinity. The value stays an f32 tensor."""
+    x = x.float().contiguous()
+    bits = x.view(torch.int32)
     mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    return (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+    rounded = (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+    return torch.where((bits & 0x7F800000) == 0x7F800000, x, rounded)
 
 
 def _split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
@@ -357,8 +366,11 @@ def _split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> tor
     into ``big = tf32(x)`` and ``small = tf32(x - big)`` (``x - big`` is
     exact in f32) and the three TF32 products summed in f32, the small
     cross terms first. ``passes=1``: one TF32 product, ``tf32(a) @
-    tf32(b)``. TF32 values multiply exactly in f32, so the f32 matmul of
-    the parts is the tensor cores' product of them."""
+    tf32(b)``; ``passes=0``: the product as it is, in the operands' dtype.
+    TF32 values multiply exactly in f32, so the f32 matmul of the parts is
+    the tensor cores' product of them."""
+    if passes == 0:
+        return a @ b
     ab, bb = _tf32_rna(a), _tf32_rna(b)
     if passes == 1:
         return ab @ bb
@@ -405,6 +417,38 @@ def flash_attention_split_tf32_reference(
     return _per_head(one, q, k, v, do, lse, delta)
 
 
+def flash_attention_forward_split_tf32_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    passes: Union[int, Tuple[int, int]] = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain mirror of the f32 forward kernel's arithmetic (``fwd_kernel``
+    in ``csrc/flash_attention_f32.cu``): ``(O [B,H,S,D], lse [B,H,S])``
+    from f32 inputs, in their dtype. Both products, S = Q K^T and P V, are
+    taken by :func:`_split_tf32_matmul` (``passes`` 3, or 1 for one TF32
+    pass; a pair gives S's and P V's apart, 0 the product unsplit, so
+    ``passes=0`` on f64 inputs is the recipe in f64); everything else is
+    as in :func:`flash_attention_reference`: the scale after the sum,
+    masked scores at -1e30 with exactly zero mass, O = P V / max(l,
+    1e-30), lse = m + log(l). The kernel's online softmax (P against the
+    running max of each 64-key tile, rescaled) and its sum order are not
+    mirrored. For the tests, ``chip_smoke.py`` and
+    ``tools/f32_fwd_limit_probe.py`` only; one (b, h) slice at a time."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s_passes, pv_passes = (passes, passes) if isinstance(passes, int) else passes
+
+    def one(q, k, v):
+        s = _split_tf32_matmul(q, k.transpose(-1, -2), s_passes) * scale
+        if causal:
+            s = s.masked_fill(~_causal_keep(q.shape[2], q.device), NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        safe_m = torch.where(m <= NEG_INF, torch.zeros_like(m), m)
+        p = torch.where(s <= NEG_INF, torch.zeros_like(s), torch.exp(s - safe_m))
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        return _split_tf32_matmul(p, v, pv_passes) / l, (safe_m + torch.log(l)).squeeze(-1)
+
+    return _per_head(one, q, k, v)
+
+
 def _check_kernel_inputs(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous [B, H, S, D] tensor of
     ref's dtype (bf16 or f32) shaped like ``ref`` on ref's CUDA device, at
@@ -440,6 +484,9 @@ def _forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if q.dtype == torch.float32:
+        # the kernel copies rows in 16-byte pieces: an input that starts
+        # off that boundary (a view at an odd offset) goes as an aligned copy
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
         fn = build.load("flash_attention_f32", _F32_SIGNATURES).dftt_flash_attention_fwd_f32
     else:
         fn = build.load("flash_attention", _SIGNATURES).dftt_flash_attention_fwd_bf16

@@ -93,6 +93,28 @@ def test_flash_forward_tally(causal):
     _assert_same(_port_tally(lambda: fa.flash_attention(*px, causal=causal)), want)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_flash_forward_tally_files_its_products_as_split_tf32(causal):
+    """In f32 the forward's tally is JAX's, field for field, and its
+    hardware FLOPs (both products) go under ``tf32x3_hw_flops``: the kernel
+    runs S = Q K^T and P V as split-precision TF32, so none is left under
+    ``f32_hw_flops``; under remat the recompute's go there too."""
+    q, k, v = _arrays(np.random.default_rng(1), *[(2, 2, 40, 32)] * 3)
+    want = _jax_tally(lambda q, k, v: jfa.flash_attention(q, k, v, causal),
+                      *(jnp.asarray(a) for a in (q, k, v)))
+    px = [torch.from_numpy(a) for a in (q, k, v)]
+    got = _port_tally(lambda: fa.flash_attention(*px, causal=causal))
+    _assert_same(got, want)
+    fwd = got["by_category"]["attention_fwd"]
+    assert fwd[flop_count.TF32X3_FIELD] == fwd["hw_flops"] > 0
+    assert fwd[flop_count.F32_FIELD] == 0
+    with flop_count.tally_kernel_cost() as tally:
+        with flop_count.recompute():
+            fa.flash_attention(*px, causal=causal)
+    fwd = tally["by_category"]["attention_fwd"]
+    assert fwd["flops"] == 0 and fwd[flop_count.TF32X3_FIELD] == fwd["hw_flops"] > 0
+
+
 @pytest.mark.parametrize("s,bwd_block_k,layout", [(40, None, "fused"), (128, 8, "split")])
 def test_flash_backward_tally(s, bwd_block_k, layout):
     """The fused layout (one KV block) and the two-kernel one (JAX's KV

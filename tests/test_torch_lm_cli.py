@@ -183,8 +183,11 @@ def test_f32_limit_against_the_error_bound():
 
 def test_f32_attention_is_bounded_at_the_f32_peak():
     """The f32 kernels file their hardware FLOPs as f32 work, and the
-    roofline bounds that share at the f32 peak (67 TFLOP/s), not the bf16
-    tensor cores'; the categories and JAX's four fields stay as they are."""
+    roofline bounds it at the rate each kernel runs it, not the bf16 tensor
+    cores': the fused backward's at the f32 peak (67 TFLOP/s), the
+    forward's, both products in split-precision TF32, under
+    ``tf32x3_hw_flops`` at a third of the TF32 peak; the categories and
+    JAX's four fields stay as they are."""
     from distriflow_tpu_torch.ops import flop_count, roofline
 
     _, (q, k, v, _), _ = _inputs((1, 2, 64, 32), "float32", seed=4)
@@ -193,13 +196,18 @@ def test_f32_attention_is_bounded_at_the_f32_peak():
         port_fa.flash_attention(q, k, v, causal=True).sum().backward()
     cats = tally["by_category"]
     assert set(cats) == {"attention_fwd", "attention_bwd"}
-    for cat in cats.values():
-        assert cat[flop_count.F32_FIELD] == cat["hw_flops"] > 0
-    fwd = cats["attention_fwd"]
-    leg = roofline.phase_time_s(fwd["hw_flops"], 0.0, "attention_fwd",
-                                f32_hw_flops=fwd[flop_count.F32_FIELD])["compute_s"]
-    eff = roofline.PHASE_EFFICIENCY["attention_fwd"]
-    assert leg == pytest.approx(fwd["hw_flops"] / (roofline.H100_PEAK_F32_FLOPS * eff))
+    bwd, fwd = cats["attention_bwd"], cats["attention_fwd"]
+    assert bwd[flop_count.F32_FIELD] == bwd["hw_flops"] > 0
+    assert flop_count.TF32X3_FIELD not in bwd
+    assert fwd[flop_count.TF32X3_FIELD] == fwd["hw_flops"] > 0
+    assert fwd[flop_count.F32_FIELD] == 0
+    for name, cat, peak in (("attention_bwd", bwd, roofline.H100_PEAK_F32_FLOPS),
+                            ("attention_fwd", fwd, roofline.H100_SPLIT_TF32_FLOPS)):
+        leg = roofline.phase_time_s(cat["hw_flops"], 0.0, name,
+                                    f32_hw_flops=cat[flop_count.F32_FIELD],
+                                    tf32x3_hw_flops=cat.get(flop_count.TF32X3_FIELD, 0.0))
+        eff = roofline.PHASE_EFFICIENCY[name]
+        assert leg["compute_s"] == pytest.approx(cat["hw_flops"] / (peak * eff))
     with flop_count.tally_kernel_cost() as bf16:
         port_fa.flash_attention(q.detach().bfloat16(), k.bfloat16(), v.bfloat16())
     assert flop_count.F32_FIELD not in bf16["by_category"]["attention_fwd"]

@@ -12,7 +12,9 @@
 - the f32 two-kernel backward files five of its seven products as
   split-precision TF32, bounded at a third of the TF32 peak, and the dQ
   kernel's S and dP at the f32 peak; the fused f32 backward stays at the
-  f32 peak.
+  f32 peak;
+- the f32 forward files both its products as split-precision TF32,
+  bounded at a third of the TF32 peak.
 """
 
 import importlib
@@ -153,3 +155,22 @@ def test_f32_backward_bounded_at_the_rate_its_kernels_use(layout):
     assert leg["compute_s"] == pytest.approx(port_rl.phase_time_s(
         bwd["hw_flops"], 0.0, "attention_bwd", f32_hw_flops=2 * unit,
         tf32x3_hw_flops=5 * unit)["compute_s"])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_forward_bounded_at_the_split_tf32_rate(causal):
+    from distriflow_tpu_torch.ops import flash_attention as fa
+    from distriflow_tpu_torch.ops import flop_count
+
+    rng = np.random.RandomState(1)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 96, 32).astype(np.float32)) for _ in range(3))
+    with flop_count.tally_kernel_cost() as tally:
+        fa.flash_attention(q, k, v, causal=causal)
+    fwd = tally["by_category"]["attention_fwd"]
+    assert fwd[flop_count.TF32X3_FIELD] == fwd["hw_flops"] > 0
+    eff = port_rl.PHASE_EFFICIENCY["attention_fwd"]
+    leg = port_rl.roofline_report({"attention_fwd": fwd}, 1.0)["phases"]["attention_fwd"]
+    assert leg["compute_s"] == pytest.approx(fwd["hw_flops"] / (495e12 / 3 * eff))
+    with flop_count.tally_kernel_cost() as bf16:
+        fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=causal)
+    assert flop_count.TF32X3_FIELD not in bf16["by_category"]["attention_fwd"]
