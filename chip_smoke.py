@@ -4,8 +4,10 @@
 
 ``--parent DIR`` (an unpacked older checkout, e.g. ``git archive`` of the
 parent commit) also times that checkout's depthwise and dense CE kernels
-and its f32 attention kernels on the same inputs, before and after this
-checkout's (rows 11-12, 9d, 10d, and 1, 6, 7 and 8 in f32, ``was_ms``).
+and its f32 and bf16 attention kernels on the same inputs, before and
+after this checkout's (rows 11-12, 9d, 10d, 1, 6, 7 and 8 in f32, 6, 7
+and 8 at D 32 and 64, kernel 1 at path (b)'s shape, ``was_ms``), and path
+(b)'s step (``path_b_step:``, this checkout's between the two).
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all six
@@ -454,7 +456,15 @@ checkout's (rows 11-12, 9d, 10d, and 1, 6, 7 and 8 in f32, ``was_ms``).
     time beside its bound, its plain version (f32 with TF32 off) and a
     library call. A NaN in q, k or v reaches the same outputs of the f32
     forward, dQ and dK/dV kernels as of their plain versions
-    (``nan_reaches``).
+    (``nan_reaches``). The ``nan_checks:`` line holds the same of the bf16
+    kernels: the forward and the two-kernel backward at D 32 and 64, the
+    fused CE forward on a NaN logit (sparse and dense, bf16 and f32, V 256
+    and 32000, the label's column and another) and decode on bf16, f32
+    and int8 caches (a NaN in q or in one live K position, paged and
+    slab); each row it covers carries its result (``nan_reaches``). Row
+    ``flash_attention_fwd_d32`` also holds and times kernel 1 at path
+    (b)'s shape (``path_b``: B8 H8 S16384 D32, head by head against the
+    plain version, SDPA beside it).
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -780,6 +790,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core peak
+# exponentials at the special-function units' rate: 16 results a clock an
+# SM (CUDA's throughput table for compute capability 9.0) on 132 SMs at
+# 1.83 GHz, the clock behind BF16_FLOPS (989e12 = 132 x 4096 x 1.83e9)
+SFU_EXP_PER_S = 132 * 16 * 1.83e9
 INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 
 
@@ -1204,11 +1218,13 @@ def _over(name, got, want, atol, rtol):
     return float(err.max())
 
 
-def _bound(nbytes, flops, peak=BF16_FLOPS):
-    """(least ms, what bounds it): bytes over the HBM rate against the
-    operations over the card's peak for their type."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+def _bound(nbytes, flops, peak=BF16_FLOPS, exps=0):
+    """(least ms, what bounds it): the largest of the bytes over the HBM
+    rate, the operations over the card's peak for their type and the
+    exponentials over :data:`SFU_EXP_PER_S` (an attention kernel's: one a
+    live pair)."""
+    return max(((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (flops / peak * 1e3, "operations"),
+                (exps / SFU_EXP_PER_S * 1e3, "exponentials")), key=lambda t: t[0])
 
 
 def _flush_buffer():
@@ -1341,7 +1357,7 @@ def _kernel_rows(launches):
         assert torch.equal(again[0], o) and torch.equal(again[1], lse), \
             f"flash_attention_fwd {tag}: a second launch gave other bits"
     pairs = s * (s + 1) // 2
-    tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d)
+    tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d, exps=b * h * pairs)
     rows.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_attention.cu",
@@ -1373,7 +1389,7 @@ def _kernel_rows(launches):
                 fd.flash_decode_paged_reference(q1, kp, vp, table, lens), *TOL["flash_decode_paged"])
     live = sum(lens_l)
     tb, by = _bound(2 * live * h * d * 2 + 2 * bsz * h * d * 2 + table.numel() * 4 + bsz * 4,
-                   4 * live * h * d)
+                   4 * live * h * d, exps=live * h)
     rows.append({
         "name": "flash_decode_paged", "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
@@ -1399,7 +1415,7 @@ def _kernel_rows(launches):
     # timed call
     kh = ks.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
     vh = vs.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
-    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d)
+    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d, exps=n * h)
     rows.append({
         "name": "flash_decode", "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
@@ -1506,7 +1522,7 @@ def _training_kernel_rows(launches, steps):
     o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
     ro, rl = fa.flash_attention_reference(q, k, v, True)
     pairs = s * (s + 1) // 2
-    tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d)
+    tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d, exps=b * h * pairs)
     fwd = {
         "shape": f"B={b} H={h} S={s} D={d} causal",
         "launches": launches["flash_attention_fwd"],
@@ -1532,7 +1548,8 @@ def _training_kernel_rows(launches, steps):
     del got, want
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    tb, by = _bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * d)
+    tb, by = _bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * d,
+                    exps=b * h * pairs)
     rows.append(row(
         "flash_attention_bwd", "distriflow_tpu_torch/csrc/flash_attention_bwd.cu",
         "distriflow_tpu/ops/flash_attention.py:272", err, f"B={b} H={h} S={s} D={d} causal",
@@ -1679,7 +1696,8 @@ def _fused_bwd_checks(pairs, flush):
     q, k, v, do = args[:4]
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    tb, by = _bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4, 5 * 2 * b * h * s * (s + 1) // 2 * d)
+    tb, by = _bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4, 5 * 2 * b * h * s * (s + 1) // 2 * d,
+                    exps=b * h * s * (s + 1) // 2)
     longest = {"shape": f"B={b} H={h} S={s} D={d} causal", "max_abs_err": err,
                "ms": _timed(lambda: fa.flash_attention_backward(*args), 10, flush),
                "bound_ms": tb, "bound_by": by,
@@ -1786,7 +1804,7 @@ def _int8_bound(live, b, h, d, table_entries=0):
     """Bound of an int8 decode launch: every live position's K/V int8 and
     its two f32 scales, q and the output in bf16, the table entries."""
     return _bound(live * h * (2 * d + 2 * 4) + 2 * b * h * d * 2 + table_entries * 4,
-                  4 * live * h * d, INT8_OPS)
+                  4 * live * h * d, INT8_OPS, exps=live * h)
 
 
 def _long_kernel_rows(launches):
@@ -1832,7 +1850,8 @@ def _long_kernel_rows(launches):
             "bf16_ms": _timed(lambda: fd.flash_decode_paged(qc, kb, vb, ctab, clens), 100, flush),
             "int8_ms": _timed(lambda: fd.flash_decode_paged_int8(qc, ck8, cv8, cks, cvs, ctab, clens),
                               100, flush),
-            "bf16_bound_ms": _bound(2 * 8 * ctx * h * d * 2, 4 * 8 * ctx * h * d)[0],
+            "bf16_bound_ms": _bound(2 * 8 * ctx * h * d * 2, 4 * 8 * ctx * h * d,
+                                    exps=8 * ctx * h)[0],
             "int8_bound_ms": _int8_bound(8 * ctx, 8, h, d)[0]}
         del ck8, cv8, cks, cvs, kb, vb
     rows.append({
@@ -1911,7 +1930,7 @@ def _long_kernel_rows(launches):
     ro, rl = torch.cat([r[0] for r in ref], 1), torch.cat([r[1] for r in ref], 1)
     del ref
     pairs = s * (s + 1) // 2
-    tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d)
+    tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d, exps=h * pairs)
     long_context = {
         "shape": f"B=1 H={h} S={s} D={d} causal",
         "max_abs_err": _over("flash_attention_fwd O long", o, ro, *TOL["flash_attention_fwd"]),
@@ -2778,6 +2797,10 @@ def _lm_cli_phase(counted, device="cuda"):
     report["long"] = _cli_train_report(long_cfg, trainer, losses, ms, LM_CLI_LONG_S)
     if device == "cuda":
         report["long"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # one more step under the profiler, outside the window: device time
+        # by kernel and the idle share
+        report["long"]["step_profile"] = _profiled(
+            lambda: trainer.step(long_batches[LM_CLI_LONG_STEPS]))
     del trainer
     # the plain step's [S, S] f32 scores take B 1: the batch's first row
     x, y = long_batches[-1]
@@ -2921,7 +2944,8 @@ def _lm_cli_attention_rows(launches):
     ragged = _ragged_bwd(name, fa.flash_attention_backward, fa.flash_attention_backward_reference,
                          g, 1, h, d)
     pairs = s * (s + 1) // 2
-    tb, by = _bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * d)
+    tb, by = _bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * d,
+                    exps=b * h * pairs)
     rows.append(_row(name, src_bwd, "distriflow_tpu/ops/flash_attention.py:272", launches, err,
                      f"B={b} H={h} S={s} D={d} causal bf16",
                      ms=_timed(lambda: fa.flash_attention_backward(*args), 20, flush),
@@ -2974,7 +2998,8 @@ def _lm_cli_attention_rows(launches):
              fa.flash_attention_dq, fa.flash_attention_dq_reference),
             ("flash_attention_dkv_d32", "distriflow_tpu/ops/flash_attention.py:212", 4, 2,
              fa.flash_attention_dkv, fa.flash_attention_dkv_reference)):
-        tb, by = _bound(io + outs * b * h * s * d * 2, products * 2 * b * h * pairs * d)
+        tb, by = _bound(io + outs * b * h * s * d * 2, products * 2 * b * h * pairs * d,
+                        exps=b * h * pairs)
         rows.append(_row(name, src_bwd, line, launches, errs[name], f"B={b} H={h} S={s} D={d} causal bf16",
                          ms=_timed(lambda fn=fn: fn(*args), 10, flush),
                          plain_ms=_timed(lambda plain=plain: plain(*args), 1, flush),
@@ -3008,9 +3033,9 @@ def _lm_cli_attention_rows(launches):
         pairs = s * (s + 1) // 2
         # both products in split-precision TF32: 3 TF32 products each
         nbytes, flops = 4 * b * h * s * dd * 4 + b * h * s * 4, 4 * b * h * pairs * dd
-        tb, by = _bound(nbytes, 3 * flops, TF32_FLOPS)
+        tb, by = _bound(nbytes, 3 * flops, TF32_FLOPS, exps=b * h * pairs)
         by_d[dd] = {"shape": f"B={b} H={h} S={s} D={dd} causal f32", "max_abs_err": err,
-                    "bound_ffma_ms": _bound(nbytes, flops, F32_FLOPS)[0],
+                    "bound_ffma_ms": _bound(nbytes, flops, F32_FLOPS, exps=b * h * pairs)[0],
                     "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True),
                                  20, flush),
                     "plain_ms": _timed(lambda: fa.flash_attention_reference(q, k, v, True), 3, flush),
@@ -3072,7 +3097,7 @@ def _lm_cli_attention_rows(launches):
         del got, want, no_delta
         pairs = s * (s + 1) // 2
         tb, by = _bound(7 * b * h * s * dd * 4 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * dd,
-                        F32_FLOPS)
+                        F32_FLOPS, exps=b * h * pairs)
         by_d[dd] = {"shape": f"B={b} H={h} S={s} D={dd} causal f32", "max_abs_err": err,
                     "ms": _timed(lambda: fa.flash_attention_backward(*args), 20, flush),
                     "plain_ms": _timed(lambda: fa.flash_attention_backward_reference(*args), 3,
@@ -3246,7 +3271,7 @@ def _f32_decode_row(name, launches, line, cases, flush, library):
             assert rejected["no_rescale"] > 0.5 and rejected["drop_max_split"] > 0.5, \
                 f"{name} {label}: the limit passes a wrong combine: {rejected}"
         tb, by = _bound(2 * live * h * d * 4 + 2 * b * h * d * 4 + entries * 4 + b * 4,
-                        4 * live * h * d, F32_FLOPS)
+                        4 * live * h * d, F32_FLOPS, exps=live * h)
         shape = (f"B={b} H={h} D={d} f32 " + (f"S={s_max} valid={lens_l}" if ps is None
                                               else f"page={ps} contexts={lens_l}"))
         lib = library(lens_l[0], s_max, *qkv) if ps is None else None
@@ -3301,6 +3326,106 @@ def _f32_attention_times():
 
 #: the generator seed of kernel 1's f32 inputs at path (d)'s shape
 F32_FWD_LONG_SEED = SEED + 46
+
+
+def _bf16_attention_times():
+    """The bf16 attention kernels on this process's package, what
+    ``--parent`` times on an older checkout before and after this one's
+    rows (``[ms, ...]`` by shape): kernels 7 and 8 at path (b)'s shape
+    (``"path"``, B8 H8 S16384 D32: [dQ, dK/dV]) and at rows 7-8's D 64
+    shape (``"d64"``, B1 H8 S16384), kernel 6 at its D 32 row's shape
+    (``"fused_d32"``, B8 H8 S512) and at row 6's (``"fused_d64"``, B8 H8
+    S1024 D64), kernel 1 at path (b)'s shape (``"fwd_path_b"``)."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 54)
+    flush = _flush_buffer()
+    h, d = LM_CLI["n_heads"], LM_CLI["d_model"] // LM_CLI["n_heads"]
+    out = {}
+    for label, b, dd in (("path", LM_CLI_B, d), ("d64", LONG_TRAIN_B, 64)):
+        args = _bwd_inputs(g, b, h, LM_CLI_LONG_S, True, dd)
+        out[label] = [_timed(lambda: fa.flash_attention_dq(*args), 10, flush),
+                      _timed(lambda: fa.flash_attention_dkv(*args), 10, flush)]
+        if label == "path":
+            out["fwd_path_b"] = [_timed(lambda: fa.flash_attention(*args[:3], causal=True,
+                                                                   return_lse=True), 10, flush)]
+        del args
+    for label, s, dd in (("fused_d32", LM_CLI["max_seq"], d), ("fused_d64", TRAIN_S, 64)):
+        args = _bwd_inputs(g, LM_CLI_B, h, s, True, dd)
+        out[label] = [_timed(lambda: fa.flash_attention_backward(*args), 20, flush)]
+        del args
+    return out
+
+
+def _path_b_steps():
+    """Path (b)'s step on this process's package: ``--seq 16384 --remat``
+    at B 8 from the CLI's seeded tree, ``LM_CLI_LONG_STEPS`` steps on the
+    corpus windows :func:`_lm_cli_phase` trains on, then one more under
+    the profiler; ``{"step_ms_p50": ms, "profile": ...}``, what
+    ``--parent`` runs on an older checkout before and after this one's."""
+    cfg = _lm_cli_config()
+    tree = _flagship_tree(cfg, np.random.default_rng(SEED + 40))
+    corpus = _markov_corpus(CORPUS_TOKENS, SEED)
+    long_cfg = _lm_cli_config(max_seq=LM_CLI_LONG_S, remat=True)
+    batches = _corpus_windows(corpus, LM_CLI_B, LM_CLI_LONG_S, LM_CLI_LONG_STEPS + 1, SEED)
+    trainer, _, ms = _train(long_cfg, tree, batches[:-1], "cuda", LM_CLI_LR)
+    profile = _profiled(lambda: trainer.step(batches[-1]))
+    del trainer
+    return {"step_ms_p50": float(np.median(ms)), "profile": profile}
+
+
+def _with_bf16_was(rows, was):
+    """Rows 1 (D 32, its ``path_b`` entry), 6 (D 32 and D 64), 7 and 8 (D
+    32 and D 64) with ``was_ms``: the :func:`_bf16_attention_times` runs
+    of an older checkout in ``was``."""
+    at = {"flash_attention_dq_d32": ("path", 0), "flash_attention_dkv_d32": ("path", 1),
+          "flash_attention_dq": ("d64", 0), "flash_attention_dkv": ("d64", 1),
+          "flash_attention_bwd_d32": ("fused_d32", 0), "flash_attention_bwd": ("fused_d64", 0),
+          "flash_attention_fwd_d32": ("fwd_path_b", 0)}
+    for row in rows:
+        if row["name"] in at:
+            key, i = at[row["name"]]
+            dst = row["path_b"] if key == "fwd_path_b" else row
+            dst["was_ms"] = [run[key][i] for run in was] or "not measured"
+    return rows
+
+
+def _fwd_d32_path_b(flush):
+    """Kernel 1 at D 32 at path (b)'s shape (B8 H8 S16384 D32 causal bf16,
+    8 launches a step): held against its plain version one (b, h) slice at
+    a time (one [S, S] score tensor live), the same bits on a second
+    launch; its time beside its bound (exponentials included), the plain
+    version's and SDPA's."""
+    import torch.nn.functional as F
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 55)
+    h, d = LM_CLI["n_heads"], LM_CLI["d_model"] // LM_CLI["n_heads"]
+    b, s = LM_CLI_B, LM_CLI_LONG_S
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+
+    def plain(*t):
+        return fa._per_head(lambda *x: fa.flash_attention_reference(*x, True), *t)
+
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    again = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse), "kernel 1 D32 path (b): other bits"
+    del again
+    ro, rl = plain(q, k, v)
+    err = _over("flash_attention_fwd D32 path (b)", o, ro, *TOL["flash_attention_fwd"])
+    lse_err = _over("flash_attention_fwd D32 path (b) lse", lse, rl, LSE_ATOL, 0.0)
+    del o, lse, ro, rl
+    pairs = s * (s + 1) // 2
+    tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d, exps=b * h * pairs)
+    return {"shape": f"B={b} H={h} S={s} D={d} causal bf16", "max_abs_err": err,
+            "lse_max_abs_err": lse_err,
+            "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 10, flush),
+            "plain_ms": _timed(lambda: plain(q, k, v), 1, flush), "bound_ms": tb, "bound_by": by,
+            "library_ms": _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10,
+                                 flush),
+            "library_note": "F.scaled_dot_product_attention, bf16, causal", "deterministic": True}
 
 
 def _f32_fwd_long_inputs(g):
@@ -3371,6 +3496,15 @@ NAN_BITS = 0x7FFFFFFF  # the NaN that device arithmetic produces
 NAN_OUTPUTS = ("o", "lse", "dq", "dk", "dv")
 
 
+def _plant_nan(t, idx):
+    """Element ``idx`` of ``t`` becomes :data:`NAN_BITS` (f32) or its top
+    half (bf16, 0x7FFF)."""
+    if t.dtype == torch.float32:
+        t.view(torch.int32)[idx] = NAN_BITS
+    else:
+        t.view(torch.int16)[idx] = NAN_BITS >> 16
+
+
 def _nan_outputs(fwd, bwd, q, k, v, do):
     """Which outputs of one forward and backward carry a NaN when one
     element of q, of k or of v is the NaN :data:`NAN_BITS` (causal; q's
@@ -3381,9 +3515,9 @@ def _nan_outputs(fwd, bwd, q, k, v, do):
     out = {}
     for which, row, col in (("q", s // 2, 0), ("k", s // 3, 1), ("v", s // 3, 2)):
         t = {"q": q.clone(), "k": k.clone(), "v": v.clone()}
-        t[which].view(torch.int32)[..., row, col] = NAN_BITS
+        _plant_nan(t[which], (..., row, col))
         o, lse = fwd(t["q"], t["k"], t["v"])
-        grads = bwd(t["q"], t["k"], t["v"], do, lse, (do * o).sum(-1))
+        grads = bwd(t["q"], t["k"], t["v"], do, lse, (do.float() * o.float()).sum(-1))
         out[which] = {n: bool(x.isnan().any()) for n, x in zip(NAN_OUTPUTS, (o, lse, *grads))}
     return out
 
@@ -3507,13 +3641,14 @@ def _lm_cli_f32_rows(launches):
                 (nk, 4, 2, fa.flash_attention_dkv, fa.flash_attention_dkv_reference, err_k,
                  ctl_k, need_k, beside_k)):
             nbytes = io + outs * b * h * ls * dd * 4
-            tb, bb = _bound(nbytes, 3 * products * unit, TF32_FLOPS)
+            tb, bb = _bound(nbytes, 3 * products * unit, TF32_FLOPS, exps=b * h * pairs)
             by[name][label] = {"shape": shape, "max_abs_err": err, "rejected_share": ctl,
                                "atol_needed": need, "tf32_vs_kernel": beside,
                                "ms": _timed(lambda fn=fn: fn(*args), 5, flush),
                                "plain_ms": _timed(lambda plain=plain: plain(*args), 1, flush),
                                "bound_ms": tb, "bound_by": bb,
-                               "bound_ffma_ms": _bound(nbytes, products * unit, F32_FLOPS)[0],
+                               "bound_ffma_ms": _bound(nbytes, products * unit, F32_FLOPS,
+                                                        exps=b * h * pairs)[0],
                                "library_ms": library}
         by[nq][label]["exact"] = exact_q
         del args, q, k, v, do, lse, delta, qs, ks, vs, out
@@ -3535,19 +3670,21 @@ def _lm_cli_f32_rows(launches):
     for row, ragged in zip(rows[-2:], _ragged_f32_d64(h)):
         row["d64"]["ragged"] = ragged
     rows.append(_f32_fwd_long_row(launches, flush))
-    nan = _f32_nan_checks(h)
+    nan = _attention_nan_checks(h, torch.float32)
     for row in rows[-3:]:
         row["nan_reaches"] = nan
     return rows
 
 
-def _f32_nan_checks(h):
-    """:func:`_nan_check` on the f32 forward, dQ and dK/dV kernels (B1,
-    ``h`` heads, S 300 causal, D 32 and D 64, inputs of their own
-    generator) against their plain versions (TF32 off)."""
+def _attention_nan_checks(h, dtype):
+    """:func:`_nan_check` on the forward (kernel 1) and the two-kernel
+    backward (kernels 7 and 8) in ``dtype`` at D 32 and D 64 (B1, ``h``
+    heads, S 300 causal, inputs of their own generator) against their
+    plain versions (f32: TF32 off): the split-precision kernels in f32,
+    and in bf16 the TMA/wgmma kernels (at D 32 the d32 pair)."""
     from distriflow_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 49)
+    g = torch.Generator(device="cuda").manual_seed(SEED + (49 if dtype == torch.float32 else 51))
 
     def fwd(q, k, v):
         return fa.flash_attention(q, k, v, causal=True, return_lse=True)
@@ -3560,11 +3697,127 @@ def _f32_nan_checks(h):
 
     out = {}
     for d in (LM_CLI["d_model"] // LM_CLI["n_heads"], 64):
-        q, k, v, do = (torch.randn(1, h, 300, d, generator=g, device="cuda") for _ in range(4))
-        out[f"D={d}"] = _nan_check(f"f32 split kernels D={d}", fwd, bwd,
+        q, k, v, do = (torch.randn(1, h, 300, d, generator=g, device="cuda").to(dtype)
+                       for _ in range(4))
+        label = "f32 split kernels" if dtype == torch.float32 else "bf16 kernels 1, 7, 8"
+        out[f"D={d}"] = _nan_check(f"{label} D={d}", fwd, bwd,
                                    lambda *a: fa.flash_attention_reference(*a, True), plain_bwd,
                                    q, k, v, do)
     return out
+
+
+def _ce_nan_checks():
+    """The fused CE forward (kernels 9 and 9d) on logits with one NaN: in
+    a column other than the row's label (one-hot target), then in the
+    label's own, for bf16 and f32 logits, sparse and dense, at V 256 (row
+    tiles) and V 32000 (one block a row). The kernel's loss and lse carry
+    NaN in exactly the rows its plain version's do, and in the planted row
+    alone; raises otherwise."""
+    from distriflow_tpu_torch.ops import fused_ce as ce
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    out = {}
+    n, row = 300, 37
+    for vocab in (CORPUS_VOCAB, 32000):
+        for dtype in (torch.bfloat16, torch.float32):
+            logits = (torch.randn(n, vocab, generator=g, device="cuda") * 3).to(dtype)
+            labels = torch.randint(0, vocab, (n,), generator=g, device="cuda", dtype=torch.int32)
+            onehot = torch.nn.functional.one_hot(labels.long(), vocab).float()
+            for at in ("other", "label"):
+                x = logits.clone()
+                col = int(labels[row]) if at == "label" else (int(labels[row]) + 5) % vocab
+                _plant_nan(x, (row, col))
+                for kind, fn, plain, t in (
+                        ("sparse", ce.fused_ce_forward, ce.fused_ce_forward_reference, labels),
+                        ("dense", ce.fused_ce_dense_forward, ce.fused_ce_dense_forward_reference,
+                         onehot)):
+                    got, want = fn(x, t), plain(x, t)
+                    tag = f"{kind} V={vocab} {str(dtype).replace('torch.', '')} {at}"
+                    rows = {}
+                    for name, a, w in zip(("loss", "lse"), got, want):
+                        ga, wa = a.isnan(), w.isnan()
+                        assert torch.equal(ga, wa), f"fused CE {tag} {name}: NaN rows " \
+                            f"{ga.nonzero().flatten().tolist()}, plain {wa.nonzero().flatten().tolist()}"
+                        rows[name] = ga.nonzero().flatten().tolist()
+                    assert rows == {"loss": [row], "lse": [row]}, f"fused CE {tag}: {rows}"
+                    out[tag] = rows
+    return out
+
+
+def _decode_nan_checks(h):
+    """The decode kernels (2 and 3 on bf16 and f32 caches, 4 and 5 on int8,
+    each through the combine kernel) with one NaN in q, then in one live K
+    position (of an int8 cache: its scale, as quantizing a NaN row gives):
+    the output carries NaN at exactly the (row, head)s of its plain
+    version's, and at the planted one; raises otherwise. Pages of 128,
+    rows of 33, 300 and 1000 positions (the last over several splits), ``h``
+    heads of 32 (int8: of 64)."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    ps, lens_l = 128, [33, 300, 1000]
+    bsz, pp, s_max = len(lens_l), 8, 1024
+    n_pages = sum(-(-n // ps) for n in lens_l) + 2
+    out = {}
+    for cache in ("bf16", "f32", "int8"):
+        dt = torch.float32 if cache == "f32" else torch.bfloat16
+        # the CLI's head dim; the int8 kernels are built at D 64 alone
+        d = 64 if cache == "int8" else LM_CLI["d_model"] // LM_CLI["n_heads"]
+        table, lens = _paged_rows(g, lens_l, ps, n_pages, pp)
+        q = torch.randn(bsz, h, d, generator=g, device="cuda").to(dt)
+        if cache == "int8":
+            pool = _int8_cache(g, (n_pages, ps), h, d)
+            slab = _int8_cache(g, (bsz, s_max), h, d)
+            paged = (fd.flash_decode_paged_int8, fd.flash_decode_paged_int8_reference)
+            flat = (fd.flash_decode_int8, fd.flash_decode_int8_reference)
+        else:
+            pool = tuple(torch.randn(n_pages, ps, h * d, generator=g, device="cuda").to(dt)
+                         for _ in range(2))
+            slab = tuple(torch.randn(bsz, s_max, h * d, generator=g, device="cuda").to(dt)
+                         for _ in range(2))
+            paged = (fd.flash_decode_paged, fd.flash_decode_paged_reference)
+            flat = (fd.flash_decode, fd.flash_decode_reference)
+        for layout, (fn, plain), kv, extra in (("paged", paged, pool, (table, lens)),
+                                               ("slab", flat, slab, (lens,))):
+            for which in ("q", "k"):
+                qq, kv2 = q.clone(), [t.clone() for t in kv]
+                r, head, pos = 1, 2, 257  # row 1's position 257 of 300: its third page
+                if which == "q":
+                    _plant_nan(qq, (r, head, 5))
+                else:
+                    page = int(table[r, pos // ps]) if layout == "paged" else r
+                    at = pos % ps if layout == "paged" else pos
+                    if cache == "int8":
+                        _plant_nan(kv2[2], (page, at, head))  # the K scale
+                    else:
+                        _plant_nan(kv2[0], (page, at, head * d + 3))
+                got = fn(qq, *kv2, *extra).isnan().any(-1)
+                want = plain(qq, *kv2, *extra).isnan().any(-1)
+                tag = f"{cache} {layout} {which}"
+                assert torch.equal(got, want), f"decode {tag}: NaN at (row, head) " \
+                    f"{got.nonzero().tolist()}, plain {want.nonzero().tolist()}"
+                assert bool(got[r, head]), f"decode {tag}: the NaN did not reach the output"
+                out[tag] = got.nonzero().tolist()
+    return out
+
+
+def _nan_phase(h):
+    """The NaN checks of the bf16 kernels (:func:`_attention_nan_checks`,
+    :func:`_ce_nan_checks`, :func:`_decode_nan_checks`), each kernel's
+    outputs against its plain version's."""
+    return {"attention_bf16": _attention_nan_checks(h, torch.bfloat16), "fused_ce_fwd": _ce_nan_checks(),
+            "decode": _decode_nan_checks(h)}
+
+
+#: the NaN check each kernel row carries (``nan_reaches``), by row name
+NAN_ROWS = {**{k: "attention_bf16" for k in (
+    "flash_attention_fwd", "flash_attention_fwd_d32", "flash_attention_dq", "flash_attention_dkv",
+    "flash_attention_dq_d32", "flash_attention_dkv_d32")},
+    **{k: "fused_ce_fwd" for k in ("fused_ce_fwd", "fused_ce_dense_fwd", "fused_ce_fwd_f32",
+                                   "fused_ce_dense_fwd_f32")},
+    **{k: "decode" for k in ("flash_decode_paged", "flash_decode", "flash_decode_paged_int8",
+                             "flash_decode_int8", "flash_decode_paged_d32", "flash_decode_d32",
+                             "flash_decode_f32", "flash_decode_paged_f32")}}
 
 
 def _f32_fwd_long_row(launches, flush):
@@ -3605,7 +3858,7 @@ def _f32_fwd_long_row(launches, flush):
     del ro, rl
     pairs = s * (s + 1) // 2
     nbytes, flops = 4 * b * h * s * d * 4 + b * h * s * 4, 4 * b * h * pairs * d
-    tb, by = _bound(nbytes, 3 * flops, TF32_FLOPS)
+    tb, by = _bound(nbytes, 3 * flops, TF32_FLOPS, exps=b * h * pairs)
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         library = _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5, flush)
     return _row(name, "distriflow_tpu_torch/csrc/flash_attention_f32.cu",
@@ -3614,7 +3867,7 @@ def _f32_fwd_long_row(launches, flush):
                 ms=_timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 5,
                           flush),
                 plain_ms=_timed(lambda: plain(q, k, v), 1, flush), bound_ms=tb, bound_by=by,
-                bound_ffma_ms=_bound(nbytes, flops, F32_FLOPS)[0], library_ms=library,
+                bound_ffma_ms=_bound(nbytes, flops, F32_FLOPS, exps=b * h * pairs)[0], library_ms=library,
                 library_note="F.scaled_dot_product_attention, f32 (TF32 off), the "
                              "memory-efficient backend", rejected_share=controls,
                 atol_needed=needed, deterministic=True)
@@ -4668,7 +4921,7 @@ def _split_bwd_rows(launches, steps):
              fa.flash_attention_dq, fa.flash_attention_dq_reference, controls_q),
             ("flash_attention_dkv", "distriflow_tpu/ops/flash_attention.py:212", err_kv, 4, 2,
              fa.flash_attention_dkv, fa.flash_attention_dkv_reference, controls_kv)):
-        tb, by = _bound(io + outs * b * h * s * d * 2, products * 2 * pairs * d)
+        tb, by = _bound(io + outs * b * h * s * d * 2, products * 2 * pairs * d, exps=pairs)
         rows.append({
             "name": name, "route": "cuda", "source": "distriflow_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": line, "launches": launches[name], "launches_per_step": launches[name] / steps,
@@ -4728,9 +4981,15 @@ def _dense_ce_times():
 
 
 def _parent_times(parent, fn, *args):
-    """``fn(*args)`` (a timing function of this file, by name) on the
-    checkout at ``parent``, in a process of its own (the parent's package
-    and kernels, this file's timer)."""
+    """``fn(*args)`` (a timing function of this file, by name, returning
+    lists of ms by key) on the checkout at ``parent``: :func:`_parent_report`."""
+    return {k: [float(v) for v in t] for k, t in _parent_report(parent, fn, *args).items()}
+
+
+def _parent_report(parent, fn, *args):
+    """``fn(*args)`` (a function of this file, by name, returning JSON) on
+    the checkout at ``parent``, in a process of its own (the parent's
+    package and kernels, this file's timer)."""
     torch.cuda.empty_cache()
     code = ("import importlib.util, json, sys\n"
             f"spec = importlib.util.spec_from_file_location('smoke', {os.path.abspath(__file__)!r})\n"
@@ -4739,7 +4998,7 @@ def _parent_times(parent, fn, *args):
             f"print(json.dumps(m.{fn}(*{list(args)!r})))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True, text=True,
                          timeout=600, check=True)
-    return {k: [float(v) for v in t] for k, t in json.loads(out.stdout.splitlines()[-1]).items()}
+    return json.loads(out.stdout.splitlines()[-1])
 
 
 def _narrow_controls(logits, t, loss, lse, gr, lanes):
@@ -5207,7 +5466,7 @@ def _spec_kernel_rows(launches):
         errs.append(_over(f"flash_attention_fwd D32 S={s}", o, ro, *TOL["flash_attention_fwd"]))
         lse_err = _over(f"flash_attention_fwd D32 lse S={s}", lse, rl, LSE_ATOL, 0.0)
         pairs = s * (s + 1) // 2
-        tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d)
+        tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d, exps=h * pairs)
         timed[s] = {"shape": f"B=1 H={h} S={s} D={d} causal", "max_abs_err": errs[-1],
                     "lse_max_abs_err": lse_err,
                     "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True),
@@ -5243,7 +5502,7 @@ def _spec_kernel_rows(launches):
 
     live = sum(lens_l)
     tb, by = _bound(2 * live * h * d * 2 + 2 * bsz * h * d * 2 + table.numel() * 4 + bsz * 4,
-                    4 * live * h * d)
+                    4 * live * h * d, exps=live * h)
     rows.append({
         "name": "flash_decode_paged_d32", "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
@@ -5264,7 +5523,7 @@ def _spec_kernel_rows(launches):
     ks, vs, qs = randn(1, s_max, h * d), randn(1, s_max, h * d), randn(1, h, d)
     kh = ks.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
     vh = vs.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
-    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d)
+    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d, exps=n * h)
     rows.append({
         "name": "flash_decode_d32", "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
@@ -5765,7 +6024,7 @@ def _page_row(name, launches, seed, ps, n_pages, pp, pairs, timed, control=None)
         extra["control_shape"] = f"B=2 H={h} D={d} page={ps} contexts={control}"
     live = sum(timed)
     tb, by = _bound(2 * live * h * d * 2 + 2 * 2 * h * d * 2 + table.numel() * 4 + 2 * 4,
-                    4 * live * h * d)
+                    4 * live * h * d, exps=live * h)
     return {
         "name": name, "route": "cuda",
         "source": "distriflow_tpu_torch/csrc/flash_decode.cu",
@@ -6503,7 +6762,7 @@ def _mesh_kernel_entries():
         ro, rl = torch.cat([r[0] for r in ref], 1), torch.cat([r[1] for r in ref], 1)
         del ref
         pairs = s * (s + 1) // 2 if causal else s * s
-        tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d)
+        tb, by = _bound(4 * h * s * d * 2 + h * s * 4, 4 * h * pairs * d, exps=h * pairs)
         out[key] = {
             "shape": f"B=1 H={h} S={s} D={d} {'causal' if causal else 'non-causal'}",
             "max_abs_err": _over(f"flash_attention_fwd O {key}", o, ro, *TOL["flash_attention_fwd"]),
@@ -7491,7 +7750,8 @@ def _mesh_tp_entries():
         q, k, v = randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d)
         o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
         ro, rl = fa.flash_attention_reference(q, k, v, True)
-        tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * (s * (s + 1) // 2) * d)
+        tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * (s * (s + 1) // 2) * d,
+                        exps=b * h * (s * (s + 1) // 2))
         out["flash_attention_fwd"][key] = {
             "shape": f"B={b} H={h} S={s} D={d} causal",
             "max_abs_err": _over(f"flash_attention_fwd O {key}", o, ro, *TOL["flash_attention_fwd"]),
@@ -7509,7 +7769,7 @@ def _mesh_tp_entries():
     ks, vs = randn(1, s_max, h * d), randn(1, s_max, h * d)
     kh = ks.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
     vh = vs.view(1, s_max, h, d).transpose(1, 2)[:, :, :n].contiguous()
-    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d)
+    tb, by = _bound(2 * n * h * d * 2 + 2 * h * d * 2, 4 * n * h * d, exps=n * h)
     out["flash_decode"]["tp_local_heads"] = {
         "shape": f"B=1 S={s_max} valid={n} H={h} D={d}",
         "max_abs_err": _over("flash_decode tp", fd.flash_decode(qs, ks, vs, n),
@@ -7520,7 +7780,7 @@ def _mesh_tp_entries():
         "library_ms": _timed(lambda: F.scaled_dot_product_attention(qs[:, :, None], kh, vh), 200,
                              flush)}
     k8, v8, k_sc, v_sc = _int8_cache(g, (1, s_max), h, d)
-    tb, by = _bound(2 * n * h * d + 2 * n * h * 4 + 2 * h * d * 2, 4 * n * h * d)
+    tb, by = _bound(2 * n * h * d + 2 * n * h * 4 + 2 * h * d * 2, 4 * n * h * d, exps=n * h)
     out["flash_decode_int8"]["tp_local_heads"] = {
         "shape": f"B=1 S={s_max} valid={n} H={h} D={d} int8",
         "max_abs_err": _over("flash_decode_int8 tp", fd.flash_decode_int8(qs, k8, v8, k_sc, v_sc, n),
@@ -7537,7 +7797,7 @@ def _mesh_tp_entries():
     kp, vp, q1 = randn(n_pages, ps, h * d), randn(n_pages, ps, h * d), randn(bsz, h, d)
     live = sum(lens_l)
     tb, by = _bound(2 * live * h * d * 2 + 2 * bsz * h * d * 2 + table.numel() * 4 + bsz * 4,
-                   4 * live * h * d)
+                   4 * live * h * d, exps=live * h)
     out["flash_decode_paged"]["tp_local_heads"] = {
         "shape": f"B={bsz} H={h} D={d} page={ps} contexts={lens_l}",
         "max_abs_err": _over("flash_decode_paged tp", fd.flash_decode_paged(q1, kp, vp, table, lens),
@@ -8249,11 +8509,37 @@ def main() -> int:
     cli_launches = {k: cli_counts[w][counter.get(k, k)] if w else 0 for k, w in cli_rows.items()}
     # an older checkout's f32 attention kernels before and after this one's
     f32_was = [_parent_times(args.parent, "_f32_attention_times")] if args.parent else []
+    bf16_was = [_parent_times(args.parent, "_bf16_attention_times")] if args.parent else []
+    steps_was = [_parent_report(args.parent, "_path_b_steps")] if args.parent else []
     cli_kernel_rows = (_lm_cli_attention_rows(cli_launches) + _lm_cli_ce_rows(cli_launches)
                        + _lm_cli_f32_rows(cli_launches))
+    for r in rows:
+        if r["name"] == "flash_attention_fwd_d32":
+            r["path_b"] = _fwd_d32_path_b(_flush_buffer())
     if args.parent:
+        # path (b)'s step and the bf16 attention kernels on this checkout,
+        # between the older checkout's runs, by the same functions
+        step_now = _path_b_steps()
+        bf16_now = _bf16_attention_times()
         f32_was.append(_parent_times(args.parent, "_f32_attention_times"))
+        bf16_was.append(_parent_times(args.parent, "_bf16_attention_times"))
+        steps_was.append(_parent_report(args.parent, "_path_b_steps"))
+        print("path_b_step:", json.dumps({
+            "step_ms_p50": step_now["step_ms_p50"], "profile": step_now["profile"],
+            "lm_cli_long_step_ms_p50": cli_report["long"]["step_ms_p50"],
+            "was_step_ms_p50": [w["step_ms_p50"] for w in steps_was],
+            "was_profile": steps_was[0]["profile"]}), flush=True)
+        print("bf16_attention_times:", json.dumps({"now": bf16_now, "was": bf16_was}), flush=True)
     rows += _with_f32_was(cli_kernel_rows, f32_was)
+    _with_bf16_was(rows, bf16_was)
+    # a NaN in an input reaches the bf16 forward's, the fused CE forward's
+    # and the decode kernels' outputs as their plain versions'
+    t0 = time.perf_counter()
+    nan = _nan_phase(LM_CLI["n_heads"])
+    print("nan_checks:", json.dumps({**nan, "phase_s": time.perf_counter() - t0}), flush=True)
+    for r in rows:
+        if r["name"] in NAN_ROWS:
+            r["nan_reaches"] = nan[NAN_ROWS[r["name"]]]
     path_of = {"flash_decode": "solo_generate", "flash_decode_paged_int8": "long_serving",
                "flash_decode_int8": "beam", **{k: "training" for k in training_only},
                "depthwise_gn_fwd": "mobilenet_train", "depthwise_gn_bwd": "mobilenet_train",

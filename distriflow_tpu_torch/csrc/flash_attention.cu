@@ -280,7 +280,8 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= S) continue;
-    const float lf = fmaxf(l[i], 1e-30f);
+    // a NaN l stays NaN (fmaxf would drop it), as in the plain version
+    const float lf = l[i] < 1e-30f ? 1e-30f : l[i];
     __nv_bfloat16* dst = o + (static_cast<int64_t>(bh) * S + row) * D + col;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)

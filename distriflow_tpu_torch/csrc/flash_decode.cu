@@ -293,7 +293,9 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
     const float x = tid < D ? __bfloat162float(qg[bh * D + tid]) : 0.f;
     float amax = dftt::warp_max(fabsf(x));
     if (lane == 0) s_red[1][warp] = amax;
-    __syncthreads();
+    // fmaxf drops a NaN, where the plain version's (and JAX's) absmax
+    // keeps it: a NaN in q makes the scale NaN, and so every score
+    const bool q_nan = __syncthreads_or(x != x);
     amax = s_red[1][0];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, s_red[1][w]);
@@ -301,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const DecodeArgs a) {
     if (tid < D) s_q8[tid] = static_cast<int8_t>(fminf(fmaxf(rintf(x / qs), -127.f), 127.f));
     __syncthreads();  // s_q8 written; s_red[1] read before tile 1 rewrites it
     qw = *reinterpret_cast<const int4*>(s_q8 + sub * kVec);
-    qscale = __fmul_rn(qs, a.scale);
+    qscale = q_nan ? __int_as_float(0x7fffffff) : __fmul_rn(qs, a.scale);
   } else {
     load_chunk<C>(static_cast<const unsigned char*>(a.q) + (bh * D + sub * kVec) * L::kItem, qv);
   }
@@ -467,7 +469,8 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(const DecodeArgs a) {
       }
     }
   }
-  if (tid < D) store_out(static_cast<Out*>(a.out) + bh * D + tid, acc * (1.f / fmaxf(l, 1e-30f)));
+  // a NaN l stays NaN (fmaxf would drop it), as in the plain version
+  if (tid < D) store_out(static_cast<Out*>(a.out) + bh * D + tid, acc * (1.f / (l < 1e-30f ? 1e-30f : l)));
 }
 
 template <int D, Cache C>

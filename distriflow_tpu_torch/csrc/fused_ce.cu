@@ -184,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_kernel(
       combine(sm[0], sl[0], sm[w], sl[w]);
       total += sh[w];
     }
-    const float out = sm[0] + logf(fmaxf(sl[0], 1e-30f));
+    const float out = sm[0] + logf(sl[0] < 1e-30f ? 1e-30f : sl[0]);  // keeps a NaN
     if constexpr (!kDense) {
       const int lab = labels[row];
       total = (lab >= 0 && lab < V) ? to_f32(x[lab]) : 0.f;
@@ -278,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_rows_kernel(
     hit += __shfl_xor_sync(0xffffffffu, hit, off);
   }
   if (lane == 0 && row < N) {
-    const float out = m + logf(fmaxf(l, 1e-30f));
+    const float out = m + logf(l < 1e-30f ? 1e-30f : l);  // keeps a NaN
     lse[row] = out;
     loss[row] = out - hit;
   }
