@@ -6,8 +6,9 @@
 parent commit) also times that checkout's depthwise and dense CE kernels
 and its f32 and bf16 attention kernels on the same inputs, before and
 after this checkout's (rows 11-12, 9d, 10d, 1, 6, 7 and 8 in f32, 6, 7
-and 8 at D 32 and 64, kernel 1 at path (b)'s shape, ``was_ms``), and path
-(b)'s step (``path_b_step:``, this checkout's between the two).
+and 8 at D 32 and 64, kernel 1 at D 32 at every shape a path gives it
+and at D 64 at the training shape, ``was_ms``), and path (b)'s step
+(``path_b_step:``, this checkout's between the two).
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all six
@@ -464,7 +465,13 @@ and 8 at D 32 and 64, kernel 1 at path (b)'s shape, ``was_ms``), and path
     slab); each row it covers carries its result (``nan_reaches``). Row
     ``flash_attention_fwd_d32`` also holds and times kernel 1 at path
     (b)'s shape (``path_b``: B8 H8 S16384 D32, head by head against the
-    plain version, SDPA beside it).
+    plain version, SDPA beside it, the atol O and lse need, two planted
+    faults rejected: the correction held at 1 and lse without log(l)),
+    at path (a)'s (``path_a``: B8 H8 S512) and at ragged lengths that end
+    inside its 128-row Q tile (``ragged``). The rows of kernels 7 and 8
+    (bf16, D 32 and 64) hold each gradient under an atol by element that
+    adds two flips of a bf16 P or dS (``flip_limit``; ``atol_needed`` is
+    the scalar atol it needs).
 
 The kernel table holds every kernel at its path's shapes (the three
 training kernels at B8 H8 S1024 D64 and N 8192 x V 32000, the int8 ones
@@ -541,6 +548,7 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "fused_ce_bwd": (1e-8, 2 ** -7),
        "depthwise_gn_fwd": (1e-5, 2 ** -7),
        "depthwise_gn_bwd": (1e-5, 2 ** -7),
+       # the two-kernel backward (D 64 and D 32) adds BWD_FLIPS flips by element, see below
        "flash_attention_dq": (1e-3, 2 ** -7),
        "flash_attention_dkv": (1e-3, 2 ** -7),
        "fused_ce_dense_fwd": (1e-5, 1e-6),
@@ -591,6 +599,38 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
 # B1 H8 S8192; 5e-3 keeps about the 3x margin that 1e-3 has over rows
 # 7-8's need (row 6's ``atol_needed_by_check`` gives each run's). No
 # backward kernel uses atomics, so each gives the same bits every launch.
+# The bf16 two-kernel backward (kernels 7 and 8, at D 64 and at D 32) is
+# held around its plain versions with an atol by element (C16). A
+# kernel's P is its own exponential (ex2 at D 32, expf at D 64) of the
+# plain version's argument, a few f32 ulps from torch's exp, from S summed
+# in another order; where P or dS = P (dP - delta) lies near the midpoint
+# of two bf16 values, the kernel's bf16 value can land on the other
+# neighbour (a flip). A flip moves one term of a gradient's sum by one
+# bf16 step of its rounded factor, at most 2**-7 of it: term j of dQ_id =
+# scale sum_j dS_ij K_jd by at most 2**-7 scale |dS_ij K_jd|, term i of
+# dK_jd = scale sum_i dS_ij Q_id by 2**-7 scale |dS_ij Q_id|, of dV_jd =
+# sum_i P_ij dO_id by 2**-7 |P_ij dO_id|. The limit adds BWD_FLIPS such
+# flips to atol 1e-3 + rtol 2**-7, each charged at the element's heaviest
+# term (atol_id = 1e-3 + BWD_FLIPS 2**-7 scale max_j |dS_ij K_jd| for dQ,
+# and so on), P and dS from the recipe in f64 (:func:`_flip_atols`, one
+# (b, h) slice at a time). A flip needs the value within a few f32 ulps of
+# a midpoint, so more than one at an element's heaviest terms is rare: one
+# flip so charged covers any one flip, and the second is a margin of one,
+# as F32_DECODE_FLIPS is for the f32 decode. Where the terms are small the
+# limit stays 1e-3, so a dQ with delta taken as 0 and a dK without its
+# scale stay outside it (``no_delta``, ``dk_unscaled``). The scalar atol
+# 1e-3 alone passed or failed by the draw. Readings (tools/d32_bwd_probe.py
+# --limit on the H100, the smoke's draw and 8 fresh draws, generators
+# SEED + 41 to SEED + 48, lse and delta from the D 32 forward of
+# namespace d32): at path (b)'s shape (B8 H8 S16384 D32) dQ needs a scalar
+# atol of 4.0e-4 to 2.0e-3 (past 1e-3 on 3 of 9 draws; the earlier
+# template dQ kernel, dq_kernel<32> of commit cf968b0, 4.0e-4 to 1.13e-3,
+# 1 of 9) and dK/dV 2.6e-4 to 1.38e-3 (1 of 9, the smoke's own draw); at
+# B1 H8 S16384 D64 dQ 1.8e-4 to 1.5e-3 (1 of 8) and dK/dV 1.2e-4 to
+# 1.18e-3 (2 of 8). Under the flip limits every kernel
+# needs at most 0.37 flips, with no element outside; their atol has median
+# 1.05e-3 to 1.12e-3 and at most 0.070; delta taken as 0 puts at least
+# 99.88% of dQ outside (99.89% outside 1e-3), an unscaled dK 97.6% (97.7%).
 # The f32 two-kernel backward (kernels 7 and 8 on f32 inputs) computes in
 # f32 throughout, as the fused f32 row, and dQ keeps its limit (the largest
 # atol any element needed above rtol 1e-5 was 4.9e-7 at the path's shape,
@@ -648,6 +688,7 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
 # the sparse one.
 LSE_ATOL = 1e-4
 F32_DECODE_FLIPS = 2
+BWD_FLIPS = 2
 TRUE_F32_MIN_SHARE = 0.01
 # A training step through the kernels against the plain path, from the
 # same f32 masters and batch: |loss difference| and, for every parameter,
@@ -1163,9 +1204,15 @@ def _timed(fn, iters, flush):
 
 def _tol(name):
     atol, rtol = TOL[name]
-    flips = (f" + {F32_DECODE_FLIPS} x 2**-7 x max_j w_j |v_jd| (j not the top position)"
-             if name in ("flash_decode_f32", "flash_decode_paged_f32") else "")
-    return f"atol {atol} + rtol {rtol} x |plain|{flips}"
+    flips = {"flash_decode_f32": f" + {F32_DECODE_FLIPS} x 2**-7 x max_j w_j |v_jd| (j not the top "
+                                 f"position)",
+             "flash_attention_dq": f" + {BWD_FLIPS} x 2**-7 x scale x max_j |dS_ij K_jd| (dS in f64)",
+             "flash_attention_dkv_d32": f" + {BWD_FLIPS} x 2**-7 x (dK: scale x max_i |dS_ij Q_id|, "
+                                        f"dV: max_i |P_ij dO_id|) (P, dS in f64)"}
+    flips["flash_decode_paged_f32"] = flips["flash_decode_f32"]
+    flips["flash_attention_dq_d32"] = flips["flash_attention_dq"]
+    flips["flash_attention_dkv"] = flips["flash_attention_dkv_d32"]
+    return f"atol {atol} + rtol {rtol} x |plain|{flips.get(name, '')}"
 
 
 def _f32_decode_rows(q, k, v, lens, table=None):
@@ -1208,12 +1255,13 @@ def _unrounded_decode(q, kr, vr, valid):
 
 def _over(name, got, want, atol, rtol):
     """Max abs error of ``got`` against ``want``; raises where an element
-    lies outside ``atol + rtol * |want|``."""
+    lies outside ``atol + rtol * |want|`` (``atol`` a number or a tensor)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     bad = int((err > atol + rtol * want.abs()).sum())
     if bad:
-        raise AssertionError(f"{name}: {bad} elements outside atol {atol} + rtol {rtol}, "
+        shown = atol if isinstance(atol, float) else f"by element (at most {float(atol.max())})"
+        raise AssertionError(f"{name}: {bad} elements outside atol {shown} + rtol {rtol}, "
                              f"max abs err {float(err.max())}")
     return float(err.max())
 
@@ -2960,28 +3008,32 @@ def _lm_cli_attention_rows(launches):
     s = LM_CLI_LONG_S
     args = _bwd_inputs(g, b, h, s, True, d)
     q, k, v, do, lse, delta, _ = args
+    nq, nkv = "flash_attention_dq_d32", "flash_attention_dkv_d32"
     dq, want_q = fa.flash_attention_dq(*args), fa.flash_attention_dq_reference(*args)
     (dk, dv), (want_k, want_v) = fa.flash_attention_dkv(*args), fa.flash_attention_dkv_reference(*args)
-    errs = {"flash_attention_dq_d32": _over("flash_attention_dq_d32", dq, want_q,
-                                            *TOL["flash_attention_dq_d32"]),
-            "flash_attention_dkv_d32": max(
-                _over("flash_attention_dkv_d32 dk", dk, want_k, *TOL["flash_attention_dkv_d32"]),
-                _over("flash_attention_dkv_d32 dv", dv, want_v, *TOL["flash_attention_dkv_d32"]))}
-    needed = {"flash_attention_dq_d32": _atol_needed("flash_attention_dq_d32", [(dq, want_q)]),
-              "flash_attention_dkv_d32": _atol_needed("flash_attention_dkv_d32",
-                                                      [(dk, want_k), (dv, want_v)])}
+    # each gradient's limit adds BWD_FLIPS flips of a bf16 term by element (C16; the note above TOL)
+    (atol_q,) = _flip_atols(nq, ("dq",), *args)
+    atol_k, atol_v = _flip_atols(nkv, ("dk", "dv"), *args)
+    errs = {nq: _over(nq, dq, want_q, atol_q, TOL[nq][1]),
+            nkv: max(_over(f"{nkv} dk", dk, want_k, atol_k, TOL[nkv][1]),
+                     _over(f"{nkv} dv", dv, want_v, atol_v, TOL[nkv][1]))}
+    needed = {nq: _atol_needed(nq, [(dq, want_q)]),
+              nkv: _atol_needed(nkv, [(dk, want_k), (dv, want_v)])}
+    flip_limit = {nq: _flip_report(nq, [(dq, want_q, atol_q)]),
+                  nkv: _flip_report(nkv, [(dk, want_k, atol_k), (dv, want_v, atol_v)])}
     again_k, again_v = fa.flash_attention_dkv(*args)
     assert torch.equal(fa.flash_attention_dq(*args), dq), "flash_attention_dq_d32 is not deterministic"
     assert torch.equal(again_k, dk) and torch.equal(again_v, dv), \
         "flash_attention_dkv_d32 is not deterministic"
     no_delta = fa.flash_attention_dq_reference(q, k, v, do, lse, torch.zeros_like(delta), True)
-    controls = {"flash_attention_dq_d32": {"no_delta": _rejected("flash_attention_dq_d32", no_delta,
-                                                                 want_q)},
-                "flash_attention_dkv_d32": {"dk_unscaled": _rejected(
-                    "flash_attention_dkv_d32", want_k.float() * math.sqrt(d), want_k)}}
+    unscaled = want_k.float() * math.sqrt(d)
+    controls = {nq: {"no_delta": _rejected(nq, no_delta, want_q, atol=atol_q)},
+                nkv: {"dk_unscaled": _rejected(nkv, unscaled, want_k, atol=atol_k)}}
+    flip_limit[nq]["no_delta_under_scalar_atol"] = _rejected(nq, no_delta, want_q)
+    flip_limit[nkv]["dk_unscaled_under_scalar_atol"] = _rejected(nkv, unscaled, want_k)
     for c in controls.values():
         assert all(x > 0.5 for x in c.values()), f"a D 32 two-kernel limit passes a wrong gradient: {c}"
-    del dq, want_q, dk, dv, want_k, want_v, again_k, again_v, no_delta
+    del dq, want_q, dk, dv, want_k, want_v, again_k, again_v, no_delta, unscaled, atol_q, atol_k, atol_v
     # the short lengths at the fused row's limit: there one rounding flip
     # of a large dS moves an element by up to 2.0e-3 (see RAGGED_TOL)
     ragged = {"flash_attention_dq_d32": _ragged_bwd(
@@ -3007,7 +3059,8 @@ def _lm_cli_attention_rows(launches):
                          library_note="F.scaled_dot_product_attention backward at D 32: dQ, dK "
                                       "and dV together",
                          rejected_share=controls[name], deterministic=True,
-                         atol_needed=needed[name], ragged_max_abs_err=ragged[name]))
+                         atol_needed=needed[name], ragged_max_abs_err=ragged[name],
+                         flip_limit=flip_limit[name]))
     del args, q, k, v, do, lse, delta
 
     # kernel 1 in f32: --dtype float32, and D 64 beside it
@@ -3335,7 +3388,11 @@ def _bf16_attention_times():
     (``"path"``, B8 H8 S16384 D32: [dQ, dK/dV]) and at rows 7-8's D 64
     shape (``"d64"``, B1 H8 S16384), kernel 6 at its D 32 row's shape
     (``"fused_d32"``, B8 H8 S512) and at row 6's (``"fused_d64"``, B8 H8
-    S1024 D64), kernel 1 at path (b)'s shape (``"fwd_path_b"``)."""
+    S1024 D64), kernel 1 at D 32 at every shape a path gives it: path
+    (b)'s (``"fwd_path_b"``), path (a)'s (``"fwd_path_a"``, B8 H8 S512)
+    and the speculative draft's prefills (``"fwd_spec_1k"``,
+    ``"fwd_spec_16k"``: B1 H4 S1024 and S16288), and kernel 1 at D 64 at
+    row 1's training shape (``"fwd_d64"``, B8 H8 S1024)."""
     from distriflow_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 54)
@@ -3354,6 +3411,15 @@ def _bf16_attention_times():
         args = _bwd_inputs(g, LM_CLI_B, h, s, True, dd)
         out[label] = [_timed(lambda: fa.flash_attention_backward(*args), 20, flush)]
         del args
+    for label, b, hh, s, dd in (("fwd_path_a", LM_CLI_B, h, LM_CLI["max_seq"], d),
+                                ("fwd_spec_1k", 1, 4, SPEC_CONTEXTS[0], d),
+                                ("fwd_spec_16k", 1, 4, SPEC_CONTEXTS[1] - SPEC_NEW, d),
+                                ("fwd_d64", LM_CLI_B, h, TRAIN_S, 64)):
+        q, k, v = (torch.randn(b, hh, s, dd, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        out[label] = [_timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 20,
+                             flush)]
+        del q, k, v
     return out
 
 
@@ -3375,57 +3441,144 @@ def _path_b_steps():
 
 
 def _with_bf16_was(rows, was):
-    """Rows 1 (D 32, its ``path_b`` entry), 6 (D 32 and D 64), 7 and 8 (D
-    32 and D 64) with ``was_ms``: the :func:`_bf16_attention_times` runs
-    of an older checkout in ``was``."""
-    at = {"flash_attention_dq_d32": ("path", 0), "flash_attention_dkv_d32": ("path", 1),
-          "flash_attention_dq": ("d64", 0), "flash_attention_dkv": ("d64", 1),
-          "flash_attention_bwd_d32": ("fused_d32", 0), "flash_attention_bwd": ("fused_d64", 0),
-          "flash_attention_fwd_d32": ("fwd_path_b", 0)}
+    """Rows 1 (D 32 at each of its shapes; D 64 at its ``training_shape``),
+    6 (D 32 and D 64), 7 and 8 (D 32 and D 64) with ``was_ms``: the
+    :func:`_bf16_attention_times` runs of an older checkout in ``was``
+    (entry None: the row itself)."""
+    at = {"flash_attention_dq_d32": [(None, "path", 0)], "flash_attention_dkv_d32": [(None, "path", 1)],
+          "flash_attention_dq": [(None, "d64", 0)], "flash_attention_dkv": [(None, "d64", 1)],
+          "flash_attention_bwd_d32": [(None, "fused_d32", 0)],
+          "flash_attention_bwd": [(None, "fused_d64", 0)],
+          "flash_attention_fwd": [("training_shape", "fwd_d64", 0)],
+          "flash_attention_fwd_d32": [("path_b", "fwd_path_b", 0), ("path_a", "fwd_path_a", 0),
+                                      (None, "fwd_spec_1k", 0), ("long_context", "fwd_spec_16k", 0)]}
     for row in rows:
-        if row["name"] in at:
-            key, i = at[row["name"]]
-            dst = row["path_b"] if key == "fwd_path_b" else row
-            dst["was_ms"] = [run[key][i] for run in was] or "not measured"
+        for entry, key, i in at.get(row["name"], ()):
+            dst = row if entry is None else row[entry]
+            dst["was_ms"] = [run[key][i] for run in was if key in run] or "not measured"
     return rows
 
 
-def _fwd_d32_path_b(flush):
-    """Kernel 1 at D 32 at path (b)'s shape (B8 H8 S16384 D32 causal bf16,
-    8 launches a step): held against its plain version one (b, h) slice at
-    a time (one [S, S] score tensor live), the same bits on a second
-    launch; its time beside its bound (exponentials included), the plain
-    version's and SDPA's."""
+#: (S, causal) of kernel 1's ragged checks at D 32: lengths that end
+#: inside a 128-row Q tile and a 64-key K/V tile of its D 32 kernel
+RAGGED_FWD_D32 = ((37, True), (37, False), (191, True), (191, False), (193, True), (193, False),
+                  (1000, True), (1000, False))
+
+
+def _fwd_no_correction(q, k, v, causal=True, block=64):
+    """Kernel 1's recipe with a planted fault, one (b, h) slice at a time:
+    each ``block``-key tile's p (the D 32 kernel's 64 keys) taken against
+    the running max after that tile and never rescaled (the correction
+    held at 1), in l and in the accumulator alike; ``(O, lse)`` as the
+    plain version returns them."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def one(q, k, v):
+        n = q.shape[2]
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if causal:
+            s = s.masked_fill(~fa._causal_keep(n, q.device), -math.inf)
+        pad = -n % block
+        tiles = torch.nn.functional.pad(s, (0, pad), value=-math.inf).unflatten(-1, (-1, block))
+        m = tiles.amax(-1).cummax(-1).values
+        m = torch.where(m == -math.inf, torch.zeros_like(m), m)
+        p = torch.exp(s - m.repeat_interleave(block, -1)[..., :n])
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+        return o.to(q.dtype), (m[..., -1:] + torch.log(l)).squeeze(-1)
+
+    return fa._per_head(one, q, k, v)
+
+
+def _fwd_d32_entry(g, b, h, s, flush, faults=False):
+    """Kernel 1 at D 32 at (b, h, s) causal bf16, inputs standard normal
+    from ``g``: held against its plain version one (b, h) slice at a time
+    (one [S, S] score tensor live), the same bits on a second launch, the
+    atol O and lse need, its time beside its bound (exponentials
+    included), the plain version's and SDPA's. With ``faults``, the share
+    of O and of lse that two planted faults put outside their limits: the
+    correction held at 1 (:func:`_fwd_no_correction`) and lse without
+    log(l); each must put more than half of O or of lse outside."""
     import torch.nn.functional as F
 
     from distriflow_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 55)
-    h, d = LM_CLI["n_heads"], LM_CLI["d_model"] // LM_CLI["n_heads"]
-    b, s = LM_CLI_B, LM_CLI_LONG_S
+    d = 32
     q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda").to(torch.bfloat16)
                for _ in range(3))
 
     def plain(*t):
         return fa._per_head(lambda *x: fa.flash_attention_reference(*x, True), *t)
 
+    nf = "flash_attention_fwd"
     o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
     again = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    assert torch.equal(again[0], o) and torch.equal(again[1], lse), "kernel 1 D32 path (b): other bits"
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse), \
+        f"kernel 1 D32 B{b} H{h} S{s}: other bits on a second launch"
     del again
     ro, rl = plain(q, k, v)
-    err = _over("flash_attention_fwd D32 path (b)", o, ro, *TOL["flash_attention_fwd"])
-    lse_err = _over("flash_attention_fwd D32 path (b) lse", lse, rl, LSE_ATOL, 0.0)
-    del o, lse, ro, rl
+    out = {"shape": f"B={b} H={h} S={s} D={d} causal bf16",
+           "max_abs_err": _over(f"{nf} D32 B{b} H{h} S{s}", o, ro, *TOL[nf]),
+           "lse_max_abs_err": _over(f"{nf} D32 lse B{b} H{h} S{s}", lse, rl, LSE_ATOL, 0.0),
+           "atol_needed": {"o": _atol_needed(nf, [(o, ro)]), "lse": float((lse - rl).abs().max())}}
+    del o, lse
+    if faults:
+        no_corr = _fwd_no_correction(q, k, v)
+        shares = {"no_correction": {"o": _rejected(nf, no_corr[0], ro),
+                                    "lse": _rejected(nf, no_corr[1], rl, atol=LSE_ATOL)}}
+        del no_corr
+        no_log = fa._per_head(lambda *x: (_row_max(*x),), q, k, v)[0]
+        shares["lse_without_log_l"] = {"lse": _rejected(nf, no_log, rl, atol=LSE_ATOL)}
+        for fault, share in shares.items():
+            assert max(share.values()) > 0.5, f"kernel 1 D32: the limits pass a wrong forward: {fault} {share}"
+        out["rejected_share"] = shares
+    del ro, rl
     pairs = s * (s + 1) // 2
     tb, by = _bound(4 * b * h * s * d * 2 + b * h * s * 4, 4 * b * h * pairs * d, exps=b * h * pairs)
-    return {"shape": f"B={b} H={h} S={s} D={d} causal bf16", "max_abs_err": err,
-            "lse_max_abs_err": lse_err,
-            "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 10, flush),
-            "plain_ms": _timed(lambda: plain(q, k, v), 1, flush), "bound_ms": tb, "bound_by": by,
-            "library_ms": _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10,
-                                 flush),
-            "library_note": "F.scaled_dot_product_attention, bf16, causal", "deterministic": True}
+    out.update({
+        "ms": _timed(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True), 10, flush),
+        "plain_ms": _timed(lambda: plain(q, k, v), 1, flush), "bound_ms": tb, "bound_by": by,
+        "library_ms": _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10,
+                             flush),
+        "library_note": "F.scaled_dot_product_attention, bf16, causal", "deterministic": True})
+    return out
+
+
+def _row_max(q, k, v):
+    """lse without log(l), a planted fault of kernel 1: the plain forward's
+    row max m of one causal slice, ``[1, 1, S]``."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    return s.masked_fill(~fa._causal_keep(q.shape[2], q.device), fa.NEG_INF).amax(-1)
+
+
+def _fwd_d32_entries(flush):
+    """Kernel 1 at D 32 at path (b)'s shape (``path_b``: B8 H8 S16384, 8
+    launches a step, with the planted faults) and path (a)'s (``path_a``:
+    B8 H8 S512, 4 a step), each by :func:`_fwd_d32_entry`, and at the
+    ragged lengths of :data:`RAGGED_FWD_D32` at B1 H8 (``ragged``: the
+    atol O and lse need, each held)."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 55)
+    h = LM_CLI["n_heads"]
+    out = {"path_b": _fwd_d32_entry(g, LM_CLI_B, h, LM_CLI_LONG_S, flush, faults=True),
+           "path_a": _fwd_d32_entry(g, LM_CLI_B, h, LM_CLI["max_seq"], flush)}
+    ragged = out["ragged"] = {}
+    nf = "flash_attention_fwd"
+    for s, causal in RAGGED_FWD_D32:
+        q, k, v = (torch.randn(1, h, s, 32, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        ro, rl = fa.flash_attention_reference(q, k, v, causal)
+        tag = f"S={s} {'causal' if causal else 'non-causal'}"
+        _over(f"{nf} D32 {tag}", o, ro, *TOL[nf])
+        _over(f"{nf} D32 lse {tag}", lse, rl, LSE_ATOL, 0.0)
+        ragged[tag] = {"o": _atol_needed(nf, [(o, ro)]), "lse": float((lse - rl).abs().max())}
+    return out
 
 
 def _f32_fwd_long_inputs(g):
@@ -3454,23 +3607,82 @@ def _with_f32_was(rows, was):
     return rows
 
 
+def _p_ds_f64(q, k, v, do, lse, delta, causal):
+    """P = exp(s * scale - lse) (masked pairs 0) and dS = P (dP - delta) of
+    one (b, h) slice in f64 from its inputs, with no rounding to bf16 or
+    f32 on the way: two ``[1, 1, S, S]`` tensors."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    q, k, v, do, lse, delta = (t.double() for t in (q, k, v, do, lse, delta))
+    p = torch.exp(q @ k.transpose(-1, -2) * scale - lse[..., None])
+    if causal:
+        p = torch.where(fa._causal_keep(q.shape[2], q.device), p, torch.zeros_like(p))
+    return p, p * (do @ v.transpose(-1, -2) - delta[..., None])
+
+
 def _dq_f64_recipe(q, k, v, do, lse, delta, causal):
-    """dQ's recipe in f64 from the f32 inputs (P = exp(s * scale - lse),
-    masked pairs 0, dS = P (dP - delta), dQ = scale dS K), one (b, h) slice
-    at a time: the reference f32 dQ is held to
-    (``TOL["flash_attention_dq_f32_exact"]``)."""
+    """dQ's recipe in f64 from the f32 inputs (dQ = scale dS K, dS from
+    :func:`_p_ds_f64`), one (b, h) slice at a time: the reference f32 dQ
+    is held to (``TOL["flash_attention_dq_f32_exact"]``)."""
     from distriflow_tpu_torch.ops import flash_attention as fa
 
     scale = 1.0 / math.sqrt(q.shape[-1])
 
     def one(q, k, v, do, lse, delta):
-        q, k, v, do, lse, delta = (t.double() for t in (q, k, v, do, lse, delta))
-        p = torch.exp(q @ k.transpose(-1, -2) * scale - lse[..., None])
-        if causal:
-            p = torch.where(fa._causal_keep(q.shape[2], q.device), p, torch.zeros_like(p))
-        return ((p * (do @ v.transpose(-1, -2) - delta[..., None])) @ k * scale,)
+        return (_p_ds_f64(q, k, v, do, lse, delta, causal)[1] @ k.double() * scale,)
 
     return fa._per_head(one, q, k, v, do, lse, delta)[0]
+
+
+def _flip_atols(name, grads, q, k, v, do, lse, delta, causal):
+    """The bf16 backward limits' atols by element, one ``[B, H, S, D]`` f32
+    tensor for each of ``grads`` ("dq", "dk", "dv"): ``name``'s atol plus
+    :data:`BWD_FLIPS` flips of the bf16 value each term of the element's
+    sum was rounded from, each charged at the element's heaviest term,
+    ``2**-7`` times: ``scale max_j |dS_ij K_jd|`` (dQ), ``scale max_i |dS_ij
+    Q_id|`` (dK), ``max_i |P_ij dO_id|`` (dV), P and dS from
+    :func:`_p_ds_f64` (see the note above :data:`TOL`), each product in
+    f32; one (b, h) slice, and one column d, at a time."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def one(q, k, v, do, lse, delta):
+        p, ds = (t[0, 0] for t in _p_ds_f64(q, k, v, do, lse, delta, causal))
+        terms = {"dq": (ds, k, scale), "dk": (ds.T, q, scale), "dv": (p.T, do, 1.0)}
+        out = []
+        for g in grads:  # the largest term in f32: a limit, not a sum
+            w, x, c = terms[g]
+            w, x = w.abs().float().contiguous(), x[0, 0].float().abs()
+            heavy = torch.stack([(w * x[:, col]).amax(-1) for col in range(x.shape[1])], -1)
+            out.append((TOL[name][0] + BWD_FLIPS * 2 ** -7 * c * heavy).float()[None, None])
+        return tuple(out)
+
+    return fa._per_head(one, q, k, v, do, lse, delta)
+
+
+def _flips_needed(name, got, want, atol):
+    """The flips of a :func:`_flip_atols` limit (``atol``) that the
+    elements of ``got`` need around ``want``: the most, over elements,
+    of their error beyond ``name``'s atol and rtol, in units of one flip
+    at the element's heaviest term (at most :data:`BWD_FLIPS` inside the
+    limit)."""
+    base, rtol = TOL[name]
+    got, want = got.float(), want.float()
+    unit = (atol - base) / BWD_FLIPS
+    over = (got - want).abs() - base - rtol * want.abs()
+    return float(torch.where(over > 0, over / unit, torch.zeros_like(over)).max())
+
+
+def _flip_report(name, triples):
+    """A flip limit's reading over (kernel, plain, atol) triples: the flips
+    the kernel needs at most (:func:`_flips_needed`), the atol's median
+    and largest value."""
+    return {"flips": BWD_FLIPS,
+            "flips_needed": max(_flips_needed(name, g, w, a) for g, w, a in triples),
+            "atol_median": float(torch.cat([a.flatten() for _, _, a in triples]).median()),
+            "atol_max": max(float(a.max()) for _, _, a in triples)}
 
 
 def _dq_exact_check(label, dq, plain, args, wrong):
@@ -4883,13 +5095,20 @@ def _split_bwd_rows(launches, steps):
     q, k, v, do, lse, delta, _ = args
     dq, want_q = fa.flash_attention_dq(*args), fa.flash_attention_dq_reference(*args)
     (dk, dv), (want_k, want_v) = fa.flash_attention_dkv(*args), fa.flash_attention_dkv_reference(*args)
-    err_q = _over("flash_attention_dq", dq, want_q, *TOL["flash_attention_dq"])
-    # the least atol each kernel's elements need above the limit's rtol
+    # each gradient's limit adds BWD_FLIPS flips of a bf16 term by element, as at D 32 (C16)
+    (atol_q,) = _flip_atols("flash_attention_dq", ("dq",), *args)
+    atol_k, atol_v = _flip_atols("flash_attention_dkv", ("dk", "dv"), *args)
+    err_q = _over("flash_attention_dq", dq, want_q, atol_q, TOL["flash_attention_dq"][1])
+    flip_limit = {"flash_attention_dq": _flip_report("flash_attention_dq", [(dq, want_q, atol_q)]),
+                  "flash_attention_dkv": _flip_report("flash_attention_dkv", [(dk, want_k, atol_k),
+                                                                              (dv, want_v, atol_v)])}
+    # the least scalar atol each kernel's elements need above the limit's rtol
     needed = {"flash_attention_dq": _atol_needed("flash_attention_dq", [(dq, want_q)]),
               "flash_attention_dkv": _atol_needed("flash_attention_dkv",
                                                   [(dk, want_k), (dv, want_v)])}
-    err_kv = max(_over("flash_attention_dkv dk", dk, want_k, *TOL["flash_attention_dkv"]),
-                 _over("flash_attention_dkv dv", dv, want_v, *TOL["flash_attention_dkv"]))
+    rtol = TOL["flash_attention_dkv"][1]
+    err_kv = max(_over("flash_attention_dkv dk", dk, want_k, atol_k, rtol),
+                 _over("flash_attention_dkv dv", dv, want_v, atol_v, rtol))
     # no atomics: a second launch gives the same bits
     again_k, again_v = fa.flash_attention_dkv(*args)
     assert torch.equal(fa.flash_attention_dq(*args), dq), "flash_attention_dq is not deterministic"
@@ -4898,10 +5117,14 @@ def _split_bwd_rows(launches, steps):
     # the limits must reject wrong gradients: dS without the delta term,
     # and dK without the 1/sqrt(D) scale
     no_delta = fa.flash_attention_dq_reference(q, k, v, do, lse, torch.zeros_like(delta), True)
-    controls_q = {"no_delta": _rejected("flash_attention_dq", no_delta, want_q)}
-    controls_kv = {"dk_unscaled": _rejected("flash_attention_dkv", want_k.float() * math.sqrt(d),
-                                            want_k)}
-    del no_delta, again_k, again_v
+    unscaled = want_k.float() * math.sqrt(d)
+    controls_q = {"no_delta": _rejected("flash_attention_dq", no_delta, want_q, atol=atol_q)}
+    controls_kv = {"dk_unscaled": _rejected("flash_attention_dkv", unscaled, want_k, atol=atol_k)}
+    flip_limit["flash_attention_dq"]["no_delta_under_scalar_atol"] = _rejected(
+        "flash_attention_dq", no_delta, want_q)
+    flip_limit["flash_attention_dkv"]["dk_unscaled_under_scalar_atol"] = _rejected(
+        "flash_attention_dkv", unscaled, want_k)
+    del no_delta, unscaled, again_k, again_v, atol_q, atol_k, atol_v
     for c in (controls_q, controls_kv):
         assert all(v > 0.5 for v in c.values()), f"a two-kernel limit passes a wrong gradient: {c}"
     # both kernels at lengths that end inside a tile (the lse and delta
@@ -4930,7 +5153,7 @@ def _split_bwd_rows(launches, steps):
             "bound_ms": tb, "bound_by": by, "library_ms": library,
             "library_note": "F.scaled_dot_product_attention backward: dQ, dK and dV together",
             "rejected_share": controls, "deterministic": True,
-            "atol_needed": needed[name]})
+            "atol_needed": needed[name], "flip_limit": flip_limit[name]})
     for r, errs in zip(rows, ragged):
         r["ragged_max_abs_err"] = errs
     return rows
@@ -8515,7 +8738,7 @@ def main() -> int:
                        + _lm_cli_f32_rows(cli_launches))
     for r in rows:
         if r["name"] == "flash_attention_fwd_d32":
-            r["path_b"] = _fwd_d32_path_b(_flush_buffer())
+            r.update(_fwd_d32_entries(_flush_buffer()))
     if args.parent:
         # path (b)'s step and the bf16 attention kernels on this checkout,
         # between the older checkout's runs, by the same functions

@@ -8,7 +8,8 @@ from two sources, and four f32 kernels from a third:
   that never writes the ``[S, S]`` scores to device memory, returning O and
   the per-row logsumexp ``[B, H, S]`` f32 (plain, not the TPU kernel's
   128-lane replicated layout); a Hopper design (TMA loads, wgmma, the
-  softmax in registers);
+  softmax in registers), at head dim 32 one of its own (``d32::fwd_kernel``,
+  which the exponentials bound), taken by the C entry at every D 32 shape;
 - ``csrc/flash_attention_bwd.cu`` replaces the fused backward
   ``_dkvq_kernel``: dK, dV and dQ from one P per tile pair. As in JAX,
   each live (KV tile, Q tile) pair writes its f32 dQ partial once and a

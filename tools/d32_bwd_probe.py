@@ -27,8 +27,15 @@ time (``chip_smoke._bound``'s exponential term over the time). With
 ``--parent DIR`` (an older checkout) it also times that checkout's
 kernels 1, 7 and 8 at path (b)'s shape against this one's, in turns.
 
+With ``--limit [--older DIR]`` it prints only the backward limits'
+readings instead (:func:`limit_draws`): dQ and dK/dV of this checkout and
+of the older checkout ``DIR`` on the smoke's draw and 8 fresh draws at
+path (b)'s shape and at D 64, against the scalar limits and the flip
+limits of ``chip_smoke._flip_atols``.
+
 Run from the repository's root: ``python3 tools/d32_bwd_probe.py [--parent DIR]``
-(about four minutes of command on an H100).
+(about four minutes of command on an H100), or ``python3
+tools/d32_bwd_probe.py --limit [--older DIR]`` (about four minutes).
 """
 
 import argparse
@@ -147,9 +154,11 @@ extern "C" int run_ex2_rate(float* out, long long* cyc, int blocks, int threads,
 '''
 
 
-def _build(src_by_name, work):
+def _build(src_by_name, work, headers=None):
     """One shared library a name from source text, all nvcc runs at once
-    (the port's own compiler and flags, ``ops/build.py``)."""
+    (the port's own compiler and flags, ``ops/build.py``); each source
+    takes the headers of ``headers[name]`` (a ``csrc`` directory), else
+    this checkout's."""
     from distriflow_tpu_torch.ops import build
 
     procs = {}
@@ -157,7 +166,8 @@ def _build(src_by_name, work):
         d = os.path.join(work, name)
         os.makedirs(d, exist_ok=True)
         for h in ("common.cuh", "hopper.cuh"):
-            with open(os.path.join(CSRC, h)) as f, open(os.path.join(d, h), "w") as g:
+            with open(os.path.join((headers or {}).get(name, CSRC), h)) as f, \
+                    open(os.path.join(d, h), "w") as g:
                 g.write(f.read())
         cu = os.path.join(d, "k.cu")
         with open(cu, "w") as f:
@@ -313,9 +323,104 @@ def in_turns(parent, work):
     return out
 
 
+#: fresh generators (seeds beside chip_smoke.SEED) of the backward limits' draws
+LIMIT_DRAWS = tuple(range(41, 49))
+LOG2E = 1.4426950408889634
+
+
+def _dq_exp2_folded(q, k, v, do, lse, delta, causal):
+    """The plain dQ with P taken as exp2 of the folded argument, s_raw
+    (scale log2 e) - lse log2 e: a kernel's rounding of P, emulated."""
+    import torch
+
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def one(q, k, v, do, lse, delta):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        if causal:
+            s = s.masked_fill(~fa._causal_keep(q.shape[2], q.device), -math.inf)
+        p = torch.exp2(s * (scale * LOG2E) - lse.float()[..., None] * LOG2E)
+        dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+        ds = (p * (dp - delta.float()[..., None])).to(q.dtype).float()
+        return ((torch.matmul(ds, k.float()) * scale).to(q.dtype),)
+
+    return fa._per_head(one, q, k, v, do, lse, delta)[0]
+
+
+def limit_draws(older_so):
+    """The two-kernel backward at D 32 (path (b)'s shape, B8 H8 S16384
+    causal) and at D 64 (B1 H8 S16384) on the smoke's own draw and on each
+    fresh draw of :data:`LIMIT_DRAWS`: for dQ and for dK/dV of this
+    checkout's kernels, the older checkout's (``older_so``, through its C
+    entries) and, for dQ, the plain version with the folded exp2's P, the
+    atol each needs above the rtol around the plain version (the scalar
+    limit's reading), the flips of ``chip_smoke._flip_atols`` each needs
+    and its share of elements outside that limit; the share a dQ with
+    delta taken as 0 and a dK without its scale put outside the scalar
+    and the flip limits; each flip limit's atol (median, largest)."""
+    import torch
+
+    import chip_smoke as cs
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    older = _calls(_bind(older_so)) if older_so else None
+    out = {}
+    for label, b, d, nq, nkv in (("d32", cs.LM_CLI_B, 32, "flash_attention_dq_d32", "flash_attention_dkv_d32"),
+                                 ("d64", cs.LONG_TRAIN_B, 64, "flash_attention_dq", "flash_attention_dkv")):
+        rows = []
+        for seed in (("smoke",) if d == 32 else ()) + LIMIT_DRAWS:
+            g = torch.Generator(device="cuda").manual_seed(cs.SEED + (41 if seed == "smoke" else seed))
+            if seed == "smoke":  # the draws before the path's in _lm_cli_attention_rows
+                cs._bwd_inputs(g, cs.LM_CLI_B, 8, cs.LM_CLI["max_seq"], True, 32)
+                for ss, causal in cs.RAGGED_BWD:
+                    cs._bwd_inputs(g, 1, 8, ss, causal, 32)
+            args = cs._bwd_inputs(g, b, 8, cs.LM_CLI_LONG_S, True, d)
+            q, k, v, do, lse, delta, _ = args
+            row = {"seed": seed}
+            plain = fa.flash_attention_dq_reference(*args)
+            (atol,) = cs._flip_atols(nq, ("dq",), *args)
+            row["dq_atol"] = [float(atol.median()), float(atol.max())]
+            for who, fn in (("this", fa.flash_attention_dq), ("older", older and older[0]),
+                            ("exp2_folded", _dq_exp2_folded)):
+                if fn:
+                    got = fn(*args)
+                    row[f"dq_{who}"] = {"scalar_atol_needed": cs._atol_needed(nq, [(got, plain)]),
+                                        "flips_needed": cs._flips_needed(nq, got, plain, atol),
+                                        "outside": cs._rejected(nq, got, plain, atol=atol)}
+            no_delta = fa.flash_attention_dq_reference(q, k, v, do, lse, torch.zeros_like(delta), True)
+            row["dq_no_delta_outside"] = {"scalar": cs._rejected(nq, no_delta, plain),
+                                          "flip": cs._rejected(nq, no_delta, plain, atol=atol)}
+            del plain, atol, no_delta
+            plain = fa.flash_attention_dkv_reference(*args)
+            atols = cs._flip_atols(nkv, ("dk", "dv"), *args)
+            row["dkv_atol"] = [float(torch.cat([a.flatten() for a in atols]).median()),
+                               max(float(a.max()) for a in atols)]
+            for who, fn in (("this", fa.flash_attention_dkv), ("older", older and older[1])):
+                if fn:
+                    got = fn(*args)
+                    row[f"dkv_{who}"] = {
+                        "scalar_atol_needed": cs._atol_needed(nkv, list(zip(got, plain))),
+                        "flips_needed": max(cs._flips_needed(nkv, x, w, a) for x, w, a in zip(got, plain, atols)),
+                        "outside": max(cs._rejected(nkv, x, w, atol=a) for x, w, a in zip(got, plain, atols))}
+            unscaled = plain[0].float() * math.sqrt(d)
+            row["dk_unscaled_outside"] = {"scalar": cs._rejected(nkv, unscaled, plain[0]),
+                                          "flip": cs._rejected(nkv, unscaled, plain[0], atol=atols[0])}
+            rows.append(row)
+            del args, q, k, v, do, lse, delta, plain, atols, unscaled
+            torch.cuda.empty_cache()
+        out[label] = rows
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an older checkout to time against this one, in turns")
+    ap.add_argument("--limit", action="store_true",
+                    help="only the backward limits' draws (limit_draws), with --older")
+    ap.add_argument("--older", help="an older checkout whose dQ and dK/dV kernels the --limit draws "
+                                    "hold too")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
@@ -325,6 +430,17 @@ def main():
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+    if args.limit:
+        older_so = None
+        with tempfile.TemporaryDirectory() as work:
+            if args.older:
+                base = os.path.join(os.path.abspath(args.older), "distriflow_tpu_torch", "csrc")
+                with open(os.path.join(base, "flash_attention_bwd.cu")) as f:
+                    older_so = _build({"older": f.read()}, work, {"older": base})["older"]
+            print(json.dumps({"card": card, "torch": torch.__version__,
+                              "flips": __import__("chip_smoke").BWD_FLIPS,
+                              "limit_draws": limit_draws(older_so)}))
+        return
     with open(os.path.join(CSRC, "flash_attention_bwd.cu")) as f:
         src = f.read()
     from distriflow_tpu_torch.ops import build
