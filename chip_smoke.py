@@ -7,8 +7,9 @@ parent commit) also times that checkout's depthwise and dense CE kernels
 and its f32 and bf16 attention kernels on the same inputs, before and
 after this checkout's (rows 11-12, 9d, 10d, 1, 6, 7 and 8 in f32, 6, 7
 and 8 at D 32 and 64, kernel 1 at D 32 at every shape a path gives it
-and at D 64 at the training shape, ``was_ms``), and path (b)'s step
-(``path_b_step:``, this checkout's between the two).
+and at D 64 at the training shape, ``was_ms``), and path (b)'s and path
+(c)'s steps with a profile (``path_b_step:``, ``path_c_step:``, this
+checkout's between the two).
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all six
@@ -442,8 +443,12 @@ and at D 64 at the training shape, ``was_ms``), and path (b)'s step
     path's [S, S] scores). Rows ``flash_attention_bwd_d32``,
     ``flash_attention_dq_d32``, ``flash_attention_dkv_d32``,
     ``flash_attention_fwd_f32``, ``flash_attention_bwd_f32`` (and D 64
-    beside them), ``fused_ce_fwd_f32``, ``fused_ce_bwd_f32`` (N 4096 x V
-    256, and V 32000 beside them), ``fused_ce_dense_fwd_f32``,
+    beside them; kernel 6 in f32 holds dK and dV against the plain
+    version and dQ against its recipe in f64, ``exact``, at both head dims
+    and on ragged lengths, with SDPA's f32 backward on its math and
+    memory-efficient backends beside it), ``fused_ce_fwd_f32``,
+    ``fused_ce_bwd_f32`` (N 4096 x V 256, and V 32000 beside them),
+    ``fused_ce_dense_fwd_f32``,
     ``fused_ce_dense_bwd_f32`` (no path runs them),
     ``flash_decode_f32`` (B1, the CLI's f32 slab of 512; D 64 at B1
     S2048, 1064 valid), ``flash_decode_paged_f32`` (the serve leg's slots
@@ -455,12 +460,12 @@ and at D 64 at the training shape, ``was_ms``), and path (b)'s step
     shape: the limit, the same bits twice, planted faults rejected, ragged
     lengths (the attention rows; the f32 forward's at D 64 too), and its
     time beside its bound, its plain version (f32 with TF32 off) and a
-    library call. A NaN in q, k or v reaches the same outputs of the f32
-    forward, dQ and dK/dV kernels as of their plain versions
-    (``nan_reaches``). The ``nan_checks:`` line holds the same of the bf16
-    kernels: the forward and the two-kernel backward at D 32 and 64, the
-    fused CE forward on a NaN logit (sparse and dense, bf16 and f32, V 256
-    and 32000, the label's column and another) and decode on bf16, f32
+    library call. The ``nan_checks:`` line holds that a NaN in q, k or v
+    reaches the same outputs of the attention kernels as of their plain
+    versions: the forward and the two-kernel backward in bf16 and f32 at
+    D 32 and 64, and the f32 fused backward; and of the fused CE forward
+    on a NaN logit (sparse and dense, bf16 and f32, V 256 and 32000, the
+    label's column and another) and decode on bf16, f32
     and int8 caches (a NaN in q or in one live K position, paged and
     slab); each row it covers carries its result (``nan_reaches``). Row
     ``flash_attention_fwd_d32`` also holds and times kernel 1 at path
@@ -559,7 +564,9 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
        "flash_attention_dkv_d32": (1e-3, 2 ** -7),
        # f32 end to end: 1e-5 relative, beside an atol for elements near 0
        "flash_attention_fwd_f32": (1e-6, 1e-5),
-       "flash_attention_bwd_f32": (1e-6, 1e-5),
+       # kernel 6 in f32: dK and dV; its dQ is held to
+       # flash_attention_dq_f32_exact, see below
+       "flash_attention_bwd_f32": (8e-6, 1e-5),
        "fused_ce_fwd_f32": (1e-6, 1e-5),
        "fused_ce_bwd_f32": (1e-8, 1e-5),
        "fused_ce_dense_fwd_f32": (1e-6, 1e-5),
@@ -660,6 +667,28 @@ TOL = {"flash_attention_fwd": (2e-3, 2 ** -7),
 # 7e-6, under 3.1e-5 (one TF32 pass needs 3.1e-3); the kernel needs at
 # most 3.35e-6; delta 0 puts 99.999% and 100% of dQ outside it, one TF32
 # pass 97.1% and 97.2%.
+# Kernel 6 in f32 (the fused backward) runs all five products in split
+# precision, S and dP too, so none of its sums follows the plain
+# version's f32 rounding, and atol 1e-6 against the plain version, which
+# its FFMA predecessor held by summing S and dP in d order, is out of
+# reach of any recipe: at B8 H8 S512 causal (path (c)'s shape at D 32, and
+# D 64), over 3 draws, the recipe in f64 itself needs 3.3e-6 and 3.6e-6
+# on dQ, 1.0e-6 and 1.7e-6 on dK, 7.7e-7 and 2.3e-6 on dV against it
+# (tools/f32_fused_bwd_probe.py on the H100). So its dQ is held against
+# the f64 recipe under flash_attention_dq_f32_exact, by that entry's rule:
+# the f32 plain version needs at most 3.6e-6 there and 1.8e-6 on the
+# ragged lengths (RAGGED_F32_D64), under 7e-6; the kernel 2.1e-6 and 1.9e-6
+# (ragged 1.4e-6 and 1.3e-6); delta 0 puts over 99.99% of dQ outside it,
+# one TF32 pass over 97%. Its dK and dV keep the plain version as
+# reference, the limit moved by the rule of flash_attention_dkv_f32: the
+# kernel needs at most 2.6e-6 (D 64; 1.5e-6 at D 32, 1.4e-6 ragged), so
+# atol 8e-6 keeps a margin of 3; an unscaled dK puts over 99.99% of dK
+# outside it. Measured on the same draws against the f64 recipe, the
+# kernel lies nearer it than the plain version does (dQ 2.1e-6 against
+# 3.6e-6, dK 1.4e-6 against 1.7e-6, dV 0.9e-6 against 2.3e-6), with each
+# 8-wide k-step of every product in a fresh accumulator; with S and dP
+# in one accumulator of D / 8 k-steps (24 mma at D 64), dQ needed 9.9e-6
+# against the f64 recipe and dK/dV 4.7e-6 against the plain version.
 # The f32 decode kernels (kernels 2 and 3 on f32 caches) follow the bf16
 # decode rows' derivation without the output's bf16 rounding: they round q,
 # K, V and p to bf16 as their plain versions do, against the same running
@@ -2956,8 +2985,10 @@ def _lm_cli_attention_rows(launches):
     and 6 in f32 (B8 H8 S512 D32, path (c), and D 64 beside it). Each: the
     limit, the same bits on a second launch, planted faults rejected,
     ragged lengths, its time beside the bound, the plain version and a
-    library call."""
+    library call (kernel 6 in f32: SDPA's f32 backward on its math and
+    memory-efficient backends, the faster as ``library_ms``)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from distriflow_tpu_torch.ops import flash_attention as fa
 
@@ -3128,46 +3159,90 @@ def _lm_cli_attention_rows(launches):
                      d64=by_d[64], rejected_share=controls, deterministic=True,
                      ragged_max_abs_err=ragged[d]))
 
-    # kernel 6 in f32: the fused backward, D 32 and D 64 beside it
+    # kernel 6 in f32: the fused backward, D 32 and D 64 beside it. dK and
+    # dV are held against the plain version, dQ against its recipe in f64
+    # (TOL["flash_attention_dq_f32_exact"], as row 7 in f32) and reported
+    # against the plain version (see the note above TOL)
     name = "flash_attention_bwd_f32"
-    by_d, controls, needed = {}, {}, {}
+    by_d, controls, needed, ragged = {}, {}, {}, {}
     for dd in (d, 64):
         args = _bwd_inputs(g, b, h, s, True, dd, torch.float32)
         q, k, v, do, lse, delta, _ = args
         got, want = fa.flash_attention_backward(*args), fa.flash_attention_backward_reference(*args)
-        err = max(_over(f"{name} D{dd} d{x}", a, r, *TOL[name]) for x, a, r in zip("qkv", got, want))
+        err = max(_over(f"{name} D{dd} d{x}", a, r, *TOL[name])
+                  for x, a, r in zip("kv", got[1:], want[1:]))
         assert all(torch.equal(a, r) for a, r in zip(fa.flash_attention_backward(*args), got)), \
             f"{name} D{dd}: a second launch gave other bits"
         no_delta = fa.flash_attention_backward_reference(q, k, v, do, lse, torch.zeros_like(delta), True)
-        c = {"no_delta": _rejected(name, no_delta[0], want[0]),
-             "dk_unscaled": _rejected(name, want[1] * math.sqrt(dd), want[1]),
-             "tf32_plain_dq": _tf32_share(
-                 name, lambda: fa.flash_attention_backward_reference(*args), want[0])}
-        assert c["no_delta"] > 0.5 and c["dk_unscaled"] > 0.5, \
-            f"{name}: the limit passes a wrong gradient: {c}"
-        controls[f"D={dd}"] = c
-        needed[f"D={dd}"] = _atol_needed(name, list(zip(got, want)))
-        del got, want, no_delta
+        tf32 = _tf32_run(lambda: fa.flash_attention_backward_reference(*args))
+        exact = _dq_exact_check(f"D={dd}", got[0], want[0], args,
+                                {"no_delta": no_delta[0], "tf32_plain_dq": tf32[0]})
+        c = {"dk_unscaled": _rejected(name, want[1] * math.sqrt(dd), want[1]),
+             "tf32_plain_dk": _rejected(name, tf32[1], want[1]),
+             "tf32_plain_dv": _rejected(name, tf32[2], want[2])}
+        assert all(x > 0.5 for x in c.values()), f"{name}: the limit passes a wrong gradient: {c}"
+        controls[f"D={dd}"] = {**exact.pop("rejected_share"), **c}
+        needed[f"D={dd}"] = {"dk_dv": _atol_needed(name, list(zip(got[1:], want[1:]))),
+                             "dq_vs_plain": _atol_needed(name, [(got[0], want[0])]),
+                             "dq_vs_f64": exact["kernel_atol_needed"],
+                             "plain_dq_vs_f64": exact["plain_atol_needed"]}
+        err = max(err, float((got[0] - want[0]).abs().max()))
+        del got, want, no_delta, tf32
         pairs = s * (s + 1) // 2
-        tb, by = _bound(7 * b * h * s * dd * 4 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * dd,
-                        F32_FLOPS, exps=b * h * pairs)
+        # the five f32 products in split-precision TF32 (3 TF32 products
+        # each), with the FFMA peak's bound beside
+        nbytes, flops = 7 * b * h * s * dd * 4 + 2 * b * h * s * 4, 5 * 2 * b * h * pairs * dd
+        tb, by = _bound(nbytes, 3 * flops, TF32_FLOPS, exps=b * h * pairs)
+        library = {"math": _timed(sdpa_bwd(q, k, v, do, math_backend=True), 20, flush)}
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            library["efficient"] = _timed(sdpa_bwd(q, k, v, do), 20, flush)
+        best = min(library, key=library.get)
         by_d[dd] = {"shape": f"B={b} H={h} S={s} D={dd} causal f32", "max_abs_err": err,
                     "ms": _timed(lambda: fa.flash_attention_backward(*args), 20, flush),
                     "plain_ms": _timed(lambda: fa.flash_attention_backward_reference(*args), 3,
                                        flush),
                     "bound_ms": tb, "bound_by": by,
-                    "library_ms": _timed(sdpa_bwd(q, k, v, do, math_backend=True), 20, flush)}
-    ragged = _ragged_bwd(name, fa.flash_attention_backward, fa.flash_attention_backward_reference,
-                         g, 1, h, d, torch.float32)
+                    "bound_ffma_ms": _bound(nbytes, flops, F32_FLOPS, exps=b * h * pairs)[0],
+                    "library_ms": library[best], "library_by_backend": library,
+                    "library_note": f"F.scaled_dot_product_attention backward, f32 (TF32 off), "
+                                    f"the faster backend: {best}",
+                    "exact": exact}
+        ragged[dd] = _ragged_fused_f32(g, h, dd)
+    by_d[64]["ragged"] = ragged[64]
     main = by_d[d]
-    rows.append(_row(name, src_f32, "distriflow_tpu/ops/flash_attention.py:272", launches,
-                     main["max_abs_err"], main["shape"], ms=main["ms"], plain_ms=main["plain_ms"],
-                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                     library_ms=main["library_ms"],
-                     library_note="F.scaled_dot_product_attention backward, math backend, f32",
-                     d64=by_d[64], rejected_share=controls, deterministic=True,
-                     atol_needed=needed, ragged_max_abs_err=ragged))
+    row = _row(name, src_f32, "distriflow_tpu/ops/flash_attention.py:272", launches,
+               main["max_abs_err"], main["shape"],
+               **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ffma_ms",
+                                       "library_ms", "library_by_backend", "library_note", "exact")},
+               d64=by_d[64], rejected_share=controls, deterministic=True, atol_needed=needed,
+               ragged_max_abs_err=ragged[d])
+    row["tol"] = (f"dK, dV: {row['tol']}; dQ: "
+                  + _tol("flash_attention_dq_f32_exact").replace("|plain|", "|f64 recipe|"))
+    rows.append(row)
     return rows
+
+
+def _ragged_fused_f32(g, h, d):
+    """Kernel 6 in f32 (B1, ``h`` heads, head dim ``d``) on
+    :data:`RAGGED_F32_D64`'s lengths, inputs from ``g``: dK and dV held
+    against the plain version, dQ against its recipe in f64
+    (:func:`_dq_exact_check`); by length, the max abs error of each
+    gradient against the plain version and dQ's atol needed against the
+    f64 recipe."""
+    from distriflow_tpu_torch.ops import flash_attention as fa
+
+    name = "flash_attention_bwd_f32"
+    out = {}
+    for s, causal in RAGGED_F32_D64:
+        args = _bwd_inputs(g, 1, h, s, causal, d, torch.float32)
+        tag = f"S={s} {'causal' if causal else 'non-causal'}"
+        got, want = fa.flash_attention_backward(*args), fa.flash_attention_backward_reference(*args)
+        out[tag] = {"dk_dv": max(_over(f"{name} D{d} {tag} d{x}", a, w, *TOL[name])
+                                 for x, a, w in zip("kv", got[1:], want[1:])),
+                    "dq": float((got[0] - want[0]).abs().max()),
+                    "dq_vs_f64": _dq_exact_check(f"D={d} {tag}", got[0], want[0], args,
+                                                 {})["kernel_atol_needed"]}
+    return out
 
 
 def _lm_cli_ce_rows(launches):
@@ -3423,18 +3498,23 @@ def _bf16_attention_times():
     return out
 
 
-def _path_b_steps():
-    """Path (b)'s step on this process's package: ``--seq 16384 --remat``
-    at B 8 from the CLI's seeded tree, ``LM_CLI_LONG_STEPS`` steps on the
-    corpus windows :func:`_lm_cli_phase` trains on, then one more under
-    the profiler; ``{"step_ms_p50": ms, "profile": ...}``, what
-    ``--parent`` runs on an older checkout before and after this one's."""
+def _path_steps(path):
+    """Path (b)'s or path (c)'s step on this process's package (``path``
+    "b": ``--seq 16384 --remat``, ``LM_CLI_LONG_STEPS`` steps; "c":
+    ``--dtype float32``, ``LM_CLI_STEPS`` steps), at B 8 from the CLI's
+    seeded tree on the corpus windows :func:`_lm_cli_phase` trains on,
+    then one more under the profiler; ``{"step_ms_p50": ms, "profile":
+    ...}``, what ``--parent`` runs on an older checkout before and after
+    this one's."""
     cfg = _lm_cli_config()
     tree = _flagship_tree(cfg, np.random.default_rng(SEED + 40))
     corpus = _markov_corpus(CORPUS_TOKENS, SEED)
-    long_cfg = _lm_cli_config(max_seq=LM_CLI_LONG_S, remat=True)
-    batches = _corpus_windows(corpus, LM_CLI_B, LM_CLI_LONG_S, LM_CLI_LONG_STEPS + 1, SEED)
-    trainer, _, ms = _train(long_cfg, tree, batches[:-1], "cuda", LM_CLI_LR)
+    if path == "b":
+        run_cfg, steps = _lm_cli_config(max_seq=LM_CLI_LONG_S, remat=True), LM_CLI_LONG_STEPS
+    else:
+        run_cfg, steps = _lm_cli_config(dtype=torch.float32), LM_CLI_STEPS
+    batches = _corpus_windows(corpus, LM_CLI_B, run_cfg.max_seq, steps + 1, SEED)
+    trainer, _, ms = _train(run_cfg, tree, batches[:-1], "cuda", LM_CLI_LR)
     profile = _profiled(lambda: trainer.step(batches[-1]))
     del trainer
     return {"step_ms_p50": float(np.median(ms)), "profile": profile}
@@ -3882,9 +3962,6 @@ def _lm_cli_f32_rows(launches):
     for row, ragged in zip(rows[-2:], _ragged_f32_d64(h)):
         row["d64"]["ragged"] = ragged
     rows.append(_f32_fwd_long_row(launches, flush))
-    nan = _attention_nan_checks(h, torch.float32)
-    for row in rows[-3:]:
-        row["nan_reaches"] = nan
     return rows
 
 
@@ -3893,7 +3970,9 @@ def _attention_nan_checks(h, dtype):
     backward (kernels 7 and 8) in ``dtype`` at D 32 and D 64 (B1, ``h``
     heads, S 300 causal, inputs of their own generator) against their
     plain versions (f32: TF32 off): the split-precision kernels in f32,
-    and in bf16 the TMA/wgmma kernels (at D 32 the d32 pair)."""
+    and in bf16 the TMA/wgmma kernels (at D 32 the d32 pair); in f32 also
+    the forward with the fused backward (kernel 6) on the same inputs
+    (``fused D=...``)."""
     from distriflow_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + (49 if dtype == torch.float32 else 51))
@@ -3915,6 +3994,11 @@ def _attention_nan_checks(h, dtype):
         out[f"D={d}"] = _nan_check(f"{label} D={d}", fwd, bwd,
                                    lambda *a: fa.flash_attention_reference(*a, True), plain_bwd,
                                    q, k, v, do)
+        if dtype == torch.float32:
+            out[f"fused D={d}"] = _nan_check(
+                f"f32 kernels 1 and 6 D={d}", fwd, lambda *a: fa.flash_attention_backward(*a, True),
+                lambda *a: fa.flash_attention_reference(*a, True),
+                lambda *a: fa.flash_attention_backward_reference(*a, True), q, k, v, do)
     return out
 
 
@@ -4014,10 +4098,11 @@ def _decode_nan_checks(h):
 
 
 def _nan_phase(h):
-    """The NaN checks of the bf16 kernels (:func:`_attention_nan_checks`,
+    """The NaN checks (:func:`_attention_nan_checks` in bf16 and f32,
     :func:`_ce_nan_checks`, :func:`_decode_nan_checks`), each kernel's
     outputs against its plain version's."""
-    return {"attention_bf16": _attention_nan_checks(h, torch.bfloat16), "fused_ce_fwd": _ce_nan_checks(),
+    return {"attention_bf16": _attention_nan_checks(h, torch.bfloat16),
+            "attention_f32": _attention_nan_checks(h, torch.float32), "fused_ce_fwd": _ce_nan_checks(),
             "decode": _decode_nan_checks(h)}
 
 
@@ -4025,6 +4110,9 @@ def _nan_phase(h):
 NAN_ROWS = {**{k: "attention_bf16" for k in (
     "flash_attention_fwd", "flash_attention_fwd_d32", "flash_attention_dq", "flash_attention_dkv",
     "flash_attention_dq_d32", "flash_attention_dkv_d32")},
+    **{k: "attention_f32" for k in (
+        "flash_attention_fwd_f32", "flash_attention_bwd_f32", "flash_attention_dq_f32",
+        "flash_attention_dkv_f32", "flash_attention_fwd_f32_long")},
     **{k: "fused_ce_fwd" for k in ("fused_ce_fwd", "fused_ce_dense_fwd", "fused_ce_fwd_f32",
                                    "fused_ce_dense_fwd_f32")},
     **{k: "decode" for k in ("flash_decode_paged", "flash_decode", "flash_decode_paged_int8",
@@ -8733,7 +8821,8 @@ def main() -> int:
     # an older checkout's f32 attention kernels before and after this one's
     f32_was = [_parent_times(args.parent, "_f32_attention_times")] if args.parent else []
     bf16_was = [_parent_times(args.parent, "_bf16_attention_times")] if args.parent else []
-    steps_was = [_parent_report(args.parent, "_path_b_steps")] if args.parent else []
+    steps_was = {p: [_parent_report(args.parent, "_path_steps", p)] if args.parent else []
+                 for p in "bc"}
     cli_kernel_rows = (_lm_cli_attention_rows(cli_launches) + _lm_cli_ce_rows(cli_launches)
                        + _lm_cli_f32_rows(cli_launches))
     for r in rows:
@@ -8742,21 +8831,22 @@ def main() -> int:
     if args.parent:
         # path (b)'s step and the bf16 attention kernels on this checkout,
         # between the older checkout's runs, by the same functions
-        step_now = _path_b_steps()
+        step_now = {p: _path_steps(p) for p in "bc"}
         bf16_now = _bf16_attention_times()
         f32_was.append(_parent_times(args.parent, "_f32_attention_times"))
         bf16_was.append(_parent_times(args.parent, "_bf16_attention_times"))
-        steps_was.append(_parent_report(args.parent, "_path_b_steps"))
-        print("path_b_step:", json.dumps({
-            "step_ms_p50": step_now["step_ms_p50"], "profile": step_now["profile"],
-            "lm_cli_long_step_ms_p50": cli_report["long"]["step_ms_p50"],
-            "was_step_ms_p50": [w["step_ms_p50"] for w in steps_was],
-            "was_profile": steps_was[0]["profile"]}), flush=True)
+        for p, window in (("b", "long"), ("c", "float32")):
+            steps_was[p].append(_parent_report(args.parent, "_path_steps", p))
+            print(f"path_{p}_step:", json.dumps({
+                "step_ms_p50": step_now[p]["step_ms_p50"], "profile": step_now[p]["profile"],
+                f"lm_cli_{window}_step_ms_p50": cli_report[window]["step_ms_p50"],
+                "was_step_ms_p50": [w["step_ms_p50"] for w in steps_was[p]],
+                "was_profile": steps_was[p][0]["profile"]}), flush=True)
         print("bf16_attention_times:", json.dumps({"now": bf16_now, "was": bf16_was}), flush=True)
     rows += _with_f32_was(cli_kernel_rows, f32_was)
     _with_bf16_was(rows, bf16_was)
-    # a NaN in an input reaches the bf16 forward's, the fused CE forward's
-    # and the decode kernels' outputs as their plain versions'
+    # a NaN in an input reaches the attention kernels', the fused CE
+    # forward's and the decode kernels' outputs as their plain versions'
     t0 = time.perf_counter()
     nan = _nan_phase(LM_CLI["n_heads"])
     print("nan_checks:", json.dumps({**nan, "phase_s": time.perf_counter() - t0}), flush=True)

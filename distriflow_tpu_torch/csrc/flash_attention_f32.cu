@@ -1,6 +1,5 @@
-// Attention forward and backward in f32: the fused backward on the CUDA
-// cores (FFMA), the forward and the two-kernel backward on the tensor
-// cores in split-precision TF32.
+// Attention forward and backward in f32, on the tensor cores in
+// split-precision TF32.
 //
 // Replaces the Pallas TPU kernels of the JAX package on f32 inputs
 //   distriflow_tpu/ops/flash_attention.py::_fwd_kernel   (forward: O and lse)
@@ -9,10 +8,10 @@
 //   distriflow_tpu/ops/flash_attention.py::_dkv_kernel   (two-kernel layout: dK, dV)
 // and the sum over the fused kernel's dQ partials that the JAX package
 // leaves to XLA (flash_attention.py:605). JAX runs them on f32 inputs for a
-// model whose compute dtype is f32 (the LM CLI's --dtype float32; the
-// two-kernel layout past 2048 positions, as at --seq 16384), with f32
-// operands and f32 accumulation. Every kernel here keeps f32's accuracy.
-// Built for head dims 64 and 32 (template D).
+// model whose compute dtype is f32 (the LM CLI's --dtype float32: the
+// fused layout up to 2048 positions, the two-kernel layout past them, as at
+// --seq 16384), with f32 operands and f32 accumulation. Every kernel here
+// keeps f32's accuracy. Built for head dims 64 and 32 (template D).
 //
 // Numeric contract (flash_attention.py:103-159 and 297-336 at f32): the
 // scores q.k are summed in f32 and scaled after the sum; masked scores
@@ -21,87 +20,80 @@
 // delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K, every value f32
 // (JAX's casts of P and dS to the input dtype are no-ops at f32).
 //
-// The FFMA kernel (fused backward): a block of 256 threads owns 64 keys,
-// four threads a key. The block walks the Q tiles from the causal bound
-// on; for each it writes P^T and dS^T (16 queries a thread) into shared
-// memory, rows padded to D + 1 floats so that the four threads of a key
-// and the eight keys of a warp read distinct banks, adds to dK and dV (D /
-// 4 columns a thread, in registers), and writes the Q tile's f32 dQ
-// partial dS.K once into dqp[kv_tile, bh, q, :]. A second kernel sums
-// each row's live partials in ascending KV tile.
+// Split precision (namespace split3). One TF32 pass would keep 10 of f32's
+// 23 mantissa bits and fail f32's limits (chip_smoke.py's tf32_plain
+// controls). Split precision does not: each operand x is split once per
+// tile into big = tf32(x) (cvt.rna) and small = tf32(x - big), where x -
+// big is exact in f32, so big + small holds x to about 2^-22 of its
+// magnitude; a NaN stays NaN in both parts, so a NaN input reaches the
+// outputs as in the plain version. Each product a.b is three tensor-core
+// products, a_small.b_big + a_big.b_small + a_big.b_big, summed in f32;
+// the dropped a_small.b_small is of the same order. The tensor cores
+// truncate each mma's f32 sum (on the H100 an exact sum 1.75 ulp above 1
+// comes out 1 ulp above: tools/f32_dq_limit_probe.py), so no sum runs long
+// in one accumulator: the forward's S and the fused backward's five
+// products take a fresh accumulator for each 8-wide k-step (3 mma), added
+// in f32 on the CUDA cores (the fused kernel's S and dP with one
+// accumulator of 24 mma at D 64 put dQ 9.9e-6 from its f64 recipe, with a
+// fresh one a k-step 1.9e-6: tools/f32_fused_bwd_probe.py); the two-kernel
+// layout's S and dP take one accumulator (at most 24 mma), its dK and dV
+// and the forward's O a fresh one for each streamed tile, rescaled and
+// added to the running sum in f32. The two-kernel dQ kernel runs dQ += dS K
+// so and keeps S and dP as FFMA sums over d in order, as the plain
+// version's f32 products take them: its limit (atol 1e-6 against the plain
+// version) tracks the cancellation in dP - delta to within the plain
+// version's own rounding of dP, and at B8 H8 S16384 D32 a recipe with dP
+// split falls outside it, and so does the exact (f64) recipe
+// (tools/f32_dq_limit_probe.py). So dQ, of the fused kernel as of the dQ
+// kernel, is held against the f64 recipe, which shares no f32 rounding with
+// either, at atol 7e-6 (chip_smoke.py's flash_attention_dq_f32_exact); the
+// fused kernel's dK and dV against the plain version at atol 8e-6, its S
+// and dP split as well (chip_smoke.py's TOL notes). Everything else stays
+// f32 on the CUDA cores: the scale after the sum, expf, the masks (masked
+// scores carry exactly zero mass), the online softmax, P (dP - delta).
+// The forward's limit (atol 1e-6 + rtol 1e-5 of the plain version) holds
+// with both its products split: at the JAX LM CLI's path (d) shape, B8 H8
+// S16384 D32 causal, the recipe with S and P V split needs atol 5.1e-7
+// for O, at B8 H8 S512 D64 7.4e-7, where one TF32 pass needs 1.2e-3 to
+// 1.8e-3 (tools/f32_fwd_limit_probe.py on the H100; the recipe sums each
+// product in f32 without the tensor cores' truncation).
 //
-// The forward and the two-kernel backward (namespace split3: fwd_kernel<D>,
-// dq_kernel<D>, dkv_kernel<D>), on the tensor cores in split-precision
-// TF32. One TF32 pass would keep 10 of f32's 23 mantissa bits and fail
-// f32's limits (chip_smoke.py's tf32_plain control). Split precision does
-// not: each operand x is split once per tile into big = tf32(x)
-// (cvt.rna) and small = tf32(x - big), where x - big is exact in f32, so
-// big + small holds x to about 2^-22 of its magnitude; a NaN stays NaN in
-// both parts, so a NaN input reaches the outputs as in the plain version.
-// Each product a.b is three tensor-core products, a_small.b_big +
-// a_big.b_small + a_big.b_big, summed in f32; the dropped a_small.b_small
-// is of the same order. The tensor cores truncate each mma's f32 sum (on
-// the H100 an exact sum 1.75 ulp above 1 comes out 1 ulp above:
-// tools/f32_dq_limit_probe.py), so no sum runs long in one accumulator.
-// A score (S or dP, a sum over D) takes one accumulator, at most 24 mma
-// (the forward's S, held to a tighter limit, one for each 8-wide k-step);
-// the forward's O takes a fresh accumulator for each 64-key tile (24
-// mma), rescaled and added to the running O in f32 on the CUDA cores; dK
-// and dV take a fresh accumulator for each streamed tile (12 mma), added
-// to the running sum in f32 on the CUDA cores; dQ, whose limit is the tightest, one for
-// each 8-wide k-step (3 mma). The dK/dV kernel runs all four products so:
-// S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q. The dQ kernel runs
-// dQ += dS K so, and keeps S and dP as FFMA sums over d in order, as the
-// plain version's f32 products take them. dQ's limit (atol 1e-6) tracks the
-// cancellation in dP - delta to within the plain version's own rounding of
-// dP: at B8 H8 S16384 D32 a recipe with dP split falls outside it, and so
-// does the exact (f64) recipe (tools/f32_dq_limit_probe.py), while the
-// kernel, with dP and S as FFMA sums, holds it. So dQ is also held
-// against the f64 recipe, which shares no f32 rounding with it, at atol
-// 7e-6 (chip_smoke.py's flash_attention_dq_f32_exact). Everything
-// else stays f32 on the CUDA cores: the scale after the sum, expf, the masks
-// (masked scores carry exactly zero mass), the online softmax, P (dP -
-// delta). The forward's limit (atol 1e-6 + rtol 1e-5 of the plain
-// version) holds with both its products split: at the JAX LM CLI's path
-// (d) shape, B8 H8 S16384 D32 causal, the recipe with S and P V split
-// needs atol 5.1e-7 for O, at B8 H8 S512 D64 7.4e-7, where one TF32 pass
-// needs 1.2e-3 to 1.8e-3 (tools/f32_fwd_limit_probe.py on the H100; the
-// recipe sums each product in f32 without the tensor cores' truncation).
 // Route: mma.sync.m16n8k8 tf32, fragments read from padded shared memory.
 // wgmma takes tf32 operands only K-major, and three of the products (dS K,
 // P^T dO, dS^T Q) read their B operand MN-major; mma.sync reads any
 // layout, and its accumulator layout is the A layout of the next product
 // once the k index is permuted (key 2t in A column t, key 2t + 1 in column
 // t + 4, with B's rows to match), so the forward takes P and the dK/dV
-// kernel P^T and dS^T from accumulators to A fragments in registers; the
-// dQ kernel's dS goes through a warp-private tile in shared memory. A
-// block of 8 warps owns 128 resident rows, 16 a warp (forward: the
-// queries, Q split once into A fragments in registers; dQ: the queries,
-// with Q and dO; dK/dV: the keys, with K and V, split into big and small
-// in shared memory once); the streamed tiles (the forward's K and V, 64
-// rows; the dQ kernel's K and V, 64 rows at D 32 and 32 at D 64; the
-// dK/dV kernel's Q, dO, lse and delta, 32 rows, so that at D 32 two of its
-// blocks share an SM) come through a ring of two stages by cp.async
-// (16-byte copies, rows past S zero-filled), each split once it has
-// landed. Rows are padded to D + 4 floats, so every fragment load hits
-// distinct banks. O and lse, dQ, dK and dV are written once at the end: no
-// partials, no atomics.
-// No kernel here uses atomics: every launch gives the same bits.
+// products P^T and dS^T from accumulators to A fragments in registers; the
+// dQ products read dS from shared memory (the dQ kernel a warp-private
+// tile, the fused kernel one tile a block). A block of 8 warps (the fused
+// kernel's: 4) owns 16 resident rows a warp (forward: the queries, Q split
+// once into A fragments in registers; dQ: the queries, with Q and dO; dK/dV
+// and fused: the keys, with K and V, split into big and small in shared
+// memory once); the streamed tiles (the forward's K and V, 64 rows; the dQ
+// kernel's K and V, 64 rows at D 32 and 32 at D 64; the dK/dV kernel's Q,
+// dO, lse and delta, 32 rows; the fused kernel's, 32 rows at D 32 and 16
+// at D 64, so that two of its blocks share an SM) come through a ring of
+// two stages by cp.async (16-byte copies, rows past S zero-filled), each
+// split once it has landed. Rows are padded to D + 4 floats, so every
+// fragment load hits distinct banks. O and lse, dQ, dK and dV are written
+// once at the end, the fused kernel's dQ partials once per (key block, Q
+// tile) into dqp and summed by a second kernel in ascending key block: no
+// atomics, so every launch gives the same bits.
 //
 // Bound: per (b, h) the forward does 4 S^2 D FLOPs, the fused backward 10
 // S^2 D, the dQ kernel 6 S^2 D and the dK/dV kernel 8 S^2 D (halved when
-// causal) against 4 S D, 8 S D, 5 S D and 6 S D f32 values moved, so from
-// a few dozen positions on the floor is operations. For the FFMA kernel
-// that is the f32 peak of 67 TFLOP/s; each FMA takes one operand from
-// shared memory, so it runs at a fraction of it. Split precision runs
+// causal) against 4 S D, 7 S D, 5 S D and 6 S D f32 values moved, so from
+// a few dozen positions on the floor is operations. Split precision runs
 // three TF32 products for each f32 one at 495 TFLOP/s: 165 TFLOP/s of
-// f32-accurate products, the rate that bounds the forward and both
-// two-kernel backward functions. At B8 H8 S16384 D32 causal the forward's
-// bound is 6.66 ms, the dK/dV bound 13.33 ms and the dQ bound 9.99 ms
-// (16.41, 32.82 and 24.62 at the FFMA peak). The dQ kernel runs
-// two of its three products (S, dP) as FFMA, so the work as it runs it
-// takes at least 19.74 ms; it keeps them there for its limit, as above.
-// Their times stand beside their bounds in PERF.md.
+// f32-accurate products, the rate that bounds every function here. At B8
+// H8 S16384 D32 causal the forward's bound is 6.66 ms, the dK/dV bound
+// 13.33 ms and the dQ bound 9.99 ms (16.41, 32.82 and 24.62 at the FFMA
+// peak of 67 TFLOP/s); the fused backward's at B8 H8 S512 D32 causal
+// 0.0163 ms (0.0401 at the FFMA peak). The dQ kernel runs two of its three
+// products (S, dP) as FFMA, so the work as it runs it takes at least 19.74
+// ms; it keeps them there for its limit, as above. Their times stand
+// beside their bounds in PERF.md.
 
 #include <cstdint>
 
@@ -109,188 +101,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;                 // a block's keys
-constexpr int kTile = 64;                 // a streamed tile of queries
-constexpr int kLanes = kThreads / kRows;  // threads a row
-constexpr int kPer = kTile / kLanes;      // tile columns a thread
-constexpr int kPPad = kTile + 1;          // a padded row of a [64, 64] P or dS tile
-
 template <typename Kernel>
 int prepare(Kernel kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
-}
-
-// Rows [r0, r0 + 64) of a [S, D] f32 slice into a tile of rows padded to
-// D + 1 floats; rows past S read as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0, int S) {
-  for (int e = threadIdx.x; e < kRows * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] = r0 + r < S ? src[static_cast<int64_t>(r0 + r) * D + c] : 0.f;
-  }
-}
-
-template <int D>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (4 * kRows * (D + 1) + 2 * kRows * kPPad + 2 * kTile);
-}
-
-// The KV tiles whose dQ partial the fused kernel writes for Q tile
-// `q_tile`: all of them unless causal, else those at or before it (the
-// tiles are both 64 rows). The second pass reads exactly these.
-__device__ __forceinline__ int live_kv_tiles(int q_tile, int S, int causal) {
-  const int n_kv = (S + kRows - 1) / kRows;
-  return causal && q_tile + 1 < n_kv ? q_tile + 1 : n_kv;
-}
-
-// The fused backward: one block per (b*h, 64-key K/V tile), in ascending
-// order.
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-    float* __restrict__ dqp, int S, float scale, int causal) {
-  constexpr int kPad = D + 1;
-  extern __shared__ float smem[];
-  float* k_s = smem;  // this block's keys and values
-  float* v_s = k_s + kRows * kPad;
-  float* q_s = v_s + kRows * kPad;  // the streamed Q and dO tiles
-  float* do_s = q_s + kTile * kPad;
-  float* pt_s = do_s + kTile * kPad;  // P^T [64 keys][64 queries]
-  float* dst_s = pt_s + kRows * kPPad;  // dS^T
-  float* lse_s = dst_s + kRows * kPPad;
-  float* delta_s = lse_s + kTile;
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kRows;
-  const int64_t base = static_cast<int64_t>(bh) * S * D;
-  const int r = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
-  const int key = k0 + r;
-  // causal: Q tiles wholly before this K tile see none of it
-  const int qt0 = causal ? k0 / kTile : 0;
-  const int n_qt = (S + kTile - 1) / kTile;
-
-  load_tile<D>(k_s, k + base, k0, S);
-  load_tile<D>(v_s, v + base, k0, S);
-  float acc_dk[D / kLanes], acc_dv[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // every thread is done with the previous Q tile (and K/V have landed)
-    load_tile<D>(q_s, q + base, q0, S);
-    load_tile<D>(do_s, dout + base, q0, S);
-    for (int e = threadIdx.x; e < kTile; e += kThreads) {
-      const bool in = q0 + e < S;
-      lse_s[e] = in ? lse[static_cast<int64_t>(bh) * S + q0 + e] : 0.f;
-      delta_s[e] = in ? delta[static_cast<int64_t>(bh) * S + q0 + e] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T and dP^T for this thread's key and queries 4 j + lane
-    float s[kPer], dp[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[j] = dp[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float kd = k_s[r * kPad + d], vd = v_s[r * kPad + d];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int qi = lane + kLanes * j;
-        s[j] = fmaf(kd, q_s[qi * kPad + d], s[j]);
-        dp[j] = fmaf(vd, do_s[qi * kPad + d], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int qi = lane + kLanes * j;
-      const int qpos = q0 + qi;
-      float p = expf(s[j] * scale - lse_s[qi]);
-      if (qpos >= S || key >= S || (causal && qpos < key)) p = 0.f;
-      pt_s[r * kPPad + qi] = p;
-      dst_s[r * kPPad + qi] = p * (dp[j] - delta_s[qi]);
-    }
-    __syncthreads();  // dQ reads every key's dS^T
-
-    // dV += P^T dO and dK += dS^T Q for this thread's key
-#pragma unroll 4
-    for (int qi = 0; qi < kTile; ++qi) {
-      const float p = pt_s[r * kPPad + qi], ds = dst_s[r * kPPad + qi];
-#pragma unroll
-      for (int i = 0; i < D / kLanes; ++i) {
-        const int c = lane + kLanes * i;
-        acc_dv[i] = fmaf(p, do_s[qi * kPad + c], acc_dv[i]);
-        acc_dk[i] = fmaf(ds, q_s[qi * kPad + c], acc_dk[i]);
-      }
-    }
-    {
-      // the Q tile's dQ partial dS.K over this block's keys: query row q0 + r
-      float acc_dq[D / kLanes];
-#pragma unroll
-      for (int i = 0; i < D / kLanes; ++i) acc_dq[i] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < kRows; ++kk) {
-        const float ds = dst_s[kk * kPPad + r];
-#pragma unroll
-        for (int i = 0; i < D / kLanes; ++i)
-          acc_dq[i] = fmaf(ds, k_s[kk * kPad + lane + kLanes * i], acc_dq[i]);
-      }
-      const int qrow = q0 + r;
-      if (qrow < S) {
-        float* dst = dqp + ((static_cast<int64_t>(blockIdx.y) * gridDim.x + bh) * S + qrow) * D;
-#pragma unroll
-        for (int i = 0; i < D / kLanes; ++i) dst[lane + kLanes * i] = acc_dq[i];
-      }
-    }
-  }
-
-  if (key < S) {
-    const int64_t off = base + static_cast<int64_t>(key) * D;
-#pragma unroll
-    for (int i = 0; i < D / kLanes; ++i) {
-      dk[off + lane + kLanes * i] = acc_dk[i] * scale;
-      dv[off + lane + kLanes * i] = acc_dv[i];
-    }
-  }
-}
-
-// The fused backward's second pass: dq = scale * sum of dqp[j] over the
-// live KV tiles j of each row's Q tile, in ascending j; one thread an
-// element (n = B*H * S * D).
-__global__ void __launch_bounds__(256) dq_sum_kernel(const float* __restrict__ dqp,
-                                                     float* __restrict__ dq, int64_t n, int S,
-                                                     int D, float scale, int causal) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int row = static_cast<int>((i / D) % S);
-  const int stop = live_kv_tiles(row / kTile, S, causal);
-  float acc = dqp[i];
-  for (int j = 1; j < stop; ++j) acc += dqp[i + j * n];
-  dq[i] = acc * scale;
-}
-
-template <int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, void* dqp, void* dq, int BH, int S,
-               int causal, float scale, cudaStream_t st) {
-  constexpr size_t bytes = bwd_smem_bytes<D>();
-  int err = prepare(bwd_kernel<D>, bytes);
-  if (err) return err;
-  bwd_kernel<D><<<dim3(BH, (S + kRows - 1) / kRows), kThreads, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<float*>(dqp), S, scale, causal);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const int64_t n = static_cast<int64_t>(BH) * S * D;
-  dq_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(dqp), static_cast<float*>(dq), n, S, D, scale, causal);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The two-kernel backward in split-precision TF32 (see the note at the top).
@@ -429,11 +243,11 @@ __device__ __forceinline__ void cp_wait_all_but_one() {
 }
 
 // Rows [r0, r0 + Rows) of a [S, D] f32 slice into a padded tile by
-// cp.async; rows past S are zero-filled.
-template <int D, int Rows>
+// cp.async, by a block of Threads threads; rows past S are zero-filled.
+template <int D, int Rows, int Threads = kThreads>
 __device__ __forceinline__ void stage(uint32_t* dst, const float* __restrict__ src, int r0, int S) {
   constexpr int kChunks = D / 4;
-  for (int e = threadIdx.x; e < Rows * kChunks; e += kThreads) {
+  for (int e = threadIdx.x; e < Rows * kChunks; e += Threads) {
     const int r = e / kChunks, c = 4 * (e % kChunks);
     const bool in = r0 + r < S;
     cp_async16(dst + r * kPitch<D> + c, src + (in ? static_cast<int64_t>(r0 + r) * D + c : 0), in);
@@ -441,10 +255,10 @@ __device__ __forceinline__ void stage(uint32_t* dst, const float* __restrict__ s
 }
 
 // A landed tile split into big and small (src may be big: in place).
-template <int D, int Rows>
+template <int D, int Rows, int Threads = kThreads>
 __device__ __forceinline__ void split_tile(const uint32_t* src, uint32_t* big, uint32_t* small) {
   constexpr int kChunks = D / 4;
-  for (int e = threadIdx.x; e < Rows * kChunks; e += kThreads) {
+  for (int e = threadIdx.x; e < Rows * kChunks; e += Threads) {
     const int off = (e / kChunks) * kPitch<D> + 4 * (e % kChunks);
     const uint4 x = *reinterpret_cast<const uint4*>(src + off);
     uint4 b, s;
@@ -761,6 +575,274 @@ __global__ void __launch_bounds__(kThreads, kDkvBlocks<D>) dkv_kernel(
   }
 }
 
+// The fused backward's block by head dim: kWarps warps own 16 keys each
+// (the block's resident keys, with their values), and the queries come in
+// streamed tiles of kRows. At B8 H8 S512 causal on the H100
+// (tools/f32_fused_bwd_probe.py), 64 keys (two blocks an SM, 207 and 227
+// registers) took 0.1034 ms at D 32 and 0.1910 at D 64, against 0.1210
+// and 0.2235 for 128 keys (8 warps, one block an SM) and 0.1313 and
+// 0.2390 for 32; 16-query tiles at D 32 took 0.1185 (at D 64 32 rows
+// would leave one block an SM).
+template <int D>
+struct FusedShape;
+template <>
+struct FusedShape<32> {
+  static constexpr int kWarps = 4, kRows = 32;
+};
+template <>
+struct FusedShape<64> {
+  static constexpr int kWarps = 4, kRows = 16;
+};
+
+// The fused backward's shared memory, in words: K and V (big and small)
+// for the block's keys, two stages of the streamed Q and dO (big and
+// small) and their lse and delta, and the tile's dS (big and small), one
+// row a query padded to keys + 8 words (8-byte fragment loads hit
+// distinct banks).
+template <int D, int kW, int kN>
+constexpr size_t fused_smem_bytes() {
+  return sizeof(uint32_t) *
+         (kPitch<D> * (4 * 16 * kW + 2 * 4 * kN) + 2 * 2 * kN + 2 * kN * (16 * kW + 8));
+}
+
+// Blocks an SM for the shared memory (228 KB an SM, 1 KB of it a block's).
+template <int D, int kW, int kN>
+constexpr int kFusedBlocks = 2 * (fused_smem_bytes<D, kW, kN>() + 1024) <= 233472 ? 2 : 1;
+
+// The fused backward: dK, dV and the dQ partials, one block per (b*h,
+// block of 16 kW keys), in ascending order (the longest causal walks
+// first). Warp w owns keys 16 w .. 16 w + 15; the Q tiles stream as in
+// dkv_kernel and each runs S^T and dP^T, then dV += P^T dO and dK +=
+// dS^T Q from the accumulators, as there. Each warp also writes its keys'
+// dS^T, split, into the block's [kN queries x keys] dS tile; after one
+// barrier the warps share the tile's dQ partial dS K over the block's keys
+// (m16 x n8 output tiles, kPer a warp, each 8-key k-step in a fresh
+// accumulator added in f32), written once into dqp[block, bh, q, :].
+template <int D, int kW, int kN>
+__global__ void __launch_bounds__(32 * kW, (kFusedBlocks<D, kW, kN>)) bwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ dqp, int S, float scale, int causal) {
+  constexpr int kT = 32 * kW;      // threads
+  constexpr int kKeys = 16 * kW;   // the block's keys
+  constexpr int kP = kPitch<D>;
+  constexpr int kSP = kKeys + 8;   // a row of the dS tile
+  constexpr int kTn = kN / 8;      // n-tiles of S^T and dP^T; k-steps of P^T dO and dS^T Q
+  constexpr int kD = D / 8;        // k-steps of S^T and dP^T; n-tiles of the other products
+  constexpr int kPer = (kN / 16) * kD / kW;  // the warp's m16 x n8 tiles of the dQ partial
+  static_assert(kPer >= 1 && (kN / 16) * kD % kW == 0 && kD % kPer == 0,
+                "the dQ partial's tiles must share out evenly, a warp's in one row of tiles");
+  extern __shared__ __align__(16) uint32_t split_smem[];
+  uint32_t* const kb = split_smem;
+  uint32_t* const ks = kb + kKeys * kP;
+  uint32_t* const vb = ks + kKeys * kP;
+  uint32_t* const vs = vb + kKeys * kP;
+  // each stage: Q (f32, then big), Q small, dO (f32, then big), dO small
+  auto streamed = [&](int st, int i) { return split_smem + 4 * kKeys * kP + (st * 4 + i) * kN * kP; };
+  float* const rowvec = reinterpret_cast<float*>(split_smem + 4 * kKeys * kP + 8 * kN * kP);
+  uint32_t* const dsb = split_smem + 4 * kKeys * kP + 8 * kN * kP + 4 * kN;
+  uint32_t* const dss = dsb + kN * kSP;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kKeys;
+  const int64_t base = static_cast<int64_t>(bh) * S * D;
+  const float* lse_bh = lse + static_cast<int64_t>(bh) * S;
+  const float* delta_bh = delta + static_cast<int64_t>(bh) * S;
+  float* const dqp_blk = dqp + (static_cast<int64_t>(blockIdx.y) * gridDim.x + bh) * S * D;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int wr = 16 * warp;
+  // the warp's dQ tiles: rows 16 pm .., columns 8 (pn + i) ..
+  const int pm = warp * kPer / kD, pn = warp * kPer % kD;
+  // causal: Q tiles wholly before this block's keys see none of them
+  const int qt0 = causal ? k0 / kN : 0;
+  const int n_qt = (S + kN - 1) / kN;
+
+  auto stage_q = [&](int st, int q0) {
+    stage<D, kN, kT>(streamed(st, 0), q + base, q0, S);
+    stage<D, kN, kT>(streamed(st, 2), dout + base, q0, S);
+    for (int e = threadIdx.x; e < 2 * kN; e += kT) {
+      const int r = e % kN;
+      const bool in = q0 + r < S;
+      cp_async4(rowvec + (st * 2 + e / kN) * kN + r, (e < kN ? lse_bh : delta_bh) + (in ? q0 + r : 0),
+                in);
+    }
+  };
+  stage<D, kKeys, kT>(kb, k + base, k0, S);
+  stage<D, kKeys, kT>(vb, v + base, k0, S);
+  stage_q(0, qt0 * kN);
+  cp_commit();
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key[i] = k0 + wr + g + 8 * i;
+  float acc_dk[kD][4], acc_dv[kD][4];
+#pragma unroll
+  for (int n = 0; n < kD; ++n) {
+    zero(acc_dk[n]);
+    zero(acc_dv[n]);
+  }
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int st = (qt - qt0) & 1, q0 = qt * kN;
+    if (qt + 1 < n_qt) stage_q(st ^ 1, q0 + kN);
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    if (qt == qt0) {
+      split_tile<D, kKeys, kT>(kb, kb, ks);
+      split_tile<D, kKeys, kT>(vb, vb, vs);
+    }
+    const uint32_t *qtb = streamed(st, 0), *qts = streamed(st, 1);
+    const uint32_t *otb = streamed(st, 2), *ots = streamed(st, 3);
+    const float *lse_s = rowvec + st * 2 * kN, *delta_s = lse_s + kN;
+    split_tile<D, kN, kT>(streamed(st, 0), streamed(st, 0), streamed(st, 1));
+    split_tile<D, kN, kT>(streamed(st, 2), streamed(st, 2), streamed(st, 3));
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys and the tile's
+    // queries, each k-step in a fresh accumulator added in f32 (with one
+    // accumulator of all D / 8 k-steps, dQ at D 64 needed 9.9e-6 against
+    // its f64 recipe on the H100, the recipe without the tensor cores'
+    // truncation 3.0e-6)
+    float s[kTn][4], dp[kTn][4];
+#pragma unroll
+    for (int j = 0; j < kTn; ++j) {
+      zero(s[j]);
+      zero(dp[j]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD; ++kk) {
+      uint32_t kab[4], kas[4], vab[4], vas[4];
+      load_a<kP>(kab, kb, wr + g, 8 * kk + t);
+      load_a<kP>(kas, ks, wr + g, 8 * kk + t);
+      load_a<kP>(vab, vb, wr + g, 8 * kk + t);
+      load_a<kP>(vas, vs, wr + g, 8 * kk + t);
+#pragma unroll
+      for (int j = 0; j < kTn; ++j) {
+        const int off = (8 * j + g) * kP + 8 * kk + t;
+        mma3_add(s[j], kab, kas, frag_b(qtb, off, 4), frag_b(qts, off, 4));
+        mma3_add(dp[j], vab, vas, frag_b(otb, off, 4), frag_b(ots, off, 4));
+      }
+    }
+    // P^T into s and dS^T = P^T (dP^T - delta) into dp, masked pairs 0
+    const bool edge = q0 + kN > S || k0 + wr + 16 > S || (causal && q0 < k0 + wr + 15);
+#pragma unroll
+    for (int j = 0; j < kTn; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, qi = 8 * j + 2 * t + (e & 1), query = q0 + qi;
+        float p = expf(__fsub_rn(__fmul_rn(s[j][e], scale), lse_s[qi]));
+        if (edge && (query >= S || key[i] >= S || (causal && query < key[i]))) p = 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - delta_s[qi]);
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q over the tile's queries, each in a fresh
+    // accumulator added to the running sum in f32; the split dS^T also goes
+    // into the dS tile, query by query: element (key, query) of the
+    // accumulator at [query][key]
+    float pv[kD][4], pk[kD][4];
+#pragma unroll
+    for (int n = 0; n < kD; ++n) {
+      zero(pv[n]);
+      zero(pk[n]);
+    }
+#pragma unroll
+    for (int j = 0; j < kTn; ++j) {
+      uint32_t pab[4], pas[4], dab[4], das[4];
+      acc_to_a(s[j], pab, pas);
+      acc_to_a(dp[j], dab, das);
+      // acc_to_a's order: (key g, query 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int at = (8 * j + 2 * t + (e >> 1)) * kSP + wr + g + 8 * (e & 1);
+        dsb[at] = dab[e];
+        dss[at] = das[e];
+      }
+#pragma unroll
+      for (int n = 0; n < kD; ++n) {
+        const int off = (8 * j + 2 * t) * kP + 8 * n + g;
+        mma3(pv[n], pab, pas, frag_b(otb, off, kP), frag_b(ots, off, kP));
+        mma3(pk[n], dab, das, frag_b(qtb, off, kP), frag_b(qts, off, kP));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_dv[n][e] += pv[n][e];
+        acc_dk[n][e] += pk[n][e];
+      }
+    __syncthreads();  // the dS tile is whole, and every warp is done with this stage
+
+    // the tile's dQ partial dS K over the block's keys, the k index permuted
+    // (key 2t in A column t, 2t + 1 in column t + 4; K's rows read in that
+    // order), each k-step in a fresh accumulator: the tensor cores sum 24
+    // products at most
+    float dq[kPer][4];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) zero(dq[i]);
+#pragma unroll 4
+    for (int kk = 0; kk < kKeys / 8; ++kk) {
+      const int a_off = (16 * pm + g) * kSP + 8 * kk + 2 * t;
+      const uint2 lb = *reinterpret_cast<const uint2*>(dsb + a_off);
+      const uint2 hb = *reinterpret_cast<const uint2*>(dsb + a_off + 8 * kSP);
+      const uint2 ls = *reinterpret_cast<const uint2*>(dss + a_off);
+      const uint2 hs = *reinterpret_cast<const uint2*>(dss + a_off + 8 * kSP);
+      const uint32_t ab[4] = {lb.x, hb.x, lb.y, hb.y}, as[4] = {ls.x, hs.x, ls.y, hs.y};
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int off = (8 * kk + 2 * t) * kP + 8 * (pn + i) + g;
+        mma3_add(dq[i], ab, as, frag_b(kb, off, kP), frag_b(ks, off, kP));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * pm + g + 8 * r;
+      if (row >= S) continue;
+      float* dst = dqp_blk + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        *reinterpret_cast<float2*>(dst + 8 * (pn + i)) = make_float2(dq[i][2 * r], dq[i][2 * r + 1]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= S) continue;
+    const int64_t off = base + static_cast<int64_t>(key[i]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kD; ++n) {
+      *reinterpret_cast<float2*>(dk + off + 8 * n) =
+          make_float2(acc_dk[n][2 * i] * scale, acc_dk[n][2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * n) =
+          make_float2(acc_dv[n][2 * i], acc_dv[n][2 * i + 1]);
+    }
+  }
+}
+
+// The KV blocks whose dQ partial the fused kernel writes for query row
+// `row`: all of them unless causal, else those that start at or before it.
+// The second pass reads exactly these.
+__device__ __forceinline__ int live_kv_blocks(int row, int S, int keys, int causal) {
+  const int n_kv = (S + keys - 1) / keys;
+  return causal && row / keys + 1 < n_kv ? row / keys + 1 : n_kv;
+}
+
+// The fused backward's second pass: dq = scale * sum of dqp[j] over the
+// live KV blocks j of each row, in ascending j; one thread an element (n =
+// B*H * S * D).
+__global__ void __launch_bounds__(256) dq_sum_kernel(const float* __restrict__ dqp,
+                                                     float* __restrict__ dq, int64_t n, int S,
+                                                     int D, int keys, float scale, int causal) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int stop = live_kv_blocks(static_cast<int>((i / D) % S), S, keys, causal);
+  float acc = dqp[i];
+  for (int j = 1; j < stop; ++j) acc += dqp[i + j * n];
+  dq[i] = acc * scale;
+}
+
 // The forward: one block per (b*h, 128-row Q tile); blockIdx.y counts the
 // Q tiles from the last, so the longest causal rows start first. Warp w
 // owns query rows 16 w .. 16 w + 15: its Q, split once into big and small,
@@ -961,17 +1043,38 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, void* dqp, void* dq, int BH, int S,
+               int causal, float scale, cudaStream_t st) {
+  constexpr int kW = FusedShape<D>::kWarps, kN = FusedShape<D>::kRows, kKeys = 16 * kW;
+  constexpr size_t bytes = fused_smem_bytes<D, kW, kN>();
+  int err = prepare(bwd_kernel<D, kW, kN>, bytes);
+  if (err) return err;
+  bwd_kernel<D, kW, kN><<<dim3(BH, (S + kKeys - 1) / kKeys), 32 * kW, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(dqp), S, scale, causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const int64_t n = static_cast<int64_t>(BH) * S * D;
+  dq_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(dqp), static_cast<float*>(dq), n, S, D, kKeys, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace split3
 
 }  // namespace
 
 // Every tensor is contiguous f32: q, k, v, o, dout and the gradients
-// [BH, S, D], lse and delta [BH, S], dqp [ceil(S / 64), BH, S, D] (never
-// zeroed); the split-precision kernels' inputs start on a 16-byte
-// boundary. D = 64 or 32; any other D returns cudaErrorInvalidValue. Each
-// launches on `stream` and returns a CUDA error code (0 = launched).
-// Signatures as the bf16 entry points' (flash_attention.cu,
-// flash_attention_bwd.cu).
+// [BH, S, D], lse and delta [BH, S], dqp [ceil(S / keys), BH, S, D] with
+// keys = 16 x FusedShape<D>::kWarps (never zeroed); the kernels' inputs
+// start on a 16-byte boundary. D = 64 or 32; any other D returns
+// cudaErrorInvalidValue. Each launches on `stream` and returns a CUDA
+// error code (0 = launched). Signatures as the bf16 entry points'
+// (flash_attention.cu, flash_attention_bwd.cu).
 
 extern "C" int dftt_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                             void* lse, int BH, int S, int D, int causal,
@@ -989,8 +1092,8 @@ extern "C" int dftt_flash_attention_bwd_f32(
     const void* delta, void* dk, void* dv, void* dqp, void* dq, int BH, int S, int D, int causal,
     float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_bwd<64>(q, k, v, dout, lse, delta, dk, dv, dqp, dq, BH, S, causal, scale, st);
-  if (D == 32) return launch_bwd<32>(q, k, v, dout, lse, delta, dk, dv, dqp, dq, BH, S, causal, scale, st);
+  if (D == 64) return split3::launch_bwd<64>(q, k, v, dout, lse, delta, dk, dv, dqp, dq, BH, S, causal, scale, st);
+  if (D == 32) return split3::launch_bwd<32>(q, k, v, dout, lse, delta, dk, dv, dqp, dq, BH, S, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

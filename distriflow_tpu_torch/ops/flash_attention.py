@@ -22,14 +22,14 @@ from two sources, and four f32 kernels from a third:
 - ``csrc/flash_attention_f32.cu`` replaces ``_fwd_kernel``,
   ``_dkvq_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` on f32 inputs (the
   JAX LM CLI's ``--dtype float32``, and with ``--seq 16384`` the
-  two-kernel layout that JAX takes for f32 past 2048 positions): the
-  fused backward with write-once f32 dQ partials in f32 on the CUDA
-  cores, and the forward and the dQ and dK/dV kernels on the tensor cores
-  in split-precision TF32 (each f32 operand split into two
-  TF32 parts and each product taken as three TF32 products summed in
-  f32, which keeps f32's accuracy where one TF32 pass does not). Their
-  arithmetic has plain mirrors,
-  :func:`flash_attention_forward_split_tf32_reference` and
+  two-kernel layout that JAX takes for f32 past 2048 positions), all on
+  the tensor cores in split-precision TF32 (each f32 operand split into
+  two TF32 parts and each product taken as three TF32 products summed in
+  f32, which keeps f32's accuracy where one TF32 pass does not); the
+  fused backward writes its f32 dQ partials once per 64-key block, summed
+  by a second kernel. Their arithmetic has plain mirrors,
+  :func:`flash_attention_forward_split_tf32_reference`,
+  :func:`flash_attention_fused_split_tf32_reference` and
   :func:`flash_attention_split_tf32_reference`, for the tests and
   ``chip_smoke.py``.
 
@@ -198,8 +198,9 @@ def _record_backward_cost(q: torch.Tensor, causal: bool, bwd_block_k: Optional[i
     """JAX's analytic cost of one backward (``_flash_backward``), in the
     layout it takes: four matmuls of model FLOPs; the fused layout runs 5
     and reads its f32 dQ partials, the two-kernel layout runs 7. In f32
-    the two-kernel layout runs :data:`_F32_SPLIT_TF32_PRODUCTS` of its 7 as
-    split-precision TF32 (the rest, S and dP of the dQ kernel, on FFMA)."""
+    the fused layout runs all 5 as split-precision TF32, the two-kernel
+    layout :data:`_F32_SPLIT_TF32_PRODUCTS` of its 7 (the rest, S and dP
+    of the dQ kernel, on FFMA)."""
     b, h, s, d = q.shape
     n_kv = _bwd_kv_blocks(s, d, q.dtype, bwd_block_k)
     fused = n_kv <= _FUSED_BWD_MAX_KV_BLOCKS
@@ -212,21 +213,28 @@ def _record_backward_cost(q: torch.Tensor, causal: bool, bwd_block_k: Optional[i
         + (2 * n_kv * b * h * s * d * 4 if fused else 0),
         transcendentals=(1 if fused else 2) * b * h * s * s // div,
         category="attention_bwd", hw_flops=(5 if fused else 7) * unit, f32=f32,
-        tf32x3=_F32_SPLIT_TF32_PRODUCTS * unit if f32 and not fused else 0)
+        tf32x3=(5 if fused else _F32_SPLIT_TF32_PRODUCTS) * unit if f32 else 0)
 
 
 # The products of the f32 two-kernel backward that run as split-precision
 # TF32 on the tensor cores (csrc/flash_attention_f32.cu): dS.K in the dQ
 # kernel and all four of the dK/dV kernel's; the dQ kernel's S and dP stay
-# FFMA sums.
+# FFMA sums. The f32 fused backward runs all five of its products so.
 _F32_SPLIT_TF32_PRODUCTS = 5
 
 
 # The fused backward kernels' KV tiles (``kBKV`` in
-# csrc/flash_attention_bwd.cu; ``kRows`` in csrc/flash_attention_f32.cu
-# for f32): the dQ scratch holds one slab per KV tile
+# csrc/flash_attention_bwd.cu) and, in f32, the key block of
+# ``split3::bwd_kernel`` by head dim (16 x ``FusedShape<D>::kWarps`` in
+# csrc/flash_attention_f32.cu): the dQ scratch holds one slab per KV tile
 _FUSED_BWD_BLOCK_KV = 128
-_F32_BWD_BLOCK_KV = 64
+_F32_BWD_BLOCK_KV = {32: 64, 64: 64}
+
+
+def _dq_slabs(s: int, d: int, dtype: torch.dtype) -> int:
+    """The fused backward's dQ partial slabs at sequence length ``s``, head
+    dim ``d`` and input ``dtype``: one per KV tile of its kernel."""
+    return -(-s // (_F32_BWD_BLOCK_KV[d] if dtype == torch.float32 else _FUSED_BWD_BLOCK_KV))
 
 
 def flash_seq_supported(s: int, d: int, itemsize: int = 2) -> bool:
@@ -418,6 +426,46 @@ def flash_attention_split_tf32_reference(
     return _per_head(one, q, k, v, do, lse, delta)
 
 
+def flash_attention_fused_split_tf32_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, causal: bool = True, passes: int = 3,
+    split_scores: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain mirror of the f32 fused backward's arithmetic (``bwd_kernel``
+    and ``dq_sum_kernel`` of namespace ``split3`` in
+    ``csrc/flash_attention_f32.cu``): ``(dQ, dK, dV)`` f32 from f32 ``[B,
+    H, S, D]`` inputs. All five products, S = Q K^T, dP = dO V^T, P^T dO,
+    dS^T Q and dS K, are taken by :func:`_split_tf32_matmul` (``passes`` 3,
+    or 1 for one TF32 pass; ``split_scores=False`` leaves S and dP f32
+    products). dQ is summed as the kernel sums it: one partial dS K over
+    each block of the kernel's key block (:data:`_F32_BWD_BLOCK_KV`), the
+    partials added in ascending block, the scale after the sum. Everything
+    else is f32 as in :func:`flash_attention_backward_reference`: the scale
+    after the sum, masked pairs exactly 0, dS = P (dP - delta). The
+    kernel's sum order inside a product (8-wide k-steps) is not mirrored.
+    For the tests, ``chip_smoke.py`` and ``tools/f32_fused_bwd_probe.py``;
+    one (b, h) slice at a time."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    blk = _F32_BWD_BLOCK_KV[q.shape[-1]]
+
+    def mm(a, b, scores=False):
+        return _split_tf32_matmul(a, b, passes if split_scores or not scores else 0)
+
+    def one(q, k, v, do, lse, delta):
+        q, k, v, do = (t.float() for t in (q, k, v, do))
+        p = torch.exp(mm(q, k.transpose(-1, -2), True) * scale - lse.float()[..., None])
+        if causal:
+            p = torch.where(_causal_keep(q.shape[2], q.device), p, torch.zeros_like(p))
+        ds = p * (mm(do, v.transpose(-1, -2), True) - delta.float()[..., None])
+        dq = None
+        for j in range(0, q.shape[2], blk):
+            part = mm(ds[..., j:j + blk], k[..., j:j + blk, :])
+            dq = part if dq is None else dq + part
+        return dq * scale, mm(ds.transpose(-1, -2), q) * scale, mm(p.transpose(-1, -2), do)
+
+    return _per_head(one, q, k, v, do, lse, delta)
+
+
 def flash_attention_forward_split_tf32_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     passes: Union[int, Tuple[int, int]] = 3,
@@ -511,15 +559,18 @@ def flash_attention_backward(
     or f32 of one shape with ``D`` in :data:`BWD_HEAD_DIMS`, lse/delta
     contiguous f32. The kernel writes each live pair's f32 dQ partial once
     into a ``[n_kv, B*H, S, D]`` scratch (JAX's layout at the kernel's KV
-    tile, never zeroed), and a second kernel sums them in ascending KV
-    tile, scales and casts: two kernels, one launch counted."""
+    tile, :func:`_dq_slabs`, never zeroed), and a second kernel sums them
+    in ascending KV tile, scales and casts: two kernels, one launch
+    counted. In f32 the first kernel runs its five products in
+    split-precision TF32 (mirrored by
+    :func:`flash_attention_fused_split_tf32_reference`)."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, do, lse, delta, causal)
     _check_backward_inputs("flash_attention_backward", q, k, v, do, lse, delta)
     b, h, s, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    n_kv = -(-s // (_F32_BWD_BLOCK_KV if q.dtype == torch.float32 else _FUSED_BWD_BLOCK_KV))
-    dqp = torch.empty((n_kv, b * h, s, d), dtype=torch.float32, device=q.device)
+    dqp = torch.empty((_dq_slabs(s, d, q.dtype), b * h, s, d), dtype=torch.float32,
+                      device=q.device)
     if q.dtype == torch.float32:
         fn = build.load("flash_attention_f32", _F32_SIGNATURES).dftt_flash_attention_bwd_f32
     else:

@@ -23,11 +23,11 @@ Differences from the JAX module, whose TPU numbers do not carry over:
 - the default peaks are the H100 SXM's published dense bf16 rate and
   HBM bandwidth (:data:`H100_PEAK_BF16_FLOPS`, :data:`H100_HBM_BYTES_PER_S`);
   the share of a category's ``hw_flops`` that its kernels run in f32 on
-  the CUDA cores (the tally's ``f32_hw_flops``: the fused f32 attention
-  backward, the dQ kernel's S and dP) goes at the f32 peak instead
-  (:data:`H100_PEAK_F32_FLOPS`), and the share they run as split-precision
-  TF32 (``tf32x3_hw_flops``: the f32 forward and the rest of the f32
-  two-kernel backward, three TF32 products for each f32 one) at a third of
+  the CUDA cores (the tally's ``f32_hw_flops``: the f32 dQ kernel's S and
+  dP) goes at the f32 peak instead (:data:`H100_PEAK_F32_FLOPS`), and the
+  share they run as split-precision TF32 (``tf32x3_hw_flops``: the f32
+  forward, the f32 fused backward and the rest of the f32 two-kernel
+  backward, three TF32 products for each f32 one) at a third of
   the TF32 peak (:data:`H100_SPLIT_TF32_FLOPS`), at the phase's efficiency;
 - each :data:`PHASE_EFFICIENCY` is the port's own fraction of peak, bound
   over time from ``chip_smoke.py``'s kernel table on an H100 (the rows,

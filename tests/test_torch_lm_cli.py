@@ -184,10 +184,10 @@ def test_f32_limit_against_the_error_bound():
 def test_f32_attention_is_bounded_at_the_f32_peak():
     """The f32 kernels file their hardware FLOPs as f32 work, and the
     roofline bounds it at the rate each kernel runs it, not the bf16 tensor
-    cores': the fused backward's at the f32 peak (67 TFLOP/s), the
-    forward's, both products in split-precision TF32, under
-    ``tf32x3_hw_flops`` at a third of the TF32 peak; the categories and
-    JAX's four fields stay as they are."""
+    cores': the fused backward's five products and the forward's two, all
+    in split-precision TF32, under ``tf32x3_hw_flops`` at a third of the
+    TF32 peak, none left at the f32 peak; the categories and JAX's four
+    fields stay as they are."""
     from distriflow_tpu_torch.ops import flop_count, roofline
 
     _, (q, k, v, _), _ = _inputs((1, 2, 64, 32), "float32", seed=4)
@@ -197,11 +197,11 @@ def test_f32_attention_is_bounded_at_the_f32_peak():
     cats = tally["by_category"]
     assert set(cats) == {"attention_fwd", "attention_bwd"}
     bwd, fwd = cats["attention_bwd"], cats["attention_fwd"]
-    assert bwd[flop_count.F32_FIELD] == bwd["hw_flops"] > 0
-    assert flop_count.TF32X3_FIELD not in bwd
+    assert bwd[flop_count.TF32X3_FIELD] == bwd["hw_flops"] > 0
+    assert bwd[flop_count.F32_FIELD] == 0
     assert fwd[flop_count.TF32X3_FIELD] == fwd["hw_flops"] > 0
     assert fwd[flop_count.F32_FIELD] == 0
-    for name, cat, peak in (("attention_bwd", bwd, roofline.H100_PEAK_F32_FLOPS),
+    for name, cat, peak in (("attention_bwd", bwd, roofline.H100_SPLIT_TF32_FLOPS),
                             ("attention_fwd", fwd, roofline.H100_SPLIT_TF32_FLOPS)):
         leg = roofline.phase_time_s(cat["hw_flops"], 0.0, name,
                                     f32_hw_flops=cat[flop_count.F32_FIELD],

@@ -11,8 +11,8 @@
   for a tiny LM on the CPU;
 - the f32 two-kernel backward files five of its seven products as
   split-precision TF32, bounded at a third of the TF32 peak, and the dQ
-  kernel's S and dP at the f32 peak; the fused f32 backward stays at the
-  f32 peak;
+  kernel's S and dP at the f32 peak; the fused f32 backward files all
+  five of its products as split-precision TF32;
 - the f32 forward files both its products as split-precision TF32,
   bounded at a third of the TF32 peak.
 """
@@ -142,10 +142,10 @@ def test_f32_backward_bounded_at_the_rate_its_kernels_use(layout):
     bwd = tally["by_category"]["attention_bwd"]
     eff = port_rl.PHASE_EFFICIENCY["attention_bwd"]
     leg = port_rl.roofline_report({"attention_bwd": bwd}, 1.0)["phases"]["attention_bwd"]
-    if layout == "fused":
-        assert flop_count.TF32X3_FIELD not in bwd
-        assert bwd[flop_count.F32_FIELD] == bwd["hw_flops"]
-        assert leg["compute_s"] == pytest.approx(bwd["hw_flops"] / (67e12 * eff))
+    if layout == "fused":  # all five products split
+        assert bwd[flop_count.TF32X3_FIELD] == bwd["hw_flops"] > 0
+        assert bwd[flop_count.F32_FIELD] == 0
+        assert leg["compute_s"] == pytest.approx(bwd["hw_flops"] / (495e12 / 3 * eff))
         return
     unit = bwd["hw_flops"] / 7
     assert bwd[flop_count.TF32X3_FIELD] == pytest.approx(5 * unit)
