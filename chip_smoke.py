@@ -5,15 +5,20 @@
 ``--parent DIR`` (an unpacked older checkout, e.g. ``git archive`` of the
 parent commit) also times that checkout's depthwise and dense CE kernels
 and its f32 and bf16 attention kernels on the same inputs, before and
-after this checkout's (rows 11-12, 9d, 10d, 1, 6, 7 and 8 in f32, 6, 7
-and 8 at D 32 and 64, kernel 1 at D 32 at every shape a path gives it
-and at D 64 at the training shape, ``was_ms``), and path (b)'s and path
-(c)'s steps with a profile (``path_b_step:``, ``path_c_step:``, this
-checkout's between the two).
+after this checkout's (rows 11-12 in bf16 and in f32 at all 20 shapes,
+9d, 10d, 1, 6, 7 and 8 in f32, 6, 7 and 8 at D 32 and 64, kernel 1 at D
+32 at every shape a path gives it and at D 64 at the training shape,
+``was_ms``; the f32 depthwise rows also ``now_ms``, this checkout's by
+the same function between the two), and path (b)'s and path (c)'s steps
+and the f32 MobileNet step with a profile (``path_b_step:``,
+``path_c_step:``, ``mobilenet_f32_step:``, this checkout's between the
+two).
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all six
-   in parallel) and prints the build time.
+   in parallel) and prints the build time, ptxas' registers and spills,
+   and (``dwgn_f32_bwd:``) the f32 depthwise backward's registers and the
+   CTAs an SM holds under each of its 20 plans.
 2. Builds the flagship LM (vocab 32000, d_model 512, 8 heads x 64, 8
    layers, d_ff 2048, max_seq 2048, bf16) from a seeded numpy init carried
    over with ``lm_from_jax``, starts the port's ``InferenceServer`` with the
@@ -128,7 +133,9 @@ checkout's between the two).
     (``differ_share``: the share of elements not bit for bit), time each,
     and time the plain versions and the library composition (TF32 off) at
     each resolution's largest-bytes and smallest shape; the same two
-    planted faults are rejected.
+    planted faults are rejected, and a third of the f32 backward's own
+    design: dw from one position slice of each channel alone
+    (``dw_from_slice0_only``).
 13. Long-context training: the flagship at max_seq 16384 with
     ``remat=True`` (the JAX CLI ``experiments/lm/train.py --seq 16384
     --remat`` at the flagship's dims; B 1 where the CLI defaults to 8),
@@ -1162,10 +1169,11 @@ def _profile_decode_iteration(model, rng, contexts):
     return _profiled(step)
 
 
-def _profiled(step):
+def _profiled(step, kernel_ms=None):
     """One call of ``step`` under ``torch.profiler``: host wall time against
     the device time of the kernels it launched, and the kernels that took
-    the most."""
+    the most; with ``kernel_ms`` ({label: names}), the device ms of the
+    kernels whose name holds one of each label's names, as ``kernel_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1177,10 +1185,15 @@ def _profiled(step):
     kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return {"wall_ms": wall_ms, "device_ms": dev_ms if kernels else "not measured",
-            "idle_share": (1 - dev_ms / wall_ms) if kernels else "not measured",
-            "device_launches": sum(e.count for e in kernels),
-            "top_kernels": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top]}
+    out = {"wall_ms": wall_ms, "device_ms": dev_ms if kernels else "not measured",
+           "idle_share": (1 - dev_ms / wall_ms) if kernels else "not measured",
+           "device_launches": sum(e.count for e in kernels),
+           "top_kernels": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top]}
+    if kernel_ms:
+        out["kernel_ms"] = {
+            label: sum(e.self_device_time_total for e in kernels if any(n in e.key for n in names))
+            / 1e3 if kernels else "not measured" for label, names in kernel_ms.items()}
+    return out
 
 
 class _Ms(float):
@@ -2197,11 +2210,51 @@ def _mobilenet_f32_phase(tree, counted, device="cuda"):
     # the pointwise and stem convolutions run through cuDNN under torch's
     # default, which the package leaves alone
     report["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
-    report["step_profile"] = _profiled(lambda: trainer.step(batch)) if device == "cuda" else None
+    report["step_profile"] = (_profiled(lambda: trainer.step(batch), DWGN_F32_BWD_KERNELS)
+                              if device == "cuda" else None)
     del trainer
     report["step_vs_plain"] = _mobilenet_step_vs_plain(tree, batch, device, f32=True)
     report["px224"], counts["mobilenet_f32_224"] = _mobilenet_224(counted, device)
     return report, counts
+
+
+#: the f32 depthwise backward's kernel by name in a profile: this design's
+#: and the bf16 template's f32 instance before it
+DWGN_F32_BWD_KERNELS = {"dwgn_bwd_f32": ("f32bwd::bwd_kernel",
+                                         "dwgn_bwd_kernel<(anonymous namespace)::F32>")}
+#: steps of the f32 MobileNet step before its profiled one
+MN_F32_STEP_WARM = 4
+
+
+def _mobilenet_f32_step():
+    """The f32 MobileNetV2 step (96 px, :data:`MN`) of the
+    ``distriflow_tpu_torch`` first on ``sys.path``: from the seeded tree
+    the smoke trains, ``MN_F32_STEP_WARM`` steps of B ``MN_B`` on the
+    synthetic ImageNet recipe, then one more under the profiler; ``{
+    "step_ms_p50", "profile"}`` (the profile's ``kernel_ms`` holds the f32
+    depthwise backward's device ms), what ``--parent`` runs on an older
+    checkout before and after this one's."""
+    from distriflow_tpu_torch.data.prefetch import sampling_iterator, to_uint8_wire
+    from distriflow_tpu_torch.models.convert import mobilenet_params_from_jax
+    from distriflow_tpu_torch.train.sync import SyncTrainer
+
+    steps = MN_F32_STEP_WARM + 1
+    (x, y), _ = _synthetic_imagenet(MN_B * steps, 0, MN["classes"], MN["image_size"], SEED)
+    x, y = to_uint8_wire(x, y)
+    tree = _mobilenet_tree(np.random.default_rng(SEED + 6), MN["classes"], MN["width"])
+    trainer = SyncTrainer(_mobilenet_spec("cuda", f32=True), optimizer="momentum",
+                          learning_rate=MN_LR)
+    trainer.init(SEED)
+    trainer.set_params(mobilenet_params_from_jax(tree))
+    del tree
+    step_ms = []
+    trainer.callbacks.register("step", lambda t: step_ms.append(t.last_step_ms))
+    batches = list(sampling_iterator(x, y, MN_B, steps=steps, seed=SEED))
+    for batch in batches[:-1]:
+        trainer.step(batch)
+    profile = _profiled(lambda: trainer.step(batches[-1]), DWGN_F32_BWD_KERNELS)
+    del trainer
+    return {"step_ms_p50": float(np.median(step_ms[:MN_F32_STEP_WARM])), "profile": profile}
 
 
 def _mobilenet_step_vs_plain(tree, batch, device="cuda", f32=False):
@@ -2542,6 +2595,8 @@ def _mobilenet_f32_kernel_rows(launches):
                     "blocks_per_step": count, "batch": batch, "ms": t, "bound_ms": bnd[0],
                     "bound_by": bnd[1],
                     "plan": _plan_of(dg.dwgn_plan(h, w, c, s, plan_bwd, 4), batch)}
+            bwd["by_shape"][tag]["plan"]["ctas_per_sm"] = dg.f32_backward_ctas_per_sm(
+                dg.dwgn_plan(h, w, c, s, True, 4))
             fwd["by_shape"][tag]["max_abs_err"] = fwd["errs"][-1]
             bwd["by_shape"][tag].update(max_abs_err=err, sum_rel_err=sums)
             if key in timed_at:
@@ -2579,7 +2634,17 @@ def _mobilenet_f32_kernel_rows(launches):
                 controls["stats_terms_dropped"] = float(
                     ((wrong[0] - want[0]).abs() > atol + rtol * want[0].abs()).float().mean())
                 assert controls["stats_terms_dropped"] > 0.5, controls
-                del wrong_y, wrong
+                # and dw from one position slice of each channel alone (the
+                # kernel's threads take every slices-th position; a lost
+                # slice or slot of its slice sum)
+                nsl = dg.dwgn_plan(h, w, c, s, True, 4).slices
+                assert nsl > 1, nsl
+                wrong_dw = dg.banded_backward_reference(x, k, sc, bi, gout, s, dw_slices=[0])[1]
+                controls["dw_from_slice0_only"] = float(
+                    ((wrong_dw - want[1]).abs() > DWGN_F32_SUM_RTOL * want[1].abs().max())
+                    .float().mean())
+                assert controls["dw_from_slice0_only"] > 0.5, controls
+                del wrong_y, wrong, wrong_dw
             del x, k, gout, want, band, got, again, y, y_want, y_band
     out = []
     for name, d, line, extra in (
@@ -2604,6 +2669,68 @@ def _mobilenet_f32_kernel_rows(launches):
             "step224_ms_all_blocks": d["ms"][224], "step224_bound_ms_all_blocks": d["bound"][224],
             "deterministic": same_bits, **extra})
     return out
+
+
+def _dwgn_f32_bwd_build():
+    """The f32 depthwise backward's build: ptxas' registers and spills of
+    its kernel, and the CTAs an SM holds under each of its 20 plans (the
+    runtime's occupancy calculator)."""
+    from distriflow_tpu_torch.ops import build
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+    lines, keep = [], False
+    for line in build.ptxas_reports.get("depthwise_gn", "").splitlines():
+        if "Compiling entry" in line:
+            keep = "f32bwd" in line
+        elif keep and ("registers" in line or "spill" in line):
+            lines.append(line.strip())
+    ctas = {}
+    for px, size in ((96, MN), (224, MN224)):
+        for h, w, c, s in _depthwise_shapes(size["image_size"], size["width"]):
+            plan = dg.dwgn_plan(h, w, c, s, True, 4)
+            ctas[f"{px}px {h}x{w}x{c} s{s}"] = [dg.f32_backward_ctas_per_sm(plan), plan.smem]
+    return {"ptxas": lines, "ctas_per_sm_and_smem": ctas}
+
+
+def _dwgn_f32_times():
+    """``{"<px>px <h>x<w>x<c> s<s>": [forward ms, backward ms]}`` of the f32
+    depthwise kernels of the ``distriflow_tpu_torch`` first on ``sys.path``
+    at every shape of rows 11-12 in f32 (96 px at B ``MN_B``, 224 px at B
+    ``MN224_B``), on the rows' inputs, timed as the rows time them."""
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+    flush, out = _flush_buffer(), {}
+    timed_at = (DWGN_BIG, DWGN_SMALL, DWGN224_BIG, DWGN224_SMALL)
+    for px, batch, size in ((96, MN_B, MN), (224, MN224_B, MN224)):
+        shapes = _depthwise_shapes(size["image_size"], size["width"])
+        for key, x, k, sc, bi, gout in _dwgn_cases(shapes, batch, torch.float32, SEED + 8):
+            h, w, c, s = key
+            iters = 20 if key in timed_at else 5
+            out[f"{px}px {h}x{w}x{c} s{s}"] = [
+                _timed(lambda: dg.depthwise_gn_forward(x, k, sc, bi, s), iters, flush),
+                _timed(lambda: dg.depthwise_gn_backward(x, k, sc, bi, gout, s), iters, flush)]
+            del x, k, gout
+    return out
+
+
+def _with_f32_dwgn_was(rows, was, now):
+    """Rows 11-12 in f32 with ``was_ms`` (the :func:`_dwgn_f32_times` runs
+    of an older checkout in ``was``) and ``now_ms`` (this checkout's run of
+    the same function between them) beside each shape, and their sums over
+    a step's blocks at 96 and 224 px (``step_was_ms_all_blocks``,
+    ``step224_was_ms_all_blocks``, ``step_now_ms_all_blocks``, ...)."""
+    for i, row in enumerate(rows):
+        for tag, entry in row["by_shape"].items():
+            entry["was_ms"] = [run[tag][i] for run in was] or "not measured"
+            entry["now_ms"] = now[tag][i] if now else "not measured"
+        for px, key in ((96, "step"), (224, "step224")):
+            counts = {tag: e["blocks_per_step"] for tag, e in row["by_shape"].items()
+                      if tag.startswith(f"{px}px ")}
+            row[f"{key}_was_ms_all_blocks"] = [sum(n * run[tag][i] for tag, n in counts.items())
+                                               for run in was] or "not measured"
+            row[f"{key}_now_ms_all_blocks"] = (sum(n * now[tag][i] for tag, n in counts.items())
+                                               if now else "not measured")
+    return rows
 
 
 def _markov_corpus(n_tokens: int, seed: int, vocab: int = CORPUS_VOCAB) -> np.ndarray:
@@ -8504,7 +8631,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--parent", help="an older checkout whose depthwise, dense CE and f32 "
-                                     "attention kernels to time too")
+                                     "attention kernels, and whose LM path (b) and (c) and f32 "
+                                     "MobileNet steps, to time too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8523,6 +8651,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    print("dwgn_f32_bwd:", json.dumps(_dwgn_f32_bwd_build()), flush=True)
     print("analysis:", json.dumps(_analysis_phase()), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8782,8 +8911,21 @@ def main() -> int:
     if args.parent:
         was.append(_parent_times(args.parent, "_dwgn_times", list(shapes)))
     rows += _with_was(dw_rows, shapes, was)
-    rows += _mobilenet_f32_kernel_rows({k: mnf_counts["mobilenet_f32_train"][k]
-                                        for k in ("depthwise_gn_fwd_f32", "depthwise_gn_bwd_f32")})
+    # an older checkout's f32 depthwise kernels and f32 MobileNet step
+    # before and after this one's, by the same functions
+    dwf_was = [_parent_times(args.parent, "_dwgn_f32_times")] if args.parent else []
+    mnf_was = [_parent_report(args.parent, "_mobilenet_f32_step")] if args.parent else []
+    dwf_rows = _mobilenet_f32_kernel_rows({k: mnf_counts["mobilenet_f32_train"][k]
+                                           for k in ("depthwise_gn_fwd_f32", "depthwise_gn_bwd_f32")})
+    dwf_now = None
+    if args.parent:
+        dwf_now, mnf_now = _dwgn_f32_times(), _mobilenet_f32_step()
+        dwf_was.append(_parent_times(args.parent, "_dwgn_f32_times"))
+        mnf_was.append(_parent_report(args.parent, "_mobilenet_f32_step"))
+        print("mobilenet_f32_step:", json.dumps({
+            **mnf_now, "was_step_ms_p50": [r["step_ms_p50"] for r in mnf_was],
+            "was_profile": mnf_was}), flush=True)
+    rows += _with_f32_dwgn_was(dwf_rows, dwf_was, dwf_now)
     rows += _split_bwd_rows(long_training, LONG_TRAIN_STEPS)
     # an older checkout's dense CE kernels before and after this one's
     ce_was = [_parent_times(args.parent, "_dense_ce_times")] if args.parent else []

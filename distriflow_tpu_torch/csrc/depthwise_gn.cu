@@ -1,8 +1,10 @@
 // Fused depthwise 3x3 (SAME) + GroupNorm(8) + affine + ReLU6, forward and
 // backward, over bf16 or f32 NHWC activations, as thread-block-cluster
-// kernels that read the activation once through TMA. Both kernels are
-// templates on the element type (Bf16, F32 below); the two instances differ
-// only where an element's width or rounding shows.
+// kernels that read the activation once through TMA. The forward is a
+// template on the element type (Bf16, F32 below), the two instances
+// differing only where an element's width or rounding shows; so is the
+// bf16 backward (dwgn_bwd_kernel). The f32 backward is a kernel of its own
+// (namespace f32bwd, at the end): one channel a thread.
 //
 // Replaces the Pallas TPU kernels of the JAX package
 //   distriflow_tpu/ops/depthwise_gn.py::_fwd_kernel  (kernel 11)
@@ -116,6 +118,10 @@ constexpr int kMaxChunk = 128;
 constexpr int kMaxCluster = 8;
 constexpr int kMaxBox = 256;
 constexpr int kSmemLimit = 232448;
+// the f32 backward's f64 sums a thread in one slice sum (pass 2's dscale,
+// dbias and the statistics' two gradient terms); its dw's nine take the x
+// boxes' place
+constexpr int kSliceValues = 4;
 
 constexpr int align128(int n) { return (n + 127) / 128 * 128; }
 
@@ -142,7 +148,8 @@ __device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 
 // rounds eight f32 values to it; relu6 is min(max(v, 0), 6) in the type.
 // kFwdBlocks and kBwdBlocks are the CTAs an SM keeps (__launch_bounds__):
 // bf16 fits 80 and 128 registers, f32's nine weight vectors take twice the
-// registers, so its forward keeps two CTAs and its backward one.
+// registers, so its forward keeps two CTAs (f32bwd::kBlocks: the f32
+// backward's).
 struct Bf16 {
   using Elem = __nv_bfloat16;
   static constexpr int kItemsize = 2, kFwdBlocks = 3, kBwdBlocks = 2;
@@ -197,7 +204,7 @@ struct Bf16 {
 
 struct F32 {
   using Elem = float;
-  static constexpr int kItemsize = 4, kFwdBlocks = 2, kBwdBlocks = 1;
+  static constexpr int kItemsize = 4, kFwdBlocks = 2;
   struct V8 {
     float f[8];
   };
@@ -288,14 +295,23 @@ bool make_plan(Plan& p, int B, int H, int W, int C, int s, int item, int cc, int
       p.gw > kMaxBox || p.gr > kMaxBox)
     return false;
   // x boxes; g boxes (backward); two f64 reduction buffers of kWarps x cc;
-  // the bf16 backward's f32 warp sums of dw, [9][kWarps][cc] (the f32
-  // backward sums dw through the reduction buffers); exchange slots; 8
-  // floats of statistics a group; the two mbarriers (x, g)
+  // the bf16 backward's f32 warp sums of dw, [9][kWarps][cc]; exchange
+  // slots; 8 floats of statistics a group; the two mbarriers (x, g). The
+  // f32 backward (f32bwd) keeps x boxes at least as large as its nine dw
+  // sums a thread in f64 (they take the boxes' place at the end), and one
+  // f64 buffer of kSliceValues sums a thread.
   const int xch = nb * (backward ? 11 * cc + 4 * p.gc : 2 * p.gc);
-  p.off_g = align128(nb * p.xr * p.xc * cc * item);
-  p.off_red = p.off_g + align128(backward ? nb * p.gr * p.gw * cc * item : 0);
-  p.off_dwr = p.off_red + align128(2 * kWarps * cc * 8);
-  p.off_xch = p.off_dwr + align128(backward && item == 2 ? 9 * kWarps * cc * 4 : 0);
+  const int xbox = nb * p.xr * p.xc * cc * item;
+  if (backward && item == 4) {
+    p.off_g = align128(xbox > 9 * kThreads * 8 ? xbox : 9 * kThreads * 8);
+    p.off_red = p.off_g + align128(nb * p.gr * p.gw * cc * item);
+    p.off_dwr = p.off_xch = p.off_red + align128(kSliceValues * kThreads * 8);
+  } else {
+    p.off_g = align128(xbox);
+    p.off_red = p.off_g + align128(backward ? nb * p.gr * p.gw * cc * item : 0);
+    p.off_dwr = p.off_red + align128(2 * kWarps * cc * 8);
+    p.off_xch = p.off_dwr + align128(backward ? 9 * kWarps * cc * 4 : 0);
+  }
   p.off_st = p.off_xch + align128(xch * 8);
   p.off_bar = p.off_st + align128(nb * p.gc * 32);
   p.smem = 128 + p.off_bar + 16;  // 128: to align the base
@@ -457,10 +473,8 @@ __device__ __forceinline__ typename T::V8 conv8(const Plan& p, const typename T:
 // Sums each thread's N values over the threads of its image and group:
 // thread (img * N + j) * gc + g (< nb * N * gc) receives value j of group g
 // of image img, added in a fixed order (a butterfly in each warp, then the
-// image's warps in order). red: N x kWarps x gc doubles. With kSync false
-// the caller alternates buffers and provides the barrier before `red` is
-// written again.
-template <int N, bool kSync = true>
+// image's warps in order). red: N x kWarps x gc doubles.
+template <int N>
 __device__ __forceinline__ double block_sum(const Plan& p, const double (&v)[N], double* red) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, gc = p.gc;
   double a[N];
@@ -481,7 +495,7 @@ __device__ __forceinline__ double block_sum(const Plan& p, const double (&v)[N],
     const int img = t / (N * gc), j = (t / gc) % N, g = t % gc, wpi = kWarps / p.nb;
     for (int w = img * wpi; w < (img + 1) * wpi; ++w) s = __dadd_rn(s, red[(j * kWarps + w) * gc + g]);
   }
-  if (kSync) __syncthreads();
+  __syncthreads();
   return s;
 }
 
@@ -524,16 +538,12 @@ __device__ __forceinline__ void stat_sums(const Plan& p, const Lane<T>& l,
   }
 }
 
-// Pass 1's exchange: each (image, group)'s mean, E[x^2] - mean^2 and inv
-// from the CTAs' (sum, sum of squares), the same in every CTA of the
-// cluster.
+// After pass 1's exchange: each (image, group)'s mean, E[x^2] - mean^2 and
+// inv from the CTAs' (sum, sum of squares) in the slots sm.xch [nb][2][gc],
+// the same in every CTA of the cluster.
 template <typename T>
-__device__ __forceinline__ void exchange_stats(const Plan& p, const Smem<T>& sm,
-                                               const double (&v)[2], float eps) {
-  const double tot = block_sum<2>(p, v, sm.red);
+__device__ __forceinline__ void stats_from_slots(const Plan& p, const Smem<T>& sm, float eps) {
   const int t = threadIdx.x;
-  if (t < p.nb * 2 * p.gc) sm.xch[t] = tot;
-  exchange_sync(p);
   if (t < p.nb * p.gc) {
     const double* slots = sm.xch + (t / p.gc) * 2 * p.gc + t % p.gc;
     const double n = static_cast<double>(p.OH) * p.OW * kGroup;
@@ -546,6 +556,17 @@ __device__ __forceinline__ void exchange_stats(const Plan& p, const Smem<T>& sm,
     st[2] = rsqrtf(__fadd_rn(fmaxf(var, 0.f), eps));
   }
   __syncthreads();
+}
+
+// Pass 1's exchange: the CTA's (sum, sum of squares) into the slots, then
+// the statistics.
+template <typename T>
+__device__ __forceinline__ void exchange_stats(const Plan& p, const Smem<T>& sm,
+                                               const double (&v)[2], float eps) {
+  const double tot = block_sum<2>(p, v, sm.red);
+  if (threadIdx.x < p.nb * 2 * p.gc) sm.xch[threadIdx.x] = tot;
+  exchange_sync(p);
+  stats_from_slots(p, sm, eps);
 }
 
 template <typename T>
@@ -628,6 +649,29 @@ __device__ __forceinline__ void elems(const float* a, const typename T::V8& g8, 
   }
 }
 
+// After pass 2's exchange: each (image, group)'s dvar / n and dmean / n
+// (st[4], st[5]) from the CTAs' sum(dyn * inv) and sum(dyn * xc) in the
+// slots xch_d [nb][2][gc]; the variance clamp's tie passes half.
+__device__ __forceinline__ void stat_grads_from_slots(const Plan& p, float* st,
+                                                      const double* xch_d, float eps) {
+  const int t = threadIdx.x;
+  if (t < p.nb * p.gc) {
+    float* gst = st + t * 8;
+    const double* slots = xch_d + (t / p.gc) * 2 * p.gc + t % p.gc;
+    const float gm = gst[0], gvar = gst[1], ginv = gst[2];
+    const float n = static_cast<float>(p.OH * p.OW * kGroup);
+    const float sxc = __double2float_rn(cluster_sum(slots, p.cluster));
+    const float dinv = __double2float_rn(cluster_sum(slots + p.gc, p.cluster));
+    float dvar =
+        __fmul_rn(dinv, __fmul_rn(-0.5f, __fdiv_rn(ginv, __fadd_rn(fmaxf(gvar, 0.f), eps))));
+    dvar = __fmul_rn(dvar, gvar > 0.f ? 1.f : (gvar == 0.f ? 0.5f : 0.f));
+    const float dm = __fsub_rn(-sxc, __fmul_rn(__fmul_rn(2.f, dvar), gm));
+    gst[4] = __fdiv_rn(dvar, n);
+    gst[5] = __fdiv_rn(dm, n);
+  }
+}
+
+// The bf16 backward (T = Bf16; f32bwd::bwd_kernel is the f32 one).
 template <typename T>
 __global__ void __launch_bounds__(kThreads, T::kBwdBlocks) dwgn_bwd_kernel(
     const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_g,
@@ -705,20 +749,7 @@ __global__ void __launch_bounds__(kThreads, T::kBwdBlocks) dwgn_bwd_kernel(
     }
     if (t_id < p.nb * 2 * p.gc) xch_d[t_id] = gsum;
     exchange_sync(p);
-    if (t_id < p.nb * p.gc) {
-      float* gst = sm.st + t_id * 8;
-      const double* slots = xch_d + (t_id / p.gc) * 2 * p.gc + t_id % p.gc;
-      const float gm = gst[0], gvar = gst[1], ginv = gst[2];
-      const float n = static_cast<float>(p.OH * p.OW * kGroup);
-      const float sxc = __double2float_rn(cluster_sum(slots, p.cluster));
-      const float dinv = __double2float_rn(cluster_sum(slots + p.gc, p.cluster));
-      float dvar =
-          __fmul_rn(dinv, __fmul_rn(-0.5f, __fdiv_rn(ginv, __fadd_rn(fmaxf(gvar, 0.f), eps))));
-      dvar = __fmul_rn(dvar, gvar > 0.f ? 1.f : (gvar == 0.f ? 0.5f : 0.f));
-      const float dm = __fsub_rn(-sxc, __fmul_rn(__fmul_rn(2.f, dvar), gm));
-      gst[4] = __fdiv_rn(dvar, n);
-      gst[5] = __fdiv_rn(dm, n);
-    }
+    stat_grads_from_slots(p, sm.st, xch_d, eps);
     if (rank == 0 && mine) {
       ds_part[static_cast<int64_t>(my_b) * p.C + my_ch] =
           __double2float_rn(cluster_sum(xch_ds + t_id, p.cluster));
@@ -757,66 +788,44 @@ __global__ void __launch_bounds__(kThreads, T::kBwdBlocks) dwgn_bwd_kernel(
     for (int k = 0; k < 9; ++k) {
       const int ky = k / 3, kx = k % 3;
       int qy = l.slot / t.cw, qx = l.slot % t.cw;
-      if constexpr (T::kItemsize == 2) {
-        // each thread adds its rounded products in f32, a butterfly adds
-        // the warp's lanes of a group in f32, and after the nine taps
-        // thread t < nb * cc adds its image's warps in f64
-        const int lane = t_id % 32, warp = t_id / 32;
-        float a[kGroup] = {};
-        while (qy < t.rr) {
-          const int ly = 1 + qy, lx = 1 + qx;
-          const V8 d = T::ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
-          const V8 v =
-              T::ld8(l.xs + ((ly * p.s + ky) * p.xc + lx * p.s + kx) * p.cc + l.g * kGroup);
+      // each thread adds its rounded products in f32, a butterfly adds the
+      // warp's lanes of a group in f32, and after the nine taps thread t <
+      // nb * cc adds its image's warps in f64
+      const int lane = t_id % 32, warp = t_id / 32;
+      float a[kGroup] = {};
+      while (qy < t.rr) {
+        const int ly = 1 + qy, lx = 1 + qx;
+        const V8 d = T::ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
+        const V8 v =
+            T::ld8(l.xs + ((ly * p.s + ky) * p.xc + lx * p.s + kx) * p.cc + l.g * kGroup);
 #pragma unroll
-          for (int i2 = 0; i2 < 4; ++i2) {
-            const uint32_t pr = mul2(d.h[i2], v.h[i2]);
-            a[2 * i2] = __fadd_rn(a[2 * i2], bf_lo(pr));
-            a[2 * i2 + 1] = __fadd_rn(a[2 * i2 + 1], bf_hi(pr));
-          }
-          for (qx += l.step; qx >= t.cw; qx -= t.cw) ++qy;
+        for (int i2 = 0; i2 < 4; ++i2) {
+          const uint32_t pr = mul2(d.h[i2], v.h[i2]);
+          a[2 * i2] = __fadd_rn(a[2 * i2], bf_lo(pr));
+          a[2 * i2 + 1] = __fadd_rn(a[2 * i2 + 1], bf_hi(pr));
         }
-        for (int off = 16; off >= p.gc; off >>= 1) {
+        for (qx += l.step; qx >= t.cw; qx -= t.cw) ++qy;
+      }
+      for (int off = 16; off >= p.gc; off >>= 1) {
 #pragma unroll
-          for (int c = 0; c < kGroup; ++c)
-            a[c] = __fadd_rn(a[c], __shfl_xor_sync(0xffffffffu, a[c], off));
-        }
-        if (lane < p.gc) {
+        for (int c = 0; c < kGroup; ++c)
+          a[c] = __fadd_rn(a[c], __shfl_xor_sync(0xffffffffu, a[c], off));
+      }
+      if (lane < p.gc) {
 #pragma unroll
-          for (int c = 0; c < kGroup; ++c)
-            sm.dwr[((k * kWarps + warp) * kGroup + c) * p.gc + lane] = a[c];
-        }
-      } else {
-        // each f32 product is added in f64, through the thread, the warp's
-        // butterfly and the image's warps (block_sum on the two reduction
-        // buffers in turn): the f32 of the exact sum, as the statistics
-        double a[kGroup] = {};
-        while (qy < t.rr) {
-          const int ly = 1 + qy, lx = 1 + qx;
-          const V8 d = T::ld8(l.gs + (ly * p.gw + lx) * p.cc + l.g * kGroup);
-          const V8 v =
-              T::ld8(l.xs + ((ly * p.s + ky) * p.xc + lx * p.s + kx) * p.cc + l.g * kGroup);
-          const V8 pr = T::mul(d, v);
-#pragma unroll
-          for (int c = 0; c < kGroup; ++c) a[c] = __dadd_rn(a[c], pr.f[c]);
-          for (qx += l.step; qx >= t.cw; qx -= t.cw) ++qy;
-        }
-        const double sk =
-            block_sum<kGroup, false>(p, a, sm.red + (k & 1) * kGroup * kWarps * p.gc);
-        if (t_id < ncc) xch_dw[k * ncc + t_id] = __dadd_rn(xch_dw[k * ncc + t_id], sk);
+        for (int c = 0; c < kGroup; ++c)
+          sm.dwr[((k * kWarps + warp) * kGroup + c) * p.gc + lane] = a[c];
       }
     }
-    if constexpr (T::kItemsize == 2) {
-      __syncthreads();
-      if (t_id < ncc) {
-        const int j = t_id % p.cc / p.gc, g = t_id % p.gc, wpi = kWarps / p.nb;
-        const int w0 = t_id / p.cc * wpi;
-        for (int k = 0; k < 9; ++k) {
-          double sk = 0.0;
-          for (int w = w0; w < w0 + wpi; ++w)
-            sk = __dadd_rn(sk, sm.dwr[((k * kWarps + w) * kGroup + j) * p.gc + g]);
-          xch_dw[k * ncc + t_id] = __dadd_rn(xch_dw[k * ncc + t_id], sk);
-        }
+    __syncthreads();
+    if (t_id < ncc) {
+      const int j = t_id % p.cc / p.gc, g = t_id % p.gc, wpi = kWarps / p.nb;
+      const int w0 = t_id / p.cc * wpi;
+      for (int k = 0; k < 9; ++k) {
+        double sk = 0.0;
+        for (int w = w0; w < w0 + wpi; ++w)
+          sk = __dadd_rn(sk, sm.dwr[((k * kWarps + w) * kGroup + j) * p.gc + g]);
+        xch_dw[k * ncc + t_id] = __dadd_rn(xch_dw[k * ncc + t_id], sk);
       }
     }
     // dx at the inputs this tile owns: rows [r0 * s, (r0 + rows) * s) and
@@ -854,10 +863,407 @@ __global__ void __launch_bounds__(kThreads, T::kBwdBlocks) dwgn_bwd_kernel(
       const int ch = chunk * p.cc + (u % p.cc % p.gc) * kGroup + u % p.cc / p.gc;
       const float sum = __double2float_rn(cluster_sum(xch_dw + v, p.cluster));
       dw_part[(static_cast<int64_t>(b) * 9 + k) * p.C + ch] =
-          T::kItemsize == 2 ? __bfloat162float(__float2bfloat16_rn(sum)) : sum;
+          __bfloat162float(__float2bfloat16_rn(sum));
     }
   }
   if (p.cluster > 1) cluster_sync();  // no CTA leaves while rank 0 may still read its slots
+}
+
+// Kernel 12 in f32: the backward on f32 activations, one channel a thread.
+//
+// The same cut as the bf16 backward (dwgn_plan: a cluster a (batch element,
+// chunk of cc channels), tiles of rows x cols outputs, nb small images side
+// by side, resident or streamed) and the same passes and exchanges, but a
+// thread owns ONE channel of its image (c = its index mod cc) and a slice of
+// the positions (slice = its index / cc over nsl = kThreads / (nb * cc)
+// slices, positions slice, slice + nsl, ...). Neighbouring threads read
+// neighbouring channels of one position: a warp's 4-byte loads of the boxes
+// are 128 contiguous bytes, free of bank conflicts from cc 32 up. The
+// kernel is built for each chunk width (bwd_kernel<CC>), so that the taps'
+// offsets are immediates. The nine weights, the scale and the bias are 11
+// registers; every per-channel sum (dscale, dbias, dw) stays in the thread
+// until one slice sum of the CTA, and every per-group sum (the statistics
+// and their gradients) is first a 3-step butterfly over the group's 8
+// neighbouring lanes (the same bits in all 8: each step adds the same two
+// values). So:
+//   - 80 registers fit kBlocks CTAs an SM, and three where the plan's shared
+//     memory allows (SMEM_TARGET[(True, 4)] fits two), where the bf16
+//     template's f32 instance held 223 registers and one CTA: one CTA's
+//     TMA wait, barriers and reductions overlap another's passes;
+//   - pass 1 ends in one slice sum of 2 values, pass 2 in one of 4 (the
+//     template: block sums of 2, 8 + 8 + 2), and dw, which the template
+//     summed tap by tap in nine block sums reading each cotangent nine
+//     times, takes its products in pass 3 as each cotangent is computed,
+//     from the conv's nine inputs already in registers, keeps its nine f64
+//     sums a thread over the tiles, then one slice sum of 9 values in the x
+//     boxes' place;
+//   - dx reads each tap's cell at a fixed offset: at stride 2 by parity
+//     class (4, 2, 2 and 1 taps), at stride 1 all nine (the ring's zero
+//     cells where a tap leaves the image).
+// A slice sum adds blocks of slices in order, then the blocks over a
+// butterfly of neighbouring lanes (one slice: no barrier); the cluster's
+// ranks follow in order through the exchange slots: the statistics, their
+// gradients, dscale, dbias and dw are the f32 of f64 sums of the same f32
+// terms as the plain versions', and every launch gives the same bits. The
+// conv is recomputed in each pass from the x box (9 loads, 9 products, 8
+// sums a value), as in the template.
+namespace f32bwd {
+
+// CTAs an SM __launch_bounds__ asks for (ops/depthwise_gn.py F32_BWD_BLOCKS,
+// whose SMEM_TARGET fits them)
+constexpr int kBlocks = 2;
+
+// A thread's place: image img (batch element b, real if live), channel c
+// of the chunk (ch in the tensor, u = img * cc + c in the CTA), position
+// slice `slice` of nsl; xs and gs point at channel c of its image's boxes.
+struct Lane {
+  int img, b, c, ch, u, slice, nsl;
+  bool live;
+  const float* xs;
+  float* gs;
+};
+
+template <int CC>
+__device__ __forceinline__ Lane lane_of(const Plan& p, const Smem<F32>& sm, int chunk) {
+  const int tpi = kThreads / p.nb, lt = threadIdx.x % tpi;
+  Lane l;
+  l.img = threadIdx.x / tpi;
+  l.b = blockIdx.z * p.nb + l.img;
+  l.live = l.b < p.B;
+  l.c = lt % CC;
+  l.ch = chunk * CC + l.c;
+  l.u = l.img * CC + l.c;
+  l.slice = lt / CC;
+  l.nsl = tpi / CC;
+  l.xs = sm.x + l.img * p.xr * p.xc * CC + l.c;
+  l.gs = sm.g + l.img * p.gr * p.gw * CC + l.c;
+  return l;
+}
+
+// The conv at box-local output (ly, lx): nine rounded products added in
+// (ky, kx) order with a rounding after each add; xv, if given, receives the
+// nine inputs.
+template <int CC>
+__device__ __forceinline__ float conv(const Plan& p, const float* xs, const float (&w)[9], int ly,
+                                      int lx, float* xv = nullptr) {
+  const float* base = xs + ((ly * p.s) * p.xc + lx * p.s) * CC;
+  const int row = p.xc * CC;
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const float x = base[(k / 3) * row + (k % 3) * CC], t = __fmul_rn(x, w[k]);
+    acc = k == 0 ? t : __fadd_rn(acc, t);
+    if (xv) xv[k] = x;
+  }
+  return acc;
+}
+
+// Steps (qy, qx) by `step` positions along rows of `cols`.
+__device__ __forceinline__ void advance(int& qy, int& qx, int step, int cols) {
+  for (qx += step; qx >= cols; qx -= cols) ++qy;
+}
+
+// f(qy, qx) at positions first, first + step, ... of a rows x cols grid,
+// row-major, in that order.
+template <typename F>
+__device__ __forceinline__ void for_positions(int first, int step, int rows, int cols, F f) {
+  for (int qy = first / cols, qx = first % cols; qy < rows; advance(qy, qx, step, cols)) f(qy, qx);
+}
+
+// A group's sum over its 8 channels (8 neighbouring lanes), the same bits
+// in each lane.
+__device__ __forceinline__ double group_sum(double v) {
+#pragma unroll
+  for (int off = 1; off < kGroup; off <<= 1) v = __dadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Lanes that share one slice sum (slice_sum): the most, a power of two up
+// to 32 and to nsl, with which the N * ncc sums still fit the CTA's threads
+// (ops/depthwise_gn.py::slice_lanes is its twin).
+__device__ __forceinline__ int slice_lanes(int n_sums, int nsl) {
+  int lanes = 1;
+  while (lanes < 32 && lanes < nsl && n_sums * lanes * 2 <= kThreads) lanes *= 2;
+  return lanes;
+}
+
+// The sum of each thread's N values over the nsl slices of its (image,
+// channel): out(j, u, sum) once for each value j and each u < nb * cc.
+// Each sum is taken by `lanes` neighbouring lanes (slice_lanes), lane i
+// adding slices [i nsl / lanes, (i + 1) nsl / lanes) in order, then a
+// butterfly over the lanes: a fixed order, and the short serial chains keep
+// the barrier's wait short. red holds N doubles a thread. With one slice a
+// thread's values are the sums (no barrier); the caller's exchange then
+// orders out's stores before their readers.
+template <int CC, int N, typename Out>
+__device__ __forceinline__ void slice_sum(const Plan& p, const Lane& l, const double (&v)[N],
+                                          double* red, Out out) {
+  const int ncc = p.nb * CC, nsl = l.nsl;
+  if (nsl == 1) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) out(j, l.u, v[j]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) red[(j * nsl + l.slice) * ncc + l.u] = v[j];
+  __syncthreads();
+  const int lanes = slice_lanes(N * ncc, nsl), per = nsl / lanes;
+  for (int o0 = 0; o0 < N * ncc * lanes; o0 += kThreads) {  // the same trip count in every thread
+    const int o = o0 + threadIdx.x, id = o / lanes, part = o % lanes;
+    double s = 0.0;
+    if (id < N * ncc) {
+      const double* r = red + (id / ncc * nsl + part * per) * ncc + id % ncc;
+      for (int q = 0; q < per; ++q) s = __dadd_rn(s, r[q * ncc]);
+    }
+    for (int off = 1; off < lanes; off <<= 1) s = __dadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+    if (id < N * ncc && part == 0) out(id / ncc, id % ncc, s);
+  }
+}
+
+// A slot's sum over the cluster's ranks in rank order (its own value in a
+// cluster of one).
+__device__ __forceinline__ double rank_sum(const double* slot, int n) {
+  return n == 1 ? *slot : cluster_sum(slot, n);
+}
+
+// dx at the input whose dacc cell (output (ty, tx) at stride 1, (ty / 2,
+// tx / 2) at stride 2, with ty = iy + pt, tx = ix + pl) is `cell`: the taps
+// that reach it from (2, 2) down to (0, 0), each rounded product added to
+// an f32 sum from 0. At stride 2 the parities (PY, PX) of (ty, tx) pick the
+// taps (even: 2 then 0, one cell up or left, then the cell; odd: 1). At
+// stride 1 the taps that fall outside the image read the ring's zero cells:
+// a zero product added to the sum from 0 leaves it as it was.
+template <int S, int PY, int PX>
+__device__ __forceinline__ float dx_taps(const float* cell, int row, int col,
+                                         const float (&w)[9]) {
+  float acc = 0.f;
+#pragma unroll
+  for (int ky = 2; ky >= 0; --ky) {
+    if (S == 2 && (ky & 1) != PY) continue;
+    const int dy = S == 1 ? -ky : (ky == 2 ? -1 : 0);
+#pragma unroll
+    for (int kx = 2; kx >= 0; --kx) {
+      if (S == 2 && (kx & 1) != PX) continue;
+      const int dx = S == 1 ? -kx : (kx == 2 ? -1 : 0);
+      acc = __fadd_rn(acc, __fmul_rn(cell[dy * row + dx * col], w[ky * 3 + kx]));
+    }
+  }
+  return acc;
+}
+
+// dx at the tile's inputs of one parity class (stride 2; stride 1 has one
+// class): rows iy0 + oy, iy0 + oy + S, ... below iy0 + ih, columns
+// likewise, each thread every nsl-th of them from its slice.
+template <int CC, int S, int PY, int PX>
+__device__ __forceinline__ void dx_class(const Plan& p, const Lane& l, const Tile& t, int iy0,
+                                         int ix0, int ih, int iw, const float (&w)[9],
+                                         float* __restrict__ dx) {
+  const int oy = (PY - iy0 - p.pt) & (S - 1), ox = (PX - ix0 - p.pl) & (S - 1);
+  const int ny = (ih - oy + S - 1) / S, nx = (iw - ox + S - 1) / S;
+  const int row = p.gw * CC;
+  if (!l.live || nx == 0) return;  // nx 0: a single column of the other parity
+  for_positions(l.slice, l.nsl, ny, nx, [&](int qy, int qx) {
+    const int iy = iy0 + oy + qy * S, ix = ix0 + ox + qx * S;
+    const int cy = (iy + p.pt) / S - (t.r0 - 1), cx = (ix + p.pl) / S - (t.c0 - 1);
+    dx[((static_cast<int64_t>(l.b) * p.H + iy) * p.W + ix) * p.C + l.ch] =
+        dx_taps<S, PY, PX>(l.gs + cy * row + cx * CC, row, CC, w);
+  });
+}
+
+// One element's terms from its conv output a and upstream gradient g:
+// xc = a - mean, yn, dz (the gradient past ReLU6) and dyn = dz * scale.
+struct Terms {
+  float xc, yn, dz, dyn;
+};
+
+__device__ __forceinline__ Terms terms(float a, float g, float m, float inv, float sc, float bi,
+                                       int relu6) {
+  Terms e;
+  e.xc = __fsub_rn(a, m);
+  e.yn = __fmul_rn(e.xc, inv);
+  const float y = __fadd_rn(__fmul_rn(e.yn, sc), bi);
+  e.dz = relu6 ? __fmul_rn(g, relu6_grad(y)) : g;
+  e.dyn = __fmul_rn(e.dz, sc);
+  return e;
+}
+
+template <int CC>
+__global__ void __launch_bounds__(kThreads, kBlocks) bwd_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_g,
+    const float* __restrict__ w, const float* __restrict__ scale, const float* __restrict__ bias,
+    float* __restrict__ dx, float* __restrict__ dw_part, float* __restrict__ ds_part,
+    float* __restrict__ db_part, const Plan p, float eps, int relu6) {
+  const Smem<F32> sm = carve<F32>(p);
+  const int rank = static_cast<int>(cluster_rank()), chunk = blockIdx.y;
+  const Lane l = lane_of<CC>(p, sm, chunk);
+  constexpr int kGc = CC / kGroup;
+  const int ncc = p.nb * CC;
+  double* xch_ds = sm.xch + p.nb * 2 * kGc;  // [nb * cc]
+  double* xch_db = xch_ds + ncc;             // [nb * cc]
+  double* xch_d = xch_db + ncc;              // [nb][2][gc]
+  double* xch_dw = xch_d + p.nb * 2 * kGc;   // [9][nb * cc]
+  const int grp = (l.img * kGc + l.c / kGroup) * 8;  // the thread's statistics in sm.st
+  // the slot of value j of a group sum at u
+  auto group_slot = [&](int j, int u) { return ((u / CC) * 2 + j) * kGc + u % CC / kGroup; };
+  const bool resident = start(p, &tm_x, &tm_g, sm, rank, chunk);
+  float wr[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) wr[k] = w[k * p.C + l.ch];
+  const float sc = scale[l.ch], bi = bias[l.ch];
+  __syncthreads();  // the mbarriers thread 0 set up
+  uint32_t phase = 0;
+  Tile t;
+  if (resident) {
+    mbar_wait(sm.bar, 0);
+    phase = 1;
+  }
+
+  // pass 1: the statistics (box-local outputs start one ring in)
+  {
+    double v[2] = {0.0, 0.0};
+    for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+      if (!resident) fetch(p, &tm_x, &tm_g, sm, t, chunk, phase);
+      for_positions(l.slice, l.nsl, t.rr, t.cw, [&](int qy, int qx) {
+        const float a = conv<CC>(p, l.xs, wr, 1 + qy, 1 + qx);
+        v[0] = __dadd_rn(v[0], a);
+        v[1] = __dadd_rn(v[1], __fmul_rn(a, a));
+      });
+    }
+    v[0] = group_sum(v[0]);
+    v[1] = group_sum(v[1]);
+    slice_sum<CC>(p, l, v, sm.red, [&](int j, int u, double s) {
+      if (u % kGroup == 0) sm.xch[group_slot(j, u)] = s;
+    });
+    exchange_sync(p);
+    stats_from_slots(p, sm, eps);
+  }
+  const float m = sm.st[grp], inv = sm.st[grp + 2];
+
+  if (resident) mbar_wait(sm.bar + 1, 0);  // the g box
+
+  // pass 2: dscale, dbias per channel; sum(dyn * inv) and sum(dyn * xc) per group
+  {
+    double v[kSliceValues] = {0.0, 0.0, 0.0, 0.0};
+    for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+      if (!resident) fetch(p, &tm_x, &tm_g, sm, t, chunk, phase);
+      for_positions(l.slice, l.nsl, t.rr, t.cw, [&](int qy, int qx) {
+        const int ly = 1 + qy, lx = 1 + qx;
+        const float a = conv<CC>(p, l.xs, wr, ly, lx);
+        const Terms e = terms(a, l.gs[(ly * p.gw + lx) * CC], m, inv, sc, bi, relu6);
+        v[0] = __dadd_rn(v[0], __fmul_rn(e.dz, e.yn));
+        v[1] = __dadd_rn(v[1], e.dz);
+        v[2] = __dadd_rn(v[2], __fmul_rn(e.dyn, inv));
+        v[3] = __dadd_rn(v[3], __fmul_rn(e.dyn, e.xc));
+      });
+    }
+    v[2] = group_sum(v[2]);
+    v[3] = group_sum(v[3]);
+    slice_sum<CC>(p, l, v, sm.red, [&](int j, int u, double s) {
+      if (j < 2)
+        (j == 0 ? xch_ds : xch_db)[u] = s;
+      else if (u % kGroup == 0)
+        xch_d[group_slot(j - 2, u)] = s;
+    });
+    exchange_sync(p);
+    stat_grads_from_slots(p, sm.st, xch_d, eps);
+    const int u = threadIdx.x, b = blockIdx.z * p.nb + u / CC;
+    if (rank == 0 && u < ncc && b < p.B) {
+      const int64_t at = static_cast<int64_t>(b) * p.C + chunk * CC + u % CC;
+      ds_part[at] = __double2float_rn(rank_sum(xch_ds + u, p.cluster));
+      db_part[at] = __double2float_rn(rank_sum(xch_db + u, p.cluster));
+    }
+    __syncthreads();
+  }
+  const float kv = sm.st[grp + 4], km = sm.st[grp + 5];
+
+  // pass 3, tile by tile: the cotangent over the tile and its ring (in
+  // place of g), dw's nine sums over the tile's outputs, dx over the inputs
+  // it owns
+  double dw[9] = {};
+  for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+    if (!resident) fetch(p, &tm_x, &tm_g, sm, t, chunk, phase);
+    const int ew = t.cw + 2;
+    // the ring's cells outside the image keep the copy's zero fill of g:
+    // their cotangent, 0. At the tile's own outputs the conv's nine inputs
+    // then give dw's nine products.
+    const int ly0 = t.r0 == 0, lx0 = t.c0 == 0;
+    const int ly1 = min(t.rr + 2, p.OH - t.r0 + 1), lx1 = min(t.cw + 2, p.OW - t.c0 + 1);
+    for_positions(l.slice, l.nsl, ly1 - ly0, lx1 - lx0, [&](int qy, int qx) {
+      const int ly = ly0 + qy, lx = lx0 + qx;
+      float* cell = l.gs + (ly * p.gw + lx) * CC;
+      float xv[9];
+      const float a = conv<CC>(p, l.xs, wr, ly, lx, xv);
+      const Terms e = terms(a, *cell, m, inv, sc, bi, relu6);
+      const float d =
+          __fadd_rn(__fadd_rn(__fmul_rn(e.dyn, inv), __fmul_rn(__fmul_rn(2.f, a), kv)), km);
+      *cell = d;
+      if (ly >= 1 && ly <= t.rr && lx >= 1 && lx <= t.cw) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) dw[k] = __dadd_rn(dw[k], __fmul_rn(d, xv[k]));
+      }
+    });
+    __syncthreads();
+    // dx at the inputs this tile owns: rows [r0 * s, (r0 + rows) * s) and
+    // columns likewise, clipped to the image; at stride 2 by parity class,
+    // each class with its own taps
+    const int iy0 = t.r0 * p.s, ix0 = t.c0 * p.s;
+    const int ih = min((t.r0 + p.rows) * p.s, p.H) - iy0, iw = min((t.c0 + p.cols) * p.s, p.W) - ix0;
+    if (p.s == 1) {
+      dx_class<CC, 1, 0, 0>(p, l, t, iy0, ix0, ih, iw, wr, dx);
+    } else {
+      dx_class<CC, 2, 0, 0>(p, l, t, iy0, ix0, ih, iw, wr, dx);
+      dx_class<CC, 2, 0, 1>(p, l, t, iy0, ix0, ih, iw, wr, dx);
+      dx_class<CC, 2, 1, 0>(p, l, t, iy0, ix0, ih, iw, wr, dx);
+      dx_class<CC, 2, 1, 1>(p, l, t, iy0, ix0, ih, iw, wr, dx);
+    }
+  }
+  // dw: one slice sum of the nine taps in the x boxes' place, once every
+  // thread has read its last x
+  if (l.nsl > 1) __syncthreads();
+  slice_sum<CC>(p, l, dw, reinterpret_cast<double*>(sm.x),
+            [&](int k, int u, double s) { xch_dw[k * ncc + u] = s; });
+  exchange_sync(p);
+  if (rank == 0) {
+    for (int v = threadIdx.x; v < 9 * ncc; v += kThreads) {
+      const int k = v / ncc, u = v % ncc, b = blockIdx.z * p.nb + u / CC;
+      if (b >= p.B) continue;
+      dw_part[(static_cast<int64_t>(b) * 9 + k) * p.C + chunk * CC + u % CC] =
+          __double2float_rn(rank_sum(xch_dw + v, p.cluster));
+    }
+  }
+  if (p.cluster > 1) cluster_sync();  // no CTA leaves while rank 0 may still read its slots
+}
+
+using Kernel = decltype(&bwd_kernel<8>);
+
+// The kernel for a chunk of cc channels (make_plan admits 8 to 128, a
+// power of two).
+Kernel kernel_of(int cc) {
+  switch (cc) {
+    case 8:
+      return bwd_kernel<8>;
+    case 16:
+      return bwd_kernel<16>;
+    case 32:
+      return bwd_kernel<32>;
+    case 64:
+      return bwd_kernel<64>;
+    default:
+      return bwd_kernel<128>;
+  }
+}
+
+}  // namespace f32bwd
+
+// The backward kernel of element type T for a chunk of cc channels: the
+// template's for bf16; f32bwd's, built for each chunk width, for f32.
+template <typename T>
+auto bwd_kernel_of(int cc) {
+  if constexpr (T::kItemsize == 2) {
+    return dwgn_bwd_kernel<T>;
+  } else {
+    return f32bwd::kernel_of(cc);
+  }
 }
 
 // Opts a kernel into the card's whole shared memory once.
@@ -925,11 +1331,12 @@ int dwgn_bwd(const void* x, const void* w, const void* scale, const void* bias, 
   if (!err)
     err = dftt::hopper::make_nhwc_map(&tm_g, g, B, p.OH, p.OW, C, cc, p.gw, p.gr, nb,
                                       T::kItemsize);
-  static bool opted = false;
-  if (!err) err = opt_in(dwgn_bwd_kernel<T>, opted);
+  const auto kernel = bwd_kernel_of<T>(cc);
+  static bool opted[kMaxChunk / kGroup + 1] = {};
+  if (!err) err = opt_in(kernel, opted[cc / kGroup]);
   if (err) return err;
   using E = typename T::Elem;
-  return launch_cluster(dwgn_bwd_kernel<T>, p, static_cast<cudaStream_t>(stream), tm_x, tm_g,
+  return launch_cluster(kernel, p, static_cast<cudaStream_t>(stream), tm_x, tm_g,
                         static_cast<const E*>(w), static_cast<const float*>(scale),
                         static_cast<const float*>(bias), static_cast<E*>(dx),
                         static_cast<float*>(dw_part), static_cast<float*>(ds_part),
@@ -959,7 +1366,7 @@ DWGN_FWD_ENTRY(dftt_dwgn_fwd_f32, F32)
 
 // As the forward, plus g: [B, OH, OW, C] in x's dtype (16-byte aligned);
 // dx: [B, H, W, C] in x's dtype; dw_part: [B, 3, 3, C] f32; ds_part,
-// db_part: [B, C] f32.
+// db_part: [B, C] f32. The f32 entry runs f32bwd::bwd_kernel<cc>.
 #define DWGN_BWD_ENTRY(name, T)                                                                \
   extern "C" int name(const void* x, const void* w, const void* scale, const void* bias,       \
                       const void* g, void* dx, void* dw_part, void* ds_part, void* db_part,     \
@@ -971,3 +1378,16 @@ DWGN_FWD_ENTRY(dftt_dwgn_fwd_f32, F32)
   }
 DWGN_BWD_ENTRY(dftt_dwgn_bwd_bf16, Bf16)
 DWGN_BWD_ENTRY(dftt_dwgn_bwd_f32, F32)
+
+// CTAs of the f32 backward for a chunk of cc channels an SM holds at
+// `smem` bytes of dynamic shared memory a CTA (the runtime's occupancy
+// calculator), or minus a CUDA error.
+extern "C" int dftt_dwgn_bwd_f32_ctas_per_sm(int cc, int smem) {
+  static bool opted[kMaxChunk / kGroup + 1] = {};
+  if (cc < kGroup || cc > kMaxChunk || cc & (cc - 1)) return -static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = f32bwd::kernel_of(cc);
+  int err = opt_in(kernel, opted[cc / kGroup]), n = 0;
+  if (!err)
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem));
+  return err ? -err : n;
+}

@@ -68,8 +68,9 @@ _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] + [cty
     + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 8 \
     + [ctypes.c_void_p]
-_SIGNATURES = {f"dftt_dwgn_{d}_{t}": args for d, args in (("fwd", _FWD_ARGS), ("bwd", _BWD_ARGS))
-               for t in ("bf16", "f32")}
+_SIGNATURES = {**{f"dftt_dwgn_{d}_{t}": args for d, args in (("fwd", _FWD_ARGS), ("bwd", _BWD_ARGS))
+                  for t in ("bf16", "f32")},
+               "dftt_dwgn_bwd_f32_ctas_per_sm": [ctypes.c_int] * 2}
 #: the kernels' element types, by the suffix of their entry points
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -144,12 +145,26 @@ MAX_BOX = 256  # a TMA box's largest extent in each dimension
 SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper CTA may use
 # a tile's budget by (backward, itemsize): in bf16 three forward CTAs (80
 # registers a thread) or two backward CTAs (128) on an SM's 228 KB; in f32
-# two forward CTAs (128 registers) or one backward CTA (223 registers),
-# whose tile may then take most of the SM's shared memory
+# two forward CTAs (128 registers) or two backward CTAs (csrc f32bwd: one
+# channel a thread)
 SMEM_TARGET = {(False, 2): 72 * 1024, (True, 2): 112 * 1024,
-               (False, 4): 112 * 1024, (True, 4): 200 * 1024}
+               (False, 4): 112 * 1024, (True, 4): 112 * 1024}
+# CTAs an SM the f32 backward's __launch_bounds__ asks for (csrc
+# f32bwd::kBlocks); SMEM_TARGET[(True, 4)] fits them
+F32_BWD_BLOCKS = 2
 # (position, group) items a CTA of small images takes: four a thread
 ITEMS_PER_CTA = 4 * THREADS
+# the f32 backward's f64 sums a thread per slice-sum round (pass 2: dscale,
+# dbias and the two statistics' gradient terms)
+F32_BWD_SLICE_VALUES = 4
+# The f32 backward's plan cost (f32_bwd_cost), per output position and
+# channel, in the time of one conv output: each tile's conv outputs (the
+# tile twice, in passes 1 and 2, and the tile with its ring in pass 3), its
+# boxes' elements at F32_BWD_BOX_COST each (the copies, the halo's rows
+# through L2; three times on a streamed plan), and a CTA's fixed time (the
+# copies' latency, the barriers and exchanges) at F32_BWD_CTA_COST conv
+# outputs of each of its threads
+F32_BWD_BOX_COST, F32_BWD_CTA_COST = 0.25, 4.0
 
 
 @dataclass(frozen=True)
@@ -200,6 +215,13 @@ class DwgnPlan:
         return -(-self.geometry[3] // self.cols)
 
     @property
+    def slices(self) -> int:
+        """Position slices of a channel: the f32 backward's threads each
+        take one channel and every ``slices``-th position of a tile (1
+        elsewhere)."""
+        return THREADS // (self.images * self.cc) if self.backward and self.itemsize == 4 else 1
+
+    @property
     def x_box(self) -> Tuple[int, int]:
         """(rows, cols) of the x box."""
         return _x_box(self.rows, self.cols, self.stride, self.halo)
@@ -241,11 +263,41 @@ def _smem_bytes(cc: int, rows: int, cols: int, stride: int, backward: bool,
     xr, xc = _x_box(rows, cols, stride, int(backward))
     gc = cc // GROUP_SIZE
     warps = THREADS // 32
+    if backward and itemsize == 4:
+        return 128 + sum(_align(p) for p in _f32_bwd_parts(cc, rows, cols, xr, xc, images)) + 16
     parts = (images * xr * xc * cc * itemsize,
              images * (rows + 2) * (cols + 2) * cc * itemsize if backward else 0,
              2 * warps * cc * 8, 9 * warps * cc * 4 if backward and itemsize == 2 else 0,
              images * (11 * cc + 4 * gc if backward else 2 * gc) * 8, images * gc * 32)
     return 128 + sum(_align(p) for p in parts) + 16
+
+
+def _f32_bwd_parts(cc: int, rows: int, cols: int, xr: int, xc: int, images: int):
+    """The f32 backward's shared-memory regions (csrc/depthwise_gn.cu
+    ``f32bwd``): the x boxes, at least as large as the nine taps' f64 dw
+    sums of every thread (which take their place once dw's last product is
+    read); the g boxes (then the cotangent); one f64 buffer of
+    ``F32_BWD_SLICE_VALUES`` sums a thread for the slice sums of passes 1
+    and 2; the cluster's exchange slots; 8 floats of statistics a group."""
+    gc = cc // GROUP_SIZE
+    return (max(images * xr * xc * cc * 4, 9 * THREADS * 8),
+            images * (rows + 2) * (cols + 2) * cc * 4, F32_BWD_SLICE_VALUES * THREADS * 8,
+            images * (11 * cc + 4 * gc) * 8, images * gc * 32)
+
+
+def f32_bwd_cost(plan: "DwgnPlan") -> float:
+    """The f32 backward's estimated time for ``plan``, per output position
+    and channel of one image (see ``F32_BWD_BOX_COST``): what its plan
+    search minimizes. A streamed plan loads each tile's boxes once a pass
+    (three times)."""
+    _, _, oh, ow = plan.geometry
+    rows, cols = plan.rows, plan.cols
+    xr, xc = plan.x_box
+    loads = 1 if plan.tiles_per_cta == 1 else 3
+    tile = 2 * rows * cols + (rows + 2) * (cols + 2) + loads * F32_BWD_BOX_COST * (
+        xr * xc + (rows + 2) * (cols + 2))
+    ctas = plan.cluster * F32_BWD_CTA_COST * THREADS / (plan.cc * plan.images)
+    return (plan.n_row_tiles * plan.n_col_tiles * tile + ctas) / (oh * ow)
 
 
 def _chunks(c: int, positions: int):
@@ -267,6 +319,34 @@ def make_plan(h: int, w: int, c: int, stride: int, backward: bool, cc: int, rows
     return DwgnPlan(h, w, c, stride, backward, cc, rows, cols, cluster, -(-n_tiles // cluster),
                     images, _smem_bytes(cc, rows, cols, stride, backward, images, itemsize),
                     itemsize)
+
+
+def _f32_bwd_plans(h: int, w: int, c: int, stride: int, budget: int, streamed: bool = False):
+    """Every resident f32 backward plan within ``budget``: each channel
+    chunk, each cut into at most ``MAX_CLUSTER`` tiles (rows and columns),
+    and on a single tile each number of images side by side. With
+    ``streamed``, the streamed plans instead: each cut into more tiles (up
+    to 4 columns of tiles), walked by a cluster of ``MAX_CLUSTER`` CTAs
+    (one CTA walking all of them leaves most of the card idle at B 64)."""
+    _, _, oh, ow = _geometry(h, w, stride)
+    n_rt = range(1, oh + 1) if streamed else range(1, MAX_CLUSTER + 1)
+    cuts = {(-(-oh // nr), -(-ow // nc)) for nr in n_rt
+            for nc in range(1, (min(4, ow) if streamed else MAX_CLUSTER // nr) + 1)}
+    out = []
+    for cc in _chunks(c, oh * ow):
+        for rows, cols in sorted(cuts):
+            tiles = -(-oh // rows) * -(-ow // cols)
+            if streamed != (tiles > MAX_CLUSTER):
+                continue
+            single = tiles == 1
+            for images in (1, 2, 4, 8) if single else (1,):
+                xr, xc = _x_box(rows, cols, stride, 1)
+                if (images * cc > THREADS or max(xr, xc, rows + 2, cols + 2) > MAX_BOX
+                        or _smem_bytes(cc, rows, cols, stride, True, images, 4) > budget):
+                    continue
+                out.append(make_plan(h, w, c, stride, True, cc, rows, cols, images=images,
+                                     itemsize=4))
+    return out
 
 
 @functools.lru_cache(maxsize=512)
@@ -306,6 +386,12 @@ def dwgn_plan(h: int, w: int, c: int, stride: int, backward: bool,
     cols = -(-ow // n_ct)
     n_ct = -(-ow // cols)
     resident = [r for r in row_counts if -(-oh // r) * n_ct <= MAX_CLUSTER]
+    if backward and itemsize == 4:  # the f32 backward: the least cost within the target
+        best = min(_f32_bwd_plans(h, w, c, stride, target) or
+                   _f32_bwd_plans(h, w, c, stride, target, streamed=True),
+                   key=f32_bwd_cost, default=None)
+        if best is not None:
+            return best
     for cc in chunks:
         rows = next((r for r in resident if fits(cc, r, cols, target)), None)
         if rows is not None and rows >= oh and cols >= ow:  # one tile: images side by side
@@ -494,30 +580,83 @@ def _boxes(x, plan: DwgnPlan):
         yield rank, r0, c0, rr, cw, xp[:, y0:y0 + xr, x0:x0 + xc]
 
 
-def _rank_sums(parts, ranks):
-    """The f64 per-rank partials added in rank order."""
+def slice_lanes(n_sums: int, nsl: int) -> int:
+    """The lanes that share one of the f32 backward's ``n_sums`` slice sums
+    over ``nsl`` slices (csrc/depthwise_gn.cu ``slice_lanes``): the most, a
+    power of two up to 32 and to ``nsl``, with ``n_sums * lanes`` within the
+    CTA's threads."""
+    lanes = 1
+    while lanes < 32 and lanes < nsl and n_sums * lanes * 2 <= THREADS:
+        lanes *= 2
+    return lanes
+
+
+def _slice_total(part: torch.Tensor, lanes: int) -> torch.Tensor:
+    """A rank's ``[nsl, ...]`` slice partials added as the kernel adds them:
+    ``lanes`` blocks of neighbouring slices, each in slice order, then the
+    blocks pairwise (a butterfly over the lanes)."""
+    per = part.shape[0] // lanes
+    blocks = []
+    for i in range(lanes):
+        tot = part[i * per]
+        for sl in range(i * per + 1, (i + 1) * per):
+            tot = tot + part[sl]
+        blocks.append(tot)
+    while len(blocks) > 1:
+        blocks = [a + b for a, b in zip(blocks[::2], blocks[1::2])]
+    return blocks[0]
+
+
+def _rank_sums(parts, ranks, lanes=1, slices=None):
+    """The f64 per-rank partials added in rank order, each rank's by
+    position slice (``[nsl, ...]``, :func:`_by_slice`) added first as the
+    f32 backward adds them over ``lanes`` (:func:`_slice_total`; one slice
+    elsewhere). With ``slices``, only those slices count, in order (a
+    deliberately wrong sum for the limit checks)."""
     tot = None
     for r in ranks:
         if r in parts:
-            tot = parts[r] if tot is None else tot + parts[r]
+            if slices is None:
+                part = _slice_total(parts[r], lanes)
+            else:
+                part = parts[r][slices[0]]
+                for sl in slices[1:]:
+                    part = part + parts[r][sl]
+            tot = part if tot is None else tot + part
     return tot
+
+
+def _lanes(plan: "DwgnPlan", n_values: int) -> int:
+    """The lanes of ``plan``'s slice sums of ``n_values`` values a thread."""
+    return slice_lanes(n_values * plan.images * plan.cc, plan.slices)
+
+
+def _by_slice(t: torch.Tensor, nsl: int, dims, order=None) -> torch.Tensor:
+    """``[nsl, ...]``: the f64 sums over ``dims`` (kept) of ``t`` for each
+    position slice, positions along dim 1 and position q in slice q %
+    ``nsl`` (the f32 backward's threads; 1 elsewhere), q its index in the
+    tile's row-major order or ``order[q]``."""
+    q = torch.arange(t.shape[1], device=t.device) if order is None else order
+    return torch.stack([t[:, q % nsl == sl].double().sum(dim=dims, keepdim=True)
+                        for sl in range(nsl)])
 
 
 def _banded_stats(x, w3, plan: DwgnPlan, eps, ranks=None):
     """Pass 1: ``(m, var, inv)`` per (batch, group) from the tiles' f64
-    (sum, sum of squares), from ``ranks`` only if given."""
+    (sum, sum of squares), by position slice where the plan has them, from
+    ``ranks`` only if given."""
     b, c = x.shape[0], x.shape[3]
     parts, count = {}, {}
     for rank, _, _, rr, cw, box in _boxes(x, plan):
         h0 = plan.halo
         acc = _taps(box[:, h0 * plan.stride:, h0 * plan.stride:], w3, plan.stride, rr, cw)
         xg = acc.reshape(b, rr * cw, c // GROUP_SIZE, GROUP_SIZE).float()
-        sums = torch.stack([xg.double().sum(dim=(1, 3), keepdim=True),
-                            (xg * xg).double().sum(dim=(1, 3), keepdim=True)])
+        sums = torch.stack([_by_slice(xg, plan.slices, (1, 3)),
+                            _by_slice(xg * xg, plan.slices, (1, 3))], dim=1)
         parts[rank] = sums if rank not in parts else parts[rank] + sums
         count[rank] = count.get(rank, 0) + rr * cw * GROUP_SIZE
     ranks = range(plan.cluster) if ranks is None else ranks
-    s, ss = _rank_sums(parts, ranks)
+    s, ss = _rank_sums(parts, ranks, _lanes(plan, 2))
     n = sum(count[r] for r in ranks)
     m, m2 = _div(s, n).float(), _div(ss, n).float()
     var = m2 - m * m
@@ -546,13 +685,17 @@ def banded_forward_reference(x, w, scale, bias, stride: int = 1, eps: float = 1e
 
 
 def banded_backward_reference(x, w, scale, bias, g, stride: int = 1, eps: float = 1e-6,
-                              relu6: bool = True, plan=None):
+                              relu6: bool = True, plan=None, dw_slices=None):
     """The backward kernel's decomposition under ``plan`` (by default
     :func:`dwgn_plan`'s at ``x``'s itemsize): ``(dx, dw, dscale, dbias)`` as
-    :func:`depthwise3x3_groupnorm_backward_reference` gives them."""
+    :func:`depthwise3x3_groupnorm_backward_reference` gives them. Every sum
+    over positions is taken by position slice (the f32 backward's; one
+    slice elsewhere), the slices added as that kernel adds them, then the
+    ranks in order. With ``dw_slices`` dw counts those slices only, a
+    deliberately wrong dw for the limit checks."""
     b, h, wd, c = x.shape
     plan = plan or dwgn_plan(h, wd, c, stride, True, x.element_size())
-    w3, s = _w3(w), stride
+    w3, s, nsl = _w3(w), stride, plan.slices
     gsz, ng = GROUP_SIZE, c // GROUP_SIZE
     (pt, _), (pl, _), oh, ow = plan.geometry
     m, var, inv = _banded_stats(x, w3, plan, eps)
@@ -571,14 +714,13 @@ def banded_backward_reference(x, w, scale, bias, g, stride: int = 1, eps: float 
     for rank, r0, c0, rr, cw, box in _boxes(x, plan):
         acc = _taps(box[:, s:, s:], w3, s, rr, cw)
         xg, xc, yn, dz, dyn = terms(acc, g[:, r0:r0 + rr, c0:c0 + cw])
-        p = ((dz * yn).double().sum(dim=(1, 2)), dz.double().sum(dim=(1, 2)),
-             (dyn * inv).double().sum(dim=(1, 3), keepdim=True),
-             (dyn * xc).double().sum(dim=(1, 3), keepdim=True))
+        p = (_by_slice((dz * yn).flatten(1, 2), nsl, 1), _by_slice(dz.flatten(1, 2), nsl, 1),
+             _by_slice(dyn * inv, nsl, (1, 3)), _by_slice(dyn * xc, nsl, (1, 3)))
         parts[rank] = p if rank not in parts else tuple(a + q for a, q in zip(parts[rank], p))
     ranks = range(plan.cluster)
-    dsp, dbp, sxc, dinv = (_rank_sums({r: v[i] for r, v in parts.items()}, ranks)
+    dsp, dbp, sxc, dinv = (_rank_sums({r: v[i] for r, v in parts.items()}, ranks, _lanes(plan, 4))
                            for i in range(4))
-    dsp, dbp, sxc, dinv = dsp.float(), dbp.float(), sxc.float(), dinv.float()
+    dsp, dbp, sxc, dinv = dsp[:, 0].float(), dbp[:, 0].float(), sxc.float(), dinv.float()
     n = oh * ow * gsz
     dvar = dinv * (-0.5 * (inv / (torch.clamp(var, min=0.0) + eps)))
     dvar = dvar * _half_at_ties(var, True, False)
@@ -594,12 +736,20 @@ def banded_backward_reference(x, w, scale, bias, g, stride: int = 1, eps: float 
         ox = torch.arange(c0 - 1, c0 + cw + 1, device=x.device)
         live = ((oy >= 0) & (oy < oh))[:, None] & ((ox >= 0) & (ox < ow))[None, :]
         dacc = torch.where(live[None, :, :, None], dacc, torch.zeros_like(dacc))
-        dwt = torch.empty(b, 3, 3, c, dtype=torch.float64, device=x.device)
+        dwt = torch.empty(nsl, b, 3, 3, c, dtype=torch.float64, device=x.device)
+        # dw's products come with the cotangent, in the order of the live
+        # cells of the tile and its ring (the ring's cells outside the image
+        # left out)
+        ly0, lx0 = int(r0 == 0), int(c0 == 0)
+        wide = min(cw + 2, ow - c0 + 1) - lx0
+        order = ((torch.arange(1, rr + 1, device=x.device)[:, None] - ly0) * wide
+                 + torch.arange(1, cw + 1, device=x.device)[None, :] - lx0).flatten()
         canvas = torch.zeros_like(box)
         for ky in (2, 1, 0):
             for kx in (2, 1, 0):
                 own = box[:, s + ky:s + ky + (rr - 1) * s + 1:s, s + kx:s + kx + (cw - 1) * s + 1:s]
-                dwt[:, ky, kx] = (dacc[:, 1:rr + 1, 1:cw + 1] * own).double().sum(dim=(1, 2))
+                dwt[:, :, ky, kx] = _by_slice(
+                    (dacc[:, 1:rr + 1, 1:cw + 1] * own).flatten(1, 2), nsl, 1, order)[:, :, 0]
                 rows = slice(ky, ky + (rr + 1) * s + 1, s)
                 cols = slice(kx, kx + (cw + 1) * s + 1, s)
                 canvas[:, rows, cols] = canvas[:, rows, cols] + dacc * w3[ky, kx]
@@ -608,7 +758,7 @@ def banded_backward_reference(x, w, scale, bias, g, stride: int = 1, eps: float 
         iy1, ix1 = min((r0 + plan.rows) * s, h), min((c0 + plan.cols) * s, wd)
         by, bx = (r0 - 1) * s - pt, (c0 - 1) * s - pl
         dx[:, iy0:iy1, ix0:ix1] = canvas[:, iy0 - by:iy1 - by, ix0 - bx:ix1 - bx]
-    dwp = _rank_sums(dw_parts, ranks).float().to(x.dtype).float()
+    dwp = _rank_sums(dw_parts, ranks, _lanes(plan, 9), dw_slices).float().to(x.dtype).float()
     return _reduce(dx, dwp, dsp, dbp, w, scale, bias)
 
 
@@ -717,6 +867,15 @@ def depthwise_gn_backward(x, w, scale, bias, g, stride: int = 1, eps: float = 1e
     build.check(rc, "depthwise_gn_backward")
     build.count_launch(depthwise_gn_backward, dtype=x.dtype)
     return _reduce(dx, dwp, dsp, dbp, w, scale, bias)
+
+
+def f32_backward_ctas_per_sm(plan: DwgnPlan) -> int:
+    """CTAs of the f32 backward kernel an SM holds under ``plan`` (its
+    registers and ``plan.smem``), from the CUDA runtime's occupancy
+    calculator; needs the card."""
+    n = build.load("depthwise_gn", _SIGNATURES).dftt_dwgn_bwd_f32_ctas_per_sm(plan.cc, plan.smem)
+    build.check(max(-n, 0), "f32_backward_ctas_per_sm")
+    return n
 
 
 #: kernel launches since the count was last set to 0, and by element type
