@@ -17,8 +17,9 @@ two).
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all six
    in parallel) and prints the build time, ptxas' registers and spills,
-   and (``dwgn_f32_bwd:``) the f32 depthwise backward's registers and the
-   CTAs an SM holds under each of its 20 plans.
+   and (``dwgn_f32_bwd:``, ``dwgn_f32_fwd:``) the f32 depthwise backward's
+   and forward's registers and the CTAs an SM holds under each of their
+   20 plans.
 2. Builds the flagship LM (vocab 32000, d_model 512, 8 heads x 64, 8
    layers, d_ff 2048, max_seq 2048, bf16) from a seeded numpy init carried
    over with ``lm_from_jax``, starts the port's ``InferenceServer`` with the
@@ -132,10 +133,13 @@ two).
     against the plain versions and the banded mirror of the f32 plan
     (``differ_share``: the share of elements not bit for bit), time each,
     and time the plain versions and the library composition (TF32 off) at
-    each resolution's largest-bytes and smallest shape; the same two
-    planted faults are rejected, and a third of the f32 backward's own
-    design: dw from one position slice of each channel alone
-    (``dw_from_slice0_only``).
+    each resolution's largest-bytes and smallest shape; the planted
+    faults of the f32 kernels' own designs are rejected: a forward whose
+    statistics come from one position slice of each channel alone
+    (``stats_from_slice0_only``), a backward without the statistics'
+    gradient terms, dw from one position slice alone
+    (``dw_from_slice0_only``); and the f32 forward holds a shape no
+    resident cut fits (``DWGN_F32_STREAMED``, a streamed plan) bit for bit.
 13. Long-context training: the flagship at max_seq 16384 with
     ``remat=True`` (the JAX CLI ``experiments/lm/train.py --seq 16384
     --remat`` at the flagship's dims; B 1 where the CLI defaults to 8),
@@ -2210,7 +2214,7 @@ def _mobilenet_f32_phase(tree, counted, device="cuda"):
     # the pointwise and stem convolutions run through cuDNN under torch's
     # default, which the package leaves alone
     report["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
-    report["step_profile"] = (_profiled(lambda: trainer.step(batch), DWGN_F32_BWD_KERNELS)
+    report["step_profile"] = (_profiled(lambda: trainer.step(batch), DWGN_F32_KERNELS)
                               if device == "cuda" else None)
     del trainer
     report["step_vs_plain"] = _mobilenet_step_vs_plain(tree, batch, device, f32=True)
@@ -2218,10 +2222,12 @@ def _mobilenet_f32_phase(tree, counted, device="cuda"):
     return report, counts
 
 
-#: the f32 depthwise backward's kernel by name in a profile: this design's
-#: and the bf16 template's f32 instance before it
-DWGN_F32_BWD_KERNELS = {"dwgn_bwd_f32": ("f32bwd::bwd_kernel",
-                                         "dwgn_bwd_kernel<(anonymous namespace)::F32>")}
+#: the f32 depthwise kernels by name in a profile: these designs' and the
+#: bf16 templates' f32 instances before them
+DWGN_F32_KERNELS = {"dwgn_bwd_f32": ("f32bwd::bwd_kernel",
+                                     "dwgn_bwd_kernel<(anonymous namespace)::F32>"),
+                    "dwgn_fwd_f32": ("f32fwd::fwd_kernel",
+                                     "dwgn_fwd_kernel<(anonymous namespace)::F32>")}
 #: steps of the f32 MobileNet step before its profiled one
 MN_F32_STEP_WARM = 4
 
@@ -2232,7 +2238,7 @@ def _mobilenet_f32_step():
     the smoke trains, ``MN_F32_STEP_WARM`` steps of B ``MN_B`` on the
     synthetic ImageNet recipe, then one more under the profiler; ``{
     "step_ms_p50", "profile"}`` (the profile's ``kernel_ms`` holds the f32
-    depthwise backward's device ms), what ``--parent`` runs on an older
+    depthwise kernels' device ms), what ``--parent`` runs on an older
     checkout before and after this one's."""
     from distriflow_tpu_torch.data.prefetch import sampling_iterator, to_uint8_wire
     from distriflow_tpu_torch.models.convert import mobilenet_params_from_jax
@@ -2252,7 +2258,7 @@ def _mobilenet_f32_step():
     batches = list(sampling_iterator(x, y, MN_B, steps=steps, seed=SEED))
     for batch in batches[:-1]:
         trainer.step(batch)
-    profile = _profiled(lambda: trainer.step(batches[-1]), DWGN_F32_BWD_KERNELS)
+    profile = _profiled(lambda: trainer.step(batches[-1]), DWGN_F32_KERNELS)
     del trainer
     return {"step_ms_p50": float(np.median(step_ms[:MN_F32_STEP_WARM])), "profile": profile}
 
@@ -2368,9 +2374,10 @@ def _dwgn_times(shapes):
 
 
 def _plan_of(plan, batch):
+    f32_fwd = {"strip": plan.strip, "keep": plan.keep} if plan.strip else {}
     return {"cc": plan.cc, "cluster": plan.cluster, "tile": [plan.rows, plan.cols],
             "tiles_per_cta": plan.tiles_per_cta, "images_per_cta": plan.images,
-            "ctas": plan.ctas(batch), "smem_bytes": plan.smem}
+            "ctas": plan.ctas(batch), "smem_bytes": plan.smem, **f32_fwd}
 
 
 def _with_was(rows, shapes, was):
@@ -2506,6 +2513,9 @@ def _mobilenet_kernel_rows(launches, shapes):
 # the f32 rows' timed shapes: the largest-bytes and the smallest shape at
 # 96 px (as the bf16 rows) and at 224 px
 DWGN224_BIG, DWGN224_SMALL = (112, 112, 96, 2), (7, 7, 960, 1)
+# (B, H, W, C, stride): a shape the JAX gate admits in f32 that no resident
+# cut of the f32 forward fits, so its plan streams
+DWGN_F32_STREAMED = (2, 280, 280, 8, 1)
 
 
 def _dwgn_f32_check(name, got, want):
@@ -2595,8 +2605,9 @@ def _mobilenet_f32_kernel_rows(launches):
                     "blocks_per_step": count, "batch": batch, "ms": t, "bound_ms": bnd[0],
                     "bound_by": bnd[1],
                     "plan": _plan_of(dg.dwgn_plan(h, w, c, s, plan_bwd, 4), batch)}
-            bwd["by_shape"][tag]["plan"]["ctas_per_sm"] = dg.f32_backward_ctas_per_sm(
-                dg.dwgn_plan(h, w, c, s, True, 4))
+            for d, plan_bwd in ((fwd, False), (bwd, True)):
+                d["by_shape"][tag]["plan"]["ctas_per_sm"] = dg.f32_ctas_per_sm(
+                    dg.dwgn_plan(h, w, c, s, plan_bwd, 4))
             fwd["by_shape"][tag]["max_abs_err"] = fwd["errs"][-1]
             bwd["by_shape"][tag].update(max_abs_err=err, sum_rel_err=sums)
             if key in timed_at:
@@ -2620,14 +2631,16 @@ def _mobilenet_f32_kernel_rows(launches):
                     torch.backends.cudnn.allow_tf32 = tf32
                 del leaves, lib_out
             if key == DWGN_BIG:
-                # the limits must reject statistics from rank 0's tiles
-                # alone and a backward without the statistics' gradient
+                # the limits must reject statistics from one position
+                # slice of each channel alone (the forward's threads take
+                # every slices-th unit; a lost slice or slot of its slice
+                # sum) and a backward without the statistics' gradient
                 atol, rtol = TOL["depthwise_gn_fwd_f32"]
-                assert dg.dwgn_plan(h, w, c, s, False, 4).cluster > 1
-                wrong_y = dg.banded_forward_reference(x, k, sc, bi, s, stats_ranks=[0])
-                fwd_controls["stats_from_rank0_only"] = float(
+                assert dg.dwgn_plan(h, w, c, s, False, 4).slices > 1
+                wrong_y = dg.banded_forward_reference(x, k, sc, bi, s, stats_slices=[0])
+                fwd_controls["stats_from_slice0_only"] = float(
                     ((wrong_y - y_want).abs() > atol + rtol * y_want.abs()).float().mean())
-                assert fwd_controls["stats_from_rank0_only"] > 0.1, fwd_controls
+                assert fwd_controls["stats_from_slice0_only"] > 0.1, fwd_controls
                 wrong = dg.depthwise3x3_groupnorm_backward_reference(x, k, sc, bi, gout, s,
                                                                      drop_stats=True)
                 atol, rtol = TOL["depthwise_gn_bwd_f32"]
@@ -2649,7 +2662,7 @@ def _mobilenet_f32_kernel_rows(launches):
     out = []
     for name, d, line, extra in (
             ("depthwise_gn_fwd_f32", fwd, "distriflow_tpu/ops/depthwise_gn.py:180",
-             {"rejected_share": fwd_controls}),
+             {"rejected_share": fwd_controls, "streamed": _dwgn_f32_streamed()}),
             ("depthwise_gn_bwd_f32", bwd, "distriflow_tpu/ops/depthwise_gn.py:184",
              {"sum_rel_err_max": bwd["sums"], "sum_limit": f"dw within {DWGN_F32_SUM_RTOL} of "
               "its largest element; dscale and dbias at the row's tol",
@@ -2671,9 +2684,33 @@ def _mobilenet_f32_kernel_rows(launches):
     return out
 
 
-def _dwgn_f32_bwd_build():
-    """The f32 depthwise backward's build: ptxas' registers and spills of
-    its kernel, and the CTAs an SM holds under each of its 20 plans (the
+def _dwgn_f32_streamed():
+    """The f32 forward at :data:`DWGN_F32_STREAMED`, whose plan streams
+    (each pass loads each tile again): y bit for bit against the plain
+    version and the banded mirror, the same bits on a second launch."""
+    from distriflow_tpu_torch.ops import depthwise_gn as dg
+
+    b, h, w, c, s = DWGN_F32_STREAMED
+    assert dg.depthwise_gn_supported(h, w, c, s, itemsize=4)
+    plan = dg.dwgn_plan(h, w, c, s, False, 4)
+    assert plan.tiles_per_cta > 1, plan
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x, k, sc, bi = _dwgn_inputs(g, b, h, w, c, torch.float32)
+    y = dg.depthwise_gn_forward(x, k, sc, bi, s)
+    y_want = dg.depthwise3x3_groupnorm_reference(x, k, sc, bi, s)
+    y_band = dg.banded_forward_reference(x, k, sc, bi, s)
+    differ = {"y": float((y != y_want).float().mean()),
+              "y_vs_banded": float((y != y_band).float().mean())}
+    same_bits = bool(torch.equal(y, dg.depthwise_gn_forward(x, k, sc, bi, s)))
+    assert not any(differ.values()) and same_bits, (differ, same_bits)
+    return {"shape": list(DWGN_F32_STREAMED), "plan": _plan_of(plan, b), "differ_share": differ,
+            "same_bits": same_bits}
+
+
+def _dwgn_f32_build(backward):
+    """The f32 depthwise backward's (``backward``) or forward's build:
+    ptxas' registers and spills of its kernel (an instance a channel
+    chunk), and the CTAs an SM holds under each of its 20 plans (the
     runtime's occupancy calculator)."""
     from distriflow_tpu_torch.ops import build
     from distriflow_tpu_torch.ops import depthwise_gn as dg
@@ -2681,14 +2718,14 @@ def _dwgn_f32_bwd_build():
     lines, keep = [], False
     for line in build.ptxas_reports.get("depthwise_gn", "").splitlines():
         if "Compiling entry" in line:
-            keep = "f32bwd" in line
+            keep = ("f32bwd" if backward else "f32fwd") in line
         elif keep and ("registers" in line or "spill" in line):
             lines.append(line.strip())
     ctas = {}
     for px, size in ((96, MN), (224, MN224)):
         for h, w, c, s in _depthwise_shapes(size["image_size"], size["width"]):
-            plan = dg.dwgn_plan(h, w, c, s, True, 4)
-            ctas[f"{px}px {h}x{w}x{c} s{s}"] = [dg.f32_backward_ctas_per_sm(plan), plan.smem]
+            plan = dg.dwgn_plan(h, w, c, s, backward, 4)
+            ctas[f"{px}px {h}x{w}x{c} s{s}"] = [dg.f32_ctas_per_sm(plan), plan.smem]
     return {"ptxas": lines, "ctas_per_sm_and_smem": ctas}
 
 
@@ -8651,7 +8688,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    print("dwgn_f32_bwd:", json.dumps(_dwgn_f32_bwd_build()), flush=True)
+    print("dwgn_f32_bwd:", json.dumps(_dwgn_f32_build(True)), flush=True)
+    print("dwgn_f32_fwd:", json.dumps(_dwgn_f32_build(False)), flush=True)
     print("analysis:", json.dumps(_analysis_phase()), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,10 +1,9 @@
 // Fused depthwise 3x3 (SAME) + GroupNorm(8) + affine + ReLU6, forward and
 // backward, over bf16 or f32 NHWC activations, as thread-block-cluster
-// kernels that read the activation once through TMA. The forward is a
-// template on the element type (Bf16, F32 below), the two instances
-// differing only where an element's width or rounding shows; so is the
-// bf16 backward (dwgn_bwd_kernel). The f32 backward is a kernel of its own
-// (namespace f32bwd, at the end): one channel a thread.
+// kernels that read the activation once through TMA. The bf16 forward and
+// backward (dwgn_fwd_kernel, dwgn_bwd_kernel) keep one group of 8 channels
+// a thread; the f32 forward and backward are kernels of their own
+// (namespaces f32bwd and f32fwd, at the end): one channel a thread.
 //
 // Replaces the Pallas TPU kernels of the JAX package
 //   distriflow_tpu/ops/depthwise_gn.py::_fwd_kernel  (kernel 11)
@@ -52,14 +51,14 @@
 // be negative: the hardware fills everything outside the tensor with zeros,
 // and that is the SAME padding, with no branch in the tap loop. The
 // backward's g box comes on a second mbarrier, so pass 1 starts on x alone.
-// A thread keeps one group of 8 channels (cc / 8 is a power of two that
-// divides 32), and neighbouring threads read neighbouring groups: one
-// 16-byte vector each in bf16, two in f32.
+// A bf16 thread keeps one group of 8 channels (cc / 8 is a power of two
+// that divides 32), and neighbouring threads read neighbouring groups: one
+// 16-byte vector each (the f32 kernels: one channel a thread, below).
 // Small images (3x3, 6x6, 12x12 at stride 2) put nb of them side by side in
 // one CTA, kThreads / nb threads (whole warps) each, so that a CTA's fixed
 // costs (the copy, the barriers, the reductions) serve more work.
 //   - Resident plans (one tile a CTA; every shape of MobileNetV2 at 96 and
-//     at 224 px, in bf16 and in f32)
+//     at 224 px, but the f32 backward's 112 px stage at C 32)
 //     load x (and in the backward g) once and run every pass from shared
 //     memory: HBM traffic is x once plus the halo rows, which the cluster's
 //     neighbours fetch at the same time through L2, and y (dx) once.
@@ -110,6 +109,7 @@ using dftt::hopper::mbar_init;
 using dftt::hopper::mbar_wait;
 using dftt::hopper::smem_addr;
 using dftt::hopper::tma_load_nhwc;
+using dftt::hopper::tma_store_nhwc;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -142,14 +142,13 @@ __device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
 __device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-// The element types. A thread's eight channels (a V8) are four bf16 pairs
-// (the lower channel in the low half: one 16-byte vector) or eight floats
-// (two 16-byte vectors). mul and add round each result to the type; pack8
-// rounds eight f32 values to it; relu6 is min(max(v, 0), 6) in the type.
-// kFwdBlocks and kBwdBlocks are the CTAs an SM keeps (__launch_bounds__):
-// bf16 fits 80 and 128 registers, f32's nine weight vectors take twice the
-// registers, so its forward keeps two CTAs (f32bwd::kBlocks: the f32
-// backward's).
+// The element types. A bf16 thread's eight channels (a V8) are four bf16
+// pairs (the lower channel in the low half: one 16-byte vector); mul and
+// add round each result to bf16, pack8 rounds eight f32 values to it, relu6
+// is min(max(v, 0), 6) in bf16. kFwdBlocks and kBwdBlocks are the CTAs an
+// SM its kernels keep (__launch_bounds__: 80 and 128 registers). F32 names
+// the f32 kernels' element (f32bwd::kBlocks and f32fwd::kBlocks are their
+// CTAs an SM).
 struct Bf16 {
   using Elem = __nv_bfloat16;
   static constexpr int kItemsize = 2, kFwdBlocks = 3, kBwdBlocks = 2;
@@ -204,47 +203,7 @@ struct Bf16 {
 
 struct F32 {
   using Elem = float;
-  static constexpr int kItemsize = 4, kFwdBlocks = 2;
-  struct V8 {
-    float f[8];
-  };
-  static __device__ __forceinline__ V8 ld8(const Elem* p) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    return {{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
-  }
-  static __device__ __forceinline__ void st8(Elem* p, const V8& v) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v.f[0], v.f[1], v.f[2], v.f[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v.f[4], v.f[5], v.f[6], v.f[7]);
-  }
-  static __device__ __forceinline__ V8 zero() { return {{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}}; }
-  static __device__ __forceinline__ void unpack8(const V8& v, float* f) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = v.f[i];
-  }
-  static __device__ __forceinline__ V8 pack8(const float* f) {
-    V8 v;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v.f[i] = f[i];
-    return v;
-  }
-  static __device__ __forceinline__ V8 mul(const V8& a, const V8& b) {
-    V8 d;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d.f[i] = __fmul_rn(a.f[i], b.f[i]);
-    return d;
-  }
-  static __device__ __forceinline__ V8 add(const V8& a, const V8& b) {
-    V8 d;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d.f[i] = __fadd_rn(a.f[i], b.f[i]);
-    return d;
-  }
-  static __device__ __forceinline__ V8 relu6(V8 v) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v.f[i] = fminf(fmaxf(v.f[i], 0.f), 6.f);
-    return v;
-  }
+  static constexpr int kItemsize = 4;
 };
 
 // One launch's geometry and plan, and the shared-memory layout they imply.
@@ -255,17 +214,25 @@ struct Plan {
   int cluster, tiles, nb;             // CTAs a cluster, tiles a CTA, images a CTA
   int halo;                           // 1 (backward): the box covers the tile's ring
   int xr, xc, gr, gw;                 // x box and g box (rows, cols) of one image
+  int strip, keep;                    // f32 forward: a column's rows a unit; conv output kept
   int off_g, off_red, off_dwr, off_xch, off_st, off_bar, smem;
 };
 
+// strip and keep are the f32 forward's (f32fwd) and 0 for every other
+// kernel.
 bool make_plan(Plan& p, int B, int H, int W, int C, int s, int item, int cc, int rows, int cols,
-               int cluster, int tiles, int nb, int backward) {
+               int cluster, int tiles, int nb, int backward, int strip = 0, int keep = 0) {
+  const bool f32fwd = !backward && item == 4;
   if (B < 1 || H < 1 || W < 1 || C < kGroup || C % kGroup || (s != 1 && s != 2) ||
       (item != 2 && item != 4) || cc < kGroup || cc > kMaxChunk || cc % kGroup || C % cc ||
       32 % (cc / kGroup) || C / cc > 65535 || rows < 1 || cols < 1 || tiles < 1 ||
       cluster < 1 || cluster > kMaxCluster || (nb != 1 && nb != 2 && nb != 4 && nb != 8) ||
-      nb * cc > kThreads || (B + nb - 1) / nb > 65535)
+      nb * cc > kThreads || (B + nb - 1) / nb > 65535 ||
+      (f32fwd ? strip < 1 || strip > rows || (keep != 0 && keep != 1) || (keep && tiles != 1)
+              : strip != 0 || keep != 0))
     return false;
+  p.strip = strip;
+  p.keep = keep;
   p.B = B;
   p.H = H;
   p.W = W;
@@ -299,13 +266,20 @@ bool make_plan(Plan& p, int B, int H, int W, int C, int s, int item, int cc, int
   // slots; 8 floats of statistics a group; the two mbarriers (x, g). The
   // f32 backward (f32bwd) keeps x boxes at least as large as its nine dw
   // sums a thread in f64 (they take the boxes' place at the end), and one
-  // f64 buffer of kSliceValues sums a thread.
+  // f64 buffer of kSliceValues sums a thread. The f32 forward (f32fwd)
+  // keeps, on a plan that keeps its conv output, the output tile
+  // [nb][rows][cols][cc] f32 in the g boxes' place, and one f64 buffer of
+  // 2 sums a thread.
   const int xch = nb * (backward ? 11 * cc + 4 * p.gc : 2 * p.gc);
   const int xbox = nb * p.xr * p.xc * cc * item;
   if (backward && item == 4) {
     p.off_g = align128(xbox > 9 * kThreads * 8 ? xbox : 9 * kThreads * 8);
     p.off_red = p.off_g + align128(nb * p.gr * p.gw * cc * item);
     p.off_dwr = p.off_xch = p.off_red + align128(kSliceValues * kThreads * 8);
+  } else if (f32fwd) {
+    p.off_g = align128(xbox);
+    p.off_red = p.off_g + align128(keep ? nb * rows * cols * cc * item : 0);
+    p.off_dwr = p.off_xch = p.off_red + align128(2 * kThreads * 8);
   } else {
     p.off_g = align128(xbox);
     p.off_red = p.off_g + align128(backward ? nb * p.gr * p.gw * cc * item : 0);
@@ -321,7 +295,8 @@ bool make_plan(Plan& p, int B, int H, int W, int C, int s, int item, int cc, int
 template <typename T>
 struct Smem {
   typename T::Elem* x;  // [nb][xr][xc][cc]
-  typename T::Elem* g;  // [nb][gr][gw][cc]: g, then the cotangent in its place
+  typename T::Elem* g;  // [nb][gr][gw][cc]: g, then the cotangent in its place (f32fwd:
+                        // the kept conv output [nb][rows][cols][cc])
   double* red;          // [2][8][kWarps][gc]
   float* dwr;           // bf16 backward: [9][kWarps][8][gc]
   double* xch;          // stats [nb][2][gc]; ds, db [nb][8][gc]; dstats [nb][2][gc]; dw [9][nb][8][gc]
@@ -569,6 +544,7 @@ __device__ __forceinline__ void exchange_stats(const Plan& p, const Smem<T>& sm,
   stats_from_slots(p, sm, eps);
 }
 
+// The bf16 forward (T = Bf16; f32fwd::fwd_kernel is the f32 one).
 template <typename T>
 __global__ void __launch_bounds__(kThreads, T::kFwdBlocks) dwgn_fwd_kernel(
     const __grid_constant__ CUtensorMap tm_x, const typename T::Elem* __restrict__ w,
@@ -1255,6 +1231,225 @@ Kernel kernel_of(int cc) {
 
 }  // namespace f32bwd
 
+// Kernel 11 in f32: the forward on f32 activations, one channel a thread.
+//
+// The same cut as the bf16 forward (dwgn_plan: a cluster a (batch element,
+// chunk of cc channels), tiles of rows x cols outputs, nb small images side
+// by side, resident or streamed) and the same passes and exchange, but a
+// thread owns ONE channel of its image (c = its index mod cc, f32bwd's Lane)
+// and a share of the tile's columns: the tile is cut into units, each one
+// column of up to `strip` rows (unit u = (row block j, column x), numbered
+// j * cols + x), and slice `slice` of nsl = kThreads / (nb * cc) takes
+// units slice, slice + nsl, ... A thread walks each of its units down the
+// column with the conv's 3 x 3 window in registers, sliding it S rows an
+// output: 3 S new inputs an output where a fresh window reads 9.
+// Neighbouring threads read neighbouring channels of
+// one position (4-byte loads, conflict-free from cc 32 up; at stride 2 a
+// warp of cc 8 or 16 meets 2-way conflicts). The kernel is built for each
+// chunk width (fwd_kernel<CC>), so that the window's offsets are
+// immediates. __launch_bounds__ holds it to 64 registers (kBlocks = 4),
+// so that a plan's shared memory alone sets its CTAs an SM: 4 up to 56 KB,
+// 2 at the plan's target of 112 KB (SMEM_TARGET[(False, 4)]; asked for 2
+// CTAs, ptxas takes 87 registers and the small plans lose their third and
+// fourth CTA). One CTA's copy and barriers overlap another's passes.
+//   - Pass 1 adds each conv output and its square into two f64 sums a
+//     thread; a plan that keeps the conv output (`keep`, resident plans
+//     only) also stores it into the output tile, where pass 2 reads it
+//     back instead of computing the conv again (one 4-byte load against
+//     3 S). The statistics take a 3-step butterfly over the group's 8
+//     neighbouring lanes (group_sum: the same bits in all 8) and one slice
+//     sum of 2 values (f32bwd::slice_sum), then the cluster's ranks in
+//     order through the exchange slots: the f32 of f64 sums of the same
+//     f32 terms as the plain version's, the same bits at every launch.
+//   - Pass 2 turns each conv output into y (the affine in f32, ReLU6). A
+//     plan that keeps the conv output turns the tile into y in place and
+//     sends it with one TMA store (the copy drops what lies outside the
+//     tensor: the image's edge, a batch's last CTA); otherwise each thread
+//     stores its own (a warp's stores are whole 32-byte sectors).
+// A thread's units are its own in both passes, so the passes meet only at
+// the exchange (and a kept tile at the barrier before its copy out).
+namespace f32fwd {
+
+// CTAs an SM __launch_bounds__ asks for (ops/depthwise_gn.py F32_FWD_BLOCKS,
+// the most its plan search counts on)
+constexpr int kBlocks = 4;
+
+// f32bwd's Lane for the forward: gs points at channel c of its image's kept
+// conv-output tile.
+template <int CC>
+__device__ __forceinline__ f32bwd::Lane lane_of(const Plan& p, const Smem<F32>& sm, int chunk) {
+  const int tpi = kThreads / p.nb, lt = threadIdx.x % tpi;
+  f32bwd::Lane l;
+  l.img = threadIdx.x / tpi;
+  l.b = blockIdx.z * p.nb + l.img;
+  l.live = l.b < p.B;
+  l.c = lt % CC;
+  l.ch = chunk * CC + l.c;
+  l.u = l.img * CC + l.c;
+  l.slice = lt / CC;
+  l.nsl = tpi / CC;
+  l.xs = sm.x + l.img * p.xr * p.xc * CC + l.c;
+  l.gs = sm.g + l.img * p.rows * p.cols * CC + l.c;
+  return l;
+}
+
+// f(y0, y1, x) for each unit of this thread's slice in tile t: column x,
+// rows y0 to y1 - 1 (ops/depthwise_gn.py::_unit_of mirrors the numbering).
+template <typename F>
+__device__ __forceinline__ void for_units(const Plan& p, const f32bwd::Lane& l, const Tile& t,
+                                          F f) {
+  // unit u = j * cw + x, stepped by nsl without a division a unit
+  const int blocks = (t.rr + p.strip - 1) / p.strip, dj = l.nsl / t.cw, dx = l.nsl - dj * t.cw;
+  for (int j = l.slice / t.cw, x = l.slice - j * t.cw; j < blocks;) {
+    const int y0 = j * p.strip;
+    f(y0, min(y0 + p.strip, t.rr), x);
+    x += dx;
+    j += dj;
+    if (x >= t.cw) {
+      x -= t.cw;
+      ++j;
+    }
+  }
+}
+
+// The conv down column x of the box, outputs y0 to y1 - 1: f(oy, a) for
+// each, a the nine rounded products added in (ky, kx) order with a
+// rounding after each add. The window slides S input rows an output.
+template <int CC, int S, typename F>
+__device__ __forceinline__ void conv_column(const Plan& p, const float* xs, const float (&w)[9],
+                                            int y0, int y1, int x, F f) {
+  const int row = p.xc * CC;
+  const float* at = xs + (y0 * S * p.xc + x * S) * CC;  // the first window's top left
+  float v[9];
+#pragma unroll
+  for (int r = 0; r < 3 - S; ++r)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[3 * (r + S) + k] = at[r * row + k * CC];
+  at += (3 - S) * row;
+  for (int oy = y0; oy < y1; ++oy) {
+#pragma unroll
+    for (int k = 0; k < 9 - 3 * S; ++k) v[k] = v[k + 3 * S];
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v[9 - 3 * S + 3 * r + k] = at[r * row + k * CC];
+    at += S * row;
+    float acc = __fmul_rn(v[0], w[0]);
+#pragma unroll
+    for (int k = 1; k < 9; ++k) acc = __fadd_rn(acc, __fmul_rn(v[k], w[k]));
+    f(oy, acc);
+  }
+}
+
+// f(oy, ox, a) at every output of this thread's units of tile t, the conv
+// computed from the box.
+template <int CC, typename F>
+__device__ __forceinline__ void conv_units(const Plan& p, const f32bwd::Lane& l,
+                                           const float (&w)[9], const Tile& t, F f) {
+  if (p.s == 1) {
+    for_units(p, l, t, [&](int y0, int y1, int x) {
+      conv_column<CC, 1>(p, l.xs, w, y0, y1, x, [&](int oy, float a) { f(oy, x, a); });
+    });
+  } else {
+    for_units(p, l, t, [&](int y0, int y1, int x) {
+      conv_column<CC, 2>(p, l.xs, w, y0, y1, x, [&](int oy, float a) { f(oy, x, a); });
+    });
+  }
+}
+
+template <int CC>
+__global__ void __launch_bounds__(kThreads, kBlocks) fwd_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_y,
+    const float* __restrict__ w, const float* __restrict__ scale, const float* __restrict__ bias,
+    float* __restrict__ out, const Plan p, float eps, int relu6) {
+  const Smem<F32> sm = carve<F32>(p);
+  const int rank = static_cast<int>(cluster_rank()), chunk = blockIdx.y;
+  const f32bwd::Lane l = lane_of<CC>(p, sm, chunk);
+  constexpr int kGc = CC / kGroup;
+  const int grp = (l.img * kGc + l.c / kGroup) * 8;  // the thread's statistics in sm.st
+  const bool resident = start(p, &tm_x, &tm_x, sm, rank, chunk);
+  float wr[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) wr[k] = w[k * p.C + l.ch];
+  const float sc = scale[l.ch], bi = bias[l.ch];
+  __syncthreads();  // the mbarrier thread 0 set up
+  uint32_t phase = 0;
+  Tile t;
+  if (resident) {
+    mbar_wait(sm.bar, 0);
+    phase = 1;
+  }
+
+  // pass 1: the statistics (and the kept conv output)
+  {
+    double v[2] = {0.0, 0.0};
+    for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+      if (!resident) fetch(p, &tm_x, &tm_x, sm, t, chunk, phase);
+      conv_units<CC>(p, l, wr, t, [&](int oy, int ox, float a) {
+        v[0] = __dadd_rn(v[0], a);
+        v[1] = __dadd_rn(v[1], __fmul_rn(a, a));
+        if (p.keep) l.gs[(oy * p.cols + ox) * CC] = a;
+      });
+    }
+    v[0] = f32bwd::group_sum(v[0]);
+    v[1] = f32bwd::group_sum(v[1]);
+    f32bwd::slice_sum<CC>(p, l, v, sm.red, [&](int j, int u, double s) {
+      if (u % kGroup == 0) sm.xch[((u / CC) * 2 + j) * kGc + u % CC / kGroup] = s;
+    });
+    exchange_sync(p);
+    stats_from_slots(p, sm, eps);
+  }
+  const float m = sm.st[grp], inv = sm.st[grp + 2];
+
+  // pass 2: y
+  auto y_of = [&](float a) {
+    const float y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(a, m), inv), sc), bi);
+    return relu6 ? fminf(fmaxf(y, 0.f), 6.f) : y;
+  };
+  if (p.keep) {  // resident: the tile in place, then one copy out
+    tile_of(p, rank, 0, t);
+    for_units(p, l, t, [&](int y0, int y1, int x) {
+      for (int oy = y0; oy < y1; ++oy) {
+        float* cell = l.gs + (oy * p.cols + x) * CC;
+        *cell = y_of(*cell);
+      }
+    });
+    fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) tma_store_nhwc(&tm_y, sm.g, chunk * CC, t.c0, t.r0, blockIdx.z * p.nb);
+  } else {
+    for (int i = 0; i < p.tiles && tile_of(p, rank, i, t); ++i) {
+      if (!resident) fetch(p, &tm_x, &tm_x, sm, t, chunk, phase);
+      float* o = out + (static_cast<int64_t>(l.b) * p.OH + t.r0) * p.OW * p.C + t.c0 * p.C + l.ch;
+      if (l.live)
+        conv_units<CC>(p, l, wr, t,
+                       [&](int oy, int ox, float a) { o[(oy * p.OW + ox) * p.C] = y_of(a); });
+    }
+  }
+  if (p.cluster > 1) cluster_sync();  // no CTA leaves while another may still read its slots
+}
+
+using Kernel = decltype(&fwd_kernel<8>);
+
+// The kernel for a chunk of cc channels (make_plan admits 8 to 128, a
+// power of two).
+Kernel kernel_of(int cc) {
+  switch (cc) {
+    case 8:
+      return fwd_kernel<8>;
+    case 16:
+      return fwd_kernel<16>;
+    case 32:
+      return fwd_kernel<32>;
+    case 64:
+      return fwd_kernel<64>;
+    default:
+      return fwd_kernel<128>;
+  }
+}
+
+}  // namespace f32fwd
+
 // The backward kernel of element type T for a chunk of cc channels: the
 // template's for bf16; f32bwd's, built for each chunk width, for f32.
 template <typename T>
@@ -1298,23 +1493,40 @@ int launch_cluster(void (*kernel)(Exp...), const Plan& p, cudaStream_t st, Act&&
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// The forward of element type T: the bf16 template's, or (strip, keep set)
+// f32fwd's, built for each chunk width.
 template <typename T>
 int dwgn_fwd(const void* x, const void* w, const void* scale, const void* bias, void* out, int B,
              int H, int W, int C, int stride, float eps, int relu6, int cc, int rows, int cols,
-             int cluster, int tiles, int nb, int smem, void* stream) {
+             int cluster, int tiles, int nb, int strip, int keep, int smem, void* stream) {
   Plan p;
-  if (!make_plan(p, B, H, W, C, stride, T::kItemsize, cc, rows, cols, cluster, tiles, nb, 0) ||
+  if (!make_plan(p, B, H, W, C, stride, T::kItemsize, cc, rows, cols, cluster, tiles, nb, 0, strip,
+                 keep) ||
       p.smem != smem)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_x;
   int err = dftt::hopper::make_nhwc_map(&tm_x, x, B, H, W, C, cc, p.xc, p.xr, nb, T::kItemsize);
-  static bool opted = false;
-  if (!err) err = opt_in(dwgn_fwd_kernel<T>, opted);
   if (err) return err;
   using E = typename T::Elem;
-  return launch_cluster(dwgn_fwd_kernel<T>, p, static_cast<cudaStream_t>(stream), tm_x,
-                        static_cast<const E*>(w), static_cast<const float*>(scale),
-                        static_cast<const float*>(bias), static_cast<E*>(out), p, eps, relu6);
+  if constexpr (T::kItemsize == 2) {
+    static bool opted = false;
+    err = opt_in(dwgn_fwd_kernel<T>, opted);
+    if (err) return err;
+    return launch_cluster(dwgn_fwd_kernel<T>, p, static_cast<cudaStream_t>(stream), tm_x,
+                          static_cast<const E*>(w), static_cast<const float*>(scale),
+                          static_cast<const float*>(bias), static_cast<E*>(out), p, eps, relu6);
+  } else {
+    // the kept tile leaves as one box {cc, cols, rows, nb} of y
+    CUtensorMap tm_y;
+    err = dftt::hopper::make_nhwc_map(&tm_y, out, B, p.OH, p.OW, C, cc, cols, rows, nb, 4);
+    static bool opted[kMaxChunk / kGroup + 1] = {};
+    const auto kernel = f32fwd::kernel_of(cc);
+    if (!err) err = opt_in(kernel, opted[cc / kGroup]);
+    if (err) return err;
+    return launch_cluster(kernel, p, static_cast<cudaStream_t>(stream), tm_x, tm_y,
+                          static_cast<const E*>(w), static_cast<const float*>(scale),
+                          static_cast<const float*>(bias), static_cast<E*>(out), p, eps, relu6);
+  }
 }
 
 template <typename T>
@@ -1348,21 +1560,26 @@ int dwgn_bwd(const void* x, const void* w, const void* scale, const void* bias, 
 // x: [B, H, W, C] NHWC contiguous, bf16 (_bf16) or f32 (_f32); w: [3, 3, C]
 // in x's dtype; scale, bias: [C] f32; out: [B, OH, OW, C] in x's dtype. C a
 // multiple of 8, stride 1 or 2, x 16-byte aligned. cc, rows, cols, cluster,
-// tiles, nb and smem are the plan (ops/depthwise_gn.py::dwgn_plan at x's
-// itemsize); a plan this source cannot run, or whose shared memory differs
-// from its layout's (a plan for the other dtype among them), returns
-// cudaErrorInvalidValue. Launches on `stream`; returns a CUDA error code
-// (0 = launched).
-#define DWGN_FWD_ENTRY(name, T)                                                               \
-  extern "C" int name(const void* x, const void* w, const void* scale, const void* bias,      \
-                      void* out, int B, int H, int W, int C, int stride, float eps, int relu6, \
-                      int cc, int rows, int cols, int cluster, int tiles, int nb, int smem,   \
-                      void* stream) {                                                         \
-    return dwgn_fwd<T>(x, w, scale, bias, out, B, H, W, C, stride, eps, relu6, cc, rows, cols, \
-                       cluster, tiles, nb, smem, stream);                                     \
-  }
-DWGN_FWD_ENTRY(dftt_dwgn_fwd_bf16, Bf16)
-DWGN_FWD_ENTRY(dftt_dwgn_fwd_f32, F32)
+// tiles, nb (and for f32, strip and keep) and smem are the plan
+// (ops/depthwise_gn.py::dwgn_plan at x's itemsize); a plan this source
+// cannot run, or whose shared memory differs from its layout's (a plan for
+// the other dtype among them), returns cudaErrorInvalidValue. Launches on
+// `stream`; returns a CUDA error code (0 = launched). The f32 entry runs
+// f32fwd::fwd_kernel<cc>.
+extern "C" int dftt_dwgn_fwd_bf16(const void* x, const void* w, const void* scale,
+                                  const void* bias, void* out, int B, int H, int W, int C,
+                                  int stride, float eps, int relu6, int cc, int rows, int cols,
+                                  int cluster, int tiles, int nb, int smem, void* stream) {
+  return dwgn_fwd<Bf16>(x, w, scale, bias, out, B, H, W, C, stride, eps, relu6, cc, rows, cols,
+                        cluster, tiles, nb, 0, 0, smem, stream);
+}
+extern "C" int dftt_dwgn_fwd_f32(const void* x, const void* w, const void* scale, const void* bias,
+                                 void* out, int B, int H, int W, int C, int stride, float eps,
+                                 int relu6, int cc, int rows, int cols, int cluster, int tiles,
+                                 int nb, int strip, int keep, int smem, void* stream) {
+  return dwgn_fwd<F32>(x, w, scale, bias, out, B, H, W, C, stride, eps, relu6, cc, rows, cols,
+                       cluster, tiles, nb, strip, keep, smem, stream);
+}
 
 // As the forward, plus g: [B, OH, OW, C] in x's dtype (16-byte aligned);
 // dx: [B, H, W, C] in x's dtype; dw_part: [B, 3, 3, C] f32; ds_part,
@@ -1379,15 +1596,23 @@ DWGN_FWD_ENTRY(dftt_dwgn_fwd_f32, F32)
 DWGN_BWD_ENTRY(dftt_dwgn_bwd_bf16, Bf16)
 DWGN_BWD_ENTRY(dftt_dwgn_bwd_f32, F32)
 
-// CTAs of the f32 backward for a chunk of cc channels an SM holds at
-// `smem` bytes of dynamic shared memory a CTA (the runtime's occupancy
-// calculator), or minus a CUDA error.
-extern "C" int dftt_dwgn_bwd_f32_ctas_per_sm(int cc, int smem) {
-  static bool opted[kMaxChunk / kGroup + 1] = {};
+// CTAs of the f32 backward (_bwd_) or forward (_fwd_) for a chunk of cc
+// channels an SM holds at `smem` bytes of dynamic shared memory a CTA (the
+// runtime's occupancy calculator), or minus a CUDA error.
+template <typename Kernel>
+int ctas_per_sm(Kernel (*kernel_of)(int), int cc, int smem, bool (&opted)[kMaxChunk / kGroup + 1]) {
   if (cc < kGroup || cc > kMaxChunk || cc & (cc - 1)) return -static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = f32bwd::kernel_of(cc);
+  const auto kernel = kernel_of(cc);
   int err = opt_in(kernel, opted[cc / kGroup]), n = 0;
   if (!err)
     err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem));
   return err ? -err : n;
+}
+extern "C" int dftt_dwgn_bwd_f32_ctas_per_sm(int cc, int smem) {
+  static bool opted[kMaxChunk / kGroup + 1] = {};
+  return ctas_per_sm(f32bwd::kernel_of, cc, smem, opted);
+}
+extern "C" int dftt_dwgn_fwd_f32_ctas_per_sm(int cc, int smem) {
+  static bool opted[kMaxChunk / kGroup + 1] = {};
+  return ctas_per_sm(f32fwd::kernel_of, cc, smem, opted);
 }

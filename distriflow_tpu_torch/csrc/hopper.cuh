@@ -13,7 +13,8 @@
 // is 3-D, {D, S, B*H}, so that a box reaching past row S is zero-filled by
 // the hardware instead of reading the next head's rows. The depthwise
 // kernels stage unswizzled boxes of a 4-D map over an NHWC activation
-// (make_nhwc_map).
+// (make_nhwc_map), and the f32 forward stores such a box of y back
+// (tma_store_nhwc).
 #pragma once
 
 #include <cstdint>
@@ -201,6 +202,21 @@ __device__ __forceinline__ void tma_load_nhwc(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c), "r"(x), "r"(y), "r"(b)
+      : "memory");
+}
+
+// TMA: `src` (shared memory, a dense box of an NHWC map) to the box at
+// channel c, column x, row y of image b of `map`; elements outside the
+// tensor are not written. The storing threads fence (fence_proxy_async)
+// and meet before one thread calls this; it returns once the copy has read
+// `src`, which may then be reused or the CTA end.
+__device__ __forceinline__ void tma_store_nhwc(const CUtensorMap* map, const void* src, int c,
+                                               int x, int y, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c), "r"(x), "r"(y), "r"(b)
       : "memory");
 }
 

@@ -9,12 +9,13 @@ reach device memory.
 - ``csrc/depthwise_gn.cu`` replaces the Pallas ``_fwd_kernel`` (forward)
   and ``_bwd_kernel`` (the ``jax.vjp`` of the same tile, which recomputes
   the forward) for bf16 and f32 NHWC activations (JAX's kernel takes
-  either; f32 is MobileNetV2's default): one kernel each, templates on the
-  element type, a thread-block cluster per (batch element, channel chunk)
-  whose CTAs load their tiles once through TMA (SAME padding from the
-  copy's zero fill) and exchange the group statistics and partial sums
-  through distributed shared memory in rank order. :func:`dwgn_plan` cuts
-  the activation for the element size and passes the cut to the kernels;
+  either; f32 is MobileNetV2's default): in bf16 one template each, in f32
+  kernels of their own (one channel a thread), a thread-block cluster per
+  (batch element, channel chunk) whose CTAs load their tiles once through
+  TMA (SAME padding from the copy's zero fill) and exchange the group
+  statistics and partial sums through distributed shared memory in rank
+  order. :func:`dwgn_plan` cuts the activation for the element size (the
+  f32 kernels by their own cost models) and passes the cut to the kernels;
   :func:`banded_forward_reference` and :func:`banded_backward_reference`
   repeat that cut in plain PyTorch.
 - Activations are NHWC with channels in groups of 8; the depthwise kernel
@@ -68,9 +69,12 @@ _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] + [cty
     + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 8 \
     + [ctypes.c_void_p]
-_SIGNATURES = {**{f"dftt_dwgn_{d}_{t}": args for d, args in (("fwd", _FWD_ARGS), ("bwd", _BWD_ARGS))
-                  for t in ("bf16", "f32")},
-               "dftt_dwgn_bwd_f32_ctas_per_sm": [ctypes.c_int] * 2}
+# the f32 forward's plan adds strip and keep (f32fwd)
+_FWD_F32_ARGS = _FWD_ARGS[:-2] + [ctypes.c_int] * 2 + _FWD_ARGS[-2:]
+_SIGNATURES = {"dftt_dwgn_fwd_bf16": _FWD_ARGS, "dftt_dwgn_fwd_f32": _FWD_F32_ARGS,
+               "dftt_dwgn_bwd_bf16": _BWD_ARGS, "dftt_dwgn_bwd_f32": _BWD_ARGS,
+               "dftt_dwgn_bwd_f32_ctas_per_sm": [ctypes.c_int] * 2,
+               "dftt_dwgn_fwd_f32_ctas_per_sm": [ctypes.c_int] * 2}
 #: the kernels' element types, by the suffix of their entry points
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -145,13 +149,18 @@ MAX_BOX = 256  # a TMA box's largest extent in each dimension
 SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper CTA may use
 # a tile's budget by (backward, itemsize): in bf16 three forward CTAs (80
 # registers a thread) or two backward CTAs (128) on an SM's 228 KB; in f32
-# two forward CTAs (128 registers) or two backward CTAs (csrc f32bwd: one
-# channel a thread)
+# (csrc f32fwd and f32bwd: one channel a thread) two CTAs of either, with
+# the runtime's 1 KB a CTA
 SMEM_TARGET = {(False, 2): 72 * 1024, (True, 2): 112 * 1024,
                (False, 4): 112 * 1024, (True, 4): 112 * 1024}
-# CTAs an SM the f32 backward's __launch_bounds__ asks for (csrc
-# f32bwd::kBlocks); SMEM_TARGET[(True, 4)] fits them
+# CTAs an SM the f32 forward's and backward's __launch_bounds__ ask for
+# (csrc f32fwd::kBlocks, f32bwd::kBlocks). The backward's SMEM_TARGET fits
+# its two; the forward asks for four (64 registers) so that its smaller
+# plans get up to four CTAs an SM, while its target fits two
+F32_FWD_BLOCKS = 4
 F32_BWD_BLOCKS = 2
+# an SM's shared memory for resident CTAs, each with the runtime's 1 KB
+SM_SMEM = 228 * 1024
 # (position, group) items a CTA of small images takes: four a thread
 ITEMS_PER_CTA = 4 * THREADS
 # the f32 backward's f64 sums a thread per slice-sum round (pass 2: dscale,
@@ -165,6 +174,23 @@ F32_BWD_SLICE_VALUES = 4
 # copies' latency, the barriers and exchanges) at F32_BWD_CTA_COST conv
 # outputs of each of its threads
 F32_BWD_BOX_COST, F32_BWD_CTA_COST = 0.25, 4.0
+# The f32 forward's plan cost (f32_fwd_cost): a CTA's time in the time of
+# one conv output of pass 1 by a thread (the window slid S rows: 3 S loads,
+# 9 products, 8 sums, two f64 sums). Its work w is its slowest slice's:
+# pass 1, pass 2 at F32_FWD_KEPT an output where the plan keeps the conv
+# output (else the conv again), and each unit's first window rows at
+# F32_FWD_START a row (in both passes where pass 2 computes the conv
+# again). Its latency is F32_FWD_CTA_COST (the copy, the barriers, the
+# exchange) plus F32_FWD_CLUSTER_COST in a cluster of more than one. k of
+# them share an SM (its shared memory, at most F32_FWD_BLOCKS by the
+# kernel's registers), so an SM spends on each the larger of (latency + w)
+# / k and F32_FWD_INSTR w (its warps' instructions), or, where bytes bound
+# it, F32_FWD_BOX_COST an element of its boxes (twice on a streamed plan);
+# a chunk of cc channels adds F32_FWD_NARROW x 8 / cc of that (narrow
+# chunks copy and store in short rows). Fitted to every resident plan's
+# time at the 20 step shapes (tools/dwgn_f32_fwd_probe.py --all-shapes).
+F32_FWD_START, F32_FWD_KEPT, F32_FWD_INSTR, F32_FWD_NARROW = 6.0, 0.1, 0.85, 0.02
+F32_FWD_CTA_COST, F32_FWD_CLUSTER_COST, F32_FWD_BOX_COST = 220.0, 60.0, 0.005
 
 
 @dataclass(frozen=True)
@@ -197,6 +223,11 @@ class DwgnPlan:
     images: int
     smem: int
     itemsize: int = 2
+    #: the f32 forward's (csrc f32fwd; 0 and False elsewhere): the rows of
+    #: a unit, one column of a tile a thread walks down; whether pass 1's
+    #: conv output stays in shared memory for pass 2 (resident plans only)
+    strip: int = 0
+    keep: bool = False
 
     @property
     def geometry(self):
@@ -216,10 +247,11 @@ class DwgnPlan:
 
     @property
     def slices(self) -> int:
-        """Position slices of a channel: the f32 backward's threads each
-        take one channel and every ``slices``-th position of a tile (1
-        elsewhere)."""
-        return THREADS // (self.images * self.cc) if self.backward and self.itemsize == 4 else 1
+        """Position slices of a channel: the f32 kernels' threads each take
+        one channel and a share of a tile's positions (the backward every
+        ``slices``-th position, the forward every ``slices``-th unit); 1 in
+        bf16."""
+        return THREADS // (self.images * self.cc) if self.itemsize == 4 else 1
 
     @property
     def x_box(self) -> Tuple[int, int]:
@@ -252,19 +284,24 @@ def _x_box(rows: int, cols: int, stride: int, halo: int) -> Tuple[int, int]:
 
 
 def _smem_bytes(cc: int, rows: int, cols: int, stride: int, backward: bool,
-                images: int = 1, itemsize: int = 2) -> int:
+                images: int = 1, itemsize: int = 2, keep: bool = False) -> int:
     """The kernel's dynamic shared memory (csrc/depthwise_gn.cu
     ``make_plan``, which refuses a launch whose count differs): the x boxes
     and the backward's g boxes (overwritten by the conv-output cotangent)
     at ``itemsize`` bytes an element, two f64 reduction buffers of 8 warps,
     the bf16 backward's f32 warp sums of dw (9 taps; the f32 backward sums
     dw through the reduction buffers), the cluster's exchange slots, the
-    group statistics, the two mbarriers, and 128 bytes to align the base."""
+    group statistics, the two mbarriers, and 128 bytes to align the base.
+    The f32 kernels have layouts of their own (:func:`_f32_bwd_parts`,
+    :func:`_f32_fwd_parts`; ``keep``: the f32 forward keeps its conv
+    output)."""
     xr, xc = _x_box(rows, cols, stride, int(backward))
     gc = cc // GROUP_SIZE
     warps = THREADS // 32
-    if backward and itemsize == 4:
-        return 128 + sum(_align(p) for p in _f32_bwd_parts(cc, rows, cols, xr, xc, images)) + 16
+    if itemsize == 4:
+        parts = (_f32_bwd_parts(cc, rows, cols, xr, xc, images) if backward
+                 else _f32_fwd_parts(cc, rows, cols, xr, xc, images, keep))
+        return 128 + sum(_align(p) for p in parts) + 16
     parts = (images * xr * xc * cc * itemsize,
              images * (rows + 2) * (cols + 2) * cc * itemsize if backward else 0,
              2 * warps * cc * 8, 9 * warps * cc * 4 if backward and itemsize == 2 else 0,
@@ -283,6 +320,53 @@ def _f32_bwd_parts(cc: int, rows: int, cols: int, xr: int, xc: int, images: int)
     return (max(images * xr * xc * cc * 4, 9 * THREADS * 8),
             images * (rows + 2) * (cols + 2) * cc * 4, F32_BWD_SLICE_VALUES * THREADS * 8,
             images * (11 * cc + 4 * gc) * 8, images * gc * 32)
+
+
+def _f32_fwd_parts(cc: int, rows: int, cols: int, xr: int, xc: int, images: int, keep: bool):
+    """The f32 forward's shared-memory regions (csrc/depthwise_gn.cu
+    ``f32fwd``): the x boxes; the conv-output tiles where the plan keeps
+    them; one f64 buffer of 2 sums a thread (pass 1's slice sum); the
+    cluster's exchange slots; 8 floats of statistics a group."""
+    gc = cc // GROUP_SIZE
+    return (images * xr * xc * cc * 4, images * rows * cols * cc * 4 if keep else 0,
+            2 * THREADS * 8, images * 2 * gc * 8, images * gc * 32)
+
+
+def _f32_fwd_work(rows: int, cols: int, strip: int, nsl: int, stride: int, keep: bool) -> float:
+    """The f32 forward's work for its slowest slice over one tile of
+    ``rows x cols`` outputs in units of ``strip`` rows (see
+    ``F32_FWD_START``)."""
+    blocks = -(-rows // strip)
+    per = -(-blocks * cols // nsl)  # units of the slowest slice
+    out = 1 + (F32_FWD_KEPT if keep else 1)
+    return per * (rows / blocks * out + (3 - stride) * F32_FWD_START * (1 if keep else 2))
+
+
+def _f32_fwd_strip(rows: int, cols: int, nsl: int, stride: int, keep: bool) -> int:
+    """The rows of the f32 forward's units for a ``rows x cols`` tile: the
+    least :func:`_f32_fwd_work` among ``ceil(rows / k)``, k = 1 to 8 (ties:
+    the longest)."""
+    strips = sorted({-(-rows // k) for k in range(1, min(rows, 8) + 1)}, reverse=True)
+    return min(strips, key=lambda st: _f32_fwd_work(rows, cols, st, nsl, stride, keep))
+
+
+def f32_fwd_cost(plan: "DwgnPlan") -> float:
+    """The f32 forward's estimated time for ``plan``, per output position
+    and channel of one image (see ``F32_FWD_START``): what its plan search
+    minimizes. A CTA's work is rank 0's tiles'."""
+    _, _, oh, ow = plan.geometry
+    xr, xc = plan.x_box
+    loads = 1 if plan.tiles_per_cta == 1 else 2
+    work = box = 0.0
+    for rank, _, _, rr, cw in plan.tiles():
+        if rank == 0:
+            work += _f32_fwd_work(rr, cw, min(plan.strip, rr), plan.slices, plan.stride, plan.keep)
+            box += loads * xr * xc * plan.cc * plan.images
+    latency = F32_FWD_CTA_COST + (F32_FWD_CLUSTER_COST if plan.cluster > 1 else 0.0)
+    k = min(F32_FWD_BLOCKS, SM_SMEM // (plan.smem + 1024))
+    cta = max((latency + work) / k, F32_FWD_INSTR * work, F32_FWD_BOX_COST * box)
+    return plan.cluster * cta * (1 + F32_FWD_NARROW * GROUP_SIZE / plan.cc) / (
+        plan.cc * plan.images * oh * ow)
 
 
 def f32_bwd_cost(plan: "DwgnPlan") -> float:
@@ -310,42 +394,78 @@ def _chunks(c: int, positions: int):
 
 def make_plan(h: int, w: int, c: int, stride: int, backward: bool, cc: int, rows: int,
               cols: int, cluster: int = MAX_CLUSTER, images: int = 1,
-              itemsize: int = 2) -> DwgnPlan:
+              itemsize: int = 2, strip: "int | None" = None, keep: bool = False) -> DwgnPlan:
     """A plan of ``rows x cols`` output tiles spread over a cluster of at
-    most ``cluster`` CTAs (fewer where there are fewer tiles)."""
+    most ``cluster`` CTAs (fewer where there are fewer tiles). The f32
+    forward's also takes ``strip`` (by default :func:`_f32_fwd_strip`'s)
+    and ``keep``."""
     _, _, oh, ow = _geometry(h, w, stride)
     n_tiles = -(-oh // rows) * -(-ow // cols)
     cluster = min(cluster, n_tiles)
+    if not backward and itemsize == 4:
+        strip = strip or _f32_fwd_strip(rows, cols, THREADS // (images * cc), stride, keep)
+    else:
+        strip, keep = 0, False
     return DwgnPlan(h, w, c, stride, backward, cc, rows, cols, cluster, -(-n_tiles // cluster),
-                    images, _smem_bytes(cc, rows, cols, stride, backward, images, itemsize),
-                    itemsize)
+                    images, _smem_bytes(cc, rows, cols, stride, backward, images, itemsize, keep),
+                    itemsize, strip, keep)
+
+
+def _f32_cuts(oh: int, ow: int, streamed: bool):
+    """The f32 kernels' candidate tiles ``(rows, cols, tiles)``: each cut
+    into at most ``MAX_CLUSTER`` tiles (rows and columns), or with
+    ``streamed`` into more (up to 4 columns of tiles), which a cluster of
+    ``MAX_CLUSTER`` CTAs walks (one CTA walking all of them leaves most of
+    the card idle at B 64)."""
+    n_rt = range(1, oh + 1) if streamed else range(1, MAX_CLUSTER + 1)
+    cuts = {(-(-oh // nr), -(-ow // nc)) for nr in n_rt
+            for nc in range(1, (min(4, ow) if streamed else MAX_CLUSTER // nr) + 1)}
+    for rows, cols in sorted(cuts):
+        tiles = -(-oh // rows) * -(-ow // cols)
+        if streamed == (tiles > MAX_CLUSTER):
+            yield rows, cols, tiles
 
 
 def _f32_bwd_plans(h: int, w: int, c: int, stride: int, budget: int, streamed: bool = False):
     """Every resident f32 backward plan within ``budget``: each channel
-    chunk, each cut into at most ``MAX_CLUSTER`` tiles (rows and columns),
-    and on a single tile each number of images side by side. With
-    ``streamed``, the streamed plans instead: each cut into more tiles (up
-    to 4 columns of tiles), walked by a cluster of ``MAX_CLUSTER`` CTAs
-    (one CTA walking all of them leaves most of the card idle at B 64)."""
+    chunk, each cut of :func:`_f32_cuts`, and on a single tile each number
+    of images side by side. With ``streamed``, the streamed plans
+    instead."""
     _, _, oh, ow = _geometry(h, w, stride)
-    n_rt = range(1, oh + 1) if streamed else range(1, MAX_CLUSTER + 1)
-    cuts = {(-(-oh // nr), -(-ow // nc)) for nr in n_rt
-            for nc in range(1, (min(4, ow) if streamed else MAX_CLUSTER // nr) + 1)}
     out = []
     for cc in _chunks(c, oh * ow):
-        for rows, cols in sorted(cuts):
-            tiles = -(-oh // rows) * -(-ow // cols)
-            if streamed != (tiles > MAX_CLUSTER):
-                continue
-            single = tiles == 1
-            for images in (1, 2, 4, 8) if single else (1,):
+        for rows, cols, tiles in _f32_cuts(oh, ow, streamed):
+            for images in (1, 2, 4, 8) if tiles == 1 else (1,):
                 xr, xc = _x_box(rows, cols, stride, 1)
                 if (images * cc > THREADS or max(xr, xc, rows + 2, cols + 2) > MAX_BOX
                         or _smem_bytes(cc, rows, cols, stride, True, images, 4) > budget):
                     continue
                 out.append(make_plan(h, w, c, stride, True, cc, rows, cols, images=images,
                                      itemsize=4))
+    return out
+
+
+def _f32_fwd_plans(h: int, w: int, c: int, stride: int, budget: int, streamed: bool = False):
+    """Every resident f32 forward plan within ``budget``: each channel
+    chunk that divides C (8 to 128), each cut of :func:`_f32_cuts`, on a
+    single tile each number of images side by side, the conv output kept
+    or not, each with its best strip (:func:`_f32_fwd_strip`). With
+    ``streamed``, the streamed plans instead (the conv computed in both
+    passes)."""
+    _, _, oh, ow = _geometry(h, w, stride)
+    out = []
+    for cc in (cc for cc in (128, 64, 32, 16, 8) if c % cc == 0):
+        for rows, cols, tiles in _f32_cuts(oh, ow, streamed):
+            xr, xc = _x_box(rows, cols, stride, 0)
+            if max(xr, xc) > MAX_BOX:
+                continue
+            for images in (1, 2, 4, 8) if tiles == 1 else (1,):
+                for keep in (True, False) if not streamed else (False,):
+                    if (images * cc > THREADS or _smem_bytes(
+                            cc, rows, cols, stride, False, images, 4, keep) > budget):
+                        continue
+                    out.append(make_plan(h, w, c, stride, False, cc, rows, cols, images=images,
+                                         itemsize=4, keep=keep))
     return out
 
 
@@ -386,10 +506,10 @@ def dwgn_plan(h: int, w: int, c: int, stride: int, backward: bool,
     cols = -(-ow // n_ct)
     n_ct = -(-ow // cols)
     resident = [r for r in row_counts if -(-oh // r) * n_ct <= MAX_CLUSTER]
-    if backward and itemsize == 4:  # the f32 backward: the least cost within the target
-        best = min(_f32_bwd_plans(h, w, c, stride, target) or
-                   _f32_bwd_plans(h, w, c, stride, target, streamed=True),
-                   key=f32_bwd_cost, default=None)
+    if itemsize == 4:  # the f32 kernels: the least cost within the target
+        plans, cost = (_f32_bwd_plans, f32_bwd_cost) if backward else (_f32_fwd_plans, f32_fwd_cost)
+        best = min(plans(h, w, c, stride, target) or plans(h, w, c, stride, target, streamed=True),
+                   key=cost, default=None)
         if best is not None:
             return best
     for cc in chunks:
@@ -641,38 +761,57 @@ def _by_slice(t: torch.Tensor, nsl: int, dims, order=None) -> torch.Tensor:
                         for sl in range(nsl)])
 
 
-def _banded_stats(x, w3, plan: DwgnPlan, eps, ranks=None):
+def _unit_of(plan: DwgnPlan, rr: int, cw: int, device) -> torch.Tensor:
+    """``[rr * cw]``: for each position of a tile of ``rr x cw`` outputs,
+    in row-major order, the index whose remainder mod ``plan.slices`` is
+    its slice: the f32 forward's unit (csrc ``f32fwd::for_units``: row
+    block ``qy // strip``, column ``qx``, numbered ``block * cw + qx``), the
+    position's own index elsewhere."""
+    if plan.backward or plan.itemsize != 4:
+        return torch.arange(rr * cw, device=device)
+    qy = torch.arange(rr, device=device)[:, None] // plan.strip
+    return (qy * cw + torch.arange(cw, device=device)[None, :]).flatten()
+
+
+def _banded_stats(x, w3, plan: DwgnPlan, eps, ranks=None, slices=None):
     """Pass 1: ``(m, var, inv)`` per (batch, group) from the tiles' f64
     (sum, sum of squares), by position slice where the plan has them, from
-    ``ranks`` only if given."""
+    ``ranks`` only if given, and from those ``slices`` of each rank only if
+    given."""
     b, c = x.shape[0], x.shape[3]
+    nsl = plan.slices
     parts, count = {}, {}
     for rank, _, _, rr, cw, box in _boxes(x, plan):
         h0 = plan.halo
         acc = _taps(box[:, h0 * plan.stride:, h0 * plan.stride:], w3, plan.stride, rr, cw)
         xg = acc.reshape(b, rr * cw, c // GROUP_SIZE, GROUP_SIZE).float()
-        sums = torch.stack([_by_slice(xg, plan.slices, (1, 3)),
-                            _by_slice(xg * xg, plan.slices, (1, 3))], dim=1)
+        unit = _unit_of(plan, rr, cw, x.device)
+        sums = torch.stack([_by_slice(xg, nsl, (1, 3), unit),
+                            _by_slice(xg * xg, nsl, (1, 3), unit)], dim=1)
         parts[rank] = sums if rank not in parts else parts[rank] + sums
-        count[rank] = count.get(rank, 0) + rr * cw * GROUP_SIZE
+        per = [int((unit % nsl == sl).sum()) * GROUP_SIZE for sl in range(nsl)]
+        count[rank] = [a + q for a, q in zip(count.get(rank, [0] * nsl), per)]
     ranks = range(plan.cluster) if ranks is None else ranks
-    s, ss = _rank_sums(parts, ranks, _lanes(plan, 2))
-    n = sum(count[r] for r in ranks)
+    s, ss = _rank_sums(parts, ranks, _lanes(plan, 2), slices)
+    n = sum(count[r][sl] for r in ranks for sl in (range(nsl) if slices is None else slices))
     m, m2 = _div(s, n).float(), _div(ss, n).float()
     var = m2 - m * m
     return m, var, torch.rsqrt(torch.clamp(var, min=0.0) + eps)
 
 
 def banded_forward_reference(x, w, scale, bias, stride: int = 1, eps: float = 1e-6,
-                             relu6: bool = True, stats_ranks=None, plan=None) -> torch.Tensor:
+                             relu6: bool = True, stats_ranks=None, plan=None,
+                             stats_slices=None) -> torch.Tensor:
     """The forward kernel's decomposition under ``plan`` (by default
-    :func:`dwgn_plan`'s at ``x``'s itemsize). With ``stats_ranks`` the
-    statistics come from those ranks' tiles alone, a deliberately wrong
-    forward for the limit checks."""
+    :func:`dwgn_plan`'s at ``x``'s itemsize): the statistics by rank and,
+    in f32, by position slice (:func:`_unit_of`), added as the kernel adds
+    them. With ``stats_ranks`` (``stats_slices``) the statistics come from
+    those ranks' tiles (those slices of each rank) alone, a deliberately
+    wrong forward for the limit checks."""
     b, h, wd, c = x.shape
     plan = plan or dwgn_plan(h, wd, c, stride, False, x.element_size())
     w3 = _w3(w)
-    m, _, inv = _banded_stats(x, w3, plan, eps, stats_ranks)
+    m, _, inv = _banded_stats(x, w3, plan, eps, stats_ranks, stats_slices)
     _, _, oh, ow = plan.geometry
     out = torch.empty(b, oh, ow, c, dtype=x.dtype, device=x.device)
     for _, r0, c0, rr, cw, box in _boxes(x, plan):
@@ -799,8 +938,11 @@ def _check(what: str, x, w, scale, bias, stride, group_size, g=None) -> None:
 
 
 def _plan_ints(plan: DwgnPlan):
+    """The plan as its kernel's entry point takes it (the f32 forward's
+    with its strip and keep)."""
+    f32_fwd = (plan.strip, int(plan.keep)) if plan.itemsize == 4 and not plan.backward else ()
     return (plan.cc, plan.rows, plan.cols, plan.cluster, plan.tiles_per_cta, plan.images,
-            plan.smem)
+            *f32_fwd, plan.smem)
 
 
 def _record_cost(x: torch.Tensor, stride: int, backward: bool) -> None:
@@ -869,12 +1011,14 @@ def depthwise_gn_backward(x, w, scale, bias, g, stride: int = 1, eps: float = 1e
     return _reduce(dx, dwp, dsp, dbp, w, scale, bias)
 
 
-def f32_backward_ctas_per_sm(plan: DwgnPlan) -> int:
-    """CTAs of the f32 backward kernel an SM holds under ``plan`` (its
-    registers and ``plan.smem``), from the CUDA runtime's occupancy
-    calculator; needs the card."""
-    n = build.load("depthwise_gn", _SIGNATURES).dftt_dwgn_bwd_f32_ctas_per_sm(plan.cc, plan.smem)
-    build.check(max(-n, 0), "f32_backward_ctas_per_sm")
+def f32_ctas_per_sm(plan: DwgnPlan) -> int:
+    """CTAs of the f32 forward or backward kernel (``plan.backward``) an
+    SM holds under ``plan`` (its registers and ``plan.smem``), from the
+    CUDA runtime's occupancy calculator; needs the card."""
+    lib = build.load("depthwise_gn", _SIGNATURES)
+    fn = lib.dftt_dwgn_bwd_f32_ctas_per_sm if plan.backward else lib.dftt_dwgn_fwd_f32_ctas_per_sm
+    n = fn(plan.cc, plan.smem)
+    build.check(max(-n, 0), "f32_ctas_per_sm")
     return n
 
 

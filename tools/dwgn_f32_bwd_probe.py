@@ -76,10 +76,21 @@ VARIANTS = {"source": (None, False), "blocks3": (_blocks(3), False),
             "no_recompute": (_no_recompute, True)}
 
 
-def _build(srcs, work, csrc=CSRC):
+def _ptxas(log):
+    """ptxas' registers and spills of the f32 backward kernel in ``log``."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            keep = "f32bwd" in line or "dwgn_bwd_kernelINS_3F32" in line
+        elif keep and ("registers" in line or "spill" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def _build(srcs, work, csrc=CSRC, log_filter=_ptxas):
     """One shared library a variant, all nvcc runs at once, with the
-    port's flags and the headers of ``csrc``; returns {name: (path, ptxas
-    lines of the f32 backward kernel)}."""
+    port's flags and the headers of ``csrc``; returns {name: (path,
+    ``log_filter`` of its log: ptxas lines of the f32 backward kernel)}."""
     from distriflow_tpu_torch.ops import build
 
     procs = {}
@@ -98,13 +109,7 @@ def _build(srcs, work, csrc=CSRC):
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        lines, keep = [], False
-        for line in log.splitlines():
-            if "Compiling entry" in line:
-                keep = "f32bwd" in line or "dwgn_bwd_kernelINS_3F32" in line
-            elif keep and ("registers" in line or "spill" in line):
-                lines.append(line.strip())
-        out[name] = (os.path.join(work, name, "k.so"), lines)
+        out[name] = (os.path.join(work, name, "k.so"), log_filter(log))
     return out
 
 
@@ -220,26 +225,30 @@ PHASES = ("x_wait", "pass1_loop", "pass1_sums", "g_wait", "pass2_loop", "pass2_s
 MAX_STAMP_CTAS = 65536
 
 
-def _stamped(src):
+def _stamped(src, namespace="f32bwd", stamps=STAMPS):
     """The source with thread 0 of every CTA writing clock64() at each of
-    :data:`STAMPS` into a device array, and a C entry that reads it."""
-    head, body = src.split("namespace f32bwd {")
-    for i, (anchor, before) in enumerate(STAMPS):
+    ``stamps`` (anchors in ``namespace``) into a device array, and a C
+    entry that reads it."""
+    head, body = src.split(f"namespace {namespace} {{")
+    body, tail = body.split(f"}}  // namespace {namespace}\n")
+    for i, (anchor, before) in enumerate(stamps):
         assert body.count(anchor) == 1, anchor
         stamp = f"STAMP({i});\n"
         body = body.replace(anchor, stamp + anchor if before else anchor + stamp)
-    return (head + f"""__device__ long long dftt_stamps[{MAX_STAMP_CTAS} * {len(STAMPS)}];
+    body += f"}}  // namespace {namespace}\n" + tail
+    n = len(stamps)
+    return (head + f"""__device__ long long dftt_stamps[{MAX_STAMP_CTAS} * {n}];
 #define STAMP(i)                                                                  \\
   if (threadIdx.x == 0) {{                                                         \\
     const long long bid = blockIdx.x + gridDim.x * (blockIdx.y + (long long)gridDim.y * blockIdx.z); \\
-    if (bid < {MAX_STAMP_CTAS}) dftt_stamps[bid * {len(STAMPS)} + (i)] = clock64();  \\
+    if (bid < {MAX_STAMP_CTAS}) dftt_stamps[bid * {n} + (i)] = clock64();  \\
   }}
 }}  // namespace
 extern "C" int dftt_read_stamps(long long* out, int n) {{
   return (int)cudaMemcpyFromSymbol(out, dftt_stamps, n * sizeof(long long));
 }}
 namespace {{
-namespace f32bwd {{""" + body)
+namespace {namespace} {{""" + body)
 
 
 def phases(work):
@@ -274,22 +283,22 @@ def phases(work):
     return out
 
 
-def sass(work, out_path):
-    """The kernel's SASS (its instance for chunks of 8 channels) from
-    ``cuobjdump -sass`` of a build of the source: its instructions by
-    opcode; the listing goes to ``out_path``."""
+def sass(work, out_path, namespace="f32bwd", instance="ILi8E", build_fn=None):
+    """The kernel's SASS (the ``instance`` of ``namespace``'s kernel: for
+    chunks of 8 channels) from ``cuobjdump -sass`` of a build of the
+    source: its instructions by opcode; the listing goes to ``out_path``."""
     import collections
 
     from distriflow_tpu_torch.ops import build
 
     with open(os.path.join(CSRC, "depthwise_gn.cu")) as f:
-        so, _ = _build({"sass": f.read()}, work)["sass"]
+        so, _ = (build_fn or _build)({"sass": f.read()}, work)["sass"]
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True).stdout
     body, keep = [], False
     for line in text.splitlines():
         if "Function :" in line:
-            keep = "f32bwd" in line and "ILi8E" in line  # the instance for chunks of 8
+            keep = namespace in line and instance in line
         elif keep:
             body.append(line)
     with open(out_path, "w") as f:
