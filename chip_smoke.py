@@ -9,10 +9,13 @@ after this checkout's (rows 11-12 in bf16 and in f32 at all 20 shapes,
 9d, 10d, 1, 6, 7 and 8 in f32, 6, 7 and 8 at D 32 and 64, kernel 1 at D
 32 at every shape a path gives it and at D 64 at the training shape,
 ``was_ms``; the f32 depthwise rows also ``now_ms``, this checkout's by
-the same function between the two), and path (b)'s and path (c)'s steps
-and the f32 MobileNet step with a profile (``path_b_step:``,
-``path_c_step:``, ``mobilenet_f32_step:``, this checkout's between the
-two).
+the same function between the two), its decode kernels (rows 2 and 3 at
+D 32 at their shapes, the speculative 1k leg's and the CLI's ``--serve``,
+and rows 2-5 at D 64 and on f32 caches beside them: ``decode_times:``,
+and rows 2-3 at D 32's ``was_ms``), and path (b)'s and path (c)'s steps,
+the f32 MobileNet step and one speculative round at 16k with a profile
+(``path_b_step:``, ``path_c_step:``, ``mobilenet_f32_step:``,
+``spec_16k_round:``, this checkout's between the two).
 
 1. Prints the card's name and power limit, builds the port's CUDA kernels
    from ``distriflow_tpu_torch/csrc`` (one ``nvcc`` per source, all six
@@ -272,7 +275,14 @@ two).
     32 only) is held against its plain path, and a ``draft_model="self"``
     leg on the flagship 2k config against solo ``generate()``, with
     acceptance at least ``SPEC_SELF_ACCEPT``. One round at each context is
-    profiled (``round_profile``).
+    profiled (``round_profile``, with the decode kernels' device ms).
+    Rows 2 and 3 at D 32 (one cluster launch, ``d32::decode_kernel``) also
+    give the same bits at every cluster size from 1 to
+    ``D32_CLUSTER_MAX`` (``by_cluster``, each timed), and on row 2 a
+    combine that skips the last rank's partials falls outside the limit
+    (``last_rank_fault_share``), paged decode at pages of 128 equals slab
+    decode bit for bit at the edges' contexts, and the card's clusters at
+    once are read (``clusters_at_once``).
 19. The roofline (``roofline:`` line): ``ops/roofline.py``'s projection
     of the ConvNet's B 2048 step and the 16k remat LM step from their
     ``cost_analysis`` (step 17 (e)), ``bound_by``, the projected step and
@@ -5735,10 +5745,16 @@ def _spec_serve(target, draft, prompts, counted, spec):
     return out, windows, sampled
 
 
+#: the decode kernels' names in a profile (``kernel_ms`` of a speculative
+#: round): the D 32 cluster kernel, or the split kernel and its combine
+DECODE_KERNEL_NAMES = {"decode": ("decode_kernel", "split_kernel", "combine_kernel")}
+
+
 def _profile_spec_round(target, draft, prompt, device="cuda"):
     """One speculative round (draft k, verify, commit) of the engine's
     ``SPEC_SLOTS`` slots with one live row at ``prompt``'s context, under
-    ``torch.profiler`` after a warm round (:func:`_profiled`)."""
+    ``torch.profiler`` after a warm round (:func:`_profiled`), with the
+    decode kernels' device ms (:data:`DECODE_KERNEL_NAMES`)."""
     from distriflow_tpu_torch.models.generate import (
         commit,
         draft_k,
@@ -5777,7 +5793,7 @@ def _profile_spec_round(target, draft, prompt, device="cuda"):
         state["tok"] = out[4].cpu().numpy()
 
     round_()  # warm
-    return _profiled(round_)
+    return _profiled(round_, DECODE_KERNEL_NAMES)
 
 
 def _spec_self_leg(model, reqs, solos, counted):
@@ -5900,7 +5916,12 @@ def _spec_kernel_rows(launches):
     S16288 (the draft's prefills), kernel 2 paged at the draft's contexts
     over the engine's 4 slots, kernel 3 (slab) at the draft's solo shape.
     Each row: the limit of its D 64 row, the same bits on a second launch,
-    decode rows' wrong-combine rejections, split sweep and edges."""
+    decode rows' wrong-combine rejections, split sweep and edges; the
+    decode rows (one cluster kernel, ``d32::decode_kernel``) also the same
+    bits at every cluster size (``by_cluster``), and row 2 a combine that
+    skips the last rank's partials rejected (``last_rank_fault_share``),
+    paged equal to slab bit for bit at pages of 128 over the edges'
+    contexts and the clusters the card holds at once (C 8 and 16)."""
     import torch.nn.functional as F
 
     from distriflow_tpu_torch.ops import flash_attention as fa
@@ -5976,6 +5997,7 @@ def _spec_kernel_rows(launches):
         return fd.flash_decode_paged_reference(q1, kp, vp, table, lens)
 
     live = sum(lens_l)
+    n_splits = -(-pp // fd.split_tiles(ps))
     tb, by = _bound(2 * live * h * d * 2 + 2 * bsz * h * d * 2 + table.numel() * 4 + bsz * 4,
                     4 * live * h * d, exps=live * h)
     rows.append({
@@ -5991,7 +6013,13 @@ def _spec_kernel_rows(launches):
         "shape": f"B={bsz} H={h} D={d} page={ps} contexts={lens_l}",
         "edges_max_abs_err": _decode_edges("flash_decode_paged", g, False, h=h, d=d),
         **_decode_checks("flash_decode_paged", paged, paged_plain,
-                         lambda: fd.split_partials(q1, kp, vp, lens, table), flush, 200)})
+                         lambda: fd.split_partials(q1, kp, vp, lens, table), flush, 200),
+        "by_cluster": _d32_clusters("flash_decode_paged D32", paged, flush),
+        "last_rank_fault_share": _last_rank_fault(
+            "flash_decode_paged", fd.split_partials(q1, kp, vp, lens, table), paged_plain(), n_splits),
+        "paged_equals_slab_contexts": _paged_equals_slab(g, h, d),
+        "clusters_at_once": {str(c): fd.build.load("flash_decode", fd._SIGNATURES)
+                             .dftt_flash_decode_d32_clusters(n_splits, c) for c in (8, 16)}})
 
     # slab: the draft's solo generate() (max_seq 16384) at its last step
     s_max, n = SPEC_CONTEXTS[1], SPEC_CONTEXTS[0] - SPEC_NEW + SPEC_DRAFT_SOLO_NEW
@@ -6016,8 +6044,152 @@ def _spec_kernel_rows(launches):
         "edges_max_abs_err": _decode_edges("flash_decode", g, False, h=h, d=d),
         **_decode_checks("flash_decode", lambda: fd.flash_decode(qs, ks, vs, n),
                          lambda: fd.flash_decode_reference(qs, ks, vs, n),
-                         lambda: fd.split_partials(qs, ks, vs, n), flush, 200)})
+                         lambda: fd.split_partials(qs, ks, vs, n), flush, 200),
+        "by_cluster": _d32_clusters("flash_decode D32", lambda: fd.flash_decode(qs, ks, vs, n), flush)})
     return rows
+
+
+def _d32_clusters(name, fn, flush):
+    """Kernel 2 or 3 at D 32 (row ``name``) at every cluster size from 1 to
+    ``fd.D32_CLUSTER_MAX``, forced through that constant as
+    :func:`_decode_checks` sweeps ``fd.SPLIT_TILES``: the same bits as at
+    the chosen size (asserted) and the median ms (``by_cluster``)."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    want = fn()
+    chosen, sweep = fd.D32_CLUSTER_MAX, {}
+    try:
+        c = 1
+        while c <= chosen:
+            fd.D32_CLUSTER_MAX = c
+            assert torch.equal(fn(), want), f"{name}: a cluster of {c} gave other bits"
+            sweep[str(c)] = {"same_bits": True, "ms": _timed(fn, 50, flush)}
+            c *= 2
+    finally:
+        fd.D32_CLUSTER_MAX = chosen
+    return sweep
+
+
+def _last_rank_fault(name, parts, want, n_splits):
+    """The share of elements outside ``name``'s limit around the plain
+    output ``want`` when the combine skips the last rank's partials
+    (splits i with i % C == C - 1, C = ``d32_cluster(n_splits)``), over
+    the rows with a live split there (the only ones it changes); raises if
+    no row has one."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    c = fd.d32_cluster(n_splits)
+    hit = torch.stack([lv for i, (*_, lv) in enumerate(parts) if i % c == c - 1]).any(0)
+    assert hit.any(), f"{name}: no row has a live split on rank {c - 1}"
+    skipped = [(m, li, a, lv & (i % c != c - 1)) for i, (m, li, a, lv) in enumerate(parts)]
+    share = _rejected(name, fd.combine_partials(skipped).to(want.dtype)[hit], want[hit])
+    assert share > 0.5, f"{name}: the limit passes a combine without rank {c - 1}: {share}"
+    return share
+
+
+def _paged_equals_slab(g, h, d):
+    """Kernel 2 on scattered pages of ``SLAB_TILE`` and kernel 3 on a slab
+    holding the same K and V give the same bits (asserted), at the edges'
+    contexts (:func:`_decode_edges`: 1, a split, a split + 1, 0, three
+    splits + 5, 700); returns the rows' contexts."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    ps = fd.SLAB_TILE
+    split = fd.split_tiles(ps) * ps
+    lens_l = [1, split, split + 1, 0, 3 * split + 5, 700]
+    b, pp = len(lens_l), -(-max(lens_l) // ps) + 2
+    k, v = (torch.randn(b, pp * ps, h * d, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    perm = torch.randperm(b * pp, generator=g, device=dev)
+    pool_k, pool_v = (torch.empty(b * pp, ps, h * d, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    pool_k[perm], pool_v[perm] = k.view(b * pp, ps, h * d), v.view(b * pp, ps, h * d)
+    table = perm.to(torch.int32).view(b, pp).contiguous()
+    q = torch.randn(b, h, d, generator=g, device=dev).to(torch.bfloat16)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    assert torch.equal(fd.flash_decode_paged(q, pool_k, pool_v, table, lens),
+                       fd.flash_decode(q, k, v, lens)), "paged decode at pages of 128 != slab decode"
+    return lens_l
+
+
+#: :func:`_decode_d32_times`' shapes: label -> (B, H, D, page or None for a
+#: slab, contexts, table width or slab positions, cache). Rows 2 and 3 at
+#: D 32; the speculative 1k leg's engine (4 slots near 1k, a 16k table);
+#: the CLI's ``--serve`` (B4 H8, a 512-position table, one live split a
+#: row); and, untouched by the D 32 kernel, rows 2-5 at D 64 and 2-3 on
+#: f32 caches at D 32.
+DECODE_TIMES = {
+    "row2_d32": (4, 4, 32, 128, [968, 16381, 700, 1], 128, "bf16"),
+    "row3_d32": (1, 4, 32, None, [944], 16384, "bf16"),
+    "spec_1k": (4, 4, 32, 128, [968, 990, 1010, 1024], 128, "bf16"),
+    "cli_serve": (4, 8, 32, 128, [40, 64, 80, 96], 4, "bf16"),
+    "row2_d64": (8, 8, 64, 128, [129, 300, 513, 1001, 193, 577, 1064, 128], 16, "bf16"),
+    "row3_d64": (1, 8, 64, None, [1064], 2048, "bf16"),
+    "row4_int8": (8, 8, 64, 128, [1088, 1088, 1088, 1088, 8256, 12064, 16064, 4224], 128, "int8"),
+    "row5_int8": (4, 8, 64, None, [8223] * 4, 16384, "int8"),
+    "row2_f32": (4, 8, 32, 128, [33, 64, 95, 300], 3, "f32"),
+    "row3_f32": (1, 8, 32, None, [512], 512, "f32"),
+}
+
+
+def _decode_d32_times():
+    """The decode kernels through this process's package (``[ms]`` by
+    :data:`DECODE_TIMES` label), what ``--parent`` runs on an older checkout
+    before and after this one's: the D 32 kernel at its four shapes and
+    the untouched instances beside it."""
+    from distriflow_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 64)
+    flush = _flush_buffer()
+    out = {}
+    for label, (b, h, d, ps, lens_l, width, cache) in DECODE_TIMES.items():
+        dt = torch.float32 if cache == "f32" else torch.bfloat16
+        q = torch.randn(b, h, d, generator=g, device=dev).to(dt)
+        if ps is None:
+            lead, table, lens = (b, width), None, torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        else:
+            n_pages = sum(-(-n // ps) for n in lens_l) + 4
+            table, lens = _paged_rows(g, lens_l, ps, n_pages, width)
+            lead = (n_pages, ps)
+        if cache == "int8":
+            kv = _int8_cache(g, lead, h, d)
+        else:
+            kv = tuple(torch.randn(*lead, h * d, generator=g, device=dev).to(dt) for _ in range(2))
+        fn = fd.flash_decode if ps is None else fd.flash_decode_paged
+        extra = (lens,) if ps is None else (table, lens)
+        if cache == "int8":
+            fn = fd.flash_decode_int8 if ps is None else fd.flash_decode_paged_int8
+        out[label] = [_timed(lambda: fn(q, *kv, *extra), 200, flush)]
+    return out
+
+
+def _with_decode_was(rows, was):
+    """Rows 2 and 3 at D 32 with ``was_ms``: the :func:`_decode_d32_times`
+    runs of an older checkout in ``was`` at the rows' shapes."""
+    at = {"flash_decode_paged_d32": "row2_d32", "flash_decode_d32": "row3_d32"}
+    for row in rows:
+        if row["name"] in at:
+            row["was_ms"] = [run[at[row["name"]]][0] for run in was] or "not measured"
+    return rows
+
+
+def _spec_round_16k():
+    """One speculative round at 16k context on this process's package
+    (:func:`_profile_spec_round`: the engine's 4 slots, one live), the
+    target and a draft of ``draft_config_for("lm_draft")`` from seeded
+    random weights: what ``--parent`` profiles on an older checkout before
+    and after this one's (``spec_16k_round:``)."""
+    from distriflow_tpu_torch.models.convert import lm_from_jax
+    from distriflow_tpu_torch.models.zoo import draft_config_for
+
+    rng = np.random.default_rng(SEED + 65)
+    cfg = _spec_config()
+    target = lm_from_jax(cfg, _flagship_tree(cfg, rng), device="cuda")
+    dcfg = draft_config_for("lm_draft", cfg)
+    draft = lm_from_jax(dcfg, _flagship_tree(dcfg, rng), device="cuda")
+    prompt = rng.integers(0, cfg.vocab_size, (1, SPEC_CONTEXTS[1] - SPEC_NEW)).astype(np.int32)
+    return _profile_spec_round(target, draft, prompt)
 
 
 # -- the serving fleet (step 20) ---------------------------------------------
@@ -8667,9 +8839,9 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--parent", help="an older checkout whose depthwise, dense CE and f32 "
-                                     "attention kernels, and whose LM path (b) and (c) and f32 "
-                                     "MobileNet steps, to time too")
+    ap.add_argument("--parent", help="an older checkout whose depthwise, dense CE, attention "
+                                     "and decode kernels, and whose LM path (b) and (c), f32 "
+                                     "MobileNet and speculative 16k steps, to time too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8973,12 +9145,22 @@ def main() -> int:
     rows += _with_ce_was(ce_rows, ce_was)
     floor = _launch_floor()
     spec_windows = ("spec_1k", "spec_16k")
-    rows += _spec_kernel_rows({
+    # an older checkout's decode kernels and speculative 16k round before
+    # and after this one's, by the same functions
+    decode_was = [_parent_times(args.parent, "_decode_d32_times")] if args.parent else []
+    round_was = [_parent_report(args.parent, "_spec_round_16k")] if args.parent else []
+    rows += _with_decode_was(_spec_kernel_rows({
         "flash_attention_fwd_d32": sum(spec_counts[w]["flash_attention_fwd_d32"]
                                        for w in spec_windows),
         "flash_decode_paged_d32": sum(spec_counts[w]["flash_decode_paged_d32"]
                                       for w in spec_windows),
-        "flash_decode_d32": spec_counts["draft_solo"]["flash_decode_d32"]})
+        "flash_decode_d32": spec_counts["draft_solo"]["flash_decode_d32"]}), decode_was)
+    if args.parent:
+        decode_now, round_now = _decode_d32_times(), _spec_round_16k()
+        decode_was.append(_parent_times(args.parent, "_decode_d32_times"))
+        round_was.append(_parent_report(args.parent, "_spec_round_16k"))
+        print("decode_times:", json.dumps({"now": decode_now, "was": decode_was}), flush=True)
+        print("spec_16k_round:", json.dumps({**round_now, "was": round_was}), flush=True)
     rows.append(_p64_kernel_row(fleet_counts["fleet_elastic"]["flash_decode_paged"]))
     # the mesh's TP and pipeline shapes, in the rows of the kernels they run
     tp_entries = _mesh_tp_entries()

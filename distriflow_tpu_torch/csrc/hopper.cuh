@@ -245,6 +245,20 @@ __device__ __forceinline__ double ld_cluster_f64(const double* p, uint32_t rank)
   return v;
 }
 
+// Four floats (16-byte aligned) from the shared memory of the CTA of rank
+// `rank`. No "memory" clobber, so that a thread's loads issue back to back
+// (a clobber would hold each behind the store of the one before); being
+// volatile, they stay after the cluster barrier that published the data.
+__device__ __forceinline__ float4 ld_cluster_f32x4(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote));
+  return v;
+}
+
 // wgmma shared-memory descriptors for a swizzled tile of kRow-byte rows
 // (128: the 128-byte swizzle, layout type 1; 64: the 64-byte swizzle,
 // layout type 2) whose base is aligned to its swizzle pattern (bits 0-13

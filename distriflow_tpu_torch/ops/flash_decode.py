@@ -59,6 +59,14 @@ in that order in f32; ``l`` sums the unscaled p; the PV operand is
 ``bf16(p * v_scale)`` against V int8 (exact as float), f32 accumulation;
 the output is ``acc / max(l, 1e-30)`` in q's dtype.
 
+bf16 at head dim 32 (the speculative draft's and the JAX LM CLI's) is
+one cluster launch of its own: the same splits, recurrence and combine,
+with a cluster of :func:`d32_cluster` CTAs a (row, head), each warp
+running one split at a time and rank 0 combining the partials through
+distributed shared memory, no scratch in device memory. A row of more
+than 967 x C splits (15,472 at C 16: about 3.9M positions at
+``SPLIT_TILES`` 2) is refused at launch.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
 """
@@ -85,6 +93,12 @@ MAX_TILE = 256  # largest page: the kernels keep a tile's scores in registers
 SUPPORTED_HEAD_DIMS = (32, 64)
 #: the head dims the int8 kernel is built for
 INT8_HEAD_DIMS = (64,)
+#: the largest cluster of the head-dim-32 bf16 kernel (:func:`d32_cluster`;
+#: a power of two, at most 16)
+D32_CLUSTER_MAX = 16
+#: warps a CTA of that kernel, each running one split at a time
+#: (``csrc/flash_decode.cu``: ``d32::kWarps``)
+D32_WARPS = 4
 
 # JAX's f32 decode gate (distriflow_tpu/ops/flash_decode.py:85-163, 445-455),
 # the port's own copy: the TPU tile model decides where JAX runs its kernel
@@ -100,6 +114,11 @@ _SIGNATURES = {
     "dftt_flash_decode_bf16": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_float, ctypes.c_void_p],
     "dftt_flash_decode_f32": [ctypes.c_void_p] * 7 + _INTS + [ctypes.c_float, ctypes.c_void_p],
     "dftt_flash_decode_int8": [ctypes.c_void_p] * 9 + _INTS + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, table, lens, out; B, H, T, n_tiles, S, n_pages, split_tiles,
+    # n_splits, the cluster, len_all; the scale, the stream
+    "dftt_flash_decode_d32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    + [ctypes.c_float, ctypes.c_void_p],
+    "dftt_flash_decode_d32_clusters": [ctypes.c_int] * 2,
 }
 
 
@@ -169,6 +188,19 @@ def split_tiles(tile: int) -> int:
     page of SLAB_TILE gives SPLIT_TILES; a smaller page more pages, so the
     partials of a row stay one per SPLIT_TILES x SLAB_TILE positions)."""
     return max(1, SPLIT_TILES * SLAB_TILE // tile)
+
+
+def d32_cluster(n_splits: int) -> int:
+    """CTAs in the cluster of one (row, head) of the head-dim-32 bf16
+    kernel: the least power of two at or above ``n_splits`` (a row's
+    splits, from the table width or the slab length: no length is read),
+    at most :data:`D32_CLUSTER_MAX`. Rank r of the cluster runs splits r,
+    r + C, ..., one a warp at a time, so a row takes at most
+    ceil(n_splits / (C * :data:`D32_WARPS`)) passes of its warps."""
+    c = 1
+    while c < min(n_splits, D32_CLUSTER_MAX):
+        c *= 2
+    return c
 
 
 def _row_lens(valid_len: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
@@ -364,11 +396,13 @@ def _check_slab(q, k, v, what):
 
 def _launch(q, k, v, scales, table, valid_len, tile, n_tiles, s, n_pages, what):
     """The bf16 or f32 kernels (``scales`` None, by q's dtype) or the int8
-    kernels (``scales`` = (k_scale, v_scale)): the split kernel over
-    ceil(n_tiles / :func:`split_tiles`) splits, then the combine, which reads the f32
-    partials ``[B, H, n_splits, D + 2]`` (never zeroed: only live splits
-    are written and read). An int ``valid_len`` is passed by value, a
-    tensor as the kernels' ``[B]`` int32 lengths."""
+    kernels (``scales`` = (k_scale, v_scale)) over ceil(n_tiles /
+    :func:`split_tiles`) splits. bf16 at head dim 32: one cluster launch of
+    :func:`d32_cluster` CTAs a (row, head), no scratch. Else the split
+    kernel, then the combine, which reads the f32 partials ``[B, H,
+    n_splits, D + 2]`` (never zeroed: only live splits are written and
+    read). An int ``valid_len`` is passed by value, a tensor as the
+    kernels' ``[B]`` int32 lengths."""
     b, h, d = q.shape
     if isinstance(valid_len, torch.Tensor):
         lens, len_all = _row_lens(valid_len, b, q.device), 0
@@ -377,9 +411,17 @@ def _launch(q, k, v, scales, table, valid_len, tile, n_tiles, s, n_pages, what):
     per_split = split_tiles(tile)
     n_splits = -(-n_tiles // per_split)
     out = torch.empty_like(q)
-    partial = torch.empty((b, h, n_splits, d + 2), dtype=torch.float32, device=q.device)
     lib = build.load("flash_decode", _SIGNATURES)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if scales is None and q.dtype == torch.bfloat16 and d == 32:
+        rc = lib.dftt_flash_decode_d32(*ptrs, None if table is None else table.data_ptr(),
+                                       None if lens is None else lens.data_ptr(), out.data_ptr(),
+                                       b, h, tile, n_tiles, s, n_pages, per_split, n_splits,
+                                       d32_cluster(n_splits), len_all, 1.0 / math.sqrt(d), stream)
+        build.check(rc, what)
+        return out
+    partial = torch.empty((b, h, n_splits, d + 2), dtype=torch.float32, device=q.device)
     if scales is None:
         fn = lib.dftt_flash_decode_f32 if q.dtype == torch.float32 else lib.dftt_flash_decode_bf16
     else:
@@ -388,8 +430,7 @@ def _launch(q, k, v, scales, table, valid_len, tile, n_tiles, s, n_pages, what):
     rc = fn(*ptrs, None if table is None else table.data_ptr(),
             None if lens is None else lens.data_ptr(),
             partial.data_ptr(), out.data_ptr(), b, h, d, tile,
-            n_tiles, s, n_pages, per_split, n_splits, len_all, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            n_tiles, s, n_pages, per_split, n_splits, len_all, 1.0 / math.sqrt(d), stream)
     build.check(rc, what)
     return out
 
